@@ -1,0 +1,23 @@
+"""Architecture registry: ``--arch <id>`` resolution (mamba2-130m so far)."""
+
+import importlib
+
+from .base import ModelConfig, SSMConfig, PCILTConfig
+
+_MODULES = {"mamba2-130m": "mamba2_130m"}
+
+ARCHS = tuple(_MODULES)
+
+
+def _mod(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str):
+    return _mod(name).config()
+
+
+def get_smoke_config(name: str):
+    return _mod(name).smoke_config()

@@ -1,0 +1,11 @@
+"""repro_torch.core — PCILT quantization, offsets, table builds and layers."""
+
+from .quantization import (QuantSpec, scale_from_amax, quantize,
+                           quantize_with_stats, dequantize, fake_quant,
+                           code_values)
+from .offsets import pack_offsets, unpack_offsets, offset_grid
+from .pcilt import (build_grouped_tables, SharedGroupedTables,
+                    build_shared_grouped_tables, table_checksum,
+                    stacked_checksums)
+from .lut_layers import (lut_lookup, pcilt_linear, build_dwconv_tables,
+                         pcilt_depthwise_conv1d)

@@ -1,0 +1,108 @@
+"""Device selection and the numpy <-> torch bridge.
+
+The bridge is how both packages compute on identical weights and tables: the
+JAX side hands its parameter tree and PCILT bundle over as numpy arrays (any
+object ``np.asarray`` accepts), and :func:`params_from_jax` /
+:func:`bundle_from_jax` rebuild them as tensors in the layout the port uses.
+bf16 arrays cross as raw 16-bit words, so bytes (and CRC-32 records) are
+preserved exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .core.quantization import QuantSpec
+
+__all__ = ["resolve_device", "to_torch", "to_numpy", "tree_map",
+           "params_from_jax", "bundle_from_jax"]
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on.  Never falls back to the CPU on
+    its own: asking for CUDA without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """One array -> a contiguous tensor on ``device`` (bf16 bit-preserving)."""
+    arr = np.ascontiguousarray(np.asarray(a))
+    if not arr.flags.writeable:  # e.g. a JAX array's host view
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> a host numpy array (bf16 as ``ml_dtypes.bfloat16``)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only callers that compare bf16 arrays need it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def tree_map(fn, tree):
+    """Map ``fn`` over the leaves of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def params_from_jax(np_tree, device="cuda") -> Dict[str, Any]:
+    """The JAX package's parameter tree (numpy leaves) as tensors."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: to_torch(a, dev), np_tree)
+
+
+def _host_scales(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def _spec(s) -> QuantSpec:
+    return QuantSpec(bits=int(s.bits), symmetric=bool(s.symmetric))
+
+
+def bundle_from_jax(np_bundle, device="cuda") -> Dict[str, Any]:
+    """A ``MambaLM.build_pcilt`` bundle of the JAX package as the port's
+    bundle: tables on ``device``, calibrated scales as host float32 (the
+    kernels take them by value), the conversion-time integrity record as is.
+    Only unpaired projection stacks exist in the port so far."""
+    dev = resolve_device(device)
+    b = np_bundle
+    out = {"tables": to_torch(b["tables"], dev),
+           "scale": float(np.float32(np.asarray(b["scale"]))),
+           "spec": _spec(b["spec"])}
+    proj = b.get("proj")
+    if proj is not None:
+        if proj.get("paired"):
+            raise ValueError("paired projection stacks are not ported yet")
+        out["proj"] = {
+            "tables": {k: to_torch(v, dev) for k, v in proj["tables"].items()},
+            "scales": {k: _host_scales(v) for k, v in proj["scales"].items()},
+            "spec": _spec(proj["spec"]), "group": int(proj["group"]),
+            "path": proj.get("path", "fused")}
+    head = b.get("head")
+    if head is not None:
+        out["head"] = {
+            "pool": to_torch(head["pool"], dev),
+            "seg_idx": to_torch(np.asarray(head["seg_idx"], np.int32), dev),
+            "group": int(head["group"]), "spec": _spec(head["spec"]),
+            "scale": float(np.float32(np.asarray(head["scale"]))),
+            "kernel_q": to_torch(head["kernel_q"], dev), "n": int(head["n"])}
+    if "integrity" in b:
+        out["integrity"] = tree_map(int, b["integrity"])
+    return out

@@ -1,0 +1,15 @@
+"""repro_torch.kernels — hand-written CUDA kernels for the PCILT hot path.
+
+* ``csrc/`` — the CUDA C++ sources for ``sm_90a``: the layer-stacked fused
+  GEMV, the fused depthwise conv1d and the shared-pool fused GEMV, each a
+  template over the table dtype (float32, bfloat16) and a counters flag;
+* ``build.py`` — ``nvcc`` into one shared library per source, loaded with
+  ``ctypes`` at first use;
+* ``ops.py`` — the wrappers (checks, launch, launch counts) and each
+  kernel's plain PyTorch version, which runs for CPU tensors;
+* ``ref.py`` — oracles of the fetch on host-packed offsets.
+"""
+
+from . import ops, ref  # noqa: F401
+
+__all__ = ["ops", "ref"]

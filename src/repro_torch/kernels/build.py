@@ -1,0 +1,119 @@
+"""Build and load the CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``.  Builds run
+at first use, one ``nvcc`` per source, all started together; a library is
+named by a hash of its sources and flags, so an edit rebuilds and an
+unchanged tree reuses what is built.  The build directory is
+``<repo>/build/kernels`` (listed in ``.gitignore``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "build_log"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: kernel name -> source file under csrc/
+SOURCES = {"gemv_stacked": "pcilt_gemv_stacked.cu",
+           "dwconv1d": "pcilt_dwconv1d.cu",
+           "shared_gemv": "pcilt_shared_gemv.cu"}
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+#: C entry point suffix -> argtypes (each entry exists as ``_f32``/``_bf16``)
+_SIGNATURES = {
+    "pcilt_gemv_stacked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                           _LL, _I, _P],
+    "pcilt_dwconv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                       _P],
+    "pcilt_shared_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                          _P],
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh") and (f.suffix == ".cuh"
+                                             or f.name == SOURCES[name]):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return BUILD_DIR / f"libpcilt_{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every kernel library that is not built yet, in parallel.
+    Returns the seconds spent; raises with the compiler's output on error."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in SOURCES.items():
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        _log[name] = text
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def build_log() -> Dict[str, str]:
+    """The compiler output (``-Xptxas -v``: registers, shared memory,
+    spills) of each library this process built."""
+    return dict(_log)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _SIGNATURES.items():
+            for dt in ("f32", "bf16"):
+                sym = getattr(lib, f"{fn}_{dt}", None)
+                if sym is not None:
+                    sym.argtypes = argtypes
+                    sym.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib

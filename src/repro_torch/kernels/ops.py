@@ -1,0 +1,255 @@
+"""Wrappers of the PCILT CUDA kernels, their launch counts and their plain
+PyTorch versions (port of the main-path part of ``repro.kernels.ops``).
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+
+* on CUDA tensors launches its kernel on ``torch.cuda.current_stream()``
+  (raising if the launch returns a CUDA error) and adds one to its count in
+  :data:`LAUNCHES`;
+* on CPU tensors, and only there, runs its plain version — the
+  gather-and-sum of the same formula (the counterpart of Pallas
+  ``interpret=True``).  There is no fallback from one to the other.
+
+Kernels take the activations in float32 and the scale as a host scalar, cast
+to the activations' dtype (float32) as the reference's ``_scale_2d`` does.
+Tables are used in place: no wrapper pads or transposes a table.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.offsets import pack_offsets
+from repro_torch.core.quantization import QuantSpec, quantize, quantize_with_stats
+from repro_torch.core.lut_layers import _dwconv_pads
+from . import build
+from .ref import pcilt_dwconv1d_ref, pcilt_gemv_ref
+
+__all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv_stacked",
+           "pcilt_fused_dwconv1d", "pcilt_shared_gemv", "gemv_stacked_plain",
+           "dwconv1d_plain", "shared_gemv_plain"]
+
+#: kernel name -> number of launches of its CUDA kernel in this process
+LAUNCHES: Dict[str, int] = {name: 0 for name in build.SOURCES}
+
+_TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU; False when all lie on one
+    CUDA device; raises for anything else."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def _check_launch(name: str, x: torch.Tensor, table: torch.Tensor,
+                  *others: torch.Tensor) -> str:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: activations must be float32, got {x.dtype}")
+    if table.dtype not in _TABLE_DTYPES:
+        raise TypeError(f"{name}: tables must be float32 or bfloat16, got "
+                        f"{table.dtype}")
+    for t in (x, table, *others):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous "
+                             f"(got strides {t.stride()} for shape "
+                             f"{tuple(t.shape)})")
+    return _TABLE_DTYPES[table.dtype]
+
+
+def _host_scale(scale) -> float:
+    """The per-tensor scale as a float32 host scalar."""
+    s = np.asarray(scale.detach().cpu() if torch.is_tensor(scale) else scale,
+                   np.float32)
+    if s.size != 1:
+        raise ValueError(f"fused kernels take a per-tensor (scalar) scale, "
+                         f"got shape {s.shape}")
+    return float(s.reshape(()))
+
+
+def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _stats_out(stats: torch.Tensor):
+    return stats[0], stats[1:].view(torch.float32)[0]
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+# ----------------------------------------------------------------------------
+# Layer-stacked fused GEMV
+# ----------------------------------------------------------------------------
+
+
+def gemv_stacked_plain(x, tables, layer, spec: QuantSpec, scale, group: int,
+                       with_stats: bool = False):
+    """Plain version of the stacked kernel: quantize, pack, gather the rows
+    of ``tables[layer]`` and sum them in float32."""
+    s = torch.as_tensor(_host_scale(scale), dtype=x.dtype, device=x.device)
+    codes, count, ratio = quantize_with_stats(x, spec, s)
+    out = pcilt_gemv_ref(pack_offsets(codes, spec.bits, group), tables[layer])
+    return (out, count, ratio) if with_stats else out
+
+
+def pcilt_fused_gemv_stacked(x: torch.Tensor, tables: torch.Tensor, layer: int,
+                             spec: QuantSpec, scale, group: int,
+                             with_stats: bool = False):
+    """x ``[B, n]`` float32, tables ``[L, G, V, O]`` (``n == G * group``),
+    ``layer`` a host int -> ``[B, O]`` in the table dtype; with
+    ``with_stats`` also the int32 saturation count and float32
+    ``max|x|/scale`` (0-d tensors on the device)."""
+    B, n = x.shape
+    L, G, V, O = tables.shape
+    if n != G * group:
+        raise ValueError(f"x trailing dim {n} != G*group = {G}*{group} "
+                         f"(x {tuple(x.shape)}, tables {tuple(tables.shape)})")
+    if V != 1 << (spec.bits * group):
+        raise ValueError(f"tables value axis {V} != 2**(bits*group) = "
+                         f"{1 << (spec.bits * group)}")
+    layer = int(layer)
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} outside the stack of {L}")
+    if B < 1:
+        raise ValueError("empty batch")
+    if _on_cpu(x, tables):
+        return gemv_stacked_plain(x, tables, layer, spec, scale, group,
+                                  with_stats)
+    dt = _check_launch("pcilt_fused_gemv_stacked", x, tables)
+    if B * G * 4 > 227 * 1024:
+        raise ValueError(f"B*G = {B * G} offsets exceed the shared memory "
+                         f"of one block")
+    out = torch.empty((B, O), dtype=tables.dtype, device=x.device)
+    stats = torch.zeros(2, dtype=torch.int32, device=x.device) \
+        if with_stats else None
+    fn = getattr(build.library("gemv_stacked"), f"pcilt_gemv_stacked_{dt}")
+    _launch("gemv_stacked", fn, x, _ptr(x), _ptr(tables), _ptr(out),
+            _ptr(stats), B, G, V, O, group, spec.bits, spec.zero_point,
+            _host_scale(scale), layer, int(with_stats))
+    return (out, *_stats_out(stats)) if with_stats else out
+
+
+# ----------------------------------------------------------------------------
+# Fused depthwise conv1d
+# ----------------------------------------------------------------------------
+
+
+def dwconv1d_plain(xp, tables, spec: QuantSpec, scale, k: int,
+                   with_stats: bool = False):
+    """Plain version of the dwconv kernel over the time-padded signal."""
+    s = torch.as_tensor(_host_scale(scale), dtype=xp.dtype, device=xp.device)
+    codes, count, ratio = quantize_with_stats(xp, spec, s)
+    To = xp.shape[1] - k + 1
+    c = codes.to(torch.int32)
+    off = sum(c[:, j:j + To] << (j * spec.bits) for j in range(k))
+    out = pcilt_dwconv1d_ref(off, tables)
+    return (out, count, ratio) if with_stats else out
+
+
+def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
+                         spec: QuantSpec, scale, k: int,
+                         padding: str = "CAUSAL", with_stats: bool = False):
+    """x ``[B, T, C]`` float32, tables ``[C, V]`` (``V = 2**(bits*k)``)
+    -> ``[B, To, C]`` in the table dtype (plus the saturation stats of the
+    signal with ``with_stats``).  The only host-side work is the time pad
+    of the signal (none for ``"VALID"``)."""
+    B, T, C = x.shape
+    C2, V = tables.shape
+    if C != C2:
+        raise ValueError(f"x channel dim {C} != tables channel dim {C2} "
+                         f"(x {tuple(x.shape)}, tables {tuple(tables.shape)})")
+    if V != 1 << (spec.bits * k):
+        raise ValueError(f"tables value axis {V} != 2**(bits*k) = "
+                         f"{1 << (spec.bits * k)}")
+    lo, hi = _dwconv_pads(k, padding)
+    xp = F.pad(x, (0, 0, lo, hi)) if lo or hi else x
+    Tp = xp.shape[1]
+    if Tp < k or B < 1:
+        raise ValueError(f"signal of {T} steps is too short for {k} taps "
+                         f"with padding {padding!r}")
+    if _on_cpu(xp, tables):
+        return dwconv1d_plain(xp, tables, spec, scale, k, with_stats)
+    dt = _check_launch("pcilt_fused_dwconv1d", xp, tables)
+    out = torch.empty((B, Tp - k + 1, C), dtype=tables.dtype, device=x.device)
+    stats = torch.zeros(2, dtype=torch.int32, device=x.device) \
+        if with_stats else None
+    fn = getattr(build.library("dwconv1d"), f"pcilt_dwconv1d_{dt}")
+    _launch("dwconv1d", fn, xp, _ptr(xp), _ptr(tables), _ptr(out),
+            _ptr(stats), B, Tp, C, V, k, spec.bits, spec.zero_point,
+            _host_scale(scale), int(with_stats))
+    return (out, *_stats_out(stats)) if with_stats else out
+
+
+# ----------------------------------------------------------------------------
+# Shared-pool fused GEMV
+# ----------------------------------------------------------------------------
+
+
+def shared_gemv_plain(x, pool, seg_idx, spec: QuantSpec, scale, group: int):
+    """Plain version of the shared-pool kernel; a pointer outside
+    ``[0, X)`` contributes nothing."""
+    s = torch.as_tensor(_host_scale(scale), dtype=x.dtype, device=x.device)
+    off = pack_offsets(quantize(x, spec, s), spec.bits, group).long()
+    X = pool.shape[0]
+    idx = seg_idx.long()
+    valid = (idx >= 0) & (idx < X)
+    picked = pool[idx.clamp(0, X - 1), off].float()  # [B, G, O]
+    picked = torch.where(valid[:, None], picked, torch.zeros((), device=x.device))
+    return picked.sum(1).to(pool.dtype)
+
+
+def pcilt_shared_gemv(x: torch.Tensor, pool: torch.Tensor,
+                      seg_idx: torch.Tensor, spec: QuantSpec, scale,
+                      group: int) -> torch.Tensor:
+    """x ``[B, n]`` float32, pool ``[X, V, O]``, seg_idx ``[G]`` int32
+    (``n == G * group``) -> ``[B, O]`` in the pool dtype."""
+    B, n = x.shape
+    X, V, O = pool.shape
+    G = int(seg_idx.shape[-1])
+    if seg_idx.dim() != 1 or seg_idx.dtype != torch.int32:
+        raise TypeError(f"seg_idx must be a 1-d int32 tensor, got "
+                        f"{seg_idx.dtype} {tuple(seg_idx.shape)}")
+    if n != G * group:
+        raise ValueError(f"x trailing dim {n} != G*group = {G}*{group} "
+                         f"(x {tuple(x.shape)}, seg_idx {tuple(seg_idx.shape)})")
+    if V != 1 << (spec.bits * group):
+        raise ValueError(f"pool value axis {V} != 2**(bits*group) = "
+                         f"{1 << (spec.bits * group)}")
+    if B < 1:
+        raise ValueError("empty batch")
+    if _on_cpu(x, pool, seg_idx):
+        return shared_gemv_plain(x, pool, seg_idx, spec, scale, group)
+    dt = _check_launch("pcilt_shared_gemv", x, pool, seg_idx)
+    if B * G * 4 > 227 * 1024:
+        raise ValueError(f"B*G = {B * G} offsets exceed the shared memory "
+                         f"of one block")
+    out = torch.empty((B, O), dtype=pool.dtype, device=x.device)
+    fn = getattr(build.library("shared_gemv"), f"pcilt_shared_gemv_{dt}")
+    _launch("shared_gemv", fn, x, _ptr(x), _ptr(seg_idx), _ptr(pool),
+            _ptr(out), B, G, X, V, O, group, spec.bits, spec.zero_point,
+            _host_scale(scale))
+    return out

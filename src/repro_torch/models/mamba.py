@@ -1,0 +1,265 @@
+"""Mamba2 language model (port of ``repro.models.mamba``).
+
+Pre-norm residual Mamba2 blocks over a tied embedding.  The layer stack is
+stored stacked (``[L, ...]`` per parameter, as the reference scans it) and
+:meth:`MambaLM.decode_step` walks it with a Python loop, handing each layer
+views of its parameters and its index into the PCILT stacks — never a copy.
+
+PCILT bundle (``build_pcilt``): conv tables ``[L, C, V]``, one
+``[L, G, V, O]`` stack per projection with host float32 scales ``[L]``, and
+the shared-pool logits head; tables are built one layer (or a few pool rows)
+at a time into preallocated stacks, so peak memory stays close to the
+tables themselves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import (QuantSpec, SharedGroupedTables,
+                              build_dwconv_tables, build_grouped_tables,
+                              build_shared_grouped_tables, fake_quant,
+                              pcilt_linear, scale_from_amax)
+from repro_torch.nn.layers import embed, embed_spec, rmsnorm, rmsnorm_spec
+from repro_torch.nn.module import ParamSpec, stack_specs
+from repro_torch.nn.ssm import (PROJ_NAMES, mamba_block, mamba_decode,
+                                mamba_spec, ssm_cache_specs)
+
+__all__ = ["MambaLM", "layer_view", "HEAD_WEIGHT_BITS"]
+
+#: weight bits of the quantized logits head (the reference's default)
+HEAD_WEIGHT_BITS = 4
+
+
+def layer_view(tree, l: int):
+    """Layer ``l`` of a stacked parameter tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_view(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+@dataclasses.dataclass
+class MambaLM:
+    cfg: Any
+
+    def param_specs(self):
+        cfg = self.cfg
+        block = {"ln": rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+                 "mixer": mamba_spec(cfg, cfg.param_dtype)}
+        p = {"embed": embed_spec(cfg.padded_vocab, cfg.d_model,
+                                 cfg.param_dtype),
+             "blocks": stack_specs(block, cfg.n_layers),
+             "ln_f": rmsnorm_spec(cfg.d_model, cfg.param_dtype)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = {"kernel": ParamSpec(
+                (cfg.d_model, cfg.padded_vocab), cfg.param_dtype, "fan_in")}
+        return p
+
+    def cache_specs(self, batch: int):
+        """Decode cache: per-layer ``conv``/``ssd`` state (``pos`` is kept
+        as a host int by the caller)."""
+        return {"layers": ssm_cache_specs(self.cfg, batch, self.cfg.n_layers)}
+
+    def _head_kernel(self, params) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return params["embed"]["embedding"].float().T  # [d, Vp]
+        return params["lm_head"]["kernel"].float()
+
+    def _logits(self, params, x):
+        return x @ self._head_kernel(params).to(self.cfg.dtype)
+
+    # -- calibration and the PCILT build ------------------------------------
+
+    def calibrate_pcilt(self, params, tokens: torch.Tensor):
+        """One full-sequence pass over calibration tokens ``[B, S]``
+        capturing the per-layer absmax of every activation the PCILT decode
+        quantizes: ``{"in": [L], "out": [L], "conv_in": [], "head_in": []}``
+        (float32)."""
+        cfg = self.cfg
+        h = embed(params["embed"], tokens, cfg.dtype)
+        ins, outs, convs = [], [], []
+        for l in range(cfg.n_layers):
+            p = layer_view(params["blocks"], l)
+            xn = rmsnorm(p["ln"], h, cfg.norm_eps)
+            y, calib = mamba_block(p["mixer"], cfg, xn, return_calib=True)
+            ins.append(xn.abs().max().float())
+            outs.append(calib["wo_in"])
+            convs.append(calib["conv_in"])
+            h = h + y
+        head_in = rmsnorm(params["ln_f"], h, cfg.norm_eps).abs().max().float()
+        return {"in": torch.stack(ins), "out": torch.stack(outs),
+                "conv_in": torch.stack(convs).max(), "head_in": head_in}
+
+    def build_pcilt(self, params, scale, proj_scales=None,
+                    table_dtype=torch.float32, head_scale=None,
+                    record_integrity: bool = True):
+        """Offline PCILT build for the decode loop (requires ``cfg.pcilt``).
+
+        ``scale`` is the conv input's float32 scale; ``proj_scales``
+        ``{"in": [L], "out": [L]}`` adds a stacked ``[L, G, V, O]`` table
+        per projection (``table_dtype`` float32 or bfloat16, built in
+        float32 and cast once, fetched by the ``"fused"`` path; a caller may
+        set the bundle's ``"path"`` to ``"dense_fq"`` for the oracle);
+        ``head_scale`` adds the shared-pool head.
+        The bundle carries its conversion-time CRC-32 record unless
+        ``record_integrity`` is False (the caller then records it)."""
+        from repro_torch.core.serving import pcilt_integrity
+
+        cfg = self.cfg
+        if cfg.pcilt is None:
+            raise ValueError(
+                "MambaLM.build_pcilt requires cfg.pcilt (a configs.base."
+                "PCILTConfig supplying act_bits/group for the table build)")
+        spec = QuantSpec(bits=cfg.pcilt.act_bits, symmetric=True)
+        conv_w = params["blocks"]["mixer"]["conv_w"]  # [L, k, C]
+        L, k, C = conv_w.shape
+        scale = _f32(scale)
+        tables = torch.empty((L, C, 1 << (spec.bits * k)), dtype=torch.float32,
+                             device=conv_w.device)
+        for l in range(L):
+            tables[l] = build_dwconv_tables(conv_w[l], spec, scale)
+        out = {"tables": tables, "scale": scale, "spec": spec}
+        if proj_scales is not None:
+            out["proj"] = self._build_proj_pcilt(params, spec, proj_scales,
+                                                 table_dtype)
+        if head_scale is not None:
+            out["head"] = self._build_head_pcilt(params, _f32(head_scale))
+        if record_integrity:
+            out["integrity"] = pcilt_integrity(out)
+        return out
+
+    def _build_proj_pcilt(self, params, spec, proj_scales, table_dtype):
+        group = self.cfg.pcilt.group
+        tabs, scales = {}, {}
+        for name in PROJ_NAMES:
+            ks = params["blocks"]["mixer"][name]["kernel"]  # [L, n, O]
+            s = proj_scales["out" if name == "wo" else "in"]
+            s_l = s.detach().cpu().float() if torch.is_tensor(s) else \
+                torch.tensor(np.asarray(s, np.float32))
+            L, n, O = ks.shape
+            pad_n = (-n) % group
+            G = (n + pad_n) // group
+            stack = torch.empty((L, G, 1 << (spec.bits * group), O),
+                                dtype=table_dtype, device=ks.device)
+            for l in range(L):
+                wf = ks[l].float()
+                if pad_n:  # group-alignment slots from zero weights
+                    wf = torch.cat([wf, wf.new_zeros((pad_n, O))], 0)
+                stack[l] = build_grouped_tables(wf, spec, float(s_l[l]), group)
+            tabs[name] = stack
+            scales[name] = s_l
+        return {"tables": tabs, "scales": scales, "spec": spec,
+                "group": group, "path": "fused"}
+
+    def _build_head_pcilt(self, params, head_scale: float):
+        """Shared-pool PCILT over the logits head, its weights quantized to
+        ``HEAD_WEIGHT_BITS`` (so segments can repeat and dedupe); the
+        quantized kernel rides along as the head's dense oracle."""
+        cfg = self.cfg
+        group = cfg.pcilt.group
+        k = self._head_kernel(params)
+        wspec = QuantSpec(bits=HEAD_WEIGHT_BITS, symmetric=True)
+        w_scale = scale_from_amax(k.abs().max(), wspec)
+        kq = fake_quant(k, wspec, w_scale)
+        n = kq.shape[0]
+        pad = (-n) % group
+        kp = torch.cat([kq, kq.new_zeros((pad, kq.shape[1]))], 0) if pad else kq
+        spec = QuantSpec(bits=cfg.pcilt.act_bits, symmetric=True)
+        shared = build_shared_grouped_tables(kp, spec, head_scale, group)
+        return {"pool": shared.pool, "seg_idx": shared.seg_idx,
+                "group": group, "spec": spec, "scale": head_scale,
+                "kernel_q": kq, "n": n + pad}
+
+    # -- decode -------------------------------------------------------------
+
+    def _head_logits(self, head, x, ok: bool = True):
+        """Last-position logits ``[B, d] -> [B, Vp]`` through the shared-pool
+        head, or its dense fake-quant oracle when ``ok`` is False."""
+        cfg = self.cfg
+        if not ok:
+            xq = fake_quant(x.float(), head["spec"], head["scale"])
+            return (xq @ head["kernel_q"]).to(cfg.dtype)
+        pad = head["n"] - x.shape[-1]
+        xx = x.float()
+        if pad:  # group-alignment slots (zero weights -> zero tables)
+            xx = torch.cat([xx, xx.new_zeros((*xx.shape[:-1], pad))], -1)
+        shared = SharedGroupedTables(pool=head["pool"], seg_idx=head["seg_idx"],
+                                     group=head["group"])
+        return pcilt_linear(xx, shared, head["spec"], head["scale"],
+                            head["group"], path="shared").to(cfg.dtype)
+
+    def decode_step(self, params, cache, tokens: torch.Tensor, pcilt=None,
+                    layer_ok: Optional[Sequence[bool]] = None,
+                    head_ok: Optional[bool] = None, with_stats: bool = False):
+        """One decode step: tokens ``[B, 1]`` -> ``(logits [B, Vp],
+        new_cache)``, plus the per-layer saturation stats
+        ``{"in"|"conv"|"out": {"count" [L] int32, "ratio" [L] float32}}``
+        with ``with_stats``.
+
+        ``layer_ok`` (``L`` host bools) and ``head_ok`` (host bool) demote a
+        layer's fetches, or the head's, to their dense fake-quant oracles;
+        all-healthy runs exactly the unmasked computation."""
+        cfg = self.cfg
+        if pcilt is None and (layer_ok is not None or head_ok is not None
+                              or with_stats):
+            raise ValueError("layer_ok/head_ok/with_stats concern PCILT "
+                             "fetches; they require a pcilt bundle")
+        x = embed(params["embed"], tokens, cfg.dtype)
+        proj = None if pcilt is None else pcilt.get("proj")
+        if proj is not None:  # host float32 scales -> python floats, once
+            scales = {k: v.tolist() for k, v in proj["scales"].items()}
+        convs, ssds = [], []
+        sat = {g: ([], []) for g in ("in", "conv", "out")}
+        for l in range(cfg.n_layers):
+            p = layer_view(params["blocks"], l)
+            st = {"conv": cache["layers"]["conv"][l],
+                  "ssd": cache["layers"]["ssd"][l]}
+            pc = None
+            if pcilt is not None:
+                ok = True if layer_ok is None else bool(layer_ok[l])
+                pc = {"tables": pcilt["tables"][l], "scale": pcilt["scale"],
+                      "spec": pcilt["spec"], "ok": ok}
+                if proj is not None:
+                    pc["proj"] = {
+                        "tables": proj["tables"], "spec": proj["spec"],
+                        "group": proj["group"], "path": proj["path"],
+                        "layer": l, "ok": ok,
+                        "scale": {k: v[l] for k, v in scales.items()}}
+            res = mamba_decode(p["mixer"], cfg,
+                               rmsnorm(p["ln"], x, cfg.norm_eps), st,
+                               pcilt=pc, with_stats=with_stats)
+            if with_stats:
+                y, st2, stats = res
+                for g, (count, ratio) in stats.items():
+                    sat[g][0].append(count)
+                    sat[g][1].append(ratio)
+            else:
+                y, st2 = res
+            x = x + y
+            convs.append(st2["conv"])
+            ssds.append(st2["ssd"])
+        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        head = None if pcilt is None else pcilt.get("head")
+        if head is None:
+            logits = self._logits(params, x)[:, -1]
+        else:
+            logits = self._head_logits(head, x[:, -1],
+                                       True if head_ok is None else head_ok)
+        new_cache = dict(cache, layers={"conv": torch.stack(convs),
+                                        "ssd": torch.stack(ssds)})
+        if with_stats:
+            stats = {g: {"count": torch.stack(c), "ratio": torch.stack(r)}
+                     for g, (c, r) in sat.items()}
+            return logits, new_cache, stats
+        return logits, new_cache
+
+
+def _f32(v) -> float:
+    """A scale as the float32 value the kernels take, held as a host float."""
+    if torch.is_tensor(v):
+        v = v.detach().cpu().numpy()
+    return float(np.float32(np.asarray(v)))
