@@ -4,12 +4,22 @@ Paths of :func:`pcilt_linear`:
 
 * ``"gather"`` — the literal algorithm: quantize, pack offsets, gather the
   table rows and sum them (the reference semantics);
+* ``"onehot"`` — the same fetch as ``onehot(off) @ T`` (the reference's
+  matmul form of the lookup);
+* ``"kernel"`` — host-packed offsets through the host-packed GEMV kernel
+  (``kernels.ops.pcilt_gemv``), the baseline the fused paths replace;
 * ``"fused"`` with ``stacked=layer`` — the layer-stacked fused GEMV kernel
   over ``[L, G, V, O]`` tables (``kernels.ops.pcilt_fused_gemv_stacked``);
   the layer is selected by pointer arithmetic, never copied;
 * ``"shared"`` — the shared-pool fused GEMV over a
   :class:`~repro_torch.core.pcilt.SharedGroupedTables`
   (``kernels.ops.pcilt_shared_gemv``).
+
+:func:`pcilt_conv2d` reduces the convolution to the linear case by
+``im2col`` (patches flattened ``[kh, kw, C]``) on the host-packed paths;
+``"fused"`` and ``"shared"`` run the conv kernels, which quantize, im2col
+and pack inside the kernel from the spatially padded float image.  Only the
+unsharded branches are ported.
 
 The depthwise conv1d maps the ``k`` taps of a channel onto one segment, so
 one fetch of ``T[c, pack(codes)]`` is one output (``path="fused"`` runs
@@ -20,24 +30,61 @@ routes reduce them in the kernel, the others on the side.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .quantization import QuantSpec, code_values, quantize, quantize_with_stats
 from .offsets import offset_grid, pack_offsets
-from .pcilt import SharedGroupedTables
+from .pcilt import (SharedGroupedTables, build_grouped_tables,
+                    build_shared_grouped_tables)
 
-__all__ = ["lut_lookup", "pcilt_linear", "build_dwconv_tables",
-           "pcilt_depthwise_conv1d"]
+__all__ = ["conv_same_pads", "lut_lookup", "pcilt_linear", "im2col",
+           "conv_offsets", "pcilt_conv2d", "build_dwconv_tables", "pcilt_depthwise_conv1d"]
 
 
-def lut_lookup(tables: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=4096)
+def conv_same_pads(h: int, w: int, kh: int, kw: int, stride: int = 1):
+    """XLA's "SAME" pads for NHWC, as ``lax.conv_general_dilated`` takes
+    them: output extent ``ceil(size / stride)``, ``pad_total = (out - 1) *
+    stride + k - size`` split low side first as ``pad_total // 2``.  Not
+    PyTorch's ``padding="same"``, which ignores the stride."""
+    def axis(size: int, k: int):
+        out = -(-size // stride)
+        total = max((out - 1) * stride + k - size, 0)
+        return (total // 2, total - total // 2)
+
+    return ((0, 0), axis(h, kh), axis(w, kw), (0, 0))
+
+
+def pad_nhwc(x: torch.Tensor, pads) -> torch.Tensor:
+    """Zero-pad an NHWC tensor by ``conv_same_pads``-style pairs."""
+    (_, _), (hl, hh), (wl, wh), (_, _) = pads
+    if not (hl or hh or wl or wh):
+        return x
+    return F.pad(x, (0, 0, wl, wh, hl, hh))
+
+
+def lut_lookup(tables: torch.Tensor, offsets: torch.Tensor,
+               path: str = "gather") -> torch.Tensor:
     """Fetch-and-sum ``sum_s T[s, off[..., s], :]``: tables ``[G, V, O]``,
-    offsets ``[..., G]`` -> ``[..., O]``."""
-    G = tables.shape[0]
-    seg = torch.arange(G, device=tables.device)
-    return tables[seg, offsets.long()].sum(-2)
+    offsets ``[..., G]`` -> ``[..., O]``; ``path`` gather | onehot |
+    kernel."""
+    G, V, O = tables.shape
+    if path == "gather":
+        seg = torch.arange(G, device=tables.device)
+        return tables[seg, offsets.long()].sum(-2)
+    if path == "onehot":
+        oh = F.one_hot(offsets.long(), V).to(tables.dtype)  # [..., G, V]
+        return torch.einsum("...gv,gvo->...o", oh, tables)
+    if path == "kernel":
+        from repro_torch.kernels import ops
+
+        flat = offsets.reshape(-1, G).to(torch.int32).contiguous()
+        return ops.pcilt_gemv(flat, tables).reshape(*offsets.shape[:-1], O)
+    raise ValueError(f"unknown path {path!r}")
 
 
 def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
@@ -83,10 +130,13 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
             _, count, ratio = quantize_with_stats(x, spec, scale)
             return out, count, ratio
         return out
-    if path != "gather":
+    if path not in ("gather", "onehot", "kernel"):
         raise ValueError(
-            f"path {path!r} is not ported: the port runs 'gather', 'shared' "
-            f"and 'fused' with stacked=")
+            f"path {path!r} is not ported: the port runs 'gather', 'onehot', "
+            f"'kernel', 'shared' and 'fused' with stacked=")
+    if isinstance(tables, SharedGroupedTables) and path != "gather":
+        raise ValueError(f"SharedGroupedTables executes path='shared' or "
+                         f"'gather', not {path!r}")
     if return_stats:
         codes, count, ratio = quantize_with_stats(x, spec, scale)
     else:
@@ -95,10 +145,113 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
     if isinstance(tables, SharedGroupedTables):
         out = tables.lookup(offsets)
     else:
-        out = lut_lookup(tables, offsets)
+        out = lut_lookup(tables, offsets, path)
     if return_stats:
         return out, count, ratio
     return out
+
+
+def _conv_pads(x: torch.Tensor, kh: int, kw: int, stride: int,
+               padding: str):
+    if padding == "SAME":
+        return conv_same_pads(x.shape[1], x.shape[2], kh, kw, stride)
+    if padding == "VALID":
+        return ((0, 0),) * 4
+    raise ValueError(f"padding must be SAME|VALID, got {padding!r}")
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """NHWC ``[B, H, W, C] -> [B, Ho, Wo, kh*kw*C]`` patches, flattened
+    ``[kh, kw, C]`` (the filter flattening of :func:`pcilt_conv2d`); SAME
+    pads the float signal with 0.0 by :func:`conv_same_pads`."""
+    xp = pad_nhwc(x, _conv_pads(x, kh, kw, stride, padding))
+    B, H, W, C = xp.shape
+    Ho = (H - kh) // stride + 1
+    Wo = (W - kw) // stride + 1
+    cols = [xp[:, i:i + (Ho - 1) * stride + 1:stride,
+               j:j + (Wo - 1) * stride + 1:stride, :]
+            for i in range(kh) for j in range(kw)]
+    return torch.cat(cols, dim=-1).reshape(B, Ho, Wo, kh * kw * C)
+
+
+def flatten_filters(filters: torch.Tensor, group: int) -> torch.Tensor:
+    """``[kh, kw, Cin, Cout]`` -> ``[n + pad, Cout]`` with ``pad`` zero rows
+    aligning the reduction length to ``group``."""
+    kh, kw, cin, cout = filters.shape
+    n = kh * kw * cin
+    wflat = filters.reshape(n, cout)
+    pad = (-n) % group
+    if pad:
+        wflat = torch.cat([wflat, wflat.new_zeros((pad, cout))], 0)
+    return wflat
+
+
+def conv_offsets(x: torch.Tensor, spec: QuantSpec, scale, group: int,
+                 kh: int, kw: int, stride: int = 1,
+                 padding: str = "SAME") -> torch.Tensor:
+    """The host-packed conv's activation side: im2col the float image,
+    quantize, give the group-alignment slots code 0 (as the conv kernels
+    do; they meet zero-weight table rows) and pack -> ``[B, Ho, Wo, G]``
+    int32 offsets."""
+    codes = quantize(im2col(x, kh, kw, stride, padding), spec, scale)
+    pad_n = (-codes.shape[-1]) % group
+    if pad_n:
+        codes = F.pad(codes, (0, pad_n))
+    return pack_offsets(codes, spec.bits, group)
+
+
+def pcilt_conv2d(x: torch.Tensor, filters: torch.Tensor, spec: QuantSpec,
+                 scale, group: int, stride: int = 1, padding: str = "SAME",
+                 tables=None, path: str = "gather") -> torch.Tensor:
+    """PCILT convolution, NHWC ``[B, H, W, Cin] -> [B, Ho, Wo, Cout]``.
+
+    ``filters [kh, kw, Cin, Cout]``.  ``tables`` are the pre-built dense
+    ``[G, V, Cout]`` tables or, for ``path="shared"``, a
+    :class:`SharedGroupedTables` pool; when omitted they are built here.
+    ``"fused"``/``"shared"`` run the conv kernels on the spatially padded
+    float image; ``"gather"``/``"onehot"``/``"kernel"`` pack the offsets on
+    the host by :func:`conv_offsets` and fetch them by :func:`lut_lookup`.
+    """
+    kh, kw, cin, cout = filters.shape
+    n = kh * kw * cin
+    pad_n = (-n) % group
+    if tables is None:
+        wflat = flatten_filters(filters, group)
+        build = build_shared_grouped_tables if path == "shared" \
+            else build_grouped_tables
+        tables = build(wflat, spec, scale, group)
+    shared = isinstance(tables, SharedGroupedTables)
+    if path == "shared" and not shared:
+        raise ValueError(
+            "path='shared' executes a SharedGroupedTables pool; build one "
+            "with build_shared_grouped_tables (got dense tables)")
+    if path == "fused" and shared:
+        raise ValueError(
+            "path='fused' consumes dense [G, V, O] tables; use "
+            "path='shared' for a SharedGroupedTables pool")
+    if path in ("fused", "shared"):
+        from repro_torch.kernels import ops
+
+        n_seg = tables.n_segments if shared else tables.shape[0]
+        if n + pad_n != n_seg * group:
+            raise ValueError(
+                f"path={path!r} requires contiguous segments covering the "
+                f"patch: kh*kw*Cin = {n} (+{pad_n} alignment slots) but "
+                f"G*group = {n_seg}*{group}")
+        if shared:
+            return ops.pcilt_shared_conv2d(
+                x, tables.pool, tables.seg_idx, spec, scale, tables.group,
+                kh, kw, stride=stride, padding=padding)
+        return ops.pcilt_fused_conv2d(x, tables, spec, scale, group, kh, kw,
+                                      stride=stride, padding=padding)
+    if shared and path != "gather":
+        raise ValueError(f"SharedGroupedTables executes path='shared' or "
+                         f"'gather', not {path!r}")
+    offsets = conv_offsets(x, spec, scale, group, kh, kw, stride, padding)
+    if shared:
+        return tables.lookup(offsets)
+    return lut_lookup(tables, offsets, path)
 
 
 def _dwconv_pads(k: int, padding: str):

@@ -4,6 +4,9 @@
   ``T[s, v, o] = sum_j w[s, j, o] * val(code_j(v))`` (paper extension 1);
 * shared grouped tables — the grouped tables deduplicated to the ``X``
   unique segments, plus a ``seg_idx[G]`` pointer vector (extension 3);
+* memory and build-cost arithmetic of the paper (``table_bytes``,
+  ``grouped_table_bytes``, ``shared_table_bytes``,
+  ``build_cost_multiplies``);
 * table checksums — CRC-32 over the raw bytes, identical to the reference's
   ``zlib.crc32(np.asarray(arr).tobytes())`` but streamed in fixed-size
   chunks, so a multi-GiB table never needs a whole host copy.  Per-layer
@@ -17,7 +20,7 @@ import dataclasses
 import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -25,7 +28,9 @@ import torch
 from .quantization import QuantSpec, code_values
 from .offsets import offset_grid
 
-__all__ = ["build_grouped_tables", "SharedGroupedTables",
+__all__ = ["table_bytes", "grouped_table_bytes", "shared_table_bytes",
+           "build_cost_multiplies", "build_grouped_tables",
+           "SharedGroupedTables",
            "build_shared_grouped_tables", "table_checksum",
            "stacked_checksums", "CRC_CHUNK_BYTES", "POOL_BUILD_ROWS"]
 
@@ -33,6 +38,33 @@ __all__ = ["build_grouped_tables", "SharedGroupedTables",
 CRC_CHUNK_BYTES = 64 << 20
 #: pool rows built per step of the shared-pool build (bounds its temporary)
 POOL_BUILD_ROWS = 16
+
+
+def table_bytes(n_weights: int, act_bits: int, value_bytes: int) -> int:
+    """Basic-PCILT memory: one ``2**act_bits``-entry table per weight."""
+    return n_weights * (1 << act_bits) * value_bytes
+
+
+def grouped_table_bytes(n_weights: int, act_bits: int, group: int,
+                        value_bytes: int) -> int:
+    """Extension-1 memory: ``K**group`` entries per segment of ``group``
+    weights."""
+    segments = -(-n_weights // group)
+    return segments * (1 << (act_bits * group)) * value_bytes
+
+
+def shared_table_bytes(actual_cardinality: int, act_bits_list: Sequence[int],
+                       value_bytes: int, nested: bool = False) -> int:
+    """Extension-3 memory: unique tables only (``nested``: only the
+    largest cardinality's table per base value is kept)."""
+    if nested:
+        return actual_cardinality * (1 << max(act_bits_list)) * value_bytes
+    return actual_cardinality * sum(1 << b for b in act_bits_list) * value_bytes
+
+
+def build_cost_multiplies(n_weights: int, act_bits: int) -> int:
+    """Multiplications to build basic tables (paper: 5x5 INT8 -> 6,400)."""
+    return n_weights * (1 << act_bits)
 
 
 def _grid_values(spec: QuantSpec, scale, group: int, dtype, device):
@@ -48,7 +80,9 @@ def build_grouped_tables(w: torch.Tensor, spec: QuantSpec, scale, group: int,
         raise ValueError(f"reduction length {n} not divisible by group size {group}")
     w_seg = w.reshape(n // group, group, out).to(dtype)
     vals = _grid_values(spec, scale, group, dtype, w.device)
-    return torch.einsum("vj,gjo->gvo", vals, w_seg)
+    # contiguous: the kernels read tables in place (the einsum may return a
+    # permuted view)
+    return torch.einsum("vj,gjo->gvo", vals, w_seg).contiguous()
 
 
 @dataclasses.dataclass
@@ -60,6 +94,22 @@ class SharedGroupedTables:
     pool: torch.Tensor  # [X, V, out]
     seg_idx: torch.Tensor  # [G] int32
     group: int
+
+    @property
+    def n_segments(self) -> int:
+        return int(self.seg_idx.shape[0])
+
+    @property
+    def pool_cardinality(self) -> int:
+        return int(self.pool.shape[0])
+
+    def pool_bytes(self) -> int:
+        """Extension-3 memory: the unique segment tables plus the pointer
+        vector (the reference's accounting)."""
+        X, V, out = self.pool.shape
+        return (shared_table_bytes(X, [(V - 1).bit_length()],
+                                   out * self.pool.element_size())
+                + self.n_segments * self.seg_idx.element_size())
 
     def lookup(self, offsets: torch.Tensor) -> torch.Tensor:
         """Gather path: offsets ``[..., G]`` -> ``[..., out]``."""

@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["QuantSpec", "scale_from_amax", "quantize", "quantize_with_stats",
+__all__ = ["QuantSpec", "scale_from_amax", "calibrate", "quantize", "quantize_with_stats",
            "dequantize", "fake_quant", "code_values"]
 
 
@@ -55,6 +55,15 @@ def scale_from_amax(amax, spec: QuantSpec) -> torch.Tensor:
         span = spec.cardinality - 1
     return torch.clamp_min(torch.as_tensor(amax, dtype=torch.float32),
                            1e-8) / span
+
+
+def calibrate(x: torch.Tensor, spec: QuantSpec, axis=None) -> torch.Tensor:
+    """Absmax scale mapping the observed range onto the code grid: ``|x|``
+    on a symmetric grid, ``max(x, 0)`` on an asymmetric one; ``axis``
+    (kept as size-1 dims) calibrates per channel."""
+    a = x.abs() if spec.symmetric else torch.clamp_min(x, 0.0)
+    amax = a.amax() if axis is None else a.amax(dim=axis, keepdim=True)
+    return scale_from_amax(amax, spec)
 
 
 def _scale_like(scale, x: torch.Tensor) -> torch.Tensor:

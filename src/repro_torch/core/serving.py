@@ -1,5 +1,11 @@
-"""PCILT serving conversion for Mamba decode (port of the main-path part of
-``repro.core.serving``).
+"""PCILT serving conversion (port of parts of ``repro.core.serving``): the
+Mamba decode path and the converted conv2d layer.
+
+:class:`PCILTConv2d` / :func:`convert_conv_kernel` hoist a convolution's
+table build out of serving: the filter is flattened and aligned to the
+segment grid and its dense tables (or, with ``shared=True``, its
+extension-3 pool) are built once; a call runs one fetch path.  Unsharded,
+without the reference's ``tune`` (no autotune cache in the port yet).
 
 :func:`convert_mamba_decode` is the once-per-lifetime build: calibrate on a
 prefill pass, build the conv, projection and head tables, record their
@@ -14,10 +20,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .pcilt import stacked_checksums, table_checksum
-from .quantization import QuantSpec, scale_from_amax
+from .lut_layers import flatten_filters, pcilt_conv2d
+from .pcilt import (SharedGroupedTables, build_grouped_tables,
+                    build_shared_grouped_tables, stacked_checksums,
+                    table_checksum)
+from .quantization import (QuantSpec, calibrate, dequantize, quantize,
+                           scale_from_amax)
 
-__all__ = ["pcilt_integrity", "PCILTMambaDecode", "convert_mamba_decode"]
+__all__ = ["pcilt_integrity", "PCILTMambaDecode", "convert_mamba_decode",
+           "PCILTConv2d", "convert_conv_kernel"]
 
 
 def pcilt_integrity(pcilt: Dict) -> Dict:
@@ -181,3 +192,81 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
     dec = PCILTMambaDecode(model, pcilt, verify=True)
     lap("verify_s", t0)
     return dec
+
+
+class PCILTConv2d:
+    """A converted convolution: the filter with its pre-built dense tables
+    and/or extension-3 pool.  ``layer(x, path)`` runs
+    :func:`~repro_torch.core.lut_layers.pcilt_conv2d` on them (default
+    ``"fused"``); a shared-only layer runs ``"shared"`` or ``"gather"``."""
+
+    def __init__(self, filters: torch.Tensor, spec: QuantSpec, scale,
+                 group: int, stride: int = 1, padding: str = "SAME",
+                 tables: Optional[torch.Tensor] = None,
+                 shared: Optional[SharedGroupedTables] = None):
+        if tables is None and shared is None:
+            raise ValueError("PCILTConv2d needs dense tables, a shared pool, "
+                             "or both")
+        self.filters = filters
+        self.spec = spec
+        self.scale = scale
+        self.group = group
+        self.stride = stride
+        self.padding = padding
+        self.tables = tables
+        self.shared = shared
+
+    @property
+    def n_segments(self) -> int:
+        if self.tables is not None:
+            return self.tables.shape[0]
+        return self.shared.n_segments
+
+    def _tables_for(self, path: str):
+        if path == "shared" or (self.tables is None and path == "gather"):
+            if self.shared is None:
+                raise ValueError(
+                    "no shared pool on this layer; convert with shared=True")
+            return self.shared
+        if self.tables is None:
+            raise ValueError(
+                f"shared-only PCILTConv2d executes path='shared' or "
+                f"'gather', not {path!r}")
+        return self.tables
+
+    def table_bytes(self) -> int:
+        if self.shared is not None:
+            return self.shared.pool_bytes()
+        return self.tables.numel() * self.tables.element_size()
+
+    def __call__(self, x: torch.Tensor, path: str = "fused") -> torch.Tensor:
+        return pcilt_conv2d(x, self.filters, self.spec, self.scale,
+                            self.group, stride=self.stride,
+                            padding=self.padding,
+                            tables=self._tables_for(path), path=path)
+
+
+def convert_conv_kernel(filters: torch.Tensor, act_spec: QuantSpec, act_scale,
+                        group: int, stride: int = 1, padding: str = "SAME",
+                        weight_bits: Optional[int] = None,
+                        shared: bool = False) -> PCILTConv2d:
+    """Offline build for one ``[kh, kw, Cin, Cout]`` filter, on the
+    filter's device: with ``weight_bits`` the filter is first quantized on
+    a symmetric absmax grid; the receptive field is flattened and aligned
+    to the segment grid once, and the dense tables (or with ``shared`` the
+    segment-deduplicated pool) are built once."""
+    f = filters.float()
+    if weight_bits:
+        wspec = QuantSpec(bits=weight_bits, symmetric=True)
+        wscale = calibrate(f, wspec)
+        f = dequantize(quantize(f, wspec, wscale), wspec, wscale)
+    wflat = flatten_filters(f, group)
+    with torch.no_grad():
+        if shared:
+            pool = build_shared_grouped_tables(wflat, act_spec, act_scale,
+                                               group)
+            return PCILTConv2d(f, act_spec, act_scale, group, stride=stride,
+                               padding=padding, shared=pool)
+        tables = build_grouped_tables(wflat, act_spec, act_scale, group)
+    return PCILTConv2d(f, act_spec, act_scale, group, stride=stride,
+                       padding=padding, tables=tables)

@@ -18,7 +18,7 @@ import torch
 from .core.quantization import QuantSpec
 
 __all__ = ["resolve_device", "to_torch", "to_numpy", "tree_map",
-           "params_from_jax", "bundle_from_jax"]
+           "params_from_jax", "tables_from_jax", "bundle_from_jax"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -66,6 +66,23 @@ def params_from_jax(np_tree, device="cuda") -> Dict[str, Any]:
     """The JAX package's parameter tree (numpy leaves) as tensors."""
     dev = resolve_device(device)
     return tree_map(lambda a: to_torch(a, dev), np_tree)
+
+
+def tables_from_jax(tables, device="cuda"):
+    """Dense ``[G, V, O]`` tables and ``SharedGroupedTables`` pools of the
+    JAX package (any object with ``pool``, ``seg_idx`` and ``group``), or a
+    dict of them such as ``PaperCNN.build_tables`` returns, as the port's."""
+    from .core.pcilt import SharedGroupedTables
+
+    dev = resolve_device(device)
+    if isinstance(tables, dict):
+        return {k: tables_from_jax(v, dev) for k, v in tables.items()}
+    if hasattr(tables, "pool") and hasattr(tables, "seg_idx"):
+        return SharedGroupedTables(
+            pool=to_torch(tables.pool, dev),
+            seg_idx=to_torch(np.asarray(tables.seg_idx, np.int32), dev),
+            group=int(tables.group))
+    return to_torch(tables, dev)
 
 
 def _host_scales(a) -> torch.Tensor:

@@ -19,7 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "build_log"]
+__all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "build_all", "library",
+           "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,7 +30,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> source file under csrc/
 SOURCES = {"gemv_stacked": "pcilt_gemv_stacked.cu",
            "dwconv1d": "pcilt_dwconv1d.cu",
-           "shared_gemv": "pcilt_shared_gemv.cu"}
+           "shared_gemv": "pcilt_shared_gemv.cu",
+           "conv2d": "pcilt_conv2d.cu",
+           "gemv_host": "pcilt_gemv.cu"}
+
+#: kernel name (the key of its launch count) -> the library that holds it
+KERNELS = {"gemv_stacked": "gemv_stacked", "dwconv1d": "dwconv1d",
+           "shared_gemv": "shared_gemv", "fused_conv2d": "conv2d",
+           "shared_conv2d": "conv2d", "gemv_host": "gemv_host",
+           "conv2d_host": "gemv_host"}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C entry point suffix -> argtypes (each entry exists as ``_f32``/``_bf16``)
@@ -40,6 +49,9 @@ _SIGNATURES = {
                        _P],
     "pcilt_shared_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _P],
+    "pcilt_fused_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],
+    "pcilt_shared_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],
+    "pcilt_gemv_host": [_P, _P, _P, _LL, _I, _I, _I, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -54,6 +54,56 @@ __device__ __forceinline__ void commit_stats(int cnt, float ratio,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Row-tiled fetch-and-add of the conv2d and host-packed GEMV kernels.
+//
+// A block owns R = blockDim.y * kRowsPerThread output rows (pixels) and one
+// O tile of blockDim.x columns; thread (tx, ty) owns column col of rows
+// ty * kRowsPerThread + k.  Segments run in chunks of kSegChunk: the block
+// stages, in shared memory, each segment's table base (element index of
+// row 0 of its [V, O] table, -1 = the segment adds nothing) and each row's
+// offset (-1 = no fetch), then every thread adds its rows' table cells.  A
+// warp shares one (row, segment), so the offset is a shared-memory
+// broadcast and the 32 loads of a table row are neighbouring columns.
+constexpr int kRowsPerThread = 8;
+constexpr int kSegChunk = 128;
+constexpr int kBlockThreads = 256;
+
+// Bytes of dynamic shared memory for R rows: bases, offsets, row bases.
+__host__ __device__ __forceinline__ size_t fetch_smem_bytes(int rows) {
+  return kSegChunk * sizeof(long long) +
+         (size_t)rows * kSegChunk * sizeof(int) +
+         (size_t)rows * sizeof(long long);
+}
+
+template <typename T>
+__device__ __forceinline__ void fetch_chunk(const T* __restrict__ tab,
+                                            const long long* s_base,
+                                            const int* s_off, int gc,
+                                            long long O, int col, int row0,
+                                            float* acc) {
+#pragma unroll 2
+  for (int gg = 0; gg < gc; ++gg) {
+    const long long base = s_base[gg];
+    if (base < 0) continue;
+    const T* seg = tab + base + col;
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      const int off = s_off[(row0 + k) * kSegChunk + gg];
+      if (off >= 0) acc[k] += to_f32(seg[(long long)off * O]);
+    }
+  }
+}
+
+// Launch geometry of the row-tiled kernels: O tile = min(128, O rounded up
+// to a warp), 256 threads a block.
+__host__ __forceinline__ dim3 fetch_block(int O) {
+  int to = ((O + 31) / 32) * 32;
+  if (to > 128) to = 128;
+  int ty = kBlockThreads / to;
+  return dim3(to, ty < 1 ? 1 : ty);
+}
+
 // Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
 template <typename Kernel>
 __host__ cudaError_t allow_smem(Kernel kernel, size_t smem) {

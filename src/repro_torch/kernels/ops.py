@@ -10,9 +10,11 @@ Each wrapper checks device, dtype, shape and contiguity, then:
   gather-and-sum of the same formula (the counterpart of Pallas
   ``interpret=True``).  There is no fallback from one to the other.
 
-Kernels take the activations in float32 and the scale as a host scalar, cast
-to the activations' dtype (float32) as the reference's ``_scale_2d`` does.
-Tables are used in place: no wrapper pads or transposes a table.
+The fused kernels take the activations in float32 and the scale as a host
+scalar, cast to the activations' dtype (float32) as the reference's
+``_scale_2d`` does; the host-packed ones take int32 offsets.  Tables are
+used in place: no wrapper pads or transposes a table.  The conv wrappers'
+only host-side work is the spatial zero pad of the float image.
 """
 
 from __future__ import annotations
@@ -26,16 +28,19 @@ import torch.nn.functional as F
 
 from repro_torch.core.offsets import pack_offsets
 from repro_torch.core.quantization import QuantSpec, quantize, quantize_with_stats
-from repro_torch.core.lut_layers import _dwconv_pads
+from repro_torch.core.lut_layers import (_conv_pads, _dwconv_pads,
+                                         conv_offsets, pad_nhwc)
 from . import build
-from .ref import pcilt_dwconv1d_ref, pcilt_gemv_ref
+from .ref import fetch_sum, pcilt_dwconv1d_ref, pcilt_gemv_ref, pool_rows
 
 __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv_stacked",
-           "pcilt_fused_dwconv1d", "pcilt_shared_gemv", "gemv_stacked_plain",
-           "dwconv1d_plain", "shared_gemv_plain"]
+           "pcilt_fused_dwconv1d", "pcilt_shared_gemv", "pcilt_gemv",
+           "pcilt_conv2d", "pcilt_fused_conv2d", "pcilt_shared_conv2d",
+           "gemv_stacked_plain", "dwconv1d_plain", "shared_gemv_plain",
+           "fused_conv2d_plain", "shared_conv2d_plain"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
-LAUNCHES: Dict[str, int] = {name: 0 for name in build.SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
 
 _TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -63,10 +68,15 @@ def _check_launch(name: str, x: torch.Tensor, table: torch.Tensor,
                   *others: torch.Tensor) -> str:
     if x.dtype != torch.float32:
         raise TypeError(f"{name}: activations must be float32, got {x.dtype}")
+    return _check_tables(name, table, x, *others)
+
+
+def _check_tables(name: str, table: torch.Tensor,
+                  *others: torch.Tensor) -> str:
     if table.dtype not in _TABLE_DTYPES:
         raise TypeError(f"{name}: tables must be float32 or bfloat16, got "
                         f"{table.dtype}")
-    for t in (x, table, *others):
+    for t in (table, *others):
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous "
                              f"(got strides {t.stride()} for shape "
@@ -213,13 +223,9 @@ def shared_gemv_plain(x, pool, seg_idx, spec: QuantSpec, scale, group: int):
     """Plain version of the shared-pool kernel; a pointer outside
     ``[0, X)`` contributes nothing."""
     s = torch.as_tensor(_host_scale(scale), dtype=x.dtype, device=x.device)
-    off = pack_offsets(quantize(x, spec, s), spec.bits, group).long()
-    X = pool.shape[0]
-    idx = seg_idx.long()
-    valid = (idx >= 0) & (idx < X)
-    picked = pool[idx.clamp(0, X - 1), off].float()  # [B, G, O]
-    picked = torch.where(valid[:, None], picked, torch.zeros((), device=x.device))
-    return picked.sum(1).to(pool.dtype)
+    off = pack_offsets(quantize(x, spec, s), spec.bits, group)
+    X, V, O = pool.shape
+    return fetch_sum(pool_rows(off, seg_idx, X, V), pool.reshape(X * V, O))
 
 
 def pcilt_shared_gemv(x: torch.Tensor, pool: torch.Tensor,
@@ -253,3 +259,162 @@ def pcilt_shared_gemv(x: torch.Tensor, pool: torch.Tensor,
             _ptr(out), B, G, X, V, O, group, spec.bits, spec.zero_point,
             _host_scale(scale))
     return out
+
+
+# ----------------------------------------------------------------------------
+# Host-packed GEMV and conv2d
+# ----------------------------------------------------------------------------
+
+
+def _launch_gemv_host(name: str, offsets: torch.Tensor,
+                      tables: torch.Tensor) -> torch.Tensor:
+    G, V, O = tables.shape
+    if offsets.dtype != torch.int32:
+        raise TypeError(f"{name}: offsets must be int32, got {offsets.dtype}")
+    if offsets.shape[-1] != G:
+        raise ValueError(f"{name}: offsets segment dim {offsets.shape[-1]} "
+                         f"!= tables segment dim {G} (offsets "
+                         f"{tuple(offsets.shape)}, tables "
+                         f"{tuple(tables.shape)})")
+    flat = offsets.reshape(-1, G)
+    M = flat.shape[0]
+    if M < 1:
+        raise ValueError(f"{name}: no rows")
+    if _on_cpu(offsets, tables):
+        out = pcilt_gemv_ref(flat, tables)
+    else:
+        dt = _check_tables(name, tables, offsets)
+        out = torch.empty((M, O), dtype=tables.dtype, device=tables.device)
+        fn = getattr(build.library("gemv_host"), f"pcilt_gemv_host_{dt}")
+        _launch(name, fn, tables, _ptr(offsets), _ptr(tables), _ptr(out), M,
+                G, V, O)
+    return out.reshape(*offsets.shape[:-1], O)
+
+
+def pcilt_gemv(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """offsets ``[M, G]`` int32 (packed by the caller), tables ``[G, V, O]``
+    -> ``[M, O]`` in the table dtype: ``sum_g T[g, off[m, g]]``."""
+    if offsets.dim() != 2:
+        raise ValueError(f"offsets must be [M, G], got {tuple(offsets.shape)}")
+    return _launch_gemv_host("gemv_host", offsets, tables)
+
+
+def pcilt_conv2d(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """offsets ``[B, Ho, Wo, G]`` int32, tables ``[G, V, O]`` ->
+    ``[B, Ho, Wo, O]``: the host-packed conv fetch, the GEMV kernel over the
+    flattened pixels."""
+    if offsets.dim() != 4:
+        raise ValueError(f"offsets must be [B, Ho, Wo, G], got "
+                         f"{tuple(offsets.shape)}")
+    return _launch_gemv_host("conv2d_host", offsets, tables)
+
+
+# ----------------------------------------------------------------------------
+# Fused and shared-pool conv2d
+# ----------------------------------------------------------------------------
+
+
+def _conv_plain_offsets(xp, spec: QuantSpec, scale, group: int, kh: int,
+                        kw: int, stride: int) -> torch.Tensor:
+    """The conv kernels' activation side on the host, over the padded image
+    and at the kernel's float32 scale -> ``[B*Ho*Wo, G]`` int32."""
+    s = torch.as_tensor(_host_scale(scale), dtype=xp.dtype, device=xp.device)
+    off = conv_offsets(xp, spec, s, group, kh, kw, stride, "VALID")
+    return off.reshape(-1, off.shape[-1])
+
+
+def fused_conv2d_plain(xp, tables, spec: QuantSpec, scale, group: int,
+                       kh: int, kw: int, stride: int):
+    """Plain version of the fused conv kernel over the padded image."""
+    return pcilt_gemv_ref(_conv_plain_offsets(xp, spec, scale, group, kh, kw,
+                                              stride), tables)
+
+
+def shared_conv2d_plain(xp, pool, seg_idx, spec: QuantSpec, scale,
+                        group: int, kh: int, kw: int, stride: int):
+    """Plain version of the shared-pool conv kernel over the padded image;
+    a pointer outside ``[0, X)`` adds nothing."""
+    X, V, O = pool.shape
+    off = _conv_plain_offsets(xp, spec, scale, group, kh, kw, stride)
+    return fetch_sum(pool_rows(off, seg_idx, X, V), pool.reshape(X * V, O))
+
+
+def _conv_geometry(name, x, G, V, spec, group, kh, kw, stride, padding):
+    """Pad the float image (the only host-side work) and check the shapes:
+    -> ``(xp, Ho, Wo)``."""
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be NHWC, got {tuple(x.shape)}")
+    if stride < 1:
+        raise ValueError(f"{name}: stride must be >= 1, got {stride}")
+    xp = pad_nhwc(x, _conv_pads(x, kh, kw, stride, padding))
+    B, Hp, Wp, C = xp.shape
+    Ho = (Hp - kh) // stride + 1
+    Wo = (Wp - kw) // stride + 1
+    if B < 1 or Ho < 1 or Wo < 1:
+        raise ValueError(f"{name}: image {tuple(x.shape)} gives no output "
+                         f"for a {kh}x{kw} filter with padding {padding!r}")
+    if G * group < kh * kw * C:
+        raise ValueError(f"{name}: G*group = {G}*{group} does not cover the "
+                         f"patch length kh*kw*C = {kh * kw * C}")
+    if V != 1 << (spec.bits * group):
+        raise ValueError(f"{name}: value axis {V} != 2**(bits*group) = "
+                         f"{1 << (spec.bits * group)}")
+    return xp, Ho, Wo
+
+
+def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
+                 stride, Ho, Wo):
+    B, Hp, Wp, C = xp.shape
+    G = int(seg_idx.shape[0]) if seg_idx is not None else tab.shape[0]
+    _, V, O = tab.shape
+    others = () if seg_idx is None else (seg_idx,)
+    dt = _check_launch(name, xp, tab, *others)
+    out = torch.empty((B, Ho, Wo, O), dtype=tab.dtype, device=xp.device)
+    fn = getattr(build.library("conv2d"), f"pcilt_{name}_{dt}")
+    _launch(name, fn, xp, _ptr(xp), _ptr(tab), _ptr(seg_idx), _ptr(out), B,
+            Hp, Wp, C, Ho, Wo, kh, kw, stride, G, X, V, O, group, spec.bits,
+            spec.zero_point, _host_scale(scale))
+    return out
+
+
+def pcilt_fused_conv2d(x: torch.Tensor, tables: torch.Tensor,
+                       spec: QuantSpec, scale, group: int, kh: int, kw: int,
+                       stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """x ``[B, H, W, C]`` float32 NHWC, tables ``[G, V, O]`` ->
+    ``[B, Ho, Wo, O]`` in the table dtype.  The only host-side work is the
+    spatial zero pad of the float image (SAME by :func:`conv_same_pads`);
+    quantize, im2col and pack run in the kernel, so neither the float
+    patches nor the offsets reach device memory.  ``G * group >= kh*kw*C``:
+    the alignment slots take code 0 against zero-weight table rows."""
+    G, V, O = tables.shape
+    xp, Ho, Wo = _conv_geometry("pcilt_fused_conv2d", x, G, V, spec, group,
+                                kh, kw, stride, padding)
+    if _on_cpu(xp, tables):
+        out = fused_conv2d_plain(xp, tables, spec, scale, group, kh, kw,
+                                 stride)
+        return out.reshape(xp.shape[0], Ho, Wo, O)
+    return _launch_conv("fused_conv2d", xp, tables, None, 0, spec, scale,
+                        group, kh, kw, stride, Ho, Wo)
+
+
+def pcilt_shared_conv2d(x: torch.Tensor, pool: torch.Tensor,
+                        seg_idx: torch.Tensor, spec: QuantSpec, scale,
+                        group: int, kh: int, kw: int, stride: int = 1,
+                        padding: str = "SAME") -> torch.Tensor:
+    """x ``[B, H, W, C]`` float32 NHWC, pool ``[X, V, O]``, seg_idx ``[G]``
+    int32 -> ``[B, Ho, Wo, O]`` in the pool dtype: the fused conv with
+    ``T[g]`` replaced by ``pool[seg_idx[g]]``; a pointer outside ``[0, X)``
+    adds nothing.  The pool is read in place (no transpose)."""
+    X, V, O = pool.shape
+    if seg_idx.dim() != 1 or seg_idx.dtype != torch.int32:
+        raise TypeError(f"seg_idx must be a 1-d int32 tensor, got "
+                        f"{seg_idx.dtype} {tuple(seg_idx.shape)}")
+    G = int(seg_idx.shape[0])
+    xp, Ho, Wo = _conv_geometry("pcilt_shared_conv2d", x, G, V, spec, group,
+                                kh, kw, stride, padding)
+    if _on_cpu(xp, pool, seg_idx):
+        out = shared_conv2d_plain(xp, pool, seg_idx, spec, scale, group, kh,
+                                  kw, stride)
+        return out.reshape(xp.shape[0], Ho, Wo, O)
+    return _launch_conv("shared_conv2d", xp, pool, seg_idx, X, spec, scale,
+                        group, kh, kw, stride, Ho, Wo)

@@ -1,8 +1,10 @@
-"""repro_torch.models — the ported model families (Mamba2 so far)."""
+"""repro_torch.models — the ported model families (Mamba2 so far) and the
+paper's CNN."""
 
+from .cnn import PaperCNN
 from .mamba import MambaLM
 
-__all__ = ["MambaLM", "build_model"]
+__all__ = ["MambaLM", "PaperCNN", "build_model"]
 
 
 def build_model(cfg):

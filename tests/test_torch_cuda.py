@@ -92,3 +92,77 @@ def test_shared_gemv_kernel_matches_plain(cuda, B, G, X, O):
                                 0.2, group)
     torch.cuda.synchronize()
     _assert_sum_close(got.cpu(), want, 1e-4)
+
+
+def _conv_case(rng, B, H, W, C, O, k, bits, sym, group, exact):
+    from repro_torch.core.lut_layers import flatten_filters
+
+    spec = QuantSpec(bits, sym)
+    filt = (rng.integers(-3, 4, size=(k, k, C, O)) if exact
+            else rng.normal(size=(k, k, C, O))).astype(np.float32)
+    scale = 0.5 if exact else 0.3
+    tabs = build_grouped_tables(flatten_filters(torch.from_numpy(filt), group),
+                                spec, scale, group)
+    x = torch.from_numpy(rng.uniform(-1, 2, size=(B, H, W, C))
+                         .astype(np.float32))
+    return spec, scale, tabs, x
+
+
+CONV_CASES = [  # B, H, W, C, O, k, stride, bits, symmetric, group, exact
+    (1, 64, 48, 50, 80, 5, 1, 8, False, 1, False),  # the paper's conv1
+    (1, 64, 48, 1, 50, 5, 1, 8, False, 1, True),    # conv0, exact grid
+    (2, 9, 11, 3, 13, 3, 2, 4, True, 2, False),     # ragged: n_pad 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,O,k,stride,bits,sym,group,exact",
+                         CONV_CASES)
+def test_conv2d_kernels_match_plain(cuda, dtype, B, H, W, C, O, k, stride,
+                                    bits, sym, group, exact):
+    """Fused and shared-pool conv kernels (one pool pointer out of range)
+    against their plain versions: bit-equal on an exact grid, else f32
+    within 1e-4 of the largest output (another summation order over up to
+    1250 rows), bf16 within 1e-2 (one rounding of the f32 sum)."""
+    rng = np.random.default_rng(C + O)
+    spec, scale, tabs, x = _conv_case(rng, B, H, W, C, O, k, bits, sym,
+                                      group, exact)
+    tabs = tabs.to(dtype)
+    rtol = 0.0 if exact and dtype == torch.float32 else \
+        (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    want = ops.pcilt_fused_conv2d(x, tabs, spec, scale, group, k, k,
+                                  stride=stride)
+    got = ops.pcilt_fused_conv2d(x.to(cuda), tabs.to(cuda), spec, scale,
+                                 group, k, k, stride=stride)
+    torch.cuda.synchronize()
+    _assert_sum_close(got.cpu(), want, rtol)
+    idx = torch.arange(tabs.shape[0], dtype=torch.int32)
+    idx[1] = tabs.shape[0] + 5
+    want = ops.pcilt_shared_conv2d(x, tabs, idx, spec, scale, group, k, k,
+                                   stride=stride)
+    got = ops.pcilt_shared_conv2d(x.to(cuda), tabs.to(cuda), idx.to(cuda),
+                                  spec, scale, group, k, k, stride=stride)
+    torch.cuda.synchronize()
+    _assert_sum_close(got.cpu(), want, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_host_packed_kernels_match_plain(cuda, dtype):
+    rng = np.random.default_rng(11)
+    G, V, O = 300, 256, 97
+    tabs = torch.from_numpy(rng.normal(size=(G, V, O)).astype(np.float32)) \
+        .to(dtype)
+    off = torch.from_numpy(rng.integers(0, V, size=(2, 7, 5, G))
+                           .astype(np.int32))
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    before = dict(ops.LAUNCHES)
+    got = ops.pcilt_conv2d(off.to(cuda), tabs.to(cuda))
+    flat = ops.pcilt_gemv(off.reshape(-1, G).to(cuda), tabs.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["conv2d_host"] == before["conv2d_host"] + 1
+    assert ops.LAUNCHES["gemv_host"] == before["gemv_host"] + 1
+    want = ops.pcilt_conv2d(off, tabs)
+    _assert_sum_close(got.cpu(), want, rtol)
+    _assert_sum_close(flat.cpu().reshape(want.shape), want, rtol)

@@ -238,7 +238,7 @@ def test_pcilt_linear_paths_match_reference():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                    atol=1e-6)
     with pytest.raises(ValueError):
-        pcilt_linear(xt, tt[0], st, 0.3, group, path="onehot")
+        pcilt_linear(xt, tt[0], st, 0.3, group, path="plan")
 
 
 @pytest.mark.parametrize("padding", ["CAUSAL", "SAME", "VALID"])
