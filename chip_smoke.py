@@ -17,13 +17,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    and all counters must be exact; GEMVs on an exact grid (small-integer
    weights, power-of-two scale) bit-equal; other float32 GEMVs within
    ``|d| <= 1e-4 * max|plain| + 1e-4 * |plain|`` (another summation order
-   over up to 768 rows), bfloat16 within 1e-2 (one bf16 rounding of the
+   over up to 3072 rows), bfloat16 within 1e-2 (one bf16 rounding of the
    float32 sum).  The head runs on a 384-row pool, as the engine's.  The
    conv and host-packed kernels (fused_conv2d, shared_conv2d, gemv_host,
    conv2d_host) run the paper CNN's five layer shapes on a 64x48 image and
    ragged shapes (stride 2, symmetric 4-bit, group 2 with odd C, O = 13,
-   bf16, a pool pointer out of range): exact grids bit-equal, float32
-   within 1e-4 (sums over up to 5000 rows), bfloat16 within 1e-2;
+   bf16, a pool pointer out of range).  The paired stacked GEMV runs the
+   paired decode's wz and wo on 24-layer segment-major stacks, the paired
+   and fused GEMVs the parity probe's and qwen3-0.6b's MLP shapes, the
+   host-packed dwconv the single-layer signal's offsets, each with a
+   ragged case (odd G with its phantom segment, O = 13, offsets out of
+   range);
 4. timing: each kernel at its main path's shapes — its device time, the
    plain version's, one PyTorch library call computing the same function,
    and the least time the card could take (the larger of the bytes this
@@ -38,10 +42,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. serving: ``Engine(mamba2-130m full width and depth, slots=4,
    pcilt=True)`` with float32 tables converts (calibrate, build, CRC
    record, verify at load) and serves 4 requests of 8 new tokens; prints
-   conversion seconds, peak memory, step time, tokens/s and the launches
-   per step of each kernel (must be 144 / 24 / 1), then checks one decode
-   step's logits against the dense fake-quant oracle (every layer and the
-   head demoted, so no kernel runs on the oracle's side);
+   conversion seconds, table bytes, the head pool's bytes, peak memory,
+   step time, tokens/s and the launches per step of each kernel (must be
+   144 / 24 / 1), then checks one decode step's logits against the dense
+   fake-quant oracle (every layer and the head demoted, so no kernel runs
+   on the oracle's side);
 6. the paper CNN (``configs/paper_cnn.config()``: 50-80-120-200-350
    channels, 5x5, INT8) on one seeded 1024x768 image: tables built on the
    card (2.57 GiB float32), a 256x192 forward timed and extrapolated
@@ -53,15 +58,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    layer against ``F.conv2d`` on its fake-quantized input, and each
    path's logits against direct multiplication (rtol = atol = 1e-3,
    argmax equal), with the codes flipped between the two chains;
-7. prints the kernels' JSON line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+7. the paired (TL1) decode at full width and depth: mamba2-130m with
+   ``PCILTConfig(act_bits=2, group=2)``, float32 segment-major stacks
+   (21.5 GiB) and the shared-pool head, built by
+   ``convert_mamba_decode(paired=True)`` and served by
+   ``Engine(pcilt_bundle=...)`` (4 requests of 8 new tokens, sentinel on;
+   144 / 24 / 1 launches of the paired stacked GEMV, the dwconv and the
+   head per step); conversion seconds, table bytes, peak memory, the
+   oracle check of phase 5, and the median of three B = 4 steps dense,
+   unpaired (kernel 1) and paired (kernel 8) with each step's device time;
+8. the exact-grid paired parity probe: ``pcilt_linear(path="fused")`` on
+   ``[G, V, O]`` and ``pcilt_linear(paired=True, path="fused")`` on
+   ``[G2, V2, O]`` bit-equal at ``[4, 64] -> 128`` and ``[4, 768] ->
+   1536``;
+9. single layers at full published widths: ``convert_kernel`` ->
+   ``PCILTLinear(path="fused")`` on qwen3-0.6b's MLP (1024 -> 3072 ->
+   1024, 4-bit, group 2; 1.61 GB of float32 tables per projection) against
+   the dense product on the quantized grid, and ``convert_dwconv`` ->
+   ``PCILTDwConv1d(path="kernel")`` on mamba2-130m's conv frontend (C 1792,
+   k 4, 2-bit) over a [4, 2048, 1792] signal against the fused path and
+   its plain version;
+10. prints the kernels' JSON line, then as the last line
+    ``{"ok": true, "device": {...}}``.
 
+Each path's launches are counted from 0 just before it runs.
 Details also go to ``chiprun_out/chip_smoke.json``.  Weights are random
 (seeded).  A card without room for the ~72 GiB of float32 tables fails
-phase 5 with a message.
+phase 5 with a message; phase 5's tables are freed before phase 6.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -83,6 +110,10 @@ REPLACES = {
     "shared_conv2d": "src/repro/kernels/pcilt_shared.py:182",
     "gemv_host": "src/repro/kernels/pcilt_gemv.py:75",
     "conv2d_host": "src/repro/kernels/pcilt_conv2d.py:55",
+    "gemv_paired_stacked": "src/repro/kernels/pcilt_fused.py:518",
+    "fused_gemv": "src/repro/kernels/pcilt_fused.py:138",
+    "gemv_paired": "src/repro/kernels/pcilt_fused.py:231",
+    "dwconv1d_host": "src/repro/kernels/pcilt_dwconv1d.py:61",
 }
 SOURCES = {
     "gemv_stacked": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
@@ -92,11 +123,26 @@ SOURCES = {
     "shared_conv2d": "src/repro_torch/kernels/csrc/pcilt_conv2d.cu",
     "gemv_host": "src/repro_torch/kernels/csrc/pcilt_gemv.cu",
     "conv2d_host": "src/repro_torch/kernels/csrc/pcilt_gemv.cu",
+    "gemv_paired_stacked": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
+    "fused_gemv": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
+    "gemv_paired": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
+    "dwconv1d_host": "src/repro_torch/kernels/csrc/pcilt_dwconv1d.cu",
 }
+#: device kernel names (a substring of each) in profiles
+GEMV_KERNEL = "gemv_fused_kernel"
+DWCONV_HOST_KERNEL = "dwconv1d_host_kernel"
 B = 4  # decode slots
 #: the six projections of one layer at mamba2-130m width: (G, O)
 PROJ_SHAPES = {"wz,wx": (384, 1536), "wB,wC": (384, 128), "wdt": (384, 24),
                "wo": (768, 768)}
+#: the paired decode (act_bits 2, group 2): pairs G2 and outputs O of wz
+#: and wo, and its layer count (the stride of the segment-major stacks)
+PAIRED_SHAPES = {"wz": (192, 1536), "wo": (384, 768)}
+N_LAYERS = 24
+#: qwen3-0.6b's MLP (src/repro/configs/qwen3_06b.py): d_model, d_ff
+QWEN_D, QWEN_FF = 1024, 3072
+#: mamba2-130m's conv frontend: channels, taps; the single-layer signal
+CONV_C, CONV_K, CONV_T = 1792, 4, 2048
 LIB_NOTE = {"gemv_stacked": "torch.matmul(fake_quant(x), W_l)",
             "dwconv1d": "torch.einsum('bkc,kc->bc', fake_quant(win), w)",
             "shared_gemv": "torch.matmul(fake_quant(x), kernel_q)",
@@ -105,7 +151,11 @@ LIB_NOTE = {"gemv_stacked": "torch.matmul(fake_quant(x), W_l)",
             "gemv_host": "F.embedding_bag(off + g*V, T.view(G*V, O), "
                          "mode='sum')",
             "conv2d_host": "F.embedding_bag(off + g*V, T.view(G*V, O), "
-                           "mode='sum')"}
+                           "mode='sum')",
+            "gemv_paired_stacked": "torch.matmul(fake_quant(x), W_l)",
+            "fused_gemv": "torch.matmul(fake_quant(x), W)",
+            "gemv_paired": "torch.matmul(fake_quant(x), W)",
+            "dwconv1d_host": "torch.take(T, c*V + off)"}
 #: the paper CNN's image (H, W) at full size (printed W x H, as the paper), and the small image of the
 #: checks and of the plain versions' timing
 FULL_HW = (768, 1024)
@@ -221,7 +271,8 @@ def time_calls(torch, calls, flush, kernel=None, reps=5, warmup=2,
                 retries.append({"kernel": kernel, "cold": cold,
                                 "launches_seen": n, "of": len(calls)})
             log(f"  (profile {attempt + 1} saw {n} of {len(calls)} launches"
-                f" of {kernel or 'the calls'}, {us:.1f} us: taken again)")
+                f" of {kernel or 'the calls'}, {us:.1f} us: taken again; "
+                f"rows {[(k[:48], c) for k, (c, _) in prof.items()]})")
         else:
             raise SmokeFailure(f"the profiler missed launches of "
                                f"{kernel or 'the calls'} three times")
@@ -366,6 +417,7 @@ def check_kernels(torch, ops, core, report):
                "exact" if exact else f"rtol {rtol}")
         del pool
     check_conv_kernels(torch, ops, record, gen)
+    check_slice3_kernels(torch, ops, record, gen)
     return errs
 
 
@@ -465,6 +517,142 @@ def check_conv_kernels(torch, ops, record, gen):
         del tabs, pool, off
 
 
+def check_slice3_kernels(torch, ops, record, gen):
+    """The paired stacked GEMV, the unstacked fused and paired GEMVs and the
+    host-packed dwconv against their plain versions (run on the card).
+
+    Paired stacked: the paired decode's wz and wo at B = 4 on segment-major
+    ``[G2, 24, 256, O]`` stacks, layer 23 (element offsets up to 1.8e9),
+    float32, bfloat16 and an exact grid; ragged: odd G (the phantom
+    segment), O = 13, B = 3.  Paired: the parity probe's shapes, bf16,
+    ragged.  Fused: qwen3-0.6b's gate and down projections, bf16, exact
+    grid, ragged.  Counters bit-exact.  Exact grid: bit-equal; float32
+    within 1e-4 of max|plain| (sums over up to 1536 rows); bfloat16 within
+    1e-2 (one rounding of the float32 sum).  Host dwconv: exact, with
+    offsets outside [0, V) giving 0."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.pcilt import (build_grouped_tables,
+                                        build_paired_stacked_tables,
+                                        build_paired_tables)
+    from repro_torch.core.quantization import QuantSpec, scale_from_amax
+    from repro_torch.kernels.ref import pcilt_dwconv1d_ref
+
+    dev = torch.device("cuda")
+    group = 2
+    spec2, spec4 = QuantSpec(2, True), QuantSpec(4, True)
+
+    def weights(shape, exact):
+        if exact:
+            return torch.randint(-3, 4, shape, generator=gen,
+                                 device=dev).float()
+        return torch.randn(*shape, generator=gen, device=dev) \
+            * shape[-2] ** -0.5
+
+    def signal(rows, n, spec, exact):
+        x = torch.randn(rows, n, generator=gen, device=dev) * 2.0
+        s = 0.5 if exact else float(scale_from_amax(0.8 * x.abs().max(),
+                                                    spec))
+        return x, s
+
+    def held(kernel, what, got, want, dt, exact, stats):
+        torch.cuda.synchronize()
+        if stats:
+            (got, gc, gr), (want, wc, wr) = got, want
+            record(kernel, f"{what} counters", 0.0,
+                   int(gc) == int(wc) and float(gr) == float(wr),
+                   "count, ratio exact")
+        rtol = 1e-2 if dt == torch.bfloat16 else 1e-4
+        mx, ok = close(torch, got, want, rtol, exact)
+        record(kernel, f"{what} counters={int(stats)}", mx, ok,
+               "exact" if exact else f"rtol {rtol}")
+
+    # -- paired stacked GEMV (#8): [G2, L, 256, O] at the decode's width
+    cases = [(f"{k} G2{G2} O{O} L{N_LAYERS}", B, G2, O, N_LAYERS,
+              torch.float32, False, False)
+             for k, (G2, O) in PAIRED_SHAPES.items()]
+    cases += [("wz G2192 O1536 L24 bf16", B, 192, 1536, N_LAYERS,
+               torch.bfloat16, False, False),
+              ("wo G2384 O768 L24 exact grid", B, 384, 768, N_LAYERS,
+               torch.float32, True, False),
+              ("ragged B3 G5 (phantom) O13 L3", 3, 3, 13, 3, torch.float32,
+               False, True)]
+    for what, rows, G2, O, L, dt, exact, odd in cases:
+        n = G2 * 2 * group - (group if odd else 0)  # odd G: phantom pad
+        w = weights((L, n, O), exact)
+        x, scale = signal(rows, n, spec2, exact)
+        stack = build_paired_stacked_tables(w, spec2, [scale] * L, group, dt)
+        del w
+        xp = F.pad(x, (0, group)) if odd else x
+        for stats in (False, True):
+            held("gemv_paired_stacked", what,
+                 ops.pcilt_fused_gemv_paired_stacked(
+                     xp, stack, L - 1, spec2, scale, group, with_stats=stats),
+                 ops.gemv_paired_stacked_plain(
+                     xp, stack, L - 1, spec2, scale, group, with_stats=stats),
+                 dt, exact, stats)
+        del stack
+
+    # -- paired GEMV (#10): the parity probe's shapes, bf16, ragged
+    for what, rows, n, O, dt, exact in [
+            ("probe B4 64->128 exact grid", B, 64, 128, torch.float32, True),
+            ("wz B4 768->1536", B, 768, 1536, torch.float32, False),
+            ("wz B4 768->1536 bf16", B, 768, 1536, torch.bfloat16, False),
+            ("ragged B3 G5 (phantom) O13", 3, 10, 13, torch.float32,
+             False)]:
+        w = weights((n, O), exact)
+        x, scale = signal(rows, n, spec2, exact)
+        tabs = build_paired_tables(w, spec2, scale, group).to(dt)
+        xp = F.pad(x, (0, tabs.shape[0] * 2 * group - n))
+        for stats in (False, True):
+            held("gemv_paired", what,
+                 ops.pcilt_fused_gemv_paired(xp, tabs, spec2, scale, group,
+                                             with_stats=stats),
+                 ops.gemv_paired_plain(xp, tabs, spec2, scale, group,
+                                       with_stats=stats),
+                 dt, exact, stats)
+
+    # -- fused GEMV (#9): qwen3-0.6b's gate and down projections
+    for what, rows, n, O, dt, exact in [
+            (f"gate B4 {QWEN_D}->{QWEN_FF}", B, QWEN_D, QWEN_FF,
+             torch.float32, False),
+            (f"down B4 {QWEN_FF}->{QWEN_D}", B, QWEN_FF, QWEN_D,
+             torch.float32, False),
+            (f"gate B4 {QWEN_D}->{QWEN_FF} bf16", B, QWEN_D, QWEN_FF,
+             torch.bfloat16, False),
+            (f"gate B4 {QWEN_D}->{QWEN_FF} exact grid", B, QWEN_D, QWEN_FF,
+             torch.float32, True),
+            ("ragged B3 G7 O13", 3, 14, 13, torch.float32, False)]:
+        w = weights((n, O), exact)
+        x, scale = signal(rows, n, spec4, exact)
+        tabs = build_grouped_tables(w, spec4, scale, group).to(dt)
+        del w
+        held("fused_gemv", what,
+             ops.pcilt_fused_gemv(x, tabs, spec4, scale, group),
+             ops.fused_gemv_plain(x, tabs, spec4, scale, group), dt, exact,
+             False)
+        del tabs
+
+    # -- host-packed dwconv (#12): the single-layer signal's offsets
+    for what, shape, V, dt in [
+            (f"B4 T{CONV_T} C{CONV_C} V256", (B, CONV_T, CONV_C), 256,
+             torch.float32),
+            (f"B4 T{CONV_T} C{CONV_C} V256 bf16", (B, CONV_T, CONV_C), 256,
+             torch.bfloat16),
+            ("ragged B3 T9 C33 V16, offsets out of range", (3, 9, 33), 16,
+             torch.float32)]:
+        tabs = torch.randn(shape[-1], V, generator=gen, device=dev).to(dt)
+        off = torch.randint(0, V, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        off[0, 0, 0], off[-1, -1, -1] = -1, V + 3
+        got = ops.pcilt_dwconv1d(off, tabs)
+        want = pcilt_dwconv1d_ref(off, tabs)
+        torch.cuda.synchronize()
+        mx, ok = close(torch, got, want, 0.0, exact=True)
+        record("dwconv1d_host", what, mx, ok and float(got[0, 0, 0]) == 0.0,
+               "exact")
+
+
 def time_kernels(torch, ops, core, report):
     """Per-launch device time of each kernel at the decode shapes, beside
     its plain version, a library call and the least time the card could
@@ -529,7 +717,7 @@ def time_kernels(torch, ops, core, report):
             plain = [lambda l=l: ops.gemv_stacked_plain(
                 x, tabs, l, spec, scale, group, with_stats=stats)
                 for l in range(L)] * 2
-            k = timed(calls, "gemv_stacked_kernel")
+            k = timed(calls, GEMV_KERNEL)
             p = timed(plain)
             add(f"{key}{' counters' if stats else ''}", "gemv_stacked",
                 [L, G, 256, O], k, p, lib, bound, per_step[(key, stats)])
@@ -588,6 +776,143 @@ def time_kernels(torch, ops, core, report):
     del pool, shared, blocks, flush
     report["timing"] = rows
     return rows
+
+
+def time_slice3_kernels(torch, ops, report, rows):
+    """Phase 4 for the paired stacked GEMV (#8: the paired decode's wz and
+    wo at B = 4, on segment-major [G2, 24, 256, O] stacks, with and without
+    counters), the fused GEMV (#9: qwen3-0.6b's gate, 4-bit, group 2), the
+    paired GEMV (#10: the parity probe at wz's width) and the host-packed
+    dwconv (#12: the [4, 2048, 1792] single-layer signal, 2-bit, 4 taps):
+    kernel, plain version at the same shape, library call and bound."""
+    from repro_torch.core.offsets import pack_offsets
+    from repro_torch.core.pcilt import (build_grouped_tables,
+                                        build_paired_stacked_tables,
+                                        build_paired_tables)
+    from repro_torch.core.quantization import (QuantSpec, fake_quant,
+                                               quantize, scale_from_amax)
+    from repro_torch.kernels.ref import pcilt_dwconv1d_ref
+
+    dev = torch.device("cuda")
+    group, L = 2, N_LAYERS
+    spec2, spec4 = QuantSpec(2, True), QuantSpec(4, True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flush = L2Flush(torch)
+
+    def timed(calls, kernel=None):
+        return time_calls(torch, calls, flush, kernel,
+                          retries=report["profile_retries"])
+
+    def add(key, kernel, shape, k, plain, lib, nbytes, fetch_adds, launches,
+            per):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = fetch_adds / F32_OPS_PER_S * 1e3
+        rows[key] = {"kernel": kernel, "shape": shape, "ms": k["ms"],
+                     "warm_ms": k["warm_ms"], "events_ms": k["events_ms"],
+                     "plain_ms": plain["ms"], "plain_warm_ms": plain["warm_ms"],
+                     "plain_shape": "the kernel's", "library_ms": lib["ms"],
+                     "library_warm_ms": lib["warm_ms"],
+                     "library_call": LIB_NOTE[kernel],
+                     "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                     "bytes": nbytes, "fetch_adds": fetch_adds,
+                     f"launches_per_{per}": launches}
+        log(f"time  {kernel:19s} {key:26s} kernel {k['ms'] * 1e3:8.2f} us "
+            f"(warm {k['warm_ms'] * 1e3:8.2f})  plain "
+            f"{plain['ms'] * 1e3:9.2f} us  library {lib['ms'] * 1e3:8.2f} us"
+            f"  bound {max(b_ms, o_ms) * 1e3:7.2f} us "
+            f"({rows[key]['bound_by']})  x{launches}/{per}")
+
+    def gemv_bytes(x, off, O, out_rows):
+        """Distinct table rows this run's offsets fetch, x read once, the
+        output written once (float32)."""
+        uniq = sum(len(torch.unique(off[:, g])) for g in range(off.shape[1]))
+        return uniq * O * 4 + x.numel() * 4 + out_rows * O * 4
+
+    # -- #8 on the paired decode's stacks; launches per step as the engine
+    #    makes them (wz and wo share their shapes with wx and the counters)
+    per_step = {("wz", False): 24, ("wz", True): 24, ("wo", True): 24,
+                ("wo", False): 0}
+    for key, (G2, O) in PAIRED_SHAPES.items():
+        n = G2 * 2 * group
+        w = torch.randn(L, n, O, generator=gen, device=dev) * n ** -0.5
+        x = torch.randn(B, n, generator=gen, device=dev)
+        scale = float(scale_from_amax(0.8 * x.abs().max(), spec2))
+        stack = build_paired_stacked_tables(w, spec2, [scale] * L, group)
+        off = pack_offsets(quantize(x, spec2, scale), spec2.bits, 2 * group)
+        nbytes = gemv_bytes(x, off, O, B)
+        xq = fake_quant(x, spec2, scale)
+        lays = range(min(8, L))
+        lib = timed([lambda l=l: torch.matmul(xq, w[l]) for l in lays] * 4)
+        for stats in (False, True):
+            calls = [lambda l=l: ops.pcilt_fused_gemv_paired_stacked(
+                x, stack, l, spec2, scale, group, with_stats=stats)
+                for l in lays] * 4
+            plain = [lambda l=l: ops.gemv_paired_stacked_plain(
+                x, stack, l, spec2, scale, group, with_stats=stats)
+                for l in lays] * 2
+            add(f"paired {key}{' counters' if stats else ''}",
+                "gemv_paired_stacked", [G2, L, 256, O], timed(calls,
+                                                              GEMV_KERNEL),
+                timed(plain), lib, nbytes, B * G2 * O,
+                per_step[(key, stats)], "step")
+        del stack, w
+
+    # -- #9: qwen3-0.6b's gate projection (1.61 GB of float32 tables)
+    n, O = QWEN_D, QWEN_FF
+    w = torch.randn(n, O, generator=gen, device=dev) * n ** -0.5
+    xs = [torch.randn(B, n, generator=gen, device=dev) for _ in range(4)]
+    scale = float(scale_from_amax(0.8 * xs[0].abs().max(), spec4))
+    tabs = build_grouped_tables(w, spec4, scale, group)
+    nbytes = statistics.mean(gemv_bytes(
+        x, pack_offsets(quantize(x, spec4, scale), 4, group), O, B)
+        for x in xs)
+    xqs = [fake_quant(x, spec4, scale) for x in xs]
+    lib = timed([lambda q=q: torch.matmul(q, w) for q in xqs] * 4)
+    k = timed([lambda x=x: ops.pcilt_fused_gemv(x, tabs, spec4, scale, group)
+               for x in xs] * 4, GEMV_KERNEL)
+    p = timed([lambda x=x: ops.fused_gemv_plain(x, tabs, spec4, scale, group)
+               for x in xs] * 2)
+    add("fused_gemv gate", "fused_gemv", [n // group, 256, O], k, p, lib,
+        nbytes, B * (n // group) * O, 1, "projection")
+    del tabs, w
+
+    # -- #10: the parity probe at wz's width, [4, 768] -> 1536, 2-bit
+    n, O = 768, 1536
+    w = torch.randn(n, O, generator=gen, device=dev) * n ** -0.5
+    xs = [torch.randn(B, n, generator=gen, device=dev) for _ in range(4)]
+    scale = float(scale_from_amax(0.8 * xs[0].abs().max(), spec2))
+    tabs = build_paired_tables(w, spec2, scale, group)
+    nbytes = statistics.mean(gemv_bytes(
+        x, pack_offsets(quantize(x, spec2, scale), 2, 2 * group), O, B)
+        for x in xs)
+    xqs = [fake_quant(x, spec2, scale) for x in xs]
+    lib = timed([lambda q=q: torch.matmul(q, w) for q in xqs] * 4)
+    k = timed([lambda x=x: ops.pcilt_fused_gemv_paired(
+        x, tabs, spec2, scale, group) for x in xs] * 4, GEMV_KERNEL)
+    p = timed([lambda x=x: ops.gemv_paired_plain(x, tabs, spec2, scale,
+                                                 group) for x in xs] * 2)
+    add("gemv_paired wz", "gemv_paired", [n // (2 * group), 256, O], k, p,
+        lib, nbytes, B * (n // (2 * group)) * O, 1, "probe")
+    del tabs, w
+
+    # -- #12: the single-layer signal's offsets, [4, 2048, 1792], V = 256
+    V = 1 << (spec2.bits * CONV_K)
+    tabs = torch.randn(CONV_C, V, generator=gen, device=dev)
+    x = torch.randn(B, CONV_T + CONV_K - 1, CONV_C, generator=gen, device=dev)
+    codes = quantize(x, spec2, float(scale_from_amax(x.abs().max(), spec2)))
+    codes = codes.int()
+    off = sum(codes[:, j:j + CONV_T] << (spec2.bits * j)
+              for j in range(CONV_K)).contiguous()
+    idx = (torch.arange(CONV_C, device=dev) * V + off.long()).contiguous()
+    cells = len(torch.unique(idx))
+    nbytes = cells * 4 + off.numel() * 4 + off.numel() * 4
+    lib = timed([lambda: torch.take(tabs, idx)] * 4)
+    k = timed([lambda: ops.pcilt_dwconv1d(off, tabs)] * 4, DWCONV_HOST_KERNEL)
+    p = timed([lambda: pcilt_dwconv1d_ref(off, tabs)] * 2)
+    add("dwconv1d_host signal", "dwconv1d_host", [B, CONV_T, CONV_C, V], k, p,
+        lib, nbytes, 0, 1, "layer call")
+    del tabs, x, off, idx, flush
 
 
 def paper_cnn_setup(torch):
@@ -771,9 +1096,14 @@ def serve(torch, ops, report):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     conv = dict(eng.convert_timings)
+    head = eng.pdecode.pcilt["head"]
+    head_bytes = head["pool"].numel() * head["pool"].element_size()
     log(f"engine: set-up {setup_s:.1f} s; conversion "
         + ", ".join(f"{k} {v:.1f}" for k, v in conv.items())
-        + f"; table bytes {eng.pdecode.table_bytes() / 2**30:.2f} GiB")
+        + f"; table bytes (conv + projection stacks) "
+        f"{eng.pdecode.table_bytes() / 2**30:.2f} GiB")
+    log(f"head pool bytes: {head_bytes} ({head_bytes / 2**30:.2f} GiB, "
+        f"{head['pool'].shape[0]} segments)")
     reqs = make_requests(cfg, 4, 8, seed=0)
     ops.reset_launches()
     stats = eng.run(reqs)
@@ -806,12 +1136,13 @@ def serve(torch, ops, report):
                        "wall_s": stats["wall_s"], "tokens": gen_tokens,
                        "launches": launches, "launches_per_step": per_step,
                        "table_bytes": eng.pdecode.table_bytes(),
+                       "head_pool_bytes": head_bytes,
                        "outputs": [r.out for r in reqs]}
     oracle_check(torch, ops, eng, report)
     return launches
 
 
-def oracle_check(torch, ops, eng, report):
+def oracle_check(torch, ops, eng, report, key="oracle"):
     """One decode step through the kernels against the dense fake-quant
     oracle on the same state: every layer and the head demoted, so each
     projection is a float32 matmul on fake-quantized inputs, each conv an
@@ -849,9 +1180,9 @@ def oracle_check(torch, ops, eng, report):
     log(f"oracle: max |logit - oracle| {err:.3e} (tol {tol:.3e}, max |logit| "
         f"{float(want.abs().max()):.3f}); argmax equal on "
         f"{int(agree.sum())}/{B} rows, near-ties {int((~decided).sum())}")
-    report["oracle"] = {"max_abs_err": err, "tol": tol,
-                        "argmax_equal": int(agree.sum()),
-                        "near_ties": int((~decided).sum())}
+    report[key] = {"max_abs_err": err, "tol": tol,
+                   "argmax_equal": int(agree.sum()),
+                   "near_ties": int((~decided).sum())}
     require(bool(torch.isfinite(got).all()), "non-finite logits")
     require(err <= tol, "decode step disagrees with the dense oracle")
     require(bool((agree | (~decided & tie_ok)).all()),
@@ -1027,6 +1358,311 @@ def paper_cnn(torch, ops, report):
 
 
 # ----------------------------------------------------------------------------
+# phase 7: paired (TL1) decode at full width
+# ----------------------------------------------------------------------------
+
+
+def _step_times(torch, ops, step, reps=3):
+    """Median host seconds of ``reps`` synchronised calls of ``step`` (after
+    one warm call), the launches of one call, and the device time of one
+    call (the sum of its kernels' profiler device time)."""
+    step()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    ops.reset_launches()
+    step()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    dev_us = sum(t for _, t in _profile(torch, step).values())
+    return statistics.median(secs), launches, dev_us / 1e6
+
+
+def serve_paired(torch, ops, report):
+    """Paired decode at full width and depth: mamba2-130m,
+    ``PCILTConfig(act_bits=2, group=2)``, float32 tables, shared-pool head,
+    converted by ``convert_mamba_decode(paired=True)`` and served by
+    ``Engine(pcilt_bundle=...)`` (4 slots, 4 requests of 8 new tokens,
+    sentinel counters on); then the median of three decode steps at B = 4,
+    dense, unpaired (kernel 1) and paired (kernel 8), and one step against
+    the dense fake-quant oracle.  Returns the path's launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PCILTConfig
+    from repro_torch.core.serving import convert_mamba_decode
+    from repro_torch.launch.serve import Engine, make_requests
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import materialize
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              pcilt=PCILTConfig(act_bits=2, group=2),
+                              dtype=torch.float32)
+    out = {"config": "mamba2-130m, act_bits 2, group 2, float32, paired, "
+                     "head shared"}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = materialize(model.param_specs(), 0, "cuda")
+    calib = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 16)))
+    conv = {}
+    t0 = time.perf_counter()
+    dec = convert_mamba_decode(model, params, calib, paired=True,
+                               head="shared", timings=conv, device="cuda")
+    conv["convert_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = Engine(cfg, slots=B, pcilt=True, params=params,
+                 pcilt_bundle=dec.pcilt, device="cuda")
+    torch.cuda.synchronize()
+    conv["engine_load_verify_s"] = time.perf_counter() - t0
+    proj = dec.pcilt["proj"]
+    head = dec.pcilt["head"]
+    tbytes = dec.table_bytes()
+    head_bytes = head["pool"].numel() * head["pool"].element_size()
+    shapes = {k: list(t.shape) for k, t in proj["tables"].items()}
+    log("paired conversion: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in conv.items()))
+    log(f"paired tables (conv + projection stacks): {tbytes / 2**30:.2f} GiB;"
+        f" segment-major stacks {shapes}")
+    log(f"head pool bytes: {head_bytes} ({head_bytes / 2**30:.2f} GiB, "
+        f"{head['pool'].shape[0]} segments)")
+    require(proj["paired"] and all(s[1] == cfg.n_layers and s[2] == 256
+                                   for s in shapes.values()),
+            f"not segment-major paired stacks: {shapes}")
+
+    reqs = make_requests(cfg, 4, 8, seed=0)
+    ops.reset_launches()
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    steps = stats["decode_ticks"] + stats["prefill_ticks"]
+    per_step = {k: v / steps for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(eng.step_seconds)
+    log(f"paired: served {stats['served']}/{len(reqs)} requests, {steps} "
+        f"steps in {stats['wall_s']:.2f} s; median step {med * 1e3:.2f} ms "
+        f"({B / med:.1f} tokens/s over {B} slots); peak memory allocated "
+        f"{peak / 2**30:.2f} GiB")
+    log("paired launches per step: " + ", ".join(
+        f"{k} {v:g}" for k, v in per_step.items()))
+    for r in reqs:
+        log(f"  req {r.rid}: prompt {len(r.prompt)} -> {r.out}")
+    require(stats["served"] == len(reqs), "not every request was served")
+    require(all(len(r.out) == 8 and all(0 <= t < cfg.vocab for t in r.out)
+                for r in reqs), "generated tokens out of range")
+    require(per_step == {"gemv_paired_stacked": 144, "dwconv1d": 24,
+                         "shared_gemv": 1},
+            f"paired path did not run through the kernels: {per_step}")
+    require(stats["table_bytes"] == tbytes, "engine and bundle table bytes "
+            "differ")
+    out.update(convert=conv, table_bytes=tbytes, head_pool_bytes=head_bytes,
+               stack_shapes=shapes, peak_bytes=peak, steps=steps,
+               median_step_s=med, step_seconds=eng.step_seconds,
+               launches=launches, launches_per_step=per_step,
+               saturation=stats.get("saturation"),
+               outputs=[r.out for r in reqs])
+    report["serve_paired"] = out
+    oracle_check(torch, ops, eng, report, "paired_oracle")
+
+    # the step at B = 4: dense, unpaired (kernel 1) and paired (kernel 8)
+    unpaired = convert_mamba_decode(model, params, calib, head="shared",
+                                    device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cache = {"layers": {k: torch.randn(t.shape, generator=gen,
+                                       device="cuda") * 0.1
+                        for k, t in eng.cache["layers"].items()}}
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda")
+    variants = {"dense": None, "unpaired": unpaired.pcilt,
+                "paired": dec.pcilt}
+    want = {"dense": {}, "unpaired": {"gemv_stacked": 144, "dwconv1d": 24,
+                                      "shared_gemv": 1},
+            "paired": {"gemv_paired_stacked": 144, "dwconv1d": 24,
+                       "shared_gemv": 1}}
+    cmp = {}
+    with torch.no_grad():
+        for name, pc in variants.items():
+            s, ln, dev_s = _step_times(torch, ops, lambda pc=pc: model
+                                       .decode_step(params, cache, tok,
+                                                    pcilt=pc))
+            cmp[name] = {"median_step_s": s, "launches": ln,
+                         "device_s": dev_s, "device_share": dev_s / s}
+            log(f"step B{B} {name:8s}: median {s * 1e3:8.2f} ms, device "
+                f"time {dev_s * 1e3:7.2f} ms ({100 * dev_s / s:5.1f}% "
+                f"busy), launches {ln}")
+            require(ln == want[name], f"{name} step launches {ln}")
+    out["step_compare"] = cmp
+    unpaired_bytes = unpaired.table_bytes()
+    out["unpaired_table_bytes"] = unpaired_bytes
+    del unpaired, variants, eng, dec
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 8: exact-grid paired parity
+# ----------------------------------------------------------------------------
+
+
+def paired_parity(torch, ops, report):
+    """``decode_e2e_pr8``'s probe (``benchmarks/run.py``): integer weights,
+    scale 0.5, 2-bit symmetric codes; ``pcilt_linear(path="fused")`` on
+    ``[G, V, O]`` (kernel 9) and ``pcilt_linear(paired=True,
+    path="fused")`` on ``[G2, V2, O]`` (kernel 10) must be bit-equal, at
+    the probe's ``[4, 64] -> 128`` and at wz's ``[4, 768] -> 1536``.
+    Returns the launches."""
+    from repro_torch.core.lut_layers import pcilt_linear
+    from repro_torch.core.pcilt import build_grouped_tables, build_paired_tables
+    from repro_torch.core.quantization import QuantSpec
+
+    spec = QuantSpec(2, True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+    for n, O in [(64, 128), (768, 1536)]:
+        kw = torch.randint(-2, 3, (n, O), generator=gen,
+                           device="cuda").float()
+        xs = torch.randint(-2, 2, (B, n), generator=gen,
+                           device="cuda").float()
+        cases.append((n, O, xs, build_grouped_tables(kw, spec, 0.5, 2),
+                      build_paired_tables(kw, spec, 0.5, 2)))
+    ops.reset_launches()
+    outs = [(pcilt_linear(xs, tu, spec, 0.5, 2, path="fused"),
+             pcilt_linear(xs, tp, spec, 0.5, 2, path="fused", paired=True))
+            for _, _, xs, tu, tp in cases]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    res = []
+    for (n, O, xs, tu, tp), (ou, op) in zip(cases, outs):
+        diff = float((ou - op).abs().max())
+        plain = ops.fused_gemv_plain(xs, tu, spec, 0.5, 2)
+        res.append({"shape": f"[{B}, {n}] -> {O}", "max_abs_diff": diff,
+                    "equal_plain": bool(torch.equal(ou, plain))})
+        log(f"paired parity [{B}, {n}] -> {O}: max |paired - unpaired| "
+            f"{diff} (bit-exact contract: 0); unpaired equals its plain "
+            f"version: {res[-1]['equal_plain']}")
+        require(torch.equal(ou, op), f"paired parity broken at {n}->{O}")
+        require(res[-1]["equal_plain"], "fused GEMV differs from its plain "
+                "version on the exact grid")
+    log(f"  launches: {launches}")
+    require(launches == {"fused_gemv": 2, "gemv_paired": 2},
+            f"parity probe did not run through kernels 9 and 10: {launches}")
+    report["paired_parity"] = {"cases": res, "launches": launches}
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 9: the single-layer API at full published widths
+# ----------------------------------------------------------------------------
+
+
+def single_layers(torch, ops, report):
+    """``convert_kernel`` -> ``PCILTLinear`` on qwen3-0.6b's MLP (d 1024,
+    d_ff 3072, 4-bit activations, group 2: 1.61 GB of float32 tables per
+    projection) through ``path="fused"`` at B = 4, each projection against
+    the dense product on the quantized grid; ``convert_dwconv`` ->
+    ``PCILTDwConv1d`` on mamba2-130m's conv frontend (C 1792, k 4, 2-bit)
+    on a seeded [4, 2048, 1792] signal through ``path="kernel"``, against
+    ``path="fused"`` (equal from t >= k - 1) and against its plain
+    version.  Returns the launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.offsets import pack_offsets
+    from repro_torch.core.quantization import (QuantSpec, calibrate,
+                                               fake_quant, quantize)
+    from repro_torch.core.serving import (convert_dwconv, convert_kernel,
+                                          mlp_table_bytes)
+    from repro_torch.kernels.ref import pcilt_dwconv1d_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    spec4, spec2 = QuantSpec(4, True), QuantSpec(2, True)
+    out = {}
+    with torch.no_grad():
+        ws = {"gate": torch.randn(QWEN_D, QWEN_FF, generator=gen,
+                                  device="cuda") * QWEN_D ** -0.5,
+              "up": torch.randn(QWEN_D, QWEN_FF, generator=gen,
+                                device="cuda") * QWEN_D ** -0.5,
+              "down": torch.randn(QWEN_FF, QWEN_D, generator=gen,
+                                  device="cuda") * QWEN_FF ** -0.5}
+        x = torch.randn(B, QWEN_D, generator=gen, device="cuda")
+        t0 = time.perf_counter()
+        s_in = float(calibrate(x, spec4))
+        gate = convert_kernel(ws["gate"], spec4, s_in, 2)
+        up = convert_kernel(ws["up"], spec4, s_in, 2)
+        torch.cuda.synchronize()
+        # the down projection's input comes from the fused gate and up
+        ops.reset_launches()
+        g, u = gate(x, path="fused"), up(x, path="fused")
+        h = F.silu(g) * u
+        s_h = float(calibrate(h, spec4))
+        down = convert_kernel(ws["down"], spec4, s_h, 2)
+        y = down(h, path="fused")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        tb = {n_: lay.table_bytes() for n_, lay in
+              (("gate", gate), ("up", up), ("down", down))}
+        log(f"qwen3-0.6b MLP ({QWEN_D} -> {QWEN_FF} -> {QWEN_D}), 4-bit, "
+            f"group 2: tables " + ", ".join(f"{k} {v / 1e9:.2f} GB"
+                                            for k, v in tb.items())
+            + f"; built and run in {build_s:.1f} s; launches {launches}")
+        require(sum(tb.values()) == mlp_table_bytes(QWEN_D, QWEN_FF, 4, 2, 4),
+                "MLP table bytes differ from mlp_table_bytes")
+        layers = []
+        for name, got, xin, s in (("gate", g, x, s_in), ("up", u, x, s_in),
+                                  ("down", y, h, s_h)):
+            want = fake_quant(xin, spec4, s) @ ws[name]
+            err = float((got - want).abs().max())
+            tol = 1e-4 * float(want.abs().max())
+            layers.append({"proj": name, "max_abs_err": err, "tol": tol})
+            log(f"  {name}: |fused - fake_quant(x) @ W| {err:.3e} (tol "
+                f"{tol:.3e} = 1e-4 max|dense|: float32 sums of up to "
+                f"{xin.shape[-1]} products in another order)")
+            require(err <= tol, f"PCILTLinear {name} disagrees with the dense "
+                    f"product on the quantized grid")
+        require(launches == {"fused_gemv": 3},
+                f"the MLP did not run through kernel 9: {launches}")
+        out["mlp"] = {"table_bytes": tb, "seconds": build_s,
+                      "layers": layers, "launches": launches}
+        del gate, up, down, ws
+
+        filt = torch.randn(CONV_K, CONV_C, generator=gen, device="cuda") * 0.5
+        sig = torch.randn(B, CONV_T, CONV_C, generator=gen, device="cuda")
+        s = float(calibrate(sig, spec2))
+        lay = convert_dwconv(filt, spec2, s)
+        ops.reset_launches()
+        yk = lay(sig, path="kernel")
+        torch.cuda.synchronize()
+        dl = {k: v for k, v in ops.LAUNCHES.items() if v}
+        yf = lay(sig, path="fused")
+        # CAUSAL: k - 1 code-0 rows in front, as the host-packed path pads
+        codes = F.pad(quantize(sig, spec2, s).int(), (0, 0, CONV_K - 1, 0))
+        off = pack_offsets(torch.stack([codes[:, j:j + CONV_T]
+                                        for j in range(CONV_K)], -1),
+                           spec2.bits, CONV_K)[..., 0]
+        plain = pcilt_dwconv1d_ref(off, lay.tables)
+        torch.cuda.synchronize()
+        edge = bool(torch.equal(yk[:, CONV_K - 1:], yf[:, CONV_K - 1:]))
+        exact = bool(torch.equal(yk, plain))
+        log(f"mamba2-130m conv frontend (C {CONV_C}, k {CONV_K}, 2-bit): "
+            f"tables {lay.table_bytes() / 2**20:.2f} MiB; kernel path on "
+            f"[{B}, {CONV_T}, {CONV_C}]: equals fused from t >= {CONV_K - 1}"
+            f" {edge}, equals its plain version {exact}; launches {dl}")
+        require(edge, "PCILTDwConv1d kernel path differs from the fused one")
+        require(exact, "PCILTDwConv1d kernel path differs from its plain "
+                "version")
+        require(dl == {"dwconv1d_host": 1},
+                f"the dwconv layer did not run through kernel 12: {dl}")
+        out["dwconv"] = {"table_bytes": lay.table_bytes(),
+                         "equal_fused_past_edge": edge,
+                         "equal_plain": exact, "launches": dl}
+    report["single_layers"] = out
+    return {**launches, **dl}
+
+
+# ----------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1068,19 +1704,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows = time_kernels(torch, ops, core, report)
     torch.cuda.empty_cache()
+    time_slice3_kernels(torch, ops, report, rows)
+    torch.cuda.empty_cache()
     time_conv_kernels(torch, ops, report, rows)
     log(f"profiles taken again: {len(report['profile_retries'])}")
-    torch.cuda.empty_cache()
+    # each path's launches, counted from 0 just before it runs
     launches = dict.fromkeys(ops.LAUNCHES, 0)
-    launches.update(serve(torch, ops, report))
+
+    def count(path_launches):
+        for k, v in path_launches.items():
+            launches[k] += v
+        gc.collect()
+        torch.cuda.empty_cache()
+
     torch.cuda.empty_cache()
-    launches.update(paper_cnn(torch, ops, report))
+    count(serve(torch, ops, report))
+    count(paper_cnn(torch, ops, report))
+    count(serve_paired(torch, ops, report))
+    count(paired_parity(torch, ops, report))
+    count(single_layers(torch, ops, report))
 
     primary = {"gemv_stacked": "wz,wx", "dwconv1d": "window counters",
                "shared_gemv": "head", "fused_conv2d": "fused_conv2d conv4",
                "shared_conv2d": "shared_conv2d conv4",
                "gemv_host": "gemv_host conv4",
-               "conv2d_host": "conv2d_host conv4"}
+               "conv2d_host": "conv2d_host conv4",
+               "gemv_paired_stacked": "paired wz",
+               "fused_gemv": "fused_gemv gate",
+               "gemv_paired": "gemv_paired wz",
+               "dwconv1d_host": "dwconv1d_host signal"}
     kernels = []
     for name, key in primary.items():
         r = rows[key]

@@ -6,9 +6,10 @@ from .quantization import (QuantSpec, scale_from_amax, calibrate, quantize,
 from .offsets import pack_offsets, unpack_offsets, offset_grid
 from .pcilt import (table_bytes, grouped_table_bytes, shared_table_bytes,
                     build_cost_multiplies, build_grouped_tables,
+                    build_paired_tables, build_paired_stacked_tables,
                     SharedGroupedTables,
                     build_shared_grouped_tables, table_checksum,
-                    stacked_checksums)
+                    layer_checksum, stacked_checksums)
 from .lut_layers import (conv_same_pads, lut_lookup, pcilt_linear, im2col,
                          pcilt_conv2d, build_dwconv_tables,
                          pcilt_depthwise_conv1d)

@@ -8,9 +8,15 @@ Paths of :func:`pcilt_linear`:
   matmul form of the lookup);
 * ``"kernel"`` — host-packed offsets through the host-packed GEMV kernel
   (``kernels.ops.pcilt_gemv``), the baseline the fused paths replace;
-* ``"fused"`` with ``stacked=layer`` — the layer-stacked fused GEMV kernel
-  over ``[L, G, V, O]`` tables (``kernels.ops.pcilt_fused_gemv_stacked``);
-  the layer is selected by pointer arithmetic, never copied;
+* ``"fused"`` — quantize, pack and fetch in one kernel: over ``[G, V, O]``
+  tables (``kernels.ops.pcilt_fused_gemv``) or, with ``stacked=layer``,
+  over ``[L, G, V, O]`` (``kernels.ops.pcilt_fused_gemv_stacked``); the
+  layer is selected by pointer arithmetic, never copied;
+* ``paired=True`` — TL1-style paired tables, two adjacent segments per
+  fetch: ``"fused"`` runs ``kernels.ops.pcilt_fused_gemv_paired`` (or, with
+  ``stacked=``, ``pcilt_fused_gemv_paired_stacked`` over the segment-major
+  ``[G2, L, V2, O]`` stack), the host-packed paths the paired table as a
+  grouped table of width ``2 * group``;
 * ``"shared"`` — the shared-pool fused GEMV over a
   :class:`~repro_torch.core.pcilt.SharedGroupedTables`
   (``kernels.ops.pcilt_shared_gemv``).
@@ -23,7 +29,8 @@ unsharded branches are ported.
 
 The depthwise conv1d maps the ``k`` taps of a channel onto one segment, so
 one fetch of ``T[c, pack(codes)]`` is one output (``path="fused"`` runs
-``kernels.ops.pcilt_fused_dwconv1d``).  ``return_stats`` returns the
+``kernels.ops.pcilt_fused_dwconv1d``, ``path="kernel"`` the host-packed
+``kernels.ops.pcilt_dwconv1d``).  ``return_stats`` returns the
 saturation ``(count, ratio)`` of the quantizer feeding the fetch; the kernel
 routes reduce them in the kernel, the others on the side.
 """
@@ -87,62 +94,161 @@ def lut_lookup(tables: torch.Tensor, offsets: torch.Tensor,
     raise ValueError(f"unknown path {path!r}")
 
 
+def _pad_paired_phantom(x: torch.Tensor, n_pairs: int,
+                        group: int) -> torch.Tensor:
+    """Zero-pad ``x`` over the phantom segment of an odd-``G`` pairing (its
+    table rows were built from zero weights, so any code fetches 0)."""
+    want = n_pairs * 2 * group
+    n = x.shape[-1]
+    if n == want:
+        return x
+    if n == want - group:
+        return F.pad(x, (0, group))
+    raise ValueError(
+        f"x trailing dim {n} matches neither G2*2*group = {want} nor the "
+        f"odd-G phantom layout {want - group} for paired tables with "
+        f"G2={n_pairs}, group={group}")
+
+
+def _flat_fetch(x: torch.Tensor, fn, O: int, return_stats: bool):
+    """Run a GEMV kernel wrapper ``fn(flat x)`` over ``x [..., n]`` and
+    restore the leading dims (the stats, when returned, pass through)."""
+    res = fn(x.reshape(-1, x.shape[-1]))
+    if return_stats:
+        out, count, ratio = res
+        return out.reshape(*x.shape[:-1], O), count, ratio
+    return res.reshape(*x.shape[:-1], O)
+
+
+def _pcilt_linear_paired(x, tables, spec, scale, group, path, stacked,
+                         return_stats):
+    """The paired (TL1-style) routes of :func:`pcilt_linear`: ``tables`` is
+    ``[G2, V2, out]`` or, with ``stacked=``, the segment-major
+    ``[G2, L, V2, out]`` stack.  ``x`` is zero-padded over the odd-``G``
+    phantom segment here; the host-packed paths run a paired table as a
+    grouped table of width ``2 * group``."""
+    from repro_torch.kernels import ops
+
+    if stacked is not None:
+        if tables.dim() != 4:
+            raise ValueError(
+                f"paired stacked= expects seg-major [G2, L, V2, O] tables "
+                f"(build_paired_stacked_tables), got shape "
+                f"{tuple(tables.shape)}")
+        G2, L, V2, O = tables.shape
+        x = _pad_paired_phantom(x, G2, group)
+        if path == "fused":
+            return _flat_fetch(
+                x, lambda f: ops.pcilt_fused_gemv_paired_stacked(
+                    f, tables, stacked, spec, scale, group,
+                    with_stats=return_stats), O, return_stats)
+        # the reference route: the layer's [G2, V2, O] slice (the host-packed
+        # kernel reads tables in place, so it gets a contiguous copy)
+        tab_l = tables[:, stacked]
+        if path == "kernel":
+            tab_l = tab_l.contiguous()
+        return pcilt_linear(x, tab_l, spec, scale, 2 * group, path=path,
+                            return_stats=return_stats)
+    if tables.dim() != 3:
+        raise ValueError(f"paired tables are [G2, V2, O] "
+                         f"(build_paired_tables), got shape "
+                         f"{tuple(tables.shape)}")
+    G2, V2, O = tables.shape
+    x = _pad_paired_phantom(x, G2, group)
+    if path == "fused":
+        return _flat_fetch(
+            x, lambda f: ops.pcilt_fused_gemv_paired(
+                f, tables, spec, scale, group, with_stats=return_stats), O,
+            return_stats)
+    return pcilt_linear(x, tables, spec, scale, 2 * group, path=path,
+                        return_stats=return_stats)
+
+
 def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
                  path: str = "gather", stacked: Optional[int] = None,
-                 return_stats: bool = False):
+                 paired: bool = False, return_stats: bool = False,
+                 plan=None):
     """Quantize -> pack offsets -> fetch -> sum: ``x [..., n] -> [..., out]``.
 
     ``tables`` is a dense ``[G, V, out]`` tensor, a layer-stacked
     ``[L, G, V, out]`` one with ``stacked=`` (the layer index, a host int),
-    or a :class:`SharedGroupedTables` pool.  With ``return_stats`` the call
-    returns ``(out, count, ratio)``."""
+    or a :class:`SharedGroupedTables` pool.  With ``paired=True`` it is a
+    paired ``[G2, V2, out]`` table (``build_paired_tables``) or, stacked,
+    the segment-major ``[G2, L, V2, out]`` stack
+    (``build_paired_stacked_tables``); ``x`` keeps the unpaired layout and
+    ``group`` the unpaired width.  ``path``: gather | onehot | kernel |
+    fused | shared.  With ``return_stats`` the call returns ``(out, count,
+    ratio)``; the fused stacked and paired kernels reduce them in the
+    kernel, every other route on the side.  Generalized ``SegmentPlan``s
+    (``plan=``) are not ported yet."""
+    if paired:
+        if plan is not None:
+            raise ValueError(
+                "paired tables pack adjacent contiguous segment pairs; "
+                "generalized SegmentPlans cannot pair — drop plan= or use "
+                "the unpaired paths")
+        if isinstance(tables, SharedGroupedTables):
+            raise ValueError(
+                "paired=True consumes dense paired [G2, V2, O] tables "
+                "(build_paired_tables); shared pools have no paired layout")
+        if path == "shared":
+            raise ValueError(
+                "path='shared' has no paired variant; paired tables run "
+                "path='fused' or the host-packed reference paths")
+        return _pcilt_linear_paired(x, tables, spec, scale, group, path,
+                                    stacked, return_stats)
+    if plan is not None:
+        raise ValueError("generalized SegmentPlans (plan=) are not ported "
+                         "yet; the port packs contiguous segments")
     if stacked is not None:
         if isinstance(tables, SharedGroupedTables) or tables.dim() != 4:
             raise ValueError(
                 f"stacked= executes layer-stacked dense [L, G, V, O] tables, "
                 f"got {type(tables).__name__} "
-                f"{getattr(tables, 'shape', '')}")
+                f"{tuple(getattr(tables, 'shape', ()))}")
         L, G, V, O = tables.shape
         if path == "fused":
             from repro_torch.kernels import ops
 
-            flat = x.reshape(-1, x.shape[-1])
-            res = ops.pcilt_fused_gemv_stacked(flat, tables, stacked, spec,
-                                               scale, group,
-                                               with_stats=return_stats)
-            if return_stats:
-                out, count, ratio = res
-                return out.reshape(*x.shape[:-1], O), count, ratio
-            return res.reshape(*x.shape[:-1], O)
+            return _flat_fetch(
+                x, lambda f: ops.pcilt_fused_gemv_stacked(
+                    f, tables, stacked, spec, scale, group,
+                    with_stats=return_stats), O, return_stats)
         tables = tables[stacked]  # a view of the layer: the reference path
-    if path == "shared":
-        if not isinstance(tables, SharedGroupedTables):
-            raise ValueError(
-                "path='shared' executes a SharedGroupedTables pool; build one "
-                "with build_shared_grouped_tables (got dense tables)")
+    if path not in ("gather", "onehot", "kernel", "fused", "shared"):
+        raise ValueError(f"unknown path {path!r}")
+    shared = isinstance(tables, SharedGroupedTables)
+    if path == "shared" and not shared:
+        raise ValueError(
+            "path='shared' executes a SharedGroupedTables pool; build one "
+            "with build_shared_grouped_tables (got dense tables)")
+    if path == "fused" and shared:
+        raise ValueError(
+            "path='fused' consumes dense [G, V, O] tables; use "
+            "path='shared' for a SharedGroupedTables pool")
+    if shared and path not in ("shared", "gather"):
+        raise ValueError(f"SharedGroupedTables executes path='shared' or "
+                         f"'gather', not {path!r}")
+    if path in ("fused", "shared"):
         from repro_torch.kernels import ops
 
-        flat = x.reshape(-1, x.shape[-1])
-        out = ops.pcilt_shared_gemv(flat, tables.pool, tables.seg_idx, spec,
-                                    scale, tables.group)
-        out = out.reshape(*x.shape[:-1], tables.pool.shape[-1])
+        if shared:
+            out = _flat_fetch(x, lambda f: ops.pcilt_shared_gemv(
+                f, tables.pool, tables.seg_idx, spec, scale, tables.group),
+                tables.pool.shape[-1], False)
+        else:
+            out = _flat_fetch(x, lambda f: ops.pcilt_fused_gemv(
+                f, tables, spec, scale, group), tables.shape[-1], False)
         if return_stats:
             _, count, ratio = quantize_with_stats(x, spec, scale)
             return out, count, ratio
         return out
-    if path not in ("gather", "onehot", "kernel"):
-        raise ValueError(
-            f"path {path!r} is not ported: the port runs 'gather', 'onehot', "
-            f"'kernel', 'shared' and 'fused' with stacked=")
-    if isinstance(tables, SharedGroupedTables) and path != "gather":
-        raise ValueError(f"SharedGroupedTables executes path='shared' or "
-                         f"'gather', not {path!r}")
     if return_stats:
         codes, count, ratio = quantize_with_stats(x, spec, scale)
     else:
         codes = quantize(x, spec, scale)
     offsets = pack_offsets(codes, spec.bits, group)
-    if isinstance(tables, SharedGroupedTables):
+    if shared:
         out = tables.lookup(offsets)
     else:
         out = lut_lookup(tables, offsets, path)
@@ -282,8 +388,9 @@ def pcilt_depthwise_conv1d(x: torch.Tensor, filters: torch.Tensor,
     """Depthwise conv1d where one fetch produces one output element.
 
     ``x [B, T, C]``, ``filters [k, C]``; ``padding`` CAUSAL | SAME | VALID.
-    ``path="fused"`` runs the fused kernel wrapper; ``"gather"`` builds the
-    offset tensor explicitly."""
+    ``path="fused"`` runs the fused kernel wrapper; ``"gather"``,
+    ``"onehot"`` and ``"kernel"`` (the host-packed kernel,
+    ``kernels.ops.pcilt_dwconv1d``) build the offset tensor explicitly."""
     k, C = filters.shape
     if tables is None:
         tables = build_dwconv_tables(filters, spec, scale)
@@ -293,17 +400,27 @@ def pcilt_depthwise_conv1d(x: torch.Tensor, filters: torch.Tensor,
         return ops.pcilt_fused_dwconv1d(x, tables, spec, scale, k,
                                         padding=padding,
                                         with_stats=return_stats)
-    if path != "gather":
+    if path not in ("gather", "onehot", "kernel"):
         raise ValueError(f"unknown path {path!r}")
     if return_stats:
         codes, count, ratio = quantize_with_stats(x, spec, scale)
     else:
         codes = quantize(x, spec, scale)
     lo, hi = _dwconv_pads(k, padding)
-    padded = torch.nn.functional.pad(codes.to(torch.int32), (0, 0, lo, hi))
+    # the reference pads the codes with 0 here (not the signal with 0.0,
+    # as the fused kernel does): the two differ at CAUSAL/SAME edges
+    padded = F.pad(codes.to(torch.int32), (0, 0, lo, hi))
     To = padded.shape[1] - k + 1
     off = sum(padded[:, j:j + To] << (j * spec.bits) for j in range(k))
-    out = tables[torch.arange(C, device=tables.device), off.long()]
+    if path == "gather":
+        out = tables[torch.arange(C, device=tables.device), off.long()]
+    elif path == "onehot":
+        oh = F.one_hot(off.long(), tables.shape[-1]).to(tables.dtype)
+        out = torch.einsum("btcv,cv->btc", oh, tables)
+    else:
+        from repro_torch.kernels import ops
+
+        out = ops.pcilt_dwconv1d(off.contiguous(), tables)
     if return_stats:
         return out, count, ratio
     return out

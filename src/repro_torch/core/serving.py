@@ -1,5 +1,10 @@
 """PCILT serving conversion (port of parts of ``repro.core.serving``): the
-Mamba decode path and the converted conv2d layer.
+Mamba decode path and the converted single layers.
+
+:class:`PCILTLinear` / :func:`convert_kernel` convert one ``[d_in, d_out]``
+projection (dense grouped tables and/or an extension-3 pool) and
+:class:`PCILTDwConv1d` / :func:`convert_dwconv` one depthwise-conv1d
+frontend; each call runs one fetch path.
 
 :class:`PCILTConv2d` / :func:`convert_conv_kernel` hoist a convolution's
 table build out of serving: the filter is flattened and aligned to the
@@ -10,7 +15,8 @@ without the reference's ``tune`` (no autotune cache in the port yet).
 :func:`convert_mamba_decode` is the once-per-lifetime build: calibrate on a
 prefill pass, build the conv, projection and head tables, record their
 CRC-32s, and wrap the bundle in a :class:`PCILTMambaDecode` that verifies the
-record at load.  The health monitor, recalibration and the checkpoint ring
+record at load; ``paired=True`` builds segment-major paired projection
+stacks (two segments per fetch).  The health monitor, recalibration and the checkpoint ring
 of the reference wait for a later slice.
 """
 
@@ -20,15 +26,24 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .lut_layers import flatten_filters, pcilt_conv2d
+from .lut_layers import (build_dwconv_tables, flatten_filters, pcilt_conv2d,
+                         pcilt_depthwise_conv1d, pcilt_linear)
 from .pcilt import (SharedGroupedTables, build_grouped_tables,
-                    build_shared_grouped_tables, stacked_checksums,
-                    table_checksum)
+                    build_shared_grouped_tables, layer_checksum,
+                    stacked_checksums, table_checksum)
 from .quantization import (QuantSpec, calibrate, dequantize, quantize,
                            scale_from_amax)
 
 __all__ = ["pcilt_integrity", "PCILTMambaDecode", "convert_mamba_decode",
-           "PCILTConv2d", "convert_conv_kernel"]
+           "PCILTLinear", "convert_kernel", "PCILTConv2d",
+           "convert_conv_kernel", "PCILTDwConv1d", "convert_dwconv",
+           "pcilt_apply", "mlp_table_bytes"]
+
+
+def _proj_axis(proj: Dict) -> int:
+    """The layer axis of a bundle's projection stacks: 0 for layer-major
+    ``[L, G, V, O]``, 1 for segment-major paired ``[G2, L, V2, O]``."""
+    return 1 if proj.get("paired") else 0
 
 
 def pcilt_integrity(pcilt: Dict) -> Dict:
@@ -38,7 +53,8 @@ def pcilt_integrity(pcilt: Dict) -> Dict:
     integ: Dict[str, Any] = {"conv": stacked_checksums(pcilt["tables"])}
     proj = pcilt.get("proj")
     if proj is not None:
-        integ["proj"] = {name: stacked_checksums(t)
+        axis = _proj_axis(proj)
+        integ["proj"] = {name: stacked_checksums(t, axis)
                          for name, t in proj["tables"].items()}
     head = pcilt.get("head")
     if head is not None:
@@ -82,8 +98,10 @@ class PCILTMambaDecode:
             bad.append(("conv", int(layer)))
         proj = self.pcilt.get("proj")
         if proj is not None:
+            axis = _proj_axis(proj)
             for name, t in proj["tables"].items():
-                if table_checksum(t[layer]) != integ["proj"][name][layer]:
+                if layer_checksum(t, layer, axis) != \
+                        integ["proj"][name][layer]:
                     bad.append((name, int(layer)))
         return bad
 
@@ -108,7 +126,8 @@ class PCILTMambaDecode:
         proj = self.pcilt.get("proj")
         names = list(proj["tables"]) if proj is not None else []
         for name in names:
-            got[name] = stacked_checksums(proj["tables"][name])
+            got[name] = stacked_checksums(proj["tables"][name],
+                                          _proj_axis(proj))
         bad: List[Tuple] = []
         for l in range(len(got["conv"])):
             if got["conv"][l] != integ["conv"][l]:
@@ -118,31 +137,30 @@ class PCILTMambaDecode:
         return bad + self.verify_head()
 
     def table_bytes(self) -> int:
-        """Bytes of every table the converted decode deploys."""
-        def nbytes(t):
-            return t.numel() * t.element_size()
-
-        total = nbytes(self.pcilt["tables"])
+        """Bytes of the conv and projection stacks (the reference's count;
+        the head's pool is not included)."""
+        total = _nbytes(self.pcilt["tables"])
         proj = self.pcilt.get("proj")
         if proj is not None:
-            total += sum(nbytes(t) for t in proj["tables"].values())
-        head = self.pcilt.get("head")
-        if head is not None:
-            total += nbytes(head["pool"]) + nbytes(head["seg_idx"])
+            total += sum(_nbytes(t) for t in proj["tables"].values())
         return total
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
-                         table_dtype=torch.float32,
+                         table_dtype=torch.float32, paired: bool = False,
                          head: Optional[str] = None,
                          timings: Optional[Dict[str, float]] = None,
                          device="cuda") -> PCILTMambaDecode:
     """Offline full-PCILT conversion of a ``MambaLM`` decode step on
     ``device`` (where ``params`` must lie): calibrate on ``calib_tokens
-    [B, S]``, build the conv and projection stacks (and with
-    ``head="shared"`` the shared-pool head), record the CRC-32s, verify them
-    at load.  With ``timings`` (a dict) the seconds of each phase are stored
-    there."""
+    [B, S]``, build the conv and projection stacks (segment-major paired
+    stacks with ``paired``; with ``head="shared"`` also the shared-pool
+    head), record the CRC-32s, verify them at load.  With ``timings`` (a
+    dict) the seconds of each phase are stored there."""
     import time
 
     from repro_torch.interop import resolve_device
@@ -183,7 +201,7 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
             params, to_scale(amax["conv_in"]), proj_scales=proj_scales,
             table_dtype=table_dtype,
             head_scale=to_scale(amax["head_in"]) if head == "shared" else None,
-            record_integrity=False)
+            record_integrity=False, paired=paired)
     lap("build_s", t0)
     t0 = time.perf_counter()
     pcilt["integrity"] = pcilt_integrity(pcilt)
@@ -194,25 +212,16 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
     return dec
 
 
-class PCILTConv2d:
-    """A converted convolution: the filter with its pre-built dense tables
-    and/or extension-3 pool.  ``layer(x, path)`` runs
-    :func:`~repro_torch.core.lut_layers.pcilt_conv2d` on them (default
-    ``"fused"``); a shared-only layer runs ``"shared"`` or ``"gather"``."""
+class _TabledLayer:
+    """What a converted linear or conv layer holds: dense grouped tables
+    ``[G, V, O]`` and/or an extension-3 shared pool.  A shared-only layer
+    runs ``"shared"`` or ``"gather"``; a dense-only one every other path."""
 
-    def __init__(self, filters: torch.Tensor, spec: QuantSpec, scale,
-                 group: int, stride: int = 1, padding: str = "SAME",
-                 tables: Optional[torch.Tensor] = None,
-                 shared: Optional[SharedGroupedTables] = None):
+    def __init__(self, tables: Optional[torch.Tensor],
+                 shared: Optional[SharedGroupedTables]):
         if tables is None and shared is None:
-            raise ValueError("PCILTConv2d needs dense tables, a shared pool, "
-                             "or both")
-        self.filters = filters
-        self.spec = spec
-        self.scale = scale
-        self.group = group
-        self.stride = stride
-        self.padding = padding
+            raise ValueError(f"{type(self).__name__} needs dense tables, a "
+                             f"shared pool, or both")
         self.tables = tables
         self.shared = shared
 
@@ -222,6 +231,13 @@ class PCILTConv2d:
             return self.tables.shape[0]
         return self.shared.n_segments
 
+    def table_bytes(self) -> int:
+        """Bytes of the representation this layer deploys (the shared pool
+        when present)."""
+        if self.shared is not None:
+            return self.shared.pool_bytes()
+        return _nbytes(self.tables)
+
     def _tables_for(self, path: str):
         if path == "shared" or (self.tables is None and path == "gather"):
             if self.shared is None:
@@ -230,14 +246,156 @@ class PCILTConv2d:
             return self.shared
         if self.tables is None:
             raise ValueError(
-                f"shared-only PCILTConv2d executes path='shared' or "
-                f"'gather', not {path!r}")
+                f"shared-only {type(self).__name__} executes path='shared' "
+                f"or 'gather', not {path!r}")
         return self.tables
 
-    def table_bytes(self) -> int:
+
+class PCILTLinear(_TabledLayer):
+    """A converted projection: dense grouped tables ``[G, V, O]`` and/or an
+    extension-3 shared pool, plus the activation quantizer.  A call runs
+    :func:`~repro_torch.core.lut_layers.pcilt_linear` on one path
+    (``"fused"`` is one kernel launch).  Unsharded, without the reference's
+    ``tune``."""
+
+    def __init__(self, tables: Optional[torch.Tensor], spec: QuantSpec,
+                 scale, group: int,
+                 shared: Optional[SharedGroupedTables] = None):
+        super().__init__(tables, shared)
+        self.spec = spec
+        self.scale = scale
+        self.group = group
+        #: conversion-time CRC-32 record, verified by verify_integrity
+        self.integrity: Dict[str, int] = {}
+        if tables is not None:
+            self.integrity["tables"] = table_checksum(tables)
+        if shared is not None:
+            self.integrity["pool"] = table_checksum(shared.pool)
+            self.integrity["seg_idx"] = table_checksum(shared.seg_idx)
+
+    def verify_integrity(self) -> Dict[str, bool]:
+        """Each held table's checksum against the conversion-time record;
+        False marks a corrupted one."""
+        cur = {}
+        if self.tables is not None:
+            cur["tables"] = table_checksum(self.tables)
         if self.shared is not None:
-            return self.shared.pool_bytes()
-        return self.tables.numel() * self.tables.element_size()
+            cur["pool"] = table_checksum(self.shared.pool)
+            cur["seg_idx"] = table_checksum(self.shared.seg_idx)
+        return {k: cur[k] == v for k, v in self.integrity.items()}
+
+    def _pad_x(self, x: torch.Tensor) -> torch.Tensor:
+        pad = self.n_segments * self.group - x.shape[-1]
+        if pad:  # group-alignment slots: table rows built from zero weights
+            x = torch.cat([x, x.new_zeros((*x.shape[:-1], pad))], -1)
+        return x
+
+    def __call__(self, x: torch.Tensor, path: str = "gather") -> torch.Tensor:
+        return pcilt_linear(self._pad_x(x), self._tables_for(path), self.spec,
+                            self.scale, self.group, path=path)
+
+
+def _quantize_weights(k: torch.Tensor, weight_bits: Optional[int]):
+    """With ``weight_bits``, the weights on a symmetric absmax grid
+    (fewer distinct values, the precondition of extension-3 sharing)."""
+    if not weight_bits:
+        return k
+    wspec = QuantSpec(bits=weight_bits, symmetric=True)
+    wscale = calibrate(k, wspec)
+    return dequantize(quantize(k, wspec, wscale), wspec, wscale)
+
+
+def convert_kernel(kernel: torch.Tensor, act_spec: QuantSpec, act_scale,
+                   group: int, weight_bits: Optional[int] = None,
+                   shared: bool = False) -> PCILTLinear:
+    """Offline build for one ``[d_in, d_out]`` kernel, on the kernel's
+    device: with ``weight_bits`` the weights are first quantized; the
+    reduction dim is aligned to ``group`` with zero weights, and the dense
+    grouped tables (or with ``shared`` the segment-deduplicated pool) are
+    built once."""
+    k = kernel.float()
+    if kernel.dim() > 2:
+        k = k.reshape(kernel.shape[0], -1)
+    k = _quantize_weights(k, weight_bits)
+    n, out = k.shape
+    pad = (-n) % group
+    if pad:
+        k = torch.cat([k, k.new_zeros((pad, out))], 0)
+    with torch.no_grad():
+        if shared:
+            pool = build_shared_grouped_tables(k, act_spec, act_scale, group)
+            return PCILTLinear(None, act_spec, act_scale, group, shared=pool)
+        tables = build_grouped_tables(k, act_spec, act_scale, group)
+    return PCILTLinear(tables, act_spec, act_scale, group)
+
+
+class PCILTDwConv1d:
+    """A converted depthwise-conv1d frontend: the ``[C, V]`` per-channel
+    tables are built once and every call makes one fetch per output
+    (``"fused"``: quantize, tap-stack, pack and fetch in one kernel;
+    ``"kernel"``: host-packed offsets through the host-packed kernel;
+    ``"gather"``/``"onehot"``: the reference fetches).  Without the
+    reference's ``tune``."""
+
+    def __init__(self, filters: torch.Tensor, spec: QuantSpec, scale,
+                 tables: Optional[torch.Tensor] = None):
+        self.filters = filters
+        self.spec = spec
+        self.scale = scale
+        self.k = int(filters.shape[0])
+        if tables is None:
+            with torch.no_grad():
+                tables = build_dwconv_tables(filters, spec, scale)
+        self.tables = tables
+
+    def table_bytes(self) -> int:
+        return _nbytes(self.tables)
+
+    def __call__(self, x: torch.Tensor, path: str = "fused",
+                 padding: str = "CAUSAL") -> torch.Tensor:
+        return pcilt_depthwise_conv1d(x, self.filters, self.spec, self.scale,
+                                      tables=self.tables, path=path,
+                                      padding=padding)
+
+
+def convert_dwconv(filters: torch.Tensor, act_spec: QuantSpec,
+                   act_scale) -> PCILTDwConv1d:
+    """Offline build for one ``[k, C]`` depthwise-conv1d filter: per-channel
+    ``[C, 2**(bits*k)]`` tables, built once on the filter's device."""
+    return PCILTDwConv1d(filters, act_spec, act_scale)
+
+
+def pcilt_apply(lin: PCILTLinear, x: torch.Tensor, path: str = "gather"):
+    return lin(x, path=path)
+
+
+def mlp_table_bytes(d_model: int, d_ff: int, act_bits: int, group: int,
+                    value_bytes: int = 2) -> int:
+    """Per-layer table memory of a gated MLP (3 kernels): each ``[n, out]``
+    kernel becomes ``[n/group, 2**(bits*group), out]`` tables."""
+    V = 1 << (act_bits * group)
+    gate_up = 2 * (d_model // group) * V * d_ff * value_bytes
+    down = (d_ff // group) * V * d_model * value_bytes
+    return gate_up + down
+
+
+class PCILTConv2d(_TabledLayer):
+    """A converted convolution: the filter with its pre-built dense tables
+    and/or extension-3 pool.  ``layer(x, path)`` runs
+    :func:`~repro_torch.core.lut_layers.pcilt_conv2d` on them (default
+    ``"fused"``)."""
+
+    def __init__(self, filters: torch.Tensor, spec: QuantSpec, scale,
+                 group: int, stride: int = 1, padding: str = "SAME",
+                 tables: Optional[torch.Tensor] = None,
+                 shared: Optional[SharedGroupedTables] = None):
+        super().__init__(tables, shared)
+        self.filters = filters
+        self.spec = spec
+        self.scale = scale
+        self.group = group
+        self.stride = stride
+        self.padding = padding
 
     def __call__(self, x: torch.Tensor, path: str = "fused") -> torch.Tensor:
         return pcilt_conv2d(x, self.filters, self.spec, self.scale,
@@ -255,11 +413,7 @@ def convert_conv_kernel(filters: torch.Tensor, act_spec: QuantSpec, act_scale,
     a symmetric absmax grid; the receptive field is flattened and aligned
     to the segment grid once, and the dense tables (or with ``shared`` the
     segment-deduplicated pool) are built once."""
-    f = filters.float()
-    if weight_bits:
-        wspec = QuantSpec(bits=weight_bits, symmetric=True)
-        wscale = calibrate(f, wspec)
-        f = dequantize(quantize(f, wspec, wscale), wspec, wscale)
+    f = _quantize_weights(filters.float(), weight_bits)
     wflat = flatten_filters(f, group)
     with torch.no_grad():
         if shared:

@@ -95,9 +95,9 @@ def _spec(s) -> QuantSpec:
 
 def bundle_from_jax(np_bundle, device="cuda") -> Dict[str, Any]:
     """A ``MambaLM.build_pcilt`` bundle of the JAX package as the port's
-    bundle: tables on ``device``, calibrated scales as host float32 (the
-    kernels take them by value), the conversion-time integrity record as is.
-    Only unpaired projection stacks exist in the port so far."""
+    bundle: tables on ``device`` (layer-major or, paired, segment-major
+    projection stacks), calibrated scales as host float32 (the kernels take
+    them by value), the conversion-time integrity record as is."""
     dev = resolve_device(device)
     b = np_bundle
     out = {"tables": to_torch(b["tables"], dev),
@@ -105,13 +105,12 @@ def bundle_from_jax(np_bundle, device="cuda") -> Dict[str, Any]:
            "spec": _spec(b["spec"])}
     proj = b.get("proj")
     if proj is not None:
-        if proj.get("paired"):
-            raise ValueError("paired projection stacks are not ported yet")
         out["proj"] = {
             "tables": {k: to_torch(v, dev) for k, v in proj["tables"].items()},
             "scales": {k: _host_scales(v) for k, v in proj["scales"].items()},
             "spec": _spec(proj["spec"]), "group": int(proj["group"]),
-            "path": proj.get("path", "fused")}
+            "path": proj.get("path", "fused"),
+            "paired": bool(proj.get("paired", False))}
     head = b.get("head")
     if head is not None:
         out["head"] = {

@@ -38,15 +38,19 @@ SOURCES = {"gemv_stacked": "pcilt_gemv_stacked.cu",
 KERNELS = {"gemv_stacked": "gemv_stacked", "dwconv1d": "dwconv1d",
            "shared_gemv": "shared_gemv", "fused_conv2d": "conv2d",
            "shared_conv2d": "conv2d", "gemv_host": "gemv_host",
-           "conv2d_host": "gemv_host"}
+           "conv2d_host": "gemv_host", "fused_gemv": "gemv_stacked",
+           "gemv_paired": "gemv_stacked",
+           "gemv_paired_stacked": "gemv_stacked",
+           "dwconv1d_host": "dwconv1d"}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C entry point suffix -> argtypes (each entry exists as ``_f32``/``_bf16``)
 _SIGNATURES = {
-    "pcilt_gemv_stacked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                           _LL, _I, _P],
+    "pcilt_gemv_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _LL,
+                         _LL, _I, _P],
     "pcilt_dwconv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                        _P],
+    "pcilt_dwconv1d_host": [_P, _P, _P, _LL, _I, _I, _P],
     "pcilt_shared_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _P],
     "pcilt_fused_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],

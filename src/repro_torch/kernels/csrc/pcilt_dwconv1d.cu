@@ -1,4 +1,6 @@
-// Fused PCILT depthwise conv1d:
+// PCILT depthwise conv1d, fused and host-packed.
+//
+// Fused:
 //   out[b, t, c] = T[c, sum_j code(x[b, t + j, c]) << (j * bits)]
 // over a time-padded signal x [B, Tp, C] (To = Tp - k + 1 outputs), one
 // table fetch per output, so the result is the table entry bit for bit.
@@ -18,6 +20,16 @@
 // row t + j, counted by the thread with j == 0, and the last k - 1 rows by
 // the thread of the last output (t == To - 1).  Pads are zeros, which
 // quantize in range, so the count equals the count over the raw signal.
+//
+// Host-packed: out[b, t, c] = T[c, offsets[b, t, c]] over offsets [B, T, C]
+// int32 that the caller quantized and packed; an offset outside [0, V) adds
+// nothing (the reference's masked sum over the V entries matches none), so
+// its output is 0.  Replaces src/repro/kernels/pcilt_dwconv1d.py
+// pcilt_dwconv1d_pallas.  Bound: bytes (the offsets read once, one fetch
+// and one write per output).  Design: one thread per output, neighbouring
+// threads on neighbouring channels, so the offset load and the output
+// store are coalesced; the fetch is read as float32 and cast back once
+// (exact for either table dtype).
 #include "pcilt_common.cuh"
 
 namespace {
@@ -72,7 +84,47 @@ int launch(const float* x, const T* tab, T* out, int* stats, int B, int Tp,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void dwconv1d_host_kernel(const int* __restrict__ offsets,
+                                     const T* __restrict__ tab,
+                                     T* __restrict__ out, long long total,
+                                     int C, int V) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int c = (int)(i % C);
+  const int off = offsets[i];
+  float v = 0.f;
+  if (off >= 0 && off < V) v = pcilt::to_f32(tab[(long long)c * V + off]);
+  out[i] = pcilt::from_f32<T>(v);
+}
+
+template <typename T>
+int launch_host(const int* offsets, const T* tab, T* out, long long total,
+                int C, int V, cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  dwconv1d_host_kernel<T><<<blocks, threads, 0, stream>>>(offsets, tab, out,
+                                                          total, C, V);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int pcilt_dwconv1d_host_f32(const void* offsets, const void* tab,
+                                       void* out, long long total, int C,
+                                       int V, void* stream) {
+  return launch_host<float>((const int*)offsets, (const float*)tab,
+                            (float*)out, total, C, V, (cudaStream_t)stream);
+}
+
+extern "C" int pcilt_dwconv1d_host_bf16(const void* offsets, const void* tab,
+                                        void* out, long long total, int C,
+                                        int V, void* stream) {
+  return launch_host<__nv_bfloat16>((const int*)offsets,
+                                    (const __nv_bfloat16*)tab,
+                                    (__nv_bfloat16*)out, total, C, V,
+                                    (cudaStream_t)stream);
+}
 
 extern "C" int pcilt_dwconv1d_f32(const void* x, const void* tables,
                                   void* out, void* stats, int B, int Tp,

@@ -31,13 +31,17 @@ from repro_torch.core.quantization import QuantSpec, quantize, quantize_with_sta
 from repro_torch.core.lut_layers import (_conv_pads, _dwconv_pads,
                                          conv_offsets, pad_nhwc)
 from . import build
-from .ref import fetch_sum, pcilt_dwconv1d_ref, pcilt_gemv_ref, pool_rows
+from .ref import (dense_rows, fetch_sum, pcilt_dwconv1d_ref,
+                  pcilt_gemv_ref, pool_rows)
 
-__all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv_stacked",
-           "pcilt_fused_dwconv1d", "pcilt_shared_gemv", "pcilt_gemv",
+__all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
+           "pcilt_fused_gemv_stacked", "pcilt_fused_gemv_paired",
+           "pcilt_fused_gemv_paired_stacked", "pcilt_fused_dwconv1d",
+           "pcilt_dwconv1d", "pcilt_shared_gemv", "pcilt_gemv",
            "pcilt_conv2d", "pcilt_fused_conv2d", "pcilt_shared_conv2d",
-           "gemv_stacked_plain", "dwconv1d_plain", "shared_gemv_plain",
-           "fused_conv2d_plain", "shared_conv2d_plain"]
+           "fused_gemv_plain", "gemv_stacked_plain", "gemv_paired_plain",
+           "gemv_paired_stacked_plain", "dwconv1d_plain",
+           "shared_gemv_plain", "fused_conv2d_plain", "shared_conv2d_plain"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -112,18 +116,104 @@ def _ptr(t) -> ctypes.c_void_p:
 
 
 # ----------------------------------------------------------------------------
-# Layer-stacked fused GEMV
+# Fused GEMVs: unstacked, layer-stacked, paired and paired stacked (one
+# kernel: a segment stride, a layer offset and a pack width)
 # ----------------------------------------------------------------------------
+
+
+def _gemv_plain(x, tab2d, rows_of, spec: QuantSpec, scale, pw: int,
+                with_stats: bool):
+    """Quantize, pack ``pw`` codes per offset, gather the rows
+    ``rows_of(offsets)`` of ``tab2d`` and sum them in float32."""
+    s = torch.as_tensor(_host_scale(scale), dtype=x.dtype, device=x.device)
+    codes, count, ratio = quantize_with_stats(x, spec, s)
+    out = fetch_sum(rows_of(pack_offsets(codes, spec.bits, pw)), tab2d)
+    return (out, count, ratio) if with_stats else out
+
+
+def fused_gemv_plain(x, tables, spec: QuantSpec, scale, group: int):
+    """Plain version of the unstacked fused GEMV over ``[G, V, O]``."""
+    G, V, O = tables.shape
+    return _gemv_plain(x, tables.reshape(G * V, O),
+                       lambda off: dense_rows(off, V), spec, scale, group,
+                       False)
 
 
 def gemv_stacked_plain(x, tables, layer, spec: QuantSpec, scale, group: int,
                        with_stats: bool = False):
     """Plain version of the stacked kernel: quantize, pack, gather the rows
     of ``tables[layer]`` and sum them in float32."""
-    s = torch.as_tensor(_host_scale(scale), dtype=x.dtype, device=x.device)
-    codes, count, ratio = quantize_with_stats(x, spec, s)
-    out = pcilt_gemv_ref(pack_offsets(codes, spec.bits, group), tables[layer])
-    return (out, count, ratio) if with_stats else out
+    _, G, V, O = tables.shape
+    return _gemv_plain(x, tables[layer].reshape(G * V, O),
+                       lambda off: dense_rows(off, V), spec, scale, group,
+                       with_stats)
+
+
+def gemv_paired_plain(x, tables, spec: QuantSpec, scale, group: int,
+                      with_stats: bool = False):
+    """Plain version of the paired GEMV over ``[G2, V2, O]``: the dense
+    fetch at width ``2 * group``."""
+    G2, V2, O = tables.shape
+    return _gemv_plain(x, tables.reshape(G2 * V2, O),
+                       lambda off: dense_rows(off, V2), spec, scale,
+                       2 * group, with_stats)
+
+
+def gemv_paired_stacked_plain(x, tables, layer, spec: QuantSpec, scale,
+                              group: int, with_stats: bool = False):
+    """Plain version of the paired stacked GEMV over the segment-major
+    ``[G2, L, V2, O]`` stack: rows ``(g * L + layer) * V2 + off`` of its
+    ``[G2 * L * V2, O]`` view (the layer is never copied out)."""
+    G2, L, V2, O = tables.shape
+    return _gemv_plain(x, tables.reshape(G2 * L * V2, O),
+                       lambda off: dense_rows(off, V2, L * V2, layer * V2),
+                       spec, scale, 2 * group, with_stats)
+
+
+def _check_gemv(x, G, V, spec: QuantSpec, pw: int, what: str):
+    B, n = x.shape
+    if n != G * pw:
+        raise ValueError(f"x trailing dim {n} != {what} = {G}*{pw} "
+                         f"(x {tuple(x.shape)})")
+    if spec.bits * pw > 30:
+        raise ValueError(f"offset width {spec.bits * pw} bits exceeds int32 "
+                         f"packing")
+    if V != 1 << (spec.bits * pw):
+        raise ValueError(f"tables value axis {V} != 2**(bits*{pw}) = "
+                         f"{1 << (spec.bits * pw)}")
+    if B < 1:
+        raise ValueError("empty batch")
+
+
+def _launch_gemv(name, x, tables, G, O, pw, seg_stride, layer_off,
+                 spec: QuantSpec, scale, with_stats):
+    """One launch of the fused GEMV kernel: segment ``g`` of the call is the
+    ``[V, O]`` table at element ``layer_off + g * seg_stride``."""
+    dt = _check_launch(name, x, tables)
+    B = x.shape[0]
+    if B * G * 4 > 227 * 1024:
+        raise ValueError(f"B*G = {B * G} offsets exceed the shared memory "
+                         f"of one block")
+    out = torch.empty((B, O), dtype=tables.dtype, device=x.device)
+    stats = torch.zeros(2, dtype=torch.int32, device=x.device) \
+        if with_stats else None
+    fn = getattr(build.library(build.KERNELS[name]), f"pcilt_gemv_fused_{dt}")
+    _launch(name, fn, x, _ptr(x), _ptr(tables), _ptr(out), _ptr(stats), B, G,
+            O, pw, spec.bits, spec.zero_point, _host_scale(scale), seg_stride,
+            layer_off, int(with_stats))
+    return (out, *_stats_out(stats)) if with_stats else out
+
+
+def pcilt_fused_gemv(x: torch.Tensor, tables: torch.Tensor, spec: QuantSpec,
+                     scale, group: int) -> torch.Tensor:
+    """x ``[B, n]`` float32, tables ``[G, V, O]`` (``n == G * group``) ->
+    ``[B, O]`` in the table dtype: quantize, pack and fetch in one launch."""
+    G, V, O = tables.shape
+    _check_gemv(x, G, V, spec, group, "G*group")
+    if _on_cpu(x, tables):
+        return fused_gemv_plain(x, tables, spec, scale, group)
+    return _launch_gemv("fused_gemv", x, tables, G, O, group, V * O, 0, spec,
+                        scale, False)
 
 
 def pcilt_fused_gemv_stacked(x: torch.Tensor, tables: torch.Tensor, layer: int,
@@ -133,34 +223,50 @@ def pcilt_fused_gemv_stacked(x: torch.Tensor, tables: torch.Tensor, layer: int,
     ``layer`` a host int -> ``[B, O]`` in the table dtype; with
     ``with_stats`` also the int32 saturation count and float32
     ``max|x|/scale`` (0-d tensors on the device)."""
-    B, n = x.shape
     L, G, V, O = tables.shape
-    if n != G * group:
-        raise ValueError(f"x trailing dim {n} != G*group = {G}*{group} "
-                         f"(x {tuple(x.shape)}, tables {tuple(tables.shape)})")
-    if V != 1 << (spec.bits * group):
-        raise ValueError(f"tables value axis {V} != 2**(bits*group) = "
-                         f"{1 << (spec.bits * group)}")
+    _check_gemv(x, G, V, spec, group, "G*group")
     layer = int(layer)
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} outside the stack of {L}")
-    if B < 1:
-        raise ValueError("empty batch")
     if _on_cpu(x, tables):
         return gemv_stacked_plain(x, tables, layer, spec, scale, group,
                                   with_stats)
-    dt = _check_launch("pcilt_fused_gemv_stacked", x, tables)
-    if B * G * 4 > 227 * 1024:
-        raise ValueError(f"B*G = {B * G} offsets exceed the shared memory "
-                         f"of one block")
-    out = torch.empty((B, O), dtype=tables.dtype, device=x.device)
-    stats = torch.zeros(2, dtype=torch.int32, device=x.device) \
-        if with_stats else None
-    fn = getattr(build.library("gemv_stacked"), f"pcilt_gemv_stacked_{dt}")
-    _launch("gemv_stacked", fn, x, _ptr(x), _ptr(tables), _ptr(out),
-            _ptr(stats), B, G, V, O, group, spec.bits, spec.zero_point,
-            _host_scale(scale), layer, int(with_stats))
-    return (out, *_stats_out(stats)) if with_stats else out
+    return _launch_gemv("gemv_stacked", x, tables, G, O, group, V * O,
+                        layer * G * V * O, spec, scale, with_stats)
+
+
+def pcilt_fused_gemv_paired(x: torch.Tensor, tables: torch.Tensor,
+                            spec: QuantSpec, scale, group: int,
+                            with_stats: bool = False):
+    """x ``[B, n]`` float32, paired tables ``[G2, V2, O]`` (``n == G2 * 2 *
+    group``, ``V2 = (2**(bits*group))**2``) -> ``[B, O]``: each fetch
+    covers two adjacent segments (the caller pads x over an odd-G phantom
+    segment).  ``with_stats`` as for the stacked GEMV."""
+    G2, V2, O = tables.shape
+    _check_gemv(x, G2, V2, spec, 2 * group, "G2*2*group")
+    if _on_cpu(x, tables):
+        return gemv_paired_plain(x, tables, spec, scale, group, with_stats)
+    return _launch_gemv("gemv_paired", x, tables, G2, O, 2 * group, V2 * O,
+                        0, spec, scale, with_stats)
+
+
+def pcilt_fused_gemv_paired_stacked(x: torch.Tensor, tables: torch.Tensor,
+                                    layer: int, spec: QuantSpec, scale,
+                                    group: int, with_stats: bool = False):
+    """x ``[B, n]`` float32, segment-major paired tables ``[G2, L, V2, O]``
+    (``n == G2 * 2 * group``), ``layer`` a host int -> ``[B, O]``: the
+    paired decode fetch.  Segment ``g`` of layer ``l`` starts at element
+    ``(g * L + l) * V2 * O``; the stack is read in place."""
+    G2, L, V2, O = tables.shape
+    _check_gemv(x, G2, V2, spec, 2 * group, "G2*2*group")
+    layer = int(layer)
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} outside the stack of {L}")
+    if _on_cpu(x, tables):
+        return gemv_paired_stacked_plain(x, tables, layer, spec, scale, group,
+                                         with_stats)
+    return _launch_gemv("gemv_paired_stacked", x, tables, G2, O, 2 * group,
+                        L * V2 * O, layer * V2 * O, spec, scale, with_stats)
 
 
 # ----------------------------------------------------------------------------
@@ -212,6 +318,31 @@ def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
             _ptr(stats), B, Tp, C, V, k, spec.bits, spec.zero_point,
             _host_scale(scale), int(with_stats))
     return (out, *_stats_out(stats)) if with_stats else out
+
+
+def pcilt_dwconv1d(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """offsets ``[B, T, C]`` int32 (packed by the caller), tables ``[C, V]``
+    -> ``[B, T, C]`` in the table dtype: one fetch per output."""
+    if offsets.dim() != 3:
+        raise ValueError(f"offsets must be [B, T, C], got "
+                         f"{tuple(offsets.shape)}")
+    C, V = tables.shape
+    if offsets.shape[-1] != C:
+        raise ValueError(f"offsets channel dim {offsets.shape[-1]} != tables "
+                         f"channel dim {C} (offsets {tuple(offsets.shape)}, "
+                         f"tables {tuple(tables.shape)})")
+    if offsets.dtype != torch.int32:
+        raise TypeError(f"offsets must be int32, got {offsets.dtype}")
+    if _on_cpu(offsets, tables):  # the plain version: kernels.ref's
+        return pcilt_dwconv1d_ref(offsets, tables)
+    dt = _check_tables("pcilt_dwconv1d", tables, offsets)
+    out = torch.empty(offsets.shape, dtype=tables.dtype,
+                      device=offsets.device)
+    if out.numel():
+        fn = getattr(build.library("dwconv1d"), f"pcilt_dwconv1d_host_{dt}")
+        _launch("dwconv1d_host", fn, offsets, _ptr(offsets), _ptr(tables),
+                _ptr(out), out.numel(), C, V)
+    return out
 
 
 # ----------------------------------------------------------------------------

@@ -35,12 +35,15 @@ def fetch_sum(rows: torch.Tensor, tab2d: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dense_rows(offsets: torch.Tensor, V: int) -> torch.Tensor:
-    """Offsets ``[M, G]`` -> rows ``g*V + off`` of the ``[G*V, O]`` view of
-    dense tables; an offset outside ``[0, V)`` adds nothing (the one-hot
-    fetch of the reference matches no row for it)."""
+def dense_rows(offsets: torch.Tensor, V: int, stride: int = 0,
+               base: int = 0) -> torch.Tensor:
+    """Offsets ``[M, G]`` -> rows ``base + g*stride + off`` (``stride``
+    defaults to ``V``: the ``[G*V, O]`` view of dense tables; a
+    segment-major paired stack ``[G2, L, V2, O]`` has ``stride = L*V2`` and
+    ``base = layer*V2``); an offset outside ``[0, V)`` adds nothing (the
+    one-hot fetch of the reference matches no row for it)."""
     off = offsets.long()
-    seg = torch.arange(off.shape[-1], device=off.device) * V
+    seg = torch.arange(off.shape[-1], device=off.device) * (stride or V) + base
     return torch.where((off >= 0) & (off < V), seg + off, -1)
 
 
@@ -69,6 +72,12 @@ def pcilt_conv2d_ref(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tenso
 
 def pcilt_dwconv1d_ref(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """offsets ``[B, T, C]``, tables ``[C, V]`` -> ``[B, T, C]``:
-    ``T[c, off[b, t, c]]``."""
-    ch = torch.arange(tables.shape[0], device=tables.device)
-    return tables[ch, offsets.long()]
+    ``T[c, off[b, t, c]]``, 0 where an offset lies outside ``[0, V)`` (the
+    reference's masked sum over the ``V`` entries matches none)."""
+    C, V = tables.shape
+    off = offsets.long()
+    ok = (off >= 0) & (off < V)
+    ch = torch.arange(C, device=tables.device)
+    got = tables[ch, torch.where(ok, off, 0)]
+    return torch.where(ok, got, torch.zeros((), dtype=tables.dtype,
+                                            device=tables.device))

@@ -6,10 +6,11 @@ stored stacked (``[L, ...]`` per parameter, as the reference scans it) and
 views of its parameters and its index into the PCILT stacks — never a copy.
 
 PCILT bundle (``build_pcilt``): conv tables ``[L, C, V]``, one
-``[L, G, V, O]`` stack per projection with host float32 scales ``[L]``, and
-the shared-pool logits head; tables are built one layer (or a few pool rows)
-at a time into preallocated stacks, so peak memory stays close to the
-tables themselves.
+``[L, G, V, O]`` stack per projection (with ``paired``, one segment-major
+paired ``[G2, L, V2, O]`` stack) with host float32 scales ``[L]``, and the
+shared-pool logits head; tables are built one layer (or a few pool rows) at
+a time into preallocated stacks, so peak memory stays close to the tables
+themselves.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.core import (QuantSpec, SharedGroupedTables,
                               build_dwconv_tables, build_grouped_tables,
+                              build_paired_stacked_tables,
                               build_shared_grouped_tables, fake_quant,
                               pcilt_linear, scale_from_amax)
 from repro_torch.nn.layers import embed, embed_spec, rmsnorm, rmsnorm_spec
@@ -96,14 +98,15 @@ class MambaLM:
 
     def build_pcilt(self, params, scale, proj_scales=None,
                     table_dtype=torch.float32, head_scale=None,
-                    record_integrity: bool = True):
+                    record_integrity: bool = True, paired: bool = False):
         """Offline PCILT build for the decode loop (requires ``cfg.pcilt``).
 
         ``scale`` is the conv input's float32 scale; ``proj_scales``
         ``{"in": [L], "out": [L]}`` adds a stacked ``[L, G, V, O]`` table
         per projection (``table_dtype`` float32 or bfloat16, built in
         float32 and cast once, fetched by the ``"fused"`` path; a caller may
-        set the bundle's ``"path"`` to ``"dense_fq"`` for the oracle);
+        set the bundle's ``"path"`` to ``"dense_fq"`` for the oracle) or,
+        with ``paired``, a segment-major paired ``[G2, L, V2, O]`` stack;
         ``head_scale`` adds the shared-pool head.
         The bundle carries its conversion-time CRC-32 record unless
         ``record_integrity`` is False (the caller then records it)."""
@@ -125,14 +128,15 @@ class MambaLM:
         out = {"tables": tables, "scale": scale, "spec": spec}
         if proj_scales is not None:
             out["proj"] = self._build_proj_pcilt(params, spec, proj_scales,
-                                                 table_dtype)
+                                                 table_dtype, paired)
         if head_scale is not None:
             out["head"] = self._build_head_pcilt(params, _f32(head_scale))
         if record_integrity:
             out["integrity"] = pcilt_integrity(out)
         return out
 
-    def _build_proj_pcilt(self, params, spec, proj_scales, table_dtype):
+    def _build_proj_pcilt(self, params, spec, proj_scales, table_dtype,
+                          paired=False):
         group = self.cfg.pcilt.group
         tabs, scales = {}, {}
         for name in PROJ_NAMES:
@@ -140,6 +144,11 @@ class MambaLM:
             s = proj_scales["out" if name == "wo" else "in"]
             s_l = s.detach().cpu().float() if torch.is_tensor(s) else \
                 torch.tensor(np.asarray(s, np.float32))
+            scales[name] = s_l
+            if paired:  # pads n to the pair width itself (zero weights)
+                tabs[name] = build_paired_stacked_tables(ks, spec, s_l, group,
+                                                         table_dtype)
+                continue
             L, n, O = ks.shape
             pad_n = (-n) % group
             G = (n + pad_n) // group
@@ -151,9 +160,8 @@ class MambaLM:
                     wf = torch.cat([wf, wf.new_zeros((pad_n, O))], 0)
                 stack[l] = build_grouped_tables(wf, spec, float(s_l[l]), group)
             tabs[name] = stack
-            scales[name] = s_l
         return {"tables": tabs, "scales": scales, "spec": spec,
-                "group": group, "path": "fused"}
+                "group": group, "path": "fused", "paired": paired}
 
     def _build_head_pcilt(self, params, head_scale: float):
         """Shared-pool PCILT over the logits head, its weights quantized to
@@ -227,6 +235,7 @@ class MambaLM:
                     pc["proj"] = {
                         "tables": proj["tables"], "spec": proj["spec"],
                         "group": proj["group"], "path": proj["path"],
+                        "paired": proj.get("paired", False),
                         "layer": l, "ok": ok,
                         "scale": {k: v[l] for k, v in scales.items()}}
             res = mamba_decode(p["mixer"], cfg,

@@ -5,8 +5,9 @@ Full-PCILT decode: with a PCILT bundle the depthwise conv frontend is one
 fused table fetch per channel over the ``[B, k, C]`` window
 (``pcilt_depthwise_conv1d(path="fused", padding="VALID")``) and the six
 projections ``wz/wx/wB/wC/wdt/wo`` are layer-stacked table fetches
-(``pcilt_linear(stacked=layer)``): the ``[L, G, V, O]`` stacks stay where
-they are and only the layer index moves.
+(``pcilt_linear(stacked=layer[, paired])``): the ``[L, G, V, O]`` stacks,
+or the segment-major paired ``[G2, L, V2, O]`` ones, stay where they are
+and only the layer index moves.
 
 Demotion: a layer whose health bit (a host bool) is False runs its conv and
 projections on the dense fake-quant oracle instead — chosen on the host, so
@@ -64,12 +65,18 @@ def _proj(params, name, x, cfg, proj, with_stats: bool = False):
     if proj.get("path", "fused") == "dense_fq" or not proj.get("ok", True):
         return _oracle(x)
     tables = proj["tables"][name]
-    pad = tables.shape[1] * proj["group"] - x.shape[-1]
+    paired = bool(proj.get("paired"))
+    # covered reduction width: dense stacks are [L, G, V, O] (G*group),
+    # paired stacks segment-major [G2, L, V2, O] (G2*2*group, the phantom
+    # segment included)
+    want = (tables.shape[0] * 2 * proj["group"] if paired
+            else tables.shape[1] * proj["group"])
+    pad = want - x.shape[-1]
     if pad:  # group-alignment slots: table rows built from zero weights
         x = torch.cat([x, x.new_zeros((*x.shape[:-1], pad))], -1)
     out = pcilt_linear(x, tables, spec, scale, proj["group"],
                        path=proj.get("path", "fused"), stacked=proj["layer"],
-                       return_stats=with_stats)
+                       paired=paired, return_stats=with_stats)
     if with_stats:
         out, count, ratio = out
         return out.to(cfg.dtype), count, ratio

@@ -166,3 +166,90 @@ def test_host_packed_kernels_match_plain(cuda, dtype):
     want = ops.pcilt_conv2d(off, tabs)
     _assert_sum_close(got.cpu(), want, rtol)
     _assert_sum_close(flat.cpu().reshape(want.shape), want, rtol)
+
+
+PAIRED_CASES = [  # B, G2, group, bits, O, exact grid
+    (4, 192, 2, 2, 1536, False),   # wz of the paired decode
+    (4, 384, 2, 2, 768, False),    # wo
+    (3, 5, 2, 2, 13, False),       # ragged
+    (4, 16, 2, 2, 130, True),      # exact grid
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,G2,group,bits,O,exact", PAIRED_CASES)
+def test_paired_gemv_kernels_match_plain(cuda, dtype, B, G2, group, bits, O,
+                                         exact):
+    """The paired stacked GEMV (segment-major [G2, L, V2, O], the layer by
+    offset) and the unstacked paired GEMV against their plain versions,
+    with and without counters: bit-equal on an exact grid in float32, else
+    within 1e-4 of the largest output (float32) or 1e-2 (bfloat16, one
+    rounding of the float32 sum); counters exact."""
+    from repro_torch.core.pcilt import (build_paired_stacked_tables,
+                                        build_paired_tables)
+
+    rng = np.random.default_rng(G2 + O)
+    spec, L, n = QuantSpec(bits, True), 3, G2 * 2 * group
+    ws = torch.from_numpy((rng.integers(-3, 4, size=(L, n, O)) if exact
+                           else rng.normal(size=(L, n, O)) * n ** -0.5)
+                          .astype(np.float32))
+    scale = 0.5 if exact else 0.2
+    stack = build_paired_stacked_tables(ws, spec, [scale] * L, group, dtype)
+    tabs = build_paired_tables(ws[2], spec, scale, group).to(dtype)
+    x = torch.from_numpy((2 * rng.normal(size=(B, n))).astype(np.float32))
+    rtol = 0.0 if exact and dtype == torch.float32 else \
+        (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    for stats in (False, True):
+        before = dict(ops.LAUNCHES)
+        runs = [(ops.pcilt_fused_gemv_paired_stacked, "gemv_paired_stacked",
+                 (stack, 2)),
+                (ops.pcilt_fused_gemv_paired, "gemv_paired", (tabs,))]
+        for fn, name, tab_args in runs:
+            want = fn(x, *tab_args, spec, scale, group, with_stats=stats)
+            dev_args = tuple(a.to(cuda) if torch.is_tensor(a) else a
+                             for a in tab_args)
+            got = fn(x.to(cuda), *dev_args, spec, scale, group,
+                     with_stats=stats)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES[name] == before[name] + 1
+            if stats:
+                (got, gc, gr), (want, wc, wr) = got, want
+                assert int(gc) == int(wc) and float(gr) == float(wr)
+            _assert_sum_close(got.cpu(), want, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,G,O", [(4, 512, 3072), (3, 7, 13)])
+def test_fused_gemv_kernel_matches_plain(cuda, dtype, B, G, O):
+    rng = np.random.default_rng(G + O)
+    spec, group = QuantSpec(4, True), 2
+    w = torch.from_numpy(rng.normal(size=(G * group, O)).astype(np.float32))
+    tabs = build_grouped_tables(w, spec, 0.2, group).to(dtype)
+    x = torch.from_numpy((2 * rng.normal(size=(B, G * group))).astype(np.float32))
+    want = ops.pcilt_fused_gemv(x, tabs, spec, 0.2, group)
+    before = ops.LAUNCHES["fused_gemv"]
+    got = ops.pcilt_fused_gemv(x.to(cuda), tabs.to(cuda), spec, 0.2, group)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_gemv"] == before + 1
+    _assert_sum_close(got.cpu(), want, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,V", [(4, 2048, 1792, 256), (3, 5, 33, 16)])
+def test_dwconv1d_host_kernel_matches_plain_exactly(cuda, dtype, B, T, C, V):
+    """One fetch per output: exact; an offset outside [0, V) gives 0."""
+    rng = np.random.default_rng(C + V)
+    tabs = torch.from_numpy(rng.normal(size=(C, V)).astype(np.float32)) \
+        .to(dtype)
+    off = torch.from_numpy(rng.integers(0, V, size=(B, T, C)).astype(np.int32))
+    off[0, 0, 0], off[-1, -1, -1] = -3, V + 2
+    want = ops.pcilt_dwconv1d(off, tabs)
+    before = ops.LAUNCHES["dwconv1d_host"]
+    got = ops.pcilt_dwconv1d(off.to(cuda), tabs.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dwconv1d_host"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert float(got[0, 0, 0]) == 0.0
