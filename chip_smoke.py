@@ -27,7 +27,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    and fused GEMVs the parity probe's and qwen3-0.6b's MLP shapes, the
    host-packed dwconv the single-layer signal's offsets, each with a
    ragged case (odd G with its phantom segment, O = 13, offsets out of
-   range);
+   range); the plan GEMV (kernel 11) qwen3-0.6b's gate under phase 10's
+   permutation plan, an exact grid with a -1 slot and a reused position,
+   and a ragged plan (odd G, n != G*group, O = 13);
 4. timing: each kernel at its main path's shapes — its device time, the
    plain version's, one PyTorch library call computing the same function,
    and the least time the card could take (the larger of the bytes this
@@ -78,7 +80,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``PCILTDwConv1d(path="kernel")`` on mamba2-130m's conv frontend (C 1792,
    k 4, 2-bit) over a [4, 2048, 1792] signal against the fused path and
    its plain version;
-10. prints the kernels' JSON line, then as the last line
+10. the paper's extensions 1-3 at qwen3-0.6b's gate width (1024 -> 3072,
+    4-bit, group 2, float32 tables, one set at a time): three generalized
+    SegmentPlans (``perm``, a seeded permutation into 512 non-adjacent
+    pairs; ``pruned``, the 895 largest-norm positions with one -1 slot, G
+    448; ``reuse``, the contiguous plan plus 64 segments repeating the 128
+    largest-norm positions, G 576) through ``pcilt_linear(plan=,
+    path="fused")`` (kernel 11) against its plain version, ``path="kernel"``
+    and the dense oracle (1e-4 of the largest output), ``perm`` bit-equal
+    to kernel 9 on ``x[:, perm]``, an exact-grid plan probe bit-equal
+    across the three; ``log_mul_fn`` tables (extension 2) through kernel 9
+    against the gather path and the direct sum; scalar ``SharedTables`` of
+    the 4-bit-quantized gate (extension 3) through ``path="shared"``
+    (kernel 3 at group 1) against ``materialize()`` and the dense product;
+11. learnable tables (extension 4): ``launch.learnable_pcilt.run()``, every
+    granularity's loss falling and finite and within 1e-4 of the same run
+    on the CPU, each trained table served through kernel 6 equal to the
+    gather path;
+12. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -114,6 +133,7 @@ REPLACES = {
     "fused_gemv": "src/repro/kernels/pcilt_fused.py:138",
     "gemv_paired": "src/repro/kernels/pcilt_fused.py:231",
     "dwconv1d_host": "src/repro/kernels/pcilt_dwconv1d.py:61",
+    "gemv_plan": "src/repro/kernels/pcilt_fused.py:636",
 }
 SOURCES = {
     "gemv_stacked": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
@@ -127,6 +147,7 @@ SOURCES = {
     "fused_gemv": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
     "gemv_paired": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
     "dwconv1d_host": "src/repro_torch/kernels/csrc/pcilt_dwconv1d.cu",
+    "gemv_plan": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
 }
 #: device kernel names (a substring of each) in profiles
 GEMV_KERNEL = "gemv_fused_kernel"
@@ -155,7 +176,8 @@ LIB_NOTE = {"gemv_stacked": "torch.matmul(fake_quant(x), W_l)",
             "gemv_paired_stacked": "torch.matmul(fake_quant(x), W_l)",
             "fused_gemv": "torch.matmul(fake_quant(x), W)",
             "gemv_paired": "torch.matmul(fake_quant(x), W)",
-            "dwconv1d_host": "torch.take(T, c*V + off)"}
+            "dwconv1d_host": "torch.take(T, c*V + off)",
+            "gemv_plan": "torch.matmul(fake_quant(x)[:, plan], W[plan])"}
 #: the paper CNN's image (H, W) at full size (printed W x H, as the paper), and the small image of the
 #: checks and of the plain versions' timing
 FULL_HW = (768, 1024)
@@ -418,6 +440,7 @@ def check_kernels(torch, ops, core, report):
         del pool
     check_conv_kernels(torch, ops, record, gen)
     check_slice3_kernels(torch, ops, record, gen)
+    check_plan_kernel(torch, ops, record, gen)
     return errs
 
 
@@ -581,7 +604,8 @@ def check_slice3_kernels(torch, ops, record, gen):
         n = G2 * 2 * group - (group if odd else 0)  # odd G: phantom pad
         w = weights((L, n, O), exact)
         x, scale = signal(rows, n, spec2, exact)
-        stack = build_paired_stacked_tables(w, spec2, [scale] * L, group, dt)
+        stack = build_paired_stacked_tables(w, spec2, [scale] * L, group,
+                                            dtype=dt)
         del w
         xp = F.pad(x, (0, group)) if odd else x
         for stats in (False, True):
@@ -651,6 +675,94 @@ def check_slice3_kernels(torch, ops, record, gen):
         mx, ok = close(torch, got, want, 0.0, exact=True)
         record("dwconv1d_host", what, mx, ok and float(got[0, 0, 0]) == 0.0,
                "exact")
+
+
+def qwen_plans(torch, w):
+    """Phase 10's SegmentPlans over the gate's ``QWEN_D`` positions (paper
+    Fig. 7), from ``w [QWEN_D, QWEN_FF]``: ``perm`` pairs a seeded
+    permutation of the positions; ``pruned`` pairs the 895 positions of
+    largest row norm in ascending order, its last slot -1; ``reuse`` is the
+    contiguous plan plus 64 segments that repeat the 128 positions of
+    largest row norm."""
+    from repro_torch.core.offsets import SegmentPlan
+
+    cpu = torch.Generator().manual_seed(10)
+    norms = w.norm(dim=1)
+
+    def top(k):
+        return torch.topk(norms, k).indices.sort().values.int().cpu()
+
+    perm = torch.randperm(QWEN_D, generator=cpu).int()
+    pruned = torch.cat([top(895), torch.tensor([-1], dtype=torch.int32)])
+    reuse = torch.cat([torch.arange(QWEN_D, dtype=torch.int32), top(128)])
+    return {name: SegmentPlan(t.numpy().reshape(-1, 2))
+            for name, t in (("perm", perm), ("pruned", pruned),
+                            ("reuse", reuse))}
+
+
+def plan_offsets(torch, x, plan, spec, scale):
+    """The offsets kernel 11 packs: ``x`` gathered by the plan, 0.0 in the
+    unused slots, quantized and packed -> ``[B, G]``."""
+    from repro_torch.core.offsets import pack_offsets
+    from repro_torch.core.quantization import quantize
+
+    idx = plan.on(x.device).long().reshape(-1)
+    xg = torch.where(idx >= 0, x[:, idx.clamp_min(0)], 0.0)
+    return pack_offsets(quantize(xg, spec, scale), spec.bits, plan.group)
+
+
+def check_plan_kernel(torch, ops, record, gen):
+    """Kernel 11 (the plan GEMV) against its plain version: qwen3-0.6b's
+    gate under phase 10's ``perm`` plan at B = 4 (float32 and bfloat16),
+    an exact grid with a -1 slot and a reused position (bit-equal), and a
+    ragged case (B 3, n 21, odd G 7, O 13, -1 slots, reused positions).
+    Float32 within 1e-4 of max|plain| (sums over 512 rows), bfloat16
+    within 1e-2 (one rounding of the float32 sum)."""
+    import numpy as np
+
+    from repro_torch.core.offsets import SegmentPlan
+    from repro_torch.core.pcilt import build_grouped_tables
+    from repro_torch.core.quantization import QuantSpec, scale_from_amax
+
+    dev = torch.device("cuda")
+    spec = QuantSpec(4, True)
+    w = torch.randn(QWEN_D, QWEN_FF, generator=gen, device=dev) \
+        * QWEN_D ** -0.5
+    perm = qwen_plans(torch, w)["perm"]
+    rng = np.random.default_rng(11)
+    ragged = rng.integers(0, 21, size=(7, 2)).astype(np.int32)
+    ragged[1, 0] = ragged[5, 1] = -1
+    exact = rng.permutation(64).astype(np.int32)
+    exact[9] = -1  # position 9's slot unused ...
+    exact = np.concatenate([exact, exact[:2]])  # ... and two reused
+    cases = [("gate perm B4 1024->3072", perm, w, B, torch.float32, False),
+             ("gate perm B4 1024->3072 bf16", perm, w, B, torch.bfloat16,
+              False),
+             ("exact grid B4 64->128, -1 slot, reuse",
+              SegmentPlan(exact.reshape(-1, 2)),
+              torch.randint(-3, 4, (64, 128), generator=gen,
+                            device=dev).float(), B, torch.float32, True),
+             ("ragged B3 n21 G7 O13, -1 slots, reuse", SegmentPlan(ragged),
+              torch.randn(21, 13, generator=gen, device=dev), 3,
+              torch.float32, False)]
+    for what, plan, wc, rows, dt, ex in cases:
+        n = wc.shape[0]
+        if ex:
+            x = torch.randint(-2, 2, (rows, n), generator=gen,
+                              device=dev).float() * 0.5
+            scale = 0.5
+        else:
+            x = torch.randn(rows, n, generator=gen, device=dev) * 2.0
+            scale = float(scale_from_amax(0.8 * x.abs().max(), spec))
+        tabs = build_grouped_tables(wc, spec, scale, 2, plan=plan).to(dt)
+        idx = plan.on(dev)
+        got = ops.pcilt_fused_gemv_plan(x, tabs, idx, spec, scale, 2)
+        want = ops.gemv_plan_plain(x, tabs, idx, spec, scale, 2)
+        torch.cuda.synchronize()
+        rtol = 1e-2 if dt == torch.bfloat16 else 1e-4
+        mx, ok = close(torch, got, want, rtol, ex)
+        record("gemv_plan", what, mx, ok, "exact" if ex else f"rtol {rtol}")
+        del tabs
 
 
 def time_kernels(torch, ops, core, report):
@@ -913,6 +1025,67 @@ def time_slice3_kernels(torch, ops, report, rows):
     add("dwconv1d_host signal", "dwconv1d_host", [B, CONV_T, CONV_C, V], k, p,
         lib, nbytes, 0, 1, "layer call")
     del tabs, x, off, idx, flush
+
+
+def time_plan_kernel(torch, ops, report, rows):
+    """Phase 4 for kernel 11, the plan GEMV, at qwen3-0.6b's gate under
+    phase 10's ``perm`` plan (G 512, 1.61 GB of float32 tables, B = 4, x
+    rotating over 4 inputs): kernel, plain version at the same shape,
+    ``torch.matmul`` of the quantized, gathered input by the gathered
+    weights, and the bound (distinct rows fetched, x and the plan read
+    once, the output written once)."""
+    from repro_torch.core.pcilt import build_grouped_tables
+    from repro_torch.core.quantization import (QuantSpec, fake_quant,
+                                               scale_from_amax)
+
+    dev = torch.device("cuda")
+    spec = QuantSpec(4, True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flush = L2Flush(torch)
+    n, O = QWEN_D, QWEN_FF
+    w = torch.randn(n, O, generator=gen, device=dev) * n ** -0.5
+    plan = qwen_plans(torch, w)["perm"]
+    idx = plan.on(dev)
+    xs = [torch.randn(B, n, generator=gen, device=dev) for _ in range(4)]
+    scale = float(scale_from_amax(0.8 * xs[0].abs().max(), spec))
+    tabs = build_grouped_tables(w, spec, scale, 2, plan=plan)
+    G = plan.n_segments
+    uniq = statistics.mean(
+        sum(len(torch.unique(off[:, g])) for g in range(G))
+        for off in (plan_offsets(torch, x, plan, spec, scale) for x in xs))
+    nbytes = uniq * O * 4 + B * n * 4 + idx.numel() * 4 + B * O * 4
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = B * G * O / F32_OPS_PER_S * 1e3
+    wg = plan.gather_weights(w).reshape(-1, O)
+    gather = idx.long().reshape(-1)
+    xqs = [fake_quant(x, spec, scale)[:, gather] for x in xs]
+
+    def timed(calls, kernel=None):
+        return time_calls(torch, calls, flush, kernel,
+                          retries=report["profile_retries"])
+
+    lib = timed([lambda q=q: torch.matmul(q, wg) for q in xqs] * 4)
+    k = timed([lambda x=x: ops.pcilt_fused_gemv_plan(x, tabs, idx, spec,
+                                                     scale, 2)
+               for x in xs] * 4, GEMV_KERNEL)
+    p = timed([lambda x=x: ops.gemv_plan_plain(x, tabs, idx, spec, scale, 2)
+               for x in xs] * 2)
+    rows["gemv_plan perm"] = {
+        "kernel": "gemv_plan", "shape": [G, 256, O], "ms": k["ms"],
+        "warm_ms": k["warm_ms"], "events_ms": k["events_ms"],
+        "plain_ms": p["ms"], "plain_warm_ms": p["warm_ms"],
+        "plain_shape": "the kernel's", "library_ms": lib["ms"],
+        "library_warm_ms": lib["warm_ms"],
+        "library_call": LIB_NOTE["gemv_plan"], "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "bytes": nbytes, "fetch_adds": B * G * O,
+        "launches_per_projection": 1}
+    log(f"time  {'gemv_plan':19s} {'gemv_plan perm':26s} kernel "
+        f"{k['ms'] * 1e3:8.2f} us (warm {k['warm_ms'] * 1e3:8.2f})  plain "
+        f"{p['ms'] * 1e3:9.2f} us  library {lib['ms'] * 1e3:8.2f} us  bound "
+        f"{max(b_ms, o_ms) * 1e3:7.2f} us ({rows['gemv_plan perm']['bound_by']})"
+        f"  x1/projection")
+    del tabs, w, wg, flush
 
 
 def paper_cnn_setup(torch):
@@ -1663,6 +1836,221 @@ def single_layers(torch, ops, report):
 
 
 # ----------------------------------------------------------------------------
+# phase 10: generalized plans, custom functions and scalar shared tables
+# ----------------------------------------------------------------------------
+
+
+def plans_and_extensions(torch, ops, report):
+    """The paper's extensions 1-3 at qwen3-0.6b's gate width (d 1024 ->
+    d_ff 3072, seeded weights, a seeded [4, 1024] input, 4-bit activations,
+    group 2, float32 tables, one table set at a time).  For each SegmentPlan
+    of :func:`qwen_plans`: ``pcilt_linear(plan=, path="fused")`` (kernel 11)
+    against its plain version, against ``path="kernel"`` (kernel 6 over
+    ``plan.pack``) and against the dense oracle on the quantized grid
+    (within 1e-4 of its largest output); ``perm`` bit-equal to kernel 9 on
+    ``x[:, perm]``.  An exact-grid probe (integer weights, scale 0.5, [4,
+    64] -> 128, a -1 slot and a reused position): kernel 11, the host path
+    and the oracle bit-equal.  Extension 2: ``build_grouped_tables(fn=
+    log_mul_fn)`` through kernel 9 against the gather path and the direct
+    sum of ``log_mul_fn``.  Extension 3: ``build_shared_tables`` of the
+    gate's 4-bit-quantized weights through ``path="shared"`` (kernel 3 at
+    group 1) against ``materialize()`` + gather and the dense product.
+    Returns the launches."""
+    import numpy as np
+
+    from repro_torch.core import (QuantSpec, SegmentPlan,
+                                  build_grouped_tables, build_shared_tables,
+                                  calibrate, dequantize, fake_quant,
+                                  log_mul_fn, pcilt_linear, quantize)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    spec = QuantSpec(4, True)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    out = {"plans": {}}
+
+    def counted(fn):
+        """Run one call of the path, its launches counted from 0."""
+        ops.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        return res
+
+    def within(what, got, want, ref):
+        err = float((got - want).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        log(f"  {what}: max |d| {err:.3e} (tol {tol:.3e} = 1e-4 of the "
+            f"largest output)")
+        require(err <= tol, f"phase 10 {what}: {err} > {tol}")
+        return err
+
+    with torch.no_grad():
+        w = torch.randn(QWEN_D, QWEN_FF, generator=gen, device="cuda") \
+            * QWEN_D ** -0.5
+        x = torch.randn(B, QWEN_D, generator=gen, device="cuda")
+        s = float(calibrate(x, spec))
+        codes = quantize(x, spec, s)
+        for name, plan in qwen_plans(torch, w).items():
+            t0 = time.perf_counter()
+            tabs = build_grouped_tables(w, spec, s, 2, plan=plan)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            nbytes = tabs.numel() * tabs.element_size()
+            yf = counted(lambda: pcilt_linear(x, tabs, spec, s, 2, plan=plan,
+                                              path="fused"))
+            yk = counted(lambda: pcilt_linear(x, tabs, spec, s, 2, plan=plan,
+                                              path="kernel"))
+            plain = ops.gemv_plan_plain(x, tabs, plan.on("cuda"), spec, s, 2)
+            oracle = torch.einsum(
+                "bgj,gjo->bo", dequantize(plan.gather_codes(codes), spec, s),
+                plan.gather_weights(w))
+            log(f"plan {name}: G {plan.n_segments}, "
+                f"{int((plan.index < 0).sum())} unused slots, positions used "
+                f"{len(np.unique(plan.index[plan.index >= 0]))} of {QWEN_D}; "
+                f"tables {nbytes:,} B built in {build_s:.2f} s")
+            rec = {"G": plan.n_segments, "table_bytes": nbytes,
+                   "build_s": build_s,
+                   "vs_plain": within("kernel 11 vs its plain version", yf,
+                                      plain, plain),
+                   "vs_host": within("kernel 11 vs path='kernel' "
+                                     "(plan.pack, kernel 6)", yf, yk,
+                                     oracle),
+                   "vs_oracle": within("kernel 11 vs the dense oracle", yf,
+                                       oracle, oracle)}
+            if name == "perm":
+                gather = plan.on("cuda").long().reshape(-1)
+                y9 = ops.pcilt_fused_gemv(x[:, gather].contiguous(), tabs,
+                                          spec, s, 2)
+                rec["equal_kernel9"] = bool(torch.equal(yf, y9))
+                log(f"  kernel 11 bit-equal to kernel 9 on x[:, perm]: "
+                    f"{rec['equal_kernel9']}")
+                require(rec["equal_kernel9"], "kernel 11 on perm differs "
+                        "from kernel 9 on the permuted x")
+            out["plans"][name] = rec
+            del tabs, plain, oracle
+
+        # the exact-grid probe: a -1 slot and a reused position
+        cpu = torch.Generator().manual_seed(14)
+        pos = torch.randperm(64, generator=cpu)[:63].int()
+        idx = torch.cat([pos, torch.tensor([-1], dtype=torch.int32),
+                         pos[:2]]).numpy().reshape(-1, 2)
+        plan = SegmentPlan(idx)
+        kw = torch.randint(-3, 4, (64, 128), generator=gen,
+                           device="cuda").float()
+        xs = torch.randint(-2, 2, (B, 64), generator=gen,
+                           device="cuda").float() * 0.5
+        tabs = build_grouped_tables(kw, spec, 0.5, 2, plan=plan)
+        pf = counted(lambda: pcilt_linear(xs, tabs, spec, 0.5, 2, plan=plan,
+                                          path="fused"))
+        pk = counted(lambda: pcilt_linear(xs, tabs, spec, 0.5, 2, plan=plan,
+                                          path="kernel"))
+        po = torch.einsum("bgj,gjo->bo", dequantize(
+            plan.gather_codes(quantize(xs, spec, 0.5)), spec, 0.5),
+            plan.gather_weights(kw))
+        exact = bool(torch.equal(pf, pk) and torch.equal(pf, po))
+        log(f"plan exact-grid probe [{B}, 64] -> 128, G {plan.n_segments} "
+            f"(a -1 slot, a reused position): kernel 11, path='kernel' and "
+            f"the oracle bit-equal: {exact}")
+        require(exact, "the exact-grid plan probe is not bit-equal")
+        out["exact_probe"] = {"equal": exact, "G": plan.n_segments}
+
+        # extension 2: a custom convolution function
+        t0 = time.perf_counter()
+        tabs = build_grouped_tables(w, spec, s, 2, fn=log_mul_fn)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        yf = counted(lambda: pcilt_linear(x, tabs, spec, s, 2, path="fused"))
+        yg = pcilt_linear(x, tabs, spec, s, 2, path="gather")
+        direct = log_mul_fn(w[None], dequantize(codes, spec, s)[:, :, None]) \
+            .sum(1)
+        log(f"log_mul_fn tables: G {tabs.shape[0]}, "
+            f"{tabs.numel() * 4:,} B built in {build_s:.2f} s (chunked over "
+            f"V)")
+        out["log_mul"] = {
+            "table_bytes": tabs.numel() * 4, "build_s": build_s,
+            "vs_gather": within("kernel 9 on log_mul_fn tables vs gather",
+                                yf, yg, direct),
+            "vs_direct": within("kernel 9 vs sum log_mul_fn(w, val)", yf,
+                                direct, direct)}
+        del tabs, direct
+
+        # extension 3: scalar shared tables of 4-bit weights
+        wspec = QuantSpec(4, True)
+        w4 = fake_quant(w, wspec, calibrate(w, wspec))
+        t0 = time.perf_counter()
+        st = build_shared_tables(w4, spec, s)
+        pool = st.as_grouped_pool()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ys = counted(lambda: pcilt_linear(x, st, spec, s, 2, path="shared"))
+        yd = pcilt_linear(x, st.materialize(), spec, s, 1, path="gather")
+        dense = fake_quant(x, spec, s) @ w4
+        pool_b = pool.pool.numel() * pool.pool.element_size()
+        log(f"shared tables: {st.actual_cardinality} unique weights, a "
+            f"[{st.pool.shape[0]}, {st.pool.shape[1]}] pool; 1-wide segment "
+            f"pool [{', '.join(map(str, pool.pool.shape))}] = {pool_b:,} B "
+            f"built in {build_s:.2f} s")
+        require(st.actual_cardinality <= 16, "4-bit weights with more than "
+                "16 values")
+        out["shared"] = {
+            "actual_cardinality": st.actual_cardinality,
+            "pool_shape": list(pool.pool.shape), "pool_bytes": pool_b,
+            "build_s": build_s,
+            "vs_materialize": within("kernel 3 (group 1) vs materialize() + "
+                                     "gather", ys, yd, dense),
+            "vs_dense": within("kernel 3 vs the dense product", ys, dense,
+                               dense)}
+        del st, pool, yd
+    seen = {k: v for k, v in launches.items() if v}
+    log(f"  launches: {seen}")
+    require(seen == {"gemv_plan": 4, "gemv_host": 4, "fused_gemv": 1,
+                     "shared_gemv": 1},
+            f"phase 10 did not run through kernels 11, 6, 9 and 3: {seen}")
+    out["launches"] = seen
+    report["plans"] = out
+    return seen
+
+
+# ----------------------------------------------------------------------------
+# phase 11: learnable tables
+# ----------------------------------------------------------------------------
+
+
+def learnable(torch, ops, report):
+    """``launch.learnable_pcilt.run(device="cuda")``: every granularity's
+    loss must fall and stay finite, each trained table served through the
+    host-packed GEMV (kernel 6) must equal the gather path it trained on
+    within 1e-5, and the final losses must agree with the same run on the
+    CPU within 1e-4 relative (the same seeded data and base tables; the
+    sums run in another order).  Returns the launches."""
+    from repro_torch.launch import learnable_pcilt
+
+    ops.reset_launches()
+    res = learnable_pcilt.run(device="cuda", log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    cpu = learnable_pcilt.run(device="cpu", log=lambda m: None)
+    for gran, (l0, l1) in res["losses"].items():
+        require(l1 == l1 and abs(l1) != float("inf") and l1 < l0,
+                f"learnable {gran}: loss {l0} -> {l1}")
+        require(res["kernel_max_abs_err"][gran] <= 1e-5,
+                f"learnable {gran}: the kernel path differs from gather")
+        rel = abs(l1 - cpu["losses"][gran][1]) / abs(cpu["losses"][gran][1])
+        log(f"  {gran}: final loss on the card {l1:.6f}, on the CPU "
+            f"{cpu['losses'][gran][1]:.6f} (relative difference {rel:.2e})")
+        require(rel <= 1e-4, f"learnable {gran}: the card's final loss "
+                f"differs from the CPU's by {rel:.2e}")
+    log(f"  launches: {launches}")
+    require(launches == {"gemv_host": 4},
+            f"the trained tables were not served through kernel 6: "
+            f"{launches}")
+    report["learnable"] = {**res, "cpu_losses": cpu["losses"],
+                           "launches": launches}
+    return launches
+
+
+# ----------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1706,23 +2094,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_slice3_kernels(torch, ops, report, rows)
     torch.cuda.empty_cache()
+    time_plan_kernel(torch, ops, report, rows)
+    torch.cuda.empty_cache()
     time_conv_kernels(torch, ops, report, rows)
     log(f"profiles taken again: {len(report['profile_retries'])}")
     # each path's launches, counted from 0 just before it runs
     launches = dict.fromkeys(ops.LAUNCHES, 0)
 
-    def count(path_launches):
-        for k, v in path_launches.items():
+    report["phase_s"] = {}
+
+    def count(phase):
+        """Run one path's phase, add its launches, keep its seconds."""
+        t0 = time.perf_counter()
+        for k, v in phase(torch, ops, report).items():
             launches[k] += v
+        report["phase_s"][phase.__name__] = time.perf_counter() - t0
+        log(f"({phase.__name__}: {report['phase_s'][phase.__name__]:.1f} s)")
         gc.collect()
         torch.cuda.empty_cache()
 
     torch.cuda.empty_cache()
-    count(serve(torch, ops, report))
-    count(paper_cnn(torch, ops, report))
-    count(serve_paired(torch, ops, report))
-    count(paired_parity(torch, ops, report))
-    count(single_layers(torch, ops, report))
+    for phase in (serve, paper_cnn, serve_paired, paired_parity,
+                  single_layers, plans_and_extensions, learnable):
+        count(phase)
 
     primary = {"gemv_stacked": "wz,wx", "dwconv1d": "window counters",
                "shared_gemv": "head", "fused_conv2d": "fused_conv2d conv4",
@@ -1732,7 +2126,8 @@ def main() -> int:
                "gemv_paired_stacked": "paired wz",
                "fused_gemv": "fused_gemv gate",
                "gemv_paired": "gemv_paired wz",
-               "dwconv1d_host": "dwconv1d_host signal"}
+               "dwconv1d_host": "dwconv1d_host signal",
+               "gemv_plan": "gemv_plan perm"}
     kernels = []
     for name, key in primary.items():
         r = rows[key]

@@ -19,7 +19,12 @@ Paths of :func:`pcilt_linear`:
   grouped table of width ``2 * group``;
 * ``"shared"`` — the shared-pool fused GEMV over a
   :class:`~repro_torch.core.pcilt.SharedGroupedTables`
-  (``kernels.ops.pcilt_shared_gemv``).
+  (``kernels.ops.pcilt_shared_gemv``); a scalar
+  :class:`~repro_torch.core.pcilt.SharedTables` runs there (and on
+  ``"gather"``) as its 1-wide segment pool;
+* ``plan=`` — a generalized ``SegmentPlan``: the host-packed paths pack by
+  ``plan.pack``, ``"fused"`` runs ``kernels.ops.pcilt_fused_gemv_plan``,
+  which gathers ``x`` by the plan in the kernel.
 
 :func:`pcilt_conv2d` reduces the convolution to the linear case by
 ``im2col`` (patches flattened ``[kh, kw, C]``) on the host-packed paths;
@@ -45,7 +50,7 @@ import torch.nn.functional as F
 
 from .quantization import QuantSpec, code_values, quantize, quantize_with_stats
 from .offsets import offset_grid, pack_offsets
-from .pcilt import (SharedGroupedTables, build_grouped_tables,
+from .pcilt import (SharedGroupedTables, SharedTables, build_grouped_tables,
                     build_shared_grouped_tables)
 
 __all__ = ["conv_same_pads", "lut_lookup", "pcilt_linear", "im2col",
@@ -164,6 +169,28 @@ def _pcilt_linear_paired(x, tables, spec, scale, group, path, stacked,
                         return_stats=return_stats)
 
 
+def _check_contiguous_segments(path: str, plan, n: int, n_segments: int,
+                               group: int) -> None:
+    """The in-kernel-packing paths take contiguous segments: refuse a plan
+    on ``"shared"``, and tables built from a plan but dispatched without it
+    (their ``G * group`` no longer covers ``x``)."""
+    if plan is not None:
+        raise ValueError(
+            f"path={path!r} packs contiguous segments in-kernel and cannot "
+            f"follow a generalized SegmentPlan; drop plan= (contiguous "
+            f"default), use path='fused' (which gathers the plan index in "
+            f"the kernel), or use the host-packed paths ('gather'/'onehot'/"
+            f"'kernel'), which honor plan.pack()")
+    if n != n_segments * group:
+        raise ValueError(
+            f"path={path!r} requires contiguous segments covering the "
+            f"reduction dim: got x trailing dim {n} but G*group = "
+            f"{n_segments}*{group} = {n_segments * group}. Tables built from "
+            f"a generalized SegmentPlan (skipped/reused positions) need that "
+            f"plan passed as plan= (path='fused' runs it via the in-kernel "
+            f"plan gather; 'gather'/'onehot'/'kernel' via plan.pack())")
+
+
 def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
                  path: str = "gather", stacked: Optional[int] = None,
                  paired: bool = False, return_stats: bool = False,
@@ -172,15 +199,24 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
 
     ``tables`` is a dense ``[G, V, out]`` tensor, a layer-stacked
     ``[L, G, V, out]`` one with ``stacked=`` (the layer index, a host int),
-    or a :class:`SharedGroupedTables` pool.  With ``paired=True`` it is a
-    paired ``[G2, V2, out]`` table (``build_paired_tables``) or, stacked,
-    the segment-major ``[G2, L, V2, out]`` stack
-    (``build_paired_stacked_tables``); ``x`` keeps the unpaired layout and
-    ``group`` the unpaired width.  ``path``: gather | onehot | kernel |
-    fused | shared.  With ``return_stats`` the call returns ``(out, count,
-    ratio)``; the fused stacked and paired kernels reduce them in the
-    kernel, every other route on the side.  Generalized ``SegmentPlan``s
-    (``plan=``) are not ported yet."""
+    a :class:`SharedGroupedTables` pool or a scalar :class:`SharedTables`
+    (on ``"shared"``/``"gather"``, as its 1-wide segment pool: ``group``
+    becomes 1).  With ``paired=True`` it is a paired ``[G2, V2, out]``
+    table (``build_paired_tables``) or, stacked, the segment-major
+    ``[G2, L, V2, out]`` stack (``build_paired_stacked_tables``); ``x``
+    keeps the unpaired layout and ``group`` the unpaired width.  ``plan``
+    is a generalized ``SegmentPlan`` for tables built from it (not with
+    ``paired``, ``stacked`` or ``"shared"``).  ``path``: gather | onehot |
+    kernel | fused | shared.  With ``return_stats`` the call returns
+    ``(out, count, ratio)``; the fused stacked and paired kernels reduce
+    them in the kernel, every other route on the side."""
+    if isinstance(tables, SharedTables):
+        if paired:
+            raise ValueError(
+                "paired tables are dense [G2, V2, O] arrays; scalar-level "
+                "SharedTables pools have no paired layout")
+        tables = tables.as_grouped_pool()
+        group = tables.group
     if paired:
         if plan is not None:
             raise ValueError(
@@ -197,15 +233,18 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
                 "path='fused' or the host-packed reference paths")
         return _pcilt_linear_paired(x, tables, spec, scale, group, path,
                                     stacked, return_stats)
-    if plan is not None:
-        raise ValueError("generalized SegmentPlans (plan=) are not ported "
-                         "yet; the port packs contiguous segments")
     if stacked is not None:
         if isinstance(tables, SharedGroupedTables) or tables.dim() != 4:
             raise ValueError(
                 f"stacked= executes layer-stacked dense [L, G, V, O] tables, "
                 f"got {type(tables).__name__} "
                 f"{tuple(getattr(tables, 'shape', ()))}")
+        if plan is not None:
+            raise ValueError(
+                "stacked= packs contiguous segments (the tables of every "
+                "layer share one segment grid); generalized SegmentPlans "
+                "cannot ride the layer stack — drop plan= or slice the "
+                "layer's tables and use the unstacked paths")
         L, G, V, O = tables.shape
         if path == "fused":
             from repro_torch.kernels import ops
@@ -215,6 +254,11 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
                     f, tables, stacked, spec, scale, group,
                     with_stats=return_stats), O, return_stats)
         tables = tables[stacked]  # a view of the layer: the reference path
+    if return_stats:  # every other route: the stats on the side
+        _, count, ratio = quantize_with_stats(x, spec, scale)
+        out = pcilt_linear(x, tables, spec, scale, group, path=path,
+                           plan=plan)
+        return out, count, ratio
     if path not in ("gather", "onehot", "kernel", "fused", "shared"):
         raise ValueError(f"unknown path {path!r}")
     shared = isinstance(tables, SharedGroupedTables)
@@ -232,29 +276,29 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
     if path in ("fused", "shared"):
         from repro_torch.kernels import ops
 
+        n_segments = tables.n_segments if shared else tables.shape[0]
+        if path == "fused" and plan is not None:
+            if plan.n_segments != n_segments or plan.group != group:
+                raise ValueError(
+                    f"plan grid [{plan.n_segments}, {plan.group}] does not "
+                    f"match tables' [{n_segments}, {group}] — tables must "
+                    f"be built from plan.gather_weights(...)")
+            return _flat_fetch(x, lambda f: ops.pcilt_fused_gemv_plan(
+                f, tables, plan.on(f.device), spec, scale, group),
+                tables.shape[-1], False)
+        _check_contiguous_segments(path, plan, x.shape[-1], n_segments, group)
         if shared:
-            out = _flat_fetch(x, lambda f: ops.pcilt_shared_gemv(
+            return _flat_fetch(x, lambda f: ops.pcilt_shared_gemv(
                 f, tables.pool, tables.seg_idx, spec, scale, tables.group),
                 tables.pool.shape[-1], False)
-        else:
-            out = _flat_fetch(x, lambda f: ops.pcilt_fused_gemv(
-                f, tables, spec, scale, group), tables.shape[-1], False)
-        if return_stats:
-            _, count, ratio = quantize_with_stats(x, spec, scale)
-            return out, count, ratio
-        return out
-    if return_stats:
-        codes, count, ratio = quantize_with_stats(x, spec, scale)
-    else:
-        codes = quantize(x, spec, scale)
-    offsets = pack_offsets(codes, spec.bits, group)
+        return _flat_fetch(x, lambda f: ops.pcilt_fused_gemv(
+            f, tables, spec, scale, group), tables.shape[-1], False)
+    codes = quantize(x, spec, scale)
+    offsets = (pack_offsets(codes, spec.bits, group) if plan is None
+               else plan.pack(codes, spec.bits))
     if shared:
-        out = tables.lookup(offsets)
-    else:
-        out = lut_lookup(tables, offsets, path)
-    if return_stats:
-        return out, count, ratio
-    return out
+        return tables.lookup(offsets)
+    return lut_lookup(tables, offsets, path)
 
 
 def _conv_pads(x: torch.Tensor, kh: int, kw: int, stride: int,

@@ -18,7 +18,8 @@ import torch
 from .core.quantization import QuantSpec
 
 __all__ = ["resolve_device", "to_torch", "to_numpy", "tree_map",
-           "params_from_jax", "tables_from_jax", "bundle_from_jax"]
+           "params_from_jax", "tables_from_jax", "learnable_from_jax",
+           "bundle_from_jax"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -69,20 +70,37 @@ def params_from_jax(np_tree, device="cuda") -> Dict[str, Any]:
 
 
 def tables_from_jax(tables, device="cuda"):
-    """Dense ``[G, V, O]`` tables and ``SharedGroupedTables`` pools of the
-    JAX package (any object with ``pool``, ``seg_idx`` and ``group``), or a
-    dict of them such as ``PaperCNN.build_tables`` returns, as the port's."""
-    from .core.pcilt import SharedGroupedTables
+    """Dense ``[G, V, O]`` tables, ``SharedGroupedTables`` pools (any object
+    with ``pool``, ``seg_idx`` and ``group``) and scalar ``SharedTables``
+    pools (``pool``, ``w_idx``, ``unique_w``, ``value_pool``) of the JAX
+    package, or a dict of them such as ``PaperCNN.build_tables`` returns,
+    as the port's.  (A ``SegmentPlan`` needs no converter: its index is a
+    numpy array in both packages.)"""
+    from .core.pcilt import SharedGroupedTables, SharedTables
 
     dev = resolve_device(device)
     if isinstance(tables, dict):
         return {k: tables_from_jax(v, dev) for k, v in tables.items()}
+    if hasattr(tables, "w_idx"):
+        vp = tables.value_pool
+        return SharedTables(
+            pool=to_torch(tables.pool, dev),
+            w_idx=to_torch(np.asarray(tables.w_idx, np.int32), dev),
+            unique_w=to_torch(tables.unique_w, dev),
+            value_pool=None if vp is None else to_torch(vp, dev))
     if hasattr(tables, "pool") and hasattr(tables, "seg_idx"):
         return SharedGroupedTables(
             pool=to_torch(tables.pool, dev),
             seg_idx=to_torch(np.asarray(tables.seg_idx, np.int32), dev),
             group=int(tables.group))
     return to_torch(tables, dev)
+
+
+def learnable_from_jax(np_params, device="cuda") -> Dict[str, torch.Tensor]:
+    """The parameter dict of ``repro.core.init_learnable_pcilt`` (numpy
+    leaves) as the port's: tensors on ``device`` that require grad."""
+    dev = resolve_device(device)
+    return {k: to_torch(v, dev).requires_grad_() for k, v in np_params.items()}
 
 
 def _host_scales(a) -> torch.Tensor:

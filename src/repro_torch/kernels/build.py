@@ -41,13 +41,14 @@ KERNELS = {"gemv_stacked": "gemv_stacked", "dwconv1d": "dwconv1d",
            "conv2d_host": "gemv_host", "fused_gemv": "gemv_stacked",
            "gemv_paired": "gemv_stacked",
            "gemv_paired_stacked": "gemv_stacked",
-           "dwconv1d_host": "dwconv1d"}
+           "gemv_plan": "gemv_stacked", "dwconv1d_host": "dwconv1d"}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C entry point suffix -> argtypes (each entry exists as ``_f32``/``_bf16``)
 _SIGNATURES = {
     "pcilt_gemv_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _LL,
                          _LL, _I, _P],
+    "pcilt_gemv_plan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "pcilt_dwconv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                        _P],
     "pcilt_dwconv1d_host": [_P, _P, _P, _LL, _I, _I, _P],

@@ -25,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.offsets import pack_offsets
 from repro_torch.core.quantization import QuantSpec, quantize, quantize_with_stats
@@ -36,11 +37,12 @@ from .ref import (dense_rows, fetch_sum, pcilt_dwconv1d_ref,
 
 __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "pcilt_fused_gemv_stacked", "pcilt_fused_gemv_paired",
-           "pcilt_fused_gemv_paired_stacked", "pcilt_fused_dwconv1d",
+           "pcilt_fused_gemv_paired_stacked", "pcilt_fused_gemv_plan",
+           "pcilt_fused_dwconv1d",
            "pcilt_dwconv1d", "pcilt_shared_gemv", "pcilt_gemv",
            "pcilt_conv2d", "pcilt_fused_conv2d", "pcilt_shared_conv2d",
            "fused_gemv_plain", "gemv_stacked_plain", "gemv_paired_plain",
-           "gemv_paired_stacked_plain", "dwconv1d_plain",
+           "gemv_paired_stacked_plain", "gemv_plan_plain", "dwconv1d_plain",
            "shared_gemv_plain", "fused_conv2d_plain", "shared_conv2d_plain"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
@@ -116,8 +118,9 @@ def _ptr(t) -> ctypes.c_void_p:
 
 
 # ----------------------------------------------------------------------------
-# Fused GEMVs: unstacked, layer-stacked, paired and paired stacked (one
-# kernel: a segment stride, a layer offset and a pack width)
+# Fused GEMVs: unstacked, layer-stacked, paired, paired stacked and
+# plan-gathered (one kernel: a segment stride, a layer offset, a pack width
+# and, for a generalized SegmentPlan, a gather index)
 # ----------------------------------------------------------------------------
 
 
@@ -170,9 +173,11 @@ def gemv_paired_stacked_plain(x, tables, layer, spec: QuantSpec, scale,
                        spec, scale, 2 * group, with_stats)
 
 
-def _check_gemv(x, G, V, spec: QuantSpec, pw: int, what: str):
+def _check_gemv(x, G, V, spec: QuantSpec, pw: int, what=None):
+    """Shapes of a fused GEMV; ``what`` names ``G * pw`` when ``x`` must
+    have that width (the plan GEMV takes any)."""
     B, n = x.shape
-    if n != G * pw:
+    if what is not None and n != G * pw:
         raise ValueError(f"x trailing dim {n} != {what} = {G}*{pw} "
                          f"(x {tuple(x.shape)})")
     if spec.bits * pw > 30:
@@ -267,6 +272,68 @@ def pcilt_fused_gemv_paired_stacked(x: torch.Tensor, tables: torch.Tensor,
                                          with_stats)
     return _launch_gemv("gemv_paired_stacked", x, tables, G2, O, 2 * group,
                         L * V2 * O, layer * V2 * O, spec, scale, with_stats)
+
+
+def gemv_plan_plain(x, tables, plan_idx, spec: QuantSpec, scale,
+                    group: int):
+    """Plain version of the plan GEMV: gather ``x`` by ``plan_idx [G,
+    group]``, give the ``-1`` slots 0.0 (the zero point's code, as the
+    kernel does), then quantize, pack and fetch over ``[G, V, O]``."""
+    G, V, O = tables.shape
+    idx = plan_idx.long().reshape(-1)
+    xg = torch.where(idx >= 0, x[:, idx.clamp_min(0)],
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+    return _gemv_plain(xg, tables.reshape(G * V, O),
+                       lambda off: dense_rows(off, V), spec, scale, group,
+                       False)
+
+
+#: plan tensor -> (its version, its largest entry): a plan's bound is read
+#: from the device once, not on every call
+_PLAN_MAX = WeakIdKeyDictionary()
+
+
+def _plan_max(plan_idx: torch.Tensor) -> int:
+    seen = _PLAN_MAX.get(plan_idx)
+    if seen is None or seen[0] != plan_idx._version:
+        seen = (plan_idx._version, int(plan_idx.max()))
+        _PLAN_MAX[plan_idx] = seen
+    return seen[1]
+
+
+def pcilt_fused_gemv_plan(x: torch.Tensor, tables: torch.Tensor,
+                          plan_idx: torch.Tensor, spec: QuantSpec, scale,
+                          group: int) -> torch.Tensor:
+    """x ``[B, n]`` float32 (any ``n``), tables ``[G, V, O]``, plan_idx
+    ``[G, group]`` int32 (entries in ``[-1, n)``; ``-1`` = unused slot) ->
+    ``[B, O]`` in the table dtype: the fused GEMV of a generalized
+    ``SegmentPlan``, which gathers ``x`` by the plan before it quantizes,
+    packs and fetches.  The plan's bounds are checked once per tensor."""
+    B, n = x.shape
+    G, V, O = tables.shape
+    if tuple(plan_idx.shape) != (G, group):
+        raise ValueError(f"plan_idx shape {tuple(plan_idx.shape)} != (G, "
+                         f"group) = ({G}, {group}) (tables "
+                         f"{tuple(tables.shape)})")
+    if plan_idx.dtype != torch.int32:
+        raise TypeError(f"plan_idx must be int32, got {plan_idx.dtype}")
+    _check_gemv(x, G, V, spec, group)
+    if plan_idx.numel() and _plan_max(plan_idx) >= n:
+        raise ValueError(f"plan_idx reads position {_plan_max(plan_idx)} of "
+                         f"an x of width {n}")
+    if _on_cpu(x, tables, plan_idx):
+        return gemv_plan_plain(x, tables, plan_idx, spec, scale, group)
+    dt = _check_launch("pcilt_fused_gemv_plan", x, tables, plan_idx)
+    if B * G * 4 > 227 * 1024:
+        raise ValueError(f"B*G = {B * G} offsets exceed the shared memory "
+                         f"of one block")
+    out = torch.empty((B, O), dtype=tables.dtype, device=x.device)
+    fn = getattr(build.library(build.KERNELS["gemv_plan"]),
+                 f"pcilt_gemv_plan_{dt}")
+    _launch("gemv_plan", fn, x, _ptr(x), _ptr(tables), _ptr(out),
+            _ptr(plan_idx), B, G, O, n, group, spec.bits, spec.zero_point,
+            _host_scale(scale))
+    return out
 
 
 # ----------------------------------------------------------------------------

@@ -146,8 +146,8 @@ class MambaLM:
                 torch.tensor(np.asarray(s, np.float32))
             scales[name] = s_l
             if paired:  # pads n to the pair width itself (zero weights)
-                tabs[name] = build_paired_stacked_tables(ks, spec, s_l, group,
-                                                         table_dtype)
+                tabs[name] = build_paired_stacked_tables(
+                    ks, spec, s_l, group, dtype=table_dtype)
                 continue
             L, n, O = ks.shape
             pad_n = (-n) % group

@@ -195,7 +195,8 @@ def test_paired_gemv_kernels_match_plain(cuda, dtype, B, G2, group, bits, O,
                            else rng.normal(size=(L, n, O)) * n ** -0.5)
                           .astype(np.float32))
     scale = 0.5 if exact else 0.2
-    stack = build_paired_stacked_tables(ws, spec, [scale] * L, group, dtype)
+    stack = build_paired_stacked_tables(ws, spec, [scale] * L, group,
+                                        dtype=dtype)
     tabs = build_paired_tables(ws[2], spec, scale, group).to(dtype)
     x = torch.from_numpy((2 * rng.normal(size=(B, n))).astype(np.float32))
     rtol = 0.0 if exact and dtype == torch.float32 else \
@@ -253,3 +254,84 @@ def test_dwconv1d_host_kernel_matches_plain_exactly(cuda, dtype, B, T, C, V):
     assert ops.LAUNCHES["dwconv1d_host"] == before + 1
     assert torch.equal(got.cpu(), want)
     assert float(got[0, 0, 0]) == 0.0
+
+
+def _plan_case(rng, n, G, O, exact, skips=3):
+    """A generalized plan over ``x [*, n]``: ``G`` segments of 2 drawn from
+    the positions (some reused, some left out), ``skips`` slots -1."""
+    from repro_torch.core.offsets import SegmentPlan
+
+    idx = rng.integers(0, n, size=(G, 2)).astype(np.int32)
+    idx.reshape(-1)[rng.choice(2 * G, size=skips, replace=False)] = -1
+    plan = SegmentPlan(idx)
+    w = torch.from_numpy((rng.integers(-3, 4, size=(n, O)) if exact
+                          else rng.normal(size=(n, O))).astype(np.float32))
+    return plan, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,G,O", [(4, 1024, 512, 3072), (3, 21, 7, 13),
+                                     (1, 300, 175, 130)])
+def test_plan_gemv_kernel_matches_plain(cuda, dtype, B, n, G, O):
+    """Kernel 11 against its plain version: -1 slots, reused positions,
+    n != G*group, odd G, a ragged O edge; float32 within 1e-4 of the
+    largest output, bfloat16 within 1e-2."""
+    rng = np.random.default_rng(n + O)
+    spec = QuantSpec(4, True)
+    plan, w = _plan_case(rng, n, G, O, False)
+    tabs = build_grouped_tables(w, spec, 0.2, 2, plan=plan).to(dtype)
+    x = torch.from_numpy((2 * rng.normal(size=(B, n))).astype(np.float32))
+    want = ops.pcilt_fused_gemv_plan(x, tabs, plan.on("cpu"), spec, 0.2, 2)
+    before = ops.LAUNCHES["gemv_plan"]
+    got = ops.pcilt_fused_gemv_plan(x.to(cuda), tabs.to(cuda), plan.on(cuda),
+                                    spec, 0.2, 2)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gemv_plan"] == before + 1
+    _assert_sum_close(got.cpu(), want, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_plan_gemv_exact_grid_is_bit_equal(cuda):
+    """Integer weights, scale 0.5, codes on the grid: kernel 11, the
+    host-packed route over ``plan.pack`` and the dense oracle agree bit for
+    bit (every product and sum is exact)."""
+    from repro_torch.core.lut_layers import pcilt_linear
+    from repro_torch.core.quantization import dequantize, quantize
+
+    rng = np.random.default_rng(5)
+    spec = QuantSpec(2, True)
+    plan, w = _plan_case(rng, 64, 33, 128, True)
+    x = torch.from_numpy((rng.integers(-2, 2, size=(4, 64)) * 0.5)
+                         .astype(np.float32)).to(cuda)
+    tabs = build_grouped_tables(w.to(cuda), spec, 0.5, 2, plan=plan)
+    fused = pcilt_linear(x, tabs, spec, 0.5, 2, plan=plan, path="fused")
+    host = pcilt_linear(x, tabs, spec, 0.5, 2, plan=plan, path="kernel")
+    codes = quantize(x, spec, 0.5)
+    oracle = torch.einsum("bgj,gjo->bo",
+                          dequantize(plan.gather_codes(codes), spec, 0.5),
+                          plan.gather_weights(w.to(cuda)))
+    torch.cuda.synchronize()
+    assert torch.equal(fused, host) and torch.equal(fused, oracle)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_gemv_on_a_permutation_is_kernel9_on_permuted_x(cuda, dtype):
+    """A plan that permutes the positions reads what the unstacked fused
+    GEMV reads from ``x[:, perm]``: the two kernels agree bit for bit."""
+    from repro_torch.core.offsets import SegmentPlan
+
+    rng = np.random.default_rng(6)
+    spec, n, O = QuantSpec(4, True), 256, 384
+    perm = rng.permutation(n).astype(np.int32)
+    plan = SegmentPlan(perm.reshape(-1, 2))
+    w = torch.from_numpy(rng.normal(size=(n, O)).astype(np.float32))
+    tabs = build_grouped_tables(w, spec, 0.2, 2, plan=plan).to(dtype).to(cuda)
+    x = torch.from_numpy((2 * rng.normal(size=(4, n))).astype(np.float32)) \
+        .to(cuda)
+    got = ops.pcilt_fused_gemv_plan(x, tabs, plan.on(cuda), spec, 0.2, 2)
+    want = ops.pcilt_fused_gemv(x[:, torch.from_numpy(perm).long().to(cuda)]
+                                .contiguous(), tabs, spec, 0.2, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

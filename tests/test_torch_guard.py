@@ -43,6 +43,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.interop, "
             "repro_torch.kernels.ops, repro_torch.launch.quickstart, "
+            "repro_torch.launch.learnable_pcilt, "
             "repro_torch.configs.paper_cnn\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
