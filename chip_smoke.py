@@ -22,7 +22,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    conv and host-packed kernels (fused_conv2d, shared_conv2d, gemv_host,
    conv2d_host) run the paper CNN's five layer shapes on a 64x48 image and
    ragged shapes (stride 2, symmetric 4-bit, group 2 with odd C, O = 13,
-   bf16, a pool pointer out of range).  The paired stacked GEMV runs the
+   bf16, a pool pointer out of range, V = 65536); the fused and shared
+   conv in both designs — the staged kernel (its code pre-pass exact, two
+   launches bit-identical) and the kept one, forced.  The paired stacked
+   GEMV runs the
    paired decode's wz and wo on 24-layer segment-major stacks, the paired
    and fused GEMVs the parity probe's and qwen3-0.6b's MLP shapes, the
    host-packed dwconv the single-layer signal's offsets, each with a
@@ -40,7 +43,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    call, as on the decode path, where a step reads ~1 GB of table rows
    once each; the warm time of back-to-back calls is kept beside it.  The
    conv kernels run each layer of the paper CNN at B = 1, 1024x768 on its
-   real input; their plain versions on a 64x48 crop;
+   real input (the fused and shared conv: the staged design, its pre-pass
+   and fetch summed, beside the kept design forced and the fetch floor
+   from the SM count and ``clocks.max.sm``); their plain versions on a
+   64x48 crop;
 5. serving: ``Engine(mamba2-130m full width and depth, slots=4,
    pcilt=True)`` with float32 tables converts (calibrate, build, CRC
    record, verify at load) and serves 4 requests of 8 new tokens; prints
@@ -56,7 +62,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    extension-3 network of ``convert_conv_kernel(shared=True,
    weight_bits=4)`` layers (5 shared_conv2d launches) and, on a 256x192
    image, ``forward(mode="kernel")`` (5 gemv_host launches); per-layer
-   device ms, forward ms, images/s, table bytes and peak memory; each
+   device ms and design (staged or kept), forward ms, images/s, table
+   bytes and peak memory; each
    layer against ``F.conv2d`` on its fake-quantized input, and each
    path's logits against direct multiplication (rtol = atol = 1e-3,
    argmax equal), with the codes flipped between the two chains;
@@ -151,6 +158,13 @@ SOURCES = {
 }
 #: device kernel names (a substring of each) in profiles
 GEMV_KERNEL = "gemv_fused_kernel"
+#: the staged conv design's two launches (code pre-pass, fetch), and the
+#: kept design's one
+STAGED_KERNELS = ("conv2d_codes_kernel", "conv2d_staged_kernel")
+DIRECT_KERNEL = "conv2d_kernel"
+#: shared memory / L1 data path of one SM, bytes a clock (the conv fetch
+#: floor's rate)
+SMEM_BYTES_PER_CLOCK = 128
 DWCONV_HOST_KERNEL = "dwconv1d_host_kernel"
 B = 4  # decode slots
 #: the six projections of one layer at mamba2-130m width: (G, O)
@@ -246,16 +260,18 @@ class L2Flush:
 
 
 def time_calls(torch, calls, flush, kernel=None, reps=5, warmup=2,
-               retries=None):
+               retries=None, launches_per_call=1):
     """Per-call times (ms) of ``calls`` (zero-argument callables), all
     profiler device time: ``ms``, the mean with L2 flushed before every
-    call, and ``warm_ms`` back to back (the named kernel's time, each call
-    one launch of it; or, for a composite call, every kernel's but the
-    flush's); and ``events_ms``, the median over ``reps`` of the wall rate
-    of back-to-back calls on the device clock (CUDA events), host overhead
+    call, and ``warm_ms`` back to back (the named kernels' time, each call
+    ``launches_per_call`` launches of them — ``kernel`` is a name or a tuple of
+    names; or, for a composite call, every kernel's but the flush's); and
+    ``events_ms``, the median over ``reps`` of the wall rate of
+    back-to-back calls on the device clock (CUDA events), host overhead
     included.  ``warmup`` calls run first.  A profile that misses a launch
-    of the named kernel, or shows no device time, is taken again (counted
+    of the named kernels, or shows no device time, is taken again (counted
     in ``retries``), up to three times; then the script fails."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     for c in calls[:warmup]:
         c()
     torch.cuda.synchronize()
@@ -284,15 +300,18 @@ def time_calls(torch, calls, flush, kernel=None, reps=5, warmup=2,
             require(cold or not flushes,
                     f"the timed calls run the L2 flush's kernel {flushes}")
             mine = [v for k, v in prof.items() if FLUSH_KERNEL not in k
-                    and (kernel is None or kernel in k)]
+                    and (names is None or any(m in k for m in names))]
             n, us = sum(c for c, _ in mine), sum(t for _, t in mine)
-            if us > 0 and (kernel is None or n == len(calls)):
+            if us > 0 and (names is None
+                           or n == len(calls) * launches_per_call):
                 per_call.append(us / 1000.0 / len(calls))
                 break
             if retries is not None:
                 retries.append({"kernel": kernel, "cold": cold,
-                                "launches_seen": n, "of": len(calls)})
-            log(f"  (profile {attempt + 1} saw {n} of {len(calls)} launches"
+                                "launches_seen": n,
+                                "of": len(calls) * launches_per_call})
+            log(f"  (profile {attempt + 1} saw {n} of "
+                f"{len(calls) * launches_per_call} launches"
                 f" of {kernel or 'the calls'}, {us:.1f} us: taken again; "
                 f"rows {[(k[:48], c) for k, (c, _) in prof.items()]})")
         else:
@@ -462,9 +481,14 @@ def check_conv_kernels(torch, ops, record, gen):
     asymmetric, group 1), one of them on an exact grid and one in bf16;
     ragged shapes (stride 2, symmetric 4-bit, group 2 with odd C so the
     alignment slot n_pad is 1, O = 13 or 45, a pool of X < G rows with one
-    pointer out of range), f32, bf16 and exact.  Exact grid: bit-equal;
-    f32 within 1e-4 of max|plain| (another summation order over up to 5000
-    rows); bf16 within 1e-2 (one rounding of the f32 sum)."""
+    pointer out of range), f32, bf16 and exact.  The fused and shared conv
+    run both designs on every case: the staged kernel (the wrappers'
+    choice at V = 256; its code pre-pass held to its plain version
+    exactly, and two launches bit-identical) and the kept kernel, forced;
+    a V = 65536 case (8 bits x group 2) takes the kept kernel unforced.
+    Exact grid: bit-equal; f32 within 1e-4 of max|plain| (another
+    summation order over up to 5000 rows); bf16 within 1e-2 (one rounding
+    of the f32 sum)."""
     from repro_torch.configs.paper_cnn import config
     from repro_torch.core.lut_layers import conv_offsets, flatten_filters
     from repro_torch.core.pcilt import build_grouped_tables
@@ -488,7 +512,9 @@ def check_conv_kernels(torch, ops, record, gen):
               ("ragged s2 sym4 g2 C3 O13 9x11 bf16", 3, 13, sym4, 2, 2, 9, 11,
                torch.bfloat16, False, True),
               ("ragged s2 sym4 g2 C5 O45 13x10 exact", 5, 45, sym4, 2, 2, 13,
-               10, torch.float32, True, True)]
+               10, torch.float32, True, True),
+              ("large V: 8-bit g2 C3 O13 9x11", 3, 13, cfg.act_spec, 2, 1, 9,
+               11, torch.float32, False, True)]
     for what, C, O, spec, group, stride, h, w_, dt, exact, ragged in cases:
         if spec.symmetric:
             x = torch.randn(1, h, w_, C, generator=gen, device=dev)
@@ -509,16 +535,11 @@ def check_conv_kernels(torch, ops, record, gen):
         tol = "exact" if exact else f"rtol {rtol}"
         xp = padded(x, k, stride)
 
-        def check(kernel, got, want):
+        def check(kernel, got, want, note=""):
             torch.cuda.synchronize()
             mx, ok = close(torch, got, want.reshape(got.shape), rtol, exact)
-            record(kernel, what, mx, ok, tol)
+            record(kernel, what + note, mx, ok, tol)
 
-        check("fused_conv2d",
-              ops.pcilt_fused_conv2d(x, tabs, spec, scale, group, k, k,
-                                     stride=stride),
-              ops.fused_conv2d_plain(xp, tabs, spec, scale, group, k, k,
-                                     stride))
         if ragged:  # a pool of X < G rows, one pointer out of range
             X = G // 2
             pool = tabs[:X]
@@ -527,11 +548,37 @@ def check_conv_kernels(torch, ops, record, gen):
             idx[G // 3] = X + 7
         else:
             pool, idx = tabs, torch.arange(G, dtype=torch.int32, device=dev)
-        check("shared_conv2d",
-              ops.pcilt_shared_conv2d(x, pool, idx, spec, scale, group, k, k,
-                                      stride=stride),
-              ops.shared_conv2d_plain(xp, pool, idx, spec, scale, group, k,
-                                      k, stride))
+        fits = ops.conv_variant(tabs.shape[1], tabs.element_size())
+        for kernel, run, plain in (
+                ("fused_conv2d", lambda v: ops._fused_conv2d(
+                    x, tabs, spec, scale, group, k, k, stride, variant=v),
+                 ops.fused_conv2d_plain(xp, tabs, spec, scale, group, k, k,
+                                        stride)),
+                ("shared_conv2d", lambda v: ops._shared_conv2d(
+                    x, pool, idx, spec, scale, group, k, k, stride,
+                    variant=v),
+                 ops.shared_conv2d_plain(xp, pool, idx, spec, scale, group,
+                                         k, k, stride))):
+            seen = dict(ops.CONV_VARIANT_LAUNCHES)
+            got = run(None)  # the wrappers' choice
+            diff = {v: c - seen[v] for v, c in
+                    ops.CONV_VARIANT_LAUNCHES.items() if c != seen[v]}
+            require(diff == {fits: 1}, f"{kernel} {what}: ran {diff}, "
+                    f"conv_variant chose {fits}")
+            check(kernel, got, plain)
+            if fits == "staged":
+                again = run("staged")
+                torch.cuda.synchronize()
+                require(torch.equal(got, again), f"{kernel} {what}: two "
+                        "launches of the staged kernel differ")
+                check(kernel, run("direct"), plain, " kept kernel")
+        if fits == "staged":
+            codes = ops._conv_codes(xp, spec, scale)
+            torch.cuda.synchronize()
+            want = ops.conv_codes_plain(xp, spec, scale)
+            record("fused_conv2d", f"{what} code pre-pass", 0.0 if
+                   torch.equal(codes, want) else float("inf"),
+                   torch.equal(codes, want), "exact")
         off = conv_offsets(xp, spec, scale, group, k, k, stride, "VALID")
         check("gemv_host", ops.pcilt_gemv(off.reshape(-1, G), tabs),
               pcilt_gemv_ref(off.reshape(-1, G), tabs))
@@ -1128,9 +1175,13 @@ def host_offsets(torch, xp, spec, scale, k, G, band=32):
 def time_conv_kernels(torch, ops, report, rows):
     """Phase 4 for the conv kernels: each layer of the paper CNN at B = 1,
     1024x768, on its real input (the dense fake-quant chain of the seeded
-    network): the kernel's device time (one launch, padded input, so the
-    call is the kernel alone), the plain version's on the top-left 64x48
-    crop (labelled ``plain_shape``), one library call, and the bound."""
+    network): the wrapper's device time (padded input, so the call is the
+    kernels alone: for the fused and shared conv the staged design's code
+    pre-pass and fetch, two launches, summed), the kept design's forced
+    beside it (``direct_ms``), the plain version's on the top-left 64x48
+    crop (labelled ``plain_shape``), one library call, the bound and, for
+    the conv kernels, the fetch floor: the fetch-adds' 4-byte cells over
+    the SMs' shared-memory rate, 128 B a clock each at ``clocks.max.sm``."""
     import torch.nn.functional as F
 
     from repro_torch.core.lut_layers import conv_offsets, flatten_filters
@@ -1145,11 +1196,12 @@ def time_conv_kernels(torch, ops, report, rows):
     flush = L2Flush(torch)
     h, small = x, x[:, :SMALL_HW[0], :SMALL_HW[1]]
 
-    def timed(calls, kernel=None):
+    def timed(calls, kernel=None, per_call=1):
         return time_calls(torch, calls, flush, kernel, reps=1, warmup=1,
-                          retries=report["profile_retries"])
+                          retries=report["profile_retries"],
+                          launches_per_call=per_call)
 
-    def add(kernel, i, shape, kt, plain, lib, nbytes, ops_):
+    def add(kernel, i, shape, kt, plain, lib, nbytes, ops_, direct=None):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = ops_ / F32_OPS_PER_S * 1e3
         key = f"{kernel} conv{i}"
@@ -1164,11 +1216,20 @@ def time_conv_kernels(torch, ops, report, rows):
                      "bound_by": "bytes" if b_ms > o_ms else "operations",
                      "fetch_adds": ops_, "bytes": nbytes,
                      "launches_per_forward": 1}
+        extra = ""
+        if direct is not None:
+            floor = ops_ * 4 / (report["sm_count"] * SMEM_BYTES_PER_CLOCK
+                                * report["sm_clock_max_mhz"] * 1e6) * 1e3
+            rows[key].update(variant="staged", direct_ms=direct["ms"],
+                             direct_warm_ms=direct["warm_ms"],
+                             fetch_floor_ms=floor)
+            extra = (f"  kept kernel {direct['ms']:10.3f} ms  fetch floor "
+                     f"{floor:8.3f} ms")
         log(f"time  {kernel:13s} conv{i} {shape}  kernel "
             f"{kt['ms']:10.3f} ms (warm {kt['warm_ms']:10.3f})  plain "
             f"{plain['ms']:8.3f} ms at {SMALL_HW[1]}x{SMALL_HW[0]}  library "
             f"{lib['ms']:8.3f} ms  bound {max(b_ms, o_ms):8.3f} ms "
-            f"({rows[key]['bound_by']})")
+            f"({rows[key]['bound_by']}){extra}")
 
     with torch.no_grad():
         for i, (C, O) in enumerate(conv_layers(model)):
@@ -1186,23 +1247,32 @@ def time_conv_kernels(torch, ops, report, rows):
             xq = fake_quant(xp, spec, s).permute(0, 3, 1, 2).contiguous()
             w4 = w.permute(3, 2, 0, 1).contiguous()
             wq4 = wq.permute(3, 2, 0, 1).contiguous()
+            require(ops.conv_variant(V, tabs.element_size()) == "staged",
+                    f"{name}: the paper CNN's V = {V} is not staged")
             lib = timed([lambda: F.conv2d(xq, w4)])
             kt = timed([lambda: ops.pcilt_fused_conv2d(
                 xp, tabs, spec, s, 1, k, k, padding="VALID")],
-                "conv2d_kernel")
+                STAGED_KERNELS, per_call=2)
+            direct = timed([lambda: ops._fused_conv2d(
+                xp, tabs, spec, s, 1, k, k, padding="VALID",
+                variant="direct")], DIRECT_KERNEL)
             plain = timed([lambda: ops.fused_conv2d_plain(
                 xps, tabs, spec, s, 1, k, k, 1)])
             add("fused_conv2d", i, shape, kt, plain, lib,
-                xp.numel() * 4 + tabs.numel() * 4 + out_bytes, fetch_adds)
+                xp.numel() * 4 + tabs.numel() * 4 + out_bytes, fetch_adds,
+                direct)
             lib = timed([lambda: F.conv2d(xq, wq4)])
             kt = timed([lambda: ops.pcilt_shared_conv2d(
                 xp, pool.pool, pool.seg_idx, spec, s, 1, k, k,
-                padding="VALID")], "conv2d_kernel")
+                padding="VALID")], STAGED_KERNELS, per_call=2)
+            direct = timed([lambda: ops._shared_conv2d(
+                xp, pool.pool, pool.seg_idx, spec, s, 1, k, k,
+                padding="VALID", variant="direct")], DIRECT_KERNEL)
             plain = timed([lambda: ops.shared_conv2d_plain(
                 xps, pool.pool, pool.seg_idx, spec, s, 1, k, k, 1)])
             add("shared_conv2d", i, shape + f" X{pool.pool.shape[0]}", kt,
                 plain, lib, xp.numel() * 4 + pool.pool_bytes() + out_bytes,
-                fetch_adds)
+                fetch_adds, direct)
             del xq, pool, layer
             # the host-packed kernels on the layer's offsets; their plain
             # versions (the ref fetch-sums) on the crop's offsets; the
@@ -1426,6 +1496,15 @@ def paper_cnn(torch, ops, report):
         launches[kernel] = L
         return res, secs
 
+    def variant_of(fn):
+        """``fn()`` and the conv design that served it."""
+        seen = dict(ops.CONV_VARIANT_LAUNCHES)
+        res = fn()
+        ran = [v for v, c in ops.CONV_VARIANT_LAUNCHES.items()
+               if c != seen[v]]
+        require(len(ran) == 1, f"one conv call ran {ran}")
+        return res, ran[0]
+
     with torch.no_grad():
         t0 = time.perf_counter()
         tables = model.build_tables(params, scales)
@@ -1472,17 +1551,20 @@ def paper_cnn(torch, ops, report):
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
-            got = ops.pcilt_fused_conv2d(hp, tables[name], spec, s, 1, k, k)
+            got, variant = variant_of(lambda: ops.pcilt_fused_conv2d(
+                hp, tables[name], spec, s, 1, k, k))
             ev1.record()
             ev1.synchronize()
             want = dm_conv2d(hp, w, spec, s)
             err = float((got - want).abs().max())
             tol = 1e-4 * float(want.abs().max())
             per_layer.append({"layer": name, "ms": ev0.elapsed_time(ev1),
+                              "variant": variant,
                               "max_abs_err": err, "tol": tol,
                               "codes_flipped": flips,
                               "codes": hp.numel()})
-            log(f"  {name}: {per_layer[-1]['ms']:9.3f} ms; |conv - dm| "
+            log(f"  {name}: {per_layer[-1]['ms']:9.3f} ms ({variant}); "
+                f"|conv - dm| "
                 f"{err:.3e} (tol {tol:.3e} = 1e-4 max|dm|: float32 sums "
                 f"of up to 5000 products in another order); input codes "
                 f"flipped vs the DM chain {flips} of {hp.numel()}")
@@ -1504,10 +1586,19 @@ def paper_cnn(torch, ops, report):
         for i, p in enumerate(out["shared"]["pools"]):
             log(f"  conv{i}: X {p['X']} of G {p['G']} segments, pool "
                 f"{p['pool_bytes'] / 2**20:.1f} MiB")
+        served = []
+
+        def shared_layer(c, h):
+            res, variant = variant_of(lambda: c(h, path="shared"))
+            served.append(variant)
+            return res
+
         logits, secs = counted("shared_conv2d", lambda: _run_layers(
-            torch, convs, params, x, lambda c, h: c(h, path="shared")))
-        out["shared"].update(forward_s=secs, images_per_s=1 / secs)
-        log(f"  forward {secs * 1e3:.1f} ms, {1 / secs:.3f} images/s")
+            torch, convs, params, x, shared_layer))
+        out["shared"].update(forward_s=secs, images_per_s=1 / secs,
+                             variants=served)
+        log(f"  forward {secs * 1e3:.1f} ms, {1 / secs:.3f} images/s; "
+            f"designs per layer {served}")
         dm = _run_layers(torch, convs, params, x,
                          lambda c, h: dm_conv2d(h, c.filters, spec, c.scale))
         _logits_check(torch, f"shared {FULL_HW[1]}x{FULL_HW[0]}", logits, dm,
@@ -2072,9 +2163,18 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi: no output"
     log(card)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    require(clk and clk[0].replace(".", "").isdigit(),
+            f"nvidia-smi gave no clocks.max.sm: {clk}")
     report = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda,
+              "sm_count": torch.cuda.get_device_properties(0)
+              .multi_processor_count, "sm_clock_max_mhz": float(clk[0]),
               "checks": [], "profile_retries": []}
+    log(f"{report['sm_count']} SMs, clocks.max.sm {clk[0]} MHz")
 
     t0 = time.perf_counter()
     build.build_all()
@@ -2138,8 +2238,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"]})
-        if "plain_shape" in r:
-            kernels[-1]["plain_shape"] = r["plain_shape"]
+        for extra in ("plain_shape", "direct_ms", "fetch_floor_ms"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -44,7 +44,8 @@ KERNELS = {"gemv_stacked": "gemv_stacked", "dwconv1d": "dwconv1d",
            "gemv_plan": "gemv_stacked", "dwconv1d_host": "dwconv1d"}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-#: C entry point suffix -> argtypes (each entry exists as ``_f32``/``_bf16``)
+#: C entry point suffix -> argtypes (each entry exists as ``_f32``/``_bf16``,
+#: or as ``_f32`` alone)
 _SIGNATURES = {
     "pcilt_gemv_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _LL,
                          _LL, _I, _P],
@@ -56,6 +57,9 @@ _SIGNATURES = {
                           _P],
     "pcilt_fused_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],
     "pcilt_shared_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],
+    "pcilt_fused_conv2d_staged": [_P, _P, _P, _P] + [_I] * 15 + [_P],
+    "pcilt_shared_conv2d_staged": [_P, _P, _P, _P] + [_I] * 15 + [_P],
+    "pcilt_conv2d_codes": [_P, _P] + [_I] * 6 + [_F, _P],
     "pcilt_gemv_host": [_P, _P, _P, _LL, _I, _I, _I, _P],
 }
 
@@ -132,5 +136,8 @@ def library(name: str) -> ctypes.CDLL:
                 if sym is not None:
                     sym.argtypes = argtypes
                     sym.restype = ctypes.c_int
+        cfg = getattr(lib, "pcilt_conv2d_staged_config", None)
+        if cfg is not None:
+            cfg.argtypes, cfg.restype = [_P], ctypes.c_int
         _libs[name] = lib
     return lib

@@ -10,18 +10,66 @@
 // (body _conv_kernel, _strip_offsets) and src/repro/kernels/pcilt_shared.py
 // pcilt_shared_conv2d_pallas (without its per-call [V, X, O] transpose).
 //
-// Bound: operations.  Each output pixel adds G rows of O cells: P*G*O
-// fetch-adds (1.4e12 for the paper CNN's conv4 on a 1024x768 image) against
-// a table read once (1.8 GB), far above the card's bytes line; in practice
-// the gathered cells come from L2/L1, so the kernel is bound by its load
-// instructions.
+// Two designs; kernels.ops chooses between them by shape (conv_variant):
 //
-// Design: the row-tiled fetch of pcilt_common.cuh with pixels as rows.  A
-// block stages, per chunk of segments, every pixel's packed offset in shared
-// memory — the quantized patch and its offsets never reach device memory —
-// then each thread adds its 8 pixels' cells of its column, 8 independent
-// loads per segment.  The G loop stays in the block: no atomics, a fixed
-// summation order, deterministic results.
+// "staged" (V <= 256: every offset fits a byte).  Bound: the on-chip fetch.
+// Each output pixel adds G rows of O cells, P*G*O fetch-adds (1.4e12 for
+// the paper CNN's conv4 on a 1024x768 image), each a 4-byte load from
+// on-chip memory: at 128 B a clock per SM that is ~164 ms at conv4, far
+// above the 1.8 GB table's HBM time.  The earlier design ("direct" below)
+// fetched every cell from L2 and ran at the card's L2 rate, ~6x above that
+// floor.  This one:
+//  1. A pre-pass (conv2d_codes_kernel) quantizes the padded image once per
+//     element into a channel-planar uint8 code image [B, C, Hp, Wp]: a
+//     quarter of the float image's bytes, so neither the im2col patch nor
+//     the [P, G] offsets reach device memory, and no element is quantized
+//     again per (pixel, segment, O tile).  Planar, so that the codes of
+//     neighbouring pixels for one patch position are neighbouring bytes.
+//     (The alternative, quantizing each block's input halo into shared
+//     memory, would need the halo of all C channels for segments that
+//     straddle channels at group > 1, and the smem is the slices'.)
+//  2. A block owns kPixTile = 1024 consecutive output pixels and one O
+//     tile of kColTile = 32 columns; lane l of every warp owns column l,
+//     each of 16 warps 64 pixels (64 float32 accumulators a thread).  For
+//     each segment g the block stages T_g[:, o0:o0+32] in shared memory
+//     once and all 1024 pixels fetch from there.  A warp reads one pixel's
+//     row across 32 neighbouring columns: one conflict-free wavefront.
+//  3. Only the rows that some pixel of the block names are staged: the
+//     offsets of a segment are packed one segment before its slice is
+//     copied, marking their rows in a byte mask.  On the paper CNN's real
+//     activations a block meets ~60 of the 256 codes per segment, so L2
+//     serves a quarter of the slice bytes it would otherwise.
+//  4. The slices move by cp.async through a ring of kStages = 4 slots, 3
+//     segments ahead.  cp.async, not TMA: a tensor map needs 16-byte
+//     global strides, and the table's row stride O*4 is 1400 B at conv4
+//     (O 350) and 200 B at conv0 (O 50).  The copy width is the widest of
+//     16, 8 and 4 bytes that the row stride and the table's address allow
+//     (element by element for a bf16 table of odd O).
+//  5. Slice rows are 256 bytes apart and a slot's 32 columns sit side by
+//     side with the other slots' in those rows (64 KB blocks), so one
+//     byte_perm of a pixel's offset byte and a per-lane word is the whole
+//     shared-memory address: a fetch-add is byte_perm, load, add.  The
+//     fetch reads 16 pixels' offsets in one 16-byte broadcast.
+//  6. Each thread packs the offsets of 2 pixels per segment from the code
+//     image; its loads are issued a whole segment before they are packed
+//     (two register sets), so no pack waits on a load of its own segment.
+//  7. The G loop stays in the block, in ascending g: no atomics, one
+//     summation order, bit-identical results run to run.
+//  8. Block b runs pixel tile b % n_ptiles of O tile b / n_ptiles: the
+//     blocks resident together share an O tile and walk G at the same
+//     pace, so their slices are L2 hits and the table streams from HBM a
+//     few times per O tile, not once per block.
+// Measured at conv4 on an H100 (the fetch loop alone 214 ms): the copy
+// issue and the code loads add ~180 ms that the fetch does not hide; see
+// PERF.md.
+//
+// "direct" (any V; kept for tables whose slice cannot be staged, e.g.
+// V = 65536 at 8 bits x group 2).  The row-tiled fetch of
+// pcilt_common.cuh with pixels as rows: a block stages, per chunk of
+// segments, every pixel's packed offset in shared memory, quantizing the
+// patch element in place, then each thread adds its 8 pixels' cells of its
+// column straight from the table, 8 independent loads per segment.  Bound
+// in practice by L2's rate, since the 16 pixels of a block share no row.
 #include "pcilt_common.cuh"
 
 namespace {
@@ -135,6 +183,407 @@ int launch(const float* x, const T* tab, const int* seg_idx, T* out, int B,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// "staged": the code pre-pass, then the slice-staged fetch
+// ---------------------------------------------------------------------------
+
+namespace staged {
+
+constexpr int kWarps = 16;
+constexpr int kPixPerThread = 64;                     // accumulators a thread
+constexpr int kPixTile = kWarps * kPixPerThread;      // pixels a block
+constexpr int kColTile = 32;                          // columns a block
+constexpr int kStages = 4;      // slices in flight: the fetched one + 3 ahead
+constexpr int kOffRing = 8;     // offset and row-mask slots (5 live)
+constexpr int kRowPitch = 256;  // bytes from one slice row to the next
+constexpr int kThreads = kWarps * 32;
+constexpr int kStagePix = kPixTile / kThreads;        // offsets a thread packs
+constexpr int kMaxV = 256;                            // offsets are bytes
+constexpr int kCodeTile = 32;                         // pre-pass transpose tile
+
+// Slices share 256-byte rows: a row holds 256 / (kColTile * item) slots'
+// columns side by side, and kMaxV rows make a 64 KB block.  So cell (v, l)
+// of slot s lies at byte (s / per) << 16 | v << 8 | (s % per) * 32 * item
+// + l * item: one byte_perm of a pixel's offset byte and a per-lane,
+// per-slot word builds the whole address.
+__host__ __device__ constexpr int slots_per_row(int item) {
+  return kRowPitch / (kColTile * item);
+}
+constexpr int kBlockBytes = kMaxV * kRowPitch;
+
+// Dynamic shared memory of a block: the slice blocks, then kOffRing slots
+// of kPixTile offset bytes, then kOffRing row masks of kMaxV bytes.
+__host__ __device__ constexpr size_t smem_bytes(int item) {
+  return (size_t)((kStages + slots_per_row(item) - 1) / slots_per_row(item)) *
+             kBlockBytes +
+         (size_t)kOffRing * (kPixTile + kMaxV);
+}
+
+// Byte offset of ring slot s's row 0, column 0 in the slice area.
+__device__ __forceinline__ unsigned slot_offset(int s, int item) {
+  const int per = slots_per_row(item);
+  return (unsigned)(s / per) << 16 | (unsigned)((s % per) * kColTile * item);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The rows of T[:, o0:o0+ncols] (src = its row 0, column o0) that some
+// pixel's offset names (used[v] != 0; used has kMaxV bytes, 0 past V) ->
+// dst rows of kRowPitch bytes, VB bytes a copy.  The mask bytes are read
+// first, all together, then the copies issued.
+template <typename T, int VB>
+__device__ __forceinline__ void copy_slice(unsigned char* dst, const T* src,
+                                           const uint8_t* used, long long O,
+                                           int ncols) {
+  constexpr int E = VB / (int)sizeof(T);
+  constexpr int kVecs = kColTile / E;      // copies a row
+  constexpr int kPass = kThreads / kVecs;  // rows a pass
+  constexpr int kRows = kMaxV / kPass;     // passes
+  const int c = (threadIdx.x % kVecs) * E;
+  if (c >= ncols) return;
+  const int r0 = threadIdx.x / kVecs;
+  bool use[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) use[i] = used[r0 + i * kPass] != 0;
+  dst += c * sizeof(T) + r0 * kRowPitch;
+  src += c + r0 * O;
+  const long long step = kPass * O;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i, src += step)
+    if (use[i]) cp_async<VB>(dst + i * kPass * kRowPitch, src);
+}
+
+// The same, element by element through registers (a bf16 table of odd O:
+// no row is 4-byte aligned).
+template <typename T>
+__device__ __forceinline__ void copy_slice_plain(unsigned char* dst,
+                                                 const T* src,
+                                                 const uint8_t* used,
+                                                 long long O, int ncols) {
+  constexpr int V = kMaxV;
+  for (int i = threadIdx.x; i < V * kColTile; i += kThreads) {
+    const int r = i / kColTile;
+    const int c = i - r * kColTile;
+    if (c < ncols && used[r])
+      reinterpret_cast<T*>(dst + r * kRowPitch)[c] = src[r * O + c];
+  }
+}
+
+// The patch position the walk's next segment reads its codes from: pos,
+// its channel c, tap column tj and code-image element offset delta of (c,
+// ti, tj), stepped one position at a time in [kh, kw, C] order.
+struct PatchWalk {
+  int pos, c, tj;
+  long long delta;
+  __device__ __forceinline__ void step(int C, int kw, long long HWp, int Wp) {
+    ++pos;
+    if (++c < C) {
+      delta += HWp;
+      return;
+    }
+    c = 0;
+    delta -= (long long)(C - 1) * HWp;
+    if (++tj < kw) {
+      delta += 1;
+      return;
+    }
+    tj = 0;
+    delta += Wp - (kw - 1);
+  }
+};
+
+}  // namespace staged
+
+// x [B, S = Hp*Wp, C] float32 -> codes [B, C, S] uint8, each element
+// quantized once; a 32 x 32 tile through shared memory keeps both the read
+// and the write coalesced.
+__global__ void conv2d_codes_kernel(const float* __restrict__ x,
+                                    uint8_t* __restrict__ codes, long long S,
+                                    int C, int kmax, int zp, float scale) {
+  using staged::kCodeTile;
+  __shared__ uint8_t tile[kCodeTile][kCodeTile + 1];
+  const long long s0 = (long long)blockIdx.x * kCodeTile;
+  const int c0 = blockIdx.y * kCodeTile;
+  const long long b = blockIdx.z;
+  for (int r = threadIdx.y; r < kCodeTile; r += blockDim.y) {
+    const long long s = s0 + r;
+    const int c = c0 + threadIdx.x;
+    if (s < S && c < C) {
+      bool sat;
+      tile[r][threadIdx.x] = (uint8_t)pcilt::quantize_code(
+          x[(b * S + s) * C + c], scale, zp, kmax, &sat);
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < kCodeTile; r += blockDim.y) {
+    const int c = c0 + r;
+    const long long s = s0 + threadIdx.x;
+    if (s < S && c < C) codes[(b * C + c) * S + s] = tile[threadIdx.x][r];
+  }
+}
+
+// The raw codes of the next segment's (up to kG) patch positions for this
+// thread's kStagePix pixels, and a mask per position (0: past group or n,
+// code 0); advances the walk to the segment after.  Every load is in
+// bounds: a position that adds nothing reads the pixel's own code.
+template <int kG>
+__device__ __forceinline__ void load_codes(
+    const uint8_t* __restrict__ codes,
+    const long long (&pbase)[staged::kStagePix], staged::PatchWalk& walk,
+    int group, int n, int C, int kw, long long HWp, int Wp,
+    unsigned (&raw)[staged::kStagePix][kG], unsigned (&mask)[kG]) {
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    const bool live = j < group && walk.pos < n;
+    const long long delta = live ? walk.delta : 0;
+    mask[j] = live ? 0xffu : 0u;
+    if (j < group) walk.step(C, kw, HWp, Wp);
+#pragma unroll
+    for (int k = 0; k < staged::kStagePix; ++k)
+      raw[k][j] = codes[pbase[k] + delta];
+  }
+}
+
+// Pack the offsets into dst (a byte a pixel) and mark their rows in used.
+template <int kG>
+__device__ __forceinline__ void store_offsets(
+    uint8_t* dst, uint8_t* used, const unsigned (&raw)[staged::kStagePix][kG],
+    const unsigned (&mask)[kG], int bits) {
+#pragma unroll
+  for (int k = 0; k < staged::kStagePix; ++k) {
+    unsigned off = 0;
+#pragma unroll
+    for (int j = 0; j < kG; ++j) off |= (raw[k][j] & mask[j]) << (j * bits);
+    dst[threadIdx.x + k * staged::kThreads] = (uint8_t)off;
+    used[off] = 1;
+  }
+}
+
+template <typename T, bool kShared, int kG>
+__global__ void __launch_bounds__(staged::kThreads, 1)
+    conv2d_staged_kernel(const uint8_t* __restrict__ codes,
+                         const T* __restrict__ tab,
+                         const int* __restrict__ seg_idx,
+                         T* __restrict__ out, long long P, int C, int Hp,
+                         int Wp, int Ho, int Wo, int kw, int stride, int G,
+                         int X, int V, int O, int n, int group, int bits,
+                         long long n_ptiles, int vb) {
+  using namespace staged;
+  constexpr int kAhead = kStages - 1;
+  extern __shared__ __align__(16) unsigned char smem_u8[];
+  unsigned char* s_tab = smem_u8;
+  uint8_t* s_off = smem_u8 + (smem_bytes(sizeof(T)) -
+                              (size_t)kOffRing * (kPixTile + kMaxV));
+  uint8_t* s_used = s_off + kOffRing * kPixTile;  // [kOffRing][kMaxV]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long pix0 = (long long)(blockIdx.x % n_ptiles) * kPixTile;
+  const int o0 = (int)(blockIdx.x / n_ptiles) * kColTile;
+  const int ncols = min(kColTile, O - o0);
+  const long long HWp = (long long)Hp * Wp;
+  const long long VO = (long long)V * O;
+
+  // code-image element of codes[b, 0, oy*stride, ox*stride] for each pixel
+  // this thread packs (past P: 0, a valid code; the pixel is never stored)
+  long long pbase[kStagePix];
+#pragma unroll
+  for (int k = 0; k < kStagePix; ++k) {
+    const long long p = pix0 + tid + k * kThreads;
+    pbase[k] = 0;
+    if (p < P) {
+      const long long b = p / ((long long)Ho * Wo);
+      const int rem = (int)(p - b * Ho * Wo);
+      const int oy = rem / Wo, ox = rem - (rem / Wo) * Wo;
+      pbase[k] = b * C * HWp + (long long)oy * stride * Wp +
+                 (long long)ox * stride;
+    }
+  }
+
+  // element index of segment g's [V, O] table; -1: the segment adds nothing
+  auto table_of = [&](int g) -> long long {
+    if (!kShared) return (long long)g * VO;
+    const int s = seg_idx[g];
+    return (s >= 0 && s < X) ? (long long)s * VO : -1;
+  };
+  // the used rows of segment g's slice into its ring slot; one commit group
+  auto issue = [&](int g) {
+    const long long base = g < G ? table_of(g) : -1;
+    if (base >= 0) {
+      unsigned char* dst = s_tab + slot_offset(g % kStages, (int)sizeof(T));
+      const uint8_t* used = s_used + (g % kOffRing) * kMaxV;
+      const T* src = tab + base + o0;
+      switch (vb) {
+        case 16: copy_slice<T, 16>(dst, src, used, O, ncols); break;
+        case 8: copy_slice<T, 8>(dst, src, used, O, ncols); break;
+        case 4: copy_slice<T, 4>(dst, src, used, O, ncols); break;
+        default: copy_slice_plain<T>(dst, src, used, O, ncols);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Pipeline, at segment g: the used rows of segment g + kAhead's slice are
+  // copied; segment g + kAhead + 2's codes are loaded; segment g is
+  // fetched; segment g + kAhead + 1's codes (loaded a segment earlier, into
+  // the other register set) are packed and their rows marked.  A row mask
+  // is cleared a segment before it is marked.
+  for (int i = tid; i < kOffRing * kMaxV / 4; i += kThreads)
+    reinterpret_cast<unsigned*>(s_used)[i] = 0u;
+  __syncthreads();
+  PatchWalk walk{0, 0, 0, 0};
+  unsigned raw0[kStagePix][kG], mask0[kG], raw1[kStagePix][kG], mask1[kG];
+#pragma unroll 1
+  for (int g = 0; g <= kAhead; ++g) {
+    load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, raw0, mask0);
+    store_offsets<kG>(s_off + (g % kOffRing) * kPixTile,
+                      s_used + (g % kOffRing) * kMaxV, raw0, mask0, bits);
+  }
+  load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, raw1, mask1);
+  __syncthreads();
+#pragma unroll 1
+  for (int g = 0; g < kAhead; ++g) issue(g);
+
+  float acc[kPixPerThread];
+#pragma unroll
+  for (int k = 0; k < kPixPerThread; ++k) acc[k] = 0.f;
+  const unsigned lane_byte = lane * (unsigned)sizeof(T);
+
+  // cell (v, lane) of a slot: byte v << 8 | at of s_tab, one byte_perm of
+  // the offset byte v into byte 1 of at
+  auto fetch = [&](int g) {
+    const unsigned at = slot_offset(g % kStages, (int)sizeof(T)) + lane_byte;
+    const uint4* oc = reinterpret_cast<const uint4*>(
+        s_off + (g % kOffRing) * kPixTile + warp * kPixPerThread);
+#pragma unroll
+    for (int i = 0; i < kPixPerThread / 16; ++i) {
+      const uint4 w = oc[i];  // 16 pixels' offsets, one broadcast
+      const unsigned ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          acc[16 * i + 4 * q + b] += pcilt::to_f32(*reinterpret_cast<const T*>(
+              s_tab + __byte_perm(ws[q], at, 0x7604u | (b << 4))));
+    }
+  };
+  auto segment = [&](int g, unsigned (&raw_in)[kStagePix][kG],
+                     unsigned (&mask_in)[kG], unsigned (&raw_out)[kStagePix][kG],
+                     unsigned (&mask_out)[kG]) {
+    cp_async_wait<kAhead - 1>();  // this thread's copies of slice g landed
+    __syncthreads();  // everyone's; slot (g - 1) % kStages is free again
+    issue(g + kAhead);
+    load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, raw_in,
+                   mask_in);
+    if (tid < kMaxV / 4)
+      reinterpret_cast<unsigned*>(
+          s_used + ((g + kAhead + 2) % kOffRing) * kMaxV)[tid] = 0u;
+    if (table_of(g) >= 0) fetch(g);
+    const int gs = g + kAhead + 1;
+    store_offsets<kG>(s_off + (gs % kOffRing) * kPixTile,
+                      s_used + (gs % kOffRing) * kMaxV, raw_out, mask_out,
+                      bits);
+  };
+#pragma unroll 1
+  for (int g = 0; g < G; g += 2) {
+    segment(g, raw0, mask0, raw1, mask1);
+    if (g + 1 < G) segment(g + 1, raw1, mask1, raw0, mask0);
+  }
+
+  if (lane >= ncols) return;
+  const long long prow = pix0 + warp * kPixPerThread;
+#pragma unroll
+  for (int k = 0; k < kPixPerThread; ++k) {
+    const long long p = prow + k;
+    if (p < P) out[p * O + o0 + lane] = pcilt::from_f32<T>(acc[k]);
+  }
+}
+
+// Widest copy (16, 8 or 4 bytes; 0: element by element) that every slice
+// row allows: the row stride O*item, the table's address and the tile.
+int copy_width(const void* tab, int O, int item) {
+  const unsigned long long a = (unsigned long long)tab;
+  for (int w = 16; w >= 4; w /= 2)
+    if ((long long)O * item % w == 0 && a % w == 0 &&
+        staged::kColTile * item % w == 0)
+      return w;
+  return 0;
+}
+
+template <typename T, bool kShared, int kG>
+int launch_staged_g(const uint8_t* codes, const T* tab, const int* seg_idx,
+                    T* out, long long P, int C, int Hp, int Wp, int Ho,
+                    int Wo, int kw, int stride, int G, int X, int V, int O,
+                    int n, int group, int bits, long long n_ptiles,
+                    long long blocks, cudaStream_t stream) {
+  const size_t smem = staged::smem_bytes((int)sizeof(T));
+  cudaError_t err =
+      pcilt::allow_smem(conv2d_staged_kernel<T, kShared, kG>, smem);
+  if (err != cudaSuccess) return (int)err;
+  conv2d_staged_kernel<T, kShared, kG>
+      <<<(unsigned)blocks, staged::kThreads, smem, stream>>>(
+          codes, tab, seg_idx, out, P, C, Hp, Wp, Ho, Wo, kw, stride, G, X,
+          V, O, n, group, bits, n_ptiles, copy_width(tab, O, sizeof(T)));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kShared>
+int launch_staged(const uint8_t* codes, const T* tab, const int* seg_idx,
+                  T* out, int B, int C, int Hp, int Wp, int Ho, int Wo,
+                  int kh, int kw, int stride, int G, int X, int V, int O,
+                  int group, int bits, cudaStream_t stream) {
+  using namespace staged;
+  if (group < 1 || group > 8 || bits < 1 || bits * group > 8 ||
+      V != (1 << (bits * group)) || V > kMaxV)
+    return (int)cudaErrorInvalidValue;
+  const long long P = (long long)B * Ho * Wo;
+  const long long n_ptiles = (P + kPixTile - 1) / kPixTile;
+  const long long blocks = n_ptiles * ((O + kColTile - 1) / kColTile);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int n = kh * kw * C;
+#define PCILT_STAGED_G(KG)                                                   \
+  return launch_staged_g<T, kShared, KG>(codes, tab, seg_idx, out, P, C, Hp, \
+                                         Wp, Ho, Wo, kw, stride, G, X, V, O, \
+                                         n, group, bits, n_ptiles, blocks,   \
+                                         stream)
+  if (group == 1) PCILT_STAGED_G(1);
+  if (group == 2) PCILT_STAGED_G(2);
+  if (group <= 4) PCILT_STAGED_G(4);
+  PCILT_STAGED_G(8);
+#undef PCILT_STAGED_G
+}
+
+int launch_codes(const float* x, uint8_t* codes, int B, int Hp, int Wp,
+                 int C, int bits, int zp, float scale, cudaStream_t stream) {
+  using staged::kCodeTile;
+  if (bits < 1 || bits > 8 || B > 65535 || C > 65535 * kCodeTile)
+    return (int)cudaErrorInvalidValue;
+  const long long S = (long long)Hp * Wp;
+  const dim3 grid((unsigned)((S + kCodeTile - 1) / kCodeTile),
+                  (C + kCodeTile - 1) / kCodeTile, B);
+  conv2d_codes_kernel<<<grid, dim3(kCodeTile, 8), 0, stream>>>(
+      x, codes, S, C, (1 << bits) - 1, zp, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define PCILT_CONV2D_ENTRY(NAME, TYPE, SHARED)                               \
@@ -154,3 +603,43 @@ PCILT_CONV2D_ENTRY(pcilt_fused_conv2d_f32, float, false)
 PCILT_CONV2D_ENTRY(pcilt_fused_conv2d_bf16, __nv_bfloat16, false)
 PCILT_CONV2D_ENTRY(pcilt_shared_conv2d_f32, float, true)
 PCILT_CONV2D_ENTRY(pcilt_shared_conv2d_bf16, __nv_bfloat16, true)
+
+#define PCILT_CONV2D_STAGED_ENTRY(NAME, TYPE, SHARED)                        \
+  extern "C" int NAME(const void* codes, const void* tab,                   \
+                      const void* seg_idx, void* out, int B, int C, int Hp, \
+                      int Wp, int Ho, int Wo, int kh, int kw, int stride,   \
+                      int G, int X, int V, int O, int group, int bits,      \
+                      void* stream) {                                       \
+    return launch_staged<TYPE, SHARED>(                                     \
+        (const uint8_t*)codes, (const TYPE*)tab, (const int*)seg_idx,       \
+        (TYPE*)out, B, C, Hp, Wp, Ho, Wo, kh, kw, stride, G, X, V, O,       \
+        group, bits, (cudaStream_t)stream);                                 \
+  }
+
+PCILT_CONV2D_STAGED_ENTRY(pcilt_fused_conv2d_staged_f32, float, false)
+PCILT_CONV2D_STAGED_ENTRY(pcilt_fused_conv2d_staged_bf16, __nv_bfloat16,
+                          false)
+PCILT_CONV2D_STAGED_ENTRY(pcilt_shared_conv2d_staged_f32, float, true)
+PCILT_CONV2D_STAGED_ENTRY(pcilt_shared_conv2d_staged_bf16, __nv_bfloat16,
+                          true)
+
+// The code pre-pass: xp [B, Hp, Wp, C] float32 -> codes [B, C, Hp, Wp].
+extern "C" int pcilt_conv2d_codes_f32(const void* x, void* codes, int B,
+                                      int Hp, int Wp, int C, int bits,
+                                      int zp, float scale, void* stream) {
+  return launch_codes((const float*)x, (uint8_t*)codes, B, Hp, Wp, C, bits,
+                      zp, scale, (cudaStream_t)stream);
+}
+
+// The staged design's tiling, for kernels.ops to check its mirror against:
+// {pixels a block, columns a block, slice slots, offset slots, slice row
+// pitch in bytes, largest V}.
+extern "C" int pcilt_conv2d_staged_config(int* cfg) {
+  cfg[0] = staged::kPixTile;
+  cfg[1] = staged::kColTile;
+  cfg[2] = staged::kStages;
+  cfg[3] = staged::kOffRing;
+  cfg[4] = staged::kRowPitch;
+  cfg[5] = staged::kMaxV;
+  return 0;
+}

@@ -15,6 +15,14 @@ scalar, cast to the activations' dtype (float32) as the reference's
 ``_scale_2d`` does; the host-packed ones take int32 offsets.  Tables are
 used in place: no wrapper pads or transposes a table.  The conv wrappers'
 only host-side work is the spatial zero pad of the float image.
+
+The conv kernels come in two designs (``csrc/pcilt_conv2d.cu``):
+``"staged"`` (a code pre-pass, then table slices staged in shared memory;
+``V <= 256``) and ``"direct"`` (every cell fetched from the table; any
+``V``).  :func:`conv_variant` chooses by shape; :data:`CONV_VARIANT_LAUNCHES`
+counts which one ran.  ``_fused_conv2d`` / ``_shared_conv2d`` take
+``variant=`` to force either on a CUDA tensor (tests and ``chip_smoke.py``);
+neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -43,7 +51,9 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "pcilt_conv2d", "pcilt_fused_conv2d", "pcilt_shared_conv2d",
            "fused_gemv_plain", "gemv_stacked_plain", "gemv_paired_plain",
            "gemv_paired_stacked_plain", "gemv_plan_plain", "dwconv1d_plain",
-           "shared_gemv_plain", "fused_conv2d_plain", "shared_conv2d_plain"]
+           "shared_gemv_plain", "fused_conv2d_plain", "shared_conv2d_plain",
+           "CONV_VARIANT_LAUNCHES", "conv_variant", "staged_smem_bytes",
+           "staged_tiles", "staged_block_tile", "conv_codes_plain"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -51,9 +61,14 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
 _TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+#: conv design -> number of fused/shared conv2d calls it served on CUDA
+CONV_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CONV_VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -100,12 +115,17 @@ def _host_scale(scale) -> float:
     return float(s.reshape(()))
 
 
-def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
+def _call(name: str, fn, x: torch.Tensor, *args) -> None:
+    """Launch ``fn`` on ``x``'s current stream; raise on a CUDA error."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
+    _call(name, fn, x, *args)
     LAUNCHES[name] += 1
 
 
@@ -560,18 +580,130 @@ def _conv_geometry(name, x, G, V, spec, group, kh, kw, stride, padding):
     return xp, Ho, Wo
 
 
+#: the staged design's tiling (``namespace staged`` of pcilt_conv2d.cu; the
+#: library's own values are checked against these at its first launch):
+#: pixels and columns a block, slice slots, offset slots, the bytes from one
+#: slice row to the next, the largest V (offsets are bytes)
+STAGED_PIX_TILE, STAGED_COL_TILE = 1024, 32
+STAGED_STAGES, STAGED_OFF_RING, STAGED_ROW_PITCH = 4, 8, 256
+STAGED_MAX_V = 256
+#: dynamic shared memory one block may use on an H100
+SMEM_LIMIT = 227 * 1024
+
+
+def staged_smem_bytes(itemsize: int) -> int:
+    """Shared memory of a staged block: ``STAGED_STAGES`` table slices of
+    ``STAGED_COL_TILE`` columns, side by side in rows of
+    ``STAGED_ROW_PITCH`` bytes, ``STAGED_MAX_V`` rows a block, then
+    ``STAGED_OFF_RING`` slots of ``STAGED_PIX_TILE`` offset bytes and of a
+    ``STAGED_MAX_V``-byte row mask."""
+    per_row = STAGED_ROW_PITCH // (STAGED_COL_TILE * itemsize)
+    blocks = -(-STAGED_STAGES // per_row)
+    return (blocks * STAGED_MAX_V * STAGED_ROW_PITCH
+            + STAGED_OFF_RING * (STAGED_PIX_TILE + STAGED_MAX_V))
+
+
+def conv_variant(V: int, itemsize: int) -> str:
+    """The conv design for tables of value axis ``V`` and ``itemsize``-byte
+    cells: ``"staged"`` while every offset fits a byte and the ring fits a
+    block's shared memory, else ``"direct"``."""
+    if V <= STAGED_MAX_V and staged_smem_bytes(itemsize) <= SMEM_LIMIT:
+        return "staged"
+    return "direct"
+
+
+def staged_tiles(P: int, O: int):
+    """``(pixel tiles, column tiles)`` of the staged grid over ``P`` output
+    pixels and ``O`` columns; the grid has their product of blocks."""
+    return -(-P // STAGED_PIX_TILE), -(-O // STAGED_COL_TILE)
+
+
+def staged_block_tile(i: int, P: int, O: int):
+    """Block ``i``'s ``((p0, p1), (o0, o1))``: pixel tile ``i % n_ptiles``
+    of column tile ``i // n_ptiles`` (the blocks resident together share a
+    column tile), clipped to ``P`` and ``O``."""
+    n_ptiles, _ = staged_tiles(P, O)
+    p0 = (i % n_ptiles) * STAGED_PIX_TILE
+    o0 = (i // n_ptiles) * STAGED_COL_TILE
+    return ((p0, min(P, p0 + STAGED_PIX_TILE)),
+            (o0, min(O, o0 + STAGED_COL_TILE)))
+
+
+def conv_codes_plain(xp: torch.Tensor, spec: QuantSpec, scale) -> torch.Tensor:
+    """Plain version of the staged design's pre-pass: the padded image
+    ``[B, Hp, Wp, C]`` float32 -> its codes ``[B, C, Hp, Wp]`` uint8, at the
+    kernel's float32 scale."""
+    s = torch.as_tensor(_host_scale(scale), dtype=xp.dtype, device=xp.device)
+    return quantize(xp, spec, s).permute(0, 3, 1, 2).contiguous()
+
+
+def _conv_codes(xp: torch.Tensor, spec: QuantSpec, scale) -> torch.Tensor:
+    """The pre-pass: its kernel on a CUDA tensor, its plain version on the
+    CPU (not counted: it is half of one conv launch)."""
+    if _on_cpu(xp):
+        return conv_codes_plain(xp, spec, scale)
+    if spec.bits > 8:
+        raise ValueError(f"codes of {spec.bits} bits do not fit a byte")
+    if xp.dtype != torch.float32 or not xp.is_contiguous():
+        raise ValueError(f"conv2d codes: the padded image must be a "
+                         f"contiguous float32 tensor, got {xp.dtype} with "
+                         f"strides {xp.stride()}")
+    B, Hp, Wp, C = xp.shape
+    codes = torch.empty((B, C, Hp, Wp), dtype=torch.uint8, device=xp.device)
+    fn = build.library("conv2d").pcilt_conv2d_codes_f32
+    _call("conv2d codes", fn, xp, _ptr(xp), _ptr(codes), B, Hp, Wp, C,
+          spec.bits, spec.zero_point, _host_scale(scale))
+    return codes
+
+
+_STAGED_CHECKED = []
+
+
+def _check_staged_config() -> None:
+    """The library's staged tiling must be this module's mirror of it."""
+    if _STAGED_CHECKED:
+        return
+    cfg = (ctypes.c_int * 6)()
+    build.library("conv2d").pcilt_conv2d_staged_config(cfg)
+    mine = (STAGED_PIX_TILE, STAGED_COL_TILE, STAGED_STAGES, STAGED_OFF_RING,
+            STAGED_ROW_PITCH, STAGED_MAX_V)
+    if tuple(cfg) != mine:
+        raise RuntimeError(f"pcilt_conv2d.cu's staged tiling {tuple(cfg)} "
+                           f"differs from kernels.ops' {mine}")
+    _STAGED_CHECKED.append(True)
+
+
 def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
-                 stride, Ho, Wo):
+                 stride, Ho, Wo, variant=None):
     B, Hp, Wp, C = xp.shape
     G = int(seg_idx.shape[0]) if seg_idx is not None else tab.shape[0]
     _, V, O = tab.shape
     others = () if seg_idx is None else (seg_idx,)
     dt = _check_launch(name, xp, tab, *others)
+    fits = conv_variant(V, tab.element_size())
+    variant = variant or fits
+    if variant not in CONV_VARIANT_LAUNCHES:
+        raise ValueError(f"{name}: unknown conv variant {variant!r}")
+    if variant == "staged" and fits != "staged":
+        raise ValueError(f"{name}: a V = {V} slice cannot be staged "
+                         f"(V <= {STAGED_MAX_V} and "
+                         f"{staged_smem_bytes(tab.element_size())} B of "
+                         f"shared memory <= {SMEM_LIMIT} B needed)")
     out = torch.empty((B, Ho, Wo, O), dtype=tab.dtype, device=xp.device)
-    fn = getattr(build.library("conv2d"), f"pcilt_{name}_{dt}")
-    _launch(name, fn, xp, _ptr(xp), _ptr(tab), _ptr(seg_idx), _ptr(out), B,
-            Hp, Wp, C, Ho, Wo, kh, kw, stride, G, X, V, O, group, spec.bits,
-            spec.zero_point, _host_scale(scale))
+    lib = build.library("conv2d")
+    if variant == "staged":
+        _check_staged_config()
+        codes = _conv_codes(xp, spec, scale)
+        fn = getattr(lib, f"pcilt_{name}_staged_{dt}")
+        _launch(name, fn, xp, _ptr(codes), _ptr(tab), _ptr(seg_idx),
+                _ptr(out), B, C, Hp, Wp, Ho, Wo, kh, kw, stride, G, X, V, O,
+                group, spec.bits)
+    else:
+        fn = getattr(lib, f"pcilt_{name}_{dt}")
+        _launch(name, fn, xp, _ptr(xp), _ptr(tab), _ptr(seg_idx), _ptr(out),
+                B, Hp, Wp, C, Ho, Wo, kh, kw, stride, G, X, V, O, group,
+                spec.bits, spec.zero_point, _host_scale(scale))
+    CONV_VARIANT_LAUNCHES[variant] += 1
     return out
 
 
@@ -581,9 +713,18 @@ def pcilt_fused_conv2d(x: torch.Tensor, tables: torch.Tensor,
     """x ``[B, H, W, C]`` float32 NHWC, tables ``[G, V, O]`` ->
     ``[B, Ho, Wo, O]`` in the table dtype.  The only host-side work is the
     spatial zero pad of the float image (SAME by :func:`conv_same_pads`);
-    quantize, im2col and pack run in the kernel, so neither the float
-    patches nor the offsets reach device memory.  ``G * group >= kh*kw*C``:
-    the alignment slots take code 0 against zero-weight table rows."""
+    quantize, im2col and pack run on the card, so neither the float patches
+    nor the offsets reach device memory.  ``G * group >= kh*kw*C``: the
+    alignment slots take code 0 against zero-weight table rows."""
+    return _fused_conv2d(x, tables, spec, scale, group, kh, kw, stride,
+                         padding)
+
+
+def _fused_conv2d(x, tables, spec: QuantSpec, scale, group: int, kh: int,
+                  kw: int, stride: int = 1, padding: str = "SAME",
+                  variant=None):
+    """:func:`pcilt_fused_conv2d`, with ``variant`` forcing a design on a
+    CUDA tensor."""
     G, V, O = tables.shape
     xp, Ho, Wo = _conv_geometry("pcilt_fused_conv2d", x, G, V, spec, group,
                                 kh, kw, stride, padding)
@@ -592,7 +733,7 @@ def pcilt_fused_conv2d(x: torch.Tensor, tables: torch.Tensor,
                                  stride)
         return out.reshape(xp.shape[0], Ho, Wo, O)
     return _launch_conv("fused_conv2d", xp, tables, None, 0, spec, scale,
-                        group, kh, kw, stride, Ho, Wo)
+                        group, kh, kw, stride, Ho, Wo, variant)
 
 
 def pcilt_shared_conv2d(x: torch.Tensor, pool: torch.Tensor,
@@ -603,6 +744,15 @@ def pcilt_shared_conv2d(x: torch.Tensor, pool: torch.Tensor,
     int32 -> ``[B, Ho, Wo, O]`` in the pool dtype: the fused conv with
     ``T[g]`` replaced by ``pool[seg_idx[g]]``; a pointer outside ``[0, X)``
     adds nothing.  The pool is read in place (no transpose)."""
+    return _shared_conv2d(x, pool, seg_idx, spec, scale, group, kh, kw,
+                          stride, padding)
+
+
+def _shared_conv2d(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
+                   kh: int, kw: int, stride: int = 1, padding: str = "SAME",
+                   variant=None):
+    """:func:`pcilt_shared_conv2d`, with ``variant`` forcing a design on a
+    CUDA tensor."""
     X, V, O = pool.shape
     if seg_idx.dim() != 1 or seg_idx.dtype != torch.int32:
         raise TypeError(f"seg_idx must be a 1-d int32 tensor, got "
@@ -615,4 +765,4 @@ def pcilt_shared_conv2d(x: torch.Tensor, pool: torch.Tensor,
                                   kw, stride)
         return out.reshape(xp.shape[0], Ho, Wo, O)
     return _launch_conv("shared_conv2d", xp, pool, seg_idx, X, spec, scale,
-                        group, kh, kw, stride, Ho, Wo)
+                        group, kh, kw, stride, Ho, Wo, variant)

@@ -112,6 +112,12 @@ CONV_CASES = [  # B, H, W, C, O, k, stride, bits, symmetric, group, exact
     (1, 64, 48, 50, 80, 5, 1, 8, False, 1, False),  # the paper's conv1
     (1, 64, 48, 1, 50, 5, 1, 8, False, 1, True),    # conv0, exact grid
     (2, 9, 11, 3, 13, 3, 2, 4, True, 2, False),     # ragged: n_pad 1
+    # staged design's edges: P = 3034 (not a multiple of the 1024-pixel
+    # tile), B = 2, conv4's ragged O = 350, group 2 at V = 16
+    (2, 37, 41, 5, 350, 5, 1, 2, True, 2, False),
+    (2, 33, 35, 7, 50, 5, 2, 8, False, 1, False),   # conv0's O 50, stride 2
+    (1, 20, 24, 6, 40, 3, 1, 4, True, 2, False),    # group 2 at V = 256
+    (1, 40, 40, 200, 350, 5, 1, 8, False, 1, True),  # conv4's C, O: exact
 ]
 
 
@@ -145,6 +151,89 @@ def test_conv2d_kernels_match_plain(cuda, dtype, B, H, W, C, O, k, stride,
                                   spec, scale, group, k, k, stride=stride)
     torch.cuda.synchronize()
     _assert_sum_close(got.cpu(), want, rtol)
+
+
+def _conv_pair(rng, dtype, cuda, C=200, O=350, bits=8, group=1):
+    """A small conv4-width case on the card: x, fused tables, a pool of X < G
+    rows with one pointer out of range."""
+    spec, scale, tabs, x = _conv_case(rng, 1, 21, 19, C, O, 5, bits, False,
+                                      group, False)
+    tabs = tabs.to(dtype).to(cuda)
+    G = tabs.shape[0]
+    idx = torch.from_numpy(rng.integers(0, G // 2, size=G).astype(np.int32))
+    idx[G // 3] = G + 7
+    return spec, scale, tabs, x.to(cuda), tabs[:G // 2], idx.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_variants_agree_and_are_deterministic(cuda, dtype):
+    """At V = 256 both designs run when forced: the staged kernel, twice,
+    bit-identical run to run (no atomics, one summation order), and
+    within the file's tolerance of the kept kernel; the variant counts say
+    which kernel served each call, one launch count per call."""
+    rng = np.random.default_rng(13)
+    spec, scale, tabs, x, pool, idx = _conv_pair(rng, dtype, cuda)
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, call in (
+            ("fused_conv2d", lambda v: ops._fused_conv2d(
+                x, tabs, spec, scale, 1, 5, 5, variant=v)),
+            ("shared_conv2d", lambda v: ops._shared_conv2d(
+                x, pool, idx, spec, scale, 1, 5, 5, variant=v))):
+        before = dict(ops.LAUNCHES)
+        seen = dict(ops.CONV_VARIANT_LAUNCHES)
+        first, again, default = call("staged"), call("staged"), call(None)
+        kept = call("direct")
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == before[name] + 4
+        assert ops.CONV_VARIANT_LAUNCHES == {
+            "staged": seen["staged"] + 3, "direct": seen["direct"] + 1}
+        assert torch.equal(first, again) and torch.equal(first, default)
+        _assert_sum_close(first.cpu(), kept.cpu(), rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_large_v_conv2d_takes_the_kept_kernel(cuda, dtype):
+    """8 bits x group 2 (V = 65536): offsets do not fit a byte, so the
+    wrapper launches the kept kernel (counted as "direct"), forcing it
+    gives the same bits, forcing the staged kernel raises, and the result
+    matches the plain version."""
+    rng = np.random.default_rng(17)
+    spec, scale, tabs, x = _conv_case(rng, 2, 6, 7, 3, 13, 3, 8, False, 2,
+                                      False)
+    tabs = tabs.to(dtype)
+    assert tabs.shape[1] == 65536
+    want = ops.pcilt_fused_conv2d(x, tabs, spec, scale, 2, 3, 3)
+    xd, td = x.to(cuda), tabs.to(cuda)
+    seen = dict(ops.CONV_VARIANT_LAUNCHES)
+    got = ops.pcilt_fused_conv2d(xd, td, spec, scale, 2, 3, 3)
+    forced = ops._fused_conv2d(xd, td, spec, scale, 2, 3, 3,
+                               variant="direct")
+    torch.cuda.synchronize()
+    assert ops.CONV_VARIANT_LAUNCHES == {"staged": seen["staged"],
+                                         "direct": seen["direct"] + 2}
+    assert torch.equal(got, forced)
+    _assert_sum_close(got.cpu(), want,
+                      1e-2 if dtype == torch.bfloat16 else 1e-4)
+    with pytest.raises(ValueError, match="cannot be staged"):
+        ops._fused_conv2d(xd, td, spec, scale, 2, 3, 3, variant="staged")
+
+
+@pytest.mark.cuda
+def test_conv2d_code_prepass_matches_plain(cuda):
+    """The staged design's pre-pass: codes ``[B, C, Hp, Wp]`` of the padded
+    image equal to its plain version (the quantizer bit for bit)."""
+    rng = np.random.default_rng(19)
+    x = (3 * rng.normal(size=(2, 13, 70, 37))).astype(np.float32)
+    ties = (rng.integers(-64, 64, size=x.size // 7) + 0.5) * 0.25
+    x.reshape(-1)[:7 * ties.size:7] = ties  # exact .5 code steps
+    xp = torch.from_numpy(x)
+    for spec in (QuantSpec(8, False), QuantSpec(4, True)):
+        want = ops.conv_codes_plain(xp, spec, 0.25)
+        got = ops._conv_codes(xp.to(cuda), spec, 0.25)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
