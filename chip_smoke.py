@@ -24,9 +24,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    ragged shapes (stride 2, symmetric 4-bit, group 2 with odd C, O = 13,
    bf16, a pool pointer out of range, V = 65536); the fused and shared
    conv in both designs — the staged kernel (its code pre-pass exact, two
-   launches bit-identical) and the kept one, forced.  The paired stacked
-   GEMV runs the
-   paired decode's wz and wo on 24-layer segment-major stacks, the paired
+   launches bit-identical) and the kept one, forced.  The five fused GEMV
+   launches (kernels 1 and 8-11) likewise run both designs on every case:
+   the split design twice, bit-identical, and the kept one, forced.  The
+   paired stacked GEMV runs the paired decode's projections on 24-layer
+   segment-major stacks, the paired
    and fused GEMVs the parity probe's and qwen3-0.6b's MLP shapes, the
    host-packed dwconv the single-layer signal's offsets, each with a
    ragged case (odd G with its phantom segment, O = 13, offsets out of
@@ -46,15 +48,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    real input (the fused and shared conv: the staged design, its pre-pass
    and fetch summed, beside the kept design forced and the fetch floor
    from the SM count and ``clocks.max.sm``); their plain versions on a
-   64x48 crop;
+   64x48 crop.  The fused GEMVs run every shape a decode step launches
+   (kernel 1 at the five projections, kernel 8 at the paired decode's
+   five), the split design beside the kept one forced (``direct_ms``);
 5. serving: ``Engine(mamba2-130m full width and depth, slots=4,
    pcilt=True)`` with float32 tables converts (calibrate, build, CRC
    record, verify at load) and serves 4 requests of 8 new tokens; prints
    conversion seconds, table bytes, the head pool's bytes, peak memory,
    step time, tokens/s and the launches per step of each kernel (must be
-   144 / 24 / 1), then checks one decode step's logits against the dense
-   fake-quant oracle (every layer and the head demoted, so no kernel runs
-   on the oracle's side);
+   144 / 24 / 1, every fused GEMV through the split design), then checks
+   one decode step's logits against the dense fake-quant oracle (every
+   layer and the head demoted, so no kernel runs on the oracle's side),
+   and times one B = 4 step with its device time, in the split design and
+   with the kept one forced;
 6. the paper CNN (``configs/paper_cnn.config()``: 50-80-120-200-350
    channels, 5x5, INT8) on one seeded 1024x768 image: tables built on the
    card (2.57 GiB float32), a 256x192 forward timed and extrapolated
@@ -73,9 +79,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``convert_mamba_decode(paired=True)`` and served by
    ``Engine(pcilt_bundle=...)`` (4 requests of 8 new tokens, sentinel on;
    144 / 24 / 1 launches of the paired stacked GEMV, the dwconv and the
-   head per step); conversion seconds, table bytes, peak memory, the
-   oracle check of phase 5, and the median of three B = 4 steps dense,
-   unpaired (kernel 1) and paired (kernel 8) with each step's device time;
+   head per step, every fused GEMV through the split design); conversion
+   seconds, table bytes, peak memory, the oracle check of phase 5, and the
+   median of three B = 4 steps dense, unpaired (kernel 1) and paired
+   (kernel 8) with each step's device time, the PCILT steps again with the
+   kept fused GEMV design forced;
 8. the exact-grid paired parity probe: ``pcilt_linear(path="fused")`` on
    ``[G, V, O]`` and ``pcilt_linear(paired=True, path="fused")`` on
    ``[G2, V2, O]`` bit-equal at ``[4, 64] -> 128`` and ``[4, 768] ->
@@ -156,8 +164,10 @@ SOURCES = {
     "dwconv1d_host": "src/repro_torch/kernels/csrc/pcilt_dwconv1d.cu",
     "gemv_plan": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
 }
-#: device kernel names (a substring of each) in profiles
-GEMV_KERNEL = "gemv_fused_kernel"
+#: device kernel names (a substring of each) in profiles: the fused GEMV's
+#: split design and its kept ("direct") one
+GEMV_SPLIT_KERNEL = "gemv_split_kernel"
+GEMV_DIRECT_KERNEL = "gemv_direct_kernel"
 #: the staged conv design's two launches (code pre-pass, fetch), and the
 #: kept design's one
 STAGED_KERNELS = ("conv2d_codes_kernel", "conv2d_staged_kernel")
@@ -165,14 +175,19 @@ DIRECT_KERNEL = "conv2d_kernel"
 #: shared memory / L1 data path of one SM, bytes a clock (the conv fetch
 #: floor's rate)
 SMEM_BYTES_PER_CLOCK = 128
+#: the launch counts of the fused GEMV source's five launches (kernels 1
+#: and 8-11)
+GEMV_LAUNCHES = ("gemv_stacked", "fused_gemv", "gemv_paired",
+                 "gemv_paired_stacked", "gemv_plan")
 DWCONV_HOST_KERNEL = "dwconv1d_host_kernel"
 B = 4  # decode slots
 #: the six projections of one layer at mamba2-130m width: (G, O)
 PROJ_SHAPES = {"wz,wx": (384, 1536), "wB,wC": (384, 128), "wdt": (384, 24),
                "wo": (768, 768)}
-#: the paired decode (act_bits 2, group 2): pairs G2 and outputs O of wz
-#: and wo, and its layer count (the stride of the segment-major stacks)
-PAIRED_SHAPES = {"wz": (192, 1536), "wo": (384, 768)}
+#: the paired decode (act_bits 2, group 2): pairs G2 and outputs O of each
+#: projection, and its layer count (the stride of the segment-major stacks)
+PAIRED_SHAPES = {"wz": (192, 1536), "wB,wC": (192, 128), "wdt": (192, 24),
+                 "wo": (384, 768)}
 N_LAYERS = 24
 #: qwen3-0.6b's MLP (src/repro/configs/qwen3_06b.py): d_model, d_ff
 QWEN_D, QWEN_FF = 1024, 3072
@@ -336,6 +351,32 @@ def close(torch, got, want, rtol, exact=False):
     return mx, bool((err <= bound).all())
 
 
+def gemv_designs(torch, ops, run):
+    """``run()``, one fused GEMV launch, in both designs: the split design
+    twice, which must give the same bits, and the kept design forced; the
+    variant counts must say which ran.  -> (split result, kept result)."""
+    seen = dict(ops.GEMV_VARIANT_LAUNCHES)
+    got, again = run(), run()
+    with ops._gemv_forced("direct"):
+        kept = run()
+    torch.cuda.synchronize()
+    diff = {v: c - seen[v] for v, c in ops.GEMV_VARIANT_LAUNCHES.items()}
+    require(diff == {"split": 2, "direct": 1},
+            f"the fused GEMV designs ran {diff}, not split 2, direct 1")
+    pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+    require(all(torch.equal(a, b) for a, b in pairs),
+            "two launches of the split fused GEMV differ")
+    return got, kept
+
+
+def kept_design(ops, calls):
+    """``calls`` with the kept fused GEMV design forced."""
+    def forced(call):
+        with ops._gemv_forced("direct"):
+            return call()
+    return [lambda c=c: forced(c) for c in calls]
+
+
 def check_kernels(torch, ops, core, report):
     from repro_torch.core.quantization import QuantSpec, scale_from_amax
 
@@ -380,20 +421,23 @@ def check_kernels(torch, ops, core, report):
         tabs = torch.stack([core.build_grouped_tables(w[l], spec, scale, group)
                             for l in range(L)]).to(dt)
         for stats in (False, True):
-            got = ops.pcilt_fused_gemv_stacked(x, tabs, 1, spec, scale, group,
-                                               with_stats=stats)
+            runs = gemv_designs(
+                torch, ops, lambda: ops.pcilt_fused_gemv_stacked(
+                    x, tabs, 1, spec, scale, group, with_stats=stats))
             want = ops.gemv_stacked_plain(x, tabs, 1, spec, scale, group,
                                           with_stats=stats)
-            torch.cuda.synchronize()
-            if stats:
-                (got, gc, gr), (want, wc, wr) = got, want
-                record("gemv_stacked", f"{what} counters", 0.0,
-                       int(gc) == int(wc) and float(gr) == float(wr),
-                       "count, ratio exact")
-            rtol = 1e-2 if dt == torch.bfloat16 else 1e-4
-            mx, ok = close(torch, got, want, rtol, exact)
-            record("gemv_stacked", f"{what} counters={int(stats)}", mx, ok,
-                   "exact" if exact else f"rtol {rtol}")
+            for design, got in zip(("", " kept design"), runs):
+                wnt = want
+                if stats:
+                    (got, gc, gr), (wnt, wc, wr) = got, want
+                    record("gemv_stacked", f"{what}{design} counters", 0.0,
+                           int(gc) == int(wc) and float(gr) == float(wr),
+                           "count, ratio exact")
+                rtol = 1e-2 if dt == torch.bfloat16 else 1e-4
+                mx, ok = close(torch, got, wnt, rtol, exact)
+                record("gemv_stacked",
+                       f"{what}{design} counters={int(stats)}", mx, ok,
+                       "exact" if exact else f"rtol {rtol}")
         del tabs, w
 
     # -- dwconv: decode window [4, 4, 1792] VALID, f32 + bf16, ragged CAUSAL
@@ -625,8 +669,12 @@ def check_slice3_kernels(torch, ops, record, gen):
                                                     spec))
         return x, s
 
-    def held(kernel, what, got, want, dt, exact, stats):
-        torch.cuda.synchronize()
+    def held(kernel, what, run, want, dt, exact, stats):
+        for design, got in zip(("", " kept design"),
+                               gemv_designs(torch, ops, run)):
+            check(kernel, what + design, got, want, dt, exact, stats)
+
+    def check(kernel, what, got, want, dt, exact, stats):
         if stats:
             (got, gc, gr), (want, wc, wr) = got, want
             record(kernel, f"{what} counters", 0.0,
@@ -657,7 +705,7 @@ def check_slice3_kernels(torch, ops, record, gen):
         xp = F.pad(x, (0, group)) if odd else x
         for stats in (False, True):
             held("gemv_paired_stacked", what,
-                 ops.pcilt_fused_gemv_paired_stacked(
+                 lambda: ops.pcilt_fused_gemv_paired_stacked(
                      xp, stack, L - 1, spec2, scale, group, with_stats=stats),
                  ops.gemv_paired_stacked_plain(
                      xp, stack, L - 1, spec2, scale, group, with_stats=stats),
@@ -677,8 +725,8 @@ def check_slice3_kernels(torch, ops, record, gen):
         xp = F.pad(x, (0, tabs.shape[0] * 2 * group - n))
         for stats in (False, True):
             held("gemv_paired", what,
-                 ops.pcilt_fused_gemv_paired(xp, tabs, spec2, scale, group,
-                                             with_stats=stats),
+                 lambda: ops.pcilt_fused_gemv_paired(
+                     xp, tabs, spec2, scale, group, with_stats=stats),
                  ops.gemv_paired_plain(xp, tabs, spec2, scale, group,
                                        with_stats=stats),
                  dt, exact, stats)
@@ -699,7 +747,7 @@ def check_slice3_kernels(torch, ops, record, gen):
         tabs = build_grouped_tables(w, spec4, scale, group).to(dt)
         del w
         held("fused_gemv", what,
-             ops.pcilt_fused_gemv(x, tabs, spec4, scale, group),
+             lambda: ops.pcilt_fused_gemv(x, tabs, spec4, scale, group),
              ops.fused_gemv_plain(x, tabs, spec4, scale, group), dt, exact,
              False)
         del tabs
@@ -803,12 +851,14 @@ def check_plan_kernel(torch, ops, record, gen):
             scale = float(scale_from_amax(0.8 * x.abs().max(), spec))
         tabs = build_grouped_tables(wc, spec, scale, 2, plan=plan).to(dt)
         idx = plan.on(dev)
-        got = ops.pcilt_fused_gemv_plan(x, tabs, idx, spec, scale, 2)
+        runs = gemv_designs(torch, ops, lambda: ops.pcilt_fused_gemv_plan(
+            x, tabs, idx, spec, scale, 2))
         want = ops.gemv_plan_plain(x, tabs, idx, spec, scale, 2)
-        torch.cuda.synchronize()
         rtol = 1e-2 if dt == torch.bfloat16 else 1e-4
-        mx, ok = close(torch, got, want, rtol, ex)
-        record("gemv_plan", what, mx, ok, "exact" if ex else f"rtol {rtol}")
+        for design, got in zip(("", " kept design"), runs):
+            mx, ok = close(torch, got, want, rtol, ex)
+            record("gemv_plan", what + design, mx, ok,
+                   "exact" if ex else f"rtol {rtol}")
         del tabs
 
 
@@ -831,7 +881,8 @@ def time_kernels(torch, ops, core, report):
         return time_calls(torch, calls, flush, kernel,
                           retries=report["profile_retries"])
 
-    def add(key, kernel, shape, k, plain, lib, bound_ms, launches_per_step):
+    def add(key, kernel, shape, k, plain, lib, bound_ms, launches_per_step,
+            direct=None):
         rows[key] = {"kernel": kernel, "shape": shape, "ms": k["ms"],
                      "warm_ms": k["warm_ms"], "events_ms": k["events_ms"],
                      "plain_ms": plain["ms"], "plain_warm_ms": plain["warm_ms"],
@@ -839,12 +890,17 @@ def time_kernels(torch, ops, core, report):
                      "library_call": LIB_NOTE[kernel],
                      "bound_ms": bound_ms, "bound_by": "bytes",
                      "launches_per_step": launches_per_step}
+        kept = ""
+        if direct is not None:
+            rows[key].update(variant="split", direct_ms=direct["ms"],
+                             direct_warm_ms=direct["warm_ms"])
+            kept = f"  kept design {direct['ms'] * 1e3:8.2f} us"
         log(f"time  {kernel:13s} {key:26s} kernel {k['ms'] * 1e3:8.2f} us "
             f"(warm {k['warm_ms'] * 1e3:8.2f}, events "
-            f"{k['events_ms'] * 1e3:8.2f})  plain {plain['ms'] * 1e3:8.2f} us"
-            f"  library {lib['ms'] * 1e3:8.2f} us (warm "
-            f"{lib['warm_ms'] * 1e3:8.2f})  bound {bound_ms * 1e3:7.2f} us  "
-            f"x{launches_per_step}/step")
+            f"{k['events_ms'] * 1e3:8.2f}){kept}  plain "
+            f"{plain['ms'] * 1e3:8.2f} us  library {lib['ms'] * 1e3:8.2f} us "
+            f"(warm {lib['warm_ms'] * 1e3:8.2f})  bound {bound_ms * 1e3:7.2f} "
+            f"us  x{launches_per_step}/step")
 
     def scale_for(x):
         return float(scale_from_amax(0.8 * x.abs().max(), spec))
@@ -876,10 +932,11 @@ def time_kernels(torch, ops, core, report):
             plain = [lambda l=l: ops.gemv_stacked_plain(
                 x, tabs, l, spec, scale, group, with_stats=stats)
                 for l in range(L)] * 2
-            k = timed(calls, GEMV_KERNEL)
+            k = timed(calls, GEMV_SPLIT_KERNEL)
+            d = timed(kept_design(ops, calls), GEMV_DIRECT_KERNEL)
             p = timed(plain)
             add(f"{key}{' counters' if stats else ''}", "gemv_stacked",
-                [L, G, 256, O], k, p, lib, bound, per_step[(key, stats)])
+                [L, G, 256, O], k, p, lib, bound, per_step[(key, stats)], d)
         del tabs, w
 
     # -- dwconv over the [4, 4, 1792] decode window (counters: the engine's)
@@ -938,12 +995,14 @@ def time_kernels(torch, ops, core, report):
 
 
 def time_slice3_kernels(torch, ops, report, rows):
-    """Phase 4 for the paired stacked GEMV (#8: the paired decode's wz and
-    wo at B = 4, on segment-major [G2, 24, 256, O] stacks, with and without
-    counters), the fused GEMV (#9: qwen3-0.6b's gate, 4-bit, group 2), the
-    paired GEMV (#10: the parity probe at wz's width) and the host-packed
-    dwconv (#12: the [4, 2048, 1792] single-layer signal, 2-bit, 4 taps):
-    kernel, plain version at the same shape, library call and bound."""
+    """Phase 4 for the paired stacked GEMV (#8: the paired decode's five
+    projection shapes at B = 4, on segment-major [G2, 24, 256, O] stacks,
+    with counters where the step uses them), the fused GEMV (#9:
+    qwen3-0.6b's gate, 4-bit, group 2), the paired GEMV (#10: the parity
+    probe at wz's width) and the host-packed dwconv (#12: the [4, 2048,
+    1792] single-layer signal, 2-bit, 4 taps): kernel (the fused GEMVs
+    beside their kept design, forced), plain version at the same shape,
+    library call and bound."""
     from repro_torch.core.offsets import pack_offsets
     from repro_torch.core.pcilt import (build_grouped_tables,
                                         build_paired_stacked_tables,
@@ -963,7 +1022,7 @@ def time_slice3_kernels(torch, ops, report, rows):
                           retries=report["profile_retries"])
 
     def add(key, kernel, shape, k, plain, lib, nbytes, fetch_adds, launches,
-            per):
+            per, direct=None):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = fetch_adds / F32_OPS_PER_S * 1e3
         rows[key] = {"kernel": kernel, "shape": shape, "ms": k["ms"],
@@ -976,8 +1035,13 @@ def time_slice3_kernels(torch, ops, report, rows):
                      "bound_by": "bytes" if b_ms >= o_ms else "operations",
                      "bytes": nbytes, "fetch_adds": fetch_adds,
                      f"launches_per_{per}": launches}
+        kept = ""
+        if direct is not None:
+            rows[key].update(variant="split", direct_ms=direct["ms"],
+                             direct_warm_ms=direct["warm_ms"])
+            kept = f"  kept design {direct['ms'] * 1e3:8.2f} us"
         log(f"time  {kernel:19s} {key:26s} kernel {k['ms'] * 1e3:8.2f} us "
-            f"(warm {k['warm_ms'] * 1e3:8.2f})  plain "
+            f"(warm {k['warm_ms'] * 1e3:8.2f}){kept}  plain "
             f"{plain['ms'] * 1e3:9.2f} us  library {lib['ms'] * 1e3:8.2f} us"
             f"  bound {max(b_ms, o_ms) * 1e3:7.2f} us "
             f"({rows[key]['bound_by']})  x{launches}/{per}")
@@ -990,8 +1054,8 @@ def time_slice3_kernels(torch, ops, report, rows):
 
     # -- #8 on the paired decode's stacks; launches per step as the engine
     #    makes them (wz and wo share their shapes with wx and the counters)
-    per_step = {("wz", False): 24, ("wz", True): 24, ("wo", True): 24,
-                ("wo", False): 0}
+    per_step = {("wz", False): 24, ("wz", True): 24, ("wB,wC", False): 48,
+                ("wdt", False): 24, ("wo", True): 24, ("wo", False): 0}
     for key, (G2, O) in PAIRED_SHAPES.items():
         n = G2 * 2 * group
         w = torch.randn(L, n, O, generator=gen, device=dev) * n ** -0.5
@@ -1004,6 +1068,8 @@ def time_slice3_kernels(torch, ops, report, rows):
         lays = range(min(8, L))
         lib = timed([lambda l=l: torch.matmul(xq, w[l]) for l in lays] * 4)
         for stats in (False, True):
+            if (key, stats) not in per_step:
+                continue
             calls = [lambda l=l: ops.pcilt_fused_gemv_paired_stacked(
                 x, stack, l, spec2, scale, group, with_stats=stats)
                 for l in lays] * 4
@@ -1011,10 +1077,10 @@ def time_slice3_kernels(torch, ops, report, rows):
                 x, stack, l, spec2, scale, group, with_stats=stats)
                 for l in lays] * 2
             add(f"paired {key}{' counters' if stats else ''}",
-                "gemv_paired_stacked", [G2, L, 256, O], timed(calls,
-                                                              GEMV_KERNEL),
-                timed(plain), lib, nbytes, B * G2 * O,
-                per_step[(key, stats)], "step")
+                "gemv_paired_stacked", [G2, L, 256, O],
+                timed(calls, GEMV_SPLIT_KERNEL), timed(plain), lib, nbytes,
+                B * G2 * O, per_step[(key, stats)], "step",
+                timed(kept_design(ops, calls), GEMV_DIRECT_KERNEL))
         del stack, w
 
     # -- #9: qwen3-0.6b's gate projection (1.61 GB of float32 tables)
@@ -1028,12 +1094,14 @@ def time_slice3_kernels(torch, ops, report, rows):
         for x in xs)
     xqs = [fake_quant(x, spec4, scale) for x in xs]
     lib = timed([lambda q=q: torch.matmul(q, w) for q in xqs] * 4)
-    k = timed([lambda x=x: ops.pcilt_fused_gemv(x, tabs, spec4, scale, group)
-               for x in xs] * 4, GEMV_KERNEL)
+    calls = [lambda x=x: ops.pcilt_fused_gemv(x, tabs, spec4, scale, group)
+             for x in xs] * 4
+    k = timed(calls, GEMV_SPLIT_KERNEL)
+    d = timed(kept_design(ops, calls), GEMV_DIRECT_KERNEL)
     p = timed([lambda x=x: ops.fused_gemv_plain(x, tabs, spec4, scale, group)
                for x in xs] * 2)
     add("fused_gemv gate", "fused_gemv", [n // group, 256, O], k, p, lib,
-        nbytes, B * (n // group) * O, 1, "projection")
+        nbytes, B * (n // group) * O, 1, "projection", d)
     del tabs, w
 
     # -- #10: the parity probe at wz's width, [4, 768] -> 1536, 2-bit
@@ -1047,12 +1115,14 @@ def time_slice3_kernels(torch, ops, report, rows):
         for x in xs)
     xqs = [fake_quant(x, spec2, scale) for x in xs]
     lib = timed([lambda q=q: torch.matmul(q, w) for q in xqs] * 4)
-    k = timed([lambda x=x: ops.pcilt_fused_gemv_paired(
-        x, tabs, spec2, scale, group) for x in xs] * 4, GEMV_KERNEL)
+    calls = [lambda x=x: ops.pcilt_fused_gemv_paired(
+        x, tabs, spec2, scale, group) for x in xs] * 4
+    k = timed(calls, GEMV_SPLIT_KERNEL)
+    d = timed(kept_design(ops, calls), GEMV_DIRECT_KERNEL)
     p = timed([lambda x=x: ops.gemv_paired_plain(x, tabs, spec2, scale,
                                                  group) for x in xs] * 2)
     add("gemv_paired wz", "gemv_paired", [n // (2 * group), 256, O], k, p,
-        lib, nbytes, B * (n // (2 * group)) * O, 1, "probe")
+        lib, nbytes, B * (n // (2 * group)) * O, 1, "probe", d)
     del tabs, w
 
     # -- #12: the single-layer signal's offsets, [4, 2048, 1792], V = 256
@@ -1112,9 +1182,11 @@ def time_plan_kernel(torch, ops, report, rows):
                           retries=report["profile_retries"])
 
     lib = timed([lambda q=q: torch.matmul(q, wg) for q in xqs] * 4)
-    k = timed([lambda x=x: ops.pcilt_fused_gemv_plan(x, tabs, idx, spec,
-                                                     scale, 2)
-               for x in xs] * 4, GEMV_KERNEL)
+    calls = [lambda x=x: ops.pcilt_fused_gemv_plan(x, tabs, idx, spec,
+                                                   scale, 2)
+             for x in xs] * 4
+    k = timed(calls, GEMV_SPLIT_KERNEL)
+    d = timed(kept_design(ops, calls), GEMV_DIRECT_KERNEL)
     p = timed([lambda x=x: ops.gemv_plan_plain(x, tabs, idx, spec, scale, 2)
                for x in xs] * 2)
     rows["gemv_plan perm"] = {
@@ -1126,9 +1198,11 @@ def time_plan_kernel(torch, ops, report, rows):
         "library_call": LIB_NOTE["gemv_plan"], "bound_ms": max(b_ms, o_ms),
         "bound_by": "bytes" if b_ms >= o_ms else "operations",
         "bytes": nbytes, "fetch_adds": B * G * O,
-        "launches_per_projection": 1}
+        "launches_per_projection": 1, "variant": "split",
+        "direct_ms": d["ms"], "direct_warm_ms": d["warm_ms"]}
     log(f"time  {'gemv_plan':19s} {'gemv_plan perm':26s} kernel "
-        f"{k['ms'] * 1e3:8.2f} us (warm {k['warm_ms'] * 1e3:8.2f})  plain "
+        f"{k['ms'] * 1e3:8.2f} us (warm {k['warm_ms'] * 1e3:8.2f})  kept "
+        f"design {d['ms'] * 1e3:8.2f} us  plain "
         f"{p['ms'] * 1e3:9.2f} us  library {lib['ms'] * 1e3:8.2f} us  bound "
         f"{max(b_ms, o_ms) * 1e3:7.2f} us ({rows['gemv_plan perm']['bound_by']})"
         f"  x1/projection")
@@ -1373,6 +1447,9 @@ def serve(torch, ops, report):
     require(per_step == {"gemv_stacked": 144, "dwconv1d": 24,
                          "shared_gemv": 1},
             f"main path did not run through the kernels: {per_step}")
+    designs = dict(ops.GEMV_VARIANT_LAUNCHES)
+    require(designs == {"split": launches["gemv_stacked"], "direct": 0},
+            f"the main path's fused GEMVs ran the designs {designs}")
     report["serve"] = {"setup_s": setup_s, "convert": conv,
                        "peak_bytes": peak, "steps": steps,
                        "median_step_s": med, "step_seconds": eng.step_seconds,
@@ -1380,8 +1457,18 @@ def serve(torch, ops, report):
                        "launches": launches, "launches_per_step": per_step,
                        "table_bytes": eng.pdecode.table_bytes(),
                        "head_pool_bytes": head_bytes,
-                       "outputs": [r.out for r in reqs]}
+                       "outputs": [r.out for r in reqs],
+                       "gemv_designs": designs}
     oracle_check(torch, ops, eng, report)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cache = {"layers": {k: torch.randn(t.shape, generator=gen,
+                                       device="cuda") * 0.1
+                        for k, t in eng.cache["layers"].items()}}
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda")
+    report["serve"]["step_compare"] = step_compare(
+        torch, ops, eng.model, eng.params, cache, tok,
+        {"unpaired": eng.pdecode.pcilt},
+        {"unpaired": {"gemv_stacked": 144, "dwconv1d": 24, "shared_gemv": 1}})
     return launches
 
 
@@ -1628,8 +1715,9 @@ def paper_cnn(torch, ops, report):
 
 def _step_times(torch, ops, step, reps=3):
     """Median host seconds of ``reps`` synchronised calls of ``step`` (after
-    one warm call), the launches of one call, and the device time of one
-    call (the sum of its kernels' profiler device time)."""
+    one warm call), the launches of one call (with the fused GEMV designs
+    that served them under ``"designs"``), and the device time of one call
+    (the sum of its kernels' profiler device time)."""
     step()
     torch.cuda.synchronize()
     secs = []
@@ -1642,8 +1730,43 @@ def _step_times(torch, ops, step, reps=3):
     step()
     torch.cuda.synchronize()
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    designs = {k: v for k, v in ops.GEMV_VARIANT_LAUNCHES.items() if v}
+    if designs:
+        launches["designs"] = designs
     dev_us = sum(t for _, t in _profile(torch, step).values())
     return statistics.median(secs), launches, dev_us / 1e6
+
+
+def step_compare(torch, ops, model, params, cache, tok, variants, want):
+    """The decode step at B = 4 for each ``variants`` bundle (None: dense),
+    and, for each PCILT bundle, again with the kept fused GEMV design
+    forced (``"<name> kept"``): median host seconds, launches and device
+    time, the launches held to ``want``."""
+    cmp = {}
+    with torch.no_grad():
+        for name, pc in variants.items():
+            for kept in ((False, True) if pc is not None else (False,)):
+                def step(pc=pc, kept=kept):
+                    if not kept:
+                        return model.decode_step(params, cache, tok, pcilt=pc)
+                    with ops._gemv_forced("direct"):
+                        return model.decode_step(params, cache, tok, pcilt=pc)
+
+                s, ln, dev_s = _step_times(torch, ops, step)
+                key = f"{name} kept" if kept else name
+                cmp[key] = {"median_step_s": s, "launches": ln,
+                            "device_s": dev_s, "device_share": dev_s / s}
+                log(f"step B{B} {key:13s}: median {s * 1e3:8.2f} ms, device "
+                    f"time {dev_s * 1e3:7.2f} ms ({100 * dev_s / s:5.1f}% "
+                    f"busy), launches {ln}")
+                expect = dict(want[name])
+                gemvs = sum(v for k, v in expect.items()
+                            if k in GEMV_LAUNCHES)
+                if gemvs:
+                    expect["designs"] = {"direct" if kept else "split": gemvs}
+                require(ln == expect, f"{key} step launches {ln}, not "
+                        f"{expect}")
+    return cmp
 
 
 def serve_paired(torch, ops, report):
@@ -1722,6 +1845,10 @@ def serve_paired(torch, ops, report):
     require(per_step == {"gemv_paired_stacked": 144, "dwconv1d": 24,
                          "shared_gemv": 1},
             f"paired path did not run through the kernels: {per_step}")
+    designs = dict(ops.GEMV_VARIANT_LAUNCHES)
+    require(designs == {"split": launches["gemv_paired_stacked"],
+                        "direct": 0},
+            f"the paired path's fused GEMVs ran the designs {designs}")
     require(stats["table_bytes"] == tbytes, "engine and bundle table bytes "
             "differ")
     out.update(convert=conv, table_bytes=tbytes, head_pool_bytes=head_bytes,
@@ -1747,19 +1874,8 @@ def serve_paired(torch, ops, report):
                                       "shared_gemv": 1},
             "paired": {"gemv_paired_stacked": 144, "dwconv1d": 24,
                        "shared_gemv": 1}}
-    cmp = {}
-    with torch.no_grad():
-        for name, pc in variants.items():
-            s, ln, dev_s = _step_times(torch, ops, lambda pc=pc: model
-                                       .decode_step(params, cache, tok,
-                                                    pcilt=pc))
-            cmp[name] = {"median_step_s": s, "launches": ln,
-                         "device_s": dev_s, "device_share": dev_s / s}
-            log(f"step B{B} {name:8s}: median {s * 1e3:8.2f} ms, device "
-                f"time {dev_s * 1e3:7.2f} ms ({100 * dev_s / s:5.1f}% "
-                f"busy), launches {ln}")
-            require(ln == want[name], f"{name} step launches {ln}")
-    out["step_compare"] = cmp
+    out["step_compare"] = step_compare(torch, ops, model, params, cache, tok,
+                                       variants, want)
     unpaired_bytes = unpaired.table_bytes()
     out["unpaired_table_bytes"] = unpaired_bytes
     del unpaired, variants, eng, dec

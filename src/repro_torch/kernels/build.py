@@ -48,8 +48,9 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 #: or as ``_f32`` alone)
 _SIGNATURES = {
     "pcilt_gemv_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _LL,
-                         _LL, _I, _P],
-    "pcilt_gemv_plan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                         _LL, _I, _I, _P],
+    "pcilt_gemv_plan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                        _P],
     "pcilt_dwconv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                        _P],
     "pcilt_dwconv1d_host": [_P, _P, _P, _LL, _I, _I, _P],
@@ -61,6 +62,13 @@ _SIGNATURES = {
     "pcilt_shared_conv2d_staged": [_P, _P, _P, _P] + [_I] * 15 + [_P],
     "pcilt_conv2d_codes": [_P, _P] + [_I] * 6 + [_F, _P],
     "pcilt_gemv_host": [_P, _P, _P, _LL, _I, _I, _I, _P],
+}
+#: the C entry points without a dtype suffix (a design's constants) ->
+#: argtypes
+_CONFIG_SIGNATURES = {
+    "pcilt_conv2d_staged_config": [_P],
+    "pcilt_gemv_split_config": [_P],
+    "pcilt_gemv_split_plan": [_I, _I, _I, _I, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -136,8 +144,9 @@ def library(name: str) -> ctypes.CDLL:
                 if sym is not None:
                     sym.argtypes = argtypes
                     sym.restype = ctypes.c_int
-        cfg = getattr(lib, "pcilt_conv2d_staged_config", None)
-        if cfg is not None:
-            cfg.argtypes, cfg.restype = [_P], ctypes.c_int
+        for fn, argtypes in _CONFIG_SIGNATURES.items():
+            sym = getattr(lib, fn, None)
+            if sym is not None:
+                sym.argtypes, sym.restype = argtypes, ctypes.c_int
         _libs[name] = lib
     return lib

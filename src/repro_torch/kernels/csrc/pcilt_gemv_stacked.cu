@@ -17,7 +17,10 @@
 // Fig. 7) reads slot j of segment g from x[b, plan[g*pw + j]] of an x of
 // any width n; a -1 slot reads 0.0 (its code is the zero point, as in the
 // reference kernel) and never touches x.  The plan is a template flag, so
-// the other four launches compile to the code they had without it.
+// the other four launches compile to the code they had without it.  The
+// layer is selected by the 64-bit offset layer_off and the segment by the
+// 64-bit stride seg_stride (a paired wo stack at mamba2-130m width spans
+// 1.8e9 elements), so no table is sliced, padded or transposed per call.
 //
 // Replaces: src/repro/kernels/pcilt_fused.py pcilt_fused_gemv_stacked_pallas
 // (and its counter body _gemv_stacked_sat_kernel), pcilt_fused_gemv_pallas,
@@ -27,41 +30,393 @@
 // reference).
 //
 // Bound: bytes.  A decode call reads one O-wide table row per (b, g) —
-// B*G*O*itemsize bytes of a multi-GiB stack that no cache holds — and does one
-// add per byte fetched, far below the card's 295 operations per byte.  The
-// paired layout halves G, so it halves the rows fetched.
+// B*G*O*itemsize bytes of a multi-GiB stack that no cache holds — and does
+// one add per byte fetched, far below the card's 295 operations per byte.
+// At B = 4 those bytes are few (9.4 MB at mamba2-130m's wz, 2.8 us at
+// 3.35 TB/s), so the call is bound in practice by how many of them are in
+// flight: the card needs ~2 MB in flight to stream at its rate.
 //
-// Design: one block per 128-wide O tile and all B rows.  The block quantizes
-// and packs the B*G offsets of its rows into shared memory once (the
-// offsets never reach device memory); then thread (tx, ty) owns column
-// o = tile*128 + tx and loops over g for rows b = ty, ty + blockDim.y, ...,
-// loading T_g[off[b, g], o]: a warp reads 32 neighbouring columns of
-// one table row, so every load is coalesced.  The layer is selected by the
-// 64-bit offset layer_off and the segment by the 64-bit stride seg_stride
-// (a paired wo stack at mamba2-130m width spans 1.8e9 elements), so no
-// table is sliced, padded or transposed per call; the ragged O edge is
-// masked here.  Counter variant: only the blocks of O tile 0 count, so each
-// activation is counted once; per-warp shuffle reduction, then one
-// atomicAdd / atomicMax.  A first, simple design: at B = 4 the wz projection
-// (O = 1536) runs 12 blocks on 132 SMs.
+// Two designs, chosen by the caller (kernels.ops; "split" unless forced):
+//
+// "split" (split-K over G, for Hopper's 132 SMs):
+//  1. The segment loop is cut into S = cluster * warps * groups slices of
+//     consecutive segments, in ascending g.  A slot — a group of `lanes`
+//     lanes, at most kMaxLanes — owns one slice of one output tile of
+//     lanes * 16 bytes of columns, for kRows rows.  A warp holds 32 / lanes
+//     slots, so a narrow O (wdt's 24 columns: 6 lanes) puts several
+//     segments of a row in one warp instead of idling lanes.  The slots of
+//     one output tile spread over the warps of a block and the blocks of a
+//     thread-block cluster (up to 16 with the non-portable size), until the
+//     grid reaches kTargetBlocks or a slice would hold fewer than kMinSegs
+//     segments: 384 blocks at wz, 32 at wB/wC, 16 at wdt (float32, B = 4).
+//     The split is a function of (B, G, O, itemsize) only (split_for,
+//     mirrored by kernels.ops.gemv_variant), never of the plan, so the
+//     plan launch sums in the order of the unstacked one.
+//  2. A lane owns 16 bytes of neighbouring columns (4 f32, 8 bf16) and
+//     loads them with the widest of 16/8/4 bytes (2 for bf16) that the
+//     table's address, O * itemsize and seg_stride * itemsize allow (a
+//     template argument).  A slot reads its segments in batches of
+//     kSegBatch: the batch's offsets come from shared memory as one int4
+//     per segment, then all kSegBatch * kRows loads issue before the adds.
+//  3. A block quantizes and packs only the kRows x (its segments) offsets
+//     it fetches, into shared memory.  The counter variant counts only in
+//     the blocks of output tile 0, so each activation is counted once.
+//  4. Deterministic reduction: each slot's partial sums go to shared
+//     memory and are summed in ascending slot order; then the cluster's
+//     block sums are read through distributed shared memory and summed in
+//     ascending rank order, each output element by one thread (all ranks'
+//     loads issued before the adds).  No float atomics: two launches are
+//     bit-identical.
+// Measured on an H100 (PERF.md): 10.6 us at wz against 33.1 us for the
+// kept design and 8.6 us for torch.matmul, whose dense weights are half the
+// table rows' bytes at B = 4.  Of the 10.6 us, an empty launch of the same
+// cluster grid takes ~3 us and the quantize and reduction stages ~2 us.
+//
+// "direct" (the first design, kept for comparison and forceable): one
+// block per 128-wide O tile and all B rows.  The block quantizes and packs
+// the B*G offsets into shared memory; thread (tx, ty) owns column
+// o = tile*128 + tx and loops over all g for rows b = ty, ty + blockDim.y,
+// ..., one 4-byte load at a time.  At B = 4 the wz projection (O = 1536)
+// runs 12 blocks on 132 SMs, with few bytes in flight.
+#include <cooperative_groups.h>
+
 #include "pcilt_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// "split"
+// ---------------------------------------------------------------------------
+
+// The constants were tuned on an H100 with scripts/gemv_split_sweep.py,
+// which rebuilds this source with other values of them.
+constexpr int kRows = 4;            // rows a block holds (an int4 of offsets)
+constexpr int kWarps = 4;           // warps a block, at most
+constexpr int kSegBatch = 4;        // segments a load batch
+constexpr int kTargetBlocks = 264;  // blocks the split aims for (2 an SM)
+constexpr int kMaxCluster = 16;     // blocks a cluster, a power of two
+constexpr int kMinSegs = 1;         // least segments a slice
+constexpr int kMaxLanes = 16;       // lanes a slot, at most
+constexpr int kLaneBytes = 16;      // columns a lane owns, in bytes
+static_assert((kMaxCluster & (kMaxCluster - 1)) == 0 && kMaxCluster <= 16,
+              "cluster sizes are powers of two up to 16");
+static_assert(kRows == 4, "a segment's offsets are one int4");
+static_assert(kMaxLanes == 8 || kMaxLanes == 16 || kMaxLanes == 32,
+              "a slot is a power-of-two part of a warp");
+
+struct Split {
+  int lanes;    // lanes of a slot
+  int groups;   // slots a warp
+  int warps;    // warps a block
+  int cluster;  // blocks a cluster (one output tile's slices)
+  int tile;     // columns an output tile
+  int tiles;    // output tiles
+  int chunks;   // row chunks of kRows
+};
+
+__host__ __device__ inline Split split_for(int B, int G, int O,
+                                           int itemsize) {
+  Split s;
+  const int nv = kLaneBytes / itemsize;
+  const int need = (O + nv - 1) / nv;
+  s.lanes = need < kMaxLanes ? need : kMaxLanes;
+  s.groups = 32 / s.lanes;
+  s.tile = s.lanes * nv;
+  s.tiles = (O + s.tile - 1) / s.tile;
+  s.chunks = (B + kRows - 1) / kRows;
+  const long long base = (long long)s.tiles * s.chunks;
+  int cs = 1;
+  while (cs < kMaxCluster && base * cs < kTargetBlocks) cs *= 2;
+  while (cs > 1 && (long long)cs * kWarps * s.groups * kMinSegs > G) cs /= 2;
+  int w = kWarps;
+  if (cs == 1)
+    while (w > 1 && w * s.groups * kMinSegs > G) w /= 2;
+  s.cluster = cs;
+  s.warps = w;
+  return s;
+}
+
+// Dynamic shared memory of a block: the slots' partial sums
+// [warps*groups][kRows][tile] float32, then the offsets of the block's
+// segments [ceil(G / cluster)][kRows] int32.
+__host__ __device__ inline size_t split_smem_bytes(const Split& s, int G) {
+  const size_t seg = (G + s.cluster - 1) / s.cluster;
+  return (size_t)s.warps * s.groups * kRows * s.tile * sizeof(float) +
+         seg * kRows * sizeof(int);
+}
+
+template <int VB> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<4> { using type = unsigned int; };
+template <> struct RawOf<2> { using type = unsigned short; };
+
+__device__ __forceinline__ unsigned word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ unsigned word(const uint2& v, int i) {
+  return i == 0 ? v.x : v.y;
+}
+__device__ __forceinline__ unsigned word(unsigned v, int) { return v; }
+
+// acc[0 .. VB/itemsize) += the table cells in the VB raw bytes v (bf16 is
+// the upper half of a float32, so its conversion is a shift).
+template <typename T, int VB>
+__device__ __forceinline__ void add_raw(float* acc,
+                                        const typename RawOf<VB>::type& v) {
+  if constexpr (VB == 2) {
+    acc[0] += __uint_as_float((unsigned)v << 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VB / 4; ++i) {
+      const unsigned w = word(v, i);
+      if constexpr (sizeof(T) == 4) {
+        acc[i] += __uint_as_float(w);
+      } else {
+        acc[2 * i] += __uint_as_float(w << 16);
+        acc[2 * i + 1] += __uint_as_float(w & 0xffff0000u);
+      }
+    }
+  }
+}
+
+template <typename T, int VB, bool COUNTERS, bool PLAN>
+__global__ void __launch_bounds__(32 * kWarps)
+    gemv_split_kernel(const float* __restrict__ x, const T* __restrict__ tab,
+                      T* __restrict__ out, int* __restrict__ stats,
+                      const int* __restrict__ plan, int B, int G, int O,
+                      int n, int pw, int bits, int zp, float scale,
+                      long long seg_stride, Split sp) {
+  constexpr int NV = kLaneBytes / sizeof(T);  // columns a lane owns
+  constexpr int VEC = VB / sizeof(T);         // columns a load
+  constexpr int NL = NV / VEC;                // loads a row
+  using Raw = typename RawOf<VB>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int SB = sp.warps * sp.groups;  // slots a block
+  const int E = kRows * sp.tile;        // partial sums a slot
+  float* part = reinterpret_cast<float*>(smem);
+  int* s_off = reinterpret_cast<int*>(part + (size_t)SB * E);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tile_i = blockIdx.x / sp.cluster;
+  const int b0 = blockIdx.y * kRows;
+  const int nb = min(kRows, B - b0);
+  const int S = sp.cluster * SB;
+  const int gb0 = (int)((long long)rank * G / sp.cluster);
+  const int nseg = (int)((long long)(rank + 1) * G / sp.cluster) - gb0;
+
+  // -- quantize and pack the block's kRows x nseg offsets (x coalesced
+  //    along g), stored [g - gb0][row]
+  const int kmax = (1 << bits) - 1;
+  const bool count_here = COUNTERS && tile_i == 0;
+  int cnt = 0;
+  float ratio = 0.f;
+  for (int i = threadIdx.x; i < kRows * nseg; i += blockDim.x) {
+    const int r = i / nseg;
+    const int gl = i - r * nseg;
+    int o = 0;
+    if (r < nb) {
+      const int g = gb0 + gl;
+      const float* xs = x + (size_t)(b0 + r) * n + (PLAN ? 0 : (size_t)g * pw);
+      for (int j = 0; j < pw; ++j) {
+        float xv;
+        if (PLAN) {
+          const int p = plan[g * pw + j];
+          xv = p >= 0 ? xs[p] : 0.f;
+        } else {
+          xv = xs[j];
+        }
+        bool sat;
+        const int code = pcilt::quantize_code(xv, scale, zp, kmax, &sat);
+        if (count_here) {
+          cnt += sat ? 1 : 0;
+          ratio = fmaxf(ratio, __fdiv_rn(fabsf(xv), scale));
+        }
+        o |= code << (j * bits);
+      }
+    }
+    s_off[gl * kRows + r] = o;
+  }
+  if (count_here) pcilt::commit_stats(cnt, ratio, stats);
+  __syncthreads();
+
+  // -- fetch: slot sb of this block sums its slice in ascending g
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / sp.lanes;
+  const int sl = lane - grp * sp.lanes;
+  if (grp < sp.groups) {
+    const int sb = warp * sp.groups + grp;
+    const int s = rank * SB + sb;
+    const int g0 = (int)((long long)s * G / S);
+    const int g1 = (int)((long long)(s + 1) * G / S);
+    const int c = tile_i * sp.tile + sl * NV;
+    const T* tcol = tab + c;
+    const int4* offs = reinterpret_cast<const int4*>(s_off);
+    float acc[kRows][NV];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int k = 0; k < NV; ++k) acc[r][k] = 0.f;
+    for (int g = g0; g < g1; g += kSegBatch) {
+      Raw v[kSegBatch][kRows][NL];
+#pragma unroll
+      for (int u = 0; u < kSegBatch; ++u) {
+        const int gg = g + u;
+        const int4 o4 = gg < g1 ? offs[gg - gb0] : make_int4(0, 0, 0, 0);
+        const int o[kRows] = {o4.x, o4.y, o4.z, o4.w};
+        const T* seg = tcol + (long long)gg * seg_stride;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int k = 0; k < NL; ++k) {
+            v[u][r][k] = Raw{};
+            if (gg < g1 && r < nb && c + k * VEC < O)
+              v[u][r][k] = __ldg(reinterpret_cast<const Raw*>(
+                  seg + (long long)o[r] * O + k * VEC));
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < kSegBatch; ++u)
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int k = 0; k < NL; ++k)
+            if (g + u < g1 && r < nb)
+              add_raw<T, VB>(&acc[r][k * VEC], v[u][r][k]);
+    }
+    float* p = part + (size_t)sb * E + sl * NV;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int k = 0; k < NV; k += 4)
+        *reinterpret_cast<float4*>(p + r * sp.tile + k) =
+            make_float4(acc[r][k], acc[r][k + 1], acc[r][k + 2],
+                        acc[r][k + 3]);
+  }
+  __syncthreads();
+
+  // -- the block's sum, in ascending slot order, into slot 0's place
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    float sum = part[e];
+    for (int sb = 1; sb < SB; ++sb) sum += part[(size_t)sb * E + e];
+    part[e] = sum;
+  }
+
+  // -- the cluster's sum, in ascending rank order; each element by one
+  //    thread of one block
+  if (sp.cluster == 1) {
+    __syncthreads();
+  } else {
+    cluster.sync();
+  }
+  for (int e = rank * blockDim.x + threadIdx.x; e < E;
+       e += sp.cluster * blockDim.x) {
+    float sum = part[e];
+    if (sp.cluster > 1) {  // all the ranks' loads in flight, then the adds
+      float peer[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < sp.cluster) peer[q] = cluster.map_shared_rank(part, q)[e];
+      sum = peer[0];
+#pragma unroll
+      for (int q = 1; q < kMaxCluster; ++q)
+        if (q < sp.cluster) sum += peer[q];
+    }
+    const int r = e / sp.tile;
+    const int col = tile_i * sp.tile + (e - r * sp.tile);
+    if (r < nb && col < O)
+      out[(size_t)(b0 + r) * O + col] = pcilt::from_f32<T>(sum);
+  }
+  if (sp.cluster > 1) cluster.sync();  // no block leaves while read
+}
+
+template <typename T, int VB, bool COUNTERS, bool PLAN>
+int launch_split_vb(const float* x, const T* tab, T* out, int* stats,
+                    const int* plan, int B, int G, int O, int n, int pw,
+                    int bits, int zp, float scale, long long seg_stride,
+                    cudaStream_t stream) {
+  const Split sp = split_for(B, G, O, (int)sizeof(T));
+  if (sp.chunks > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = split_smem_bytes(sp, G);
+  auto kernel = gemv_split_kernel<T, VB, COUNTERS, PLAN>;
+  cudaError_t err = cudaSuccess;
+  static size_t smem_allowed = 48 * 1024;  // this instance's, per process
+  if (smem > smem_allowed) {
+    err = pcilt::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  static bool wide_clusters = false;
+  if (sp.cluster > 8 && !wide_clusters) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    wide_clusters = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sp.tiles * sp.cluster, sp.chunks);
+  cfg.blockDim = dim3(32 * sp.warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sp.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, tab, out, stats, plan, B, G, O,
+                           n, pw, bits, zp, scale, seg_stride, sp);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The widest load the table's address, row stride and segment stride allow.
+template <typename T, bool COUNTERS, bool PLAN>
+int launch_split(const float* x, const T* tab, T* out, int* stats,
+                 const int* plan, int B, int G, int O, int n, int pw,
+                 int bits, int zp, float scale, long long seg_stride,
+                 cudaStream_t stream) {
+  const unsigned long long a = (unsigned long long)(uintptr_t)tab |
+                               (unsigned long long)O * sizeof(T) |
+                               (unsigned long long)seg_stride * sizeof(T);
+#define PCILT_SPLIT_VB(VB)                                                 \
+  return launch_split_vb<T, VB, COUNTERS, PLAN>(x, tab, out, stats, plan,  \
+                                                B, G, O, n, pw, bits, zp,  \
+                                                scale, seg_stride, stream)
+  if (a % 16 == 0) PCILT_SPLIT_VB(16);
+  if (a % 8 == 0) PCILT_SPLIT_VB(8);
+  if constexpr (sizeof(T) == 4) {
+    PCILT_SPLIT_VB(4);
+  } else {
+    if (a % 4 == 0) PCILT_SPLIT_VB(4);
+    PCILT_SPLIT_VB(2);
+  }
+#undef PCILT_SPLIT_VB
+}
+
+// ---------------------------------------------------------------------------
+// "direct"
+// ---------------------------------------------------------------------------
 
 constexpr int kTileO = 128;
 
 template <typename T, bool COUNTERS, bool PLAN>
-__global__ void gemv_fused_kernel(const float* __restrict__ x,
-                                  const T* __restrict__ tab,
-                                  T* __restrict__ out, int* __restrict__ stats,
-                                  int B, int G, int O, int pw, int bits,
-                                  int zp, float scale, long long seg_stride,
-                                  const int* __restrict__ plan, int n_plan) {
+__global__ void gemv_direct_kernel(const float* __restrict__ x,
+                                   const T* __restrict__ tab,
+                                   T* __restrict__ out,
+                                   int* __restrict__ stats, int B, int G,
+                                   int O, int pw, int bits, int zp,
+                                   float scale, long long seg_stride,
+                                   const int* __restrict__ plan, int n) {
   extern __shared__ int off[];  // [B * G] packed offsets
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   const int kmax = (1 << bits) - 1;
-  const int n = PLAN ? n_plan : G * pw;
   const bool count_here = COUNTERS && blockIdx.x == 0;
   int cnt = 0;
   float ratio = 0.f;
@@ -104,33 +459,61 @@ __global__ void gemv_fused_kernel(const float* __restrict__ x,
 }
 
 template <typename T, bool COUNTERS, bool PLAN>
-int launch_as(const float* x, const T* tab, T* out, int* stats, int B, int G,
-              int O, int pw, int bits, int zp, float scale,
-              long long seg_stride, const int* plan, int n_plan,
-              cudaStream_t stream) {
+int launch_direct(const float* x, const T* tab, T* out, int* stats,
+                  const int* plan, int B, int G, int O, int n, int pw,
+                  int bits, int zp, float scale, long long seg_stride,
+                  cudaStream_t stream) {
   const size_t smem = (size_t)B * G * sizeof(int);
   dim3 block(kTileO, B < 8 ? B : 8);
   dim3 grid((O + kTileO - 1) / kTileO);
   cudaError_t err =
-      pcilt::allow_smem(gemv_fused_kernel<T, COUNTERS, PLAN>, smem);
+      pcilt::allow_smem(gemv_direct_kernel<T, COUNTERS, PLAN>, smem);
   if (err != cudaSuccess) return (int)err;
-  gemv_fused_kernel<T, COUNTERS, PLAN><<<grid, block, smem, stream>>>(
-      x, tab, out, stats, B, G, O, pw, bits, zp, scale, seg_stride, plan,
-      n_plan);
+  gemv_direct_kernel<T, COUNTERS, PLAN><<<grid, block, smem, stream>>>(
+      x, tab, out, stats, B, G, O, pw, bits, zp, scale, seg_stride, plan, n);
   return (int)cudaGetLastError();
+}
+
+// variant: 0 = "split", 1 = "direct".
+template <typename T, bool COUNTERS, bool PLAN>
+int launch_as(const float* x, const T* tab, T* out, int* stats,
+              const int* plan, int B, int G, int O, int n, int pw, int bits,
+              int zp, float scale, long long seg_stride, int variant,
+              cudaStream_t stream) {
+  if (variant == 0)
+    return launch_split<T, COUNTERS, PLAN>(x, tab, out, stats, plan, B, G, O,
+                                           n, pw, bits, zp, scale,
+                                           seg_stride, stream);
+  if (variant == 1)
+    return launch_direct<T, COUNTERS, PLAN>(x, tab, out, stats, plan, B, G,
+                                            O, n, pw, bits, zp, scale,
+                                            seg_stride, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch(const float* x, const T* tables, T* out, int* stats, int B, int G,
            int O, int pw, int bits, int zp, float scale, long long seg_stride,
-           long long layer_off, int counters, cudaStream_t stream) {
+           long long layer_off, int counters, int variant,
+           cudaStream_t stream) {
   const T* tab = tables + layer_off;
   if (counters)
-    return launch_as<T, true, false>(x, tab, out, stats, B, G, O, pw, bits,
-                                     zp, scale, seg_stride, nullptr, 0,
-                                     stream);
-  return launch_as<T, false, false>(x, tab, out, stats, B, G, O, pw, bits, zp,
-                                    scale, seg_stride, nullptr, 0, stream);
+    return launch_as<T, true, false>(x, tab, out, stats, nullptr, B, G, O,
+                                     G * pw, pw, bits, zp, scale, seg_stride,
+                                     variant, stream);
+  return launch_as<T, false, false>(x, tab, out, stats, nullptr, B, G, O,
+                                    G * pw, pw, bits, zp, scale, seg_stride,
+                                    variant, stream);
+}
+
+template <typename T>
+int launch_plan(const float* x, const T* tables, T* out, const int* plan,
+                int B, int G, int O, int n, int group, int bits, int zp,
+                float scale, int variant, cudaStream_t stream) {
+  return launch_as<T, false, true>(x, tables, out, nullptr, plan, B, G, O, n,
+                                   group, bits, zp, scale,
+                                   (long long)(1 << (bits * group)) * O,
+                                   variant, stream);
 }
 
 }  // namespace
@@ -140,10 +523,10 @@ extern "C" int pcilt_gemv_fused_f32(const void* x, const void* tables,
                                     int O, int pw, int bits, int zp,
                                     float scale, long long seg_stride,
                                     long long layer_off, int counters,
-                                    void* stream) {
+                                    int variant, void* stream) {
   return launch<float>((const float*)x, (const float*)tables, (float*)out,
                        (int*)stats, B, G, O, pw, bits, zp, scale, seg_stride,
-                       layer_off, counters, (cudaStream_t)stream);
+                       layer_off, counters, variant, (cudaStream_t)stream);
 }
 
 extern "C" int pcilt_gemv_fused_bf16(const void* x, const void* tables,
@@ -151,12 +534,12 @@ extern "C" int pcilt_gemv_fused_bf16(const void* x, const void* tables,
                                      int O, int pw, int bits, int zp,
                                      float scale, long long seg_stride,
                                      long long layer_off, int counters,
-                                     void* stream) {
+                                     int variant, void* stream) {
   return launch<__nv_bfloat16>((const float*)x,
                                (const __nv_bfloat16*)tables,
                                (__nv_bfloat16*)out, (int*)stats, B, G, O, pw,
                                bits, zp, scale, seg_stride, layer_off,
-                               counters, (cudaStream_t)stream);
+                               counters, variant, (cudaStream_t)stream);
 }
 
 // Plan launch: x [B, n], plan [G, group] int32 (-1 = unused slot), tables
@@ -164,20 +547,51 @@ extern "C" int pcilt_gemv_fused_bf16(const void* x, const void* tables,
 extern "C" int pcilt_gemv_plan_f32(const void* x, const void* tables,
                                    void* out, const void* plan, int B, int G,
                                    int O, int n, int group, int bits, int zp,
-                                   float scale, void* stream) {
-  return launch_as<float, false, true>(
-      (const float*)x, (const float*)tables, (float*)out, nullptr, B, G, O,
-      group, bits, zp, scale, (long long)(1 << (bits * group)) * O,
-      (const int*)plan, n, (cudaStream_t)stream);
+                                   float scale, int variant, void* stream) {
+  return launch_plan<float>((const float*)x, (const float*)tables,
+                            (float*)out, (const int*)plan, B, G, O, n, group,
+                            bits, zp, scale, variant, (cudaStream_t)stream);
 }
 
 extern "C" int pcilt_gemv_plan_bf16(const void* x, const void* tables,
                                     void* out, const void* plan, int B, int G,
                                     int O, int n, int group, int bits, int zp,
-                                    float scale, void* stream) {
-  return launch_as<__nv_bfloat16, false, true>(
+                                    float scale, int variant, void* stream) {
+  return launch_plan<__nv_bfloat16>(
       (const float*)x, (const __nv_bfloat16*)tables, (__nv_bfloat16*)out,
-      nullptr, B, G, O, group, bits, zp, scale,
-      (long long)(1 << (bits * group)) * O, (const int*)plan, n,
+      (const int*)plan, B, G, O, n, group, bits, zp, scale, variant,
       (cudaStream_t)stream);
+}
+
+// The split design's constants, for kernels.ops to check its mirror
+// against: {rows a block, warps a block, segments a load batch, target
+// blocks, largest cluster, least segments a slice, lanes a slot, bytes a
+// lane}.
+extern "C" int pcilt_gemv_split_config(int* cfg) {
+  cfg[0] = kRows;
+  cfg[1] = kWarps;
+  cfg[2] = kSegBatch;
+  cfg[3] = kTargetBlocks;
+  cfg[4] = kMaxCluster;
+  cfg[5] = kMinSegs;
+  cfg[6] = kMaxLanes;
+  cfg[7] = kLaneBytes;
+  return 0;
+}
+
+// The split of one call: {lanes, groups, warps, cluster, tile, tiles,
+// chunks, shared-memory bytes}.
+extern "C" int pcilt_gemv_split_plan(int B, int G, int O, int itemsize,
+                                     int* out) {
+  if (itemsize != 2 && itemsize != 4) return (int)cudaErrorInvalidValue;
+  const Split s = split_for(B, G, O, itemsize);
+  out[0] = s.lanes;
+  out[1] = s.groups;
+  out[2] = s.warps;
+  out[3] = s.cluster;
+  out[4] = s.tile;
+  out[5] = s.tiles;
+  out[6] = s.chunks;
+  out[7] = (int)split_smem_bytes(s, G);
+  return 0;
 }

@@ -23,12 +23,24 @@ The conv kernels come in two designs (``csrc/pcilt_conv2d.cu``):
 counts which one ran.  ``_fused_conv2d`` / ``_shared_conv2d`` take
 ``variant=`` to force either on a CUDA tensor (tests and ``chip_smoke.py``);
 neither falls back to the other.
+
+The fused GEMVs (kernels 1 and 8-11, ``csrc/pcilt_gemv_stacked.cu``) also
+come in two designs: ``"split"`` (the segment loop split over the warps of
+a block and the blocks of a thread-block cluster, summed in a fixed order)
+and ``"direct"`` (one block per 128 columns walks every segment).  Every
+launch takes ``"split"``; :func:`gemv_variant` mirrors its split and
+:data:`GEMV_VARIANT_LAUNCHES` counts which design ran.  ``_launch_gemv``
+takes ``variant=``, and :func:`_gemv_forced` forces a design for the
+launches inside it (tests and ``chip_smoke.py``); neither falls back to the
+other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,7 +65,9 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "gemv_paired_stacked_plain", "gemv_plan_plain", "dwconv1d_plain",
            "shared_gemv_plain", "fused_conv2d_plain", "shared_conv2d_plain",
            "CONV_VARIANT_LAUNCHES", "conv_variant", "staged_smem_bytes",
-           "staged_tiles", "staged_block_tile", "conv_codes_plain"]
+           "staged_tiles", "staged_block_tile", "conv_codes_plain",
+           "GEMV_VARIANT_LAUNCHES", "GemvSplit", "gemv_variant",
+           "gemv_smem_bytes"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -64,9 +78,12 @@ _TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: conv design -> number of fused/shared conv2d calls it served on CUDA
 CONV_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
 
+#: fused GEMV design -> number of fused GEMV launches it served on CUDA
+GEMV_VARIANT_LAUNCHES: Dict[str, int] = {"split": 0, "direct": 0}
+
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CONV_VARIANT_LAUNCHES):
+    for counts in (LAUNCHES, CONV_VARIANT_LAUNCHES, GEMV_VARIANT_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -210,22 +227,156 @@ def _check_gemv(x, G, V, spec: QuantSpec, pw: int, what=None):
         raise ValueError("empty batch")
 
 
+#: the split design's constants (the ``k*`` constants of
+#: pcilt_gemv_stacked.cu; the library's own are checked against these at
+#: its first launch): rows a block, warps a block (at most), segments a
+#: load batch, the blocks the split aims for, the largest cluster, the
+#: fewest segments a slice, the most lanes a slot, the bytes of
+#: neighbouring columns a lane owns
+GEMV_ROWS, GEMV_WARPS, GEMV_SEG_BATCH = 4, 4, 4
+GEMV_TARGET_BLOCKS, GEMV_MAX_CLUSTER, GEMV_MIN_SEGS = 264, 16, 1
+GEMV_MAX_LANES, GEMV_LANE_BYTES = 16, 16
+
+
+class GemvSplit(NamedTuple):
+    """The split design's launch over one call (``split_for`` of
+    pcilt_gemv_stacked.cu).  Slot ``s`` of ``cluster * warps * groups``
+    sums its slice of the segments for one output tile of ``tile`` columns
+    and ``GEMV_ROWS`` rows; the grid is ``tiles * cluster`` by ``chunks``
+    blocks."""
+    lanes: int    # lanes of a slot
+    groups: int   # slots (slices) a warp
+    warps: int    # warps a block
+    cluster: int  # blocks a cluster
+    tile: int     # columns an output tile
+    tiles: int    # output tiles
+    chunks: int   # row chunks of GEMV_ROWS
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_variant(B: int, G: int, O: int, itemsize: int) -> GemvSplit:
+    """The split of a fused GEMV over ``B`` rows, ``G`` segments and ``O``
+    columns of ``itemsize``-byte cells: a lane owns ``GEMV_LANE_BYTES`` of
+    columns, a slot as many lanes as cover O (at most ``GEMV_MAX_LANES``;
+    a narrow O puts several slots in a warp), and the cluster doubles
+    until the grid has ``GEMV_TARGET_BLOCKS`` blocks, but no slice falls
+    under ``GEMV_MIN_SEGS`` segments (then the block sheds warps the same
+    way).  A function of the shape alone: a plan does not change it."""
+    nv = GEMV_LANE_BYTES // itemsize
+    lanes = min(GEMV_MAX_LANES, -(-O // nv))
+    groups = 32 // lanes
+    tile = lanes * nv
+    tiles = -(-O // tile)
+    chunks = -(-B // GEMV_ROWS)
+    cs = 1
+    while cs < GEMV_MAX_CLUSTER and tiles * chunks * cs < GEMV_TARGET_BLOCKS:
+        cs *= 2
+    while cs > 1 and cs * GEMV_WARPS * groups * GEMV_MIN_SEGS > G:
+        cs //= 2
+    w = GEMV_WARPS
+    if cs == 1:
+        while w > 1 and w * groups * GEMV_MIN_SEGS > G:
+            w //= 2
+    return GemvSplit(lanes, groups, w, cs, tile, tiles, chunks)
+
+
+def gemv_smem_bytes(split: GemvSplit, G: int) -> int:
+    """Dynamic shared memory of a split block: the slots' float32 partial
+    sums ``[warps * groups, GEMV_ROWS, tile]``, then the int32 offsets of
+    the block's segments ``[ceil(G / cluster), GEMV_ROWS]``."""
+    return 4 * GEMV_ROWS * (split.warps * split.groups * split.tile
+                            + -(-G // split.cluster))
+
+
+#: a design forced on the fused GEMV launches inside :func:`_gemv_forced`
+_GEMV_FORCED: Optional[str] = None
+
+
+@contextlib.contextmanager
+def _gemv_forced(variant: str):
+    """Every fused GEMV launched on a CUDA tensor inside the block runs
+    ``variant`` (tests and ``chip_smoke.py``); CPU tensors still run the
+    plain versions."""
+    global _GEMV_FORCED
+    if variant not in GEMV_VARIANT_LAUNCHES:
+        raise ValueError(f"unknown fused GEMV variant {variant!r}")
+    before, _GEMV_FORCED = _GEMV_FORCED, variant
+    try:
+        yield
+    finally:
+        _GEMV_FORCED = before
+
+
+_GEMV_CHECKED = set()
+
+
+def _check_gemv_split(lib, B: int, G: int, O: int, itemsize: int,
+                      split: GemvSplit) -> None:
+    """The library's split constants, and its split of this shape, must be
+    this module's mirror of them (each shape checked once)."""
+    if not _GEMV_CHECKED:
+        cfg = (ctypes.c_int * 8)()
+        lib.pcilt_gemv_split_config(cfg)
+        mine = (GEMV_ROWS, GEMV_WARPS, GEMV_SEG_BATCH, GEMV_TARGET_BLOCKS,
+                GEMV_MAX_CLUSTER, GEMV_MIN_SEGS, GEMV_MAX_LANES,
+                GEMV_LANE_BYTES)
+        if tuple(cfg) != mine:
+            raise RuntimeError(f"pcilt_gemv_stacked.cu's split constants "
+                               f"{tuple(cfg)} differ from kernels.ops' {mine}")
+        _GEMV_CHECKED.add("config")
+    key = (split.chunks, G, O, itemsize)
+    if key in _GEMV_CHECKED:
+        return
+    got = (ctypes.c_int * 8)()
+    lib.pcilt_gemv_split_plan(B, G, O, itemsize, got)
+    mine = (*split, gemv_smem_bytes(split, G))
+    if tuple(got) != mine:
+        raise RuntimeError(f"pcilt_gemv_stacked.cu splits B {B}, G {G}, O {O}"
+                           f" as {tuple(got)}, kernels.ops as {mine}")
+    _GEMV_CHECKED.add(key)
+
+
 def _launch_gemv(name, x, tables, G, O, pw, seg_stride, layer_off,
-                 spec: QuantSpec, scale, with_stats):
+                 spec: QuantSpec, scale, with_stats, plan_idx=None,
+                 variant=None):
     """One launch of the fused GEMV kernel: segment ``g`` of the call is the
-    ``[V, O]`` table at element ``layer_off + g * seg_stride``."""
-    dt = _check_launch(name, x, tables)
-    B = x.shape[0]
-    if B * G * 4 > 227 * 1024:
-        raise ValueError(f"B*G = {B * G} offsets exceed the shared memory "
-                         f"of one block")
+    ``[V, O]`` table at element ``layer_off + g * seg_stride``; with
+    ``plan_idx`` the plan launch (segment ``g`` reads ``x`` by its plan
+    row).  ``variant`` (else the forced one, else ``"split"``) picks the
+    design."""
+    others = () if plan_idx is None else (plan_idx,)
+    dt = _check_launch(name, x, tables, *others)
+    B, n = x.shape
+    variant = variant or _GEMV_FORCED or "split"
+    if variant not in GEMV_VARIANT_LAUNCHES:
+        raise ValueError(f"{name}: unknown fused GEMV variant {variant!r}")
+    lib = build.library(build.KERNELS[name])
+    if variant == "split":
+        split = gemv_variant(B, G, O, tables.element_size())
+        smem = gemv_smem_bytes(split, G)
+        if smem > SMEM_LIMIT or split.chunks > 65535:
+            raise ValueError(f"{name}: B = {B}, G = {G} needs {smem} B of "
+                             f"shared memory a block (at most {SMEM_LIMIT})"
+                             f" and {split.chunks} row chunks (at most "
+                             f"65535)")
+        _check_gemv_split(lib, B, G, O, tables.element_size(), split)
+    elif B * G * 4 > SMEM_LIMIT:
+        raise ValueError(f"{name}: B*G = {B * G} offsets exceed the shared "
+                         f"memory of one block")
     out = torch.empty((B, O), dtype=tables.dtype, device=x.device)
     stats = torch.zeros(2, dtype=torch.int32, device=x.device) \
         if with_stats else None
-    fn = getattr(build.library(build.KERNELS[name]), f"pcilt_gemv_fused_{dt}")
-    _launch(name, fn, x, _ptr(x), _ptr(tables), _ptr(out), _ptr(stats), B, G,
-            O, pw, spec.bits, spec.zero_point, _host_scale(scale), seg_stride,
-            layer_off, int(with_stats))
+    code = 0 if variant == "split" else 1
+    if plan_idx is None:
+        _launch(name, getattr(lib, f"pcilt_gemv_fused_{dt}"), x, _ptr(x),
+                _ptr(tables), _ptr(out), _ptr(stats), B, G, O, pw, spec.bits,
+                spec.zero_point, _host_scale(scale), seg_stride, layer_off,
+                int(with_stats), code)
+    else:
+        _launch(name, getattr(lib, f"pcilt_gemv_plan_{dt}"), x, _ptr(x),
+                _ptr(tables), _ptr(out), _ptr(plan_idx), B, G, O, n, pw,
+                spec.bits, spec.zero_point, _host_scale(scale), code)
+    GEMV_VARIANT_LAUNCHES[variant] += 1
     return (out, *_stats_out(stats)) if with_stats else out
 
 
@@ -329,7 +480,7 @@ def pcilt_fused_gemv_plan(x: torch.Tensor, tables: torch.Tensor,
     ``[B, O]`` in the table dtype: the fused GEMV of a generalized
     ``SegmentPlan``, which gathers ``x`` by the plan before it quantizes,
     packs and fetches.  The plan's bounds are checked once per tensor."""
-    B, n = x.shape
+    n = x.shape[1]
     G, V, O = tables.shape
     if tuple(plan_idx.shape) != (G, group):
         raise ValueError(f"plan_idx shape {tuple(plan_idx.shape)} != (G, "
@@ -343,17 +494,8 @@ def pcilt_fused_gemv_plan(x: torch.Tensor, tables: torch.Tensor,
                          f"an x of width {n}")
     if _on_cpu(x, tables, plan_idx):
         return gemv_plan_plain(x, tables, plan_idx, spec, scale, group)
-    dt = _check_launch("pcilt_fused_gemv_plan", x, tables, plan_idx)
-    if B * G * 4 > 227 * 1024:
-        raise ValueError(f"B*G = {B * G} offsets exceed the shared memory "
-                         f"of one block")
-    out = torch.empty((B, O), dtype=tables.dtype, device=x.device)
-    fn = getattr(build.library(build.KERNELS["gemv_plan"]),
-                 f"pcilt_gemv_plan_{dt}")
-    _launch("gemv_plan", fn, x, _ptr(x), _ptr(tables), _ptr(out),
-            _ptr(plan_idx), B, G, O, n, group, spec.bits, spec.zero_point,
-            _host_scale(scale))
-    return out
+    return _launch_gemv("gemv_plan", x, tables, G, O, group, V * O, 0, spec,
+                        scale, False, plan_idx)
 
 
 # ----------------------------------------------------------------------------

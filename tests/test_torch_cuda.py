@@ -424,3 +424,101 @@ def test_plan_gemv_on_a_permutation_is_kernel9_on_permuted_x(cuda, dtype):
                                 .contiguous(), tabs, spec, 0.2, 2)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+#: kernels 1 and 8-11: the five launches of the fused GEMV source
+GEMV_KINDS = ["gemv_stacked", "fused_gemv", "gemv_paired",
+              "gemv_paired_stacked", "gemv_plan"]
+GEMV_SPLIT_CASES = [  # B, G, O, exact grid
+    (5, 96, 200, False),   # two row chunks (one ragged), O tiles, a cluster
+    (4, 192, 24, False),   # wdt's O: several slots a warp, a cluster in f32
+    (4, 160, 130, True),   # exact grid, a cluster of 8 in f32, ragged O
+]
+
+
+def _gemv_case(kind, dtype, B, G, O, exact, rng):
+    """``(call(device, stats), counters)`` of one fused GEMV launch over
+    seeded tables of ``G`` segments (pairs for the paired launches) and
+    ``O`` columns: 4-bit group 2 (V 256) unpaired, 2-bit group 2 (V 256)
+    paired; integer weights and scale 0.5 on an exact grid."""
+    from repro_torch.core.pcilt import (build_paired_stacked_tables,
+                                        build_paired_tables)
+
+    group, L = 2, 3
+    paired = kind in ("gemv_paired", "gemv_paired_stacked")
+    spec = QuantSpec(2 if paired else 4, True)
+    n = G * (2 * group if paired else group)
+    scale = 0.5 if exact else 0.2
+
+    def weights(*shape):
+        w = (rng.integers(-3, 4, size=shape) if exact
+             else rng.normal(size=shape) * shape[-2] ** -0.5)
+        return torch.from_numpy(w.astype(np.float32))
+
+    x = torch.from_numpy((2 * rng.normal(size=(B, n))).astype(np.float32))
+    if kind == "gemv_stacked":
+        ws = weights(L, n, O)
+        tabs = torch.stack([build_grouped_tables(ws[l], spec, scale, group)
+                            for l in range(L)]).to(dtype)
+        return (lambda dev, stats: ops.pcilt_fused_gemv_stacked(
+            x.to(dev), tabs.to(dev), 1, spec, scale, group,
+            with_stats=stats)), True
+    if kind == "fused_gemv":
+        tabs = build_grouped_tables(weights(n, O), spec, scale,
+                                    group).to(dtype)
+        return (lambda dev, stats: ops.pcilt_fused_gemv(
+            x.to(dev), tabs.to(dev), spec, scale, group)), False
+    if kind == "gemv_paired":
+        tabs = build_paired_tables(weights(n, O), spec, scale,
+                                   group).to(dtype)
+        return (lambda dev, stats: ops.pcilt_fused_gemv_paired(
+            x.to(dev), tabs.to(dev), spec, scale, group,
+            with_stats=stats)), True
+    if kind == "gemv_paired_stacked":
+        stack = build_paired_stacked_tables(weights(L, n, O), spec,
+                                            [scale] * L, group, dtype=dtype)
+        return (lambda dev, stats: ops.pcilt_fused_gemv_paired_stacked(
+            x.to(dev), stack.to(dev), 2, spec, scale, group,
+            with_stats=stats)), True
+    plan, w = _plan_case(rng, n + 3, G, O, exact)
+    tabs = build_grouped_tables(w, spec, scale, group, plan=plan).to(dtype)
+    xp = torch.from_numpy((2 * rng.normal(size=(B, n + 3))).astype(np.float32))
+    return (lambda dev, stats: ops.pcilt_fused_gemv_plan(
+        xp.to(dev), tabs.to(dev), plan.on(dev), spec, scale, group)), False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", GEMV_KINDS)
+@pytest.mark.parametrize("B,G,O,exact", GEMV_SPLIT_CASES)
+def test_fused_gemv_designs_agree_and_are_deterministic(cuda, kind, dtype, B,
+                                                        G, O, exact):
+    """Each of the five fused GEMV launches in both designs: the split
+    design (the default), twice, bit-identical (a fixed summation order, no
+    float atomics), and the kept design forced, both against the plain
+    version: bit-equal on an exact grid, else float32 within 1e-4 of the
+    largest output, bfloat16 within 1e-2 (one rounding of the float32 sum);
+    counters exact; the variant counts say which design served each call."""
+    rng = np.random.default_rng(G + O + GEMV_KINDS.index(kind))
+    call, counters = _gemv_case(kind, dtype, B, G, O, exact, rng)
+    rtol = 0.0 if exact else (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    for stats in ((False, True) if counters else (False,)):
+        want = call("cpu", stats)
+        before = ops.LAUNCHES[kind]
+        seen = dict(ops.GEMV_VARIANT_LAUNCHES)
+        first, again = call(cuda, stats), call(cuda, stats)
+        with ops._gemv_forced("direct"):
+            kept = call(cuda, stats)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[kind] == before + 3
+        assert ops.GEMV_VARIANT_LAUNCHES == {
+            "split": seen["split"] + 2, "direct": seen["direct"] + 1}
+        if stats:
+            (first, fc, fr), (again, ac, ar) = first, again
+            (kept, kc, kr), (want, wc, wr) = kept, want
+            assert int(fc) == int(ac) == int(kc) == int(wc)
+            assert float(fr) == float(ar) == float(kr) == float(wr)
+        assert torch.equal(first, again)
+        _assert_sum_close(first.cpu(), want, rtol)
+        _assert_sum_close(kept.cpu(), want, rtol)
+        _assert_sum_close(first.cpu(), kept.cpu(), rtol)

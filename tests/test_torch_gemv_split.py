@@ -1,0 +1,297 @@
+"""The fused GEMV's split design, host side, on the CPU: the split
+``kernels.ops.gemv_variant`` mirrors (every segment and column covered
+once, slices ascending, shared memory and cluster within the card's
+limits, the block counts at the decode shapes), the wrappers' launches
+(the same split with and without a plan, the design passed, the mirror
+check), and the plain versions behind a forced design.
+
+The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``);
+``kernels.ops`` checks at the library's first launch of each shape that its
+split is this module's mirror of it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.pcilt import build_grouped_tables
+from repro_torch.core.quantization import QuantSpec
+from repro_torch.kernels import build, ops
+
+#: (B, G, O) a decode step launches: mamba2-130m's projections (wz/wx,
+#: wB/wC, wdt, wo), the paired decode's, qwen3-0.6b's gate and down
+#: projections and phase 10's plans; then the card tests' ragged shapes
+DECODE_SHAPES = [(4, 384, 1536), (4, 384, 128), (4, 384, 24), (4, 768, 768),
+                 (4, 192, 1536), (4, 192, 128), (4, 192, 24), (4, 384, 768),
+                 (4, 512, 3072), (4, 1536, 1024), (4, 448, 3072),
+                 (4, 576, 3072)]
+RAGGED_SHAPES = [(3, 5, 24), (1, 7, 130), (5, 96, 200), (4, 160, 130),
+                 (3, 7, 13), (1, 175, 130), (9, 3, 1), (2, 1, 5000)]
+#: (B, G, O) whose split must fill at least 96 SMs (float32), and those
+#: that must use more than one
+FULL = [(4, 384, 1536), (4, 768, 768), (4, 512, 3072), (4, 192, 1536),
+        (4, 384, 768)]
+NARROW = [(4, 384, 128), (4, 384, 24), (4, 192, 128), (4, 192, 24)]
+
+
+def _blocks(split):
+    return split.tiles * split.cluster * split.chunks
+
+
+def _slices(split, G):
+    """``[g0, g1)`` of every slot in slot order (block rank major, then
+    warp, then the slot in its warp), as the split kernel cuts them."""
+    S = split.cluster * split.warps * split.groups
+    return [(s * G // S, (s + 1) * G // S) for s in range(S)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES)
+def test_split_covers_every_segment_and_column_once(itemsize, B, G, O):
+    """Each output tile's slots partition [0, G) into ascending slices, a
+    block's slots cover exactly the segments whose offsets it packs
+    (``[rank*G // cluster, (rank+1)*G // cluster)``), every (segment,
+    column) is summed by exactly one slot, and the row chunks cover B."""
+    sp = ops.gemv_variant(B, G, O, itemsize)
+    nv = ops.GEMV_LANE_BYTES // itemsize
+    slices = _slices(sp, G)
+    S = sp.cluster * sp.warps * sp.groups
+    assert len(slices) == S
+    assert slices[0][0] == 0 and slices[-1][1] == G
+    assert all(a[1] == b[0] and a[0] <= a[1] for a, b in
+               zip(slices, slices[1:]))
+    sb = sp.warps * sp.groups
+    for rank in range(sp.cluster):
+        mine = slices[rank * sb:(rank + 1) * sb]
+        assert (mine[0][0], mine[-1][1]) == (rank * G // sp.cluster,
+                                             (rank + 1) * G // sp.cluster)
+    seen = np.zeros((G, O), np.int32)
+    for t in range(sp.tiles):
+        cols = np.array([t * sp.tile + sl * nv + k for sl in range(sp.lanes)
+                         for k in range(nv)])
+        cols = cols[cols < O]
+        for g0, g1 in slices:
+            seen[g0:g1, cols] += 1
+    assert (seen == 1).all()
+    assert sp.tile == sp.lanes * nv and sp.tiles == -(-O // sp.tile)
+    assert (sp.chunks - 1) * ops.GEMV_ROWS < B <= sp.chunks * ops.GEMV_ROWS
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES)
+def test_split_fits_a_block_and_a_cluster(itemsize, B, G, O):
+    """A block's shared memory fits the card's 227 KB, its warps the
+    declared most, its slots a warp; the cluster is a power of two within
+    the declared limit (16, the non-portable size) and holds no slice
+    under ``GEMV_MIN_SEGS`` segments unless it is a single block."""
+    sp = ops.gemv_variant(B, G, O, itemsize)
+    assert ops.gemv_smem_bytes(sp, G) <= ops.SMEM_LIMIT == 232448
+    assert 1 <= sp.warps <= ops.GEMV_WARPS
+    assert sp.lanes * sp.groups <= 32 and 32 // sp.lanes == sp.groups
+    assert ops.GEMV_MAX_CLUSTER <= 16
+    assert 1 <= sp.cluster <= ops.GEMV_MAX_CLUSTER
+    assert sp.cluster & (sp.cluster - 1) == 0
+    if sp.cluster > 1:
+        assert sp.cluster * sp.warps * sp.groups * ops.GEMV_MIN_SEGS <= G
+
+
+def test_split_shared_memory_layout():
+    """wz in float32: 16-lane slots of 64 columns, two a warp, 8 a block, a
+    cluster of 16 blocks on each of 24 output tiles; a block holds 8 slots
+    of 4 rows x 64 float32 partial sums, then the offsets of 384 / 16
+    segments x 4 rows."""
+    sp = ops.gemv_variant(4, 384, 1536, 4)
+    assert sp == ops.GemvSplit(lanes=16, groups=2, warps=4, cluster=16,
+                               tile=64, tiles=24, chunks=1)
+    assert ops.gemv_smem_bytes(sp, 384) == 8 * 4 * 64 * 4 + 24 * 4 * 4
+
+
+@pytest.mark.parametrize("B,G,O", FULL)
+def test_split_fills_the_card_at_wide_decode_shapes(B, G, O):
+    """wz/wx, wo, the paired wz and wo and qwen3-0.6b's gate: at least 96
+    blocks in float32 (the kept design ran 12, 6, 12, 6 and 24)."""
+    assert _blocks(ops.gemv_variant(B, G, O, 4)) >= 96
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("B,G,O", NARROW)
+def test_split_spreads_narrow_projections(itemsize, B, G, O):
+    """wB/wC (O 128) and wdt (O 24) run on more than one SM in float32
+    (the kept design ran one block), and a 24-column row puts several
+    slots in a warp instead of idling lanes."""
+    sp = ops.gemv_variant(B, G, O, itemsize)
+    if itemsize == 4:
+        assert _blocks(sp) > 1
+    if O == 24:
+        assert sp.groups > 1 and sp.lanes * sp.groups >= 30
+
+
+def test_split_depends_on_the_shape_alone():
+    """The same shape and dtype give the same split, whatever the batch
+    rows within one chunk."""
+    assert ops.gemv_variant(1, 384, 1536, 4) == ops.gemv_variant(4, 384,
+                                                                 1536, 4)
+    assert ops.gemv_variant(5, 384, 1536, 4).chunks == 2
+
+
+class _FakeLibrary:
+    """Stands in for the CUDA library: records each launch's arguments and
+    answers the split queries from the mirror (or from ``plan``)."""
+
+    def __init__(self, plan=None):
+        self.calls = []
+        self.plan = plan
+
+    def pcilt_gemv_split_config(self, cfg):
+        cfg[:] = [ops.GEMV_ROWS, ops.GEMV_WARPS, ops.GEMV_SEG_BATCH,
+                  ops.GEMV_TARGET_BLOCKS, ops.GEMV_MAX_CLUSTER,
+                  ops.GEMV_MIN_SEGS, ops.GEMV_MAX_LANES,
+                  ops.GEMV_LANE_BYTES]
+        return 0
+
+    def pcilt_gemv_split_plan(self, B, G, O, itemsize, out):
+        sp = self.plan or ops.gemv_variant(B, G, O, itemsize)
+        out[:] = [*sp, ops.gemv_smem_bytes(sp, G)]
+        return 0
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers' CUDA branch on CPU tensors: launches go to a
+    :class:`_FakeLibrary`; the counts are this test's own."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(ops, "_call", lambda name, fn, x, *args: fn(*args))
+    monkeypatch.setattr(ops, "_GEMV_CHECKED", set())
+    monkeypatch.setattr(ops, "LAUNCHES", dict.fromkeys(ops.LAUNCHES, 0))
+    monkeypatch.setattr(ops, "GEMV_VARIANT_LAUNCHES",
+                        {"split": 0, "direct": 0})
+    return lib
+
+
+def _fused_args(call):
+    """(entry point, (B, G, O), variant) of a recorded fused or plan
+    launch."""
+    name, args = call
+    if name.startswith("pcilt_gemv_plan"):
+        return name.replace("plan", "*"), args[4:7], args[-1]
+    return name.replace("fused", "*"), args[4:7], args[-1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,O", [(256, 384), (1024, 96), (42, 24)])
+def test_split_is_the_same_with_and_without_a_plan(fake_card, dtype, n, O):
+    """Kernel 11 on a permutation plan and kernel 9 on the permuted x
+    launch with the same (B, G, O), dtype and design, so the library
+    splits them alike and sums them in one order (the card test of the
+    permutation holds them bit-equal)."""
+    from repro_torch.core.offsets import SegmentPlan
+
+    rng = np.random.default_rng(n)
+    spec = QuantSpec(4, True)
+    perm = rng.permutation(n).astype(np.int32)
+    plan = SegmentPlan(perm.reshape(-1, 2))
+    tabs = torch.empty((n // 2, 256, O), dtype=dtype)  # never read
+    x = torch.from_numpy(rng.normal(size=(4, n)).astype(np.float32))
+    ops.pcilt_fused_gemv_plan(x, tabs, plan.on("cpu"), spec, 0.2, 2)
+    ops.pcilt_fused_gemv(x[:, torch.from_numpy(perm).long()].contiguous(),
+                         tabs, spec, 0.2, 2)
+    (pn, pshape, pv), (fn, fshape, fv) = map(_fused_args, fake_card.calls)
+    assert pn == fn == f"pcilt_gemv_*_{ops._TABLE_DTYPES[dtype]}"
+    assert pshape == fshape == (4, n // 2, O) and pv == fv == 0
+    assert ops.LAUNCHES["gemv_plan"] == ops.LAUNCHES["fused_gemv"] == 1
+    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 2, "direct": 0}
+
+
+def test_forced_design_reaches_the_library(fake_card):
+    """Inside ``_gemv_forced("direct")`` each of the five launches passes
+    the kept design's code (1) and counts as "direct"; outside, the split
+    design's (0); ``variant=`` of ``_launch_gemv`` overrides both."""
+    spec = QuantSpec(2, True)
+    x = torch.zeros(4, 8)
+    stack = torch.zeros(3, 2, 256, 5)   # [L, G, V, O] at group 4
+    pairs = torch.zeros(2, 3, 256, 5)   # [G2, L, V2, O] at group 2
+
+    def five():
+        ops.pcilt_fused_gemv_stacked(x, stack, 1, spec, 0.5, 4,
+                                     with_stats=True)
+        ops.pcilt_fused_gemv(x, stack[0], spec, 0.5, 4)
+        ops.pcilt_fused_gemv_paired(x, pairs[:, 0].contiguous(), spec, 0.5,
+                                    2)
+        ops.pcilt_fused_gemv_paired_stacked(x, pairs, 2, spec, 0.5, 2)
+        ops.pcilt_fused_gemv_plan(x, stack[0], torch.arange(
+            8, dtype=torch.int32).reshape(2, 4), spec, 0.5, 4)
+
+    five()
+    with ops._gemv_forced("direct"):
+        five()
+    assert [_fused_args(c)[2] for c in fake_card.calls] == [0] * 5 + [1] * 5
+    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 5, "direct": 5}
+    ops._launch_gemv("fused_gemv", x, stack[0], 2, 5, 4, 256 * 5, 0, spec,
+                     0.5, False, variant="direct")
+    assert _fused_args(fake_card.calls[-1])[2] == 1
+    with pytest.raises(ValueError, match="unknown fused GEMV variant"):
+        ops._launch_gemv("fused_gemv", x, stack[0], 2, 5, 4, 256 * 5, 0,
+                         spec, 0.5, False, variant="staged")
+
+
+def test_a_library_that_splits_otherwise_is_refused(fake_card):
+    """The first launch of a shape asks the library for its split; one
+    that differs from the mirror raises before anything is launched."""
+    mine = ops.gemv_variant(4, 4, 5, 4)
+    assert mine == ops.GemvSplit(2, 16, 1, 1, 8, 1, 1)
+    fake_card.plan = mine._replace(cluster=2)
+    spec = QuantSpec(4, True)
+    with pytest.raises(RuntimeError, match="kernels.ops as"):
+        ops.pcilt_fused_gemv(torch.zeros(4, 8), torch.zeros(4, 256, 5), spec,
+                             0.5, 2)
+    assert fake_card.calls == []
+
+
+def test_a_split_beyond_a_block_is_refused(fake_card):
+    """264 row chunks leave no cluster to split 20000 segments over: their
+    offsets alone need 320 KB of shared memory in one block."""
+    spec = QuantSpec(4, True)
+    x = torch.zeros(1056, 2)
+    sp = ops.gemv_variant(1056, 20000, 8, 4)
+    assert sp.cluster == 1 and ops.gemv_smem_bytes(sp, 20000) > ops.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory a block"):
+        ops._launch_gemv("fused_gemv", x, torch.zeros(1, 256, 8), 20000, 8,
+                         2, 256 * 8, 0, spec, 0.5, False)
+    assert fake_card.calls == []
+
+
+def test_unknown_forced_design_is_refused():
+    with pytest.raises(ValueError, match="unknown fused GEMV variant"):
+        with ops._gemv_forced("staged"):
+            pass
+
+
+@pytest.mark.parametrize("variant", ["split", "direct"])
+def test_a_forced_design_on_the_cpu_runs_the_plain_version(variant):
+    """A design is forced on CUDA tensors only: on CPU tensors each
+    wrapper runs its plain version whatever is forced, and no design is
+    counted."""
+    rng = np.random.default_rng(3)
+    spec, group = QuantSpec(4, True), 2
+    w = torch.from_numpy(rng.normal(size=(2, 24, 13)).astype(np.float32))
+    tabs = torch.stack([build_grouped_tables(w[l], spec, 0.2, group)
+                        for l in range(2)])
+    x = torch.from_numpy(rng.normal(size=(3, 24)).astype(np.float32))
+    seen = dict(ops.GEMV_VARIANT_LAUNCHES)
+    want = ops.gemv_stacked_plain(x, tabs, 1, spec, 0.2, group,
+                                  with_stats=True)
+    with ops._gemv_forced(variant):
+        got = ops.pcilt_fused_gemv_stacked(x, tabs, 1, spec, 0.2, group,
+                                           with_stats=True)
+        plain = ops.pcilt_fused_gemv(x, tabs[1], spec, 0.2, group)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(plain, want[0])
+    assert ops.GEMV_VARIANT_LAUNCHES == seen
