@@ -18,7 +18,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    weights, power-of-two scale) bit-equal; other float32 GEMVs within
    ``|d| <= 1e-4 * max|plain| + 1e-4 * |plain|`` (another summation order
    over up to 3072 rows), bfloat16 within 1e-2 (one bf16 rounding of the
-   float32 sum).  The head runs on a 384-row pool, as the engine's.  The
+   float32 sum).  The head runs on a 384-row pool, as the engine's, at B =
+   4 and 1, in both designs: the split kernel twice, bit-identical and
+   bit-equal to its plain version summed in the split's order, and the kept
+   one forced; ragged pools with pointers out of range.  The
    conv and host-packed kernels (fused_conv2d, shared_conv2d, gemv_host,
    conv2d_host) run the paper CNN's five layer shapes on a 64x48 image and
    ragged shapes (stride 2, symmetric 4-bit, group 2 with odd C, O = 13,
@@ -32,7 +35,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    and fused GEMVs the parity probe's and qwen3-0.6b's MLP shapes, the
    host-packed dwconv the single-layer signal's offsets, each with a
    ragged case (odd G with its phantom segment, O = 13, offsets out of
-   range); the plan GEMV (kernel 11) qwen3-0.6b's gate under phase 10's
+   range; the host-packed dwconv in both designs, the staged one twice);
+   the plan GEMV (kernel 11) qwen3-0.6b's gate under phase 10's
    permutation plan, an exact grid with a -1 slot and a reused position,
    and a ragged plan (odd G, n != G*group, O = 13);
 4. timing: each kernel at its main path's shapes — its device time, the
@@ -50,13 +54,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    from the SM count and ``clocks.max.sm``); their plain versions on a
    64x48 crop.  The fused GEMVs run every shape a decode step launches
    (kernel 1 at the five projections, kernel 8 at the paired decode's
-   five), the split design beside the kept one forced (``direct_ms``);
+   five), the split design beside the kept one forced (``direct_ms``), as
+   are the head (at B = 4 and B = 1, each beside matmul at its batch) and
+   the host-packed dwconv (float32 and bfloat16 tables);
 5. serving: ``Engine(mamba2-130m full width and depth, slots=4,
    pcilt=True)`` with float32 tables converts (calibrate, build, CRC
    record, verify at load) and serves 4 requests of 8 new tokens; prints
    conversion seconds, table bytes, the head pool's bytes, peak memory,
    step time, tokens/s and the launches per step of each kernel (must be
-   144 / 24 / 1, every fused GEMV through the split design), then checks
+   144 / 24 / 1, every fused GEMV and head launch through its split
+   design), then checks
    one decode step's logits against the dense fake-quant oracle (every
    layer and the head demoted, so no kernel runs on the oracle's side),
    and times one B = 4 step with its device time, in the split design and
@@ -79,7 +86,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``convert_mamba_decode(paired=True)`` and served by
    ``Engine(pcilt_bundle=...)`` (4 requests of 8 new tokens, sentinel on;
    144 / 24 / 1 launches of the paired stacked GEMV, the dwconv and the
-   head per step, every fused GEMV through the split design); conversion
+   head per step, every fused GEMV and head launch through its split
+   design); conversion
    seconds, table bytes, peak memory, the oracle check of phase 5, and the
    median of three B = 4 steps dense, unpaired (kernel 1) and paired
    (kernel 8) with each step's device time, the PCILT steps again with the
@@ -94,7 +102,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    the dense product on the quantized grid, and ``convert_dwconv`` ->
    ``PCILTDwConv1d(path="kernel")`` on mamba2-130m's conv frontend (C 1792,
    k 4, 2-bit) over a [4, 2048, 1792] signal against the fused path and
-   its plain version;
+   its plain version, through kernel 12's staged design;
 10. the paper's extensions 1-3 at qwen3-0.6b's gate width (1024 -> 3072,
     4-bit, group 2, float32 tables, one set at a time): three generalized
     SegmentPlans (``perm``, a seeded permutation into 512 non-adjacent
@@ -107,7 +115,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     across the three; ``log_mul_fn`` tables (extension 2) through kernel 9
     against the gather path and the direct sum; scalar ``SharedTables`` of
     the 4-bit-quantized gate (extension 3) through ``path="shared"``
-    (kernel 3 at group 1) against ``materialize()`` and the dense product;
+    (kernel 3 at group 1, its split design) against ``materialize()`` and
+    the dense product;
 11. learnable tables (extension 4): ``launch.learnable_pcilt.run()``, every
     granularity's loss falling and finite and within 1e-4 of the same run
     on the CPU, each trained table served through kernel 6 equal to the
@@ -168,6 +177,11 @@ SOURCES = {
 #: split design and its kept ("direct") one
 GEMV_SPLIT_KERNEL = "gemv_split_kernel"
 GEMV_DIRECT_KERNEL = "gemv_direct_kernel"
+#: the shared-pool head's split design and its kept one; the host-packed
+#: dwconv's staged design and its kept one
+SHARED_SPLIT_KERNEL = "shared_split_kernel"
+SHARED_DIRECT_KERNEL = "shared_gemv_kernel"
+DWCONV_STAGED_KERNEL = "dwconv1d_staged_kernel"
 #: the staged conv design's two launches (code pre-pass, fetch), and the
 #: kept design's one
 STAGED_KERNELS = ("conv2d_codes_kernel", "conv2d_staged_kernel")
@@ -369,6 +383,44 @@ def gemv_designs(torch, ops, run):
     return got, kept
 
 
+def head_designs(torch, ops, x, pool, idx, spec, scale, group):
+    """Kernel 3 in both designs: the split design twice, which must give
+    the same bits and equal the plain version summed in the split's order
+    (the same float32 adds), and the kept design forced; the variant
+    counts must say which ran.  -> (split result, kept result)."""
+    seen = dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)
+    got = ops.pcilt_shared_gemv(x, pool, idx, spec, scale, group)
+    again = ops.pcilt_shared_gemv(x, pool, idx, spec, scale, group)
+    kept = ops._shared_gemv(x, pool, idx, spec, scale, group,
+                            variant="direct")
+    ordered = ops.shared_gemv_plain(x, pool, idx, spec, scale, group,
+                                    split_order=True)
+    torch.cuda.synchronize()
+    diff = {v: c - seen[v]
+            for v, c in ops.SHARED_GEMV_VARIANT_LAUNCHES.items()}
+    require(diff == {"split": 2, "direct": 1},
+            f"the head's designs ran {diff}, not split 2, direct 1")
+    require(torch.equal(got, again), "two launches of the split head differ")
+    require(torch.equal(got, ordered), "the split head differs from its "
+            "plain version summed in the split's order")
+    return got, kept
+
+
+def dwconv_host_designs(torch, ops, off, tabs):
+    """Kernel 12 in both designs: the staged design twice and the kept
+    design forced, the variant counts saying which ran.  -> the three
+    results."""
+    seen = dict(ops.DWCONV_HOST_VARIANT_LAUNCHES)
+    runs = (ops.pcilt_dwconv1d(off, tabs), ops.pcilt_dwconv1d(off, tabs),
+            ops._dwconv1d_host(off, tabs, variant="direct"))
+    torch.cuda.synchronize()
+    diff = {v: c - seen[v]
+            for v, c in ops.DWCONV_HOST_VARIANT_LAUNCHES.items()}
+    require(diff == {"staged": 2, "direct": 1},
+            f"the host dwconv's designs ran {diff}, not staged 2, direct 1")
+    return runs
+
+
 def kept_design(ops, calls):
     """``calls`` with the kept fused GEMV design forced."""
     def forced(call):
@@ -469,7 +521,8 @@ def check_kernels(torch, ops, core, report):
 
     # -- shared-pool head: [4, 768] x, G = 384, O = 50288 (ragged), the
     #    engine's pool of 384 distinct segments (18.4 GiB in float32), f32 +
-    #    bf16 + exact grid; ragged, with each segment twice (X = G / 2)
+    #    bf16 + exact grid, and at B = 1; ragged, with each segment twice
+    #    (X = G / 2) and two pointers out of range; both designs
     for what, rows_, G, O, dt, exact, dup in [
             ("head B4 G384 X384 O50288", B, 384, 50288, torch.float32,
              False, False),
@@ -477,7 +530,12 @@ def check_kernels(torch, ops, core, report):
              torch.bfloat16, False, False),
             ("head B4 G384 X384 O50288 exact grid", B, 384, 50288,
              torch.float32, True, False),
-            ("ragged B2 G6 X3 O7", 2, 6, 7, torch.float32, False, True)]:
+            ("head B1 G384 X384 O50288", 1, 384, 50288, torch.float32,
+             False, False),
+            ("ragged B2 G6 X3 O7, pointers out of range", 2, 6, 7,
+             torch.float32, False, True),
+            ("ragged B3 G8 X4 O13 bf16, pointers out of range", 3, 8, 13,
+             torch.bfloat16, False, True)]:
         x, scale = x_and_scale(G * group, rows_)
         n_blk = (G // 2 if dup else G) * group
         if exact:
@@ -493,13 +551,16 @@ def check_kernels(torch, ops, core, report):
         del shared, blocks
         require(pool.shape[0] == (G // 2 if dup else G),
                 f"{what}: pool has {pool.shape[0]} rows")
-        got = ops.pcilt_shared_gemv(x, pool, idx, spec, scale, group)
+        if dup:
+            idx = idx.clone()
+            idx[0], idx[-1] = -1, pool.shape[0] + 2
         want = ops.shared_gemv_plain(x, pool, idx, spec, scale, group)
-        torch.cuda.synchronize()
         rtol = 1e-2 if dt == torch.bfloat16 else 1e-4
-        mx, ok = close(torch, got, want, rtol, exact)
-        record("shared_gemv", what, mx, ok,
-               "exact" if exact else f"rtol {rtol}")
+        for design, got in zip(("", " kept design"), head_designs(
+                torch, ops, x, pool, idx, spec, scale, group)):
+            mx, ok = close(torch, got, want, rtol, exact)
+            record("shared_gemv", what + design, mx, ok,
+                   "exact" if exact else f"rtol {rtol}")
         del pool
     check_conv_kernels(torch, ops, record, gen)
     check_slice3_kernels(torch, ops, record, gen)
@@ -752,24 +813,26 @@ def check_slice3_kernels(torch, ops, record, gen):
              False)
         del tabs
 
-    # -- host-packed dwconv (#12): the single-layer signal's offsets
+    # -- host-packed dwconv (#12): the single-layer signal's offsets, both
+    #    designs (the staged one twice), offsets out of range
     for what, shape, V, dt in [
             (f"B4 T{CONV_T} C{CONV_C} V256", (B, CONV_T, CONV_C), 256,
              torch.float32),
             (f"B4 T{CONV_T} C{CONV_C} V256 bf16", (B, CONV_T, CONV_C), 256,
              torch.bfloat16),
-            ("ragged B3 T9 C33 V16, offsets out of range", (3, 9, 33), 16,
-             torch.float32)]:
+            ("ragged B3 T9 C33 V16", (3, 9, 33), 16, torch.float32),
+            ("ragged B2 T5 C20 V64 bf16", (2, 5, 20), 64, torch.bfloat16)]:
         tabs = torch.randn(shape[-1], V, generator=gen, device=dev).to(dt)
         off = torch.randint(0, V, shape, generator=gen, device=dev,
                             dtype=torch.int32)
         off[0, 0, 0], off[-1, -1, -1] = -1, V + 3
-        got = ops.pcilt_dwconv1d(off, tabs)
         want = pcilt_dwconv1d_ref(off, tabs)
-        torch.cuda.synchronize()
-        mx, ok = close(torch, got, want, 0.0, exact=True)
-        record("dwconv1d_host", what, mx, ok and float(got[0, 0, 0]) == 0.0,
-               "exact")
+        for design, got in zip(("", " again", " kept design"),
+                               dwconv_host_designs(torch, ops, off, tabs)):
+            mx, ok = close(torch, got, want, 0.0, exact=True)
+            record("dwconv1d_host", f"{what}, offsets out of range{design}",
+                   mx, ok and float(got[0, 0, 0]) == 0.0
+                   and float(got[-1, -1, -1]) == 0.0, "exact")
 
 
 def qwen_plans(torch, w):
@@ -964,31 +1027,38 @@ def time_kernels(torch, ops, core, report):
     del tabs
 
     # -- shared-pool head: the engine's pool of 384 distinct segments
-    #    (18.4 GiB), x rotating over 4 inputs
+    #    (18.4 GiB), x rotating over 4 inputs; at B = 4 (the engine's) and
+    #    B = 1, each beside the kept design forced and matmul at its batch
     G, O = 384, 50288
     blocks = torch.randn(G * group, O, generator=gen, device=dev) * 0.05
-    xs = [torch.randn(B, G * group, generator=gen, device=dev)
-          for _ in range(4)]
-    scale = scale_for(xs[0])
+    scale = scale_for(torch.randn(B, G * group, generator=gen, device=dev))
     shared = core.build_shared_grouped_tables(blocks, spec, scale, group)
     pool, idx = shared.pool, shared.seg_idx
     X = pool.shape[0]
     require(X == G, f"head pool has {X} rows, the engine's {G}")
     kq = torch.randn(G * group, O, generator=gen, device=dev) * 0.05
-    rows_ = 0
-    for x in xs:
-        o = pack_offsets(quantize(x, spec, scale), spec.bits, group)
-        rows_ += len(torch.unique(idx.long()[None] * 256 + o.long()))
-    bound = (rows_ / len(xs) * O * 4 + xs[0].numel() * 4 + G * 4
-             + B * O * 4) / HBM_BYTES_PER_S * 1e3
-    xqs = [fake_quant(x, spec, scale) for x in xs]
-    lib = timed([lambda q=q: torch.matmul(q, kq) for q in xqs] * 4)
-    k = timed([lambda x=x: ops.pcilt_shared_gemv(
-        x, pool, idx, spec, scale, group) for x in xs] * 4,
-        "shared_gemv_kernel")
-    p = timed([lambda x=x: ops.shared_gemv_plain(
-        x, pool, idx, spec, scale, group) for x in xs] * 2)
-    add("head", "shared_gemv", [X, 256, O], k, p, lib, bound, 1)
+    for key, rows_n in (("head", B), ("head B1", 1)):
+        xs = [torch.randn(rows_n, G * group, generator=gen, device=dev)
+              for _ in range(4)]
+        cells = 0
+        for x in xs:
+            o = pack_offsets(quantize(x, spec, scale), spec.bits, group)
+            cells += len(torch.unique(idx.long()[None] * 256 + o.long()))
+        bound = (cells / len(xs) * O * 4 + xs[0].numel() * 4 + G * 4
+                 + rows_n * O * 4) / HBM_BYTES_PER_S * 1e3
+        xqs = [fake_quant(x, spec, scale) for x in xs]
+        lib = timed([lambda q=q: torch.matmul(q, kq) for q in xqs] * 4)
+        calls = [lambda x=x: ops.pcilt_shared_gemv(
+            x, pool, idx, spec, scale, group) for x in xs] * 4
+        k = timed(calls, SHARED_SPLIT_KERNEL)
+        d = timed([lambda x=x: ops._shared_gemv(
+            x, pool, idx, spec, scale, group, variant="direct")
+            for x in xs] * 4, SHARED_DIRECT_KERNEL)
+        p = timed([lambda x=x: ops.shared_gemv_plain(
+            x, pool, idx, spec, scale, group) for x in xs] * 2)
+        add(key, "shared_gemv", [X, 256, O], k, p, lib, bound,
+            1 if rows_n == B else 0, d)
+        rows[key]["batch"] = rows_n
     del pool, shared, blocks, flush
     report["timing"] = rows
     return rows
@@ -1125,9 +1195,9 @@ def time_slice3_kernels(torch, ops, report, rows):
         lib, nbytes, B * (n // (2 * group)) * O, 1, "probe", d)
     del tabs, w
 
-    # -- #12: the single-layer signal's offsets, [4, 2048, 1792], V = 256
+    # -- #12: the single-layer signal's offsets, [4, 2048, 1792], V = 256,
+    #    float32 and bfloat16 tables, beside the kept design forced
     V = 1 << (spec2.bits * CONV_K)
-    tabs = torch.randn(CONV_C, V, generator=gen, device=dev)
     x = torch.randn(B, CONV_T + CONV_K - 1, CONV_C, generator=gen, device=dev)
     codes = quantize(x, spec2, float(scale_from_amax(x.abs().max(), spec2)))
     codes = codes.int()
@@ -1135,13 +1205,22 @@ def time_slice3_kernels(torch, ops, report, rows):
               for j in range(CONV_K)).contiguous()
     idx = (torch.arange(CONV_C, device=dev) * V + off.long()).contiguous()
     cells = len(torch.unique(idx))
-    nbytes = cells * 4 + off.numel() * 4 + off.numel() * 4
-    lib = timed([lambda: torch.take(tabs, idx)] * 4)
-    k = timed([lambda: ops.pcilt_dwconv1d(off, tabs)] * 4, DWCONV_HOST_KERNEL)
-    p = timed([lambda: pcilt_dwconv1d_ref(off, tabs)] * 2)
-    add("dwconv1d_host signal", "dwconv1d_host", [B, CONV_T, CONV_C, V], k, p,
-        lib, nbytes, 0, 1, "layer call")
-    del tabs, x, off, idx, flush
+    for key, dt in (("dwconv1d_host signal", torch.float32),
+                    ("dwconv1d_host signal bf16", torch.bfloat16)):
+        tabs = torch.randn(CONV_C, V, generator=gen, device=dev).to(dt)
+        es = tabs.element_size()
+        nbytes = cells * es + off.numel() * 4 + off.numel() * es
+        lib = timed([lambda: torch.take(tabs, idx)] * 4)
+        k = timed([lambda: ops.pcilt_dwconv1d(off, tabs)] * 4,
+                  DWCONV_STAGED_KERNEL)
+        d = timed([lambda: ops._dwconv1d_host(off, tabs, variant="direct")]
+                  * 4, DWCONV_HOST_KERNEL)
+        p = timed([lambda: pcilt_dwconv1d_ref(off, tabs)] * 2)
+        add(key, "dwconv1d_host", [B, CONV_T, CONV_C, V], k, p, lib, nbytes,
+            0, 1 if dt == torch.float32 else 0, "layer call", d)
+        rows[key]["variant"] = "staged"
+        del tabs
+    del x, off, idx, flush
 
 
 def time_plan_kernel(torch, ops, report, rows):
@@ -1450,6 +1529,9 @@ def serve(torch, ops, report):
     designs = dict(ops.GEMV_VARIANT_LAUNCHES)
     require(designs == {"split": launches["gemv_stacked"], "direct": 0},
             f"the main path's fused GEMVs ran the designs {designs}")
+    head_d = dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)
+    require(head_d == {"split": launches["shared_gemv"], "direct": 0},
+            f"the main path's head ran the designs {head_d}")
     report["serve"] = {"setup_s": setup_s, "convert": conv,
                        "peak_bytes": peak, "steps": steps,
                        "median_step_s": med, "step_seconds": eng.step_seconds,
@@ -1458,7 +1540,7 @@ def serve(torch, ops, report):
                        "table_bytes": eng.pdecode.table_bytes(),
                        "head_pool_bytes": head_bytes,
                        "outputs": [r.out for r in reqs],
-                       "gemv_designs": designs}
+                       "gemv_designs": designs, "head_designs": head_d}
     oracle_check(torch, ops, eng, report)
     gen = torch.Generator(device="cuda").manual_seed(9)
     cache = {"layers": {k: torch.randn(t.shape, generator=gen,
@@ -1733,6 +1815,9 @@ def _step_times(torch, ops, step, reps=3):
     designs = {k: v for k, v in ops.GEMV_VARIANT_LAUNCHES.items() if v}
     if designs:
         launches["designs"] = designs
+    head = {k: v for k, v in ops.SHARED_GEMV_VARIANT_LAUNCHES.items() if v}
+    if head:
+        launches["head_designs"] = head
     dev_us = sum(t for _, t in _profile(torch, step).values())
     return statistics.median(secs), launches, dev_us / 1e6
 
@@ -1764,6 +1849,8 @@ def step_compare(torch, ops, model, params, cache, tok, variants, want):
                             if k in GEMV_LAUNCHES)
                 if gemvs:
                     expect["designs"] = {"direct" if kept else "split": gemvs}
+                if expect.get("shared_gemv"):
+                    expect["head_designs"] = {"split": expect["shared_gemv"]}
                 require(ln == expect, f"{key} step launches {ln}, not "
                         f"{expect}")
     return cmp
@@ -1849,6 +1936,9 @@ def serve_paired(torch, ops, report):
     require(designs == {"split": launches["gemv_paired_stacked"],
                         "direct": 0},
             f"the paired path's fused GEMVs ran the designs {designs}")
+    head_d = dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)
+    require(head_d == {"split": launches["shared_gemv"], "direct": 0},
+            f"the paired path's head ran the designs {head_d}")
     require(stats["table_bytes"] == tbytes, "engine and bundle table bytes "
             "differ")
     out.update(convert=conv, table_bytes=tbytes, head_pool_bytes=head_bytes,
@@ -1856,7 +1946,8 @@ def serve_paired(torch, ops, report):
                median_step_s=med, step_seconds=eng.step_seconds,
                launches=launches, launches_per_step=per_step,
                saturation=stats.get("saturation"),
-               outputs=[r.out for r in reqs])
+               outputs=[r.out for r in reqs], gemv_designs=designs,
+               head_designs=head_d)
     report["serve_paired"] = out
     oracle_check(torch, ops, eng, report, "paired_oracle")
 
@@ -2016,6 +2107,7 @@ def single_layers(torch, ops, report):
         yk = lay(sig, path="kernel")
         torch.cuda.synchronize()
         dl = {k: v for k, v in ops.LAUNCHES.items() if v}
+        dl_designs = dict(ops.DWCONV_HOST_VARIANT_LAUNCHES)
         yf = lay(sig, path="fused")
         # CAUSAL: k - 1 code-0 rows in front, as the host-packed path pads
         codes = F.pad(quantize(sig, spec2, s).int(), (0, 0, CONV_K - 1, 0))
@@ -2035,9 +2127,12 @@ def single_layers(torch, ops, report):
                 "version")
         require(dl == {"dwconv1d_host": 1},
                 f"the dwconv layer did not run through kernel 12: {dl}")
+        require(dl_designs == {"staged": 1, "direct": 0},
+                f"the dwconv layer ran kernel 12's designs {dl_designs}")
         out["dwconv"] = {"table_bytes": lay.table_bytes(),
                          "equal_fused_past_edge": edge,
-                         "equal_plain": exact, "launches": dl}
+                         "equal_plain": exact, "launches": dl,
+                         "designs": dl_designs}
     report["single_layers"] = out
     return {**launches, **dl}
 
@@ -2075,6 +2170,8 @@ def plans_and_extensions(torch, ops, report):
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     out = {"plans": {}}
 
+    head = {"split": 0, "direct": 0}
+
     def counted(fn):
         """Run one call of the path, its launches counted from 0."""
         ops.reset_launches()
@@ -2082,6 +2179,8 @@ def plans_and_extensions(torch, ops, report):
         torch.cuda.synchronize()
         for k, v in ops.LAUNCHES.items():
             launches[k] += v
+        for k, v in ops.SHARED_GEMV_VARIANT_LAUNCHES.items():
+            head[k] += v
         return res
 
     def within(what, got, want, ref):
@@ -2214,7 +2313,10 @@ def plans_and_extensions(torch, ops, report):
     require(seen == {"gemv_plan": 4, "gemv_host": 4, "fused_gemv": 1,
                      "shared_gemv": 1},
             f"phase 10 did not run through kernels 11, 6, 9 and 3: {seen}")
+    require(head == {"split": 1, "direct": 0},
+            f"phase 10's shared tables ran kernel 3's designs {head}")
     out["launches"] = seen
+    out["head_designs"] = head
     report["plans"] = out
     return seen
 

@@ -53,9 +53,9 @@ _SIGNATURES = {
                         _P],
     "pcilt_dwconv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                        _P],
-    "pcilt_dwconv1d_host": [_P, _P, _P, _LL, _I, _I, _P],
+    "pcilt_dwconv1d_host": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "pcilt_shared_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                          _P],
+                          _I, _P],
     "pcilt_fused_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],
     "pcilt_shared_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],
     "pcilt_fused_conv2d_staged": [_P, _P, _P, _P] + [_I] * 15 + [_P],
@@ -69,6 +69,10 @@ _CONFIG_SIGNATURES = {
     "pcilt_conv2d_staged_config": [_P],
     "pcilt_gemv_split_config": [_P],
     "pcilt_gemv_split_plan": [_I, _I, _I, _I, _P],
+    "pcilt_shared_gemv_split_config": [_P],
+    "pcilt_shared_gemv_split_plan": [_I, _I, _I, _I, _P],
+    "pcilt_dwconv1d_staged_config": [_P],
+    "pcilt_dwconv1d_staged_plan": [_LL, _I, _I, _I, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -104,6 +104,44 @@ __host__ __forceinline__ dim3 fetch_block(int O) {
   return dim3(to, ty < 1 ? 1 : ty);
 }
 
+// ---------------------------------------------------------------------------
+// Wide loads of table cells: a lane loads VB raw bytes (the widest that the
+// table's alignment allows) and adds the cells they hold to float32 sums.
+template <int VB> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<4> { using type = unsigned int; };
+template <> struct RawOf<2> { using type = unsigned short; };
+
+__device__ __forceinline__ unsigned word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ unsigned word(const uint2& v, int i) {
+  return i == 0 ? v.x : v.y;
+}
+__device__ __forceinline__ unsigned word(unsigned v, int) { return v; }
+
+// acc[0 .. VB/itemsize) += the table cells in the VB raw bytes v (bf16 is
+// the upper half of a float32, so its conversion is a shift).
+template <typename T, int VB>
+__device__ __forceinline__ void add_raw(float* acc,
+                                        const typename RawOf<VB>::type& v) {
+  if constexpr (VB == 2) {
+    acc[0] += __uint_as_float((unsigned)v << 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VB / 4; ++i) {
+      const unsigned w = word(v, i);
+      if constexpr (sizeof(T) == 4) {
+        acc[i] += __uint_as_float(w);
+      } else {
+        acc[2 * i] += __uint_as_float(w << 16);
+        acc[2 * i + 1] += __uint_as_float(w & 0xffff0000u);
+      }
+    }
+  }
+}
+
 // Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
 template <typename Kernel>
 __host__ cudaError_t allow_smem(Kernel kernel, size_t smem) {

@@ -147,40 +147,8 @@ __host__ __device__ inline size_t split_smem_bytes(const Split& s, int G) {
          seg * kRows * sizeof(int);
 }
 
-template <int VB> struct RawOf;
-template <> struct RawOf<16> { using type = uint4; };
-template <> struct RawOf<8> { using type = uint2; };
-template <> struct RawOf<4> { using type = unsigned int; };
-template <> struct RawOf<2> { using type = unsigned short; };
-
-__device__ __forceinline__ unsigned word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ unsigned word(const uint2& v, int i) {
-  return i == 0 ? v.x : v.y;
-}
-__device__ __forceinline__ unsigned word(unsigned v, int) { return v; }
-
-// acc[0 .. VB/itemsize) += the table cells in the VB raw bytes v (bf16 is
-// the upper half of a float32, so its conversion is a shift).
-template <typename T, int VB>
-__device__ __forceinline__ void add_raw(float* acc,
-                                        const typename RawOf<VB>::type& v) {
-  if constexpr (VB == 2) {
-    acc[0] += __uint_as_float((unsigned)v << 16);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VB / 4; ++i) {
-      const unsigned w = word(v, i);
-      if constexpr (sizeof(T) == 4) {
-        acc[i] += __uint_as_float(w);
-      } else {
-        acc[2 * i] += __uint_as_float(w << 16);
-        acc[2 * i + 1] += __uint_as_float(w & 0xffff0000u);
-      }
-    }
-  }
-}
+using pcilt::add_raw;
+using pcilt::RawOf;
 
 template <typename T, int VB, bool COUNTERS, bool PLAN>
 __global__ void __launch_bounds__(32 * kWarps)

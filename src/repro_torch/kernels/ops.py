@@ -33,6 +33,17 @@ launch takes ``"split"``; :func:`gemv_variant` mirrors its split and
 takes ``variant=``, and :func:`_gemv_forced` forces a design for the
 launches inside it (tests and ``chip_smoke.py``); neither falls back to the
 other.
+
+The shared-pool GEMV (kernel 3, ``csrc/pcilt_shared_gemv.cu``) comes in a
+``"split"`` design (4 KB row pieces, the segment loop split over a
+thread-block cluster; :func:`shared_gemv_variant` mirrors it) and the kept
+``"direct"`` one; the host-packed dwconv (kernel 12,
+``csrc/pcilt_dwconv1d.cu``) in a ``"staged"`` design (the table slice in
+shared memory, the offsets streamed; :func:`dwconv_host_tiling` mirrors it)
+and the kept ``"direct"`` one.  :data:`SHARED_GEMV_VARIANT_LAUNCHES` and
+:data:`DWCONV_HOST_VARIANT_LAUNCHES` count which ran; ``_shared_gemv`` and
+``_dwconv1d_host`` take ``variant=`` to force either on a CUDA tensor;
+neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -52,8 +63,8 @@ from repro_torch.core.quantization import QuantSpec, quantize, quantize_with_sta
 from repro_torch.core.lut_layers import (_conv_pads, _dwconv_pads,
                                          conv_offsets, pad_nhwc)
 from . import build
-from .ref import (dense_rows, fetch_sum, pcilt_dwconv1d_ref,
-                  pcilt_gemv_ref, pool_rows)
+from .ref import (dense_rows, fetch_sum, fetch_sum_sliced,
+                  pcilt_dwconv1d_ref, pcilt_gemv_ref, pool_rows)
 
 __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "pcilt_fused_gemv_stacked", "pcilt_fused_gemv_paired",
@@ -67,7 +78,10 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "CONV_VARIANT_LAUNCHES", "conv_variant", "staged_smem_bytes",
            "staged_tiles", "staged_block_tile", "conv_codes_plain",
            "GEMV_VARIANT_LAUNCHES", "GemvSplit", "gemv_variant",
-           "gemv_smem_bytes"]
+           "gemv_smem_bytes", "SHARED_GEMV_VARIANT_LAUNCHES", "SharedSplit",
+           "shared_gemv_variant", "shared_gemv_smem_bytes",
+           "shared_gemv_slices", "DWCONV_HOST_VARIANT_LAUNCHES",
+           "DwconvTiling", "dwconv_host_variant", "dwconv_host_tiling"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -81,9 +95,17 @@ CONV_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
 #: fused GEMV design -> number of fused GEMV launches it served on CUDA
 GEMV_VARIANT_LAUNCHES: Dict[str, int] = {"split": 0, "direct": 0}
 
+#: shared-pool GEMV design -> number of its launches on CUDA
+SHARED_GEMV_VARIANT_LAUNCHES: Dict[str, int] = {"split": 0, "direct": 0}
+
+#: host-packed dwconv design -> number of its launches on CUDA
+DWCONV_HOST_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
+
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CONV_VARIANT_LAUNCHES, GEMV_VARIANT_LAUNCHES):
+    for counts in (LAUNCHES, CONV_VARIANT_LAUNCHES, GEMV_VARIANT_LAUNCHES,
+                   SHARED_GEMV_VARIANT_LAUNCHES,
+                   DWCONV_HOST_VARIANT_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -549,9 +571,74 @@ def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
     return (out, *_stats_out(stats)) if with_stats else out
 
 
+#: the staged host-packed dwconv's constants (``kDw*`` of
+#: pcilt_dwconv1d.cu; the library's own are checked against these at its
+#: first launch): channels a block, threads a block, row passes a load
+#: batch, the blocks the tiling aims for
+DW_CHANS, DW_THREADS, DW_UNROLL, DW_TARGET_BLOCKS = 32, 256, 2, 396
+
+
+class DwconvTiling(NamedTuple):
+    """The staged dwconv's grid over ``M`` rows and ``C`` channels
+    (``dw_tiling`` of pcilt_dwconv1d.cu): block ``i`` owns channels
+    ``[(i % tiles) * DW_CHANS, ...)`` and rows ``[M*k // groups, M*(k+1) //
+    groups)`` of row group ``k = i // tiles``; ``smem`` bytes of shared
+    memory hold its slice of the table."""
+    tiles: int   # channel tiles
+    groups: int  # row groups
+    smem: int    # shared-memory bytes a block
+
+
+def dwconv_host_tiling(M: int, C: int, V: int, itemsize: int) -> DwconvTiling:
+    """The staged dwconv's tiling of ``M`` rows of ``C`` channels over a
+    table of ``V`` ``itemsize``-byte cells a channel: as many row groups as
+    bring the grid to ``DW_TARGET_BLOCKS`` (at most ``M``)."""
+    tiles = -(-C // DW_CHANS)
+    groups = max(1, min(DW_TARGET_BLOCKS // tiles, M))
+    return DwconvTiling(tiles, groups, DW_CHANS * V * itemsize)
+
+
+def dwconv_host_variant(V: int, itemsize: int) -> str:
+    """``"staged"`` while a block's table slice of ``V`` ``itemsize``-byte
+    cells a channel fits its shared memory, else ``"direct"``."""
+    return "staged" if DW_CHANS * V * itemsize <= SMEM_LIMIT else "direct"
+
+
+_DW_CHECKED = set()
+
+
+def _check_dwconv_tiling(lib, M: int, C: int, V: int, itemsize: int,
+                         tiling: DwconvTiling) -> None:
+    """The library's staged constants, and its tiling of this shape, must
+    be this module's mirror of them (each shape checked once)."""
+    if not _DW_CHECKED:
+        cfg = (ctypes.c_int * 4)()
+        lib.pcilt_dwconv1d_staged_config(cfg)
+        mine = (DW_CHANS, DW_THREADS, DW_UNROLL, DW_TARGET_BLOCKS)
+        if tuple(cfg) != mine:
+            raise RuntimeError(f"pcilt_dwconv1d.cu's staged constants "
+                               f"{tuple(cfg)} differ from kernels.ops' {mine}")
+        _DW_CHECKED.add("config")
+    key = (M, C, V, itemsize)
+    if key in _DW_CHECKED:
+        return
+    got = (ctypes.c_int * 3)()
+    lib.pcilt_dwconv1d_staged_plan(M, C, V, itemsize, got)
+    if tuple(got) != tuple(tiling):
+        raise RuntimeError(f"pcilt_dwconv1d.cu tiles M {M}, C {C}, V {V} as "
+                           f"{tuple(got)}, kernels.ops as {tuple(tiling)}")
+    _DW_CHECKED.add(key)
+
+
 def pcilt_dwconv1d(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """offsets ``[B, T, C]`` int32 (packed by the caller), tables ``[C, V]``
     -> ``[B, T, C]`` in the table dtype: one fetch per output."""
+    return _dwconv1d_host(offsets, tables)
+
+
+def _dwconv1d_host(offsets, tables, variant=None):
+    """:func:`pcilt_dwconv1d`, with ``variant`` forcing a design on a CUDA
+    tensor (else :func:`dwconv_host_variant`'s)."""
     if offsets.dim() != 3:
         raise ValueError(f"offsets must be [B, T, C], got "
                          f"{tuple(offsets.shape)}")
@@ -565,12 +652,27 @@ def pcilt_dwconv1d(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     if _on_cpu(offsets, tables):  # the plain version: kernels.ref's
         return pcilt_dwconv1d_ref(offsets, tables)
     dt = _check_tables("pcilt_dwconv1d", tables, offsets)
+    es = tables.element_size()
+    fits = dwconv_host_variant(V, es)
+    variant = variant or fits
+    if variant not in DWCONV_HOST_VARIANT_LAUNCHES:
+        raise ValueError(f"pcilt_dwconv1d: unknown variant {variant!r}")
+    if variant == "staged" and fits != "staged":
+        raise ValueError(f"pcilt_dwconv1d: a V = {V} table slice needs "
+                         f"{DW_CHANS * V * es} B of shared memory a block (at"
+                         f" most {SMEM_LIMIT}) and cannot be staged")
     out = torch.empty(offsets.shape, dtype=tables.dtype,
                       device=offsets.device)
     if out.numel():
-        fn = getattr(build.library("dwconv1d"), f"pcilt_dwconv1d_host_{dt}")
-        _launch("dwconv1d_host", fn, offsets, _ptr(offsets), _ptr(tables),
-                _ptr(out), out.numel(), C, V)
+        lib = build.library("dwconv1d")
+        if variant == "staged":
+            M = out.numel() // C
+            _check_dwconv_tiling(lib, M, C, V, es,
+                                 dwconv_host_tiling(M, C, V, es))
+        _launch("dwconv1d_host", getattr(lib, f"pcilt_dwconv1d_host_{dt}"),
+                offsets, _ptr(offsets), _ptr(tables), _ptr(out), out.numel(),
+                C, V, 0 if variant == "staged" else 1)
+        DWCONV_HOST_VARIANT_LAUNCHES[variant] += 1
     return out
 
 
@@ -579,13 +681,111 @@ def pcilt_dwconv1d(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 
 
-def shared_gemv_plain(x, pool, seg_idx, spec: QuantSpec, scale, group: int):
+#: the shared-pool split design's constants (pcilt_shared_gemv.cu; the
+#: library's own are checked against these at its first launch): batch rows
+#: a block (at most), warps a block (at most), bytes of columns a lane owns,
+#: row loads a lane issues a batch, the blocks the split aims for, the
+#: largest cluster, the fewest segments a slice
+SHARED_ROWS, SHARED_WARPS, SHARED_LANE_BYTES, SHARED_LOADS = 4, 8, 16, 8
+SHARED_TARGET_BLOCKS, SHARED_MAX_CLUSTER, SHARED_MIN_SEGS = 132, 16, 4
+
+
+class SharedSplit(NamedTuple):
+    """The shared-pool split design's launch over one call (``split_for``
+    of pcilt_shared_gemv.cu): the grid is ``tiles * cluster`` by
+    ``chunks`` blocks; block rank ``q`` of a cluster sums slice ``q`` of
+    the segments (:func:`shared_gemv_slices`) for ``rows`` batch rows and
+    ``tile`` columns."""
+    rows: int     # batch rows a block (1, 2 or 4)
+    warps: int    # warps a block
+    cluster: int  # blocks a cluster
+    tile: int     # columns a tile
+    tiles: int    # column tiles
+    chunks: int   # row chunks
+
+
+@functools.lru_cache(maxsize=None)
+def shared_gemv_variant(B: int, G: int, O: int, itemsize: int) -> SharedSplit:
+    """The split of a shared-pool GEMV over ``B`` rows, ``G`` segments and
+    ``O`` columns of ``itemsize``-byte cells: a lane owns
+    ``SHARED_LANE_BYTES`` of columns, a block as many warps as cover O (at
+    most ``SHARED_WARPS``) and ``B`` rows up to ``SHARED_ROWS`` (1, 2 or
+    4), and the cluster doubles until the grid has
+    ``SHARED_TARGET_BLOCKS`` blocks, but no slice falls under
+    ``SHARED_MIN_SEGS`` segments."""
+    rows = SHARED_ROWS if B >= 3 else B
+    nv = SHARED_LANE_BYTES // itemsize
+    warps = min(SHARED_WARPS, -(-O // (32 * nv)))
+    tile = warps * 32 * nv
+    tiles = -(-O // tile)
+    chunks = -(-B // rows)
+    cs = 1
+    while cs < SHARED_MAX_CLUSTER and tiles * chunks * cs < \
+            SHARED_TARGET_BLOCKS:
+        cs *= 2
+    while cs > 1 and cs * SHARED_MIN_SEGS > G:
+        cs //= 2
+    return SharedSplit(rows, warps, cs, tile, tiles, chunks)
+
+
+def shared_gemv_smem_bytes(split: SharedSplit, G: int) -> int:
+    """Dynamic shared memory of a split block: its float32 sums ``[rows,
+    tile]``, then the int32 pool rows of its slice ``[ceil(G / cluster),
+    rows]``."""
+    return 4 * split.rows * (split.tile + -(-G // split.cluster))
+
+
+def shared_gemv_slices(split: SharedSplit, G: int):
+    """``[g0, g1)`` of each block rank of a cluster, in rank order: the
+    ascending slices whose sums the split adds in this order."""
+    cs = split.cluster
+    return [(q * G // cs, (q + 1) * G // cs) for q in range(cs)]
+
+
+def shared_gemv_plain(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
+                      split_order: bool = False):
     """Plain version of the shared-pool kernel; a pointer outside
-    ``[0, X)`` contributes nothing."""
+    ``[0, X)`` contributes nothing.  ``split_order`` sums in the split
+    design's order (:func:`fetch_sum_sliced` over
+    :func:`shared_gemv_slices`)."""
     s = torch.as_tensor(_host_scale(scale), dtype=x.dtype, device=x.device)
     off = pack_offsets(quantize(x, spec, s), spec.bits, group)
     X, V, O = pool.shape
-    return fetch_sum(pool_rows(off, seg_idx, X, V), pool.reshape(X * V, O))
+    rows = pool_rows(off, seg_idx, X, V)
+    if split_order:
+        split = shared_gemv_variant(x.shape[0], rows.shape[1], O,
+                                    pool.element_size())
+        return fetch_sum_sliced(rows, pool.reshape(X * V, O),
+                                shared_gemv_slices(split, rows.shape[1]))
+    return fetch_sum(rows, pool.reshape(X * V, O))
+
+
+_SHARED_CHECKED = set()
+
+
+def _check_shared_split(lib, B: int, G: int, O: int, itemsize: int,
+                        split: SharedSplit) -> None:
+    """The library's split constants, and its split of this shape, must be
+    this module's mirror of them (each shape checked once)."""
+    if not _SHARED_CHECKED:
+        cfg = (ctypes.c_int * 7)()
+        lib.pcilt_shared_gemv_split_config(cfg)
+        mine = (SHARED_ROWS, SHARED_WARPS, SHARED_LANE_BYTES, SHARED_LOADS,
+                SHARED_TARGET_BLOCKS, SHARED_MAX_CLUSTER, SHARED_MIN_SEGS)
+        if tuple(cfg) != mine:
+            raise RuntimeError(f"pcilt_shared_gemv.cu's split constants "
+                               f"{tuple(cfg)} differ from kernels.ops' {mine}")
+        _SHARED_CHECKED.add("config")
+    key = (B, G, O, itemsize)
+    if key in _SHARED_CHECKED:
+        return
+    got = (ctypes.c_int * 7)()
+    lib.pcilt_shared_gemv_split_plan(B, G, O, itemsize, got)
+    mine = (*split, shared_gemv_smem_bytes(split, G))
+    if tuple(got) != mine:
+        raise RuntimeError(f"pcilt_shared_gemv.cu splits B {B}, G {G}, O {O}"
+                           f" as {tuple(got)}, kernels.ops as {mine}")
+    _SHARED_CHECKED.add(key)
 
 
 def pcilt_shared_gemv(x: torch.Tensor, pool: torch.Tensor,
@@ -593,6 +793,13 @@ def pcilt_shared_gemv(x: torch.Tensor, pool: torch.Tensor,
                       group: int) -> torch.Tensor:
     """x ``[B, n]`` float32, pool ``[X, V, O]``, seg_idx ``[G]`` int32
     (``n == G * group``) -> ``[B, O]`` in the pool dtype."""
+    return _shared_gemv(x, pool, seg_idx, spec, scale, group)
+
+
+def _shared_gemv(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
+                 variant=None):
+    """:func:`pcilt_shared_gemv`, with ``variant`` forcing a design on a
+    CUDA tensor (else ``"split"``)."""
     B, n = x.shape
     X, V, O = pool.shape
     G = int(seg_idx.shape[-1])
@@ -610,14 +817,28 @@ def pcilt_shared_gemv(x: torch.Tensor, pool: torch.Tensor,
     if _on_cpu(x, pool, seg_idx):
         return shared_gemv_plain(x, pool, seg_idx, spec, scale, group)
     dt = _check_launch("pcilt_shared_gemv", x, pool, seg_idx)
-    if B * G * 4 > 227 * 1024:
-        raise ValueError(f"B*G = {B * G} offsets exceed the shared memory "
-                         f"of one block")
+    variant = variant or "split"
+    if variant not in SHARED_GEMV_VARIANT_LAUNCHES:
+        raise ValueError(f"pcilt_shared_gemv: unknown variant {variant!r}")
+    lib = build.library("shared_gemv")
+    if variant == "split":
+        split = shared_gemv_variant(B, G, O, pool.element_size())
+        smem = shared_gemv_smem_bytes(split, G)
+        if smem > SMEM_LIMIT or split.chunks > 65535:
+            raise ValueError(f"pcilt_shared_gemv: B = {B}, G = {G} needs "
+                             f"{smem} B of shared memory a block (at most "
+                             f"{SMEM_LIMIT}) and {split.chunks} row chunks "
+                             f"(at most 65535)")
+        _check_shared_split(lib, B, G, O, pool.element_size(), split)
+    elif B * G * 4 > SMEM_LIMIT:
+        raise ValueError(f"pcilt_shared_gemv: B*G = {B * G} offsets exceed "
+                         f"the shared memory of one block")
     out = torch.empty((B, O), dtype=pool.dtype, device=x.device)
-    fn = getattr(build.library("shared_gemv"), f"pcilt_shared_gemv_{dt}")
-    _launch("shared_gemv", fn, x, _ptr(x), _ptr(seg_idx), _ptr(pool),
-            _ptr(out), B, G, X, V, O, group, spec.bits, spec.zero_point,
-            _host_scale(scale))
+    _launch("shared_gemv", getattr(lib, f"pcilt_shared_gemv_{dt}"), x,
+            _ptr(x), _ptr(seg_idx), _ptr(pool), _ptr(out), B, G, X, V, O,
+            group, spec.bits, spec.zero_point, _host_scale(scale),
+            0 if variant == "split" else 1)
+    SHARED_GEMV_VARIANT_LAUNCHES[variant] += 1
     return out
 
 

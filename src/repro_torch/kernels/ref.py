@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["PLAIN_CHUNK_ELEMS", "fetch_sum", "dense_rows", "pool_rows",
+__all__ = ["PLAIN_CHUNK_ELEMS", "fetch_sum", "fetch_sum_sliced",
+           "dense_rows", "pool_rows",
            "pcilt_gemv_ref", "pcilt_conv2d_ref", "pcilt_dwconv1d_ref"]
 
 #: elements of the ``[rows, G, O]`` gather that :func:`fetch_sum` holds at
@@ -33,6 +34,25 @@ def fetch_sum(rows: torch.Tensor, tab2d: torch.Tensor) -> torch.Tensor:
         picked = torch.where((r >= 0)[..., None], picked, zero)
         out[m:m + step] = picked.sum(1).to(tab2d.dtype)
     return out
+
+
+def fetch_sum_sliced(rows: torch.Tensor, tab2d: torch.Tensor,
+                     slices) -> torch.Tensor:
+    """:func:`fetch_sum` in the order of a kernel that splits the segment
+    loop: each ``(g0, g1)`` slice of ``slices`` adds its rows one at a time
+    in ascending ``g`` in float32, then the slice sums are added in slice
+    order and cast once (the order of ``kernels.ops.shared_gemv_variant``'s
+    split; a ``-1`` row adds nothing)."""
+    M, _ = rows.shape
+    total = None
+    for g0, g1 in slices:
+        acc = torch.zeros((M, tab2d.shape[1]), device=tab2d.device)
+        for g in range(g0, g1):
+            r = rows[:, g].long()
+            acc = acc + torch.where((r >= 0)[:, None],
+                                    tab2d[r.clamp_min(0)].float(), 0.0)
+        total = acc if total is None else total + acc
+    return total.to(tab2d.dtype)
 
 
 def dense_rows(offsets: torch.Tensor, V: int, stride: int = 0,

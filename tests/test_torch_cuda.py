@@ -19,6 +19,7 @@ from repro_torch.core.quantization import QuantSpec
 from repro_torch.core.pcilt import build_grouped_tables
 from repro_torch.core.lut_layers import build_dwconv_tables
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import pcilt_dwconv1d_ref
 
 
 @pytest.fixture
@@ -522,3 +523,110 @@ def test_fused_gemv_designs_agree_and_are_deterministic(cuda, kind, dtype, B,
         _assert_sum_close(first.cpu(), want, rtol)
         _assert_sum_close(kept.cpu(), want, rtol)
         _assert_sum_close(first.cpu(), kept.cpu(), rtol)
+
+
+SHARED_SPLIT_CASES = [  # B, G, X, O, pool dtype, exact grid
+    (4, 384, 384, 50288, torch.float32, False),   # the Mamba head
+    (1, 384, 384, 50288, torch.float32, False),   # the head at B = 1
+    (4, 384, 384, 50288, torch.bfloat16, False),
+    (4, 64, 64, 130, torch.float32, True),        # exact grid, ragged O
+    (5, 96, 40, 200, torch.float32, False),       # two row chunks
+    (2, 6, 3, 7, torch.float32, False),           # 4-byte loads, no cluster
+    (3, 5, 2, 13, torch.bfloat16, False),         # 2-byte loads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,X,O,dtype,exact", SHARED_SPLIT_CASES)
+def test_shared_gemv_designs_agree_and_are_deterministic(cuda, B, G, X, O,
+                                                         dtype, exact):
+    """Kernel 3 in both designs, with two pool pointers out of range: the
+    split design (the default), twice, bit-identical and bit-equal to the
+    plain version summed in the split's order (the same float32 adds); the
+    kept design forced against the plain version (bit-equal on an exact
+    grid, else float32 within 1e-4 of the largest output, bfloat16 within
+    1e-2); the variant counts say which design served each call."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 1000 + O)
+    spec, group = QuantSpec(4, True), 2
+    if exact:
+        pool = torch.randint(-3, 4, (X, 256, O), generator=gen, device=cuda)
+        x = torch.randint(-8, 8, (B, G * group), generator=gen,
+                          device=cuda) * 0.5
+        scale = 0.5
+    else:
+        pool = torch.empty((X, 256, O), device=cuda)
+        for p in range(X):
+            pool[p].normal_(0.0, 0.05, generator=gen)
+        x = torch.randn(B, G * group, generator=gen, device=cuda) * 2.0
+        scale = 0.2
+    pool = pool.to(dtype)
+    idx = torch.randint(0, X, (G,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[0], idx[-1] = -1, X + 2
+    seen = dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)
+    before = ops.LAUNCHES["shared_gemv"]
+    first = ops.pcilt_shared_gemv(x, pool, idx, spec, scale, group)
+    again = ops.pcilt_shared_gemv(x, pool, idx, spec, scale, group)
+    kept = ops._shared_gemv(x, pool, idx, spec, scale, group,
+                            variant="direct")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["shared_gemv"] == before + 3
+    assert ops.SHARED_GEMV_VARIANT_LAUNCHES == {
+        "split": seen["split"] + 2, "direct": seen["direct"] + 1}
+    assert torch.equal(first, again)
+    assert torch.equal(first, ops.shared_gemv_plain(
+        x, pool, idx, spec, scale, group, split_order=True))
+    want = ops.shared_gemv_plain(x, pool, idx, spec, scale, group)
+    rtol = 0.0 if exact else (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    _assert_sum_close(first, want, rtol)
+    _assert_sum_close(kept, want, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,V,shift", [(4, 2048, 1792, 256, 0),
+                                           (3, 5, 33, 16, 0),
+                                           (2, 9, 64, 4, 1),
+                                           (1, 300, 100, 64, 0)])
+def test_dwconv1d_host_designs_agree_exactly(cuda, dtype, B, T, C, V, shift):
+    """Kernel 12 in both designs, offsets out of range included: the staged
+    design (the default; 4 channels a lane, or 1 where C or the offsets'
+    address — ``shift`` elements past an aligned start — do not allow 16
+    bytes), twice, and the kept design forced, all equal to the plain
+    version (one fetch per output: exact); the variant counts say which
+    design served each call."""
+    gen = torch.Generator(device=cuda).manual_seed(C + V + shift)
+    tabs = torch.randn(C, V, generator=gen, device=cuda).to(dtype)
+    store = torch.randint(-2, V + 3, (B * T * C + shift,), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    off = store[shift:].view(B, T, C)
+    seen = dict(ops.DWCONV_HOST_VARIANT_LAUNCHES)
+    first = ops.pcilt_dwconv1d(off, tabs)
+    again = ops.pcilt_dwconv1d(off, tabs)
+    kept = ops._dwconv1d_host(off, tabs, variant="direct")
+    torch.cuda.synchronize()
+    assert ops.DWCONV_HOST_VARIANT_LAUNCHES == {
+        "staged": seen["staged"] + 2, "direct": seen["direct"] + 1}
+    want = pcilt_dwconv1d_ref(off, tabs)
+    assert torch.equal(first, want) and torch.equal(again, want)
+    assert torch.equal(kept, want)
+    bad = (off < 0) | (off >= V)
+    assert bool(bad.any()) and float(first[bad].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_large_v_dwconv1d_host_takes_the_kept_kernel(cuda):
+    """V = 65536 (4 bits x 4 taps) cannot be staged: the default runs the
+    kept design, and forcing the staged one raises."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tabs = torch.randn(8, 1 << 16, generator=gen, device=cuda)
+    off = torch.randint(0, 1 << 16, (2, 5, 8), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    seen = dict(ops.DWCONV_HOST_VARIANT_LAUNCHES)
+    got = ops.pcilt_dwconv1d(off, tabs)
+    torch.cuda.synchronize()
+    assert ops.DWCONV_HOST_VARIANT_LAUNCHES == {
+        "staged": seen["staged"], "direct": seen["direct"] + 1}
+    assert torch.equal(got, pcilt_dwconv1d_ref(off, tabs))
+    with pytest.raises(ValueError, match="cannot be staged"):
+        ops._dwconv1d_host(off, tabs, variant="staged")
