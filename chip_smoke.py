@@ -14,7 +14,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 3. checks: each kernel and variant (counters on/off, float32 and one
    bfloat16 case) against its plain PyTorch version on the same inputs, at
    the decode path's shapes and at a ragged small shape.  dwconv outputs
-   and all counters must be exact; GEMVs on an exact grid (small-integer
+   and all counters must be exact (the fused dwconv in both designs: the
+   tiled one twice, bit-identical, and the kept one forced, at the decode
+   window and the full [4, 2048, 1792] signal); GEMVs on an exact grid (small-integer
    weights, power-of-two scale) bit-equal; other float32 GEMVs within
    ``|d| <= 1e-4 * max|plain| + 1e-4 * |plain|`` (another summation order
    over up to 3072 rows), bfloat16 within 1e-2 (one bf16 rounding of the
@@ -27,7 +29,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ragged shapes (stride 2, symmetric 4-bit, group 2 with odd C, O = 13,
    bf16, a pool pointer out of range, V = 65536); the fused and shared
    conv in both designs — the staged kernel (its code pre-pass exact, two
-   launches bit-identical) and the kept one, forced.  The five fused GEMV
+   launches bit-identical) and the kept one, forced; the host-packed GEMV
+   and conv likewise (the staged kernel twice and the kept one forced, one
+   case with offsets of -1, V and 2**31 - 1 mixed in).  The five fused GEMV
    launches (kernels 1 and 8-11) likewise run both designs on every case:
    the split design twice, bit-identical, and the kept one, forced.  The
    paired stacked GEMV runs the paired decode's projections on 24-layer
@@ -50,9 +54,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    once each; the warm time of back-to-back calls is kept beside it.  The
    conv kernels run each layer of the paper CNN at B = 1, 1024x768 on its
    real input (the fused and shared conv: the staged design, its pre-pass
-   and fetch summed, beside the kept design forced and the fetch floor
-   from the SM count and ``clocks.max.sm``); their plain versions on a
-   64x48 crop.  The fused GEMVs run every shape a decode step launches
+   and fetch summed; the host-packed GEMV and conv: the staged design;
+   each beside the kept design forced and the fetch floor from the SM
+   count and ``clocks.max.sm``); their plain versions on a 64x48 crop.
+   The host-packed GEMV also runs at phase 10's M = 4 plan shape (the kept
+   design, which the chooser keeps for it) beside ``matmul``.  The fused
+   dwconv runs the decode window (counters on, the engine's) and the full
+   [4, 2048, 1792] signal in the tiled design, beside the kept one forced,
+   with and without the zero fill of its stats.  The fused GEMVs run every shape a decode step launches
    (kernel 1 at the five projections, kernel 8 at the paired decode's
    five), the split design beside the kept one forced (``direct_ms``), as
    are the head (at B = 4 and B = 1, each beside matmul at its batch) and
@@ -63,18 +72,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    conversion seconds, table bytes, the head pool's bytes, peak memory,
    step time, tokens/s and the launches per step of each kernel (must be
    144 / 24 / 1, every fused GEMV and head launch through its split
-   design), then checks
+   design, every dwconv through its tiled one), then checks
    one decode step's logits against the dense fake-quant oracle (every
    layer and the head demoted, so no kernel runs on the oracle's side),
-   and times one B = 4 step with its device time, in the split design and
-   with the kept one forced;
+   and times one B = 4 step with its device time and device launches, in
+   the split design and with the kept GEMV design forced, then with the
+   counters on (as the engine's sentinel runs it) in the tiled dwconv
+   design and with the kept one forced (24 more launches a step: its stats
+   fills);
 6. the paper CNN (``configs/paper_cnn.config()``: 50-80-120-200-350
    channels, 5x5, INT8) on one seeded 1024x768 image: tables built on the
    card (2.57 GiB float32), a 256x192 forward timed and extrapolated
    first, then ``forward(mode="fused")`` (5 fused_conv2d launches), the
    extension-3 network of ``convert_conv_kernel(shared=True,
    weight_bits=4)`` layers (5 shared_conv2d launches) and, on a 256x192
-   image, ``forward(mode="kernel")`` (5 gemv_host launches); per-layer
+   image, ``forward(mode="kernel")`` (5 gemv_host launches, staged); per-layer
    device ms and design (staged or kept), forward ms, images/s, table
    bytes and peak memory; each
    layer against ``F.conv2d`` on its fake-quantized input, and each
@@ -130,6 +142,7 @@ Details also go to ``chiprun_out/chip_smoke.json``.  Weights are random
 phase 5 with a message; phase 5's tables are freed before phase 6.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -186,6 +199,12 @@ DWCONV_STAGED_KERNEL = "dwconv1d_staged_kernel"
 #: kept design's one
 STAGED_KERNELS = ("conv2d_codes_kernel", "conv2d_staged_kernel")
 DIRECT_KERNEL = "conv2d_kernel"
+#: the host-packed GEMV's staged design and its kept one; the fused
+#: dwconv's tiled design and its kept one
+HOST_STAGED_KERNEL = "gemv_host_staged_kernel"
+HOST_DIRECT_KERNEL = "gemv_host_kernel"
+DWCONV_TILED_KERNEL = "dwconv1d_tiled_kernel"
+DWCONV_DIRECT_KERNEL = "dwconv1d_kernel"
 #: shared memory / L1 data path of one SM, bytes a clock (the conv fetch
 #: floor's rate)
 SMEM_BYTES_PER_CLOCK = 128
@@ -421,6 +440,40 @@ def dwconv_host_designs(torch, ops, off, tabs):
     return runs
 
 
+def dwconv_designs(torch, ops, run):
+    """``run(variant)``, one fused dwconv launch, in both designs: the tiled
+    design twice, which must give the same bits (outputs and counters), and
+    the kept design forced; the variant counts must say which ran.  -> the
+    three results."""
+    seen = dict(ops.DWCONV_VARIANT_LAUNCHES)
+    runs = (run(None), run(None), run("direct"))
+    torch.cuda.synchronize()
+    diff = {v: c - seen[v] for v, c in ops.DWCONV_VARIANT_LAUNCHES.items()}
+    require(diff == {"tiled": 2, "direct": 1},
+            f"the fused dwconv's designs ran {diff}, not tiled 2, direct 1")
+    pairs = zip(runs[0], runs[1]) if isinstance(runs[0], tuple) \
+        else [(runs[0], runs[1])]
+    require(all(torch.equal(a, b) for a, b in pairs),
+            "two launches of the tiled dwconv differ")
+    return runs
+
+
+def host_designs(torch, ops, run):
+    """``run(variant)``, one host-packed GEMV or conv launch, in both
+    designs: the staged design (the wrappers' choice) twice, which must
+    give the same bits, and the kept design forced; the variant counts must
+    say which ran.  -> (staged result, kept result)."""
+    seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+    got, again, kept = run(None), run(None), run("direct")
+    torch.cuda.synchronize()
+    diff = {v: c - seen[v] for v, c in ops.GEMV_HOST_VARIANT_LAUNCHES.items()}
+    require(diff == {"staged": 2, "direct": 1},
+            f"the host-packed designs ran {diff}, not staged 2, direct 1")
+    require(torch.equal(got, again),
+            "two launches of the staged host-packed GEMV differ")
+    return got, kept
+
+
 def kept_design(ops, calls):
     """``calls`` with the kept fused GEMV design forced."""
     def forced(call):
@@ -492,31 +545,41 @@ def check_kernels(torch, ops, core, report):
                        "exact" if exact else f"rtol {rtol}")
         del tabs, w
 
-    # -- dwconv: decode window [4, 4, 1792] VALID, f32 + bf16, ragged CAUSAL
-    for what, (Bq, T, C), pad, dt in [
-            ("window B4 k4 C1792 VALID", (B, 4, 1792), "VALID", torch.float32),
+    # -- dwconv: decode window [4, 4, 1792] VALID, f32 + bf16, the full
+    #    [4, 2048, 1792] signal (2-bit, CAUSAL), ragged CAUSAL; both designs
+    #    (the tiled one twice), saturating taps at both ends of the window
+    for what, (Bq, T, C), pad, dt, sp in [
+            ("window B4 k4 C1792 VALID", (B, 4, 1792), "VALID", torch.float32,
+             spec),
             ("window B4 k4 C1792 VALID bf16", (B, 4, 1792), "VALID",
-             torch.bfloat16),
-            ("ragged B3 T9 C33 CAUSAL", (3, 9, 33), "CAUSAL", torch.float32)]:
+             torch.bfloat16, spec),
+            (f"signal B4 T{CONV_T} C{CONV_C} 2-bit CAUSAL",
+             (B, CONV_T, CONV_C), "CAUSAL", torch.float32,
+             QuantSpec(bits=2, symmetric=True)),
+            ("ragged B3 T9 C33 CAUSAL", (3, 9, 33), "CAUSAL", torch.float32,
+             spec)]:
         filt = randn(4, C, s=0.5)
         x = randn(Bq, T, C, s=2.0)
-        scale = float(scale_from_amax(0.8 * x.abs().max(), spec))
-        tabs = core.build_dwconv_tables(filt, spec, scale).to(dt)
+        scale = float(scale_from_amax(0.8 * x.abs().max(), sp))
+        x[:, 0, ::5] *= 4.0
+        x[:, -1, 2::5] *= -4.0
+        tabs = core.build_dwconv_tables(filt, sp, scale).to(dt)
         xp = torch.nn.functional.pad(x, (0, 0, 3, 0)) if pad == "CAUSAL" else x
         for stats in (False, True):
-            got = ops.pcilt_fused_dwconv1d(x, tabs, spec, scale, 4, pad,
-                                           with_stats=stats)
-            want = ops.dwconv1d_plain(xp, tabs, spec, scale, 4,
+            runs = dwconv_designs(torch, ops, lambda v: ops._fused_dwconv1d(
+                x, tabs, sp, scale, 4, pad, with_stats=stats, variant=v))
+            want = ops.dwconv1d_plain(xp, tabs, sp, scale, 4,
                                       with_stats=stats)
-            torch.cuda.synchronize()
-            if stats:
-                (got, gc, gr), (want, wc, wr) = got, want
-                record("dwconv1d", f"{what} counters", 0.0,
-                       int(gc) == int(wc) and float(gr) == float(wr),
-                       "count, ratio exact")
-            mx, ok = close(torch, got, want, 0.0, exact=True)
-            record("dwconv1d", f"{what} counters={int(stats)}", mx, ok,
-                   "exact")
+            for design, got in zip(("", " again", " kept design"), runs):
+                wnt = want
+                if stats:
+                    (got, gc, gr), (wnt, wc, wr) = got, want
+                    record("dwconv1d", f"{what}{design} counters", 0.0,
+                           int(gc) == int(wc) and float(gr) == float(wr),
+                           "count, ratio exact")
+                mx, ok = close(torch, got, wnt, 0.0, exact=True)
+                record("dwconv1d", f"{what}{design} counters={int(stats)}",
+                       mx, ok, "exact")
         del tabs
 
     # -- shared-pool head: [4, 768] x, G = 384, O = 50288 (ragged), the
@@ -685,11 +748,27 @@ def check_conv_kernels(torch, ops, record, gen):
                    torch.equal(codes, want) else float("inf"),
                    torch.equal(codes, want), "exact")
         off = conv_offsets(xp, spec, scale, group, k, k, stride, "VALID")
-        check("gemv_host", ops.pcilt_gemv(off.reshape(-1, G), tabs),
-              pcilt_gemv_ref(off.reshape(-1, G), tabs))
-        check("conv2d_host", ops.pcilt_conv2d(off, tabs),
-              pcilt_conv2d_ref(off, tabs))
-        del tabs, pool, off
+        if what.startswith("conv1 "):  # offsets out of range add nothing
+            off.view(-1)[::97] = -1
+            off.view(-1)[1::89] = tabs.shape[1]
+            off.view(-1)[2::83] = 2 ** 31 - 1
+            what += ", offsets out of range"
+        flat = off.reshape(-1, G)
+        host = ops.gemv_host_variant(flat.shape[0], G, tabs.shape[1], O,
+                                     tabs.element_size())
+        for kernel, run, plain in (
+                ("gemv_host", lambda v: ops._gemv_host(flat, tabs, variant=v),
+                 pcilt_gemv_ref(flat, tabs)),
+                ("conv2d_host", lambda v: ops._conv2d_host(off, tabs,
+                                                           variant=v),
+                 pcilt_conv2d_ref(off, tabs))):
+            if host == "staged":
+                got, kept = host_designs(torch, ops, run)
+                check(kernel, got, plain)
+                check(kernel, kept, plain, " kept kernel")
+            else:
+                check(kernel, run(None), plain)
+        del tabs, pool, off, flat
 
 
 def check_slice3_kernels(torch, ops, record, gen):
@@ -1017,14 +1096,56 @@ def time_kernels(torch, ops, core, report):
     wq = fake_quant(win, spec, scale)
     lib = timed([lambda l=l: torch.einsum("bkc,kc->bc", wq, filt[l])
                  for l in range(L)] * 4)
-    k = timed([lambda l=l: ops.pcilt_fused_dwconv1d(
-        win, tabs[l], spec, scale, 4, "VALID", with_stats=True)
-        for l in range(L)] * 4, "dwconv1d_kernel")
+
+    def window(variant):
+        return [lambda l=l: ops._fused_dwconv1d(
+            win, tabs[l], spec, scale, 4, "VALID", with_stats=True,
+            variant=variant) for l in range(L)] * 4
+
+    k = timed(window("tiled"), DWCONV_TILED_KERNEL)
+    d = timed(window("direct"), DWCONV_DIRECT_KERNEL)
+    fill = timed(window("direct"))  # the kept design and its stats fill
     p = timed([lambda l=l: ops.dwconv1d_plain(
         win, tabs[l], spec, scale, 4, with_stats=True)
         for l in range(L)] * 2)
     add("window counters", "dwconv1d", [L, C, 1 << 16], k, p, lib, bound, 24)
+    rows["window counters"].update(
+        variant="tiled", direct_ms=d["ms"], direct_warm_ms=d["warm_ms"],
+        direct_with_fill_ms=fill["ms"])
+    log(f"      kept design {d['ms'] * 1e3:8.2f} us, with its stats fill "
+        f"{fill['ms'] * 1e3:8.2f} us")
     del tabs
+
+    # -- dwconv over the full [4, 2048, 1792] signal (2-bit, CAUSAL; the
+    #    single-layer path's shape), counters on
+    spec2 = QuantSpec(bits=2, symmetric=True)
+    sig = torch.randn(B, CONV_T, C, generator=gen, device=dev)
+    s2 = float(scale_from_amax(0.8 * sig.abs().max(), spec2))
+    tab2 = core.build_dwconv_tables(filt[0], spec2, s2)
+    sp = torch.nn.functional.pad(sig, (0, 0, CONV_K - 1, 0))
+    codes = quantize(sp, spec2, s2).int()
+    off = sum(codes[:, j:j + CONV_T] << (2 * j) for j in range(CONV_K))
+    cells = len(torch.unique(torch.arange(C, device=dev) * 256 + off.long()))
+    bound = (cells * 4 + sp.numel() * 4 + sig.numel() * 4) \
+        / HBM_BYTES_PER_S * 1e3
+
+    def signal(variant):
+        return [lambda: ops._fused_dwconv1d(
+            sig, tab2, spec2, s2, CONV_K, "CAUSAL", with_stats=True,
+            variant=variant)] * 4
+
+    sq = fake_quant(sp, spec2, s2)
+    w2 = filt[0]
+    lib = timed([lambda: torch.einsum(
+        "btkc,kc->btc", sq.unfold(1, CONV_K, 1).transpose(2, 3), w2)] * 4)
+    k = timed(signal("tiled"), DWCONV_TILED_KERNEL)
+    d = timed(signal("direct"), DWCONV_DIRECT_KERNEL)
+    p = timed([lambda: ops.dwconv1d_plain(sp, tab2, spec2, s2, CONV_K,
+                                          with_stats=True)] * 2)
+    add("signal counters", "dwconv1d", [B, CONV_T, C, 256], k, p, lib, bound,
+        0, d)
+    rows["signal counters"]["variant"] = "tiled"
+    del tab2, sig, sp, sq, codes, off
 
     # -- shared-pool head: the engine's pool of 384 distinct segments
     #    (18.4 GiB), x rotating over 4 inputs; at B = 4 (the engine's) and
@@ -1285,7 +1406,33 @@ def time_plan_kernel(torch, ops, report, rows):
         f"{p['ms'] * 1e3:9.2f} us  library {lib['ms'] * 1e3:8.2f} us  bound "
         f"{max(b_ms, o_ms) * 1e3:7.2f} us ({rows['gemv_plan perm']['bound_by']})"
         f"  x1/projection")
-    del tabs, w, wg, flush
+
+    # -- kernel 6 at the same shape, on the plan's packed offsets ([4, 512]:
+    #    phase 10's path="kernel"), in the kept design the chooser keeps for
+    #    M = 4, beside the same matmul
+    offs = [plan_offsets(torch, x, plan, spec, scale) for x in xs]
+    require(ops.gemv_host_variant(B, G, 256, O, 4) == "direct",
+            "kernel 6 at M = 4 is not the kept design")
+    nbytes = uniq * O * 4 + B * G * 4 + B * O * 4
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    k = timed([lambda o=o: ops.pcilt_gemv(o, tabs) for o in offs] * 4,
+              HOST_DIRECT_KERNEL)
+    p = timed([lambda o=o: ops.gemv_host_plain(o, tabs) for o in offs] * 2)
+    rows["gemv_host plan M4"] = {
+        "kernel": "gemv_host", "shape": [B, G, 256, O], "ms": k["ms"],
+        "warm_ms": k["warm_ms"], "events_ms": k["events_ms"],
+        "plain_ms": p["ms"], "plain_warm_ms": p["warm_ms"],
+        "plain_shape": "the kernel's", "library_ms": lib["ms"],
+        "library_warm_ms": lib["warm_ms"],
+        "library_call": LIB_NOTE["gemv_plan"], "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "bytes": nbytes, "fetch_adds": B * G * O,
+        "launches_per_projection": 1, "variant": "direct"}
+    log(f"time  {'gemv_host':19s} {'gemv_host plan M4':26s} kernel "
+        f"{k['ms'] * 1e3:8.2f} us (warm {k['warm_ms'] * 1e3:8.2f}, the kept "
+        f"design)  plain {p['ms'] * 1e3:9.2f} us  library "
+        f"{lib['ms'] * 1e3:8.2f} us  bound {max(b_ms, o_ms) * 1e3:7.2f} us")
+    del tabs, w, wg, flush, offs
 
 
 def paper_cnn_setup(torch):
@@ -1433,13 +1580,18 @@ def time_conv_kernels(torch, ops, report, rows):
             # the index dtype: more than 2**31 of them at conv3 and conv4)
             off = host_offsets(torch, xp, spec, s, k, G)
             offs = conv_offsets(xps, spec, s, 1, k, k, 1, "VALID")
-            host = {"gemv_host": (ops.pcilt_gemv, pcilt_gemv_ref,
+            host = {"gemv_host": (ops._gemv_host, pcilt_gemv_ref,
                                   off.view(-1, G), offs.view(-1, G))}
             if i == len(model.channels) - 1:  # the satellite, at conv4
-                host["conv2d_host"] = (ops.pcilt_conv2d, pcilt_conv2d_ref,
+                host["conv2d_host"] = (ops._conv2d_host, pcilt_conv2d_ref,
                                        off, offs)
+            require(ops.gemv_host_variant(P, G, V, O, 4) == "staged",
+                    f"{name}: the host-packed GEMV is not staged")
             kts = {n_: timed([lambda f=v[0], o=v[2]: f(o, tabs)],
-                             "gemv_host_kernel") for n_, v in host.items()}
+                             HOST_STAGED_KERNEL) for n_, v in host.items()}
+            kept = {n_: timed([lambda f=v[0], o=v[2]: f(o, tabs,
+                                                        variant="direct")],
+                              HOST_DIRECT_KERNEL) for n_, v in host.items()}
             plains = {n_: timed([lambda f=v[1], o=v[3]: f(o, tabs)])
                       for n_, v in host.items()}
             off_bytes = off.numel() * 4
@@ -1450,7 +1602,8 @@ def time_conv_kernels(torch, ops, report, rows):
             for name_ in kts:  # one library call timed for each row
                 lib = timed([lambda: F.embedding_bag(idx, tab2d, mode="sum")])
                 add(name_, i, shape, kts[name_], plains[name_], lib,
-                    off_bytes + tabs.numel() * 4 + out_bytes, fetch_adds)
+                    off_bytes + tabs.numel() * 4 + out_bytes, fetch_adds,
+                    kept[name_])
             del idx, offs, tab2d
             h = torch.relu(dm_conv2d(h, w, spec, s))
             small = h[:, :SMALL_HW[0], :SMALL_HW[1]]
@@ -1532,6 +1685,9 @@ def serve(torch, ops, report):
     head_d = dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)
     require(head_d == {"split": launches["shared_gemv"], "direct": 0},
             f"the main path's head ran the designs {head_d}")
+    dw_d = dict(ops.DWCONV_VARIANT_LAUNCHES)
+    require(dw_d == {"tiled": launches["dwconv1d"], "direct": 0},
+            f"the main path's dwconv ran the designs {dw_d}")
     report["serve"] = {"setup_s": setup_s, "convert": conv,
                        "peak_bytes": peak, "steps": steps,
                        "median_step_s": med, "step_seconds": eng.step_seconds,
@@ -1540,7 +1696,8 @@ def serve(torch, ops, report):
                        "table_bytes": eng.pdecode.table_bytes(),
                        "head_pool_bytes": head_bytes,
                        "outputs": [r.out for r in reqs],
-                       "gemv_designs": designs, "head_designs": head_d}
+                       "gemv_designs": designs, "head_designs": head_d,
+                       "dwconv_designs": dw_d}
     oracle_check(torch, ops, eng, report)
     gen = torch.Generator(device="cuda").manual_seed(9)
     cache = {"layers": {k: torch.randn(t.shape, generator=gen,
@@ -1779,8 +1936,12 @@ def paper_cnn(torch, ops, report):
             f"take ~31 GB):")
         logits, secs = counted("gemv_host", lambda: model.forward(
             params, xs, mode="kernel", scales=scales, tables=tables))
-        out["kernel"] = {"forward_s": secs, "image": list(KERNEL_HW)}
-        log(f"  forward {secs * 1e3:.1f} ms")
+        host_d = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+        out["kernel"] = {"forward_s": secs, "image": list(KERNEL_HW),
+                         "designs": host_d}
+        log(f"  forward {secs * 1e3:.1f} ms; designs {host_d}")
+        require(host_d == {"staged": L, "direct": 0},
+                f"the host-packed forward ran kernel 6's designs {host_d}")
         dm = model.forward(params, xs, mode="dm", scales=scales)
         _logits_check(torch, f"kernel {KERNEL_HW[1]}x{KERNEL_HW[0]}", logits,
                       dm, "kernel_oracle", out)
@@ -1798,8 +1959,10 @@ def paper_cnn(torch, ops, report):
 def _step_times(torch, ops, step, reps=3):
     """Median host seconds of ``reps`` synchronised calls of ``step`` (after
     one warm call), the launches of one call (with the fused GEMV designs
-    that served them under ``"designs"``), and the device time of one call
-    (the sum of its kernels' profiler device time)."""
+    that served them under ``"designs"``, the head's under
+    ``"head_designs"``, the dwconv's under ``"dwconv_designs"``), and the
+    device time and device kernel launches of one call (the sums of its
+    kernels' profiler device times and counts)."""
     step()
     torch.cuda.synchronize()
     secs = []
@@ -1818,41 +1981,82 @@ def _step_times(torch, ops, step, reps=3):
     head = {k: v for k, v in ops.SHARED_GEMV_VARIANT_LAUNCHES.items() if v}
     if head:
         launches["head_designs"] = head
-    dev_us = sum(t for _, t in _profile(torch, step).values())
-    return statistics.median(secs), launches, dev_us / 1e6
+    dw = {k: v for k, v in ops.DWCONV_VARIANT_LAUNCHES.items() if v}
+    if dw:
+        launches["dwconv_designs"] = dw
+    prof = _profile(torch, step)
+    dev_us = sum(t for _, t in prof.values())
+    dev_launches = sum(c for c, _ in prof.values())
+    return statistics.median(secs), launches, dev_us / 1e6, dev_launches
 
 
 def step_compare(torch, ops, model, params, cache, tok, variants, want):
     """The decode step at B = 4 for each ``variants`` bundle (None: dense),
     and, for each PCILT bundle, again with the kept fused GEMV design
-    forced (``"<name> kept"``): median host seconds, launches and device
-    time, the launches held to ``want``."""
-    cmp = {}
+    forced (``"<name> kept"``), then with the saturation counters on, as
+    the engine's sentinel runs it (``"<name> stats"``), and so with the
+    kept dwconv design forced (``"<name> stats kept dwconv"``, which
+    zeroes its stats before each of its launches): median host seconds,
+    launches, device time and device launches, the launches held to
+    ``want``."""
+    cmp, steps = {}, {}
+
+    def device_launches(key):
+        return sum(c for c, _ in _profile(torch, steps[key]).values())
+
     with torch.no_grad():
         for name, pc in variants.items():
-            for kept in ((False, True) if pc is not None else (False,)):
+            for kept in ((None, "gemv", "stats", "dwconv") if pc is not None
+                         else (None,)):
                 def step(pc=pc, kept=kept):
-                    if not kept:
-                        return model.decode_step(params, cache, tok, pcilt=pc)
-                    with ops._gemv_forced("direct"):
-                        return model.decode_step(params, cache, tok, pcilt=pc)
+                    force = {"gemv": ops._gemv_forced("direct"),
+                             "dwconv": ops._dwconv_forced("direct")}.get(
+                                 kept, contextlib.nullcontext())
+                    stats = {"with_stats": True} \
+                        if kept in ("stats", "dwconv") else {}
+                    with force:
+                        return model.decode_step(params, cache, tok, pcilt=pc,
+                                                 **stats)
 
-                s, ln, dev_s = _step_times(torch, ops, step)
-                key = f"{name} kept" if kept else name
+                s, ln, dev_s, dev_n = _step_times(torch, ops, step)
+                key = {None: name, "gemv": f"{name} kept",
+                       "stats": f"{name} stats",
+                       "dwconv": f"{name} stats kept dwconv"}[kept]
+                steps[key] = step
                 cmp[key] = {"median_step_s": s, "launches": ln,
-                            "device_s": dev_s, "device_share": dev_s / s}
-                log(f"step B{B} {key:13s}: median {s * 1e3:8.2f} ms, device "
+                            "device_s": dev_s, "device_share": dev_s / s,
+                            "device_launches": dev_n}
+                log(f"step B{B} {key:26s}: median {s * 1e3:8.2f} ms, device "
                     f"time {dev_s * 1e3:7.2f} ms ({100 * dev_s / s:5.1f}% "
-                    f"busy), launches {ln}")
+                    f"busy) in {dev_n} device launches, launches {ln}")
                 expect = dict(want[name])
                 gemvs = sum(v for k, v in expect.items()
                             if k in GEMV_LAUNCHES)
                 if gemvs:
-                    expect["designs"] = {"direct" if kept else "split": gemvs}
+                    expect["designs"] = {
+                        "direct" if kept == "gemv" else "split": gemvs}
                 if expect.get("shared_gemv"):
                     expect["head_designs"] = {"split": expect["shared_gemv"]}
+                if expect.get("dwconv1d"):
+                    expect["dwconv_designs"] = {
+                        "direct" if kept == "dwconv" else "tiled":
+                            expect["dwconv1d"]}
                 require(ln == expect, f"{key} step launches {ln}, not "
                         f"{expect}")
+            if pc is not None:  # a profile that lost a record is taken again
+                extra = cmp[f"{name} stats kept dwconv"]["device_launches"] \
+                    - cmp[f"{name} stats"]["device_launches"]
+                for _ in range(2):
+                    if extra == want[name]["dwconv1d"]:
+                        break
+                    extra = device_launches(f"{name} stats kept dwconv") \
+                        - device_launches(f"{name} stats")
+                cmp[f"{name} stats"]["device_launches_saved"] = extra
+                log(f"step B{B} {name}: the tiled dwconv saves {extra} device "
+                    f"launches a step (the kept design's stats fills)")
+                require(extra == want[name]["dwconv1d"],
+                        f"{name}: the kept dwconv adds {extra} device launches"
+                        f" a step, not {want[name]['dwconv1d']}")
     return cmp
 
 
@@ -1939,6 +2143,9 @@ def serve_paired(torch, ops, report):
     head_d = dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)
     require(head_d == {"split": launches["shared_gemv"], "direct": 0},
             f"the paired path's head ran the designs {head_d}")
+    dw_d = dict(ops.DWCONV_VARIANT_LAUNCHES)
+    require(dw_d == {"tiled": launches["dwconv1d"], "direct": 0},
+            f"the paired path's dwconv ran the designs {dw_d}")
     require(stats["table_bytes"] == tbytes, "engine and bundle table bytes "
             "differ")
     out.update(convert=conv, table_bytes=tbytes, head_pool_bytes=head_bytes,
@@ -1947,7 +2154,7 @@ def serve_paired(torch, ops, report):
                launches=launches, launches_per_step=per_step,
                saturation=stats.get("saturation"),
                outputs=[r.out for r in reqs], gemv_designs=designs,
-               head_designs=head_d)
+               head_designs=head_d, dwconv_designs=dw_d)
     report["serve_paired"] = out
     oracle_check(torch, ops, eng, report, "paired_oracle")
 
@@ -2171,6 +2378,7 @@ def plans_and_extensions(torch, ops, report):
     out = {"plans": {}}
 
     head = {"split": 0, "direct": 0}
+    host = {"staged": 0, "direct": 0}
 
     def counted(fn):
         """Run one call of the path, its launches counted from 0."""
@@ -2181,6 +2389,8 @@ def plans_and_extensions(torch, ops, report):
             launches[k] += v
         for k, v in ops.SHARED_GEMV_VARIANT_LAUNCHES.items():
             head[k] += v
+        for k, v in ops.GEMV_HOST_VARIANT_LAUNCHES.items():
+            host[k] += v
         return res
 
     def within(what, got, want, ref):
@@ -2315,8 +2525,11 @@ def plans_and_extensions(torch, ops, report):
             f"phase 10 did not run through kernels 11, 6, 9 and 3: {seen}")
     require(head == {"split": 1, "direct": 0},
             f"phase 10's shared tables ran kernel 3's designs {head}")
+    require(host == {"staged": 0, "direct": 4},
+            f"phase 10's M = 4 host path ran kernel 6's designs {host}")
     out["launches"] = seen
     out["head_designs"] = head
+    out["host_designs"] = host
     report["plans"] = out
     return seen
 
@@ -2339,6 +2552,7 @@ def learnable(torch, ops, report):
     res = learnable_pcilt.run(device="cuda", log=lambda m: log(f"  {m}"))
     torch.cuda.synchronize()
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    host = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
     cpu = learnable_pcilt.run(device="cpu", log=lambda m: None)
     for gran, (l0, l1) in res["losses"].items():
         require(l1 == l1 and abs(l1) != float("inf") and l1 < l0,
@@ -2354,8 +2568,10 @@ def learnable(torch, ops, report):
     require(launches == {"gemv_host": 4},
             f"the trained tables were not served through kernel 6: "
             f"{launches}")
+    require(host == {"staged": 0, "direct": 4},
+            f"the trained tables (64 rows) ran kernel 6's designs {host}")
     report["learnable"] = {**res, "cpu_losses": cpu["losses"],
-                           "launches": launches}
+                           "launches": launches, "host_designs": host}
     return launches
 
 
@@ -2435,6 +2651,11 @@ def main() -> int:
     for phase in (serve, paper_cnn, serve_paired, paired_parity,
                   single_layers, plans_and_extensions, learnable):
         count(phase)
+    step = report["serve"]["step_compare"]
+    rows["window counters"].update(
+        step_device_launches=step["unpaired stats"]["device_launches"],
+        step_device_launches_kept=step["unpaired stats kept dwconv"][
+            "device_launches"])
 
     primary = {"gemv_stacked": "wz,wx", "dwconv1d": "window counters",
                "shared_gemv": "head", "fused_conv2d": "fused_conv2d conv4",
@@ -2456,7 +2677,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"]})
-        for extra in ("plain_shape", "direct_ms", "fetch_floor_ms"):
+        for extra in ("plain_shape", "direct_ms", "fetch_floor_ms",
+                      "direct_with_fill_ms", "step_device_launches",
+                      "step_device_launches_kept"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     report["kernels"] = kernels

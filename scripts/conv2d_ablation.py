@@ -4,9 +4,9 @@
     python3 scripts/conv2d_ablation.py [variant,variant,...]
 
 Builds variants of ``src/repro_torch/kernels/csrc/pcilt_conv2d.cu``, each
-with one stage of the staged fetch removed by a text edit of the source
-(timing only: every variant but ``base`` gives wrong sums), into
-``build/ablation/``, and times each variant's float32 fused kernel (the
+with one stage of the staged fetch removed by a text edit of the source or
+of the staged pieces it includes from ``pcilt_common.cuh`` (timing only:
+every variant but ``base`` gives wrong sums), into ``build/ablation/<variant>/``, and times each variant's float32 fused kernel (the
 fetch launch alone, on a code image made once) at every layer of the paper
 CNN at 1024x768 on its real input (the dense fake-quant chain of the
 seeded network, as ``chip_smoke.py`` phase 4), beside the kept design.
@@ -44,20 +44,24 @@ VARIANTS = {"base": [],
 
 def build_variants(names, build):
     csrc = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
-    out_dir = os.path.join(ROOT, "build", "ablation")
-    os.makedirs(out_dir, exist_ok=True)
-    src = open(os.path.join(csrc, "pcilt_conv2d.cu")).read()
+    files = ("pcilt_conv2d.cu", "pcilt_common.cuh")
     procs = {}
     for name in names:
-        text = src
+        # each edit applies to the one file whose text holds its anchor; a
+        # variant's directory holds both, so the source includes its header
+        texts = {f: open(os.path.join(csrc, f)).read() for f in files}
         for old, new in VARIANTS[name]:
-            if text.count(old) != 1:
+            hits = [f for f in files if texts[f].count(old) == 1]
+            if len(hits) != 1 or any(texts[f].count(old) > 1 for f in files):
                 raise SystemExit(f"variant {name}: the edit's anchor is not "
-                                 f"in the source once: {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+                                 f"in the sources once: {old!r}")
+            texts[hits[0]] = texts[hits[0]].replace(old, new)
+        out_dir = os.path.join(ROOT, "build", "ablation", name)
+        os.makedirs(out_dir, exist_ok=True)
+        for f, text in texts.items():
+            with open(os.path.join(out_dir, f), "w") as fh:
+                fh.write(text)
+        cu = os.path.join(out_dir, files[0])
         lib = os.path.join(out_dir, f"lib_{name}.so")
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", lib, cu]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -51,8 +51,8 @@ _SIGNATURES = {
                          _LL, _I, _I, _P],
     "pcilt_gemv_plan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                         _P],
-    "pcilt_dwconv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                       _P],
+    "pcilt_dwconv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                       _I, _I, _P],
     "pcilt_dwconv1d_host": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "pcilt_shared_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _I, _P],
@@ -61,7 +61,7 @@ _SIGNATURES = {
     "pcilt_fused_conv2d_staged": [_P, _P, _P, _P] + [_I] * 15 + [_P],
     "pcilt_shared_conv2d_staged": [_P, _P, _P, _P] + [_I] * 15 + [_P],
     "pcilt_conv2d_codes": [_P, _P] + [_I] * 6 + [_F, _P],
-    "pcilt_gemv_host": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    "pcilt_gemv_host": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
 }
 #: the C entry points without a dtype suffix (a design's constants) ->
 #: argtypes
@@ -73,6 +73,9 @@ _CONFIG_SIGNATURES = {
     "pcilt_shared_gemv_split_plan": [_I, _I, _I, _I, _P],
     "pcilt_dwconv1d_staged_config": [_P],
     "pcilt_dwconv1d_staged_plan": [_LL, _I, _I, _I, _P],
+    "pcilt_dwconv1d_tiled_config": [_P],
+    "pcilt_dwconv1d_tiled_plan": [_I, _I, _I, _P],
+    "pcilt_gemv_host_staged_config": [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -190,102 +190,15 @@ int launch(const float* x, const T* tab, const int* seg_idx, T* out, int B,
 
 namespace staged {
 
-constexpr int kWarps = 16;
-constexpr int kPixPerThread = 64;                     // accumulators a thread
-constexpr int kPixTile = kWarps * kPixPerThread;      // pixels a block
-constexpr int kColTile = 32;                          // columns a block
-constexpr int kStages = 4;      // slices in flight: the fetched one + 3 ahead
+using namespace pcilt::staged;
 constexpr int kOffRing = 8;     // offset and row-mask slots (5 live)
-constexpr int kRowPitch = 256;  // bytes from one slice row to the next
-constexpr int kThreads = kWarps * 32;
 constexpr int kStagePix = kPixTile / kThreads;        // offsets a thread packs
-constexpr int kMaxV = 256;                            // offsets are bytes
 constexpr int kCodeTile = 32;                         // pre-pass transpose tile
-
-// Slices share 256-byte rows: a row holds 256 / (kColTile * item) slots'
-// columns side by side, and kMaxV rows make a 64 KB block.  So cell (v, l)
-// of slot s lies at byte (s / per) << 16 | v << 8 | (s % per) * 32 * item
-// + l * item: one byte_perm of a pixel's offset byte and a per-lane,
-// per-slot word builds the whole address.
-__host__ __device__ constexpr int slots_per_row(int item) {
-  return kRowPitch / (kColTile * item);
-}
-constexpr int kBlockBytes = kMaxV * kRowPitch;
 
 // Dynamic shared memory of a block: the slice blocks, then kOffRing slots
 // of kPixTile offset bytes, then kOffRing row masks of kMaxV bytes.
 __host__ __device__ constexpr size_t smem_bytes(int item) {
-  return (size_t)((kStages + slots_per_row(item) - 1) / slots_per_row(item)) *
-             kBlockBytes +
-         (size_t)kOffRing * (kPixTile + kMaxV);
-}
-
-// Byte offset of ring slot s's row 0, column 0 in the slice area.
-__device__ __forceinline__ unsigned slot_offset(int s, int item) {
-  const int per = slots_per_row(item);
-  return (unsigned)(s / per) << 16 | (unsigned)((s % per) * kColTile * item);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-                 "l"(src), "n"(N));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The rows of T[:, o0:o0+ncols] (src = its row 0, column o0) that some
-// pixel's offset names (used[v] != 0; used has kMaxV bytes, 0 past V) ->
-// dst rows of kRowPitch bytes, VB bytes a copy.  The mask bytes are read
-// first, all together, then the copies issued.
-template <typename T, int VB>
-__device__ __forceinline__ void copy_slice(unsigned char* dst, const T* src,
-                                           const uint8_t* used, long long O,
-                                           int ncols) {
-  constexpr int E = VB / (int)sizeof(T);
-  constexpr int kVecs = kColTile / E;      // copies a row
-  constexpr int kPass = kThreads / kVecs;  // rows a pass
-  constexpr int kRows = kMaxV / kPass;     // passes
-  const int c = (threadIdx.x % kVecs) * E;
-  if (c >= ncols) return;
-  const int r0 = threadIdx.x / kVecs;
-  bool use[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) use[i] = used[r0 + i * kPass] != 0;
-  dst += c * sizeof(T) + r0 * kRowPitch;
-  src += c + r0 * O;
-  const long long step = kPass * O;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i, src += step)
-    if (use[i]) cp_async<VB>(dst + i * kPass * kRowPitch, src);
-}
-
-// The same, element by element through registers (a bf16 table of odd O:
-// no row is 4-byte aligned).
-template <typename T>
-__device__ __forceinline__ void copy_slice_plain(unsigned char* dst,
-                                                 const T* src,
-                                                 const uint8_t* used,
-                                                 long long O, int ncols) {
-  constexpr int V = kMaxV;
-  for (int i = threadIdx.x; i < V * kColTile; i += kThreads) {
-    const int r = i / kColTile;
-    const int c = i - r * kColTile;
-    if (c < ncols && used[r])
-      reinterpret_cast<T*>(dst + r * kRowPitch)[c] = src[r * O + c];
-  }
+  return slice_bytes(item) + (size_t)kOffRing * (kPixTile + kMaxV);
 }
 
 // The patch position the walk's next segment reads its codes from: pos,
@@ -430,13 +343,7 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
     if (base >= 0) {
       unsigned char* dst = s_tab + slot_offset(g % kStages, (int)sizeof(T));
       const uint8_t* used = s_used + (g % kOffRing) * kMaxV;
-      const T* src = tab + base + o0;
-      switch (vb) {
-        case 16: copy_slice<T, 16>(dst, src, used, O, ncols); break;
-        case 8: copy_slice<T, 8>(dst, src, used, O, ncols); break;
-        case 4: copy_slice<T, 4>(dst, src, used, O, ncols); break;
-        default: copy_slice_plain<T>(dst, src, used, O, ncols);
-      }
+      copy_slice_vb<T>(dst, tab + base + o0, used, O, ncols, vb);
     }
     cp_async_commit();
   };
@@ -470,20 +377,9 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
   // cell (v, lane) of a slot: byte v << 8 | at of s_tab, one byte_perm of
   // the offset byte v into byte 1 of at
   auto fetch = [&](int g) {
-    const unsigned at = slot_offset(g % kStages, (int)sizeof(T)) + lane_byte;
-    const uint4* oc = reinterpret_cast<const uint4*>(
-        s_off + (g % kOffRing) * kPixTile + warp * kPixPerThread);
-#pragma unroll
-    for (int i = 0; i < kPixPerThread / 16; ++i) {
-      const uint4 w = oc[i];  // 16 pixels' offsets, one broadcast
-      const unsigned ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          acc[16 * i + 4 * q + b] += pcilt::to_f32(*reinterpret_cast<const T*>(
-              s_tab + __byte_perm(ws[q], at, 0x7604u | (b << 4))));
-    }
+    fetch_slot<T>(acc, s_tab,
+                  s_off + (g % kOffRing) * kPixTile + warp * kPixPerThread,
+                  slot_offset(g % kStages, (int)sizeof(T)) + lane_byte);
   };
   auto segment = [&](int g, unsigned (&raw_in)[kStagePix][kG],
                      unsigned (&mask_in)[kG], unsigned (&raw_out)[kStagePix][kG],
@@ -517,17 +413,6 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
   }
 }
 
-// Widest copy (16, 8 or 4 bytes; 0: element by element) that every slice
-// row allows: the row stride O*item, the table's address and the tile.
-int copy_width(const void* tab, int O, int item) {
-  const unsigned long long a = (unsigned long long)tab;
-  for (int w = 16; w >= 4; w /= 2)
-    if ((long long)O * item % w == 0 && a % w == 0 &&
-        staged::kColTile * item % w == 0)
-      return w;
-  return 0;
-}
-
 template <typename T, bool kShared, int kG>
 int launch_staged_g(const uint8_t* codes, const T* tab, const int* seg_idx,
                     T* out, long long P, int C, int Hp, int Wp, int Ho,
@@ -541,7 +426,8 @@ int launch_staged_g(const uint8_t* codes, const T* tab, const int* seg_idx,
   conv2d_staged_kernel<T, kShared, kG>
       <<<(unsigned)blocks, staged::kThreads, smem, stream>>>(
           codes, tab, seg_idx, out, P, C, Hp, Wp, Ho, Wo, kw, stride, G, X,
-          V, O, n, group, bits, n_ptiles, copy_width(tab, O, sizeof(T)));
+          V, O, n, group, bits, n_ptiles,
+          staged::copy_width(tab, O, sizeof(T)));
   return (int)cudaGetLastError();
 }
 

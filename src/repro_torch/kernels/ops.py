@@ -44,6 +44,21 @@ and the kept ``"direct"`` one.  :data:`SHARED_GEMV_VARIANT_LAUNCHES` and
 :data:`DWCONV_HOST_VARIANT_LAUNCHES` count which ran; ``_shared_gemv`` and
 ``_dwconv1d_host`` take ``variant=`` to force either on a CUDA tensor;
 neither falls back to the other.
+
+The fused dwconv (kernel 2, ``csrc/pcilt_dwconv1d.cu``) comes in a
+``"tiled"`` design (a grid of channel tiles and output rows that
+:func:`dwconv_tiled_grid` mirrors, its counters reduced across blocks
+without a pre-zeroed buffer, so no fill kernel runs before it; ``k <= 8``)
+and the kept ``"direct"`` one;
+:data:`DWCONV_VARIANT_LAUNCHES` counts which ran, ``_fused_dwconv1d`` takes
+``variant=`` and :func:`_dwconv_forced` forces a design for the launches
+inside it.  The host-packed GEMV and conv (kernels 6 and 7, one body in
+``csrc/pcilt_gemv.cu``) come in a ``"staged"`` design (kernel 4's staged
+fetch over the caller's offsets; ``V <= 256`` and at least one row tile)
+and the kept ``"direct"`` one: :func:`gemv_host_variant` chooses,
+:func:`gemv_host_block_tile` mirrors the staged grid,
+:data:`GEMV_HOST_VARIANT_LAUNCHES` counts, and ``_gemv_host`` /
+``_conv2d_host`` take ``variant=``.  Neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -81,7 +96,11 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "gemv_smem_bytes", "SHARED_GEMV_VARIANT_LAUNCHES", "SharedSplit",
            "shared_gemv_variant", "shared_gemv_smem_bytes",
            "shared_gemv_slices", "DWCONV_HOST_VARIANT_LAUNCHES",
-           "DwconvTiling", "dwconv_host_variant", "dwconv_host_tiling"]
+           "DwconvTiling", "dwconv_host_variant", "dwconv_host_tiling",
+           "DWCONV_VARIANT_LAUNCHES", "GEMV_HOST_VARIANT_LAUNCHES",
+           "gemv_host_variant", "gemv_host_smem_bytes", "gemv_host_tiles",
+           "gemv_host_block_tile", "gemv_host_plain", "dwconv_variant",
+           "DwTiledGrid", "dwconv_tiled_grid"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -101,11 +120,18 @@ SHARED_GEMV_VARIANT_LAUNCHES: Dict[str, int] = {"split": 0, "direct": 0}
 #: host-packed dwconv design -> number of its launches on CUDA
 DWCONV_HOST_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
 
+#: fused dwconv design -> number of its launches on CUDA
+DWCONV_VARIANT_LAUNCHES: Dict[str, int] = {"tiled": 0, "direct": 0}
+
+#: host-packed GEMV / conv design -> number of its launches on CUDA
+GEMV_HOST_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
+
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, CONV_VARIANT_LAUNCHES, GEMV_VARIANT_LAUNCHES,
                    SHARED_GEMV_VARIANT_LAUNCHES,
-                   DWCONV_HOST_VARIANT_LAUNCHES):
+                   DWCONV_HOST_VARIANT_LAUNCHES, DWCONV_VARIANT_LAUNCHES,
+                   GEMV_HOST_VARIANT_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -537,6 +563,117 @@ def dwconv1d_plain(xp, tables, spec: QuantSpec, scale, k: int,
     return (out, count, ratio) if with_stats else out
 
 
+#: the tiled fused dwconv's constants (pcilt_dwconv1d.cu; the library's own
+#: are checked against these at its first launch): lanes a channel tile (at
+#: most), lanes a tile of 4-channel lanes (at most), the blocks the grid
+#: aims for, the largest k it serves, the largest grid whose counters it
+#: sums in one cluster
+DW_TILED_THREADS, DW_WIDE_LANES, DW_TILED_TARGET_BLOCKS = 512, 128, 1056
+DW_TILED_MAX_TAPS, DW_CLUSTER_BLOCKS = 8, 16
+
+
+class DwTiledGrid(NamedTuple):
+    """The tiled dwconv's grid over ``rows`` output rows (``B * To``) and
+    ``C`` channels (``dw_tiled_grid`` of pcilt_dwconv1d.cu): block ``(x,
+    y)`` owns channels ``[x * threads * nv, (x + 1) * threads * nv)``, a
+    lane ``nv`` adjacent ones, and rows ``y, y + ry, ...``.  When ``tiles *
+    ry <= DW_CLUSTER_BLOCKS`` the data blocks are one cluster and the
+    launch holds a second, as large, that counts the saturation over the
+    signal; else the data blocks count and sum through the ticket."""
+    nv: int       # channels a lane (1 or 4)
+    tiles: int    # channel tiles
+    threads: int  # threads a block
+    ry: int       # row blocks
+
+
+def dwconv_tiled_grid(rows: int, C: int, wide: bool) -> DwTiledGrid:
+    """The tiled grid: a channel a lane over tiles of up to
+    ``DW_TILED_THREADS`` lanes where that puts every row in one cluster
+    (the decode window: the most SMs for its two dependent trips to
+    memory); else 4 channels a lane when ``wide`` (``C % 4 == 0`` and
+    16-byte aligned operands) over tiles of up to ``DW_WIDE_LANES`` lanes,
+    with as many row blocks as bring the grid to ``DW_TILED_TARGET_BLOCKS``
+    (at most ``rows``)."""
+    nv, lanes = 1, C
+    tiles = -(-lanes // DW_TILED_THREADS)
+    if tiles * rows > DW_CLUSTER_BLOCKS:
+        nv = 4 if wide else 1
+        lanes = -(-C // nv)
+        tiles = -(-lanes // DW_WIDE_LANES)
+    per_tile = -(-lanes // tiles)
+    threads = -(-per_tile // 32) * 32
+    ry = max(1, min(DW_TILED_TARGET_BLOCKS // tiles, rows))
+    return DwTiledGrid(nv, tiles, threads, ry)
+
+
+def dwconv_variant(k: int) -> str:
+    """The fused dwconv's design for ``k`` taps: ``"tiled"`` while its taps
+    fit the tiled design's registers (``k <= DW_TILED_MAX_TAPS``), else
+    ``"direct"``."""
+    return "tiled" if k <= DW_TILED_MAX_TAPS else "direct"
+
+
+#: a design forced on the fused dwconv launches inside :func:`_dwconv_forced`
+_DWCONV_FORCED: Optional[str] = None
+
+
+@contextlib.contextmanager
+def _dwconv_forced(variant: str):
+    """Every fused dwconv launched on a CUDA tensor inside the block runs
+    ``variant`` (tests and ``chip_smoke.py``); CPU tensors still run the
+    plain version."""
+    global _DWCONV_FORCED
+    if variant not in DWCONV_VARIANT_LAUNCHES:
+        raise ValueError(f"unknown fused dwconv variant {variant!r}")
+    before, _DWCONV_FORCED = _DWCONV_FORCED, variant
+    try:
+        yield
+    finally:
+        _DWCONV_FORCED = before
+
+
+#: (device index, stream) -> the tiled dwconv's int32 scratch {count, max
+#: |x| bits, ticket, unused}: zeroed once when made, and every launch that
+#: takes the ticket leaves it zeroed (its last block resets it)
+_DWCONV_SCRATCH: Dict[tuple, torch.Tensor] = {}
+_DW_TILED_CHECKED = set()
+
+
+def _check_dwconv_grid(lib, rows: int, C: int, wide: bool) -> None:
+    """The library's tiled grid of this shape must be this module's mirror
+    of it (each shape checked once)."""
+    key = (rows, C, wide)
+    if key in _DW_TILED_CHECKED:
+        return
+    got = (ctypes.c_int * 4)()
+    lib.pcilt_dwconv1d_tiled_plan(rows, C, int(wide), got)
+    mine = dwconv_tiled_grid(rows, C, wide)
+    if tuple(got) != tuple(mine):
+        raise RuntimeError(f"pcilt_dwconv1d.cu tiles {rows} rows of C {C} "
+                           f"as {tuple(got)}, kernels.ops as {tuple(mine)}")
+    _DW_TILED_CHECKED.add(key)
+
+
+def _dwconv_scratch(lib, dev: torch.device) -> torch.Tensor:
+    """The scratch of ``dev``'s current stream (made on its first use, when
+    the library's tiled constants are also checked against this module's)."""
+    if "config" not in _DW_TILED_CHECKED:
+        cfg = (ctypes.c_int * 5)()
+        lib.pcilt_dwconv1d_tiled_config(cfg)
+        mine = (DW_TILED_THREADS, DW_WIDE_LANES, DW_TILED_TARGET_BLOCKS,
+                DW_TILED_MAX_TAPS, DW_CLUSTER_BLOCKS)
+        if tuple(cfg) != mine:
+            raise RuntimeError(f"pcilt_dwconv1d.cu's tiled constants "
+                               f"{tuple(cfg)} differ from kernels.ops' {mine}")
+        _DW_TILED_CHECKED.add("config")
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = _DWCONV_SCRATCH.get(key)
+    if scratch is None:
+        scratch = torch.zeros(4, dtype=torch.int32, device=dev)
+        _DWCONV_SCRATCH[key] = scratch
+    return scratch
+
+
 def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
                          spec: QuantSpec, scale, k: int,
                          padding: str = "CAUSAL", with_stats: bool = False):
@@ -544,6 +681,14 @@ def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
     -> ``[B, To, C]`` in the table dtype (plus the saturation stats of the
     signal with ``with_stats``).  The only host-side work is the time pad
     of the signal (none for ``"VALID"``)."""
+    return _fused_dwconv1d(x, tables, spec, scale, k, padding, with_stats)
+
+
+def _fused_dwconv1d(x, tables, spec: QuantSpec, scale, k: int,
+                    padding: str = "CAUSAL", with_stats: bool = False,
+                    variant=None):
+    """:func:`pcilt_fused_dwconv1d`, with ``variant`` forcing a design on a
+    CUDA tensor (else the forced one, else :func:`dwconv_variant`'s)."""
     B, T, C = x.shape
     C2, V = tables.shape
     if C != C2:
@@ -561,13 +706,30 @@ def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
     if _on_cpu(xp, tables):
         return dwconv1d_plain(xp, tables, spec, scale, k, with_stats)
     dt = _check_launch("pcilt_fused_dwconv1d", xp, tables)
+    variant = variant or _DWCONV_FORCED or dwconv_variant(k)
+    if variant not in DWCONV_VARIANT_LAUNCHES:
+        raise ValueError(f"pcilt_fused_dwconv1d: unknown variant {variant!r}")
+    if variant == "tiled" and dwconv_variant(k) != "tiled":
+        raise ValueError(f"pcilt_fused_dwconv1d: {k} taps cannot be tiled "
+                         f"(at most {DW_TILED_MAX_TAPS})")
+    lib = build.library("dwconv1d")
     out = torch.empty((B, Tp - k + 1, C), dtype=tables.dtype, device=x.device)
-    stats = torch.zeros(2, dtype=torch.int32, device=x.device) \
-        if with_stats else None
-    fn = getattr(build.library("dwconv1d"), f"pcilt_dwconv1d_{dt}")
-    _launch("dwconv1d", fn, xp, _ptr(xp), _ptr(tables), _ptr(out),
-            _ptr(stats), B, Tp, C, V, k, spec.bits, spec.zero_point,
-            _host_scale(scale), int(with_stats))
+    stats = scratch = None
+    if variant == "tiled":
+        es = tables.element_size()
+        wide = C % 4 == 0 and xp.data_ptr() % 16 == 0 \
+            and out.data_ptr() % (4 * es) == 0
+        scratch = _dwconv_scratch(lib, x.device)
+        _check_dwconv_grid(lib, B * (Tp - k + 1), C, wide)
+        if with_stats:  # written whole by the kernel
+            stats = torch.empty(2, dtype=torch.int32, device=x.device)
+    elif with_stats:  # the kept design adds into it
+        stats = torch.zeros(2, dtype=torch.int32, device=x.device)
+    _launch("dwconv1d", getattr(lib, f"pcilt_dwconv1d_{dt}"), xp, _ptr(xp),
+            _ptr(tables), _ptr(out), _ptr(stats), _ptr(scratch), B, Tp, C, V,
+            k, spec.bits, spec.zero_point, _host_scale(scale),
+            int(with_stats), 0 if variant == "tiled" else 1)
+    DWCONV_VARIANT_LAUNCHES[variant] += 1
     return (out, *_stats_out(stats)) if with_stats else out
 
 
@@ -847,8 +1009,90 @@ def _shared_gemv(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
 # ----------------------------------------------------------------------------
 
 
+#: the staged host-packed GEMV's tiling (``namespace hstaged`` of
+#: pcilt_gemv.cu; the library's own values are checked against these at its
+#: first launch): rows and columns a block, slice slots, segments a row's
+#: offsets are read in, offset slots, the largest V
+HOST_ROW_TILE, HOST_COL_TILE, HOST_STAGES = 1024, 32, 4
+HOST_CHUNK, HOST_OFF_RING, HOST_MAX_V = 8, 16, 256
+
+
+def gemv_host_smem_bytes(itemsize: int) -> int:
+    """Shared memory of a staged host-packed block: ``HOST_STAGES`` table
+    slices (as :func:`staged_smem_bytes` lays them out), then
+    ``HOST_OFF_RING`` slots of ``HOST_ROW_TILE`` offset bytes, of a
+    ``HOST_MAX_V``-byte row mask, of a ``HOST_ROW_TILE``-bit bad-row mask
+    and of a 4-byte segment flag, then one chunk of raw int32 offsets
+    ``[HOST_ROW_TILE, HOST_CHUNK]``."""
+    per_row = STAGED_ROW_PITCH // (HOST_COL_TILE * itemsize)
+    blocks = -(-HOST_STAGES // per_row)
+    return (blocks * HOST_MAX_V * STAGED_ROW_PITCH
+            + HOST_OFF_RING * (HOST_ROW_TILE + HOST_MAX_V
+                               + HOST_ROW_TILE // 8 + 4)
+            + HOST_ROW_TILE * HOST_CHUNK * 4)
+
+
+def gemv_host_variant(M: int, G: int, V: int, O: int, itemsize: int) -> str:
+    """The host-packed GEMV's design over ``M`` rows, ``G`` segments, ``V``
+    values and ``O`` columns of ``itemsize``-byte cells: ``"staged"`` while
+    every offset fits a byte (``V <= HOST_MAX_V``), the ring fits a block's
+    shared memory and ``M`` fills at least one row tile; else ``"direct"``
+    (the M = 4 GEMVs of plans and learnable tables).  G and O do not
+    change the choice."""
+    if V <= HOST_MAX_V and gemv_host_smem_bytes(itemsize) <= SMEM_LIMIT \
+            and M >= HOST_ROW_TILE:
+        return "staged"
+    return "direct"
+
+
+def gemv_host_tiles(M: int, O: int):
+    """``(row tiles, column tiles)`` of the staged grid over ``M`` rows and
+    ``O`` columns; the grid has their product of blocks."""
+    return -(-M // HOST_ROW_TILE), -(-O // HOST_COL_TILE)
+
+
+def gemv_host_block_tile(i: int, M: int, O: int):
+    """Block ``i``'s ``((m0, m1), (o0, o1))`` in the staged grid, clipped to
+    ``M`` and ``O``: row tile ``i % n_rtiles`` of column tile ``i //
+    n_rtiles`` (the blocks resident together share a column tile)."""
+    n_r, _ = gemv_host_tiles(M, O)
+    m0, o0 = (i % n_r) * HOST_ROW_TILE, (i // n_r) * HOST_COL_TILE
+    return ((m0, min(M, m0 + HOST_ROW_TILE)),
+            (o0, min(O, o0 + HOST_COL_TILE)))
+
+
+def gemv_host_plain(offsets, tables):
+    """Plain version of kernels 6 and 7: offsets ``[..., G]``, tables ``[G,
+    V, O]`` -> ``[..., O]``, ``kernels.ref.pcilt_gemv_ref`` over the
+    flattened rows."""
+    G, _, O = tables.shape
+    out = pcilt_gemv_ref(offsets.reshape(-1, G), tables)
+    return out.reshape(*offsets.shape[:-1], O)
+
+
+_HOST_CHECKED = []
+
+
+def _check_host_config(lib) -> None:
+    """The library's staged host-packed tiling must be this module's mirror
+    of it."""
+    if _HOST_CHECKED:
+        return
+    cfg = (ctypes.c_int * 6)()
+    lib.pcilt_gemv_host_staged_config(cfg)
+    mine = (HOST_ROW_TILE, HOST_COL_TILE, HOST_STAGES, HOST_CHUNK,
+            HOST_OFF_RING, HOST_MAX_V)
+    if tuple(cfg) != mine:
+        raise RuntimeError(f"pcilt_gemv.cu's staged tiling {tuple(cfg)} "
+                           f"differs from kernels.ops' {mine}")
+    _HOST_CHECKED.append(True)
+
+
 def _launch_gemv_host(name: str, offsets: torch.Tensor,
-                      tables: torch.Tensor) -> torch.Tensor:
+                      tables: torch.Tensor, variant=None) -> torch.Tensor:
+    """Kernel 6 (or 7, by ``name``) over the ``[..., G]`` offsets flattened
+    to rows; ``variant`` forces a design on a CUDA tensor (else
+    :func:`gemv_host_variant`'s)."""
     G, V, O = tables.shape
     if offsets.dtype != torch.int32:
         raise TypeError(f"{name}: offsets must be int32, got {offsets.dtype}")
@@ -862,32 +1106,55 @@ def _launch_gemv_host(name: str, offsets: torch.Tensor,
     if M < 1:
         raise ValueError(f"{name}: no rows")
     if _on_cpu(offsets, tables):
-        out = pcilt_gemv_ref(flat, tables)
-    else:
-        dt = _check_tables(name, tables, offsets)
-        out = torch.empty((M, O), dtype=tables.dtype, device=tables.device)
-        fn = getattr(build.library("gemv_host"), f"pcilt_gemv_host_{dt}")
-        _launch(name, fn, tables, _ptr(offsets), _ptr(tables), _ptr(out), M,
-                G, V, O)
+        return gemv_host_plain(offsets, tables)
+    dt = _check_tables(name, tables, offsets)
+    es = tables.element_size()
+    variant = variant or gemv_host_variant(M, G, V, O, es)
+    if variant not in GEMV_HOST_VARIANT_LAUNCHES:
+        raise ValueError(f"{name}: unknown variant {variant!r}")
+    lib = build.library("gemv_host")
+    if variant == "staged":
+        if V > HOST_MAX_V or gemv_host_smem_bytes(es) > SMEM_LIMIT:
+            raise ValueError(f"{name}: a V = {V} slice cannot be staged (V <="
+                             f" {HOST_MAX_V} and {gemv_host_smem_bytes(es)} "
+                             f"B of shared memory <= {SMEM_LIMIT} B needed)")
+        _check_host_config(lib)
+    out = torch.empty((M, O), dtype=tables.dtype, device=tables.device)
+    _launch(name, getattr(lib, f"pcilt_gemv_host_{dt}"), tables,
+            _ptr(offsets), _ptr(tables), _ptr(out), M, G, V, O,
+            0 if variant == "staged" else 1)
+    GEMV_HOST_VARIANT_LAUNCHES[variant] += 1
     return out.reshape(*offsets.shape[:-1], O)
 
 
 def pcilt_gemv(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """offsets ``[M, G]`` int32 (packed by the caller), tables ``[G, V, O]``
     -> ``[M, O]`` in the table dtype: ``sum_g T[g, off[m, g]]``."""
+    return _gemv_host(offsets, tables)
+
+
+def _gemv_host(offsets, tables, variant=None):
+    """:func:`pcilt_gemv`, with ``variant`` forcing a design on a CUDA
+    tensor."""
     if offsets.dim() != 2:
         raise ValueError(f"offsets must be [M, G], got {tuple(offsets.shape)}")
-    return _launch_gemv_host("gemv_host", offsets, tables)
+    return _launch_gemv_host("gemv_host", offsets, tables, variant)
 
 
 def pcilt_conv2d(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """offsets ``[B, Ho, Wo, G]`` int32, tables ``[G, V, O]`` ->
     ``[B, Ho, Wo, O]``: the host-packed conv fetch, the GEMV kernel over the
     flattened pixels."""
+    return _conv2d_host(offsets, tables)
+
+
+def _conv2d_host(offsets, tables, variant=None):
+    """:func:`pcilt_conv2d`, with ``variant`` forcing a design on a CUDA
+    tensor."""
     if offsets.dim() != 4:
         raise ValueError(f"offsets must be [B, Ho, Wo, G], got "
                          f"{tuple(offsets.shape)}")
-    return _launch_gemv_host("conv2d_host", offsets, tables)
+    return _launch_gemv_host("conv2d_host", offsets, tables, variant)
 
 
 # ----------------------------------------------------------------------------

@@ -630,3 +630,218 @@ def test_large_v_dwconv1d_host_takes_the_kept_kernel(cuda):
     assert torch.equal(got, pcilt_dwconv1d_ref(off, tabs))
     with pytest.raises(ValueError, match="cannot be staged"):
         ops._dwconv1d_host(off, tabs, variant="staged")
+
+
+def _host_case(gen, dev, M, G, V, O, dtype, exact, shift=0):
+    """Tables ``[G, V, O]`` (small integers on an exact grid) and offsets
+    ``[M, G]`` (``shift`` int32 past an aligned start) with -1, V and
+    2**31 - 1 mixed in."""
+    if exact:
+        tabs = torch.randint(-3, 4, (G, V, O), generator=gen, device=dev)
+    else:
+        tabs = torch.randn(G, V, O, generator=gen, device=dev)
+    store = torch.randint(0, V, (M * G + shift,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    off = store[shift:].view(M, G)
+    bad = torch.randint(0, M * G, (3 * max(1, M * G // 97),),
+                        generator=gen, device=dev)
+    off.view(-1)[bad[0::3]] = -1
+    off.view(-1)[bad[1::3]] = V
+    off.view(-1)[bad[2::3]] = 2 ** 31 - 1
+    return tabs.to(torch.float32).to(dtype), off
+
+
+HOST_CASES = [  # M, G, V, O, exact grid, shift
+    (1500, 300, 256, 97, False, 0),   # 16-byte offset vectors, ragged O
+    (1500, 300, 256, 97, True, 0),
+    (2100, 25, 256, 50, True, 0),     # conv0's G: 4-byte vectors
+    (1030, 1250, 256, 80, False, 0),  # conv1's G: 8-byte vectors
+    (1024, 7, 16, 13, True, 0),       # odd G, V < 256, O < 32
+    (3000, 64, 64, 45, True, 1),      # an unaligned offsets array
+    (1100, 40, 256, 350, True, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,G,V,O,exact,shift", HOST_CASES)
+def test_gemv_host_staged_matches_plain_and_kept(cuda, dtype, M, G, V, O,
+                                                 exact, shift):
+    """Kernel 6's staged design (the wrappers' choice here) twice,
+    bit-identical, and the kept design forced, against the plain version:
+    bit-equal on an exact grid (integer cells: every float32 sum exact, one
+    cast), else within 1e-4 (float32: another summation order over up to
+    1250 rows) or 1e-2 (bfloat16: one rounding of the float32 sum); offsets
+    of -1, V and 2**31 - 1 add nothing.  The variant counts say which
+    design ran."""
+    gen = torch.Generator(device=cuda).manual_seed(M + G + V + O + shift)
+    tabs, off = _host_case(gen, cuda, M, G, V, O, dtype, exact, shift)
+    assert ops.gemv_host_variant(M, G, V, O, tabs.element_size()) == "staged"
+    seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+    first = ops.pcilt_gemv(off, tabs)
+    again = ops.pcilt_gemv(off, tabs)
+    kept = ops._gemv_host(off, tabs, variant="direct")
+    torch.cuda.synchronize()
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {
+        "staged": seen["staged"] + 2, "direct": seen["direct"] + 1}
+    assert torch.equal(first, again)
+    want = ops.gemv_host_plain(off, tabs)
+    rtol = 0.0 if exact else (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    if exact:
+        assert torch.equal(first, want) and torch.equal(kept, want)
+    _assert_sum_close(first, want, rtol)
+    _assert_sum_close(kept, want, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_host_staged_matches_plain(cuda, dtype):
+    """Kernel 7 is kernel 6 over the flattened pixels: the staged design on
+    ``[2, 33, 40, G]`` offsets (2640 rows) bit-equal to the plain version on
+    an exact grid, and to kernel 6 on the same rows."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    G, V, O = 75, 256, 120
+    tabs, off = _host_case(gen, cuda, 2 * 33 * 40, G, V, O, dtype, True)
+    off4 = off.view(2, 33, 40, G)
+    seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+    got = ops.pcilt_conv2d(off4, tabs)
+    torch.cuda.synchronize()
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES["staged"] == seen["staged"] + 1
+    assert got.shape == (2, 33, 40, O)
+    assert torch.equal(got, ops.gemv_host_plain(off, tabs).view(got.shape))
+    assert torch.equal(got.view(-1, O), ops.pcilt_gemv(off, tabs))
+
+
+@pytest.mark.cuda
+def test_gemv_host_staged_never_reads_a_row_no_offset_names(cuda):
+    """Every offset of segment 3 out of range and its table all NaN (as are
+    the rows of segment 5 that no offset names): the staged and the kept
+    design give the finite sum of the other segments."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    M, G, V, O = 2048, 12, 256, 64
+    tabs, off = _host_case(gen, cuda, M, G, V, O, torch.float32, True)
+    off[:, 3] = torch.tensor([-1, V, 2 ** 31 - 1], dtype=torch.int32,
+                             device=cuda).repeat(M // 3 + 1)[:M]
+    tabs[3] = float("nan")
+    off[:, 5] = off[:, 5] % 128
+    tabs[5, 128:] = float("nan")
+    want = ops.gemv_host_plain(off, tabs)
+    assert bool(torch.isfinite(want).all())
+    for variant in ("staged", "direct"):
+        got = ops._gemv_host(off, tabs, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), variant
+
+
+@pytest.mark.cuda
+def test_gemv_host_large_v_and_small_m_take_the_kept_kernel(cuda):
+    """V = 512 cannot be staged and M = 4 fills no row tile: both take the
+    kept design unforced; forcing the staged design at V = 512 raises, at
+    M = 4 it runs (and agrees)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tabs, off = _host_case(gen, cuda, 40, 6, 512, 33, torch.float32, True)
+    small_t, small_o = _host_case(gen, cuda, 4, 512, 256, 300, torch.float32,
+                                  True)
+    seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+    got = ops.pcilt_gemv(off, tabs)
+    small = ops.pcilt_gemv(small_o, small_t)
+    forced = ops._gemv_host(small_o, small_t, variant="staged")
+    torch.cuda.synchronize()
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {
+        "staged": seen["staged"] + 1, "direct": seen["direct"] + 2}
+    assert torch.equal(got, ops.gemv_host_plain(off, tabs))
+    assert torch.equal(small, ops.gemv_host_plain(small_o, small_t))
+    assert torch.equal(forced, small)
+    with pytest.raises(ValueError, match="cannot be staged"):
+        ops._gemv_host(off, tabs, variant="staged")
+
+
+DWCONV_TILED_CASES = [  # B, T, C, k, bits, padding
+    (4, 4, 1792, 4, 4, "VALID"),     # the decode window
+    (4, 2048, 1792, 4, 2, "CAUSAL"),  # the full-sequence signal
+    (3, 9, 33, 4, 4, "CAUSAL"),      # C % 4 != 0: a channel a lane
+    (2, 6, 12, 3, 4, "SAME"),
+    (2, 9, 8, 6, 2, "VALID"),        # k > 4
+    (3, 4, 64, 4, 4, "VALID"),       # a cluster of 3 blocks
+    (2, 40, 8, 4, 2, "CAUSAL"),      # 80 blocks: the ticket
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,k,bits,padding", DWCONV_TILED_CASES)
+def test_dwconv1d_designs_agree_exactly(cuda, dtype, B, T, C, k, bits,
+                                        padding):
+    """Kernel 2's tiled design (the default) twice and the kept design
+    forced, outputs and counters, against the plain version: exact (one
+    fetch per output; an int count and a max).  Saturating taps at both
+    ends of every window; the variant counts say which design ran."""
+    from repro_torch.core.quantization import QuantSpec as QS
+
+    gen = torch.Generator(device=cuda).manual_seed(B * T * C + k)
+    spec = QS(bits, True)
+    filt = torch.randn(k, C, generator=gen, device=cuda)
+    tabs = build_dwconv_tables(filt, spec, 0.3).to(dtype)
+    x = torch.randn(B, T, C, generator=gen, device=cuda) * 1.5
+    x[:, 0, ::3] = 40.0
+    x[:, -1, 1::3] = -40.0
+    seen = dict(ops.DWCONV_VARIANT_LAUNCHES)
+    runs = [ops.pcilt_fused_dwconv1d(x, tabs, spec, 0.3, k, padding,
+                                     with_stats=True) for _ in range(2)]
+    runs.append(ops._fused_dwconv1d(x, tabs, spec, 0.3, k, padding,
+                                    with_stats=True, variant="direct"))
+    lo, hi = ops._dwconv_pads(k, padding)
+    xp = torch.nn.functional.pad(x, (0, 0, lo, hi))
+    want, wc, wr = ops.dwconv1d_plain(xp, tabs, spec, 0.3, k, with_stats=True)
+    torch.cuda.synchronize()
+    assert ops.DWCONV_VARIANT_LAUNCHES == {
+        "tiled": seen["tiled"] + 2, "direct": seen["direct"] + 1}
+    assert int(wc) > 0
+    for got, gc, gr in runs:
+        assert torch.equal(got, want)
+        assert int(gc) == int(wc) and float(gr) == float(wr)
+
+
+@pytest.mark.cuda
+def test_dwconv1d_tiled_stats_do_not_accumulate(cuda):
+    """Back-to-back tiled launches into output and stats memory pre-filled
+    with garbage, on two signals: each call's stats are its own signal's
+    (the scratch it sums in is left zeroed by every launch), through the
+    wrapper and through the library entry point with the buffers given."""
+    from repro_torch.core.quantization import QuantSpec as QS
+    from repro_torch.kernels import build
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    spec, k, C = QS(4, True), 4, 1792
+    tabs = build_dwconv_tables(torch.randn(k, C, generator=gen, device=cuda),
+                               spec, 0.3)
+    xs = [torch.randn(4, 4, C, generator=gen, device=cuda) * s
+          for s in (3.0, 0.5, 3.0)]
+    wants = [ops.dwconv1d_plain(x, tabs, spec, 0.3, k, with_stats=True)
+             for x in xs]
+    for _ in range(2):
+        junk = torch.full((4 * C + 64,), -123456, dtype=torch.int32,
+                          device=cuda)
+        del junk
+        for x, (w, wc, wr) in zip(xs, wants):
+            got, gc, gr = ops.pcilt_fused_dwconv1d(x, tabs, spec, 0.3, k,
+                                                   "VALID", with_stats=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, w)
+            assert int(gc) == int(wc) and float(gr) == float(wr)
+    lib = build.library("dwconv1d")
+    scratch = ops._dwconv_scratch(lib, cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for x, (w, wc, wr) in zip(xs, wants):
+        out = torch.full((4, 1, C), float("nan"), device=cuda)
+        stats = torch.tensor([-5, 0x7f7f7f7f], dtype=torch.int32, device=cuda)
+        err = lib.pcilt_dwconv1d_f32(
+            x.data_ptr(), tabs.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr(), 4, 4, C, tabs.shape[1], k, 4,
+            spec.zero_point, 0.3, 1, 0, stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(out, w)
+        assert int(stats[0]) == int(wc)
+        assert float(stats[1:].view(torch.float32)[0]) == float(wr)
+    assert int(scratch.abs().sum()) == 0
