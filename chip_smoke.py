@@ -42,7 +42,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    range; the host-packed dwconv in both designs, the staged one twice);
    the plan GEMV (kernel 11) qwen3-0.6b's gate under phase 10's
    permutation plan, an exact grid with a -1 slot and a reused position,
-   and a ragged plan (odd G, n != G*group, O = 13);
+   and a ragged plan (odd G, n != G*group, O = 13).  The CRC-32 kernel
+   must equal ``zlib.crc32`` bit for bit on ragged lengths (0, 1, a lane
+   slice and a chunk +- 1, a few MB), a continued CRC, ragged ranges, a
+   bfloat16 table and strided layers of phase 7's segment-major wz stack
+   shape, each twice (bit-identical);
 4. timing: each kernel at its main path's shapes — its device time, the
    plain version's, one PyTorch library call computing the same function,
    and the least time the card could take (the larger of the bytes this
@@ -65,14 +69,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    (kernel 1 at the five projections, kernel 8 at the paired decode's
    five), the split design beside the kept one forced (``direct_ms``), as
    are the head (at B = 4 and B = 1, each beside matmul at its batch) and
-   the host-packed dwconv (float32 and bfloat16 tables);
+   the host-packed dwconv (float32 and bfloat16 tables).  The CRC kernel
+   runs one full-width layer's bytes (2.39 GB) and the head pool's (19.8
+   GB), beside the bytes bound and the host ``zlib.crc32`` time of the
+   same bytes (the reference's function on the host, not a library call:
+   torch has none, so its ``library_ms`` is null);
 5. serving: ``Engine(mamba2-130m full width and depth, slots=4,
    pcilt=True)`` with float32 tables converts (calibrate, build, CRC
-   record, verify at load) and serves 4 requests of 8 new tokens; prints
-   conversion seconds, table bytes, the head pool's bytes, peak memory,
-   step time, tokens/s and the launches per step of each kernel (must be
-   144 / 24 / 1, every fused GEMV and head launch through its split
-   design, every dwconv through its tiled one), then checks
+   record and verify at load, both on the card) and serves 4 requests of
+   8 new tokens under its ``HealthMonitor`` (one layer's CRC a tick, the
+   head's on tick 0); prints conversion seconds, table bytes, the head
+   pool's bytes, peak memory with the checkpoint ring, step time,
+   tokens/s, the monitor's seconds a tick and a head check and its CRC
+   launches (counted apart), and the launches per step of each kernel
+   (must be 144 / 24 / 1, every fused GEMV and head launch through its
+   split design, every dwconv through its tiled one; no health event, no
+   rollback); the CRC kernel against ``zlib.crc32`` on layer 0 of every
+   real stack and on the head pool and pointers; then checks
    one decode step's logits against the dense fake-quant oracle (every
    layer and the head demoted, so no kernel runs on the oracle's side),
    and times one B = 4 step with its device time and device launches, in
@@ -96,10 +109,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``PCILTConfig(act_bits=2, group=2)``, float32 segment-major stacks
    (21.5 GiB) and the shared-pool head, built by
    ``convert_mamba_decode(paired=True)`` and served by
-   ``Engine(pcilt_bundle=...)`` (4 requests of 8 new tokens, sentinel on;
+   ``Engine(pcilt_bundle=...)`` (4 requests of 8 new tokens, sentinel on,
+   under its monitor, whose layer checks cross the segment-major strides;
    144 / 24 / 1 launches of the paired stacked GEMV, the dwconv and the
    head per step, every fused GEMV and head launch through its split
-   design); conversion
+   design; no health event; a strided layer of the real stacks against
+   ``zlib.crc32``); conversion
    seconds, table bytes, peak memory, the oracle check of phase 5, and the
    median of three B = 4 steps dense, unpaired (kernel 1) and paired
    (kernel 8) with each step's device time, the PCILT steps again with the
@@ -133,7 +148,12 @@ Phases (any failure exits non-zero, and no result line is printed):
     granularity's loss falling and finite and within 1e-4 of the same run
     on the CPU, each trained table served through kernel 6 equal to the
     gather path;
-12. prints the kernels' JSON line, then as the last line
+12. the serving resilience contracts at full width (d 768, vocab 50288)
+    with the depth cut to 4 layers (each contract holds a faulted and a
+    fault-free engine: 2 x ~29 GB, where full depth would take 2 x ~72
+    GiB): ``run_cli`` with ``--chaos``, ``--chaos-drift`` and ``--chaos
+    --traffic poisson``, each printing its "contract verified" line;
+13. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -158,6 +178,12 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FLUSH_BYTES = 256 << 20  # > 5x the H100's 50 MB L2
 FLUSH_KERNEL = "bitwise_not"  # in the name of the flush's device kernel
 PROFILE_PAD_S = 0.02  # host idle time on each side of a profiled window
+#: the marker kernel that opens every profiled window (torch.cuda._sleep's
+#: spin kernel, a substring of its name) and its length in clocks
+PROFILE_MARKER = "spin_kernel"
+PROFILE_MARKER_CYCLES = 1000
+#: profiled windows, and those whose first record (the marker) was lost
+PROFILES = {"windows": 0, "first_record_lost": 0}
 REPLACES = {
     "gemv_stacked": "src/repro/kernels/pcilt_fused.py:372",
     "dwconv1d": "src/repro/kernels/pcilt_dwconv1d.py:192",
@@ -171,6 +197,7 @@ REPLACES = {
     "gemv_paired": "src/repro/kernels/pcilt_fused.py:231",
     "dwconv1d_host": "src/repro/kernels/pcilt_dwconv1d.py:61",
     "gemv_plan": "src/repro/kernels/pcilt_fused.py:636",
+    "crc32": "src/repro/core/pcilt.py:634",
 }
 SOURCES = {
     "gemv_stacked": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
@@ -185,6 +212,7 @@ SOURCES = {
     "gemv_paired": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
     "dwconv1d_host": "src/repro_torch/kernels/csrc/pcilt_dwconv1d.cu",
     "gemv_plan": "src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu",
+    "crc32": "src/repro_torch/kernels/csrc/pcilt_crc32.cu",
 }
 #: device kernel names (a substring of each) in profiles: the fused GEMV's
 #: split design and its kept ("direct") one
@@ -239,7 +267,30 @@ LIB_NOTE = {"gemv_stacked": "torch.matmul(fake_quant(x), W_l)",
             "fused_gemv": "torch.matmul(fake_quant(x), W)",
             "gemv_paired": "torch.matmul(fake_quant(x), W)",
             "dwconv1d_host": "torch.take(T, c*V + off)",
-            "gemv_plan": "torch.matmul(fake_quant(x)[:, plan], W[plan])"}
+            "gemv_plan": "torch.matmul(fake_quant(x)[:, plan], W[plan])",
+            "crc32": "none: torch has no CRC (host_zlib_ms: the reference's "
+                     "zlib.crc32 on the host, not a library kernel)"}
+#: the CRC kernel's device kernels (a substring of each): the chunk pass and
+#: the combine passes
+CRC_KERNELS = ("crc_chunks_kernel", "crc_combine_kernel")
+#: one full-width mamba2-130m layer at 4 bits, group 2, float32, table by
+#: table: the conv table [1792, 65536], wz, wx [384, 256, 1536], wB, wC
+#: [384, 256, 128], wdt [384, 256, 24], wo [768, 256, 768] (the monitor's
+#: layer check CRCs them in one call)
+LAYER_TABLES = {"conv": 4 * 1792 * 65536, "wz": 4 * 384 * 256 * 1536,
+                "wx": 4 * 384 * 256 * 1536, "wB": 4 * 384 * 256 * 128,
+                "wC": 4 * 384 * 256 * 128, "wdt": 4 * 384 * 256 * 24,
+                "wo": 4 * 768 * 256 * 768}
+LAYER_BYTES = sum(LAYER_TABLES.values())
+#: the shared-pool head: [384, 256, 50288] float32
+HEAD_POOL_BYTES = 4 * 384 * 256 * 50288
+#: the depth of phase 12's engines (full width)
+CONTRACT_LAYERS = 4
+#: phase 12's late chaos plan: the table faults (the CLI plan's steps 15
+#: and 19) moved past the steps where four of the six requests finish, so
+#: that those four are served undegraded and held token for token to the
+#: fault-free run (tests/test_torch_resilience.py re-keys its plan alike)
+LATE_CHAOS_STEPS = {15: 70, 19: 74}
 #: the paper CNN's image (H, W) at full size (printed W x H, as the paper), and the small image of the
 #: checks and of the plain versions' timing
 FULL_HW = (768, 1024)
@@ -284,16 +335,25 @@ def _profile(torch, fn):
     """Device times of ``fn()``.  The window is padded with host idle time
     on both sides, so the device's records lie well inside it (records of
     a short window at its edges can fall outside the window the profiler
-    keeps)."""
+    keeps), and its first device activity is a marker kernel
+    (``torch.cuda._sleep``, left out of the times): from phase 4's conv
+    timing on, the profiler drops the first device record of every window,
+    so the marker takes that loss.  ``PROFILES`` counts the windows and
+    those whose marker was lost."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
+        torch.cuda._sleep(PROFILE_MARKER_CYCLES)
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-    return _device_times(prof)
+    times = _device_times(prof)
+    PROFILES["windows"] += 1
+    if not any(PROFILE_MARKER in k for k in times):
+        PROFILES["first_record_lost"] += 1
+    return {k: v for k, v in times.items() if PROFILE_MARKER not in k}
 
 
 class L2Flush:
@@ -1613,8 +1673,328 @@ def time_conv_kernels(torch, ops, report, rows):
 
 
 # ----------------------------------------------------------------------------
+# phase 3 + 4: the CRC-32 kernel (the tables' integrity record and checks)
+# ----------------------------------------------------------------------------
+
+
+def crc_case(report, errs, what, got, want):
+    """Record one CRC case (into ``errs`` too, when given): bit-equal or
+    the script fails."""
+    ok = got == want
+    if errs is not None:
+        errs["crc32"] = max(errs["crc32"], 0.0 if ok else 1.0)
+    report["checks"].append({"kernel": "crc32", "case": what,
+                             "max_abs_err": 0.0 if ok else 1.0,
+                             "tol": "bit-equal", "ok": ok})
+    log(f"check crc32         {what:44s} {got:#010x} vs zlib {want:#010x} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"crc32 {what}: the CRC kernel differs from zlib.crc32")
+
+
+def crc_device_launches(torch, ops, call, report):
+    """Device launches of one call of the CRC wrapper ``call``: the
+    records of the CRC's kernels in a profile of that call alone (after a
+    first call outside the window, which uploads its range rows), held to
+    the launches the library reports making.  A profile that shows fewer
+    (the profiler can lose records: ``scripts/profiler_window_probe.py``)
+    is taken again, counted in ``profile_retries``, up to three times;
+    then the script fails."""
+    call()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        before = ops.CRC_DEVICE_LAUNCHES["passes"]
+        prof = _profile(torch, call)
+        made = ops.CRC_DEVICE_LAUNCHES["passes"] - before
+        rows = {k: c for k, (c, _) in prof.items()
+                if any(n in k for n in CRC_KERNELS)}
+        seen = sum(rows.values())
+        if seen == made:
+            return seen
+        report["profile_retries"].append(
+            {"kernel": "crc32", "launches_seen": seen, "of": made,
+             "rows": {k[:48]: c for k, c in rows.items()}})
+        log(f"  (crc profile {attempt + 1} saw {seen} of {made} device "
+            f"launches: taken again; rows {rows})")
+    raise SmokeFailure(f"the profiler recorded fewer CRC device launches "
+                       f"of one call than the library made ({made}) three "
+                       f"times")
+
+
+def check_crc_kernel(torch, ops, report, errs):
+    """Phase 3 for the CRC kernel: bit-equal to ``zlib.crc32`` on ragged
+    lengths (0, 1, a lane slice and a chunk +- 1, a few MB of seeded
+    bytes), a continued CRC, several streams in one launch (ragged lengths
+    at unaligned addresses, an empty one, ragged ranges of one tensor), a
+    bfloat16 table and a strided layer of phase 7's segment-major wz stack
+    ([192, 24, 256, 1536] float32: 192 ranges); two launches
+    bit-identical.  The bytes go to the host once, for zlib."""
+    import zlib
+
+    from repro_torch.core.pcilt import layer_checksum, table_checksum
+    from repro_torch.kernels.ref import CRC_CHUNK_BYTES, CRC_LANE_BYTES
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    data = torch.randint(0, 256, (5_000_011,), dtype=torch.uint8,
+                         generator=gen, device=dev)
+    host = data.cpu().numpy()
+    for n in (0, 1, CRC_LANE_BYTES - 1, CRC_LANE_BYTES + 1,
+              CRC_CHUNK_BYTES - 1, CRC_CHUNK_BYTES, CRC_CHUNK_BYTES + 1,
+              5_000_011):
+        crc_case(report, errs, f"{n} bytes", ops.pcilt_crc32([data[:n]])[0],
+                 zlib.crc32(host[:n].tobytes()))
+    crc_case(report, errs, "3 MB from byte 3, continuing a CRC",
+             table_checksum(data[3:3_000_003], 0xDEADBEEF),
+             zlib.crc32(host[3:3_000_003].tobytes(), 0xDEADBEEF))
+    cuts = [(5, 7), (12, CRC_CHUNK_BYTES), (CRC_CHUNK_BYTES + 12, 0),
+            (CRC_CHUNK_BYTES + 12, 1), (CRC_CHUNK_BYTES + 13, 2_000_001)]
+    starts = [3, 70_001, 9, 1_400_000]
+    got = ops.pcilt_crc32([data[a:a + n] for a, n in cuts]
+                          + [(data, starts, CRC_CHUNK_BYTES + 1)])
+    want = [zlib.crc32(host[a:a + n].tobytes()) for a, n in cuts] + [
+        zlib.crc32(b"".join(host[a:a + CRC_CHUNK_BYTES + 1].tobytes()
+                            for a in starts))]
+    for i, (g, w) in enumerate(zip(got, want)):
+        crc_case(report, errs, f"6 streams in one launch, stream {i}", g, w)
+    t = (torch.randn(384, 256, 128, generator=gen, device=dev)
+         .to(torch.bfloat16))
+    first = ops.pcilt_crc32([t])[0]
+    crc_case(report, errs, "bf16 [384, 256, 128]", first,
+             zlib.crc32(t.cpu().view(torch.int16).numpy().tobytes()))
+    crc_case(report, errs, "bf16 [384, 256, 128], second launch",
+             ops.pcilt_crc32([t])[0], first)
+    del t
+    stack = torch.randn(192, N_LAYERS, 256, 1536, generator=gen, device=dev)
+    for l in (0, 17):
+        got = layer_checksum(stack, l, axis=1)
+        want = zlib.crc32(stack[:, l].contiguous().cpu().numpy().tobytes())
+        crc_case(report, errs, f"segment-major [192, 24, 256, 1536] l{l}",
+                 got, want)
+        crc_case(report, errs, f"segment-major l{l}, second launch",
+                 layer_checksum(stack, l, axis=1), got)
+    del stack, data
+
+
+def time_crc_kernel(torch, ops, report, rows, errs):
+    """Phase 4 for the CRC kernel: one call over one full-width layer's
+    tables (LAYER_TABLES: seven streams of one buffer, as the monitor's
+    layer check makes them) and over the head pool's bytes
+    (HEAD_POOL_BYTES), L2 flushed before every call, each call's device
+    launches counted by the profiler; beside the bytes bound at 3.35 TB/s
+    and the host ``zlib.crc32`` time of the same bytes (the reference's
+    function on the host; not a library kernel: torch has no CRC call, so
+    ``library_ms`` is null); the plain version on 64 MiB of them.  Each
+    result is held to zlib's."""
+    from repro_torch.core.pcilt import table_checksum
+    from repro_torch.kernels.ref import crc32_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    flush = L2Flush(torch)
+    plain_n = 64 << 20
+    for key, sizes in (("crc32 layer", list(LAYER_TABLES.values())),
+                       ("crc32 head", [HEAD_POOL_BYTES])):
+        nbytes = sum(sizes)
+        buf = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                            generator=gen, device=dev)
+        starts = [sum(sizes[:i]) for i in range(len(sizes))]
+        streams = [(buf, [a], n) for a, n in zip(starts, sizes)]
+
+        def call():
+            return ops.pcilt_crc32(streams)
+
+        per = crc_device_launches(torch, ops, call, report)
+        k = time_calls(torch, [call] * 5, flush, kernel=CRC_KERNELS,
+                       launches_per_call=per,
+                       retries=report["profile_retries"])
+        p = time_calls(torch, [lambda: crc32_plain([buf[:plain_n]])], flush,
+                       reps=1, warmup=1, retries=report["profile_retries"])
+        got = call()
+        host = buf.cpu()
+        t0 = time.perf_counter()
+        want = [table_checksum(host[a:a + n])  # zlib.crc32, 64 MiB a call
+                for a, n in zip(starts, sizes)]
+        zlib_s = time.perf_counter() - t0
+        for i, (g, w) in enumerate(zip(got, want)):
+            crc_case(report, errs, f"{key} stream {i} ({sizes[i]} bytes)",
+                     g, w)
+        del host, buf
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[key] = {"kernel": "crc32", "shape": sizes, "ms": k["ms"],
+                     "warm_ms": k["warm_ms"], "events_ms": k["events_ms"],
+                     "plain_ms": p["ms"], "plain_shape": [plain_n],
+                     "library_ms": None, "library_call": LIB_NOTE["crc32"],
+                     "host_zlib_ms": zlib_s * 1e3, "bound_ms": bound,
+                     "bound_by": "bytes", "device_launches_per_call": per}
+        log(f"time  crc32         {key:26s} kernel {k['ms']:9.3f} ms (warm "
+            f"{k['warm_ms']:9.3f}, events {k['events_ms']:9.3f}; {per} "
+            f"device launches, profiled)  bound {bound:7.3f} ms  host "
+            f"zlib.crc32 (the reference's function) {zlib_s * 1e3:10.1f} ms"
+            f"  plain {p['ms']:8.2f} ms at 64 MiB")
+    del flush
+
+
+# ----------------------------------------------------------------------------
 # phase 5: the main path
 # ----------------------------------------------------------------------------
+
+
+def watch_monitor(eng):
+    """Host seconds of ``eng``'s monitor: each ``HealthMonitor.on_tick``,
+    each layer check and each head check (each ends in a CRC read back, so
+    the clock covers the device work), and each tick's span from the start
+    of its decode step to the end of its ``on_tick``: the step and the
+    monitor measured as one span."""
+    times = {"tick": [], "head": [], "layer": [], "span": []}
+    mon, dec = eng.monitor, eng.pdecode
+    started = [0.0]
+    step, on_tick = eng._step, mon.on_tick
+
+    def timed_step():
+        started[0] = time.perf_counter()
+        return step()
+
+    def tick(*a, **k):
+        t0 = time.perf_counter()
+        out = on_tick(*a, **k)
+        t1 = time.perf_counter()
+        times["tick"].append(t1 - t0)
+        times["span"].append(t1 - started[0])
+        return out
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    eng._step = timed_step
+    mon.on_tick = tick
+    dec.verify_head = timed(dec.verify_head, "head")
+    dec.verify_layer = timed(dec.verify_layer, "layer")
+    return times
+
+
+def monitor_summary(eng, stats, launches, times, med_step, what):
+    """The monitored run's health: no event, no rollback, no restart; its
+    CRC launches a tick and seconds a tick, a layer check and a head
+    check, the median step (the monitor outside it) and the median span of
+    a decode step and its monitor tick, measured together."""
+    events = stats["health_events"]
+    require(events == [] and stats["rollbacks"] == 0
+            and stats["restarts"] == 0,
+            f"{what}: the monitor reported {events}, {stats['rollbacks']} "
+            f"rollbacks, {stats['restarts']} restarts on clean tables")
+    ticks = len(times["tick"])
+    crc = launches.get("crc32", 0)
+    med = {k: statistics.median(v) if v else None for k, v in times.items()}
+    out = {"health_events": events, "rollbacks": stats["rollbacks"],
+           "ticks_checked": ticks, "crc_launches": crc,
+           "crc_launches_per_tick": crc / max(ticks, 1),
+           "head_checks": len(times["head"]),
+           "monitor_s_per_tick": med["tick"], "layer_check_s": med["layer"],
+           "head_check_s": med["head"], "monitor_tick_seconds": times["tick"],
+           "head_check_seconds": times["head"], "median_step_s": med_step,
+           "median_step_with_monitor_s": med["span"],
+           "step_with_monitor_seconds": times["span"]}
+    log(f"{what} monitor: {ticks} ticks checked, {crc} CRC launches "
+        f"({crc / max(ticks, 1):.2f} a tick), median {med['tick'] * 1e3:.2f} "
+        f"ms a tick (a layer's CRC {med['layer'] * 1e3:.2f} ms), "
+        f"{len(times['head'])} head check(s) at "
+        + ", ".join(f"{t * 1e3:.2f}" for t in times["head"])
+        + f" ms; median step {med_step * 1e3:.2f} ms (the monitor outside "
+        f"it), median decode step and monitor tick as one span "
+        f"{med['span'] * 1e3:.2f} ms; no health event, no rollback")
+    return out
+
+
+def allocator_counts(torch):
+    """The caching allocator's cumulative counts on the card: device
+    allocations (``cudaMalloc``) and retries after freeing its cache."""
+    st = torch.cuda.memory_stats()
+    return {"device_allocs": st.get("num_device_alloc"),
+            "alloc_retries": st.get("num_alloc_retries")}
+
+
+def allocator_delta(torch, before):
+    now = allocator_counts(torch)
+    return {k: (None if now[k] is None or before[k] is None
+                else now[k] - before[k]) for k in now}
+
+
+def sentinel_runs(cfg, eng, times, pairs=5):
+    """The phase-5 engine served again on the same requests with its
+    saturation sentinel off and on, ``pairs`` pairs in this one process,
+    the side that runs first alternating: each run's median step and
+    median span of a decode step and its monitor tick, and the caching
+    allocator's counts, so that the counters' cost and the run-to-run
+    spread of the host-bound step show side by side."""
+    import torch
+
+    from repro_torch.launch.serve import make_requests
+
+    out = []
+    for i in range(2 * pairs):
+        eng.sentinel = (i % 2 == 1) != (i // 2 % 2 == 1)
+        for k in times:
+            times[k] = []
+        n0 = len(eng.step_seconds)
+        alloc = allocator_counts(torch)
+        stats = eng.run(make_requests(cfg, 4, 8, seed=0))
+        require(stats["health_events"] == [] and stats["rollbacks"] == 0,
+                f"sentinel run {i}: {stats['health_events']}")
+        out.append({"sentinel": eng.sentinel,
+                    "allocator": allocator_delta(torch, alloc),
+                    "median_step_s": statistics.median(
+                        eng.step_seconds[n0:]),
+                    "median_step_with_monitor_s": statistics.median(
+                        times["span"]),
+                    "monitor_s_per_tick": statistics.median(times["tick"])})
+        log(f"engine again, sentinel {'on ' if eng.sentinel else 'off'}: "
+            f"median step {out[-1]['median_step_s'] * 1e3:.2f} ms, step and "
+            f"monitor tick {out[-1]['median_step_with_monitor_s'] * 1e3:.2f}"
+            f" ms, monitor {out[-1]['monitor_s_per_tick'] * 1e3:.2f} ms; "
+            f"allocator {out[-1]['allocator']}")
+    eng.sentinel = True
+    for on in (False, True):
+        med = statistics.median(r["median_step_s"] for r in out
+                                if r["sentinel"] == on)
+        log(f"sentinel {'on ' if on else 'off'}: median of the runs' median "
+            f"steps {med * 1e3:.2f} ms over {pairs} runs")
+    return out
+
+
+def crc_real_tables(torch, report, pcilt, layer, paired=False):
+    """The CRC kernel against ``zlib.crc32`` on the bundle's real tables:
+    layer ``layer`` of the conv stack and of every projection stack (a
+    strided slice when ``paired``) in one call, as the monitor's layer
+    check makes it, and the head pool and pointers in another, as its head
+    check; each table copied to the host once for zlib."""
+    import zlib
+
+    from repro_torch.core.pcilt import checksums
+
+    def zl(t):
+        t = t.contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return zlib.crc32(t.numpy().tobytes())
+
+    tabs = {"conv": (pcilt["tables"], 0)}
+    tabs.update({k: (t, 1 if paired else 0)
+                 for k, t in pcilt["proj"]["tables"].items()})
+    got = checksums([(t, layer, axis) for t, axis in tabs.values()])
+    for (name, (t, axis)), crc in zip(tabs.items(), got):
+        sl = t[:, layer] if axis else t[layer]
+        crc_case(report, None, f"{name} layer {layer} {list(sl.shape)}",
+                 crc, zl(sl))
+    head = pcilt["head"]
+    got = checksums([head["pool"], head["seg_idx"]])
+    for name, crc in zip(("pool", "seg_idx"), got):
+        crc_case(report, None, f"head {name} {list(head[name].shape)}",
+                 crc, zl(head[name]))
 
 
 def serve(torch, ops, report):
@@ -1654,12 +2034,16 @@ def serve(torch, ops, report):
     log(f"head pool bytes: {head_bytes} ({head_bytes / 2**30:.2f} GiB, "
         f"{head['pool'].shape[0]} segments)")
     reqs = make_requests(cfg, 4, 8, seed=0)
+    times = watch_monitor(eng)
+    alloc = allocator_counts(torch)
     ops.reset_launches()
     stats = eng.run(reqs)
     torch.cuda.synchronize()
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    alloc = allocator_delta(torch, alloc)
     steps = stats["decode_ticks"] + stats["prefill_ticks"]
-    per_step = {k: v / steps for k, v in launches.items()}
+    # the monitor's CRC launches are counted apart from the step's kernels
+    per_step = {k: v / steps for k, v in launches.items() if k != "crc32"}
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(eng.step_seconds)
     gen_tokens = sum(len(r.out) for r in reqs)
@@ -1668,9 +2052,13 @@ def serve(torch, ops, report):
         f"in {stats['wall_s']:.2f} s; median step {med * 1e3:.2f} ms "
         f"({B / med:.1f} tokens/s over {B} slots; {gen_tokens} generated "
         f"tokens at {gen_tokens / stats['wall_s']:.1f} tokens/s end to end)")
-    log(f"peak memory allocated {peak / 2**30:.2f} GiB")
+    log(f"peak memory allocated {peak / 2**30:.2f} GiB (tables, the "
+        f"checkpoint ring of {eng.ckpts.maxlen} cache copies and the step);"
+        f" allocator in the run: {alloc}")
     log("launches per step: " + ", ".join(f"{k} {v:g}"
                                           for k, v in per_step.items()))
+    monitor = monitor_summary(eng, stats, launches, times, med,
+                              "engine")
     for r in reqs:
         log(f"  req {r.rid}: prompt {len(r.prompt)} -> {r.out}")
     require(stats["served"] == len(reqs), "not every request was served")
@@ -1697,7 +2085,10 @@ def serve(torch, ops, report):
                        "head_pool_bytes": head_bytes,
                        "outputs": [r.out for r in reqs],
                        "gemv_designs": designs, "head_designs": head_d,
-                       "dwconv_designs": dw_d}
+                       "dwconv_designs": dw_d, "monitor": monitor,
+                       "allocator": alloc,
+                       "ring_snapshots": eng.ckpts.maxlen}
+    crc_real_tables(torch, report, eng.pdecode.pcilt, 0)
     oracle_check(torch, ops, eng, report)
     gen = torch.Generator(device="cuda").manual_seed(9)
     cache = {"layers": {k: torch.randn(t.shape, generator=gen,
@@ -1708,6 +2099,7 @@ def serve(torch, ops, report):
         torch, ops, eng.model, eng.params, cache, tok,
         {"unpaired": eng.pdecode.pcilt},
         {"unpaired": {"gemv_stacked": 144, "dwconv1d": 24, "shared_gemv": 1}})
+    monitor["sentinel_runs"] = sentinel_runs(cfg, eng, times)
     return launches
 
 
@@ -2114,18 +2506,25 @@ def serve_paired(torch, ops, report):
             f"not segment-major paired stacks: {shapes}")
 
     reqs = make_requests(cfg, 4, 8, seed=0)
+    times = watch_monitor(eng)
+    alloc = allocator_counts(torch)
     ops.reset_launches()
     stats = eng.run(reqs)
     torch.cuda.synchronize()
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    alloc = allocator_delta(torch, alloc)
     steps = stats["decode_ticks"] + stats["prefill_ticks"]
-    per_step = {k: v / steps for k, v in launches.items()}
+    per_step = {k: v / steps for k, v in launches.items() if k != "crc32"}
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(eng.step_seconds)
+    monitor = monitor_summary(eng, stats, launches, times, med,
+                              "paired engine")
+    require(launches.get("crc32", 0) > 0,
+            "the paired engine's monitor launched no CRC")
     log(f"paired: served {stats['served']}/{len(reqs)} requests, {steps} "
         f"steps in {stats['wall_s']:.2f} s; median step {med * 1e3:.2f} ms "
         f"({B / med:.1f} tokens/s over {B} slots); peak memory allocated "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB; allocator in the run: {alloc}")
     log("paired launches per step: " + ", ".join(
         f"{k} {v:g}" for k, v in per_step.items()))
     for r in reqs:
@@ -2150,12 +2549,14 @@ def serve_paired(torch, ops, report):
             "differ")
     out.update(convert=conv, table_bytes=tbytes, head_pool_bytes=head_bytes,
                stack_shapes=shapes, peak_bytes=peak, steps=steps,
+               allocator=alloc,
                median_step_s=med, step_seconds=eng.step_seconds,
                launches=launches, launches_per_step=per_step,
                saturation=stats.get("saturation"),
                outputs=[r.out for r in reqs], gemv_designs=designs,
-               head_designs=head_d, dwconv_designs=dw_d)
+               head_designs=head_d, dwconv_designs=dw_d, monitor=monitor)
     report["serve_paired"] = out
+    crc_real_tables(torch, report, dec.pcilt, 5, paired=True)
     oracle_check(torch, ops, eng, report, "paired_oracle")
 
     # the step at B = 4: dense, unpaired (kernel 1) and paired (kernel 8)
@@ -2300,7 +2701,9 @@ def single_layers(torch, ops, report):
                 f"{xin.shape[-1]} products in another order)")
             require(err <= tol, f"PCILTLinear {name} disagrees with the dense "
                     f"product on the quantized grid")
-        require(launches == {"fused_gemv": 3},
+        # convert_kernel records each layer's CRC on the card (counted apart)
+        require({k: v for k, v in launches.items() if k != "crc32"}
+                == {"fused_gemv": 3},
                 f"the MLP did not run through kernel 9: {launches}")
         out["mlp"] = {"table_bytes": tb, "seconds": build_s,
                       "layers": layers, "launches": launches}
@@ -2520,6 +2923,7 @@ def plans_and_extensions(torch, ops, report):
         del st, pool, yd
     seen = {k: v for k, v in launches.items() if v}
     log(f"  launches: {seen}")
+    seen.pop("crc32", None)  # the layers' integrity records, counted apart
     require(seen == {"gemv_plan": 4, "gemv_host": 4, "fused_gemv": 1,
                      "shared_gemv": 1},
             f"phase 10 did not run through kernels 11, 6, 9 and 3: {seen}")
@@ -2565,7 +2969,8 @@ def learnable(torch, ops, report):
         require(rel <= 1e-4, f"learnable {gran}: the card's final loss "
                 f"differs from the CPU's by {rel:.2e}")
     log(f"  launches: {launches}")
-    require(launches == {"gemv_host": 4},
+    require({k: v for k, v in launches.items() if k != "crc32"}
+            == {"gemv_host": 4},
             f"the trained tables were not served through kernel 6: "
             f"{launches}")
     require(host == {"staged": 0, "direct": 4},
@@ -2573,6 +2978,95 @@ def learnable(torch, ops, report):
     report["learnable"] = {**res, "cpu_losses": cpu["losses"],
                            "launches": launches, "host_designs": host}
     return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 12: the resilience contracts at full width
+# ----------------------------------------------------------------------------
+
+
+def resilience(torch, ops, report):
+    """The serving CLI's three contracts and a late chaos plan, each through
+    ``launch.serve.run_cli`` on ``get_config("mamba2-130m")`` at full width
+    (d 768, vocab 50288, 4-bit group-2 float32 tables and the shared-pool
+    head) with the depth cut to ``CONTRACT_LAYERS`` layers: each contract
+    builds a fault-free reference engine beside the faulted one, two
+    engines of ~29 GB each (4 x 2.39 GB of layers and the 19.8 GB head),
+    where two full-depth ones (~72 GiB each) would not fit one card.
+    ``--chaos``, ``--chaos-drift`` and ``--chaos --traffic poisson`` (on a
+    ``VirtualClock``), then ``--chaos`` again with its table faults moved
+    late (``LATE_CHAOS_STEPS``): at this size the CLI plan degrades every
+    request, and only the late plan leaves requests served undegraded whose
+    tokens the contract holds to the fault-free run (it must leave at
+    least one).  Each prints its "contract verified" line, and any
+    violation fails the phase.  Returns the path's launches."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PCILTConfig
+    from repro_torch.launch import serve as srv
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              n_layers=CONTRACT_LAYERS,
+                              pcilt=PCILTConfig(act_bits=4, group=2),
+                              dtype=torch.float32)
+    log(f"resilience contracts: mamba2-130m at full width (d {cfg.d_model}, "
+        f"vocab {cfg.vocab}), depth cut from {N_LAYERS} to {cfg.n_layers} "
+        f"layers (each contract holds a faulted and a fault-free engine)")
+    out = {"n_layers": cfg.n_layers, "contracts": {}}
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    plan = srv._chaos_plan
+
+    def late_plan(eng, injector):
+        return {LATE_CHAOS_STEPS.get(k, k): v
+                for k, v in plan(eng, injector).items()}
+
+    for flags, line, late in (
+            (["--chaos"], "chaos contract verified", False),
+            (["--chaos-drift"], "drift contract verified", False),
+            (["--traffic", "poisson", "--chaos"],
+             "chaos-under-traffic contract verified", False),
+            (["--chaos"], "chaos contract verified", True)):
+        args = srv.parse_args(["--pcilt", "--full", *flags])
+        what = " ".join(flags) + (" (late plan)" if late else "")
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        srv._chaos_plan = late_plan if late else plan
+        try:
+            with contextlib.redirect_stdout(text):
+                stats = srv.run_cli(cfg, args)
+        except SystemExit as err:
+            log(text.getvalue())
+            raise SmokeFailure(f"contract {what}: {err}") from err
+        finally:
+            srv._chaos_plan = plan
+        took = time.perf_counter() - t0
+        printed = text.getvalue()
+        for ln in printed.splitlines():
+            log(f"  {ln}")
+        require(line in printed, f"contract {what} printed no '{line}' line")
+        # the CLI plan degrades every request at this size, so only the
+        # late plan's undegraded requests hold tokens to the fault-free run
+        require(not late or stats["served"] > 0,
+                f"contract {what}: no request finished undegraded, so no "
+                f"token was compared with the fault-free run")
+        out["contracts"][what] = {
+            "seconds": took, "printed": printed,
+            "events": [(e["kind"], e["layer"], e["tick"])
+                       for e in stats["health_events"]],
+            **{k: stats[k] for k in ("served", "degraded", "failed",
+                                     "rejected", "restarts", "rollbacks",
+                                     "decode_ticks", "prefill_ticks")}}
+        log(f"({what}: {took:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"resilience contracts: peak memory allocated "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB")
+    report["resilience"] = out
+    return {k: v for k, v in ops.LAUNCHES.items() if v}
 
 
 # ----------------------------------------------------------------------------
@@ -2622,16 +3116,29 @@ def main() -> int:
     for name in build.SOURCES:
         build.library(name)
 
+    #: the profiled windows and lost markers so far, after each stage
+    report["profiles"] = {}
+
+    def profiles_after(stage):
+        report["profiles"][stage] = dict(PROFILES)
+        torch.cuda.empty_cache()
+
     errs = check_kernels(torch, ops, core, report)
-    torch.cuda.empty_cache()
+    profiles_after("check_kernels")
+    check_crc_kernel(torch, ops, report, errs)
+    profiles_after("check_crc_kernel")
     rows = time_kernels(torch, ops, core, report)
-    torch.cuda.empty_cache()
+    profiles_after("time_kernels")
     time_slice3_kernels(torch, ops, report, rows)
-    torch.cuda.empty_cache()
+    profiles_after("time_slice3_kernels")
     time_plan_kernel(torch, ops, report, rows)
-    torch.cuda.empty_cache()
+    profiles_after("time_plan_kernel")
     time_conv_kernels(torch, ops, report, rows)
-    log(f"profiles taken again: {len(report['profile_retries'])}")
+    profiles_after("time_conv_kernels")
+    time_crc_kernel(torch, ops, report, rows, errs)
+    profiles_after("time_crc_kernel")
+    log(f"profiles taken again: {len(report['profile_retries'])}; windows "
+        f"and lost markers after each stage: {report['profiles']}")
     # each path's launches, counted from 0 just before it runs
     launches = dict.fromkeys(ops.LAUNCHES, 0)
 
@@ -2643,13 +3150,15 @@ def main() -> int:
         for k, v in phase(torch, ops, report).items():
             launches[k] += v
         report["phase_s"][phase.__name__] = time.perf_counter() - t0
+        report["profiles"][phase.__name__] = dict(PROFILES)
         log(f"({phase.__name__}: {report['phase_s'][phase.__name__]:.1f} s)")
         gc.collect()
         torch.cuda.empty_cache()
 
     torch.cuda.empty_cache()
     for phase in (serve, paper_cnn, serve_paired, paired_parity,
-                  single_layers, plans_and_extensions, learnable):
+                  single_layers, plans_and_extensions, learnable,
+                  resilience):
         count(phase)
     step = report["serve"]["step_compare"]
     rows["window counters"].update(
@@ -2666,7 +3175,7 @@ def main() -> int:
                "fused_gemv": "fused_gemv gate",
                "gemv_paired": "gemv_paired wz",
                "dwconv1d_host": "dwconv1d_host signal",
-               "gemv_plan": "gemv_plan perm"}
+               "gemv_plan": "gemv_plan perm", "crc32": "crc32 layer"}
     kernels = []
     for name, key in primary.items():
         r = rows[key]
@@ -2679,15 +3188,26 @@ def main() -> int:
                         "library_ms": r["library_ms"], "shape": r["shape"]})
         for extra in ("plain_shape", "direct_ms", "fetch_floor_ms",
                       "direct_with_fill_ms", "step_device_launches",
-                      "step_device_launches_kept"):
+                      "step_device_launches_kept", "host_zlib_ms",
+                      "device_launches_per_call"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+    head = rows["crc32 head"]
+    kernels[-1].update(head_shape=head["shape"], head_ms=head["ms"],
+                       head_bound_ms=head["bound_ms"],
+                       head_host_zlib_ms=head["host_zlib_ms"],
+                       head_device_launches_per_call=head[
+                           "device_launches_per_call"],
+                       launches_per_tick=report["serve"]["monitor"][
+                           "crc_launches_per_tick"])
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    log(f"total {report['total_s']:.1f} s")
+    log(f"total {report['total_s']:.1f} s; profiled windows "
+        f"{PROFILES['windows']}, {PROFILES['first_record_lost']} of them "
+        f"without their first record (the marker)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ from .pcilt import (mul_fn, log_mul_fn, build_scalar_tables, table_bytes,
                     build_paired_stacked_tables, SharedTables,
                     build_shared_tables, SharedGroupedTables,
                     build_shared_grouped_tables, table_checksum,
-                    layer_checksum, stacked_checksums)
+                    layer_checksum, stacked_checksums,
+                    checksums)
 from .lut_layers import (conv_same_pads, lut_lookup, pcilt_linear, im2col,
                          pcilt_conv2d, build_dwconv_tables,
                          pcilt_depthwise_conv1d)

@@ -21,12 +21,14 @@ mesh-sharded pools).
   ``grouped_table_bytes``, ``shared_table_bytes``,
   ``build_cost_multiplies``);
 * table checksums — CRC-32 over the raw bytes, identical to the reference's
-  ``zlib.crc32(np.asarray(arr).tobytes())`` but streamed in fixed-size
-  chunks, so a multi-GiB table never needs a whole host copy.  Per-layer
-  checksums of a stack run in a thread pool (``zlib.crc32`` and the
-  device-to-host copy both release the interpreter lock); a layer of a
-  segment-major stack is a strided slice, streamed a few segments at a
-  time.
+  ``zlib.crc32(np.asarray(arr).tobytes())``.  A CUDA tensor's bytes go
+  through the CRC kernel on the card (``kernels.ops.pcilt_crc32``) and
+  never to the host (:func:`checksums` takes several tables or layers in
+  one launch); a CPU tensor's through ``zlib.crc32``, streamed in
+  fixed-size chunks, several in a thread pool (``zlib.crc32`` releases
+  the interpreter lock).  A layer of a segment-major stack is a strided
+  slice: its contiguous segments are the kernel's ranges, or are streamed
+  one after another to ``zlib``.
 """
 
 from __future__ import annotations
@@ -49,10 +51,10 @@ __all__ = ["mul_fn", "log_mul_fn", "table_bytes", "grouped_table_bytes",
            "build_paired_tables", "build_paired_stacked_tables",
            "SharedTables", "build_shared_tables", "SharedGroupedTables",
            "build_shared_grouped_tables", "table_checksum", "layer_checksum",
-           "stacked_checksums", "CRC_CHUNK_BYTES", "POOL_BUILD_ROWS",
+           "stacked_checksums", "checksums", "CRC_CHUNK_BYTES", "POOL_BUILD_ROWS",
            "FN_BUILD_ELEMS"]
 
-#: bytes handed to ``zlib.crc32`` per call (and copied to the host per step)
+#: bytes handed to ``zlib.crc32`` per call
 CRC_CHUNK_BYTES = 64 << 20
 #: pool rows built per step of the shared-pool build (bounds its temporary)
 POOL_BUILD_ROWS = 16
@@ -372,42 +374,99 @@ def _byte_view(arr) -> torch.Tensor:
     return arr.detach().contiguous().reshape(-1).view(torch.uint8)
 
 
-def table_checksum(arr, crc: int = 0) -> int:
-    """CRC-32 over the raw bytes of a table, streamed chunk by chunk
-    (continuing ``crc``)."""
+def _on_cuda(arr) -> bool:
+    return torch.is_tensor(arr) and arr.device.type == "cuda"
+
+
+def _itemsize(arr) -> int:
+    return arr.element_size() if torch.is_tensor(arr) \
+        else np.asarray(arr).itemsize
+
+
+def _layer_ranges(arr, layer: int, axis: int):
+    """Byte starts and length of slice ``layer`` along ``axis`` of a stack's
+    C-order bytes: one range for a layer-major ``[L, ...]`` stack (axis 0);
+    ``G2`` ranges of one ``[V2, O]`` segment, ``L`` segments apart, for a
+    segment-major ``[G2, L, V2, O]`` stack (axis 1)."""
+    if axis == 0:
+        n = int(np.prod(arr.shape[1:])) * _itemsize(arr)
+        return np.array([layer * n], np.int64), n
+    if axis != 1:
+        raise ValueError(f"stacks carry their layers on axis 0 or 1, got {axis}")
+    seg = int(np.prod(arr.shape[2:])) * _itemsize(arr)
+    return (layer * seg + arr.shape[1] * seg
+            * np.arange(arr.shape[0], dtype=np.int64)), seg
+
+
+def _zlib_ranges(arr, starts, length: int) -> int:
+    """``zlib.crc32`` of a host table's byte ranges, back to back, handed to
+    zlib at most ``CRC_CHUNK_BYTES`` at a time."""
     b = _byte_view(arr)
-    for i in range(0, b.numel(), CRC_CHUNK_BYTES):
-        crc = zlib.crc32(b[i:i + CRC_CHUNK_BYTES].cpu().numpy(), crc)
+    crc = 0
+    for a in starts:
+        for i in range(a, a + length, CRC_CHUNK_BYTES):
+            crc = zlib.crc32(b[i:min(i + CRC_CHUNK_BYTES, a + length)].numpy(),
+                             crc)
     return crc
+
+
+def checksums(items) -> List[int]:
+    """CRC-32 of each item, over its bytes in C order: an item is a table,
+    or ``(stack, layer, axis)`` for slice ``layer`` along ``axis`` of a
+    stack (the reference's ``table_checksum`` of the slice; a strided
+    segment-major slice is never copied).  CUDA tables go through the CRC
+    kernel on the card, all the items in one launch with one read back;
+    host tables through ``zlib``, several items in a thread pool.  A CUDA
+    tensor's bytes never go to the host."""
+    specs, flat = [], {}
+    for it in items:
+        arr, layer, axis = it if isinstance(it, tuple) else (it, None, 0)
+        if id(arr) not in flat:  # each table made contiguous once
+            flat[id(arr)] = (arr.detach().contiguous() if torch.is_tensor(arr)
+                             else np.ascontiguousarray(np.asarray(arr)))
+        arr = flat[id(arr)]
+        if layer is None:
+            starts, n = np.zeros(1, np.int64), _itemsize(arr) * int(
+                np.prod(arr.shape))
+        else:
+            starts, n = _layer_ranges(arr, layer, axis)
+        specs.append((arr, starts, n))
+    on_card = [_on_cuda(a) for a, _, _ in specs]
+    if any(on_card):
+        if not all(on_card):
+            raise ValueError("checksums: the items lie on the card and on "
+                             "the host; checksum each device's apart")
+        from repro_torch.kernels import ops
+
+        return ops.pcilt_crc32(specs)
+    if len(specs) <= 1:
+        return [_zlib_ranges(*sp) for sp in specs]
+    workers = min(len(specs), os.cpu_count() or 1, 8)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(lambda sp: _zlib_ranges(*sp), specs))
+
+
+def table_checksum(arr, crc: int = 0) -> int:
+    """CRC-32 over the raw bytes of a table (continuing ``crc``): on the
+    card for a CUDA tensor, else ``zlib.crc32`` streamed chunk by chunk."""
+    got = checksums([arr])[0]
+    if crc == 0:
+        return got
+    from repro_torch.kernels.ref import crc_shift
+
+    n = _itemsize(arr) * int(np.prod(np.shape(arr)))
+    return crc_shift(crc, n) ^ got  # zlib's crc32_combine
 
 
 def layer_checksum(arr, layer: int, axis: int = 0) -> int:
-    """CRC-32 of slice ``layer`` along ``axis`` of a stack, over its bytes
-    in C order (the reference's ``table_checksum`` of the slice).  For
-    ``axis=1`` (a segment-major ``[G2, L, V2, O]`` stack) the slice is
-    strided: it is streamed a few contiguous ``[V2, O]`` segments at a
-    time, at most ``CRC_CHUNK_BYTES`` of them, never copied whole."""
-    if axis == 0:
-        return table_checksum(arr[layer])
-    if axis != 1:
-        raise ValueError(f"stacks carry their layers on axis 0 or 1, got {axis}")
-    seg = int(np.prod(arr.shape[2:])) * (arr.element_size()
-                                         if torch.is_tensor(arr)
-                                         else np.asarray(arr).itemsize)
-    step = max(1, CRC_CHUNK_BYTES // max(seg, 1))
-    crc = 0
-    for g in range(0, arr.shape[0], step):
-        crc = table_checksum(arr[g:g + step, layer], crc)
-    return crc
+    """CRC-32 of slice ``layer`` along ``axis`` of a stack (layer-major
+    ``[L, G, V, O]`` on axis 0, segment-major ``[G2, L, V2, O]`` on axis
+    1), over its bytes in C order: :func:`checksums` of one item."""
+    return checksums([(arr, layer, axis)])[0]
 
 
 def stacked_checksums(arr, axis: int = 0) -> List[int]:
-    """Per-layer CRC-32s of a stack, one per slice along ``axis``: layer-major
-    stacks (``[L, G, V, O]``) on axis 0, segment-major paired stacks
-    (``[G2, L, V2, O]``) on axis 1 — the reference's record, byte for
-    byte."""
-    n = arr.shape[axis]
-    workers = min(n, os.cpu_count() or 1, 8)
-    with ThreadPoolExecutor(max_workers=max(workers, 1)) as pool:
-        return list(pool.map(lambda l: layer_checksum(arr, l, axis),
-                             range(n)))
+    """Per-layer CRC-32s of a stack, one per slice along ``axis`` — the
+    reference's record, byte for byte.  A CUDA stack's layers take one
+    kernel launch; a host stack's go through a thread pool."""
+    return checksums([(arr, l, axis) for l in range(arr.shape[axis])])

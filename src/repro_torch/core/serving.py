@@ -16,25 +16,36 @@ without the reference's ``tune`` (no autotune cache in the port yet).
 prefill pass, build the conv, projection and head tables, record their
 CRC-32s, and wrap the bundle in a :class:`PCILTMambaDecode` that verifies the
 record at load; ``paired=True`` builds segment-major paired projection
-stacks (two segments per fetch).  The health monitor, recalibration and the checkpoint ring
-of the reference wait for a later slice.
+stacks (two segments per fetch).  On a card every CRC runs in the CRC
+kernel (``kernels.ops.pcilt_crc32``).
+
+:class:`HealthMonitor` keeps a converted decode healthy while it serves:
+one layer's CRC a tick, a rotating dense-oracle probe, the saturation
+sentinel, demotion to the dense oracle and online recalibration (the
+reference's, whole).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .lut_layers import (build_dwconv_tables, flatten_filters, pcilt_conv2d,
                          pcilt_depthwise_conv1d, pcilt_linear)
 from .pcilt import (SharedGroupedTables, build_grouped_tables,
-                    build_shared_grouped_tables, layer_checksum,
-                    stacked_checksums, table_checksum)
-from .quantization import (QuantSpec, calibrate, dequantize, quantize,
-                           scale_from_amax)
+                    build_paired_tables, build_shared_grouped_tables,
+                    checksums, layer_checksum, stacked_checksums,
+                    table_checksum)
+from .quantization import (QuantSpec, calibrate, dequantize, fake_quant,
+                           quantize, scale_from_amax)
 
-__all__ = ["pcilt_integrity", "PCILTMambaDecode", "convert_mamba_decode",
+log = logging.getLogger("repro_torch.serving")
+
+__all__ = ["pcilt_integrity", "PCILTMambaDecode", "HealthMonitor",
+           "convert_mamba_decode",
            "PCILTLinear", "convert_kernel", "PCILTConv2d",
            "convert_conv_kernel", "PCILTDwConv1d", "convert_dwconv",
            "pcilt_apply", "mlp_table_bytes"]
@@ -46,20 +57,32 @@ def _proj_axis(proj: Dict) -> int:
     return 1 if proj.get("paired") else 0
 
 
+def _stacks(pcilt: Dict) -> List[Tuple[str, Any, int]]:
+    """``(name, stack, layer axis)`` of a bundle's conv and projection
+    stacks, in the order of its integrity record."""
+    out = [("conv", pcilt["tables"], 0)]
+    proj = pcilt.get("proj")
+    if proj is not None:
+        axis = _proj_axis(proj)
+        out += [(name, t, axis) for name, t in proj["tables"].items()]
+    return out
+
+
 def pcilt_integrity(pcilt: Dict) -> Dict:
     """Conversion-time CRC-32 record of every table of a Mamba PCILT bundle,
     per layer for the stacked arrays (the same record, byte for byte, as
     the reference's for the same tables)."""
-    integ: Dict[str, Any] = {"conv": stacked_checksums(pcilt["tables"])}
-    proj = pcilt.get("proj")
-    if proj is not None:
-        axis = _proj_axis(proj)
-        integ["proj"] = {name: stacked_checksums(t, axis)
-                         for name, t in proj["tables"].items()}
+    integ: Dict[str, Any] = {}
+    for name, t, axis in _stacks(pcilt):
+        crcs = stacked_checksums(t, axis)
+        if name == "conv":
+            integ["conv"] = crcs
+        else:
+            integ.setdefault("proj", {})[name] = crcs
     head = pcilt.get("head")
     if head is not None:
-        integ["head"] = {"pool": table_checksum(head["pool"]),
-                         "seg_idx": table_checksum(head["seg_idx"])}
+        pool, seg_idx = checksums([head["pool"], head["seg_idx"]])
+        integ["head"] = {"pool": pool, "seg_idx": seg_idx}
     return integ
 
 
@@ -69,7 +92,10 @@ class PCILTMambaDecode:
     ``step(params, cache, tokens, layer_ok, head_ok, with_stats)`` mirrors
     ``MambaLM.decode_step``; ``layer_ok``/``head_ok`` are host bools
     (all-healthy by default).  The bundle's integrity record is verified at
-    load (``verify=True``) and on demand."""
+    load (``verify=True``) and on demand.  The step reads the bundle's
+    tables and scales at every call (PyTorch runs eagerly: there is no
+    compiled executor closing over them), so a table swapped or rewritten
+    in place is served from the next step on."""
 
     def __init__(self, model, pcilt: Dict, verify: bool = True):
         self.model = model
@@ -83,57 +109,56 @@ class PCILTMambaDecode:
                     f"PCILT bundle failed integrity verification at load "
                     f"(corrupted tables): {bad}")
 
+    def rehoist(self, verify: bool = False) -> None:
+        """The reference rebuilds its jitted executors here after a table
+        swap; the port has none to rebuild, so this only verifies the whole
+        bundle against its record when asked (``verify=True``, the
+        recalibration hot swap's check), raising on a breach."""
+        if verify:
+            bad = self.verify_integrity()
+            if bad:
+                raise RuntimeError(
+                    f"PCILT bundle failed integrity verification at rehoist "
+                    f"(corrupted tables): {bad}")
+
     def step(self, params, cache, tokens, layer_ok=None, head_ok=None,
              with_stats: bool = False):
         return self.model.decode_step(params, cache, tokens, pcilt=self.pcilt,
                                       layer_ok=layer_ok, head_ok=head_ok,
                                       with_stats=with_stats)
 
-    def verify_layer(self, layer: int) -> List[Tuple]:
-        """Checksum one layer's conv + projection tables against the record;
-        returns the breached ``(name, layer)`` sites (empty = clean)."""
+    def _recorded(self, name: str) -> List[int]:
         integ = self.pcilt["integrity"]
-        bad: List[Tuple] = []
-        if table_checksum(self.pcilt["tables"][layer]) != integ["conv"][layer]:
-            bad.append(("conv", int(layer)))
-        proj = self.pcilt.get("proj")
-        if proj is not None:
-            axis = _proj_axis(proj)
-            for name, t in proj["tables"].items():
-                if layer_checksum(t, layer, axis) != \
-                        integ["proj"][name][layer]:
-                    bad.append((name, int(layer)))
-        return bad
+        return integ["conv"] if name == "conv" else integ["proj"][name]
+
+    def verify_layer(self, layer: int) -> List[Tuple]:
+        """Checksum one layer's conv + projection tables against the record
+        (one CRC launch on the card for all of them); returns the breached
+        ``(name, layer)`` sites (empty = clean)."""
+        stacks = _stacks(self.pcilt)
+        got = checksums([(t, layer, axis) for _, t, axis in stacks])
+        return [(name, int(layer)) for (name, _, _), crc in zip(stacks, got)
+                if crc != self._recorded(name)[layer]]
 
     def verify_head(self) -> List[Tuple]:
-        """Checksum the shared-pool head (pool values + pointers)."""
+        """Checksum the shared-pool head (pool values + pointers, one CRC
+        launch on the card)."""
         head = self.pcilt.get("head")
         if head is None:
             return []
         integ = self.pcilt["integrity"]["head"]
-        bad: List[Tuple] = []
-        if table_checksum(head["pool"]) != integ["pool"]:
-            bad.append(("head.pool",))
-        if table_checksum(head["seg_idx"]) != integ["seg_idx"]:
-            bad.append(("head.seg_idx",))
-        return bad
+        got = checksums([head["pool"], head["seg_idx"]])
+        return [(f"head.{k}",) for k, crc in zip(("pool", "seg_idx"), got)
+                if crc != integ[k]]
 
     def verify_integrity(self) -> List[Tuple]:
         """Every layer of every stack plus the head; returns all breached
         sites, layer by layer as :meth:`verify_layer` orders them."""
-        integ = self.pcilt["integrity"]
-        got = {"conv": stacked_checksums(self.pcilt["tables"])}
-        proj = self.pcilt.get("proj")
-        names = list(proj["tables"]) if proj is not None else []
-        for name in names:
-            got[name] = stacked_checksums(proj["tables"][name],
-                                          _proj_axis(proj))
-        bad: List[Tuple] = []
-        for l in range(len(got["conv"])):
-            if got["conv"][l] != integ["conv"][l]:
-                bad.append(("conv", l))
-            bad.extend((name, l) for name in names
-                       if got[name][l] != integ["proj"][name][l])
+        stacks = _stacks(self.pcilt)
+        got = [stacked_checksums(t, axis) for _, t, axis in stacks]
+        bad = [(name, l) for l in range(len(got[0]))
+               for (name, _, _), crcs in zip(stacks, got)
+               if crcs[l] != self._recorded(name)[l]]
         return bad + self.verify_head()
 
     def table_bytes(self) -> int:
@@ -148,6 +173,354 @@ class PCILTMambaDecode:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+class HealthMonitor:
+    """Amortized health checking and graceful degradation for a converted
+    Mamba decode (port of the reference's, whole).
+
+    A PCILT fetch is exact against the dense matmul on the quantized grid,
+    so any deviation is corruption, not noise.  The monitor holds per-layer
+    (and head) health masks and once a tick checks **one** still-healthy
+    layer (round-robin):
+
+    * **checksum** — :meth:`PCILTMambaDecode.verify_layer` CRCs the layer's
+      conv and projection tables against the conversion-time record (on
+      the card through the CRC kernel);
+    * **dense-oracle probe** (every ``oracle_every``-th clean check) — a
+      fixed probe activation through the layer's ``gather`` fetch against
+      the fake-quant dense matmul, the projection rotating;
+    * every ``n_layers`` ticks the head's pool and pointers are CRC'd.
+
+    On a breach the layer alone (or the head) is demoted: its host mask bit
+    is cleared and the next step runs it on the exact dense oracle.
+    ``last_verified`` holds the newest tick each layer passed at, bounding
+    how far a rollback must rewind.
+
+    Calibration-drift sentinel: :meth:`observe_saturation` turns the
+    monitored step's in-kernel saturation counters into per (grid, layer)
+    rates and EWMAs; ``sat_hard`` on the rate (``"saturated"``) or
+    ``sat_drift`` on the EWMA (``"drifting"``) demotes the layer (event
+    ``kind="drift"``) and queues it on :attr:`drift_pending`;
+    :meth:`recalibrate_layer` then rebuilds its projections at the observed
+    range in place in the resident stacks, re-records their CRCs and
+    repromotes it, within ``max_recalibrations``; the ``"conv"`` grid and
+    an exhausted budget stay demoted (``drift_sticky``).  The first
+    recalibration sets :attr:`tainted`."""
+
+    #: the quantizer grids a monitored step reports, in ``mamba_decode``'s
+    #: order
+    SAT_GRIDS = ("in", "conv", "out")
+
+    def __init__(self, decode: PCILTMambaDecode, params, *,
+                 oracle_every: int = 4, oracle_batch: int = 1,
+                 oracle_tol: float = 5e-3, seed: int = 0,
+                 sat_hard: float = 0.25, sat_drift: float = 0.02,
+                 sat_alpha: float = 0.2, headroom: float = 1.05,
+                 max_recalibrations: int = 2):
+        cfg = decode.model.cfg
+        self.decode = decode
+        self.params = params
+        self.oracle_every = oracle_every
+        self.oracle_tol = oracle_tol
+        self.n_layers = int(cfg.n_layers)
+        self.layer_ok = np.ones(self.n_layers, bool)
+        self.head_ok = True
+        #: newest tick each layer passed verification at (-1 = never)
+        self.last_verified = np.full(self.n_layers, -1, np.int64)
+        self.head_last_verified = -1
+        self.checks = 0
+        self.events: List[Dict] = []
+        rng = np.random.default_rng(seed)
+        d_inner = cfg.ssm.expand * cfg.d_model
+        conv_ch = d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+        self._probe = (0.3 * rng.normal(
+            size=(oracle_batch, cfg.d_model))).astype(np.float32)
+        # wo reads the gated inner stream, not the block input
+        self._probe_out = (0.3 * rng.normal(
+            size=(oracle_batch, d_inner))).astype(np.float32)
+        self._oracle_rr = 0
+        self.sat_hard = float(sat_hard)
+        self.sat_drift = float(sat_drift)
+        self.sat_alpha = float(sat_alpha)
+        self.headroom = float(headroom)
+        self.max_recalibrations = int(max_recalibrations)
+        #: saturable elements per decode row per grid (count -> rate)
+        self._sat_elems = {"in": int(cfg.d_model),
+                           "conv": int(cfg.ssm.conv_kernel * conv_ch),
+                           "out": int(d_inner)}
+        self.sat_last = {g: np.zeros(self.n_layers) for g in self.SAT_GRIDS}
+        self.sat_ewma = {g: np.zeros(self.n_layers) for g in self.SAT_GRIDS}
+        #: running peak |x|/scale per (grid, layer) since its last
+        #: recalibration: the range a rebuild re-scales to
+        self.sat_peak = {g: np.zeros(self.n_layers) for g in self.SAT_GRIDS}
+        #: (layer, grid) pairs demoted for drift, awaiting recalibration
+        self.drift_pending: List[Tuple[int, str]] = []
+        self.recalibrations = np.zeros(self.n_layers, np.int64)
+        #: True once a recalibration rewrote tables
+        self.tainted = False
+
+    # -- masks / state -------------------------------------------------------
+
+    def ok_masks(self) -> Tuple[np.ndarray, bool]:
+        """The host ``(layer_ok, head_ok)`` of the next decode step."""
+        return self.layer_ok.copy(), bool(self.head_ok)
+
+    @property
+    def degraded(self) -> bool:
+        return (not bool(self.layer_ok.all())) or not self.head_ok
+
+    def demote(self, kind: str, layer: Optional[int], tick: int,
+               reason: str) -> Dict:
+        """Clear one health bit: the next step runs that layer (or the
+        head) on its dense oracle."""
+        if kind == "head":
+            self.head_ok = False
+        else:
+            self.layer_ok[int(layer)] = False
+        ev = {"kind": kind, "layer": None if layer is None else int(layer),
+              "tick": int(tick), "reason": reason}
+        self.events.append(ev)
+        log.warning("health breach at tick %d: %s layer=%s (%s) — demoted "
+                    "to dense oracle", tick, kind, layer, reason)
+        return ev
+
+    # -- checks --------------------------------------------------------------
+
+    def check_outputs(self, logits: torch.Tensor) -> bool:
+        """NaN/Inf gate on a step's logits (True = healthy)."""
+        return bool(torch.isfinite(logits).all())
+
+    def _oracle_check(self, layer: int, name: str = "wx") -> bool:
+        """Probe one layer's ``name`` table fetch (the literal ``gather``
+        path) against the fake-quant dense matmul."""
+        proj = self.decode.pcilt.get("proj")
+        if proj is None or name not in proj["tables"]:
+            return True
+        t = proj["tables"][name]  # [L, G, V, O] (paired: [G2, L, V2, O])
+        spec, group = proj["spec"], proj["group"]
+        paired = bool(proj.get("paired"))
+        scale = float(proj["scales"][name][layer])
+        x = self._probe_out if name == "wo" else self._probe
+        n = t.shape[0] * 2 * group if paired else t.shape[1] * group
+        pad = n - x.shape[-1]
+        xx = np.concatenate(
+            [x, np.zeros((x.shape[0], pad), x.dtype)], -1) if pad else x
+        got = pcilt_linear(torch.from_numpy(xx).to(t.device), t, spec, scale,
+                           group, path="gather", stacked=int(layer),
+                           paired=paired)
+        k = self.params["blocks"]["mixer"][name]["kernel"][layer]
+        xt = torch.from_numpy(x).to(k.device)
+        want = fake_quant(xt, spec, scale) @ k.float()
+        return bool(torch.allclose(got.float(), want, rtol=self.oracle_tol,
+                                   atol=self.oracle_tol))
+
+    def _next_probe_name(self) -> str:
+        """Round-robin over the converted projections for the oracle probe
+        (``wx`` when none converted)."""
+        from repro_torch.nn.ssm import PROJ_NAMES
+
+        proj = self.decode.pcilt.get("proj")
+        names = tuple(n for n in PROJ_NAMES
+                      if proj is not None and n in proj["tables"]) or ("wx",)
+        name = names[self._oracle_rr % len(names)]
+        self._oracle_rr += 1
+        return name
+
+    def on_tick(self, tick: int, sat=None, rows: int = 1) -> List[Dict]:
+        """One tick's health pass; returns the breach events (empty =
+        clean).  ``sat`` (the monitored step's counters, host arrays or
+        tensors) feeds the drift sentinel first, so a ``"saturated"`` step
+        is demoted on the tick whose outputs it indicts."""
+        tick = int(tick)
+        breaches: List[Dict] = []
+        if sat is not None:
+            breaches.extend(self.observe_saturation(tick, sat, rows))
+        candidates = [l for l in range(self.n_layers) if self.layer_ok[l]]
+        if candidates:
+            l = candidates[tick % len(candidates)]
+            bad = self.decode.verify_layer(l)
+            if bad:
+                breaches.append(self.demote(
+                    "layer", l, tick, f"checksum breach: {bad}"))
+            else:
+                self.checks += 1
+                if self.oracle_every and \
+                        self.checks % self.oracle_every == 0:
+                    name = self._next_probe_name()
+                    if not self._oracle_check(l, name):
+                        breaches.append(self.demote(
+                            "layer", l, tick,
+                            f"dense-oracle divergence ({name})"))
+            if self.layer_ok[l]:
+                self.last_verified[l] = tick
+        if self.head_ok and self.decode.pcilt.get("head") is not None and \
+                tick % max(self.n_layers, 1) == 0:
+            bad = self.decode.verify_head()
+            if bad:
+                breaches.append(self.demote(
+                    "head", None, tick, f"checksum breach: {bad}"))
+            else:
+                self.head_last_verified = tick
+        return breaches
+
+    # -- calibration-drift sentinel ------------------------------------------
+
+    def saturation_state(self, grid: str, layer: int) -> str:
+        """``"healthy"`` / ``"drifting"`` (EWMA past ``sat_drift``) /
+        ``"saturated"`` (last rate past ``sat_hard``)."""
+        if self.sat_last[grid][layer] >= self.sat_hard:
+            return "saturated"
+        if self.sat_ewma[grid][layer] >= self.sat_drift:
+            return "drifting"
+        return "healthy"
+
+    def observe_saturation(self, tick: int, sat, rows: int) -> List[Dict]:
+        """Feed one monitored step's counters ``{"in"|"conv"|"out":
+        {"count" [L], "ratio" [L]}}`` into the sentinel: rates are counts
+        over ``rows`` times the grid's elements; a healthy layer whose rate
+        breaches ``sat_hard`` or whose EWMA breaches ``sat_drift`` is
+        demoted (``kind="drift"``, with grid, state, rate, EWMA and peak
+        ratio) and queued on :attr:`drift_pending`."""
+        tick = int(tick)
+        breaches: List[Dict] = []
+        for grid, st in sat.items():
+            counts = _host(st["count"]).astype(np.int64)
+            ratios = _host(st["ratio"]).astype(np.float64)
+            rates = counts / float(max(int(rows), 1) * self._sat_elems[grid])
+            a = self.sat_alpha
+            self.sat_last[grid] = rates
+            self.sat_ewma[grid] = (1.0 - a) * self.sat_ewma[grid] + a * rates
+            self.sat_peak[grid] = np.maximum(self.sat_peak[grid], ratios)
+            for l in range(self.n_layers):
+                if not self.layer_ok[l]:
+                    continue
+                state = self.saturation_state(grid, l)
+                if state == "healthy":
+                    continue
+                if state == "saturated":
+                    reason = (f"saturation {grid} rate={rates[l]:.4f} >= "
+                              f"sat_hard={self.sat_hard}")
+                else:
+                    reason = (f"saturation {grid} "
+                              f"ewma={self.sat_ewma[grid][l]:.4f} >= "
+                              f"sat_drift={self.sat_drift}")
+                ev = self.demote("drift", l, tick, reason)
+                ev.update(grid=grid, state=state, rate=float(rates[l]),
+                          ewma=float(self.sat_ewma[grid][l]),
+                          ratio=float(self.sat_peak[grid][l]))
+                self.drift_pending.append((l, grid))
+                breaches.append(ev)
+        return breaches
+
+    def recalibrate_layer(self, layer: int, grid: str, tick: int) -> Dict:
+        """Rebuild one drift-demoted layer's projections at the observed
+        range and repromote it.
+
+        The new absmax is the peak ``|x|/scale`` ratio times the old scale,
+        times ``headroom``; the grid's projections (``"in"``: the five
+        block-input ones; ``"out"``: ``wo``) are rebuilt with conversion's
+        arithmetic and written **in place** into the resident stacks (the
+        layer's slice), their CRCs re-recorded on the tables' device, their
+        host scales updated, and the whole bundle verified
+        (``rehoist(verify=True)``).  The ``"conv"`` grid (one scale for
+        every layer) and a layer past ``max_recalibrations`` stay demoted
+        (``drift_sticky``)."""
+        l, tick = int(layer), int(tick)
+
+        def _sticky(reason: str) -> Dict:
+            ev = {"kind": "drift_sticky", "layer": l, "tick": tick,
+                  "grid": grid, "reason": reason}
+            self.events.append(ev)
+            log.warning("drift at layer %d stays demoted: %s", l, reason)
+            return ev
+
+        proj = self.decode.pcilt.get("proj")
+        if grid == "conv":
+            return _sticky("conv grid shares one global scale across layers "
+                           "— per-layer hot-swap impossible; demoted to the "
+                           "dense oracle")
+        if proj is None:
+            return _sticky("no converted projections to rebuild")
+        if self.recalibrations[l] >= self.max_recalibrations:
+            return _sticky(
+                f"recalibration budget exhausted "
+                f"({int(self.recalibrations[l])}/{self.max_recalibrations})")
+        spec, group = proj["spec"], proj["group"]
+        paired = bool(proj.get("paired"))
+        integ = self.decode.pcilt["integrity"]["proj"]
+        names = ("wo",) if grid == "out" else tuple(
+            n for n in proj["tables"] if n != "wo")
+        new_amax = float(self.sat_peak[grid][l]) * self.headroom
+        new_scales: Dict[str, float] = {}
+        with torch.no_grad():
+            for name in names:
+                old_scale = float(proj["scales"][name][l])
+                new_scale = float(scale_from_amax(
+                    torch.tensor(new_amax * old_scale, dtype=torch.float32),
+                    spec))
+                wf = self.params["blocks"]["mixer"][name]["kernel"][l].float()
+                t = proj["tables"][name]
+                if paired:  # segment-major [G2, L, V2, O]: the layer's slice
+                    t[:, l].copy_(build_paired_tables(wf, spec, new_scale,
+                                                      group).to(t.dtype))
+                else:
+                    pad_n = (-wf.shape[0]) % group
+                    if pad_n:  # group-alignment slots, as conversion
+                        wf = torch.cat([wf, wf.new_zeros((pad_n, wf.shape[1]))],
+                                       0)
+                    t[l].copy_(build_grouped_tables(wf, spec, new_scale,
+                                                    group).to(t.dtype))
+                integ[name][l] = layer_checksum(t, l, _proj_axis(proj))
+                proj["scales"][name][l] = new_scale
+                new_scales[name] = float(proj["scales"][name][l])
+        self.decode.rehoist(verify=True)
+        self.recalibrations[l] += 1
+        self.tainted = True
+        self.layer_ok[l] = True
+        self.last_verified[l] = tick
+        self.sat_ewma[grid][l] = 0.0
+        self.sat_last[grid][l] = 0.0
+        self.sat_peak[grid][l] = 0.0
+        ev = {"kind": "recalibrate", "layer": l, "tick": tick, "grid": grid,
+              "amax_ratio": new_amax, "scales": new_scales,
+              "attempt": int(self.recalibrations[l])}
+        self.events.append(ev)
+        log.warning("recalibrated layer %d grid %r at tick %d: new scales "
+                    "%s — repromoted", l, grid, tick, new_scales)
+        return ev
+
+    def recalibrate_pending(self, tick: int) -> List[Dict]:
+        """Drain :attr:`drift_pending` between ticks: one
+        :meth:`recalibrate_layer` per queued (layer, grid), deduplicated."""
+        events: List[Dict] = []
+        seen = set()
+        pending, self.drift_pending = self.drift_pending, []
+        for l, grid in pending:
+            if (l, grid) in seen:
+                continue
+            seen.add((l, grid))
+            events.append(self.recalibrate_layer(l, grid, tick))
+        return events
+
+    def saturation_summary(self) -> Dict:
+        """Per-tick telemetry: worst rate, EWMA and peak ratio per grid,
+        recalibrations, pending drift responses, taint."""
+        return {
+            "rate": {g: float(self.sat_last[g].max(initial=0.0))
+                     for g in self.SAT_GRIDS},
+            "ewma": {g: float(self.sat_ewma[g].max(initial=0.0))
+                     for g in self.SAT_GRIDS},
+            "peak_ratio": {g: float(self.sat_peak[g].max(initial=0.0))
+                           for g in self.SAT_GRIDS},
+            "recalibrations": int(self.recalibrations.sum()),
+            "pending": len(self.drift_pending),
+            "tainted": bool(self.tainted),
+        }
 
 
 def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,

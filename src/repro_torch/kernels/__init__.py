@@ -6,7 +6,9 @@
   host-packed depthwise conv1d and the shared-pool fused GEMV (each a
   template over the table dtype, float32 or bfloat16, and, where the
   reference has one, a counters flag); the fused and shared-pool conv2d;
-  the host-packed GEMV, which also serves the host-packed conv2d;
+  the host-packed GEMV, which also serves the host-packed conv2d; the
+  CRC-32 of table bytes (the integrity record and the health monitor's
+  checks);
 * ``build.py`` — ``nvcc`` into one shared library per source, loaded with
   ``ctypes`` at first use (``KERNELS`` maps each kernel to its library);
 * ``ops.py`` — the wrappers (checks, launch, launch counts) and each

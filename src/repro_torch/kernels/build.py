@@ -32,7 +32,8 @@ SOURCES = {"gemv_stacked": "pcilt_gemv_stacked.cu",
            "dwconv1d": "pcilt_dwconv1d.cu",
            "shared_gemv": "pcilt_shared_gemv.cu",
            "conv2d": "pcilt_conv2d.cu",
-           "gemv_host": "pcilt_gemv.cu"}
+           "gemv_host": "pcilt_gemv.cu",
+           "crc32": "pcilt_crc32.cu"}
 
 #: kernel name (the key of its launch count) -> the library that holds it
 KERNELS = {"gemv_stacked": "gemv_stacked", "dwconv1d": "dwconv1d",
@@ -41,7 +42,8 @@ KERNELS = {"gemv_stacked": "gemv_stacked", "dwconv1d": "dwconv1d",
            "conv2d_host": "gemv_host", "fused_gemv": "gemv_stacked",
            "gemv_paired": "gemv_stacked",
            "gemv_paired_stacked": "gemv_stacked",
-           "gemv_plan": "gemv_stacked", "dwconv1d_host": "dwconv1d"}
+           "gemv_plan": "gemv_stacked", "dwconv1d_host": "dwconv1d",
+           "crc32": "crc32"}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C entry point suffix -> argtypes (each entry exists as ``_f32``/``_bf16``,
@@ -63,8 +65,8 @@ _SIGNATURES = {
     "pcilt_conv2d_codes": [_P, _P] + [_I] * 6 + [_F, _P],
     "pcilt_gemv_host": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
 }
-#: the C entry points without a dtype suffix (a design's constants) ->
-#: argtypes
+#: the C entry points without a dtype suffix (a design's constants, and the
+#: CRC-32, which reads bytes) -> argtypes
 _CONFIG_SIGNATURES = {
     "pcilt_conv2d_staged_config": [_P],
     "pcilt_gemv_split_config": [_P],
@@ -76,6 +78,8 @@ _CONFIG_SIGNATURES = {
     "pcilt_dwconv1d_tiled_config": [_P],
     "pcilt_dwconv1d_tiled_plan": [_I, _I, _I, _P],
     "pcilt_gemv_host_staged_config": [_P],
+    "pcilt_crc32": [_P, _I, _LL, _I, _P, _P, _P, _P, _P, _P],
+    "pcilt_crc32_config": [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

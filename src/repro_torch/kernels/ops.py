@@ -59,6 +59,13 @@ and the kept ``"direct"`` one: :func:`gemv_host_variant` chooses,
 :func:`gemv_host_block_tile` mirrors the staged grid,
 :data:`GEMV_HOST_VARIANT_LAUNCHES` counts, and ``_gemv_host`` /
 ``_conv2d_host`` take ``variant=``.  Neither falls back to the other.
+
+:func:`pcilt_crc32` is the CRC-32 of the tables' integrity record and
+checks (``csrc/pcilt_crc32.cu``): ``zlib.crc32`` of each of a list of
+streams (a contiguous tensor's bytes, or byte ranges of it), computed on
+the card for CUDA tensors (one launch counted for all the streams, one
+read back of their words) and by the same chunk and combine arithmetic
+(``kernels.ref.crc32_plain``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -66,7 +73,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional
+from collections import OrderedDict
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -78,8 +86,10 @@ from repro_torch.core.quantization import QuantSpec, quantize, quantize_with_sta
 from repro_torch.core.lut_layers import (_conv_pads, _dwconv_pads,
                                          conv_offsets, pad_nhwc)
 from . import build
-from .ref import (dense_rows, fetch_sum, fetch_sum_sliced,
-                  pcilt_dwconv1d_ref, pcilt_gemv_ref, pool_rows)
+from .ref import (CRC_CHUNK_BYTES, CRC_LANE_BYTES, CRC_LEVELS, crc32_finish,
+                  crc32_plain, crc_operators, dense_rows, fetch_sum,
+                  fetch_sum_sliced, pcilt_dwconv1d_ref, pcilt_gemv_ref,
+                  pool_rows)
 
 __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "pcilt_fused_gemv_stacked", "pcilt_fused_gemv_paired",
@@ -100,7 +110,8 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "DWCONV_VARIANT_LAUNCHES", "GEMV_HOST_VARIANT_LAUNCHES",
            "gemv_host_variant", "gemv_host_smem_bytes", "gemv_host_tiles",
            "gemv_host_block_tile", "gemv_host_plain", "dwconv_variant",
-           "DwTiledGrid", "dwconv_tiled_grid"]
+           "DwTiledGrid", "dwconv_tiled_grid", "pcilt_crc32",
+           "CRC_DEVICE_LAUNCHES", "crc32_plain"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -131,7 +142,7 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, CONV_VARIANT_LAUNCHES, GEMV_VARIANT_LAUNCHES,
                    SHARED_GEMV_VARIANT_LAUNCHES,
                    DWCONV_HOST_VARIANT_LAUNCHES, DWCONV_VARIANT_LAUNCHES,
-                   GEMV_HOST_VARIANT_LAUNCHES):
+                   GEMV_HOST_VARIANT_LAUNCHES, CRC_DEVICE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1396,3 +1407,134 @@ def _shared_conv2d(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
         return out.reshape(xp.shape[0], Ho, Wo, O)
     return _launch_conv("shared_conv2d", xp, pool, seg_idx, X, spec, scale,
                         group, kh, kw, stride, Ho, Wo, variant)
+
+
+# ----------------------------------------------------------------------------
+# CRC-32 of table bytes (the integrity record and checks)
+# ----------------------------------------------------------------------------
+
+#: nodes one combine block of the CRC reduces (``kCombine`` of
+#: pcilt_crc32.cu)
+CRC_COMBINE = 1024
+_CRC_CHECKED: list = []
+#: device -> the CRC's operator table [CRC_LEVELS, 32] on it
+_CRC_OPS: Dict[torch.device, torch.Tensor] = {}
+#: (device, stream and range rows) -> those rows on the device, the most
+#: recently used CRC_TABLES_KEPT of them
+_CRC_TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+CRC_TABLES_KEPT = 256
+#: device launches the CRC library reports making for the wrapper's calls
+#: (a chunk pass and its combine passes a call; ``LAUNCHES["crc32"]``
+#: counts the calls)
+CRC_DEVICE_LAUNCHES: Dict[str, int] = {"passes": 0}
+
+
+def _crc_ops(lib, dev: torch.device) -> torch.Tensor:
+    """The operator table on ``dev`` (uploaded once), after checking the
+    library's constants against this module's mirror of them."""
+    if not _CRC_CHECKED:
+        cfg = (ctypes.c_int * 4)()
+        lib.pcilt_crc32_config(cfg)
+        mine = (CRC_LANE_BYTES, CRC_CHUNK_BYTES, CRC_LEVELS, CRC_COMBINE)
+        if tuple(cfg) != mine:
+            raise RuntimeError(f"pcilt_crc32.cu's constants {tuple(cfg)} "
+                               f"differ from kernels.ops' {mine}")
+        _CRC_CHECKED.append(True)
+    table = _CRC_OPS.get(dev)
+    if table is None:
+        table = torch.from_numpy(crc_operators().view(np.int32)).to(dev)
+        _CRC_OPS[dev] = table
+    return table
+
+
+def _crc_stream(stream):
+    """``(tensor, starts, length)`` of one stream of :func:`pcilt_crc32`,
+    checked: a contiguous tensor, byte starts (int64) and a length whose
+    ranges lie inside the tensor's bytes."""
+    t, starts, length = (stream, None, None) if torch.is_tensor(stream) \
+        else stream
+    if not t.is_contiguous():
+        raise ValueError(f"pcilt_crc32: tensors must be contiguous (got "
+                         f"strides {t.stride()} for shape {tuple(t.shape)})")
+    nbytes = t.numel() * t.element_size()
+    if starts is None:
+        starts, length = (0,), nbytes
+    starts = np.asarray(starts, np.int64).reshape(-1)
+    length = int(length)
+    if length < 0 or (starts.size and length and (
+            starts.min() < 0 or starts.max() + length > nbytes)):
+        raise ValueError(f"pcilt_crc32: ranges of {length} bytes from "
+                         f"{starts.min() if starts.size else 0} to "
+                         f"{starts.max() if starts.size else 0} exceed the "
+                         f"tensor's {nbytes} bytes")
+    return t, starts, length
+
+
+def _crc_table(dev: torch.device, rows: np.ndarray) -> torch.Tensor:
+    """The kernel's stream and range rows on ``dev``: uploaded once, then
+    reused while the same rows recur (a table's ranges are fixed while it
+    is resident, so a monitor's checks copy nothing to the card)."""
+    key = (dev, rows.tobytes())
+    table = _CRC_TABLES.get(key)
+    if table is None:
+        table = torch.from_numpy(rows).to(dev)
+        _CRC_TABLES[key] = table
+        if len(_CRC_TABLES) > CRC_TABLES_KEPT:
+            _CRC_TABLES.popitem(last=False)
+    else:
+        _CRC_TABLES.move_to_end(key)
+    return table
+
+
+def pcilt_crc32(streams) -> List[int]:
+    """``zlib.crc32`` of each stream.  A stream is a contiguous tensor (its
+    C-order bytes; a bfloat16 table's are its 16-bit words) or ``(t,
+    starts, length)``: the ``length`` bytes of ``t``'s bytes at each offset
+    in ``starts``, back to back (a layer of a layer-major stack is one
+    start; a layer of a segment-major ``[G2, L, V2, O]`` stack is ``G2``
+    starts ``L`` segments apart).  CUDA tensors (on one device): one launch
+    of the CRC kernel for every stream, counted once, and one read back of
+    their 32-bit words; CPU tensors run :func:`crc32_plain`."""
+    specs = [_crc_stream(s) for s in streams]
+    if not specs:
+        return []
+    if _on_cpu(*(t for t, _, _ in specs)):
+        out = []
+        for t, starts, length in specs:
+            flat = t.detach().reshape(-1).view(torch.uint8)
+            out.append(crc32_plain([flat[a:a + length] for a in starts]))
+        return out
+    totals = [st.size * n for _, st, n in specs]
+    live = [i for i, n in enumerate(totals) if n]
+    res = [0] * len(specs)  # zlib.crc32(b"")
+    if not live:
+        return res
+    dev = specs[live[0]][0].device
+    nch = np.array([-(-totals[i] // CRC_CHUNK_BYTES) for i in live], np.int64)
+    nr = np.array([specs[i][1].size for i in live], np.int64)
+    srows = np.stack([np.cumsum(nr) - nr, nr,
+                      np.array([totals[i] for i in live], np.int64),
+                      np.cumsum(nch) - nch, nch], 1)
+    rrows = np.concatenate([
+        np.stack([t.data_ptr() + st, np.full(st.size, n, np.int64),
+                  n * np.arange(st.size, dtype=np.int64)], 1)
+        for t, st, n in (specs[i] for i in live)])
+    table = _crc_table(dev, np.concatenate([srows.reshape(-1),
+                                            rrows.reshape(-1)]))
+    n_streams, nchunks = len(live), int(nch.sum())
+    levels = int(nch.max() - 1).bit_length()
+    half = n_streams * ((1 << levels) // CRC_COMBINE + 1)
+    ws = torch.empty(nchunks + 2 * half + n_streams, dtype=torch.int32,
+                     device=dev)
+    out = ws[nchunks + 2 * half:]
+    lib = build.library("crc32")
+    made = ctypes.c_int(0)
+    _launch("crc32", lib.pcilt_crc32, table, _ptr(table), n_streams,
+            nchunks, levels, _ptr(ws), _ptr(ws[nchunks:]),
+            _ptr(_crc_ops(lib, dev)), _ptr(out),
+            ctypes.c_void_p(ctypes.addressof(made)))
+    CRC_DEVICE_LAUNCHES["passes"] += made.value
+    pure = out.cpu().numpy().view(np.uint32)
+    for j, i in enumerate(live):
+        res[i] = crc32_finish(int(pure[j]), totals[i])
+    return res

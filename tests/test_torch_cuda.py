@@ -845,3 +845,198 @@ def test_dwconv1d_tiled_stats_do_not_accumulate(cuda):
         assert int(stats[0]) == int(wc)
         assert float(stats[1:].view(torch.float32)[0]) == float(wr)
     assert int(scratch.abs().sum()) == 0
+
+
+# ----------------------------------------------------------------------------
+# The CRC-32 kernel, the in-place corruption and the monitored engine
+# ----------------------------------------------------------------------------
+
+CRC_LENGTHS = [1, 2, 15, 17, 2047, 2048, 2049, 65535, 65536, 65537,
+               3 * 65536 + 11, 5_000_003]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", CRC_LENGTHS)
+def test_crc32_kernel_equals_zlib_on_ragged_lengths(cuda, n):
+    import zlib
+
+    b = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    t = torch.from_numpy(b).to(cuda)
+    before = ops.LAUNCHES["crc32"]
+    got = ops.pcilt_crc32([t])
+    again = ops.pcilt_crc32([t])
+    assert got == again == [zlib.crc32(b.tobytes())]
+    assert ops.LAUNCHES["crc32"] == before + 2
+    from repro_torch.core.pcilt import table_checksum
+
+    assert table_checksum(t[1:], 77) == zlib.crc32(b[1:].tobytes(), 77)
+
+
+@pytest.mark.cuda
+def test_crc32_kernel_over_ranges_bf16_and_strided_layers(cuda):
+    """Several streams in one launch (ragged lengths at unaligned
+    addresses, an empty one, ragged ranges of one tensor), a bfloat16
+    table (its 16-bit words) and a layer of a segment-major stack (G2
+    ranges); the library's device launches are counted."""
+    import zlib
+
+    rng = np.random.default_rng(1)
+    host = rng.integers(0, 256, 300_001, dtype=np.uint8)
+    base = torch.from_numpy(host).to(cuda)
+    cuts = [(3, 5), (8, 65536), (65544, 1), (65545, 0), (65545, 200_000)]
+    starts = [3, 70_001, 9, 140_000]
+    before = dict(ops.LAUNCHES), dict(ops.CRC_DEVICE_LAUNCHES)
+    got = ops.pcilt_crc32([base[a:a + n] for a, n in cuts]
+                          + [(base, starts, 65_537)])
+    assert got == [zlib.crc32(host[a:a + n].tobytes()) for a, n in cuts] + [
+        zlib.crc32(b"".join(host[a:a + 65_537].tobytes() for a in starts))]
+    assert ops.LAUNCHES["crc32"] == before[0]["crc32"] + 1
+    assert ops.CRC_DEVICE_LAUNCHES["passes"] == \
+        before[1]["passes"] + 2  # the chunk pass and one combine pass
+    t = torch.randn(7, 129, 33, device=cuda).to(torch.bfloat16)
+    host = t.cpu().view(torch.int16).numpy()
+    assert ops.pcilt_crc32([t]) == [zlib.crc32(host.tobytes())]
+    from repro_torch.core.pcilt import layer_checksum, stacked_checksums
+
+    stack = torch.randn(192, 3, 16, 40, device=cuda)
+    host = stack.cpu().numpy()
+    for l in range(3):
+        assert layer_checksum(stack, l, axis=1) == zlib.crc32(
+            np.ascontiguousarray(host[:, l]).tobytes())
+    assert stacked_checksums(stack, axis=1) == stacked_checksums(
+        stack.cpu(), axis=1)
+
+
+@pytest.mark.cuda
+def test_table_checksum_of_a_cuda_tensor_stays_on_the_card(cuda, monkeypatch):
+    """Neither ``zlib`` nor a host copy of the table: patch both to raise."""
+    import zlib
+
+    from repro_torch.core import pcilt
+
+    t = torch.randn(3, 64, 1000, device=cuda)
+    want = zlib.crc32(t.cpu().numpy().tobytes())
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor's checksum reached zlib")
+
+    monkeypatch.setattr(pcilt.zlib, "crc32", refuse)
+    real_cpu = torch.Tensor.cpu
+
+    def cpu(self, *a, **k):
+        if self.numel() > 16:
+            raise AssertionError("a CUDA table was copied to the host")
+        return real_cpu(self, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    assert pcilt.table_checksum(t) == want
+    assert pcilt.stacked_checksums(t) == [
+        pcilt.table_checksum(t[l]) for l in range(3)]
+
+
+@pytest.mark.cuda
+def test_corrupt_table_flips_in_place_on_the_card(cuda):
+    from repro_torch.runtime import FaultInjector
+
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.randn(4, 8, 16, 32, device=cuda).to(dtype)
+        before = t.clone()
+        ptr = t.data_ptr()
+        inj = FaultInjector(seed=3)
+        got = inj.corrupt_table(t, n_flips=5)
+        assert got is t and t.data_ptr() == ptr and t.is_cuda
+        changed = (t != before).nonzero().tolist()
+        assert sorted(map(tuple, changed)) == sorted(inj.events[0]["sites"])
+
+
+def _to(bundle, dev):
+    """A Mamba PCILT bundle with its tables on ``dev`` (scales stay host
+    float32, the record ints)."""
+    out = dict(bundle, tables=bundle["tables"].to(dev))
+    out["proj"] = dict(bundle["proj"], tables={
+        k: v.to(dev) for k, v in bundle["proj"]["tables"].items()},
+        scales={k: v.clone() for k, v in bundle["proj"]["scales"].items()})
+    out["head"] = dict(bundle["head"], **{
+        k: bundle["head"][k].to(dev) for k in ("pool", "seg_idx",
+                                                "kernel_q")})
+    out["integrity"] = {"conv": list(bundle["integrity"]["conv"]),
+                        "proj": {k: list(v) for k, v in
+                                 bundle["integrity"]["proj"].items()},
+                        "head": dict(bundle["integrity"]["head"])}
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["chaos", "drift"])
+def test_monitored_engine_on_the_card_equals_the_cpu_run(cuda, plan):
+    """The smoke-config engine under its health monitor, on the same
+    weights and tables on the CPU and on the card, through the ``--chaos``
+    or ``--chaos-drift`` plan: the same outcomes, health events, restarts,
+    rollbacks and tokens (logits within 1e-4 each step; a greedy token may
+    differ only at a tie of the coarse-grid head, where the CPU run's is
+    fed on), and the CRC kernel launched by the monitor."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import PCILTConfig
+    from repro_torch.interop import tree_map
+    from repro_torch.launch import serve
+    from repro_torch.runtime import FaultInjector
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-130m"),
+                              pcilt=PCILTConfig(act_bits=4, group=2),
+                              dtype=torch.float32)
+    donor = serve.Engine(cfg, slots=2, pcilt=True, device="cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = serve.Engine(
+            cfg, slots=2, pcilt=True, device=dev,
+            params=tree_map(lambda t: t.to(dev), donor.params),
+            pcilt_bundle=_to(donor.pdecode.pcilt, dev))
+        inj = FaultInjector(fail_at=(7,), seed=1)
+        eng.chaos = (serve._chaos_plan(eng, inj) if plan == "chaos"
+                     else serve._chaos_drift_plan(eng, inj))
+        runs[dev] = (eng, inj, serve.make_requests(cfg, 3, 6, 1))
+    log = []
+    ceng = runs["cpu"][0]
+    craw = ceng._raw_step
+
+    def logged():
+        fed = ceng.tokens.copy()
+        logits, cache = craw()
+        log.append((fed, logits.clone()))
+        return logits, cache
+
+    ceng._raw_step = logged
+    cstats = ceng.run(runs["cpu"][2])
+    geng = runs["cuda"][0]
+    graw = geng._raw_step
+    n = {"i": 0}
+
+    def compared():
+        fed, want = log[n["i"]]
+        n["i"] += 1
+        assert np.array_equal(geng.tokens, fed)
+        logits, cache = graw()
+        if not all(bool(torch.isfinite(t).all())
+                   for t in cache["layers"].values()):
+            return logits, cache  # the poisoned step: refused by both
+        got = logits.cpu()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        for b in (got.argmax(-1) != want.argmax(-1)).nonzero()[:, 0]:
+            assert got[b, want[b].argmax()] >= got[b].max() - 1e-4
+        return want.to(cuda), cache
+
+    geng._raw_step = compared
+    before = ops.LAUNCHES["crc32"]
+    gstats = geng.run(runs["cuda"][2])
+    assert ops.LAUNCHES["crc32"] > before
+    assert n["i"] == len(log)
+    ev = lambda s: [(e["kind"], e["layer"], e["tick"])  # noqa: E731
+                    for e in s["health_events"]]
+    assert ev(gstats) == ev(cstats) and ev(gstats)
+    for key in ("outcomes", "restarts", "rollbacks", "decode_ticks",
+                "prefill_ticks"):
+        assert gstats[key] == cstats[key], key
+    assert runs["cuda"][1].events == runs["cpu"][1].events
+    assert [r.out for r in runs["cuda"][2]] == [r.out for r in runs["cpu"][2]]

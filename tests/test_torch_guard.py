@@ -78,3 +78,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         convert_mamba_decode(model, params, torch.zeros(1, 4, dtype=torch.long))
     # asking for the CPU is the only way there
     assert params["embed"]["embedding"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("flags", [[], ["--pcilt"], ["--pcilt", "--chaos"],
+                                   ["--traffic", "poisson"]])
+def test_serve_cli_refuses_to_fall_back_to_cpu(flags):
+    """``python -m repro_torch.launch.serve`` without ``--device cpu``
+    demands CUDA, before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults run on it")
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(flags)
