@@ -92,7 +92,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    the split design and with the kept GEMV design forced, then with the
    counters on (as the engine's sentinel runs it) in the tiled dwconv
    design and with the kept one forced (24 more launches a step: its stats
-   fills);
+   fills); and one ``MambaLM.prefill`` cache of a 16-token prompt at B =
+   4 through the PCILT step, against the same oracle;
 6. the paper CNN (``configs/paper_cnn.config()``: 50-80-120-200-350
    channels, 5x5, INT8) on one seeded 1024x768 image: tables built on the
    card (2.57 GiB float32), a 256x192 forward timed and extrapolated
@@ -153,7 +154,22 @@ Phases (any failure exits non-zero, and no result line is printed):
     fault-free engine: 2 x ~29 GB, where full depth would take 2 x ~72
     GiB): ``run_cli`` with ``--chaos``, ``--chaos-drift`` and ``--chaos
     --traffic poisson``, each printing its "contract verified" line;
-13. prints the kernels' JSON line, then as the last line
+13. the dense transformer family at qwen3-0.6b's published width and
+    depth (28 layers, d 1024, 16 heads over 8 KV heads, vocab 151936;
+    seeded weights, bfloat16 compute and KV cache): ``Engine(slots=4,
+    max_len=256)`` serves 4 requests of 8 new tokens (set-up seconds,
+    median step, tokens/s, peak memory, one B = 4 step's device time and
+    busy share; every request served, no restart, no PCILT kernel);
+    ``make_prefill_step`` on a 192-token prompt against a decode replay of
+    it (2e-2 of the largest logit, argmax equal); a 4096-token prefill
+    (the chunked attention path), timed, with ``_sdpa_chunked`` against
+    ``_sdpa_dense`` on layer 0 (2e-2 of the largest output);
+    ``launch.serve_pcilt.run`` at this width (layer 0's MLP, its fetch
+    paths against the dense product; kernel 6's kept design at M = 4,
+    timed beside ``matmul`` by CUDA events behind two L2 flushes: late in
+    a run the profiler loses records); ``launch.decode_pcilt.run`` through kernels 1
+    and 2 and its oracle check, its tokens equal to the CPU run's;
+14. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -179,11 +195,15 @@ FLUSH_BYTES = 256 << 20  # > 5x the H100's 50 MB L2
 FLUSH_KERNEL = "bitwise_not"  # in the name of the flush's device kernel
 PROFILE_PAD_S = 0.02  # host idle time on each side of a profiled window
 #: the marker kernel that opens every profiled window (torch.cuda._sleep's
-#: spin kernel, a substring of its name) and its length in clocks
+#: spin kernel, a substring of its name), its length in clocks, and how
+#: many open a window (late in a run a window can lose its first two
+#: records)
 PROFILE_MARKER = "spin_kernel"
 PROFILE_MARKER_CYCLES = 1000
-#: profiled windows, and those whose first record (the marker) was lost
-PROFILES = {"windows": 0, "first_record_lost": 0}
+PROFILE_MARKERS = 3
+#: profiled windows, those whose first record (a marker) was lost, and the
+#: markers lost in all
+PROFILES = {"windows": 0, "first_record_lost": 0, "markers_lost": 0}
 REPLACES = {
     "gemv_stacked": "src/repro/kernels/pcilt_fused.py:372",
     "dwconv1d": "src/repro/kernels/pcilt_dwconv1d.py:192",
@@ -291,6 +311,10 @@ CONTRACT_LAYERS = 4
 #: that those four are served undegraded and held token for token to the
 #: fault-free run (tests/test_torch_resilience.py re-keys its plan alike)
 LATE_CHAOS_STEPS = {15: 70, 19: 74}
+#: the prompt of phase 5's prefill cache and of phase 13's prefill against
+#: a decode replay; phase 13's long prompt (S * S >= 2048**2: the chunked
+#: attention path)
+PREFILL_PROMPT, REPLAY_PROMPT, LONG_PROMPT = 16, 192, 4096
 #: the paper CNN's image (H, W) at full size (printed W x H, as the paper), and the small image of the
 #: checks and of the plain versions' timing
 FULL_HW = (768, 1024)
@@ -335,24 +359,28 @@ def _profile(torch, fn):
     """Device times of ``fn()``.  The window is padded with host idle time
     on both sides, so the device's records lie well inside it (records of
     a short window at its edges can fall outside the window the profiler
-    keeps), and its first device activity is a marker kernel
-    (``torch.cuda._sleep``, left out of the times): from phase 4's conv
-    timing on, the profiler drops the first device record of every window,
-    so the marker takes that loss.  ``PROFILES`` counts the windows and
-    those whose marker was lost."""
+    keeps), and its first device activities are ``PROFILE_MARKERS`` marker
+    kernels (``torch.cuda._sleep``, left out of the times): from phase 4's
+    conv timing on, the profiler drops the first device record of every
+    window, and late in a run sometimes the first two, so the markers take
+    that loss.  ``PROFILES`` counts the windows, those that lost a marker
+    and the markers lost."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-        torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(PROFILE_MARKER_CYCLES)
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
     times = _device_times(prof)
     PROFILES["windows"] += 1
-    if not any(PROFILE_MARKER in k for k in times):
-        PROFILES["first_record_lost"] += 1
+    lost = PROFILE_MARKERS - sum(c for k, (c, _) in times.items()
+                                 if PROFILE_MARKER in k)
+    PROFILES["first_record_lost"] += lost > 0
+    PROFILES["markers_lost"] += lost
     return {k: v for k, v in times.items() if PROFILE_MARKER not in k}
 
 
@@ -2090,6 +2118,19 @@ def serve(torch, ops, report):
                        "ring_snapshots": eng.ckpts.maxlen}
     crc_real_tables(torch, report, eng.pdecode.pcilt, 0)
     oracle_check(torch, ops, eng, report)
+    # a MambaLM.prefill cache of a 16-token prompt, fed to the PCILT step
+    prompt = torch.randint(0, cfg.vocab, (B, PREFILL_PROMPT),
+                           generator=torch.Generator().manual_seed(13))
+    with torch.no_grad():
+        logits, cache = eng.model.prefill(eng.params,
+                                          {"tokens": prompt.cuda()})
+    require({k: tuple(t.shape) for k, t in cache["layers"].items()}
+            == {k: tuple(t.shape) for k, t in eng.cache["layers"].items()},
+            "the prefill cache's shapes differ from the decode cache's")
+    log(f"MambaLM.prefill of a {PREFILL_PROMPT}-token prompt at B = {B}: "
+        f"its cache through the PCILT step, against the oracle")
+    oracle_check(torch, ops, eng, report, key="oracle_after_prefill",
+                 cache=cache, tok=logits.argmax(-1)[:, None])
     gen = torch.Generator(device="cuda").manual_seed(9)
     cache = {"layers": {k: torch.randn(t.shape, generator=gen,
                                        device="cuda") * 0.1
@@ -2103,9 +2144,11 @@ def serve(torch, ops, report):
     return launches
 
 
-def oracle_check(torch, ops, eng, report, key="oracle"):
+def oracle_check(torch, ops, eng, report, key="oracle", cache=None,
+                 tok=None):
     """One decode step through the kernels against the dense fake-quant
-    oracle on the same state: every layer and the head demoted, so each
+    oracle on the same state (seeded random state and tokens, or the given
+    ``cache`` and ``tok``): every layer and the head demoted, so each
     projection is a float32 matmul on fake-quantized inputs, each conv an
     einsum on the fake-quantized window and the head ``fake_quant(x) @
     kernel_q``; the oracle's step launches no kernel.  The fetch is exact on
@@ -2114,12 +2157,13 @@ def oracle_check(torch, ops, eng, report, key="oracle"):
     allclose at 1e-3 relative to the largest logit, and argmax-equal
     wherever the oracle's top two logits are further apart than that
     tolerance (the head's logits lie on a coarse grid and can tie)."""
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    cache = {"layers": {k: torch.randn(t.shape, generator=gen,
-                                       device="cuda") * 0.1
-                        for k, t in eng.cache["layers"].items()}}
-    tok = torch.randint(0, eng.cfg.vocab, (B, 1), generator=gen,
-                        device="cuda")
+    if cache is None:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        cache = {"layers": {k: torch.randn(t.shape, generator=gen,
+                                           device="cuda") * 0.1
+                            for k, t in eng.cache["layers"].items()}}
+        tok = torch.randint(0, eng.cfg.vocab, (B, 1), generator=gen,
+                            device="cuda")
     bundle = eng.pdecode.pcilt
     with torch.no_grad():
         got, _ = eng.model.decode_step(eng.params, cache, tok, pcilt=bundle)
@@ -3070,6 +3114,311 @@ def resilience(torch, ops, report):
 
 
 # ----------------------------------------------------------------------------
+# phase 13: the dense transformer family (qwen3-0.6b) and the LM examples
+# ----------------------------------------------------------------------------
+
+
+def fullest_profile(torch, fn, tries=3):
+    """Device times of ``fn()`` from the profile, of ``tries``, that shows
+    the most device launches (late in a run a profile can lose records
+    beyond the marker's)."""
+    return max((_profile(torch, fn) for _ in range(tries)),
+               key=lambda p: sum(c for c, _ in p.values()))
+
+
+def lead_timed(torch, fn, flush, reps=5):
+    """Median device milliseconds of ``fn()`` with L2 flushed before it,
+    from CUDA events around it, without the profiler (late in a run it
+    loses records of composite calls).  Two flushes run ahead of each
+    call, so the host has enqueued all of the call's launches before the
+    device reaches them and the events hold no host gaps."""
+    fn()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        flush()
+        flush()
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+
+def _logits_agree(torch, what, got, want):
+    """bfloat16 compute: within 2e-2 of the largest logit, argmax equal.
+    Returns the largest difference."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    tol = 2e-2 * float(want.abs().max())
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    log(f"  {what}: max |d| {err:.4e} (tol {tol:.4e} = 2e-2 max|logit|), "
+        f"argmax equal {same}")
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    require(err <= tol and same, f"{what}: the logits disagree")
+    return err
+
+
+def dense_serving(torch, ops, report):
+    """qwen3-0.6b at its published width and depth (28 layers, d 1024, 16
+    heads over 8 KV heads, vocab 151936; seeded float32 weights, bfloat16
+    compute, a bfloat16 KV cache):
+
+    * ``Engine(slots=4, max_len=256)`` serves 4 requests of 8 new tokens
+      through its dense decode step (prompts replayed into the KV cache;
+      no restart, every request served): set-up seconds, median step,
+      tokens/s, peak memory, and the device time and busy share of one B =
+      4 step;
+    * ``make_prefill_step`` on a 192-token prompt at B = 1 against a decode
+      replay of the same prompt into a 256-slot cache (the last logits
+      within 2e-2 of the largest, argmax equal);
+    * a 4096-token prefill (S * S >= 2048**2: the chunked attention path),
+      timed, and ``_sdpa_chunked`` against ``_sdpa_dense`` on layer 0's q,
+      k, v of that prompt (within 2e-2 of the largest output);
+    * ``launch.serve_pcilt.run`` on the same config: layer 0's MLP (1024 ->
+      3072 -> 1024) converted, each path's check, and kernel 6's time at M
+      = 4 on the gate's offsets beside ``matmul``;
+    * ``launch.decode_pcilt.run`` at the example's size through kernels 1
+      and 2 and its oracle check, its tokens equal to the same run on the
+      CPU.
+
+    Returns the path's launches (the timing's are not counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offsets import pack_offsets
+    from repro_torch.core.quantization import quantize
+    from repro_torch.core.quantization import dequantize
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import decode_pcilt, serve_pcilt
+    from repro_torch.launch.serve import Engine, make_requests
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.mamba import layer_view
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.layers import embed, rmsnorm
+    from repro_torch.nn.module import materialize
+
+    cfg = get_config("qwen3-0.6b")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, slots=B, max_len=256, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(eng.params))
+    log(f"qwen3-0.6b: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"vocab {cfg.vocab}; {n_params / 1e6:.1f} M float32 parameters; "
+        f"engine set-up {setup_s:.1f} s")
+    reqs = make_requests(cfg, 4, 8, seed=0)
+    ops.reset_launches()
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    steps = stats["decode_ticks"] + stats["prefill_ticks"]
+    med = statistics.median(eng.step_seconds)
+    gen_tokens = sum(len(r.out) for r in reqs)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"served {stats['served']}/{len(reqs)} requests: {steps} steps "
+        f"({stats['prefill_ticks']} prefill, {stats['decode_ticks']} decode) "
+        f"in {stats['wall_s']:.2f} s; median step {med * 1e3:.2f} ms "
+        f"({B / med:.1f} tokens/s over {B} slots; {gen_tokens} generated "
+        f"tokens at {gen_tokens / stats['wall_s']:.1f} tokens/s end to end);"
+        f" peak memory {peak / 2**30:.2f} GiB (weights, the KV cache and "
+        f"its checkpoint ring of {eng.ckpts.maxlen})")
+    for r in reqs:
+        log(f"  req {r.rid}: prompt {len(r.prompt)} -> {r.out}")
+    require(stats["served"] == len(reqs) and stats["restarts"] == 0,
+            f"the dense engine served {stats['served']} of {len(reqs)} "
+            f"requests with {stats['restarts']} restarts")
+    require(all(len(r.out) == 8 and all(0 <= t < cfg.vocab for t in r.out)
+                for r in reqs), "generated tokens out of range")
+    require(launches == {}, f"the dense path launched PCILT kernels "
+                            f"{launches}")
+    toks = torch.from_numpy(eng.tokens).cuda()
+
+    def step():
+        with torch.no_grad():
+            eng.decode(eng.params, eng.cache, toks)
+
+    step()
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    host_s = statistics.median(secs)
+    prof = fullest_profile(torch, step)
+    dev_s = sum(t for _, t in prof.values()) / 1e6
+    dev_n = sum(c for c, _ in prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"one B = {B} step (pos {eng.cache['pos']}): host {host_s * 1e3:.2f}"
+        f" ms, device {dev_s * 1e3:.3f} ms in {dev_n} device launches: busy "
+        f"{100 * dev_s / host_s:.1f}%; by kernel: "
+        + "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms" for k, (c, t) in top))
+    out["engine"] = {"setup_s": setup_s, "params": n_params,
+                     "median_step_s": med, "step_seconds": eng.step_seconds,
+                     "steps": steps, "wall_s": stats["wall_s"],
+                     "tokens": gen_tokens, "peak_bytes": peak,
+                     "outputs": [r.out for r in reqs],
+                     "step_host_s": host_s, "step_device_s": dev_s,
+                     "step_device_launches": dev_n,
+                     "busy_share": dev_s / host_s,
+                     "step_top_kernels": [(k, c, t) for k, (c, t) in top]}
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- prefill against a decode replay of the same prompt
+    model_prefill = make_prefill_step(cfg)
+    step = make_decode_step(cfg)
+    gen = torch.Generator().manual_seed(17)
+    prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT), generator=gen)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre, pcache = model_prefill(params, {"tokens": prompt.cuda()})
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        cache = materialize(build_model(cfg).cache_specs(1, 256), 0, "cuda")
+        cache["pos"] = 0
+        t0 = time.perf_counter()
+        for t in range(REPLAY_PROMPT):
+            logits, cache = step(params, cache, prompt[:, t:t + 1].cuda())
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+    log(f"prefill of {REPLAY_PROMPT} tokens {pre_s * 1e3:.1f} ms; decode "
+        f"replay {replay_s * 1e3:.1f} ms ({REPLAY_PROMPT} steps)")
+    require(pcache["pos"] == cache["pos"] == REPLAY_PROMPT,
+            "the prefill and the replay end at different positions")
+    out["prefill_vs_replay"] = {
+        "prompt": REPLAY_PROMPT, "prefill_s": pre_s, "replay_s": replay_s,
+        "max_abs_err": _logits_agree(torch, "prefill against replay", pre,
+                                     logits)}
+    del pcache, cache
+
+    # -- the chunked path: a 4096-token prefill, and one layer's attention
+    prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen)
+    with torch.no_grad():
+        model_prefill(params, {"tokens": prompt[:, :256].cuda()})  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        long_logits, _ = model_prefill(params, {"tokens": prompt.cuda()})
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+        long_peak = torch.cuda.max_memory_allocated()
+        require(bool(torch.isfinite(long_logits).all()),
+                "the long prefill's logits are not finite")
+        p0 = layer_view(params["blocks"], 0)["sub0"]
+        x = rmsnorm(p0["ln_attn"], embed(params["embed"], prompt.cuda(),
+                                         cfg.dtype), cfg.norm_eps)
+        pos = torch.arange(LONG_PROMPT, device="cuda")[None]
+        q, k, v = attn._project_qkv(p0["attn"], cfg, x, pos)
+        kr, vr = attn._repeat_kv(q, k, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunked = attn._sdpa_chunked(cfg, q, kr, vr, pos, pos, causal=True)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = attn._sdpa_dense(cfg, q, kr, vr,
+                                 attn._causal_mask(pos, pos, cfg.window))
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+    err = float((chunked.float() - dense.float()).abs().max())
+    tol = 2e-2 * float(dense.float().abs().max())
+    log(f"prefill of {LONG_PROMPT} tokens (the chunked path): "
+        f"{long_s * 1e3:.1f} ms, peak memory {long_peak / 2**30:.2f} GiB; "
+        f"layer 0: chunked {chunked_s * 1e3:.2f} ms against dense "
+        f"{dense_s * 1e3:.2f} ms, max |d| {err:.3e} (tol {tol:.3e} = 2e-2 "
+        f"max|dense|)")
+    require(err <= tol, "the chunked attention disagrees with the dense one")
+    out["long_prefill"] = {"prompt": LONG_PROMPT, "seconds": long_s,
+                           "peak_bytes": long_peak, "chunked_s": chunked_s,
+                           "dense_s": dense_s, "max_abs_err": err,
+                           "tol": tol}
+    del params, q, k, v, kr, vr, chunked, dense, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- serve_pcilt at full width: kernel 6 at M = 4
+    log("launch.serve_pcilt.run(qwen3-0.6b):")
+    ops.reset_launches()
+    res = serve_pcilt.run(cfg, device="cuda", log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    pl = {k: v for k, v in ops.LAUNCHES.items() if v}
+    host_d = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+    require(pl.get("gemv_host") == 1 and host_d == {"staged": 0,
+                                                    "direct": 1},
+            f"serve_pcilt's kernel path ran {pl}, designs {host_d}")
+    for k_, v_ in pl.items():
+        launches[k_] = launches.get(k_, 0) + v_
+    gate = res["gate"]
+    w = res["weights"]["wg"]["kernel"]
+    xq = dequantize(quantize(res["x"], gate.spec, gate.scale), gate.spec,
+                    gate.scale)
+    off = pack_offsets(quantize(res["x"], gate.spec, gate.scale),
+                       gate.spec.bits, gate.group)
+    tabs = gate.tables
+    G, V, O = tabs.shape
+    uniq = sum(len(torch.unique(off[:, g])) for g in range(G))
+    nbytes = uniq * O * 4 + off.numel() * 4 + off.shape[0] * O * 4
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = off.shape[0] * G * O / F32_OPS_PER_S * 1e3
+    flush = L2Flush(torch)
+    # by CUDA events, not the profiler: late in a run it loses records
+    kt = lead_timed(torch, lambda: ops.pcilt_gemv(off, tabs), flush)
+    pt = lead_timed(torch, lambda: ops.gemv_host_plain(off, tabs), flush)
+    lt = lead_timed(torch, lambda: torch.matmul(xq, w), flush)
+    row = {"shape": [off.shape[0], G, V, O], "ms": kt, "plain_ms": pt,
+           "library_ms": lt, "timed_by": "CUDA events behind two L2 "
+           "flushes, median of 5",
+           "library_call": "torch.matmul(x_q, W)",
+           "bound_ms": max(b_ms, o_ms),
+           "bound_by": "bytes" if b_ms >= o_ms else "operations",
+           "bytes": nbytes, "variant": "direct"}
+    log(f"  kernel 6 at M = {off.shape[0]} (the gate, G {G}, V {V}, O {O}; "
+        f"the kept design): {kt * 1e3:.2f} us, plain {pt * 1e3:.2f} us, "
+        f"matmul {lt * 1e3:.2f} us (CUDA events, L2 flushed), bound "
+        f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+    out["serve_pcilt"] = {"errors": res["errors"],
+                          "table_mib": res["table_mib"], "launches": pl,
+                          "host_designs": host_d, "kernel6_m4": row}
+    del res, gate, w, xq, tabs, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- decode_pcilt at the example's size
+    log("launch.decode_pcilt.run():")
+    ops.reset_launches()
+    dres = decode_pcilt.run(device="cuda", log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    dl = {k: v for k, v in ops.LAUNCHES.items() if v}
+    cpu = decode_pcilt.run(device="cpu", log=lambda m: None)
+    log(f"  launches {dl}; tokens on the card {dres['tokens']}, on the CPU "
+        f"{cpu['tokens']}")
+    require(dl.get("gemv_stacked", 0) > 0 and dl.get("dwconv1d", 0) > 0,
+            f"decode_pcilt did not run through kernels 1 and 2: {dl}")
+    require(dres["tokens"] == cpu["tokens"],
+            "decode_pcilt's tokens on the card differ from the CPU's")
+    for k_, v_ in dl.items():
+        launches[k_] = launches.get(k_, 0) + v_
+    out["decode_pcilt"] = {"tokens": dres["tokens"],
+                           "max_abs_err": dres["max_abs_err"],
+                           "launches": dl}
+    report["dense"] = out
+    report["dense_rows"] = {"gemv_host serve_pcilt M4": row}
+    return launches
+
+
+# ----------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3158,7 +3507,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for phase in (serve, paper_cnn, serve_paired, paired_parity,
                   single_layers, plans_and_extensions, learnable,
-                  resilience):
+                  resilience, dense_serving):
         count(phase)
     step = report["serve"]["step_compare"]
     rows["window counters"].update(
@@ -3192,6 +3541,11 @@ def main() -> int:
                       "device_launches_per_call"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+    # kernel 6 where an entry point serves it: serve_pcilt's M = 4 gate
+    m4 = report["dense_rows"]["gemv_host serve_pcilt M4"]
+    next(k for k in kernels if k["name"] == "gemv_host")["serve_pcilt_m4"] = {
+        k: m4[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                           "bound_ms", "bound_by")}
     head = rows["crc32 head"]
     kernels[-1].update(head_shape=head["shape"], head_ms=head["ms"],
                        head_bound_ms=head["bound_ms"],
@@ -3207,7 +3561,8 @@ def main() -> int:
         json.dump(report, f, indent=1)
     log(f"total {report['total_s']:.1f} s; profiled windows "
         f"{PROFILES['windows']}, {PROFILES['first_record_lost']} of them "
-        f"without their first record (the marker)")
+        f"without their first record (a marker); markers lost "
+        f"{PROFILES['markers_lost']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
-"""Architecture registry: ``--arch <id>`` resolution (mamba2-130m so far)."""
+"""Architecture registry: ``--arch <id>`` resolution (qwen3-0.6b and
+mamba2-130m so far)."""
 
 import importlib
 
 from .base import ModelConfig, SSMConfig, PCILTConfig
 
-_MODULES = {"mamba2-130m": "mamba2_130m"}
+_MODULES = {"qwen3-0.6b": "qwen3_06b", "mamba2-130m": "mamba2_130m"}
 
 ARCHS = tuple(_MODULES)
 

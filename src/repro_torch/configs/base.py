@@ -1,7 +1,10 @@
-"""Config dataclasses (port of the Mamba part of ``repro.configs.base``).
+"""Config dataclasses (port of the dense and Mamba parts of
+``repro.configs.base``).
 
-The fields mirror the reference's; dtypes are torch dtypes.  Only what the
-Mamba2 decode path reads is carried over so far.
+The fields mirror the reference's; dtypes are torch dtypes.  The MoE,
+encoder-decoder and image-token fields wait for their families.  Fields are
+keyword-built, so the attention and dense fields carry defaults (an [ssm]
+config leaves them unset).
 """
 
 from __future__ import annotations
@@ -38,16 +41,48 @@ class PCILTConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # ssm (the only family ported so far)
+    family: str                  # dense | ssm (the families ported so far)
     n_layers: int
     d_model: int
     vocab: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    # attention variants
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    window: int = 0              # sliding-window size (0 = full attention)
+    rope_theta: float = 10000.0
+    pos_embed: str = "rope"      # rope | none (sinusoidal waits for whisper)
     ssm: Optional[SSMConfig] = None
+    # head-count padding, part of the config so parameter shapes do not
+    # depend on a mesh
+    pad_heads_to: int = 0
+    pad_kv_heads_to: int = 0
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
+    remat_policy: str = "dots"   # nothing | dots | full (training only)
+    loss_chunk: int = 2048       # vocab-loss token chunking (training only)
     pcilt: Optional[PCILTConfig] = None
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_heads(self) -> int:
+        return max(self.n_heads, self.pad_heads_to)
+
+    @property
+    def padded_kv_heads(self) -> int:
+        return max(self.n_kv_heads, self.pad_kv_heads_to)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
 
     @property
     def padded_vocab(self) -> int:

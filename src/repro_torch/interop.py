@@ -17,7 +17,7 @@ import torch
 
 from .core.quantization import QuantSpec
 
-__all__ = ["resolve_device", "to_torch", "to_numpy", "tree_map",
+__all__ = ["resolve_device", "to_torch", "to_numpy", "tree_map", "tree_leaves",
            "params_from_jax", "tables_from_jax", "learnable_from_jax",
            "bundle_from_jax"]
 
@@ -61,6 +61,15 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree):
+    """The leaves of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def params_from_jax(np_tree, device="cuda") -> Dict[str, Any]:

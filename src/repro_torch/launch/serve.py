@@ -1,15 +1,21 @@
 """Serving engine, hardened for faults and load (port of
 ``repro.launch.serve``).
 
-``python -m repro_torch.launch.serve --arch mamba2-130m --full --pcilt``
-serves seeded requests through the converted full-PCILT decode on the card
-(``--device cpu`` runs the plain versions on the CPU instead).
-``--traffic poisson`` drives the same engine open-loop on a virtual clock.
+``python -m repro_torch.launch.serve`` serves seeded requests on qwen3-0.6b
+(the smoke config; ``--full`` for the published one) through the dense
+decode step with its KV cache; ``--arch mamba2-130m --pcilt`` serves
+through the converted full-PCILT Mamba decode on the card (``--device
+cpu`` runs the plain versions on the CPU instead).  ``--traffic poisson``
+drives the same engine open-loop on a virtual clock.
 
 Engine: a fixed decode batch of slots; requests queue in, a free slot
 prefills its request by replaying the prompt through the decode step
 (concurrently active slots keep generating), every tick decodes the whole
-batch greedily, finished slots are zeroed and recycled.  With ``--pcilt``
+batch greedily, finished slots are zeroed and recycled.  The dense
+transformer's KV cache has one write position for all slots (``pos``,
+as the reference's): it is not reset with a slot, so a recycled slot's
+request starts at the current ``pos`` and attends to the zeroed rows
+before it, as the reference's does.  With ``--pcilt``
 the decode runs under a :class:`repro_torch.core.serving.HealthMonitor`:
 one layer's tables are CRC'd a tick (on the card, by the CRC kernel), and
 a breached layer is demoted to its exact dense fake-quant oracle.
@@ -53,10 +59,9 @@ off their calibrated range and requires detect -> demote -> recalibrate ->
 repromote.  ``--no-sentinel`` serves without the in-kernel saturation
 counters.
 
-Still to port: the reference's other model families (its default
-``--arch`` is qwen3-0.6b; the port serves Mamba), its mesh, and the
-autotune-cache action of its ``--chaos`` plan (the port has no autotune
-cache yet).
+Still to port: the reference's MoE, hybrid, audio and image-token model
+families, its mesh, and the autotune-cache action of its ``--chaos`` plan
+(the port has no autotune cache yet).
 """
 
 from __future__ import annotations
@@ -74,7 +79,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.serving import (HealthMonitor, PCILTMambaDecode,
                                       convert_mamba_decode)
-from repro_torch.interop import resolve_device, tree_map
+from repro_torch.interop import resolve_device, tree_leaves, tree_map
+from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import build_model
 from repro_torch.nn.module import materialize
 from repro_torch.runtime import StepWatchdog, WallClock
@@ -120,17 +126,23 @@ class Request:
         self.not_before = 0.0  # backoff gate of a requeued request
 
 
+def _clone(a):
+    return a.clone() if torch.is_tensor(a) else a
+
+
 class Engine:
-    """Slot-based continuous batching over the (PCILT) Mamba decode step,
-    with checkpointed fault recovery and bounded-admission overload
-    control.
+    """Slot-based continuous batching over a model's decode step (the
+    dense transformer's with its ``max_len`` KV cache, Mamba's, or the
+    converted PCILT Mamba step), with checkpointed fault recovery and
+    bounded-admission overload control.
 
     ``params`` / ``pcilt_bundle`` carry in existing weights and tables (the
     parity tests hand over the JAX package's); otherwise parameters are
     drawn from ``seed`` and, with ``pcilt``, converted on calibration tokens
     drawn from ``seed + 2``."""
 
-    def __init__(self, cfg, slots: int = 4, *, pcilt: bool = False,
+    def __init__(self, cfg, slots: int = 4, *, max_len: int = 256,
+                 pcilt: bool = False,
                  params=None, pcilt_bundle: Optional[Dict] = None,
                  oracle_every: int = 4, max_restarts: int = 8,
                  ckpt_keep: Optional[int] = None,
@@ -151,8 +163,11 @@ class Engine:
         self.step_cost_s = step_cost_s
         self.params = params if params is not None else materialize(
             self.model.param_specs(), seed, self.device)
-        self.cache = materialize(self.model.cache_specs(slots), seed,
-                                 self.device)
+        self.cache = materialize(self.model.cache_specs(slots, max_len),
+                                 seed, self.device)
+        if "pos" in self.cache:  # the KV cache's write position, on the host
+            self.cache["pos"] = 0
+        self.decode = make_decode_step(cfg)
         self.active: List[Optional[Request]] = [None] * slots
         self.tokens = np.zeros((slots, 1), np.int64)
         #: chaos schedule {step count: [fn(engine)]} keyed on the monotone
@@ -203,18 +218,16 @@ class Engine:
         """``(logits, new_cache)`` of one step; a PCILT step with the
         sentinel leaves its device counters in ``self._last_sat``."""
         toks = torch.from_numpy(self.tokens).to(self.device)
-        if self.pdecode is None:
-            logits, new_cache = self.model.decode_step(self.params,
-                                                       self.cache, toks)
+        if self.pdecode is None:  # masks the padded vocabulary itself
+            return self.decode(self.params, self.cache, toks)
+        lmask, hmask = self.monitor.ok_masks()
+        if self.sentinel:
+            logits, new_cache, self._last_sat = self.pdecode.step(
+                self.params, self.cache, toks, lmask, hmask,
+                with_stats=True)
         else:
-            lmask, hmask = self.monitor.ok_masks()
-            if self.sentinel:
-                logits, new_cache, self._last_sat = self.pdecode.step(
-                    self.params, self.cache, toks, lmask, hmask,
-                    with_stats=True)
-            else:
-                logits, new_cache = self.pdecode.step(
-                    self.params, self.cache, toks, lmask, hmask)
+            logits, new_cache = self.pdecode.step(
+                self.params, self.cache, toks, lmask, hmask)
         if self.cfg.padded_vocab > self.cfg.vocab:  # never sample padding
             logits[..., self.cfg.vocab:] = -1e30
         return logits, new_cache
@@ -231,12 +244,12 @@ class Engine:
         with torch.no_grad():
             self._last_sat = None
             logits, new_cache = self._raw_step()
-            # finite gate before the commit: logits and the recurrent state
-            # (quantization launders NaN into a valid lookup, so poisoned
-            # state can yield finite logits)
+            # finite gate before the commit: logits and every floating
+            # state tensor (quantization launders NaN into a valid lookup,
+            # so poisoned state can yield finite logits)
             checks = [torch.isfinite(logits).all()]
-            checks += [torch.isfinite(t).all()
-                       for t in new_cache["layers"].values()]
+            checks += [torch.isfinite(t).all() for t in tree_leaves(new_cache)
+                       if torch.is_tensor(t) and t.is_floating_point()]
             parts = [logits.argmax(-1), torch.stack(checks).all().long()[None]]
             sat = self._last_sat
             if sat is not None:  # the counters ride the same transfer
@@ -305,10 +318,12 @@ class Engine:
             self._reset_slot(s)
 
     def _reset_slot(self, s: int):
-        """Zero one slot's recurrent state (in place) so a recycled or
-        evicted slot never leaks a previous request's context."""
-        for t in self.cache["layers"].values():
-            t[:, s] = 0
+        """Zero one slot's rows of every per-layer state (axis 1, in place)
+        so a recycled or evicted slot never leaks a previous request's
+        context."""
+        for t in tree_leaves(self.cache["layers"]):
+            if t.dim() >= 2 and t.shape[1] == self.slots:
+                t[:, s] = 0
 
     # -- checkpoint ring -----------------------------------------------------
 
@@ -317,7 +332,7 @@ class Engine:
         changes in place) and copies of the host state."""
         self.ckpts.append({
             "tick": self.tick,
-            "cache": tree_map(torch.clone, self.cache),
+            "cache": tree_map(_clone, self.cache),
             "tokens": self.tokens.copy(),
             "active": list(self.active),
             "queue": list(self.queue),
@@ -339,7 +354,7 @@ class Engine:
         keep = [c for c in self.ckpts if c["tick"] <= snap["tick"]
                 and c is not snap] + [snap]
         self.ckpts = deque(keep, maxlen=self.ckpts.maxlen)
-        self.cache = tree_map(torch.clone, snap["cache"])
+        self.cache = tree_map(_clone, snap["cache"])
         self.tokens = snap["tokens"].copy()
         self.active = list(snap["active"])
         self.queue = list(snap["queue"])
@@ -724,7 +739,7 @@ def make_requests(cfg, n: int, max_new: int, seed: int,
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="mamba2-130m")
+    p.add_argument("--arch", default="qwen3-0.6b")
     p.add_argument("--full", action="store_true")
     p.add_argument("--requests", type=int, default=6)
     p.add_argument("--max-new", type=int, default=16)

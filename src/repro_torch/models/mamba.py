@@ -61,9 +61,10 @@ class MambaLM:
                 (cfg.d_model, cfg.padded_vocab), cfg.param_dtype, "fan_in")}
         return p
 
-    def cache_specs(self, batch: int):
-        """Decode cache: per-layer ``conv``/``ssd`` state (``pos`` is kept
-        as a host int by the caller)."""
+    def cache_specs(self, batch: int, max_len: Optional[int] = None):
+        """Decode cache: per-layer ``conv``/``ssd`` state, whose size does
+        not depend on ``max_len`` (``pos`` is kept as a host int by the
+        caller)."""
         return {"layers": ssm_cache_specs(self.cfg, batch, self.cfg.n_layers)}
 
     def _head_kernel(self, params) -> torch.Tensor:
@@ -73,6 +74,28 @@ class MambaLM:
 
     def _logits(self, params, x):
         return x @ self._head_kernel(params).to(self.cfg.dtype)
+
+    def prefill(self, params, batch):
+        """Full-sequence dense pass over ``batch["tokens"] [B, S]``: the last
+        position's logits ``[B, Vp]`` and the decode-ready cache of each
+        layer's final ``conv`` (the raw pre-conv tail) and ``ssd`` states,
+        constant-size whatever S is; :meth:`decode_step` and
+        ``PCILTMambaDecode.step`` take it as is."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], cfg.dtype)
+        convs, ssds = [], []
+        for l in range(cfg.n_layers):
+            p = layer_view(params["blocks"], l)
+            y, st = mamba_block(p["mixer"], cfg,
+                                rmsnorm(p["ln"], x, cfg.norm_eps),
+                                return_state=True)
+            x = x + y
+            convs.append(st["conv"])
+            ssds.append(st["ssd"])
+        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = self._logits(params, x[:, -1:])[:, 0]
+        return logits, {"layers": {"conv": torch.stack(convs),
+                                   "ssd": torch.stack(ssds)}}
 
     # -- calibration and the PCILT build ------------------------------------
 

@@ -1040,3 +1040,120 @@ def test_monitored_engine_on_the_card_equals_the_cpu_run(cuda, plan):
         assert gstats[key] == cstats[key], key
     assert runs["cuda"][1].events == runs["cpu"][1].events
     assert [r.out for r in runs["cuda"][2]] == [r.out for r in runs["cpu"][2]]
+
+
+@pytest.mark.cuda
+def test_dense_engine_on_the_card_equals_the_cpu_run(cuda):
+    """qwen3-0.6b's smoke config (float32 compute, the bfloat16 KV cache)
+    served by the dense ``Engine`` on the same weights on the CPU and on
+    the card: the same outcomes and tokens, the logits within 1e-4 of the
+    largest each step (a greedy token may differ only at a near-tie, where
+    the CPU run's is fed on), and no PCILT kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import tree_map
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"),
+                              dtype=torch.float32)
+    donor = serve.Engine(cfg, slots=4, device="cpu")
+    runs = {dev: serve.Engine(cfg, slots=4, device=dev,
+                              params=tree_map(lambda t: t.to(dev),
+                                              donor.params))
+            for dev in ("cpu", "cuda")}
+    log = []
+    ceng = runs["cpu"]
+    craw = ceng._raw_step
+
+    def logged():
+        fed = ceng.tokens.copy()
+        logits, cache = craw()
+        log.append((fed, logits.clone()))
+        return logits, cache
+
+    ceng._raw_step = logged
+    creqs = serve.make_requests(cfg, 6, 8, 0)
+    cstats = ceng.run(creqs)
+    geng = runs["cuda"]
+    graw = geng._raw_step
+    n = {"i": 0}
+
+    def compared():
+        fed, want = log[n["i"]]
+        n["i"] += 1
+        assert np.array_equal(geng.tokens, fed)
+        logits, cache = graw()
+        got = logits.cpu()
+        tol = 1e-4 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+        for b in (got.argmax(-1) != want.argmax(-1)).nonzero()[:, 0]:
+            assert got[b, want[b].argmax()] >= got[b].max() - tol
+        return want.to(cuda), cache
+
+    geng._raw_step = compared
+    before = dict(ops.LAUNCHES)
+    greqs = serve.make_requests(cfg, 6, 8, 0)
+    gstats = geng.run(greqs)
+    assert dict(ops.LAUNCHES) == before
+    assert n["i"] == len(log)
+    for key in ("outcomes", "restarts", "decode_ticks", "prefill_ticks"):
+        assert gstats[key] == cstats[key], key
+    assert [r.out for r in greqs] == [r.out for r in creqs]
+    assert geng.cache["pos"] == ceng.cache["pos"]
+
+
+@pytest.mark.cuda
+def test_prefill_matches_a_decode_replay_on_the_card(cuda):
+    """``make_prefill_step`` on a 40-token prompt at qwen3-0.6b's smoke
+    config (bfloat16 compute) against a decode replay of the prompt into a
+    64-slot cache on the card: the last logits within 2e-2 of the
+    largest, argmax equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import materialize
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    model = build_model(cfg)
+    params = materialize(model.param_specs(), 0, cuda)
+    prompt = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 40))).to(cuda)
+    with torch.no_grad():
+        want, pcache = make_prefill_step(cfg)(params, {"tokens": prompt})
+        cache = dict(materialize(model.cache_specs(2, 64), 0, cuda), pos=0)
+        step = make_decode_step(cfg)
+        for t in range(prompt.shape[1]):
+            got, cache = step(params, cache, prompt[:, t:t + 1])
+    assert pcache["pos"] == cache["pos"] == 40
+    got, want = got.float(), want.float()
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_serve_pcilt_kernel_path_on_the_card(cuda):
+    """``launch.serve_pcilt.run`` on the card: its checks pass (the kernel
+    path among them, one launch of kernel 6's kept design at M = 4)."""
+    from repro_torch.launch import serve_pcilt
+
+    ops.reset_launches()
+    res = serve_pcilt.run(device="cuda", log=lambda m: None)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gemv_host"] == 1
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {"staged": 0, "direct": 1}
+    assert max(res["errors"].values()) <= serve_pcilt.TOL
+
+
+@pytest.mark.cuda
+def test_decode_pcilt_on_the_card_equals_the_cpu_run(cuda):
+    """``launch.decode_pcilt.run`` through kernels 1 and 2 on the card: its
+    oracle check passes and its tokens equal the CPU run's."""
+    from repro_torch.launch import decode_pcilt
+
+    ops.reset_launches()
+    res = decode_pcilt.run(device="cuda", log=lambda m: None)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gemv_stacked"] > 0 and ops.LAUNCHES["dwconv1d"] > 0
+    assert res["tokens"] == decode_pcilt.run(device="cpu",
+                                             log=lambda m: None)["tokens"]

@@ -195,7 +195,8 @@ def test_cli_chaos_contract_on_the_cpu(capsys):
     """``python -m repro_torch.launch.serve --pcilt --chaos --device cpu``:
     the port's own contract (no request lost, undegraded tokens equal to a
     fault-free run, the demoted step equal to the dense oracle) holds."""
-    ts.main(["--pcilt", "--chaos", "--device", "cpu"])
+    ts.main(["--arch", "mamba2-130m", "--pcilt", "--chaos", "--device",
+             "cpu"])
     out = capsys.readouterr().out
     assert "chaos contract verified: 6 requests completed" in out
 

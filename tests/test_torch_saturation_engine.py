@@ -240,7 +240,8 @@ def test_ewma_classification_equals_the_reference(drift, pattern):
 
 def test_cli_drift_contract_on_the_cpu(capsys):
     """``--pcilt --chaos-drift --device cpu``: the port's own contract."""
-    ts.main(["--pcilt", "--chaos-drift", "--device", "cpu"])
+    ts.main(["--arch", "mamba2-130m", "--pcilt", "--chaos-drift", "--device",
+             "cpu"])
     out = capsys.readouterr().out
     assert "drift contract verified: 6 requests completed" in out
     assert "bit-equal to fresh build at the new scale" in out

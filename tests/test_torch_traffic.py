@@ -156,7 +156,8 @@ def test_run_traffic_rejects_a_short_trace(cfgs):
 def test_cli_chaos_under_traffic_on_the_cpu(capsys):
     """``--pcilt --traffic poisson --chaos --device cpu``: both contracts
     at once, on the port alone."""
-    ts.main(["--pcilt", "--traffic", "poisson", "--chaos", "--device", "cpu"])
+    ts.main(["--arch", "mamba2-130m", "--pcilt", "--traffic", "poisson",
+             "--chaos", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "accounting invariant verified" in out
     assert "chaos-under-traffic contract verified" in out
