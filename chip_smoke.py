@@ -130,7 +130,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    the dense product on the quantized grid, and ``convert_dwconv`` ->
    ``PCILTDwConv1d(path="kernel")`` on mamba2-130m's conv frontend (C 1792,
    k 4, 2-bit) over a [4, 2048, 1792] signal against the fused path and
-   its plain version, through kernel 12's staged design;
+   its plain version, through kernel 12's staged design; one mamba2-130m
+   layer's ``mamba_block(pcilt=)`` on a [4, 2048, 768] input with 4-bit
+   conv tables (C 1792, V 65536): the whole signal through kernel 2
+   (CAUSAL, one launch, seen in a profile), exact against its plain
+   version on the block's conv input, the conv within 1e-4 and the block
+   within one bfloat16 step of the dense fake-quant conv;
 10. the paper's extensions 1-3 at qwen3-0.6b's gate width (1024 -> 3072,
     4-bit, group 2, float32 tables, one set at a time): three generalized
     SegmentPlans (``perm``, a seeded permutation into 512 non-adjacent
@@ -169,7 +174,22 @@ Phases (any failure exits non-zero, and no result line is printed):
     timed beside ``matmul`` by CUDA events behind two L2 flushes: late in
     a run the profiler loses records); ``launch.decode_pcilt.run`` through kernels 1
     and 2 and its oracle check, its tokens equal to the CPU run's;
-14. prints the kernels' JSON line, then as the last line
+14. training (``launch.train.run``, AdamW, the seeded corpus, the
+    ``Supervisor``): qwen3-0.6b ``--full`` at full width and depth for 6
+    steps (set-up, median step, tokens/s, one step's device time and
+    launches, peak memory, each loss); one async save and restore of its
+    whole state (~7.2 GB: seconds of the snapshot, the write, the sha256,
+    the restore; bit-equal); mamba2-130m at full width and depth for 5
+    steps; the restart contract at full width with the depth cut to 2
+    layers (a fault after a checkpoint: restored, ``restarts=1``, and the
+    uninterrupted run's state bit for bit); one smoke train step of each
+    family on the card against the CPU;
+15. qwen1.5-4b, qwen2.5-3b and deepseek-coder-33b at their published
+    widths, the depth cut to 4, 4 and 2 layers (seeded weights drawn on
+    the card): the ``Engine`` serves 4 requests, a prefill against its
+    decode replay (argmax equal or a near-tie), the chunked attention
+    against the dense one;
+16. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -182,6 +202,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -315,6 +336,11 @@ LATE_CHAOS_STEPS = {15: 70, 19: 74}
 #: a decode replay; phase 13's long prompt (S * S >= 2048**2: the chunked
 #: attention path)
 PREFILL_PROMPT, REPLAY_PROMPT, LONG_PROMPT = 16, 192, 4096
+#: phase 14's restart contract: its depth at full width; phase 15's
+#: configs and the depth each is cut to
+RESTART_LAYERS = 2
+DENSE_CUT_LAYERS = {"qwen1.5-4b": 4, "qwen2.5-3b": 4,
+                    "deepseek-coder-33b": 2}
 #: the paper CNN's image (H, W) at full size (printed W x H, as the paper), and the small image of the
 #: checks and of the plain versions' timing
 FULL_HW = (768, 1024)
@@ -1772,7 +1798,7 @@ def check_crc_kernel(torch, ops, report, errs):
         crc_case(report, errs, f"{n} bytes", ops.pcilt_crc32([data[:n]])[0],
                  zlib.crc32(host[:n].tobytes()))
     crc_case(report, errs, "3 MB from byte 3, continuing a CRC",
-             table_checksum(data[3:3_000_003], 0xDEADBEEF),
+             table_checksum(data[3:3_000_003], crc=0xDEADBEEF),
              zlib.crc32(host[3:3_000_003].tobytes(), 0xDEADBEEF))
     cuts = [(5, 7), (12, CRC_CHUNK_BYTES), (CRC_CHUNK_BYTES + 12, 0),
             (CRC_CHUNK_BYTES + 12, 1), (CRC_CHUNK_BYTES + 13, 2_000_001)]
@@ -2521,7 +2547,7 @@ def serve_paired(torch, ops, report):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
-    params = materialize(model.param_specs(), 0, "cuda")
+    params = materialize(model.param_specs(), 0, device="cuda")
     calib = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (2, 16)))
     conv = {}
@@ -2787,8 +2813,127 @@ def single_layers(torch, ops, report):
                          "equal_fused_past_edge": edge,
                          "equal_plain": exact, "launches": dl,
                          "designs": dl_designs}
+    block, bl = ssm_pcilt_block(torch, ops)
+    out["mamba_block_pcilt"] = block
     report["single_layers"] = out
-    return {**launches, **dl}
+    merged = dict(launches)
+    for k, v in {**dl}.items():
+        merged[k] = merged.get(k, 0) + v
+    for k, v in bl.items():
+        merged[k] = merged.get(k, 0) + v
+    return merged
+
+
+def ssm_pcilt_block(torch, ops):
+    """One mamba2-130m layer's ``mamba_block(pcilt=)`` at full width (d 768,
+    C 1792, k 4, 4-bit symmetric conv tables: V 65536, 470 MB float32) on a
+    seeded [4, 2048, 768] input in float32 compute: the whole signal goes
+    through kernel 2 with CAUSAL padding (one launch, its tiled design, and
+    a profile that shows it).  Kernel 2 on the block's own conv input with
+    counters against its plain version, exact; the PCILT conv against the
+    dense conv on the fake-quantized signal (padded with 0.0) within 1e-4
+    of its largest output; the block against the same block on that dense
+    conv within one bfloat16 step (2**-7) of its largest output: the SSD
+    rounds its O(T) operands to bfloat16, so conv outputs ~1e-7 apart can
+    round to neighbouring values there.  Returns the report and the
+    block's launches (the comparison's are not counted)."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PCILTConfig
+    from repro_torch.core.quantization import (QuantSpec, fake_quant,
+                                               scale_from_amax)
+    from repro_torch.nn import ssm
+    from repro_torch.nn.layers import dense
+    from repro_torch.nn.module import materialize
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              pcilt=PCILTConfig(act_bits=4, group=2),
+                              dtype=torch.float32)
+    k = cfg.ssm.conv_kernel
+    params = materialize(ssm.mamba_spec(cfg), 21, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(B, CONV_T, cfg.d_model, generator=gen, device="cuda")
+    with torch.no_grad():
+        _, calib = ssm.mamba_block(params, cfg, x, return_calib=True)
+        scale = float(scale_from_amax(calib["conv_in"],
+                                      QuantSpec(4, symmetric=True)))
+        pc = ssm.build_pcilt_conv(params, cfg, scale)
+        C, V = pc["tables"].shape
+        ops.reset_launches()
+        y = ssm.mamba_block(params, cfg, x, pcilt=pc)
+        torch.cuda.synchronize()
+        bl = {k_: v for k_, v in ops.LAUNCHES.items() if v}
+        designs = dict(ops.DWCONV_VARIANT_LAUNCHES)
+        require(bl == {"dwconv1d": 1} and designs == {"tiled": 1,
+                                                      "direct": 0},
+                f"mamba_block(pcilt=) launched {bl}, designs {designs}")
+        require(bool(torch.isfinite(y).all()) and y.shape == x.shape,
+                "mamba_block(pcilt=) gave non-finite or misshapen output")
+        prof = fullest_profile(
+            torch, lambda: ssm.mamba_block(params, cfg, x, pcilt=pc))
+        seen = sum(c for key, (c, _) in prof.items()
+                   if DWCONV_TILED_KERNEL in key)
+        dw_us = sum(t for key, (_, t) in prof.items()
+                    if DWCONV_TILED_KERNEL in key)
+        block_us = sum(t for _, t in prof.values())
+        require(seen == 1, f"the block's profile shows {seen} launches of "
+                f"{DWCONV_TILED_KERNEL}")
+        # kernel 2 on the block's conv input against its plain version
+        xbc = torch.cat([dense(params[n], x, cfg.dtype)
+                         for n in ("wx", "wB", "wC")], -1).contiguous()
+        got, gc_, gr = ops.pcilt_fused_dwconv1d(
+            xbc, pc["tables"], pc["spec"], scale, k, "CAUSAL",
+            with_stats=True)
+        want, wc, wr = ops.dwconv1d_plain(F.pad(xbc, (0, 0, k - 1, 0)),
+                                          pc["tables"], pc["spec"], scale,
+                                          k, with_stats=True)
+        exact = bool(torch.equal(got, want)) and int(gc_) == int(wc) \
+            and float(gr) == float(wr)
+
+        def oracle_conv(p_, cfg_, x_, conv_state=None, pcilt=None,
+                        with_stats=False):
+            xq = F.pad(fake_quant(x_.float(), pcilt["spec"], pcilt["scale"]),
+                       (0, 0, k - 1, 0))
+            w = p_["conv_w"].float()
+            yo = sum(xq[:, i:i + x_.shape[1]] * w[i] for i in range(k))
+            return (yo + p_["conv_b"].float()).to(x_.dtype), None
+
+        conv, _ = ssm._conv1d(params, cfg, xbc, pcilt=pc)
+        conv_o, _ = oracle_conv(params, cfg, xbc, pcilt=pc)
+        conv_err = float((conv - conv_o).abs().max())
+        conv_tol = 1e-4 * float(conv_o.abs().max())
+        with mock.patch.object(ssm, "_conv1d", oracle_conv):
+            yo = ssm.mamba_block(params, cfg, x, pcilt=pc)
+        err = float((y - yo).abs().max())
+        tol = 2 ** -7 * float(yo.abs().max())
+    log(f"mamba2-130m mamba_block(pcilt=) at full width ([{B}, {CONV_T}, "
+        f"{cfg.d_model}], conv C {C}, k {k}, 4-bit, tables "
+        f"{pc['tables'].numel() * 4 / 1e6:.0f} MB): launches {bl}, "
+        f"designs {designs}; profile: kernel 2 x{seen} {dw_us:.1f} us of "
+        f"the block's {block_us / 1e3:.2f} ms device time; kernel 2 on the "
+        f"block's conv input equals its plain version (output, count "
+        f"{int(gc_)}, ratio {float(gr):.4f}) {exact}; the conv against "
+        f"the dense fake-quant conv: max |d| {conv_err:.3e} (tol "
+        f"{conv_tol:.3e} = 1e-4 max|oracle|); the block with either conv: "
+        f"max |d| {err:.3e} (tol {tol:.3e} = 2**-7 max|oracle|)")
+    require(exact, "kernel 2 on the block's conv input differs from its "
+            "plain version")
+    require(conv_err <= conv_tol, "the PCILT conv disagrees with the dense "
+            "fake-quant conv")
+    require(err <= tol, "mamba_block(pcilt=) disagrees with the block on "
+            "the dense fake-quant conv")
+    out = {"shape": [B, CONV_T, cfg.d_model], "conv_tables": [C, V],
+           "launches": bl, "designs": designs, "profile_kernel2": seen,
+           "kernel2_us": dw_us, "block_device_ms": block_us / 1e3,
+           "kernel_equal_plain": exact, "count": int(gc_),
+           "ratio": float(gr), "conv_max_abs_err_oracle": conv_err,
+           "conv_tol": conv_tol, "block_max_abs_err_oracle": err,
+           "block_tol": tol}
+    del params, pc, x, y, yo, xbc, got, want, conv, conv_o
+    return out, bl
 
 
 # ----------------------------------------------------------------------------
@@ -3149,17 +3294,23 @@ def lead_timed(torch, fn, flush, reps=5):
 
 
 
-def _logits_agree(torch, what, got, want):
-    """bfloat16 compute: within 2e-2 of the largest logit, argmax equal.
-    Returns the largest difference."""
+def _logits_agree(torch, what, got, want, near_tie=False):
+    """bfloat16 compute: within 2e-2 of the largest logit, argmax equal
+    (with ``near_tie``, or differing only where ``want``'s choice is within
+    that tolerance of ``got``'s largest logit: random weights over a
+    vocabulary of 151936 give near-ties).  Returns the largest
+    difference."""
     got, want = got.float(), want.float()
     err = float((got - want).abs().max())
     tol = 2e-2 * float(want.abs().max())
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    pick = got.gather(-1, want.argmax(-1, keepdim=True))[..., 0]
+    tie = near_tie and bool((pick >= got.max(-1).values - tol).all())
     log(f"  {what}: max |d| {err:.4e} (tol {tol:.4e} = 2e-2 max|logit|), "
-        f"argmax equal {same}")
+        f"argmax equal {same}" + ("" if same or not near_tie
+                                  else f", a near-tie {tie}"))
     require(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
-    require(err <= tol and same, f"{what}: the logits disagree")
+    require(err <= tol and (same or tie), f"{what}: the logits disagree")
     return err
 
 
@@ -3286,7 +3437,7 @@ def dense_serving(torch, ops, report):
         pre, pcache = model_prefill(params, {"tokens": prompt.cuda()})
         torch.cuda.synchronize()
         pre_s = time.perf_counter() - t0
-        cache = materialize(build_model(cfg).cache_specs(1, 256), 0, "cuda")
+        cache = materialize(build_model(cfg).cache_specs(1, 256), 0, device="cuda")
         cache["pos"] = 0
         t0 = time.perf_counter()
         for t in range(REPLAY_PROMPT):
@@ -3421,6 +3572,403 @@ def dense_serving(torch, ops, report):
 # ----------------------------------------------------------------------------
 
 
+# ----------------------------------------------------------------------------
+# phase 14: training
+# ----------------------------------------------------------------------------
+
+
+def device_params(torch, specs, seed):
+    """Seeded parameters for a spec tree drawn on the card (the recipes of
+    ``nn.module.materialize``, another generator): a host draw of a
+    full-width config's ~1e9 parameters takes tens of seconds."""
+    import math
+
+    from repro_torch.nn.module import ParamSpec
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(spec):
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, device="cuda")
+        if spec.init == "ones":
+            return torch.ones(spec.shape, device="cuda")
+        std = spec.scale
+        if spec.init == "fan_in":
+            fan = spec.shape[0] if len(spec.shape) == 1 else \
+                math.prod(spec.shape[:-1])
+            std = spec.scale / math.sqrt(max(fan, 1))
+        return torch.randn(spec.shape, generator=gen, device="cuda") * std
+
+    def walk(t):
+        if isinstance(t, ParamSpec):
+            return draw(t).to(t.dtype)
+        return {k: walk(v) for k, v in t.items()}
+
+    return walk(specs)
+
+
+def train_args(**kw):
+    """``launch.train``'s arguments, its defaults with ``kw`` set."""
+    import argparse
+
+    base = dict(arch="qwen3-0.6b", steps=5, full=True, seq=128, batch=8,
+                lr=3e-3, ckpt_dir=os.path.join(ROOT, "build", "smoke_ckpt"),
+                ckpt_every=1000, fail_at=[], log_every=1000, device="cuda")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def step_profile(torch, fn):
+    """Device time (s) and device launches of ``fn()``, from the fullest of
+    three profiles, and its top kernels."""
+    prof = fullest_profile(torch, fn)
+    dev_s = sum(t for _, t in prof.values()) / 1e6
+    dev_n = sum(c for c, _ in prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
+    return dev_s, dev_n, [(k[:60], c, t) for k, (c, t) in top]
+
+
+def train_run(torch, cfg, args, what):
+    """``launch.train.run`` with its output captured; returns the result,
+    the output and the peak memory."""
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(buf):
+        res = train.run(cfg, args)
+    torch.cuda.synchronize()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  [{what}] {line}")
+    return res, text, torch.cuda.max_memory_allocated()
+
+
+def training(torch, ops, report):
+    """Training on the card (``launch.train.run`` with the supervised loop,
+    AdamW with float32 moments on a cosine schedule, the seeded corpus):
+
+    1. qwen3-0.6b ``--full`` at full width and depth (28 layers, d 1024,
+       596.0 M float32 master parameters, bfloat16 compute), seq 128, batch
+       8, for 6 steps: set-up seconds, the median of the last 4 steps,
+       tokens/s, one step's device time and device launches, peak memory
+       and each step's loss (finite, below 2 ln(vocab));
+    2. one async save and restore of that run's whole state (parameters
+       and both moments, ~7.2 GB) through ``Checkpointer``: GB, the host
+       snapshot's seconds, the write's, the sha256's, the restore's, and
+       every leaf restored bit-equal;
+    3. mamba2-130m at full width and depth (24 layers, d 768) for 5 steps:
+       its step and losses;
+    4. the restart contract at full width with the depth cut to 2 layers:
+       a fault at step 4 with checkpoints every 3 steps must print
+       ``restored checkpoint at step 3`` and ``restarts=1`` and end on the
+       parameters and moments of an uninterrupted run, bit for bit;
+    5. one train step of each smoke config (qwen3, mamba2) on the card and
+       on the CPU, both in the port: the loss within 2e-2, the gradients'
+       global norm within 2e-2, and each leaf within 5e-2 of its largest
+       gradient (the gradients read off a probe optimizer: ``b1 = 0``, no
+       clipping).
+
+    Returns the path's launches (none: training runs no PCILT kernel)."""
+    import shutil
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.data import SyntheticLM
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import count_params, materialize
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+
+    out = {}
+    root = os.path.join(ROOT, "build", "smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    ops.reset_launches()
+
+    # -- 1. qwen3-0.6b at full width and depth
+    cfg = get_config("qwen3-0.6b")
+    args = train_args(steps=6, ckpt_dir=os.path.join(root, "q"))
+    res, _, peak = train_run(torch, cfg, args, "qwen3-0.6b")
+    losses, secs = res["losses"], res["step_seconds"]
+    med = statistics.median(secs[2:])
+    tokens = args.batch * args.seq
+    n_params = count_params(build_model(cfg).param_specs())
+    # random weights on random tokens: the loss starts near ln(vocab)
+    require(len(losses) == 6 and all(0 < l < 2 * math.log(cfg.vocab)
+                                     for l in losses),
+            f"qwen3-0.6b training losses {losses}")
+    ocfg = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps),
+                       weight_decay=0.01)
+    step = make_train_step(cfg, ocfg)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
+                       global_batch=args.batch)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(6).items()}
+    params, opt = res["params"], res["opt"]
+    dev_s, dev_n, top = step_profile(
+        torch, lambda: step(params, opt, batch))
+    log(f"qwen3-0.6b training: {n_params / 1e6:.1f} M parameters, set-up "
+        f"{res['setup_s']:.1f} s, median step (of steps 3-6) "
+        f"{med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s; one step "
+        f"{dev_s * 1e3:.2f} ms of device time in {dev_n} device launches "
+        f"(busy {100 * dev_s / med:.1f}%); peak memory {peak / 2**30:.2f} "
+        f"GiB; losses {[round(l, 4) for l in losses]}; top kernels "
+        + "; ".join(f"{k[:40]} x{c} {t / 1e3:.2f} ms" for k, c, t in top))
+    out["qwen3_full"] = {"layers": cfg.n_layers, "params": n_params,
+                         "seq": args.seq, "batch": args.batch,
+                         "setup_s": res["setup_s"], "step_seconds": secs,
+                         "median_step_s": med, "tokens_per_s": tokens / med,
+                         "step_device_s": dev_s,
+                         "step_device_launches": dev_n,
+                         "busy_share": dev_s / med, "peak_bytes": peak,
+                         "losses": losses, "top_kernels": top}
+
+    # -- 2. the whole state through one async save and restore
+    state = {"params": params, "opt": opt}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    free = shutil.disk_usage(ROOT).free
+    require(free > 2.5 * nbytes, f"{free / 1e9:.1f} GB free on disk for a "
+            f"{nbytes / 1e9:.1f} GB checkpoint")
+    ckpt = Checkpointer(os.path.join(root, "full"), keep=1)
+    t0 = time.perf_counter()
+    ckpt.save_async(6, state, extra={"arch": cfg.name})
+    snap_s = time.perf_counter() - t0
+    ckpt.wait()
+    write_s = time.perf_counter() - t0
+    npz = os.path.join(root, "full", "step_00000006", "shard_p0.npz")
+    t0 = time.perf_counter()
+    ck._sha256(npz)
+    sha_s = time.perf_counter() - t0
+    skeleton = {"params": params, "opt": opt}
+    t0 = time.perf_counter()
+    got_step, got, _ = ckpt.restore_latest(skeleton, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = got_step == 6 and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                          tree_leaves(state)))
+    log(f"checkpoint of the full state ({nbytes / 1e9:.2f} GB, "
+        f"{len(tree_leaves(state))} leaves): host snapshot {snap_s:.1f} s, "
+        f"written in {write_s:.1f} s (snapshot included), sha256 "
+        f"{sha_s:.1f} s, restore {restore_s:.1f} s (sha256 included); "
+        f"restored bit-equal {same}")
+    require(same, "the restored state differs from the saved one")
+    out["checkpoint"] = {"bytes": nbytes, "snapshot_s": snap_s,
+                         "write_s": write_s, "sha256_s": sha_s,
+                         "restore_s": restore_s, "equal": same,
+                         "disk_free_bytes": free}
+    del got, state, skeleton, params, opt, res, batch
+    shutil.rmtree(os.path.join(root, "full"), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3. mamba2-130m at full width and depth
+    mcfg = get_config("mamba2-130m")
+    res, _, mpeak = train_run(
+        torch, mcfg, train_args(arch="mamba2-130m", steps=5,
+                                ckpt_dir=os.path.join(root, "m")),
+        "mamba2-130m")
+    mmed = statistics.median(res["step_seconds"][2:])
+    require(all(map(math.isfinite, res["losses"])),
+            f"mamba2-130m training losses {res['losses']}")
+    log(f"mamba2-130m training ({mcfg.n_layers} layers, d {mcfg.d_model}):"
+        f" median step {mmed * 1e3:.1f} ms, {tokens / mmed:.0f} tokens/s, "
+        f"peak {mpeak / 2**30:.2f} GiB; losses "
+        f"{[round(l, 4) for l in res['losses']]}")
+    out["mamba_full"] = {"layers": mcfg.n_layers,
+                         "step_seconds": res["step_seconds"],
+                         "median_step_s": mmed, "peak_bytes": mpeak,
+                         "losses": res["losses"]}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4. the restart contract (full width, 2 layers)
+    rcfg = dataclasses.replace(cfg, n_layers=RESTART_LAYERS)
+    faulted, text, _ = train_run(
+        torch, rcfg, train_args(steps=5, ckpt_every=3, fail_at=[4],
+                                ckpt_dir=os.path.join(root, "r1")),
+        "restart")
+    clean, _, _ = train_run(
+        torch, rcfg, train_args(steps=5, ckpt_dir=os.path.join(root, "r2")),
+        "uninterrupted")
+    fa = _flat({"params": faulted["params"], "opt": faulted["opt"]})
+    cl = _flat({"params": clean["params"], "opt": clean["opt"]})
+    differ = [k for k in cl if not torch.equal(fa[k], cl[k])]
+    restored = "restored checkpoint at step 3" in text
+    one = "restarts=1" in text
+    log(f"restart contract ({RESTART_LAYERS} layers at full width): "
+        f"restored at step 3 {restored}, restarts=1 {one}, steps "
+        f"{faulted['step']} and {clean['step']}, {len(cl)} leaves, "
+        f"{len(differ)} differ from the uninterrupted run")
+    require(restored and one, "the faulted run did not restore and restart")
+    require(not differ, f"the restarted run's state differs: {differ[:4]}")
+    out["restart"] = {"layers": RESTART_LAYERS, "restored_at": 3,
+                      "restarts": faulted["stats"]["restarts"],
+                      "leaves": len(cl), "differ": differ,
+                      "losses_faulted": faulted["losses"],
+                      "losses_clean": clean["losses"]}
+    del faulted, clean, fa, cl
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5. one step of each smoke config, card against CPU
+    out["card_vs_cpu"] = {}
+    probe = AdamWConfig(lr=0.0, weight_decay=0.0, b1=0.0, clip_norm=0.0)
+    for arch in ("qwen3-0.6b", "mamba2-130m"):
+        scfg = get_smoke_config(arch)
+        sb = SyntheticLM(vocab=scfg.vocab, seq_len=64, global_batch=4,
+                         seed=5).batch(0)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = materialize(build_model(scfg).param_specs(), 0, device=dev)
+            b = {k: torch.from_numpy(v).to(dev) for k, v in sb.items()}
+            _, st, m = make_train_step(scfg, probe)(
+                p, adamw_init(p, probe), b)
+            runs[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: v.cpu() for k, v in _flat(st["m"]).items()})
+        (lg, ng, gg), (lc, nc, gc_) = runs["cuda"], runs["cpu"]
+        leaf = {k: float((gg[k] - gc_[k]).abs().max()
+                         / gc_[k].abs().max().clamp_min(1e-30))
+                for k in gc_}
+        worst = max(leaf, key=leaf.get)
+        log(f"{arch} smoke train step, card against CPU: loss {lg:.5f} / "
+            f"{lc:.5f}, grad norm {ng:.5f} / {nc:.5f}; worst leaf "
+            f"{worst} at {leaf[worst]:.2e} of its largest gradient")
+        require(abs(lg - lc) <= 2e-2 * abs(lc) and
+                abs(ng - nc) <= 2e-2 * abs(nc),
+                f"{arch}: the card's train step disagrees with the CPU's")
+        require(leaf[worst] <= 5e-2, f"{arch}: gradient {worst} differs by "
+                f"{leaf[worst]:.2e} of its largest")
+        out["card_vs_cpu"][arch] = {"loss": [lg, lc], "grad_norm": [ng, nc],
+                                    "leaf_rel_err": leaf}
+    report["training"] = out
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(launches == {}, f"training launched PCILT kernels {launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 15: the other dense configs
+# ----------------------------------------------------------------------------
+
+
+def dense_configs(torch, ops, report):
+    """qwen1.5-4b, qwen2.5-3b and deepseek-coder-33b at their published
+    widths with the depth cut (``DENSE_CUT_LAYERS``; deepseek's ~34 B
+    float32 parameters at full depth do not fit one 80 GB card), seeded
+    weights drawn on the card, bfloat16 compute and KV cache.  Each, as
+    phase 13 for qwen3-0.6b: ``Engine(cfg, 256, 4)`` serves 4 requests of 8
+    new tokens (every one served, no restart, no PCILT kernel);
+    ``make_prefill_step`` on a 192-token prompt against a decode replay of
+    it (2e-2 of the largest logit, argmax equal or a near-tie within that
+    tolerance); ``_sdpa_chunked``
+    against ``_sdpa_dense`` on layer 0's q, k, v of a 4096-token prompt
+    (2e-2 of the largest output).  Returns the path's launches (none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.serve import Engine, make_requests
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.layers import embed, rmsnorm
+    from repro_torch.nn.module import layer_view, materialize
+
+    out = {}
+    ops.reset_launches()
+    for seed, (arch, cut) in enumerate(DENSE_CUT_LAYERS.items()):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=cut)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = device_params(torch, build_model(cfg).param_specs(),
+                               100 + seed)
+        eng = Engine(cfg, 256, B, params=params, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n = sum(t.numel() for t in tree_leaves(params))
+        reqs = make_requests(cfg, 4, 8, seed=0)
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        med = statistics.median(eng.step_seconds)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{arch}: {cut} of {full.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.padded_heads} (of {cfg.n_heads}) / {cfg.padded_kv_heads} "
+            f"heads of {cfg.resolved_head_dim}, vocab {cfg.vocab}, qkv bias "
+            f"{cfg.qkv_bias}, tied {cfg.tie_embeddings}, rope theta "
+            f"{cfg.rope_theta:g}; {n / 1e6:.1f} M parameters; set-up "
+            f"{setup_s:.1f} s; served {stats['served']}/4, median step "
+            f"{med * 1e3:.2f} ms, peak {peak / 2**30:.2f} GiB; outputs "
+            f"{[r.out for r in reqs]}")
+        require(stats["served"] == 4 and stats["restarts"] == 0,
+                f"{arch}: served {stats['served']} of 4 with "
+                f"{stats['restarts']} restarts")
+        require(all(len(r.out) == 8 and all(0 <= t < cfg.vocab
+                                            for t in r.out) for r in reqs),
+                f"{arch}: generated tokens out of range")
+        del eng
+        gen = torch.Generator().manual_seed(17 + seed)
+        prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT),
+                               generator=gen).cuda()
+        with torch.no_grad():
+            pre, _ = make_prefill_step(cfg)(params, {"tokens": prompt})
+            cache = materialize(build_model(cfg).cache_specs(1, 256), 0,
+                                device="cuda")
+            cache["pos"] = 0
+            step = make_decode_step(cfg)
+            for t in range(REPLAY_PROMPT):
+                logits, cache = step(params, cache, prompt[:, t:t + 1])
+        rep_err = _logits_agree(torch, f"{arch} prefill against replay",
+                                pre, logits, near_tie=True)
+        del cache
+        long = torch.randint(0, cfg.vocab, (1, LONG_PROMPT),
+                             generator=gen).cuda()
+        with torch.no_grad():
+            p0 = layer_view(params["blocks"], 0)["sub0"]
+            x = rmsnorm(p0["ln_attn"], embed(params["embed"], long,
+                                             cfg.dtype), cfg.norm_eps)
+            pos = torch.arange(LONG_PROMPT, device="cuda")[None]
+            q, k, v = attn._project_qkv(p0["attn"], cfg, x, pos)
+            kr, vr = attn._repeat_kv(q, k, v)
+            chunked = attn._sdpa_chunked(cfg, q, kr, vr, pos, pos,
+                                         causal=True)
+            dense = attn._sdpa_dense(cfg, q, kr, vr,
+                                     attn._causal_mask(pos, pos, cfg.window))
+        err = float((chunked.float() - dense.float()).abs().max())
+        tol = 2e-2 * float(dense.float().abs().max())
+        log(f"  {arch} layer 0 at {LONG_PROMPT} tokens: chunked against "
+            f"dense attention max |d| {err:.3e} (tol {tol:.3e})")
+        require(err <= tol, f"{arch}: the chunked attention disagrees")
+        out[arch] = {"layers": cut, "full_layers": full.n_layers,
+                     "params": n, "setup_s": setup_s, "served":
+                     stats["served"], "median_step_s": med,
+                     "peak_bytes": peak, "outputs": [r.out for r in reqs],
+                     "replay_max_abs_err": rep_err,
+                     "chunked_max_abs_err": err, "chunked_tol": tol}
+        del params, q, k, v, kr, vr, chunked, dense, x, p0
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["dense_configs"] = out
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(launches == {}, f"the dense configs launched PCILT kernels "
+                            f"{launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3507,7 +4055,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for phase in (serve, paper_cnn, serve_paired, paired_parity,
                   single_layers, plans_and_extensions, learnable,
-                  resilience, dense_serving):
+                  resilience, dense_serving, training, dense_configs):
         count(phase)
     step = report["serve"]["step_compare"]
     rows["window counters"].update(

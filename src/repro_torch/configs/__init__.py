@@ -1,11 +1,17 @@
-"""Architecture registry: ``--arch <id>`` resolution (qwen3-0.6b and
+"""Architecture registry: ``--arch <id>`` resolution (the dense family and
 mamba2-130m so far)."""
 
 import importlib
 
 from .base import ModelConfig, SSMConfig, PCILTConfig
 
-_MODULES = {"qwen3-0.6b": "qwen3_06b", "mamba2-130m": "mamba2_130m"}
+_MODULES = {
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "qwen1.5-4b": "qwen15_4b",
+    "qwen2.5-3b": "qwen25_3b",
+    "qwen3-0.6b": "qwen3_06b",
+    "mamba2-130m": "mamba2_130m",
+}
 
 ARCHS = tuple(_MODULES)
 

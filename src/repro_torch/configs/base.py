@@ -1,10 +1,10 @@
 """Config dataclasses (port of the dense and Mamba parts of
 ``repro.configs.base``).
 
-The fields mirror the reference's; dtypes are torch dtypes.  The MoE,
-encoder-decoder and image-token fields wait for their families.  Fields are
-keyword-built, so the attention and dense fields carry defaults (an [ssm]
-config leaves them unset).
+The fields mirror the reference's, in its order as far as ``pos_embed``
+(a positional config binds the same fields in both packages); the rest are
+keyword-only.  Dtypes are torch dtypes.  The MoE, encoder-decoder and
+image-token fields wait for their families.
 """
 
 from __future__ import annotations
@@ -44,10 +44,10 @@ class ModelConfig:
     family: str                  # dense | ssm (the families ported so far)
     n_layers: int
     d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
     vocab: int
-    n_heads: int = 0
-    n_kv_heads: int = 0
-    d_ff: int = 0
     head_dim: int = 0            # 0 -> d_model // n_heads
     # attention variants
     qkv_bias: bool = False
@@ -55,6 +55,9 @@ class ModelConfig:
     window: int = 0              # sliding-window size (0 = full attention)
     rope_theta: float = 10000.0
     pos_embed: str = "rope"      # rope | none (sinusoidal waits for whisper)
+    # the reference's ``moe`` (and the other families' fields) come next
+    # there, so every field from here on is keyword-only
+    _: dataclasses.KW_ONLY
     ssm: Optional[SSMConfig] = None
     # head-count padding, part of the config so parameter shapes do not
     # depend on a mesh
@@ -64,8 +67,9 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    remat_policy: str = "dots"   # nothing | dots | full (training only)
-    loss_chunk: int = 2048       # vocab-loss token chunking (training only)
+    remat_policy: str = "dots"   # none | dots | full (training only)
+    loss_chunk: int = 2048       # vocab-loss token chunking (0 = unchunked)
+    grad_accum: int = 1          # microbatches per train step
     pcilt: Optional[PCILTConfig] = None
 
     @property

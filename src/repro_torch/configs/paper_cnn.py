@@ -7,11 +7,11 @@ from repro_torch.core.quantization import QuantSpec
 from repro_torch.models.cnn import PaperCNN
 
 
-def config(device="cuda"):
+def config(*, device="cuda"):
     return PaperCNN(in_channels=1, n_classes=10,
                     act_spec=QuantSpec(bits=8), group=1, device=device)
 
 
-def smoke_config(device="cuda"):
+def smoke_config(*, device="cuda"):
     return PaperCNN(in_channels=1, n_classes=10, channels=(8, 12),
                     act_spec=QuantSpec(bits=2), group=1, device=device)

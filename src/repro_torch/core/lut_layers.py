@@ -192,9 +192,9 @@ def _check_contiguous_segments(path: str, plan, n: int, n_segments: int,
 
 
 def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
-                 path: str = "gather", stacked: Optional[int] = None,
-                 paired: bool = False, return_stats: bool = False,
-                 plan=None):
+                 plan=None, path: str = "gather", *,
+                 stacked: Optional[int] = None, paired: bool = False,
+                 return_stats: bool = False):
     """Quantize -> pack offsets -> fetch -> sum: ``x [..., n] -> [..., out]``.
 
     ``tables`` is a dense ``[G, V, out]`` tensor, a layer-stacked

@@ -42,7 +42,7 @@ def unpack_offsets(offsets: torch.Tensor, bits: int, group: int) -> torch.Tensor
     return codes.reshape(*offsets.shape[:-1], offsets.shape[-1] * group)
 
 
-def offset_grid(bits: int, group: int, device=None) -> torch.Tensor:
+def offset_grid(bits: int, group: int, *, device=None) -> torch.Tensor:
     """All ``K**group`` offsets unpacked: ``[K**group, group]`` codes, row
     ``v`` holding the codes whose packed offset is ``v``."""
     n_off = 1 << (bits * group)
@@ -63,7 +63,7 @@ class SegmentPlan:
 
     index: np.ndarray  # int32 [G, group]
     _on_device: Dict[str, torch.Tensor] = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
+        default_factory=dict, repr=False, compare=False, kw_only=True)
 
     def __post_init__(self):
         idx = np.asarray(self.index)

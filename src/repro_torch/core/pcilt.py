@@ -446,7 +446,7 @@ def checksums(items) -> List[int]:
         return list(pool.map(lambda sp: _zlib_ranges(*sp), specs))
 
 
-def table_checksum(arr, crc: int = 0) -> int:
+def table_checksum(arr, *, crc: int = 0) -> int:
     """CRC-32 over the raw bytes of a table (continuing ``crc``): on the
     card for a CUDA tensor, else ``zlib.crc32`` streamed chunk by chunk."""
     got = checksums([arr])[0]

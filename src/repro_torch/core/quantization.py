@@ -106,7 +106,7 @@ def dequantize(codes: torch.Tensor, spec: QuantSpec, scale,
     return (codes.to(dtype) - spec.zero_point) * s
 
 
-def code_values(spec: QuantSpec, scale, dtype=torch.float32,
+def code_values(spec: QuantSpec, scale, dtype=torch.float32, *,
                 device=None) -> torch.Tensor:
     """The ``K`` real values the grid represents, indexed by code."""
     if device is None:

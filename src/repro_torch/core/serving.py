@@ -559,7 +559,7 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
 
     t0 = time.perf_counter()
     with torch.no_grad():
-        amax = model.calibrate_pcilt(params, calib_tokens.to(dev))
+        amax = model.calibrate_pcilt(params, {"tokens": calib_tokens.to(dev)})
     lap("calibrate_s", t0)
 
     def to_scale(a):

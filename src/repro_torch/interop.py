@@ -34,7 +34,8 @@ def resolve_device(device="cuda") -> torch.device:
 
 def to_torch(a, device="cpu") -> torch.Tensor:
     """One array -> a contiguous tensor on ``device`` (bf16 bit-preserving)."""
-    arr = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a)
+    arr = np.ascontiguousarray(a).reshape(a.shape)  # 0-d stays 0-d
     if not arr.flags.writeable:  # e.g. a JAX array's host view
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":
@@ -54,13 +55,16 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def tree_map(fn, tree):
-    """Map ``fn`` over the leaves of a tree of dicts, lists and tuples."""
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the leaves of a tree of dicts, lists and tuples (and
+    the matching nodes of the parallel trees ``rest``, whose nodes below
+    ``tree``'s leaves go to ``fn`` whole)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):

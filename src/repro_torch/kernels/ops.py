@@ -452,7 +452,7 @@ def pcilt_fused_gemv(x: torch.Tensor, tables: torch.Tensor, spec: QuantSpec,
 
 
 def pcilt_fused_gemv_stacked(x: torch.Tensor, tables: torch.Tensor, layer: int,
-                             spec: QuantSpec, scale, group: int,
+                             spec: QuantSpec, scale, group: int, *,
                              with_stats: bool = False):
     """x ``[B, n]`` float32, tables ``[L, G, V, O]`` (``n == G * group``),
     ``layer`` a host int -> ``[B, O]`` in the table dtype; with
@@ -471,7 +471,7 @@ def pcilt_fused_gemv_stacked(x: torch.Tensor, tables: torch.Tensor, layer: int,
 
 
 def pcilt_fused_gemv_paired(x: torch.Tensor, tables: torch.Tensor,
-                            spec: QuantSpec, scale, group: int,
+                            spec: QuantSpec, scale, group: int, *,
                             with_stats: bool = False):
     """x ``[B, n]`` float32, paired tables ``[G2, V2, O]`` (``n == G2 * 2 *
     group``, ``V2 = (2**(bits*group))**2``) -> ``[B, O]``: each fetch
@@ -487,7 +487,7 @@ def pcilt_fused_gemv_paired(x: torch.Tensor, tables: torch.Tensor,
 
 def pcilt_fused_gemv_paired_stacked(x: torch.Tensor, tables: torch.Tensor,
                                     layer: int, spec: QuantSpec, scale,
-                                    group: int, with_stats: bool = False):
+                                    group: int, *, with_stats: bool = False):
     """x ``[B, n]`` float32, segment-major paired tables ``[G2, L, V2, O]``
     (``n == G2 * 2 * group``), ``layer`` a host int -> ``[B, O]``: the
     paired decode fetch.  Segment ``g`` of layer ``l`` starts at element
@@ -687,16 +687,17 @@ def _dwconv_scratch(lib, dev: torch.device) -> torch.Tensor:
 
 def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
                          spec: QuantSpec, scale, k: int,
-                         padding: str = "CAUSAL", with_stats: bool = False):
+                         padding: str = "CAUSAL", *, with_stats: bool = False):
     """x ``[B, T, C]`` float32, tables ``[C, V]`` (``V = 2**(bits*k)``)
     -> ``[B, To, C]`` in the table dtype (plus the saturation stats of the
     signal with ``with_stats``).  The only host-side work is the time pad
     of the signal (none for ``"VALID"``)."""
-    return _fused_dwconv1d(x, tables, spec, scale, k, padding, with_stats)
+    return _fused_dwconv1d(x, tables, spec, scale, k, padding,
+                           with_stats=with_stats)
 
 
 def _fused_dwconv1d(x, tables, spec: QuantSpec, scale, k: int,
-                    padding: str = "CAUSAL", with_stats: bool = False,
+                    padding: str = "CAUSAL", *, with_stats: bool = False,
                     variant=None):
     """:func:`pcilt_fused_dwconv1d`, with ``variant`` forcing a design on a
     CUDA tensor (else the forced one, else :func:`dwconv_variant`'s)."""

@@ -46,7 +46,7 @@ def run(steps: int = 8, device="cuda", seed=0, log=print) -> dict:
                               pcilt=PCILTConfig(act_bits=2, group=2),
                               dtype=torch.float32)
     model = build_model(cfg)
-    params = materialize(model.param_specs(), seed, dev)
+    params = materialize(model.param_specs(), seed, device=dev)
     rng = np.random.default_rng(seed)
     calib = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 16)))

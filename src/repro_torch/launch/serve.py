@@ -141,7 +141,7 @@ class Engine:
     drawn from ``seed`` and, with ``pcilt``, converted on calibration tokens
     drawn from ``seed + 2``."""
 
-    def __init__(self, cfg, slots: int = 4, *, max_len: int = 256,
+    def __init__(self, cfg, max_len: int = 256, slots: int = 4, *,
                  pcilt: bool = False,
                  params=None, pcilt_bundle: Optional[Dict] = None,
                  oracle_every: int = 4, max_restarts: int = 8,
@@ -162,9 +162,9 @@ class Engine:
         #: simulated service time a step advances the clock by (None: real)
         self.step_cost_s = step_cost_s
         self.params = params if params is not None else materialize(
-            self.model.param_specs(), seed, self.device)
+            self.model.param_specs(), seed, device=self.device)
         self.cache = materialize(self.model.cache_specs(slots, max_len),
-                                 seed, self.device)
+                                 seed, device=self.device)
         if "pos" in self.cache:  # the KV cache's write position, on the host
             self.cache["pos"] = 0
         self.decode = make_decode_step(cfg)
@@ -928,7 +928,7 @@ def _verify_chaos_contract(cfg, args, eng, reqs, stats, injector):
         pc_fq = dict(eng.pdecode.pcilt)
         proj = pc_fq.get("proj")
         B = args.slots
-        cache = materialize(eng.model.cache_specs(B), 5, eng.device)
+        cache = materialize(eng.model.cache_specs(B), 5, device=eng.device)
         tok = torch.full((B, 1), 3, dtype=torch.int64, device=eng.device)
         with torch.no_grad():
             got, _ = eng.pdecode.step(eng.params, cache, tok,

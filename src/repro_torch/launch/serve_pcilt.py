@@ -56,7 +56,7 @@ def run(cfg=None, device="cuda", seed=0, log=print) -> dict:
     dev = resolve_device(device)
     cfg = cfg or get_smoke_config("qwen3-0.6b")
     model = build_model(cfg)
-    params = materialize(model.param_specs(), seed, dev)
+    params = materialize(model.param_specs(), seed, device=dev)
     spec = QuantSpec(bits=4)
     out = {"errors": {}}
     with torch.no_grad():

@@ -1,16 +1,88 @@
-"""Step-function factories (port of the serving half of
-``repro.launch.steps``): prefill and decode for any ported config.
+"""Step-function factories (port of ``repro.launch.steps``): train, prefill
+and decode for any ported config.
 
 The reference closes its steps over a sharding context (``make_ctx``); the
-port has no mesh yet, so the steps close over the model alone.
-``make_train_step`` waits for training.
+port has no mesh yet, so the steps close over the model alone, and
+``make_train_step``'s ``grad_shardings`` / ``explicit_rs`` wait for
+distribution.
 """
 
 from __future__ import annotations
 
-from repro_torch.models import build_model
+import torch
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig, adamw_update
+
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step"]
+
+
+def _cast_tree_bf16(p):
+    """float32 leaves of 2 or more dimensions cast to bfloat16 (the master
+    weights as the step computes with them); a differentiable cast."""
+    return tree_map(lambda a: a.to(torch.bfloat16)
+                if a.dtype == torch.float32 and a.dim() >= 2 else a, p)
+
+
+def _value_and_grad(fn, params, batch):
+    """``((loss, metrics), grads)`` of ``fn(params, batch)``, the grads in
+    the leaves' dtypes; nothing of the graph outlives the call."""
+    leaves = tree_map(lambda a: a.detach().requires_grad_(), params)
+    loss, metrics = fn(leaves, batch)
+    flat = tree_leaves(leaves)
+    g = iter(torch.autograd.grad(loss, flat))
+    grads = tree_map(lambda _: next(g), leaves)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
+
+
+def make_train_step(cfg, ocfg: AdamWConfig, bf16_grads: bool = False):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with ``loss``, ``ce``, ``z``, ``grad_norm`` and ``lr``.
+
+    The float32 master parameters are cast to bfloat16 inside the
+    differentiated function, so their gradients come back float32;
+    ``bf16_grads`` differentiates with respect to the cast tree instead,
+    so the 2-D and larger gradients are bfloat16 (the optimizer widens
+    them).  With ``cfg.grad_accum = n > 1`` the batch is split into ``n``
+    microbatches along its first axis, their gradients summed in float32
+    and divided by ``n``, and the loss and metrics averaged.  The given
+    parameters and state are not changed."""
+    model = build_model(cfg)
+
+    def loss_fn(p, b):
+        return model.loss(_cast_tree_bf16(p), b)
+
+    def grad_of(params, b):
+        if bf16_grads:
+            return _value_and_grad(model.loss, _cast_tree_bf16(params), b)
+        return _value_and_grad(loss_fn, params, b)
+
+    def train_step(params, opt_state, batch):
+        n = max(cfg.grad_accum, 1)
+        if n == 1:
+            (loss, metrics), grads = grad_of(params, batch)
+        else:
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss, ms = 0.0, []
+            for i in range(n):
+                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                (l, m), g = grad_of(params, mb)
+                grads = tree_map(lambda a, b: a + b.float(), grads, g)
+                loss = loss + l
+                ms.append(m)
+            grads = tree_map(lambda g: g / n, grads)
+            loss = loss / n
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        with torch.no_grad():
+            new_params, new_opt, om = adamw_update(grads, opt_state, params,
+                                                   ocfg)
+        return new_params, new_opt, dict(metrics, loss=loss, **om)
+
+    return train_step
 
 
 def make_prefill_step(cfg):

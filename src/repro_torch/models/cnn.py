@@ -56,6 +56,7 @@ class PaperCNN:
     k: int = PAPER_FILTER
     act_spec: QuantSpec = QuantSpec(bits=8, symmetric=False)
     group: int = 1
+    _: dataclasses.KW_ONLY
     device: str = "cuda"
 
     def param_specs(self):
@@ -69,7 +70,7 @@ class PaperCNN:
 
     def init_params(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """Seeded random parameters on the model's device."""
-        return materialize(self.param_specs(), seed, self.device)
+        return materialize(self.param_specs(), seed, device=self.device)
 
     def _check_device(self, x: torch.Tensor) -> None:
         dev = resolve_device(self.device)

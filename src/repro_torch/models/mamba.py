@@ -2,8 +2,10 @@
 
 Pre-norm residual Mamba2 blocks over a tied embedding.  The layer stack is
 stored stacked (``[L, ...]`` per parameter, as the reference scans it) and
-:meth:`MambaLM.decode_step` walks it with a Python loop, handing each layer
-views of its parameters and its index into the PCILT stacks — never a copy.
+:meth:`MambaLM.loss`, :meth:`MambaLM.prefill` and :meth:`MambaLM.decode_step`
+walk it with a Python loop, handing each layer views of its parameters and
+its index into the PCILT stacks — never a copy.  The loss runs each block
+under ``cfg.remat_policy``.
 
 PCILT bundle (``build_pcilt``): conv tables ``[L, C, V]``, one
 ``[L, G, V, O]`` stack per projection (with ``paired``, one segment-major
@@ -27,7 +29,7 @@ from repro_torch.core import (QuantSpec, SharedGroupedTables,
                               build_shared_grouped_tables, fake_quant,
                               pcilt_linear, scale_from_amax)
 from repro_torch.nn.layers import embed, embed_spec, rmsnorm, rmsnorm_spec
-from repro_torch.nn.module import ParamSpec, stack_specs
+from repro_torch.nn.module import ParamSpec, layer_view, remat, stack_specs
 from repro_torch.nn.ssm import (PROJ_NAMES, mamba_block, mamba_decode,
                                 mamba_spec, ssm_cache_specs)
 
@@ -35,13 +37,6 @@ __all__ = ["MambaLM", "layer_view", "HEAD_WEIGHT_BITS"]
 
 #: weight bits of the quantized logits head (the reference's default)
 HEAD_WEIGHT_BITS = 4
-
-
-def layer_view(tree, l: int):
-    """Layer ``l`` of a stacked parameter tree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: layer_view(v, l) for k, v in tree.items()}
-    return tree[l]
 
 
 @dataclasses.dataclass
@@ -75,6 +70,31 @@ class MambaLM:
     def _logits(self, params, x):
         return x @ self._head_kernel(params).to(self.cfg.dtype)
 
+    def loss(self, params, batch):
+        """The training loss over ``batch`` (``tokens``, ``labels [B, S]``,
+        optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``."""
+        from .transformer import chunked_ce_loss
+
+        cfg = self.cfg
+        labels = batch["labels"]
+        x = embed(params["embed"], batch["tokens"], cfg.dtype)
+
+        def blk(x, p):
+            return x + mamba_block(p["mixer"], cfg,
+                                   rmsnorm(p["ln"], x, cfg.norm_eps))
+
+        blk = remat(blk, cfg.remat_policy)
+        for l in range(cfg.n_layers):
+            x = blk(x, layer_view(params["blocks"], l))
+        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        ce, z = chunked_ce_loss(lambda xc: self._logits(params, xc), x,
+                                labels, mask.float(), cfg.loss_chunk)
+        return ce + 1e-4 * z, {"ce": ce, "z": z}
+
     def prefill(self, params, batch):
         """Full-sequence dense pass over ``batch["tokens"] [B, S]``: the last
         position's logits ``[B, Vp]`` and the decode-ready cache of each
@@ -99,13 +119,13 @@ class MambaLM:
 
     # -- calibration and the PCILT build ------------------------------------
 
-    def calibrate_pcilt(self, params, tokens: torch.Tensor):
-        """One full-sequence pass over calibration tokens ``[B, S]``
-        capturing the per-layer absmax of every activation the PCILT decode
-        quantizes: ``{"in": [L], "out": [L], "conv_in": [], "head_in": []}``
-        (float32)."""
+    def calibrate_pcilt(self, params, batch):
+        """One full-sequence pass over a calibration batch (``batch["tokens"]
+        [B, S]``) capturing the per-layer absmax of every activation the
+        PCILT decode quantizes: ``{"in": [L], "out": [L], "conv_in": [],
+        "head_in": []}`` (float32)."""
         cfg = self.cfg
-        h = embed(params["embed"], tokens, cfg.dtype)
+        h = embed(params["embed"], batch["tokens"], cfg.dtype)
         ins, outs, convs = [], [], []
         for l in range(cfg.n_layers):
             p = layer_view(params["blocks"], l)
@@ -119,7 +139,7 @@ class MambaLM:
         return {"in": torch.stack(ins), "out": torch.stack(outs),
                 "conv_in": torch.stack(convs).max(), "head_in": head_in}
 
-    def build_pcilt(self, params, scale, proj_scales=None,
+    def build_pcilt(self, params, scale, proj_scales=None, *,
                     table_dtype=torch.float32, head_scale=None,
                     record_integrity: bool = True, paired: bool = False):
         """Offline PCILT build for the decode loop (requires ``cfg.pcilt``).

@@ -42,9 +42,9 @@ def attention_spec(cfg, d_in: Optional[int] = None, dtype=torch.float32):
     d = d_in or cfg.d_model
     Hp, Hk, Dh = cfg.padded_heads, cfg.padded_kv_heads, cfg.resolved_head_dim
     p = {
-        "wq": dense_spec(d, (Hp, Dh), dtype, bias=cfg.qkv_bias),
-        "wk": dense_spec(d, (Hk, Dh), dtype, bias=cfg.qkv_bias),
-        "wv": dense_spec(d, (Hk, Dh), dtype, bias=cfg.qkv_bias),
+        "wq": dense_spec(d, (Hp, Dh), bias=cfg.qkv_bias, dtype=dtype),
+        "wk": dense_spec(d, (Hk, Dh), bias=cfg.qkv_bias, dtype=dtype),
+        "wv": dense_spec(d, (Hk, Dh), bias=cfg.qkv_bias, dtype=dtype),
         "wo": {"kernel": ParamSpec((Hp, Dh, cfg.d_model), dtype, "fan_in")},
     }
     if cfg.qk_norm:

@@ -12,8 +12,8 @@ __all__ = ["dense_spec", "dense", "embed_spec", "embed", "rmsnorm_spec",
            "rmsnorm", "rope"]
 
 
-def dense_spec(d_in: int, d_out, dtype=torch.float32, init: str = "fan_in",
-               bias: bool = False):
+def dense_spec(d_in: int, d_out, *, bias: bool = False, dtype=torch.float32,
+               init: str = "fan_in"):
     """Kernel ``[d_in, *d_out]`` (``d_out`` an int or a tuple), with a
     zero bias ``[*d_out]`` when ``bias``."""
     out_shape = (d_out,) if isinstance(d_out, int) else tuple(d_out)

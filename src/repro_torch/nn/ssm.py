@@ -1,6 +1,14 @@
 """Mamba2 (state-space duality) blocks: chunked full-sequence pass and O(1)
 decode (port of ``repro.nn.ssm``).
 
+PCILT conv frontend: :func:`build_pcilt_conv` turns a layer's ``conv_w``
+into per-channel ``[C, V]`` tables; :func:`mamba_block` (``pcilt=``) then
+fetches the whole signal through the fused kernel with CAUSAL padding (the
+signal padded with 0.0, the zero point's value), and the decode step the
+``[B, k, C]`` window as a VALID conv.  On a CUDA tensor the fused kernel
+takes float32 activations (``cfg.dtype=torch.float32``, as the PCILT
+serving configs set it) and raises for any other.
+
 Full-PCILT decode: with a PCILT bundle the depthwise conv frontend is one
 fused table fetch per channel over the ``[B, k, C]`` window
 (``pcilt_depthwise_conv1d(path="fused", padding="VALID")``) and the six
@@ -24,13 +32,14 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import (fake_quant, pcilt_depthwise_conv1d,
-                              pcilt_linear, quantize_with_stats)
+from repro_torch.core import (QuantSpec, build_dwconv_tables, fake_quant,
+                              pcilt_depthwise_conv1d, pcilt_linear,
+                              quantize_with_stats)
 from .layers import dense, dense_spec, rmsnorm, rmsnorm_spec
 from .module import ParamSpec
 
 __all__ = ["mamba_spec", "mamba_block", "mamba_decode", "ssm_cache_specs",
-           "PROJ_NAMES"]
+           "build_pcilt_conv", "PROJ_NAMES"]
 
 #: the decode projections a full-PCILT conversion turns into table fetches
 PROJ_NAMES = ("wz", "wx", "wB", "wC", "wdt", "wo")
@@ -39,6 +48,23 @@ PROJ_NAMES = ("wz", "wx", "wB", "wC", "wdt", "wo")
 def _zero_stats(device):
     return (torch.zeros((), dtype=torch.int32, device=device),
             torch.zeros((), dtype=torch.float32, device=device))
+
+
+def build_pcilt_conv(params, cfg, scale):
+    """One layer's conv frontend as PCILTs: ``conv_w [k, C]`` -> per-channel
+    tables ``[C, 2**(act_bits*k)]`` on a symmetric ``cfg.pcilt.act_bits``
+    grid (the conv input is a signed pre-activation stream).  ``scale`` is
+    the calibrated per-tensor scale of that input.  Returns the ``pcilt=``
+    dict :func:`mamba_block` and :func:`mamba_decode` take."""
+    if cfg.pcilt is None:
+        raise ValueError(
+            "build_pcilt_conv requires cfg.pcilt (a configs.base.PCILTConfig "
+            "supplying act_bits/group for the table build); got None — set "
+            "cfg = dataclasses.replace(cfg, pcilt=PCILTConfig(...)) before "
+            "converting, or run the conv dense with pcilt=None")
+    spec = QuantSpec(bits=cfg.pcilt.act_bits, symmetric=True)
+    tables = build_dwconv_tables(params["conv_w"], spec, scale)
+    return {"tables": tables, "scale": scale, "spec": spec}
 
 
 def _proj(params, name, x, cfg, proj, with_stats: bool = False):
@@ -97,27 +123,28 @@ def mamba_spec(cfg, dtype=torch.float32):
     d_inner, H, conv_ch = _dims(cfg)
     GN = s.n_groups * s.d_state
     return {
-        "wz": dense_spec(d, d_inner, dtype),
-        "wx": dense_spec(d, d_inner, dtype),
-        "wB": dense_spec(d, GN, dtype),
-        "wC": dense_spec(d, GN, dtype),
-        "wdt": dense_spec(d, H, dtype),
+        "wz": dense_spec(d, d_inner, dtype=dtype),
+        "wx": dense_spec(d, d_inner, dtype=dtype),
+        "wB": dense_spec(d, GN, dtype=dtype),
+        "wC": dense_spec(d, GN, dtype=dtype),
+        "wdt": dense_spec(d, H, dtype=dtype),
         "conv_w": ParamSpec((s.conv_kernel, conv_ch), dtype, "fan_in"),
         "conv_b": ParamSpec((conv_ch,), dtype, "zeros"),
         "A_log": ParamSpec((H,), dtype, "zeros"),
         "dt_bias": ParamSpec((H,), dtype, "zeros"),
         "D": ParamSpec((H,), dtype, "ones"),
         "norm": rmsnorm_spec(d_inner, dtype),
-        "wo": dense_spec(d_inner, d, dtype),
+        "wo": dense_spec(d_inner, d, dtype=dtype),
     }
 
 
 def _conv1d(params, cfg, x, conv_state=None, pcilt=None,
             with_stats: bool = False):
     """Causal depthwise conv over ``[B, T, C]``; returns ``(y, new_state)``
-    (plus ``count, ratio`` with ``with_stats``).  Decode (``conv_state``
-    given) with a PCILT bundle fetches the ``[B, k, C]`` window through the
-    fused kernel as a VALID conv; the full-sequence pass runs dense."""
+    (plus ``count, ratio`` with ``with_stats``).  With ``pcilt`` the conv is
+    a fused table fetch: of the ``[B, k, C]`` window as a VALID conv in
+    decode (``conv_state`` given), of the whole signal with CAUSAL padding
+    in the full-sequence pass (``new_state`` None there)."""
     k = cfg.ssm.conv_kernel
     w = params["conv_w"].to(x.dtype)  # [k, C]
     if conv_state is not None:
@@ -147,11 +174,19 @@ def _conv1d(params, cfg, x, conv_state=None, pcilt=None,
             return y, new_state, count, ratio
         return y, new_state
     if pcilt is not None:
-        raise ValueError("the full-sequence PCILT conv is not ported yet; "
-                         "the decode window path is")
+        y = pcilt_depthwise_conv1d(
+            x.contiguous(), params["conv_w"], pcilt["spec"], pcilt["scale"],
+            tables=pcilt["tables"], path="fused", padding="CAUSAL",
+            return_stats=with_stats)
+        if with_stats:
+            y, count, ratio = y
+        y = y.to(x.dtype) + params["conv_b"].to(x.dtype)
+        return (y, None, count, ratio) if with_stats else (y, None)
     pad = F.pad(x, (0, 0, k - 1, 0))
     y = sum(pad[:, i:i + x.shape[1]] * w[i][None, None] for i in range(k))
     y = y + params["conv_b"].to(x.dtype)
+    if with_stats:
+        return (y, None, *_zero_stats(x.device))
     return y, None
 
 
@@ -185,7 +220,11 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     lj = cum[..., None, :, :]
     mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool,
                                  device=xh.device))[None, None, :, :, None]
-    L = torch.where(mask, torch.exp(li - lj), torch.zeros((), device=xh.device))
+    # the mask goes inside the exp: above the diagonal li - lj > 0 grows
+    # with the chunk and overflows exp, whose gradient there (inf times a
+    # zero cotangent) is NaN; exp(-inf) is 0 with a zero gradient.  The
+    # values are the reference's where(mask, exp(li - lj), 0)
+    L = torch.exp(torch.where(mask, li - lj, float("-inf")))
 
     xdt = (xh * dt[..., None].to(cd)).to(cd)          # [B,C,Q,H,P] bf16
     scores = torch.einsum("bcihn,bcjhn->bcijh", up(Cm), up(Bm)) * L
@@ -233,11 +272,13 @@ def _finish(params, cfg, y, xh, z, proj=None, with_stats: bool = False):
 
 
 def mamba_block(params, cfg, x: torch.Tensor, return_state: bool = False,
-                return_calib: bool = False):
-    """Full-sequence Mamba2 block (prefill / calibration), dense.
+                pcilt=None, return_calib: bool = False):
+    """Full-sequence Mamba2 block (training, prefill, calibration).
     ``x [B, T, d] -> [B, T, d]``; ``return_state`` adds the decode-ready
-    ``{"conv", "ssd"}`` state, ``return_calib`` the absmax of the conv input
-    and of the ``wo`` input."""
+    ``{"conv", "ssd"}`` state, ``pcilt`` (from :func:`build_pcilt_conv`)
+    routes the conv frontend through the fused PCILT kernel, and
+    ``return_calib`` adds the absmax of the conv input and of the ``wo``
+    input."""
     s = cfg.ssm
     d_inner, H, _ = _dims(cfg)
     z = dense(params["wz"], x, cfg.dtype)
@@ -249,7 +290,7 @@ def mamba_block(params, cfg, x: torch.Tensor, return_state: bool = False,
     xBC = torch.cat([xi, Bi, Ci], -1)
     conv_tail = xBC[:, -(s.conv_kernel - 1):]
     conv_in_amax = xBC.abs().max().float() if return_calib else None
-    xBC, _ = _conv1d(params, cfg, xBC)
+    xBC, _ = _conv1d(params, cfg, xBC, pcilt=pcilt)
     xBC = F.silu(xBC)
     xi, Bi, Ci = torch.split(xBC, [d_inner, s.n_groups * s.d_state,
                                    s.n_groups * s.d_state], -1)

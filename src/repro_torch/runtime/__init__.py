@@ -1,12 +1,12 @@
-"""repro_torch.runtime — the serving engine's clocks, traffic, watchdog and
-fault injection (the reference's ``runtime`` without its training
-``Supervisor`` and ``pipeline_apply``)."""
+"""repro_torch.runtime — the serving engine's clocks and traffic, the
+watchdog, fault injection and the training ``Supervisor`` (the reference's
+``runtime`` without its ``pipeline_apply``)."""
 
-from .supervisor import StepWatchdog, detect_stragglers
+from .supervisor import StepWatchdog, detect_stragglers, Supervisor
 from .faults import FaultInjector
 from .traffic import (WallClock, VirtualClock, poisson_arrivals,
                       burst_arrivals, ramp_arrivals, make_arrivals)
 
-__all__ = ["StepWatchdog", "detect_stragglers", "FaultInjector", "WallClock",
-           "VirtualClock", "poisson_arrivals", "burst_arrivals",
+__all__ = ["StepWatchdog", "detect_stragglers", "Supervisor", "FaultInjector",
+           "WallClock", "VirtualClock", "poisson_arrivals", "burst_arrivals",
            "ramp_arrivals", "make_arrivals"]

@@ -177,4 +177,4 @@ def test_checksums_take_tables_and_layers_together():
     got = tp.checksums([(ta, 2, 0), (tb, 1, 1), tc, (tb, 0, 1)])
     assert got == [jp.table_checksum(a[2]), jp.table_checksum(b[:, 1]),
                    jp.table_checksum(c), jp.table_checksum(b[:, 0])]
-    assert tp.table_checksum(ta, 1234) == zlib.crc32(a.tobytes(), 1234)
+    assert tp.table_checksum(ta, crc=1234) == zlib.crc32(a.tobytes(), 1234)

@@ -869,7 +869,7 @@ def test_crc32_kernel_equals_zlib_on_ragged_lengths(cuda, n):
     assert ops.LAUNCHES["crc32"] == before + 2
     from repro_torch.core.pcilt import table_checksum
 
-    assert table_checksum(t[1:], 77) == zlib.crc32(b[1:].tobytes(), 77)
+    assert table_checksum(t[1:], crc=77) == zlib.crc32(b[1:].tobytes(), 77)
 
 
 @pytest.mark.cuda
@@ -1116,12 +1116,12 @@ def test_prefill_matches_a_decode_replay_on_the_card(cuda):
 
     cfg = get_smoke_config("qwen3-0.6b")
     model = build_model(cfg)
-    params = materialize(model.param_specs(), 0, cuda)
+    params = materialize(model.param_specs(), 0, device=cuda)
     prompt = torch.from_numpy(
         np.random.default_rng(3).integers(0, cfg.vocab, (2, 40))).to(cuda)
     with torch.no_grad():
         want, pcache = make_prefill_step(cfg)(params, {"tokens": prompt})
-        cache = dict(materialize(model.cache_specs(2, 64), 0, cuda), pos=0)
+        cache = dict(materialize(model.cache_specs(2, 64), 0, device=cuda), pos=0)
         step = make_decode_step(cfg)
         for t in range(prompt.shape[1]):
             got, cache = step(params, cache, prompt[:, t:t + 1])
@@ -1157,3 +1157,110 @@ def test_decode_pcilt_on_the_card_equals_the_cpu_run(cuda):
     assert ops.LAUNCHES["gemv_stacked"] > 0 and ops.LAUNCHES["dwconv1d"] > 0
     assert res["tokens"] == decode_pcilt.run(device="cpu",
                                              log=lambda m: None)["tokens"]
+
+
+def _flat_tree(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_tree(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One ``make_train_step`` of the smoke config on the card and on the
+    CPU (bfloat16 compute): the loss and the gradients' global norm within
+    2e-2, each leaf within 5e-2 of its largest gradient.  The gradients
+    are read off a probe optimizer (``b1 = 0``, no clipping), whose first
+    moment after one update is the gradient."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import materialize
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_smoke_config(arch)
+    probe = AdamWConfig(lr=0.0, weight_decay=0.0, b1=0.0, clip_norm=0.0)
+    nb = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                     seed=5).batch(0)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = materialize(build_model(cfg).param_specs(), 0, device=dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+        _, st, m = make_train_step(cfg, probe)(p, adamw_init(p, probe), b)
+        runs[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                          {k: v.cpu() for k, v in _flat_tree(st["m"]).items()})
+    (lg, ng, gg), (lc, nc, gc) = runs["cuda"], runs["cpu"]
+    assert abs(lg - lc) <= 2e-2 * abs(lc)
+    assert abs(ng - nc) <= 2e-2 * abs(nc)
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= \
+            5e-2 * float(gc[k].abs().max()), k
+
+
+@pytest.mark.cuda
+def test_mamba_block_pcilt_on_the_card_equals_plain(cuda):
+    """The full-sequence PCILT conv on the card: ``_conv1d(pcilt=)`` through
+    kernel 2 (CAUSAL) equals its plain version on the same signal and
+    tables, output and counters exactly; ``mamba_block(pcilt=)`` launches
+    it once, and raises for a bfloat16 signal (the kernel takes float32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import PCILTConfig
+    from repro_torch.interop import tree_map
+    from repro_torch.nn import ssm
+    from repro_torch.nn.module import materialize
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-130m"),
+                              pcilt=PCILTConfig(act_bits=4, group=2),
+                              dtype=torch.float32)
+    params = materialize(ssm.mamba_spec(cfg), 3, device="cpu")
+    pc = ssm.build_pcilt_conv(params, cfg, 0.05)
+    C = pc["tables"].shape[0]
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 0.2, (3, 37, C)).astype(np.float32))
+    want, _, wc, wr = ssm._conv1d(params, cfg, x, pcilt=pc, with_stats=True)
+    on = tree_map(lambda t: t.to(cuda), params)
+    pcc = dict(pc, tables=pc["tables"].to(cuda))
+    ops.reset_launches()
+    got, _, gc, gr = ssm._conv1d(on, cfg, x.to(cuda), pcilt=pcc,
+                                 with_stats=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dwconv1d"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert int(gc) == int(wc) and float(gr) == float(wr)
+    xb = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (2, 24, cfg.d_model)).astype(np.float32)).to(cuda)
+    ops.reset_launches()
+    y = ssm.mamba_block(on, cfg, xb, pcilt=pcc)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dwconv1d"] == 1 and bool(torch.isfinite(y).all())
+    with pytest.raises(TypeError, match="float32"):
+        ssm.mamba_block(on, dataclasses.replace(cfg, dtype=torch.bfloat16),
+                        xb, pcilt=pcc)
+
+
+@pytest.mark.cuda
+def test_restart_contract_on_the_card(cuda, tmp_path, capsys):
+    """``launch.train`` on the card at the smoke config: a fault at step 15
+    restores step 10 and ends on the parameters and moments of an
+    uninterrupted run, bit for bit."""
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import train
+
+    args = ["--arch", "qwen2.5-3b", "--steps", "20", "--seq", "32",
+            "--batch", "4", "--ckpt-every", "10", "--log-every", "10"]
+    got = train.main(args + ["--ckpt-dir", str(tmp_path / "a"),
+                             "--fail-at", "15"])
+    out = capsys.readouterr().out
+    assert "restored checkpoint at step 10" in out and "restarts=1" in out
+    clean = train.main(args + ["--ckpt-dir", str(tmp_path / "b")])
+    for a, b in zip(tree_leaves({"p": got["params"], "o": got["opt"]}),
+                    tree_leaves({"p": clean["params"], "o": clean["opt"]})):
+        assert a.device.type == "cuda"
+        assert torch.equal(a, b)

@@ -68,8 +68,8 @@ def test_calibration_absmax_allclose(problem):
     want = p["jmodel"].calibrate_pcilt(p["jparams"],
                                        {"tokens": jnp.asarray(p["calib"])},
                                        Ctx())
-    got = p["tmodel"].calibrate_pcilt(p["tparams"],
-                                      torch.from_numpy(p["calib"]))
+    got = p["tmodel"].calibrate_pcilt(
+        p["tparams"], {"tokens": torch.from_numpy(p["calib"])})
     for k in ("in", "out", "conv_in", "head_in"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=2e-2, err_msg=k)

@@ -207,7 +207,7 @@ def test_demoted_step_equals_dense_oracle(chaos_pair, donor):
     state and tokens."""
     teng = chaos_pair["teng"]
     cfg = donor["tcfg"]
-    cache = materialize(teng.model.cache_specs(SLOTS), 5, "cpu")
+    cache = materialize(teng.model.cache_specs(SLOTS), 5, device="cpu")
     rng = np.random.default_rng(5)
     for t in cache["layers"].values():
         t.copy_(torch.from_numpy(

@@ -408,7 +408,7 @@ def test_prefill_matches_a_decode_replay(dt, donor):
         np.random.default_rng(11).integers(0, tcfg.vocab, (2, 20)))
     with torch.no_grad():
         want, pcache = make_prefill_step(tcfg)(tp, {"tokens": prompt})
-        cache = dict(materialize(model.cache_specs(2, 32), 0, "cpu"), pos=0)
+        cache = dict(materialize(model.cache_specs(2, 32), 0, device="cpu"), pos=0)
         step = make_decode_step(tcfg)
         for t in range(20):
             got, cache = step(tp, cache, prompt[:, t:t + 1])
