@@ -189,7 +189,32 @@ Phases (any failure exits non-zero, and no result line is printed):
     the card): the ``Engine`` serves 4 requests, a prefill against its
     decode replay (argmax equal or a near-tie), the chunked attention
     against the dense one;
-16. prints the kernels' JSON line, then as the last line
+16. the MoE family at granite-moe-3b-a800m's published width and depth
+    (32 layers, d 1536, 48 experts top-8; seeded weights drawn on the card
+    once, bfloat16 compute): the ``Engine`` serves 4 requests (its step,
+    device time and launches, peak memory); a 192-token prefill with the
+    entries each layer drops over its capacity; the full width cut to 2
+    layers on the card against the CPU (a prefill and 4 steps, 2e-2 of the
+    largest logit); ``launch.train.run`` from the same weights at the
+    deepest of ``GRANITE_TRAIN_DEPTHS`` that fits, every loss finite and
+    the aux losses printed; one smoke train step card against CPU;
+17. the hybrid family at zamba2-7b's published width and depth (81 Mamba2
+    blocks at d 3584, 14 shared-attention applications): ``prefill`` of
+    1 x 192 and 4 x 192 tokens against a decode replay (5e-2), 8
+    ``decode_step``s at B = 4 (times, device time, launches, peak), the
+    ``Engine``'s refusal, training cut to 12 layers, the smoke step card
+    against CPU;
+18. the design cache: ``PCILTMambaDecode.tune(batch=(1, 4))`` on the
+    full-width 4-bit and paired decodes and the kernels at PERF.md's
+    table shapes (every key's winner and each candidate's microseconds);
+    a second process (``chip_smoke.py --autotune-warm FILE``) on the same
+    file tunes with zero timing runs and serves the 4-bit engine's tokens
+    through the warm cache equal to the heuristic's.  Every phase before
+    it dispatches through an empty cache (``REPRO_PCILT_TUNE_CACHE`` under
+    ``build/``), so the heuristic's designs run there, as their design
+    counts require; phase 5 prints its median step so and the dispatch's
+    host cost (a memoised hit against ``gemv_variant``'s ``lru_cache``);
+19. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -341,6 +366,18 @@ PREFILL_PROMPT, REPLAY_PROMPT, LONG_PROMPT = 16, 192, 4096
 RESTART_LAYERS = 2
 DENSE_CUT_LAYERS = {"qwen1.5-4b": 4, "qwen2.5-3b": 4,
                     "deepseek-coder-33b": 2}
+#: phase 16: granite's depth on the card against the CPU, and the depths
+#: its training tries, deepest first (AdamW's unfused update holds ~8
+#: copies of the parameters and the temporaries of its largest leaf: 16
+#: layers ran out of an 80 GB card at step 1); phase 17: zamba2's training
+#: depth (2 segments, so both shared sets run) and the tolerance of its
+#: prefill against a decode replay (the SSD's bfloat16 operands over 81
+#: blocks: the smoke config in bfloat16 differs from the JAX package's by
+#: 3.9% of its largest logit on the CPU)
+GRANITE_CUT_LAYERS = 2
+GRANITE_TRAIN_DEPTHS = (14, 12)
+ZAMBA_TRAIN_LAYERS = 12
+ZAMBA_REPLAY_TOL = 5e-2
 #: the paper CNN's image (H, W) at full size (printed W x H, as the paper), and the small image of the
 #: checks and of the plain versions' timing
 FULL_HW = (768, 1024)
@@ -2106,6 +2143,9 @@ def serve(torch, ops, report):
         f"in {stats['wall_s']:.2f} s; median step {med * 1e3:.2f} ms "
         f"({B / med:.1f} tokens/s over {B} slots; {gen_tokens} generated "
         f"tokens at {gen_tokens / stats['wall_s']:.1f} tokens/s end to end)")
+    log(f"median step with an empty design cache {med * 1e3:.2f} ms (before "
+        f"the cache, 28.56-49.36 ms on this card); design dispatch: "
+        f"{memo_microbench(torch, ops)}")
     log(f"peak memory allocated {peak / 2**30:.2f} GiB (tables, the "
         f"checkpoint ring of {eng.ckpts.maxlen} cache copies and the step);"
         f" allocator in the run: {alloc}")
@@ -2168,6 +2208,45 @@ def serve(torch, ops, report):
         {"unpaired": {"gemv_stacked": 144, "dwconv1d": 24, "shared_gemv": 1}})
     monitor["sentinel_runs"] = sentinel_runs(cfg, eng, times)
     return launches
+
+
+def memo_microbench(torch, ops, n=10 ** 4):
+    """Host microseconds a call of the design dispatch takes for wz's
+    stacked GEMV at B = 4 (its key's tuple built, then the memo's answer,
+    as a launch does): with a memoised cache hit, with a memoised
+    heuristic (the empty cache), and ``gemv_variant``'s ``lru_cache`` hit
+    beside them; ``n`` calls each."""
+    from repro_torch.kernels import autotune as atn
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.empty((B, 768), device=dev)
+
+    def dispatch():
+        key = ops._gemv_key("fused_gemv_stacked", False, ops._STACKED_DIMS,
+                            x.shape[0], x.shape[0], 24, 384, 256, 1536, 2, 4)
+        return ops._choose(key, dev, torch.float32,
+                           lambda: ops.gemv_candidates(B, 384, 1536, 4),
+                           None, None)
+
+    res = {}
+    key = ops._gemv_key("fused_gemv_stacked", False, ops._STACKED_DIMS, B, B,
+                        24, 384, 256, 1536, 2, 4)
+    mkey = (key[0], dev, torch.float32, key[2])
+    for what, entry in (("hit", ("split", True)),
+                        ("heuristic", ("split", False))):
+        atn.MEMO[mkey] = entry
+        dispatch()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dispatch()
+        res[what] = (time.perf_counter() - t0) / n * 1e6
+    atn.MEMO.pop(mkey)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ops.gemv_variant(B, 384, 1536, 4)
+    res["gemv_variant"] = (time.perf_counter() - t0) / n * 1e6
+    return ", ".join(f"{k} {v:.3f} us" for k, v in res.items()) \
+        + f" a call ({n} calls)"
 
 
 def oracle_check(torch, ops, eng, report, key="oracle", cache=None,
@@ -3294,19 +3373,19 @@ def lead_timed(torch, fn, flush, reps=5):
 
 
 
-def _logits_agree(torch, what, got, want, near_tie=False):
-    """bfloat16 compute: within 2e-2 of the largest logit, argmax equal
+def _logits_agree(torch, what, got, want, near_tie=False, rel=2e-2):
+    """bfloat16 compute: within ``rel`` of the largest logit, argmax equal
     (with ``near_tie``, or differing only where ``want``'s choice is within
     that tolerance of ``got``'s largest logit: random weights over a
     vocabulary of 151936 give near-ties).  Returns the largest
     difference."""
     got, want = got.float(), want.float()
     err = float((got - want).abs().max())
-    tol = 2e-2 * float(want.abs().max())
+    tol = rel * float(want.abs().max())
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
     pick = got.gather(-1, want.argmax(-1, keepdim=True))[..., 0]
     tie = near_tie and bool((pick >= got.max(-1).values - tol).all())
-    log(f"  {what}: max |d| {err:.4e} (tol {tol:.4e} = 2e-2 max|logit|), "
+    log(f"  {what}: max |d| {err:.4e} (tol {tol:.4e} = {rel:g} max|logit|), "
         f"argmax equal {same}" + ("" if same or not near_tie
                                   else f", a near-tie {tie}"))
     require(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
@@ -3637,9 +3716,11 @@ def step_profile(torch, fn):
     return dev_s, dev_n, [(k[:60], c, t) for k, (c, t) in top]
 
 
-def train_run(torch, cfg, args, what):
-    """``launch.train.run`` with its output captured; returns the result,
-    the output and the peak memory."""
+def train_run(torch, cfg, args, what, box=None):
+    """``launch.train.run`` with its output captured (from the parameters
+    in ``box``, a one-element list emptied into the call, so that nothing
+    here holds them; else drawn by the run); returns the result, the output
+    and the peak memory."""
     import io
 
     from repro_torch.launch import train
@@ -3648,7 +3729,7 @@ def train_run(torch, cfg, args, what):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(buf):
-        res = train.run(cfg, args)
+        res = train.run(cfg, args, params=box.pop() if box else None)
     torch.cuda.synchronize()
     text = buf.getvalue()
     for line in text.splitlines():
@@ -3969,6 +4050,676 @@ def dense_configs(torch, ops, report):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 16: the MoE family (granite-moe-3b-a800m)
+# ----------------------------------------------------------------------------
+
+
+def _route_spy(tmoe, sink):
+    """Wrap ``nn.moe._route`` so that each call appends ``(t, experts)`` to
+    ``sink``; returns the original (restore it after)."""
+    orig = tmoe._route
+
+    def spy(params, cfg, x, cd):
+        probs, experts, aux = orig(params, cfg, x, cd)
+        sink.append((x.shape[0], experts))
+        return probs, experts, aux
+
+    tmoe._route = spy
+    return orig
+
+
+def _layers_cut(torch, params, n):
+    """The first ``n`` layers of a stacked parameter tree, as clones (the
+    full stacks can then be freed); the other leaves as they are."""
+    out = dict(params)
+    out["blocks"] = {}
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n].clone()
+
+    out["blocks"] = cut(params["blocks"])
+    return out
+
+
+def _card_vs_cpu_train_step(torch, arch, out):
+    """One smoke-config train step on the card and on the CPU (the port on
+    both): the loss and the gradients' global norm within 2e-2."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import materialize
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    probe = AdamWConfig(lr=0.0, weight_decay=0.0, b1=0.0, clip_norm=0.0)
+    scfg = get_smoke_config(arch)
+    sb = SyntheticLM(vocab=scfg.vocab, seq_len=64, global_batch=4,
+                     seed=5).batch(0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = materialize(build_model(scfg).param_specs(), 0, device=dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in sb.items()}
+        _, _, m = make_train_step(scfg, probe)(p, adamw_init(p, probe), b)
+        runs[dev] = {k: float(v) for k, v in m.items()}
+    g, c = runs["cuda"], runs["cpu"]
+    log(f"{arch} smoke train step, card against CPU: loss {g['loss']:.5f} / "
+        f"{c['loss']:.5f}, grad norm {g['grad_norm']:.5f} / "
+        f"{c['grad_norm']:.5f}"
+        + (f", load_balance {g['load_balance']:.5f} / "
+           f"{c['load_balance']:.5f}, router_z {g['router_z']:.5f} / "
+           f"{c['router_z']:.5f}" if "load_balance" in g else ""))
+    require(abs(g["loss"] - c["loss"]) <= 2e-2 * abs(c["loss"]) and
+            abs(g["grad_norm"] - c["grad_norm"]) <= 2e-2 * abs(c["grad_norm"]),
+            f"{arch}: the card's smoke train step disagrees with the CPU's")
+    out["card_vs_cpu"] = {"card": g, "cpu": c}
+
+
+def _train_cut(torch, cfg, holder, depths, what, out, steps=4):
+    """``launch.train.run`` at the deepest of ``depths`` that fits the card,
+    from the drawn parameters in ``holder["params"]`` (cut to that depth;
+    redrawn on the card if a deeper try ran out of memory and consumed
+    them).  Requires every loss finite; records the step, tokens/s, peak
+    memory and one step's device time."""
+    from repro_torch.models import build_model
+
+    for depth in depths:
+        ccfg = dataclasses.replace(cfg, n_layers=depth)
+        params = holder.pop("params", None)
+        if params is None:
+            params = device_params(torch, build_model(ccfg).param_specs(),
+                                   400 + depth)
+        elif depth < cfg.n_layers:
+            params = _layers_cut(torch, params, depth)
+            gc.collect()
+            torch.cuda.empty_cache()
+        args = train_args(arch=cfg.name, steps=steps, seq=128, batch=8,
+                          ckpt_dir=os.path.join(ROOT, "build",
+                                                f"smoke_ckpt_{cfg.name}"))
+        log(f"{what}: {depth} layers from "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        box = [params]  # the run frees the drawn weights after its step 0
+        del params
+        try:
+            res, text, peak = train_run(torch, ccfg, args, what, box=box)
+        except (torch.cuda.OutOfMemoryError, RuntimeError) as err:
+            oom = "out of memory" in repr(err) or "out of memory" in repr(
+                err.__cause__)
+            box.clear()
+            del err
+            gc.collect()
+            torch.cuda.empty_cache()
+            if not oom:
+                raise
+            log(f"{what}: {depth} layers do not fit the card; cutting")
+            continue
+        losses = res["losses"]
+        med = statistics.median(res["step_seconds"][1:])
+        toks = args.seq * args.batch
+        log(f"{what}: {depth} of {cfg.n_layers} layers; losses "
+            f"{[round(l, 4) for l in losses]}; median step {med * 1e3:.1f} "
+            f"ms ({toks / med:.0f} tokens/s); peak {peak / 2**30:.2f} GiB")
+        require(len(losses) == steps and all(math.isfinite(l)
+                                             for l in losses),
+                f"{what}: non-finite or missing losses {losses}")
+        aux = [l for l in text.splitlines() if "load_balance" in l]
+        out["train"] = {"layers": depth, "full_layers": cfg.n_layers,
+                        "losses": losses, "median_step_s": med,
+                        "step_seconds": res["step_seconds"],
+                        "tokens_per_s": toks / med, "peak_bytes": peak,
+                        "setup_s": res["setup_s"], "aux_lines": aux}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        return
+    raise SmokeFailure(f"{what}: no depth of {depths} fits the card")
+
+
+def _serve_engine(torch, cfg, params, what, out):
+    """``Engine(cfg, 256, 4)`` on ``params`` serves 4 requests of 8 new
+    tokens; records set-up, median step, tokens/s, peak memory and one B =
+    4 step's host and device time and launches."""
+    from repro_torch.launch.serve import Engine, make_requests
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, 256, B, params=params, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reqs = make_requests(cfg, 4, 8, seed=0)
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    med = statistics.median(eng.step_seconds)
+    steps = stats["decode_ticks"] + stats["prefill_ticks"]
+    peak = torch.cuda.max_memory_allocated()
+    toks = torch.from_numpy(eng.tokens).cuda()
+
+    def step():
+        with torch.no_grad():
+            eng.decode(eng.params, eng.cache, toks)
+
+    step()
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    host_s = statistics.median(secs)
+    dev_s, dev_n, top = step_profile(torch, step)
+    log(f"{what}: engine set-up {setup_s:.2f} s; served {stats['served']}/4 "
+        f"in {steps} steps, median step {med * 1e3:.2f} ms ({B / med:.1f} "
+        f"tokens/s over {B} slots); one B = {B} step host "
+        f"{host_s * 1e3:.2f} ms, device {dev_s * 1e3:.3f} ms in {dev_n} "
+        f"launches ({100 * dev_s / host_s:.1f}% busy); peak "
+        f"{peak / 2**30:.2f} GiB; top "
+        + "; ".join(f"{k[:40]} x{c} {t / 1e3:.3f} ms" for k, c, t in top))
+    for r in reqs:
+        log(f"  req {r.rid}: prompt {len(r.prompt)} -> {r.out}")
+    require(stats["served"] == 4 and stats["restarts"] == 0,
+            f"{what}: served {stats['served']} of 4 with {stats['restarts']} "
+            f"restarts")
+    require(all(len(r.out) == 8 and all(0 <= t < cfg.vocab for t in r.out)
+                for r in reqs), f"{what}: generated tokens out of range")
+    out["engine"] = {"setup_s": setup_s, "median_step_s": med,
+                     "step_seconds": eng.step_seconds, "steps": steps,
+                     "tokens_per_s": B / med, "peak_bytes": peak,
+                     "step_host_s": host_s, "step_device_s": dev_s,
+                     "step_device_launches": dev_n, "top": top,
+                     "outputs": [r.out for r in reqs]}
+    del eng
+
+
+def moe_family(torch, ops, report):
+    """granite-moe-3b-a800m at its published width and depth (32 layers, d
+    1536, 24 heads padded to 32 over 8 KV heads, 40 experts padded to 48,
+    top-8, vocab 49155; seeded float32 weights drawn on the card once,
+    bfloat16 compute and KV cache):
+
+    * ``Engine(cfg, 256, 4)`` serves 4 requests of 8 new tokens (every one
+      served, no restart, finite); its step's time, device time and
+      launches, peak memory;
+    * a 192-token prefill at B = 1, its routing entries dropped over each
+      layer's capacity printed (a prefill is not held to its decode replay:
+      the capacity drop makes them differ by design), the logits finite;
+    * the full width cut to 2 layers on the card against the same weights
+      on the CPU: the 192-token prefill and 4 greedy decode steps, the
+      logits within 2e-2 of the largest (bfloat16);
+    * ``launch.train.run`` from the same weights at the deepest of
+      ``GRANITE_TRAIN_DEPTHS`` that fits (the unfused AdamW holds the
+      parameters, gradients, both moments and the new copies of each:
+      ~7 x 16.1 GB at full depth), every loss finite, the aux losses
+      printed;
+    * one smoke train step on the card against the CPU (2e-2).
+
+    Returns the path's launches (none: the reference runs the MoE outside
+    any Pallas kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.launch.steps import (active_matmul_params,
+                                          make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import build_model
+    from repro_torch.nn import moe as tmoe
+
+    cfg = get_config("granite-moe-3b-a800m")
+    out = {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params = device_params(torch, build_model(cfg).param_specs(), 300)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"granite-moe-3b-a800m: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.padded_heads} (of {cfg.n_heads}) / {cfg.n_kv_heads} heads, "
+        f"{cfg.moe.padded_experts} (of {cfg.moe.n_experts}) experts top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab}; {n / 1e9:.3f} B float32 "
+        f"parameters ({4 * n / 1e9:.1f} GB, drawn on the card in "
+        f"{draw_s:.1f} s), {active_matmul_params(cfg) / 1e6:.1f} M active")
+    out["params"], out["draw_s"] = n, draw_s
+    _serve_engine(torch, cfg, params, "granite engine", out)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(23)
+    prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT), generator=gen)
+    sink = []
+    orig = _route_spy(tmoe, sink)
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre, _ = make_prefill_step(cfg)(params, {"tokens": prompt.cuda()})
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+    finally:
+        tmoe._route = orig
+    dropped = [tmoe.dropped_entries(cfg, e, t) for t, e in sink]
+    cap = tmoe.moe_capacity(cfg, REPLAY_PROMPT)
+    log(f"granite prefill of {REPLAY_PROMPT} tokens: {pre_s * 1e3:.1f} ms; "
+        f"capacity {cap} entries an expert; entries dropped by layer "
+        f"{dropped} (of {REPLAY_PROMPT * cfg.moe.top_k} a layer)")
+    require(bool(torch.isfinite(pre.float()).all()),
+            "granite prefill: non-finite logits")
+    out["prefill"] = {"tokens": REPLAY_PROMPT, "seconds": pre_s,
+                      "capacity": cap, "dropped_by_layer": dropped}
+
+    # the full width, 2 layers, on the card against the CPU
+    cut = dataclasses.replace(cfg, n_layers=GRANITE_CUT_LAYERS)
+    cp = _layers_cut(torch, params, GRANITE_CUT_LAYERS)
+    cpu_p = tree_map(lambda a: a.cpu(), cp)
+    errs = []
+    runs = {}
+    for dev, p in (("cuda", cp), ("cpu", cpu_p)):
+        sink = []
+        orig = _route_spy(tmoe, sink)
+        try:
+            with torch.no_grad():
+                logits, cache = make_prefill_step(cut)(
+                    p, {"tokens": prompt.to(dev)})
+                seq = [logits.float().cpu()]
+                step = make_decode_step(cut)
+                for i in range(4):
+                    tok = runs["cuda"]["tokens"][i] if dev == "cpu" else \
+                        seq[-1].argmax(-1)[:, None]
+                    logits, cache = step(p, cache, tok.to(dev))
+                    seq.append(logits.float().cpu())
+        finally:
+            tmoe._route = orig
+        runs[dev] = {"logits": seq,
+                     "tokens": [s.argmax(-1)[:, None] for s in seq],
+                     "experts": [e.cpu() for _, e in sink]}
+    for i, (g, c) in enumerate(zip(runs["cuda"]["logits"],
+                                   runs["cpu"]["logits"])):
+        g, c = g[:, :cfg.vocab], c[:, :cfg.vocab]  # not the -1e30 padding
+        err = float((g - c).abs().max())
+        tol = 2e-2 * float(c.abs().max())
+        errs.append((err, tol))
+        require(bool(torch.isfinite(g).all()) and err <= tol,
+                f"granite 2-layer {'prefill' if i == 0 else f'step {i}'}: "
+                f"card against CPU max |d| {err:.3e} > {tol:.3e}")
+    routed = sum(int((a != b).any(-1).sum()) for a, b in
+                 zip(runs["cuda"]["experts"], runs["cpu"]["experts"]))
+    log(f"granite at full width, {GRANITE_CUT_LAYERS} layers, card against "
+        f"CPU: prefill and 4 steps max |d| / tol "
+        + ", ".join(f"{e:.3e}/{t:.3e}" for e, t in errs)
+        + f"; tokens whose routing differs: {routed}")
+    out["card_vs_cpu_cut"] = {"layers": GRANITE_CUT_LAYERS, "errs": errs,
+                              "routing_differs": routed}
+    del cp, cpu_p, runs, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    holder = {"params": params}
+    del params
+    _train_cut(torch, cfg, holder, GRANITE_TRAIN_DEPTHS, "granite train",
+               out)
+    _card_vs_cpu_train_step(torch, "granite-moe-3b-a800m", out)
+    report["moe"] = out
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(launches == {}, f"the MoE path launched PCILT kernels {launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 17: the hybrid family (zamba2-7b)
+# ----------------------------------------------------------------------------
+
+
+def hybrid_family(torch, ops, report):
+    """zamba2-7b at its published width and depth (81 Mamba2 blocks at d
+    3584, 14 shared-attention applications over 2 parameter sets on 7168
+    wide, vocab 32000; seeded float32 weights drawn on the card once,
+    bfloat16 compute): ``prefill`` of 192 tokens at B = 1 and of 4 x 192,
+    each against a decode replay of the same prompts from an empty cache
+    (the last logits within ``ZAMBA_REPLAY_TOL`` of the largest, argmax
+    equal or a near-tie); 8 ``make_decode_step``
+    steps at B = 4 (each step's time, one step's device time and launches,
+    peak memory); the ``Engine``'s refusal; training cut to
+    ``ZAMBA_TRAIN_LAYERS`` (2 segments, both shared sets) from the same
+    weights; one smoke train step on the card against the CPU.  Returns
+    the path's launches (none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.serve import Engine
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import materialize
+
+    cfg = get_config("zamba2-7b")
+    model = build_model(cfg)
+    out = {}
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = device_params(torch, model.param_specs(), 500)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"zamba2-7b: {cfg.n_layers} Mamba2 blocks, d {cfg.d_model}, "
+        f"{model.n_attn_applications()} shared-attention applications of "
+        f"{cfg.n_shared_attn_blocks} sets ({cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim} on {2 * cfg.d_model}), vocab {cfg.vocab}; "
+        f"{n / 1e9:.3f} B float32 parameters ({4 * n / 1e9:.1f} GB, drawn "
+        f"on the card in {draw_s:.1f} s)")
+    out["params"], out["draw_s"] = n, draw_s
+    try:
+        Engine(cfg, 256, B, params=params, device="cuda")
+        raise SmokeFailure("the Engine accepted the hybrid family")
+    except NotImplementedError as err:
+        log(f"  Engine refuses the hybrid family: {str(err)[:80]}...")
+
+    gen = torch.Generator().manual_seed(29)
+    prefill = make_prefill_step(cfg)
+    step = make_decode_step(cfg)
+    out["replay"] = {}
+    for b in (1, B):
+        prompt = torch.randint(0, cfg.vocab, (b, REPLAY_PROMPT),
+                               generator=gen).cuda()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre, _ = prefill(params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            cache = materialize(model.cache_specs(b, 256), 0, device="cuda")
+            cache["pos"] = 0
+            t0 = time.perf_counter()
+            for t in range(REPLAY_PROMPT):
+                logits, cache = step(params, cache, prompt[:, t:t + 1])
+            torch.cuda.synchronize()
+            rep_s = time.perf_counter() - t0
+        err = _logits_agree(torch, f"zamba2 prefill of {b} x "
+                            f"{REPLAY_PROMPT} against its decode replay",
+                            pre[:, :cfg.vocab], logits[:, :cfg.vocab],
+                            near_tie=True, rel=ZAMBA_REPLAY_TOL)
+        out["replay"][b] = {"prefill_s": pre_s, "replay_s": rep_s,
+                            "max_abs_err": err}
+        log(f"  prefill {pre_s * 1e3:.1f} ms; replay {REPLAY_PROMPT} steps "
+            f"{rep_s:.1f} s")
+        del cache, pre, logits
+    # 8 decode steps at B = 4 from a 192-token prefill's cache
+    with torch.no_grad():
+        prompt = torch.randint(0, cfg.vocab, (B, REPLAY_PROMPT),
+                               generator=gen).cuda()
+        logits, cache = prefill(params, {"tokens": prompt})
+        torch.cuda.reset_peak_memory_stats()
+        secs, toks = [], []
+        for _ in range(8):
+            tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = step(params, cache, tok)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            toks.append(tok[:, 0].tolist())
+        tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+        dev_s, dev_n, top = step_profile(
+            torch, lambda: step(params, cache, tok))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(secs)
+    log(f"zamba2 decode at B = {B}: steps "
+        + ", ".join(f"{s * 1e3:.1f}" for s in secs)
+        + f" ms (median {med * 1e3:.1f}, {B / med:.1f} tokens/s); one step "
+        f"{dev_s * 1e3:.3f} ms of device time in {dev_n} launches "
+        f"({100 * dev_s / med:.1f}% busy); peak {peak / 2**30:.2f} GiB; top "
+        + "; ".join(f"{k[:40]} x{c} {t / 1e3:.3f} ms" for k, c, t in top))
+    require(bool(torch.isfinite(logits.float()).all()),
+            "zamba2 decode: non-finite logits")
+    out["decode"] = {"step_seconds": secs, "median_step_s": med,
+                     "step_device_s": dev_s, "step_device_launches": dev_n,
+                     "peak_bytes": peak, "tokens": toks, "top": top}
+    del cache, logits, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    holder = {"params": params}
+    del params
+    _train_cut(torch, cfg, holder, (ZAMBA_TRAIN_LAYERS,), "zamba2 train",
+               out)
+    _card_vs_cpu_train_step(torch, "zamba2-7b", out)
+    report["hybrid"] = out
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(launches == {}, f"the hybrid path launched PCILT kernels "
+                            f"{launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 18: the design cache
+# ----------------------------------------------------------------------------
+
+
+def _mamba_bundle(torch, paired):
+    """The full-width mamba2-130m PCILT decode (4-bit, or paired 2-bit),
+    seeded as phases 5 and 7 build it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PCILTConfig
+    from repro_torch.core.serving import convert_mamba_decode
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import materialize
+
+    import numpy as np
+
+    bits = 2 if paired else 4
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              pcilt=PCILTConfig(act_bits=bits, group=2),
+                              dtype=torch.float32)
+    model = build_model(cfg)
+    params = materialize(model.param_specs(), 0, device="cuda")
+    rng = np.random.default_rng(2)
+    calib = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
+    dec = convert_mamba_decode(model, params, calib, paired=paired,
+                               head="shared", device="cuda")
+    return cfg, params, dec
+
+
+def _tune_table(atn):
+    """``[(key, winner, us, {design: us}, candidates)]`` of the cache."""
+    rows = []
+    for key, e in sorted(atn.get_cache().entries().items()):
+        rows.append((key, e["design"], e["us"], atn.TIMINGS.get(key, {}),
+                     e["candidates"]))
+    return rows
+
+
+def _log_tunes(rows, what):
+    for key, design, us, times, n in rows:
+        kind = key.split("|")[0]
+        dims = key.split("|")[1]
+        alt = ", ".join(f"{d} {t:.2f}" for d, t in times.items())
+        log(f"  [{what}] {kind} {dims}: {design}"
+            + (f" {us:.2f} us" if us is not None else " (untimed)")
+            + (f" ({alt})" if len(times) > 1 else "") + f", {n} candidates")
+
+
+def _section6_shapes(torch, ops):
+    """Calls with ``autotune=True`` at the kernels' shapes of PERF.md's
+    kernel table (random operands of those shapes): the head at B = 4 and
+    1 (kernel 3), qwen3-0.6b's gate (9), the paired wz width (10), the
+    ``perm`` plan (11), conv4 at 1024x768 fused, shared and host-packed (4,
+    5, 7), kernel 6 at M = 4 and the [4, 2048, 1792] host dwconv (12)."""
+    from repro_torch.core.quantization import QuantSpec
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def ri(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    s4, s2, s8 = QuantSpec(4, True), QuantSpec(2, True), QuantSpec(8, False)
+    pool = rn(384, 256, 50288)
+    idx = ri(384, 384)
+    for b in (B, 1):
+        ops.pcilt_shared_gemv(rn(b, 768), pool, idx, s4, 0.1, 2,
+                              autotune=True)
+    del pool
+    tabs = rn(512, 256, 3072)
+    ops.pcilt_fused_gemv(rn(B, 1024), tabs, s4, 0.1, 2, autotune=True)
+    plan = torch.randperm(1024, generator=torch.Generator().manual_seed(3)) \
+        .to(torch.int32).reshape(512, 2).cuda()
+    ops.pcilt_fused_gemv_plan(rn(B, 1024), tabs, plan, s4, 0.1, 2,
+                              autotune=True)
+    off = ri(256, B, 512)
+    ops.pcilt_gemv(off, tabs, autotune=True)
+    del tabs
+    ops.pcilt_fused_gemv_paired(rn(B, 768), rn(192, 256, 1536), s2, 0.1, 2,
+                                autotune=True)
+    ops._dwconv1d_host(ri(256, B, 2048, 1792), rn(1792, 256), autotune=True)
+    H, W = FULL_HW
+    img = torch.rand((1, H, W, 200), generator=g, device="cuda")
+    ctab = rn(5000, 256, 350)
+    ops.pcilt_fused_conv2d(img, ctab, s8, 0.01, 1, 5, 5, autotune=True)
+    ops.pcilt_shared_conv2d(img, ctab, torch.arange(
+        5000, dtype=torch.int32, device="cuda"), s8, 0.01, 1, 5, 5,
+        autotune=True)
+    del img
+    ops.pcilt_conv2d(ri(256, 1, H, W, 5000), ctab, autotune=True)
+    del ctab
+
+
+def autotune_phase(torch, ops, report):
+    """The design cache on the main paths: ``PCILTMambaDecode.tune(batch=(1,
+    4))`` on the full-width mamba2-130m 4-bit and paired decodes (kernels
+    1, 2, 8; every key's winner, its µs and each candidate's printed, and
+    the file's size), then the kernels at ``PERF.md``'s table shapes
+    (a second file); then a second process on the first file: ``tune``
+    again with ``TIMING_RUNS == 0``, and the engine's tokens through the
+    warm cache equal to the heuristic's.  The tuning's launches are timing
+    runs, kept in the report apart from the main paths' counts; returns
+    none."""
+    import shutil
+
+    from repro_torch.kernels import autotune as atn
+
+    out = {}
+    root = os.path.join(ROOT, "build", "smoke_tune")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, "tiles.json")
+    atn.reset_cache(path)
+    atn.TIMING_RUNS = 0
+    ops.reset_launches()
+    for paired in (False, True):
+        what = "paired" if paired else "4-bit"
+        cfg, params, dec = _mamba_bundle(torch, paired)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            dec.tune(batch=(1, B))
+        torch.cuda.synchronize()
+        out[f"{what}_tune_s"] = time.perf_counter() - t0
+        log(f"PCILTMambaDecode.tune(batch=(1, {B})) on the {what} decode: "
+            f"{out[f'{what}_tune_s']:.1f} s, {atn.TIMING_RUNS} timed runs")
+        del cfg, params, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = _tune_table(atn)
+    _log_tunes(rows, "decode")
+    size = os.path.getsize(path)
+    log(f"the cache file: {len(rows)} keys, {size} bytes")
+    require(rows and all(r[1] for r in rows), "tune recorded no designs")
+    out["decode"] = rows
+    out["file_bytes"] = size
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    out["timing_runs"] = atn.TIMING_RUNS
+
+    path6 = os.path.join(root, "table_shapes.json")
+    atn.reset_cache(path6)
+    with torch.no_grad():
+        _section6_shapes(torch, ops)
+    torch.cuda.synchronize()
+    rows6 = _tune_table(atn)
+    _log_tunes(rows6, "table shapes")
+    out["table_shapes"] = rows6
+    differ = [(k, d, t) for k, d, _, t, n in rows + rows6 if n > 1
+              and d != next(iter(t), d)]
+    log(f"winners that differ from the heuristic (its time first): "
+        + ("; ".join(f"{k.split('|')[0]} {k.split('|')[1]}: {d} ("
+                     + ", ".join(f"{x} {y:.2f}" for x, y in t.items())
+                     + " us)" for k, d, t in differ) or "none"))
+    out["differ"] = differ
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a second, fresh process on the decode file
+    atn.reset_cache(os.path.join(root, "unused.json"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--autotune-warm", path], capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"  [warm] {line}")
+    require(proc.returncode == 0, f"the warm-cache process failed "
+            f"({proc.returncode}): {proc.stderr[-2000:]}")
+    warm = json.loads(proc.stdout.splitlines()[-1])
+    log(f"warm process ({time.perf_counter() - t0:.1f} s): tune timed "
+        f"{warm['timing_runs']} runs; engine tokens warm == heuristic "
+        f"{warm['tokens_equal']}; designs warm {warm['designs_warm']}, "
+        f"heuristic {warm['designs_heuristic']}")
+    require(warm["timing_runs"] == 0, "the warm cache timed candidates")
+    require(warm["tokens_equal"], "the warm cache's tokens differ from the "
+                                  "heuristic's")
+    out["warm"] = warm
+    out["launches"] = launches
+    report["autotune"] = out
+    return {}
+
+
+def autotune_warm(path):
+    """The second process of phase 18: ``tune`` the 4-bit and paired decodes
+    on the warm file (counting timed runs), then serve the 4-bit engine's
+    requests through the warm cache and through an empty one; prints one
+    JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import autotune as atn
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Engine, make_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    atn.reset_cache(path)
+    atn.TIMING_RUNS = 0
+    res = {}
+    for paired in (True, False):
+        cfg, params, dec = _mamba_bundle(torch, paired)
+        with torch.no_grad():
+            dec.tune(batch=(1, B))
+        if paired:
+            del cfg, params, dec
+            gc.collect()
+            torch.cuda.empty_cache()
+    res["timing_runs"] = atn.TIMING_RUNS
+    outs = {}
+    for mode, p in (("warm", path), ("heuristic",
+                                     os.path.join(os.path.dirname(path),
+                                                  "empty.json"))):
+        atn.reset_cache(p)
+        eng = Engine(cfg, slots=B, pcilt=True, params=params,
+                     pcilt_bundle=dec.pcilt, device="cuda")
+        reqs = make_requests(cfg, 4, 8, seed=0)
+        ops.reset_launches()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        outs[mode] = [r.out for r in reqs]
+        res[f"designs_{mode}"] = {
+            "gemv": dict(ops.GEMV_VARIANT_LAUNCHES),
+            "dwconv": dict(ops.DWCONV_VARIANT_LAUNCHES),
+            "head": dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)}
+        print(f"{mode}: {outs[mode]}")
+        del eng
+    res["tokens_equal"] = outs["warm"] == outs["heuristic"]
+    res["tokens"] = outs
+    print(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3976,8 +4727,19 @@ def main() -> int:
         log("chip_smoke: no CUDA device")
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # every phase before 18 dispatches through an empty design cache: the
+    # heuristic's designs, which the phases' design counts require
+    tune_root = os.path.join(ROOT, "build", "smoke_tune_main")
+    os.makedirs(tune_root, exist_ok=True)
+    for name in os.listdir(tune_root):
+        os.remove(os.path.join(tune_root, name))
+    os.environ["REPRO_PCILT_TUNE_CACHE"] = os.path.join(tune_root,
+                                                        "tiles.json")
     from repro_torch import core
+    from repro_torch.kernels import autotune as atn
     from repro_torch.kernels import build, ops
+
+    atn.reset_cache()
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 oracles stay f32
     torch.backends.cudnn.allow_tf32 = False
@@ -4055,7 +4817,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for phase in (serve, paper_cnn, serve_paired, paired_parity,
                   single_layers, plans_and_extensions, learnable,
-                  resilience, dense_serving, training, dense_configs):
+                  resilience, dense_serving, training, dense_configs,
+                  moe_family, hybrid_family, autotune_phase):
         count(phase)
     step = report["serve"]["step_compare"]
     rows["window counters"].update(
@@ -4120,6 +4883,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--autotune-warm"]:
+            sys.exit(autotune_warm(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr, flush=True)

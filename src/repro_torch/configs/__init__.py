@@ -1,16 +1,19 @@
-"""Architecture registry: ``--arch <id>`` resolution (the dense family and
-mamba2-130m so far)."""
+"""Architecture registry: ``--arch <id>`` resolution (the dense, MoE, SSM
+and hybrid families so far)."""
 
 import importlib
 
-from .base import ModelConfig, SSMConfig, PCILTConfig
+from .base import ModelConfig, MoEConfig, SSMConfig, PCILTConfig
 
 _MODULES = {
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "qwen1.5-4b": "qwen15_4b",
     "qwen2.5-3b": "qwen25_3b",
     "qwen3-0.6b": "qwen3_06b",
     "mamba2-130m": "mamba2_130m",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCHS = tuple(_MODULES)

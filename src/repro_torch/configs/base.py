@@ -1,10 +1,10 @@
-"""Config dataclasses (port of the dense and Mamba parts of
+"""Config dataclasses (port of the dense, MoE, Mamba and hybrid parts of
 ``repro.configs.base``).
 
 The fields mirror the reference's, in its order as far as ``pos_embed``
 (a positional config binds the same fields in both packages); the rest are
-keyword-only.  Dtypes are torch dtypes.  The MoE, encoder-decoder and
-image-token fields wait for their families.
+keyword-only, in the reference's order.  Dtypes are torch dtypes.  The
+encoder-decoder and image-token fields wait for their families.
 """
 
 from __future__ import annotations
@@ -14,7 +14,22 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["ModelConfig", "SSMConfig", "PCILTConfig"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "PCILTConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    interleave: int = 1          # MoE every `interleave` layers (2 = alternate)
+    shared_expert: bool = False  # always-on shared expert (llama4)
+    capacity_factor: float = 1.25
+    pad_experts_to: int = 0      # 0 = no padding
+
+    @property
+    def padded_experts(self) -> int:
+        return max(self.n_experts, self.pad_experts_to)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +56,7 @@ class PCILTConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | ssm (the families ported so far)
+    family: str                  # dense | moe | ssm | hybrid (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,10 +70,12 @@ class ModelConfig:
     window: int = 0              # sliding-window size (0 = full attention)
     rope_theta: float = 10000.0
     pos_embed: str = "rope"      # rope | none (sinusoidal waits for whisper)
-    # the reference's ``moe`` (and the other families' fields) come next
-    # there, so every field from here on is keyword-only
+    # every field from here on is keyword-only (in the reference's order)
     _: dataclasses.KW_ONLY
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    shared_attn_period: int = 0  # zamba2: shared attention every N blocks
+    n_shared_attn_blocks: int = 2
     # head-count padding, part of the config so parameter shapes do not
     # depend on a mesh
     pad_heads_to: int = 0

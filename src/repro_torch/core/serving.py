@@ -9,8 +9,10 @@ frontend; each call runs one fetch path.
 :class:`PCILTConv2d` / :func:`convert_conv_kernel` hoist a convolution's
 table build out of serving: the filter is flattened and aligned to the
 segment grid and its dense tables (or, with ``shared=True``, its
-extension-3 pool) are built once; a call runs one fetch path.  Unsharded,
-without the reference's ``tune`` (no autotune cache in the port yet).
+extension-3 pool) are built once; a call runs one fetch path.  Unsharded.
+Each converted layer, and :class:`PCILTMambaDecode`, has the reference's
+``tune``: it records the winning kernel design of its shapes in the design
+cache (``kernels.autotune``).
 
 :func:`convert_mamba_decode` is the once-per-lifetime build: calibrate on a
 prefill pass, build the conv, projection and head tables, record their
@@ -169,6 +171,58 @@ class PCILTMambaDecode:
         if proj is not None:
             total += sum(_nbytes(t) for t in proj["tables"].values())
         return total
+
+    def tune(self, batch=1) -> None:
+        """Tune, and record in the design cache, the design of each kernel
+        a decode step launches at this batch: the conv frontend's fused
+        dwconv on the assembled ``[B, k, C]`` window (``VALID``), and each
+        projection's stacked GEMV at layer 0 (the key does not depend on
+        the layer), on the segment-major paired stack for a paired bundle.
+        ``batch`` is an int or a tuple of them (the stacked keys carry the
+        batch).  Each kernel is tuned with and without its saturation
+        counters: the two run under different key families.  On the CPU
+        this consults the cache and times nothing."""
+        from repro_torch.kernels import ops
+
+        batches = (batch,) if isinstance(batch, int) else tuple(batch)
+        conv_t = self.pcilt["tables"]  # [L, C, V]
+        k = self.model.cfg.ssm.conv_kernel
+        dev = conv_t.device
+        for b in batches:
+            win = torch.zeros((b, k, conv_t.shape[1]), dtype=torch.float32,
+                              device=dev)
+            for stats in (False, True):
+                ops.pcilt_fused_dwconv1d(win, conv_t[0], self.pcilt["spec"],
+                                         _f32(self.pcilt["scale"]), k,
+                                         padding="VALID", autotune=True,
+                                         with_stats=stats)
+        proj = self.pcilt.get("proj")
+        if proj is None or proj.get("path") != "fused":
+            return
+        group = proj["group"]
+        paired = bool(proj.get("paired"))
+        for name, t in proj["tables"].items():
+            G = t.shape[0] if paired else t.shape[1]
+            scale = _f32(proj["scales"][name][0])
+            for b in batches:
+                for stats in (False, True):
+                    if paired:
+                        x = torch.zeros((b, G * 2 * group),
+                                        dtype=torch.float32, device=dev)
+                        ops.pcilt_fused_gemv_paired_stacked(
+                            x, t, 0, proj["spec"], scale, group,
+                            autotune=True, with_stats=stats)
+                    else:
+                        x = torch.zeros((b, G * group), dtype=torch.float32,
+                                        device=dev)
+                        ops.pcilt_fused_gemv_stacked(
+                            x, t, 0, proj["spec"], scale, group,
+                            autotune=True, with_stats=stats)
+
+
+def _f32(v) -> float:
+    """A scale (a host scalar or a 0-d/one-element tensor) as a float."""
+    return float(v.reshape(()).item()) if torch.is_tensor(v) else float(v)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -628,8 +682,7 @@ class PCILTLinear(_TabledLayer):
     """A converted projection: dense grouped tables ``[G, V, O]`` and/or an
     extension-3 shared pool, plus the activation quantizer.  A call runs
     :func:`~repro_torch.core.lut_layers.pcilt_linear` on one path
-    (``"fused"`` is one kernel launch).  Unsharded, without the reference's
-    ``tune``."""
+    (``"fused"`` is one kernel launch).  Unsharded."""
 
     def __init__(self, tables: Optional[torch.Tensor], spec: QuantSpec,
                  scale, group: int,
@@ -666,6 +719,25 @@ class PCILTLinear(_TabledLayer):
     def __call__(self, x: torch.Tensor, path: str = "gather") -> torch.Tensor:
         return pcilt_linear(self._pad_x(x), self._tables_for(path), self.spec,
                             self.scale, self.group, path=path)
+
+    def tune(self, x: torch.Tensor) -> torch.Tensor:
+        """Tune the fused kernel's design at this shape (the shared-pool
+        kernel's for a shared-only layer) and record the winner in the
+        design cache; returns the output."""
+        from repro_torch.kernels import ops
+
+        x = self._pad_x(x)
+        flat = x.reshape(-1, x.shape[-1])
+        if self.tables is None:
+            out = ops.pcilt_shared_gemv(flat, self.shared.pool,
+                                        self.shared.seg_idx, self.spec,
+                                        _f32(self.scale), self.group,
+                                        autotune=True)
+        else:
+            out = ops.pcilt_fused_gemv(flat, self.tables, self.spec,
+                                       _f32(self.scale), self.group,
+                                       autotune=True)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 def _quantize_weights(k: torch.Tensor, weight_bits: Optional[int]):
@@ -707,8 +779,7 @@ class PCILTDwConv1d:
     tables are built once and every call makes one fetch per output
     (``"fused"``: quantize, tap-stack, pack and fetch in one kernel;
     ``"kernel"``: host-packed offsets through the host-packed kernel;
-    ``"gather"``/``"onehot"``: the reference fetches).  Without the
-    reference's ``tune``."""
+    ``"gather"``/``"onehot"``: the reference fetches)."""
 
     def __init__(self, filters: torch.Tensor, spec: QuantSpec, scale,
                  tables: Optional[torch.Tensor] = None):
@@ -729,6 +800,15 @@ class PCILTDwConv1d:
         return pcilt_depthwise_conv1d(x, self.filters, self.spec, self.scale,
                                       tables=self.tables, path=path,
                                       padding=padding)
+
+    def tune(self, x: torch.Tensor, padding: str = "CAUSAL") -> torch.Tensor:
+        """Tune the fused dwconv's design at this shape and record it;
+        returns the output."""
+        from repro_torch.kernels import ops
+
+        return ops.pcilt_fused_dwconv1d(x, self.tables, self.spec,
+                                        _f32(self.scale), self.k,
+                                        padding=padding, autotune=True)
 
 
 def convert_dwconv(filters: torch.Tensor, act_spec: QuantSpec,
@@ -775,6 +855,24 @@ class PCILTConv2d(_TabledLayer):
                             self.group, stride=self.stride,
                             padding=self.padding,
                             tables=self._tables_for(path), path=path)
+
+    def tune(self, x: torch.Tensor) -> torch.Tensor:
+        """Tune the conv kernel's design at this input shape (the
+        shared-pool kernel's for a shared-only layer) and record it;
+        returns the output."""
+        from repro_torch.kernels import ops
+
+        kh, kw = self.filters.shape[:2]
+        kw_args = dict(stride=self.stride, padding=self.padding,
+                       autotune=True)
+        if self.tables is None:
+            ops.pcilt_shared_conv2d(x, self.shared.pool, self.shared.seg_idx,
+                                    self.spec, _f32(self.scale), self.group,
+                                    kh, kw, **kw_args)
+            return self(x, path="shared")
+        ops.pcilt_fused_conv2d(x, self.tables, self.spec, _f32(self.scale),
+                               self.group, kh, kw, **kw_args)
+        return self(x, path="fused")
 
 
 def convert_conv_kernel(filters: torch.Tensor, act_spec: QuantSpec, act_scale,

@@ -60,6 +60,16 @@ and the kept ``"direct"`` one: :func:`gemv_host_variant` chooses,
 :data:`GEMV_HOST_VARIANT_LAUNCHES` counts, and ``_gemv_host`` /
 ``_conv2d_host`` take ``variant=``.  Neither falls back to the other.
 
+Every launch that has a choice of design consults the design cache
+(``kernels.autotune``) before its heuristic: a forced design (``variant=``,
+:func:`_gemv_forced`, :func:`_dwconv_forced`) wins, then the cache's
+recorded design for the launch's shape key, then the heuristic above.  The
+``*_candidates`` functions list the designs whose guards admit a shape, the
+heuristic's first; with ``autotune=True`` (or ``REPRO_PCILT_AUTOTUNE=1``) a
+miss times them on the card and records the winner.  The design of each
+launch shape is memoised in process (``autotune.MEMO``), so a warm launch
+pays one dict lookup.
+
 :func:`pcilt_crc32` is the CRC-32 of the tables' integrity record and
 checks (``csrc/pcilt_crc32.cu``): ``zlib.crc32`` of each of a list of
 streams (a contiguous tensor's bytes, or byte ranges of it), computed on
@@ -85,6 +95,7 @@ from repro_torch.core.offsets import pack_offsets
 from repro_torch.core.quantization import QuantSpec, quantize, quantize_with_stats
 from repro_torch.core.lut_layers import (_conv_pads, _dwconv_pads,
                                          conv_offsets, pad_nhwc)
+from . import autotune as atn
 from . import build
 from .ref import (CRC_CHUNK_BYTES, CRC_LANE_BYTES, CRC_LEVELS, crc32_finish,
                   crc32_plain, crc_operators, dense_rows, fetch_sum,
@@ -111,7 +122,9 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "gemv_host_variant", "gemv_host_smem_bytes", "gemv_host_tiles",
            "gemv_host_block_tile", "gemv_host_plain", "dwconv_variant",
            "DwTiledGrid", "dwconv_tiled_grid", "pcilt_crc32",
-           "CRC_DEVICE_LAUNCHES", "crc32_plain"]
+           "CRC_DEVICE_LAUNCHES", "crc32_plain", "gemv_candidates",
+           "dwconv_candidates", "shared_gemv_candidates", "conv_candidates",
+           "gemv_host_candidates", "dwconv_host_candidates"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -203,6 +216,46 @@ def _call(name: str, fn, x: torch.Tensor, *args) -> None:
 def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
     _call(name, fn, x, *args)
     LAUNCHES[name] += 1
+
+
+def _choose(key, dev: torch.device, dtype, candidates, bench,
+            autotune: Optional[bool]) -> str:
+    """The design of one launch at ``key = (kernel, dimension names, their
+    values)``: the memoised one (a recorded or tuned design; or the
+    heuristic's, unless this call asks to tune); else the cache's recorded
+    design when ``candidates()`` (the admitted designs, the heuristic's
+    first) holds it; else, with tuning asked (``autotune``, or
+    ``REPRO_PCILT_AUTOTUNE`` read at a shape's first launch) and a card
+    (or an injected timer) to time on, the tuned winner; else the
+    heuristic.  ``bench(design)`` returns a closure that runs one launch in
+    that design.  A memoised launch builds no string and reads no
+    environment: one dict lookup."""
+    kernel, names, values = key
+    mkey = (kernel, dev, dtype, values)
+    got = atn.MEMO.get(mkey)
+    if got is not None and (got[1] or autotune is not True):
+        return got[0]
+    cands = candidates()
+    skey = atn.shape_key(kernel, dtype=dtype, backend=atn.backend_name(dev),
+                         **dict(zip(names, values)))
+    design = atn.lookup_design(skey)
+    hit = design in cands
+    if not hit:
+        design = cands[0]
+        if atn.autotune_enabled(autotune) and (
+                dev.type == "cuda" or atn.injected_timer() is not None):
+            design, hit = atn.tune_design(skey, cands, bench), True
+    atn.MEMO[mkey] = (design, hit)
+    return design
+
+
+def _tune_plain(key, dev, dtype, candidates, plain,
+                autotune: Optional[bool]) -> None:
+    """On the CPU, where every design is the plain version: with tuning
+    asked, the cache is consulted (and with an injected timer, tuned on
+    ``plain``); nothing else."""
+    if atn.autotune_enabled(autotune):
+        _choose(key, dev, dtype, candidates, lambda d: plain, autotune)
 
 
 def _stats_out(stats: torch.Tensor):
@@ -395,18 +448,43 @@ def _check_gemv_split(lib, B: int, G: int, O: int, itemsize: int,
     _GEMV_CHECKED.add(key)
 
 
+def gemv_candidates(B: int, G: int, O: int, itemsize: int) -> List[str]:
+    """The fused GEMV designs whose guards admit ``B`` rows of ``G``
+    segments and ``O`` columns: ``"split"`` (the heuristic) while a block's
+    shared memory and the grid's row chunks fit, ``"direct"`` while the
+    ``B * G`` offsets fit one block."""
+    split = gemv_variant(B, G, O, itemsize)
+    out = []
+    if gemv_smem_bytes(split, G) <= SMEM_LIMIT and split.chunks <= 65535:
+        out.append("split")
+    if B * G * 4 <= SMEM_LIMIT:
+        out.append("direct")
+    return out or ["split"]
+
+
 def _launch_gemv(name, x, tables, G, O, pw, seg_stride, layer_off,
                  spec: QuantSpec, scale, with_stats, plan_idx=None,
-                 variant=None):
+                 variant=None, key=None, autotune=None):
     """One launch of the fused GEMV kernel: segment ``g`` of the call is the
     ``[V, O]`` table at element ``layer_off + g * seg_stride``; with
     ``plan_idx`` the plan launch (segment ``g`` reads ``x`` by its plan
-    row).  ``variant`` (else the forced one, else ``"split"``) picks the
+    row).  ``variant`` (else the forced one, else the design cache's for
+    ``key = (kernel, names, values)`` when given, else ``"split"``) picks
+    the
     design."""
     others = () if plan_idx is None else (plan_idx,)
     dt = _check_launch(name, x, tables, *others)
     B, n = x.shape
-    variant = variant or _GEMV_FORCED or "split"
+    variant = variant or _GEMV_FORCED or ("split" if key is None else None)
+    if variant is None:
+        es = tables.element_size()
+        variant = _choose(
+            key, x.device, tables.dtype,
+            lambda: gemv_candidates(B, G, O, es),
+            lambda d: lambda: _launch_gemv(
+                name, x, tables, G, O, pw, seg_stride, layer_off, spec,
+                scale, with_stats, plan_idx, variant=d),
+            autotune)
     if variant not in GEMV_VARIANT_LAUNCHES:
         raise ValueError(f"{name}: unknown fused GEMV variant {variant!r}")
     lib = build.library(build.KERNELS[name])
@@ -439,20 +517,47 @@ def _launch_gemv(name, x, tables, G, O, pw, seg_stride, layer_off,
     return (out, *_stats_out(stats)) if with_stats else out
 
 
+#: the dimensions of the fused GEMVs' keys (the reference's), unstacked
+#: and stacked
+_GEMV_DIMS = ("B", "G", "V", "O", "g", "bits")
+_STACKED_DIMS = ("B", "R", "L", "G", "V", "O", "g", "bits")
+
+
+def _gemv_key(kname, with_stats, names, *values):
+    """``(kernel, names, values)`` of a fused GEMV launch: the reference's
+    key, the counter-carrying launches under the ``_sat`` family."""
+    return (f"{kname}_sat" if with_stats else kname, names, values)
+
+
+def _gemv_plain_tune(key, x, tables, G, O, plain, autotune):
+    _tune_plain(key, x.device, tables.dtype,
+                lambda: gemv_candidates(x.shape[0], G, O,
+                                        tables.element_size()),
+                plain, autotune)
+    return plain()
+
+
 def pcilt_fused_gemv(x: torch.Tensor, tables: torch.Tensor, spec: QuantSpec,
-                     scale, group: int) -> torch.Tensor:
+                     scale, group: int, *,
+                     autotune: Optional[bool] = None) -> torch.Tensor:
     """x ``[B, n]`` float32, tables ``[G, V, O]`` (``n == G * group``) ->
-    ``[B, O]`` in the table dtype: quantize, pack and fetch in one launch."""
+    ``[B, O]`` in the table dtype: quantize, pack and fetch in one launch.
+    ``autotune`` tunes the design on a cache miss (see the module)."""
     G, V, O = tables.shape
     _check_gemv(x, G, V, spec, group, "G*group")
+    key = _gemv_key("fused_gemv", False, _GEMV_DIMS, x.shape[0], G, V, O,
+                    group, spec.bits)
     if _on_cpu(x, tables):
-        return fused_gemv_plain(x, tables, spec, scale, group)
+        return _gemv_plain_tune(
+            key, x, tables, G, O,
+            lambda: fused_gemv_plain(x, tables, spec, scale, group), autotune)
     return _launch_gemv("fused_gemv", x, tables, G, O, group, V * O, 0, spec,
-                        scale, False)
+                        scale, False, key=key, autotune=autotune)
 
 
 def pcilt_fused_gemv_stacked(x: torch.Tensor, tables: torch.Tensor, layer: int,
                              spec: QuantSpec, scale, group: int, *,
+                             autotune: Optional[bool] = None,
                              with_stats: bool = False):
     """x ``[B, n]`` float32, tables ``[L, G, V, O]`` (``n == G * group``),
     ``layer`` a host int -> ``[B, O]`` in the table dtype; with
@@ -463,15 +568,21 @@ def pcilt_fused_gemv_stacked(x: torch.Tensor, tables: torch.Tensor, layer: int,
     layer = int(layer)
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} outside the stack of {L}")
+    key = _gemv_key("fused_gemv_stacked", with_stats, _STACKED_DIMS,
+                    x.shape[0], x.shape[0], L, G, V, O, group, spec.bits)
     if _on_cpu(x, tables):
-        return gemv_stacked_plain(x, tables, layer, spec, scale, group,
-                                  with_stats)
+        return _gemv_plain_tune(
+            key, x, tables, G, O,
+            lambda: gemv_stacked_plain(x, tables, layer, spec, scale, group,
+                                       with_stats), autotune)
     return _launch_gemv("gemv_stacked", x, tables, G, O, group, V * O,
-                        layer * G * V * O, spec, scale, with_stats)
+                        layer * G * V * O, spec, scale, with_stats, key=key,
+                        autotune=autotune)
 
 
 def pcilt_fused_gemv_paired(x: torch.Tensor, tables: torch.Tensor,
                             spec: QuantSpec, scale, group: int, *,
+                            autotune: Optional[bool] = None,
                             with_stats: bool = False):
     """x ``[B, n]`` float32, paired tables ``[G2, V2, O]`` (``n == G2 * 2 *
     group``, ``V2 = (2**(bits*group))**2``) -> ``[B, O]``: each fetch
@@ -479,15 +590,23 @@ def pcilt_fused_gemv_paired(x: torch.Tensor, tables: torch.Tensor,
     segment).  ``with_stats`` as for the stacked GEMV."""
     G2, V2, O = tables.shape
     _check_gemv(x, G2, V2, spec, 2 * group, "G2*2*group")
+    key = _gemv_key("fused_gemv_paired", with_stats, _GEMV_DIMS, x.shape[0],
+                    G2, V2, O, group, spec.bits)
     if _on_cpu(x, tables):
-        return gemv_paired_plain(x, tables, spec, scale, group, with_stats)
+        return _gemv_plain_tune(
+            key, x, tables, G2, O,
+            lambda: gemv_paired_plain(x, tables, spec, scale, group,
+                                      with_stats), autotune)
     return _launch_gemv("gemv_paired", x, tables, G2, O, 2 * group, V2 * O,
-                        0, spec, scale, with_stats)
+                        0, spec, scale, with_stats, key=key,
+                        autotune=autotune)
 
 
 def pcilt_fused_gemv_paired_stacked(x: torch.Tensor, tables: torch.Tensor,
                                     layer: int, spec: QuantSpec, scale,
-                                    group: int, *, with_stats: bool = False):
+                                    group: int, *,
+                                    autotune: Optional[bool] = None,
+                                    with_stats: bool = False):
     """x ``[B, n]`` float32, segment-major paired tables ``[G2, L, V2, O]``
     (``n == G2 * 2 * group``), ``layer`` a host int -> ``[B, O]``: the
     paired decode fetch.  Segment ``g`` of layer ``l`` starts at element
@@ -497,11 +616,16 @@ def pcilt_fused_gemv_paired_stacked(x: torch.Tensor, tables: torch.Tensor,
     layer = int(layer)
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} outside the stack of {L}")
+    key = _gemv_key("fused_gemv_paired_stacked", with_stats, _STACKED_DIMS,
+                    x.shape[0], x.shape[0], L, G2, V2, O, group, spec.bits)
     if _on_cpu(x, tables):
-        return gemv_paired_stacked_plain(x, tables, layer, spec, scale, group,
-                                         with_stats)
+        return _gemv_plain_tune(
+            key, x, tables, G2, O,
+            lambda: gemv_paired_stacked_plain(x, tables, layer, spec, scale,
+                                              group, with_stats), autotune)
     return _launch_gemv("gemv_paired_stacked", x, tables, G2, O, 2 * group,
-                        L * V2 * O, layer * V2 * O, spec, scale, with_stats)
+                        L * V2 * O, layer * V2 * O, spec, scale, with_stats,
+                        key=key, autotune=autotune)
 
 
 def gemv_plan_plain(x, tables, plan_idx, spec: QuantSpec, scale,
@@ -533,7 +657,8 @@ def _plan_max(plan_idx: torch.Tensor) -> int:
 
 def pcilt_fused_gemv_plan(x: torch.Tensor, tables: torch.Tensor,
                           plan_idx: torch.Tensor, spec: QuantSpec, scale,
-                          group: int) -> torch.Tensor:
+                          group: int, *,
+                          autotune: Optional[bool] = None) -> torch.Tensor:
     """x ``[B, n]`` float32 (any ``n``), tables ``[G, V, O]``, plan_idx
     ``[G, group]`` int32 (entries in ``[-1, n)``; ``-1`` = unused slot) ->
     ``[B, O]`` in the table dtype: the fused GEMV of a generalized
@@ -551,10 +676,15 @@ def pcilt_fused_gemv_plan(x: torch.Tensor, tables: torch.Tensor,
     if plan_idx.numel() and _plan_max(plan_idx) >= n:
         raise ValueError(f"plan_idx reads position {_plan_max(plan_idx)} of "
                          f"an x of width {n}")
+    key = _gemv_key("fused_gemv_plan", False, _GEMV_DIMS, x.shape[0], G, V,
+                    O, group, spec.bits)
     if _on_cpu(x, tables, plan_idx):
-        return gemv_plan_plain(x, tables, plan_idx, spec, scale, group)
+        return _gemv_plain_tune(
+            key, x, tables, G, O,
+            lambda: gemv_plan_plain(x, tables, plan_idx, spec, scale, group),
+            autotune)
     return _launch_gemv("gemv_plan", x, tables, G, O, group, V * O, 0, spec,
-                        scale, False, plan_idx)
+                        scale, False, plan_idx, key=key, autotune=autotune)
 
 
 # ----------------------------------------------------------------------------
@@ -615,6 +745,12 @@ def dwconv_tiled_grid(rows: int, C: int, wide: bool) -> DwTiledGrid:
     threads = -(-per_tile // 32) * 32
     ry = max(1, min(DW_TILED_TARGET_BLOCKS // tiles, rows))
     return DwTiledGrid(nv, tiles, threads, ry)
+
+
+def dwconv_candidates(k: int) -> List[str]:
+    """The fused dwconv designs that serve ``k`` taps, the heuristic's
+    (:func:`dwconv_variant`) first."""
+    return ["tiled", "direct"] if dwconv_variant(k) == "tiled" else ["direct"]
 
 
 def dwconv_variant(k: int) -> str:
@@ -687,20 +823,23 @@ def _dwconv_scratch(lib, dev: torch.device) -> torch.Tensor:
 
 def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
                          spec: QuantSpec, scale, k: int,
-                         padding: str = "CAUSAL", *, with_stats: bool = False):
+                         padding: str = "CAUSAL", *,
+                         autotune: Optional[bool] = None,
+                         with_stats: bool = False):
     """x ``[B, T, C]`` float32, tables ``[C, V]`` (``V = 2**(bits*k)``)
     -> ``[B, To, C]`` in the table dtype (plus the saturation stats of the
     signal with ``with_stats``).  The only host-side work is the time pad
     of the signal (none for ``"VALID"``)."""
     return _fused_dwconv1d(x, tables, spec, scale, k, padding,
-                           with_stats=with_stats)
+                           with_stats=with_stats, autotune=autotune)
 
 
 def _fused_dwconv1d(x, tables, spec: QuantSpec, scale, k: int,
                     padding: str = "CAUSAL", *, with_stats: bool = False,
-                    variant=None):
+                    variant=None, autotune=None):
     """:func:`pcilt_fused_dwconv1d`, with ``variant`` forcing a design on a
-    CUDA tensor (else the forced one, else :func:`dwconv_variant`'s)."""
+    CUDA tensor (else the forced one, else the design cache's, else
+    :func:`dwconv_variant`'s)."""
     B, T, C = x.shape
     C2, V = tables.shape
     if C != C2:
@@ -715,10 +854,23 @@ def _fused_dwconv1d(x, tables, spec: QuantSpec, scale, k: int,
     if Tp < k or B < 1:
         raise ValueError(f"signal of {T} steps is too short for {k} taps "
                          f"with padding {padding!r}")
+    key = ("fused_dwconv1d_sat" if with_stats else "fused_dwconv1d",
+           ("B", "T", "C", "V", "k", "bits"), (B, Tp - k + 1, C, V, k,
+                                               spec.bits))
     if _on_cpu(xp, tables):
-        return dwconv1d_plain(xp, tables, spec, scale, k, with_stats)
+        def plain():
+            return dwconv1d_plain(xp, tables, spec, scale, k, with_stats)
+
+        _tune_plain(key, xp.device, tables.dtype,
+                    lambda: dwconv_candidates(k), plain, autotune)
+        return plain()
     dt = _check_launch("pcilt_fused_dwconv1d", xp, tables)
-    variant = variant or _DWCONV_FORCED or dwconv_variant(k)
+    variant = variant or _DWCONV_FORCED or _choose(
+        key, xp.device, tables.dtype,
+        lambda: dwconv_candidates(k),
+        lambda d: lambda: _fused_dwconv1d(x, tables, spec, scale, k, padding,
+                                          with_stats=with_stats, variant=d),
+        autotune)
     if variant not in DWCONV_VARIANT_LAUNCHES:
         raise ValueError(f"pcilt_fused_dwconv1d: unknown variant {variant!r}")
     if variant == "tiled" and dwconv_variant(k) != "tiled":
@@ -772,6 +924,14 @@ def dwconv_host_tiling(M: int, C: int, V: int, itemsize: int) -> DwconvTiling:
     return DwconvTiling(tiles, groups, DW_CHANS * V * itemsize)
 
 
+def dwconv_host_candidates(V: int, itemsize: int) -> List[str]:
+    """The host-packed dwconv designs a ``V``-value table admits, the
+    heuristic's (:func:`dwconv_host_variant`) first."""
+    if dwconv_host_variant(V, itemsize) == "staged":
+        return ["staged", "direct"]
+    return ["direct"]
+
+
 def dwconv_host_variant(V: int, itemsize: int) -> str:
     """``"staged"`` while a block's table slice of ``V`` ``itemsize``-byte
     cells a channel fits its shared memory, else ``"direct"``."""
@@ -810,9 +970,11 @@ def pcilt_dwconv1d(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return _dwconv1d_host(offsets, tables)
 
 
-def _dwconv1d_host(offsets, tables, variant=None):
+def _dwconv1d_host(offsets, tables, variant=None, autotune=None):
     """:func:`pcilt_dwconv1d`, with ``variant`` forcing a design on a CUDA
-    tensor (else :func:`dwconv_host_variant`'s)."""
+    tensor (else the design cache's under a ``dwconv1d_host`` key, a key
+    of the port's own: the reference's host-packed dwconv has no tiling to
+    tune; else :func:`dwconv_host_variant`'s)."""
     if offsets.dim() != 3:
         raise ValueError(f"offsets must be [B, T, C], got "
                          f"{tuple(offsets.shape)}")
@@ -828,6 +990,13 @@ def _dwconv1d_host(offsets, tables, variant=None):
     dt = _check_tables("pcilt_dwconv1d", tables, offsets)
     es = tables.element_size()
     fits = dwconv_host_variant(V, es)
+    if variant is None and offsets.numel():
+        B, T = offsets.shape[:2]
+        variant = _choose(
+            ("dwconv1d_host", ("B", "T", "C", "V"), (B, T, C, V)),
+            offsets.device, tables.dtype,
+            lambda: dwconv_host_candidates(V, es),
+            lambda d: lambda: _dwconv1d_host(offsets, tables, d), autotune)
     variant = variant or fits
     if variant not in DWCONV_HOST_VARIANT_LAUNCHES:
         raise ValueError(f"pcilt_dwconv1d: unknown variant {variant!r}")
@@ -916,6 +1085,20 @@ def shared_gemv_slices(split: SharedSplit, G: int):
     return [(q * G // cs, (q + 1) * G // cs) for q in range(cs)]
 
 
+def shared_gemv_candidates(B: int, G: int, O: int, itemsize: int) -> List[str]:
+    """The shared-pool GEMV designs whose guards admit the shape:
+    ``"split"`` (the heuristic) while a block's shared memory and the row
+    chunks fit, ``"direct"`` while the ``B * G`` offsets fit one block."""
+    split = shared_gemv_variant(B, G, O, itemsize)
+    out = []
+    if shared_gemv_smem_bytes(split, G) <= SMEM_LIMIT \
+            and split.chunks <= 65535:
+        out.append("split")
+    if B * G * 4 <= SMEM_LIMIT:
+        out.append("direct")
+    return out or ["split"]
+
+
 def shared_gemv_plain(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
                       split_order: bool = False):
     """Plain version of the shared-pool kernel; a pointer outside
@@ -964,16 +1147,18 @@ def _check_shared_split(lib, B: int, G: int, O: int, itemsize: int,
 
 def pcilt_shared_gemv(x: torch.Tensor, pool: torch.Tensor,
                       seg_idx: torch.Tensor, spec: QuantSpec, scale,
-                      group: int) -> torch.Tensor:
+                      group: int, *,
+                      autotune: Optional[bool] = None) -> torch.Tensor:
     """x ``[B, n]`` float32, pool ``[X, V, O]``, seg_idx ``[G]`` int32
     (``n == G * group``) -> ``[B, O]`` in the pool dtype."""
-    return _shared_gemv(x, pool, seg_idx, spec, scale, group)
+    return _shared_gemv(x, pool, seg_idx, spec, scale, group,
+                        autotune=autotune)
 
 
 def _shared_gemv(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
-                 variant=None):
+                 variant=None, autotune=None):
     """:func:`pcilt_shared_gemv`, with ``variant`` forcing a design on a
-    CUDA tensor (else ``"split"``)."""
+    CUDA tensor (else the design cache's, else ``"split"``)."""
     B, n = x.shape
     X, V, O = pool.shape
     G = int(seg_idx.shape[-1])
@@ -988,10 +1173,23 @@ def _shared_gemv(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
                          f"{1 << (spec.bits * group)}")
     if B < 1:
         raise ValueError("empty batch")
+    es = pool.element_size()
+    key = ("shared_gemv", ("B", "G", "V", "O", "X", "g", "bits"),
+           (B, G, V, O, X, group, spec.bits))
     if _on_cpu(x, pool, seg_idx):
-        return shared_gemv_plain(x, pool, seg_idx, spec, scale, group)
+        def plain():
+            return shared_gemv_plain(x, pool, seg_idx, spec, scale, group)
+
+        _tune_plain(key, x.device, pool.dtype,
+                    lambda: shared_gemv_candidates(B, G, O, es), plain,
+                    autotune)
+        return plain()
     dt = _check_launch("pcilt_shared_gemv", x, pool, seg_idx)
-    variant = variant or "split"
+    variant = variant or _choose(
+        key, x.device, pool.dtype,
+        lambda: shared_gemv_candidates(B, G, O, es),
+        lambda d: lambda: _shared_gemv(x, pool, seg_idx, spec, scale, group,
+                                       variant=d), autotune)
     if variant not in SHARED_GEMV_VARIANT_LAUNCHES:
         raise ValueError(f"pcilt_shared_gemv: unknown variant {variant!r}")
     lib = build.library("shared_gemv")
@@ -1057,6 +1255,18 @@ def gemv_host_variant(M: int, G: int, V: int, O: int, itemsize: int) -> str:
     return "direct"
 
 
+def gemv_host_candidates(M: int, G: int, V: int, O: int,
+                         itemsize: int) -> List[str]:
+    """The host-packed GEMV designs whose guards admit the shape, the
+    heuristic's (:func:`gemv_host_variant`) first: ``"staged"`` while
+    every offset fits a byte and the ring fits a block (any ``M``),
+    ``"direct"`` always."""
+    first = gemv_host_variant(M, G, V, O, itemsize)
+    if V <= HOST_MAX_V and gemv_host_smem_bytes(itemsize) <= SMEM_LIMIT:
+        return [first, "direct" if first == "staged" else "staged"]
+    return ["direct"]
+
+
 def gemv_host_tiles(M: int, O: int):
     """``(row tiles, column tiles)`` of the staged grid over ``M`` rows and
     ``O`` columns; the grid has their product of blocks."""
@@ -1101,10 +1311,11 @@ def _check_host_config(lib) -> None:
 
 
 def _launch_gemv_host(name: str, offsets: torch.Tensor,
-                      tables: torch.Tensor, variant=None) -> torch.Tensor:
+                      tables: torch.Tensor, variant=None,
+                      autotune=None) -> torch.Tensor:
     """Kernel 6 (or 7, by ``name``) over the ``[..., G]`` offsets flattened
-    to rows; ``variant`` forces a design on a CUDA tensor (else
-    :func:`gemv_host_variant`'s)."""
+    to rows; ``variant`` forces a design on a CUDA tensor (else the design
+    cache's, else :func:`gemv_host_variant`'s)."""
     G, V, O = tables.shape
     if offsets.dtype != torch.int32:
         raise TypeError(f"{name}: offsets must be int32, got {offsets.dtype}")
@@ -1117,11 +1328,26 @@ def _launch_gemv_host(name: str, offsets: torch.Tensor,
     M = flat.shape[0]
     if M < 1:
         raise ValueError(f"{name}: no rows")
-    if _on_cpu(offsets, tables):
-        return gemv_host_plain(offsets, tables)
-    dt = _check_tables(name, tables, offsets)
     es = tables.element_size()
-    variant = variant or gemv_host_variant(M, G, V, O, es)
+    if name == "gemv_host":
+        key = (name, ("B", "G", "V", "O"), (M, G, V, O))
+    else:
+        key = (name, ("B", "Ho", "Wo", "G", "V", "O"),
+               (*offsets.shape[:3], G, V, O))
+    if _on_cpu(offsets, tables):
+        def plain():
+            return gemv_host_plain(offsets, tables)
+
+        _tune_plain(key, offsets.device, tables.dtype,
+                    lambda: gemv_host_candidates(M, G, V, O, es), plain,
+                    autotune)
+        return plain()
+    dt = _check_tables(name, tables, offsets)
+    variant = variant or _choose(
+        key, offsets.device, tables.dtype,
+        lambda: gemv_host_candidates(M, G, V, O, es),
+        lambda d: lambda: _launch_gemv_host(name, offsets, tables, d),
+        autotune)
     if variant not in GEMV_HOST_VARIANT_LAUNCHES:
         raise ValueError(f"{name}: unknown variant {variant!r}")
     lib = build.library("gemv_host")
@@ -1139,34 +1365,37 @@ def _launch_gemv_host(name: str, offsets: torch.Tensor,
     return out.reshape(*offsets.shape[:-1], O)
 
 
-def pcilt_gemv(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+def pcilt_gemv(offsets: torch.Tensor, tables: torch.Tensor, *,
+               autotune: Optional[bool] = None) -> torch.Tensor:
     """offsets ``[M, G]`` int32 (packed by the caller), tables ``[G, V, O]``
     -> ``[M, O]`` in the table dtype: ``sum_g T[g, off[m, g]]``."""
-    return _gemv_host(offsets, tables)
+    return _gemv_host(offsets, tables, autotune=autotune)
 
 
-def _gemv_host(offsets, tables, variant=None):
+def _gemv_host(offsets, tables, variant=None, autotune=None):
     """:func:`pcilt_gemv`, with ``variant`` forcing a design on a CUDA
     tensor."""
     if offsets.dim() != 2:
         raise ValueError(f"offsets must be [M, G], got {tuple(offsets.shape)}")
-    return _launch_gemv_host("gemv_host", offsets, tables, variant)
+    return _launch_gemv_host("gemv_host", offsets, tables, variant, autotune)
 
 
-def pcilt_conv2d(offsets: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+def pcilt_conv2d(offsets: torch.Tensor, tables: torch.Tensor, *,
+                 autotune: Optional[bool] = None) -> torch.Tensor:
     """offsets ``[B, Ho, Wo, G]`` int32, tables ``[G, V, O]`` ->
     ``[B, Ho, Wo, O]``: the host-packed conv fetch, the GEMV kernel over the
     flattened pixels."""
-    return _conv2d_host(offsets, tables)
+    return _conv2d_host(offsets, tables, autotune=autotune)
 
 
-def _conv2d_host(offsets, tables, variant=None):
+def _conv2d_host(offsets, tables, variant=None, autotune=None):
     """:func:`pcilt_conv2d`, with ``variant`` forcing a design on a CUDA
     tensor."""
     if offsets.dim() != 4:
         raise ValueError(f"offsets must be [B, Ho, Wo, G], got "
                          f"{tuple(offsets.shape)}")
-    return _launch_gemv_host("conv2d_host", offsets, tables, variant)
+    return _launch_gemv_host("conv2d_host", offsets, tables, variant,
+                             autotune)
 
 
 # ----------------------------------------------------------------------------
@@ -1254,6 +1483,13 @@ def conv_variant(V: int, itemsize: int) -> str:
     return "direct"
 
 
+def conv_candidates(V: int, itemsize: int) -> List[str]:
+    """The conv designs a ``V``-value table admits, the heuristic's
+    (:func:`conv_variant`) first."""
+    return ["staged", "direct"] if conv_variant(V, itemsize) == "staged" \
+        else ["direct"]
+
+
 def staged_tiles(P: int, O: int):
     """``(pixel tiles, column tiles)`` of the staged grid over ``P`` output
     pixels and ``O`` columns; the grid has their product of blocks."""
@@ -1315,15 +1551,36 @@ def _check_staged_config() -> None:
     _STAGED_CHECKED.append(True)
 
 
+def _conv_key(name, xp, G, V, O, X, group, kh, kw, stride, bits):
+    """``(kernel, names, values)`` of a conv launch (the reference's key;
+    the shared pool's adds ``X``)."""
+    B, Hp, Wp, C = xp.shape
+    names = ("B", "Ho", "W", "C", "k", "s", "G", "V", "O", "g", "bits")
+    values = (B, (Hp - kh) // stride + 1, Wp, C, kh * kw, stride, G, V, O,
+              group, bits)
+    if name == "shared_conv2d":
+        names, values = names + ("X",), values + (X,)
+    return name, names, values
+
+
 def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
-                 stride, Ho, Wo, variant=None):
+                 stride, Ho, Wo, variant=None, autotune=None):
     B, Hp, Wp, C = xp.shape
     G = int(seg_idx.shape[0]) if seg_idx is not None else tab.shape[0]
     _, V, O = tab.shape
     others = () if seg_idx is None else (seg_idx,)
     dt = _check_launch(name, xp, tab, *others)
-    fits = conv_variant(V, tab.element_size())
-    variant = variant or fits
+    es = tab.element_size()
+    fits = conv_variant(V, es)
+    if variant is None:
+        key = _conv_key(name, xp, G, V, O, X, group, kh, kw, stride,
+                        spec.bits)
+        variant = _choose(
+            key, xp.device, tab.dtype,
+            lambda: conv_candidates(V, es),
+            lambda d: lambda: _launch_conv(name, xp, tab, seg_idx, X, spec,
+                                           scale, group, kh, kw, stride, Ho,
+                                           Wo, d), autotune)
     if variant not in CONV_VARIANT_LAUNCHES:
         raise ValueError(f"{name}: unknown conv variant {variant!r}")
     if variant == "staged" and fits != "staged":
@@ -1351,7 +1608,8 @@ def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
 
 def pcilt_fused_conv2d(x: torch.Tensor, tables: torch.Tensor,
                        spec: QuantSpec, scale, group: int, kh: int, kw: int,
-                       stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+                       stride: int = 1, padding: str = "SAME", *,
+                       autotune: Optional[bool] = None) -> torch.Tensor:
     """x ``[B, H, W, C]`` float32 NHWC, tables ``[G, V, O]`` ->
     ``[B, Ho, Wo, O]`` in the table dtype.  The only host-side work is the
     spatial zero pad of the float image (SAME by :func:`conv_same_pads`);
@@ -1359,40 +1617,48 @@ def pcilt_fused_conv2d(x: torch.Tensor, tables: torch.Tensor,
     nor the offsets reach device memory.  ``G * group >= kh*kw*C``: the
     alignment slots take code 0 against zero-weight table rows."""
     return _fused_conv2d(x, tables, spec, scale, group, kh, kw, stride,
-                         padding)
+                         padding, autotune=autotune)
 
 
 def _fused_conv2d(x, tables, spec: QuantSpec, scale, group: int, kh: int,
                   kw: int, stride: int = 1, padding: str = "SAME",
-                  variant=None):
+                  variant=None, autotune=None):
     """:func:`pcilt_fused_conv2d`, with ``variant`` forcing a design on a
     CUDA tensor."""
     G, V, O = tables.shape
     xp, Ho, Wo = _conv_geometry("pcilt_fused_conv2d", x, G, V, spec, group,
                                 kh, kw, stride, padding)
     if _on_cpu(xp, tables):
-        out = fused_conv2d_plain(xp, tables, spec, scale, group, kh, kw,
-                                 stride)
-        return out.reshape(xp.shape[0], Ho, Wo, O)
+        def plain():
+            return fused_conv2d_plain(xp, tables, spec, scale, group, kh, kw,
+                                      stride).reshape(xp.shape[0], Ho, Wo, O)
+
+        key = _conv_key("fused_conv2d", xp, G, V, O, 0, group, kh, kw,
+                        stride, spec.bits)
+        _tune_plain(key, xp.device, tables.dtype,
+                    lambda: conv_candidates(V, tables.element_size()), plain,
+                    autotune)
+        return plain()
     return _launch_conv("fused_conv2d", xp, tables, None, 0, spec, scale,
-                        group, kh, kw, stride, Ho, Wo, variant)
+                        group, kh, kw, stride, Ho, Wo, variant, autotune)
 
 
 def pcilt_shared_conv2d(x: torch.Tensor, pool: torch.Tensor,
                         seg_idx: torch.Tensor, spec: QuantSpec, scale,
                         group: int, kh: int, kw: int, stride: int = 1,
-                        padding: str = "SAME") -> torch.Tensor:
+                        padding: str = "SAME", *,
+                        autotune: Optional[bool] = None) -> torch.Tensor:
     """x ``[B, H, W, C]`` float32 NHWC, pool ``[X, V, O]``, seg_idx ``[G]``
     int32 -> ``[B, Ho, Wo, O]`` in the pool dtype: the fused conv with
     ``T[g]`` replaced by ``pool[seg_idx[g]]``; a pointer outside ``[0, X)``
     adds nothing.  The pool is read in place (no transpose)."""
     return _shared_conv2d(x, pool, seg_idx, spec, scale, group, kh, kw,
-                          stride, padding)
+                          stride, padding, autotune=autotune)
 
 
 def _shared_conv2d(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
                    kh: int, kw: int, stride: int = 1, padding: str = "SAME",
-                   variant=None):
+                   variant=None, autotune=None):
     """:func:`pcilt_shared_conv2d`, with ``variant`` forcing a design on a
     CUDA tensor."""
     X, V, O = pool.shape
@@ -1403,11 +1669,19 @@ def _shared_conv2d(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
     xp, Ho, Wo = _conv_geometry("pcilt_shared_conv2d", x, G, V, spec, group,
                                 kh, kw, stride, padding)
     if _on_cpu(xp, pool, seg_idx):
-        out = shared_conv2d_plain(xp, pool, seg_idx, spec, scale, group, kh,
-                                  kw, stride)
-        return out.reshape(xp.shape[0], Ho, Wo, O)
+        def plain():
+            return shared_conv2d_plain(xp, pool, seg_idx, spec, scale, group,
+                                       kh, kw, stride).reshape(
+                xp.shape[0], Ho, Wo, O)
+
+        key = _conv_key("shared_conv2d", xp, G, V, O, X, group, kh, kw,
+                        stride, spec.bits)
+        _tune_plain(key, xp.device, pool.dtype,
+                    lambda: conv_candidates(V, pool.element_size()), plain,
+                    autotune)
+        return plain()
     return _launch_conv("shared_conv2d", xp, pool, seg_idx, X, spec, scale,
-                        group, kh, kw, stride, Ho, Wo, variant)
+                        group, kh, kw, stride, Ho, Wo, variant, autotune)
 
 
 # ----------------------------------------------------------------------------

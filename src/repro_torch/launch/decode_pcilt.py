@@ -10,9 +10,10 @@ the layer-stacked ``[L, G, V, O]`` projection tables), a 16-token prompt
 prefilled by ``MambaLM.prefill``, then greedy steps in which the conv
 frontend and all six projections of every layer are table fetches (on CUDA
 tensors, the fused depthwise conv and the stacked GEMV kernels).  Ends by
-checking the fetch step against the dense fake-quant oracle (2e-4).  The
-reference also records its kernels' tilings here (``eng.tune``); the port
-has no autotune cache yet, so that step is left out.
+checking the fetch step against the dense fake-quant oracle (2e-4).  After
+the conversion ``eng.tune(batch=1)`` records the kernels' designs for this
+decode shape in the design cache (``kernels.autotune``; timed on the card,
+a lookup on the CPU).
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ def run(steps: int = 8, device="cuda", seed=0, log=print) -> dict:
     with torch.no_grad():
         # offline: calibrate and build every table
         eng = convert_mamba_decode(model, params, calib, device=dev)
+        eng.tune(batch=1)  # record the kernels' designs for this shape
         n_proj = len(eng.pcilt["proj"]["tables"])
         log(f"converted {cfg.n_layers} layers: conv tables "
             f"{tuple(eng.pcilt['tables'].shape)} + {n_proj} stacked "

@@ -51,17 +51,19 @@ tick appends a telemetry record.  All time flows through an injectable
 deadline, backoff and arrival path deterministic.
 
 ``--chaos`` drives the engine through the injected fault classes
-(scheduled step fault, NaN-poisoned state, corrupted projection stack,
-flipped head pointers) and exits non-zero if a request is lost or the
+(garbled design cache, scheduled step fault, NaN-poisoned state, corrupted
+projection stack, flipped head pointers) and exits non-zero if a request is lost or the
 undegraded tokens differ from a fault-free run; ``--chaos --traffic ...``
 composes both contracts.  ``--chaos-drift`` moves one layer's activations
 off their calibrated range and requires detect -> demote -> recalibrate ->
 repromote.  ``--no-sentinel`` serves without the in-kernel saturation
 counters.
 
-Still to port: the reference's MoE, hybrid, audio and image-token model
-families, its mesh, and the autotune-cache action of its ``--chaos`` plan
-(the port has no autotune cache yet).
+The MoE family (granite-moe-3b-a800m, llama4-maverick-400b-a17b) serves
+through the same dense decode step.  The hybrid family (zamba2-7b) does not
+serve here, as it does not in the reference (see :class:`Engine`).  Still
+to port: the reference's audio and image-token model families and its
+mesh.
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ from __future__ import annotations
 import argparse
 import logging
 import math
+import os
+import tempfile
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -139,7 +143,14 @@ class Engine:
     ``params`` / ``pcilt_bundle`` carry in existing weights and tables (the
     parity tests hand over the JAX package's); otherwise parameters are
     drawn from ``seed`` and, with ``pcilt``, converted on calibration tokens
-    drawn from ``seed + 2``."""
+    drawn from ``seed + 2``.
+
+    The hybrid family is refused: the reference's ``Engine._reset_slot``
+    reads ``cache["layers"]``, which ``HybridLM.cache_specs`` does not
+    have (``{"ssm", "attn", "pos"}``), so the JAX engine fails with a
+    ``KeyError`` at its first slot reset; the port raises at
+    construction instead.  Hybrid models run through their ``prefill`` and
+    ``decode_step`` and the trainer."""
 
     def __init__(self, cfg, max_len: int = 256, slots: int = 4, *,
                  pcilt: bool = False,
@@ -150,6 +161,12 @@ class Engine:
                  queue_limit: Optional[int] = None,
                  step_cost_s: Optional[float] = None, sentinel: bool = True,
                  seed: int = 0, device="cuda"):
+        if cfg.family == "hybrid":
+            raise NotImplementedError(
+                "the hybrid family does not serve through the Engine: the "
+                "reference's Engine._reset_slot reads cache['layers'], which "
+                "HybridLM.cache_specs lacks ({'ssm', 'attn', 'pos'}); use "
+                "the model's prefill and decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
@@ -674,9 +691,17 @@ def verify_accounting(requests: Sequence[Request], stats: Dict) -> None:
 
 
 def _chaos_plan(eng: Engine, injector):
-    """The ``--chaos`` fault schedule: one action per fault class.  The
-    reference also garbles its autotune cache at step 4; the port has no
-    autotune cache yet, so that action is absent."""
+    """The ``--chaos`` fault schedule: one action per fault class."""
+    from repro_torch.kernels import autotune as atn
+
+    def garble_autotune(e):
+        cache = atn.get_cache()
+        # bytes to garble, then corrupt them in place: the reload must warn
+        # and quarantine, never crash or silently reset
+        cache.record("chaos_probe|B=1,dtype=float32|backend=cpu", "direct",
+                     None, 0)
+        injector.garble_file(cache.path, "garbage")
+        atn.reset_cache(cache.path)
 
     def poison_state(e):
         layers = e.cache["layers"]
@@ -696,6 +721,7 @@ def _chaos_plan(eng: Engine, injector):
 
     # keyed on the monotone step counter (prefill + decode steps)
     return {
+        4: [garble_autotune],
         7: [lambda e: injector.maybe_fail(7)],
         11: [poison_state],
         15: [corrupt_proj],
@@ -829,6 +855,13 @@ def run_cli(cfg, args) -> Dict:
     if args.chaos:
         injector = FaultInjector(fail_at=(7,), seed=args.seed)
         if eng.pdecode is not None:
+            if "REPRO_PCILT_TUNE_CACHE" not in os.environ:
+                # the plan garbles the design cache's file: a fresh one,
+                # never the user's
+                from repro_torch.kernels import autotune as atn
+
+                atn.reset_cache(os.path.join(tempfile.mkdtemp(),
+                                             "tiles.json"))
             eng.chaos = _chaos_plan(eng, injector)
         else:
             eng.chaos = {4: [lambda e: injector.maybe_fail(7)]}

@@ -15,7 +15,8 @@ from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, adamw_update
 
-__all__ = ["make_train_step", "make_prefill_step", "make_decode_step"]
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
+           "active_matmul_params"]
 
 
 def _cast_tree_bf16(p):
@@ -38,7 +39,8 @@ def _value_and_grad(fn, params, batch):
 
 def make_train_step(cfg, ocfg: AdamWConfig, bf16_grads: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` with ``loss``, ``ce``, ``z``, ``grad_norm`` and ``lr``.
+    metrics)`` with ``loss``, ``ce``, ``z``, ``grad_norm`` and ``lr`` (and
+    the transformers' ``load_balance`` and ``router_z``, 0 without MoE).
 
     The float32 master parameters are cast to bfloat16 inside the
     differentiated function, so their gradients come back float32;
@@ -108,3 +110,33 @@ def make_decode_step(cfg):
         return logits, new_cache
 
     return serve_step
+
+
+def active_matmul_params(cfg) -> int:
+    """N of ``MODEL_FLOPS = 6 N D``: the parameters a token's matmuls touch.
+    The embedding gather is left out, the logits projection counted once
+    (tied or not), and each expert tensor at ``top_k`` of its padded
+    experts (the dead padding experts are never routed)."""
+    import math
+
+    from repro_torch.nn.module import ParamSpec
+
+    def walk(tree, path):
+        if isinstance(tree, ParamSpec):
+            yield path, tree
+        else:
+            for k, v in tree.items():
+                yield from walk(v, f"{path}/{k}")
+
+    total = 0.0
+    for name, spec in walk(build_model(cfg).param_specs(), ""):
+        n = math.prod(spec.shape)
+        if "embed/embedding" in name:
+            continue
+        if "/moe/" in name and name.split("/")[-1] in ("w_gate", "w_up",
+                                                       "w_down"):
+            n *= cfg.moe.top_k / cfg.moe.padded_experts
+        total += n
+    if cfg.tie_embeddings:
+        total += cfg.d_model * cfg.padded_vocab
+    return int(total)

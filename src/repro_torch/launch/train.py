@@ -3,13 +3,15 @@
     python -m repro_torch.launch.train                   # smoke config, CUDA
     python -m repro_torch.launch.train --device cpu      # on the CPU
     python -m repro_torch.launch.train --full            # qwen3-0.6b, 28L
+    python -m repro_torch.launch.train --arch granite-moe-3b-a800m --device cpu
 
 Materializes seeded parameters, then runs the supervised train loop: AdamW
 on a cosine schedule over the seeded synthetic corpus, a step watchdog,
 async checkpoints every ``--ckpt-every`` steps, and a restore and replay
 after a step fault (``--fail-at`` injects them).  Batches are a pure
 function of the step, so a run that restarts ends on the same parameters
-as one that does not.  Runs on the card unless ``--device cpu``.
+as one that does not.  Runs on the card unless ``--device cpu``.  An MoE
+config also logs its routers' load-balance and z losses.
 """
 
 from __future__ import annotations
@@ -54,8 +56,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def run(cfg, args) -> dict:
-    """The supervised train loop of ``cfg`` as ``args`` set it up.  Returns
+def run(cfg, args, *, params=None) -> dict:
+    """The supervised train loop of ``cfg`` as ``args`` set it up, from
+    ``params`` (else parameters drawn from seed 0; the given tree is not
+    changed, and a caller that keeps no other reference to it lets the
+    first step free it).  Returns
     ``{"step", "params", "opt", "stats", "losses", "step_seconds",
     "setup_s"}``: ``losses`` and ``step_seconds`` hold one entry per step
     run (replayed steps again), each step synchronised by reading its
@@ -66,7 +71,8 @@ def run(cfg, args) -> dict:
     specs = model.param_specs()
     print(f"arch={cfg.name} params={count_params(specs)/1e6:.2f}M "
           f"devices=1 ({dev})")
-    params = materialize(specs, 0, device=dev)
+    if params is None:
+        params = materialize(specs, 0, device=dev)
     ocfg = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps),
                        weight_decay=0.01)
     opt_state = adamw_init(params, ocfg)
@@ -93,8 +99,11 @@ def run(cfg, args) -> dict:
         step_seconds.append(time.perf_counter() - t0)
         if step % args.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
+            aux = (f" load_balance {m['load_balance']:.4f} router_z "
+                   f"{m['router_z']:.4f}" if cfg.moe else "")
             print(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
-                  f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e}", flush=True)
+                  f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e}{aux}",
+                  flush=True)
         return params, opt_state
 
     def save(state, step):

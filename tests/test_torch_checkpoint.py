@@ -18,7 +18,6 @@ import torch
 from repro.checkpoint import checkpoint as jck
 from repro.configs import get_smoke_config as j_smoke
 from repro.models import build_model as j_build
-from repro.nn import materialize as j_materialize
 from repro.optim import AdamWConfig as JAdamW
 from repro.optim import adamw_init as j_adamw_init
 from repro_torch.checkpoint import Checkpointer, latest_step, restore, save
@@ -28,6 +27,7 @@ from repro_torch.interop import tree_map
 from repro_torch.models import build_model as t_build
 from repro_torch.nn.module import materialize
 from repro_torch.optim import AdamWConfig, adamw_init
+from test_torch_donor import jax_donor
 
 
 def _tree():
@@ -145,7 +145,7 @@ def test_async_snapshot_is_taken_before_the_write(tmp_path, monkeypatch):
 
 def _jax_train_state():
     jcfg = j_smoke("qwen3-0.6b")
-    jp = j_materialize(j_build(jcfg).param_specs(), jax.random.PRNGKey(0))
+    jp = jax_donor(j_build(jcfg).param_specs(), 0)
     jo = j_adamw_init(jp, JAdamW(quantize_moments=True))
     jo = dict(jo, count=jnp.asarray(7, jnp.int32))
     return {"params": jp, "opt": jo}

@@ -24,7 +24,6 @@ from repro.core import calibrate as j_calibrate
 from repro.core import pcilt as jp
 from repro.core.serving import convert_conv_kernel as j_convert
 from repro.kernels import autotune as atn
-from repro.nn.module import materialize as j_materialize
 from repro_torch.configs.paper_cnn import config as t_config
 from repro_torch.configs.paper_cnn import smoke_config as t_smoke
 from repro_torch.core import pcilt as tp
@@ -32,6 +31,7 @@ from repro_torch.core.serving import convert_conv_kernel as t_convert
 from repro_torch.interop import params_from_jax, tables_from_jax
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import quickstart
+from test_torch_donor import jax_donor
 
 TOL = 1e-5
 
@@ -42,7 +42,7 @@ def ref(tmp_path_factory):
     dense tables."""
     atn.reset_cache(str(tmp_path_factory.mktemp("tune") / "tiles.json"))
     model = j_smoke()
-    params = j_materialize(model.param_specs(), jax.random.PRNGKey(0))
+    params = jax_donor(model.param_specs(), 0)
     x = np.random.default_rng(1).uniform(0, 2, (2, 12, 10, 1)) \
         .astype(np.float32)
     scales, h = {}, jnp.asarray(x)

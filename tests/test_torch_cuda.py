@@ -1264,3 +1264,140 @@ def test_restart_contract_on_the_card(cuda, tmp_path, capsys):
                     tree_leaves({"p": clean["params"], "o": clean["opt"]})):
         assert a.device.type == "cuda"
         assert torch.equal(a, b)
+
+
+# -- the design cache's dispatch on the card --------------------------------
+
+
+def _cache_cases(rng):
+    """family -> (launch(autotune) on the card, its plain version, the
+    design counter, the shape's admitted designs, sum tolerance or None
+    for exact)."""
+    from repro_torch.core.lut_layers import flatten_filters
+
+    spec, group = QuantSpec(2, True), 2
+    cases = {}
+    w = torch.from_numpy(rng.normal(size=(2, 768, 64)).astype(np.float32))
+    tabs = torch.stack([build_grouped_tables(w[l], spec, 0.2, group)
+                        for l in range(2)])
+    x = torch.from_numpy((2 * rng.normal(size=(4, 768))).astype(np.float32))
+    cases["fused_gemv_stacked"] = (
+        lambda a, t=tabs.cuda(), xc=x.cuda(): ops.pcilt_fused_gemv_stacked(
+            xc, t, 1, spec, 0.2, group, autotune=a),
+        ops.pcilt_fused_gemv_stacked(x, tabs, 1, spec, 0.2, group),
+        ops.GEMV_VARIANT_LAUNCHES, ops.gemv_candidates(4, 384, 64, 4), 1e-4)
+    s4 = QuantSpec(2, True)
+    filt = torch.from_numpy(rng.normal(size=(4, 96)).astype(np.float32))
+    dtab = build_dwconv_tables(filt, s4, 0.3)
+    win = torch.from_numpy(rng.normal(size=(4, 4, 96)).astype(np.float32))
+    cases["fused_dwconv1d"] = (
+        lambda a, t=dtab.cuda(), xc=win.cuda(): ops.pcilt_fused_dwconv1d(
+            xc, t, s4, 0.3, 4, "VALID", autotune=a),
+        ops.pcilt_fused_dwconv1d(win, dtab, s4, 0.3, 4, "VALID"),
+        ops.DWCONV_VARIANT_LAUNCHES, ops.dwconv_candidates(4), None)
+    pool = torch.from_numpy(rng.normal(size=(5, 16, 200)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 5, size=64).astype(np.int32))
+    xs = torch.from_numpy(rng.normal(size=(4, 128)).astype(np.float32))
+    cases["shared_gemv"] = (
+        lambda a, p=pool.cuda(), i=idx.cuda(), xc=xs.cuda():
+            ops.pcilt_shared_gemv(xc, p, i, spec, 0.2, group, autotune=a),
+        ops.pcilt_shared_gemv(xs, pool, idx, spec, 0.2, group),
+        ops.SHARED_GEMV_VARIANT_LAUNCHES,
+        ops.shared_gemv_candidates(4, 64, 200, 4), 1e-4)
+    cf = torch.from_numpy(rng.normal(size=(3, 3, 4, 40)).astype(np.float32))
+    ctab = build_grouped_tables(flatten_filters(cf, group), spec, 0.3, group)
+    img = torch.from_numpy(rng.uniform(-1, 2, (1, 20, 24, 4))
+                           .astype(np.float32))
+    cases["fused_conv2d"] = (
+        lambda a, t=ctab.cuda(), xc=img.cuda(): ops.pcilt_fused_conv2d(
+            xc, t, spec, 0.3, group, 3, 3, autotune=a),
+        ops.pcilt_fused_conv2d(img, ctab, spec, 0.3, group, 3, 3),
+        ops.CONV_VARIANT_LAUNCHES, ops.conv_candidates(16, 4), 1e-4)
+    htab = torch.from_numpy(rng.normal(size=(30, 16, 50)).astype(np.float32))
+    off = torch.from_numpy(rng.integers(0, 16, (4, 30)).astype(np.int32))
+    cases["gemv_host"] = (
+        lambda a, t=htab.cuda(), o=off.cuda(): ops.pcilt_gemv(
+            o, t, autotune=a),
+        ops.pcilt_gemv(off, htab), ops.GEMV_HOST_VARIANT_LAUNCHES,
+        ops.gemv_host_candidates(4, 30, 16, 50, 4), 1e-4)
+    wtab = torch.from_numpy(rng.normal(size=(40, 256)).astype(np.float32))
+    woff = torch.from_numpy(rng.integers(0, 256, (2, 9, 40)).astype(np.int32))
+    cases["dwconv1d_host"] = (
+        lambda a, t=wtab.cuda(), o=woff.cuda(): ops._dwconv1d_host(
+            o, t, autotune=a),
+        pcilt_dwconv1d_ref(woff, wtab), ops.DWCONV_HOST_VARIANT_LAUNCHES,
+        ops.dwconv_host_candidates(256, 4), None)
+    return cases
+
+
+CACHE_FAMILIES = ["fused_gemv_stacked", "fused_dwconv1d", "shared_gemv",
+                  "fused_conv2d", "gemv_host", "dwconv1d_host"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", CACHE_FAMILIES)
+def test_cached_design_runs_and_matches_plain(cuda, family, tmp_path):
+    """Each design the cache can choose: tuned in (an injected clock makes
+    it win), then dispatched from the warm cache by a fresh memo — the
+    launch runs that design, times nothing, and matches the plain version;
+    a forced design still wins over the cache."""
+    from repro_torch.kernels import autotune as atn
+
+    run, want, counter, cands, rtol = _cache_cases(
+        np.random.default_rng(3))[family]
+    path = str(tmp_path / "tiles.json")
+    try:
+        for design in cands:
+            atn.reset_cache(str(tmp_path / f"{design}.json"))
+            times = [1.0 if c == design else 2.0 for c in cands]
+            it = iter(times)
+            with atn.using_timer(lambda fn, reps, warmup: (fn(), next(it))[1]):
+                run(True)
+            recorded = atn.get_cache().entries()
+            assert [e["design"] for e in recorded.values()] == [design]
+            assert all("|backend=cuda:" in k for k in recorded)
+            atn.reset_cache(str(tmp_path / f"{design}.json"))
+            atn.TIMING_RUNS = 0
+            before = dict(counter)
+            got = run(None)
+            torch.cuda.synchronize()
+            assert atn.TIMING_RUNS == 0
+            assert counter[design] == before[design] + 1, (design, counter)
+            if rtol is None:
+                assert torch.equal(got.cpu(), want)
+            else:
+                _assert_sum_close(got.cpu(), want, rtol)
+        if family == "fused_gemv_stacked":  # forced beats cached
+            other = [c for c in cands if c != cands[-1]][0]
+            before = dict(counter)
+            with ops._gemv_forced(other):
+                run(None)
+            assert counter[other] == before[other] + 1
+    finally:
+        atn.reset_cache(path)
+
+
+@pytest.mark.cuda
+def test_tuning_on_the_card_times_then_hits(cuda, tmp_path):
+    """``autotune=True`` on a CUDA tensor times the candidates with CUDA
+    events (a miss) and records a finite ``us``; a fresh process on the
+    same file times nothing."""
+    from repro_torch.kernels import autotune as atn
+
+    run, want, _, cands, rtol = _cache_cases(
+        np.random.default_rng(4))["fused_gemv_stacked"]
+    path = str(tmp_path / "tiles.json")
+    try:
+        atn.reset_cache(path)
+        atn.TIMING_RUNS = 0
+        run(True)
+        assert atn.TIMING_RUNS > 0
+        (entry,) = atn.get_cache().entries().values()
+        assert entry["design"] in cands and entry["us"] > 0
+        assert entry["candidates"] == len(cands)
+        atn.reset_cache(path)
+        atn.TIMING_RUNS = 0
+        _assert_sum_close(run(True).cpu(), want, rtol)
+        assert atn.TIMING_RUNS == 0
+    finally:
+        atn.reset_cache(str(tmp_path / "after.json"))

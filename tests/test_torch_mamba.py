@@ -29,12 +29,12 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.configs.base import PCILTConfig as JPCILT
 from repro.core.serving import convert_mamba_decode as j_convert
 from repro.models import build_model as j_build
-from repro.nn import materialize as j_materialize
 from repro.nn.layers import Ctx
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import PCILTConfig as TPCILT
 from repro_torch.interop import bundle_from_jax, params_from_jax, to_numpy
 from repro_torch.models import build_model as t_build
+from test_torch_donor import jax_donor
 
 STEPS = 4
 BATCH = 3
@@ -52,7 +52,7 @@ def problem(tmp_path_factory):
                                pcilt=TPCILT(act_bits=4, group=2),
                                dtype=torch.float32)
     jmodel = j_build(jcfg)
-    jparams = j_materialize(jmodel.param_specs(), jax.random.PRNGKey(0))
+    jparams = jax_donor(jmodel.param_specs(), 0)
     calib = np.random.default_rng(2).integers(0, jcfg.vocab, (2, 16))
     jdec = j_convert(jmodel, jparams, jnp.asarray(calib), head="shared")
     np_params = jax.tree.map(np.asarray, jparams)
@@ -161,7 +161,11 @@ def test_fetch_decode_matches_dense_fakequant_oracle(problem):
     want, wc = p["tmodel"].decode_step(p["tparams"], cache, tok,
                                        pcilt=oracle, head_ok=False)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    # the same pick, or a tie: the fetched head's logits lie on a grid, so
+    # two ids can share the largest value exactly, and the oracle's float32
+    # sums then order them by an ulp
+    for b in torch.nonzero(got.argmax(-1) != want.argmax(-1))[:, 0]:
+        assert got[b, want[b].argmax()] == got[b].max(), f"row {b}: no tie"
     torch.testing.assert_close(gc["layers"]["ssd"], wc["layers"]["ssd"],
                                rtol=2e-4, atol=2e-4)
 

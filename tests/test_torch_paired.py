@@ -37,7 +37,6 @@ from repro.core import quantization as jq
 from repro.core import serving as js
 from repro.kernels import ops as jops
 from repro.models import build_model as j_build
-from repro.nn import materialize as j_materialize
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import PCILTConfig as TPCILT
 from repro_torch.core import lut_layers as tl
@@ -48,6 +47,7 @@ from repro_torch.interop import (bundle_from_jax, params_from_jax, to_numpy,
                                  to_torch)
 from repro_torch.kernels import ops as tops
 from repro_torch.models import build_model as t_build
+from test_torch_donor import hash_free_engines, jax_donor
 
 PAIRED = JPCILT(act_bits=2, group=2)  # the paired decode's configuration
 
@@ -312,8 +312,7 @@ def paired_problem():
                                pcilt=TPCILT(act_bits=2, group=2),
                                dtype=torch.float32)
     jmodel = j_build(jcfg)
-    # the key the JAX engine materializes its parameters from
-    jparams = j_materialize(jmodel.param_specs(), jax.random.PRNGKey(0))
+    jparams = jax_donor(jmodel.param_specs(), 0)
     calib = np.random.default_rng(2).integers(0, jcfg.vocab, (2, 16))
     jdec = js.convert_mamba_decode(jmodel, jparams, jnp.asarray(calib),
                                    paired=True, head="shared")
@@ -438,8 +437,9 @@ def test_engine_serves_paired_bundle_like_reference(paired_problem):
     from repro_torch.launch.serve import make_requests
 
     p = paired_problem
-    jeng = JEngine(p["jcfg"], max_len=256, slots=2, pcilt=True,
-                   pcilt_bundle=p["jdec"].pcilt)
+    with hash_free_engines():  # the donor's weights, not hash()'s
+        jeng = JEngine(p["jcfg"], max_len=256, slots=2, pcilt=True,
+                       pcilt_bundle=p["jdec"].pcilt)
     jeng.monitor.on_tick = lambda tick, sat=None, rows=1: []
     log = []
     raw = jeng._raw_step

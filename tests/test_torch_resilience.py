@@ -40,6 +40,7 @@ from repro_torch.interop import bundle_from_jax, params_from_jax
 from repro_torch.launch import serve as ts
 from repro_torch.nn.module import materialize
 from repro_torch.runtime import FaultInjector
+from test_torch_donor import hash_free_engines
 
 SLOTS, N_REQ, SEED = 2, 3, 1
 TOL = 1e-4
@@ -68,7 +69,8 @@ def donor(tmp_path_factory):
     jcfg = dataclasses.replace(j_smoke("mamba2-130m"),
                                pcilt=JPCILT(act_bits=4, group=2),
                                dtype=jnp.float32)
-    jeng = js.Engine(jcfg, max_len=64, slots=SLOTS, pcilt=True)
+    with hash_free_engines():  # weights independent of PYTHONHASHSEED
+        jeng = js.Engine(jcfg, max_len=64, slots=SLOTS, pcilt=True)
     tcfg = dataclasses.replace(t_smoke("mamba2-130m"),
                                pcilt=TPCILT(act_bits=4, group=2),
                                dtype=torch.float32)
@@ -95,8 +97,10 @@ def chaos_pair(request, donor):
     """The JAX engine's chaos run (its tokens fed and logits recorded at
     every step), then the port's, compared step by step."""
     keys, max_new = PLANS[request.param]
-    jeng = js.Engine(donor["jcfg"], max_len=64, slots=SLOTS, pcilt=True,
-                     pcilt_bundle=_copy_bundle(donor["jeng"].pdecode.pcilt))
+    with hash_free_engines():
+        jeng = js.Engine(donor["jcfg"], max_len=64, slots=SLOTS, pcilt=True,
+                         pcilt_bundle=_copy_bundle(
+                             donor["jeng"].pdecode.pcilt))
     jinj = JInjector(fail_at=(7,), seed=SEED)
     jeng.chaos = _rekey(js._chaos_plan(jeng, jinj), keys)
     log = []
@@ -199,6 +203,35 @@ def test_cli_chaos_contract_on_the_cpu(capsys):
              "cpu"])
     out = capsys.readouterr().out
     assert "chaos contract verified: 6 requests completed" in out
+
+
+def test_cli_chaos_step4_quarantines_the_design_cache(capsys, tmp_path,
+                                                     monkeypatch):
+    """Step 4 of the ``--chaos`` plan garbles the design cache's file: the
+    reload warns and quarantines it (the bytes kept), the cache goes on
+    empty, and the contract still holds."""
+    import os
+
+    from repro_torch.kernels import autotune as atn
+
+    path = str(tmp_path / "tiles.json")
+    monkeypatch.setenv("REPRO_PCILT_TUNE_CACHE", path)
+    atn.reset_cache()
+    try:
+        ts.main(["--arch", "mamba2-130m", "--pcilt", "--chaos", "--device",
+                 "cpu"])
+        out = capsys.readouterr().out
+        assert "chaos contract verified: 6 requests completed" in out
+        assert "5 faults injected" in out
+        q = [n for n in os.listdir(tmp_path)
+             if n.startswith("tiles.json.corrupt-")]
+        assert len(q) == 1
+        assert open(tmp_path / q[0], "rb").read().startswith(b'{"tiles": tru')
+        assert atn.get_cache().path == path
+        assert "chaos_probe|B=1,dtype=float32|backend=cpu" not in \
+            atn.get_cache().entries()
+    finally:
+        atn.reset_cache(str(tmp_path / "after.json"))
 
 
 def test_demoted_step_equals_dense_oracle(chaos_pair, donor):

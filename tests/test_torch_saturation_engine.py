@@ -35,6 +35,7 @@ from repro_torch.core.serving import HealthMonitor, PCILTMambaDecode
 from repro_torch.interop import bundle_from_jax, params_from_jax
 from repro_torch.launch import serve as ts
 from repro_torch.runtime import FaultInjector
+from test_torch_donor import hash_free_engines
 
 SLOTS, N_REQ, MAX_NEW, SEED = 2, 3, 4, 0
 TOL = 1e-4
@@ -59,12 +60,12 @@ def drift(tmp_path_factory):
     tcfg = dataclasses.replace(t_smoke("mamba2-130m"),
                                pcilt=TPCILT(act_bits=4, group=2),
                                dtype=torch.float32)
-    donor = js.Engine(jcfg, max_len=64, slots=SLOTS, pcilt=True)
-    params = jax.tree.map(np.asarray, donor.params)
-    clean = donor.pdecode.pcilt  # never mutated: engines get copies
-
-    jeng = js.Engine(jcfg, max_len=64, slots=SLOTS, pcilt=True,
-                     pcilt_bundle=_copy_bundle(clean))
+    with hash_free_engines():  # weights independent of PYTHONHASHSEED
+        donor = js.Engine(jcfg, max_len=64, slots=SLOTS, pcilt=True)
+        params = jax.tree.map(np.asarray, donor.params)
+        clean = donor.pdecode.pcilt  # never mutated: engines get copies
+        jeng = js.Engine(jcfg, max_len=64, slots=SLOTS, pcilt=True,
+                         pcilt_bundle=_copy_bundle(clean))
     jinj = JInjector(seed=SEED)
     jeng.chaos = js._chaos_drift_plan(jeng, jinj)
     log = []

@@ -46,6 +46,7 @@ from repro_torch.interop import params_from_jax, to_numpy, tree_map
 from repro_torch.launch import decode_pcilt, serve_engine, serve_pcilt
 from repro_torch.launch import serve as ts
 from repro_torch.runtime import FaultInjector
+from test_torch_donor import hash_free_engines
 
 SLOTS, N_REQ, MAX_NEW, SEED = 4, 6, 16, 0
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -61,7 +62,8 @@ def _reference_run(dt, chaos):
     """The JAX engine's run with the tokens fed and the logits of every
     step recorded."""
     jcfg = dataclasses.replace(j_smoke("qwen3-0.6b"), dtype=DTYPES[dt][0])
-    jeng = js.Engine(jcfg, max_len=256, slots=SLOTS)
+    with hash_free_engines():
+        jeng = js.Engine(jcfg, max_len=256, slots=SLOTS)
     inj = None
     if chaos:  # the CLI's dense schedule
         inj = JInjector(fail_at=(7,), seed=SEED)

@@ -28,7 +28,6 @@ import torch
 
 from repro.configs import get_smoke_config as j_smoke
 from repro.configs.base import PCILTConfig as JPCILT
-from repro.nn import materialize as j_materialize
 from repro.nn import ssm as js
 from repro.nn.layers import Ctx
 from repro_torch.configs import get_smoke_config as t_smoke
@@ -36,6 +35,7 @@ from repro_torch.configs.base import PCILTConfig as TPCILT
 from repro_torch.core import fake_quant, pcilt_depthwise_conv1d
 from repro_torch.interop import params_from_jax
 from repro_torch.nn import ssm as ts
+from test_torch_donor import jax_donor
 
 CTX = Ctx()
 
@@ -51,7 +51,7 @@ def layer(tmp_path_factory):
     tcfg = dataclasses.replace(t_smoke("mamba2-130m"),
                                pcilt=TPCILT(act_bits=4, group=2),
                                dtype=torch.float32)
-    jp = j_materialize(js.mamba_spec(jcfg), jax.random.PRNGKey(3))
+    jp = jax_donor(js.mamba_spec(jcfg), 3)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 64, jcfg.d_model)).astype(np.float32)

@@ -31,6 +31,7 @@ from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.interop import params_from_jax
 from repro_torch.launch import serve as ts
 from repro_torch.runtime import VirtualClock, make_arrivals
+from test_torch_donor import hash_free_engines
 
 SLOTS, N_REQ, MAX_NEW, SEED = 2, 10, 4, 2
 STEP_COST, QUEUE_LIMIT, DEADLINE = 1e-3, 3, 0.008
@@ -52,8 +53,9 @@ def traffic_pair(request, cfgs):
     np.testing.assert_array_equal(
         arrivals, j_arrivals(request.param, N_REQ, rate, seed=SEED))
 
-    jeng = js.Engine(jcfg, max_len=64, slots=SLOTS, clock=JClock(),
-                     step_cost_s=STEP_COST, queue_limit=QUEUE_LIMIT)
+    with hash_free_engines():  # weights independent of PYTHONHASHSEED
+        jeng = js.Engine(jcfg, max_len=64, slots=SLOTS, clock=JClock(),
+                         step_cost_s=STEP_COST, queue_limit=QUEUE_LIMIT)
     log = []
     raw = jeng._raw_step
 

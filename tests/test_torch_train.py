@@ -43,7 +43,6 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.launch import steps as jsteps
 from repro.models import build_model as j_build
 from repro.models.transformer import chunked_ce_loss as j_ce
-from repro.nn import materialize as j_materialize
 from repro.nn.layers import Ctx
 from repro.optim import adamw as jopt
 from repro_torch.configs import get_smoke_config as t_smoke
@@ -54,6 +53,7 @@ from repro_torch.launch import train, train_lm
 from repro_torch.models import build_model as t_build
 from repro_torch.models.transformer import chunked_ce_loss as t_ce
 from repro_torch.optim import adamw as topt
+from test_torch_donor import jax_donor
 
 CTX = Ctx()
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -93,7 +93,7 @@ def donors():
     out = {}
     for arch in ARCHS:
         jcfg, _ = _cfgs(arch)
-        jp = j_materialize(j_build(jcfg).param_specs(), jax.random.PRNGKey(0))
+        jp = jax_donor(j_build(jcfg).param_specs(), 0)
         out[arch] = jax.tree.map(np.asarray, jp)
     return out
 
@@ -274,7 +274,9 @@ def test_train_step_matches_reference(bf16_grads, accum, donors):
         to = params_from_jax(jax.tree.map(np.asarray, jo), "cpu")
         new_jp, new_jo, jm = jstep(jp, jo, jb)
         new_tp, new_to, tm = tstep(tp, to, tb)
-        assert set(tm) == {"loss", "ce", "z", "grad_norm", "lr"} <= set(jm)
+        assert set(tm) == {"loss", "ce", "z", "grad_norm", "lr",
+                           "load_balance", "router_z"} <= set(jm)
+        assert float(tm["load_balance"]) == float(jm["load_balance"]) == 0
         for k in ("loss", "ce", "z", "grad_norm"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]),
                                        rtol=2 ** -7 if k == "grad_norm"

@@ -45,7 +45,6 @@ from repro.launch.steps import make_decode_step as j_decode_step
 from repro.models import build_model as j_build
 from repro.nn import attention as ja
 from repro.nn import layers as jl
-from repro.nn import materialize as j_materialize
 from repro.nn.layers import Ctx
 from repro.nn.module import ParamSpec as JSpec
 from repro_torch.configs import get_config as t_full
@@ -57,6 +56,7 @@ from repro_torch.nn import attention as ta
 from repro_torch.nn import layers as tl
 from repro_torch.nn.module import ParamSpec as TSpec
 from repro_torch.nn.module import materialize
+from test_torch_donor import jax_donor
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -119,7 +119,7 @@ def _one_bf16_step(got, want):
 def donor():
     """The JAX smoke model's parameters (float32), as numpy."""
     jcfg, _ = _cfgs("f32")
-    jp = j_materialize(j_build(jcfg).param_specs(), jax.random.PRNGKey(0))
+    jp = jax_donor(j_build(jcfg).param_specs(), 0)
     return jax.tree.map(np.asarray, jp)
 
 
@@ -164,9 +164,14 @@ def test_config_matches_reference():
 
 
 def test_build_model_dispatch():
+    from repro_torch.models import HybridLM
+
     assert isinstance(build_model(t_smoke("mamba2-130m")), MambaLM)
     assert isinstance(build_model(t_smoke("qwen3-0.6b")), TransformerLM)
-    for family in ("moe", "audio", "vlm", "hybrid"):
+    assert isinstance(build_model(t_smoke("granite-moe-3b-a800m")),
+                      TransformerLM)
+    assert isinstance(build_model(t_smoke("zamba2-7b")), HybridLM)
+    for family in ("audio", "vlm"):
         cfg = dataclasses.replace(t_smoke("qwen3-0.6b"), family=family)
         with pytest.raises(ValueError, match="not ported yet"):
             build_model(cfg)
@@ -323,10 +328,20 @@ def test_decode_write(pos, window, donor):
 # -- whole models ----------------------------------------------------------
 
 
+def _port_cache(jc):
+    """The reference's decode cache as the port's (``pos`` a host int)."""
+    return {"layers": jax.tree.map(lambda a: to_torch(np.asarray(a)),
+                                   jc["layers"]), "pos": int(jc["pos"])}
+
+
 def _prefill_decode(jcfg, tcfg, params, tokens, steps=STEPS):
     """Both models' prefill then ``steps`` greedy decode steps, the
-    reference's tokens fed to both.  Returns the logits and caches of
-    every stage."""
+    reference's tokens fed to both.  Each port step starts from the
+    reference's cache: a float32 ulp between the packages can round a
+    bfloat16 cache entry the other way at a tie (one bfloat16 step, which
+    the cache checks allow), and a chained comparison would carry that
+    step into every later logit.  Returns the logits and caches of every
+    stage."""
     jm, tm = j_build(jcfg), build_model(tcfg)
     jp = jax.tree.map(jnp.asarray, params)
     tp = params_from_jax(params, "cpu")
@@ -339,9 +354,10 @@ def _prefill_decode(jcfg, tcfg, params, tokens, steps=STEPS):
     step = make_decode_step(tcfg)
     for _ in range(steps):
         tok = np.asarray(jnp.argmax(jl_, -1))[:, None]
+        jc_in = jc
         jl_, jc = jm.decode_step(jp, jc, jnp.asarray(tok), CTX)
         with torch.no_grad():
-            tl_, tc = step(tp, tc, torch.from_numpy(tok))
+            tl_, tc = step(tp, _port_cache(jc_in), torch.from_numpy(tok))
         out.append((jl_, tl_, jc, tc))
     return out
 
@@ -376,7 +392,7 @@ def test_decode_replay_past_the_cache_end(donor):
     jm, tm = j_build(jcfg), build_model(tcfg)
     jp = jax.tree.map(jnp.asarray, donor)
     tp = params_from_jax(donor, "cpu")
-    jc = j_materialize(jm.cache_specs(2, 8), jax.random.PRNGKey(1))
+    jc = jax_donor(jm.cache_specs(2, 8), 1)
     jc = dict(jc, pos=jnp.asarray(0, jnp.int32))
     tc = {"layers": params_from_jax(jax.tree.map(np.asarray, jc["layers"]),
                                     "cpu"), "pos": 0}
@@ -477,7 +493,7 @@ def test_mamba_prefill_matches_reference():
     jcfg = dataclasses.replace(j_smoke("mamba2-130m"), dtype=jnp.float32)
     tcfg = dataclasses.replace(t_smoke("mamba2-130m"), dtype=torch.float32)
     jm, tm = j_build(jcfg), build_model(tcfg)
-    jp = j_materialize(jm.param_specs(), jax.random.PRNGKey(0))
+    jp = jax_donor(jm.param_specs(), 0)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     tokens = np.random.default_rng(10).integers(0, jcfg.vocab, (2, 16))
     jl_, jc = jm.prefill(jp, {"tokens": jnp.asarray(tokens)}, CTX)
