@@ -204,7 +204,27 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``decode_step``s at B = 4 (times, device time, launches, peak), the
     ``Engine``'s refusal, training cut to 12 layers, the smoke step card
     against CPU;
-18. the design cache: ``PCILTMambaDecode.tune(batch=(1, 4))`` on the
+18. the audio family at whisper-medium's published width and depth (24
+    encoder and 24 decoder layers, d 1024, 16 heads, d_ff 4096, vocab
+    51865, 1500 seeded stub frames; seeded weights drawn on the card,
+    bfloat16 compute): ``prefill`` of 1 x 192 and 4 x 192 text tokens
+    against a decode replay from a 256-slot cache holding the prefill's
+    ``cross_kv`` (2e-2), 8 ``decode_step``s at B = 4 (times, device time,
+    launches, busy share, peak), a 3072-token prefill through the chunked
+    self- and cross-attention against the dense path (2e-2), training at
+    full depth (128 text tokens and the frames, batch 8, 4 steps), the
+    smoke step card against CPU;
+19. the vlm family at llava-next-mistral-7b's published width and depth
+    (32 layers, d 4096, 32 heads over 8, d_ff 14336, vocab 32000, window
+    4096, 576 seeded stub image embeddings): a prefill of the image and
+    191 text tokens copied into a 4096-slot window cache, one decode step
+    against the prefill of 192 (2e-2), 8 decode steps at B = 4 from
+    ``pos`` 4092 so that the rolling buffer wraps (times, device time,
+    launches, peak), the same wrap at 2 layers card against CPU (2e-2),
+    training at the deepest depth that fits at seq 1024 (576 image + 448
+    text; the depths that ran out of memory logged), the smoke step card
+    against CPU;
+20. the design cache: ``PCILTMambaDecode.tune(batch=(1, 4))`` on the
     full-width 4-bit and paired decodes and the kernels at PERF.md's
     table shapes (every key's winner and each candidate's microseconds);
     a second process (``chip_smoke.py --autotune-warm FILE``) on the same
@@ -214,7 +234,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``build/``), so the heuristic's designs run there, as their design
     counts require; phase 5 prints its median step so and the dispatch's
     host cost (a memoised hit against ``gemv_variant``'s ``lru_cache``);
-19. prints the kernels' JSON line, then as the last line
+21. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -378,6 +398,22 @@ GRANITE_CUT_LAYERS = 2
 GRANITE_TRAIN_DEPTHS = (14, 12)
 ZAMBA_TRAIN_LAYERS = 12
 ZAMBA_REPLAY_TOL = 5e-2
+#: phase 18: whisper's long prompt (a 3072 x 3072 self-attention and a
+#: 3072 x 1500 cross-attention: both past the chunked path's 2048**2) and
+#: its replay cache's slots
+WHISPER_LONG_PROMPT = 3072
+WHISPER_CACHE = 256
+#: phase 19: llava's text after its 576 image tokens (the prefill of the
+#: first 191 against the prefill of all 192), the wrap's first position in
+#: the 4096-slot window, the depth of the card-against-CPU cut, and the
+#: depths its training tries, deepest first, at seq 1024 (576 image + 448
+#: text tokens; after phases 3-18, 6 layers fit an 80 GB card at a 67.92
+#: GiB peak: the depth that fits moves with what the allocator holds)
+LLAVA_TEXT = 192
+LLAVA_WRAP_POS = 4092
+LLAVA_CUT_LAYERS = 2
+LLAVA_TRAIN_DEPTHS = (7, 6, 5)
+LLAVA_TRAIN_SEQ = 1024
 #: the paper CNN's image (H, W) at full size (printed W x H, as the paper), and the small image of the
 #: checks and of the plain versions' timing
 FULL_HW = (768, 1024)
@@ -4086,7 +4122,9 @@ def _layers_cut(torch, params, n):
 
 def _card_vs_cpu_train_step(torch, arch, out):
     """One smoke-config train step on the card and on the CPU (the port on
-    both): the loss and the gradients' global norm within 2e-2."""
+    both; whisper's batch with its frames, llava's with its image
+    embeddings and the text after them): the loss and the gradients'
+    global norm within 2e-2."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import make_train_step
@@ -4096,8 +4134,15 @@ def _card_vs_cpu_train_step(torch, arch, out):
 
     probe = AdamWConfig(lr=0.0, weight_decay=0.0, b1=0.0, clip_norm=0.0)
     scfg = get_smoke_config(arch)
-    sb = SyntheticLM(vocab=scfg.vocab, seq_len=64, global_batch=4,
-                     seed=5).batch(0)
+    # the modality stubs and the image config's text slice, as the
+    # trainer builds its batches
+    sb = SyntheticLM(vocab=scfg.vocab, seq_len=64, global_batch=4, seed=5,
+                     memory_len=scfg.encoder_len if scfg.encoder_layers
+                     else 0, img_tokens=scfg.n_img_tokens,
+                     d_model=scfg.d_model).batch(0)
+    if scfg.n_img_tokens:
+        for k in ("tokens", "labels", "loss_mask"):
+            sb[k] = sb[k][:, :64 - scfg.n_img_tokens]
     runs = {}
     for dev in ("cuda", "cpu"):
         p = materialize(build_model(scfg).param_specs(), 0, device=dev)
@@ -4117,14 +4162,17 @@ def _card_vs_cpu_train_step(torch, arch, out):
     out["card_vs_cpu"] = {"card": g, "cpu": c}
 
 
-def _train_cut(torch, cfg, holder, depths, what, out, steps=4):
+def _train_cut(torch, cfg, holder, depths, what, out, steps=4, seq=128,
+               batch=8):
     """``launch.train.run`` at the deepest of ``depths`` that fits the card,
     from the drawn parameters in ``holder["params"]`` (cut to that depth;
     redrawn on the card if a deeper try ran out of memory and consumed
-    them).  Requires every loss finite; records the step, tokens/s, peak
-    memory and one step's device time."""
+    them), on ``batch`` sequences of ``seq`` tokens (an image config's
+    image tokens among them).  Requires every loss finite; records the
+    step, tokens/s, peak memory and the depths that ran out of memory."""
     from repro_torch.models import build_model
 
+    oom_depths = []
     for depth in depths:
         ccfg = dataclasses.replace(cfg, n_layers=depth)
         params = holder.pop("params", None)
@@ -4135,7 +4183,7 @@ def _train_cut(torch, cfg, holder, depths, what, out, steps=4):
             params = _layers_cut(torch, params, depth)
             gc.collect()
             torch.cuda.empty_cache()
-        args = train_args(arch=cfg.name, steps=steps, seq=128, batch=8,
+        args = train_args(arch=cfg.name, steps=steps, seq=seq, batch=batch,
                           ckpt_dir=os.path.join(ROOT, "build",
                                                 f"smoke_ckpt_{cfg.name}"))
         log(f"{what}: {depth} layers from "
@@ -4154,6 +4202,7 @@ def _train_cut(torch, cfg, holder, depths, what, out, steps=4):
             if not oom:
                 raise
             log(f"{what}: {depth} layers do not fit the card; cutting")
+            oom_depths.append(depth)
             continue
         losses = res["losses"]
         med = statistics.median(res["step_seconds"][1:])
@@ -4166,6 +4215,7 @@ def _train_cut(torch, cfg, holder, depths, what, out, steps=4):
                 f"{what}: non-finite or missing losses {losses}")
         aux = [l for l in text.splitlines() if "load_balance" in l]
         out["train"] = {"layers": depth, "full_layers": cfg.n_layers,
+                        "oom_layers": oom_depths, "seq": seq, "batch": batch,
                         "losses": losses, "median_step_s": med,
                         "step_seconds": res["step_seconds"],
                         "tokens_per_s": toks / med, "peak_bytes": peak,
@@ -4489,7 +4539,370 @@ def hybrid_family(torch, ops, report):
 
 
 # ----------------------------------------------------------------------------
-# phase 18: the design cache
+# phase 18: the audio family (whisper-medium)
+# ----------------------------------------------------------------------------
+
+
+def _decode_steps(torch, step, params, cache, tok, vocab, what, n=8):
+    """``n`` decode steps from ``cache``, the first on ``tok [B, 1]``, then
+    greedy: each step's host time (synchronised), one more step's device
+    time and launches from a profile, the peak memory of the steps.
+    Returns ``(record, logits, cache)``."""
+    torch.cuda.reset_peak_memory_stats()
+    secs, toks = [], []
+    with torch.no_grad():
+        for i in range(n):
+            if i:
+                tok = logits[:, :vocab].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = step(params, cache, tok)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            toks.append(tok[:, 0].tolist())
+        tok = logits[:, :vocab].argmax(-1)[:, None]
+        dev_s, dev_n, top = step_profile(
+            torch, lambda: step(params, cache, tok))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(secs)
+    b = logits.shape[0]
+    log(f"{what} at B = {b}: steps "
+        + ", ".join(f"{s * 1e3:.1f}" for s in secs)
+        + f" ms (median {med * 1e3:.1f}, {b / med:.1f} tokens/s); one step "
+        f"{dev_s * 1e3:.3f} ms of device time in {dev_n} launches "
+        f"({100 * dev_s / med:.1f}% busy); peak {peak / 2**30:.2f} GiB; top "
+        + "; ".join(f"{k[:40]} x{c} {t / 1e3:.3f} ms" for k, c, t in top))
+    require(bool(torch.isfinite(logits.float()).all()),
+            f"{what}: non-finite logits")
+    return ({"step_seconds": secs, "median_step_s": med,
+             "step_device_s": dev_s, "step_device_launches": dev_n,
+             "peak_bytes": peak, "tokens": toks, "top": top},
+            logits, cache)
+
+
+def _family_params(torch, name, seed, out):
+    """The full config of ``name``, its model and seeded float32
+    parameters drawn on the card (count and seconds logged)."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.models import build_model
+
+    cfg = get_config(name)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = device_params(torch, model.param_specs(), seed)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"{name}: {cfg.n_layers} decoder layers"
+        + (f" + {cfg.encoder_layers} encoder layers over "
+           f"{cfg.encoder_len} frames" if cfg.encoder_layers else "")
+        + (f", {cfg.n_img_tokens} image tokens, window {cfg.window}"
+           if cfg.n_img_tokens else "")
+        + f", d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n / 1e9:.3f} B float32 "
+        f"parameters ({4 * n / 1e9:.2f} GB, drawn on the card in "
+        f"{draw_s:.1f} s)")
+    out["params"], out["draw_s"] = n, draw_s
+    return cfg, model, params
+
+
+def audio_family(torch, ops, report):
+    """whisper-medium at its published width and depth (24 encoder and 24
+    decoder layers, d 1024, 16 heads, d_ff 4096, vocab 51865, LayerNorm
+    and GELU, sinusoidal positions; 1500 seeded stub frames; seeded
+    float32 weights drawn on the card once, bfloat16 compute):
+
+    * ``prefill`` of 192 text tokens with the frames at B = 1 and B = 4,
+      each against a decode replay of the same tokens from a
+      ``WHISPER_CACHE``-slot cache holding the prefill's ``cross_kv`` (the
+      last logits within 2e-2 of the largest, argmax equal or a
+      near-tie); then 8 ``make_decode_step`` steps at B = 4 from the
+      replay's cache (each step's time, one step's device time and
+      launches, the busy share, peak memory);
+    * a ``WHISPER_LONG_PROMPT``-token prefill, whose decoder
+      self-attention and cross-attention take the chunked path (counted),
+      against the same prefill with ``_CHUNK_THRESHOLD`` raised so that
+      both take the dense one (2e-2);
+    * ``launch.train.run`` at full width and depth: 128 text tokens and
+      the frames, batch 8, 4 steps, every loss finite;
+    * one smoke train step on the card against the CPU (2e-2).
+
+    Returns the path's launches (none: the reference computes the
+    encoder, the cross-attention and the norms outside any Pallas
+    kernel)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.nn import attention as attn
+
+    out = {}
+    ops.reset_launches()
+    cfg, model, params = _family_params(torch, "whisper-medium", 600, out)
+    V = cfg.vocab
+    gen = torch.Generator().manual_seed(37)
+
+    def frames(b):
+        return torch.randn((b, cfg.encoder_len, cfg.d_model),
+                           generator=gen).cuda()
+
+    prefill = make_prefill_step(cfg)
+    step = make_decode_step(cfg)
+    out["replay"] = {}
+    for b in (1, B):
+        batch = {"tokens": torch.randint(0, V, (b, REPLAY_PROMPT),
+                                         generator=gen).cuda(),
+                 "memory": frames(b)}
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre, pcache = prefill(params, batch)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            cache = device_params(torch, model.cache_specs(b, WHISPER_CACHE),
+                                  0)
+            cache["pos"], cache["cross_kv"] = 0, pcache["cross_kv"]
+            del pcache
+            t0 = time.perf_counter()
+            for t in range(REPLAY_PROMPT):
+                logits, cache = step(params, cache,
+                                     batch["tokens"][:, t:t + 1])
+            torch.cuda.synchronize()
+            rep_s = time.perf_counter() - t0
+        err = _logits_agree(torch, f"whisper prefill of {b} x "
+                            f"{REPLAY_PROMPT} (+ {cfg.encoder_len} frames) "
+                            f"against its decode replay", pre[:, :V],
+                            logits[:, :V], near_tie=True)
+        log(f"  prefill {pre_s * 1e3:.1f} ms (the encoder included); replay "
+            f"{REPLAY_PROMPT} steps {rep_s:.2f} s")
+        out["replay"][b] = {"prefill_s": pre_s, "replay_s": rep_s,
+                            "max_abs_err": err}
+        if b == B:
+            out["decode"], logits, cache = _decode_steps(
+                torch, step, params, cache, logits[:, :V].argmax(-1)[:, None],
+                V, "whisper decode")
+        del cache, pre, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the long prefill: the chunked path against the dense one
+    batch = {"tokens": torch.randint(0, V, (1, WHISPER_LONG_PROMPT),
+                                     generator=gen).cuda(),
+             "memory": frames(1)}
+    chunked_calls = []
+    orig, orig_t = attn._sdpa_chunked, attn._CHUNK_THRESHOLD
+
+    def spy(*a, **k):
+        chunked_calls.append(a[1].shape[1] if len(a) > 1 else None)
+        return orig(*a, **k)
+
+    runs = {}
+    try:
+        attn._sdpa_chunked = spy
+        for path, threshold in (("chunked", orig_t), ("dense", 1 << 62)):
+            attn._CHUNK_THRESHOLD = threshold
+            n0 = len(chunked_calls)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, _ = prefill(params, batch)
+            torch.cuda.synchronize()
+            runs[path] = {"s": time.perf_counter() - t0,
+                          "chunked_calls": len(chunked_calls) - n0,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "logits": logits[:, :V].float()}
+    finally:
+        attn._sdpa_chunked, attn._CHUNK_THRESHOLD = orig, orig_t
+    err = _logits_agree(torch, f"whisper prefill of {WHISPER_LONG_PROMPT} "
+                        f"tokens, chunked against dense",
+                        runs["chunked"]["logits"], runs["dense"]["logits"],
+                        near_tie=True)
+    log("  " + "; ".join(f"{p} {r['s'] * 1e3:.1f} ms, {r['chunked_calls']} "
+                         f"chunked calls, peak {r['peak_bytes'] / 2**30:.2f} "
+                         f"GiB" for p, r in runs.items()))
+    require(runs["chunked"]["chunked_calls"] == 2 * cfg.n_layers
+            and runs["dense"]["chunked_calls"] == 0,
+            f"whisper long prefill: chunked calls "
+            f"{runs['chunked']['chunked_calls']} (want {2 * cfg.n_layers}: "
+            f"the self- and the cross-attention of every decoder layer) and "
+            f"{runs['dense']['chunked_calls']} with the threshold raised")
+    out["long_prefill"] = {"tokens": WHISPER_LONG_PROMPT, "max_abs_err": err,
+                           **{p: {k: v for k, v in r.items()
+                                  if k != "logits"}
+                              for p, r in runs.items()}}
+    del runs, logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    holder = {"params": params}
+    del params
+    _train_cut(torch, cfg, holder, (cfg.n_layers,), "whisper train", out)
+    _card_vs_cpu_train_step(torch, "whisper-medium", out)
+    report["audio"] = out
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(launches == {}, f"the audio path launched PCILT kernels "
+                            f"{launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 19: the vlm family (llava-next-mistral-7b)
+# ----------------------------------------------------------------------------
+
+
+def _fed_decode(torch, cfg, params, cache, toks, dev):
+    """One decode step on ``dev`` for each ``[B, 1]`` token of ``toks``
+    (None: greedy from the previous step; the first must be given), from
+    ``cache`` copied there.  Returns each step's logits (float32, on the
+    host) and the tokens fed."""
+    from repro_torch.interop import tree_map
+    from repro_torch.launch.steps import make_decode_step
+
+    step = make_decode_step(cfg)
+    cache = tree_map(lambda a: a.to(dev) if torch.is_tensor(a) else a, cache)
+    seq, fed = [], []
+    with torch.no_grad():
+        for t in toks:
+            if t is None:
+                t = seq[-1].argmax(-1)[:, None]
+            fed.append(t.cpu())
+            logits, cache = step(params, cache, t.to(dev))
+            seq.append(logits[:, :cfg.vocab].float().cpu())
+    return seq, fed
+
+
+def vlm_family(torch, ops, report):
+    """llava-next-mistral-7b at its published width and depth (32 layers,
+    d 4096, 32 heads over 8 KV heads, d_ff 14336, vocab 32000, a window of
+    4096; 576 seeded stub image embeddings; seeded float32 weights drawn on
+    the card once, bfloat16 compute):
+
+    * a ``prefill`` of the 576 image embeddings and 191 text tokens at B =
+      1, its K/V copied into the first 767 slots of a 4096-slot window
+      cache, one ``decode_step`` on text token 192, against the last
+      logits of the prefill of all 192 (2e-2 of the largest, argmax equal
+      or a near-tie);
+    * 8 decode steps at B = 4 from a 4096-slot cache of seeded K/V whose
+      ``pos`` starts at ``LLAVA_WRAP_POS``, so the rolling buffer wraps
+      (each step's time, one step's device time and launches, the busy
+      share, peak memory);
+    * the same wrap at ``LLAVA_CUT_LAYERS`` layers, full width, on the card
+      against the port on the CPU (the card's tokens fed to both; 2e-2);
+    * ``launch.train.run`` at the deepest of ``LLAVA_TRAIN_DEPTHS`` that
+      fits, on ``LLAVA_TRAIN_SEQ`` positions (576 image + 448 text), batch
+      8, 4 steps, every loss finite; the depths that ran out of memory
+      logged;
+    * one smoke train step on the card against the CPU (2e-2).
+
+    Returns the path's launches (none: the reference computes the
+    projector, the fusion and the windowed attention outside any Pallas
+    kernel)."""
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    out = {}
+    ops.reset_launches()
+    cfg, model, params = _family_params(torch, "llava-next-mistral-7b", 700,
+                                        out)
+    V, n_img = cfg.vocab, cfg.n_img_tokens
+    gen = torch.Generator().manual_seed(41)
+    img = torch.randn((1, n_img, cfg.d_model), generator=gen).cuda()
+    text = torch.randint(0, V, (1, LLAVA_TEXT), generator=gen).cuda()
+    prefill = make_prefill_step(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = prefill(params, {"tokens": text, "img_embeds": img})
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        _, pre = prefill(params, {"tokens": text[:, :-1], "img_embeds": img})
+        n = pre["pos"]
+        cache = device_params(torch, model.cache_specs(1, cfg.window), 0)
+        for name in ("k", "v"):
+            cache["layers"]["sub0"][name][:, :, :n] = \
+                pre["layers"]["sub0"][name]
+        cache["pos"] = n
+        del pre
+        got, cache = make_decode_step(cfg)(params, cache, text[:, -1:])
+    slots = cache["layers"]["sub0"]["k"].shape[2]
+    require(n == n_img + LLAVA_TEXT - 1 and slots == cfg.window
+            and cache["pos"] == n + 1,
+            f"llava window cache: pos {n}, {slots} slots")
+    err = _logits_agree(torch, f"llava decode of text token {LLAVA_TEXT} "
+                        f"after a prefill of {n_img} image + "
+                        f"{LLAVA_TEXT - 1} text tokens, in a {slots}-slot "
+                        f"window cache, against the prefill of all "
+                        f"{LLAVA_TEXT}", got[:, :V], want[:, :V],
+                        near_tie=True)
+    log(f"  prefill of {n_img + LLAVA_TEXT} positions {pre_s * 1e3:.1f} ms")
+    out["prefill_then_decode"] = {"positions": n + 1, "prefill_s": pre_s,
+                                  "max_abs_err": err}
+    del cache, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the wrap at B = 4: a full window of seeded K/V, pos near its end
+    kv_gen = torch.Generator(device="cuda").manual_seed(43)
+    cache = device_params(torch, model.cache_specs(B, cfg.window), 0)
+    for t in tree_leaves(cache["layers"]):
+        t.normal_(generator=kv_gen)
+    cache["pos"] = LLAVA_WRAP_POS
+    cut_cache = tree_map(lambda a: a[:LLAVA_CUT_LAYERS].clone()
+                         if torch.is_tensor(a) else a, cache)
+    tok0 = torch.randint(0, V, (B, 1), generator=gen).cuda()
+    out["decode"], logits, cache = _decode_steps(
+        torch, make_decode_step(cfg), params, cache, tok0, V,
+        f"llava decode from pos {LLAVA_WRAP_POS} of a {cfg.window}-slot "
+        f"window (wraps at step {cfg.window - LLAVA_WRAP_POS + 1})")
+    require(cache["pos"] == LLAVA_WRAP_POS + 8,
+            f"llava decode: pos {cache['pos']}")
+    out["decode"]["kv_cache_bytes"] = sum(
+        t.numel() * t.element_size() for t in tree_leaves(cache["layers"]))
+    del cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same wrap at 2 layers, full width: card against CPU
+    cut = dataclasses.replace(cfg, n_layers=LLAVA_CUT_LAYERS)
+    cp = _layers_cut(torch, params, LLAVA_CUT_LAYERS)
+    card, fed = _fed_decode(torch, cut, cp, cut_cache, [tok0] + [None] * 7,
+                            "cuda")
+    cpu_p = tree_map(lambda a: a.cpu(), cp)
+    del cp
+    t0 = time.perf_counter()
+    host, _ = _fed_decode(torch, cut, cpu_p, cut_cache, fed, "cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = []
+    for i, (g, c) in enumerate(zip(card, host)):
+        e = float((g - c).abs().max())
+        tol = 2e-2 * float(c.abs().max())
+        errs.append((e, tol))
+        require(bool(torch.isfinite(g).all()) and e <= tol,
+                f"llava {LLAVA_CUT_LAYERS}-layer wrap step {i}: card against "
+                f"CPU max |d| {e:.3e} > {tol:.3e}")
+    log(f"llava at full width, {LLAVA_CUT_LAYERS} layers, the wrap from pos "
+        f"{LLAVA_WRAP_POS}, card against CPU ({cpu_s:.1f} s on the CPU): 8 "
+        f"steps max |d| / tol "
+        + ", ".join(f"{e:.3e}/{t:.3e}" for e, t in errs))
+    out["card_vs_cpu_cut"] = {"layers": LLAVA_CUT_LAYERS, "errs": errs,
+                              "cpu_s": cpu_s}
+    del cpu_p, cut_cache, card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    holder = {"params": params}
+    del params
+    _train_cut(torch, cfg, holder, LLAVA_TRAIN_DEPTHS, "llava train", out,
+               seq=LLAVA_TRAIN_SEQ)
+    _card_vs_cpu_train_step(torch, "llava-next-mistral-7b", out)
+    report["vlm"] = out
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(launches == {}, f"the vlm path launched PCILT kernels "
+                            f"{launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 20: the design cache
 # ----------------------------------------------------------------------------
 
 
@@ -4672,7 +5085,7 @@ def autotune_phase(torch, ops, report):
 
 
 def autotune_warm(path):
-    """The second process of phase 18: ``tune`` the 4-bit and paired decodes
+    """The second process of phase 20: ``tune`` the 4-bit and paired decodes
     on the warm file (counting timed runs), then serve the 4-bit engine's
     requests through the warm cache and through an empty one; prints one
     JSON line."""
@@ -4818,7 +5231,8 @@ def main() -> int:
     for phase in (serve, paper_cnn, serve_paired, paired_parity,
                   single_layers, plans_and_extensions, learnable,
                   resilience, dense_serving, training, dense_configs,
-                  moe_family, hybrid_family, autotune_phase):
+                  moe_family, hybrid_family, audio_family, vlm_family,
+                  autotune_phase):
         count(phase)
     step = report["serve"]["step_compare"]
     rows["window counters"].update(

@@ -1,5 +1,4 @@
-"""Architecture registry: ``--arch <id>`` resolution (the dense, MoE, SSM
-and hybrid families so far)."""
+"""Architecture registry: ``--arch <id>`` resolution."""
 
 import importlib
 
@@ -12,7 +11,9 @@ _MODULES = {
     "qwen1.5-4b": "qwen15_4b",
     "qwen2.5-3b": "qwen25_3b",
     "qwen3-0.6b": "qwen3_06b",
+    "whisper-medium": "whisper_medium",
     "mamba2-130m": "mamba2_130m",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "zamba2-7b": "zamba2_7b",
 }
 
@@ -21,7 +22,7 @@ ARCHS = tuple(_MODULES)
 
 def _mod(name: str):
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -1,10 +1,8 @@
-"""Config dataclasses (port of the dense, MoE, Mamba and hybrid parts of
-``repro.configs.base``).
+"""Config dataclasses (port of the model parts of ``repro.configs.base``).
 
 The fields mirror the reference's, in its order as far as ``pos_embed``
 (a positional config binds the same fields in both packages); the rest are
-keyword-only, in the reference's order.  Dtypes are torch dtypes.  The
-encoder-decoder and image-token fields wait for their families.
+keyword-only, in the reference's order.  Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
@@ -56,7 +54,7 @@ class PCILTConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid (ported so far)
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -69,13 +67,16 @@ class ModelConfig:
     qk_norm: bool = False
     window: int = 0              # sliding-window size (0 = full attention)
     rope_theta: float = 10000.0
-    pos_embed: str = "rope"      # rope | none (sinusoidal waits for whisper)
+    pos_embed: str = "rope"      # rope | sinusoidal | none
     # every field from here on is keyword-only (in the reference's order)
     _: dataclasses.KW_ONLY
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     shared_attn_period: int = 0  # zamba2: shared attention every N blocks
     n_shared_attn_blocks: int = 2
+    encoder_layers: int = 0      # whisper: encoder blocks (0: decoder-only)
+    encoder_len: int = 1500      # whisper: encoder frames
+    n_img_tokens: int = 0        # llava: image tokens placed before the text
     # head-count padding, part of the config so parameter shapes do not
     # depend on a mesh
     pad_heads_to: int = 0
@@ -104,6 +105,12 @@ class ModelConfig:
     @property
     def attention_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Decode memory that does not grow with the context: a state
+        space model, or a sliding window."""
+        return self.family in ("ssm", "hybrid") or self.window > 0
 
     @property
     def padded_vocab(self) -> int:

@@ -61,9 +61,10 @@ counters.
 
 The MoE family (granite-moe-3b-a800m, llama4-maverick-400b-a17b) serves
 through the same dense decode step.  The hybrid family (zamba2-7b) does not
-serve here, as it does not in the reference (see :class:`Engine`).  Still
-to port: the reference's audio and image-token model families and its
-mesh.
+serve here, as it does not in the reference (see :class:`Engine`).  The
+CLI refuses whisper-medium and llava-next-mistral-7b with the reference's
+message; the :class:`Engine` serves them as the reference's does.  Still
+to port: the reference's mesh.
 """
 
 from __future__ import annotations
@@ -150,7 +151,15 @@ class Engine:
     have (``{"ssm", "attn", "pos"}``), so the JAX engine fails with a
     ``KeyError`` at its first slot reset; the port raises at
     construction instead.  Hybrid models run through their ``prefill`` and
-    ``decode_step`` and the trainer."""
+    ``decode_step`` and the trainer.
+
+    The audio and vlm families serve as the reference's engine serves
+    them, text only: whisper decodes against the all-zero ``cross_kv`` of
+    ``cache_specs`` (no encoder runs: its cross-attention adds nothing),
+    and llava's requests carry no image.  A checkpoint clones the whole
+    cache, ``cross_kv`` included; a slot reset zeroes ``cache["layers"]``
+    only.  The CLI (:func:`main`) refuses both families, as the
+    reference's does."""
 
     def __init__(self, cfg, max_len: int = 256, slots: int = 4, *,
                  pcilt: bool = False,
@@ -918,6 +927,8 @@ def main(argv=None):
     logging.basicConfig(level=logging.WARNING)
     resolve_device(args.device)  # CUDA unless asked for the CPU
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if cfg.n_img_tokens or cfg.encoder_layers:
+        raise SystemExit("serve demo targets text decoder archs")
     if args.pcilt:
         if cfg.ssm is None:
             raise SystemExit("--pcilt serves the converted Mamba decode "

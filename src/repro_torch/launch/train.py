@@ -4,6 +4,9 @@
     python -m repro_torch.launch.train --device cpu      # on the CPU
     python -m repro_torch.launch.train --full            # qwen3-0.6b, 28L
     python -m repro_torch.launch.train --arch granite-moe-3b-a800m --device cpu
+    python -m repro_torch.launch.train --arch whisper-medium --device cpu
+    python -m repro_torch.launch.train --arch llava-next-mistral-7b --seq 64 \
+        --device cpu
 
 Materializes seeded parameters, then runs the supervised train loop: AdamW
 on a cosine schedule over the seeded synthetic corpus, a step watchdog,
@@ -12,6 +15,13 @@ after a step fault (``--fail-at`` injects them).  Batches are a pure
 function of the step, so a run that restarts ends on the same parameters
 as one that does not.  Runs on the card unless ``--device cpu``.  An MoE
 config also logs its routers' load-balance and z losses.
+
+The modality frontends are stubs, as the reference's: whisper's batches
+carry ``memory`` (``encoder_len`` seeded frame embeddings), llava's
+``img_embeds`` (``n_img_tokens`` seeded patch embeddings), and llava's
+``--seq`` counts them, so its text is ``seq - n_img_tokens`` tokens (the
+reference's slice of tokens, labels and mask); a ``--seq`` that leaves no
+text is refused.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from repro_torch.nn.module import count_params, materialize
 from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
 from repro_torch.runtime import FaultInjector, Supervisor
 
-__all__ = ["main", "parse_args", "run"]
+__all__ = ["main", "parse_args", "run", "batch_source"]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -56,6 +66,35 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def batch_source(cfg, args):
+    """``batch_for(step) -> {name: numpy array}``: the seeded corpus's
+    batch of a step at ``args.seq`` and ``args.batch``, with the config's
+    modality stubs (whisper's ``memory``, llava's ``img_embeds``); an
+    image config's ``tokens``, ``labels`` and ``loss_mask`` cut to the
+    ``args.seq - n_img_tokens`` text positions.  A pure function of the
+    step.  Refuses a ``--seq`` that leaves no text."""
+    text = args.seq - cfg.n_img_tokens
+    if cfg.n_img_tokens and text <= 0:
+        raise ValueError(
+            f"--seq {args.seq} leaves no text after the {cfg.n_img_tokens} "
+            f"image tokens of {cfg.name}: its loss is over the text; give "
+            f"--seq above {cfg.n_img_tokens}")
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
+                       global_batch=args.batch,
+                       memory_len=cfg.encoder_len if cfg.encoder_layers
+                       else 0,
+                       img_tokens=cfg.n_img_tokens, d_model=cfg.d_model)
+
+    def batch_for(step):
+        b = data.batch(step)
+        if cfg.n_img_tokens:  # the image tokens take the front of --seq
+            for k in ("tokens", "labels", "loss_mask"):
+                b[k] = b[k][:, :text]
+        return b
+
+    return batch_for
+
+
 def run(cfg, args, *, params=None) -> dict:
     """The supervised train loop of ``cfg`` as ``args`` set it up, from
     ``params`` (else parameters drawn from seed 0; the given tree is not
@@ -66,6 +105,7 @@ def run(cfg, args, *, params=None) -> dict:
     run (replayed steps again), each step synchronised by reading its
     loss."""
     dev = resolve_device(args.device)
+    host_batch = batch_source(cfg, args)
     t_setup = time.perf_counter()
     model = build_model(cfg)
     specs = model.param_specs()
@@ -76,8 +116,6 @@ def run(cfg, args, *, params=None) -> dict:
     ocfg = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps),
                        weight_decay=0.01)
     opt_state = adamw_init(params, ocfg)
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
-                       global_batch=args.batch)
     step_fn = make_train_step(cfg, ocfg)
     ckpt = Checkpointer(args.ckpt_dir, keep=2)
     injector = FaultInjector(args.fail_at)
@@ -87,7 +125,7 @@ def run(cfg, args, *, params=None) -> dict:
 
     def batch_for(step):
         return {k: torch.from_numpy(v).to(dev)
-                for k, v in data.batch(step).items()}
+                for k, v in host_batch(step).items()}
 
     def run_step(state, step):
         injector.maybe_fail(step)

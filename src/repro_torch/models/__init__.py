@@ -1,5 +1,6 @@
-"""repro_torch.models — the ported model families (dense and MoE
-transformers, Mamba2, the Zamba2-style hybrid) and the paper's CNN."""
+"""repro_torch.models — the model families (dense and MoE transformers,
+whisper's encoder-decoder, llava's image-token fusion, Mamba2, the
+Zamba2-style hybrid) and the paper's CNN."""
 
 from .cnn import PaperCNN
 from .hybrid import HybridLM
@@ -14,7 +15,6 @@ def build_model(cfg):
         return MambaLM(cfg)
     if cfg.family == "hybrid":
         return HybridLM(cfg)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
         return TransformerLM(cfg)
-    raise ValueError(f"family {cfg.family!r} is not ported yet (dense, moe, "
-                     f"ssm and hybrid are)")
+    raise ValueError(f"unknown family {cfg.family!r}")

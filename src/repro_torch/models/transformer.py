@@ -1,5 +1,6 @@
-"""Decoder-only transformer, the dense and MoE families (port of
-``repro.models.transformer``).
+"""Transformers: decoder-only (the dense and MoE families), whisper's
+encoder-decoder (audio) and llava's image-token fusion (vlm); port of
+``repro.models.transformer``.
 
 Layers are stored stacked in units of ``cfg.moe.interleave`` blocks
 (``sub0`` .. ``sub{u-1}``, ``[n_units, ...]`` per parameter, as the
@@ -16,17 +17,25 @@ An MoE block routes its tokens through ``nn.moe`` (plus the always-on
 routers' load-balance and z losses, averaged over the units, and reports
 them in its metrics.
 
-Training: :meth:`TransformerLM.loss` applies ``cfg.remat_policy`` to each
-unit (``nn.module.remat``) and :func:`chunked_ce_loss` checkpoints each
-vocabulary-loss chunk, as the reference's ``jax.checkpoint`` does.
+The audio family (whisper) uses LayerNorm and a tanh GELU MLP with biases,
+sinusoidal positions added to the embeddings, and an encoder of
+non-causal blocks over the stub frame embeddings ``batch["memory"] [B, F,
+d]``; each decoder block adds a cross-attention to per-layer K/V projected
+from the encoder's output once (``cross_kv``, bfloat16, carried in the
+decode cache).  The vlm family (llava) projects ``batch["img_embeds"]
+[B, n_img_tokens, d]`` (``gelu(w1)``, then ``w2``) and places them before
+the text; the loss is over the text positions only.
 
-Not ported yet: the ``audio`` and ``vlm`` families (cross-attention, the
-encoder, image tokens), which raise.
+Training: :meth:`TransformerLM.loss` applies ``cfg.remat_policy`` to each
+unit and encoder block (``nn.module.remat``) and :func:`chunked_ce_loss`
+checkpoints each vocabulary-loss chunk, as the reference's
+``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -34,7 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.nn.attention import attention, attention_spec, init_cache_specs
 from repro_torch.nn.layers import (dense, dense_spec, embed, embed_spec,
-                                   rmsnorm, rmsnorm_spec)
+                                   layernorm, layernorm_spec, rmsnorm,
+                                   rmsnorm_spec, sinusoidal_positions)
 from repro_torch.nn.moe import moe_apply, moe_spec
 from repro_torch.nn.module import ParamSpec, layer_view, remat, stack_specs
 
@@ -42,24 +52,48 @@ __all__ = ["TransformerLM", "mlp_spec", "mlp", "block_spec", "block_apply",
            "chunked_ce_loss"]
 
 
+def _use_ln(cfg) -> bool:
+    return cfg.family == "audio"  # whisper: LayerNorm and GELU
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s default, the tanh form, step by step in
+    ``x.dtype`` (each step rounded, as XLA rounds a bfloat16 one)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float64) \
+        .to(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
 def mlp_spec(cfg, dtype=torch.float32):
     d, f = cfg.d_model, cfg.d_ff
+    if _use_ln(cfg):
+        return {"wi": dense_spec(d, f, bias=True, dtype=dtype),
+                "wo": dense_spec(f, d, bias=True, dtype=dtype)}
     return {"wg": dense_spec(d, f, dtype=dtype),
             "wu": dense_spec(d, f, dtype=dtype),
             "wd": dense_spec(f, d, dtype=dtype)}
 
 
 def mlp(params, cfg, x):
-    """The gated SiLU MLP in ``cfg.dtype``."""
+    """In ``cfg.dtype``: whisper's GELU MLP (``wi``, ``wo``, with biases),
+    else the gated SiLU MLP."""
+    if "wi" in params:
+        return dense(params["wo"], _gelu(dense(params["wi"], x, cfg.dtype)),
+                     cfg.dtype)
     g = dense(params["wg"], x, cfg.dtype)
     u = dense(params["wu"], x, cfg.dtype)
     return dense(params["wd"], F.silu(g) * u, cfg.dtype)
 
 
-def block_spec(cfg, use_moe: bool = False, *, dtype=torch.float32):
-    p = {"ln_attn": rmsnorm_spec(cfg.d_model, dtype),
+def block_spec(cfg, use_moe: bool = False, cross: bool = False, *,
+               dtype=torch.float32):
+    norm = layernorm_spec if _use_ln(cfg) else rmsnorm_spec
+    p = {"ln_attn": norm(cfg.d_model, dtype),
          "attn": attention_spec(cfg, dtype=dtype),
-         "ln_mlp": rmsnorm_spec(cfg.d_model, dtype)}
+         "ln_mlp": norm(cfg.d_model, dtype)}
+    if cross:
+        p["ln_cross"] = norm(cfg.d_model, dtype)
+        p["cross"] = attention_spec(cfg, dtype=dtype)
     if use_moe:
         p["moe"] = moe_spec(cfg, dtype)
         if cfg.moe.shared_expert:
@@ -69,18 +103,28 @@ def block_spec(cfg, use_moe: bool = False, *, dtype=torch.float32):
     return p
 
 
-def block_apply(params, cfg, x, positions, *,
-                cache: Optional[Dict] = None
+def _norm(params, cfg, x):
+    return (layernorm if _use_ln(cfg) else rmsnorm)(params, x, cfg.norm_eps)
+
+
+def block_apply(params, cfg, x, positions, causal: bool = True,
+                cache: Optional[Dict] = None, cross_kv=None
                 ) -> Tuple[torch.Tensor, Dict, Dict]:
-    """One pre-norm causal block: ``(x, cache, aux)``, the cache as
+    """One pre-norm block: ``(x, cache, aux)``, the cache as
     :func:`attention` returns it and ``aux`` the router losses of an MoE
-    block (empty for a dense one)."""
+    block (empty for a dense one).  ``cross_kv=(k, v)`` adds whisper's
+    cross-attention after the self-attention."""
     aux = {}
     h, new_cache = attention(params["attn"], cfg,
-                             rmsnorm(params["ln_attn"], x, cfg.norm_eps),
-                             positions, cache=cache)
+                             _norm(params["ln_attn"], cfg, x),
+                             positions, causal=causal, cache=cache)
     x = x + h
-    xn = rmsnorm(params["ln_mlp"], x, cfg.norm_eps)
+    if cross_kv is not None:
+        h, _ = attention(params["cross"], cfg,
+                         _norm(params["ln_cross"], cfg, x), positions,
+                         causal=False, cross_kv=cross_kv)
+        x = x + h
+    xn = _norm(params["ln_mlp"], cfg, x)
     if "moe" in params:
         h, aux = moe_apply(params["moe"], cfg, xn)
         if "shared_mlp" in params:
@@ -128,17 +172,18 @@ def chunked_ce_loss(logits_fn, x, labels, mask, chunk: int):
     return ce / denom, z / denom
 
 
+def _cross_at(cross_kv, l):
+    """Layer ``l``'s ``(k, v)`` of stacked cross K/V (None without)."""
+    if cross_kv is None:
+        return None
+    return cross_kv["k"][l], cross_kv["v"][l]
+
+
 @dataclasses.dataclass
 class TransformerLM:
-    """Param specs + loss / prefill / decode for one dense or MoE config."""
+    """Param specs + loss / prefill / decode for one transformer config."""
 
     cfg: Any
-
-    def __post_init__(self):
-        if self.cfg.family not in ("dense", "moe"):  # audio and vlm
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (dense and "
-                f"moe are)")
 
     def _unit_size(self) -> int:
         return self.cfg.moe.interleave if self.cfg.moe else 1
@@ -151,32 +196,113 @@ class TransformerLM:
                 f"interleave unit size {u}")
         return self.cfg.n_layers // u
 
-    def _unit_spec(self):
+    def _unit_spec(self, cross=False):
         cfg, u = self.cfg, self._unit_size()
         return {f"sub{i}": block_spec(
-            cfg, cfg.moe is not None and i == u - 1, dtype=cfg.param_dtype)
+            cfg, cfg.moe is not None and i == u - 1, cross,
+            dtype=cfg.param_dtype)
             for i in range(u)}
 
     def param_specs(self):
         cfg = self.cfg
+        norm = layernorm_spec if _use_ln(cfg) else rmsnorm_spec
         p = {"embed": embed_spec(cfg.padded_vocab, cfg.d_model,
                                  cfg.param_dtype),
-             "blocks": stack_specs(self._unit_spec(), self._n_units()),
-             "ln_f": rmsnorm_spec(cfg.d_model, cfg.param_dtype)}
+             "blocks": stack_specs(
+                 self._unit_spec(cross=cfg.encoder_layers > 0),
+                 self._n_units()),
+             "ln_f": norm(cfg.d_model, cfg.param_dtype)}
         if not cfg.tie_embeddings:
             p["lm_head"] = {"kernel": ParamSpec(
                 (cfg.d_model, cfg.padded_vocab), cfg.param_dtype, "fan_in")}
+        if cfg.encoder_layers:
+            p["encoder"] = {
+                "blocks": stack_specs(
+                    {"sub0": block_spec(cfg, dtype=cfg.param_dtype)},
+                    cfg.encoder_layers),
+                "ln_f": norm(cfg.d_model, cfg.param_dtype)}
+        if cfg.n_img_tokens:
+            d = cfg.d_model
+            p["projector"] = {
+                "w1": dense_spec(d, d, bias=True, dtype=cfg.param_dtype),
+                "w2": dense_spec(d, d, bias=True, dtype=cfg.param_dtype)}
         return p
 
     def cache_specs(self, batch: int, max_len: int):
         """The decode cache's specs; ``pos`` materializes as a 0-d tensor,
-        which a caller may replace by a host int (the engine does)."""
+        which a caller may replace by a host int (the engine does).
+        whisper's adds ``cross_kv``: each decoder layer's cross K/V
+        ``[n_units, batch, encoder_len, Hk, Dh]``, bfloat16 zeros until a
+        prefill computes them."""
         cfg = self.cfg
         per_unit = {f"sub{i}": init_cache_specs(cfg, batch, max_len, 1,
                                                 layer_axis=False)
                     for i in range(self._unit_size())}
-        return {"layers": stack_specs(per_unit, self._n_units()),
-                "pos": ParamSpec((), torch.int32, "zeros")}
+        c = {"layers": stack_specs(per_unit, self._n_units()),
+             "pos": ParamSpec((), torch.int32, "zeros")}
+        if cfg.encoder_layers:
+            shape = (self._n_units(), batch, cfg.encoder_len,
+                     cfg.padded_kv_heads, cfg.resolved_head_dim)
+            c["cross_kv"] = {"k": ParamSpec(shape, torch.bfloat16, "zeros"),
+                             "v": ParamSpec(shape, torch.bfloat16, "zeros")}
+        return c
+
+    def _embed(self, params, tokens, img_embeds=None):
+        """Token embeddings ``[B, S, d]`` in ``cfg.dtype``; with image
+        embeddings (an image config), their projection placed first."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens, cfg.dtype)
+        if cfg.n_img_tokens and img_embeds is not None:
+            h = _gelu(dense(params["projector"]["w1"], img_embeds,
+                            cfg.dtype))
+            img = dense(params["projector"]["w2"], h, cfg.dtype)
+            x = torch.cat([img, x], 1)  # early fusion: the image first
+        return x
+
+    def _add_positions(self, x, offset=0):
+        """``x`` plus the sinusoidal positions from ``offset`` (in
+        ``cfg.dtype``) where the config uses them."""
+        cfg = self.cfg
+        if cfg.pos_embed != "sinusoidal":
+            return x
+        return x + sinusoidal_positions(x.shape[1], cfg.d_model, offset,
+                                        device=x.device).to(cfg.dtype)[None]
+
+    def _run_encoder(self, params, memory):
+        """whisper's encoder over the stub frame embeddings ``[B, F, d]``:
+        sinusoidal positions, the non-causal blocks (each under
+        ``cfg.remat_policy``), then the encoder's final norm."""
+        cfg = self.cfg
+        x = memory.to(cfg.dtype)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     device=x.device).to(cfg.dtype)[None]
+
+        def blk(h, p):
+            return block_apply(p["sub0"], cfg, h, None, causal=False)[0]
+
+        blk = remat(blk, cfg.remat_policy)
+        for l in range(cfg.encoder_layers):
+            x = blk(x, layer_view(params["encoder"]["blocks"], l))
+        return _norm(params["encoder"]["ln_f"], cfg, x)
+
+    def _cross_kv_from_memory(self, params, enc_out):
+        """Each decoder layer's cross K/V of the encoder's output, once a
+        request: ``{"k", "v" [n_units, B, F, Hk, Dh]}`` bfloat16."""
+        cfg = self.cfg
+        ks, vs = [], []
+        for l in range(self._n_units()):
+            p = layer_view(params["blocks"], l)["sub0"]["cross"]
+            ks.append(dense(p["wk"], enc_out, cfg.dtype).to(torch.bfloat16))
+            vs.append(dense(p["wv"], enc_out, cfg.dtype).to(torch.bfloat16))
+        return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    def _cross(self, params, batch):
+        """whisper's cross K/V of ``batch["memory"]`` (None for a
+        decoder-only config)."""
+        if not self.cfg.encoder_layers:
+            return None
+        return self._cross_kv_from_memory(
+            params, self._run_encoder(params, batch["memory"]))
 
     def _logits(self, params, x):
         cfg = self.cfg
@@ -184,9 +310,10 @@ class TransformerLM:
             return x @ params["embed"]["embedding"].to(cfg.dtype).T
         return dense(params["lm_head"], x, cfg.dtype)
 
-    def _unit(self, p, x, positions, cache_u=None, cache_pos=None):
+    def _unit(self, p, x, positions, cache_u=None, cache_pos=None,
+              xkv=None):
         """One unit's blocks in order: ``(x, {sub: cache}, aux summed over
-        the unit)``."""
+        the unit)``; ``xkv`` the unit's cross ``(k, v)``."""
         new_cache = {}
         aux = {"load_balance": torch.zeros((), device=x.device),
                "router_z": torch.zeros((), device=x.device)}
@@ -196,23 +323,27 @@ class TransformerLM:
             if cache_u is not None:
                 cache_in = dict(cache_u[sub], pos=cache_pos)
             x, nc, a = block_apply(p[sub], self.cfg, x, positions,
-                                   cache=cache_in)
+                                   cache=cache_in, cross_kv=xkv)
             new_cache[sub] = nc
             for n, v in a.items():
                 aux[n] = aux[n] + v
         return x, new_cache, aux
 
-    def _run_blocks(self, params, x, positions, caches=None, cache_pos=None):
+    def _run_blocks(self, params, x, positions, caches=None, cache_pos=None,
+                    cross_kv=None):
         """The units in order.  Returns ``(x, caches, aux)``: with
         ``caches`` (stacked decode KV) each unit's step against its view of
         them, else each unit's full-sequence K/V, both stacked ``[n_units,
-        ...]``; ``aux`` the router losses summed over the units."""
+        ...]``; ``aux`` the router losses summed over the units.
+        ``cross_kv`` (stacked ``{"k", "v"}``) feeds each unit's
+        cross-attention."""
         kv = {f"sub{i}": ([], []) for i in range(self._unit_size())}
         aux = None
         for l in range(self._n_units()):
             cache_u = None if caches is None else layer_view(caches, l)
             x, nc, a = self._unit(layer_view(params["blocks"], l), x,
-                                  positions, cache_u, cache_pos)
+                                  positions, cache_u, cache_pos,
+                                  _cross_at(cross_kv, l))
             aux = a if aux is None else {n: aux[n] + a[n] for n in aux}
             for sub, (ks, vs) in kv.items():
                 ks.append(nc[sub]["k"])
@@ -220,29 +351,45 @@ class TransformerLM:
         return x, {sub: {"k": torch.stack(ks), "v": torch.stack(vs)}
                    for sub, (ks, vs) in kv.items()}, aux
 
+    def _inputs(self, params, batch):
+        """The full sequence's embeddings (image first, positions added),
+        its positions ``[B, S_full]`` and whisper's cross K/V."""
+        x = self._embed(params, batch["tokens"], batch.get("img_embeds"))
+        B, S_full = x.shape[:2]
+        positions = torch.arange(S_full, device=x.device)[None] \
+            .expand(B, S_full)
+        return self._add_positions(x), positions, self._cross(params, batch)
+
     def loss(self, params, batch):
         """The training loss over ``batch`` (``tokens``, ``labels [B, S]``,
-        optional ``loss_mask``): ``(ce + 1e-4 * z [+ the MoE aux losses],
-        {"ce", "z", "load_balance", "router_z"})``; an MoE config adds
-        ``1e-2 * load_balance / n_units + 1e-3 * router_z / n_units``.
-        Each unit runs under ``cfg.remat_policy``; the values do not depend
-        on it."""
+        optional ``loss_mask``; whisper's ``memory``, llava's
+        ``img_embeds``): ``(ce + 1e-4 * z [+ the MoE aux losses], {"ce",
+        "z", "load_balance", "router_z"})``; an MoE config adds ``1e-2 *
+        load_balance / n_units + 1e-3 * router_z / n_units``.  An image
+        config's loss is over the text positions only, so its ``tokens``
+        must not be empty.  Each unit runs under ``cfg.remat_policy``; the
+        values do not depend on it."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed(params["embed"], tokens, cfg.dtype)
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        S = batch["tokens"].shape[1]
+        if cfg.n_img_tokens and S == 0:
+            raise ValueError(
+                "tokens must be longer than 0 after the image tokens: the "
+                "loss of an image config is over the text positions only")
+        x, positions, cross = self._inputs(params, batch)
 
-        def blk(x, p):
-            x, _, a = self._unit(p, x, positions)
+        def blk(x, p, *xkv):
+            x, _, a = self._unit(p, x, positions, xkv=xkv or None)
             return x, a["load_balance"], a["router_z"]
 
         blk = remat(blk, cfg.remat_policy)
         lb = rz = torch.zeros((), device=x.device)
         for l in range(self._n_units()):
-            x, a_lb, a_rz = blk(x, layer_view(params["blocks"], l))
+            xkv = _cross_at(cross, l) or ()
+            x, a_lb, a_rz = blk(x, layer_view(params["blocks"], l), *xkv)
             lb, rz = lb + a_lb, rz + a_rz
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        x = _norm(params["ln_f"], cfg, x)
+        if cfg.n_img_tokens:  # the image positions carry no loss
+            x = x[:, -S:]
         labels = batch["labels"]
         mask = batch.get("loss_mask")
         if mask is None:
@@ -257,32 +404,41 @@ class TransformerLM:
         return loss, {"ce": ce, "z": z, "load_balance": lb, "router_z": rz}
 
     def prefill(self, params, batch):
-        """Full-sequence forward over ``batch["tokens"] [B, S]``: the last
+        """Full-sequence forward over ``batch["tokens"] [B, S]`` (after
+        llava's ``img_embeds``; with whisper's ``memory``): the last
         position's logits ``[B, Vp]`` and the decode-ready cache (``pos``
-        = S)."""
+        = the full sequence's length, ``S_full``; whisper's adds
+        ``cross_kv``).  Its K/V hold ``S_full`` slots: a sliding-window
+        config that decodes on from it writes slot ``pos % S_full``, over
+        the first token, as the reference's does; to keep the whole
+        window, copy them into a cache of ``min(max_len, window)``
+        slots."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed(params["embed"], tokens, cfg.dtype)
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, layer_caches, _ = self._run_blocks(params, x, positions)
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        x, positions, cross = self._inputs(params, batch)
+        x, layer_caches, _ = self._run_blocks(params, x, positions,
+                                              cross_kv=cross)
+        x = _norm(params["ln_f"], cfg, x)
         logits = self._logits(params, x[:, -1:])[:, 0]
-        return logits, {"layers": layer_caches, "pos": S}
+        cache = {"layers": layer_caches, "pos": x.shape[1]}
+        if cross is not None:
+            cache["cross_kv"] = cross
+        return logits, cache
 
     def decode_step(self, params, cache, tokens: torch.Tensor):
-        """tokens ``[B, 1]``; cache ``{"layers", "pos"}`` -> ``(logits
-        [B, Vp], new cache)`` with ``pos + 1`` (new K/V tensors; the given
-        cache is not changed)."""
+        """tokens ``[B, 1]``; cache ``{"layers", "pos"}`` (and whisper's
+        ``cross_kv``) -> ``(logits [B, Vp], new cache)`` with ``pos + 1``
+        (new K/V tensors; the given cache is not changed)."""
         cfg = self.cfg
         B = tokens.shape[0]
         pos = int(cache["pos"])
-        x = embed(params["embed"], tokens, cfg.dtype)
+        x = self._add_positions(embed(params["embed"], tokens, cfg.dtype),
+                                pos)
         positions = torch.full((B, 1), pos, dtype=torch.int64,
                                device=x.device)
         x, new_layers, _ = self._run_blocks(params, x, positions,
                                          caches=cache["layers"],
-                                         cache_pos=pos)
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+                                         cache_pos=pos,
+                                         cross_kv=cache.get("cross_kv"))
+        x = _norm(params["ln_f"], cfg, x)
         logits = self._logits(params, x)[:, -1]
         return logits, dict(cache, layers=new_layers, pos=pos + 1)

@@ -2,12 +2,15 @@
 
 One implementation covers MHA/GQA (the KV heads repeated, interleaved, to
 the query heads), QKV bias, qk-norm, the sliding window (a rolling KV
-buffer at decode) and padded head counts (padding lives in the config).
-The cross-attention branch is whisper's and waits for that family.
+buffer at decode), cross-attention (whisper's decoder: the queries of
+``x`` against given bfloat16 K/V, no rope, no mask) and padded head counts
+(padding lives in the config).
 
 Two numerics, as the reference's: the dense path (small ``S*T``: decode,
-short prompts) attends in float32; the chunked path (``S*S >= 2048**2``,
-long prompts) keeps bfloat16 operands with float32 accumulation, casts
+short prompts, and any non-causal full-sequence pass such as whisper's
+encoder) attends in float32; the chunked path (``S*T >= 2048**2`` for a
+causal full-sequence pass or a cross-attention, long prompts) keeps
+bfloat16 operands with float32 accumulation, casts
 the probabilities to bfloat16 before the attend, and walks query blocks so
 that no ``[B, H, S, T]`` score tensor is materialized.  Both are plain
 tensor math: the reference computes attention with einsums outside any
@@ -30,8 +33,8 @@ from .module import ParamSpec
 __all__ = ["attention_spec", "attention", "init_cache_specs", "NEG_INF"]
 
 NEG_INF = -1e30
-#: past this many score elements per head, a full-sequence pass takes the
-#: chunked path
+#: past this many score elements per head, a causal full-sequence pass or
+#: a cross-attention takes the chunked path
 _CHUNK_THRESHOLD = 2048 * 2048
 _Q_CHUNK = 1024
 #: the KV cache's dtype
@@ -138,12 +141,23 @@ def attention(params, cfg, x: torch.Tensor, positions: torch.Tensor,
     pass's K/V in bfloat16); otherwise one decode step against ``cache``
     ``{"k", "v" [B, T, Hk, Dh], "pos"}`` (``pos`` the host int of the next
     write position), returning the written ``{"k", "v"}`` (new tensors; the
-    given ones are not changed)."""
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention is whisper's; the audio family is not ported yet")
+    given ones are not changed).  ``cross_kv=(k, v)`` (``[B, T, Hk, Dh]``)
+    attends the queries of ``x`` to them instead, unmasked, and returns
+    ``cache`` as given."""
     B, S, _ = x.shape
-    if cache is None:
+    if cross_kv is not None:
+        q = dense(params["wq"], x, cfg.dtype)
+        if cfg.qk_norm:
+            q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        kr, vr = _repeat_kv(q, cross_kv[0], cross_kv[1])
+        T = kr.shape[1]
+        if S * T >= _CHUNK_THRESHOLD:
+            zeros = torch.zeros((B, T), dtype=torch.int64, device=x.device)
+            out = _sdpa_chunked(cfg, q, kr, vr, positions, zeros,
+                                causal=False)
+        else:
+            out = _sdpa_dense(cfg, q, kr, vr, None)
+    elif cache is None:
         q, k, v = _project_qkv(params, cfg, x, positions)
         kr, vr = _repeat_kv(q, k, v)
         if causal and S * S >= _CHUNK_THRESHOLD:

@@ -1,4 +1,4 @@
-"""Base layers (port of the dense / embedding / RMSNorm / rotary part of
+"""Base layers (port of the dense, embedding, norm and position part of
 ``repro.nn.layers``): pure functions ``f(params, x) -> y`` over parameter
 dicts built from :mod:`repro_torch.nn.module` specs."""
 
@@ -9,7 +9,8 @@ import torch
 from .module import ParamSpec
 
 __all__ = ["dense_spec", "dense", "embed_spec", "embed", "rmsnorm_spec",
-           "rmsnorm", "rope"]
+           "rmsnorm", "layernorm_spec", "layernorm", "rope",
+           "sinusoidal_positions"]
 
 
 def dense_spec(d_in: int, d_out, *, bias: bool = False, dtype=torch.float32,
@@ -54,6 +55,21 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_spec(d: int, dtype=torch.float32):
+    return {"scale": ParamSpec((d,), dtype, "ones"),
+            "bias": ParamSpec((d,), dtype, "zeros")}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The float32 mean, then the mean of the squared deviations, then
+    ``rsqrt``, scale and bias; the result in ``x.dtype``."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = torch.square(x32 - mu).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding over split halves: ``x [..., S, H, D]`` (D even),
@@ -70,3 +86,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      -1).to(x.dtype)
+
+
+def sinusoidal_positions(length: int, d: int, offset=0, *,
+                         device=None) -> torch.Tensor:
+    """``[length, d]`` float32 position embeddings of positions ``offset``
+    .. ``offset + length - 1``: ``[sin, cos]`` of ``pos * freq`` with ``freq
+    = 10000 ** (-i / max(d // 2 - 1, 1))``."""
+    pos = torch.arange(length, dtype=torch.float32, device=device) + offset
+    half = d // 2
+    # the float32 exponent, the power rounded once to float32 (as in rope)
+    expo = -torch.arange(half, dtype=torch.float32, device=device) \
+        / max(half - 1, 1)
+    freq = torch.pow(10000.0, expo.double()).float()
+    ang = pos[:, None] * freq[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)

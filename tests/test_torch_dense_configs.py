@@ -62,7 +62,8 @@ def _spec_leaves(tree, spec_type, prefix=""):
 def test_registry_has_the_dense_family():
     # the other ported families' configs beside the dense ones
     assert set(CONFIGS) | {"qwen3-0.6b", "mamba2-130m", "granite-moe-3b-a800m",
-                           "llama4-maverick-400b-a17b", "zamba2-7b"} \
+                           "llama4-maverick-400b-a17b", "zamba2-7b",
+                           "whisper-medium", "llava-next-mistral-7b"} \
         == set(ARCHS)
 
 

@@ -171,12 +171,13 @@ def test_build_model_dispatch():
     assert isinstance(build_model(t_smoke("granite-moe-3b-a800m")),
                       TransformerLM)
     assert isinstance(build_model(t_smoke("zamba2-7b")), HybridLM)
-    for family in ("audio", "vlm"):
-        cfg = dataclasses.replace(t_smoke("qwen3-0.6b"), family=family)
-        with pytest.raises(ValueError, match="not ported yet"):
-            build_model(cfg)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TransformerLM(cfg)
+    for arch in ("whisper-medium", "llava-next-mistral-7b"):
+        model = build_model(t_smoke(arch))
+        assert isinstance(model, TransformerLM)
+        assert model.cfg.family in ("audio", "vlm")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(t_smoke("qwen3-0.6b"),
+                                        family="other"))
 
 
 # -- attention, function by function ---------------------------------------
