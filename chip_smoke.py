@@ -234,7 +234,24 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``build/``), so the heuristic's designs run there, as their design
     counts require; phase 5 prints its median step so and the dispatch's
     host cost (a memoised hit against ``gemv_variant``'s ``lru_cache``);
-21. prints the kernels' JSON line, then as the last line
+21. tensor-parallel PCILT tables, every shard on this one card
+    (``make_decode_mesh(D, devices=[cuda:0] * D)``, D = 2 and 4): the
+    full-width paired mamba2-130m bundle converted sharded, its integrity
+    record the unsharded bundle's, a B = 4 step within 2e-4 of the largest
+    unsharded logit; the 4-bit bundle built straight into 4 shards and
+    served by ``Engine(pcilt_bundle=)`` under its monitor (576 / 24 / 1
+    launches a step), against the dense oracle, then the ``--chaos``
+    plan's table fault flipping one shard (found, its layer demoted, no
+    request lost, undegraded tokens unchanged); the paper CNN's conv4 at
+    1024x768 through kernels 4 and 5 sharded (``seg_offset``) against the
+    unsharded output (1e-4), each kernel at every shard of the 64x48 crop
+    in both designs against its plain version; qwen3-0.6b's gate as
+    ``PCILTLinear`` on ``path`` fused, kernel and shared, and paired,
+    sharded against unsharded.  Each prints per-device table bytes, device
+    time and launches beside the unsharded run's (phase 5's for the 4-bit
+    step); the sharded conv4 times go into the kernels line
+    (``sharded_ms``);
+22. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -4906,9 +4923,10 @@ def vlm_family(torch, ops, report):
 # ----------------------------------------------------------------------------
 
 
-def _mamba_bundle(torch, paired):
+def _mamba_bundle(torch, paired, mesh=None):
     """The full-width mamba2-130m PCILT decode (4-bit, or paired 2-bit),
-    seeded as phases 5 and 7 build it."""
+    seeded as phases 5 and 7 build it (its projection stacks sharded over
+    ``mesh`` when one is given)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PCILTConfig
     from repro_torch.core.serving import convert_mamba_decode
@@ -4926,7 +4944,7 @@ def _mamba_bundle(torch, paired):
     rng = np.random.default_rng(2)
     calib = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
     dec = convert_mamba_decode(model, params, calib, paired=paired,
-                               head="shared", device="cuda")
+                               head="shared", mesh=mesh, device="cuda")
     return cfg, params, dec
 
 
@@ -5133,6 +5151,413 @@ def autotune_warm(path):
     return 0
 
 
+# ----------------------------------------------------------------------------
+# phase 21: tensor-parallel PCILT tables
+# ----------------------------------------------------------------------------
+
+
+def _card_mesh(torch, D):
+    """A D-shard decode mesh with every shard on this card."""
+    from repro_torch.launch.mesh import make_decode_mesh
+
+    return make_decode_mesh(D, devices=[torch.device("cuda", 0)] * D)
+
+
+def _bundle_bytes(pcilt):
+    """Table bytes a device of the mesh holds: each shard's projection
+    blocks, and on the first device the whole conv tables and head pool
+    too (they do not shard, as in the reference)."""
+    from repro_torch.core.pcilt import ShardedTables
+
+    first = pcilt["tables"].numel() * pcilt["tables"].element_size()
+    head = pcilt.get("head")
+    if head is not None:
+        first += head["pool"].numel() * head["pool"].element_size()
+    shard = sum(t.per_device_bytes() if isinstance(t, ShardedTables)
+                else t.numel() * t.element_size()
+                for t in pcilt["proj"]["tables"].values())
+    return {"projection_stacks_per_device": shard,
+            "device0_total": shard + first}
+
+
+def _device_time(torch, fn):
+    """Device seconds and device launches of ``fn()``, from the fullest of
+    three profiles (late in a run a profile can come back without device
+    records); fails when none saw a launch."""
+    prof = fullest_profile(torch, fn)
+    n = sum(c for c, _ in prof.values())
+    require(n > 0, "three profiles saw no device launch")
+    return sum(t for _, t in prof.values()) / 1e6, n
+
+
+def _sharded_steps(torch, ops, model, params, cache, tok, bundles, gemv,
+                   out):
+    """One B = 4 decode step (saturation counters on, as the engine runs
+    it) of each bundle: median host time, launches, device time and device
+    launches, beside the bundle's per-device table bytes; launches held to
+    ``gemv`` fused GEMV launches of each bundle (kernel 1 or 8), 24 dwconv
+    and 1 head.  Returns the logits of each bundle."""
+    logits = {}
+    with torch.no_grad():
+        for name, (pc, n_gemv) in bundles.items():
+            def step(pc=pc):
+                return model.decode_step(params, cache, tok, pcilt=pc,
+                                         with_stats=True)
+
+            s, ln, _, _ = _step_times(torch, ops, step)
+            dev_s, dev_n = _device_time(torch, step)
+            logits[name] = step()[0]
+            nbytes = _bundle_bytes(pc)
+            want = {gemv: n_gemv, "dwconv1d": 24, "shared_gemv": 1}
+            got = {k: v for k, v in ln.items() if k in want}
+            out[name] = {"median_step_s": s, "launches": ln,
+                         "device_s": dev_s, "device_launches": dev_n,
+                         "device_share": dev_s / s, **nbytes}
+            log(f"  {name:14s}: step {s * 1e3:8.2f} ms, device "
+                f"{dev_s * 1e3:7.3f} ms ({100 * dev_s / s:5.1f}% busy) in "
+                f"{dev_n} device launches; launches {ln}; projection stacks "
+                f"{nbytes['projection_stacks_per_device'] / 1e9:.3f} GB a "
+                f"device, device 0 {nbytes['device0_total'] / 1e9:.3f} GB")
+            require(got == want, f"{name}: step launches {ln}, not {want}")
+    return logits
+
+
+def sharded_tables(torch, ops, report):
+    """Tensor-parallel PCILT tables at full width, every shard on this
+    card (``make_decode_mesh(D, devices=[cuda:0] * D)``; D = 2 and 4):
+
+    (a) mamba2-130m paired (act_bits 2): the bundle converted sharded, its
+        integrity record equal to the unsharded bundle's, one B = 4 step
+        against the unsharded step (2e-4 of the largest logit);
+    (b) mamba2-130m 4-bit sharded D = 4, built straight into its shards,
+        served by ``Engine(pcilt_bundle=)`` under its monitor (4 requests of
+        16 tokens, 576 / 24 / 1 launches a step), one step against the dense
+        fake-quant oracle, then the ``--chaos`` plan's table fault at step
+        5 flipping one shard in place: found by the monitor, the layer
+        demoted, no request lost, the undegraded tokens the fault-free
+        run's;
+    (c) the paper CNN's conv4 at 1024x768 through kernels 4 and 5 sharded
+        (``seg_offset``), against the unsharded output (1e-4 of the
+        largest), and each kernel at every shard of a 64x48 crop in both
+        designs against its plain version;
+    (d) qwen3-0.6b's gate (1024 -> 3072) as ``PCILTLinear`` sharded on
+        ``path`` fused, shared and kernel, and paired (2-bit), against the
+        unsharded layer.
+
+    Prints per-device table bytes, device time and launches beside the
+    unsharded run's.  Returns the launches of the sharded paths."""
+    from repro_torch.core.lut_layers import pcilt_linear
+    from repro_torch.core.pcilt import ShardedTables, build_paired_tables
+    from repro_torch.core.quantization import QuantSpec, calibrate
+    from repro_torch.core.serving import convert_conv_kernel, convert_kernel
+    from repro_torch.launch.serve import Engine, _chaos_plan, make_requests
+    from repro_torch.models.cnn import dm_conv2d
+    from repro_torch.nn.module import pcilt_table_sharding
+    from repro_torch.runtime import FaultInjector
+
+    out = {"card_note": "every shard on cuda:0 (one card): kernels at their "
+                        "local shapes, no copy between cards"}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            if k != "crc32":  # conversion records and monitor checks
+                launches[k] = launches.get(k, 0) + v
+
+    # (a) paired, D = 2 and 4, against the unsharded bundle -----------------
+    cfg, params, ref = _mamba_bundle(torch, True)
+    model = ref.model
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    specs = model.cache_specs(B, 16)["layers"]
+    cache = {"layers": {k: torch.randn(s.shape, generator=gen, device="cuda")
+                        * 0.1 for k, s in specs.items()}}
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda")
+    integ = ref.pcilt["integrity"]
+    log("(a) paired mamba2-130m, B = 4 step, counters on:")
+    paired = {}
+    want = _sharded_steps(torch, ops, model, params, cache, tok,
+                          {"unsharded": (ref.pcilt, 144)},
+                          "gemv_paired_stacked", paired)["unsharded"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for D in (2, 4):
+        t0 = time.perf_counter()
+        _, _, dec = _mamba_bundle(torch, True, _card_mesh(torch, D))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        require(all(isinstance(t, ShardedTables) and t.n_shards == D
+                    for t in dec.pcilt["proj"]["tables"].values()),
+                f"paired D = {D}: the stacks are not sharded")
+        same = dec.pcilt["integrity"] == integ
+        log(f"  D = {D}: converted in {build_s:.1f} s; integrity record "
+            f"equal to the unsharded one's {same}")
+        require(same, f"paired D = {D}: the integrity record differs")
+        ops.reset_launches()
+        got = _sharded_steps(torch, ops, model, params, cache, tok,
+                             {f"sharded D{D}": (dec.pcilt, 144 * D)},
+                             "gemv_paired_stacked", paired)[f"sharded D{D}"]
+        add({k: v for k, v in ops.LAUNCHES.items() if v})
+        paired[f"sharded D{D}"].update(
+            build_s=build_s, max_abs_err=_logits_agree(
+                torch, f"paired D = {D} against unsharded", got[:, :cfg.vocab],
+                want[:, :cfg.vocab], near_tie=True, rel=2e-4))
+        del dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["paired"] = paired
+    del params, model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 4-bit, D = 4, served under the monitor ----------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, dec = _mamba_bundle(torch, False, _card_mesh(torch, 4))
+    torch.cuda.synchronize()
+    served = {"build_s": time.perf_counter() - t0,
+              "build_peak_bytes": torch.cuda.max_memory_allocated(),
+              **_bundle_bytes(dec.pcilt)}
+    log(f"(b) 4-bit mamba2-130m sharded D = 4: built in "
+        f"{served['build_s']:.1f} s, peak {served['build_peak_bytes'] / 2**30:.2f}"
+        f" GiB (the whole stacks never beside their shards); projection "
+        f"stacks {served['projection_stacks_per_device'] / 1e9:.2f} GB a "
+        f"device, device 0 {served['device0_total'] / 1e9:.2f} GB")
+    reqs = make_requests(cfg, 4, 16, seed=0)
+    eng = Engine(cfg, slots=B, pcilt=True, params=params,
+                 pcilt_bundle=dec.pcilt, device="cuda")
+    ops.reset_launches()
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    ln = {k: v for k, v in ops.LAUNCHES.items() if v}
+    add(ln)
+    steps = stats["decode_ticks"] + stats["prefill_ticks"]
+    per_step = {k: v / steps for k, v in ln.items() if k != "crc32"}
+    med = statistics.median(eng.step_seconds)
+    log(f"  served {stats['served']}/{len(reqs)} requests in {steps} steps, "
+        f"median step {med * 1e3:.2f} ms; launches a step {per_step}; "
+        f"health events {eng.monitor.events}")
+    require(stats["served"] == len(reqs) and not eng.monitor.events,
+            "the sharded engine lost a request or saw a health event")
+    require(per_step == {"gemv_stacked": 576, "dwconv1d": 24,
+                         "shared_gemv": 1},
+            f"the sharded engine's launches a step {per_step}")
+    served.update(median_step_s=med, steps=steps, launches_per_step=per_step,
+                  outputs=[r.out for r in reqs])
+    oracle_check(torch, ops, eng, out, key="sharded_oracle")
+    unsharded = report.get("serve", {}).get("step_compare", {}).get(
+        "unpaired stats")
+    if unsharded is not None:  # phase 5's step, the same configuration
+        log(f"  unsharded (phase 5, the same configuration): step "
+            f"{unsharded['median_step_s'] * 1e3:.2f} ms, device "
+            f"{unsharded['device_s'] * 1e3:.3f} ms in "
+            f"{unsharded['device_launches']} device launches")
+        served["unsharded_phase5"] = {k: unsharded[k] for k in (
+            "median_step_s", "device_s", "device_launches")}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cache = {"layers": {k: torch.randn(t.shape, generator=gen,
+                                       device="cuda") * 0.1
+                        for k, t in eng.cache["layers"].items()}}
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda")
+    ops.reset_launches()
+    _sharded_steps(torch, ops, eng.model, params, cache, tok,
+                   {"sharded D4": (dec.pcilt, 576)}, "gemv_stacked", served)
+    add({k: v for k, v in ops.LAUNCHES.items() if v})
+    # the chaos plan's table fault, early enough for the round-robin
+    # monitor to reach every layer before the requests finish
+    faulty = Engine(cfg, slots=B, pcilt=True, params=params,
+                    pcilt_bundle=dec.pcilt, device="cuda")
+    injector = FaultInjector(seed=0)
+    faulty.chaos = {5: _chaos_plan(faulty, injector)[15]}
+    reqs2 = make_requests(cfg, 4, 16, seed=0)
+    ops.reset_launches()
+    stats2 = faulty.run(reqs2)
+    torch.cuda.synchronize()
+    add({k: v for k, v in ops.LAUNCHES.items() if v})
+    breaches = [e for e in faulty.monitor.events if e["kind"] == "layer"]
+    fault = injector.events[0] if injector.events else {}
+    lost = [r.rid for r in reqs2 if r.outcome not in ("served", "degraded")]
+    exact = [r.rid for r, q in zip(reqs2, reqs)
+             if r.outcome == "served" and r.out == q.out]
+    log(f"  fault: {fault}; monitor events {breaches}; outcomes "
+        f"{[r.outcome for r in reqs2]}; lost {lost}")
+    require("shard" in fault, "the fault did not flip a shard")
+    require(breaches and "checksum breach" in breaches[0]["reason"],
+            "the monitor did not find the flipped shard")
+    require(not lost, f"requests lost after the fault: {lost}")
+    require(all(r.out == q.out for r, q in zip(reqs2, reqs)
+                if r.outcome == "served"),
+            "an undegraded request's tokens differ from the fault-free run's")
+    served["fault"] = {"injected": fault, "events": breaches,
+                       "outcomes": [r.outcome for r in reqs2],
+                       "undegraded_equal": exact,
+                       "degraded": stats2["degraded"]}
+    out["served"] = served
+    del eng, faulty, dec, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) conv4 through kernels 4 and 5 -------------------------------------
+    model, params, scales, x = paper_cnn_setup(torch)
+    spec, k = model.act_spec, model.k
+    layers = conv_layers(model)
+    i = len(layers) - 1
+    flush = L2Flush(torch)
+    with torch.no_grad():
+        h = x
+        for j in range(i):
+            h = torch.relu(dm_conv2d(h, params[f"conv{j}"], spec,
+                                     scales[f"conv{j}"]))
+        w, s = params[f"conv{i}"], scales[f"conv{i}"]
+        conv = {"unsharded": convert_conv_kernel(w, spec, s, 1)}
+        shared = {"unsharded": convert_conv_kernel(w, spec, s, 1,
+                                                   weight_bits=4,
+                                                   shared=True)}
+        for D in (2, 4):
+            m = _card_mesh(torch, D)
+            conv[f"D{D}"] = convert_conv_kernel(w, spec, s, 1, mesh=m)
+            shared[f"D{D}"] = convert_conv_kernel(w, spec, s, 1,
+                                                  weight_bits=4, shared=True,
+                                                  mesh=m)
+        C, O = layers[i]
+        cres = {"shape": f"B1 {FULL_HW[1]}x{FULL_HW[0]} C{C} k{k} O{O}, "
+                         f"G {conv['unsharded'].n_segments}"}
+        log(f"(c) conv{i} {cres['shape']}:")
+        for kind, lays, path in (("fused_conv2d", conv, "fused"),
+                                 ("shared_conv2d", shared, "shared")):
+            ref_out = lays["unsharded"](h, path=path)
+            for name, lay in lays.items():
+                ops.reset_launches()
+                got = lay(h, path=path)
+                torch.cuda.synchronize()
+                ln = {k_: v for k_, v in ops.LAUNCHES.items() if v}
+                if name != "unsharded":
+                    add(ln)
+                err = float((got.float() - ref_out.float()).abs().max())
+                tol = 1e-4 * float(ref_out.abs().max())
+                t = time_calls(torch, [lambda lay=lay: lay(h, path=path)],
+                               flush, None, reps=1, warmup=1,
+                               retries=report["profile_retries"])
+                _, n_dev = _device_time(torch, lambda lay=lay: lay(h,
+                                                                   path=path))
+                row = {"ms": t["ms"], "warm_ms": t["warm_ms"],
+                       "device_launches": n_dev,
+                       "launches": ln, "max_abs_err": err, "tol": tol,
+                       "table_bytes_per_device":
+                           lay.per_device_table_bytes()}
+                cres[f"{kind} {name}"] = row
+                log(f"  {kind:13s} {name:9s}: {t['ms']:9.3f} ms (warm "
+                    f"{t['warm_ms']:9.3f}) in {row['device_launches']} device"
+                    f" launches; launches {ln}; tables "
+                    f"{row['table_bytes_per_device'] / 1e9:.3f} GB a device;"
+                    f" |d| {err:.3e} (tol {tol:.3e})")
+                D = 1 if name == "unsharded" else int(name[1:])
+                require(ln == {kind: D}, f"{kind} {name} launches {ln}")
+                require(err <= tol, f"{kind} {name} differs from unsharded")
+            del ref_out
+        # each kernel at each shard of a crop, both designs, against its
+        # plain version (run on the card's tensors: device-agnostic torch)
+        xs = h[:, :SMALL_HW[0], :SMALL_HW[1]]
+        xps = padded(xs, k, 1)
+        crop = (1, *SMALL_HW, O)
+        worst = {"fused_conv2d": 0.0, "shared_conv2d": 0.0}
+        for D in (2, 4):
+            lay, sl = conv[f"D{D}"], shared[f"D{D}"]
+            Gl, n_total = lay.n_segments // D, lay.n_segments
+            for d in range(D):
+                kw = dict(seg_offset=d * Gl, n_total=n_total)
+                pool, idx = sl.shard_pools.pools[d], sl.shard_pools.seg_idx[d]
+                want_f = ops.fused_conv2d_plain(
+                    xps, lay.tables.shards[d], spec, s, 1, k, k, 1,
+                    **kw).reshape(crop)
+                want_s = ops.shared_conv2d_plain(
+                    xps, pool, idx, spec, s, 1, k, k, 1, **kw).reshape(crop)
+                for v in ("staged", "direct"):
+                    got_f = ops._fused_conv2d(xs, lay.tables.shards[d], spec,
+                                              s, 1, k, k, variant=v, **kw)
+                    got_s = ops._shared_conv2d(xs, pool, idx, spec, s, 1, k,
+                                               k, variant=v, **kw)
+                    for kind, g_, w_ in (("fused_conv2d", got_f, want_f),
+                                         ("shared_conv2d", got_s, want_s)):
+                        e = float((g_.float() - w_.float()).abs().max())
+                        tol = 1e-4 * float(w_.abs().max())
+                        worst[kind] = max(worst[kind], e)
+                        require(e <= tol, f"{kind} shard {d} of {D} ({v}) "
+                                f"differs from its plain version: {e:.3e}")
+        log(f"  each shard of D = 2, 4 on the {SMALL_HW[1]}x{SMALL_HW[0]} "
+            f"crop, both designs, against the plain version: max |d| "
+            f"{worst}")
+        cres["seg_offset_max_abs_err"] = worst
+        out["conv4"] = cres
+        del conv, shared, h, x, flush
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) qwen3-0.6b's gate ----------------------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    spec4, spec2 = QuantSpec(4, True), QuantSpec(2, True)
+    lres = {"shape": f"B{B} {QWEN_D} -> {QWEN_FF}"}
+    flush = L2Flush(torch)
+    log(f"(d) qwen3-0.6b gate {lres['shape']}:")
+    with torch.no_grad():
+        wg = torch.randn(QWEN_D, QWEN_FF, generator=gen,
+                         device="cuda") * QWEN_D ** -0.5
+        x = torch.randn(B, QWEN_D, generator=gen, device="cuda")
+        s4, s2 = float(calibrate(x, spec4)), float(calibrate(x, spec2))
+        paired = build_paired_tables(wg, spec2, s2, 2)
+        cases = []
+        for D in (1, 2, 4):
+            m = None if D == 1 else _card_mesh(torch, D)
+            dense = convert_kernel(wg, spec4, s4, 2, mesh=m)
+            sh = convert_kernel(wg, spec4, s4, 2, weight_bits=4, shared=True,
+                                mesh=m)
+            pt = paired if D == 1 else ShardedTables.place(
+                paired, pcilt_table_sharding(m, paired.shape[0]))
+            cases += [(D, "fused", lambda l=dense: l(x, path="fused"),
+                       "fused_gemv", dense.per_device_table_bytes()),
+                      (D, "kernel", lambda l=dense: l(x, path="kernel"),
+                       "gemv_host", dense.per_device_table_bytes()),
+                      (D, "shared", lambda l=sh: l(x, path="shared"),
+                       "shared_gemv", sh.per_device_table_bytes()),
+                      (D, "paired", lambda t=pt, m=m: pcilt_linear(
+                          x, t, spec2, s2, 2, path="fused", mesh=m,
+                          paired=True), "gemv_paired",
+                       (pt.per_device_bytes() if D > 1 else
+                        pt.numel() * pt.element_size()))]
+        refs = {}
+        for D, path, call, kname, nbytes in cases:
+            ops.reset_launches()
+            got = call()
+            torch.cuda.synchronize()
+            ln = {k_: v for k_, v in ops.LAUNCHES.items() if v}
+            if D > 1:
+                add(ln)
+            if D == 1:
+                refs[path] = got
+            err = float((got.float() - refs[path].float()).abs().max())
+            tol = 1e-4 * float(refs[path].abs().max())
+            t = time_calls(torch, [call], flush, None, reps=1, warmup=1,
+                           retries=report["profile_retries"])
+            _, n_dev = _device_time(torch, call)
+            row = {"ms": t["ms"], "warm_ms": t["warm_ms"],
+                   "device_launches": n_dev,
+                   "launches": ln, "max_abs_err": err, "tol": tol,
+                   "table_bytes_per_device": nbytes}
+            lres[f"{path} D{D}"] = row
+            log(f"  {path:6s} D = {D}: {t['ms'] * 1e3:9.2f} us (warm "
+                f"{t['warm_ms'] * 1e3:9.2f}) in {row['device_launches']} "
+                f"device launches; launches {ln}; tables "
+                f"{nbytes / 1e9:.3f} GB a device; |d| {err:.3e} "
+                f"(tol {tol:.3e})")
+            require(ln == {kname: D}, f"gate {path} D = {D} launches {ln}")
+            require(err <= tol, f"gate {path} D = {D} differs from unsharded")
+        del cases, refs, paired, flush
+    out["gate"] = lres
+    log(f"sharded paths' launches: {launches}")
+    report["sharded"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5232,8 +5657,12 @@ def main() -> int:
                   single_layers, plans_and_extensions, learnable,
                   resilience, dense_serving, training, dense_configs,
                   moe_family, hybrid_family, audio_family, vlm_family,
-                  autotune_phase):
+                  autotune_phase, sharded_tables):
         count(phase)
+    sh = report["sharded"]["conv4"]
+    for kind in ("fused_conv2d", "shared_conv2d"):
+        rows[f"{kind} conv4"]["sharded_ms"] = {
+            name: sh[f"{kind} {name}"]["ms"] for name in ("D2", "D4")}
     step = report["serve"]["step_compare"]
     rows["window counters"].update(
         step_device_launches=step["unpaired stats"]["device_launches"],
@@ -5263,7 +5692,7 @@ def main() -> int:
         for extra in ("plain_shape", "direct_ms", "fetch_floor_ms",
                       "direct_with_fill_ms", "step_device_launches",
                       "step_device_launches_kept", "host_zlib_ms",
-                      "device_launches_per_call"):
+                      "device_launches_per_call", "sharded_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     # kernel 6 where an entry point serves it: serve_pcilt's M = 4 gate

@@ -136,7 +136,7 @@ def main():
                 def call(f=f):
                     err = f(codes.data_ptr(), tabs.data_ptr(), None,
                             out.data_ptr(), 1, C, Hp, Wp, H, W, k, k, 1, G,
-                            0, 256, O, 1, spec.bits, stream)
+                            0, 256, O, 1, spec.bits, 0, G, 0, C, stream)
                     if err:
                         raise RuntimeError(f"{name}: cudaError {err}")
                 print(f"conv{i} C{C} O{O} {name:9s} {mean_ms(call):9.2f} ms",

@@ -1,5 +1,8 @@
-"""repro_torch.core — PCILT quantization, offsets, table builds, layers and
-learnable tables (the reference's ``core`` without its mesh-sharded pools)."""
+"""repro_torch.core — PCILT quantization, offsets, table builds (sharded
+over a mesh too), layers with their tensor-parallel routes and learnable
+tables.  Of the reference's ``core`` only the ``ctx`` of its decode
+(``PCILTMambaDecode(ctx=)``, the parameters' sharding) is still to port,
+with ``nn.layers.Ctx``."""
 
 from .quantization import (QuantSpec, scale_from_amax, calibrate, quantize,
                            quantize_with_stats, dequantize, fake_quant,
@@ -11,11 +14,12 @@ from .pcilt import (mul_fn, log_mul_fn, build_scalar_tables, table_bytes,
                     build_grouped_tables, build_paired_tables,
                     build_paired_stacked_tables, SharedTables,
                     build_shared_tables, SharedGroupedTables,
-                    build_shared_grouped_tables, table_checksum,
-                    layer_checksum, stacked_checksums,
+                    build_shared_grouped_tables, ShardedTables,
+                    ShardedSharedPool, shard_shared_grouped_tables,
+                    table_checksum, layer_checksum, stacked_checksums,
                     checksums)
 from .lut_layers import (conv_same_pads, lut_lookup, pcilt_linear, im2col,
                          pcilt_conv2d, build_dwconv_tables,
-                         pcilt_depthwise_conv1d)
+                         pcilt_depthwise_conv1d, mesh_shard_count)
 from .learnable import (init_learnable_pcilt, apply_learnable_pcilt,
                         effective_tables, extract_filters)

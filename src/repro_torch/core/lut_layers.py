@@ -29,8 +29,26 @@ Paths of :func:`pcilt_linear`:
 :func:`pcilt_conv2d` reduces the convolution to the linear case by
 ``im2col`` (patches flattened ``[kh, kw, C]``) on the host-packed paths;
 ``"fused"`` and ``"shared"`` run the conv kernels, which quantize, im2col
-and pack inside the kernel from the spatially padded float image.  Only the
-unsharded branches are ported.
+and pack inside the kernel from the spatially padded float image.
+
+Mesh execution (tensor-parallel tables): with ``mesh=`` (a
+``launch.mesh.Mesh``; ``mesh_axis`` default ``"model"``) the segment axis
+is cut into ``D`` contiguous blocks over the mesh axis.  Each device runs
+the unsharded route on its ``[G/D, V, O]`` block (a ``ShardedSharedPool``'s
+local pool; the ``[L, G/D, V, O]`` or ``[G2/D, L, V2, O]`` block of a
+stack) and the matching slice of ``x``'s reduction dim, with the same
+kernels at their local shapes (so the design cache is keyed on the local
+shape), and the partial sums are added in float32 on the mesh axis's first
+device in shard order, then cast once to the table dtype: the reference's
+``psum``.  The fused and shared conv keep their in-kernel im2col: every
+shard sees the whole image and fetches the patch columns of its segments
+(the conv kernels' ``seg_offset`` / ``n_total``).  A mesh axis that does
+not divide ``G`` replicates (the ``nn.module.ShardingRules`` fallback); a
+generalized ``SegmentPlan`` refuses to shard.  Tables pre-sharded at
+conversion (``core.pcilt.ShardedTables``) execute on their own mesh.
+With ``return_stats`` on a sharded route, the counters come from one pass
+over the whole ``x`` (every shard sees all of ``x``; its kernel's own
+counters would count each element ``D`` times).
 
 The depthwise conv1d maps the ``k`` taps of a channel onto one segment, so
 one fetch of ``T[c, pack(codes)]`` is one output (``path="fused"`` runs
@@ -50,11 +68,13 @@ import torch.nn.functional as F
 
 from .quantization import QuantSpec, code_values, quantize, quantize_with_stats
 from .offsets import offset_grid, pack_offsets
-from .pcilt import (SharedGroupedTables, SharedTables, build_grouped_tables,
-                    build_shared_grouped_tables)
+from .pcilt import (SharedGroupedTables, SharedTables, ShardedSharedPool,
+                    ShardedTables, build_grouped_tables,
+                    build_shared_grouped_tables, shard_shared_grouped_tables)
 
 __all__ = ["conv_same_pads", "lut_lookup", "pcilt_linear", "im2col",
-           "conv_offsets", "pcilt_conv2d", "build_dwconv_tables", "pcilt_depthwise_conv1d"]
+           "conv_offsets", "pcilt_conv2d", "build_dwconv_tables",
+           "pcilt_depthwise_conv1d", "mesh_shard_count"]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -125,13 +145,156 @@ def _flat_fetch(x: torch.Tensor, fn, O: int, return_stats: bool):
     return res.reshape(*x.shape[:-1], O)
 
 
-def _pcilt_linear_paired(x, tables, spec, scale, group, path, stacked,
-                         return_stats):
+def mesh_shard_count(mesh, mesh_axis: str, n_segments: int) -> int:
+    """How many segment shards a mesh yields; 1 means replicate: no mesh,
+    no such axis, or an axis size that does not divide the segment count
+    (the ``nn.module.ShardingRules`` fallback)."""
+    if mesh is None or mesh_axis not in mesh.axis_names:
+        return 1
+    d = int(mesh.shape[mesh_axis])
+    if d <= 1 or n_segments % d:
+        return 1
+    return d
+
+
+def _own_mesh(tables: ShardedTables, mesh, mesh_axis: str):
+    """The mesh a pre-sharded table executes on: its own; a ``mesh=``
+    passed beside it must shard it alike."""
+    if mesh is not None and mesh_axis in mesh.axis_names and \
+            int(mesh.shape[mesh_axis]) != tables.n_shards:
+        raise ValueError(
+            f"tables were sharded {tables.n_shards} ways but mesh axis "
+            f"{mesh_axis!r} has size {int(mesh.shape[mesh_axis])}")
+    return tables.mesh, tables.mesh_axis
+
+
+def _shard_pool_for(tables: SharedGroupedTables, n_shards: int, mesh,
+                    mesh_axis: str) -> ShardedSharedPool:
+    """A pool sharded at call time (the reference's offline build step,
+    run here on the pool's concrete pointers), its blocks on the mesh
+    axis's devices."""
+    return shard_shared_grouped_tables(
+        tables, n_shards, devices=mesh.axis_devices(mesh_axis))
+
+
+def _devices(tables, mesh, mesh_axis: str):
+    """The devices a layer's shards run on, in shard order."""
+    if isinstance(tables, ShardedTables):
+        return [s.device for s in tables.shards]
+    return mesh.axis_devices(mesh_axis)
+
+
+def _blocks(tables, n: int, seg_axis: int, devices, contiguous: bool):
+    """The per-device blocks of ``tables`` (a :class:`ShardedTables`'s own
+    shards, or a tensor cut into ``n`` contiguous blocks of ``seg_axis``);
+    each made contiguous when a kernel reads it."""
+    if isinstance(tables, ShardedTables):
+        out = tables.shards
+    else:
+        size = tables.shape[seg_axis] // n
+        out = [tables.narrow(seg_axis, d * size, size).to(dev)
+               for d, dev in enumerate(devices)]
+    return [t.contiguous() for t in out] if contiguous else out
+
+
+def _psum(parts) -> torch.Tensor:
+    """The reference's ``psum``: the shards' partial sums moved to the
+    first one's device and added there in float32, in shard order (no
+    atomics, one order run to run), cast once to the partials' dtype."""
+    dev = parts[0].device
+    acc = parts[0].to(torch.float32)  # a fresh partial: added to in place
+    for p in parts[1:]:
+        acc.add_(p.to(dev, torch.float32))
+    return acc.to(parts[0].dtype)
+
+
+def _x_blocks(flat: torch.Tensor, devices, contiguous: bool):
+    """``flat [M, n]``'s reduction dim cut into one contiguous block a
+    device."""
+    w = flat.shape[-1] // len(devices)
+    out = [flat[:, d * w:(d + 1) * w].to(dev)
+           for d, dev in enumerate(devices)]
+    return [x.contiguous() for x in out] if contiguous else out
+
+
+def _sharded(x: torch.Tensor, run, O: int) -> torch.Tensor:
+    """``x [..., n]`` flattened, ``run(flat)`` -> the per-shard partials,
+    reduced and given back ``x``'s leading dims."""
+    out = _psum(run(x.reshape(-1, x.shape[-1])))
+    return out.reshape(*x.shape[:-1], O)
+
+
+def _pcilt_linear_sharded(x, tables, spec, scale, group, path, mesh,
+                          mesh_axis, paired: bool = False) -> torch.Tensor:
+    """One fetch-and-sum layer over the mesh axis's segment shards: each
+    device runs the unsharded route on its block of ``tables`` (dense, a
+    :class:`ShardedTables` or a :class:`ShardedSharedPool`) and its slice of
+    ``x``; :func:`_psum` adds the partials."""
+    kernel = path in ("fused", "kernel", "shared")
+    if isinstance(tables, ShardedSharedPool):
+        devs = [p.device for p in tables.pools]
+        O = tables.pools[0].shape[-1]
+
+        def run(flat):
+            return [pcilt_linear(xl, SharedGroupedTables(p, i, group), spec,
+                                 scale, group, path=path)
+                    for xl, p, i in zip(_x_blocks(flat, devs, kernel),
+                                        tables.pools, tables.seg_idx)]
+    else:
+        devs = _devices(tables, mesh, mesh_axis)
+        blocks = _blocks(tables, len(devs), 0, devs, kernel)
+        O = tables.shape[-1]
+
+        def run(flat):
+            return [pcilt_linear(xl, t, spec, scale, group, path=path,
+                                 paired=paired)
+                    for xl, t in zip(_x_blocks(flat, devs, kernel), blocks)]
+    return _sharded(x, run, O)
+
+
+def _pcilt_linear_stacked_sharded(x, tables, layer, spec, scale, group, mesh,
+                                  mesh_axis, paired: bool) -> torch.Tensor:
+    """A stack sharded on its segment axis, the reference's two stacked
+    routes: each device runs the stacked fused GEMV over its ``[L, G/D, V,
+    O]`` block (or, ``paired``, the paired one over its segment-major
+    ``[G2/D, L, V2, O]`` block) at ``layer``; one reduction a call."""
+    from repro_torch.kernels import ops
+
+    fn = ops.pcilt_fused_gemv_paired_stacked if paired \
+        else ops.pcilt_fused_gemv_stacked
+    devs = _devices(tables, mesh, mesh_axis)
+    blocks = _blocks(tables, len(devs), 0 if paired else 1, devs, True)
+    return _sharded(x, lambda flat: [
+        fn(xl, t, layer, spec, scale, group)
+        for xl, t in zip(_x_blocks(flat, devs, True), blocks)],
+        tables.shape[-1])
+
+
+def _with_stats(out, x, spec, scale, return_stats: bool):
+    """A sharded route's result, with the counters of one pass over the
+    whole ``x`` when asked."""
+    if not return_stats:
+        return out
+    _, count, ratio = quantize_with_stats(x, spec, scale)
+    return out, count, ratio
+
+
+def _layer_of(tables, layer: int, axis: int):
+    """Slice ``layer`` of a stack along ``axis``: a view of a tensor, or of
+    each shard of a :class:`ShardedTables`."""
+    if isinstance(tables, ShardedTables):
+        return tables.layer(layer, axis)
+    return tables.select(axis, layer)
+
+
+def _pcilt_linear_paired(x, tables, spec, scale, group, path, mesh,
+                         mesh_axis, stacked, return_stats):
     """The paired (TL1-style) routes of :func:`pcilt_linear`: ``tables`` is
     ``[G2, V2, out]`` or, with ``stacked=``, the segment-major
     ``[G2, L, V2, out]`` stack.  ``x`` is zero-padded over the odd-``G``
-    phantom segment here; the host-packed paths run a paired table as a
-    grouped table of width ``2 * group``."""
+    phantom segment here, before any shard split (so the divisibility
+    fallback is judged on the padded layout); the host-packed paths run a
+    paired table as a grouped table of width ``2 * group``."""
     from repro_torch.kernels import ops
 
     if stacked is not None:
@@ -143,14 +306,19 @@ def _pcilt_linear_paired(x, tables, spec, scale, group, path, stacked,
         G2, L, V2, O = tables.shape
         x = _pad_paired_phantom(x, G2, group)
         if path == "fused":
+            if mesh_shard_count(mesh, mesh_axis, G2) > 1:
+                return _with_stats(_pcilt_linear_stacked_sharded(
+                    x, tables, stacked, spec, scale, group, mesh, mesh_axis,
+                    paired=True), x, spec, scale, return_stats)
             return _flat_fetch(
                 x, lambda f: ops.pcilt_fused_gemv_paired_stacked(
                     f, tables, stacked, spec, scale, group,
                     with_stats=return_stats), O, return_stats)
         # the reference route: the layer's [G2, V2, O] slice (the host-packed
-        # kernel reads tables in place, so it gets a contiguous copy)
-        tab_l = tables[:, stacked]
-        if path == "kernel":
+        # kernel reads tables in place, so it gets a contiguous copy); the
+        # reference runs it without its mesh, a pre-sharded stack on its own
+        tab_l = _layer_of(tables, stacked, 1)
+        if path == "kernel" and torch.is_tensor(tab_l):
             tab_l = tab_l.contiguous()
         return pcilt_linear(x, tab_l, spec, scale, 2 * group, path=path,
                             return_stats=return_stats)
@@ -161,11 +329,16 @@ def _pcilt_linear_paired(x, tables, spec, scale, group, path, stacked,
     G2, V2, O = tables.shape
     x = _pad_paired_phantom(x, G2, group)
     if path == "fused":
+        if mesh_shard_count(mesh, mesh_axis, G2) > 1:
+            return _with_stats(_pcilt_linear_sharded(
+                x, tables, spec, scale, group, path, mesh, mesh_axis,
+                paired=True), x, spec, scale, return_stats)
         return _flat_fetch(
             x, lambda f: ops.pcilt_fused_gemv_paired(
                 f, tables, spec, scale, group, with_stats=return_stats), O,
             return_stats)
     return pcilt_linear(x, tables, spec, scale, 2 * group, path=path,
+                        mesh=mesh, mesh_axis=mesh_axis,
                         return_stats=return_stats)
 
 
@@ -192,7 +365,8 @@ def _check_contiguous_segments(path: str, plan, n: int, n_segments: int,
 
 
 def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
-                 plan=None, path: str = "gather", *,
+                 plan=None, path: str = "gather", mesh=None,
+                 mesh_axis: str = "model", *,
                  stacked: Optional[int] = None, paired: bool = False,
                  return_stats: bool = False):
     """Quantize -> pack offsets -> fetch -> sum: ``x [..., n] -> [..., out]``.
@@ -207,9 +381,13 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
     keeps the unpaired layout and ``group`` the unpaired width.  ``plan``
     is a generalized ``SegmentPlan`` for tables built from it (not with
     ``paired``, ``stacked`` or ``"shared"``).  ``path``: gather | onehot |
-    kernel | fused | shared.  With ``return_stats`` the call returns
-    ``(out, count, ratio)``; the fused stacked and paired kernels reduce
-    them in the kernel, every other route on the side."""
+    kernel | fused | shared.  With ``mesh=`` the segment axis shards over
+    ``mesh_axis`` (the module docstring); a pre-sharded
+    :class:`ShardedTables` runs on its own mesh, a
+    :class:`ShardedSharedPool` on ``path="shared"``/``"gather"`` only under
+    the mesh it was cut for.  With ``return_stats`` the call returns
+    ``(out, count, ratio)``; the unsharded fused stacked and paired kernels
+    reduce them in the kernel, every other route on the side."""
     if isinstance(tables, SharedTables):
         if paired:
             raise ValueError(
@@ -217,13 +395,16 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
                 "SharedTables pools have no paired layout")
         tables = tables.as_grouped_pool()
         group = tables.group
+    if isinstance(tables, ShardedTables):
+        mesh, mesh_axis = _own_mesh(tables, mesh, mesh_axis)
+    pools = (SharedGroupedTables, ShardedSharedPool)
     if paired:
         if plan is not None:
             raise ValueError(
                 "paired tables pack adjacent contiguous segment pairs; "
                 "generalized SegmentPlans cannot pair — drop plan= or use "
                 "the unpaired paths")
-        if isinstance(tables, SharedGroupedTables):
+        if isinstance(tables, pools):
             raise ValueError(
                 "paired=True consumes dense paired [G2, V2, O] tables "
                 "(build_paired_tables); shared pools have no paired layout")
@@ -232,9 +413,9 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
                 "path='shared' has no paired variant; paired tables run "
                 "path='fused' or the host-packed reference paths")
         return _pcilt_linear_paired(x, tables, spec, scale, group, path,
-                                    stacked, return_stats)
+                                    mesh, mesh_axis, stacked, return_stats)
     if stacked is not None:
-        if isinstance(tables, SharedGroupedTables) or tables.dim() != 4:
+        if isinstance(tables, pools) or tables.dim() != 4:
             raise ValueError(
                 f"stacked= executes layer-stacked dense [L, G, V, O] tables, "
                 f"got {type(tables).__name__} "
@@ -249,18 +430,28 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
         if path == "fused":
             from repro_torch.kernels import ops
 
+            if mesh_shard_count(mesh, mesh_axis, G) > 1:
+                _check_contiguous_segments(path, None, x.shape[-1], G, group)
+                return _with_stats(_pcilt_linear_stacked_sharded(
+                    x, tables, stacked, spec, scale, group, mesh, mesh_axis,
+                    paired=False), x, spec, scale, return_stats)
             return _flat_fetch(
                 x, lambda f: ops.pcilt_fused_gemv_stacked(
                     f, tables, stacked, spec, scale, group,
                     with_stats=return_stats), O, return_stats)
-        tables = tables[stacked]  # a view of the layer: the reference path
+        tables = _layer_of(tables, stacked, 0)  # the reference path
     if return_stats:  # every other route: the stats on the side
         _, count, ratio = quantize_with_stats(x, spec, scale)
-        out = pcilt_linear(x, tables, spec, scale, group, path=path,
-                           plan=plan)
+        out = pcilt_linear(x, tables, spec, scale, group, plan=plan,
+                           path=path, mesh=mesh, mesh_axis=mesh_axis)
         return out, count, ratio
     if path not in ("gather", "onehot", "kernel", "fused", "shared"):
         raise ValueError(f"unknown path {path!r}")
+    if isinstance(tables, ShardedSharedPool):
+        _check_sharded_pool(tables, path, plan, x.shape[-1], group, mesh,
+                            mesh_axis)
+        return _pcilt_linear_sharded(x, tables, spec, scale, group, path,
+                                     mesh, mesh_axis)
     shared = isinstance(tables, SharedGroupedTables)
     if path == "shared" and not shared:
         raise ValueError(
@@ -273,20 +464,36 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
     if shared and path not in ("shared", "gather"):
         raise ValueError(f"SharedGroupedTables executes path='shared' or "
                          f"'gather', not {path!r}")
+    n_segments = tables.n_segments if shared else tables.shape[0]
+    if path == "fused" and plan is not None:
+        if plan.n_segments != n_segments or plan.group != group:
+            raise ValueError(
+                f"plan grid [{plan.n_segments}, {plan.group}] does not "
+                f"match tables' [{n_segments}, {group}] — tables must "
+                f"be built from plan.gather_weights(...)")
+    elif path in ("fused", "shared"):
+        _check_contiguous_segments(path, plan, x.shape[-1], n_segments, group)
+    D = mesh_shard_count(mesh, mesh_axis, n_segments)
+    if D > 1:
+        if plan is not None:
+            # refuse rather than replicate silently: a generalized plan maps
+            # positions arbitrarily, so it cannot shard along contiguous
+            # segment blocks
+            raise ValueError(
+                "mesh execution shards contiguous segment blocks; a "
+                "generalized SegmentPlan cannot be sharded — pass mesh=None "
+                "to execute the plan replicated")
+        if shared:
+            tables = _shard_pool_for(tables, D, mesh, mesh_axis)
+        return _pcilt_linear_sharded(x, tables, spec, scale, group, path,
+                                     mesh, mesh_axis)
     if path in ("fused", "shared"):
         from repro_torch.kernels import ops
 
-        n_segments = tables.n_segments if shared else tables.shape[0]
-        if path == "fused" and plan is not None:
-            if plan.n_segments != n_segments or plan.group != group:
-                raise ValueError(
-                    f"plan grid [{plan.n_segments}, {plan.group}] does not "
-                    f"match tables' [{n_segments}, {group}] — tables must "
-                    f"be built from plan.gather_weights(...)")
+        if plan is not None:
             return _flat_fetch(x, lambda f: ops.pcilt_fused_gemv_plan(
                 f, tables, plan.on(f.device), spec, scale, group),
                 tables.shape[-1], False)
-        _check_contiguous_segments(path, plan, x.shape[-1], n_segments, group)
         if shared:
             return _flat_fetch(x, lambda f: ops.pcilt_shared_gemv(
                 f, tables.pool, tables.seg_idx, spec, scale, tables.group),
@@ -299,6 +506,41 @@ def pcilt_linear(x: torch.Tensor, tables, spec: QuantSpec, scale, group: int,
     if shared:
         return tables.lookup(offsets)
     return lut_lookup(tables, offsets, path)
+
+
+def _check_sharded_pool(tables: ShardedSharedPool, path, plan, n: int,
+                        group: int, mesh, mesh_axis: str) -> None:
+    """The reference's refusals of a :class:`ShardedSharedPool` operand."""
+    if path not in ("shared", "gather"):
+        raise ValueError(
+            f"a ShardedSharedPool executes path='shared' or 'gather', "
+            f"not {path!r}")
+    if plan is not None:
+        raise ValueError(
+            "a ShardedSharedPool was built over contiguous segment "
+            "blocks; generalized SegmentPlans cannot execute on sharded "
+            "pools — use the unsharded SharedGroupedTables with a "
+            "host-packed path instead")
+    if n != tables.n_segments * group:
+        raise ValueError(
+            f"x trailing dim {n} != G*group = "
+            f"{tables.n_segments}*{group} = {tables.n_segments * group} "
+            f"for this ShardedSharedPool")
+    _check_pool_mesh(tables, mesh, mesh_axis)
+
+
+def _check_pool_mesh(tables: ShardedSharedPool, mesh, mesh_axis: str) -> None:
+    if mesh is None or mesh_axis not in mesh.axis_names:
+        raise ValueError(
+            "a ShardedSharedPool is a mesh operand; pass mesh= (and the "
+            "mesh_axis its pools were sharded for), or execute the "
+            "unsharded SharedGroupedTables instead")
+    if int(mesh.shape[mesh_axis]) != tables.n_shards:
+        raise ValueError(
+            f"ShardedSharedPool was built for {tables.n_shards} shards "
+            f"but mesh axis {mesh_axis!r} has size "
+            f"{int(mesh.shape[mesh_axis])}; rebuild with "
+            f"shard_shared_grouped_tables(st, {int(mesh.shape[mesh_axis])})")
 
 
 def _conv_pads(x: torch.Tensor, kh: int, kw: int, stride: int,
@@ -351,9 +593,43 @@ def conv_offsets(x: torch.Tensor, spec: QuantSpec, scale, group: int,
     return pack_offsets(codes, spec.bits, group)
 
 
+def _pcilt_conv2d_sharded_kernel(x, tables, spec, scale, group, kh, kw,
+                                 stride, padding, path, mesh, mesh_axis):
+    """The fused or shared conv over the mesh axis's segment shards, the
+    im2col still in the kernel: every device takes the whole image, its
+    ``[G/D, V, O]`` block (or local pool) and its first global segment
+    ``seg_offset = d * G/D``, and its kernel fetches the patch columns of
+    its own segments (``n_total`` is the global padded patch length);
+    :func:`_psum` adds the partials."""
+    from repro_torch.kernels import ops
+
+    if isinstance(tables, ShardedSharedPool):
+        _check_pool_mesh(tables, mesh, mesh_axis)
+        n_seg, D = tables.n_segments, tables.n_shards
+        devs = [p.device for p in tables.pools]
+    else:
+        n_seg = tables.shape[0]
+        devs = _devices(tables, mesh, mesh_axis)
+        D = len(devs)
+    n_total, Gl = n_seg * group, n_seg // D
+    kw_args = dict(stride=stride, padding=padding, n_total=n_total)
+    if path == "fused":
+        parts = [ops.pcilt_fused_conv2d(x.to(dev), t, spec, scale, group, kh,
+                                        kw, seg_offset=d * Gl, **kw_args)
+                 for d, (dev, t) in enumerate(zip(
+                     devs, _blocks(tables, D, 0, devs, True)))]
+    else:
+        parts = [ops.pcilt_shared_conv2d(x.to(dev), p, i, spec, scale, group,
+                                         kh, kw, seg_offset=d * Gl, **kw_args)
+                 for d, (dev, p, i) in enumerate(zip(devs, tables.pools,
+                                                     tables.seg_idx))]
+    return _psum(parts)
+
+
 def pcilt_conv2d(x: torch.Tensor, filters: torch.Tensor, spec: QuantSpec,
                  scale, group: int, stride: int = 1, padding: str = "SAME",
-                 tables=None, path: str = "gather") -> torch.Tensor:
+                 tables=None, path: str = "gather", mesh=None,
+                 mesh_axis: str = "model") -> torch.Tensor:
     """PCILT convolution, NHWC ``[B, H, W, Cin] -> [B, Ho, Wo, Cout]``.
 
     ``filters [kh, kw, Cin, Cout]``.  ``tables`` are the pre-built dense
@@ -362,6 +638,12 @@ def pcilt_conv2d(x: torch.Tensor, filters: torch.Tensor, spec: QuantSpec,
     ``"fused"``/``"shared"`` run the conv kernels on the spatially padded
     float image; ``"gather"``/``"onehot"``/``"kernel"`` pack the offsets on
     the host by :func:`conv_offsets` and fetch them by :func:`lut_lookup`.
+    With ``mesh=`` the segment axis (the flattened ``kh*kw*Cin`` receptive
+    field) shards over ``mesh_axis``: the conv kernels keep their
+    in-kernel im2col on every shard (their ``seg_offset``), the host paths
+    extract the patches by :func:`im2col` and run the sharded
+    :func:`pcilt_linear`.  Pre-sharded tables (:class:`ShardedTables`,
+    :class:`ShardedSharedPool`) are accepted.
     """
     kh, kw, cin, cout = filters.shape
     n = kh * kw * cin
@@ -371,7 +653,10 @@ def pcilt_conv2d(x: torch.Tensor, filters: torch.Tensor, spec: QuantSpec,
         build = build_shared_grouped_tables if path == "shared" \
             else build_grouped_tables
         tables = build(wflat, spec, scale, group)
-    shared = isinstance(tables, SharedGroupedTables)
+    if isinstance(tables, ShardedTables):
+        mesh, mesh_axis = _own_mesh(tables, mesh, mesh_axis)
+    pools = (SharedGroupedTables, ShardedSharedPool)
+    shared = isinstance(tables, pools)
     if path == "shared" and not shared:
         raise ValueError(
             "path='shared' executes a SharedGroupedTables pool; build one "
@@ -380,16 +665,26 @@ def pcilt_conv2d(x: torch.Tensor, filters: torch.Tensor, spec: QuantSpec,
         raise ValueError(
             "path='fused' consumes dense [G, V, O] tables; use "
             "path='shared' for a SharedGroupedTables pool")
+    n_seg = tables.n_segments if shared else tables.shape[0]
+    sharded = isinstance(tables, ShardedSharedPool) or \
+        mesh_shard_count(mesh, mesh_axis, n_seg) > 1
     if path in ("fused", "shared"):
         from repro_torch.kernels import ops
 
-        n_seg = tables.n_segments if shared else tables.shape[0]
         if n + pad_n != n_seg * group:
             raise ValueError(
                 f"path={path!r} requires contiguous segments covering the "
                 f"patch: kh*kw*Cin = {n} (+{pad_n} alignment slots) but "
                 f"G*group = {n_seg}*{group}")
-        if shared:
+        if sharded:
+            if isinstance(tables, SharedGroupedTables):
+                tables = _shard_pool_for(
+                    tables, mesh_shard_count(mesh, mesh_axis, n_seg), mesh,
+                    mesh_axis)
+            return _pcilt_conv2d_sharded_kernel(
+                x, tables, spec, scale, group, kh, kw, stride, padding, path,
+                mesh, mesh_axis)
+        if path == "shared":
             return ops.pcilt_shared_conv2d(
                 x, tables.pool, tables.seg_idx, spec, scale, tables.group,
                 kh, kw, stride=stride, padding=padding)
@@ -398,6 +693,12 @@ def pcilt_conv2d(x: torch.Tensor, filters: torch.Tensor, spec: QuantSpec,
     if shared and path != "gather":
         raise ValueError(f"SharedGroupedTables executes path='shared' or "
                          f"'gather', not {path!r}")
+    if sharded:
+        patches = im2col(x, kh, kw, stride, padding)
+        if pad_n:
+            patches = F.pad(patches, (0, pad_n))
+        return pcilt_linear(patches, tables, spec, scale, group, path=path,
+                            mesh=mesh, mesh_axis=mesh_axis)
     offsets = conv_offsets(x, spec, scale, group, kh, kw, stride, padding)
     if shared:
         return tables.lookup(offsets)

@@ -1,5 +1,4 @@
-"""PCILT construction and integrity (port of ``repro.core.pcilt`` without its
-mesh-sharded pools).
+"""PCILT construction and integrity (port of ``repro.core.pcilt``).
 
 * scalar tables — one ``[K, out]`` table per weight, ``T[k, a, o] =
   fn(w[k, o], val(a))`` (the basic algorithm);
@@ -17,6 +16,12 @@ mesh-sharded pools).
   paired tables stack segment-major, ``[G2, L, V**2, out]``;
 * shared grouped tables — the grouped tables deduplicated to the ``X``
   unique segments, plus a ``seg_idx[G]`` pointer vector (extension 3);
+* sharded tables — :class:`ShardedTables`, dense tables cut into
+  contiguous blocks of their segment axis, one block on each device of a
+  mesh axis (``launch.mesh``), and :class:`ShardedSharedPool`, an
+  extension-3 pool deduplicated again within each block of segments
+  (:func:`shard_shared_grouped_tables`), so that a device holds only the
+  pool rows its own segments point at;
 * memory and build-cost arithmetic of the paper (``table_bytes``,
   ``grouped_table_bytes``, ``shared_table_bytes``,
   ``build_cost_multiplies``);
@@ -28,7 +33,9 @@ mesh-sharded pools).
   fixed-size chunks, several in a thread pool (``zlib.crc32`` releases
   the interpreter lock).  A layer of a segment-major stack is a strided
   slice: its contiguous segments are the kernel's ranges, or are streamed
-  one after another to ``zlib``.
+  one after another to ``zlib``.  A sharded table's checksum chains its
+  shards' CRCs in shard order (zlib's ``crc32_combine``), so it equals the
+  unsharded table's, byte for byte.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import dataclasses
 import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,8 +57,10 @@ __all__ = ["mul_fn", "log_mul_fn", "table_bytes", "grouped_table_bytes",
            "build_scalar_tables", "build_grouped_tables",
            "build_paired_tables", "build_paired_stacked_tables",
            "SharedTables", "build_shared_tables", "SharedGroupedTables",
-           "build_shared_grouped_tables", "table_checksum", "layer_checksum",
-           "stacked_checksums", "checksums", "CRC_CHUNK_BYTES", "POOL_BUILD_ROWS",
+           "build_shared_grouped_tables", "ShardedTables",
+           "ShardedSharedPool", "shard_shared_grouped_tables",
+           "table_checksum", "layer_checksum", "stacked_checksums",
+           "checksums", "CRC_CHUNK_BYTES", "POOL_BUILD_ROWS",
            "FN_BUILD_ELEMS"]
 
 #: bytes handed to ``zlib.crc32`` per call
@@ -366,6 +375,182 @@ def build_shared_grouped_tables(w: torch.Tensor, spec: QuantSpec, scale,
                                group=group)
 
 
+# ----------------------------------------------------------------------------
+# Tables sharded over a mesh axis (tensor-parallel execution)
+# ----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardedTables:
+    """Dense tables sharded over ``mesh_axis``: ``shards[d]`` is the
+    ``d``-th contiguous block of the segment axis ``seg_axis``, contiguous
+    on its device (``[G/D, V, O]`` blocks of ``[G, V, O]`` tables,
+    ``[L, G/D, V, O]`` of a layer-major stack, ``[G2/D, L, V2, O]`` of a
+    segment-major paired stack).  No device holds the whole tensor.
+    ``shape``, ``dtype``, ``device`` (shard 0's), ``dim()``, ``numel()`` and
+    ``element_size()`` describe the whole, so code that reads a table's
+    shape reads a sharded one alike; ``core.lut_layers.pcilt_linear``
+    executes it on its own mesh."""
+
+    shards: List[torch.Tensor]
+    seg_axis: int
+    mesh: Any
+    mesh_axis: str = "model"
+
+    @staticmethod
+    def place(t: torch.Tensor, placement) -> "ShardedTables":
+        """``t`` cut and placed by a ``nn.module.TablePlacement``."""
+        from repro_torch.nn.module import shard_tensor
+
+        return ShardedTables(shard_tensor(t, placement), placement.seg_axis,
+                             placement.mesh, placement.mesh_axis)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.shards[0].shape)
+        s[self.seg_axis] *= self.n_shards
+        return torch.Size(s)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def ndim(self) -> int:
+        return self.shards[0].dim()
+
+    def dim(self) -> int:
+        return self.ndim
+
+    def numel(self) -> int:
+        return sum(s.numel() for s in self.shards)
+
+    def element_size(self) -> int:
+        return self.shards[0].element_size()
+
+    def per_device_bytes(self) -> int:
+        """Table bytes one device holds (the shards are of one size)."""
+        return self.shards[0].numel() * self.element_size()
+
+    def layer(self, layer: int, axis: int) -> "ShardedTables":
+        """Slice ``layer`` along ``axis`` (not the segment axis) of every
+        shard: views, still sharded."""
+        if axis == self.seg_axis:
+            raise ValueError(f"axis {axis} is the segment axis the shards "
+                             f"split")
+        return ShardedTables([s.select(axis, layer) for s in self.shards],
+                             self.seg_axis - (axis < self.seg_axis),
+                             self.mesh, self.mesh_axis)
+
+    def copy_(self, value: torch.Tensor) -> "ShardedTables":
+        """Write the whole-table ``value`` in place, each shard's block on
+        that shard's device."""
+        if tuple(value.shape) != tuple(self.shape):
+            raise ValueError(f"value {tuple(value.shape)} != sharded tables "
+                             f"{tuple(self.shape)}")
+        size = self.shards[0].shape[self.seg_axis]
+        for d, s in enumerate(self.shards):
+            s.copy_(value.narrow(self.seg_axis, d * size, size).to(s.device))
+        return self
+
+    def materialize(self) -> torch.Tensor:
+        """The whole tensor on shard 0's device (parity tests)."""
+        from repro_torch.nn.module import join_shards
+
+        return join_shards(self.shards, self.seg_axis)
+
+
+@dataclasses.dataclass
+class ShardedSharedPool:
+    """Per-shard shared pools for mesh execution of an extension-3 layer.
+
+    The global ``SharedGroupedTables`` is cut along its segment axis into
+    ``D`` contiguous blocks of ``Gl = G / D`` segments.  Shard ``d`` keeps
+    only the pool rows its pointers name (its local cardinality ``X_d``),
+    renumbered to local indices, and every local pool is zero-padded to
+    ``Xmax = max_d X_d`` rows (the padded rows are never named).
+    ``pools[d]`` ``[Xmax, V, O]`` and ``seg_idx[d]`` ``[Gl]`` int32 lie on
+    shard ``d``'s device; stacked, they equal the reference's ``[D, Xmax,
+    V, O]`` and ``[D, Gl]`` arrays byte for byte.  A device holds
+    ``Xmax * V * O * itemsize + Gl * 4`` bytes of tables."""
+
+    pools: List[torch.Tensor]
+    seg_idx: List[torch.Tensor]
+    group: int
+    shard_cards: Tuple[int, ...] = ()
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.pools)
+
+    @property
+    def n_segments(self) -> int:
+        return sum(int(i.shape[0]) for i in self.seg_idx)
+
+    @property
+    def max_cardinality(self) -> int:
+        """Padded local pool rows ``Xmax``: what every device holds."""
+        return int(self.pools[0].shape[0])
+
+    def local_pool_bytes(self, value_bytes: Optional[int] = None) -> int:
+        """Per-device table memory: the padded local pool and the local
+        pointers."""
+        Xmax, V, out = self.pools[0].shape
+        vb = value_bytes if value_bytes is not None \
+            else self.pools[0].element_size()
+        return (shared_table_bytes(Xmax, [(V - 1).bit_length()], out * vb)
+                + int(self.seg_idx[0].shape[0])
+                * self.seg_idx[0].element_size())
+
+    def materialize(self) -> torch.Tensor:
+        """The dense ``[G, V, O]`` tables recovered shard by shard on shard
+        0's device (parity tests)."""
+        dev = self.pools[0].device
+        return torch.cat([p[i.long()].to(dev)
+                          for p, i in zip(self.pools, self.seg_idx)], 0)
+
+
+def shard_shared_grouped_tables(st: SharedGroupedTables, n_shards: int, *,
+                                devices=None) -> ShardedSharedPool:
+    """Offline shard build: cut ``seg_idx`` into ``n_shards`` contiguous
+    blocks and deduplicate the pool within each (``np.unique`` of the
+    block's pointers, as the reference).  ``n_shards`` must divide ``G``;
+    mesh execution applies its replication fallback before calling this.
+    Shard ``d``'s pool and pointers go to ``devices[d]`` (the pool's device
+    by default)."""
+    G = st.n_segments
+    if n_shards < 1 or G % n_shards:
+        raise ValueError(
+            f"n_shards={n_shards} must divide the segment count G={G} "
+            f"(the caller applies the replication fallback otherwise)")
+    Gl = G // n_shards
+    devs = [st.pool.device] * n_shards if devices is None \
+        else [torch.device(d) for d in devices]
+    si = st.seg_idx.detach().cpu().numpy()
+    blocks = [np.unique(si[d * Gl:(d + 1) * Gl], return_inverse=True)
+              for d in range(n_shards)]
+    x_max = max(len(rows) for rows, _ in blocks)
+    _, V, O = st.pool.shape
+    pools, idx = [], []
+    for (rows, inv), dev in zip(blocks, devs):
+        local = torch.zeros((x_max, V, O), dtype=st.pool.dtype, device=dev)
+        at = torch.from_numpy(rows.astype(np.int64)).to(st.pool.device)
+        local[:len(rows)] = st.pool[at].to(dev)
+        pools.append(local)
+        idx.append(torch.from_numpy(inv.reshape(-1).astype(np.int32))
+                   .to(dev))
+    return ShardedSharedPool(pools=pools, seg_idx=idx, group=st.group,
+                             shard_cards=tuple(len(r) for r, _ in blocks))
+
+
 def _byte_view(arr) -> torch.Tensor:
     """A flat uint8 view of a tensor or array's bytes in C order."""
     if isinstance(arr, np.ndarray) or not torch.is_tensor(arr):
@@ -379,8 +564,8 @@ def _on_cuda(arr) -> bool:
 
 
 def _itemsize(arr) -> int:
-    return arr.element_size() if torch.is_tensor(arr) \
-        else np.asarray(arr).itemsize
+    return arr.element_size() if torch.is_tensor(arr) or isinstance(
+        arr, ShardedTables) else np.asarray(arr).itemsize
 
 
 def _layer_ranges(arr, layer: int, axis: int):
@@ -410,17 +595,27 @@ def _zlib_ranges(arr, starts, length: int) -> int:
     return crc
 
 
-def checksums(items) -> List[int]:
-    """CRC-32 of each item, over its bytes in C order: an item is a table,
-    or ``(stack, layer, axis)`` for slice ``layer`` along ``axis`` of a
-    stack (the reference's ``table_checksum`` of the slice; a strided
-    segment-major slice is never copied).  CUDA tables go through the CRC
-    kernel on the card, all the items in one launch with one read back;
-    host tables through ``zlib``, several items in a thread pool.  A CUDA
-    tensor's bytes never go to the host."""
+def _leaves(item):
+    """``(arr, layer, axis)`` leaves of one checksum item, in byte order: a
+    sharded table's shards (or their layer slices), else the item."""
+    arr, layer, axis = item if isinstance(item, tuple) else (item, None, 0)
+    if not isinstance(arr, ShardedTables):
+        return [(arr, layer, axis)]
+    lead = arr.seg_axis - (layer is not None and axis < arr.seg_axis)
+    if (layer is not None and axis == arr.seg_axis) or lead != 0:
+        raise ValueError(
+            f"the bytes of tables sharded on axis {arr.seg_axis} are not "
+            f"their shards' bytes back to back "
+            f"({'the whole' if layer is None else f'layer {layer} on axis {axis}'})")
+    return [(s, layer, axis) for s in arr.shards]
+
+
+def _leaf_checksums(leaves):
+    """CRC-32 and byte length of each ``(arr, layer, axis)`` leaf: CUDA
+    leaves through the CRC kernel, one launch a device; host ones through
+    ``zlib``, several in a thread pool."""
     specs, flat = [], {}
-    for it in items:
-        arr, layer, axis = it if isinstance(it, tuple) else (it, None, 0)
+    for arr, layer, axis in leaves:
         if id(arr) not in flat:  # each table made contiguous once
             flat[id(arr)] = (arr.detach().contiguous() if torch.is_tensor(arr)
                              else np.ascontiguousarray(np.asarray(arr)))
@@ -431,6 +626,7 @@ def checksums(items) -> List[int]:
         else:
             starts, n = _layer_ranges(arr, layer, axis)
         specs.append((arr, starts, n))
+    lengths = [len(st) * n for _, st, n in specs]
     on_card = [_on_cuda(a) for a, _, _ in specs]
     if any(on_card):
         if not all(on_card):
@@ -438,12 +634,49 @@ def checksums(items) -> List[int]:
                              "the host; checksum each device's apart")
         from repro_torch.kernels import ops
 
-        return ops.pcilt_crc32(specs)
+        crcs = [0] * len(specs)
+        for dev in dict.fromkeys(a.device for a, _, _ in specs):
+            at = [i for i, sp in enumerate(specs) if sp[0].device == dev]
+            for i, c in zip(at, ops.pcilt_crc32([specs[i] for i in at])):
+                crcs[i] = c
+        return crcs, lengths
     if len(specs) <= 1:
-        return [_zlib_ranges(*sp) for sp in specs]
+        return [_zlib_ranges(*sp) for sp in specs], lengths
     workers = min(len(specs), os.cpu_count() or 1, 8)
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(lambda sp: _zlib_ranges(*sp), specs))
+        return list(pool.map(lambda sp: _zlib_ranges(*sp), specs)), lengths
+
+
+def _chain(crcs: Sequence[int], lengths: Sequence[int]) -> int:
+    """The CRC-32 of byte strings back to back from each one's CRC-32 and
+    length (zlib's ``crc32_combine``)."""
+    crc = crcs[0]
+    if len(crcs) > 1:
+        from repro_torch.kernels.ref import crc_shift
+
+        for c, n in zip(crcs[1:], lengths[1:]):
+            crc = crc_shift(crc, n) ^ c
+    return crc
+
+
+def checksums(items) -> List[int]:
+    """CRC-32 of each item, over its bytes in C order: an item is a table,
+    or ``(stack, layer, axis)`` for slice ``layer`` along ``axis`` of a
+    stack (the reference's ``table_checksum`` of the slice; a strided
+    segment-major slice is never copied).  CUDA tables go through the CRC
+    kernel on the card, all the items of a device in one launch with one
+    read back; host tables through ``zlib``, several items in a thread
+    pool.  A CUDA tensor's bytes never go to the host.  A
+    :class:`ShardedTables` item (whole, sharded on its leading axis, or a
+    layer of a stack whose segment axis leads the layer) chains its shards'
+    CRCs in shard order: the unsharded table's CRC."""
+    groups = [_leaves(it) for it in items]
+    crcs, lengths = _leaf_checksums([lf for g in groups for lf in g])
+    out, i = [], 0
+    for g in groups:
+        out.append(_chain(crcs[i:i + len(g)], lengths[i:i + len(g)]))
+        i += len(g)
+    return out
 
 
 def table_checksum(arr, *, crc: int = 0) -> int:
@@ -454,7 +687,7 @@ def table_checksum(arr, *, crc: int = 0) -> int:
         return got
     from repro_torch.kernels.ref import crc_shift
 
-    n = _itemsize(arr) * int(np.prod(np.shape(arr)))
+    n = _itemsize(arr) * int(np.prod(tuple(arr.shape)))
     return crc_shift(crc, n) ^ got  # zlib's crc32_combine
 
 

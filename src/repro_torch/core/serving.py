@@ -9,10 +9,21 @@ frontend; each call runs one fetch path.
 :class:`PCILTConv2d` / :func:`convert_conv_kernel` hoist a convolution's
 table build out of serving: the filter is flattened and aligned to the
 segment grid and its dense tables (or, with ``shared=True``, its
-extension-3 pool) are built once; a call runs one fetch path.  Unsharded.
+extension-3 pool) are built once; a call runs one fetch path.
 Each converted layer, and :class:`PCILTMambaDecode`, has the reference's
 ``tune``: it records the winning kernel design of its shapes in the design
 cache (``kernels.autotune``).
+
+With ``mesh=`` (a ``launch.mesh.Mesh``) a converted layer is tensor
+parallel: its dense tables are cut into ``[G/D, V, O]`` blocks placed on
+the mesh axis's devices at conversion (``core.pcilt.ShardedTables``), its
+shared pool into a ``ShardedSharedPool``; every call runs the sharded
+routes of ``core.lut_layers``, and ``tune`` tunes the local shard's shape.
+:func:`convert_mamba_decode` shards the projection stacks alike (the
+conv tables and the head stay whole, as in the reference); the integrity
+record of a sharded bundle equals the unsharded one's byte for byte (each
+layer's shard CRCs chained in shard order), and the monitor's
+recalibration writes each shard's block on its own device.
 
 :func:`convert_mamba_decode` is the once-per-lifetime build: calibrate on a
 prefill pass, build the conv, projection and head tables, record their
@@ -35,11 +46,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .lut_layers import (build_dwconv_tables, flatten_filters, pcilt_conv2d,
+from .lut_layers import (_layer_of, build_dwconv_tables, flatten_filters,
+                         mesh_shard_count, pcilt_conv2d,
                          pcilt_depthwise_conv1d, pcilt_linear)
-from .pcilt import (SharedGroupedTables, build_grouped_tables,
-                    build_paired_tables, build_shared_grouped_tables,
-                    checksums, layer_checksum, stacked_checksums,
+from .pcilt import (SharedGroupedTables, ShardedSharedPool, ShardedTables,
+                    build_grouped_tables, build_paired_tables,
+                    build_shared_grouped_tables, checksums, layer_checksum,
+                    shard_shared_grouped_tables, stacked_checksums,
                     table_checksum)
 from .quantization import (QuantSpec, calibrate, dequantize, fake_quant,
                            quantize, scale_from_amax)
@@ -51,6 +64,17 @@ __all__ = ["pcilt_integrity", "PCILTMambaDecode", "HealthMonitor",
            "PCILTLinear", "convert_kernel", "PCILTConv2d",
            "convert_conv_kernel", "PCILTDwConv1d", "convert_dwconv",
            "pcilt_apply", "mlp_table_bytes"]
+
+
+def _place_sharded_pool(sp: ShardedSharedPool, mesh,
+                        mesh_axis: str) -> ShardedSharedPool:
+    """Each local pool and pointer block on its device of the mesh axis (no
+    device holds the global pool)."""
+    devs = mesh.axis_devices(mesh_axis)
+    return ShardedSharedPool(
+        pools=[p.to(d) for p, d in zip(sp.pools, devs)],
+        seg_idx=[i.to(d) for i, d in zip(sp.seg_idx, devs)],
+        group=sp.group, shard_cards=sp.shard_cards)
 
 
 def _proj_axis(proj: Dict) -> int:
@@ -180,8 +204,11 @@ class PCILTMambaDecode:
         the layer), on the segment-major paired stack for a paired bundle.
         ``batch`` is an int or a tuple of them (the stacked keys carry the
         batch).  Each kernel is tuned with and without its saturation
-        counters: the two run under different key families.  On the CPU
-        this consults the cache and times nothing."""
+        counters: the two run under different key families.  Under a mesh
+        each projection tunes one shard's block (``[L, G/D, V, O]``,
+        ``[G2/D, L, V2, O]``): the shape each device's kernel runs, so
+        caches tuned at different ``D`` never share a key.  On the CPU this
+        consults the cache and times nothing."""
         from repro_torch.kernels import ops
 
         batches = (batch,) if isinstance(batch, int) else tuple(batch)
@@ -202,21 +229,29 @@ class PCILTMambaDecode:
         group = proj["group"]
         paired = bool(proj.get("paired"))
         for name, t in proj["tables"].items():
-            G = t.shape[0] if paired else t.shape[1]
+            seg_axis = 0 if paired else 1
+            G = t.shape[seg_axis]
+            D = mesh_shard_count(proj.get("mesh"),
+                                 proj.get("mesh_axis", "model"), G)
+            # under a mesh: one shard's block, the shape each device runs
+            local = t.shards[0] if isinstance(t, ShardedTables) else \
+                t.narrow(seg_axis, 0, G // D).contiguous()
             scale = _f32(proj["scales"][name][0])
             for b in batches:
                 for stats in (False, True):
                     if paired:
-                        x = torch.zeros((b, G * 2 * group),
-                                        dtype=torch.float32, device=dev)
+                        x = torch.zeros((b, G // D * 2 * group),
+                                        dtype=torch.float32,
+                                        device=local.device)
                         ops.pcilt_fused_gemv_paired_stacked(
-                            x, t, 0, proj["spec"], scale, group,
+                            x, local, 0, proj["spec"], scale, group,
                             autotune=True, with_stats=stats)
                     else:
-                        x = torch.zeros((b, G * group), dtype=torch.float32,
-                                        device=dev)
+                        x = torch.zeros((b, G // D * group),
+                                        dtype=torch.float32,
+                                        device=local.device)
                         ops.pcilt_fused_gemv_stacked(
-                            x, t, 0, proj["spec"], scale, group,
+                            x, local, 0, proj["spec"], scale, group,
                             autotune=True, with_stats=stats)
 
 
@@ -520,15 +555,15 @@ class HealthMonitor:
                 wf = self.params["blocks"]["mixer"][name]["kernel"][l].float()
                 t = proj["tables"][name]
                 if paired:  # segment-major [G2, L, V2, O]: the layer's slice
-                    t[:, l].copy_(build_paired_tables(wf, spec, new_scale,
-                                                      group).to(t.dtype))
+                    new = build_paired_tables(wf, spec, new_scale, group)
                 else:
                     pad_n = (-wf.shape[0]) % group
                     if pad_n:  # group-alignment slots, as conversion
                         wf = torch.cat([wf, wf.new_zeros((pad_n, wf.shape[1]))],
                                        0)
-                    t[l].copy_(build_grouped_tables(wf, spec, new_scale,
-                                                    group).to(t.dtype))
+                    new = build_grouped_tables(wf, spec, new_scale, group)
+                # in place; a sharded stack's blocks each on its device
+                _layer_of(t, l, _proj_axis(proj)).copy_(new.to(t.dtype))
                 integ[name][l] = layer_checksum(t, l, _proj_axis(proj))
                 proj["scales"][name][l] = new_scale
                 new_scales[name] = float(proj["scales"][name][l])
@@ -578,6 +613,7 @@ class HealthMonitor:
 
 
 def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
+                         mesh=None, mesh_axis: str = "model",
                          table_dtype=torch.float32, paired: bool = False,
                          head: Optional[str] = None,
                          timings: Optional[Dict[str, float]] = None,
@@ -586,8 +622,10 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
     ``device`` (where ``params`` must lie): calibrate on ``calib_tokens
     [B, S]``, build the conv and projection stacks (segment-major paired
     stacks with ``paired``; with ``head="shared"`` also the shared-pool
-    head), record the CRC-32s, verify them at load.  With ``timings`` (a
-    dict) the seconds of each phase are stored there."""
+    head), record the CRC-32s, verify them at load.  With ``mesh=`` the
+    projection stacks are built straight into their segment shards over
+    ``mesh_axis`` (``MambaLM.build_pcilt``).  With ``timings`` (a dict) the
+    seconds of each phase are stored there."""
     import time
 
     from repro_torch.interop import resolve_device
@@ -628,7 +666,8 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
             params, to_scale(amax["conv_in"]), proj_scales=proj_scales,
             table_dtype=table_dtype,
             head_scale=to_scale(amax["head_in"]) if head == "shared" else None,
-            record_integrity=False, paired=paired)
+            record_integrity=False, paired=paired, mesh=mesh,
+            mesh_axis=mesh_axis)
     lap("build_s", t0)
     t0 = time.perf_counter()
     pcilt["integrity"] = pcilt_integrity(pcilt)
@@ -642,21 +681,45 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
 class _TabledLayer:
     """What a converted linear or conv layer holds: dense grouped tables
     ``[G, V, O]`` and/or an extension-3 shared pool.  A shared-only layer
-    runs ``"shared"`` or ``"gather"``; a dense-only one every other path."""
+    runs ``"shared"`` or ``"gather"``; a dense-only one every other path.
+    With ``mesh=`` the layer is tensor parallel: at construction (the
+    offline step) the dense tables are cut into ``[G/D, V, O]`` blocks on
+    the mesh axis's devices and the pool into a ``ShardedSharedPool``
+    (``shard_pools``; the global pool stays as ``shared``); a mesh axis that
+    does not divide ``G`` replicates."""
 
     def __init__(self, tables: Optional[torch.Tensor],
-                 shared: Optional[SharedGroupedTables]):
+                 shared: Optional[SharedGroupedTables], mesh=None,
+                 mesh_axis: str = "model"):
         if tables is None and shared is None:
             raise ValueError(f"{type(self).__name__} needs dense tables, a "
                              f"shared pool, or both")
         self.tables = tables
         self.shared = shared
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.shard_pools: Optional[ShardedSharedPool] = None
+        D = self.shard_count
+        if D > 1:
+            if shared is not None:
+                self.shard_pools = _place_sharded_pool(
+                    shard_shared_grouped_tables(shared, D), mesh, mesh_axis)
+            if tables is not None:
+                from repro_torch.nn.module import pcilt_table_sharding
+
+                self.tables = ShardedTables.place(tables, pcilt_table_sharding(
+                    mesh, tables.shape[0], mesh_axis=mesh_axis))
 
     @property
     def n_segments(self) -> int:
         if self.tables is not None:
             return self.tables.shape[0]
         return self.shared.n_segments
+
+    @property
+    def shard_count(self) -> int:
+        """Segment shards on the layer's mesh (1: replicated)."""
+        return mesh_shard_count(self.mesh, self.mesh_axis, self.n_segments)
 
     def table_bytes(self) -> int:
         """Bytes of the representation this layer deploys (the shared pool
@@ -665,12 +728,21 @@ class _TabledLayer:
             return self.shared.pool_bytes()
         return _nbytes(self.tables)
 
+    def per_device_table_bytes(self) -> int:
+        """Table bytes each device holds under the layer's mesh: the padded
+        local pool of a shared layer, ``1/D`` of the dense tables, all of
+        them when replicated."""
+        if self.shard_pools is not None:
+            return self.shard_pools.local_pool_bytes()
+        return -(-self.table_bytes() // self.shard_count)
+
     def _tables_for(self, path: str):
         if path == "shared" or (self.tables is None and path == "gather"):
             if self.shared is None:
                 raise ValueError(
                     "no shared pool on this layer; convert with shared=True")
-            return self.shared
+            return self.shard_pools if self.shard_pools is not None \
+                else self.shared
         if self.tables is None:
             raise ValueError(
                 f"shared-only {type(self).__name__} executes path='shared' "
@@ -682,26 +754,30 @@ class PCILTLinear(_TabledLayer):
     """A converted projection: dense grouped tables ``[G, V, O]`` and/or an
     extension-3 shared pool, plus the activation quantizer.  A call runs
     :func:`~repro_torch.core.lut_layers.pcilt_linear` on one path
-    (``"fused"`` is one kernel launch).  Unsharded."""
+    (``"fused"`` is one kernel launch; under a mesh one a shard, then the
+    reduction)."""
 
     def __init__(self, tables: Optional[torch.Tensor], spec: QuantSpec,
                  scale, group: int,
-                 shared: Optional[SharedGroupedTables] = None):
-        super().__init__(tables, shared)
-        self.spec = spec
-        self.scale = scale
-        self.group = group
-        #: conversion-time CRC-32 record, verified by verify_integrity
+                 shared: Optional[SharedGroupedTables] = None, mesh=None,
+                 mesh_axis: str = "model"):
+        #: conversion-time CRC-32 record (before placement, which moves
+        #: bytes and never rewrites them), verified by verify_integrity
         self.integrity: Dict[str, int] = {}
         if tables is not None:
             self.integrity["tables"] = table_checksum(tables)
         if shared is not None:
             self.integrity["pool"] = table_checksum(shared.pool)
             self.integrity["seg_idx"] = table_checksum(shared.seg_idx)
+        super().__init__(tables, shared, mesh, mesh_axis)
+        self.spec = spec
+        self.scale = scale
+        self.group = group
 
     def verify_integrity(self) -> Dict[str, bool]:
-        """Each held table's checksum against the conversion-time record;
-        False marks a corrupted one."""
+        """Each held table's checksum against the conversion-time record
+        (sharded tables: their shards' CRCs chained); False marks a
+        corrupted one."""
         cur = {}
         if self.tables is not None:
             cur["tables"] = table_checksum(self.tables)
@@ -718,16 +794,33 @@ class PCILTLinear(_TabledLayer):
 
     def __call__(self, x: torch.Tensor, path: str = "gather") -> torch.Tensor:
         return pcilt_linear(self._pad_x(x), self._tables_for(path), self.spec,
-                            self.scale, self.group, path=path)
+                            self.scale, self.group, path=path,
+                            mesh=self.mesh, mesh_axis=self.mesh_axis)
 
     def tune(self, x: torch.Tensor) -> torch.Tensor:
         """Tune the fused kernel's design at this shape (the shared-pool
         kernel's for a shared-only layer) and record the winner in the
-        design cache; returns the output."""
+        design cache; returns the output.  Under a mesh it tunes one
+        shard's local shape (its ``[G/D, V, O]`` block or local pool against
+        its slice of ``x``), the key every shard's launch looks up."""
         from repro_torch.kernels import ops
 
         x = self._pad_x(x)
         flat = x.reshape(-1, x.shape[-1])
+        D = self.shard_count
+        if D > 1:
+            xl = flat[:, :self.n_segments // D * self.group]
+            if self.tables is None:
+                sp = self.shard_pools
+                ops.pcilt_shared_gemv(
+                    xl.to(sp.pools[0].device).contiguous(), sp.pools[0],
+                    sp.seg_idx[0], self.spec, _f32(self.scale), self.group,
+                    autotune=True)
+                return self(x, path="shared")
+            t0 = self.tables.shards[0]
+            ops.pcilt_fused_gemv(xl.to(t0.device).contiguous(), t0, self.spec,
+                                 _f32(self.scale), self.group, autotune=True)
+            return self(x, path="fused")
         if self.tables is None:
             out = ops.pcilt_shared_gemv(flat, self.shared.pool,
                                         self.shared.seg_idx, self.spec,
@@ -752,12 +845,14 @@ def _quantize_weights(k: torch.Tensor, weight_bits: Optional[int]):
 
 def convert_kernel(kernel: torch.Tensor, act_spec: QuantSpec, act_scale,
                    group: int, weight_bits: Optional[int] = None,
-                   shared: bool = False) -> PCILTLinear:
+                   shared: bool = False, mesh=None,
+                   mesh_axis: str = "model") -> PCILTLinear:
     """Offline build for one ``[d_in, d_out]`` kernel, on the kernel's
     device: with ``weight_bits`` the weights are first quantized; the
     reduction dim is aligned to ``group`` with zero weights, and the dense
     grouped tables (or with ``shared`` the segment-deduplicated pool) are
-    built once."""
+    built once; with ``mesh`` they are sharded over ``mesh_axis`` then (the
+    offline step)."""
     k = kernel.float()
     if kernel.dim() > 2:
         k = k.reshape(kernel.shape[0], -1)
@@ -769,9 +864,11 @@ def convert_kernel(kernel: torch.Tensor, act_spec: QuantSpec, act_scale,
     with torch.no_grad():
         if shared:
             pool = build_shared_grouped_tables(k, act_spec, act_scale, group)
-            return PCILTLinear(None, act_spec, act_scale, group, shared=pool)
+            return PCILTLinear(None, act_spec, act_scale, group, shared=pool,
+                               mesh=mesh, mesh_axis=mesh_axis)
         tables = build_grouped_tables(k, act_spec, act_scale, group)
-    return PCILTLinear(tables, act_spec, act_scale, group)
+    return PCILTLinear(tables, act_spec, act_scale, group, mesh=mesh,
+                       mesh_axis=mesh_axis)
 
 
 class PCILTDwConv1d:
@@ -836,13 +933,15 @@ class PCILTConv2d(_TabledLayer):
     """A converted convolution: the filter with its pre-built dense tables
     and/or extension-3 pool.  ``layer(x, path)`` runs
     :func:`~repro_torch.core.lut_layers.pcilt_conv2d` on them (default
-    ``"fused"``)."""
+    ``"fused"``); under a mesh the conv kernels keep their in-kernel im2col
+    on every shard (``seg_offset``)."""
 
     def __init__(self, filters: torch.Tensor, spec: QuantSpec, scale,
                  group: int, stride: int = 1, padding: str = "SAME",
                  tables: Optional[torch.Tensor] = None,
-                 shared: Optional[SharedGroupedTables] = None):
-        super().__init__(tables, shared)
+                 shared: Optional[SharedGroupedTables] = None, mesh=None,
+                 mesh_axis: str = "model"):
+        super().__init__(tables, shared, mesh, mesh_axis)
         self.filters = filters
         self.spec = spec
         self.scale = scale
@@ -854,17 +953,33 @@ class PCILTConv2d(_TabledLayer):
         return pcilt_conv2d(x, self.filters, self.spec, self.scale,
                             self.group, stride=self.stride,
                             padding=self.padding,
-                            tables=self._tables_for(path), path=path)
+                            tables=self._tables_for(path), path=path,
+                            mesh=self.mesh, mesh_axis=self.mesh_axis)
 
     def tune(self, x: torch.Tensor) -> torch.Tensor:
         """Tune the conv kernel's design at this input shape (the
         shared-pool kernel's for a shared-only layer) and record it;
-        returns the output."""
+        returns the output.  Under a mesh it tunes shard 0's local shape
+        (``seg_offset=0``): the key every shard's launch looks up."""
         from repro_torch.kernels import ops
 
         kh, kw = self.filters.shape[:2]
         kw_args = dict(stride=self.stride, padding=self.padding,
                        autotune=True)
+        if self.shard_count > 1:
+            kw_args["n_total"] = self.n_segments * self.group
+            if self.tables is None:
+                sp = self.shard_pools
+                ops.pcilt_shared_conv2d(x.to(sp.pools[0].device), sp.pools[0],
+                                        sp.seg_idx[0], self.spec,
+                                        _f32(self.scale), self.group, kh, kw,
+                                        **kw_args)
+                return self(x, path="shared")
+            t0 = self.tables.shards[0]
+            ops.pcilt_fused_conv2d(x.to(t0.device), t0, self.spec,
+                                   _f32(self.scale), self.group, kh, kw,
+                                   **kw_args)
+            return self(x, path="fused")
         if self.tables is None:
             ops.pcilt_shared_conv2d(x, self.shared.pool, self.shared.seg_idx,
                                     self.spec, _f32(self.scale), self.group,
@@ -878,12 +993,14 @@ class PCILTConv2d(_TabledLayer):
 def convert_conv_kernel(filters: torch.Tensor, act_spec: QuantSpec, act_scale,
                         group: int, stride: int = 1, padding: str = "SAME",
                         weight_bits: Optional[int] = None,
-                        shared: bool = False) -> PCILTConv2d:
+                        shared: bool = False, mesh=None,
+                        mesh_axis: str = "model") -> PCILTConv2d:
     """Offline build for one ``[kh, kw, Cin, Cout]`` filter, on the
     filter's device: with ``weight_bits`` the filter is first quantized on
     a symmetric absmax grid; the receptive field is flattened and aligned
     to the segment grid once, and the dense tables (or with ``shared`` the
-    segment-deduplicated pool) are built once."""
+    segment-deduplicated pool) are built once; with ``mesh`` they are
+    sharded over ``mesh_axis`` then."""
     f = _quantize_weights(filters.float(), weight_bits)
     wflat = flatten_filters(f, group)
     with torch.no_grad():
@@ -891,7 +1008,9 @@ def convert_conv_kernel(filters: torch.Tensor, act_spec: QuantSpec, act_scale,
             pool = build_shared_grouped_tables(wflat, act_spec, act_scale,
                                                group)
             return PCILTConv2d(f, act_spec, act_scale, group, stride=stride,
-                               padding=padding, shared=pool)
+                               padding=padding, shared=pool, mesh=mesh,
+                               mesh_axis=mesh_axis)
         tables = build_grouped_tables(wflat, act_spec, act_scale, group)
     return PCILTConv2d(f, act_spec, act_scale, group, stride=stride,
-                       padding=padding, tables=tables)
+                       padding=padding, tables=tables, mesh=mesh,
+                       mesh_axis=mesh_axis)

@@ -5,7 +5,10 @@ JAX side hands its parameter tree and PCILT bundle over as numpy arrays (any
 object ``np.asarray`` accepts), and :func:`params_from_jax` /
 :func:`bundle_from_jax` rebuild them as tensors in the layout the port uses.
 bf16 arrays cross as raw 16-bit words, so bytes (and CRC-32 records) are
-preserved exactly.
+preserved exactly.  With ``mesh=`` (a ``launch.mesh.Mesh``) the
+sharded tables of a JAX run (a ``ShardedSharedPool``, a bundle converted
+with a mesh) cross as the port's sharded types, each shard on its device
+of the mesh axis.
 """
 
 from __future__ import annotations
@@ -82,18 +85,41 @@ def params_from_jax(np_tree, device="cuda") -> Dict[str, Any]:
     return tree_map(lambda a: to_torch(a, dev), np_tree)
 
 
-def tables_from_jax(tables, device="cuda"):
+def _shard_devices(mesh, mesh_axis: str, n: int, dev):
+    if mesh is None:
+        return [dev] * n
+    devs = mesh.axis_devices(mesh_axis)
+    if len(devs) != n:
+        raise ValueError(f"{n} shards on a mesh axis {mesh_axis!r} of "
+                         f"{len(devs)} devices")
+    return devs
+
+
+def tables_from_jax(tables, device="cuda", *, mesh=None,
+                    mesh_axis: str = "model"):
     """Dense ``[G, V, O]`` tables, ``SharedGroupedTables`` pools (any object
-    with ``pool``, ``seg_idx`` and ``group``) and scalar ``SharedTables``
-    pools (``pool``, ``w_idx``, ``unique_w``, ``value_pool``) of the JAX
-    package, or a dict of them such as ``PaperCNN.build_tables`` returns,
-    as the port's.  (A ``SegmentPlan`` needs no converter: its index is a
-    numpy array in both packages.)"""
-    from .core.pcilt import SharedGroupedTables, SharedTables
+    with ``pool``, ``seg_idx`` and ``group``), ``ShardedSharedPool`` pools
+    (``pools``, ``seg_idx``, ``group``, ``shard_cards``; shard ``d`` on the
+    mesh axis's device ``d``, or all on ``device`` without a mesh) and
+    scalar ``SharedTables`` pools (``pool``, ``w_idx``, ``unique_w``,
+    ``value_pool``) of the JAX package, or a dict of them such as
+    ``PaperCNN.build_tables`` returns, as the port's.  (A ``SegmentPlan``
+    needs no converter: its index is a numpy array in both packages.)"""
+    from .core.pcilt import ShardedSharedPool, SharedGroupedTables, SharedTables
 
     dev = resolve_device(device)
     if isinstance(tables, dict):
-        return {k: tables_from_jax(v, dev) for k, v in tables.items()}
+        return {k: tables_from_jax(v, dev, mesh=mesh, mesh_axis=mesh_axis)
+                for k, v in tables.items()}
+    if hasattr(tables, "pools") and hasattr(tables, "shard_cards"):
+        pools, idx = np.asarray(tables.pools), np.asarray(tables.seg_idx,
+                                                          np.int32)
+        devs = _shard_devices(mesh, mesh_axis, pools.shape[0], dev)
+        return ShardedSharedPool(
+            pools=[to_torch(p, d) for p, d in zip(pools, devs)],
+            seg_idx=[to_torch(i, d) for i, d in zip(idx, devs)],
+            group=int(tables.group),
+            shard_cards=tuple(int(c) for c in tables.shard_cards))
     if hasattr(tables, "w_idx"):
         vp = tables.value_pool
         return SharedTables(
@@ -124,11 +150,34 @@ def _spec(s) -> QuantSpec:
     return QuantSpec(bits=int(s.bits), symmetric=bool(s.symmetric))
 
 
-def bundle_from_jax(np_bundle, device="cuda") -> Dict[str, Any]:
+def _stack_from_jax(a, dev, paired: bool, mesh, mesh_axis: str):
+    """One projection stack; with a mesh that divides its segment axis,
+    cut into its shards (``[L, G/D, V, O]``, paired ``[G2/D, L, V2, O]``),
+    each placed from the host on its device."""
+    from .core.pcilt import ShardedTables
+    from .core.lut_layers import mesh_shard_count
+
+    a = np.asarray(a)
+    ax = 0 if paired else 1
+    D = mesh_shard_count(mesh, mesh_axis, a.shape[ax])
+    if D == 1:
+        return to_torch(a, dev)
+    size = a.shape[ax] // D
+    return ShardedTables(
+        [to_torch(np.take(a, range(d * size, (d + 1) * size), axis=ax), d_)
+         for d, d_ in enumerate(mesh.axis_devices(mesh_axis))],
+        ax, mesh, mesh_axis)
+
+
+def bundle_from_jax(np_bundle, device="cuda", *, mesh=None,
+                    mesh_axis: str = "model") -> Dict[str, Any]:
     """A ``MambaLM.build_pcilt`` bundle of the JAX package as the port's
     bundle: tables on ``device`` (layer-major or, paired, segment-major
     projection stacks), calibrated scales as host float32 (the kernels take
-    them by value), the conversion-time integrity record as is."""
+    them by value), the conversion-time integrity record as is.  With
+    ``mesh=`` the projection stacks are sharded over ``mesh_axis`` as
+    ``convert_mamba_decode(mesh=)`` shards them (a JAX bundle converted
+    with a mesh crosses as numpy, whole, and is cut here)."""
     dev = resolve_device(device)
     b = np_bundle
     out = {"tables": to_torch(b["tables"], dev),
@@ -136,12 +185,14 @@ def bundle_from_jax(np_bundle, device="cuda") -> Dict[str, Any]:
            "spec": _spec(b["spec"])}
     proj = b.get("proj")
     if proj is not None:
+        paired = bool(proj.get("paired", False))
         out["proj"] = {
-            "tables": {k: to_torch(v, dev) for k, v in proj["tables"].items()},
+            "tables": {k: _stack_from_jax(v, dev, paired, mesh, mesh_axis)
+                       for k, v in proj["tables"].items()},
             "scales": {k: _host_scales(v) for k, v in proj["scales"].items()},
             "spec": _spec(proj["spec"]), "group": int(proj["group"]),
-            "path": proj.get("path", "fused"),
-            "paired": bool(proj.get("paired", False))}
+            "path": proj.get("path", "fused"), "paired": paired,
+            "mesh": mesh, "mesh_axis": mesh_axis}
     head = b.get("head")
     if head is not None:
         out["head"] = {

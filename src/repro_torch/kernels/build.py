@@ -58,11 +58,11 @@ _SIGNATURES = {
     "pcilt_dwconv1d_host": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "pcilt_shared_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _I, _P],
-    "pcilt_fused_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],
-    "pcilt_shared_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _P],
-    "pcilt_fused_conv2d_staged": [_P, _P, _P, _P] + [_I] * 15 + [_P],
-    "pcilt_shared_conv2d_staged": [_P, _P, _P, _P] + [_I] * 15 + [_P],
-    "pcilt_conv2d_codes": [_P, _P] + [_I] * 6 + [_F, _P],
+    "pcilt_fused_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _I, _I, _P],
+    "pcilt_shared_conv2d": [_P, _P, _P, _P] + [_I] * 16 + [_F, _I, _I, _P],
+    "pcilt_fused_conv2d_staged": [_P, _P, _P, _P] + [_I] * 19 + [_P],
+    "pcilt_shared_conv2d_staged": [_P, _P, _P, _P] + [_I] * 19 + [_P],
+    "pcilt_conv2d_codes": [_P, _P] + [_I] * 8 + [_F, _P],
     "pcilt_gemv_host": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
 }
 #: the C entry points without a dtype suffix (a design's constants, and the

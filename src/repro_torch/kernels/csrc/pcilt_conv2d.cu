@@ -6,6 +6,15 @@
 // past n = kh*kw*C (group alignment, tables built from zero weights) take
 // code 0.  Accumulated in float32, cast once to the table dtype.
 //
+// Sharded tables (a mesh's segment shards): a launch's tables are one
+// shard's G segments, global segments seg_offset .. seg_offset + G - 1 of
+// a patch whose padded length is n_total (>= kh*kw*C; the alignment slots
+// past kh*kw*C take code 0).  Segment g of the launch reads patch
+// positions (seg_offset + g) * group + j.  Unsharded: seg_offset 0,
+// n_total G * group.  The staged design's pre-pass quantizes only the
+// channels the shard's positions touch (all of them once its positions
+// span a tap's C channels).
+//
 // Replaces: src/repro/kernels/pcilt_fused.py pcilt_fused_conv2d_pallas
 // (body _conv_kernel, _strip_offsets) and src/repro/kernels/pcilt_shared.py
 // pcilt_shared_conv2d_pallas (without its per-call [V, X, O] transpose).
@@ -70,6 +79,8 @@
 // patch element in place, then each thread adds its 8 pixels' cells of its
 // column straight from the table, 8 independent loads per segment.  Bound
 // in practice by L2's rate, since the 16 pixels of a block share no row.
+#include <algorithm>
+
 #include "pcilt_common.cuh"
 
 namespace {
@@ -84,7 +95,8 @@ __global__ void conv2d_kernel(const float* __restrict__ x,
                               T* __restrict__ out, long long P, int Hp,
                               int Wp, int C, int Ho, int Wo, int kh, int kw,
                               int stride, int G, int X, int V, int O,
-                              int group, int bits, int zp, float scale) {
+                              int group, int bits, int zp, float scale,
+                              int seg_offset) {
   extern __shared__ long long smem[];
   const int R = blockDim.y * kRowsPerThread;
   long long* s_base = smem;                              // [kSegChunk]
@@ -137,7 +149,7 @@ __global__ void conv2d_kernel(const float* __restrict__ x,
       if (pb >= 0) {
         off = 0;
         for (int j = 0; j < group; ++j) {
-          const int p = (g0 + gg) * group + j;
+          const int p = (seg_offset + g0 + gg) * group + j;
           if (p >= n) break;  // alignment slots: code 0
           const int tap = p / C;
           const int c = p - tap * C;
@@ -165,11 +177,20 @@ __global__ void conv2d_kernel(const float* __restrict__ x,
   }
 }
 
+// The shard's segments lie inside the padded patch, which covers the patch.
+bool shard_fits(int kh, int kw, int C, int G, int group, int seg_offset,
+                int n_total) {
+  return seg_offset >= 0 && (long long)kh * kw * C <= n_total &&
+         ((long long)seg_offset + G) * group <= n_total;
+}
+
 template <typename T, bool kShared>
 int launch(const float* x, const T* tab, const int* seg_idx, T* out, int B,
            int Hp, int Wp, int C, int Ho, int Wo, int kh, int kw, int stride,
            int G, int X, int V, int O, int group, int bits, int zp,
-           float scale, cudaStream_t stream) {
+           float scale, int seg_offset, int n_total, cudaStream_t stream) {
+  if (!shard_fits(kh, kw, C, G, group, seg_offset, n_total))
+    return (int)cudaErrorInvalidValue;
   const dim3 block = pcilt::fetch_block(O);
   const int R = block.y * kRowsPerThread;
   const long long P = (long long)B * Ho * Wo;
@@ -179,7 +200,7 @@ int launch(const float* x, const T* tab, const int* seg_idx, T* out, int B,
   if (err != cudaSuccess) return (int)err;
   conv2d_kernel<T, kShared><<<grid, block, smem, stream>>>(
       x, tab, seg_idx, out, P, Hp, Wp, C, Ho, Wo, kh, kw, stride, G, X, V, O,
-      group, bits, zp, scale);
+      group, bits, zp, scale, seg_offset);
   return (int)cudaGetLastError();
 }
 
@@ -226,38 +247,40 @@ struct PatchWalk {
 
 }  // namespace staged
 
-// x [B, S = Hp*Wp, C] float32 -> codes [B, C, S] uint8, each element
-// quantized once; a 32 x 32 tile through shared memory keeps both the read
-// and the write coalesced.
+// x [B, S = Hp*Wp, C] float32 -> codes [B, Cs, S] uint8 of channels
+// c0 .. c0 + Cs - 1, each element quantized once; a 32 x 32 tile through
+// shared memory keeps both the read and the write coalesced.
 __global__ void conv2d_codes_kernel(const float* __restrict__ x,
                                     uint8_t* __restrict__ codes, long long S,
-                                    int C, int kmax, int zp, float scale) {
+                                    int C, int c0, int Cs, int kmax, int zp,
+                                    float scale) {
   using staged::kCodeTile;
   __shared__ uint8_t tile[kCodeTile][kCodeTile + 1];
   const long long s0 = (long long)blockIdx.x * kCodeTile;
-  const int c0 = blockIdx.y * kCodeTile;
   const long long b = blockIdx.z;
+  const int t0 = blockIdx.y * kCodeTile;  // the tile's first plane
   for (int r = threadIdx.y; r < kCodeTile; r += blockDim.y) {
     const long long s = s0 + r;
-    const int c = c0 + threadIdx.x;
-    if (s < S && c < C) {
+    const int t = t0 + threadIdx.x;
+    if (s < S && t < Cs) {
       bool sat;
       tile[r][threadIdx.x] = (uint8_t)pcilt::quantize_code(
-          x[(b * S + s) * C + c], scale, zp, kmax, &sat);
+          x[(b * S + s) * C + c0 + t], scale, zp, kmax, &sat);
     }
   }
   __syncthreads();
   for (int r = threadIdx.y; r < kCodeTile; r += blockDim.y) {
-    const int c = c0 + r;
+    const int t = t0 + r;
     const long long s = s0 + threadIdx.x;
-    if (s < S && c < C) codes[(b * C + c) * S + s] = tile[threadIdx.x][r];
+    if (s < S && t < Cs) codes[(b * Cs + t) * S + s] = tile[threadIdx.x][r];
   }
 }
 
 // The raw codes of the next segment's (up to kG) patch positions for this
 // thread's kStagePix pixels, and a mask per position (0: past group or n,
-// code 0); advances the walk to the segment after.  Every load is in
-// bounds: a position that adds nothing reads the pixel's own code.
+// the end of the shard's live positions: code 0); advances the walk to the
+// segment after.  Every load is in bounds: a position that adds nothing
+// reads the pixel's own code of the first plane.
 template <int kG>
 __device__ __forceinline__ void load_codes(
     const uint8_t* __restrict__ codes,
@@ -299,7 +322,8 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
                          T* __restrict__ out, long long P, int C, int Hp,
                          int Wp, int Ho, int Wo, int kw, int stride, int G,
                          int X, int V, int O, int n, int group, int bits,
-                         long long n_ptiles, int vb) {
+                         long long n_ptiles, int vb, int p0, int c0,
+                         int Cs) {
   using namespace staged;
   constexpr int kAhead = kStages - 1;
   extern __shared__ __align__(16) unsigned char smem_u8[];
@@ -315,8 +339,9 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
   const long long HWp = (long long)Hp * Wp;
   const long long VO = (long long)V * O;
 
-  // code-image element of codes[b, 0, oy*stride, ox*stride] for each pixel
-  // this thread packs (past P: 0, a valid code; the pixel is never stored)
+  // code-image element of codes[b, 0, oy*stride, ox*stride] (plane 0 is
+  // channel c0) for each pixel this thread packs (past P: 0, a valid code;
+  // the pixel is never stored)
   long long pbase[kStagePix];
 #pragma unroll
   for (int k = 0; k < kStagePix; ++k) {
@@ -326,7 +351,7 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
       const long long b = p / ((long long)Ho * Wo);
       const int rem = (int)(p - b * Ho * Wo);
       const int oy = rem / Wo, ox = rem - (rem / Wo) * Wo;
-      pbase[k] = b * C * HWp + (long long)oy * stride * Wp +
+      pbase[k] = b * Cs * HWp + (long long)oy * stride * Wp +
                  (long long)ox * stride;
     }
   }
@@ -356,7 +381,16 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
   for (int i = tid; i < kOffRing * kMaxV / 4; i += kThreads)
     reinterpret_cast<unsigned*>(s_used)[i] = 0u;
   __syncthreads();
-  PatchWalk walk{0, 0, 0, 0};
+  // the walk starts at the shard's first position p0 = seg_offset * group
+  PatchWalk walk;
+  {
+    const int tap = p0 / C;
+    walk.pos = p0;
+    walk.c = p0 - tap * C;
+    walk.tj = tap % kw;
+    walk.delta = (long long)(walk.c - c0) * HWp + (long long)(tap / kw) * Wp +
+                 walk.tj;
+  }
   unsigned raw0[kStagePix][kG], mask0[kG], raw1[kStagePix][kG], mask1[kG];
 #pragma unroll 1
   for (int g = 0; g <= kAhead; ++g) {
@@ -418,7 +452,8 @@ int launch_staged_g(const uint8_t* codes, const T* tab, const int* seg_idx,
                     T* out, long long P, int C, int Hp, int Wp, int Ho,
                     int Wo, int kw, int stride, int G, int X, int V, int O,
                     int n, int group, int bits, long long n_ptiles,
-                    long long blocks, cudaStream_t stream) {
+                    long long blocks, int p0, int c0, int Cs,
+                    cudaStream_t stream) {
   const size_t smem = staged::smem_bytes((int)sizeof(T));
   cudaError_t err =
       pcilt::allow_smem(conv2d_staged_kernel<T, kShared, kG>, smem);
@@ -427,29 +462,43 @@ int launch_staged_g(const uint8_t* codes, const T* tab, const int* seg_idx,
       <<<(unsigned)blocks, staged::kThreads, smem, stream>>>(
           codes, tab, seg_idx, out, P, C, Hp, Wp, Ho, Wo, kw, stride, G, X,
           V, O, n, group, bits, n_ptiles,
-          staged::copy_width(tab, O, sizeof(T)));
+          staged::copy_width(tab, O, sizeof(T)), p0, c0, Cs);
   return (int)cudaGetLastError();
 }
 
+// codes holds planes c0 .. c0 + Cs - 1: every channel that the shard's
+// live positions seg_offset * group .. min(kh*kw*C, (seg_offset + G) *
+// group) - 1 touch.
 template <typename T, bool kShared>
 int launch_staged(const uint8_t* codes, const T* tab, const int* seg_idx,
                   T* out, int B, int C, int Hp, int Wp, int Ho, int Wo,
                   int kh, int kw, int stride, int G, int X, int V, int O,
-                  int group, int bits, cudaStream_t stream) {
+                  int group, int bits, int seg_offset, int n_total, int c0,
+                  int Cs, cudaStream_t stream) {
   using namespace staged;
   if (group < 1 || group > 8 || bits < 1 || bits * group > 8 ||
-      V != (1 << (bits * group)) || V > kMaxV)
+      V != (1 << (bits * group)) || V > kMaxV ||
+      !shard_fits(kh, kw, C, G, group, seg_offset, n_total) || c0 < 0 ||
+      Cs < 1 || c0 + Cs > C)
     return (int)cudaErrorInvalidValue;
   const long long P = (long long)B * Ho * Wo;
   const long long n_ptiles = (P + kPixTile - 1) / kPixTile;
   const long long blocks = n_ptiles * ((O + kColTile - 1) / kColTile);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int n = kh * kw * C;
+  const int p0 = seg_offset * group;
+  const int n = (int)std::min<long long>((long long)kh * kw * C,
+                                         ((long long)seg_offset + G) * group);
+  if (n > p0) {  // the live positions' channels lie in the planes
+    const int c_first = p0 % C, c_last = (n - 1) % C;
+    const bool one_tap = p0 / C == (n - 1) / C;
+    if (one_tap ? (c_first < c0 || c_last >= c0 + Cs) : (c0 != 0 || Cs != C))
+      return (int)cudaErrorInvalidValue;
+  }
 #define PCILT_STAGED_G(KG)                                                   \
   return launch_staged_g<T, kShared, KG>(codes, tab, seg_idx, out, P, C, Hp, \
                                          Wp, Ho, Wo, kw, stride, G, X, V, O, \
                                          n, group, bits, n_ptiles, blocks,   \
-                                         stream)
+                                         p0, c0, Cs, stream)
   if (group == 1) PCILT_STAGED_G(1);
   if (group == 2) PCILT_STAGED_G(2);
   if (group <= 4) PCILT_STAGED_G(4);
@@ -458,15 +507,17 @@ int launch_staged(const uint8_t* codes, const T* tab, const int* seg_idx,
 }
 
 int launch_codes(const float* x, uint8_t* codes, int B, int Hp, int Wp,
-                 int C, int bits, int zp, float scale, cudaStream_t stream) {
+                 int C, int c0, int Cs, int bits, int zp, float scale,
+                 cudaStream_t stream) {
   using staged::kCodeTile;
-  if (bits < 1 || bits > 8 || B > 65535 || C > 65535 * kCodeTile)
+  if (bits < 1 || bits > 8 || B > 65535 || c0 < 0 || Cs < 1 ||
+      c0 + Cs > C || Cs > 65535 * kCodeTile)
     return (int)cudaErrorInvalidValue;
   const long long S = (long long)Hp * Wp;
   const dim3 grid((unsigned)((S + kCodeTile - 1) / kCodeTile),
-                  (C + kCodeTile - 1) / kCodeTile, B);
+                  (Cs + kCodeTile - 1) / kCodeTile, B);
   conv2d_codes_kernel<<<grid, dim3(kCodeTile, 8), 0, stream>>>(
-      x, codes, S, C, (1 << bits) - 1, zp, scale);
+      x, codes, S, C, c0, Cs, (1 << bits) - 1, zp, scale);
   return (int)cudaGetLastError();
 }
 
@@ -477,12 +528,13 @@ int launch_codes(const float* x, uint8_t* codes, int B, int Hp, int Wp,
                       void* out, int B, int Hp, int Wp, int C, int Ho,      \
                       int Wo, int kh, int kw, int stride, int G, int X,     \
                       int V, int O, int group, int bits, int zp,            \
-                      float scale, void* stream) {                          \
+                      float scale, int seg_offset, int n_total,             \
+                      void* stream) {                                       \
     return launch<TYPE, SHARED>((const float*)x, (const TYPE*)tab,          \
                                 (const int*)seg_idx, (TYPE*)out, B, Hp, Wp, \
                                 C, Ho, Wo, kh, kw, stride, G, X, V, O,      \
-                                group, bits, zp, scale,                     \
-                                (cudaStream_t)stream);                      \
+                                group, bits, zp, scale, seg_offset,         \
+                                n_total, (cudaStream_t)stream);             \
   }
 
 PCILT_CONV2D_ENTRY(pcilt_fused_conv2d_f32, float, false)
@@ -495,11 +547,12 @@ PCILT_CONV2D_ENTRY(pcilt_shared_conv2d_bf16, __nv_bfloat16, true)
                       const void* seg_idx, void* out, int B, int C, int Hp, \
                       int Wp, int Ho, int Wo, int kh, int kw, int stride,   \
                       int G, int X, int V, int O, int group, int bits,      \
+                      int seg_offset, int n_total, int c0, int Cs,          \
                       void* stream) {                                       \
     return launch_staged<TYPE, SHARED>(                                     \
         (const uint8_t*)codes, (const TYPE*)tab, (const int*)seg_idx,       \
         (TYPE*)out, B, C, Hp, Wp, Ho, Wo, kh, kw, stride, G, X, V, O,       \
-        group, bits, (cudaStream_t)stream);                                 \
+        group, bits, seg_offset, n_total, c0, Cs, (cudaStream_t)stream);    \
   }
 
 PCILT_CONV2D_STAGED_ENTRY(pcilt_fused_conv2d_staged_f32, float, false)
@@ -509,12 +562,14 @@ PCILT_CONV2D_STAGED_ENTRY(pcilt_shared_conv2d_staged_f32, float, true)
 PCILT_CONV2D_STAGED_ENTRY(pcilt_shared_conv2d_staged_bf16, __nv_bfloat16,
                           true)
 
-// The code pre-pass: xp [B, Hp, Wp, C] float32 -> codes [B, C, Hp, Wp].
+// The code pre-pass: xp [B, Hp, Wp, C] float32 -> codes [B, Cs, Hp, Wp]
+// of channels c0 .. c0 + Cs - 1.
 extern "C" int pcilt_conv2d_codes_f32(const void* x, void* codes, int B,
-                                      int Hp, int Wp, int C, int bits,
-                                      int zp, float scale, void* stream) {
-  return launch_codes((const float*)x, (uint8_t*)codes, B, Hp, Wp, C, bits,
-                      zp, scale, (cudaStream_t)stream);
+                                      int Hp, int Wp, int C, int c0, int Cs,
+                                      int bits, int zp, float scale,
+                                      void* stream) {
+  return launch_codes((const float*)x, (uint8_t*)codes, B, Hp, Wp, C, c0, Cs,
+                      bits, zp, scale, (cudaStream_t)stream);
 }
 
 // The staged design's tiling, for kernels.ops to check its mirror against:

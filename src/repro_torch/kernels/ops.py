@@ -22,7 +22,10 @@ The conv kernels come in two designs (``csrc/pcilt_conv2d.cu``):
 ``V``).  :func:`conv_variant` chooses by shape; :data:`CONV_VARIANT_LAUNCHES`
 counts which one ran.  ``_fused_conv2d`` / ``_shared_conv2d`` take
 ``variant=`` to force either on a CUDA tensor (tests and ``chip_smoke.py``);
-neither falls back to the other.
+neither falls back to the other.  Both designs take a segment shard of a
+mesh (``seg_offset``, ``n_total``: its segments' place in the global
+padded patch); the staged pre-pass then quantizes only the channels its
+patch positions touch (:func:`conv_code_channels`).
 
 The fused GEMVs (kernels 1 and 8-11, ``csrc/pcilt_gemv_stacked.cu``) also
 come in two designs: ``"split"`` (the segment loop split over the warps of
@@ -94,7 +97,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.core.offsets import pack_offsets
 from repro_torch.core.quantization import QuantSpec, quantize, quantize_with_stats
 from repro_torch.core.lut_layers import (_conv_pads, _dwconv_pads,
-                                         conv_offsets, pad_nhwc)
+                                         im2col, pad_nhwc)
 from . import autotune as atn
 from . import build
 from .ref import (CRC_CHUNK_BYTES, CRC_LANE_BYTES, CRC_LEVELS, crc32_finish,
@@ -113,6 +116,7 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "shared_gemv_plain", "fused_conv2d_plain", "shared_conv2d_plain",
            "CONV_VARIANT_LAUNCHES", "conv_variant", "staged_smem_bytes",
            "staged_tiles", "staged_block_tile", "conv_codes_plain",
+           "conv_code_channels",
            "GEMV_VARIANT_LAUNCHES", "GemvSplit", "gemv_variant",
            "gemv_smem_bytes", "SHARED_GEMV_VARIANT_LAUNCHES", "SharedSplit",
            "shared_gemv_variant", "shared_gemv_smem_bytes",
@@ -1404,33 +1408,47 @@ def _conv2d_host(offsets, tables, variant=None, autotune=None):
 
 
 def _conv_plain_offsets(xp, spec: QuantSpec, scale, group: int, kh: int,
-                        kw: int, stride: int) -> torch.Tensor:
+                        kw: int, stride: int, G: int, seg_offset: int = 0,
+                        n_total: Optional[int] = None) -> torch.Tensor:
     """The conv kernels' activation side on the host, over the padded image
-    and at the kernel's float32 scale -> ``[B*Ho*Wo, G]`` int32."""
+    and at the kernel's float32 scale -> ``[B*Ho*Wo, G]`` int32: segments
+    ``seg_offset .. seg_offset + G - 1`` of the patch padded with code 0 to
+    ``n_total`` (``G * group`` by default)."""
     s = torch.as_tensor(_host_scale(scale), dtype=xp.dtype, device=xp.device)
-    off = conv_offsets(xp, spec, s, group, kh, kw, stride, "VALID")
-    return off.reshape(-1, off.shape[-1])
+    codes = quantize(im2col(xp, kh, kw, stride, "VALID"), spec, s)
+    n_total = G * group if n_total is None else n_total
+    codes = F.pad(codes, (0, n_total - codes.shape[-1]))
+    off = pack_offsets(codes[..., seg_offset * group:(seg_offset + G) * group],
+                       spec.bits, group)
+    return off.reshape(-1, G)
 
 
 def fused_conv2d_plain(xp, tables, spec: QuantSpec, scale, group: int,
-                       kh: int, kw: int, stride: int):
-    """Plain version of the fused conv kernel over the padded image."""
-    return pcilt_gemv_ref(_conv_plain_offsets(xp, spec, scale, group, kh, kw,
-                                              stride), tables)
+                       kh: int, kw: int, stride: int, seg_offset: int = 0,
+                       n_total: Optional[int] = None):
+    """Plain version of the fused conv kernel over the padded image (its
+    tables segments ``seg_offset ..`` of a patch padded to ``n_total``)."""
+    return pcilt_gemv_ref(_conv_plain_offsets(
+        xp, spec, scale, group, kh, kw, stride, tables.shape[0], seg_offset,
+        n_total), tables)
 
 
 def shared_conv2d_plain(xp, pool, seg_idx, spec: QuantSpec, scale,
-                        group: int, kh: int, kw: int, stride: int):
+                        group: int, kh: int, kw: int, stride: int,
+                        seg_offset: int = 0, n_total: Optional[int] = None):
     """Plain version of the shared-pool conv kernel over the padded image;
     a pointer outside ``[0, X)`` adds nothing."""
     X, V, O = pool.shape
-    off = _conv_plain_offsets(xp, spec, scale, group, kh, kw, stride)
+    off = _conv_plain_offsets(xp, spec, scale, group, kh, kw, stride,
+                              int(seg_idx.shape[0]), seg_offset, n_total)
     return fetch_sum(pool_rows(off, seg_idx, X, V), pool.reshape(X * V, O))
 
 
-def _conv_geometry(name, x, G, V, spec, group, kh, kw, stride, padding):
-    """Pad the float image (the only host-side work) and check the shapes:
-    -> ``(xp, Ho, Wo)``."""
+def _conv_geometry(name, x, G, V, spec, group, kh, kw, stride, padding,
+                   seg_offset=0, n_total=None):
+    """Pad the float image (the only host-side work) and check the shapes
+    (a shard's segments ``seg_offset .. seg_offset + G - 1`` inside the
+    padded patch of ``n_total`` slots) -> ``(xp, Ho, Wo, n_total)``."""
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be NHWC, got {tuple(x.shape)}")
     if stride < 1:
@@ -1442,13 +1460,20 @@ def _conv_geometry(name, x, G, V, spec, group, kh, kw, stride, padding):
     if B < 1 or Ho < 1 or Wo < 1:
         raise ValueError(f"{name}: image {tuple(x.shape)} gives no output "
                          f"for a {kh}x{kw} filter with padding {padding!r}")
-    if G * group < kh * kw * C:
-        raise ValueError(f"{name}: G*group = {G}*{group} does not cover the "
-                         f"patch length kh*kw*C = {kh * kw * C}")
+    n_total = G * group if n_total is None else int(n_total)
+    seg_offset = int(seg_offset)
+    if n_total < kh * kw * C:
+        raise ValueError(f"{name}: the padded patch n_total = {n_total} "
+                         f"(G*group = {G}*{group} unsharded) does not cover "
+                         f"the patch length kh*kw*C = {kh * kw * C}")
+    if seg_offset < 0 or (seg_offset + G) * group > n_total:
+        raise ValueError(f"{name}: segments {seg_offset} .. "
+                         f"{seg_offset + G - 1} of {group} slots lie outside "
+                         f"the padded patch of n_total = {n_total}")
     if V != 1 << (spec.bits * group):
         raise ValueError(f"{name}: value axis {V} != 2**(bits*group) = "
                          f"{1 << (spec.bits * group)}")
-    return xp, Ho, Wo
+    return xp, Ho, Wo, n_total
 
 
 #: the staged design's tiling (``namespace staged`` of pcilt_conv2d.cu; the
@@ -1507,19 +1532,39 @@ def staged_block_tile(i: int, P: int, O: int):
             (o0, min(O, o0 + STAGED_COL_TILE)))
 
 
-def conv_codes_plain(xp: torch.Tensor, spec: QuantSpec, scale) -> torch.Tensor:
+def conv_code_channels(C: int, kh: int, kw: int, group: int,
+                       seg_offset: int, G: int):
+    """``(c0, Cs)``: the channels ``c0 .. c0 + Cs - 1`` that a shard's live
+    patch positions ``seg_offset * group .. min(kh*kw*C, (seg_offset + G) *
+    group) - 1`` touch (positions in ``[kh, kw, C]`` order); all ``C`` once
+    they reach past one tap, ``(0, 1)`` when none is live."""
+    p0 = seg_offset * group
+    p1 = min(kh * kw * C, (seg_offset + G) * group)
+    if p1 <= p0:
+        return 0, 1
+    if p0 // C != (p1 - 1) // C:
+        return 0, C
+    return p0 % C, (p1 - 1) % C - p0 % C + 1
+
+
+def conv_codes_plain(xp: torch.Tensor, spec: QuantSpec, scale, c0: int = 0,
+                     Cs: Optional[int] = None) -> torch.Tensor:
     """Plain version of the staged design's pre-pass: the padded image
-    ``[B, Hp, Wp, C]`` float32 -> its codes ``[B, C, Hp, Wp]`` uint8, at the
-    kernel's float32 scale."""
+    ``[B, Hp, Wp, C]`` float32 -> the codes ``[B, Cs, Hp, Wp]`` uint8 of its
+    channels ``c0 .. c0 + Cs - 1`` (all by default), at the kernel's float32
+    scale."""
     s = torch.as_tensor(_host_scale(scale), dtype=xp.dtype, device=xp.device)
-    return quantize(xp, spec, s).permute(0, 3, 1, 2).contiguous()
+    Cs = xp.shape[-1] - c0 if Cs is None else Cs
+    return quantize(xp[..., c0:c0 + Cs], spec, s).permute(0, 3, 1, 2) \
+        .contiguous()
 
 
-def _conv_codes(xp: torch.Tensor, spec: QuantSpec, scale) -> torch.Tensor:
+def _conv_codes(xp: torch.Tensor, spec: QuantSpec, scale, c0: int = 0,
+                Cs: Optional[int] = None) -> torch.Tensor:
     """The pre-pass: its kernel on a CUDA tensor, its plain version on the
     CPU (not counted: it is half of one conv launch)."""
     if _on_cpu(xp):
-        return conv_codes_plain(xp, spec, scale)
+        return conv_codes_plain(xp, spec, scale, c0, Cs)
     if spec.bits > 8:
         raise ValueError(f"codes of {spec.bits} bits do not fit a byte")
     if xp.dtype != torch.float32 or not xp.is_contiguous():
@@ -1527,10 +1572,11 @@ def _conv_codes(xp: torch.Tensor, spec: QuantSpec, scale) -> torch.Tensor:
                          f"contiguous float32 tensor, got {xp.dtype} with "
                          f"strides {xp.stride()}")
     B, Hp, Wp, C = xp.shape
-    codes = torch.empty((B, C, Hp, Wp), dtype=torch.uint8, device=xp.device)
+    Cs = C - c0 if Cs is None else Cs
+    codes = torch.empty((B, Cs, Hp, Wp), dtype=torch.uint8, device=xp.device)
     fn = build.library("conv2d").pcilt_conv2d_codes_f32
-    _call("conv2d codes", fn, xp, _ptr(xp), _ptr(codes), B, Hp, Wp, C,
-          spec.bits, spec.zero_point, _host_scale(scale))
+    _call("conv2d codes", fn, xp, _ptr(xp), _ptr(codes), B, Hp, Wp, C, c0,
+          Cs, spec.bits, spec.zero_point, _host_scale(scale))
     return codes
 
 
@@ -1553,7 +1599,9 @@ def _check_staged_config() -> None:
 
 def _conv_key(name, xp, G, V, O, X, group, kh, kw, stride, bits):
     """``(kernel, names, values)`` of a conv launch (the reference's key;
-    the shared pool's adds ``X``)."""
+    the shared pool's adds ``X``).  A shard's launch keys on its local
+    ``G`` and local pool ``X``; its ``seg_offset`` is not in the key, so the
+    shards of one layer share one key."""
     B, Hp, Wp, C = xp.shape
     names = ("B", "Ho", "W", "C", "k", "s", "G", "V", "O", "g", "bits")
     values = (B, (Hp - kh) // stride + 1, Wp, C, kh * kw, stride, G, V, O,
@@ -1564,7 +1612,8 @@ def _conv_key(name, xp, G, V, O, X, group, kh, kw, stride, bits):
 
 
 def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
-                 stride, Ho, Wo, variant=None, autotune=None):
+                 stride, Ho, Wo, variant=None, autotune=None, seg_offset=0,
+                 n_total=None):
     B, Hp, Wp, C = xp.shape
     G = int(seg_idx.shape[0]) if seg_idx is not None else tab.shape[0]
     _, V, O = tab.shape
@@ -1580,7 +1629,8 @@ def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
             lambda: conv_candidates(V, es),
             lambda d: lambda: _launch_conv(name, xp, tab, seg_idx, X, spec,
                                            scale, group, kh, kw, stride, Ho,
-                                           Wo, d), autotune)
+                                           Wo, d, seg_offset=seg_offset,
+                                           n_total=n_total), autotune)
     if variant not in CONV_VARIANT_LAUNCHES:
         raise ValueError(f"{name}: unknown conv variant {variant!r}")
     if variant == "staged" and fits != "staged":
@@ -1588,20 +1638,23 @@ def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
                          f"(V <= {STAGED_MAX_V} and "
                          f"{staged_smem_bytes(tab.element_size())} B of "
                          f"shared memory <= {SMEM_LIMIT} B needed)")
+    n_total = G * group if n_total is None else n_total
     out = torch.empty((B, Ho, Wo, O), dtype=tab.dtype, device=xp.device)
     lib = build.library("conv2d")
     if variant == "staged":
         _check_staged_config()
-        codes = _conv_codes(xp, spec, scale)
+        c0, Cs = conv_code_channels(C, kh, kw, group, seg_offset, G)
+        codes = _conv_codes(xp, spec, scale, c0, Cs)
         fn = getattr(lib, f"pcilt_{name}_staged_{dt}")
         _launch(name, fn, xp, _ptr(codes), _ptr(tab), _ptr(seg_idx),
                 _ptr(out), B, C, Hp, Wp, Ho, Wo, kh, kw, stride, G, X, V, O,
-                group, spec.bits)
+                group, spec.bits, seg_offset, n_total, c0, Cs)
     else:
         fn = getattr(lib, f"pcilt_{name}_{dt}")
         _launch(name, fn, xp, _ptr(xp), _ptr(tab), _ptr(seg_idx), _ptr(out),
                 B, Hp, Wp, C, Ho, Wo, kh, kw, stride, G, X, V, O, group,
-                spec.bits, spec.zero_point, _host_scale(scale))
+                spec.bits, spec.zero_point, _host_scale(scale), seg_offset,
+                n_total)
     CONV_VARIANT_LAUNCHES[variant] += 1
     return out
 
@@ -1609,29 +1662,39 @@ def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
 def pcilt_fused_conv2d(x: torch.Tensor, tables: torch.Tensor,
                        spec: QuantSpec, scale, group: int, kh: int, kw: int,
                        stride: int = 1, padding: str = "SAME", *,
-                       autotune: Optional[bool] = None) -> torch.Tensor:
+                       autotune: Optional[bool] = None, seg_offset: int = 0,
+                       n_total: Optional[int] = None) -> torch.Tensor:
     """x ``[B, H, W, C]`` float32 NHWC, tables ``[G, V, O]`` ->
     ``[B, Ho, Wo, O]`` in the table dtype.  The only host-side work is the
     spatial zero pad of the float image (SAME by :func:`conv_same_pads`);
     quantize, im2col and pack run on the card, so neither the float patches
     nor the offsets reach device memory.  ``G * group >= kh*kw*C``: the
-    alignment slots take code 0 against zero-weight table rows."""
+    alignment slots take code 0 against zero-weight table rows.
+
+    A segment shard of a mesh passes ``seg_offset`` (its first segment in
+    the global segment space) and ``n_total`` (the global padded patch
+    length, ``>= kh*kw*C``): the kernel fetches patch positions
+    ``(seg_offset + g) * group + j`` for its ``G`` local segments.  The
+    design cache keys on the local ``G``."""
     return _fused_conv2d(x, tables, spec, scale, group, kh, kw, stride,
-                         padding, autotune=autotune)
+                         padding, autotune=autotune, seg_offset=seg_offset,
+                         n_total=n_total)
 
 
 def _fused_conv2d(x, tables, spec: QuantSpec, scale, group: int, kh: int,
                   kw: int, stride: int = 1, padding: str = "SAME",
-                  variant=None, autotune=None):
+                  variant=None, autotune=None, seg_offset=0, n_total=None):
     """:func:`pcilt_fused_conv2d`, with ``variant`` forcing a design on a
     CUDA tensor."""
     G, V, O = tables.shape
-    xp, Ho, Wo = _conv_geometry("pcilt_fused_conv2d", x, G, V, spec, group,
-                                kh, kw, stride, padding)
+    xp, Ho, Wo, n_total = _conv_geometry(
+        "pcilt_fused_conv2d", x, G, V, spec, group, kh, kw, stride, padding,
+        seg_offset, n_total)
     if _on_cpu(xp, tables):
         def plain():
-            return fused_conv2d_plain(xp, tables, spec, scale, group, kh, kw,
-                                      stride).reshape(xp.shape[0], Ho, Wo, O)
+            return fused_conv2d_plain(
+                xp, tables, spec, scale, group, kh, kw, stride, seg_offset,
+                n_total).reshape(xp.shape[0], Ho, Wo, O)
 
         key = _conv_key("fused_conv2d", xp, G, V, O, 0, group, kh, kw,
                         stride, spec.bits)
@@ -1640,25 +1703,30 @@ def _fused_conv2d(x, tables, spec: QuantSpec, scale, group: int, kh: int,
                     autotune)
         return plain()
     return _launch_conv("fused_conv2d", xp, tables, None, 0, spec, scale,
-                        group, kh, kw, stride, Ho, Wo, variant, autotune)
+                        group, kh, kw, stride, Ho, Wo, variant, autotune,
+                        int(seg_offset), n_total)
 
 
 def pcilt_shared_conv2d(x: torch.Tensor, pool: torch.Tensor,
                         seg_idx: torch.Tensor, spec: QuantSpec, scale,
                         group: int, kh: int, kw: int, stride: int = 1,
                         padding: str = "SAME", *,
-                        autotune: Optional[bool] = None) -> torch.Tensor:
+                        autotune: Optional[bool] = None, seg_offset: int = 0,
+                        n_total: Optional[int] = None) -> torch.Tensor:
     """x ``[B, H, W, C]`` float32 NHWC, pool ``[X, V, O]``, seg_idx ``[G]``
     int32 -> ``[B, Ho, Wo, O]`` in the pool dtype: the fused conv with
     ``T[g]`` replaced by ``pool[seg_idx[g]]``; a pointer outside ``[0, X)``
-    adds nothing.  The pool is read in place (no transpose)."""
+    adds nothing.  The pool is read in place (no transpose).
+    ``seg_offset`` / ``n_total`` place a shard's local pool and pointers in
+    the global patch, as :func:`pcilt_fused_conv2d`'s."""
     return _shared_conv2d(x, pool, seg_idx, spec, scale, group, kh, kw,
-                          stride, padding, autotune=autotune)
+                          stride, padding, autotune=autotune,
+                          seg_offset=seg_offset, n_total=n_total)
 
 
 def _shared_conv2d(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
                    kh: int, kw: int, stride: int = 1, padding: str = "SAME",
-                   variant=None, autotune=None):
+                   variant=None, autotune=None, seg_offset=0, n_total=None):
     """:func:`pcilt_shared_conv2d`, with ``variant`` forcing a design on a
     CUDA tensor."""
     X, V, O = pool.shape
@@ -1666,13 +1734,14 @@ def _shared_conv2d(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
         raise TypeError(f"seg_idx must be a 1-d int32 tensor, got "
                         f"{seg_idx.dtype} {tuple(seg_idx.shape)}")
     G = int(seg_idx.shape[0])
-    xp, Ho, Wo = _conv_geometry("pcilt_shared_conv2d", x, G, V, spec, group,
-                                kh, kw, stride, padding)
+    xp, Ho, Wo, n_total = _conv_geometry(
+        "pcilt_shared_conv2d", x, G, V, spec, group, kh, kw, stride, padding,
+        seg_offset, n_total)
     if _on_cpu(xp, pool, seg_idx):
         def plain():
-            return shared_conv2d_plain(xp, pool, seg_idx, spec, scale, group,
-                                       kh, kw, stride).reshape(
-                xp.shape[0], Ho, Wo, O)
+            return shared_conv2d_plain(
+                xp, pool, seg_idx, spec, scale, group, kh, kw, stride,
+                seg_offset, n_total).reshape(xp.shape[0], Ho, Wo, O)
 
         key = _conv_key("shared_conv2d", xp, G, V, O, X, group, kh, kw,
                         stride, spec.bits)
@@ -1681,7 +1750,8 @@ def _shared_conv2d(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
                     autotune)
         return plain()
     return _launch_conv("shared_conv2d", xp, pool, seg_idx, X, spec, scale,
-                        group, kh, kw, stride, Ho, Wo, variant, autotune)
+                        group, kh, kw, stride, Ho, Wo, variant, autotune,
+                        int(seg_offset), n_total)
 
 
 # ----------------------------------------------------------------------------

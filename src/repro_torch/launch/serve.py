@@ -63,8 +63,12 @@ The MoE family (granite-moe-3b-a800m, llama4-maverick-400b-a17b) serves
 through the same dense decode step.  The hybrid family (zamba2-7b) does not
 serve here, as it does not in the reference (see :class:`Engine`).  The
 CLI refuses whisper-medium and llava-next-mistral-7b with the reference's
-message; the :class:`Engine` serves them as the reference's does.  Still
-to port: the reference's mesh.
+message; the :class:`Engine` serves them as the reference's does.  A
+bundle with tables sharded over a mesh (``convert_mamba_decode(...,
+mesh=)``) is served through ``pcilt_bundle=``, as in the reference;
+``--chaos``'s table fault then flips one shard in place.  The CLI has no
+mesh flag, as the reference's has none.  Still to port: ``Engine(mesh=)``,
+which waits for the dense family's ``Ctx``/``row_parallel``.
 """
 
 from __future__ import annotations

@@ -24,12 +24,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import (QuantSpec, SharedGroupedTables,
-                              build_dwconv_tables, build_grouped_tables,
+                              ShardedTables, build_dwconv_tables,
+                              build_grouped_tables,
                               build_paired_stacked_tables,
                               build_shared_grouped_tables, fake_quant,
-                              pcilt_linear, scale_from_amax)
+                              mesh_shard_count, pcilt_linear,
+                              scale_from_amax)
 from repro_torch.nn.layers import embed, embed_spec, rmsnorm, rmsnorm_spec
-from repro_torch.nn.module import ParamSpec, layer_view, remat, stack_specs
+from repro_torch.nn.module import (ParamSpec, layer_view,
+                                   pcilt_table_sharding, remat, stack_specs)
 from repro_torch.nn.ssm import (PROJ_NAMES, mamba_block, mamba_decode,
                                 mamba_spec, ssm_cache_specs)
 
@@ -139,9 +142,10 @@ class MambaLM:
         return {"in": torch.stack(ins), "out": torch.stack(outs),
                 "conv_in": torch.stack(convs).max(), "head_in": head_in}
 
-    def build_pcilt(self, params, scale, proj_scales=None, *,
-                    table_dtype=torch.float32, head_scale=None,
-                    record_integrity: bool = True, paired: bool = False):
+    def build_pcilt(self, params, scale, proj_scales=None, *, mesh=None,
+                    mesh_axis: str = "model", table_dtype=torch.float32,
+                    head_scale=None, record_integrity: bool = True,
+                    paired: bool = False):
         """Offline PCILT build for the decode loop (requires ``cfg.pcilt``).
 
         ``scale`` is the conv input's float32 scale; ``proj_scales``
@@ -150,7 +154,12 @@ class MambaLM:
         float32 and cast once, fetched by the ``"fused"`` path; a caller may
         set the bundle's ``"path"`` to ``"dense_fq"`` for the oracle) or,
         with ``paired``, a segment-major paired ``[G2, L, V2, O]`` stack;
-        ``head_scale`` adds the shared-pool head.
+        ``head_scale`` adds the shared-pool head.  With ``mesh`` each
+        projection stack is built straight into its segment shards over
+        ``mesh_axis`` (``core.pcilt.ShardedTables``: ``[L, G/D, V, O]``
+        blocks, or ``[G2/D, L, V2, O]`` paired), layer by layer, so the
+        whole stack never exists beside its shards; the conv tables and the
+        head stay whole, as in the reference.
         The bundle carries its conversion-time CRC-32 record unless
         ``record_integrity`` is False (the caller then records it)."""
         from repro_torch.core.serving import pcilt_integrity
@@ -171,7 +180,8 @@ class MambaLM:
         out = {"tables": tables, "scale": scale, "spec": spec}
         if proj_scales is not None:
             out["proj"] = self._build_proj_pcilt(params, spec, proj_scales,
-                                                 table_dtype, paired)
+                                                 table_dtype, paired, mesh,
+                                                 mesh_axis)
         if head_scale is not None:
             out["head"] = self._build_head_pcilt(params, _f32(head_scale))
         if record_integrity:
@@ -179,7 +189,7 @@ class MambaLM:
         return out
 
     def _build_proj_pcilt(self, params, spec, proj_scales, table_dtype,
-                          paired=False):
+                          paired=False, mesh=None, mesh_axis="model"):
         group = self.cfg.pcilt.group
         tabs, scales = {}, {}
         for name in PROJ_NAMES:
@@ -189,22 +199,35 @@ class MambaLM:
                 torch.tensor(np.asarray(s, np.float32))
             scales[name] = s_l
             if paired:  # pads n to the pair width itself (zero weights)
-                tabs[name] = build_paired_stacked_tables(
-                    ks, spec, s_l, group, dtype=table_dtype)
+                t = build_paired_stacked_tables(ks, spec, s_l, group,
+                                                dtype=table_dtype)
+                D = mesh_shard_count(mesh, mesh_axis, t.shape[0])
+                # [G2/D, L, V2, O] blocks: views of t on t's device
+                tabs[name] = t if D == 1 else ShardedTables.place(
+                    t, pcilt_table_sharding(mesh, t.shape[0], ndim=4,
+                                            mesh_axis=mesh_axis, seg_axis=0))
                 continue
             L, n, O = ks.shape
             pad_n = (-n) % group
             G = (n + pad_n) // group
-            stack = torch.empty((L, G, 1 << (spec.bits * group), O),
-                                dtype=table_dtype, device=ks.device)
+            D = mesh_shard_count(mesh, mesh_axis, G)
+            devs = mesh.axis_devices(mesh_axis) if D > 1 else [ks.device]
+            blocks = [torch.empty((L, G // D, 1 << (spec.bits * group), O),
+                                  dtype=table_dtype, device=dev)
+                      for dev in devs]
             for l in range(L):
                 wf = ks[l].float()
                 if pad_n:  # group-alignment slots from zero weights
                     wf = torch.cat([wf, wf.new_zeros((pad_n, O))], 0)
-                stack[l] = build_grouped_tables(wf, spec, float(s_l[l]), group)
-            tabs[name] = stack
+                t_l = build_grouped_tables(wf, spec, float(s_l[l]), group)
+                for d, b in enumerate(blocks):
+                    b[l].copy_(t_l[d * (G // D):(d + 1) * (G // D)])
+                del t_l
+            tabs[name] = blocks[0] if D == 1 else ShardedTables(
+                blocks, 1, mesh, mesh_axis)
         return {"tables": tabs, "scales": scales, "spec": spec,
-                "group": group, "path": "fused", "paired": paired}
+                "group": group, "path": "fused", "paired": paired,
+                "mesh": mesh, "mesh_axis": mesh_axis}
 
     def _build_head_pcilt(self, params, head_scale: float):
         """Shared-pool PCILT over the logits head, its weights quantized to
@@ -279,6 +302,8 @@ class MambaLM:
                         "tables": proj["tables"], "spec": proj["spec"],
                         "group": proj["group"], "path": proj["path"],
                         "paired": proj.get("paired", False),
+                        "mesh": proj.get("mesh"),
+                        "mesh_axis": proj.get("mesh_axis", "model"),
                         "layer": l, "ok": ok,
                         "scale": {k: v[l] for k, v in scales.items()}}
             res = mamba_decode(p["mixer"], cfg,

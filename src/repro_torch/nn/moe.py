@@ -134,8 +134,8 @@ def moe_apply(params, cfg, x: torch.Tensor, *,
     routed together (the reference's single-device schedule)."""
     if mesh is not None:
         raise NotImplementedError(
-            "the expert-parallel MoE schedules need the mesh, which the port "
-            "does not have yet (ROADMAP Queue 1 #7)")
+            "the expert-parallel MoE schedules are not ported yet (ROADMAP "
+            "Queue 1: expert parallelism)")
     B, S, d = x.shape
     y, aux = _moe_body(params, cfg, x.reshape(-1, d))
     return y.reshape(B, S, d), aux

@@ -72,8 +72,9 @@ def _proj(params, name, x, cfg, proj, with_stats: bool = False):
     oracle (``proj["path"] == "dense_fq"`` or a demoted layer), or the plain
     dense matmul (no bundle).
 
-    ``proj`` is the per-layer view of the bundle: the full stacks, this
-    layer's index and host scales, the spec, group, path and health bit."""
+    ``proj`` is the per-layer view of the bundle: the full stacks (sharded
+    over ``proj["mesh"]`` when it has one), this layer's index and host
+    scales, the spec, group, path and health bit."""
     if proj is None or name not in proj["tables"]:
         out = dense(params[name], x, cfg.dtype)
         return (out, *_zero_stats(x.device)) if with_stats else out
@@ -101,8 +102,11 @@ def _proj(params, name, x, cfg, proj, with_stats: bool = False):
     if pad:  # group-alignment slots: table rows built from zero weights
         x = torch.cat([x, x.new_zeros((*x.shape[:-1], pad))], -1)
     out = pcilt_linear(x, tables, spec, scale, proj["group"],
-                       path=proj.get("path", "fused"), stacked=proj["layer"],
-                       paired=paired, return_stats=with_stats)
+                       path=proj.get("path", "fused"),
+                       mesh=proj.get("mesh"),
+                       mesh_axis=proj.get("mesh_axis", "model"),
+                       stacked=proj["layer"], paired=paired,
+                       return_stats=with_stats)
     if with_stats:
         out, count, ratio = out
         return out.to(cfg.dtype), count, ratio

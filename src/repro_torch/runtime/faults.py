@@ -8,7 +8,8 @@ survive:
   given steps, once each;
 * **table corruption**: :meth:`corrupt_table` flips entries of a table
   tensor (conv ``[L, C, V]``, stacked projections ``[L, G, V, O]``,
-  shared pools ``[X, V, O]``), as a bit-flip in memory would;
+  shared pools ``[X, V, O]``; one shard of tables sharded over a mesh), as
+  a bit-flip in memory would;
 * **pointer corruption**: :meth:`flip_seg_idx` re-aims extension-3
   ``seg_idx`` pointers at wrong (possibly out-of-range) pool rows;
 * **activation poisoning**: :meth:`poison` plants NaN/Inf in activations
@@ -66,11 +67,19 @@ class FaultInjector:
 
     # -- table / pointer corruption ------------------------------------------
 
-    def corrupt_table(self, tables: torch.Tensor,
-                      n_flips: int = 1) -> torch.Tensor:
+    def corrupt_table(self, tables, n_flips: int = 1):
         """Flip ``n_flips`` random entries of a contiguous table tensor in
         place and return it.  Each flipped value differs from the original
-        (``x -> x + (1 + |x|)`` survives any float rounding)."""
+        (``x -> x + (1 + |x|)`` survives any float rounding).  Of a
+        ``core.pcilt.ShardedTables`` one shard, drawn at random, is flipped
+        in place on its device (the event names it)."""
+        from repro_torch.core.pcilt import ShardedTables
+
+        if isinstance(tables, ShardedTables):
+            d = int(self.rng.integers(tables.n_shards))
+            self.corrupt_table(tables.shards[d], n_flips)
+            self.events[-1]["shard"] = d
+            return tables
         if not tables.is_contiguous():
             raise ValueError("corrupt_table flips a contiguous tensor in place")
         flat = tables.view(-1)

@@ -221,6 +221,65 @@ def test_large_v_conv2d_takes_the_kept_kernel(cuda, dtype):
         ops._fused_conv2d(xd, td, spec, scale, 2, 3, 3, variant="staged")
 
 
+#: a segment shard of a mesh: (C, k, group, bits, D): the shards of G
+#: segments over D devices, the last one holding the alignment slots where
+#: kh*kw*C is not a multiple of the group
+SHARD_CASES = [(200, 5, 1, 8, 4),   # conv4's C: each shard spans taps
+               (64, 3, 1, 4, 16),   # 36 positions a shard: inside a tap
+               (7, 3, 2, 2, 2),     # 63 positions + 1 alignment slot
+               (5, 3, 3, 2, 5)]     # group 3 at V = 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,k,group,bits,D", SHARD_CASES)
+def test_conv2d_kernels_match_plain_at_seg_offset(cuda, dtype, C, k, group,
+                                                  bits, D):
+    """Kernels 4 and 5 on each shard of a mesh (``seg_offset`` = d * G/D,
+    ``n_total`` the padded patch), both designs: each against its plain
+    version on the shard; the staged pre-pass of the shard's channels
+    against its plain version; the shards' partials summed in order equal
+    to the unsharded kernel within the file's tolerance."""
+    rng = np.random.default_rng(C * k + D)
+    spec, scale, tabs, x = _conv_case(rng, 2, 23, 19, C, 24, k, bits, True,
+                                      group, False)
+    tabs = tabs.to(dtype)
+    G = tabs.shape[0]
+    Gl, n_total = G // D, G * group
+    assert G % D == 0
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    pool = tabs[:3]
+    idx = torch.from_numpy(rng.integers(0, 3, size=G).astype(np.int32))
+    xd = x.to(cuda)
+    parts = []
+    for d in range(D):
+        kw = dict(seg_offset=d * Gl, n_total=n_total)
+        t_d, i_d = tabs[d * Gl:(d + 1) * Gl], idx[d * Gl:(d + 1) * Gl]
+        want = ops.pcilt_fused_conv2d(x, t_d, spec, scale, group, k, k, **kw)
+        wsh = ops.pcilt_shared_conv2d(x, pool, i_d, spec, scale, group, k, k,
+                                      **kw)
+        for v in ("staged", "direct"):
+            got = ops._fused_conv2d(xd, t_d.to(cuda), spec, scale, group, k,
+                                    k, variant=v, **kw)
+            gsh = ops._shared_conv2d(xd, pool.to(cuda), i_d.to(cuda), spec,
+                                     scale, group, k, k, variant=v, **kw)
+            torch.cuda.synchronize()
+            _assert_sum_close(got.cpu(), want, rtol)
+            _assert_sum_close(gsh.cpu(), wsh, rtol)
+        parts.append(got.float())
+        xp = ops.pad_nhwc(x, ops._conv_pads(x, k, k, 1, "SAME"))
+        c0, Cs = ops.conv_code_channels(C, k, k, group, d * Gl, Gl)
+        codes = ops._conv_codes(xp.to(cuda), spec, scale, c0, Cs)
+        torch.cuda.synchronize()
+        assert torch.equal(codes.cpu(),
+                           ops.conv_codes_plain(xp, spec, scale, c0, Cs))
+    whole = ops.pcilt_fused_conv2d(xd, tabs.to(cuda), spec, scale, group, k,
+                                   k)
+    torch.cuda.synchronize()
+    _assert_sum_close(sum(parts[1:], parts[0]).cpu(), whole.cpu().float(),
+                      rtol)
+
+
 @pytest.mark.cuda
 def test_conv2d_code_prepass_matches_plain(cuda):
     """The staged design's pre-pass: codes ``[B, C, Hp, Wp]`` of the padded

@@ -4,8 +4,10 @@ For every public function and class that a module of ``repro_torch`` shares
 (by name) with its counterpart in ``repro``, and every public method of such
 a class, a positional call must bind the same parameters in both packages.
 The rule, after setting aside the reference parameters the port leaves out
-by design (``ctx``, ``mesh``, ``mesh_axis``, ``axes``, and ``key`` where
-the port takes a ``seed`` or ``generator`` in its place):
+by design (``ctx``, ``axes``, and ``key`` where the port takes a ``seed`` or
+``generator`` in its place), and ``mesh``/``mesh_axis`` of the names whose
+mesh is still queued (:data:`MESH_QUEUED`: the dense ``Engine`` and steps,
+the expert-parallel MoE):
 
 * the port's positional parameters are a prefix of the reference's, in the
   reference's order;
@@ -14,7 +16,8 @@ the port takes a ``seed`` or ``generator`` in its place):
   would break the prefix).
 
 Then one positional call each of ``Engine``, ``pcilt_linear`` and
-``ModelConfig`` in both packages, showing the same meaning.
+``ModelConfig`` in both packages, showing the same meaning (and
+``pcilt_linear``'s positional ``mesh``).
 """
 
 import importlib
@@ -29,7 +32,15 @@ import torch
 import repro_torch
 
 #: reference parameters the port leaves out by design
-BY_DESIGN = {"ctx", "mesh", "mesh_axis", "axes"}
+BY_DESIGN = {"ctx", "axes"}
+#: the shared names whose ``mesh``/``mesh_axis`` wait for the port's
+#: ``Ctx``/``row_parallel`` (the dense engine and steps) or for expert
+#: parallelism (``moe_apply``)
+MESH_QUEUED = ("repro_torch.launch.serve.Engine",
+               "repro_torch.launch.steps.make_decode_step",
+               "repro_torch.launch.steps.make_prefill_step",
+               "repro_torch.launch.steps.make_train_step",
+               "repro_torch.nn.moe.moe_apply")
 #: the port's stand-ins for the reference's PRNG ``key``
 KEY_STANDINS = {"seed", "generator"}
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
@@ -48,7 +59,14 @@ def _positional(sig):
     return names[1:] if names[:1] == ["self"] else names
 
 
-def _rule(port_obj, ref_obj):
+def _set_aside(name):
+    """The reference parameters set aside for the shared name ``name``."""
+    if any(name == q or name.startswith(q + ".") for q in MESH_QUEUED):
+        return BY_DESIGN | {"mesh", "mesh_axis"}
+    return BY_DESIGN
+
+
+def _rule(port_obj, ref_obj, set_aside=BY_DESIGN):
     """None when a positional call binds alike, else a message."""
     try:
         ps, rs = inspect.signature(port_obj), inspect.signature(ref_obj)
@@ -62,7 +80,7 @@ def _rule(port_obj, ref_obj):
             ref = ref[:i] + [port[i]] + ref[i + 1:]
         else:
             ref = ref[:i] + ref[i + 1:]
-    ref = [n for n in ref if n not in BY_DESIGN]
+    ref = [n for n in ref if n not in set_aside]
     if port != ref[:len(port)]:
         return f"port positional {port} is not a prefix of {ref}"
     return None
@@ -122,7 +140,8 @@ def test_the_walk_finds_the_shared_names():
                          ids=[n.removeprefix("repro_torch.")
                               for n, _, _ in SHARED])
 def test_positional_parameters_bind_alike(name, port, ref):
-    assert _rule(port, ref) is None, f"{name}: {_rule(port, ref)}"
+    rule = _rule(port, ref, _set_aside(name))
+    assert rule is None, f"{name}: {rule}"
 
 
 def test_the_rule_catches_a_reordering():
@@ -144,10 +163,22 @@ def test_the_rule_catches_a_reordering():
     def extra(n, m, device=None):
         pass
 
+    def ref_mesh(x, plan=None, path="gather", mesh=None, mesh_axis="model",
+                 stacked=None):
+        pass
+
+    def no_mesh(x, plan=None, path="gather", stacked=None):
+        pass
+
     assert _rule(bad, ref) is not None
     assert _rule(good, ref) is None
     assert _rule(seeded, keyed) is None
     assert _rule(extra, keyed) is not None
+    # a mesh the port has ported binds in its place; a queued one is set
+    # aside only for the queued names
+    assert _rule(no_mesh, ref_mesh) is not None
+    assert _rule(no_mesh, ref_mesh, _set_aside(MESH_QUEUED[0])) is None
+    assert _set_aside("repro_torch.core.lut_layers.pcilt_linear") == BY_DESIGN
 
 
 def test_engine_positional_max_len():
@@ -188,6 +219,32 @@ def test_pcilt_linear_positional_plan():
                    TQ(bits=2), 0.3, 2, TPlan(idx))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+def test_pcilt_linear_positional_mesh():
+    """The eighth and ninth positional arguments are ``mesh`` and
+    ``mesh_axis`` in both packages: a mesh named by a positional axis
+    shards (a plan then refuses, with the reference's error), an absent
+    axis replicates."""
+    from repro_torch.core import QuantSpec as TQ
+    from repro_torch.core import SegmentPlan as TPlan
+    from repro_torch.core import build_grouped_tables as t_build
+    from repro_torch.core import pcilt_linear as t_linear
+    from repro_torch.launch.mesh import make_decode_mesh
+
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.integers(-3, 4, (8, 6)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0, 1, (3, 8)).astype(np.float32))
+    tabs = t_build(w, TQ(bits=2), 1.0, 2)
+    mesh = make_decode_mesh(2, devices=["cpu"] * 2)
+    want = t_linear(x, tabs, TQ(bits=2), 1.0, 2)
+    for axis in ("model", "data"):  # "data" has size 1: replicated
+        got = t_linear(x, tabs, TQ(bits=2), 1.0, 2, None, "gather", mesh,
+                       axis)
+        assert torch.equal(got, want)
+    plan = TPlan(np.arange(8, dtype=np.int32).reshape(4, 2))
+    with pytest.raises(ValueError, match="cannot be sharded"):
+        t_linear(x, tabs, TQ(bits=2), 1.0, 2, plan, "gather", mesh, "model")
 
 
 def test_model_config_positional_fields():
