@@ -251,7 +251,17 @@ Phases (any failure exits non-zero, and no result line is printed):
     time and launches beside the unsharded run's (phase 5's for the 4-bit
     step); the sharded conv4 times go into the kernels line
     (``sharded_ms``);
-22. prints the kernels' JSON line, then as the last line
+22. the sharding context (``nn.layers.Ctx``), every mesh device this
+    card: qwen3-0.6b at full width and depth served by ``Engine(cfg, 256,
+    4, mesh)`` on (1, 2), (1, 4) and (2, 2) with the unsharded engine's
+    tokens, the bytes a device holds of the parameters and the cache and
+    the leaves the fallback replicates, a decode step and a 192-token
+    prefill on each mesh and a kvshard decode (``{"cache_seq": "model"}``)
+    at (1, 4) against the unsharded steps (1e-2 of the largest logit), the
+    paired mamba2-130m engine on (1, 4) against the unsharded one (tokens,
+    2e-4 on one step), ``pipeline_apply`` over 4 stages of 7 blocks; each
+    step's host ms, device ms and device launches;
+23. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -438,6 +448,12 @@ SMALL_HW = (48, 64)
 #: the host-packed path's image in phase 6: its patches and offsets at full
 #: size would take about 31 GB
 KERNEL_HW = (192, 256)
+#: phase 22: the dense engine's meshes (every device this card), the one
+#: that also decodes with a time-sharded KV cache, and the pipeline's
+#: stages, microbatches and tokens a microbatch
+MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
+KVSHARD_MESH = (1, 4)
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 4, 64
 
 
 class SmokeFailure(Exception):
@@ -5558,6 +5574,331 @@ def sharded_tables(torch, ops, report):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 22: the dense family and the Mamba engine served on a mesh
+# ----------------------------------------------------------------------------
+
+
+def _card_host_mesh(torch, shape):
+    """A (data, model) mesh of ``shape`` with every device this card."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    n = shape[0] * shape[1]
+    return make_host_mesh(*shape, devices=[torch.device("cuda", 0)] * n)
+
+
+def _mesh_timed(torch, fn, what):
+    """Host milliseconds (the mean of 2 synchronised calls after a warm
+    one), device milliseconds and device launches (one profile; the
+    fullest of three when it comes back empty) of ``fn()``; logs and
+    returns them."""
+    fn()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    host = statistics.median(secs)
+    prof = _profile(torch, fn)
+    if not prof:  # late in a run a profile can come back empty
+        prof = fullest_profile(torch, fn)
+    dev_n = sum(c for c, _ in prof.values())
+    require(dev_n > 0, f"{what}: the profiles saw no device launch")
+    dev_s = sum(t for _, t in prof.values()) / 1e6
+    log(f"  {what}: host {host * 1e3:.2f} ms, device {dev_s * 1e3:.3f} ms "
+        f"in {dev_n} device launches ({100 * dev_s / host:.1f}% busy)")
+    return {"host_ms": host * 1e3, "device_ms": dev_s * 1e3,
+            "device_launches": dev_n}
+
+
+def _card_draw(torch, specs, gen):
+    """A spec tree's parameters drawn on the card from ``gen`` by the
+    specs' init recipes (random weights, seeded)."""
+    from repro_torch.nn.module import ParamSpec
+
+    if not isinstance(specs, ParamSpec):
+        return {k: _card_draw(torch, v, gen) for k, v in specs.items()}
+    if specs.init in ("zeros", "ones"):
+        fill = torch.zeros if specs.init == "zeros" else torch.ones
+        return fill(specs.shape, device="cuda", dtype=specs.dtype)
+    std = specs.scale
+    if specs.init == "fan_in":
+        fan_in = specs.shape[0] if len(specs.shape) == 1 else \
+            math.prod(specs.shape[:-1])
+        std = specs.scale / math.sqrt(max(fan_in, 1))
+    return (torch.randn(specs.shape, generator=gen, device="cuda") * std) \
+        .to(specs.dtype)
+
+
+def _per_device_gb(tree):
+    """The bytes each mesh coordinate holds of a placed tree (GB); fails
+    unless every coordinate holds the same."""
+    from repro_torch.nn.module import device_bytes
+
+    per = device_bytes(tree)
+    require(len(set(per.values())) == 1,
+            f"the mesh's devices hold different bytes: {per}")
+    return next(iter(per.values())) / 1e9
+
+
+def mesh_serving(torch, ops, report):
+    """The sharding context on this card (every mesh device ``cuda:0``:
+    this measures what the shards cost, not a gain):
+
+    (a) qwen3-0.6b at its published width and depth: ``Engine(cfg, 256, 4,
+        mesh)`` on (1, 2), (1, 4) and (2, 2) serves 4 requests of 8 new
+        tokens with the unsharded engine's tokens; bytes a device of the
+        parameters and the cache (each device's checked by the engine
+        against the partition specs) and the leaves the divisibility
+        fallback replicates; one B = 4 decode step from the unsharded
+        engine's final cache against the unsharded step (1e-2 of the
+        largest logit);
+    (b) a 192-token prefill through ``make_prefill_step(cfg, mesh)`` on
+        each mesh against the unsharded step (1e-2);
+    (c) kvshard: a decode at (1, 4) with ``{"cache_seq": "model"}`` (the
+        cache's time axis over the model devices, merged by log-sum-exp);
+    (d) mamba2-130m paired (act_bits 2): ``Engine(mesh=(1, 4), pcilt=True,
+        pcilt_bundle=)`` against the unsharded paired engine (tokens; one
+        step within 2e-4 of the largest logit; its kernel launches a step
+        the unsharded step's);
+    (e) ``pipeline_apply`` over 4 stages of 7 qwen3-0.6b blocks each, 4
+        microbatches of 64 tokens, against the blocks in sequence.
+
+    Each step prints its host ms, device ms and device launches and its
+    largest |difference| from the unsharded run.  Returns the launches of
+    the Mamba engine's run on the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Engine, make_requests
+    from repro_torch.launch.steps import (make_ctx, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import block_apply
+    from repro_torch.nn.layers import embed
+    from repro_torch.nn.module import (layer_view, place, shardings,
+                                       spec_bytes)
+    from repro_torch.runtime import pipeline_apply
+
+    cfg = get_config("qwen3-0.6b")
+    model = build_model(cfg)
+    out = {"card_note": "every mesh device is cuda:0 (one card): the "
+                        "shards' cost, not a gain", "meshes": {}}
+    t0 = time.perf_counter()
+    whole = _card_draw(torch, model.param_specs(),
+                       torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    cspecs = model.cache_specs(B, 256)
+    pb, cb = spec_bytes(model.param_specs()), spec_bytes(cspecs["layers"])
+    log(f"qwen3-0.6b drawn in {time.perf_counter() - t0:.1f} s: parameters "
+        f"{pb / 1e9:.3f} GB, KV cache at B = {B}, T = 256 {cb / 1e9:.3f} GB")
+    out["whole_gb"] = {"params": pb / 1e9, "cache": cb / 1e9}
+
+    # (a) the unsharded engine, then one step from its final cache
+    reqs = make_requests(cfg, 4, 8, seed=0)
+    eng = Engine(cfg, 256, B, params=whole, seed=0, device="cuda")
+    stats = eng.run(reqs)
+    require(stats["served"] == 4, "the unsharded engine lost a request")
+    tokens = [r.out for r in reqs]
+    cache0, toks = eng.cache, torch.from_numpy(eng.tokens).cuda()
+    step0 = make_decode_step(cfg)
+    with torch.no_grad():
+        want = step0(whole, cache0, toks)[0].float()
+        out["unsharded_step"] = _mesh_timed(
+            torch, lambda: step0(whole, cache0, toks), "unsharded B = 4 step")
+    del eng
+    gc.collect()
+    gen = torch.Generator().manual_seed(17)
+    prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT),
+                           generator=gen).cuda()
+    pre0 = make_prefill_step(cfg)
+    with torch.no_grad():
+        want_pre = pre0(whole, {"tokens": prompt})[0].float()
+        out["unsharded_prefill"] = _mesh_timed(
+            torch, lambda: pre0(whole, {"tokens": prompt}),
+            f"unsharded {REPLAY_PROMPT}-token prefill")
+    for shape in MESH_SHAPES:
+        name = f"{shape[0]}x{shape[1]}"
+        mesh = _card_host_mesh(torch, shape)
+        t0 = time.perf_counter()
+        eng = Engine(cfg, 256, B, mesh, params=whole, seed=0)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        row = {"setup_s": setup,
+               "params_gb_per_device": _per_device_gb(eng.params),
+               "cache_gb_per_device": _per_device_gb(eng.cache),
+               "replicated_leaves": len(eng.replicated_leaves)}
+        log(f"mesh {name}: placed in {setup:.1f} s; a device holds "
+            f"{row['params_gb_per_device']:.3f} GB of parameters and "
+            f"{row['cache_gb_per_device']:.3f} GB of cache; "
+            f"{row['replicated_leaves']} leaves replicated by the fallback "
+            f"{sorted(set(l.split('[')[1] for l in eng.replicated_leaves))}")
+        got_reqs = make_requests(cfg, 4, 8, seed=0)
+        st = eng.run(got_reqs)
+        row["engine_wall_s"] = st["wall_s"]
+        row["median_engine_step_ms"] = \
+            statistics.median(eng.step_seconds) * 1e3
+        row["tokens_equal"] = [r.out for r in got_reqs] == tokens
+        log(f"  served {st['served']}/4 in {st['wall_s']:.2f} s (median step "
+            f"{row['median_engine_step_ms']:.2f} ms); tokens equal to the "
+            f"unsharded engine's {row['tokens_equal']}")
+        require(st["served"] == 4 and row["tokens_equal"],
+                f"mesh {name}: the engine's tokens differ")
+        cm = place(cache0, shardings(cspecs, mesh))
+        dec = make_decode_step(cfg, mesh)
+        with torch.no_grad():
+            got = dec(eng.params, cm, toks)[0]
+            row["step"] = _mesh_timed(
+                torch, lambda: dec(eng.params, cm, toks),
+                f"{name} B = {B} step")
+            row["step"]["max_abs_diff"] = _logits_agree(
+                torch, f"{name} step against the unsharded", got, want,
+                near_tie=True, rel=1e-2)
+            pre = make_prefill_step(cfg, mesh)
+            got = pre(eng.params, {"tokens": prompt})[0]
+            row["prefill"] = _mesh_timed(
+                torch, lambda: pre(eng.params, {"tokens": prompt}),
+                f"{name} {REPLAY_PROMPT}-token prefill")
+            row["prefill"]["max_abs_diff"] = _logits_agree(
+                torch, f"{name} prefill against the unsharded", got, want_pre,
+                near_tie=True, rel=1e-2)
+            if shape == KVSHARD_MESH:
+                ov = {"cache_seq": "model"}
+                rules = make_ctx(mesh, ov).rules
+                ck = place(cache0, shardings(cspecs, mesh, rules))
+                kv = make_decode_step(cfg, mesh, ov)
+                got = kv(eng.params, ck, toks)[0]
+                row["kvshard"] = _mesh_timed(
+                    torch, lambda: kv(eng.params, ck, toks),
+                    f"{name} kvshard step")
+                row["kvshard"]["cache_gb_per_device"] = _per_device_gb(ck)
+                row["kvshard"]["cache_spec"] = list(
+                    ck["layers"]["sub0"]["k"].spec)
+                row["kvshard"]["max_abs_diff"] = _logits_agree(
+                    torch, f"{name} kvshard against the unsharded", got,
+                    want, near_tie=True, rel=1e-2)
+                del ck
+        out["meshes"][name] = row
+        del eng, cm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) the pipeline: 4 stages of 7 blocks, 4 microbatches
+    n_per = cfg.n_layers // PIPE_STAGES
+    stages = tree_map(lambda t: t.reshape(PIPE_STAGES, n_per, *t.shape[1:]),
+                      whole["blocks"])
+    toks_p = torch.randint(0, cfg.vocab, (PIPE_MICRO, 1, PIPE_SEQ),
+                           generator=gen).cuda()
+    pos = torch.arange(PIPE_SEQ, device="cuda")[None]
+    with torch.no_grad():
+        x = embed(whole["embed"], toks_p, cfg.dtype)
+
+        def stage(p, a):
+            for l in range(n_per):
+                a = block_apply(layer_view(p, l)["sub0"], cfg, a, pos)[0]
+            return a
+
+        smesh = make_mesh((PIPE_STAGES,), ("stage",),
+                          devices=[torch.device("cuda", 0)] * PIPE_STAGES)
+        got = pipeline_apply(stage, stages, x, smesh)
+
+        def sequential():
+            ys = []
+            for m in range(PIPE_MICRO):
+                a = x[m]
+                for s in range(PIPE_STAGES):
+                    a = stage(layer_view(stages, s), a)
+                ys.append(a)
+            return torch.stack(ys)
+
+        want_p = sequential()
+        err = float((got.float() - want_p.float()).abs().max())
+        pipe = {"stages": PIPE_STAGES, "blocks_per_stage": n_per,
+                "microbatches": PIPE_MICRO, "max_abs_diff": err}
+        pipe["pipeline"] = _mesh_timed(
+            torch, lambda: pipeline_apply(stage, stages, x, smesh),
+            f"pipeline_apply {PIPE_STAGES} x {n_per} blocks, {PIPE_MICRO} "
+            f"microbatches of {PIPE_SEQ} tokens")
+        pipe["sequential"] = _mesh_timed(torch, sequential,
+                                         "the same blocks in sequence")
+    log(f"  pipeline against the blocks in sequence: max |d| {err:.4e}")
+    require(err <= 1e-2 * float(want_p.float().abs().max()),
+            "the pipeline's outputs differ from the sequential blocks'")
+    out["pipeline"] = pipe
+    del whole, cache0, stages, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the paired Mamba engine on (1, 4) against the unsharded one
+    t0 = time.perf_counter()
+    mcfg, mparams, dec = _mamba_bundle(torch, True)
+    torch.cuda.synchronize()
+    log(f"paired mamba2-130m converted in {time.perf_counter() - t0:.1f} s")
+    mesh = _card_host_mesh(torch, (1, 4))
+    mreqs = make_requests(mcfg, 4, 8, seed=0)
+    e0 = Engine(mcfg, 64, B, pcilt=True, params=mparams,
+                pcilt_bundle=dec.pcilt, device="cuda")
+    t0 = time.perf_counter()
+    e0.run(mreqs)
+    log(f"  the unsharded paired engine served in "
+        f"{time.perf_counter() - t0:.1f} s")
+    mtokens = [r.out for r in mreqs]
+    c0, mt = e0.cache, torch.from_numpy(e0.tokens).cuda()
+    with torch.no_grad():
+        mwant = e0.pdecode.step(e0.params, c0, mt, with_stats=True)[0]
+        s, ln, dev_s, dev_n = _step_times(
+            torch, ops, lambda: e0.pdecode.step(e0.params, c0, mt,
+                                                with_stats=True))
+    mamba = {"unsharded": {"host_ms": s * 1e3, "device_ms": dev_s * 1e3,
+                           "device_launches": dev_n, "launches": ln}}
+    log(f"  paired mamba2-130m unsharded step: host {s * 1e3:.2f} ms, device "
+        f"{dev_s * 1e3:.3f} ms in {dev_n} device launches; launches {ln}")
+    del e0
+    gc.collect()
+    ops.reset_launches()
+    e1 = Engine(mcfg, 64, B, mesh, pcilt=True, params=mparams,
+                pcilt_bundle=dec.pcilt)
+    got_reqs = make_requests(mcfg, 4, 8, seed=0)
+    e1.run(got_reqs)
+    torch.cuda.synchronize()
+    # the conversion record's and the monitor's CRCs are not the path's
+    launches = {k: v for k, v in ops.LAUNCHES.items()
+                if v and k != "crc32"}
+    same = [r.out for r in got_reqs] == mtokens
+    log(f"  paired mamba2-130m on (1, 4): tokens equal to the unsharded "
+        f"engine's {same}; the SSD state a device "
+        f"{_per_device_gb(e1.cache) * 1e3:.3f} MB of "
+        f"{spec_bytes(e1.model.cache_specs(B)['layers']) / 1e6:.3f} MB")
+    require(same, "the paired Mamba engine on the mesh changed its tokens")
+    cm = place(c0, shardings(e1.model.cache_specs(B), mesh))
+    with torch.no_grad():
+        mgot = e1.pdecode.step(e1.params, cm, mt, with_stats=True)[0]
+        s, ln1, dev_s, dev_n = _step_times(
+            torch, ops, lambda: e1.pdecode.step(e1.params, cm, mt,
+                                                with_stats=True))
+    err = float((mgot.float() - mwant.float()).abs().max())
+    tol = 2e-4 * float(mwant.float().abs().max())
+    mamba["mesh_1x4"] = {"host_ms": s * 1e3, "device_ms": dev_s * 1e3,
+                         "device_launches": dev_n, "launches": ln1,
+                         "max_abs_diff": err, "tokens_equal": same}
+    log(f"  (1, 4) step: host {s * 1e3:.2f} ms, device {dev_s * 1e3:.3f} ms "
+        f"in {dev_n} device launches; launches {ln1}; max |d| {err:.4e} "
+        f"(tol {tol:.4e})")
+    require(err <= tol, "the paired Mamba step on the mesh disagrees")
+    kernels = ("gemv_paired_stacked", "dwconv1d", "shared_gemv")
+    require({k: ln1.get(k) for k in kernels} == {k: ln.get(k)
+                                                  for k in kernels},
+            f"the mesh step's launches {ln1} differ from the unsharded {ln}")
+    out["mamba"] = mamba
+    report["mesh_serving"] = out
+    del e1, dec, mparams, c0, cm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5657,7 +5998,7 @@ def main() -> int:
                   single_layers, plans_and_extensions, learnable,
                   resilience, dense_serving, training, dense_configs,
                   moe_family, hybrid_family, audio_family, vlm_family,
-                  autotune_phase, sharded_tables):
+                  autotune_phase, sharded_tables, mesh_serving):
         count(phase)
     sh = report["sharded"]["conv4"]
     for kind in ("fused_conv2d", "shared_conv2d"):

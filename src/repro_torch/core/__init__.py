@@ -1,8 +1,7 @@
 """repro_torch.core — PCILT quantization, offsets, table builds (sharded
-over a mesh too), layers with their tensor-parallel routes and learnable
-tables.  Of the reference's ``core`` only the ``ctx`` of its decode
-(``PCILTMambaDecode(ctx=)``, the parameters' sharding) is still to port,
-with ``nn.layers.Ctx``."""
+over a mesh too), layers with their tensor-parallel routes, learnable
+tables, and the converted Mamba decode (under a sharding context,
+``PCILTMambaDecode(ctx=)``)."""
 
 from .quantization import (QuantSpec, scale_from_amax, calibrate, quantize,
                            quantize_with_stats, dequantize, fake_quant,

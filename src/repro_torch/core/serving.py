@@ -94,6 +94,15 @@ def _stacks(pcilt: Dict) -> List[Tuple[str, Any, int]]:
     return out
 
 
+def _layer_weight(params, name: str, layer: int) -> torch.Tensor:
+    """Layer ``layer`` of a projection's stacked kernel, whole (a placed
+    kernel joined on its first device: the tables it feeds are whole)."""
+    k = params["blocks"]["mixer"][name]["kernel"]
+    if hasattr(k, "blocks"):
+        return k.select(0, layer).join()
+    return k[layer]
+
+
 def pcilt_integrity(pcilt: Dict) -> Dict:
     """Conversion-time CRC-32 record of every table of a Mamba PCILT bundle,
     per layer for the stacked arrays (the same record, byte for byte, as
@@ -123,9 +132,14 @@ class PCILTMambaDecode:
     compiled executor closing over them), so a table swapped or rewritten
     in place is served from the next step on."""
 
-    def __init__(self, model, pcilt: Dict, verify: bool = True):
+    def __init__(self, model, pcilt: Dict, *, ctx=None, verify: bool = True):
         self.model = model
         self.pcilt = pcilt
+        #: the sharding context of the step: with a mesh the parameters and
+        #: cache a step takes are placed (``nn.module.place``) and the SSD
+        #: and conv state and the recurrence run per shard; the tables stay
+        #: as the bundle holds them
+        self.ctx = ctx
         if "integrity" not in pcilt:
             pcilt["integrity"] = pcilt_integrity(pcilt)
         if verify:
@@ -151,7 +165,7 @@ class PCILTMambaDecode:
              with_stats: bool = False):
         return self.model.decode_step(params, cache, tokens, pcilt=self.pcilt,
                                       layer_ok=layer_ok, head_ok=head_ok,
-                                      with_stats=with_stats)
+                                      with_stats=with_stats, ctx=self.ctx)
 
     def _recorded(self, name: str) -> List[int]:
         integ = self.pcilt["integrity"]
@@ -402,7 +416,7 @@ class HealthMonitor:
         got = pcilt_linear(torch.from_numpy(xx).to(t.device), t, spec, scale,
                            group, path="gather", stacked=int(layer),
                            paired=paired)
-        k = self.params["blocks"]["mixer"][name]["kernel"][layer]
+        k = _layer_weight(self.params, name, layer)
         xt = torch.from_numpy(x).to(k.device)
         want = fake_quant(xt, spec, scale) @ k.float()
         return bool(torch.allclose(got.float(), want, rtol=self.oracle_tol,
@@ -552,7 +566,7 @@ class HealthMonitor:
                 new_scale = float(scale_from_amax(
                     torch.tensor(new_amax * old_scale, dtype=torch.float32),
                     spec))
-                wf = self.params["blocks"]["mixer"][name]["kernel"][l].float()
+                wf = _layer_weight(self.params, name, l).float()
                 t = proj["tables"][name]
                 if paired:  # segment-major [G2, L, V2, O]: the layer's slice
                     new = build_paired_tables(wf, spec, new_scale, group)
@@ -613,7 +627,7 @@ class HealthMonitor:
 
 
 def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
-                         mesh=None, mesh_axis: str = "model",
+                         ctx=None, mesh=None, mesh_axis: str = "model",
                          table_dtype=torch.float32, paired: bool = False,
                          head: Optional[str] = None,
                          timings: Optional[Dict[str, float]] = None,
@@ -625,7 +639,9 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
     head), record the CRC-32s, verify them at load.  With ``mesh=`` the
     projection stacks are built straight into their segment shards over
     ``mesh_axis`` (``MambaLM.build_pcilt``).  With ``timings`` (a dict) the
-    seconds of each phase are stored there."""
+    seconds of each phase are stored there.  ``ctx`` is the sharding
+    context the returned decode steps under (``PCILTMambaDecode(ctx=)``);
+    the conversion itself reads ``params`` whole."""
     import time
 
     from repro_torch.interop import resolve_device
@@ -673,7 +689,7 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
     pcilt["integrity"] = pcilt_integrity(pcilt)
     lap("crc_record_s", t0)
     t0 = time.perf_counter()
-    dec = PCILTMambaDecode(model, pcilt, verify=True)
+    dec = PCILTMambaDecode(model, pcilt, ctx=ctx, verify=True)
     lap("verify_s", t0)
     return dec
 

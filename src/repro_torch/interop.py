@@ -8,7 +8,8 @@ bf16 arrays cross as raw 16-bit words, so bytes (and CRC-32 records) are
 preserved exactly.  With ``mesh=`` (a ``launch.mesh.Mesh``) the
 sharded tables of a JAX run (a ``ShardedSharedPool``, a bundle converted
 with a mesh) cross as the port's sharded types, each shard on its device
-of the mesh axis.
+of the mesh axis, and with ``shardings=`` a parameter tree crosses placed
+(``nn.module.Placed`` leaves).
 """
 
 from __future__ import annotations
@@ -79,8 +80,17 @@ def tree_leaves(tree):
     return [tree]
 
 
-def params_from_jax(np_tree, device="cuda") -> Dict[str, Any]:
-    """The JAX package's parameter tree (numpy leaves) as tensors."""
+def params_from_jax(np_tree, device="cuda", *,
+                    shardings=None) -> Dict[str, Any]:
+    """The JAX package's parameter tree (numpy leaves) as tensors; with
+    ``shardings`` (``nn.module.shardings(specs, mesh)``) each leaf is cut
+    on the host and its blocks placed on the mesh (``nn.module.place``:
+    no device holds a sharded leaf whole)."""
+    if shardings is not None:
+        from .nn.module import place
+
+        return place(tree_map(lambda a: to_torch(a, "cpu"), np_tree),
+                     shardings)
     dev = resolve_device(device)
     return tree_map(lambda a: to_torch(a, dev), np_tree)
 

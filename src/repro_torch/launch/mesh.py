@@ -6,13 +6,17 @@ process too, so its mesh is a **single-process device mesh**: an explicit
 grid of ``torch.device``s with named axes, and nothing of
 ``torch.distributed``.  A table sharded over an axis is a list of
 contiguous per-device blocks, each kept on its device
-(``core.pcilt.ShardedTables``, ``core.pcilt.ShardedSharedPool``); each
-shard's partial sum is computed on its device in float32, moved to the
-axis's first device and added there in shard order (a fixed order: no
-atomics).  The multi-process ``torch.distributed`` form belongs with the
-training distribution, which is not ported yet; so is
-``make_production_mesh`` (the reference's v5e pods of 256 and 512 chips,
-which waits for the ``dryrun``/``specs`` slice).
+(``core.pcilt.ShardedTables``, ``core.pcilt.ShardedSharedPool``); a
+parameter or cache leaf is a ``nn.module.Placed`` (one block a mesh
+coordinate, placed by ``nn.module.shardings``), and the layers run their
+per-shard bodies under a ``nn.layers.Ctx``.  Each shard's partial sum is
+computed on its device in float32, moved to the axis's first device and
+added there in shard order (a fixed order: no atomics).  :func:`make_mesh`
+names any axes (``("stage",)`` for ``runtime.pipeline_apply``).  The
+multi-process ``torch.distributed`` form belongs with the training
+distribution, which is not ported yet; so is ``make_production_mesh``
+(the reference's v5e pods of 256 and 512 chips, which waits for the
+``dryrun``/``specs`` slice).
 
 A mesh never falls back to the CPU: without ``devices=`` it spans CUDA
 cards, and asking for more shards than there are cards raises.  An explicit
@@ -25,12 +29,13 @@ build meshes of ``"cpu"`` devices the same way.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_host_mesh", "make_decode_mesh"]
+__all__ = ["Mesh", "make_mesh", "make_host_mesh", "make_decode_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,11 +52,17 @@ class Mesh:
             raise ValueError(f"a {self.devices.ndim}-d device grid needs as "
                              f"many axis names, got {self.axis_names}")
 
-    @property
+    @functools.cached_property
     def shape(self) -> Dict[str, int]:
         """Axis name -> size, in axis order (the reference's
         ``mesh.shape``)."""
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @functools.cached_property
+    def coords(self) -> List[Tuple[int, ...]]:
+        """Every mesh coordinate, in order."""
+        return [tuple(int(i) for i in c)
+                for c in np.ndindex(*self.devices.shape)]
 
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The devices along ``axis`` at index 0 of every other axis: where
@@ -79,24 +90,34 @@ def _cards(n: int) -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def make_host_mesh(data: int = 1, model: int = 1, *,
-                   devices: Optional[Sequence] = None) -> Mesh:
-    """A ``(data, model)`` mesh over the first ``data * model`` CUDA cards,
-    or over ``devices`` (exactly ``data * model`` of them, repeats
-    allowed)."""
-    n = int(data) * int(model)
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh of ``shape`` with named axes over the first ``prod(shape)``
+    CUDA cards, or over ``devices`` (exactly that many, repeats allowed):
+    ``make_mesh((4,), ("stage",))`` is ``pipeline_apply``'s stage mesh."""
+    n = int(np.prod(shape))
     if n < 1:
-        raise ValueError(f"mesh shape ({data}, {model}) has no devices")
+        raise ValueError(f"mesh shape {tuple(shape)} has no devices")
     if devices is None:
         devs = _cards(n)
     else:
         devs = [_indexed(torch.device(d)) for d in devices]
         if len(devs) != n:
-            raise ValueError(f"a ({data}, {model}) mesh takes {n} devices, "
+            raise ValueError(f"a {tuple(shape)} mesh takes {n} devices, "
                              f"got {len(devs)}")
     grid = np.empty(n, dtype=object)
     grid[:] = devs
-    return Mesh(grid.reshape(int(data), int(model)), ("data", "model"))
+    return Mesh(grid.reshape(tuple(int(s) for s in shape)),
+                tuple(axis_names))
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *,
+                   devices: Optional[Sequence] = None) -> Mesh:
+    """A ``(data, model)`` mesh over the first ``data * model`` CUDA cards,
+    or over ``devices`` (exactly ``data * model`` of them, repeats
+    allowed)."""
+    return make_mesh((int(data), int(model)), ("data", "model"),
+                     devices=devices)
 
 
 def make_decode_mesh(model: int = 0, *,

@@ -67,8 +67,18 @@ message; the :class:`Engine` serves them as the reference's does.  A
 bundle with tables sharded over a mesh (``convert_mamba_decode(...,
 mesh=)``) is served through ``pcilt_bundle=``, as in the reference;
 ``--chaos``'s table fault then flips one shard in place.  The CLI has no
-mesh flag, as the reference's has none.  Still to port: ``Engine(mesh=)``,
-which waits for the dense family's ``Ctx``/``row_parallel``.
+mesh flag, as the reference's has none.
+
+``Engine(cfg, max_len, slots, mesh)`` serves on a mesh (``launch.mesh``:
+CPU devices in the tests, ``cuda:0`` repeated or D cards on the GPU): the
+parameters and the cache are placed by ``nn.module.shardings`` (a
+replicated leaf held once per distinct device), every device's bytes are
+checked against the partition specs, and the steps run the layers'
+per-shard bodies (``nn.layers.Ctx``); a slot reset, the checkpoint ring,
+a restore and a rollback work on the placed blocks.  With ``pcilt`` the
+converted Mamba decode runs under ``make_ctx(mesh, None, decode=True)``.
+An MoE config is refused under a mesh (expert parallelism is not
+ported).
 """
 
 from __future__ import annotations
@@ -89,9 +99,11 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.serving import (HealthMonitor, PCILTMambaDecode,
                                       convert_mamba_decode)
 from repro_torch.interop import resolve_device, tree_leaves, tree_map
-from repro_torch.launch.steps import make_decode_step
+from repro_torch.launch.steps import make_ctx, make_decode_step
 from repro_torch.models import build_model
-from repro_torch.nn.module import materialize
+from repro_torch.nn.module import (Placed, check_placed_bytes,
+                                   fallback_leaves, materialize, place,
+                                   shardings)
 from repro_torch.runtime import StepWatchdog, WallClock
 
 log = logging.getLogger("repro_torch.serve")
@@ -136,7 +148,19 @@ class Request:
 
 
 def _clone(a):
-    return a.clone() if torch.is_tensor(a) else a
+    return a.clone() if torch.is_tensor(a) or isinstance(a, Placed) else a
+
+
+def _float_blocks(tree):
+    """The floating tensors of a cache tree, a placed leaf's distinct
+    blocks each."""
+    out = []
+    for t in tree_leaves(tree):
+        if isinstance(t, Placed):
+            out += [b for _, b in t.unique() if b.is_floating_point()]
+        elif torch.is_tensor(t) and t.is_floating_point():
+            out.append(t)
+    return out
 
 
 class Engine:
@@ -163,9 +187,14 @@ class Engine:
     and llava's requests carry no image.  A checkpoint clones the whole
     cache, ``cross_kv`` included; a slot reset zeroes ``cache["layers"]``
     only.  The CLI (:func:`main`) refuses both families, as the
-    reference's does."""
+    reference's does.
 
-    def __init__(self, cfg, max_len: int = 256, slots: int = 4, *,
+    With ``mesh`` (a ``launch.mesh.Mesh``) the parameters and cache are
+    placed by ``nn.module.shardings`` and checked byte for byte against
+    the partition specs, ``self.device`` is the mesh's first device, and
+    an MoE config is refused (expert parallelism is not ported)."""
+
+    def __init__(self, cfg, max_len: int = 256, slots: int = 4, mesh=None, *,
                  pcilt: bool = False,
                  params=None, pcilt_bundle: Optional[Dict] = None,
                  oracle_every: int = 4, max_restarts: int = 8,
@@ -180,7 +209,16 @@ class Engine:
                 "reference's Engine._reset_slot reads cache['layers'], which "
                 "HybridLM.cache_specs lacks ({'ssm', 'attn', 'pos'}); use "
                 "the model's prefill and decode_step")
-        self.device = resolve_device(device)
+        if mesh is not None and cfg.moe is not None:
+            raise NotImplementedError(
+                "Engine(mesh=) does not serve an MoE config: the expert-"
+                "parallel schedules are not ported yet (ROADMAP Queue 1 #9)")
+        #: the mesh the engine serves on (``launch.mesh.Mesh``) or None;
+        #: with one, the parameters and cache are placed by
+        #: ``nn.module.shardings`` and ``self.device`` is its first device
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else \
+            resolve_device(mesh.devices.reshape(-1)[0])
         self.cfg = cfg
         self.model = build_model(cfg)
         self.slots = slots
@@ -191,13 +229,19 @@ class Engine:
         self.queue_limit = queue_limit
         #: simulated service time a step advances the clock by (None: real)
         self.step_cost_s = step_cost_s
+        # with a mesh the whole tree is drawn on the host and placed block
+        # by block (a PCILT conversion reads it whole on the card first)
+        home = self.device if mesh is None or pcilt else torch.device("cpu")
         self.params = params if params is not None else materialize(
-            self.model.param_specs(), seed, device=self.device)
+            self.model.param_specs(), seed, device=home)
         self.cache = materialize(self.model.cache_specs(slots, max_len),
-                                 seed, device=self.device)
+                                 seed, device=self.device if mesh is None
+                                 else torch.device("cpu"))
         if "pos" in self.cache:  # the KV cache's write position, on the host
             self.cache["pos"] = 0
-        self.decode = make_decode_step(cfg)
+        self.decode = make_decode_step(cfg, mesh)
+        #: the logical dims the divisibility fallback replicates on the mesh
+        self.replicated_leaves: List[str] = []
         self.active: List[Optional[Request]] = [None] * slots
         self.tokens = np.zeros((slots, 1), np.int64)
         #: chaos schedule {step count: [fn(engine)]} keyed on the monotone
@@ -231,16 +275,36 @@ class Engine:
             if cfg.pcilt is None:
                 raise ValueError("Engine(pcilt=True) requires cfg.pcilt (a "
                                  "configs.base.PCILTConfig)")
+            ctx = make_ctx(mesh, None, decode=True)
             if pcilt_bundle is not None:
-                self.pdecode = PCILTMambaDecode(self.model, pcilt_bundle)
+                self.pdecode = PCILTMambaDecode(self.model, pcilt_bundle,
+                                                ctx=ctx)
             else:
                 rng = np.random.default_rng(seed + 2)
                 calib = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
                 self.pdecode = convert_mamba_decode(
-                    self.model, self.params, calib, head="shared",
+                    self.model, self.params, calib, ctx=ctx, head="shared",
                     timings=self.convert_timings, device=self.device)
+        if mesh is not None:
+            self._place(max_len)
+        if pcilt:
             self.monitor = HealthMonitor(self.pdecode, self.params,
                                          oracle_every=oracle_every)
+
+    def _place(self, max_len: int):
+        """Place the whole parameter and cache trees on the mesh by
+        ``shardings`` and check every device's bytes against the partition
+        specs (raising on a difference)."""
+        rules = make_ctx(self.mesh).rules
+        pspecs = self.model.param_specs()
+        cspecs = self.model.cache_specs(self.slots, max_len)
+        self.params = place(self.params, shardings(pspecs, self.mesh, rules))
+        self.cache = place(self.cache, shardings(cspecs, self.mesh, rules))
+        check_placed_bytes(self.params)
+        check_placed_bytes(self.cache)
+        self.replicated_leaves = fallback_leaves(pspecs, self.mesh, rules) \
+            + fallback_leaves({"layers": cspecs["layers"]}, self.mesh, rules,
+                              "cache")
 
     # -- stepping ------------------------------------------------------------
 
@@ -278,8 +342,8 @@ class Engine:
             # state tensor (quantization launders NaN into a valid lookup,
             # so poisoned state can yield finite logits)
             checks = [torch.isfinite(logits).all()]
-            checks += [torch.isfinite(t).all() for t in tree_leaves(new_cache)
-                       if torch.is_tensor(t) and t.is_floating_point()]
+            checks += [torch.isfinite(t).all().to(logits.device)
+                       for t in _float_blocks(new_cache)]
             parts = [logits.argmax(-1), torch.stack(checks).all().long()[None]]
             sat = self._last_sat
             if sat is not None:  # the counters ride the same transfer
@@ -353,7 +417,10 @@ class Engine:
         context."""
         for t in tree_leaves(self.cache["layers"]):
             if t.dim() >= 2 and t.shape[1] == self.slots:
-                t[:, s] = 0
+                if isinstance(t, Placed):
+                    t.fill_index_(1, s, 0)
+                else:
+                    t[:, s] = 0
 
     # -- checkpoint ring -----------------------------------------------------
 

@@ -1,10 +1,13 @@
 """Step-function factories (port of ``repro.launch.steps``): train, prefill
 and decode for any ported config.
 
-The reference closes its steps over a sharding context (``make_ctx``); the
-port has no mesh yet, so the steps close over the model alone, and
-``make_train_step``'s ``grad_shardings`` / ``explicit_rs`` wait for
-distribution.
+The prefill and decode steps close over the model and a sharding context
+(:func:`make_ctx`): with a mesh (``launch.mesh.Mesh``) they take placed
+parameters and caches (``nn.module.place(tree, shardings(specs, mesh))``)
+and run the layers' per-shard bodies; ``rule_overrides`` edits the rule
+table (``{"cache_seq": "model"}`` shards the KV cache's time axis).
+``make_train_step`` has no mesh yet: its ``grad_shardings`` and
+``explicit_rs`` wait for the training distribution (ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -13,10 +16,26 @@ import torch
 
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import build_model
+from repro_torch.nn.layers import Ctx
+from repro_torch.nn.module import DEFAULT_RULES, ShardingRules
 from repro_torch.optim import AdamWConfig, adamw_update
 
-__all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
-           "active_matmul_params"]
+__all__ = ["make_ctx", "make_train_step", "make_prefill_step",
+           "make_decode_step", "active_matmul_params"]
+
+
+def make_ctx(mesh, rule_overrides=None, decode=False,
+             explicit_rs=False) -> Ctx:
+    """The sharding context of ``mesh`` (None: one device) under
+    :data:`~repro_torch.nn.module.DEFAULT_RULES` updated by
+    ``rule_overrides``."""
+    if mesh is None:
+        return Ctx(decode=decode)
+    rules = dict(DEFAULT_RULES)
+    if rule_overrides:
+        rules.update(rule_overrides)
+    return Ctx(mesh=mesh, rules=ShardingRules.for_mesh(mesh, rules),
+               decode=decode, explicit_rs=explicit_rs)
 
 
 def _cast_tree_bf16(p):
@@ -87,24 +106,27 @@ def make_train_step(cfg, ocfg: AdamWConfig, bf16_grads: bool = False):
     return train_step
 
 
-def make_prefill_step(cfg):
-    """``prefill_step(params, batch) -> (logits [B, Vp], cache)``."""
+def make_prefill_step(cfg, mesh=None, rule_overrides=None):
+    """``prefill_step(params, batch) -> (logits [B, Vp], cache)`` (placed
+    parameters in, a placed cache out under a mesh)."""
     model = build_model(cfg)
+    ctx = make_ctx(mesh, rule_overrides)
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch)
+        return model.prefill(params, batch, ctx=ctx)
 
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, mesh=None, rule_overrides=None):
     """``serve_step(params, cache, tokens [B, 1]) -> (logits [B, Vp],
     new cache)``; the padded vocabulary's logits are set to -1e30, so a
     padded id is never sampled."""
     model = build_model(cfg)
+    ctx = make_ctx(mesh, rule_overrides, decode=True)
 
     def serve_step(params, cache, tokens):
-        logits, new_cache = model.decode_step(params, cache, tokens)
+        logits, new_cache = model.decode_step(params, cache, tokens, ctx=ctx)
         if cfg.padded_vocab > cfg.vocab:
             logits[..., cfg.vocab:] = -1e30
         return logits, new_cache

@@ -63,9 +63,10 @@ class PaperCNN:
         p = {}
         cin = self.in_channels
         for i, cout in enumerate(self.channels):
-            p[f"conv{i}"] = ParamSpec((self.k, self.k, cin, cout))
+            p[f"conv{i}"] = ParamSpec((self.k, self.k, cin, cout),
+                                      axes=(None, None, None, None))
             cin = cout
-        p["head"] = ParamSpec((cin, self.n_classes))
+        p["head"] = ParamSpec((cin, self.n_classes), axes=(None, None))
         return p
 
     def init_params(self, seed: int = 0) -> Dict[str, torch.Tensor]:

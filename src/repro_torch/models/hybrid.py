@@ -34,6 +34,13 @@ from .transformer import chunked_ce_loss, mlp, mlp_spec
 __all__ = ["HybridLM"]
 
 
+def _no_mesh(ctx):
+    if ctx is not None and ctx.mesh is not None:
+        raise NotImplementedError(
+            "the hybrid family does not run under a mesh yet (ROADMAP "
+            "Queue 1: the hybrid family under a mesh)")
+
+
 @dataclasses.dataclass
 class HybridLM:
     cfg: Any
@@ -74,7 +81,8 @@ class HybridLM:
                                   cfg.n_shared_attn_blocks),
             "ln_f": rmsnorm_spec(cfg.d_model, cfg.param_dtype),
             "lm_head": {"kernel": ParamSpec((cfg.d_model, cfg.padded_vocab),
-                                            cfg.param_dtype, "fan_in")},
+                                            cfg.param_dtype, "fan_in",
+                                            axes=("embed", "vocab"))},
         }
 
     def cache_specs(self, batch: int, max_len: int):
@@ -85,7 +93,7 @@ class HybridLM:
                 "attn": init_cache_specs(cfg, batch, max_len,
                                          self.n_attn_applications(),
                                          layer_axis=True),
-                "pos": ParamSpec((), torch.int32, "zeros")}
+                "pos": ParamSpec((), torch.int32, "zeros", axes=())}
 
     # -- the shared attention application -----------------------------------
 
@@ -110,11 +118,12 @@ class HybridLM:
 
     # -- modes ---------------------------------------------------------------
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, ctx=None):
         """The training loss over ``batch`` (``tokens``, ``labels [B, S]``,
         optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``.  Every
         shared application and every Mamba block runs under
         ``cfg.remat_policy``; the values do not depend on it."""
+        _no_mesh(ctx)
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -145,10 +154,11 @@ class HybridLM:
                                 labels, mask.float(), cfg.loss_chunk)
         return ce + 1e-4 * z, {"ce": ce, "z": z}
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, *, ctx=None):
         """Full-sequence pass over ``batch["tokens"] [B, S]``: the last
         position's logits ``[B, Vp]`` and the decode-ready cache (each
         application's K/V, each layer's SSM state, ``pos`` = S)."""
+        _no_mesh(ctx)
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -176,9 +186,10 @@ class HybridLM:
                         "attn": {"k": torch.stack(ks), "v": torch.stack(vs)},
                         "pos": S}
 
-    def decode_step(self, params, cache, tokens: torch.Tensor):
+    def decode_step(self, params, cache, tokens: torch.Tensor, *, ctx=None):
         """tokens ``[B, 1]``; cache ``{"ssm", "attn", "pos"}`` -> ``(logits
         [B, Vp], new cache)`` with ``pos + 1``."""
+        _no_mesh(ctx)
         cfg = self.cfg
         pos = int(cache["pos"])
         B = tokens.shape[0]

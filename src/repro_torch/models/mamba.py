@@ -30,8 +30,9 @@ from repro_torch.core import (QuantSpec, SharedGroupedTables,
                               build_shared_grouped_tables, fake_quant,
                               mesh_shard_count, pcilt_linear,
                               scale_from_amax)
-from repro_torch.nn.layers import embed, embed_spec, rmsnorm, rmsnorm_spec
-from repro_torch.nn.module import (ParamSpec, layer_view,
+from repro_torch.nn.layers import (Rows, embed, embed_spec, rmsnorm,
+                                   rmsnorm_spec, vocab_embed, vocab_logits)
+from repro_torch.nn.module import (ParamSpec, Placed, layer_view,
                                    pcilt_table_sharding, remat, stack_specs)
 from repro_torch.nn.ssm import (PROJ_NAMES, mamba_block, mamba_decode,
                                 mamba_spec, ssm_cache_specs)
@@ -56,14 +57,17 @@ class MambaLM:
              "ln_f": rmsnorm_spec(cfg.d_model, cfg.param_dtype)}
         if not cfg.tie_embeddings:
             p["lm_head"] = {"kernel": ParamSpec(
-                (cfg.d_model, cfg.padded_vocab), cfg.param_dtype, "fan_in")}
+                (cfg.d_model, cfg.padded_vocab), cfg.param_dtype, "fan_in",
+                axes=("embed", "vocab"))}
         return p
 
     def cache_specs(self, batch: int, max_len: Optional[int] = None):
         """Decode cache: per-layer ``conv``/``ssd`` state, whose size does
-        not depend on ``max_len`` (``pos`` is kept as a host int by the
-        caller)."""
-        return {"layers": ssm_cache_specs(self.cfg, batch, self.cfg.n_layers)}
+        not depend on ``max_len``, and the reference's ``pos`` (a 0-d
+        tensor, which a caller may replace by a host int; the step does
+        not read it)."""
+        return {"layers": ssm_cache_specs(self.cfg, batch, self.cfg.n_layers),
+                "pos": ParamSpec((), torch.int32, "zeros", axes=())}
 
     def _head_kernel(self, params) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -73,11 +77,15 @@ class MambaLM:
     def _logits(self, params, x):
         return x @ self._head_kernel(params).to(self.cfg.dtype)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, ctx=None):
         """The training loss over ``batch`` (``tokens``, ``labels [B, S]``,
-        optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``."""
+        optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``.  Not
+        under a mesh (training distribution: ROADMAP Queue 1 #8)."""
         from .transformer import chunked_ce_loss
 
+        if _mesh(ctx):
+            raise NotImplementedError(
+                "the Mamba loss under a mesh (ROADMAP Queue 1 #8)")
         cfg = self.cfg
         labels = batch["labels"]
         x = embed(params["embed"], batch["tokens"], cfg.dtype)
@@ -98,27 +106,28 @@ class MambaLM:
                                 labels, mask.float(), cfg.loss_chunk)
         return ce + 1e-4 * z, {"ce": ce, "z": z}
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, *, ctx=None):
         """Full-sequence dense pass over ``batch["tokens"] [B, S]``: the last
         position's logits ``[B, Vp]`` and the decode-ready cache of each
         layer's final ``conv`` (the raw pre-conv tail) and ``ssd`` states,
         constant-size whatever S is; :meth:`decode_step` and
-        ``PCILTMambaDecode.step`` take it as is."""
+        ``PCILTMambaDecode.step`` take it as is.  Under a mesh (placed
+        parameters) the blocks run their per-shard bodies and the cache
+        comes back placed by the cache rules."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], cfg.dtype)
+        stack = Placed.stack if _mesh(ctx) else torch.stack
+        x = self._embed(params, batch["tokens"], ctx)
         convs, ssds = [], []
         for l in range(cfg.n_layers):
             p = layer_view(params["blocks"], l)
-            y, st = mamba_block(p["mixer"], cfg,
-                                rmsnorm(p["ln"], x, cfg.norm_eps),
-                                return_state=True)
-            x = x + y
+            y, st = mamba_block(p["mixer"], cfg, _norm(p["ln"], cfg, x, ctx),
+                                return_state=True, ctx=ctx)
+            x = _add(x, y)
             convs.append(st["conv"])
             ssds.append(st["ssd"])
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        logits = self._logits(params, x[:, -1:])[:, 0]
-        return logits, {"layers": {"conv": torch.stack(convs),
-                                   "ssd": torch.stack(ssds)}}
+        x = _norm(params["ln_f"], cfg, x, ctx)
+        logits = self._head(params, _last(x), ctx)[:, 0]
+        return logits, {"layers": {"conv": stack(convs), "ssd": stack(ssds)}}
 
     # -- calibration and the PCILT build ------------------------------------
 
@@ -266,9 +275,31 @@ class MambaLM:
         return pcilt_linear(xx, shared, head["spec"], head["scale"],
                             head["group"], path="shared").to(cfg.dtype)
 
+    def _embed(self, params, tokens, ctx):
+        """Token embeddings; under a mesh the rows' blocks, vocab-parallel."""
+        if _mesh(ctx):
+            return vocab_embed(ctx, params["embed"]["embedding"],
+                               ctx.split_rows(tokens), self.cfg.dtype)
+        return embed(params["embed"], tokens, self.cfg.dtype)
+
+    def _head(self, params, x, ctx) -> torch.Tensor:
+        """The dense head's logits; under a mesh vocab-parallel over the
+        rows, joined on the mesh's first device."""
+        cfg = self.cfg
+        if not _mesh(ctx):
+            return self._logits(params, x)
+        if cfg.tie_embeddings:
+            out = vocab_logits(ctx, params["embed"]["embedding"], x,
+                               cfg.dtype, tied=True)
+        else:
+            out = vocab_logits(ctx, params["lm_head"]["kernel"], x,
+                               cfg.dtype, tied=False)
+        return ctx.join_rows(out)
+
     def decode_step(self, params, cache, tokens: torch.Tensor, pcilt=None,
                     layer_ok: Optional[Sequence[bool]] = None,
-                    head_ok: Optional[bool] = None, with_stats: bool = False):
+                    head_ok: Optional[bool] = None, with_stats: bool = False,
+                    *, ctx=None):
         """One decode step: tokens ``[B, 1]`` -> ``(logits [B, Vp],
         new_cache)``, plus the per-layer saturation stats
         ``{"in"|"conv"|"out": {"count" [L] int32, "ratio" [L] float32}}``
@@ -276,13 +307,19 @@ class MambaLM:
 
         ``layer_ok`` (``L`` host bools) and ``head_ok`` (host bool) demote a
         layer's fetches, or the head's, to their dense fake-quant oracles;
-        all-healthy runs exactly the unmasked computation."""
+        all-healthy runs exactly the unmasked computation.
+
+        Under a ``ctx`` with a mesh the parameters and cache are placed:
+        the layers run their per-shard bodies (``nn.ssm``), the bundle's
+        tables are fetched where the bundle holds them, and the logits come
+        back whole on the mesh's first device."""
         cfg = self.cfg
         if pcilt is None and (layer_ok is not None or head_ok is not None
                               or with_stats):
             raise ValueError("layer_ok/head_ok/with_stats concern PCILT "
                              "fetches; they require a pcilt bundle")
-        x = embed(params["embed"], tokens, cfg.dtype)
+        stack = Placed.stack if _mesh(ctx) else torch.stack
+        x = self._embed(params, tokens, ctx)
         proj = None if pcilt is None else pcilt.get("proj")
         if proj is not None:  # host float32 scales -> python floats, once
             scales = {k: v.tolist() for k, v in proj["scales"].items()}
@@ -290,8 +327,8 @@ class MambaLM:
         sat = {g: ([], []) for g in ("in", "conv", "out")}
         for l in range(cfg.n_layers):
             p = layer_view(params["blocks"], l)
-            st = {"conv": cache["layers"]["conv"][l],
-                  "ssd": cache["layers"]["ssd"][l]}
+            st = {"conv": layer_view(cache["layers"]["conv"], l),
+                  "ssd": layer_view(cache["layers"]["ssd"], l)}
             pc = None
             if pcilt is not None:
                 ok = True if layer_ok is None else bool(layer_ok[l])
@@ -306,33 +343,57 @@ class MambaLM:
                         "mesh_axis": proj.get("mesh_axis", "model"),
                         "layer": l, "ok": ok,
                         "scale": {k: v[l] for k, v in scales.items()}}
-            res = mamba_decode(p["mixer"], cfg,
-                               rmsnorm(p["ln"], x, cfg.norm_eps), st,
-                               pcilt=pc, with_stats=with_stats)
-            if with_stats:
-                y, st2, stats = res
-                for g, (count, ratio) in stats.items():
-                    sat[g][0].append(count)
-                    sat[g][1].append(ratio)
-            else:
-                y, st2 = res
-            x = x + y
+            res = mamba_decode(p["mixer"], cfg, _norm(p["ln"], cfg, x, ctx),
+                               st, pcilt=pc, with_stats=with_stats, ctx=ctx)
+            y, st2 = res[:2]
+            x = _add(x, y)
+            for g, (count, ratio) in (res[2] if with_stats else {}).items():
+                sat[g][0].append(count)
+                sat[g][1].append(ratio)
             convs.append(st2["conv"])
             ssds.append(st2["ssd"])
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        x = _norm(params["ln_f"], cfg, x, ctx)
         head = None if pcilt is None else pcilt.get("head")
         if head is None:
-            logits = self._logits(params, x)[:, -1]
+            logits = self._head(params, x, ctx)[:, -1]
         else:
-            logits = self._head_logits(head, x[:, -1],
+            xl = (ctx.join_rows(x) if _mesh(ctx) else x)[:, -1]
+            logits = self._head_logits(head, xl.to(head["pool"].device),
                                        True if head_ok is None else head_ok)
-        new_cache = dict(cache, layers={"conv": torch.stack(convs),
-                                        "ssd": torch.stack(ssds)})
+        new_cache = dict(cache, layers={"conv": stack(convs),
+                                        "ssd": stack(ssds)})
         if with_stats:
             stats = {g: {"count": torch.stack(c), "ratio": torch.stack(r)}
                      for g, (c, r) in sat.items()}
             return logits, new_cache, stats
         return logits, new_cache
+
+
+def _mesh(ctx) -> bool:
+    return ctx is not None and ctx.mesh is not None
+
+
+def _norm(p, cfg, x, ctx):
+    """RMSNorm of a tensor, or of each row's block under a mesh."""
+    if not _mesh(ctx):
+        return rmsnorm(p, x, cfg.norm_eps)
+    return x.map(lambda row, t: rmsnorm(
+        {"scale": ctx.weight(p["scale"], row, 0).to(t.device)}, t,
+        cfg.norm_eps))
+
+
+def _add(x, y):
+    """``x + y`` of tensors or of ``nn.layers.Rows``."""
+    if isinstance(x, Rows):
+        return x.map(lambda row, t: t + y[row])
+    return x + y
+
+
+def _last(x):
+    """The last position ``[:, -1:]`` of a tensor or of each row."""
+    if isinstance(x, Rows):
+        return x.map(lambda _, t: t[:, -1:])
+    return x[:, -1:]
 
 
 def _f32(v) -> float:

@@ -42,11 +42,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.attention import attention, attention_spec, init_cache_specs
-from repro_torch.nn.layers import (dense, dense_spec, embed, embed_spec,
-                                   layernorm, layernorm_spec, rmsnorm,
-                                   rmsnorm_spec, sinusoidal_positions)
+from repro_torch.nn.layers import (Rows, column_parallel, dense,
+                                   dense_spec, embed, embed_spec, layernorm,
+                                   layernorm_spec, rmsnorm, rmsnorm_spec,
+                                   sinusoidal_positions, vocab_embed,
+                                   vocab_logits)
 from repro_torch.nn.moe import moe_apply, moe_spec
-from repro_torch.nn.module import ParamSpec, layer_view, remat, stack_specs
+from repro_torch.nn.module import (ParamSpec, Placed, layer_view, remat,
+                                   stack_specs)
 
 __all__ = ["TransformerLM", "mlp_spec", "mlp", "block_spec", "block_apply",
            "chunked_ce_loss"]
@@ -67,22 +70,61 @@ def _gelu(x):
 def mlp_spec(cfg, dtype=torch.float32):
     d, f = cfg.d_model, cfg.d_ff
     if _use_ln(cfg):
-        return {"wi": dense_spec(d, f, bias=True, dtype=dtype),
-                "wo": dense_spec(f, d, bias=True, dtype=dtype)}
-    return {"wg": dense_spec(d, f, dtype=dtype),
-            "wu": dense_spec(d, f, dtype=dtype),
-            "wd": dense_spec(f, d, dtype=dtype)}
+        return {"wi": dense_spec(d, f, axes=("embed", "mlp"), bias=True,
+                                 dtype=dtype),
+                "wo": dense_spec(f, d, axes=("mlp", "embed"), bias=True,
+                                 dtype=dtype)}
+    return {"wg": dense_spec(d, f, axes=("embed", "mlp"), dtype=dtype),
+            "wu": dense_spec(d, f, axes=("embed", "mlp"), dtype=dtype),
+            "wd": dense_spec(f, d, axes=("mlp", "embed"), dtype=dtype)}
 
 
-def mlp(params, cfg, x):
+def mlp(params, cfg, x, *, ctx=None):
     """In ``cfg.dtype``: whisper's GELU MLP (``wi``, ``wo``, with biases),
-    else the gated SiLU MLP."""
+    else the gated SiLU MLP.  Under a ``ctx`` with a mesh (``x`` a
+    ``nn.layers.Rows``): the up projections column-parallel over the mlp
+    columns, the down projection row-parallel."""
+    if ctx is not None and ctx.mesh is not None:
+        return _mlp_mesh(params, cfg, ctx, x)
     if "wi" in params:
         return dense(params["wo"], _gelu(dense(params["wi"], x, cfg.dtype)),
                      cfg.dtype)
     g = dense(params["wg"], x, cfg.dtype)
     u = dense(params["wu"], x, cfg.dtype)
     return dense(params["wd"], F.silu(g) * u, cfg.dtype)
+
+
+def _mlp_mesh(params, cfg, ctx, xs):
+    gelu = "wi" in params
+    up, down = ("wi", "wo") if gelu else ("wg", "wd")
+    wd = params[down]["kernel"]
+    hs = {}
+    for row, x in xs.items():
+        a = column_parallel(ctx, row, params[up], x, cfg.dtype)
+        if gelu:
+            hs[row] = [(r, _gelu(t)) for r, t in a]
+        else:
+            u = column_parallel(ctx, row, params["wu"], x, cfg.dtype)
+            hs[row] = [(r, F.silu(g) * h) for (r, g), (_, h) in zip(a, u)]
+
+    def out(row, _):
+        parts = [t.float() @ ctx.weight(wd, row, j).to(cfg.dtype).float()
+                 for j, (_, t) in enumerate(hs[row])]
+        y = ctx.reduce(parts, row, cfg.dtype)
+        if "bias" in params[down]:
+            y = y + ctx.weight(params[down]["bias"], row, 0).to(
+                y.device, cfg.dtype)
+        return y
+
+    return xs.map(out)
+
+
+def _local(tree, ctx, row):
+    """A tree of replicated placed leaves (norms) as ``row``'s first
+    device's tensors."""
+    if isinstance(tree, dict):
+        return {k: _local(v, ctx, row) for k, v in tree.items()}
+    return ctx.weight(tree, row, 0)
 
 
 def block_spec(cfg, use_moe: bool = False, cross: bool = False, *,
@@ -103,35 +145,50 @@ def block_spec(cfg, use_moe: bool = False, cross: bool = False, *,
     return p
 
 
-def _norm(params, cfg, x):
-    return (layernorm if _use_ln(cfg) else rmsnorm)(params, x, cfg.norm_eps)
+def _norm(params, cfg, x, ctx=None):
+    fn = layernorm if _use_ln(cfg) else rmsnorm
+    if ctx is not None and ctx.mesh is not None:
+        return x.map(lambda row, t: fn(_local(params, ctx, row), t,
+                                       cfg.norm_eps))
+    return fn(params, x, cfg.norm_eps)
+
+
+def _add(a, b):
+    """``a + b`` of tensors or of ``nn.layers.Rows``."""
+    if isinstance(a, Rows):
+        return a.map(lambda row, t: t + b[row])
+    return a + b
 
 
 def block_apply(params, cfg, x, positions, causal: bool = True,
-                cache: Optional[Dict] = None, cross_kv=None
+                cache: Optional[Dict] = None, cross_kv=None, *, ctx=None
                 ) -> Tuple[torch.Tensor, Dict, Dict]:
     """One pre-norm block: ``(x, cache, aux)``, the cache as
     :func:`attention` returns it and ``aux`` the router losses of an MoE
     block (empty for a dense one).  ``cross_kv=(k, v)`` adds whisper's
-    cross-attention after the self-attention."""
+    cross-attention after the self-attention.  Under a ``ctx`` with a mesh
+    ``x`` and ``positions`` are ``nn.layers.Rows`` (the norms and the
+    residual adds run on each row's first device); an MoE block raises
+    (``moe_apply``: expert parallelism is not ported)."""
     aux = {}
     h, new_cache = attention(params["attn"], cfg,
-                             _norm(params["ln_attn"], cfg, x),
-                             positions, causal=causal, cache=cache)
-    x = x + h
+                             _norm(params["ln_attn"], cfg, x, ctx),
+                             positions, causal=causal, cache=cache, ctx=ctx)
+    x = _add(x, h)
     if cross_kv is not None:
         h, _ = attention(params["cross"], cfg,
-                         _norm(params["ln_cross"], cfg, x), positions,
-                         causal=False, cross_kv=cross_kv)
-        x = x + h
-    xn = _norm(params["ln_mlp"], cfg, x)
+                         _norm(params["ln_cross"], cfg, x, ctx), positions,
+                         causal=False, cross_kv=cross_kv, ctx=ctx)
+        x = _add(x, h)
+    xn = _norm(params["ln_mlp"], cfg, x, ctx)
     if "moe" in params:
-        h, aux = moe_apply(params["moe"], cfg, xn)
+        h, aux = moe_apply(params["moe"], cfg, xn,
+                           mesh=None if ctx is None else ctx.mesh)
         if "shared_mlp" in params:
             h = h + mlp(params["shared_mlp"], cfg, xn)
     else:
-        h = mlp(params["mlp"], cfg, xn)
-    return x + h, new_cache, aux
+        h = mlp(params["mlp"], cfg, xn, ctx=ctx)
+    return _add(x, h), new_cache, aux
 
 
 def chunked_ce_loss(logits_fn, x, labels, mask, chunk: int):
@@ -176,7 +233,7 @@ def _cross_at(cross_kv, l):
     """Layer ``l``'s ``(k, v)`` of stacked cross K/V (None without)."""
     if cross_kv is None:
         return None
-    return cross_kv["k"][l], cross_kv["v"][l]
+    return layer_view(cross_kv["k"], l), layer_view(cross_kv["v"], l)
 
 
 @dataclasses.dataclass
@@ -214,7 +271,8 @@ class TransformerLM:
              "ln_f": norm(cfg.d_model, cfg.param_dtype)}
         if not cfg.tie_embeddings:
             p["lm_head"] = {"kernel": ParamSpec(
-                (cfg.d_model, cfg.padded_vocab), cfg.param_dtype, "fan_in")}
+                (cfg.d_model, cfg.padded_vocab), cfg.param_dtype, "fan_in",
+                axes=("embed", "vocab"))}
         if cfg.encoder_layers:
             p["encoder"] = {
                 "blocks": stack_specs(
@@ -224,8 +282,10 @@ class TransformerLM:
         if cfg.n_img_tokens:
             d = cfg.d_model
             p["projector"] = {
-                "w1": dense_spec(d, d, bias=True, dtype=cfg.param_dtype),
-                "w2": dense_spec(d, d, bias=True, dtype=cfg.param_dtype)}
+                "w1": dense_spec(d, d, axes=("embed", "mlp"), bias=True,
+                                 dtype=cfg.param_dtype),
+                "w2": dense_spec(d, d, axes=("mlp", "embed"), bias=True,
+                                 dtype=cfg.param_dtype)}
         return p
 
     def cache_specs(self, batch: int, max_len: int):
@@ -239,24 +299,41 @@ class TransformerLM:
                                                 layer_axis=False)
                     for i in range(self._unit_size())}
         c = {"layers": stack_specs(per_unit, self._n_units()),
-             "pos": ParamSpec((), torch.int32, "zeros")}
+             "pos": ParamSpec((), torch.int32, "zeros", axes=())}
         if cfg.encoder_layers:
             shape = (self._n_units(), batch, cfg.encoder_len,
                      cfg.padded_kv_heads, cfg.resolved_head_dim)
-            c["cross_kv"] = {"k": ParamSpec(shape, torch.bfloat16, "zeros"),
-                             "v": ParamSpec(shape, torch.bfloat16, "zeros")}
+            axes = ("layers", "batch", None, "kv_heads", None)
+            c["cross_kv"] = {
+                "k": ParamSpec(shape, torch.bfloat16, "zeros", axes=axes),
+                "v": ParamSpec(shape, torch.bfloat16, "zeros", axes=axes)}
         return c
 
-    def _embed(self, params, tokens, img_embeds=None):
+    def _mesh(self, ctx) -> bool:
+        return ctx is not None and ctx.mesh is not None
+
+    def _embed(self, params, tokens, img_embeds=None, ctx=None):
         """Token embeddings ``[B, S, d]`` in ``cfg.dtype``; with image
-        embeddings (an image config), their projection placed first."""
+        embeddings (an image config), their projection placed first.
+        Under a mesh the lookup is vocab-parallel: each shard's rows (ids
+        outside its block give zeros) added in float32 on the row's first
+        device, then cast."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens, cfg.dtype)
+        if not self._mesh(ctx):
+            x = embed(params["embed"], tokens, cfg.dtype)
+            if cfg.n_img_tokens and img_embeds is not None:
+                h = _gelu(dense(params["projector"]["w1"], img_embeds,
+                                cfg.dtype))
+                img = dense(params["projector"]["w2"], h, cfg.dtype)
+                x = torch.cat([img, x], 1)  # early fusion: the image first
+            return x
+        x = vocab_embed(ctx, params["embed"]["embedding"],
+                        ctx.split_rows(tokens), cfg.dtype)
         if cfg.n_img_tokens and img_embeds is not None:
-            h = _gelu(dense(params["projector"]["w1"], img_embeds,
-                            cfg.dtype))
-            img = dense(params["projector"]["w2"], h, cfg.dtype)
-            x = torch.cat([img, x], 1)  # early fusion: the image first
+            proj = {"wi": params["projector"]["w1"],
+                    "wo": params["projector"]["w2"]}
+            img = _mlp_mesh(proj, cfg, ctx, ctx.split_rows(img_embeds))
+            x = x.map(lambda row, t: torch.cat([img[row], t], 1))
         return x
 
     def _add_positions(self, x, offset=0):
@@ -265,14 +342,26 @@ class TransformerLM:
         cfg = self.cfg
         if cfg.pos_embed != "sinusoidal":
             return x
+        if isinstance(x, Rows):
+            return x.map(lambda _, t: self._add_positions(t, offset))
         return x + sinusoidal_positions(x.shape[1], cfg.d_model, offset,
                                         device=x.device).to(cfg.dtype)[None]
 
-    def _run_encoder(self, params, memory):
+    def _run_encoder(self, params, memory, ctx=None):
         """whisper's encoder over the stub frame embeddings ``[B, F, d]``:
         sinusoidal positions, the non-causal blocks (each under
         ``cfg.remat_policy``), then the encoder's final norm."""
         cfg = self.cfg
+        if self._mesh(ctx):
+            x = ctx.split_rows(memory).map(
+                lambda _, t: t.to(cfg.dtype) + sinusoidal_positions(
+                    t.shape[1], cfg.d_model, device=t.device)
+                .to(cfg.dtype)[None])
+            for l in range(cfg.encoder_layers):
+                p = layer_view(params["encoder"]["blocks"], l)
+                x = block_apply(p["sub0"], cfg, x, None, causal=False,
+                                ctx=ctx)[0]
+            return _norm(params["encoder"]["ln_f"], cfg, x, ctx)
         x = memory.to(cfg.dtype)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      device=x.device).to(cfg.dtype)[None]
@@ -285,52 +374,80 @@ class TransformerLM:
             x = blk(x, layer_view(params["encoder"]["blocks"], l))
         return _norm(params["encoder"]["ln_f"], cfg, x)
 
-    def _cross_kv_from_memory(self, params, enc_out):
+    def _cross_kv_from_memory(self, params, enc_out, ctx=None):
         """Each decoder layer's cross K/V of the encoder's output, once a
-        request: ``{"k", "v" [n_units, B, F, Hk, Dh]}`` bfloat16."""
+        request: ``{"k", "v" [n_units, B, F, Hk, Dh]}`` bfloat16 (placed by
+        the cache rules under a mesh, each block from its row's
+        column-parallel pieces)."""
         cfg = self.cfg
         ks, vs = [], []
         for l in range(self._n_units()):
             p = layer_view(params["blocks"], l)["sub0"]["cross"]
+            if self._mesh(ctx):
+                from repro_torch.nn.attention import _placed_from_rows
+
+                F_ = next(iter(enc_out.values())).shape[1]
+                shape = (enc_out.batch, F_, cfg.padded_kv_heads,
+                         cfg.resolved_head_dim)
+                axes = ("batch", None, "kv_heads", None)
+                for name, acc in (("wk", ks), ("wv", vs)):
+                    pieces = {row: column_parallel(ctx, row, p[name], x,
+                                                  cfg.dtype)
+                              for row, x in enc_out.items()}
+                    acc.append(_placed_from_rows(ctx, pieces, axes, shape,
+                                                 torch.bfloat16))
+                continue
             ks.append(dense(p["wk"], enc_out, cfg.dtype).to(torch.bfloat16))
             vs.append(dense(p["wv"], enc_out, cfg.dtype).to(torch.bfloat16))
+        if self._mesh(ctx):
+            return {"k": Placed.stack(ks), "v": Placed.stack(vs)}
         return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
-    def _cross(self, params, batch):
+    def _cross(self, params, batch, ctx=None):
         """whisper's cross K/V of ``batch["memory"]`` (None for a
         decoder-only config)."""
         if not self.cfg.encoder_layers:
             return None
         return self._cross_kv_from_memory(
-            params, self._run_encoder(params, batch["memory"]))
+            params, self._run_encoder(params, batch["memory"], ctx), ctx)
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, ctx=None):
+        """The head; under a mesh vocab-parallel (each shard's columns,
+        joined on the row's first device)."""
         cfg = self.cfg
+        if not self._mesh(ctx):
+            if cfg.tie_embeddings:
+                return x @ params["embed"]["embedding"].to(cfg.dtype).T
+            return dense(params["lm_head"], x, cfg.dtype)
+
         if cfg.tie_embeddings:
-            return x @ params["embed"]["embedding"].to(cfg.dtype).T
-        return dense(params["lm_head"], x, cfg.dtype)
+            return vocab_logits(ctx, params["embed"]["embedding"], x,
+                                cfg.dtype, tied=True)
+        return vocab_logits(ctx, params["lm_head"]["kernel"], x, cfg.dtype,
+                            tied=False)
 
     def _unit(self, p, x, positions, cache_u=None, cache_pos=None,
-              xkv=None):
+              xkv=None, ctx=None):
         """One unit's blocks in order: ``(x, {sub: cache}, aux summed over
         the unit)``; ``xkv`` the unit's cross ``(k, v)``."""
         new_cache = {}
-        aux = {"load_balance": torch.zeros((), device=x.device),
-               "router_z": torch.zeros((), device=x.device)}
+        dev = ctx.device(ctx.rows()[0]) if self._mesh(ctx) else x.device
+        aux = {"load_balance": torch.zeros((), device=dev),
+               "router_z": torch.zeros((), device=dev)}
         for i in range(self._unit_size()):
             sub = f"sub{i}"
             cache_in = None
             if cache_u is not None:
                 cache_in = dict(cache_u[sub], pos=cache_pos)
             x, nc, a = block_apply(p[sub], self.cfg, x, positions,
-                                   cache=cache_in, cross_kv=xkv)
+                                   cache=cache_in, cross_kv=xkv, ctx=ctx)
             new_cache[sub] = nc
             for n, v in a.items():
                 aux[n] = aux[n] + v
         return x, new_cache, aux
 
     def _run_blocks(self, params, x, positions, caches=None, cache_pos=None,
-                    cross_kv=None):
+                    cross_kv=None, ctx=None):
         """The units in order.  Returns ``(x, caches, aux)``: with
         ``caches`` (stacked decode KV) each unit's step against its view of
         them, else each unit's full-sequence K/V, both stacked ``[n_units,
@@ -343,24 +460,32 @@ class TransformerLM:
             cache_u = None if caches is None else layer_view(caches, l)
             x, nc, a = self._unit(layer_view(params["blocks"], l), x,
                                   positions, cache_u, cache_pos,
-                                  _cross_at(cross_kv, l))
+                                  _cross_at(cross_kv, l), ctx)
             aux = a if aux is None else {n: aux[n] + a[n] for n in aux}
             for sub, (ks, vs) in kv.items():
                 ks.append(nc[sub]["k"])
                 vs.append(nc[sub]["v"])
-        return x, {sub: {"k": torch.stack(ks), "v": torch.stack(vs)}
+        stack = Placed.stack if self._mesh(ctx) else torch.stack
+        return x, {sub: {"k": stack(ks), "v": stack(vs)}
                    for sub, (ks, vs) in kv.items()}, aux
 
-    def _inputs(self, params, batch):
+    def _inputs(self, params, batch, ctx=None):
         """The full sequence's embeddings (image first, positions added),
         its positions ``[B, S_full]`` and whisper's cross K/V."""
-        x = self._embed(params, batch["tokens"], batch.get("img_embeds"))
-        B, S_full = x.shape[:2]
-        positions = torch.arange(S_full, device=x.device)[None] \
-            .expand(B, S_full)
-        return self._add_positions(x), positions, self._cross(params, batch)
+        x = self._embed(params, batch["tokens"], batch.get("img_embeds"),
+                        ctx)
+        if self._mesh(ctx):
+            positions = x.map(lambda _, t: torch.arange(
+                t.shape[1], device=t.device)[None].expand(t.shape[0],
+                                                          t.shape[1]))
+        else:
+            B, S_full = x.shape[:2]
+            positions = torch.arange(S_full, device=x.device)[None] \
+                .expand(B, S_full)
+        return self._add_positions(x), positions, \
+            self._cross(params, batch, ctx)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, ctx=None):
         """The training loss over ``batch`` (``tokens``, ``labels [B, S]``,
         optional ``loss_mask``; whisper's ``memory``, llava's
         ``img_embeds``): ``(ce + 1e-4 * z [+ the MoE aux losses], {"ce",
@@ -368,42 +493,58 @@ class TransformerLM:
         load_balance / n_units + 1e-3 * router_z / n_units``.  An image
         config's loss is over the text positions only, so its ``tokens``
         must not be empty.  Each unit runs under ``cfg.remat_policy``; the
-        values do not depend on it."""
+        values do not depend on it.  Under a mesh (placed parameters) the
+        blocks run their per-shard bodies without remat, the rows' final
+        states are joined on the mesh's first device and the head is
+        vocab-parallel there."""
         cfg = self.cfg
         S = batch["tokens"].shape[1]
         if cfg.n_img_tokens and S == 0:
             raise ValueError(
                 "tokens must be longer than 0 after the image tokens: the "
                 "loss of an image config is over the text positions only")
-        x, positions, cross = self._inputs(params, batch)
+        x, positions, cross = self._inputs(params, batch, ctx)
+        if self._mesh(ctx):
+            x, _, aux = self._run_blocks(params, x, positions,
+                                         cross_kv=cross, ctx=ctx)
+            lb, rz = aux["load_balance"], aux["router_z"]
+            x = ctx.join_rows(_norm(params["ln_f"], cfg, x, ctx))
+            row0 = ctx.rows()[0]
 
-        def blk(x, p, *xkv):
-            x, _, a = self._unit(p, x, positions, xkv=xkv or None)
-            return x, a["load_balance"], a["router_z"]
+            def logits_fn(xc):
+                return self._logits(params, Rows({row0: xc}, xc.shape[0]),
+                                    ctx)[row0]
+        else:
+            def blk(x, p, *xkv):
+                x, _, a = self._unit(p, x, positions, xkv=xkv or None)
+                return x, a["load_balance"], a["router_z"]
 
-        blk = remat(blk, cfg.remat_policy)
-        lb = rz = torch.zeros((), device=x.device)
-        for l in range(self._n_units()):
-            xkv = _cross_at(cross, l) or ()
-            x, a_lb, a_rz = blk(x, layer_view(params["blocks"], l), *xkv)
-            lb, rz = lb + a_lb, rz + a_rz
-        x = _norm(params["ln_f"], cfg, x)
+            blk = remat(blk, cfg.remat_policy)
+            lb = rz = torch.zeros((), device=x.device)
+            for l in range(self._n_units()):
+                xkv = _cross_at(cross, l) or ()
+                x, a_lb, a_rz = blk(x, layer_view(params["blocks"], l), *xkv)
+                lb, rz = lb + a_lb, rz + a_rz
+            x = _norm(params["ln_f"], cfg, x)
+
+            def logits_fn(xc):
+                return self._logits(params, xc)
         if cfg.n_img_tokens:  # the image positions carry no loss
             x = x[:, -S:]
-        labels = batch["labels"]
+        labels = batch["labels"].to(x.device)
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
-        ce, z = chunked_ce_loss(lambda xc: self._logits(params, xc), x,
-                                labels, mask.float(), cfg.loss_chunk)
+        ce, z = chunked_ce_loss(logits_fn, x, labels, mask.float().to(
+            x.device), cfg.loss_chunk)
         loss = ce + 1e-4 * z
         if cfg.moe:
             loss = loss + 1e-2 * lb / self._n_units() \
                 + 1e-3 * rz / self._n_units()
         return loss, {"ce": ce, "z": z, "load_balance": lb, "router_z": rz}
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, *, ctx=None):
         """Full-sequence forward over ``batch["tokens"] [B, S]`` (after
         llava's ``img_embeds``; with whisper's ``memory``): the last
         position's logits ``[B, Vp]`` and the decode-ready cache (``pos``
@@ -412,33 +553,52 @@ class TransformerLM:
         config that decodes on from it writes slot ``pos % S_full``, over
         the first token, as the reference's does; to keep the whole
         window, copy them into a cache of ``min(max_len, window)``
-        slots."""
+        slots.  Under a mesh the cache comes back placed by the cache
+        rules and the logits whole on the mesh's first device."""
         cfg = self.cfg
-        x, positions, cross = self._inputs(params, batch)
+        x, positions, cross = self._inputs(params, batch, ctx)
         x, layer_caches, _ = self._run_blocks(params, x, positions,
-                                              cross_kv=cross)
-        x = _norm(params["ln_f"], cfg, x)
-        logits = self._logits(params, x[:, -1:])[:, 0]
-        cache = {"layers": layer_caches, "pos": x.shape[1]}
+                                              cross_kv=cross, ctx=ctx)
+        x = _norm(params["ln_f"], cfg, x, ctx)
+        if self._mesh(ctx):
+            S_full = next(iter(x.values())).shape[1]
+            logits = ctx.join_rows(self._logits(
+                params, x.map(lambda _, t: t[:, -1:]), ctx))[:, 0]
+        else:
+            S_full = x.shape[1]
+            logits = self._logits(params, x[:, -1:])[:, 0]
+        cache = {"layers": layer_caches, "pos": S_full}
         if cross is not None:
             cache["cross_kv"] = cross
         return logits, cache
 
-    def decode_step(self, params, cache, tokens: torch.Tensor):
+    def decode_step(self, params, cache, tokens: torch.Tensor, *, ctx=None):
         """tokens ``[B, 1]``; cache ``{"layers", "pos"}`` (and whisper's
         ``cross_kv``) -> ``(logits [B, Vp], new cache)`` with ``pos + 1``
-        (new K/V tensors; the given cache is not changed)."""
+        (new K/V tensors; the given cache is not changed).  Under a mesh
+        the parameters and cache are placed and the logits come back whole
+        on the mesh's first device."""
         cfg = self.cfg
         B = tokens.shape[0]
         pos = int(cache["pos"])
-        x = self._add_positions(embed(params["embed"], tokens, cfg.dtype),
-                                pos)
-        positions = torch.full((B, 1), pos, dtype=torch.int64,
-                               device=x.device)
+        if self._mesh(ctx):
+            x = self._add_positions(self._embed(params, tokens, ctx=ctx),
+                                    pos)
+            positions = x.map(lambda _, t: torch.full(
+                (t.shape[0], 1), pos, dtype=torch.int64, device=t.device))
+        else:
+            x = self._add_positions(embed(params["embed"], tokens,
+                                          cfg.dtype), pos)
+            positions = torch.full((B, 1), pos, dtype=torch.int64,
+                                   device=x.device)
         x, new_layers, _ = self._run_blocks(params, x, positions,
-                                         caches=cache["layers"],
-                                         cache_pos=pos,
-                                         cross_kv=cache.get("cross_kv"))
-        x = _norm(params["ln_f"], cfg, x)
-        logits = self._logits(params, x)[:, -1]
+                                            caches=cache["layers"],
+                                            cache_pos=pos,
+                                            cross_kv=cache.get("cross_kv"),
+                                            ctx=ctx)
+        x = _norm(params["ln_f"], cfg, x, ctx)
+        if self._mesh(ctx):
+            logits = ctx.join_rows(self._logits(params, x, ctx))[:, -1]
+        else:
+            logits = self._logits(params, x)[:, -1]
         return logits, dict(cache, layers=new_layers, pos=pos + 1)

@@ -27,8 +27,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .layers import dense, dense_spec, rmsnorm, rmsnorm_spec, rope
-from .module import ParamSpec
+from .layers import (Rows, assemble, column_parallel, dense, dense_spec,
+                     rmsnorm, rmsnorm_spec, rope)
+from .module import ParamSpec, Placed, TablePlacement
 
 __all__ = ["attention_spec", "attention", "init_cache_specs", "NEG_INF"]
 
@@ -45,10 +46,14 @@ def attention_spec(cfg, d_in: Optional[int] = None, dtype=torch.float32):
     d = d_in or cfg.d_model
     Hp, Hk, Dh = cfg.padded_heads, cfg.padded_kv_heads, cfg.resolved_head_dim
     p = {
-        "wq": dense_spec(d, (Hp, Dh), bias=cfg.qkv_bias, dtype=dtype),
-        "wk": dense_spec(d, (Hk, Dh), bias=cfg.qkv_bias, dtype=dtype),
-        "wv": dense_spec(d, (Hk, Dh), bias=cfg.qkv_bias, dtype=dtype),
-        "wo": {"kernel": ParamSpec((Hp, Dh, cfg.d_model), dtype, "fan_in")},
+        "wq": dense_spec(d, (Hp, Dh), axes=("embed", "heads", None),
+                         bias=cfg.qkv_bias, dtype=dtype),
+        "wk": dense_spec(d, (Hk, Dh), axes=("embed", "kv_heads", None),
+                         bias=cfg.qkv_bias, dtype=dtype),
+        "wv": dense_spec(d, (Hk, Dh), axes=("embed", "kv_heads", None),
+                         bias=cfg.qkv_bias, dtype=dtype),
+        "wo": {"kernel": ParamSpec((Hp, Dh, cfg.d_model), dtype, "fan_in",
+                                   axes=("heads", None, "embed"))},
     }
     if cfg.qk_norm:
         p["q_norm"] = rmsnorm_spec(Dh, dtype)
@@ -134,7 +139,7 @@ def _causal_mask(q_pos, kv_pos, window: int):
 
 def attention(params, cfg, x: torch.Tensor, positions: torch.Tensor,
               causal: bool = True, cache: Optional[Dict] = None,
-              cross_kv=None) -> Tuple[torch.Tensor, Dict]:
+              cross_kv=None, *, ctx=None) -> Tuple[torch.Tensor, Dict]:
     """Returns ``(out [B, S, d], cache)``.
 
     Full-sequence when ``cache is None`` (the returned cache holds this
@@ -143,7 +148,18 @@ def attention(params, cfg, x: torch.Tensor, positions: torch.Tensor,
     write position), returning the written ``{"k", "v"}`` (new tensors; the
     given ones are not changed).  ``cross_kv=(k, v)`` (``[B, T, Hk, Dh]``)
     attends the queries of ``x`` to them instead, unmasked, and returns
-    ``cache`` as given."""
+    ``cache`` as given.
+
+    Under a ``ctx`` with a mesh, ``x`` and ``positions`` are
+    ``nn.layers.Rows`` and the parameters, ``cache`` and ``cross_kv`` are
+    placed (``nn.module.Placed``): q/k/v are column-parallel over the
+    shards' heads, each shard attends over its heads (a replicated KV
+    head selected per shard) and its KV blocks (a time-sharded cache's
+    blocks merged by log-sum-exp in time order), ``wo`` is row-parallel;
+    the cache comes back placed (a prefill's by the cache rules)."""
+    if ctx is not None and ctx.mesh is not None:
+        return _attention_mesh(params, cfg, ctx, x, positions, causal, cache,
+                               cross_kv)
     B, S, _ = x.shape
     if cross_kv is not None:
         q = dense(params["wq"], x, cfg.dtype)
@@ -202,7 +218,274 @@ def init_cache_specs(cfg, batch: int, max_len: int, n_layers: int,
     Hk, Dh = cfg.padded_kv_heads, cfg.resolved_head_dim
     T = min(max_len, cfg.window) if cfg.window else max_len
     shape = (batch, T, Hk, Dh)
+    axes = ("batch", "cache_seq", "kv_heads", None)
     if layer_axis:
         shape = (n_layers, *shape)
-    return {"k": ParamSpec(shape, CACHE_DTYPE, "zeros"),
-            "v": ParamSpec(shape, CACHE_DTYPE, "zeros")}
+        axes = ("layers", *axes)
+    return {"k": ParamSpec(shape, CACHE_DTYPE, "zeros", axes=axes),
+            "v": ParamSpec(shape, CACHE_DTYPE, "zeros", axes=axes)}
+
+
+# ----------------------------------------------------------------------------
+# Under a mesh: per-shard bodies (``nn.layers.Ctx``)
+# ----------------------------------------------------------------------------
+
+
+def _time_blocks(kv, b_lo: int, b_hi: int, h_lo: int, h_hi: int, dev):
+    """The blocks of a placed ``[B, T, Hk, Dh]`` K or V that hold batch
+    rows ``[b_lo, b_hi)`` and KV heads ``[h_lo, h_hi)``, one a time block,
+    in time order: ``[(t0, t1, block narrowed to those rows and heads)]``
+    (a block on ``dev`` preferred)."""
+    found = {}
+    for c, t in kv.unique():
+        (b0, b1), (t0, t1), (k0, k1), _ = kv.ranges(c)
+        if not (b0 <= b_lo and b_hi <= b1 and k0 <= h_lo and h_hi <= k1):
+            continue
+        blk = t.narrow(0, b_lo - b0, b_hi - b_lo) \
+            .narrow(2, h_lo - k0, h_hi - h_lo)
+        if t0 not in found or t.device == dev:
+            found[t0] = (t0, t1, blk)
+    return [found[t0] for t0 in sorted(found)]
+
+
+def _heads_of(j: int, n: int, Hp: int, rep: int):
+    """Shard ``j``'s query heads ``[q0, q1)`` of ``n``, the KV heads
+    ``[k0, k1)`` they read, and each query head's index among those."""
+    size = Hp // n
+    q0, q1 = j * size, (j + 1) * size
+    k0, k1 = q0 // rep, (q1 - 1) // rep + 1
+    idx = [(q0 + i) // rep - k0 for i in range(size)]
+    return q0, q1, k0, k1, idx
+
+
+def _select(t, idx, dev):
+    """The KV heads ``idx`` of ``t [B, T, h, Dh]`` on ``dev`` (the GQA
+    repeat of a shard's heads)."""
+    t = t.to(dev)
+    return t.index_select(2, torch.tensor(idx, device=dev))
+
+
+def _partial_softmax(q, k, v, mask):
+    """One time block's share of the attention, in float32: the running
+    max ``m [B, H, S, 1]``, the sum ``l`` of ``exp(s - m)`` and the
+    unnormalised output ``o [B, S, H, Dh]``."""
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) \
+        * (q.shape[-1] ** -0.5)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    return m, e.sum(-1, keepdim=True), torch.einsum("bhst,bthd->bshd", e,
+                                                    v.float())
+
+
+def _merge_partials(parts, dev, dtype):
+    """The time blocks' shares merged by log-sum-exp, in block order, on
+    ``dev``."""
+    parts = [tuple(t.to(dev) for t in p) for p in parts]
+    m = parts[0][0]
+    for p in parts[1:]:
+        m = torch.maximum(m, p[0])
+    l = o = None
+    for pm, pl, po in parts:
+        w = torch.exp(pm - m)                       # [B, H, S, 1]
+        wl = pl * w
+        wo = po * w.squeeze(-1).transpose(1, 2)[..., None]
+        l = wl if l is None else l + wl
+        o = wo if o is None else o + wo
+    return (o / l.squeeze(-1).transpose(1, 2)[..., None]).to(dtype)
+
+
+def _attend_blocks(cfg, q, blocks_k, blocks_v, idx, dev, mask_fn):
+    """Shard-local attention of ``q [B, S, h, Dh]`` (on ``dev``) over the
+    time blocks of its KV: one block attends as the unsharded dense path
+    does; several give partial softmaxes merged in time order."""
+    if len(blocks_k) == 1:
+        t0, t1, k = blocks_k[0]
+        v = blocks_v[0][2]
+        return _sdpa_dense(cfg, q, _select(k, idx, dev), _select(v, idx, dev),
+                           mask_fn(t0, t1))
+    parts = []
+    for (t0, t1, k), (_, _, v) in zip(blocks_k, blocks_v):
+        bdev = k.device
+        parts.append(_partial_softmax(q.to(bdev), _select(k, idx, bdev),
+                                      _select(v, idx, bdev),
+                                      mask_fn(t0, t1).to(bdev)))
+    return _merge_partials(parts, dev, cfg.dtype)
+
+
+def _project_mesh(params, cfg, ctx, row, x, positions, qkv: bool = True):
+    """Column-parallel q (and k, v) pieces of one row, qk-norm then rope
+    (rope where ``positions`` is given)."""
+    def finish(pieces, name):
+        out = []
+        for r, t in pieces:
+            if cfg.qk_norm:
+                t = rmsnorm({"scale": params[name]["scale"].local(
+                    ctx.coord(row, 0)).to(t.device)}, t, cfg.norm_eps)
+            if cfg.pos_embed == "rope" and positions is not None:
+                t = rope(t, positions.to(t.device), cfg.rope_theta)
+            out.append((r, t))
+        return out
+
+    q = finish(column_parallel(ctx, row, params["wq"], x, cfg.dtype),
+               "q_norm")
+    if not qkv:
+        return q
+    k = finish(column_parallel(ctx, row, params["wk"], x, cfg.dtype),
+               "k_norm")
+    return q, k, column_parallel(ctx, row, params["wv"], x, cfg.dtype)
+
+
+def _write_cache(ctx, kv, pieces_by_row, slot: int, S: int):
+    """A new placed K or V: each block holding positions ``[slot, slot +
+    S)`` is copied with the new rows written (assembled from the row's
+    column-parallel pieces on the block's device); the other blocks are
+    kept as they are."""
+    new = {}
+    for c, t in kv.unique():
+        (b0, b1), (t0, t1), (k0, k1), _ = kv.ranges(c)
+        s0, s1 = max(slot, t0), min(slot + S, t1)
+        if s0 >= s1:
+            new[id(t)] = t
+            continue
+        row = ctx.coord(c, 0)
+        r0, r1 = ctx.batch_block(row, kv.shape[0])
+        kn = assemble(pieces_by_row[row], k0, k1, t.device, 2)
+        kn = kn.narrow(0, b0 - r0, b1 - b0)
+        blk = t.clone()
+        blk[:, s0 - t0:s1 - t0] = kn[:, s0 - slot:s1 - slot].to(t.dtype)
+        new[id(t)] = blk
+    return Placed(kv.placement, kv.shape, kv.dtype,
+                  {c: new[id(t)] for c, t in kv.blocks.items()})
+
+
+def _placed_from_rows(ctx, pieces_by_row, axes, shape, dtype):
+    """A placed activation-made leaf (a prefill's K/V, whisper's cross
+    K/V) of logical ``axes``, each block assembled from its row's
+    column-parallel pieces (head dim 2) and narrowed to its batch and
+    time block."""
+    placement = TablePlacement(ctx.mesh, ctx.pspec(axes, shape))
+    rows = {}
+    for row in ctx.rows():
+        rows.setdefault(ctx.batch_block(row, shape[0]), row)
+
+    def block(index, dev):
+        (b0, b1), (t0, t1), (k0, k1), _ = placement.block_ranges(shape,
+                                                                 index)
+        (r0, r1), row = next(((r, w) for r, w in rows.items()
+                              if r[0] <= b0 and b1 <= r[1]))
+        t = assemble(pieces_by_row[row], k0, k1, dev, 2)
+        return t.narrow(0, b0 - r0, b1 - b0).narrow(1, t0, t1 - t0) \
+            .to(dtype).contiguous()
+
+    return Placed.build(placement, shape, dtype, block)
+
+
+def _attention_mesh(params, cfg, ctx, xs, positions, causal, cache,
+                    cross_kv):
+    """:func:`attention` under a mesh: ``xs`` (a ``nn.layers.Rows``) and
+    ``positions`` map each row to its batch block (on the row's first
+    device); returns the rows' outputs and the cache (placed)."""
+    Hp, Hk, Dh = cfg.padded_heads, cfg.padded_kv_heads, \
+        cfg.resolved_head_dim
+    rep = Hp // Hk
+    wq, wo = params["wq"]["kernel"], params["wo"]["kernel"]
+    nq = ctx.splits(wq, 1)
+    if ctx.splits(wo, 0) != nq:
+        raise ValueError("wq and wo cut their heads differently")
+    B = xs.batch
+    outs = {}
+    new_cache = cache
+    kv_rows = {}
+    q_rows = {}
+    for row, x in xs.items():
+        if cross_kv is not None:
+            q_rows[row] = _project_mesh(params, cfg, ctx, row, x, None,
+                                        qkv=False)
+        else:
+            q_rows[row], kp, vp = _project_mesh(
+                params, cfg, ctx, row, x,
+                None if positions is None else positions[row])
+            kv_rows[row] = (kp, vp)
+    S = next(iter(xs.values())).shape[1]
+    if cross_kv is None and cache is not None:
+        T = cache["k"].shape[1]
+        idx = int(cache["pos"])
+        slot = idx % T if cfg.window else min(idx, T - S)
+        new_cache = {
+            "k": _write_cache(ctx, cache["k"],
+                              {r: kv[0] for r, kv in kv_rows.items()},
+                              slot, S),
+            "v": _write_cache(ctx, cache["v"],
+                              {r: kv[1] for r, kv in kv_rows.items()},
+                              slot, S)}
+    for row, x in xs.items():
+        b0, b1 = ctx.batch_block(row, B)
+        pos = None if positions is None else positions[row]
+        pieces = []
+        for j, ((q0, q1), q) in enumerate(q_rows[row]):
+            dev = q.device
+            _, _, k0, k1, idx_h = _heads_of(j, nq, Hp, rep)
+            if cross_kv is not None:
+                bk = _time_blocks(cross_kv[0], b0, b1, k0, k1, dev)
+                bv = _time_blocks(cross_kv[1], b0, b1, k0, k1, dev)
+                k, v = _select(bk[0][2], idx_h, dev), \
+                    _select(bv[0][2], idx_h, dev)
+                T = k.shape[1]
+                if S * T >= _CHUNK_THRESHOLD:
+                    zeros = torch.zeros((b1 - b0, T), dtype=torch.int64,
+                                        device=dev)
+                    out = _sdpa_chunked(cfg, q, k, v, pos.to(dev), zeros,
+                                        causal=False)
+                else:
+                    out = _sdpa_dense(cfg, q, k, v, None)
+            elif cache is None:
+                kp, vp = kv_rows[row]
+                k = _select(assemble(kp, k0, k1, dev, 2), idx_h, dev)
+                v = _select(assemble(vp, k0, k1, dev, 2), idx_h, dev)
+                p = None if pos is None else pos.to(dev)
+                if causal and S * S >= _CHUNK_THRESHOLD:
+                    out = _sdpa_chunked(cfg, q, k, v, p, p, causal=True)
+                else:
+                    mask = _causal_mask(p, p, cfg.window) if causal else None
+                    out = _sdpa_dense(cfg, q, k, v, mask)
+            else:
+                bk = _time_blocks(new_cache["k"], b0, b1, k0, k1, dev)
+                bv = _time_blocks(new_cache["v"], b0, b1, k0, k1, dev)
+                idx = int(cache["pos"])
+
+                def mask_fn(t0, t1, p=pos.to(dev)):
+                    kv_pos = torch.arange(t0, t1, device=dev)[None]
+                    if cfg.window:
+                        return (kv_pos <= idx)[:, None, None, :].expand(
+                            p.shape[0], 1, S, t1 - t0)
+                    return _causal_mask(p, kv_pos.expand(p.shape[0],
+                                                         t1 - t0), 0)
+
+                out = _attend_blocks(cfg, q, bk, bv, idx_h, dev, mask_fn)
+            pieces.append(((q0, q1), out))
+        outs[row] = pieces
+    if cross_kv is None and cache is None:
+        shape = (B, S, Hk, Dh)
+        axes = ("batch", "cache_seq", "kv_heads", None)
+        new_cache = {
+            "k": _placed_from_rows(ctx, {r: kv[0] for r, kv in
+                                         kv_rows.items()}, axes, shape,
+                                   CACHE_DTYPE),
+            "v": _placed_from_rows(ctx, {r: kv[1] for r, kv in
+                                         kv_rows.items()}, axes, shape,
+                                   CACHE_DTYPE)}
+    ys = _wo_mesh(cfg, ctx, wo, outs)
+    return ys, new_cache
+
+
+def _wo_mesh(cfg, ctx, wo, outs):
+    """The row-parallel output projection: each shard's heads against its
+    ``wo`` block."""
+    ys = {}
+    for row, pieces in outs.items():
+        parts = [torch.einsum("bshd,hde->bse", t.to(cfg.dtype).float(),
+                              ctx.weight(wo, row, j).to(cfg.dtype).float())
+                 for j, (_, t) in enumerate(pieces)]
+        ys[row] = ctx.reduce(parts, row, cfg.dtype)
+    return ys

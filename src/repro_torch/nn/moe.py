@@ -16,8 +16,9 @@ the order of the reference's ``y.at[flat_tok].add(contrib)``: no atomics,
 so a step gives the same bits every time.
 
 The reference's expert-parallel schedules (sequence-sharded all-to-all and
-the replicated psum) need a mesh; the port has none yet (ROADMAP Queue 1
-#7), and :func:`moe_apply` raises when given one.
+the replicated psum) are not ported yet (ROADMAP Queue 1 #9):
+:func:`moe_apply` raises when given a mesh, and so does a transformer
+under a sharding context whose blocks hold an MoE unit.
 """
 
 from __future__ import annotations
@@ -38,10 +39,14 @@ def moe_spec(cfg, dtype=torch.float32):
     m = cfg.moe
     E, d, f = m.padded_experts, cfg.d_model, m.d_ff_expert
     return {
-        "router": {"kernel": ParamSpec((d, E), dtype, "fan_in")},
-        "w_gate": ParamSpec((E, d, f), dtype, "fan_in"),
-        "w_up": ParamSpec((E, d, f), dtype, "fan_in"),
-        "w_down": ParamSpec((E, f, d), dtype, "fan_in"),
+        "router": {"kernel": ParamSpec((d, E), dtype, "fan_in",
+                                       axes=(None, None))},
+        "w_gate": ParamSpec((E, d, f), dtype, "fan_in",
+                            axes=("expert", "embed", None)),
+        "w_up": ParamSpec((E, d, f), dtype, "fan_in",
+                          axes=("expert", "embed", None)),
+        "w_down": ParamSpec((E, f, d), dtype, "fan_in",
+                            axes=("expert", None, "embed")),
     }
 
 
@@ -135,7 +140,7 @@ def moe_apply(params, cfg, x: torch.Tensor, *,
     if mesh is not None:
         raise NotImplementedError(
             "the expert-parallel MoE schedules are not ported yet (ROADMAP "
-            "Queue 1: expert parallelism)")
+            "Queue 1 #9: expert parallelism)")
     B, S, d = x.shape
     y, aux = _moe_body(params, cfg, x.reshape(-1, d))
     return y.reshape(B, S, d), aux

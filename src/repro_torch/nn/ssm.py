@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from repro_torch.core import (QuantSpec, build_dwconv_tables, fake_quant,
                               pcilt_depthwise_conv1d, pcilt_linear,
                               quantize_with_stats)
-from .layers import dense, dense_spec, rmsnorm, rmsnorm_spec
-from .module import ParamSpec
+from .layers import (Rows, assemble, column_parallel, dense, dense_spec,
+                     rmsnorm, rmsnorm_spec)
+from .module import ParamSpec, TablePlacement
 
 __all__ = ["mamba_spec", "mamba_block", "mamba_decode", "ssm_cache_specs",
            "build_pcilt_conv", "PROJ_NAMES"]
@@ -127,18 +128,19 @@ def mamba_spec(cfg, dtype=torch.float32):
     d_inner, H, conv_ch = _dims(cfg)
     GN = s.n_groups * s.d_state
     return {
-        "wz": dense_spec(d, d_inner, dtype=dtype),
-        "wx": dense_spec(d, d_inner, dtype=dtype),
-        "wB": dense_spec(d, GN, dtype=dtype),
-        "wC": dense_spec(d, GN, dtype=dtype),
-        "wdt": dense_spec(d, H, dtype=dtype),
-        "conv_w": ParamSpec((s.conv_kernel, conv_ch), dtype, "fan_in"),
-        "conv_b": ParamSpec((conv_ch,), dtype, "zeros"),
-        "A_log": ParamSpec((H,), dtype, "zeros"),
-        "dt_bias": ParamSpec((H,), dtype, "zeros"),
-        "D": ParamSpec((H,), dtype, "ones"),
+        "wz": dense_spec(d, d_inner, axes=("embed", "mlp"), dtype=dtype),
+        "wx": dense_spec(d, d_inner, axes=("embed", "mlp"), dtype=dtype),
+        "wB": dense_spec(d, GN, axes=("embed", None), dtype=dtype),
+        "wC": dense_spec(d, GN, axes=("embed", None), dtype=dtype),
+        "wdt": dense_spec(d, H, axes=("embed", None), dtype=dtype),
+        "conv_w": ParamSpec((s.conv_kernel, conv_ch), dtype, "fan_in",
+                            axes=(None, "mlp")),
+        "conv_b": ParamSpec((conv_ch,), dtype, "zeros", axes=("mlp",)),
+        "A_log": ParamSpec((H,), dtype, "zeros", axes=(None,)),
+        "dt_bias": ParamSpec((H,), dtype, "zeros", axes=(None,)),
+        "D": ParamSpec((H,), dtype, "ones", axes=(None,)),
         "norm": rmsnorm_spec(d_inner, dtype),
-        "wo": dense_spec(d_inner, d, dtype=dtype),
+        "wo": dense_spec(d_inner, d, axes=("mlp", "embed"), dtype=dtype),
     }
 
 
@@ -276,13 +278,21 @@ def _finish(params, cfg, y, xh, z, proj=None, with_stats: bool = False):
 
 
 def mamba_block(params, cfg, x: torch.Tensor, return_state: bool = False,
-                pcilt=None, return_calib: bool = False):
+                pcilt=None, return_calib: bool = False, *, ctx=None):
     """Full-sequence Mamba2 block (training, prefill, calibration).
     ``x [B, T, d] -> [B, T, d]``; ``return_state`` adds the decode-ready
     ``{"conv", "ssd"}`` state, ``pcilt`` (from :func:`build_pcilt_conv`)
     routes the conv frontend through the fused PCILT kernel, and
     ``return_calib`` adds the absmax of the conv input and of the ``wo``
-    input."""
+    input.  Under a ``ctx`` with a mesh (``x`` a ``nn.layers.Rows``, the
+    parameters placed) the block runs its per-shard body (the state comes
+    back placed by the cache rules; no PCILT conv, no calibration)."""
+    if ctx is not None and ctx.mesh is not None:
+        if pcilt is not None or return_calib:
+            raise NotImplementedError(
+                "a PCILT conv or a calibration pass under a mesh")
+        out, state, _ = _mamba_mesh(params, cfg, ctx, x)
+        return (out, state) if return_state else out
     s = cfg.ssm
     d_inner, H, _ = _dims(cfg)
     z = dense(params["wz"], x, cfg.dtype)
@@ -314,14 +324,21 @@ def mamba_block(params, cfg, x: torch.Tensor, return_state: bool = False,
 
 
 def mamba_decode(params, cfg, x: torch.Tensor, state: Dict, pcilt=None,
-                 with_stats: bool = False):
+                 with_stats: bool = False, *, ctx=None):
     """One-token step.  ``x [B, 1, d]``; ``state {conv [B, k-1, C],
     ssd [B, H, N, P]}``.  ``pcilt`` is the per-layer view of a PCILT bundle
     (conv tables, scale, spec, health bit and the ``"proj"`` view).
 
     Returns ``(out, new_state)``, plus the stats dict
     ``{"in"|"conv"|"out": (count, ratio)}`` with ``with_stats``: ``wx``
-    stands in for the five projections that share the block-input grid."""
+    stands in for the five projections that share the block-input grid.
+    Under a ``ctx`` with a mesh ``x`` is a ``nn.layers.Rows``, the
+    parameters and ``state`` are placed, and the step runs its per-shard
+    body (the counters summed over the rows, the ratios their max)."""
+    if ctx is not None and ctx.mesh is not None:
+        out, new_state, stats = _mamba_mesh(params, cfg, ctx, x, state,
+                                            pcilt, with_stats)
+        return (out, new_state, stats) if with_stats else (out, new_state)
     s = cfg.ssm
     d_inner, H, _ = _dims(cfg)
     proj = None if pcilt is None else pcilt.get("proj")
@@ -373,7 +390,205 @@ def ssm_cache_specs(cfg, batch: int, n_layers: int):
     _, H, conv_ch = _dims(cfg)
     return {
         "conv": ParamSpec((n_layers, batch, s.conv_kernel - 1, conv_ch),
-                          torch.float32, "zeros"),
+                          torch.float32, "zeros",
+                          axes=("layers", "batch", None, "mlp")),
         "ssd": ParamSpec((n_layers, batch, H, s.d_state, s.head_dim),
-                         torch.float32, "zeros"),
+                         torch.float32, "zeros",
+                         axes=("layers", "batch", "ssm_heads", None, None)),
     }
+
+
+# ----------------------------------------------------------------------------
+# Under a mesh: per-shard bodies (``nn.layers.Ctx``)
+# ----------------------------------------------------------------------------
+
+
+def _proj_mesh(params, name, x, cfg, proj, ctx, row, with_stats):
+    """One projection of one row: the table fetch on the full activation
+    (the tables stay where the bundle holds them; the demoted oracle joins
+    the dense weight), or the dense weight column-parallel.  Returns
+    ``(pieces, count, ratio)``."""
+    if proj is not None and name in proj["tables"]:
+        tdev = proj["tables"][name].device
+        oracle = proj.get("path", "fused") == "dense_fq" or \
+            not proj.get("ok", True)
+        pw = {name: {"kernel": params[name]["kernel"].join(tdev)}} \
+            if oracle else {}
+        r = _proj(pw, name, x.to(tdev), cfg, proj, with_stats=with_stats)
+        out, count, ratio = r if with_stats else (r, *_zero_stats(tdev))
+        return [((0, out.shape[-1]), out)], count, ratio
+    pieces = column_parallel(ctx, row, params[name], x, cfg.dtype)
+    return (pieces, *_zero_stats(x.device))
+
+
+def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
+                with_stats: bool = False):
+    """:func:`mamba_decode` (``state`` given) or the full-sequence
+    :func:`mamba_block` (``state`` None, returning the decode-ready state)
+    under a mesh.  ``xs`` (a ``nn.layers.Rows``) holds the rows' normed
+    inputs.
+
+    Per row: ``wz``/``wx`` column-parallel over the ``"mlp"`` columns (or
+    the bundle's table fetches on the full activation), the conv per
+    channel shard of ``conv_w``/``conv_b`` and the conv state (the fused
+    table fetch of a PCILT bundle on the joined window, the tables where
+    the bundle holds them; each shard's new state from its own window),
+    the recurrence per ``"ssm_heads"`` shard of the SSD state, the gated
+    norm over the shards' ``d_inner`` columns (their float32 sums of
+    squares added in order on the row's first device), and ``wo``
+    row-parallel (or its table fetch).  Returns ``(outs, new_state,
+    stats)``: stats ``{"in"|"conv"|"out": (count summed over the rows,
+    ratio max over the rows)}``."""
+    s = cfg.ssm
+    d_inner, H, C = _dims(cfg)
+    GN = s.n_groups * s.d_state
+    P, k = s.head_dim, s.conv_kernel
+    proj = None if pcilt is None else pcilt.get("proj")
+    decode = state is not None
+    if pcilt is not None and not decode:
+        raise NotImplementedError("a full-sequence PCILT conv under a mesh")
+    B = xs.batch
+    T = next(iter(xs.values())).shape[1]
+    conv_w = params["conv_w"]
+    nc = ctx.splits(conv_w, 1)
+    if decode:
+        nh = ctx.splits(state["ssd"], 1)
+        if ctx.splits(state["conv"], 2) != nc:
+            raise ValueError("the conv state and conv_w cut their channels "
+                             "differently")
+        ssd_place, conv_place = state["ssd"].placement, \
+            state["conv"].placement
+    else:
+        ssd_place = TablePlacement(ctx.mesh, ctx.pspec(
+            ("batch", "ssm_heads", None, None), (B, H, s.d_state, P)))
+        conv_place = TablePlacement(ctx.mesh, ctx.pspec(
+            ("batch", None, "mlp"), (B, k - 1, C)))
+        nh = ctx.tp if ssd_place.spec[1] == "model" else 1
+    sat = {g: [] for g in ("in", "conv", "out")}
+    outs, conv_new, ssd_new = {}, {}, {}
+    for row, x in xs.items():
+        dev0 = ctx.device(row)
+        z, _, _ = _proj_mesh(params, "wz", x, cfg, proj, ctx, row, False)
+        xi, cnt, rat = _proj_mesh(params, "wx", x, cfg, proj, ctx, row,
+                                  with_stats)
+        sat["in"].append((cnt, rat))
+        Bi = _proj_mesh(params, "wB", x, cfg, proj, ctx, row, False)[0]
+        Ci = _proj_mesh(params, "wC", x, cfg, proj, ctx, row, False)[0]
+        dt = _proj_mesh(params, "wdt", x, cfg, proj, ctx, row, False)[0]
+        xbc = xi + [((d_inner + a, d_inner + b), t) for (a, b), t in Bi] \
+            + [((d_inner + GN + a, d_inner + GN + b), t) for (a, b), t in Ci]
+        # the conv, per channel shard
+        size = C // nc
+        windows, conv_y = [], []
+        for j in range(nc):
+            c0, c1 = j * size, (j + 1) * size
+            dj = ctx.device(row, j)
+            seg = assemble(xbc, c0, c1, dj, -1)
+            if decode:
+                st = state["conv"].local(ctx.coord(row, j))
+                window = torch.cat([st.to(seg.dtype), seg], 1)
+                conv_new[(row, j)] = window[:, -(k - 1):]
+                windows.append(window[:, -k:])
+            else:
+                conv_new[(row, j)] = seg[:, -(k - 1):].float()
+            if pcilt is not None:
+                continue
+            w = ctx.weight(conv_w, row, j).to(seg.dtype)
+            if decode:
+                y = torch.einsum("bkc,kc->bc", window[:, -k:], w)[:, None]
+            else:
+                pad = F.pad(seg, (0, 0, k - 1, 0))
+                y = sum(pad[:, i:i + T] * w[i][None, None] for i in range(k))
+            y = y + ctx.weight(params["conv_b"], row, j).to(seg.dtype)
+            conv_y.append(((c0, c1), y))
+        if pcilt is not None:  # the fused table fetch of the joined window
+            win = torch.cat([w.to(dev0) for w in windows], -1)
+            lp = {"conv_w": conv_w.join(dev0),
+                  "conv_b": params["conv_b"].join(dev0)}
+            r = _conv1d(lp, cfg, win[:, 1:], win[:, :1], pcilt=pcilt,
+                        with_stats=with_stats)
+            y, cnt, rat = (r[0], r[2], r[3]) if with_stats else \
+                (r[0], *_zero_stats(dev0))
+            sat["conv"].append((cnt, rat))
+            conv_y = [((0, C), y)]
+        else:
+            sat["conv"].append(_zero_stats(dev0))
+        conv_y = [(r, F.silu(t)) for r, t in conv_y]
+        Bf = assemble(conv_y, d_inner, d_inner + GN, dev0, -1)
+        Cf = assemble(conv_y, d_inner + GN, d_inner + 2 * GN, dev0, -1)
+        dtf = assemble(dt, 0, H, dev0, -1).float()
+        dtf = F.softplus(dtf + ctx.weight(params["dt_bias"], row, 0)
+                         .to(dev0).float())
+        A = -torch.exp(ctx.weight(params["A_log"], row, 0).to(dev0).float())
+        rep = H // s.n_groups
+        Dp = ctx.weight(params["D"], row, 0)
+        # the recurrence, per head shard
+        hs = H // nh
+        ys = []
+        for j in range(nh):
+            h0, h1 = j * hs, (j + 1) * hs
+            dj = ctx.device(row, j)
+            xh = assemble(conv_y, h0 * P, h1 * P, dj, -1) \
+                .reshape(x.shape[0], T, hs, P)
+            Bm = Bf.to(dj).reshape(x.shape[0], T, s.n_groups, s.d_state) \
+                .repeat_interleave(rep, 2)[:, :, h0:h1]
+            Cm = Cf.to(dj).reshape(x.shape[0], T, s.n_groups, s.d_state) \
+                .repeat_interleave(rep, 2)[:, :, h0:h1]
+            dtj, Aj = dtf[..., h0:h1].to(dj), A[h0:h1].to(dj)
+            if decode:
+                dt1 = dtj[:, 0]
+                h = state["ssd"].local(ctx.coord(row, j)).float()
+                h = h * torch.exp(dt1 * Aj[None])[..., None, None] + \
+                    torch.einsum("bhn,bhp->bhnp", Bm[:, 0].float()
+                                 * dt1[..., None], xh[:, 0].float())
+                y = torch.einsum("bhn,bhnp->bhp", Cm[:, 0].float(),
+                                 h)[:, None]
+                ssd_new[(row, j)] = h
+            else:
+                y, h = _ssd_chunked(xh, dtj, Aj, Bm, Cm, s.chunk)
+                ssd_new[(row, j)] = h.float()
+            y = y.to(cfg.dtype)
+            y = y + Dp[h0:h1].to(dj, y.dtype)[None, None, :, None] * xh
+            y = y.reshape(x.shape[0], T, hs * P)
+            zj = assemble(z, h0 * P, h1 * P, dj, -1)
+            ys.append(((h0 * P, h1 * P), y * F.silu(zj.to(y.dtype))))
+        # the gated norm over the shards' d_inner columns
+        sq = [(y.float() * y.float()).sum(-1, keepdim=True) for _, y in ys]
+        total = sq[0].to(dev0)
+        for q in sq[1:]:
+            total = total + q.to(dev0)
+        inv = torch.rsqrt(total / d_inner + cfg.norm_eps)
+        scale = ctx.weight(params["norm"]["scale"], row, 0).float()
+        ys = [((a, b), (y.float() * inv.to(y.device)
+                        * scale[a:b].to(y.device)).to(y.dtype))
+              for (a, b), y in ys]
+        # the output projection
+        if proj is not None and "wo" in proj["tables"]:
+            tdev = proj["tables"]["wo"].device
+            yf = assemble(ys, 0, d_inner, tdev, -1)
+            (o,), cnt, rat = _proj_mesh(params, "wo", yf, cfg, proj, ctx, row,
+                                        with_stats)
+            outs[row] = o[1].to(dev0)
+            sat["out"].append((cnt, rat))
+        else:
+            wo = params["wo"]["kernel"]
+            no = ctx.splits(wo, 0)
+            rs = d_inner // no
+            parts = [assemble(ys, j * rs, (j + 1) * rs, ctx.device(row, j),
+                              -1).to(cfg.dtype).float()
+                     @ ctx.weight(wo, row, j).to(cfg.dtype).float()
+                     for j in range(no)]
+            outs[row] = ctx.reduce(parts, row, cfg.dtype)
+            sat["out"].append(_zero_stats(dev0))
+    new_state = {
+        "conv": ctx.from_shards(conv_place, (B, k - 1, C),
+                                state["conv"].dtype if decode
+                                else torch.float32, conv_new),
+        "ssd": ctx.from_shards(ssd_place, (B, H, s.d_state, P),
+                               state["ssd"].dtype if decode
+                               else torch.float32, ssd_new)}
+    dev = ctx.device(ctx.rows()[0])
+    stats = {g: (sum(c.to(dev) for c, _ in v),
+                 torch.stack([r.to(dev) for _, r in v]).max())
+             for g, v in sat.items()}
+    return Rows(outs, B), new_state, stats

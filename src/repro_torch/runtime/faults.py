@@ -119,7 +119,16 @@ class FaultInjector:
     def poison(self, x: torch.Tensor, kind: str = "nan",
                n: int = 1) -> torch.Tensor:
         """Plant ``n`` NaN (or Inf) values at random positions of a float
-        tensor; returns the poisoned copy."""
+        tensor; returns the poisoned copy.  A placed leaf
+        (``nn.module.Placed``) is copied and its first block poisoned."""
+        if hasattr(x, "blocks"):  # a placed leaf: poison one block
+            a = x.clone()
+            c, blk = a.unique()[0]
+            bad = self.poison(blk, kind, n)
+            for cc, t in list(a.blocks.items()):
+                if t is blk:
+                    a.blocks[cc] = bad
+            return a
         a = x.detach().clone().contiguous()
         flat = a.view(-1)
         n = min(max(n, 1), flat.numel())

@@ -29,7 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _port_specs(jspecs):
     if isinstance(jspecs, JSpec):
         return TSpec(tuple(jspecs.shape), init=jspecs.init,
-                     scale=jspecs.scale)
+                     scale=jspecs.scale, axes=tuple(jspecs.axes))
     return {k: _port_specs(v) for k, v in jspecs.items()}
 
 

@@ -4,10 +4,10 @@ For every public function and class that a module of ``repro_torch`` shares
 (by name) with its counterpart in ``repro``, and every public method of such
 a class, a positional call must bind the same parameters in both packages.
 The rule, after setting aside the reference parameters the port leaves out
-by design (``ctx``, ``axes``, and ``key`` where the port takes a ``seed`` or
-``generator`` in its place), and ``mesh``/``mesh_axis`` of the names whose
-mesh is still queued (:data:`MESH_QUEUED`: the dense ``Engine`` and steps,
-the expert-parallel MoE):
+by design (``ctx`` and ``axes``, keyword-only in the port, and ``key``
+where the port takes a ``seed`` or ``generator`` in its place), and
+``mesh``/``mesh_axis`` of the names whose mesh is still queued
+(:data:`MESH_QUEUED`: the train step, the expert-parallel MoE):
 
 * the port's positional parameters are a prefix of the reference's, in the
   reference's order;
@@ -16,8 +16,8 @@ the expert-parallel MoE):
   would break the prefix).
 
 Then one positional call each of ``Engine``, ``pcilt_linear`` and
-``ModelConfig`` in both packages, showing the same meaning (and
-``pcilt_linear``'s positional ``mesh``).
+``ModelConfig`` in both packages, showing the same meaning (and the
+positional ``mesh`` of ``pcilt_linear`` and ``Engine``).
 """
 
 import importlib
@@ -33,13 +33,10 @@ import repro_torch
 
 #: reference parameters the port leaves out by design
 BY_DESIGN = {"ctx", "axes"}
-#: the shared names whose ``mesh``/``mesh_axis`` wait for the port's
-#: ``Ctx``/``row_parallel`` (the dense engine and steps) or for expert
-#: parallelism (``moe_apply``)
-MESH_QUEUED = ("repro_torch.launch.serve.Engine",
-               "repro_torch.launch.steps.make_decode_step",
-               "repro_torch.launch.steps.make_prefill_step",
-               "repro_torch.launch.steps.make_train_step",
+#: the shared names whose ``mesh``/``mesh_axis`` wait for the training
+#: distribution (``make_train_step``) or for expert parallelism
+#: (``moe_apply``)
+MESH_QUEUED = ("repro_torch.launch.steps.make_train_step",
                "repro_torch.nn.moe.moe_apply")
 #: the port's stand-ins for the reference's PRNG ``key``
 KEY_STANDINS = {"seed", "generator"}
@@ -195,6 +192,35 @@ def test_engine_positional_max_len():
     assert tuple(tk.shape) == tuple(jk.shape)
     assert tk.shape[1] == 2 and tk.shape[2] == 64
     assert teng.slots == jeng.slots == 2
+
+
+def test_engine_positional_mesh():
+    """``Engine(cfg, 64, 2, mesh)``: the fourth positional argument is the
+    mesh in both packages; the port's places its KV cache on it (its
+    ``kv_heads`` over the two model devices) and serves the unsharded
+    engine's tokens."""
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.launch.serve import Engine as JEngine
+    from repro_torch.configs import get_smoke_config as t_smoke
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import Engine as TEngine, make_requests
+    from repro_torch.nn.module import Placed
+
+    jeng = JEngine(j_smoke("qwen3-0.6b"), 64, 2, None)
+    assert jeng.mesh is None
+    mesh = make_host_mesh(1, 2, devices=["cpu"] * 2)
+    teng = TEngine(t_smoke("qwen3-0.6b"), 64, 2, mesh, device="cpu")
+    assert teng.mesh is mesh
+    k = teng.cache["layers"]["sub0"]["k"]
+    assert isinstance(k, Placed) and tuple(k.shape) == (2, 2, 64, 2, 32)
+    assert k.spec == (None, "data", None, "model", None)
+    base = TEngine(t_smoke("qwen3-0.6b"), 64, 2, device="cpu")
+    cfg = t_smoke("qwen3-0.6b")
+    got = make_requests(cfg, 2, 4, 0, None)
+    want = make_requests(cfg, 2, 4, 0, None)
+    teng.run(got)
+    base.run(want)
+    assert [r.out for r in got] == [r.out for r in want]
 
 
 def test_pcilt_linear_positional_plan():
