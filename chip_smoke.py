@@ -177,9 +177,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 14. training (``launch.train.run``, AdamW, the seeded corpus, the
     ``Supervisor``): qwen3-0.6b ``--full`` at full width and depth for 6
     steps (set-up, median step, tokens/s, one step's device time and
-    launches, peak memory, each loss); one async save and restore of its
-    whole state (~7.2 GB: seconds of the snapshot, the write, the sha256,
-    the restore; bit-equal); mamba2-130m at full width and depth for 5
+    launches, peak memory, each loss; its state's save and restore is
+    phase 23's, on a mesh); mamba2-130m at full width and depth for 5
     steps; the restart contract at full width with the depth cut to 2
     layers (a fault after a checkpoint: restored, ``restarts=1``, and the
     uninterrupted run's state bit for bit); one smoke train step of each
@@ -200,15 +199,15 @@ Phases (any failure exits non-zero, and no result line is printed):
     the aux losses printed; one smoke train step card against CPU;
 17. the hybrid family at zamba2-7b's published width and depth (81 Mamba2
     blocks at d 3584, 14 shared-attention applications): ``prefill`` of
-    1 x 192 and 4 x 192 tokens against a decode replay (5e-2), 8
-    ``decode_step``s at B = 4 (times, device time, launches, peak), the
-    ``Engine``'s refusal, training cut to 12 layers, the smoke step card
-    against CPU;
+    4 x 64 tokens against a decode replay (5e-2), a 4 x 192 prefill and 8
+    ``decode_step``s at B = 4 (times, device time, launches, peak; phase
+    23's reference), the ``Engine``'s refusal, training cut to 12 layers,
+    the smoke step card against CPU;
 18. the audio family at whisper-medium's published width and depth (24
     encoder and 24 decoder layers, d 1024, 16 heads, d_ff 4096, vocab
     51865, 1500 seeded stub frames; seeded weights drawn on the card,
-    bfloat16 compute): ``prefill`` of 1 x 192 and 4 x 192 text tokens
-    against a decode replay from a 256-slot cache holding the prefill's
+    bfloat16 compute): ``prefill`` of 4 x 192 text tokens against a
+    decode replay from a 256-slot cache holding the prefill's
     ``cross_kv`` (2e-2), 8 ``decode_step``s at B = 4 (times, device time,
     launches, busy share, peak), a 3072-token prefill through the chunked
     self- and cross-attention against the dense path (2e-2), training at
@@ -261,7 +260,25 @@ Phases (any failure exits non-zero, and no result line is printed):
     paired mamba2-130m engine on (1, 4) against the unsharded one (tokens,
     2e-4 on one step), ``pipeline_apply`` over 4 stages of 7 blocks; each
     step's host ms, device ms and device launches;
-23. prints the kernels' JSON line, then as the last line
+23. the Mamba-based families and training on a mesh, every mesh device
+    this card: zamba2-7b at full width and depth on (1, 2) and (1, 4)
+    from phase 17's weights and prompt, a 192-token prefill and 8 decode
+    steps fed phase 17's tokens, each step's logits against phase 17's
+    unsharded ones (``ZAMBA_MESH_TOL``, the argmax equal or a near-tie),
+    bytes a device and each step's host ms, device ms and launches beside
+    phase 17's; mamba2-130m's paired conversion
+    ``convert_mamba_decode(ctx=)`` on parameters placed on (1, 4) against
+    the unsharded conversion (the scales' distance in ulps, the records, a
+    step within 2e-4, its counters equal); one layer's full-sequence
+    ``mamba_block(pcilt=, ctx=)`` on (1, 4) at full width, kernel 2 once
+    a channel shard, each launch exact against its plain version (its time
+    goes into the kernels line: ``mesh_shard_us``); training on meshes
+    (qwen3-0.6b ``--full`` on (2, 2), mamba2-130m on (1, 2), zamba2-7b at
+    ``ZAMBA_TRAIN_LAYERS`` on (1, 2)) against the unsharded runs' first
+    losses (1e-2), one ``explicit_rs`` step against the default one, and
+    the (2, 2) state saved and restored onto (1, 4) by
+    ``restore(shardings=)``, bit-equal;
+24. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -454,6 +471,26 @@ KERNEL_HW = (192, 256)
 MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
 KVSHARD_MESH = (1, 4)
 PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 4, 64
+#: phase 17's replay prompt (the prefill against a decode replay; phase
+#: 23's meshes take its 192-token prompt); phase 23: zamba2's serving
+#: meshes and their tolerance against phase 17's unsharded logits (bf16
+#: compute over 81 blocks: zamba2's own rule, ``ZAMBA_REPLAY_TOL``; the
+#: mesh's prefill differs from the unsharded one by ~4 bfloat16 ulps of
+#: the largest logit, as much as phase 17's replay does), the mesh of the
+#: conversion under a ctx and of the full-sequence PCILT block, the
+#: training meshes, their steps and the elastic restore's mesh
+ZAMBA_REPLAY_PROMPT = 64
+ZAMBA_MESHES = ((1, 2), (1, 4))
+ZAMBA_MESH_TOL = ZAMBA_REPLAY_TOL
+CONVERT_MESH = (1, 4)
+TRAIN_MESHES = {"qwen3-0.6b": (2, 2), "mamba2-130m": (1, 2),
+                "zamba2-7b": (1, 2)}
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_TOL = 1e-2
+ELASTIC_MESH = (1, 4)
+#: what phase 17 hands to phase 23 (its unsharded zamba2 run), off the
+#: JSON report
+_HANDOFF = {}
 
 
 class SmokeFailure(Exception):
@@ -3785,11 +3822,18 @@ def step_profile(torch, fn):
     return dev_s, dev_n, [(k[:60], c, t) for k, (c, t) in top]
 
 
-def train_run(torch, cfg, args, what, box=None):
+def _to_card(tree):
+    """A tree of host tensors copied to the card."""
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    return tree.cuda()
+
+
+def train_run(torch, cfg, args, what, box=None, mesh=None):
     """``launch.train.run`` with its output captured (from the parameters
     in ``box``, a one-element list emptied into the call, so that nothing
-    here holds them; else drawn by the run); returns the result, the output
-    and the peak memory."""
+    here holds them; else drawn by the run; on ``mesh`` when given);
+    returns the result, the output and the peak memory."""
     import io
 
     from repro_torch.launch import train
@@ -3798,7 +3842,8 @@ def train_run(torch, cfg, args, what, box=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(buf):
-        res = train.run(cfg, args, params=box.pop() if box else None)
+        res = train.run(cfg, args, params=box.pop() if box else None,
+                        mesh=mesh)
     torch.cuda.synchronize()
     text = buf.getvalue()
     for line in text.splitlines():
@@ -3815,10 +3860,8 @@ def training(torch, ops, report):
        8, for 6 steps: set-up seconds, the median of the last 4 steps,
        tokens/s, one step's device time and device launches, peak memory
        and each step's loss (finite, below 2 ln(vocab));
-    2. one async save and restore of that run's whole state (parameters
-       and both moments, ~7.2 GB) through ``Checkpointer``: GB, the host
-       snapshot's seconds, the write's, the sha256's, the restore's, and
-       every leaf restored bit-equal;
+    2. (the save and restore of the whole state is phase 23's: the same
+       run on a (2, 2) mesh, restored onto (1, 4));
     3. mamba2-130m at full width and depth (24 layers, d 768) for 5 steps:
        its step and losses;
     4. the restart contract at full width with the depth cut to 2 layers:
@@ -3835,10 +3878,7 @@ def training(torch, ops, report):
     import shutil
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.checkpoint import Checkpointer
-    from repro_torch.checkpoint import checkpoint as ck
     from repro_torch.data import SyntheticLM
-    from repro_torch.interop import tree_leaves
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model
     from repro_torch.nn.module import count_params, materialize
@@ -3849,10 +3889,14 @@ def training(torch, ops, report):
     shutil.rmtree(root, ignore_errors=True)
     ops.reset_launches()
 
-    # -- 1. qwen3-0.6b at full width and depth
+    # -- 1. qwen3-0.6b at full width and depth; its seed-0 weights (the
+    # trainer's own draw) kept on the host for phase 23's mesh run
     cfg = get_config("qwen3-0.6b")
     args = train_args(steps=6, ckpt_dir=os.path.join(root, "q"))
-    res, _, peak = train_run(torch, cfg, args, "qwen3-0.6b")
+    _HANDOFF["qwen3_init"] = materialize(build_model(cfg).param_specs(), 0,
+                                         device="cpu")
+    res, _, peak = train_run(torch, cfg, args, "qwen3-0.6b",
+                             box=[_to_card(_HANDOFF["qwen3_init"])])
     losses, secs = res["losses"], res["step_seconds"]
     med = statistics.median(secs[2:])
     tokens = args.batch * args.seq
@@ -3863,7 +3907,7 @@ def training(torch, ops, report):
             f"qwen3-0.6b training losses {losses}")
     ocfg = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps),
                        weight_decay=0.01)
-    step = make_train_step(cfg, ocfg)
+    step = make_train_step(cfg, None, ocfg)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.batch)
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(6).items()}
@@ -3886,42 +3930,9 @@ def training(torch, ops, report):
                          "busy_share": dev_s / med, "peak_bytes": peak,
                          "losses": losses, "top_kernels": top}
 
-    # -- 2. the whole state through one async save and restore
-    state = {"params": params, "opt": opt}
-    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
-    free = shutil.disk_usage(ROOT).free
-    require(free > 2.5 * nbytes, f"{free / 1e9:.1f} GB free on disk for a "
-            f"{nbytes / 1e9:.1f} GB checkpoint")
-    ckpt = Checkpointer(os.path.join(root, "full"), keep=1)
-    t0 = time.perf_counter()
-    ckpt.save_async(6, state, extra={"arch": cfg.name})
-    snap_s = time.perf_counter() - t0
-    ckpt.wait()
-    write_s = time.perf_counter() - t0
-    npz = os.path.join(root, "full", "step_00000006", "shard_p0.npz")
-    t0 = time.perf_counter()
-    ck._sha256(npz)
-    sha_s = time.perf_counter() - t0
-    skeleton = {"params": params, "opt": opt}
-    t0 = time.perf_counter()
-    got_step, got, _ = ckpt.restore_latest(skeleton, device="cuda")
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    same = got_step == 6 and all(
-        torch.equal(a, b) for a, b in zip(tree_leaves(got),
-                                          tree_leaves(state)))
-    log(f"checkpoint of the full state ({nbytes / 1e9:.2f} GB, "
-        f"{len(tree_leaves(state))} leaves): host snapshot {snap_s:.1f} s, "
-        f"written in {write_s:.1f} s (snapshot included), sha256 "
-        f"{sha_s:.1f} s, restore {restore_s:.1f} s (sha256 included); "
-        f"restored bit-equal {same}")
-    require(same, "the restored state differs from the saved one")
-    out["checkpoint"] = {"bytes": nbytes, "snapshot_s": snap_s,
-                         "write_s": write_s, "sha256_s": sha_s,
-                         "restore_s": restore_s, "equal": same,
-                         "disk_free_bytes": free}
-    del got, state, skeleton, params, opt, res, batch
-    shutil.rmtree(os.path.join(root, "full"), ignore_errors=True)
+    # the whole state's save and restore: phase 23 (the (2, 2) state,
+    # restored elastically onto (1, 4))
+    del params, opt, res, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3987,7 +3998,7 @@ def training(torch, ops, report):
         for dev in ("cuda", "cpu"):
             p = materialize(build_model(scfg).param_specs(), 0, device=dev)
             b = {k: torch.from_numpy(v).to(dev) for k, v in sb.items()}
-            _, st, m = make_train_step(scfg, probe)(
+            _, st, m = make_train_step(scfg, None, probe)(
                 p, adamw_init(p, probe), b)
             runs[dev] = (float(m["loss"]), float(m["grad_norm"]),
                          {k: v.cpu() for k, v in _flat(st["m"]).items()})
@@ -4180,7 +4191,8 @@ def _card_vs_cpu_train_step(torch, arch, out):
     for dev in ("cuda", "cpu"):
         p = materialize(build_model(scfg).param_specs(), 0, device=dev)
         b = {k: torch.from_numpy(v).to(dev) for k, v in sb.items()}
-        _, _, m = make_train_step(scfg, probe)(p, adamw_init(p, probe), b)
+        _, _, m = make_train_step(scfg, None, probe)(p, adamw_init(p, probe),
+                                                     b)
         runs[dev] = {k: float(v) for k, v in m.items()}
     g, c = runs["cuda"], runs["cpu"]
     log(f"{arch} smoke train step, card against CPU: loss {g['loss']:.5f} / "
@@ -4456,15 +4468,16 @@ def hybrid_family(torch, ops, report):
     """zamba2-7b at its published width and depth (81 Mamba2 blocks at d
     3584, 14 shared-attention applications over 2 parameter sets on 7168
     wide, vocab 32000; seeded float32 weights drawn on the card once,
-    bfloat16 compute): ``prefill`` of 192 tokens at B = 1 and of 4 x 192,
-    each against a decode replay of the same prompts from an empty cache
-    (the last logits within ``ZAMBA_REPLAY_TOL`` of the largest, argmax
-    equal or a near-tie); 8 ``make_decode_step``
-    steps at B = 4 (each step's time, one step's device time and launches,
-    peak memory); the ``Engine``'s refusal; training cut to
-    ``ZAMBA_TRAIN_LAYERS`` (2 segments, both shared sets) from the same
-    weights; one smoke train step on the card against the CPU.  Returns
-    the path's launches (none)."""
+    bfloat16 compute): ``prefill`` of 4 x ``ZAMBA_REPLAY_PROMPT`` tokens
+    against a decode replay of the same prompts from an empty cache (the
+    last logits within ``ZAMBA_REPLAY_TOL`` of the largest, argmax equal
+    or a near-tie); a 4 x 192 prefill and 8 ``make_decode_step`` steps
+    at B = 4 (each step's time, one step's device time and launches, peak
+    memory), whose prompt, tokens and logits phase 23 holds its meshes
+    to; the ``Engine``'s refusal; training cut to ``ZAMBA_TRAIN_LAYERS``
+    (2 segments, both shared sets) from the same weights; one smoke train
+    step on the card against the CPU.  Returns the path's launches
+    (none)."""
     from repro_torch.configs import get_config
     from repro_torch.interop import tree_leaves
     from repro_torch.launch.serve import Engine
@@ -4499,36 +4512,40 @@ def hybrid_family(torch, ops, report):
     prefill = make_prefill_step(cfg)
     step = make_decode_step(cfg)
     out["replay"] = {}
-    for b in (1, B):
-        prompt = torch.randint(0, cfg.vocab, (b, REPLAY_PROMPT),
-                               generator=gen).cuda()
-        with torch.no_grad():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pre, _ = prefill(params, {"tokens": prompt})
-            torch.cuda.synchronize()
-            pre_s = time.perf_counter() - t0
-            cache = materialize(model.cache_specs(b, 256), 0, device="cuda")
-            cache["pos"] = 0
-            t0 = time.perf_counter()
-            for t in range(REPLAY_PROMPT):
-                logits, cache = step(params, cache, prompt[:, t:t + 1])
-            torch.cuda.synchronize()
-            rep_s = time.perf_counter() - t0
-        err = _logits_agree(torch, f"zamba2 prefill of {b} x "
-                            f"{REPLAY_PROMPT} against its decode replay",
-                            pre[:, :cfg.vocab], logits[:, :cfg.vocab],
-                            near_tie=True, rel=ZAMBA_REPLAY_TOL)
-        out["replay"][b] = {"prefill_s": pre_s, "replay_s": rep_s,
-                            "max_abs_err": err}
-        log(f"  prefill {pre_s * 1e3:.1f} ms; replay {REPLAY_PROMPT} steps "
-            f"{rep_s:.1f} s")
-        del cache, pre, logits
+    prompt = torch.randint(0, cfg.vocab, (B, ZAMBA_REPLAY_PROMPT),
+                           generator=gen).cuda()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre, _ = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        cache = materialize(model.cache_specs(B, 256), 0, device="cuda")
+        cache["pos"] = 0
+        t0 = time.perf_counter()
+        for t in range(ZAMBA_REPLAY_PROMPT):
+            logits, cache = step(params, cache, prompt[:, t:t + 1])
+        torch.cuda.synchronize()
+        rep_s = time.perf_counter() - t0
+    err = _logits_agree(torch, f"zamba2 prefill of {B} x "
+                        f"{ZAMBA_REPLAY_PROMPT} against its decode replay",
+                        pre[:, :cfg.vocab], logits[:, :cfg.vocab],
+                        near_tie=True, rel=ZAMBA_REPLAY_TOL)
+    out["replay"][B] = {"prefill_s": pre_s, "replay_s": rep_s,
+                        "max_abs_err": err, "prompt": ZAMBA_REPLAY_PROMPT}
+    log(f"  prefill {pre_s * 1e3:.1f} ms; replay {ZAMBA_REPLAY_PROMPT} steps "
+        f"{rep_s:.1f} s")
+    del cache, pre, logits
     # 8 decode steps at B = 4 from a 192-token prefill's cache
     with torch.no_grad():
         prompt = torch.randint(0, cfg.vocab, (B, REPLAY_PROMPT),
                                generator=gen).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         logits, cache = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        seen = [logits[:, :cfg.vocab].float().cpu()]
         torch.cuda.reset_peak_memory_stats()
         secs, toks = [], []
         for _ in range(8):
@@ -4539,9 +4556,12 @@ def hybrid_family(torch, ops, report):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             toks.append(tok[:, 0].tolist())
+            seen.append(logits[:, :cfg.vocab].float().cpu())
         tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
         dev_s, dev_n, top = step_profile(
             torch, lambda: step(params, cache, tok))
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(cache) if torch.is_tensor(t))
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(secs)
     log(f"zamba2 decode at B = {B}: steps "
@@ -4554,7 +4574,14 @@ def hybrid_family(torch, ops, report):
             "zamba2 decode: non-finite logits")
     out["decode"] = {"step_seconds": secs, "median_step_s": med,
                      "step_device_s": dev_s, "step_device_launches": dev_n,
-                     "peak_bytes": peak, "tokens": toks, "top": top}
+                     "peak_bytes": peak, "tokens": toks, "top": top,
+                     "prefill_s": pre_s}
+    # phase 23 holds its meshes to this run (kept off the JSON report)
+    _HANDOFF["zamba2"] = {"prompt": prompt.cpu(), "logits": seen,
+                          "tokens": toks, "prefill_s": pre_s,
+                          "median_step_s": med, "step_device_s": dev_s,
+                          "step_device_launches": dev_n,
+                          "param_bytes": 4 * n, "cache_bytes": cache_bytes}
     del cache, logits, prompt
     gc.collect()
     torch.cuda.empty_cache()
@@ -4646,8 +4673,8 @@ def audio_family(torch, ops, report):
     and GELU, sinusoidal positions; 1500 seeded stub frames; seeded
     float32 weights drawn on the card once, bfloat16 compute):
 
-    * ``prefill`` of 192 text tokens with the frames at B = 1 and B = 4,
-      each against a decode replay of the same tokens from a
+    * ``prefill`` of 192 text tokens with the frames at B = 4 against a
+      decode replay of the same tokens from a
       ``WHISPER_CACHE``-slot cache holding the prefill's ``cross_kv`` (the
       last logits within 2e-2 of the largest, argmax equal or a
       near-tie); then 8 ``make_decode_step`` steps at B = 4 from the
@@ -4680,7 +4707,7 @@ def audio_family(torch, ops, report):
     prefill = make_prefill_step(cfg)
     step = make_decode_step(cfg)
     out["replay"] = {}
-    for b in (1, B):
+    for b in (B,):
         batch = {"tokens": torch.randint(0, V, (b, REPLAY_PROMPT),
                                          generator=gen).cuda(),
                  "memory": frames(b)}
@@ -5899,6 +5926,513 @@ def mesh_serving(torch, ops, report):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 23: the Mamba-based families and training on a mesh
+# ----------------------------------------------------------------------------
+
+
+def _placed_draw(torch, specs, seed, mesh, rules=None):
+    """``device_params(specs, seed)`` placed on ``mesh`` leaf by leaf, each
+    whole leaf dropped as soon as its blocks exist, so the whole tree and
+    the placed one are never both resident beyond one leaf."""
+    from repro_torch.nn.module import Placed, shardings
+
+    whole = device_params(torch, specs, seed)
+    places = shardings(specs, mesh, rules)
+
+    def walk(tree, pl):
+        out = {}
+        for k in list(tree):
+            v = tree.pop(k)
+            out[k] = walk(v, pl[k]) if isinstance(v, dict) \
+                else Placed.place(v, pl[k])
+            del v
+        return out
+
+    return walk(whole, places)
+
+
+def _joined(t):
+    from repro_torch.nn.module import Placed
+
+    return t.join() if isinstance(t, Placed) else t
+
+
+def _mesh_zamba2(torch, report, out):
+    """(a): zamba2-7b at full width and depth on each of
+    ``ZAMBA_MESHES``: phase 17's weights (seed 500) drawn and placed leaf
+    by leaf, its 4 x 192 prompt prefilled and its 8 tokens fed, each
+    step's logits against phase 17's unsharded ones (``ZAMBA_MESH_TOL``,
+    the argmax equal or a near-tie); bytes a device of parameters and
+    cache, the prefill's and the steps' host ms, a step's device ms and
+    device launches, the peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    hand = _HANDOFF.get("zamba2")
+    require(hand is not None, "phase 17's unsharded zamba2 run is missing")
+    cfg = get_config("zamba2-7b")
+    model = build_model(cfg)
+    V = cfg.vocab
+    rec = {"unsharded": {k: hand[k] for k in (
+        "prefill_s", "median_step_s", "step_device_s", "step_device_launches",
+        "param_bytes", "cache_bytes")}}
+    for shape in ZAMBA_MESHES:
+        tag = f"({shape[0]}, {shape[1]})"
+        mesh = _card_host_mesh(torch, shape)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = _placed_draw(torch, model.param_specs(), 500, mesh)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        prefill = make_prefill_step(cfg, mesh)
+        step = make_decode_step(cfg, mesh)
+        errs, secs = [], []
+        with torch.no_grad():
+            prompt = hand["prompt"].cuda()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            errs.append(_logits_agree(
+                torch, f"zamba2 {tag} prefill of {B} x {REPLAY_PROMPT}",
+                logits[:, :V], hand["logits"][0].cuda(), near_tie=True,
+                rel=ZAMBA_MESH_TOL))
+            for i, fed in enumerate(hand["tokens"]):
+                tok = torch.tensor(fed, device="cuda")[:, None]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = step(params, cache, tok)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                errs.append(_logits_agree(
+                    torch, f"zamba2 {tag} decode step {i}", logits[:, :V],
+                    hand["logits"][i + 1].cuda(), near_tie=True,
+                    rel=ZAMBA_MESH_TOL))
+            tok = logits[:, :V].argmax(-1)[:, None]
+            timed = _mesh_timed(torch, lambda: step(params, cache, tok),
+                                f"zamba2 {tag} decode step")
+        pgb, cgb = _per_device_gb(params), _per_device_gb(cache)
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(secs)
+        log(f"zamba2-7b on {tag}: placed in {place_s:.1f} s; a device holds "
+            f"{pgb:.3f} GB of parameters (whole {hand['param_bytes'] / 1e9:.3f})"
+            f" and {cgb:.4f} GB of cache (whole "
+            f"{hand['cache_bytes'] / 1e9:.4f}); prefill {pre_s * 1e3:.1f} ms "
+            f"(unsharded {hand['prefill_s'] * 1e3:.1f}); steps "
+            + ", ".join(f"{x * 1e3:.1f}" for x in secs)
+            + f" ms (median {med * 1e3:.1f}, unsharded "
+            f"{hand['median_step_s'] * 1e3:.1f}); device "
+            f"{timed['device_ms']:.3f} ms in {timed['device_launches']} "
+            f"launches (unsharded {hand['step_device_s'] * 1e3:.3f} ms in "
+            f"{hand['step_device_launches']}); peak {peak / 2**30:.2f} GiB; "
+            f"max |d| {max(errs):.4e}")
+        rec[str(shape)] = {"param_gb_per_device": pgb,
+                           "cache_gb_per_device": cgb, "place_s": place_s,
+                           "prefill_s": pre_s, "step_seconds": secs,
+                           "median_step_s": med, "timed_step": timed,
+                           "peak_bytes": peak, "max_abs_err": errs}
+        del params, cache, logits, prompt, step, prefill
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["zamba2"] = rec
+
+
+def _mesh_convert(torch, ops, out):
+    """(b): mamba2-130m's paired full-width conversion
+    ``convert_mamba_decode(ctx=)`` on parameters placed on
+    ``CONVERT_MESH`` (calibrated through the per-shard bodies) against the
+    unsharded conversion: the scales (their largest distance in float32
+    ulps), the conv scale, the integrity records, and one B = 4 step of
+    each, the mesh's within 2e-4 of the unsharded largest logit with its
+    counters equal.  Returns the step's kernel launches."""
+    import numpy as np
+
+    from repro_torch.core.serving import convert_mamba_decode
+    from repro_torch.launch.steps import make_ctx
+    from repro_torch.nn.module import materialize, place, shardings
+
+    cfg, params, whole = _mamba_bundle(torch, True)
+    model = whole.model
+    mesh = _card_host_mesh(torch, CONVERT_MESH)
+    ctx = make_ctx(mesh, None, decode=True)
+    placed = place(params, shardings(model.param_specs(), mesh))
+    calib = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 16)))
+    t = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = convert_mamba_decode(model, placed, calib, ctx=ctx, paired=True,
+                               head="shared", timings=t, device="cuda")
+    conv_s = time.perf_counter() - t0
+    ws, gs = whole.pcilt["proj"]["scales"], dec.pcilt["proj"]["scales"]
+    ulps = 0
+    for k in ws:
+        a, b = ws[k].float().numpy(), gs[k].float().numpy()
+        ulps = max(ulps, int(np.abs(a.view(np.int32).astype(np.int64)
+                                    - b.view(np.int32).astype(np.int64))
+                             .max()))
+    rel = max(float(((gs[k] - ws[k]).abs() / ws[k].abs()).max())
+              for k in ws)
+    conv_same = dec.pcilt["scale"] == whole.pcilt["scale"]
+    records = dec.pcilt["integrity"] == whole.pcilt["integrity"]
+    rng = np.random.default_rng(5)
+    cache = materialize(model.cache_specs(B), 5, device="cuda")
+    for leaf in cache["layers"].values():
+        leaf.copy_(torch.from_numpy(0.1 * rng.normal(
+            size=tuple(leaf.shape)).astype(np.float32)))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).cuda()
+    pc = place(cache, shardings(model.cache_specs(B), mesh))
+    with torch.no_grad():
+        want, _, wst = whole.step(params, cache, tok, with_stats=True)
+        ops.reset_launches()
+        got, _, gst = dec.step(placed, pc, tok, with_stats=True)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-4 * float(want.float().abs().max())
+    counts = all(torch.equal(gst[g]["count"], wst[g]["count"])
+                 for g in ("in", "conv", "out"))
+    log(f"mamba2-130m convert_mamba_decode(ctx=) on {CONVERT_MESH} "
+        f"(placed parameters, paired, act_bits 2): {conv_s:.1f} s "
+        f"({', '.join(f'{k} {v:.2f}' for k, v in t.items())}); projection "
+        f"scales within {ulps} float32 ulps of the unsharded conversion's "
+        f"(rel {rel:.2e}), conv scale equal {conv_same}, integrity records "
+        f"equal {records}; a step max |d| {err:.3e} (tol {tol:.3e}), "
+        f"counters equal {counts}, launches {launches}")
+    require(rel <= 1e-4, f"the conversion under a ctx moved its scales by "
+            f"{rel:.2e}")
+    require(err <= tol and counts, "the conversion under a ctx serves other "
+            "logits or counters than the unsharded one")
+    require(launches == {"gemv_paired_stacked": 144, "dwconv1d": 24,
+                         "shared_gemv": 1},
+            f"the mesh step of the converted bundle launched {launches}")
+    out["convert"] = {"mesh": CONVERT_MESH, "seconds": conv_s,
+                      "timings": t, "scale_ulps": ulps, "scale_rel": rel,
+                      "conv_scale_equal": conv_same,
+                      "records_equal": records, "step_max_abs_err": err,
+                      "step_tol": tol, "counters_equal": counts,
+                      "launches": launches}
+    del dec, whole, params, placed, cache, pc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_pcilt_block(torch, ops, out):
+    """(c): one mamba2-130m layer's full-sequence ``mamba_block(pcilt=,
+    return_calib=True, ctx=)`` on ``CONVERT_MESH`` at full width (phase
+    9's [4, 2048, 768] input and 4-bit conv tables built per channel
+    shard, [448, 65536] a device): kernel 2 once a channel shard (CAUSAL,
+    the tiled design), each launch against its plain version on its own
+    block (outputs and counters exact), the counters summed and maxed
+    into the unsharded signal's, the block within 2e-4 of the unsharded
+    block's largest output, the absmaxes equal; each launch's device
+    time (over the launches its profile saw).  Returns the block's
+    launches."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PCILTConfig
+    from repro_torch.core.quantization import QuantSpec, scale_from_amax
+    from repro_torch.launch.steps import make_ctx
+    from repro_torch.nn import ssm
+    from repro_torch.nn.layers import dense
+    from repro_torch.nn.module import Placed, materialize, place, shardings
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              pcilt=PCILTConfig(act_bits=4, group=2),
+                              dtype=torch.float32)
+    k = cfg.ssm.conv_kernel
+    params = materialize(ssm.mamba_spec(cfg), 21, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(B, CONV_T, cfg.d_model, generator=gen, device="cuda")
+    mesh = _card_host_mesh(torch, CONVERT_MESH)
+    ctx = make_ctx(mesh)
+    placed = place(params, shardings(ssm.mamba_spec(cfg), mesh))
+    seen = []
+    real = ssm.pcilt_depthwise_conv1d
+
+    def spy(xs, w, spec, scale, **kw):
+        res = real(xs, w, spec, scale, **kw)
+        seen.append((xs, kw["tables"], spec, scale, res))
+        return res
+
+    with torch.no_grad():
+        _, calib = ssm.mamba_block(params, cfg, x, return_calib=True)
+        scale = float(scale_from_amax(calib["conv_in"],
+                                      QuantSpec(4, symmetric=True)))
+        pc = ssm.build_pcilt_conv(params, cfg, scale)
+        want, wcal = ssm.mamba_block(params, cfg, x, pcilt=pc,
+                                     return_calib=True)
+        pcp = ssm.build_pcilt_conv(placed, cfg, scale)
+        tabs = pcp["tables"]
+        require(isinstance(tabs, Placed) and all(
+            t.shape[0] == tabs.shape[0] // CONVERT_MESH[1]
+            for t in tabs.blocks.values()),
+            "the placed conv tables are not cut per channel shard")
+        xs = ctx.split_rows(x)
+        ops.reset_launches()
+        with mock.patch.object(ssm, "pcilt_depthwise_conv1d", spy):
+            got, gcal = ssm.mamba_block(placed, cfg, xs, pcilt=pcp,
+                                        return_calib=True, ctx=ctx)
+        torch.cuda.synchronize()
+        launches = {k_: v for k_, v in ops.LAUNCHES.items() if v}
+        designs = dict(ops.DWCONV_VARIANT_LAUNCHES)
+        got = ctx.join_rows(got)
+        exact, count, ratio = [], 0, 0.0
+        for seg, tab, spec, sc, (y, c, r) in seen:
+            yp, cp, rp = ops.dwconv1d_plain(F.pad(seg, (0, 0, k - 1, 0)),
+                                            tab, spec, sc, k,
+                                            with_stats=True)
+            exact.append(bool(torch.equal(y, yp)) and int(c) == int(cp)
+                         and float(r) == float(rp))
+            count += int(c)
+            ratio = max(ratio, float(r))
+        _, _, stats, _ = ssm._mamba_mesh(placed, cfg, ctx, xs, pcilt=pcp)
+        xbc = torch.cat([dense(params[n], x, cfg.dtype)
+                         for n in ("wx", "wB", "wC")], -1)
+        _, wc, wr = ops.dwconv1d_plain(F.pad(xbc, (0, 0, k - 1, 0)),
+                                       pc["tables"], pc["spec"], scale, k,
+                                       with_stats=True)
+        prof = fullest_profile(torch, lambda: ssm.mamba_block(
+            placed, cfg, xs, pcilt=pcp, ctx=ctx))
+    dw = [(c, t) for key, (c, t) in prof.items()
+          if DWCONV_TILED_KERNEL in key]
+    dw_n, dw_us = sum(c for c, _ in dw), sum(t for _, t in dw)
+    err = float((got - want).abs().max())
+    tol = 2e-4 * float(want.abs().max())
+    same_calib = all(torch.equal(gcal[n], wcal[n]) for n in wcal)
+    sums = count == int(wc) == int(stats["conv"][0]) and \
+        ratio == float(wr) == float(stats["conv"][1])
+    log(f"mamba_block(pcilt=, ctx=) on {CONVERT_MESH} at full width: "
+        f"launches {launches}, designs {designs}, each launch exact against "
+        f"its plain version {exact}; counters {count} / ratio {ratio:.4f} "
+        f"(the whole signal's {int(wc)} / {float(wr):.4f}); block max |d| "
+        f"{err:.3e} (tol {tol:.3e}); absmaxes equal {same_calib}; kernel 2 "
+        f"{dw_us / max(dw_n, 1):.2f} us a launch over {dw_n} launches")
+    n = CONVERT_MESH[1]
+    require(launches == {"dwconv1d": n} and designs == {"tiled": n,
+                                                        "direct": 0},
+            f"the mesh block launched {launches}, designs {designs}")
+    require(len(exact) == n and all(exact),
+            f"a shard's kernel-2 launch disagrees with its plain version: "
+            f"{exact}")
+    require(sums, "the shards' counters do not sum to the whole signal's")
+    require(err <= tol, "the mesh block disagrees with the unsharded block")
+    # the launches are counted above; a profile late in a run can lose a
+    # record (PERF.md §7), so it only times the launches it saw
+    require(dw_n >= 1, "the block's profile shows no kernel-2 launch")
+    out["pcilt_block"] = {"mesh": CONVERT_MESH, "launches": launches,
+                          "designs": designs, "exact": exact,
+                          "count": count, "ratio": ratio,
+                          "max_abs_err": err, "tol": tol,
+                          "calib_equal": same_calib,
+                          "dwconv_us_per_launch": dw_us / max(dw_n, 1),
+                          "dwconv_launches_profiled": dw_n}
+    del params, placed, pc, pcp, seen, x, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_train_one(torch, cfg, shape, args, what, want, box=None):
+    """``launch.train.run`` on a mesh of ``shape``: its losses against the
+    unsharded run's ``want`` (``MESH_TRAIN_TOL``), the median step, the
+    peak; then one step from the run's state profiled (device ms and
+    launches).  Returns the record and the run's result."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+
+    mesh = _card_host_mesh(torch, shape)
+    res, _, peak = train_run(torch, cfg, args, what, box=box, mesh=mesh)
+    losses = res["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    med = statistics.median(res["step_seconds"][1:])
+    ocfg = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps),
+                       weight_decay=0.01)
+    step = make_train_step(cfg, mesh, ocfg)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
+                       global_batch=args.batch)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch(args.steps).items()}
+    dev_s, dev_n, top = step_profile(
+        torch, lambda: step(res["params"], res["opt"], batch))
+    log(f"{what} on {shape}: losses {[round(l, 4) for l in losses]} "
+        f"(unsharded {[round(l, 4) for l in want]}, largest rel "
+        f"{rel:.2e}); median step {med * 1e3:.1f} ms; one step "
+        f"{dev_s * 1e3:.2f} ms of device time in {dev_n} launches; peak "
+        f"{peak / 2**30:.2f} GiB")
+    require(len(losses) == len(want) and rel <= MESH_TRAIN_TOL,
+            f"{what} on {shape}: losses {losses} against {want}")
+    rec = {"mesh": shape, "losses": losses, "unsharded_losses": want,
+           "max_rel": rel, "step_seconds": res["step_seconds"],
+           "median_step_s": med, "step_device_s": dev_s,
+           "step_device_launches": dev_n, "peak_bytes": peak, "top": top}
+    return rec, res, step, batch
+
+
+def _mesh_trainings(torch, report, out):
+    """(d) and (e): qwen3-0.6b ``--full`` on (2, 2), mamba2-130m on (1,
+    2) and zamba2-7b cut to ``ZAMBA_TRAIN_LAYERS`` on (1, 2), each for
+    ``MESH_TRAIN_STEPS`` steps of phase 14's (17's) recipe and batches
+    against the unsharded run's first losses; on qwen3's (2, 2) state one
+    ``explicit_rs=True`` step against the default step, and a save of the
+    state (its joined leaves) with an elastic ``restore(shardings=)`` onto
+    ``ELASTIC_MESH``, bit-equal."""
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import shardings
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+
+    root = os.path.join(ROOT, "build", "smoke_mesh_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    steps = MESH_TRAIN_STEPS
+    tr = out["train"] = {}
+
+    # qwen3-0.6b --full on (2, 2)
+    cfg = get_config("qwen3-0.6b")
+    args = train_args(steps=steps, ckpt_dir=os.path.join(root, "q"))
+    want = report["training"]["qwen3_full"]["losses"][:steps]
+    rec, res, step, batch = _mesh_train_one(
+        torch, cfg, TRAIN_MESHES["qwen3-0.6b"], args, "qwen3-0.6b train",
+        want, box=[_to_card(_HANDOFF.pop("qwen3_init"))])
+    mesh = _card_host_mesh(torch, TRAIN_MESHES["qwen3-0.6b"])
+    ocfg = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps),
+                       weight_decay=0.01)
+    rs = make_train_step(cfg, mesh, ocfg, explicit_rs=True)
+    a_p, _, a_m = step(res["params"], res["opt"], batch)
+    b_p, _, b_m = rs(res["params"], res["opt"], batch)
+    diff = max(float((_joined(x).float() - _joined(y).float()).abs().max())
+               for x, y in zip(tree_leaves(a_p), tree_leaves(b_p)))
+    la, lb = float(a_m["loss"]), float(b_m["loss"])
+    log(f"qwen3-0.6b on (2, 2): an explicit_rs step's loss {lb:.6f} against "
+        f"the default step's {la:.6f}; new parameters max |d| {diff:.3e}")
+    require(abs(la - lb) <= MESH_TRAIN_TOL * abs(la),
+            "the explicit_rs step disagrees with the default step")
+    rec["explicit_rs"] = {"loss": lb, "default_loss": la,
+                          "param_max_abs_diff": diff}
+    del a_p, b_p, a_m, b_m, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the (2, 2) state saved and restored elastically onto ELASTIC_MESH
+    state = {"params": res["params"], "opt": res["opt"]}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        tree_map(_joined, state)))
+    free = shutil.disk_usage(ROOT).free
+    require(free > 2.5 * nbytes, f"{free / 1e9:.1f} GB free on disk for a "
+            f"{nbytes / 1e9:.1f} GB checkpoint")
+    ckpt = Checkpointer(os.path.join(root, "full"), keep=1)
+    t0 = time.perf_counter()
+    ckpt.save_async(steps, state, extra={"arch": cfg.name})
+    snap_s = time.perf_counter() - t0
+    ckpt.wait()
+    write_s = time.perf_counter() - t0
+    new = _card_host_mesh(torch, ELASTIC_MESH)
+    specs = build_model(cfg).param_specs()
+    sh = {"params": shardings(specs, new),
+          "opt": {"count": None, "m": shardings(specs, new),
+                  "v": shardings(specs, new)}}
+    t0 = time.perf_counter()
+    got_step, got, _ = ckpt.restore_latest(tree_map(lambda _: None, state),
+                                           sh, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = got_step == steps and all(
+        torch.equal(_joined(a), _joined(b))
+        for a, b in zip(tree_leaves(got), tree_leaves(state)))
+    spec = got["params"]["embed"]["embedding"].spec
+    log(f"the (2, 2) state ({nbytes / 1e9:.2f} GB): host snapshot "
+        f"{snap_s:.1f} s, written in {write_s:.1f} s; restored onto "
+        f"{ELASTIC_MESH} in {restore_s:.1f} s (sha256 included), the "
+        f"embedding's spec {spec}; bit-equal {same}")
+    require(same, "the elastic restore differs from the saved state")
+    rec["checkpoint"] = {"bytes": nbytes, "snapshot_s": snap_s,
+                         "write_s": write_s, "restore_s": restore_s,
+                         "restored_onto": ELASTIC_MESH, "equal": same}
+    tr["qwen3-0.6b"] = rec
+    del state, got, res, step, batch
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mamba2-130m on (1, 2)
+    mcfg = get_config("mamba2-130m")
+    rec, res, _, _ = _mesh_train_one(
+        torch, mcfg, TRAIN_MESHES["mamba2-130m"],
+        train_args(arch="mamba2-130m", steps=steps,
+                   ckpt_dir=os.path.join(root, "m")), "mamba2-130m train",
+        report["training"]["mamba_full"]["losses"][:steps])
+    tr["mamba2-130m"] = rec
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # zamba2-7b cut to ZAMBA_TRAIN_LAYERS on (1, 2), phase 17's weights
+    zcfg = get_config("zamba2-7b")
+    zt = report["hybrid"]["train"]
+    ccfg = dataclasses.replace(zcfg, n_layers=zt["layers"])
+    full = device_params(torch, build_model(zcfg).param_specs(), 500)
+    box = [_layers_cut(torch, full, zt["layers"])]
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, res, _, _ = _mesh_train_one(
+        torch, ccfg, TRAIN_MESHES["zamba2-7b"],
+        train_args(arch=zcfg.name, steps=steps, seq=zt["seq"],
+                   batch=zt["batch"],
+                   ckpt_dir=os.path.join(root, "z")),
+        f"zamba2 train ({zt['layers']} layers)", zt["losses"][:steps],
+        box=box)
+    tr["zamba2-7b"] = rec
+    del res, box
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_training(torch, ops, report):
+    """The Mamba-based families and training on a mesh, every mesh device
+    ``cuda:0`` (the shards' cost, not a gain):
+
+    (a) zamba2-7b at full width and depth (81 blocks, 7.03 B float32
+        parameters) on (1, 2) and (1, 4): phase 17's weights and 4 x 192
+        prompt, a prefill and 8 decode steps fed phase 17's tokens, each
+        step's logits against phase 17's unsharded ones (the argmax equal
+        or a near-tie); bytes a device, host and device ms and launches
+        beside phase 17's;
+    (b) mamba2-130m's paired conversion under a ctx on placed parameters
+        (1, 4) against the unsharded conversion (scales, records, a step);
+    (c) the full-sequence PCILT block under the ctx: kernel 2 once a
+        channel shard, each launch exact against its plain version;
+    (d) training on meshes: qwen3-0.6b ``--full`` on (2, 2), mamba2-130m
+        on (1, 2), zamba2-7b at ``ZAMBA_TRAIN_LAYERS`` on (1, 2), each
+        against the unsharded run's losses (1e-2), one ``explicit_rs``
+        step against the default step;
+    (e) the (2, 2) state saved and restored onto (1, 4), bit-equal.
+
+    Returns the launches of (b)'s step and (c)'s block."""
+    out = {}
+    launches = {}
+    _mesh_zamba2(torch, report, out)
+    for part in (_mesh_convert, _mesh_pcilt_block):
+        for k, v in part(torch, ops, out).items():
+            launches[k] = launches.get(k, 0) + v
+    _mesh_trainings(torch, report, out)
+    report["mesh_training"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5998,12 +6532,17 @@ def main() -> int:
                   single_layers, plans_and_extensions, learnable,
                   resilience, dense_serving, training, dense_configs,
                   moe_family, hybrid_family, audio_family, vlm_family,
-                  autotune_phase, sharded_tables, mesh_serving):
+                  autotune_phase, sharded_tables, mesh_serving,
+                  mesh_training):
         count(phase)
     sh = report["sharded"]["conv4"]
     for kind in ("fused_conv2d", "shared_conv2d"):
         rows[f"{kind} conv4"]["sharded_ms"] = {
             name: sh[f"{kind} {name}"]["ms"] for name in ("D2", "D4")}
+    blk = report["mesh_training"]["pcilt_block"]
+    rows["window counters"].update(
+        mesh_shard_launches=blk["launches"]["dwconv1d"],
+        mesh_shard_us=blk["dwconv_us_per_launch"])
     step = report["serve"]["step_compare"]
     rows["window counters"].update(
         step_device_launches=step["unpaired stats"]["device_launches"],
@@ -6033,7 +6572,8 @@ def main() -> int:
         for extra in ("plain_shape", "direct_ms", "fetch_floor_ms",
                       "direct_with_fill_ms", "step_device_launches",
                       "step_device_launches_kept", "host_zlib_ms",
-                      "device_launches_per_call", "sharded_ms"):
+                      "device_launches_per_call", "sharded_ms",
+                      "mesh_shard_launches", "mesh_shard_us"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     # kernel 6 where an entry point serves it: serve_pcilt's M = 4 gate

@@ -11,14 +11,16 @@ Leaves are named and ordered as ``jax.tree_util.tree_flatten_with_path``
 names and orders them (dict keys sorted at every level, names joined with
 ``/``), so a checkpoint written by either package restores in the other.
 A restore places the arrays on a named device, in the structure of the tree
-it is given.
+it is given, or, given ``shardings`` (a matching tree of
+``nn.module.TablePlacement``), each leaf by its placement on the current
+mesh (the elastic re-mesh path).  A placed tree is saved as its joined
+leaves, so either package reads it.
 
 ``Checkpointer.save_async`` copies every leaf to host memory before its
 write thread starts (a later step may then change the tensors), and
 ``restore_latest`` first joins a pending write, so it never reads a
 directory list that a write in flight is about to change.  A failure
 mid-write leaves the previous checkpoint as it was (tmp dir + rename).
-Mesh-sharded restores wait for distribution.
 """
 
 from __future__ import annotations
@@ -64,7 +66,12 @@ def _unflatten(like, values: Dict[str, Any], prefix: str = ""):
 
 
 def _host(x) -> np.ndarray:
-    """A leaf as a host array that owns its memory."""
+    """A leaf as a host array that owns its memory (a placed leaf joined
+    on the host)."""
+    from repro_torch.nn.module import Placed
+
+    if isinstance(x, Placed):
+        return to_numpy(x.join("cpu"))
     if torch.is_tensor(x):
         a = to_numpy(x)
         # a CPU tensor's numpy view shares its storage
@@ -137,12 +144,18 @@ def latest_step(root: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(root: str, step: int, like_tree, *, verify: bool = True,
-            device="cuda"):
-    """Load a checkpoint into the structure of ``like_tree`` on ``device``.
-    Returns ``(tree, extra)``; raises on a sha256 mismatch (with
-    ``verify``) or when the leaf names differ."""
-    dev = resolve_device(device)
+def restore(root: str, step: int, like_tree, shardings=None, *,
+            verify: bool = True, device="cuda"):
+    """Load a checkpoint into the structure of ``like_tree`` on ``device``,
+    or with ``shardings`` (a tree of ``nn.module.TablePlacement`` matching
+    ``like_tree``: the current mesh's) each leaf placed by its placement,
+    each block copied to its device from the host (a None placement: the
+    leaf whole on ``device``).  Returns ``(tree,
+    extra)``; raises on a sha256 mismatch (with ``verify``) or when the
+    leaf names differ."""
+    from repro_torch.nn.module import Placed
+
+    dev = None
     d = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -154,8 +167,14 @@ def restore(root: str, step: int, like_tree, *, verify: bool = True,
         raise ValueError(
             "checkpoint tree mismatch:\n saved: %s...\n want: %s..."
             % (manifest["names"][:4], names[:4]))
+    places = dict(_flatten(shardings)) if shardings is not None else {}
+    if places and sorted(places) != sorted(names):
+        raise ValueError("shardings do not match the tree's leaves")
+    if any(places.get(n) is None for n in names):
+        dev = resolve_device(device)
     with np.load(npz_path) as data:
-        values = {n: to_torch(data[f"a{i}"], dev)
+        values = {n: to_torch(data[f"a{i}"], dev) if places.get(n) is None
+                  else Placed.place(to_torch(data[f"a{i}"]), places[n])
                   for i, n in enumerate(names)}
     return _unflatten(like_tree, values), manifest["extra"]
 
@@ -186,13 +205,14 @@ class Checkpointer:
             shutil.rmtree(os.path.join(self.root, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like_tree, *, device="cuda"):
-        """``(step, tree, extra)`` of the newest checkpoint, after any
-        pending write has finished; ``(None, None, None)`` when there is
-        none."""
+    def restore_latest(self, like_tree, shardings=None, *, device="cuda"):
+        """``(step, tree, extra)`` of the newest checkpoint (placed by
+        ``shardings`` when given), after any pending write has finished;
+        ``(None, None, None)`` when there is none."""
         self.wait()
         step = latest_step(self.root)
         if step is None:
             return None, None, None
-        tree, extra = restore(self.root, step, like_tree, device=device)
+        tree, extra = restore(self.root, step, like_tree, shardings,
+                              device=device)
         return step, tree, extra

@@ -641,7 +641,11 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
     ``mesh_axis`` (``MambaLM.build_pcilt``).  With ``timings`` (a dict) the
     seconds of each phase are stored there.  ``ctx`` is the sharding
     context the returned decode steps under (``PCILTMambaDecode(ctx=)``);
-    the conversion itself reads ``params`` whole."""
+    given placed parameters (``nn.module.place`` on ``ctx``'s mesh) the
+    calibration runs under ``ctx`` on them (``MambaLM.calibrate_pcilt(...,
+    ctx=)``: the per-shard bodies, never a joined tree) and the tables are
+    built from its absmaxes one layer's weights at a time, on the mesh's
+    first device."""
     import time
 
     from repro_torch.interop import resolve_device
@@ -665,9 +669,15 @@ def convert_mamba_decode(model, params, calib_tokens: torch.Tensor, *,
             torch.cuda.synchronize(dev)
         t[name] = time.perf_counter() - t0
 
+    from repro_torch.nn.module import Placed
+
+    placed = isinstance(params["embed"]["embedding"], Placed)
+    if placed and (ctx is None or ctx.mesh is None):
+        raise ValueError("placed parameters need the ctx of their mesh")
     t0 = time.perf_counter()
     with torch.no_grad():
-        amax = model.calibrate_pcilt(params, {"tokens": calib_tokens.to(dev)})
+        amax = model.calibrate_pcilt(params, {"tokens": calib_tokens.to(dev)},
+                                     ctx=ctx if placed else None)
     lap("calibrate_s", t0)
 
     def to_scale(a):

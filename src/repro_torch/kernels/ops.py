@@ -833,7 +833,9 @@ def pcilt_fused_dwconv1d(x: torch.Tensor, tables: torch.Tensor,
     """x ``[B, T, C]`` float32, tables ``[C, V]`` (``V = 2**(bits*k)``)
     -> ``[B, To, C]`` in the table dtype (plus the saturation stats of the
     signal with ``with_stats``).  The only host-side work is the time pad
-    of the signal (none for ``"VALID"``)."""
+    of the signal (none for ``"VALID"``); a strided ``x`` (a channel block
+    of a wider signal, as a mesh's channel shard gives it) is copied
+    contiguous first, so the kernel always reads a packed ``[B, T, C]``."""
     return _fused_dwconv1d(x, tables, spec, scale, k, padding,
                            with_stats=with_stats, autotune=autotune)
 
@@ -853,7 +855,9 @@ def _fused_dwconv1d(x, tables, spec: QuantSpec, scale, k: int,
         raise ValueError(f"tables value axis {V} != 2**(bits*k) = "
                          f"{1 << (spec.bits * k)}")
     lo, hi = _dwconv_pads(k, padding)
-    xp = F.pad(x, (0, 0, lo, hi)) if lo or hi else x
+    # a channel block of a wider signal (a mesh shard's) is strided: the
+    # pad copies it contiguous, and a VALID signal is copied so here
+    xp = F.pad(x, (0, 0, lo, hi)) if lo or hi else x.contiguous()
     Tp = xp.shape[1]
     if Tp < k or B < 1:
         raise ValueError(f"signal of {T} steps is too short for {k} taps "

@@ -5,9 +5,9 @@ The prefill and decode steps close over the model and a sharding context
 (:func:`make_ctx`): with a mesh (``launch.mesh.Mesh``) they take placed
 parameters and caches (``nn.module.place(tree, shardings(specs, mesh))``)
 and run the layers' per-shard bodies; ``rule_overrides`` edits the rule
-table (``{"cache_seq": "model"}`` shards the KV cache's time axis).
-``make_train_step`` has no mesh yet: its ``grad_shardings`` and
-``explicit_rs`` wait for the training distribution (ROADMAP Queue 1 #8).
+table (``{"cache_seq": "model"}`` shards the KV cache's time axis).  The
+train step takes the same placed parameters (and an optimizer state from
+``adamw_init`` of them, or placed by ``adamw_init_specs``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import build_model
 from repro_torch.nn.layers import Ctx
-from repro_torch.nn.module import DEFAULT_RULES, ShardingRules
+from repro_torch.nn.module import DEFAULT_RULES, Placed, ShardingRules
 from repro_torch.optim import AdamWConfig, adamw_update
 
 __all__ = ["make_ctx", "make_train_step", "make_prefill_step",
@@ -40,23 +40,114 @@ def make_ctx(mesh, rule_overrides=None, decode=False,
 
 def _cast_tree_bf16(p):
     """float32 leaves of 2 or more dimensions cast to bfloat16 (the master
-    weights as the step computes with them); a differentiable cast."""
-    return tree_map(lambda a: a.to(torch.bfloat16)
-                if a.dtype == torch.float32 and a.dim() >= 2 else a, p)
+    weights as the step computes with them); a differentiable cast, block
+    by block for a placed leaf."""
+    def cast(a):
+        if a.dtype != torch.float32 or a.dim() < 2:
+            return a
+        if isinstance(a, Placed):
+            return a.map(lambda t: t.to(torch.bfloat16))
+        return a.to(torch.bfloat16)
+
+    return tree_map(cast, p)
+
+
+def _fresh(a):
+    """A leaf detached and requiring grad (each distinct block of a placed
+    one: the sharing kept)."""
+    if isinstance(a, Placed):
+        return a.map(lambda t: t.detach().requires_grad_())
+    return a.detach().requires_grad_()
+
+
+def _distinct(leaf) -> list:
+    """The tensors autograd differentiates for one leaf: the leaf, or a
+    placed leaf's distinct blocks."""
+    if isinstance(leaf, Placed):
+        return [t for _, t in leaf.unique()]
+    return [leaf]
+
+
+def _with_grads(leaf, grads: dict):
+    """``leaf``'s gradient: a tensor, or a placed leaf whose blocks are
+    its blocks' gradients (zeros where a block took no part)."""
+    def of(t):
+        g = grads[id(t)]
+        return torch.zeros_like(t) if g is None else g
+
+    if isinstance(leaf, Placed):
+        return leaf.map(of)
+    return of(leaf)
+
+
+def _allreduce_replicas(g):
+    """The data-parallel all-reduce of a placed gradient, in a fixed
+    order: where a block is held on several devices (a replicated block),
+    its per-device gradients are added in float32 in mesh-coordinate order
+    on the first one's device, and the sum is copied back to each."""
+    if not isinstance(g, Placed):
+        return g
+    copies = {}
+    for c, t in g.unique():
+        copies.setdefault(g.placement.block_index(c), []).append(t)
+    made = {}
+    for ts in copies.values():
+        if len(ts) > 1:
+            acc = ts[0].float()
+            for t in ts[1:]:
+                acc = acc + t.to(ts[0].device, torch.float32)
+            acc = acc.to(ts[0].dtype)
+            for t in ts:  # the sum held by every copy's device
+                made[id(t)] = acc.to(t.device, copy=t is not ts[0])
+    if not made:
+        return g
+    return Placed(g.placement, g.shape, g.dtype,
+                  {c: made.get(id(t), t) for c, t in g.blocks.items()})
 
 
 def _value_and_grad(fn, params, batch):
     """``((loss, metrics), grads)`` of ``fn(params, batch)``, the grads in
-    the leaves' dtypes; nothing of the graph outlives the call."""
-    leaves = tree_map(lambda a: a.detach().requires_grad_(), params)
+    the leaves' dtypes (placed leaves' per block, replicas all-reduced);
+    nothing of the graph outlives the call."""
+    leaves = tree_map(_fresh, params)
     loss, metrics = fn(leaves, batch)
-    flat = tree_leaves(leaves)
-    g = iter(torch.autograd.grad(loss, flat))
-    grads = tree_map(lambda _: next(g), leaves)
+    flat = [t for leaf in tree_leaves(leaves) for t in _distinct(leaf)]
+    g = torch.autograd.grad(loss, flat, allow_unused=True)
+    by_id = {id(t): gt for t, gt in zip(flat, g)}
+    grads = tree_map(lambda leaf: _allreduce_replicas(
+        _with_grads(leaf, by_id)), leaves)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
 
 
-def make_train_step(cfg, ocfg: AdamWConfig, bf16_grads: bool = False):
+def _zeros_f32(p):
+    if isinstance(p, Placed):
+        return p.map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                           device=t.device))
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _add_f32(a, b):
+    if isinstance(a, Placed):
+        return a.map(lambda x, y: x + y.float(), b)
+    return a + b.float()
+
+
+def _div(a, n: int):
+    if isinstance(a, Placed):
+        return a.map(lambda x: x / n)
+    return a / n
+
+
+def _constrain(g, placement):
+    """``g`` re-placed onto ``placement`` (``with_sharding_constraint``)."""
+    if isinstance(g, Placed):
+        return g.replace(placement)
+    return Placed.place(g, placement)
+
+
+def make_train_step(cfg, mesh, ocfg: AdamWConfig, bf16_grads: bool = False,
+                    rule_overrides=None, grad_shardings=None,
+                    explicit_rs: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``ce``, ``z``, ``grad_norm`` and ``lr`` (and
     the transformers' ``load_balance`` and ``router_z``, 0 without MoE).
@@ -68,15 +159,32 @@ def make_train_step(cfg, ocfg: AdamWConfig, bf16_grads: bool = False):
     them).  With ``cfg.grad_accum = n > 1`` the batch is split into ``n``
     microbatches along its first axis, their gradients summed in float32
     and divided by ``n``, and the loss and metrics averaged.  The given
-    parameters and state are not changed."""
+    parameters and state are not changed.
+
+    With a ``mesh`` (``launch.mesh.Mesh``) the parameters (and the state)
+    are placed (``nn.module.place``) and the loss runs under
+    ``make_ctx(mesh, rule_overrides, explicit_rs=explicit_rs)``: the
+    per-shard bodies of the dense, audio, vlm, Mamba and hybrid families
+    (an MoE config raises, ROADMAP Queue 1 #9).  The gradients are taken
+    with respect to the placed blocks; a block replicated on several
+    devices has its gradients added in float32 in mesh order on its first
+    device and copied back (the data-parallel all-reduce).
+    ``grad_shardings`` (a tree of placements, e.g. ``nn.module.shardings``
+    of ``adamw_init_specs(..., remap_axes=...)["m"]``: ZeRO-1) re-places
+    the gradients before the update; ``explicit_rs`` routes the blocks'
+    row-parallel ``wo``/``wd`` through ``nn.layers.row_parallel``."""
     model = build_model(cfg)
+    ctx = make_ctx(mesh, rule_overrides, explicit_rs=explicit_rs)
 
     def loss_fn(p, b):
-        return model.loss(_cast_tree_bf16(p), b)
+        return model.loss(_cast_tree_bf16(p), b, ctx=ctx)
+
+    def loss_fn_bf16(pc, b):
+        return model.loss(pc, b, ctx=ctx)
 
     def grad_of(params, b):
         if bf16_grads:
-            return _value_and_grad(model.loss, _cast_tree_bf16(params), b)
+            return _value_and_grad(loss_fn_bf16, _cast_tree_bf16(params), b)
         return _value_and_grad(loss_fn, params, b)
 
     def train_step(params, opt_state, batch):
@@ -84,20 +192,21 @@ def make_train_step(cfg, ocfg: AdamWConfig, bf16_grads: bool = False):
         if n == 1:
             (loss, metrics), grads = grad_of(params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(_zeros_f32, params)
             loss, ms = 0.0, []
             for i in range(n):
                 mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 (l, m), g = grad_of(params, mb)
-                grads = tree_map(lambda a, b: a + b.float(), grads, g)
+                grads = tree_map(_add_f32, grads, g)
                 loss = loss + l
                 ms.append(m)
-            grads = tree_map(lambda g: g / n, grads)
+            grads = tree_map(lambda g: _div(g, n), grads)
             loss = loss / n
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
+        if grad_shardings is not None:
+            grads = tree_map(_constrain, grads, grad_shardings)
         with torch.no_grad():
             new_params, new_opt, om = adamw_update(grads, opt_state, params,
                                                    ocfg)

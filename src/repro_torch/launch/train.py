@@ -11,7 +11,10 @@
 Materializes seeded parameters, then runs the supervised train loop: AdamW
 on a cosine schedule over the seeded synthetic corpus, a step watchdog,
 async checkpoints every ``--ckpt-every`` steps, and a restore and replay
-after a step fault (``--fail-at`` injects them).  Batches are a pure
+after a step fault (``--fail-at`` injects them).  With more than one CUDA
+card visible the step runs data-parallel over a ``(data=n, model=1)``
+mesh of them (placed parameters and state, the restore placing them
+again), as the reference's does; on one card there is no mesh.  Batches are a pure
 function of the step, so a run that restarts ends on the same parameters
 as one that does not.  Runs on the card unless ``--device cpu``.  An MoE
 config also logs its routers' load-balance and z losses.
@@ -37,10 +40,12 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import SyntheticLM
 from repro_torch.interop import resolve_device, tree_map
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
-from repro_torch.nn.module import count_params, materialize
-from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+from repro_torch.nn.module import count_params, materialize, place, shardings
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_init_specs,
+                               cosine_schedule)
 from repro_torch.runtime import FaultInjector, Supervisor
 
 __all__ = ["main", "parse_args", "run", "batch_source"]
@@ -95,11 +100,14 @@ def batch_source(cfg, args):
     return batch_for
 
 
-def run(cfg, args, *, params=None) -> dict:
+def run(cfg, args, *, params=None, mesh=None) -> dict:
     """The supervised train loop of ``cfg`` as ``args`` set it up, from
     ``params`` (else parameters drawn from seed 0; the given tree is not
     changed, and a caller that keeps no other reference to it lets the
-    first step free it).  Returns
+    first step free it).  The step runs on ``mesh`` when given (else on a
+    ``(data=n, model=1)`` mesh of the CUDA cards when there are n > 1,
+    else on the one device), the parameters and state placed on it, a
+    restore placing them again.  Returns
     ``{"step", "params", "opt", "stats", "losses", "step_seconds",
     "setup_s"}``: ``losses`` and ``step_seconds`` hold one entry per step
     run (replayed steps again), each step synchronised by reading its
@@ -109,14 +117,25 @@ def run(cfg, args, *, params=None) -> dict:
     t_setup = time.perf_counter()
     model = build_model(cfg)
     specs = model.param_specs()
+    if mesh is None:
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        mesh = make_host_mesh(data=n_dev, model=1) if n_dev > 1 else None
+    n_dev = 1 if mesh is None else mesh.devices.size
     print(f"arch={cfg.name} params={count_params(specs)/1e6:.2f}M "
-          f"devices=1 ({dev})")
+          f"devices={n_dev} ({dev})")
     if params is None:
         params = materialize(specs, 0, device=dev)
     ocfg = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps),
                        weight_decay=0.01)
+    placements = None
+    if mesh is not None:  # data-parallel over the cards, as the reference
+        placements = {"params": shardings(specs, mesh), "opt": {
+            "count": None,
+            **shardings({k: v for k, v in adamw_init_specs(specs, ocfg)
+                         .items() if k != "count"}, mesh)}}
+        params = place(params, placements["params"])
     opt_state = adamw_init(params, ocfg)
-    step_fn = make_train_step(cfg, ocfg)
+    step_fn = make_train_step(cfg, mesh, ocfg)
     ckpt = Checkpointer(args.ckpt_dir, keep=2)
     injector = FaultInjector(args.fail_at)
     # the restore's tree structure (leaf names), without holding tensors
@@ -149,7 +168,7 @@ def run(cfg, args, *, params=None) -> dict:
                         extra={"arch": cfg.name})
 
     def restore():
-        got = ckpt.restore_latest(skeleton, device=dev)
+        got = ckpt.restore_latest(skeleton, placements, device=dev)
         if got[0] is None:
             return None
         step, tree, _ = got

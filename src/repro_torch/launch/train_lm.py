@@ -63,7 +63,7 @@ def main(argv=None):
     ocfg = AdamWConfig(lr=cosine_schedule(1e-3, 20, args.steps),
                        weight_decay=0.01)
     opt = adamw_init(params, ocfg)
-    step_fn = make_train_step(cfg, ocfg)
+    step_fn = make_train_step(cfg, None, ocfg)
 
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.batch, seed=0)

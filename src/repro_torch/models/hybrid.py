@@ -14,6 +14,14 @@ The decode cache is ``{"ssm": {"layers": {"conv", "ssd" [L, ...]}}, "attn":
 application, bfloat16, and ``pos`` (the next write position) a host int
 after a prefill or a step.  A step writes every layer's new SSM state into
 its place and returns new tensors; the given cache is not changed.
+
+Under a ``ctx`` with a mesh (parameters and cache placed by
+``nn.module.shardings``) the three modes run the per-shard bodies the
+other families use: a vocab-parallel embedding and head, the shared
+attention column-parallel over its heads on the ``2 * d``-wide input (a
+replicated KV head selected per shard, ``wo`` row-parallel, the cache
+time-sharded where the rules say), the MLP and the Mamba blocks; the
+activations are ``nn.layers.Rows``.
 """
 
 from __future__ import annotations
@@ -24,21 +32,20 @@ from typing import Any
 import torch
 
 from repro_torch.nn.attention import attention, attention_spec, init_cache_specs
-from repro_torch.nn.layers import (dense, embed, embed_spec, rmsnorm,
-                                   rmsnorm_spec)
-from repro_torch.nn.module import ParamSpec, layer_view, remat, stack_specs
+from repro_torch.nn.layers import (Rows, dense, embed, embed_spec, rmsnorm,
+                                   rmsnorm_spec, vocab_embed, vocab_logits)
+from repro_torch.nn.module import (ParamSpec, Placed, layer_view, remat,
+                                   stack_specs)
 from repro_torch.nn.ssm import (mamba_block, mamba_decode, mamba_spec,
                                 ssm_cache_specs)
-from .transformer import chunked_ce_loss, mlp, mlp_spec
+from .mamba import _ce
+from .transformer import _add, _norm, mlp, mlp_spec
 
 __all__ = ["HybridLM"]
 
 
-def _no_mesh(ctx):
-    if ctx is not None and ctx.mesh is not None:
-        raise NotImplementedError(
-            "the hybrid family does not run under a mesh yet (ROADMAP "
-            "Queue 1: the hybrid family under a mesh)")
+def _mesh(ctx) -> bool:
+    return ctx is not None and ctx.mesh is not None
 
 
 @dataclasses.dataclass
@@ -97,17 +104,21 @@ class HybridLM:
 
     # -- the shared attention application -----------------------------------
 
-    def _shared_attn(self, params_i, x, x0, positions, cache=None):
+    def _shared_attn(self, params_i, x, x0, positions, cache=None, ctx=None):
         """One shared-block application on ``concat(x, x0)``: ``(x,
-        cache)``."""
+        cache)`` (under a mesh each row's blocks, the attention and the MLP
+        their per-shard bodies)."""
         cfg = self.cfg
-        xin = torch.cat([x, x0], -1)
+        if _mesh(ctx):
+            xin = x.map(lambda row, t: torch.cat([t, x0[row]], -1))
+        else:
+            xin = torch.cat([x, x0], -1)
         h, new_cache = attention(params_i["attn"], cfg,
-                                 rmsnorm(params_i["ln"], xin, cfg.norm_eps),
-                                 positions, causal=True, cache=cache)
-        x = x + h
-        x = x + mlp(params_i["mlp"], cfg,
-                    rmsnorm(params_i["ln_mlp"], x, cfg.norm_eps))
+                                 _norm(params_i["ln"], cfg, xin, ctx),
+                                 positions, causal=True, cache=cache, ctx=ctx)
+        x = _add(x, h)
+        x = _add(x, mlp(params_i["mlp"], cfg,
+                        _norm(params_i["ln_mlp"], cfg, x, ctx), ctx=ctx))
         return x, new_cache
 
     def _select_shared(self, params, app: int):
@@ -116,27 +127,46 @@ class HybridLM:
     def _logits(self, params, x):
         return dense(params["lm_head"], x, self.cfg.dtype)
 
+    def _head(self, params, x, ctx) -> torch.Tensor:
+        """The head's logits; under a mesh vocab-parallel over the rows,
+        joined on the mesh's first device."""
+        if not _mesh(ctx):
+            return self._logits(params, x)
+        return ctx.join_rows(vocab_logits(ctx, params["lm_head"]["kernel"],
+                                          x, self.cfg.dtype, tied=False))
+
+    def _inputs(self, params, tokens, positions_at, ctx):
+        """The embeddings (vocab-parallel rows under a mesh) and their
+        positions, ``positions_at(B, S, device)`` of each block."""
+        cfg = self.cfg
+        if not _mesh(ctx):
+            x = embed(params["embed"], tokens, cfg.dtype)
+            return x, positions_at(*tokens.shape, x.device)
+        x = vocab_embed(ctx, params["embed"]["embedding"],
+                        ctx.split_rows(tokens), cfg.dtype)
+        return x, x.map(lambda _, t: positions_at(t.shape[0], t.shape[1],
+                                                  t.device))
+
     # -- modes ---------------------------------------------------------------
 
     def loss(self, params, batch, *, ctx=None):
         """The training loss over ``batch`` (``tokens``, ``labels [B, S]``,
         optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``.  Every
         shared application and every Mamba block runs under
-        ``cfg.remat_policy``; the values do not depend on it."""
-        _no_mesh(ctx)
+        ``cfg.remat_policy``; the values do not depend on it.  Under a mesh
+        (placed parameters) they run their per-shard bodies, the rows'
+        final states are joined on the mesh's first device and the head is
+        vocab-parallel there."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed(params["embed"], tokens, cfg.dtype)
+        x, positions = self._inputs(params, batch["tokens"], _arange, ctx)
         x0 = x
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
         def shared_fn(p, x, x0):
-            return self._shared_attn(p, x, x0, positions)[0]
+            return self._shared_attn(p, x, x0, positions, ctx=ctx)[0]
 
         def blk(h, p):
-            return h + mamba_block(p["mixer"], cfg,
-                                   rmsnorm(p["ln"], h, cfg.norm_eps))
+            return _add(h, mamba_block(p["mixer"], cfg,
+                                       _norm(p["ln"], cfg, h, ctx), ctx=ctx))
 
         shared_fn = remat(shared_fn, cfg.remat_policy)
         blk = remat(blk, cfg.remat_policy)
@@ -144,80 +174,82 @@ class HybridLM:
             x = shared_fn(self._select_shared(params, app), x, x0)
             for l in range(start, start + length):
                 x = blk(x, layer_view(params["blocks"], l))
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        labels = batch["labels"]
-        mask = batch.get("loss_mask")
-        if mask is None:
-            mask = torch.ones(labels.shape, dtype=torch.float32,
-                              device=labels.device)
-        ce, z = chunked_ce_loss(lambda xc: self._logits(params, xc), x,
-                                labels, mask.float(), cfg.loss_chunk)
-        return ce + 1e-4 * z, {"ce": ce, "z": z}
+        x = _norm(params["ln_f"], cfg, x, ctx)
+        return _ce(self, params, x, batch, ctx)
 
     def prefill(self, params, batch, *, ctx=None):
         """Full-sequence pass over ``batch["tokens"] [B, S]``: the last
         position's logits ``[B, Vp]`` and the decode-ready cache (each
-        application's K/V, each layer's SSM state, ``pos`` = S)."""
-        _no_mesh(ctx)
+        application's K/V, each layer's SSM state, ``pos`` = S).  Under a
+        mesh the cache comes back placed by the cache rules and the logits
+        whole on the mesh's first device."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed(params["embed"], tokens, cfg.dtype)
+        S = batch["tokens"].shape[1]
+        stack = Placed.stack if _mesh(ctx) else torch.stack
+        x, positions = self._inputs(params, batch["tokens"], _arange, ctx)
         x0 = x
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
         ks, vs, convs, ssds = [], [], [], []
         for app, (start, length) in enumerate(self._segments()):
             x, kv = self._shared_attn(self._select_shared(params, app), x,
-                                      x0, positions)
+                                      x0, positions, ctx=ctx)
             ks.append(kv["k"])
             vs.append(kv["v"])
             for l in range(start, start + length):
                 p = layer_view(params["blocks"], l)
                 y, st = mamba_block(p["mixer"], cfg,
-                                    rmsnorm(p["ln"], x, cfg.norm_eps),
-                                    return_state=True)
-                x = x + y
+                                    _norm(p["ln"], cfg, x, ctx),
+                                    return_state=True, ctx=ctx)
+                x = _add(x, y)
                 convs.append(st["conv"])
                 ssds.append(st["ssd"])
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        logits = self._logits(params, x[:, -1:])[:, 0]
-        return logits, {"ssm": {"layers": {"conv": torch.stack(convs),
-                                           "ssd": torch.stack(ssds)}},
-                        "attn": {"k": torch.stack(ks), "v": torch.stack(vs)},
+        x = _norm(params["ln_f"], cfg, x, ctx)
+        last = x.map(lambda _, t: t[:, -1:]) if _mesh(ctx) else x[:, -1:]
+        logits = self._head(params, last, ctx)[:, 0]
+        return logits, {"ssm": {"layers": {"conv": stack(convs),
+                                           "ssd": stack(ssds)}},
+                        "attn": {"k": stack(ks), "v": stack(vs)},
                         "pos": S}
 
     def decode_step(self, params, cache, tokens: torch.Tensor, *, ctx=None):
         """tokens ``[B, 1]``; cache ``{"ssm", "attn", "pos"}`` -> ``(logits
-        [B, Vp], new cache)`` with ``pos + 1``."""
-        _no_mesh(ctx)
+        [B, Vp], new cache)`` with ``pos + 1``.  Under a mesh the parameters
+        and cache are placed and the logits come back whole on the mesh's
+        first device."""
         cfg = self.cfg
         pos = int(cache["pos"])
-        B = tokens.shape[0]
-        x = embed(params["embed"], tokens, cfg.dtype)
+        stack = Placed.stack if _mesh(ctx) else torch.stack
+        x, positions = self._inputs(
+            params, tokens, lambda b, s, dev: torch.full(
+                (b, s), pos, dtype=torch.int64, device=dev), ctx)
         x0 = x
-        positions = torch.full((B, 1), pos, dtype=torch.int64,
-                               device=x.device)
         states = cache["ssm"]["layers"]
         ks, vs, convs, ssds = [], [], [], []
         for app, (start, length) in enumerate(self._segments()):
-            kv = {"k": cache["attn"]["k"][app], "v": cache["attn"]["v"][app],
-                  "pos": pos}
+            kv = {"k": layer_view(cache["attn"]["k"], app),
+                  "v": layer_view(cache["attn"]["v"], app), "pos": pos}
             x, nc = self._shared_attn(self._select_shared(params, app), x,
-                                      x0, positions, cache=kv)
+                                      x0, positions, cache=kv, ctx=ctx)
             ks.append(nc["k"])
             vs.append(nc["v"])
             for l in range(start, start + length):
                 p = layer_view(params["blocks"], l)
-                st = {"conv": states["conv"][l], "ssd": states["ssd"][l]}
+                st = {"conv": layer_view(states["conv"], l),
+                      "ssd": layer_view(states["ssd"], l)}
                 y, st2 = mamba_decode(p["mixer"], cfg,
-                                      rmsnorm(p["ln"], x, cfg.norm_eps), st)
-                x = x + y
-                convs.append(st2["conv"].to(states["conv"].dtype))
-                ssds.append(st2["ssd"].to(states["ssd"].dtype))
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        logits = self._logits(params, x)[:, -1]
+                                      _norm(p["ln"], cfg, x, ctx), st,
+                                      ctx=ctx)
+                x = _add(x, y)
+                convs.append(st2["conv"])
+                ssds.append(st2["ssd"])
+        x = _norm(params["ln_f"], cfg, x, ctx)
+        logits = self._head(params, x, ctx)[:, -1]
         return logits, dict(cache,
-                            ssm={"layers": {"conv": torch.stack(convs),
-                                            "ssd": torch.stack(ssds)}},
-                            attn={"k": torch.stack(ks), "v": torch.stack(vs)},
+                            ssm={"layers": {"conv": stack(convs),
+                                            "ssd": stack(ssds)}},
+                            attn={"k": stack(ks), "v": stack(vs)},
                             pos=pos + 1)
+
+
+def _arange(b: int, s: int, device) -> torch.Tensor:
+    """Positions ``0 .. s - 1`` of a ``[b, s]`` block."""
+    return torch.arange(s, device=device)[None].expand(b, s)

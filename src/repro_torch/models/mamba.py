@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core import (QuantSpec, SharedGroupedTables,
                               ShardedTables, build_dwconv_tables,
-                              build_grouped_tables,
+                              build_grouped_tables, build_paired_tables,
                               build_paired_stacked_tables,
                               build_shared_grouped_tables, fake_quant,
                               mesh_shard_count, pcilt_linear,
@@ -70,41 +70,34 @@ class MambaLM:
                 "pos": ParamSpec((), torch.int32, "zeros", axes=())}
 
     def _head_kernel(self, params) -> torch.Tensor:
+        """The head's ``[d, Vp]`` float32 kernel (a placed one joined on
+        its mesh's first device)."""
         if self.cfg.tie_embeddings:
-            return params["embed"]["embedding"].float().T  # [d, Vp]
-        return params["lm_head"]["kernel"].float()
+            return _whole(params["embed"]["embedding"]).float().T
+        return _whole(params["lm_head"]["kernel"]).float()
 
     def _logits(self, params, x):
         return x @ self._head_kernel(params).to(self.cfg.dtype)
 
     def loss(self, params, batch, *, ctx=None):
         """The training loss over ``batch`` (``tokens``, ``labels [B, S]``,
-        optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``.  Not
-        under a mesh (training distribution: ROADMAP Queue 1 #8)."""
-        from .transformer import chunked_ce_loss
-
-        if _mesh(ctx):
-            raise NotImplementedError(
-                "the Mamba loss under a mesh (ROADMAP Queue 1 #8)")
+        optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``.  Each
+        block runs under ``cfg.remat_policy``; the values do not depend on
+        it.  Under a mesh (placed parameters) the blocks run their
+        per-shard bodies, the rows' final states are joined on the mesh's
+        first device and the head is vocab-parallel there."""
         cfg = self.cfg
-        labels = batch["labels"]
-        x = embed(params["embed"], batch["tokens"], cfg.dtype)
+        x = self._embed(params, batch["tokens"], ctx)
 
         def blk(x, p):
-            return x + mamba_block(p["mixer"], cfg,
-                                   rmsnorm(p["ln"], x, cfg.norm_eps))
+            return _add(x, mamba_block(p["mixer"], cfg,
+                                       _norm(p["ln"], cfg, x, ctx), ctx=ctx))
 
         blk = remat(blk, cfg.remat_policy)
         for l in range(cfg.n_layers):
             x = blk(x, layer_view(params["blocks"], l))
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        mask = batch.get("loss_mask")
-        if mask is None:
-            mask = torch.ones(labels.shape, dtype=torch.float32,
-                              device=labels.device)
-        ce, z = chunked_ce_loss(lambda xc: self._logits(params, xc), x,
-                                labels, mask.float(), cfg.loss_chunk)
-        return ce + 1e-4 * z, {"ce": ce, "z": z}
+        x = _norm(params["ln_f"], cfg, x, ctx)
+        return _ce(self, params, x, batch, ctx)
 
     def prefill(self, params, batch, *, ctx=None):
         """Full-sequence dense pass over ``batch["tokens"] [B, S]``: the last
@@ -131,23 +124,27 @@ class MambaLM:
 
     # -- calibration and the PCILT build ------------------------------------
 
-    def calibrate_pcilt(self, params, batch):
+    def calibrate_pcilt(self, params, batch, *, ctx=None):
         """One full-sequence pass over a calibration batch (``batch["tokens"]
         [B, S]``) capturing the per-layer absmax of every activation the
         PCILT decode quantizes: ``{"in": [L], "out": [L], "conv_in": [],
-        "head_in": []}`` (float32)."""
+        "head_in": []}`` (float32).  Under a ``ctx`` with a mesh the pass
+        runs on the placed parameters through the per-shard bodies, each
+        absmax maxed over the rows and shards on the mesh's first
+        device."""
         cfg = self.cfg
-        h = embed(params["embed"], batch["tokens"], cfg.dtype)
+        h = self._embed(params, batch["tokens"], ctx)
         ins, outs, convs = [], [], []
         for l in range(cfg.n_layers):
             p = layer_view(params["blocks"], l)
-            xn = rmsnorm(p["ln"], h, cfg.norm_eps)
-            y, calib = mamba_block(p["mixer"], cfg, xn, return_calib=True)
-            ins.append(xn.abs().max().float())
+            xn = _norm(p["ln"], cfg, h, ctx)
+            y, calib = mamba_block(p["mixer"], cfg, xn, return_calib=True,
+                                   ctx=ctx)
+            ins.append(_absmax(xn, ctx))
             outs.append(calib["wo_in"])
             convs.append(calib["conv_in"])
-            h = h + y
-        head_in = rmsnorm(params["ln_f"], h, cfg.norm_eps).abs().max().float()
+            h = _add(h, y)
+        head_in = _absmax(_norm(params["ln_f"], cfg, h, ctx), ctx)
         return {"in": torch.stack(ins), "out": torch.stack(outs),
                 "conv_in": torch.stack(convs).max(), "head_in": head_in}
 
@@ -168,7 +165,9 @@ class MambaLM:
         ``mesh_axis`` (``core.pcilt.ShardedTables``: ``[L, G/D, V, O]``
         blocks, or ``[G2/D, L, V2, O]`` paired), layer by layer, so the
         whole stack never exists beside its shards; the conv tables and the
-        head stay whole, as in the reference.
+        head stay whole, as in the reference.  Placed parameters (a mesh's)
+        are read one layer at a time, each layer's weight joined on the
+        mesh's first device for its tables (the head's kernel once).
         The bundle carries its conversion-time CRC-32 record unless
         ``record_integrity`` is False (the caller then records it)."""
         from repro_torch.core.serving import pcilt_integrity
@@ -185,7 +184,7 @@ class MambaLM:
         tables = torch.empty((L, C, 1 << (spec.bits * k)), dtype=torch.float32,
                              device=conv_w.device)
         for l in range(L):
-            tables[l] = build_dwconv_tables(conv_w[l], spec, scale)
+            tables[l] = build_dwconv_tables(_at(conv_w, l), spec, scale)
         out = {"tables": tables, "scale": scale, "spec": spec}
         if proj_scales is not None:
             out["proj"] = self._build_proj_pcilt(params, spec, proj_scales,
@@ -207,9 +206,18 @@ class MambaLM:
             s_l = s.detach().cpu().float() if torch.is_tensor(s) else \
                 torch.tensor(np.asarray(s, np.float32))
             scales[name] = s_l
-            if paired:  # pads n to the pair width itself (zero weights)
+            if paired and isinstance(ks, Placed):  # one layer joined a time
+                L, n, O = ks.shape
+                t = torch.empty((-(-n // (2 * group)), L,
+                                 1 << (2 * spec.bits * group), O),
+                                dtype=table_dtype, device=ks.device)
+                for l in range(L):
+                    t[:, l] = build_paired_tables(_at(ks, l).float(), spec,
+                                                  float(s_l[l]), group)
+            elif paired:  # pads n to the pair width itself (zero weights)
                 t = build_paired_stacked_tables(ks, spec, s_l, group,
                                                 dtype=table_dtype)
+            if paired:
                 D = mesh_shard_count(mesh, mesh_axis, t.shape[0])
                 # [G2/D, L, V2, O] blocks: views of t on t's device
                 tabs[name] = t if D == 1 else ShardedTables.place(
@@ -225,7 +233,7 @@ class MambaLM:
                                   dtype=table_dtype, device=dev)
                       for dev in devs]
             for l in range(L):
-                wf = ks[l].float()
+                wf = _at(ks, l).float()
                 if pad_n:  # group-alignment slots from zero weights
                     wf = torch.cat([wf, wf.new_zeros((pad_n, O))], 0)
                 t_l = build_grouped_tables(wf, spec, float(s_l[l]), group)
@@ -373,6 +381,42 @@ def _mesh(ctx) -> bool:
     return ctx is not None and ctx.mesh is not None
 
 
+def _absmax(x, ctx):
+    """``max |x|`` in float32, of a tensor or over the rows of a
+    ``nn.layers.Rows`` (on the mesh's first device)."""
+    if not isinstance(x, Rows):
+        return x.abs().max().float()
+    dev = ctx.device(ctx.rows()[0])
+    return torch.stack([t.abs().max().float().to(dev)
+                        for t in x.values()]).max()
+
+
+def _ce(model, params, x, batch, ctx):
+    """The chunked vocabulary loss of the final normed states ``x`` (a
+    tensor, or the rows' blocks joined on the mesh's first device with the
+    head vocab-parallel there): ``(ce + 1e-4 * z, {"ce", "z"})``."""
+    from .transformer import chunked_ce_loss
+
+    cfg = model.cfg
+    if _mesh(ctx):
+        x = ctx.join_rows(x)
+        row0 = ctx.rows()[0]
+
+        def logits_fn(xc):
+            return model._head(params, Rows({row0: xc}, xc.shape[0]), ctx)
+    else:
+        def logits_fn(xc):
+            return model._logits(params, xc)
+    labels = batch["labels"].to(x.device)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    ce, z = chunked_ce_loss(logits_fn, x, labels, mask.float().to(x.device),
+                            cfg.loss_chunk)
+    return ce + 1e-4 * z, {"ce": ce, "z": z}
+
+
 def _norm(p, cfg, x, ctx):
     """RMSNorm of a tensor, or of each row's block under a mesh."""
     if not _mesh(ctx):
@@ -394,6 +438,17 @@ def _last(x):
     if isinstance(x, Rows):
         return x.map(lambda _, t: t[:, -1:])
     return x[:, -1:]
+
+
+def _whole(t):
+    """A tensor, or a placed leaf joined on its mesh's first device."""
+    return t.join() if isinstance(t, Placed) else t
+
+
+def _at(stack, l: int) -> torch.Tensor:
+    """Layer ``l`` of a stacked leaf, whole (a placed stack's layer joined
+    on its mesh's first device: one layer at a time, never the stack)."""
+    return _whole(layer_view(stack, l))
 
 
 def _f32(v) -> float:

@@ -45,8 +45,8 @@ from repro_torch.nn.attention import attention, attention_spec, init_cache_specs
 from repro_torch.nn.layers import (Rows, column_parallel, dense,
                                    dense_spec, embed, embed_spec, layernorm,
                                    layernorm_spec, rmsnorm, rmsnorm_spec,
-                                   sinusoidal_positions, vocab_embed,
-                                   vocab_logits)
+                                   row_parallel_rows, sinusoidal_positions,
+                                   vocab_embed, vocab_logits)
 from repro_torch.nn.moe import moe_apply, moe_spec
 from repro_torch.nn.module import (ParamSpec, Placed, layer_view, remat,
                                    stack_specs)
@@ -107,10 +107,19 @@ def _mlp_mesh(params, cfg, ctx, xs):
             u = column_parallel(ctx, row, params["wu"], x, cfg.dtype)
             hs[row] = [(r, F.silu(g) * h) for (r, g), (_, h) in zip(a, u)]
 
+    # the gated MLP's wd takes row_parallel under explicit_rs, as the
+    # reference's does (the GELU MLP's wo does not)
+    _, S, f = next(iter(hs.values()))[0][1].shape
+    rs = None if gelu else row_parallel_rows(
+        ctx, hs, wd, "bsf,fd->bsd", (xs.batch, S, wd.shape[0]), cfg.dtype)
+
     def out(row, _):
-        parts = [t.float() @ ctx.weight(wd, row, j).to(cfg.dtype).float()
-                 for j, (_, t) in enumerate(hs[row])]
-        y = ctx.reduce(parts, row, cfg.dtype)
+        if rs is not None:
+            y = rs[row]
+        else:
+            parts = [t.float() @ ctx.weight(wd, row, j).to(cfg.dtype).float()
+                     for j, (_, t) in enumerate(hs[row])]
+            y = ctx.reduce(parts, row, cfg.dtype)
         if "bias" in params[down]:
             y = y + ctx.weight(params[down]["bias"], row, 0).to(
                 y.device, cfg.dtype)
@@ -350,29 +359,26 @@ class TransformerLM:
     def _run_encoder(self, params, memory, ctx=None):
         """whisper's encoder over the stub frame embeddings ``[B, F, d]``:
         sinusoidal positions, the non-causal blocks (each under
-        ``cfg.remat_policy``), then the encoder's final norm."""
+        ``cfg.remat_policy``, with or without a mesh), then the encoder's
+        final norm."""
         cfg = self.cfg
-        if self._mesh(ctx):
-            x = ctx.split_rows(memory).map(
-                lambda _, t: t.to(cfg.dtype) + sinusoidal_positions(
-                    t.shape[1], cfg.d_model, device=t.device)
-                .to(cfg.dtype)[None])
-            for l in range(cfg.encoder_layers):
-                p = layer_view(params["encoder"]["blocks"], l)
-                x = block_apply(p["sub0"], cfg, x, None, causal=False,
-                                ctx=ctx)[0]
-            return _norm(params["encoder"]["ln_f"], cfg, x, ctx)
-        x = memory.to(cfg.dtype)
-        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                     device=x.device).to(cfg.dtype)[None]
+
+        def start(t):
+            t = t.to(cfg.dtype)
+            return t + sinusoidal_positions(t.shape[1], cfg.d_model,
+                                            device=t.device).to(cfg.dtype)[None]
+
+        x = ctx.split_rows(memory).map(lambda _, t: start(t)) \
+            if self._mesh(ctx) else start(memory)
 
         def blk(h, p):
-            return block_apply(p["sub0"], cfg, h, None, causal=False)[0]
+            return block_apply(p["sub0"], cfg, h, None, causal=False,
+                               ctx=ctx)[0]
 
         blk = remat(blk, cfg.remat_policy)
         for l in range(cfg.encoder_layers):
             x = blk(x, layer_view(params["encoder"]["blocks"], l))
-        return _norm(params["encoder"]["ln_f"], cfg, x)
+        return _norm(params["encoder"]["ln_f"], cfg, x, ctx)
 
     def _cross_kv_from_memory(self, params, enc_out, ctx=None):
         """Each decoder layer's cross K/V of the encoder's output, once a
@@ -492,11 +498,11 @@ class TransformerLM:
         "z", "load_balance", "router_z"})``; an MoE config adds ``1e-2 *
         load_balance / n_units + 1e-3 * router_z / n_units``.  An image
         config's loss is over the text positions only, so its ``tokens``
-        must not be empty.  Each unit runs under ``cfg.remat_policy``; the
-        values do not depend on it.  Under a mesh (placed parameters) the
-        blocks run their per-shard bodies without remat, the rows' final
-        states are joined on the mesh's first device and the head is
-        vocab-parallel there."""
+        must not be empty.  Each unit runs under ``cfg.remat_policy``, with
+        or without a mesh; the values do not depend on it.  Under a mesh
+        (placed parameters) the blocks run their per-shard bodies, the
+        rows' final states are joined on the mesh's first device and the
+        head is vocab-parallel there."""
         cfg = self.cfg
         S = batch["tokens"].shape[1]
         if cfg.n_img_tokens and S == 0:
@@ -504,29 +510,27 @@ class TransformerLM:
                 "tokens must be longer than 0 after the image tokens: the "
                 "loss of an image config is over the text positions only")
         x, positions, cross = self._inputs(params, batch, ctx)
+
+        def blk(x, p, *xkv):
+            x, _, a = self._unit(p, x, positions, xkv=xkv or None, ctx=ctx)
+            return x, a["load_balance"], a["router_z"]
+
+        blk = remat(blk, cfg.remat_policy)
+        dev = ctx.device(ctx.rows()[0]) if self._mesh(ctx) else x.device
+        lb = rz = torch.zeros((), device=dev)
+        for l in range(self._n_units()):
+            xkv = _cross_at(cross, l) or ()
+            x, a_lb, a_rz = blk(x, layer_view(params["blocks"], l), *xkv)
+            lb, rz = lb + a_lb, rz + a_rz
+        x = _norm(params["ln_f"], cfg, x, ctx)
         if self._mesh(ctx):
-            x, _, aux = self._run_blocks(params, x, positions,
-                                         cross_kv=cross, ctx=ctx)
-            lb, rz = aux["load_balance"], aux["router_z"]
-            x = ctx.join_rows(_norm(params["ln_f"], cfg, x, ctx))
+            x = ctx.join_rows(x)
             row0 = ctx.rows()[0]
 
             def logits_fn(xc):
                 return self._logits(params, Rows({row0: xc}, xc.shape[0]),
                                     ctx)[row0]
         else:
-            def blk(x, p, *xkv):
-                x, _, a = self._unit(p, x, positions, xkv=xkv or None)
-                return x, a["load_balance"], a["router_z"]
-
-            blk = remat(blk, cfg.remat_policy)
-            lb = rz = torch.zeros((), device=x.device)
-            for l in range(self._n_units()):
-                xkv = _cross_at(cross, l) or ()
-                x, a_lb, a_rz = blk(x, layer_view(params["blocks"], l), *xkv)
-                lb, rz = lb + a_lb, rz + a_rz
-            x = _norm(params["ln_f"], cfg, x)
-
             def logits_fn(xc):
                 return self._logits(params, xc)
         if cfg.n_img_tokens:  # the image positions carry no loss

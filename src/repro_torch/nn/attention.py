@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .layers import (Rows, assemble, column_parallel, dense, dense_spec,
-                     rmsnorm, rmsnorm_spec, rope)
+                     rmsnorm, rmsnorm_spec, rope, row_parallel_rows)
 from .module import ParamSpec, Placed, TablePlacement
 
 __all__ = ["attention_spec", "attention", "init_cache_specs", "NEG_INF"]
@@ -475,13 +475,19 @@ def _attention_mesh(params, cfg, ctx, xs, positions, causal, cache,
             "v": _placed_from_rows(ctx, {r: kv[1] for r, kv in
                                          kv_rows.items()}, axes, shape,
                                    CACHE_DTYPE)}
-    ys = _wo_mesh(cfg, ctx, wo, outs)
+    ys = _wo_mesh(cfg, ctx, wo, outs, B)
     return ys, new_cache
 
 
-def _wo_mesh(cfg, ctx, wo, outs):
+def _wo_mesh(cfg, ctx, wo, outs, B: int):
     """The row-parallel output projection: each shard's heads against its
-    ``wo`` block."""
+    ``wo`` block (through ``row_parallel`` under ``ctx.explicit_rs``, the
+    same sums); ``B`` the global batch."""
+    _, S, _, Dh = next(iter(outs.values()))[0][1].shape
+    ys = row_parallel_rows(ctx, outs, wo, "bshd,hde->bse",
+                           (B, S, wo.shape[0], Dh), cfg.dtype)
+    if ys is not None:
+        return ys
     ys = {}
     for row, pieces in outs.items():
         parts = [torch.einsum("bshd,hde->bse", t.to(cfg.dtype).float(),

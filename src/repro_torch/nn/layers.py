@@ -41,7 +41,8 @@ from .module import (ParamSpec, Placed, ShardingRules, TablePlacement,
 
 __all__ = ["Ctx", "dense_spec", "dense", "embed_spec", "embed",
            "rmsnorm_spec", "rmsnorm", "layernorm_spec", "layernorm", "rope",
-           "sinusoidal_positions", "row_parallel", "Rows", "column_parallel",
+           "sinusoidal_positions", "row_parallel", "row_parallel_rows",
+           "Rows", "column_parallel",
            "assemble", "vocab_embed", "vocab_logits"]
 
 
@@ -49,9 +50,9 @@ __all__ = ["Ctx", "dense_spec", "dense", "embed_spec", "embed",
 class Ctx:
     """Execution context: mesh + rules (None: one device, no sharding).
     ``decode`` (a decode step) is kept for the reference's signature only:
-    nothing in the port reads it.  ``explicit_rs`` switches
-    :func:`row_parallel` on; no block calls it yet (the train step that
-    selects it is ROADMAP Queue 1 #8)."""
+    nothing in the port reads it.  ``explicit_rs`` routes the blocks'
+    row-parallel ``wo``/``wd`` through :func:`row_parallel`
+    (:func:`row_parallel_rows`; ``make_train_step(explicit_rs=True)``)."""
 
     mesh: Any = None
     rules: Optional[ShardingRules] = None
@@ -328,6 +329,29 @@ def row_parallel(x, w, eq: str, w_gather_axes=("data", "pod"), *,
     spec = (x.spec[0], "model", None)
     return Placed(TablePlacement(ctx.mesh, spec), (x.shape[0], S, out_dim),
                   x.dtype, blocks)
+
+
+def row_parallel_rows(ctx: Ctx, pieces, w: Placed, eq: str, shape, dtype):
+    """A block's row-parallel region (attention ``wo``, MLP ``wd``)
+    through :func:`row_parallel` when ``ctx.explicit_rs`` selects it:
+    ``pieces`` maps each row to its shards' contraction inputs ``[((lo,
+    hi), t)]`` (dim 2 cut over ``"model"``), assembled into a placed
+    activation of ``shape``; the sequence-split result is joined back into
+    each row's ``[b, S, d_out]`` on the row's first device.  None where
+    :func:`row_parallel` declines (and where the region does not split),
+    so the caller runs its own reduction."""
+    if not ctx.explicit_rs or ctx.splits(w, 0) == 1:
+        return None
+    spec = (ctx.pspec(("batch",), shape[:1])[0], None, "model") \
+        + (None,) * (len(shape) - 3)
+    blocks = {ctx.coord(row, j): t for row, ps in pieces.items()
+              for j, (_, t) in enumerate(ps)}
+    y = row_parallel(Placed(TablePlacement(ctx.mesh, spec), shape, dtype,
+                            blocks), w, eq, ctx=ctx)
+    if y is None:
+        return None
+    return {row: torch.cat([y.local(ctx.coord(row, j)).to(ctx.device(row))
+                            for j in range(ctx.tp)], 1) for row in pieces}
 
 
 def embed_spec(vocab: int, d: int, dtype=torch.float32):

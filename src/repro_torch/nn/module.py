@@ -548,6 +548,52 @@ class Placed:
             blocks[c] = made[id(t)]
         return Placed(self.placement, self.shape, self.dtype, blocks)
 
+    def map(self, fn, *others: "Placed") -> "Placed":
+        """A leaf of this placement whose block at each coordinate is
+        ``fn(block, *(o's block there for o in others))``, called once a
+        distinct block tensor of this leaf (the sharing kept); ``others``
+        are leaves on the same mesh whose block at a coordinate goes with
+        this leaf's there (the same placement, or an int8 moment's row
+        scales).  ``fn`` may change the dtype."""
+        made, blocks = {}, {}
+        for c, t in self.blocks.items():
+            if id(t) not in made:
+                made[id(t)] = fn(t, *(o.blocks[c] for o in others))
+            blocks[c] = made[id(t)]
+        dtype = next(iter(made.values())).dtype
+        return Placed(self.placement, self.shape, dtype, blocks)
+
+    def replace(self, placement: TablePlacement) -> "Placed":
+        """This leaf re-cut by ``placement`` (another partition spec on the
+        same mesh): each new block is copied, on its device, from the
+        blocks of this leaf that overlap it, one distinct block index of
+        this leaf at a time; the whole leaf is never assembled.  Returns
+        ``self`` when the placement is the same."""
+        if placement.spec == self.spec:
+            return self
+        src = {}
+        for c, t in self.unique():
+            src.setdefault(self.placement.block_index(c), (c, t))
+
+        def block(index, dev):
+            want = placement.block_ranges(self.shape, index)
+            out = torch.empty([b - a for a, b in want], dtype=self.dtype,
+                              device=dev)
+            for i, (c, t) in src.items():
+                have = self.placement.block_ranges(self.shape, i)
+                lo = [max(a, x) for (a, _), (x, _) in zip(want, have)]
+                hi = [min(b, y) for (_, b), (_, y) in zip(want, have)]
+                if any(l >= h for l, h in zip(lo, hi)):
+                    continue
+                dst = tuple(slice(l - a, h - a)
+                            for l, h, (a, _) in zip(lo, hi, want))
+                sl = tuple(slice(l - x, h - x)
+                           for l, h, (x, _) in zip(lo, hi, have))
+                out[dst] = t[sl].to(dev)
+            return out
+
+        return Placed.build(placement, self.shape, self.dtype, block)
+
     def fill_index_(self, dim: int, index: int, value=0) -> "Placed":
         """Write ``value`` into index ``index`` of dim ``dim``, in place, in
         the blocks that hold it."""

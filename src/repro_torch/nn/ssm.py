@@ -37,7 +37,7 @@ from repro_torch.core import (QuantSpec, build_dwconv_tables, fake_quant,
                               quantize_with_stats)
 from .layers import (Rows, assemble, column_parallel, dense, dense_spec,
                      rmsnorm, rmsnorm_spec)
-from .module import ParamSpec, TablePlacement
+from .module import ParamSpec, Placed, TablePlacement
 
 __all__ = ["mamba_spec", "mamba_block", "mamba_decode", "ssm_cache_specs",
            "build_pcilt_conv", "PROJ_NAMES"]
@@ -56,7 +56,9 @@ def build_pcilt_conv(params, cfg, scale):
     tables ``[C, 2**(act_bits*k)]`` on a symmetric ``cfg.pcilt.act_bits``
     grid (the conv input is a signed pre-activation stream).  ``scale`` is
     the calibrated per-tensor scale of that input.  Returns the ``pcilt=``
-    dict :func:`mamba_block` and :func:`mamba_decode` take."""
+    dict :func:`mamba_block` and :func:`mamba_decode` take.  A placed
+    ``conv_w`` (under a mesh) gives placed tables: each channel shard's
+    ``[C/n, V]`` block built on its device, by ``conv_w``'s channel rule."""
     if cfg.pcilt is None:
         raise ValueError(
             "build_pcilt_conv requires cfg.pcilt (a configs.base.PCILTConfig "
@@ -64,7 +66,20 @@ def build_pcilt_conv(params, cfg, scale):
             "cfg = dataclasses.replace(cfg, pcilt=PCILTConfig(...)) before "
             "converting, or run the conv dense with pcilt=None")
     spec = QuantSpec(bits=cfg.pcilt.act_bits, symmetric=True)
-    tables = build_dwconv_tables(params["conv_w"], spec, scale)
+    conv_w = params["conv_w"]
+    if not isinstance(conv_w, Placed):
+        tables = build_dwconv_tables(conv_w, spec, scale)
+        return {"tables": tables, "scale": scale, "spec": spec}
+    # a placed conv_w [k, C]: each channel block's tables [C/n, V] built on
+    # its device, placed by conv_w's channel rule (no whole table anywhere)
+    made, blocks = {}, {}
+    for c, w in conv_w.blocks.items():
+        if id(w) not in made:
+            made[id(w)] = build_dwconv_tables(w, spec, scale)
+        blocks[c] = made[id(w)]
+    V = next(iter(made.values())).shape[1]
+    placement = TablePlacement(conv_w.mesh, (conv_w.spec[1], None))
+    tables = Placed(placement, (conv_w.shape[1], V), torch.float32, blocks)
     return {"tables": tables, "scale": scale, "spec": spec}
 
 
@@ -285,14 +300,17 @@ def mamba_block(params, cfg, x: torch.Tensor, return_state: bool = False,
     routes the conv frontend through the fused PCILT kernel, and
     ``return_calib`` adds the absmax of the conv input and of the ``wo``
     input.  Under a ``ctx`` with a mesh (``x`` a ``nn.layers.Rows``, the
-    parameters placed) the block runs its per-shard body (the state comes
-    back placed by the cache rules; no PCILT conv, no calibration)."""
+    parameters placed) the block runs its per-shard body: the state comes
+    back placed by the cache rules, the PCILT conv runs kernel 2 once per
+    row and channel shard on that shard's block of the signal and of the
+    tables, and the absmaxes are maxed over the rows and shards."""
     if ctx is not None and ctx.mesh is not None:
-        if pcilt is not None or return_calib:
-            raise NotImplementedError(
-                "a PCILT conv or a calibration pass under a mesh")
-        out, state, _ = _mamba_mesh(params, cfg, ctx, x)
-        return (out, state) if return_state else out
+        out, state, _, calib = _mamba_mesh(params, cfg, ctx, x, pcilt=pcilt,
+                                           calib=return_calib)
+        results = [state] if return_state else []
+        if return_calib:
+            results.append(calib)
+        return (out, *results) if results else out
     s = cfg.ssm
     d_inner, H, _ = _dims(cfg)
     z = dense(params["wz"], x, cfg.dtype)
@@ -336,8 +354,8 @@ def mamba_decode(params, cfg, x: torch.Tensor, state: Dict, pcilt=None,
     parameters and ``state`` are placed, and the step runs its per-shard
     body (the counters summed over the rows, the ratios their max)."""
     if ctx is not None and ctx.mesh is not None:
-        out, new_state, stats = _mamba_mesh(params, cfg, ctx, x, state,
-                                            pcilt, with_stats)
+        out, new_state, stats, _ = _mamba_mesh(params, cfg, ctx, x, state,
+                                               pcilt, with_stats)
         return (out, new_state, stats) if with_stats else (out, new_state)
     s = cfg.ssm
     d_inner, H, _ = _dims(cfg)
@@ -422,7 +440,7 @@ def _proj_mesh(params, name, x, cfg, proj, ctx, row, with_stats):
 
 
 def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
-                with_stats: bool = False):
+                with_stats: bool = False, calib: bool = False):
     """:func:`mamba_decode` (``state`` given) or the full-sequence
     :func:`mamba_block` (``state`` None, returning the decode-ready state)
     under a mesh.  ``xs`` (a ``nn.layers.Rows``) holds the rows' normed
@@ -430,23 +448,26 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
 
     Per row: ``wz``/``wx`` column-parallel over the ``"mlp"`` columns (or
     the bundle's table fetches on the full activation), the conv per
-    channel shard of ``conv_w``/``conv_b`` and the conv state (the fused
-    table fetch of a PCILT bundle on the joined window, the tables where
-    the bundle holds them; each shard's new state from its own window),
-    the recurrence per ``"ssm_heads"`` shard of the SSD state, the gated
-    norm over the shards' ``d_inner`` columns (their float32 sums of
-    squares added in order on the row's first device), and ``wo``
-    row-parallel (or its table fetch).  Returns ``(outs, new_state,
-    stats)``: stats ``{"in"|"conv"|"out": (count summed over the rows,
-    ratio max over the rows)}``."""
+    channel shard of ``conv_w``/``conv_b`` and the conv state (in decode
+    the fused table fetch of a PCILT bundle on the joined window, the
+    tables where the bundle holds them; in the full-sequence pass one
+    CAUSAL kernel-2 launch per channel shard, on that shard's block of
+    the signal and of the ``build_pcilt_conv`` tables, on its device; each
+    shard's new state from its own window), the recurrence per
+    ``"ssm_heads"`` shard of the SSD state, the gated norm over the
+    shards' ``d_inner`` columns (their float32 sums of squares added in
+    order on the row's first device), and ``wo`` row-parallel (or its
+    table fetch).  Returns ``(outs, new_state, stats, calib)``: stats
+    ``{"in"|"conv"|"out": (count summed over the rows and shards in
+    order, ratio max over them)}`` (the full-sequence PCILT conv's counters
+    always), ``calib`` (with ``calib``) the absmax of the conv input and
+    of the ``wo`` input, maxed over the rows and shards."""
     s = cfg.ssm
     d_inner, H, C = _dims(cfg)
     GN = s.n_groups * s.d_state
     P, k = s.head_dim, s.conv_kernel
     proj = None if pcilt is None else pcilt.get("proj")
     decode = state is not None
-    if pcilt is not None and not decode:
-        raise NotImplementedError("a full-sequence PCILT conv under a mesh")
     B = xs.batch
     T = next(iter(xs.values())).shape[1]
     conv_w = params["conv_w"]
@@ -465,6 +486,7 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
             ("batch", None, "mlp"), (B, k - 1, C)))
         nh = ctx.tp if ssd_place.spec[1] == "model" else 1
     sat = {g: [] for g in ("in", "conv", "out")}
+    amax = {"conv_in": [], "wo_in": []}
     outs, conv_new, ssd_new = {}, {}, {}
     for row, x in xs.items():
         dev0 = ctx.device(row)
@@ -484,6 +506,8 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
             c0, c1 = j * size, (j + 1) * size
             dj = ctx.device(row, j)
             seg = assemble(xbc, c0, c1, dj, -1)
+            if calib:
+                amax["conv_in"].append(seg.abs().max().float())
             if decode:
                 st = state["conv"].local(ctx.coord(row, j))
                 window = torch.cat([st.to(seg.dtype), seg], 1)
@@ -491,7 +515,14 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
                 windows.append(window[:, -k:])
             else:
                 conv_new[(row, j)] = seg[:, -(k - 1):].float()
-            if pcilt is not None:
+            if pcilt is not None and decode:
+                continue
+            if pcilt is not None:  # kernel 2 on this shard's channels
+                y, cnt, rat = _conv_shard(pcilt, conv_w, ctx, row, j, seg)
+                sat["conv"].append((cnt, rat))
+                y = y.to(seg.dtype) + ctx.weight(params["conv_b"], row, j) \
+                    .to(seg.dtype)
+                conv_y.append(((c0, c1), y))
                 continue
             w = ctx.weight(conv_w, row, j).to(seg.dtype)
             if decode:
@@ -501,7 +532,7 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
                 y = sum(pad[:, i:i + T] * w[i][None, None] for i in range(k))
             y = y + ctx.weight(params["conv_b"], row, j).to(seg.dtype)
             conv_y.append(((c0, c1), y))
-        if pcilt is not None:  # the fused table fetch of the joined window
+        if pcilt is not None and decode:  # the fetch of the joined window
             win = torch.cat([w.to(dev0) for w in windows], -1)
             lp = {"conv_w": conv_w.join(dev0),
                   "conv_b": params["conv_b"].join(dev0)}
@@ -511,7 +542,7 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
                 (r[0], *_zero_stats(dev0))
             sat["conv"].append((cnt, rat))
             conv_y = [((0, C), y)]
-        else:
+        elif pcilt is None:
             sat["conv"].append(_zero_stats(dev0))
         conv_y = [(r, F.silu(t)) for r, t in conv_y]
         Bf = assemble(conv_y, d_inner, d_inner + GN, dev0, -1)
@@ -562,6 +593,8 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
         ys = [((a, b), (y.float() * inv.to(y.device)
                         * scale[a:b].to(y.device)).to(y.dtype))
               for (a, b), y in ys]
+        if calib:
+            amax["wo_in"].extend(y.abs().max().float() for _, y in ys)
         # the output projection
         if proj is not None and "wo" in proj["tables"]:
             tdev = proj["tables"]["wo"].device
@@ -591,4 +624,17 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
     stats = {g: (sum(c.to(dev) for c, _ in v),
                  torch.stack([r.to(dev) for _, r in v]).max())
              for g, v in sat.items()}
-    return Rows(outs, B), new_state, stats
+    found = {n: torch.stack([a.to(dev) for a in v]).max()
+             for n, v in amax.items()} if calib else None
+    return Rows(outs, B), new_state, stats, found
+
+
+def _conv_shard(pcilt, conv_w, ctx, row, j, seg):
+    """The full-sequence PCILT conv of one channel shard: kernel 2 (CAUSAL)
+    on ``seg`` (the shard's ``[B, T, C/n]`` block of the signal, on its
+    device) and the shard's block of the placed tables (cut as ``conv_w``
+    by :func:`build_pcilt_conv`).  Returns ``(y, count, ratio)``."""
+    return pcilt_depthwise_conv1d(
+        seg, ctx.weight(conv_w, row, j), pcilt["spec"], pcilt["scale"],
+        tables=ctx.weight(pcilt["tables"], row, j), path="fused",
+        padding="CAUSAL", return_stats=True)

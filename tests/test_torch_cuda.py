@@ -1250,7 +1250,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     for dev in (cuda, torch.device("cpu")):
         p = materialize(build_model(cfg).param_specs(), 0, device=dev)
         b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
-        _, st, m = make_train_step(cfg, probe)(p, adamw_init(p, probe), b)
+        _, st, m = make_train_step(cfg, None, probe)(p, adamw_init(p, probe),
+                                                     b)
         runs[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
                           {k: v.cpu() for k, v in _flat_tree(st["m"]).items()})
     (lg, ng, gg), (lc, nc, gc) = runs["cuda"], runs["cpu"]
@@ -1302,6 +1303,66 @@ def test_mamba_block_pcilt_on_the_card_equals_plain(cuda):
     with pytest.raises(TypeError, match="float32"):
         ssm.mamba_block(on, dataclasses.replace(cfg, dtype=torch.bfloat16),
                         xb, pcilt=pcc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["CAUSAL", "VALID"])
+def test_fused_dwconv_on_a_channel_slice_equals_plain(cuda, padding):
+    """Kernel 2 on a channel block of a wider signal (strided, as a mesh's
+    channel shard takes it): each of four blocks, with its block of the
+    tables, equals the plain version on the same block, output and
+    counters exactly, one launch a block; and ``mamba_block(pcilt=,
+    ctx=)`` on a (1, 4) mesh of this card launches it once a channel
+    shard, its output within 2e-4 of the unsharded block's."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import PCILTConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_ctx
+    from repro_torch.nn import ssm
+    from repro_torch.nn.module import materialize, place, shardings
+
+    spec = QuantSpec(4, True)
+    rng = np.random.default_rng(9)
+    C, k, n = 96, 4, 4
+    x = torch.from_numpy(rng.normal(0, 0.3, (3, 21, C)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.5, (k, C)).astype(np.float32))
+    tabs = build_dwconv_tables(w, spec, 0.05)
+    size = C // n
+    for j in range(n):
+        xs, ts = x[..., j * size:(j + 1) * size], tabs[j * size:(j + 1) * size]
+        assert not xs.is_contiguous()
+        want, wc, wr = ops.pcilt_fused_dwconv1d(xs, ts, spec, 0.05, k,
+                                                padding, with_stats=True)
+        before = ops.LAUNCHES["dwconv1d"]
+        got, gc, gr = ops.pcilt_fused_dwconv1d(xs.to(cuda), ts.to(cuda),
+                                               spec, 0.05, k, padding,
+                                               with_stats=True)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["dwconv1d"] == before + 1
+        assert torch.equal(got.cpu(), want)
+        assert int(gc) == int(wc) and float(gr) == float(wr)
+    cfg = dataclasses.replace(get_smoke_config("mamba2-130m"),
+                              pcilt=PCILTConfig(act_bits=4, group=2),
+                              dtype=torch.float32)
+    params = materialize(ssm.mamba_spec(cfg), 3, device="cpu")
+    xb = torch.from_numpy(rng.normal(0, 1, (4, 24, cfg.d_model))
+                          .astype(np.float32))
+    want = ssm.mamba_block(params, cfg, xb,
+                           pcilt=ssm.build_pcilt_conv(params, cfg, 0.05))
+    mesh = make_host_mesh(1, n, devices=[cuda] * n)
+    ctx = make_ctx(mesh)
+    placed = place(materialize(ssm.mamba_spec(cfg), 3, device=cuda),
+                   shardings(ssm.mamba_spec(cfg), mesh))
+    pc = ssm.build_pcilt_conv(placed, cfg, 0.05)
+    ops.reset_launches()
+    got = ctx.join_rows(ssm.mamba_block(placed, cfg, ctx.split_rows(
+        xb.to(cuda)), pcilt=pc, ctx=ctx))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dwconv1d"] == n
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 2e-4 * scale
 
 
 @pytest.mark.cuda

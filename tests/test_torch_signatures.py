@@ -7,7 +7,7 @@ The rule, after setting aside the reference parameters the port leaves out
 by design (``ctx`` and ``axes``, keyword-only in the port, and ``key``
 where the port takes a ``seed`` or ``generator`` in its place), and
 ``mesh``/``mesh_axis`` of the names whose mesh is still queued
-(:data:`MESH_QUEUED`: the train step, the expert-parallel MoE):
+(:data:`MESH_QUEUED`: the expert-parallel MoE):
 
 * the port's positional parameters are a prefix of the reference's, in the
   reference's order;
@@ -15,9 +15,10 @@ where the port takes a ``seed`` or ``generator`` in its place), and
   is keyword-only (which the prefix rule implies: a positional one there
   would break the prefix).
 
-Then one positional call each of ``Engine``, ``pcilt_linear`` and
-``ModelConfig`` in both packages, showing the same meaning (and the
-positional ``mesh`` of ``pcilt_linear`` and ``Engine``).
+Then one positional call each of ``Engine``, ``pcilt_linear``,
+``ModelConfig``, ``make_train_step`` and ``MambaLM.calibrate_pcilt`` in
+both packages, showing the same meaning (and the positional ``mesh`` of
+``pcilt_linear``, ``Engine`` and ``make_train_step``).
 """
 
 import importlib
@@ -33,11 +34,9 @@ import repro_torch
 
 #: reference parameters the port leaves out by design
 BY_DESIGN = {"ctx", "axes"}
-#: the shared names whose ``mesh``/``mesh_axis`` wait for the training
-#: distribution (``make_train_step``) or for expert parallelism
-#: (``moe_apply``)
-MESH_QUEUED = ("repro_torch.launch.steps.make_train_step",
-               "repro_torch.nn.moe.moe_apply")
+#: the shared names whose ``mesh``/``mesh_axis`` wait for expert
+#: parallelism (``moe_apply``)
+MESH_QUEUED = ("repro_torch.nn.moe.moe_apply",)
 #: the port's stand-ins for the reference's PRNG ``key``
 KEY_STANDINS = {"seed", "generator"}
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
@@ -287,3 +286,85 @@ def test_model_config_positional_fields():
         assert getattr(t, f) == getattr(j, f), f
     with pytest.raises(TypeError):
         TConfig(*args, None)  # the fields after pos_embed are keyword-only
+
+
+def test_make_train_step_positional_mesh():
+    """``make_train_step(cfg, mesh, ocfg, bf16_grads)``: the second
+    positional argument is the mesh in both packages (None: one device,
+    the same step's loss and gradient norm); the port's on a (1, 2) CPU
+    mesh takes placed parameters and gives the same loss."""
+    import jax
+
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.launch.steps import make_train_step as j_step
+    from repro.models import build_model as j_build
+    from repro.optim import AdamWConfig as JAdam
+    from repro.optim import adamw_init as j_init
+    from repro_torch.configs import get_smoke_config as t_smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.interop import params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step as t_step
+    from repro_torch.nn import module as tmod
+    from repro_torch.optim import AdamWConfig as TAdam
+    from repro_torch.optim import adamw_init as t_init
+    from test_torch_donor import jax_donor
+
+    jcfg = j_smoke("qwen3-0.6b")
+    tcfg = t_smoke("qwen3-0.6b")
+    specs = j_build(jcfg).param_specs()
+    jp = jax_donor(specs, 0)
+    nb = SyntheticLM(vocab=jcfg.vocab, seq_len=8, global_batch=2,
+                     seed=1).batch(0)
+    _, _, jm = jax.jit(j_step(jcfg, None, JAdam(), False))(
+        jp, j_init(jp, JAdam()), {k: jnp.asarray(v) for k, v in nb.items()})
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in nb.items()}
+    _, _, tm = t_step(tcfg, None, TAdam(), False)(tp, t_init(tp, TAdam()),
+                                                    tb)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=2e-2)
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=2e-2)
+    mesh = make_host_mesh(1, 2, devices=["cpu"] * 2)
+    placed = tmod.place(tp, tmod.shardings(_specs(tcfg), mesh))
+    _, new_o, mm = t_step(tcfg, mesh, TAdam(), False)(
+        placed, t_init(placed, TAdam()), tb)
+    assert isinstance(new_o["m"]["embed"]["embedding"], tmod.Placed)
+    np.testing.assert_allclose(float(mm["loss"]), float(tm["loss"]),
+                               rtol=1e-2)
+
+
+def _specs(cfg):
+    from repro_torch.models import build_model
+
+    return build_model(cfg).param_specs()
+
+
+def test_calibrate_pcilt_positional_batch():
+    """``MambaLM.calibrate_pcilt(params, batch)``: the second positional
+    argument is the calibration batch in both packages (the reference's
+    third, ``ctx``, is keyword-only in the port); the same absmaxes."""
+    import jax
+
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.models import build_model as j_build
+    from repro.nn.layers import Ctx
+    from repro_torch.configs import get_smoke_config as t_smoke
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import build_model as t_build
+    from test_torch_donor import jax_donor
+
+    jm = j_build(j_smoke("mamba2-130m"))
+    tm = t_build(t_smoke("mamba2-130m"))
+    jp = jax_donor(jm.param_specs(), 0)
+    tok = np.random.default_rng(4).integers(0, 256, (2, 16))
+    want = jax.jit(lambda p, b: jm.calibrate_pcilt(p, b, Ctx()))(
+        jp, {"tokens": jnp.asarray(tok, jnp.int32)})
+    with torch.no_grad():
+        got = tm.calibrate_pcilt(
+            params_from_jax(jax.tree.map(np.asarray, jp), "cpu"),
+            {"tokens": torch.from_numpy(tok)})
+    for k in ("in", "out", "conv_in", "head_in"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=2e-2, err_msg=k)

@@ -243,7 +243,7 @@ def _jax_grads(jcfg, params, batch, bf16_grads):
 
 def _port_grads(tcfg, params, batch, bf16_grads):
     ocfg = topt.AdamWConfig(lr=0.0, weight_decay=0.0, **PROBE)
-    step = tsteps.make_train_step(tcfg, ocfg, bf16_grads)
+    step = tsteps.make_train_step(tcfg, None, ocfg, bf16_grads)
     _, st, _ = step(params, topt.adamw_init(params, ocfg), batch)
     return st["m"]
 
@@ -262,7 +262,7 @@ def test_train_step_matches_reference(bf16_grads, accum, donors):
     ocfg_t = topt.AdamWConfig(lr=topt.cosine_schedule(3e-3, 2, 10),
                               weight_decay=0.01)
     jstep = jax.jit(jsteps.make_train_step(jcfg, None, ocfg_j, bf16_grads))
-    tstep = tsteps.make_train_step(tcfg, ocfg_t, bf16_grads)
+    tstep = tsteps.make_train_step(tcfg, None, ocfg_t, bf16_grads)
     jp = jax.tree.map(jnp.asarray, donors[arch])
     jo = jopt.adamw_init(jp, ocfg_j)
     data = SyntheticLM(vocab=jcfg.vocab, seq_len=16, global_batch=4, seed=3)
@@ -316,7 +316,8 @@ def test_train_step_leaves_its_arguments(donors):
     opt = topt.adamw_init(tp, ocfg)
     batch = {k: torch.from_numpy(v)
              for k, v in _batch(tcfg, B=2, S=8).items()}
-    new_p, new_o, _ = tsteps.make_train_step(tcfg, ocfg)(tp, opt, batch)
+    new_p, new_o, _ = tsteps.make_train_step(tcfg, None, ocfg)(tp, opt,
+                                                                batch)
     for k, v in _flat(tp).items():
         torch.testing.assert_close(v, before[k], rtol=0, atol=0)
         assert not v.requires_grad
