@@ -12,11 +12,13 @@ coordinate, placed by ``nn.module.shardings``), and the layers run their
 per-shard bodies under a ``nn.layers.Ctx``.  Each shard's partial sum is
 computed on its device in float32, moved to the axis's first device and
 added there in shard order (a fixed order: no atomics).  :func:`make_mesh`
-names any axes (``("stage",)`` for ``runtime.pipeline_apply``).  The
-multi-process ``torch.distributed`` form belongs with the training
-distribution, which is not ported yet; so is ``make_production_mesh``
-(the reference's v5e pods of 256 and 512 chips, which waits for the
-``dryrun``/``specs`` slice).
+names any axes (``("stage",)`` for ``runtime.pipeline_apply``).  The same
+mesh carries expert parallelism (``nn.moe``'s all-to-all and psum
+schedules, the tiled all-to-all a set of device moves between the model
+shards) and the compressed gradient reduction (``optim.compress``).  No
+multi-process form is planned: the reference is one process as well (it
+has no ``jax.distributed``).  ``make_production_mesh`` (the reference's
+v5e pods of 256 and 512 chips) waits for the ``dryrun``/``specs`` slice.
 
 A mesh never falls back to the CPU: without ``devices=`` it spans CUDA
 cards, and asking for more shards than there are cards raises.  An explicit

@@ -77,8 +77,10 @@ checked against the partition specs, and the steps run the layers'
 per-shard bodies (``nn.layers.Ctx``); a slot reset, the checkpoint ring,
 a restore and a rollback work on the placed blocks.  With ``pcilt`` the
 converted Mamba decode runs under ``make_ctx(mesh, None, decode=True)``.
-An MoE config is refused under a mesh (expert parallelism is not
-ported).
+An MoE config serves on a mesh too: its experts are cut over ``"model"``
+(and their ``embed`` dim over ``"data"``), each device's expert blocks
+checked with the rest, and every decode step (one token a slot) takes
+``nn.moe``'s psum schedule.
 """
 
 from __future__ import annotations
@@ -191,8 +193,8 @@ class Engine:
 
     With ``mesh`` (a ``launch.mesh.Mesh``) the parameters and cache are
     placed by ``nn.module.shardings`` and checked byte for byte against
-    the partition specs, ``self.device`` is the mesh's first device, and
-    an MoE config is refused (expert parallelism is not ported)."""
+    the partition specs (an MoE config's expert leaves among them) and
+    ``self.device`` is the mesh's first device."""
 
     def __init__(self, cfg, max_len: int = 256, slots: int = 4, mesh=None, *,
                  pcilt: bool = False,
@@ -209,10 +211,6 @@ class Engine:
                 "reference's Engine._reset_slot reads cache['layers'], which "
                 "HybridLM.cache_specs lacks ({'ssm', 'attn', 'pos'}); use "
                 "the model's prefill and decode_step")
-        if mesh is not None and cfg.moe is not None:
-            raise NotImplementedError(
-                "Engine(mesh=) does not serve an MoE config: the expert-"
-                "parallel schedules are not ported yet (ROADMAP Queue 1 #9)")
         #: the mesh the engine serves on (``launch.mesh.Mesh``) or None;
         #: with one, the parameters and cache are placed by
         #: ``nn.module.shardings`` and ``self.device`` is its first device

@@ -2,7 +2,9 @@
 and decode for any ported config.
 
 The prefill and decode steps close over the model and a sharding context
-(:func:`make_ctx`): with a mesh (``launch.mesh.Mesh``) they take placed
+(:func:`make_ctx`; an MoE config's prefill takes ``nn.moe``'s all-to-all
+schedule, its decode the psum one): with a mesh (``launch.mesh.Mesh``)
+they take placed
 parameters and caches (``nn.module.place(tree, shardings(specs, mesh))``)
 and run the layers' per-shard bodies; ``rule_overrides`` edits the rule
 table (``{"cache_seq": "model"}`` shards the KV cache's time axis).  The
@@ -165,7 +167,9 @@ def make_train_step(cfg, mesh, ocfg: AdamWConfig, bf16_grads: bool = False,
     are placed (``nn.module.place``) and the loss runs under
     ``make_ctx(mesh, rule_overrides, explicit_rs=explicit_rs)``: the
     per-shard bodies of the dense, audio, vlm, Mamba and hybrid families
-    (an MoE config raises, ROADMAP Queue 1 #9).  The gradients are taken
+    and the MoE family's expert-parallel schedules (``nn.moe``; the
+    gradients flow back through the all-to-all's device moves).  The
+    gradients are taken
     with respect to the placed blocks; a block replicated on several
     devices has its gradients added in float32 in mesh order on its first
     device and copied back (the data-parallel all-reduce).

@@ -17,7 +17,9 @@ mesh of them (placed parameters and state, the restore placing them
 again), as the reference's does; on one card there is no mesh.  Batches are a pure
 function of the step, so a run that restarts ends on the same parameters
 as one that does not.  Runs on the card unless ``--device cpu``.  An MoE
-config also logs its routers' load-balance and z losses.
+config also logs its routers' load-balance and z losses; on the
+``(data=n, model=1)`` mesh each data row routes its own tokens (the
+all-to-all schedule with ``tp = 1``), as the reference's does.
 
 The modality frontends are stubs, as the reference's: whisper's batches
 carry ``memory`` (``encoder_len`` seeded frame embeddings), llava's

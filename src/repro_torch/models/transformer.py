@@ -15,7 +15,10 @@ bfloat16, with ``pos`` (the next write position) a host int.
 An MoE block routes its tokens through ``nn.moe`` (plus the always-on
 ``shared_mlp`` where the config has a shared expert); the loss adds the
 routers' load-balance and z losses, averaged over the units, and reports
-them in its metrics.
+them in its metrics.  Under a mesh the MoE unit runs ``nn.moe``'s
+expert-parallel schedules (all-to-all for a prefill or a loss, psum for a
+decode step), each layer's aux averaged over its shards before the
+units' sum.
 
 The audio family (whisper) uses LayerNorm and a tanh GELU MLP with biases,
 sinusoidal positions added to the embeddings, and an encoder of
@@ -177,8 +180,9 @@ def block_apply(params, cfg, x, positions, causal: bool = True,
     block (empty for a dense one).  ``cross_kv=(k, v)`` adds whisper's
     cross-attention after the self-attention.  Under a ``ctx`` with a mesh
     ``x`` and ``positions`` are ``nn.layers.Rows`` (the norms and the
-    residual adds run on each row's first device); an MoE block raises
-    (``moe_apply``: expert parallelism is not ported)."""
+    residual adds run on each row's first device); an MoE block runs
+    ``moe_apply``'s expert-parallel schedules and its shared expert the
+    mesh MLP, and its ``aux`` is averaged over the shards."""
     aux = {}
     h, new_cache = attention(params["attn"], cfg,
                              _norm(params["ln_attn"], cfg, x, ctx),
@@ -191,10 +195,9 @@ def block_apply(params, cfg, x, positions, causal: bool = True,
         x = _add(x, h)
     xn = _norm(params["ln_mlp"], cfg, x, ctx)
     if "moe" in params:
-        h, aux = moe_apply(params["moe"], cfg, xn,
-                           mesh=None if ctx is None else ctx.mesh)
+        h, aux = moe_apply(params["moe"], cfg, xn, ctx=ctx)
         if "shared_mlp" in params:
-            h = h + mlp(params["shared_mlp"], cfg, xn)
+            h = _add(h, mlp(params["shared_mlp"], cfg, xn, ctx=ctx))
     else:
         h = mlp(params["mlp"], cfg, xn, ctx=ctx)
     return _add(x, h), new_cache, aux

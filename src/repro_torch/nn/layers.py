@@ -16,7 +16,9 @@ vocab-parallel).  Partial sums move to the row's first device and are
 added there in float32, in shard order, and cast once (no atomics).  A
 weight whose ``embed`` dim is cut over the data axes (FSDP) is joined on
 the shard's device before use (:meth:`Ctx.weight`).  The residual stream
-between the parallel regions lives on the row's first device.
+between the parallel regions lives on the row's first device; an MoE
+layer's all-to-all cuts a row's sequence over the model shards and joins
+it again (:meth:`Ctx.split_seq`, :meth:`Ctx.join_seq`).
 
 Activation constraints: the port realises the ``"batch"`` (rows), the
 ``"heads"``/``"kv_heads"``/``"mlp"``/``"ssm_heads"`` (the shards' local
@@ -134,10 +136,25 @@ class Ctx:
                 f"bodies split tensor-parallel dims over 'model' only")
         return self.tp
 
-    def weight(self, p: Placed, row, j: int) -> torch.Tensor:
+    def weight(self, p: Placed, row, j: int, dtype=None) -> torch.Tensor:
         """Shard ``j`` of ``row``'s block of weight ``p``, its FSDP dims
-        joined on the shard's device."""
-        return p.gather(self.coord(row, j), self.data_axes)
+        joined on the shard's device (each block cast to ``dtype`` first,
+        when given)."""
+        return p.gather(self.coord(row, j), self.data_axes, dtype)
+
+    def split_seq(self, row, x: torch.Tensor) -> List[torch.Tensor]:
+        """``row``'s ``[b, S, ...]`` cut along the sequence into ``tp``
+        contiguous pieces, piece ``j`` on shard ``j``'s device (``S`` a
+        multiple of ``tp``)."""
+        n = x.shape[1] // self.tp
+        return [x[:, j * n:(j + 1) * n].to(self.device(row, j))
+                for j in range(self.tp)]
+
+    def join_seq(self, row, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The pieces of :meth:`split_seq` joined in order on ``row``'s
+        first device."""
+        dev = self.device(row)
+        return torch.cat([p.to(dev) for p in pieces], 1)
 
     def split_rows(self, t: torch.Tensor) -> "Rows":
         """A batch-leading tensor cut into the rows' batch blocks, each on

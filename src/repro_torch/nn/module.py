@@ -503,19 +503,24 @@ class Placed:
                 t.to(dev)
         return out
 
-    def gather(self, coord, axes: Sequence[str]) -> torch.Tensor:
+    def gather(self, coord, axes: Sequence[str], dtype=None) -> torch.Tensor:
         """The block at ``coord`` joined, on its device, over the mesh axes
         ``axes`` (the FSDP all-gather: the dim those axes cut is made whole
-        again; other dims stay ``coord``'s block)."""
+        again; other dims stay ``coord``'s block).  With ``dtype`` each
+        block is cast on its own device before it moves (the join moves
+        ``dtype`` bytes)."""
         coord = tuple(coord)
         key = ("gather", coord, tuple(axes))
         if key not in self._memo:
             self._memo[key] = self._gather_order(coord, axes)
         d, parts = self._memo[key]
         if d is None:
-            return self.blocks[coord]
+            t = self.blocks[coord]
+            return t if dtype is None else t.to(dtype)
         dev = self.mesh.devices[coord]
-        return torch.cat([self.blocks[c].to(dev) for c in parts], d)
+        return torch.cat([(self.blocks[c] if dtype is None
+                           else self.blocks[c].to(dtype)).to(dev)
+                          for c in parts], d)
 
     def _gather_order(self, coord, axes):
         """The dim the FSDP join concatenates and the coordinates of its

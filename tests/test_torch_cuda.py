@@ -1521,3 +1521,40 @@ def test_tuning_on_the_card_times_then_hits(cuda, tmp_path):
         assert atn.TIMING_RUNS == 0
     finally:
         atn.reset_cache(str(tmp_path / "after.json"))
+
+
+@pytest.mark.cuda
+def test_granite_expert_parallel_on_card_matches_cpu(cuda):
+    """granite's smoke config on a (1, 2) mesh of this card (the
+    all-to-all prefill and the psum decode step of ``nn.moe``) against the
+    same mesh on the CPU: the logits within 2e-2 of the largest, the
+    averaged aux losses of ``loss(ctx=)`` within 2e-2 relative."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_ctx, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import materialize, place, shardings
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    m = build_model(cfg)
+    params = materialize(m.param_specs(), 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (4, 8)))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = make_host_mesh(1, 2, devices=[dev] * 2)
+        p = place(params, shardings(m.param_specs(), mesh))
+        with torch.no_grad():
+            pre, cache = make_prefill_step(cfg, mesh)(p, {"tokens": toks})
+            dec, _ = make_decode_step(cfg, mesh)(p, cache, toks[:, :1])
+            _, met = m.loss(p, {"tokens": toks, "labels": toks},
+                            ctx=make_ctx(mesh))
+        runs[dev.type] = [pre.float().cpu(), dec.float().cpu()[:, :cfg.vocab],
+                          met]
+    for got, want in zip(runs["cuda"][:2], runs["cpu"][:2]):
+        assert float((got - want).abs().max()) <= \
+            2e-2 * float(want.abs().max())
+    for k in ("load_balance", "router_z"):
+        g, w = float(runs["cuda"][2][k]), float(runs["cpu"][2][k])
+        assert abs(g - w) <= 2e-2 * abs(w), k

@@ -26,7 +26,7 @@ The dense family's ``loss(ctx=)`` is held to the same three references
 (the loss, ``ce`` and ``z``, 1e-4 of the unsharded loss).
 The ``Engine(mesh=)``: the unsharded engine's tokens, the restart (a step
 fault) and rollback (a table breach) contract on a (1, 2) mesh, the
-refusal of an MoE config, the per-device byte check.
+refusal of a hybrid config, the per-device byte check.
 """
 
 import dataclasses
@@ -581,10 +581,8 @@ def test_engine_mesh_rollback_contract(pcilt_pair, tmp_path):
 
 
 def test_engine_mesh_refusals():
-    """An MoE config is refused under a mesh (expert parallelism, ROADMAP
-    Queue 1 #9); a hybrid one is refused as it is without one."""
+    """A hybrid config is refused under a mesh, as it is without one (an
+    MoE config serves: ``test_torch_expert_parallel.py``)."""
     mesh = _mesh((1, 2))
-    with pytest.raises(NotImplementedError, match="#9"):
-        Engine(t_smoke("granite-moe-3b-a800m"), 64, 2, mesh, device="cpu")
     with pytest.raises(NotImplementedError, match="hybrid"):
         Engine(t_smoke("zamba2-7b"), 64, 2, mesh, device="cpu")

@@ -219,12 +219,6 @@ def test_overflow_drops_entries_at_the_smoke_config(donors):
     assert (np.abs(_np(ty)[0, 4:]) == 0).all()  # the dropped tokens add 0
 
 
-def test_mesh_is_refused():
-    _, tcfg = _cfgs("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tmoe.moe_apply({}, tcfg, torch.zeros(1, 1, 64), mesh=object())
-
-
 # -- the whole model -------------------------------------------------------
 
 

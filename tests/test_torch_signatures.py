@@ -7,7 +7,8 @@ The rule, after setting aside the reference parameters the port leaves out
 by design (``ctx`` and ``axes``, keyword-only in the port, and ``key``
 where the port takes a ``seed`` or ``generator`` in its place), and
 ``mesh``/``mesh_axis`` of the names whose mesh is still queued
-(:data:`MESH_QUEUED`: the expert-parallel MoE):
+(:data:`MESH_QUEUED`, empty now that every mesh is ported; the rule test
+keeps the set-aside working on a stand-in name):
 
 * the port's positional parameters are a prefix of the reference's, in the
   reference's order;
@@ -34,9 +35,10 @@ import repro_torch
 
 #: reference parameters the port leaves out by design
 BY_DESIGN = {"ctx", "axes"}
-#: the shared names whose ``mesh``/``mesh_axis`` wait for expert
-#: parallelism (``moe_apply``)
-MESH_QUEUED = ("repro_torch.nn.moe.moe_apply",)
+#: the shared names whose ``mesh``/``mesh_axis`` wait for a slice (none)
+MESH_QUEUED: tuple = ()
+#: a stand-in queued name for the rule test
+_STANDIN = "repro_torch.example.queued_fn"
 #: the port's stand-ins for the reference's PRNG ``key``
 KEY_STANDINS = {"seed", "generator"}
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
@@ -55,9 +57,10 @@ def _positional(sig):
     return names[1:] if names[:1] == ["self"] else names
 
 
-def _set_aside(name):
-    """The reference parameters set aside for the shared name ``name``."""
-    if any(name == q or name.startswith(q + ".") for q in MESH_QUEUED):
+def _set_aside(name, queued=MESH_QUEUED):
+    """The reference parameters set aside for the shared name ``name``
+    (``queued``: the names whose mesh waits)."""
+    if any(name == q or name.startswith(q + ".") for q in queued):
         return BY_DESIGN | {"mesh", "mesh_axis"}
     return BY_DESIGN
 
@@ -173,8 +176,12 @@ def test_the_rule_catches_a_reordering():
     # a mesh the port has ported binds in its place; a queued one is set
     # aside only for the queued names
     assert _rule(no_mesh, ref_mesh) is not None
-    assert _rule(no_mesh, ref_mesh, _set_aside(MESH_QUEUED[0])) is None
-    assert _set_aside("repro_torch.core.lut_layers.pcilt_linear") == BY_DESIGN
+    assert _rule(no_mesh, ref_mesh, _set_aside(_STANDIN, (_STANDIN,))) \
+        is None
+    assert _set_aside(_STANDIN + ".method", (_STANDIN,)) != BY_DESIGN
+    assert _set_aside("repro_torch.core.lut_layers.pcilt_linear",
+                      (_STANDIN,)) == BY_DESIGN
+    assert _set_aside("repro_torch.nn.moe.moe_apply") == BY_DESIGN
 
 
 def test_engine_positional_max_len():
