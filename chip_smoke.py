@@ -251,9 +251,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     step); the sharded conv4 times go into the kernels line
     (``sharded_ms``);
 22. the sharding context (``nn.layers.Ctx``), every mesh device this
-    card: qwen3-0.6b at full width and depth served by ``Engine(cfg, 256,
-    4, mesh)`` on (1, 2), (1, 4) and (2, 2) with the unsharded engine's
-    tokens, the bytes a device holds of the parameters and the cache and
+    card: qwen3-0.6b at full width and depth placed by ``Engine(cfg, 256,
+    4, mesh)`` on (1, 2), (1, 4) and (2, 2) and served on (2, 2) with the
+    unsharded engine's tokens, the bytes a device holds of the parameters
+    and the cache and
     the leaves the fallback replicates, a decode step and a 192-token
     prefill on each mesh and a kvshard decode (``{"cache_seq": "model"}``)
     at (1, 4) against the unsharded steps (1e-2 of the largest logit), the
@@ -280,9 +281,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``restore(shardings=)``, bit-equal;
 24. expert parallelism (``nn.moe``'s all-to-all and psum schedules),
     every mesh device this card: granite-moe-3b-a800m at full width and
-    depth from phase 16's weights served by ``Engine(cfg, 256, 4, mesh)``
-    on (1, 2), (1, 4) and (2, 2) (bytes a device, checked by the engine;
-    a B = 4 step's host ms, device ms and launches beside phase 16's);
+    depth from phase 16's weights placed by ``Engine(cfg, 256, 4, mesh)``
+    on (1, 2), (1, 4) and (2, 2) and served on (2, 2) (bytes a device,
+    checked by the engine; a B = 4 step's host ms, device ms and launches
+    beside phase 16's);
     on each mesh a 4 x 192 prefill (all-to-all) and one decode step from
     its cache (psum) of the drop-free config against the unsharded steps
     (1e-2 of the largest logit), and at the published capacity factor
@@ -295,7 +297,23 @@ Phases (any failure exits non-zero, and no result line is printed):
     (4,) ``"data"`` mesh of 64 Mi float32 values a shard, each scheme
     against the exact mean (int8 3e-2, bf16 1e-2, none 1e-6), its ms and
     counted bytes;
-25. prints the kernels' JSON line, then as the last line
+25. the dry run (``launch.dryrun``): (a) the production cells of
+    ``DRYRUN_CELLS`` laid out on meta tensors over the 256- and
+    512-coordinate production meshes, each ``python -m
+    repro_torch.launch.dryrun`` in a process of its own started at the
+    script's start (they need no card; at most ``DRYRUN_WORKERS`` at a
+    time, niced; four at two cut depths carried to the full depth), each
+    ``ok`` (qwen3-0.6b ``long_500k`` ``skipped``) with its memory, flops
+    and move bytes a device and its seconds; (b)
+    qwen3-0.6b at full width, a B = 4 decode step and a 4 x 192 prefill,
+    unsharded and on (1, 2), (1, 4) and (2, 2) meshes of this card: each
+    coordinate's argument bytes, flops and move bytes by kind in the meta
+    run exactly those of the same step counted on the card, and the
+    unsharded prefill's dry-run peak of live bytes beside
+    ``torch.cuda.max_memory_allocated()``; (c) the move record of
+    ``compressed_pmean`` int8 on phase 24's (4,) mesh equal to its
+    ``stats["sent_bytes"]``;
+26. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -310,9 +328,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -490,6 +510,9 @@ KERNEL_HW = (192, 256)
 #: that also decodes with a time-sharded KV cache, and the pipeline's
 #: stages, microbatches and tokens a microbatch
 MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
+#: the mesh the engine serves its requests on (every mesh places them, and
+#: times and checks a step and a prefill)
+MESH_SERVED = (2, 2)
 KVSHARD_MESH = (1, 4)
 PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 4, 64
 #: phase 17's replay prompt (the prefill against a decode replay; phase
@@ -515,12 +538,38 @@ ELASTIC_MESH = (1, 4)
 #: ``EP_SMOKE_TOL``), and the compressed reduction's shards and values a
 #: shard (64 Mi float32 each)
 EP_MESHES = ((1, 2), (1, 4), (2, 2))
+EP_SERVED = (2, 2)  # the engine serves its requests here (as MESH_SERVED)
 EP_TRAIN_MESHES = ((2, 2), (1, 2))
 EP_TRAIN_DEPTHS = (12, 8)
 EP_TRAIN_STEPS = 3
 EP_LLAMA_MESHES = ((1, 2), (2, 2))
 EP_SMOKE_TOL = 2e-2
 EP_COMPRESS_SHARDS, EP_COMPRESS_N = 4, 64 << 20
+#: phase 25: the production cells laid out on meta tensors ((arch, shape,
+#: multi_pod), the slowest first; the last must come back skipped), the
+#: cells run at two cut depths and carried to the full one
+#: (``dryrun.measure_cell``; the flops and moves exact: at full depth the
+#: four took 2650 s of host time on 4 processes and slowed the script's
+#: own phases 15–40%, PERF.md §7), the dry-run processes at a
+#: time, a cell's time limit, and the card's meshes the dry run is held to
+#: (qwen3-0.6b, a B = 4 decode step against a cache of ``DRYRUN_CACHE``
+#: slots and a 4 x ``DRYRUN_PREFILL`` prefill)
+DRYRUN_CELLS = (("llama4-maverick-400b-a17b", "train_4k", True),
+                ("granite-moe-3b-a800m", "train_4k", False),
+                ("qwen3-0.6b", "train_4k", False),
+                ("qwen3-0.6b", "prefill_32k", False),
+                ("qwen3-0.6b", "decode_32k", False),
+                ("mamba2-130m", "long_500k", False),
+                ("qwen3-0.6b", "long_500k", False))
+DRYRUN_DEPTHS = {("llama4-maverick-400b-a17b", "train_4k", True): (0, 2),
+                 ("granite-moe-3b-a800m", "train_4k", False): (0, 1),
+                 ("qwen3-0.6b", "train_4k", False): (0, 1),
+                 ("qwen3-0.6b", "prefill_32k", False): (1, 2)}
+DRYRUN_SKIPPED = {("qwen3-0.6b", "long_500k", False)}
+DRYRUN_WORKERS = 2
+DRYRUN_CELL_TIMEOUT = 900
+DRYRUN_MESHES = ((1, 2), (1, 4), (2, 2))
+DRYRUN_CACHE, DRYRUN_PREFILL = 256, 192
 #: what phase 17 hands to phase 23 (its unsharded zamba2 run), off the
 #: JSON report
 _HANDOFF = {}
@@ -5725,8 +5774,9 @@ def mesh_serving(torch, ops, report):
     this measures what the shards cost, not a gain):
 
     (a) qwen3-0.6b at its published width and depth: ``Engine(cfg, 256, 4,
-        mesh)`` on (1, 2), (1, 4) and (2, 2) serves 4 requests of 8 new
-        tokens with the unsharded engine's tokens; bytes a device of the
+        mesh)`` on (1, 2), (1, 4) and (2, 2), on ``MESH_SERVED`` serving 4
+        requests of 8 new tokens with the unsharded engine's tokens (the
+        other meshes' steps timed below); bytes a device of the
         parameters and the cache (each device's checked by the engine
         against the partition specs) and the leaves the divisibility
         fallback replicates; one B = 4 decode step from the unsharded
@@ -5812,17 +5862,18 @@ def mesh_serving(torch, ops, report):
             f"{row['cache_gb_per_device']:.3f} GB of cache; "
             f"{row['replicated_leaves']} leaves replicated by the fallback "
             f"{sorted(set(l.split('[')[1] for l in eng.replicated_leaves))}")
-        got_reqs = make_requests(cfg, 4, 8, seed=0)
-        st = eng.run(got_reqs)
-        row["engine_wall_s"] = st["wall_s"]
-        row["median_engine_step_ms"] = \
-            statistics.median(eng.step_seconds) * 1e3
-        row["tokens_equal"] = [r.out for r in got_reqs] == tokens
-        log(f"  served {st['served']}/4 in {st['wall_s']:.2f} s (median step "
-            f"{row['median_engine_step_ms']:.2f} ms); tokens equal to the "
-            f"unsharded engine's {row['tokens_equal']}")
-        require(st["served"] == 4 and row["tokens_equal"],
-                f"mesh {name}: the engine's tokens differ")
+        if shape == MESH_SERVED:  # the other meshes' steps are timed below
+            got_reqs = make_requests(cfg, 4, 8, seed=0)
+            st = eng.run(got_reqs)
+            row["engine_wall_s"] = st["wall_s"]
+            row["median_engine_step_ms"] = \
+                statistics.median(eng.step_seconds) * 1e3
+            row["tokens_equal"] = [r.out for r in got_reqs] == tokens
+            log(f"  served {st['served']}/4 in {st['wall_s']:.2f} s (median "
+                f"step {row['median_engine_step_ms']:.2f} ms); tokens equal "
+                f"to the unsharded engine's {row['tokens_equal']}")
+            require(st["served"] == 4 and row["tokens_equal"],
+                    f"mesh {name}: the engine's tokens differ")
         cm = place(cache0, shardings(cspecs, mesh))
         dec = make_decode_step(cfg, mesh)
         with torch.no_grad():
@@ -6586,28 +6637,31 @@ def _ep_serving(torch, report, out):
             f"{row['cache_gb_per_device']:.3f} GB of cache (checked by the "
             f"engine); {row['replicated_leaves']} leaves replicated by the "
             f"fallback {sorted(set(eng.replicated_leaves))}")
-        reqs = make_requests(cfg, 4, 8, seed=0)
-        st = eng.run(reqs)
-        row["engine_wall_s"] = st["wall_s"]
-        row["median_engine_step_ms"] = \
-            statistics.median(eng.step_seconds) * 1e3
-        row["tokens"] = [r.out for r in reqs]
-        row["tokens_equal_phase16"] = row["tokens"] == u16["outputs"]
-        log(f"  served {st['served']}/4 in {st['wall_s']:.2f} s (median step "
-            f"{row['median_engine_step_ms']:.2f} ms); tokens equal to phase "
-            f"16's unsharded engine {row['tokens_equal_phase16']}")
-        require(st["served"] == 4 and st["restarts"] == 0 and all(
-            len(r.out) == 8 and all(0 <= t < cfg.vocab for t in r.out)
-            for r in reqs), f"mesh {name}: the engine's requests")
+        served = shape == EP_SERVED  # the others' steps are timed below
+        if served:
+            reqs = make_requests(cfg, 4, 8, seed=0)
+            st = eng.run(reqs)
+            row["engine_wall_s"] = st["wall_s"]
+            row["median_engine_step_ms"] = \
+                statistics.median(eng.step_seconds) * 1e3
+            row["tokens"] = [r.out for r in reqs]
+            row["tokens_equal_phase16"] = row["tokens"] == u16["outputs"]
+            log(f"  served {st['served']}/4 in {st['wall_s']:.2f} s (median "
+                f"step {row['median_engine_step_ms']:.2f} ms); tokens equal "
+                f"to phase 16's unsharded engine "
+                f"{row['tokens_equal_phase16']}")
+            require(st["served"] == 4 and st["restarts"] == 0 and all(
+                len(r.out) == 8 and all(0 <= t < cfg.vocab for t in r.out)
+                for r in reqs), f"mesh {name}: the engine's requests")
         toks = torch.from_numpy(eng.tokens).cuda()
-        with torch.no_grad():  # the engine's steps warmed it
+        with torch.no_grad():  # the engine's steps warmed it, if served
             row["step"] = _mesh_timed(
                 torch, lambda: eng.decode(eng.params, eng.cache, toks),
                 f"{name} B = {B} step (psum; phase 16 unsharded: host "
                 f"{out['phase16_step']['host_ms']:.2f} ms, device "
                 f"{out['phase16_step']['device_ms']:.3f} ms in "
                 f"{out['phase16_step']['device_launches']} launches)",
-                warm=False)
+                warm=not served)
             pre = make_prefill_step(free, mesh)
             got, gc_ = pre(eng.params, {"tokens": prompt})
             row["prefill"] = _mesh_timed(
@@ -6875,8 +6929,9 @@ def expert_parallel(torch, ops, report):
 
     (a) granite-moe-3b-a800m at full width and depth (phase 16's weights,
         4.03 B float32 parameters, 14.50 GB of them experts):
-        ``Engine(cfg, 256, 4, mesh)`` on ``EP_MESHES`` serves 4 requests
-        of 8 new tokens (every decode step the psum schedule); bytes a
+        ``Engine(cfg, 256, 4, mesh)`` on ``EP_MESHES``, on ``EP_SERVED``
+        serving 4 requests of 8 new tokens (every decode step the psum
+        schedule); bytes a
         device (the engine checks each device's against the specs); a B =
         4 step's host ms, device ms and launches beside phase 16's;
     (b) on each mesh a 4 x 192 prefill through ``make_prefill_step(cfg,
@@ -6917,6 +6972,328 @@ def expert_parallel(torch, ops, report):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 25: the dry run
+# ----------------------------------------------------------------------------
+
+
+class DryRuns:
+    """Phase 25 (a): each cell of ``DRYRUN_CELLS`` by ``python -m
+    repro_torch.launch.dryrun --arch A --shape S [--multi-pod] --force``
+    in a process of its own (meta tensors: no card, ``CUDA_VISIBLE_DEVICES``
+    empty), started by :meth:`start` at the script's start, at most
+    ``DRYRUN_WORKERS`` at a time, each niced so the script's own phases
+    keep their cores; its output and its cell's JSON go to
+    ``chiprun_out/dryrun/``.
+    :meth:`stop` kills any still running."""
+
+    def __init__(self):
+        self.pending = list(DRYRUN_CELLS)
+        self.procs, self.results, self.threads = [], {}, []
+        self.lock = threading.Lock()
+        self.t0 = None
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        os.makedirs(os.path.join(ROOT, "chiprun_out", "dryrun"),
+                    exist_ok=True)
+        for _ in range(DRYRUN_WORKERS):
+            t = threading.Thread(target=self._work, daemon=True)
+            t.start()
+            self.threads.append(t)
+
+    def _work(self):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.path.join(ROOT, "src"))
+        while True:
+            with self.lock:
+                if not self.pending:
+                    return
+                cell = self.pending.pop(0)
+            arch, shape, mp = cell
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--force"] + \
+                (["--multi-pod"] if mp else [])
+            if cell in DRYRUN_DEPTHS:
+                cmd += ["--depths", ",".join(map(str, DRYRUN_DEPTHS[cell]))]
+            path = os.path.join(ROOT, "chiprun_out", "dryrun",
+                                f"{arch}__{shape}__{int(mp)}.log")
+            t0 = time.perf_counter()
+            with open(path, "w") as f:
+                p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                     stderr=subprocess.STDOUT,
+                                     preexec_fn=lambda: os.nice(19))
+                with self.lock:
+                    self.procs.append(p)
+                try:
+                    rc = p.wait(timeout=DRYRUN_CELL_TIMEOUT)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+                    rc = "timeout"
+            self.results[cell] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                                  "ended_at_s": time.perf_counter() - self.t0,
+                                  "log": os.path.relpath(path, ROOT)}
+            with contextlib.suppress(OSError):
+                shutil.copy(_cell_file(*cell), os.path.join(
+                    ROOT, "chiprun_out", "dryrun", os.path.basename(
+                        _cell_file(*cell))))
+
+    def wait(self):
+        for t in self.threads:
+            t.join()
+        return self.results
+
+    def stop(self):
+        with self.lock:
+            self.pending.clear()
+            procs = list(self.procs)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+#: the background dry runs, started in ``main``
+_DRYRUNS = DryRuns()
+
+
+def _cell_file(arch, shape, mp):
+    from repro_torch.launch.dryrun import cell_path
+
+    return cell_path(arch, shape, "pod2x16x16" if mp else "pod16x16")
+
+
+def _cell_json(arch, shape, mp):
+    with open(_cell_file(arch, shape, mp)) as f:
+        return json.load(f)
+
+
+def _dryrun_cells(out):
+    """(a): wait for the background cells and check them."""
+    t0 = time.perf_counter()
+    results = _DRYRUNS.wait()
+    out["waited_s"] = time.perf_counter() - t0
+    sib = "/sys/devices/system/cpu/cpu0/topology/thread_siblings_list"
+    out["host_cpus"] = os.cpu_count()
+    out["cpu0_thread_siblings"] = open(sib).read().strip() \
+        if os.path.exists(sib) else None
+    log(f"  host: {out['host_cpus']} CPUs (cpu0's thread siblings "
+        f"{out['cpu0_thread_siblings']}); {DRYRUN_WORKERS} dry-run processes "
+        f"at nice 19 beside the script")
+    rows = out["cells"] = {}
+    for cell in DRYRUN_CELLS:
+        arch, shape, mp = cell
+        name = f"{arch} {shape} {'pod2x16x16' if mp else 'pod16x16'}"
+        r = results.get(cell)
+        require(r is not None and r["rc"] != "timeout",
+                f"dry run {name}: no result ({r})")
+        c = _cell_json(*cell)
+        want = "skipped" if cell in DRYRUN_SKIPPED else "ok"
+        row = {"status": c["status"], "wall_s": r["wall_s"],
+               "ended_at_s": r["ended_at_s"]}
+        if c["status"] == "ok":
+            row.update(trace_s=c["trace_s"], memory=c["memory"],
+                       flops_per_device=c["cost"]["flops_per_device"],
+                       bytes_traffic_est_per_device=c["cost"][
+                           "bytes_traffic_est_per_device"],
+                       collective_bytes_per_device=c[
+                           "collective_bytes_per_device"],
+                       collectives=c["collectives"], n_ops=c["n_ops"],
+                       n_moves=c["n_moves"], crossed=c["crossed"],
+                       spread=c["spread"], n_chips=c["n_chips"],
+                       model_flops_global=c["model_flops_global"],
+                       depth=c.get("depth"), host_rss_mb=c["host_rss_mb"],
+                       busiest=c["busiest"])
+            log(f"  {name}: ok, mem/dev "
+                f"{c['memory']['total_nonalias_bytes'] / 2**30:.2f} GiB "
+                f"(arguments {c['memory']['argument_bytes'] / 2**30:.2f}, "
+                f"temp {c['memory']['temp_bytes'] / 2**30:.2f}), flops/dev "
+                f"{c['cost']['flops_per_device']:.4e}, coll/dev "
+                f"{c['collective_bytes_per_device'] / 2**20:.1f} MiB; "
+                f"{c['n_ops']} ops, {c['n_moves']} moves, crossed "
+                f"{c['crossed']}; trace {c['trace_s']} s, process "
+                f"{r['wall_s']:.1f} s (done {r['ended_at_s']:.0f} s in), "
+                f"host RSS {c['host_rss_mb']:.0f} MB"
+                + (f"; depths {c['depth']['run']} carried to "
+                   f"{c['depth']['full']} (estimated: "
+                   f"{', '.join(c['depth']['estimated']) or 'none'}; the "
+                   f"temp bytes the {c['depth']['cut_depth']}-layer run's)"
+                   if c.get("depth") else ""))
+        else:
+            log(f"  {name}: {c['status']} "
+                f"({c.get('reason') or c.get('error')}); process "
+                f"{r['wall_s']:.1f} s")
+        rows[name] = row
+        require(c["status"] == want, f"dry run {name}: {c['status']} "
+                f"(want {want}): {c.get('error')}")
+        require(c.get("crossed", 0) == 0, f"dry run {name}: "
+                f"{c.get('crossed')} operations read inputs of other "
+                f"coordinates unmoved")
+
+
+def _dryrun_args(torch, cfg, kind, mesh, meta):
+    """The step arguments of (b): meta ones from the specs, or the card's
+    (seeded weights placed on ``mesh``, a zero cache, random tokens)."""
+    from repro_torch.launch.specs import data_spec, step_args
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import shape_structs
+
+    model = build_model(cfg)
+    specs = {"params": model.param_specs()}
+    if kind == "decode":
+        specs["cache"] = model.cache_specs(B, DRYRUN_CACHE)
+    if meta:
+        args = step_args({k: shape_structs(v, mesh, data_spec(mesh))
+                          for k, v in specs.items()})
+        dev = "meta"
+    else:
+        args = {k: (_placed_draw(torch, v, 0, mesh) if mesh is not None
+                    else device_params(torch, v, 0))
+                for k, v in specs.items()}
+        dev = "cuda"
+    gen = torch.Generator().manual_seed(25)
+    if kind == "decode":
+        args["cache"]["pos"] = DRYRUN_PREFILL
+        args["tokens"] = torch.randint(0, cfg.vocab, (B, 1), generator=gen,
+                                       dtype=torch.int32).to(dev)
+    else:
+        args["batch"] = {"tokens": torch.randint(
+            0, cfg.vocab, (B, DRYRUN_PREFILL), generator=gen,
+            dtype=torch.int32).to(dev)}
+    return args
+
+
+def _dryrun_vs_card(torch, out):
+    """(b): the meta run against the same step counted on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import make_step, measure_step
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_config("qwen3-0.6b")
+    rows = out["vs_card"] = {}
+    keys = ("argument_bytes", "flops", "collective_bytes")
+    for shape in (None,) + DRYRUN_MESHES:
+        name = "unsharded" if shape is None else f"{shape[0]}x{shape[1]}"
+        n = 1 if shape is None else shape[0] * shape[1]
+        meta_mesh = None if shape is None else \
+            make_host_mesh(*shape, devices=["meta"] * n)
+        card_mesh = None if shape is None else _card_host_mesh(torch, shape)
+        for kind in ("decode", "prefill"):
+            t0 = time.perf_counter()
+            meta = measure_step(make_step(cfg, kind, meta_mesh), kind,
+                                _dryrun_args(torch, cfg, kind, meta_mesh,
+                                             True), meta_mesh)
+            t_meta = time.perf_counter() - t0
+            args = _dryrun_args(torch, cfg, kind, card_mesh, False)
+            step = make_step(cfg, kind, card_mesh)
+            if shape is None and kind == "prefill":
+                with torch.no_grad():
+                    step(args["params"], args["batch"])  # warm
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            card = measure_step(step, kind, args, card_mesh)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            row = {"meta_s": t_meta, "card_s": t_card,
+                   "n_ops": meta["n_ops"], "n_moves": meta["n_moves"],
+                   "crossed": meta["crossed"]}
+            if shape is None and kind == "prefill":
+                peak = torch.cuda.max_memory_allocated() - before
+                dry = meta["per_coord"]["-"]["temp_bytes"]
+                row.update(dry_peak_bytes=dry, card_peak_bytes=peak,
+                           card_over_dry=peak / dry)
+                log(f"  unsharded prefill: dry-run peak of live bytes "
+                    f"{dry / 1e9:.4f} GB, max_memory_allocated() on the "
+                    f"card {peak / 1e9:.4f} GB (ratio {peak / dry:.4f})")
+            del args, step
+            for c, m in meta["per_coord"].items():
+                k = card["per_coord"].get(c)
+                require(k is not None, f"{name} {kind}: the card run has no "
+                        f"coordinate {c}")
+                for key in keys:
+                    require(m[key] == k[key], f"{name} {kind} at {c}: {key} "
+                            f"meta {m[key]} card {k[key]}")
+                for kd, v in m["coll"].items():
+                    require(v == k["coll"].get(kd, {"count": 0, "bytes": 0}),
+                            f"{name} {kind} at {c}: {kd} meta {v} card "
+                            f"{k['coll'].get(kd)}")
+            require(len(meta["per_coord"]) == len(card["per_coord"]),
+                    f"{name} {kind}: coordinates differ")
+            require(meta["crossed"] == 0, f"{name} {kind}: {meta['crossed']} "
+                    f"operations read inputs of other coordinates unmoved")
+            row["per_coord"] = {c: {key: v[key] for key in keys
+                                    + ("temp_bytes",)}
+                                for c, v in meta["per_coord"].items()}
+            rows[f"{name} {kind}"] = row
+            busiest = max(meta["per_coord"].values(),
+                          key=lambda v: v["flops"])
+            log(f"  {name} {kind}: {len(meta['per_coord'])} coordinates "
+                f"equal (argument bytes, flops, moves by kind); busiest "
+                f"flops {busiest['flops']:.4e}, moves "
+                f"{meta['collective_bytes_per_device'] / 1e6:.3f} MB; meta "
+                f"{t_meta:.1f} s, card {t_card:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def _dryrun_compress(torch, out):
+    """(c): the move record of ``compressed_pmean`` int8 on phase 24's
+    (4,) mesh against its ``stats["sent_bytes"]``."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn import coords
+    from repro_torch.nn.module import Placed, TablePlacement
+    from repro_torch.optim import compress
+
+    n = EP_COMPRESS_SHARDS
+    mesh = make_mesh((n,), ("data",), devices=[torch.device("cuda", 0)] * n)
+    g = torch.Generator(device="cuda").manual_seed(26)
+    px = Placed.place(torch.randn((n, EP_COMPRESS_N), generator=g,
+                                  device="cuda"),
+                      TablePlacement(mesh, ("data", None)))
+    stats = {}
+    with coords.recording_moves() as moves:
+        compress.compressed_pmean(px, "data", "int8", stats=stats)
+    got = sum(e["bytes"] for e in moves)
+    kinds = sorted({e["kind"] for e in moves})
+    out["compress"] = {"recorded_bytes": got,
+                       "sent_bytes": stats["sent_bytes"], "kinds": kinds,
+                       "moves": len(moves)}
+    log(f"  compressed_pmean int8: {len(moves)} moves recorded ({kinds}), "
+        f"{got} bytes; stats sent_bytes {stats['sent_bytes']}")
+    require(got == stats["sent_bytes"], "the move record of "
+            "compressed_pmean differs from its sent_bytes")
+    del px
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun(torch, ops, report):
+    """Phase 25, the dry run (module docstring): (a) the production cells
+    (run in the background since the script's start), (b) the dry run
+    against the card, (c) the compressed reduction's record.  Returns the
+    path's launches (none: the dry run runs no kernel, as the reference
+    lowers its steps without one)."""
+    out = {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _dryrun_vs_card(torch, out)
+    out["vs_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _dryrun_compress(torch, out)
+    out["compress_s"] = time.perf_counter() - t0
+    _dryrun_cells(out)
+    log(f"phase 25 parts: against the card {out['vs_card_s']:.1f} s, "
+        f"compress {out['compress_s']:.1f} s, waited for the cells "
+        f"{out['waited_s']:.1f} s")
+    report["dryrun"] = out
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(launches == {}, f"the dry run launched PCILT kernels {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6924,6 +7301,8 @@ def main() -> int:
         log("chip_smoke: no CUDA device")
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # phase 25's production cells need no card: they run from the start
+    _DRYRUNS.start()
     # every phase before 18 dispatches through an empty design cache: the
     # heuristic's designs, which the phases' design counts require
     tune_root = os.path.join(ROOT, "build", "smoke_tune_main")
@@ -7017,7 +7396,7 @@ def main() -> int:
                   resilience, dense_serving, training, dense_configs,
                   moe_family, hybrid_family, audio_family, vlm_family,
                   autotune_phase, sharded_tables, mesh_serving,
-                  mesh_training, expert_parallel):
+                  mesh_training, expert_parallel, dryrun):
         count(phase)
     sh = report["sharded"]["conv4"]
     for kind in ("fused_conv2d", "shared_conv2d"):
@@ -7097,3 +7476,5 @@ if __name__ == "__main__":
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr, flush=True)
         sys.exit(1)
+    finally:
+        _DRYRUNS.stop()  # phase 25's processes never outlive the script

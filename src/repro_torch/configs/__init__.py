@@ -2,7 +2,8 @@
 
 import importlib
 
-from .base import ModelConfig, MoEConfig, SSMConfig, PCILTConfig
+from .base import (ModelConfig, MoEConfig, SSMConfig, PCILTConfig,
+                   ShapeConfig, SHAPES)
 
 _MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",

@@ -1,4 +1,5 @@
-"""Config dataclasses (port of the model parts of ``repro.configs.base``).
+"""Config dataclasses (port of ``repro.configs.base``): the model
+configs and the shapes the dry run sizes them at.
 
 The fields mirror the reference's, in its order as far as ``pos_embed``
 (a positional config binds the same fields in both packages); the rest are
@@ -12,7 +13,8 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "PCILTConfig"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "PCILTConfig",
+           "ShapeConfig", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,3 +119,22 @@ class ModelConfig:
         """Vocab rounded up to a multiple of 16 (padded ids are never
         produced by data or sampling)."""
         return self.vocab + (-self.vocab) % 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape: a ``[global_batch, seq_len]`` token grid to train
+    or prefill on, or a decode step against a KV cache of ``seq_len``."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

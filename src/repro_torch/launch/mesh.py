@@ -17,8 +17,10 @@ mesh carries expert parallelism (``nn.moe``'s all-to-all and psum
 schedules, the tiled all-to-all a set of device moves between the model
 shards) and the compressed gradient reduction (``optim.compress``).  No
 multi-process form is planned: the reference is one process as well (it
-has no ``jax.distributed``).  ``make_production_mesh`` (the reference's
-v5e pods of 256 and 512 chips) waits for the ``dryrun``/``specs`` slice.
+has no ``jax.distributed``).  :func:`make_production_mesh` lays out the
+reference's production meshes, 256 and 512 coordinates; the dry run
+(``launch.dryrun``) builds them over ``meta`` devices, where nothing is
+allocated.
 
 A mesh never falls back to the CPU: without ``devices=`` it spans CUDA
 cards, and asking for more shards than there are cards raises.  An explicit
@@ -37,7 +39,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "make_host_mesh", "make_decode_mesh"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_host_mesh",
+           "make_decode_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +114,19 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
     grid[:] = devs
     return Mesh(grid.reshape(tuple(int(s) for s in shape)),
                 tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The production mesh: ``(16, 16)`` over ``("data", "model")``, or
+    with ``multi_pod`` ``(2, 16, 16)`` over ``("pod", "data", "model")``
+    (the pod axis one more data-parallel axis: the batch shards over
+    ``("pod", "data")``).  Over the first 256 (512) CUDA cards, raising
+    when there are fewer, or over ``devices`` (the dry run passes
+    ``[torch.device("meta")] * n``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=devices)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *,

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import build_model
+from repro_torch.nn import coords
 from repro_torch.nn.layers import Ctx
 from repro_torch.nn.module import DEFAULT_RULES, Placed, ShardingRules
 from repro_torch.optim import AdamWConfig, adamw_update
@@ -86,25 +87,44 @@ def _allreduce_replicas(g):
     """The data-parallel all-reduce of a placed gradient, in a fixed
     order: where a block is held on several devices (a replicated block),
     its per-device gradients are added in float32 in mesh-coordinate order
-    on the first one's device, and the sum is copied back to each."""
+    on the first one's device, and the sum is copied back to each.
+
+    The moves are recorded (``nn.coords``) by coordinate, as a mesh of
+    distinct devices makes them: every coordinate holding a block sends
+    its gradient to the block's first coordinate and receives the sum,
+    whether or not the coordinates share a device (and so a tensor)."""
     if not isinstance(g, Placed):
         return g
+    holders = {}
+    for c, t in g.blocks.items():
+        holders.setdefault(g.placement.block_index(c), []).append(
+            (c, t.numel() * t.element_size()))
+    coords.record("all-reduce", [
+        m for cs in holders.values() for c, n in cs[1:]
+        for m in ((c, cs[0][0], n), (cs[0][0], c, n))])
     copies = {}
     for c, t in g.unique():
-        copies.setdefault(g.placement.block_index(c), []).append(t)
+        copies.setdefault(g.placement.block_index(c), []).append((c, t))
     made = {}
-    for ts in copies.values():
-        if len(ts) > 1:
-            acc = ts[0].float()
-            for t in ts[1:]:
-                acc = acc + t.to(ts[0].device, torch.float32)
-            acc = acc.to(ts[0].dtype)
-            for t in ts:  # the sum held by every copy's device
-                made[id(t)] = acc.to(t.device, copy=t is not ts[0])
-    if not made:
-        return g
-    return Placed(g.placement, g.shape, g.dtype,
-                  {c: made.get(id(t), t) for c, t in g.blocks.items()})
+    with coords.quiet():
+        for cts in copies.values():
+            if len(cts) < 2:
+                continue
+            c0, t0 = cts[0]
+            with coords.forced((c0,)):
+                acc = t0.float()
+                for _, t in cts[1:]:
+                    acc = acc + t.to(t0.device, torch.float32)
+                acc = acc.to(t0.dtype)
+            for c, t in cts:  # the sum held by every copy's device
+                with coords.forced((c,)):
+                    made[id(t)] = acc.to(t.device, copy=t is not t0)
+    out = g if not made else Placed(
+        g.placement, g.shape, g.dtype,
+        {c: made.get(id(t), t) for c, t in g.blocks.items()})
+    for t, cs in out.holders():  # the sum lives at every holder
+        coords.tag(t, cs)
+    return out
 
 
 def _value_and_grad(fn, params, batch):

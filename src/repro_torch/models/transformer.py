@@ -105,7 +105,8 @@ def _mlp_mesh(params, cfg, ctx, xs):
     for row, x in xs.items():
         a = column_parallel(ctx, row, params[up], x, cfg.dtype)
         if gelu:
-            hs[row] = [(r, _gelu(t)) for r, t in a]
+            hs[row] = [(r, _gelu(t))
+                       for _, (r, t) in zip(ctx.shards(row, len(a)), a)]
         else:
             u = column_parallel(ctx, row, params["wu"], x, cfg.dtype)
             hs[row] = [(r, F.silu(g) * h) for (r, g), (_, h) in zip(a, u)]
@@ -121,7 +122,8 @@ def _mlp_mesh(params, cfg, ctx, xs):
             y = rs[row]
         else:
             parts = [t.float() @ ctx.weight(wd, row, j).to(cfg.dtype).float()
-                     for j, (_, t) in enumerate(hs[row])]
+                     for j, (_, t) in zip(ctx.shards(row, len(hs[row])),
+                                          hs[row])]
             y = ctx.reduce(parts, row, cfg.dtype)
         if "bias" in params[down]:
             y = y + ctx.weight(params[down]["bias"], row, 0).to(

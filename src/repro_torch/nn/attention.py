@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import coords
 from .layers import (Rows, assemble, column_parallel, dense, dense_spec,
                      rmsnorm, rmsnorm_spec, rope, row_parallel_rows)
 from .module import ParamSpec, Placed, TablePlacement
@@ -235,15 +236,19 @@ def _time_blocks(kv, b_lo: int, b_hi: int, h_lo: int, h_hi: int, dev):
     """The blocks of a placed ``[B, T, Hk, Dh]`` K or V that hold batch
     rows ``[b_lo, b_hi)`` and KV heads ``[h_lo, h_hi)``, one a time block,
     in time order: ``[(t0, t1, block narrowed to those rows and heads)]``
-    (a block on ``dev`` preferred)."""
+    (a block on ``dev`` preferred, and under a tracker one held at the
+    current scope, ``nn.coords``)."""
     found = {}
+    cur = coords.current()
     for c, t in kv.unique():
         (b0, b1), (t0, t1), (k0, k1), _ = kv.ranges(c)
         if not (b0 <= b_lo and b_hi <= b1 and k0 <= h_lo and h_hi <= k1):
             continue
         blk = t.narrow(0, b_lo - b0, b_hi - b_lo) \
             .narrow(2, h_lo - k0, h_hi - h_lo)
-        if t0 not in found or t.device == dev:
+        held = coords.coords_of(t)
+        if t0 not in found or (t.device == dev and (
+                held is None or cur is None or cur <= held)):
             found[t0] = (t0, t1, blk)
     return [found[t0] for t0 in sorted(found)]
 
@@ -307,10 +312,13 @@ def _attend_blocks(cfg, q, blocks_k, blocks_v, idx, dev, mask_fn):
     parts = []
     for (t0, t1, k), (_, _, v) in zip(blocks_k, blocks_v):
         bdev = k.device
-        parts.append(_partial_softmax(q.to(bdev), _select(k, idx, bdev),
-                                      _select(v, idx, bdev),
-                                      mask_fn(t0, t1).to(bdev)))
-    return _merge_partials(parts, dev, cfg.dtype)
+        mask = mask_fn(t0, t1)
+        with coords.near(k):  # each block's share where the block is
+            parts.append(_partial_softmax(q.to(bdev), _select(k, idx, bdev),
+                                          _select(v, idx, bdev),
+                                          mask.to(bdev)))
+    with coords.kind("all-reduce"):
+        return _merge_partials(parts, dev, cfg.dtype)
 
 
 def _project_mesh(params, cfg, ctx, row, x, positions, qkv: bool = True):
@@ -318,7 +326,7 @@ def _project_mesh(params, cfg, ctx, row, x, positions, qkv: bool = True):
     (rope where ``positions`` is given)."""
     def finish(pieces, name):
         out = []
-        for r, t in pieces:
+        for _, (r, t) in zip(ctx.shards(row, len(pieces)), pieces):
             if cfg.qk_norm:
                 t = rmsnorm({"scale": params[name]["scale"].local(
                     ctx.coord(row, 0)).to(t.device)}, t, cfg.norm_eps)
@@ -342,7 +350,7 @@ def _write_cache(ctx, kv, pieces_by_row, slot: int, S: int):
     column-parallel pieces on the block's device); the other blocks are
     kept as they are."""
     new = {}
-    for c, t in kv.unique():
+    for c, t in kv.each():
         (b0, b1), (t0, t1), (k0, k1), _ = kv.ranges(c)
         s0, s1 = max(slot, t0), min(slot + S, t1)
         if s0 >= s1:
@@ -423,7 +431,8 @@ def _attention_mesh(params, cfg, ctx, xs, positions, causal, cache,
         b0, b1 = ctx.batch_block(row, B)
         pos = None if positions is None else positions[row]
         pieces = []
-        for j, ((q0, q1), q) in enumerate(q_rows[row]):
+        for j, ((q0, q1), q) in zip(ctx.shards(row, len(q_rows[row])),
+                                    q_rows[row]):
             dev = q.device
             _, _, k0, k1, idx_h = _heads_of(j, nq, Hp, rep)
             if cross_kv is not None:
@@ -492,6 +501,6 @@ def _wo_mesh(cfg, ctx, wo, outs, B: int):
     for row, pieces in outs.items():
         parts = [torch.einsum("bshd,hde->bse", t.to(cfg.dtype).float(),
                               ctx.weight(wo, row, j).to(cfg.dtype).float())
-                 for j, (_, t) in enumerate(pieces)]
+                 for j, (_, t) in zip(ctx.shards(row, len(pieces)), pieces)]
         ys[row] = ctx.reduce(parts, row, cfg.dtype)
     return ys

@@ -38,6 +38,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from . import coords
 from .module import (ParamSpec, Placed, ShardingRules, TablePlacement,
                      logical_to_partition_spec)
 
@@ -102,6 +103,18 @@ class Ctx:
     def device(self, row, j: int = 0) -> torch.device:
         return self.mesh.devices[self.coord(row, j)]
 
+    def at(self, row, j: int = 0):
+        """The scope of shard ``j`` of ``row`` (``nn.coords.at``): the code
+        in the block runs at that coordinate."""
+        return coords.at((self.coord(row, j),))
+
+    def shards(self, row, n: int):
+        """``range(n)``, the caller's loop body for ``j`` run at shard
+        ``j`` of ``row`` (its per-shard body)."""
+        for j in range(n):
+            with coords.at((self.coord(row, j),)):
+                yield j
+
     def pspec(self, logical_axes, shape) -> Tuple:
         return logical_to_partition_spec(logical_axes, shape, self.rules)
 
@@ -148,29 +161,36 @@ class Ctx:
         multiple of ``tp``)."""
         n = x.shape[1] // self.tp
         return [x[:, j * n:(j + 1) * n].to(self.device(row, j))
-                for j in range(self.tp)]
+                for j in self.shards(row, self.tp)]
 
     def join_seq(self, row, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
         """The pieces of :meth:`split_seq` joined in order on ``row``'s
         first device."""
         dev = self.device(row)
-        return torch.cat([p.to(dev) for p in pieces], 1)
+        with self.at(row), coords.kind("all-gather"):
+            return torch.cat([p.to(dev) for p in pieces], 1)
 
     def split_rows(self, t: torch.Tensor) -> "Rows":
         """A batch-leading tensor cut into the rows' batch blocks, each on
         its row's first device."""
         B = t.shape[0]
-        return Rows({row: t[slice(*self.batch_block(row, B))]
-                     .to(self.device(row)) for row in self.rows()}, B)
+        out = {}
+        for row in self.rows():
+            blk = t[slice(*self.batch_block(row, B))]
+            with self.at(row):
+                out[row] = blk.to(self.device(row))
+        return Rows(out, B)
 
     def join_rows(self, xs: "Rows") -> torch.Tensor:
         """The rows' batch blocks joined in batch order on the mesh's first
         device."""
-        dev = self.device(self.rows()[0])
+        row0 = self.rows()[0]
+        dev = self.device(row0)
         blocks = {}
-        for row, x in xs.items():
+        for row, x in dict.items(xs):
             blocks.setdefault(self.batch_block(row, xs.batch), x)
-        return torch.cat([blocks[k].to(dev) for k in sorted(blocks)], 0)
+        with self.at(row0), coords.kind("all-gather"):
+            return torch.cat([blocks[k].to(dev) for k in sorted(blocks)], 0)
 
     def from_shards(self, placement: TablePlacement, shape, dtype,
                     pieces) -> Placed:
@@ -191,24 +211,33 @@ class Ctx:
 
         return Placed.build(placement, shape, dtype, block)
 
-    def reduce(self, parts: Sequence[torch.Tensor], row,
-               dtype) -> torch.Tensor:
+    def reduce(self, parts: Sequence[torch.Tensor], row, dtype,
+               kind: str = "all-reduce") -> torch.Tensor:
         """Partial sums added in float32, in shard order, on ``row``'s
-        first device, then cast once to ``dtype``."""
+        first device, then cast once to ``dtype`` (the parts' moves
+        recorded as ``kind``)."""
         dev = self.device(row)
-        acc = parts[0].to(dev, torch.float32)
-        for p in parts[1:]:
-            acc = acc + p.to(dev, torch.float32)
-        return acc.to(dtype)
+        with self.at(row), coords.kind(kind):
+            acc = parts[0].to(dev, torch.float32)
+            for p in parts[1:]:
+                acc = acc + p.to(dev, torch.float32)
+            return acc.to(dtype)
 
 
 class Rows(dict):
     """Activations under a mesh: each row's batch block (row -> tensor on
-    the row's first device), with the global ``batch`` size."""
+    the row's first device), with the global ``batch`` size.  Iterating
+    :meth:`items` runs the loop body for each row at the row's first
+    coordinate (``nn.coords.at``)."""
 
     def __init__(self, items, batch: int):
         super().__init__(items)
         self.batch = int(batch)
+
+    def items(self):
+        for row, x in dict.items(self):
+            with coords.at((row,)):
+                yield row, x
 
     def map(self, fn) -> "Rows":
         return Rows({r: fn(r, x) for r, x in self.items()}, self.batch)
@@ -223,7 +252,7 @@ def column_parallel(ctx, row, p, x, dtype, dim: int = 1):
     n = ctx.splits(k, dim)
     size = k.shape[dim] // n
     out = []
-    for j in range(n):
+    for j in ctx.shards(row, n):
         local = {"kernel": ctx.weight(k, row, j)}
         if "bias" in p:
             local["bias"] = ctx.weight(p["bias"], row, j)
@@ -235,8 +264,9 @@ def column_parallel(ctx, row, p, x, dtype, dim: int = 1):
 def assemble(pieces, lo: int, hi: int, dev, dim: int):
     """Columns ``[lo, hi)`` of dim ``dim`` out of contiguous pieces
     ``[((a, b), t)]``, joined on ``dev``."""
-    parts = [t.narrow(dim, max(lo, a) - a, min(hi, b) - max(lo, a)).to(dev)
-             for (a, b), t in pieces if a < hi and lo < b]
+    with coords.kind("all-gather"):
+        parts = [t.narrow(dim, max(lo, a) - a, min(hi, b) - max(lo, a))
+                 .to(dev) for (a, b), t in pieces if a < hi and lo < b]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 def vocab_embed(ctx: Ctx, emb: Placed, tokens: "Rows", dtype) -> "Rows":
@@ -250,7 +280,7 @@ def vocab_embed(ctx: Ctx, emb: Placed, tokens: "Rows", dtype) -> "Rows":
         if n == 1:
             return ctx.weight(emb, row, 0).to(dtype)[tok]
         parts = []
-        for j in range(n):
+        for j in ctx.shards(row, n):
             w = ctx.weight(emb, row, j)
             local = tok.to(w.device) - j * size
             ok = (local >= 0) & (local < size)
@@ -269,12 +299,13 @@ def vocab_logits(ctx: Ctx, w: Placed, xs: "Rows", dtype,
         if tied:
             parts = [t.to(ctx.device(row, j))
                      @ ctx.weight(w, row, j).to(dtype).T
-                     for j in range(ctx.splits(w, 0))]
+                     for j in ctx.shards(row, ctx.splits(w, 0))]
         else:
             parts = [y for _, y in column_parallel(ctx, row, {"kernel": w},
                                                    t, dtype)]
         dev = ctx.device(row)
-        return torch.cat([p.to(dev) for p in parts], -1)
+        with coords.kind("all-gather"):
+            return torch.cat([p.to(dev) for p in parts], -1)
 
     return xs.map(head)
 
@@ -332,17 +363,18 @@ def row_parallel(x, w, eq: str, w_gather_axes=("data", "pod"), *,
     out_dim = None
     for row in ctx.rows():
         parts = []
-        for j in range(tp):
+        for j in ctx.shards(row, tp):
             c = ctx.coord(row, j)
             xl = x.local(c)
             wl = w.gather(c, gather).to(xl.dtype)
             parts.append(torch.einsum(eq, xl.float(), wl.float()))
-        total = ctx.reduce(parts, row, x.dtype)
+        total = ctx.reduce(parts, row, x.dtype, kind="reduce-scatter")
         out_dim = total.shape[-1]
         n = S // tp
-        for j in range(tp):
-            blocks[ctx.coord(row, j)] = \
-                total[:, j * n:(j + 1) * n].to(ctx.device(row, j))
+        with coords.kind("reduce-scatter"):
+            for j in ctx.shards(row, tp):
+                blocks[ctx.coord(row, j)] = \
+                    total[:, j * n:(j + 1) * n].to(ctx.device(row, j))
     spec = (x.spec[0], "model", None)
     return Placed(TablePlacement(ctx.mesh, spec), (x.shape[0], S, out_dim),
                   x.dtype, blocks)
@@ -367,8 +399,13 @@ def row_parallel_rows(ctx: Ctx, pieces, w: Placed, eq: str, shape, dtype):
                             blocks), w, eq, ctx=ctx)
     if y is None:
         return None
-    return {row: torch.cat([y.local(ctx.coord(row, j)).to(ctx.device(row))
-                            for j in range(ctx.tp)], 1) for row in pieces}
+    out = {}
+    for row in pieces:
+        with ctx.at(row), coords.kind("all-gather"):
+            out[row] = torch.cat([y.local(ctx.coord(row, j))
+                                  .to(ctx.device(row))
+                                  for j in range(ctx.tp)], 1)
+    return out
 
 
 def embed_spec(vocab: int, d: int, dtype=torch.float32):

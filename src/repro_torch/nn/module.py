@@ -40,6 +40,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.interop import resolve_device, tree_leaves
 
+from . import coords
+
 __all__ = ["ParamSpec", "materialize", "stack_specs", "count_params",
            "layer_view", "remat", "ShardingRules", "DEFAULT_RULES",
            "PCILT_TABLE_AXES", "pcilt_table_pspec", "pcilt_table_sharding",
@@ -436,15 +438,17 @@ class Placed:
     def build(placement: TablePlacement, shape, dtype, fn) -> "Placed":
         """A leaf whose block ``i`` on device ``dev`` is ``fn(i, dev)``,
         called once for every distinct (block, device)."""
-        made: Dict[Tuple, torch.Tensor] = {}
-        blocks = {}
+        holders: Dict[Tuple, List] = {}
         grid = placement.mesh.devices
         for c in placement.mesh.coords:
-            dev = torch.device(grid[c])
-            key = (placement.block_index(c), dev)
-            if key not in made:
-                made[key] = fn(key[0], dev)
-            blocks[c] = made[key]
+            key = (placement.block_index(c), torch.device(grid[c]))
+            holders.setdefault(key, []).append(c)
+        blocks = {}
+        for key, cs in holders.items():
+            with coords.at(cs):  # made at the coordinates holding it
+                t = fn(*key)
+            for c in cs:
+                blocks[c] = t
         return Placed(placement, shape, dtype, blocks)
 
     def ranges(self, coord) -> List[Tuple[int, int]]:
@@ -486,21 +490,36 @@ class Placed:
                 out.append((c, t))
         return out
 
+    def holders(self) -> List[Tuple[torch.Tensor, frozenset]]:
+        """Every distinct block tensor with the coordinates holding it."""
+        by_id: Dict[int, Tuple[torch.Tensor, List]] = {}
+        for c, t in self.blocks.items():
+            by_id.setdefault(id(t), (t, []))[1].append(c)
+        return [(t, frozenset(cs)) for t, cs in by_id.values()]
+
+    def each(self):
+        """:meth:`unique`'s pairs, the caller's loop body for each run at
+        the coordinates holding the block (``nn.coords.at``)."""
+        for t, cs in self.holders():
+            with coords.at(cs):
+                yield min(cs), t
+
     def join(self, device=None) -> torch.Tensor:
         """The whole leaf on ``device`` (default the mesh's first), joined
         from one block of each index."""
         dev = torch.device(device) if device is not None else \
             torch.device(self.mesh.devices.reshape(-1)[0])
-        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
-        done = set()
-        for c, t in self.blocks.items():
-            i = self.placement.block_index(c)
-            if i in done:
-                continue
-            done.add(i)
-            out[tuple(slice(a, b) for a, b in
-                      self.placement.block_ranges(self.shape, i))] = \
-                t.to(dev)
+        with coords.kind("all-gather"):
+            out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+            done = set()
+            for c, t in self.blocks.items():
+                i = self.placement.block_index(c)
+                if i in done:
+                    continue
+                done.add(i)
+                out[tuple(slice(a, b) for a, b in
+                          self.placement.block_ranges(self.shape, i))] = \
+                    t.to(dev)
         return out
 
     def gather(self, coord, axes: Sequence[str], dtype=None) -> torch.Tensor:
@@ -516,11 +535,26 @@ class Placed:
         d, parts = self._memo[key]
         if d is None:
             t = self.blocks[coord]
-            return t if dtype is None else t.to(dtype)
+            if dtype is None:
+                return t
+            with coords.at((coord,)):
+                return t.to(dtype)
         dev = self.mesh.devices[coord]
-        return torch.cat([(self.blocks[c] if dtype is None
-                           else self.blocks[c].to(dtype)).to(dev)
-                          for c in parts], d)
+        # the join's moves recorded from the coordinates (an all-gather),
+        # the blocks copied quietly
+        blocks = []
+        with coords.quiet():
+            for c in parts:
+                b = self.blocks[c]
+                if dtype is not None:
+                    with coords.at((c,)):
+                        b = b.to(dtype)
+                blocks.append(b.to(dev))
+            with coords.forced((coord,)):
+                out = torch.cat(blocks, d)
+        coords.record("all-gather", [(c, coord, b.numel() * b.element_size())
+                                     for c, b in zip(parts, blocks)], out)
+        return out
 
     def _gather_order(self, coord, axes):
         """The dim the FSDP join concatenates and the coordinates of its
@@ -561,9 +595,11 @@ class Placed:
         this leaf's there (the same placement, or an int8 moment's row
         scales).  ``fn`` may change the dtype."""
         made, blocks = {}, {}
-        for c, t in self.blocks.items():
-            if id(t) not in made:
+        for t, cs in self.holders():
+            c = min(cs)
+            with coords.at(cs):  # run at the coordinates holding it
                 made[id(t)] = fn(t, *(o.blocks[c] for o in others))
+        for c, t in self.blocks.items():
             blocks[c] = made[id(t)]
         dtype = next(iter(made.values())).dtype
         return Placed(self.placement, self.shape, dtype, blocks)
@@ -636,9 +672,11 @@ class Placed:
         first = leaves[0]
         spec = first.spec[:dim] + (None,) + first.spec[dim:]
         made, blocks = {}, {}
-        for c, t in first.blocks.items():
-            if id(t) not in made:
+        for t, cs in first.holders():
+            c = min(cs)
+            with coords.at(cs):
                 made[id(t)] = torch.stack([l.blocks[c] for l in leaves], dim)
+        for c, t in first.blocks.items():
             blocks[c] = made[id(t)]
         shape = first.shape[:dim] + (len(leaves),) + first.shape[dim:]
         return Placed(TablePlacement(first.mesh, spec), shape, first.dtype,

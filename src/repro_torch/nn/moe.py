@@ -58,6 +58,7 @@ from typing import Dict, List, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import coords
 from .layers import Rows, dense
 from .module import ParamSpec
 
@@ -101,8 +102,10 @@ def _route(params, cfg, x_tokens: torch.Tensor, compute_dtype):
     probs, experts = torch.topk(probs_full, m.top_k, dim=-1)
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
     t = x_tokens.shape[0]
-    counts = torch.bincount(experts.reshape(-1),
-                            minlength=m.padded_experts).float()
+    flat = experts.reshape(-1)  # a static-shape bincount
+    counts = torch.zeros(m.padded_experts, dtype=torch.int64,
+                         device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
     dispatch_frac = counts / (t * m.top_k)
     prob_frac = probs_full.mean(0)
     aux = {"load_balance": m.n_experts * torch.sum(dispatch_frac * prob_frac),
@@ -124,7 +127,9 @@ def _dispatch(cfg, experts: torch.Tensor, cap: int):
     routed to the same expert) and whether the slot is under ``cap``."""
     E = cfg.moe.padded_experts
     flat_e = experts.reshape(-1)
-    onehot = F.one_hot(flat_e, E)                       # [t*k, E]
+    # [t*k, E]: one_hot's comparison, without its host read of the ids
+    onehot = (flat_e[:, None] == torch.arange(E, device=flat_e.device)) \
+        .long()
     pos = torch.cumsum(onehot, 0) - onehot              # exclusive count
     flat_pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
     return flat_e, flat_pos, flat_pos < cap
@@ -239,7 +244,7 @@ def _moe_mesh(params, cfg, ctx, xs: Rows):
     def row_out(row, x):
         b, S, d = x.shape
         ws = [_shard_experts(ctx, params, cfg, row, j, E_loc)
-              for j in range(tp)]
+              for j in ctx.shards(row, tp)]
 
         def dispatch(j, tokens):
             local = {"router": {"kernel": ctx.weight(router, row, j)}}
@@ -249,24 +254,27 @@ def _moe_mesh(params, cfg, ctx, xs: Rows):
             return send, plan
 
         if S % tp == 0 and S >= tp:  # all-to-all over the sequence pieces
-            sent = [dispatch(j, p.reshape(-1, d))
-                    for j, p in enumerate(ctx.split_seq(row, x))]
+            pieces = ctx.split_seq(row, x)
+            sent = [dispatch(j, pieces[j].reshape(-1, d))
+                    for j in ctx.shards(row, tp)]
             cap = sent[0][0].shape[1]
             outs = []
-            for i in range(tp):
-                dev = ctx.device(row, i)
-                recv = torch.cat([send[i * E_loc:(i + 1) * E_loc].to(dev)
-                                  for send, _ in sent], 1)
-                outs.append(_expert_ffn(recv, *ws[i], cd))
-            ys = []
-            for j, (_, plan) in enumerate(sent):
-                dev = ctx.device(row, j)
-                ret = torch.cat([o[:, j * cap:(j + 1) * cap].to(dev)
-                                 for o in outs], 0)
-                ys.append(_combine(cfg, ret, plan).reshape(b, S // tp, d))
+            with coords.kind("all-to-all"):
+                for i in ctx.shards(row, tp):
+                    dev = ctx.device(row, i)
+                    recv = torch.cat([send[i * E_loc:(i + 1) * E_loc].to(dev)
+                                      for send, _ in sent], 1)
+                    outs.append(_expert_ffn(recv, *ws[i], cd))
+                ys = []
+                for j in ctx.shards(row, tp):
+                    dev = ctx.device(row, j)
+                    ret = torch.cat([o[:, j * cap:(j + 1) * cap].to(dev)
+                                     for o in outs], 0)
+                    ys.append(_combine(cfg, ret, sent[j][1])
+                              .reshape(b, S // tp, d))
             return ctx.join_seq(row, ys)
         parts = []  # psum: every shard routes every token of the row
-        for j in range(tp):
+        for j in ctx.shards(row, tp):
             send, plan = dispatch(j, x.reshape(-1, d).to(ctx.device(row, j)))
             out = _expert_ffn(send[j * E_loc:(j + 1) * E_loc], *ws[j], cd)
             pad = [torch.zeros((n, *out.shape[1:]), dtype=out.dtype,
@@ -281,11 +289,12 @@ def _moe_mesh(params, cfg, ctx, xs: Rows):
     dev = ctx.device(ctx.rows()[0])
     order = [c for c in ctx.mesh.coords if c in auxes]
     aux = {}
-    for n in ("load_balance", "router_z"):  # pmean, in mesh order
-        acc = auxes[order[0]][n].to(dev, torch.float32)
-        for c in order[1:]:
-            acc = acc + auxes[c][n].to(dev, torch.float32)
-        aux[n] = acc / len(order)
+    with ctx.at(ctx.rows()[0]), coords.kind("all-reduce"):
+        for n in ("load_balance", "router_z"):  # pmean, in mesh order
+            acc = auxes[order[0]][n].to(dev, torch.float32)
+            for c in order[1:]:
+                acc = acc + auxes[c][n].to(dev, torch.float32)
+            aux[n] = acc / len(order)
     return ys, aux
 
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.core import (QuantSpec, build_dwconv_tables, fake_quant,
                               pcilt_depthwise_conv1d, pcilt_linear,
                               quantize_with_stats)
+from . import coords
 from .layers import (Rows, assemble, column_parallel, dense, dense_spec,
                      rmsnorm, rmsnorm_spec)
 from .module import ParamSpec, Placed, TablePlacement
@@ -502,7 +503,7 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
         # the conv, per channel shard
         size = C // nc
         windows, conv_y = [], []
-        for j in range(nc):
+        for j in ctx.shards(row, nc):
             c0, c1 = j * size, (j + 1) * size
             dj = ctx.device(row, j)
             seg = assemble(xbc, c0, c1, dj, -1)
@@ -533,7 +534,8 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
             y = y + ctx.weight(params["conv_b"], row, j).to(seg.dtype)
             conv_y.append(((c0, c1), y))
         if pcilt is not None and decode:  # the fetch of the joined window
-            win = torch.cat([w.to(dev0) for w in windows], -1)
+            with coords.kind("all-gather"):
+                win = torch.cat([w.to(dev0) for w in windows], -1)
             lp = {"conv_w": conv_w.join(dev0),
                   "conv_b": params["conv_b"].join(dev0)}
             r = _conv1d(lp, cfg, win[:, 1:], win[:, :1], pcilt=pcilt,
@@ -556,7 +558,7 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
         # the recurrence, per head shard
         hs = H // nh
         ys = []
-        for j in range(nh):
+        for j in ctx.shards(row, nh):
             h0, h1 = j * hs, (j + 1) * hs
             dj = ctx.device(row, j)
             xh = assemble(conv_y, h0 * P, h1 * P, dj, -1) \
@@ -585,14 +587,15 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
             ys.append(((h0 * P, h1 * P), y * F.silu(zj.to(y.dtype))))
         # the gated norm over the shards' d_inner columns
         sq = [(y.float() * y.float()).sum(-1, keepdim=True) for _, y in ys]
-        total = sq[0].to(dev0)
-        for q in sq[1:]:
-            total = total + q.to(dev0)
+        with coords.kind("all-reduce"):
+            total = sq[0].to(dev0)
+            for q in sq[1:]:
+                total = total + q.to(dev0)
         inv = torch.rsqrt(total / d_inner + cfg.norm_eps)
         scale = ctx.weight(params["norm"]["scale"], row, 0).float()
         ys = [((a, b), (y.float() * inv.to(y.device)
                         * scale[a:b].to(y.device)).to(y.dtype))
-              for (a, b), y in ys]
+              for _, ((a, b), y) in zip(ctx.shards(row, len(ys)), ys)]
         if calib:
             amax["wo_in"].extend(y.abs().max().float() for _, y in ys)
         # the output projection
@@ -610,7 +613,7 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
             parts = [assemble(ys, j * rs, (j + 1) * rs, ctx.device(row, j),
                               -1).to(cfg.dtype).float()
                      @ ctx.weight(wo, row, j).to(cfg.dtype).float()
-                     for j in range(no)]
+                     for j in ctx.shards(row, no)]
             outs[row] = ctx.reduce(parts, row, cfg.dtype)
             sat["out"].append(_zero_stats(dev0))
     new_state = {
@@ -621,11 +624,12 @@ def _mamba_mesh(params, cfg, ctx, xs, state=None, pcilt=None,
                                state["ssd"].dtype if decode
                                else torch.float32, ssd_new)}
     dev = ctx.device(ctx.rows()[0])
-    stats = {g: (sum(c.to(dev) for c, _ in v),
-                 torch.stack([r.to(dev) for _, r in v]).max())
-             for g, v in sat.items()}
-    found = {n: torch.stack([a.to(dev) for a in v]).max()
-             for n, v in amax.items()} if calib else None
+    with ctx.at(ctx.rows()[0]), coords.kind("all-reduce"):
+        stats = {g: (sum(c.to(dev) for c, _ in v),
+                     torch.stack([r.to(dev) for _, r in v]).max())
+                 for g, v in sat.items()}
+        found = {n: torch.stack([a.to(dev) for a in v]).max()
+                 for n, v in amax.items()} if calib else None
     return Rows(outs, B), new_state, stats, found
 
 

@@ -30,6 +30,7 @@ from typing import Callable, Union
 import torch
 
 from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.nn import coords
 from repro_torch.nn.module import ParamSpec, Placed, TablePlacement
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_init_specs", "adamw_update",
@@ -146,7 +147,8 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32."""
     leaves = tree_leaves(tree)
     dev = leaves[0].device
-    sq = sum(_sq_sum(x, dev) for x in leaves)
+    with coords.kind("all-reduce"):
+        sq = sum(_sq_sum(x, dev) for x in leaves)
     return torch.sqrt(sq)
 
 
@@ -266,24 +268,28 @@ def _q8_placed(x: Placed, scale_placement: TablePlacement):
     row's scale from the max of ``|x|`` over the blocks that hold the row
     (exact: a max), placed by ``scale_placement``, the codes block by
     block."""
-    amax = {}
-    for c, t in x.unique():
-        i = x.placement.block_index(c)
-        key = i[:-1]
+    amax, home = {}, {}
+    for c, t in x.each():  # the rows' max, kept where a row's first is
+        key = x.placement.block_index(c)[:-1]
         a = t.abs().amax(-1, keepdim=True)
-        amax[key] = a if key not in amax else \
-            torch.maximum(amax[key], a.to(amax[key].device))
-    scales = {k: (a / 127.0 + 1e-12).float() for k, a in amax.items()}
+        if key not in amax:
+            amax[key], home[key] = a, coords.current()
+            continue
+        with coords.at(home[key]), coords.kind("all-reduce"):
+            amax[key] = torch.maximum(amax[key], a.to(amax[key].device))
+    scales = {}
+    for k, a in amax.items():
+        with coords.at(home[k]):
+            scales[k] = (a / 127.0 + 1e-12).float()
 
     def codes(t, c):
         sc = scales[x.placement.block_index(c)[:-1]].to(t.device)
         return torch.clamp(torch.round(t / sc), -127, 127).to(torch.int8)
 
-    q_blocks, made = {}, {}
-    for c, t in x.blocks.items():
-        if id(t) not in made:
-            made[id(t)] = codes(t, c)
-        q_blocks[c] = made[id(t)]
+    made = {}
+    for c, t in x.each():
+        made[id(t)] = codes(t, c)
+    q_blocks = {c: made[id(t)] for c, t in x.blocks.items()}
     q = Placed(x.placement, x.shape, torch.int8, q_blocks)
     scale = Placed.build(_scale_placement(x), (*x.shape[:-1], 1),
                          torch.float32,

@@ -35,9 +35,11 @@ reference, no train step folds it into the next step's gradient.
 Given ``stats`` (a dict the caller keeps), a call adds to
 ``stats["sent_bytes"]`` the bytes that leave each shard's device block
 for another shard in the two phases (codes, scales and values; a shard's
-own chunk stays), summed over the shards: the port's stand-in for the
-reference's HLO collective bytes.  On a mesh whose shards share a device
-the moves are copies on that device, counted all the same.
+own chunk stays), summed over the shards.  On a mesh whose shards share a
+device the moves are copies on that device, counted all the same.  The
+same moves go to the move record (``nn.coords``): phase 1 as a
+``reduce-scatter``, phase 2 as an ``all-gather``, each between two shards'
+coordinates.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.nn import coords
 from repro_torch.nn.module import Placed, TablePlacement
 
 __all__ = ["compressed_pmean", "compress_grads_tree"]
@@ -60,9 +63,9 @@ _WIRE = {"int8": 1, "bf16": 2, "none": 4}
 
 
 def _shards(x: Placed, axis: str) -> Tuple[List[torch.Tensor],
-                                           List[torch.device]]:
-    """Each shard's local value (float32, on its device) and the devices,
-    in shard order."""
+                                           List[torch.device], List[Tuple]]:
+    """Each shard's local value (float32, on its device), the devices and
+    the mesh coordinates, in shard order."""
     mesh = x.mesh
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh axes {mesh.axis_names} have no {axis!r}")
@@ -72,13 +75,16 @@ def _shards(x: Placed, axis: str) -> Tuple[List[torch.Tensor],
                          f"0 ([{n}, ...] with spec ({axis!r}, None, ...)); "
                          f"got {tuple(x.shape)} with spec {x.spec}")
     k = mesh.axis_names.index(axis)
-    coords = []
+    cs = []
     for i in range(n):
         c = [0] * len(mesh.axis_names)
         c[k] = i
-        coords.append(tuple(c))
-    return ([x.blocks[c][0].float() for c in coords],
-            [torch.device(mesh.devices[c]) for c in coords])
+        cs.append(tuple(c))
+    values = []
+    for c in cs:
+        with coords.at((c,)):
+            values.append(x.blocks[c][0].float())
+    return values, [torch.device(mesh.devices[c]) for c in cs], cs
 
 
 def _chunks(v: torch.Tensor, n: int) -> torch.Tensor:
@@ -92,55 +98,76 @@ def _quantize(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
 
 
-def _int8_codes(flats, devs):
+def _int8_codes(flats, devs, cs=None):
     """The int8 scheme's codes: each source's ``(codes [n, C], scales [n,
     1])`` and, per owner ``j``, its reduced chunk requantized ``(codes
     [C], scale)`` on its device (phase 1: the sources' chunk ``j`` moved
-    to ``devs[j]`` and added as ``q * s`` in float32 in source order)."""
+    to ``devs[j]`` and added as ``q * s`` in float32 in source order);
+    ``cs`` the shards' mesh coordinates (default ``(i,)``)."""
     n = len(flats)
-    scales = [f.abs().amax(1, keepdim=True) * _INV127 + 1e-12 for f in flats]
-    qs = [_quantize(f, s) for f, s in zip(flats, scales)]
+    cs = cs or [(i,) for i in range(n)]
+    scales, qs = [], []
+    for f, c in zip(flats, cs):
+        with coords.forced((c,)):
+            scales.append(f.abs().amax(1, keepdim=True) * _INV127 + 1e-12)
+            qs.append(_quantize(f, scales[-1]))
     owned = []
     for j, dev in enumerate(devs):
-        acc = qs[0][j].to(dev).float() * scales[0][j].to(dev)
-        for i in range(1, n):
-            acc = acc + qs[i][j].to(dev).float() * scales[i][j].to(dev)
-        part = acc * (1.0 / n)
-        s2 = part.abs().max() * _INV127 + 1e-12
-        owned.append((_quantize(part, s2), s2))
+        with coords.forced((cs[j],)):
+            acc = qs[0][j].to(dev).float() * scales[0][j].to(dev)
+            for i in range(1, n):
+                acc = acc + qs[i][j].to(dev).float() * scales[i][j].to(dev)
+            part = acc * (1.0 / n)
+            s2 = part.abs().max() * _INV127 + 1e-12
+            owned.append((_quantize(part, s2), s2))
     return qs, scales, owned
 
 
-def _reduce(locals_, devs, scheme, stats):
-    """The two phases.  Returns (``gathered(dev)``: every owner's reduced
-    chunk on ``dev``, ``[n, C]`` float32; each shard's residual ``[n,
-    C]``)."""
+def _reduce(locals_, devs, scheme, stats, cs):
+    """The two phases (the shards at mesh coordinates ``cs``).  Returns
+    (``gathered(dev)``: every owner's reduced chunk on ``dev``, ``[n, C]``
+    float32; each shard's residual ``[n, C]``).  The moves are recorded
+    (``nn.coords``) by coordinate: phase 1 a reduce-scatter, phase 2 an
+    all-gather to every shard."""
     n = len(locals_)
     flats = [_chunks(v, n) for v in locals_]
-    if scheme == "int8":
-        qs, scales, owned = _int8_codes(flats, devs)
-        resid = [f - q.float() * s for f, q, s in zip(flats, qs, scales)]
-    else:
-        wire = torch.bfloat16 if scheme == "bf16" else torch.float32
-        sent = [f.to(wire) for f in flats]
-        resid = [f - s.float() for f, s in zip(flats, sent)]
-        owned = []
-        for j, dev in enumerate(devs):
-            acc = sent[0][j].to(dev).float()
-            for i in range(1, n):
-                acc = acc + sent[i][j].to(dev).float()
-            owned.append(((acc * (1.0 / n)).to(wire), None))
+    C = flats[0].shape[1]
+    chunk = C * _WIRE[scheme] + (4 if scheme == "int8" else 0)
+    pairs = [(cs[i], cs[j], chunk) for j in range(n) for i in range(n)]
+    coords.record("reduce-scatter", pairs)
+    coords.record("all-gather", pairs)
+    with coords.quiet():
+        if scheme == "int8":
+            qs, scales, owned = _int8_codes(flats, devs, cs)
+            resid = []
+            for f, q, s, c in zip(flats, qs, scales, cs):
+                with coords.forced((c,)):
+                    resid.append(f - q.float() * s)
+        else:
+            wire = torch.bfloat16 if scheme == "bf16" else torch.float32
+            sent, resid = [], []
+            for f, c in zip(flats, cs):
+                with coords.forced((c,)):
+                    sent.append(f.to(wire))
+                    resid.append(f - sent[-1].float())
+            owned = []
+            for j, dev in enumerate(devs):
+                with coords.forced((cs[j],)):
+                    acc = sent[0][j].to(dev).float()
+                    for i in range(1, n):
+                        acc = acc + sent[i][j].to(dev).float()
+                    owned.append(((acc * (1.0 / n)).to(wire), None))
     if stats is not None:  # both phases, every shard
-        C = flats[0].shape[1]
-        per_shard = (n - 1) * C * _WIRE[scheme] + (
-            (n - 1) * 4 if scheme == "int8" else 0)
+        per_shard = (n - 1) * chunk
         stats["sent_bytes"] = stats.get("sent_bytes", 0) + 2 * n * per_shard
 
     def gathered(dev):
-        # phase 2: every owner's reduced chunk (and scale) to ``dev``
-        return torch.stack([q.to(dev).float() * (1.0 if s is None
-                                                 else s.to(dev))
-                            for q, s in owned])
+        # phase 2: every owner's reduced chunk (and scale) to ``dev``, at
+        # the coordinates holding the result (``Placed.build``'s scope)
+        with coords.quiet(), coords.forced(coords.current() or cs[:1]):
+            return torch.stack([q.to(dev).float() * (1.0 if s is None
+                                                     else s.to(dev))
+                                for q, s in owned])
 
     return gathered, resid
 
@@ -150,12 +177,12 @@ def compressed_pmean(x: Placed, axis: str, scheme: str = "int8", *,
     """The mean over mesh axis ``axis`` of ``x``'s per-shard values,
     reduced by ``scheme`` (``"int8"``, ``"bf16"``, ``"none"``; module
     docstring).  Returns ``(reduced, residual)``."""
-    locals_, devs = _shards(x, axis)
+    locals_, devs, cs = _shards(x, axis)
     if scheme not in _WIRE:
         raise ValueError(f"unknown compression scheme {scheme!r}")
     shape = x.shape[1:]
     N = locals_[0].numel()
-    gathered, resid = _reduce(locals_, devs, scheme, stats)
+    gathered, resid = _reduce(locals_, devs, scheme, stats, cs)
     rank = len(x.spec)
     made = {}
 

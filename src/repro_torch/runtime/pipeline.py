@@ -19,6 +19,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.nn import coords
+
 __all__ = ["pipeline_apply"]
 
 
@@ -46,13 +48,15 @@ def pipeline_apply(fn: Callable, stage_params, x: torch.Tensor, mesh,
     S, M = len(devs), x.shape[0]
     names = mesh.axis_names
     k = names.index(axis)
-    coords = []
+    cs = []
     for s in range(S):
         c = [0] * len(names)
         c[k] = s
-        coords.append(tuple(c))
-    params = [_stage_slice(stage_params, s, devs[s], coords[s])
-              for s in range(S)]
+        cs.append(tuple(c))
+    params = []
+    for s in range(S):
+        with coords.at((cs[s],)):
+            params.append(_stage_slice(stage_params, s, devs[s], cs[s]))
     inbuf = [None] * S
     outs = [None] * M
     for t in range(M + S - 1):
@@ -61,11 +65,17 @@ def pipeline_apply(fn: Callable, stage_params, x: torch.Tensor, mesh,
             mb = t - s
             if not 0 <= mb < M:
                 continue
-            a_in = x[mb].to(devs[s]) if s == 0 else inbuf[s]
-            y = fn(params[s], a_in)
+            with coords.at((cs[s],)):
+                a_in = x[mb].to(devs[s]) if s == 0 else inbuf[s]
+                y = fn(params[s], a_in)
+            nxt_s = 0 if s == S - 1 else s + 1  # the stage hand-off
+            with coords.at((cs[nxt_s],)), \
+                    coords.kind("collective-permute"):
+                moved = y.to(devs[nxt_s])
             if s == S - 1:
-                outs[mb] = y.to(devs[0])
+                outs[mb] = moved
             else:
-                nxt[s + 1] = y.to(devs[s + 1])
+                nxt[s + 1] = moved
         inbuf = nxt
-    return torch.stack(outs)
+    with coords.at((cs[0],)):
+        return torch.stack(outs)

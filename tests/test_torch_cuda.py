@@ -1558,3 +1558,53 @@ def test_granite_expert_parallel_on_card_matches_cpu(cuda):
     for k in ("load_balance", "router_z"):
         g, w = float(runs["cuda"][2][k]), float(runs["cpu"][2][k])
         assert abs(g - w) <= 2e-2 * abs(w), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_dry_run_counts_what_the_card_runs(cuda, kind):
+    """The dry run's gates on a (1, 2) mesh of this card: a qwen3 smoke
+    step counted on meta tensors and the same step counted on the card
+    (seeded weights) give each coordinate the same argument bytes, flops
+    and moves by kind."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import data_spec, step_args
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import (materialize, place, shape_structs,
+                                       shardings)
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(6)
+    tok = torch.randint(0, cfg.vocab, (4, 32), generator=gen,
+                        dtype=torch.int32)
+    got = {}
+    for dev in ("meta", "cuda:0"):
+        mesh = make_host_mesh(1, 2, devices=[dev] * 2)
+        rules = data_spec(mesh)
+        specs = {"params": model.param_specs()}
+        if kind == "decode":
+            specs["cache"] = model.cache_specs(4, 32)
+        if dev == "meta":
+            args = step_args({k: shape_structs(v, mesh, rules)
+                              for k, v in specs.items()})
+        else:
+            args = {k: place(materialize(v, 0, device=cuda),
+                             shardings(v, mesh, rules))
+                    for k, v in specs.items()}
+        if kind == "decode":
+            args["cache"]["pos"] = 31
+            args["tokens"] = tok[:, :1].to(dev)
+        else:
+            args["batch"] = {"tokens": tok.to(dev)}
+        r = dryrun.measure_step(dryrun.make_step(cfg, kind, mesh), kind,
+                                args, mesh)
+        assert r["crossed"] == 0
+        got[dev] = r["per_coord"]
+    assert sorted(got["meta"]) == sorted(got["cuda:0"]) == ["0,0", "0,1"]
+    for c, m in got["meta"].items():
+        k = got["cuda:0"][c]
+        for key in ("argument_bytes", "flops", "collective_bytes", "coll"):
+            assert m[key] == k[key], (c, key)

@@ -24,6 +24,7 @@ both packages, showing the same meaning (and the positional ``mesh`` of
 
 import importlib
 import inspect
+import os
 import pkgutil
 
 import jax.numpy as jnp
@@ -115,7 +116,13 @@ def _shared():
     return pairs
 
 
+#: importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` (512 host
+#: devices) for later JAX processes: the walk leaves the environment as it
+#: found it
+_ENV = dict(os.environ)
 SHARED = _shared()
+os.environ.clear()
+os.environ.update(_ENV)
 
 
 def test_the_walk_finds_the_shared_names():
@@ -375,3 +382,58 @@ def test_calibrate_pcilt_positional_batch():
     for k in ("in", "out", "conv_in", "head_in"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=2e-2, err_msg=k)
+
+
+#: the dry run's shared names, each a positional call alike in both
+DRYRUN_NAMES = ("repro_torch.launch.specs.input_specs",
+                "repro_torch.launch.specs.batch_specs",
+                "repro_torch.launch.specs.param_structs",
+                "repro_torch.launch.specs.data_spec",
+                "repro_torch.launch.mesh.make_production_mesh",
+                "repro_torch.launch.dryrun.run_cell",
+                "repro_torch.launch.dryrun.cell_path")
+
+
+@pytest.mark.parametrize("name", DRYRUN_NAMES,
+                         ids=[n.removeprefix("repro_torch.")
+                              for n in DRYRUN_NAMES])
+def test_dryrun_names_are_shared_and_bind_alike(name):
+    found = {n: (p, r) for n, p, r in SHARED}
+    assert name in found, name
+    port, ref = found[name]
+    assert _rule(port, ref, _set_aside(name)) is None
+    rs, ps = inspect.signature(ref), inspect.signature(port)
+    args = {"input_specs": ("a", "s", None, None, None, False),
+            "batch_specs": ("cfg", "s", None, None),
+            "param_structs": ("cfg", None),
+            "data_spec": (None, None),
+            "make_production_mesh": (),
+            "run_cell": ("a", "s", True, None, "base"),
+            "cell_path": ("a", "s", "pod16x16", "base")}[name.split(".")[-1]]
+    assert list(rs.bind(*args).arguments) == list(ps.bind(*args).arguments)
+
+
+def test_input_specs_positional_call():
+    """``input_specs(arch, shape, mesh, cfg)``: the same leaves and shapes
+    in both packages from one positional call."""
+    import jax
+
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.launch.specs import input_specs as j_specs
+    from repro_torch.configs import get_smoke_config as t_smoke
+    from repro_torch.launch.specs import input_specs as t_specs
+
+    for shape in ("train_4k", "decode_32k"):
+        want = jax.tree_util.tree_flatten_with_path(
+            j_specs("qwen3-0.6b", shape, None, j_smoke("qwen3-0.6b")))[0]
+        got = t_specs("qwen3-0.6b", shape, None, t_smoke("qwen3-0.6b"))
+
+        def leaves(t, pre=""):
+            if isinstance(t, dict):
+                return [x for k, v in t.items()
+                        for x in leaves(v, f"{pre}/{k}")]
+            return [(pre, tuple(t.shape))]
+
+        assert sorted(leaves(got)) == sorted(
+            ("/" + "/".join(str(k.key) for k in p), tuple(v.shape))
+            for p, v in want)
