@@ -312,8 +312,21 @@ Phases (any failure exits non-zero, and no result line is printed):
     unsharded prefill's dry-run peak of live bytes beside
     ``torch.cuda.max_memory_allocated()``; (c) the move record of
     ``compressed_pmean`` int8 on phase 24's (4,) mesh equal to its
-    ``stats["sent_bytes"]``;
-26. prints the kernels' JSON line, then as the last line
+    ``stats["sent_bytes"]``; (d) the three repairs of the dry run's port
+    faults: qwen3-0.6b ``train_4k``'s busiest and least loaded
+    coordinate's flops within 1.1x (each row's loss on its own shards) and
+    no buffer of 1 GiB (the joined logits chunk was 148.4 GiB),
+    ``decode_32k`` within 80 GB a device (the cache written in place), and
+    whisper-medium's decode under the reference's ``kvshard`` rules a cell
+    of its own (``decode_32k``, the query heads replicated: each shard
+    gathers the cross K/V heads of every model shard);
+26. the Hopper resource verifier (``python -m repro_torch.analysis
+    --passes smem --sweep full --built``): every design ``kernels.ops``
+    admits over the full shape sweep, against the built libraries' own
+    constants and plans and their ``ptxas`` reports; prints each kernel's
+    registers, static and most dynamic shared memory and spills, and
+    every finding; an error finding fails the run, nothing is launched;
+27. prints the kernels' JSON line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs.
@@ -559,6 +572,7 @@ DRYRUN_CELLS = (("llama4-maverick-400b-a17b", "train_4k", True),
                 ("qwen3-0.6b", "train_4k", False),
                 ("qwen3-0.6b", "prefill_32k", False),
                 ("qwen3-0.6b", "decode_32k", False),
+                ("whisper-medium", "decode_32k", False),
                 ("mamba2-130m", "long_500k", False),
                 ("qwen3-0.6b", "long_500k", False))
 DRYRUN_DEPTHS = {("llama4-maverick-400b-a17b", "train_4k", True): (0, 2),
@@ -566,8 +580,20 @@ DRYRUN_DEPTHS = {("llama4-maverick-400b-a17b", "train_4k", True): (0, 2),
                  ("qwen3-0.6b", "train_4k", False): (0, 1),
                  ("qwen3-0.6b", "prefill_32k", False): (1, 2)}
 DRYRUN_SKIPPED = {("qwen3-0.6b", "long_500k", False)}
+#: cells run under one of ``launch.dryrun.VARIANTS``: whisper-medium's
+#: decode under the reference's ``kvshard`` rules
+#: (``src/repro/launch/dryrun.py:97``)
+DRYRUN_VARIANTS = {("whisper-medium", "decode_32k", False): "kvshard"}
+#: the repaired faults' bounds (phase 25 (d)): the busiest coordinate's
+#: flops over the least loaded one's at qwen3-0.6b ``train_4k``, the
+#: largest buffer there, and a device's bytes at ``decode_32k``
+DRYRUN_FLOPS_SKEW, DRYRUN_MAX_BUFFER, DRYRUN_DEVICE_BYTES = 1.1, 2 ** 30, \
+    80e9
 DRYRUN_WORKERS = 2
-DRYRUN_CELL_TIMEOUT = 900
+#: llama4's cell, the longest, took 895 s of host time in PR 29 (398 s in
+#: PR 28, before each row ran its own loss and each query shard its own
+#: KV heads); the script reaches phase 25 at ~950 s and waits there
+DRYRUN_CELL_TIMEOUT = 1080
 DRYRUN_MESHES = ((1, 2), (1, 4), (2, 2))
 DRYRUN_CACHE, DRYRUN_PREFILL = 256, 192
 #: what phase 17 hands to phase 23 (its unsharded zamba2 run), off the
@@ -964,6 +990,36 @@ def check_kernels(torch, ops, core, report):
             record("shared_gemv", what + design, mx, ok,
                    "exact" if exact else f"rtol {rtol}")
         del pool
+
+    # -- a wide head at B = 32: G = 7168 (deepseek-coder-33b's width at
+    #    group 1), O = 32256, where the split's cluster doubles to 2 so that
+    #    two blocks fit an SM (its __launch_bounds__); 7168 pointers into a
+    #    16-row pool; the split design twice, bit-identical and bit-equal to
+    #    its plain version summed in the split's order (the kept design
+    #    cannot hold 32 x 7168 offsets in a block)
+    WB, WG, WO = 32, 7168, 32256
+    sp = ops.shared_gemv_variant(WB, WG, WO, 4)
+    require(sp.cluster == 2 and ops.SHARED_BLOCKS_PER_SM * (
+        ops.shared_gemv_smem_bytes(sp, WG) + ops.BLOCK_RESERVED_SMEM)
+        <= ops.SM_SMEM_BYTES, f"the wide head's split {sp} does not keep "
+        f"two blocks an SM")
+    x, scale = x_and_scale(WG * group, WB)
+    pool = randn(16, 1 << (spec.bits * group), WO, s=0.05)
+    idx = torch.randint(0, 16, (WG,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    seen = ops.SHARED_GEMV_VARIANT_LAUNCHES["split"]
+    got = ops.pcilt_shared_gemv(x, pool, idx, spec, scale, group)
+    again = ops.pcilt_shared_gemv(x, pool, idx, spec, scale, group)
+    ordered = ops.shared_gemv_plain(x, pool, idx, spec, scale, group,
+                                    split_order=True)
+    torch.cuda.synchronize()
+    require(ops.SHARED_GEMV_VARIANT_LAUNCHES["split"] - seen == 2,
+            "the wide head did not run the split design twice")
+    require(torch.equal(got, again), "two launches of the wide head differ")
+    mx, ok = close(torch, got, ordered, 0.0, exact=True)
+    record("shared_gemv", f"wide head B{WB} G{WG} X16 O{WO}, cluster 2", mx,
+           ok, "exact, the split's order")
+    del pool, x, got, again, ordered
     check_conv_kernels(torch, ops, record, gen)
     check_slice3_kernels(torch, ops, record, gen)
     check_plan_kernel(torch, ops, record, gen)
@@ -7016,6 +7072,8 @@ class DryRuns:
                 (["--multi-pod"] if mp else [])
             if cell in DRYRUN_DEPTHS:
                 cmd += ["--depths", ",".join(map(str, DRYRUN_DEPTHS[cell]))]
+            if cell in DRYRUN_VARIANTS:
+                cmd += ["--variant", DRYRUN_VARIANTS[cell]]
             path = os.path.join(ROOT, "chiprun_out", "dryrun",
                                 f"{arch}__{shape}__{int(mp)}.log")
             t0 = time.perf_counter()
@@ -7061,7 +7119,8 @@ _DRYRUNS = DryRuns()
 def _cell_file(arch, shape, mp):
     from repro_torch.launch.dryrun import cell_path
 
-    return cell_path(arch, shape, "pod2x16x16" if mp else "pod16x16")
+    return cell_path(arch, shape, "pod2x16x16" if mp else "pod16x16",
+                     DRYRUN_VARIANTS.get((arch, shape, mp), "base"))
 
 
 def _cell_json(arch, shape, mp):
@@ -7084,7 +7143,8 @@ def _dryrun_cells(out):
     rows = out["cells"] = {}
     for cell in DRYRUN_CELLS:
         arch, shape, mp = cell
-        name = f"{arch} {shape} {'pod2x16x16' if mp else 'pod16x16'}"
+        name = f"{arch} {shape} {'pod2x16x16' if mp else 'pod16x16'}" + (
+            f" {DRYRUN_VARIANTS[cell]}" if cell in DRYRUN_VARIANTS else "")
         r = results.get(cell)
         require(r is not None and r["rc"] != "timeout",
                 f"dry run {name}: no result ({r})")
@@ -7130,6 +7190,57 @@ def _dryrun_cells(out):
         require(c.get("crossed", 0) == 0, f"dry run {name}: "
                 f"{c.get('crossed')} operations read inputs of other "
                 f"coordinates unmoved")
+
+
+def _dryrun_repairs(out):
+    """(d): the repaired port faults at production scale, read off (a)'s
+    cells: the loss on its rows, the decode's cache in place, whisper's
+    kvshard decode."""
+    train = _cell_json("qwen3-0.6b", "train_4k", False)
+    dec = _cell_json("qwen3-0.6b", "decode_32k", False)
+    kv = _cell_json("whisper-medium", "decode_32k", False)
+    lo, hi = train["spread"]["flops"]
+    top = train["top_buffers"][:3]
+    rep = out["repairs"] = {
+        "train_4k": {"flops_least": lo, "flops_busiest": hi,
+                     "skew": hi / lo, "temp_bytes": train["spread"][
+                         "temp_bytes"], "top_buffers": top},
+        "decode_32k": {"memory": dec["memory"],
+                       "temp_bytes": dec["spread"]["temp_bytes"],
+                       "total_bytes": dec["spread"]["total_nonalias_bytes"],
+                       "top_buffers": dec["top_buffers"][:3]},
+        "whisper_kvshard": {"memory": kv["memory"],
+                            "flops_per_device": kv["cost"][
+                                "flops_per_device"],
+                            "trace_s": kv["trace_s"]}}
+    gib = 2 ** 30
+    log(f"  qwen3-0.6b train_4k: flops a coordinate {lo:.4e} (least) to "
+        f"{hi:.4e} (busiest), {hi / lo:.3f}x; temporaries "
+        f"{train['spread']['temp_bytes'][0] / gib:.2f} to "
+        f"{train['spread']['temp_bytes'][1] / gib:.2f} GiB at the cut depth;"
+        f" largest buffers " + ", ".join(
+            f"{b['bytes'] / gib:.3f} GiB ({b['op']})" for b in top))
+    m = dec["memory"]
+    log(f"  qwen3-0.6b decode_32k: {m['total_nonalias_bytes'] / gib:.2f} "
+        f"GiB a device at the busiest (arguments "
+        f"{m['argument_bytes'] / gib:.2f}, temporaries "
+        f"{m['temp_bytes'] / gib:.2f}, aliased outputs "
+        f"{m['alias_bytes'] / gib:.2f}); temporaries "
+        f"{dec['spread']['temp_bytes'][0] / gib:.3f} to "
+        f"{dec['spread']['temp_bytes'][1] / gib:.3f} GiB")
+    m = kv["memory"]
+    log(f"  whisper-medium decode_32k kvshard: ok, "
+        f"{m['total_nonalias_bytes'] / gib:.2f} GiB a device (arguments "
+        f"{m['argument_bytes'] / gib:.2f}, temporaries "
+        f"{m['temp_bytes'] / gib:.2f}), {kv['cost']['flops_per_device']:.4e}"
+        f" flops, trace {kv['trace_s']} s")
+    require(hi / lo <= DRYRUN_FLOPS_SKEW, f"qwen3-0.6b train_4k: the busiest "
+            f"coordinate's flops are {hi / lo:.3f}x the least loaded one's")
+    require(top[0]["bytes"] < DRYRUN_MAX_BUFFER, f"qwen3-0.6b train_4k: a "
+            f"{top[0]['bytes'] / gib:.2f} GiB buffer ({top[0]['op']})")
+    require(dec["memory"]["total_nonalias_bytes"] < DRYRUN_DEVICE_BYTES,
+            f"qwen3-0.6b decode_32k needs "
+            f"{dec['memory']['total_nonalias_bytes'] / 1e9:.2f} GB a device")
 
 
 def _dryrun_args(torch, cfg, kind, mesh, meta):
@@ -7285,12 +7396,66 @@ def dryrun(torch, ops, report):
     _dryrun_compress(torch, out)
     out["compress_s"] = time.perf_counter() - t0
     _dryrun_cells(out)
+    _dryrun_repairs(out)
     log(f"phase 25 parts: against the card {out['vs_card_s']:.1f} s, "
         f"compress {out['compress_s']:.1f} s, waited for the cells "
         f"{out['waited_s']:.1f} s")
     report["dryrun"] = out
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     require(launches == {}, f"the dry run launched PCILT kernels {launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 26: the Hopper resource verifier
+# ----------------------------------------------------------------------------
+
+
+def resources(torch, ops, report):
+    """Phase 26 (module docstring): ``analysis.smem`` over the full sweep
+    against the built libraries and their ``ptxas`` reports.  Returns the
+    path's launches (none: the verifier launches nothing)."""
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import autotune as atn
+    from repro_torch.kernels import build
+
+    ops.reset_launches()
+    runs = atn.TIMING_RUNS
+    t0 = time.perf_counter()
+    libs = {n: build.library(n) for n in build.SOURCES}
+    reports = {n: build.report(n) for n in build.SOURCES}
+    summary = {}
+    found = smem.verify_all("full", libraries=libs, reports=reports,
+                            summary=summary)
+    secs = time.perf_counter() - t0
+    out = report["resources"] = {
+        "seconds": secs, "families": {k: v for k, v in summary.items()
+                                      if k not in ("report", "kernels")},
+        "kernels": summary["kernels"], "report": summary["report"],
+        "findings": [f.render() for f in found]}
+    for fam, v in out["families"].items():
+        log(f"  {fam} (kernels {v['kernels']}): {v['shapes']} shapes, "
+            f"{v['launches']} launches checked, {v['refused']} shapes "
+            f"refused by the wrapper")
+    for lib, rep in summary["report"].items():
+        for k, r in sorted(rep.items()):
+            use = summary["kernels"].get(k, {})
+            log(f"  {lib} {k}: {r['registers']} registers, "
+                f"{r['static_smem']} B static shared memory, dynamic up to "
+                f"{use.get('max_dynamic_smem', 0)} B at up to "
+                f"{use.get('max_threads', 0)} threads, spills "
+                f"{r['spill_stores']} / {r['spill_loads']} B, "
+                f"{r['instances']} instances")
+    for f in found:
+        log(f"  {f.render()}")
+    errors = [f for f in found if f.severity == "error"]
+    log(f"  smem, full sweep: {len(found)} finding(s), {len(errors)} "
+        f"error(s); {secs:.1f} s")
+    require(not errors, f"the resource verifier found {len(errors)} error(s)"
+            f": {errors[0].render() if errors else ''}")
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(launches == {} and atn.TIMING_RUNS == runs,
+            f"the resource verifier launched kernels {launches}")
     return launches
 
 
@@ -7396,7 +7561,7 @@ def main() -> int:
                   resilience, dense_serving, training, dense_configs,
                   moe_family, hybrid_family, audio_family, vlm_family,
                   autotune_phase, sharded_tables, mesh_serving,
-                  mesh_training, expert_parallel, dryrun):
+                  mesh_training, expert_parallel, dryrun, resources):
         count(phase)
     sh = report["sharded"]["conv4"]
     for kind in ("fused_conv2d", "shared_conv2d"):

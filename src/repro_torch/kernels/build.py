@@ -5,7 +5,10 @@ shared library with a plain C interface, loaded with ``ctypes``.  Builds run
 at first use, one ``nvcc`` per source, all started together; a library is
 named by a hash of its sources and flags, so an edit rebuilds and an
 unchanged tree reuses what is built.  The build directory is
-``<repo>/build/kernels`` (listed in ``.gitignore``).
+``<repo>/build/kernels`` (listed in ``.gitignore``).  Each library's
+``-Xptxas -v`` output (registers, shared memory and spills of every
+kernel) is kept beside it (:func:`report_path`), so a reused build still
+has its resource report (``analysis.smem`` reads it).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from pathlib import Path
 from typing import Dict
 
 __all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "build_all", "library",
-           "build_log"]
+           "build_log", "report_path", "report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -115,7 +118,7 @@ def build_all() -> float:
     procs = {}
     for name, src in SOURCES.items():
         out = _lib_path(name)
-        if out.exists():
+        if out.exists() and report_path(name).exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
@@ -129,6 +132,7 @@ def build_all() -> float:
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{text}")
             continue
+        report_path(name).write_text(text)  # before the library appears
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -139,6 +143,21 @@ def build_log() -> Dict[str, str]:
     """The compiler output (``-Xptxas -v``: registers, shared memory,
     spills) of each library this process built."""
     return dict(_log)
+
+
+def report_path(name: str) -> Path:
+    """The file of library ``name``'s ``-Xptxas -v`` report, beside the
+    library (named by the same hash of its sources and flags)."""
+    return _lib_path(name).with_suffix(".ptxas.txt")
+
+
+def report(name: str) -> str:
+    """Library ``name``'s ``-Xptxas -v`` report, from its file (built
+    first if needed)."""
+    path = report_path(name)
+    if not path.exists():
+        build_all()
+    return path.read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -73,6 +73,11 @@ constexpr int kLoads = 8;           // row loads a lane issues a batch
 constexpr int kTargetBlocks = 132;  // blocks the split aims for
 constexpr int kMaxCluster = 16;     // blocks a cluster, a power of two
 constexpr int kMinSegs = 4;         // least segments a slice
+// The occupancy __launch_bounds__ asks for, and the H100 SM it must fit:
+// blocks an SM, an SM's shared memory, the shared memory kept a block.
+constexpr int kBlocksPerSm = 2;
+constexpr int kSmSmemBytes = 228 * 1024;
+constexpr int kBlockReservedSmem = 1024;
 static_assert((kMaxCluster & (kMaxCluster - 1)) == 0 && kMaxCluster <= 16,
               "cluster sizes are powers of two up to 16");
 static_assert(kRows == 4 && kLoads % kRows == 0,
@@ -101,6 +106,13 @@ __host__ __device__ inline Split split_for(int B, int G, int O,
   int cs = 1;
   while (cs < kMaxCluster && base * cs < kTargetBlocks) cs *= 2;
   while (cs > 1 && cs * kMinSegs > G) cs /= 2;
+  // then more ranks, each staging fewer segments' rows, until
+  // kBlocksPerSm blocks fit an SM (a slice keeps kMinSegs segments)
+  const long long sums = (long long)s.rows * s.tile * 4;
+  while (cs < kMaxCluster && 2LL * cs * kMinSegs <= G &&
+         kBlocksPerSm * (sums + (long long)(G + cs - 1) / cs * s.rows * 4 +
+                         kBlockReservedSmem) > kSmSmemBytes)
+    cs *= 2;
   s.cluster = cs;
   return s;
 }
@@ -134,7 +146,7 @@ template <> struct RowsOf<4> {
 constexpr int kNoRow = -1;  // a (segment, row) that adds nothing
 
 template <typename T, int VB, int R>
-__global__ void __launch_bounds__(32 * kWarps, 2)
+__global__ void __launch_bounds__(32 * kWarps, kBlocksPerSm)
     shared_split_kernel(const float* __restrict__ x,
                         const int* __restrict__ seg_idx,
                         const T* __restrict__ pool, T* __restrict__ out,
@@ -438,7 +450,8 @@ extern "C" int pcilt_shared_gemv_bf16(const void* x, const void* seg_idx,
 
 // The split design's constants, for kernels.ops to check its mirror
 // against: {rows a block, warps a block, bytes a lane, loads a batch,
-// target blocks, largest cluster, least segments a slice}.
+// target blocks, largest cluster, least segments a slice, blocks an SM,
+// an SM's shared memory, the shared memory kept a block}.
 extern "C" int pcilt_shared_gemv_split_config(int* cfg) {
   cfg[0] = kRows;
   cfg[1] = kWarps;
@@ -447,6 +460,9 @@ extern "C" int pcilt_shared_gemv_split_config(int* cfg) {
   cfg[4] = kTargetBlocks;
   cfg[5] = kMaxCluster;
   cfg[6] = kMinSegs;
+  cfg[7] = kBlocksPerSm;
+  cfg[8] = kSmSmemBytes;
+  cfg[9] = kBlockReservedSmem;
   return 0;
 }
 

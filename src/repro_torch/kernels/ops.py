@@ -1039,6 +1039,9 @@ def _dwconv1d_host(offsets, tables, variant=None, autotune=None):
 #: largest cluster, the fewest segments a slice
 SHARED_ROWS, SHARED_WARPS, SHARED_LANE_BYTES, SHARED_LOADS = 4, 8, 16, 8
 SHARED_TARGET_BLOCKS, SHARED_MAX_CLUSTER, SHARED_MIN_SEGS = 132, 16, 4
+#: the occupancy the split kernel's ``__launch_bounds__`` asks for (blocks
+#: an SM), an H100 SM's shared memory and the shared memory kept a block
+SHARED_BLOCKS_PER_SM, SM_SMEM_BYTES, BLOCK_RESERVED_SMEM = 2, 228 * 1024, 1024
 
 
 class SharedSplit(NamedTuple):
@@ -1063,7 +1066,9 @@ def shared_gemv_variant(B: int, G: int, O: int, itemsize: int) -> SharedSplit:
     most ``SHARED_WARPS``) and ``B`` rows up to ``SHARED_ROWS`` (1, 2 or
     4), and the cluster doubles until the grid has
     ``SHARED_TARGET_BLOCKS`` blocks, but no slice falls under
-    ``SHARED_MIN_SEGS`` segments."""
+    ``SHARED_MIN_SEGS`` segments; then it doubles on while
+    ``SHARED_BLOCKS_PER_SM`` blocks' shared memory (each rank stages
+    ``ceil(G / cluster)`` segments' rows) would not fit an SM."""
     rows = SHARED_ROWS if B >= 3 else B
     nv = SHARED_LANE_BYTES // itemsize
     warps = min(SHARED_WARPS, -(-O // (32 * nv)))
@@ -1076,6 +1081,10 @@ def shared_gemv_variant(B: int, G: int, O: int, itemsize: int) -> SharedSplit:
         cs *= 2
     while cs > 1 and cs * SHARED_MIN_SEGS > G:
         cs //= 2
+    while cs < SHARED_MAX_CLUSTER and 2 * cs * SHARED_MIN_SEGS <= G and \
+            SHARED_BLOCKS_PER_SM * (4 * rows * (tile + -(-G // cs))
+                                    + BLOCK_RESERVED_SMEM) > SM_SMEM_BYTES:
+        cs *= 2
     return SharedSplit(rows, warps, cs, tile, tiles, chunks)
 
 
@@ -1133,10 +1142,11 @@ def _check_shared_split(lib, B: int, G: int, O: int, itemsize: int,
     """The library's split constants, and its split of this shape, must be
     this module's mirror of them (each shape checked once)."""
     if not _SHARED_CHECKED:
-        cfg = (ctypes.c_int * 7)()
+        cfg = (ctypes.c_int * 10)()
         lib.pcilt_shared_gemv_split_config(cfg)
         mine = (SHARED_ROWS, SHARED_WARPS, SHARED_LANE_BYTES, SHARED_LOADS,
-                SHARED_TARGET_BLOCKS, SHARED_MAX_CLUSTER, SHARED_MIN_SEGS)
+                SHARED_TARGET_BLOCKS, SHARED_MAX_CLUSTER, SHARED_MIN_SEGS,
+                SHARED_BLOCKS_PER_SM, SM_SMEM_BYTES, BLOCK_RESERVED_SMEM)
         if tuple(cfg) != mine:
             raise RuntimeError(f"pcilt_shared_gemv.cu's split constants "
                                f"{tuple(cfg)} differ from kernels.ops' {mine}")

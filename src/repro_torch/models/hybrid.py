@@ -127,6 +127,10 @@ class HybridLM:
     def _logits(self, params, x):
         return dense(params["lm_head"], x, self.cfg.dtype)
 
+    def _head_weight(self, params):
+        """The head's ``[d, Vp]`` kernel (never tied)."""
+        return params["lm_head"]["kernel"], False
+
     def _head(self, params, x, ctx) -> torch.Tensor:
         """The head's logits; under a mesh vocab-parallel over the rows,
         joined on the mesh's first device."""
@@ -154,9 +158,9 @@ class HybridLM:
         optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``.  Every
         shared application and every Mamba block runs under
         ``cfg.remat_policy``; the values do not depend on it.  Under a mesh
-        (placed parameters) they run their per-shard bodies, the rows'
-        final states are joined on the mesh's first device and the head is
-        vocab-parallel there."""
+        (placed parameters) they run their per-shard bodies and each row's
+        loss runs on its own batch block and model shards
+        (``transformer.mesh_ce_loss``)."""
         cfg = self.cfg
         x, positions = self._inputs(params, batch["tokens"], _arange, ctx)
         x0 = x
@@ -213,8 +217,9 @@ class HybridLM:
     def decode_step(self, params, cache, tokens: torch.Tensor, *, ctx=None):
         """tokens ``[B, 1]``; cache ``{"ssm", "attn", "pos"}`` -> ``(logits
         [B, Vp], new cache)`` with ``pos + 1``.  Under a mesh the parameters
-        and cache are placed and the logits come back whole on the mesh's
-        first device."""
+        and cache are placed, the shared attention's K/V are written into
+        the given cache's ``attn`` in place (the returned cache holds it),
+        and the logits come back whole on the mesh's first device."""
         cfg = self.cfg
         pos = int(cache["pos"])
         stack = Placed.stack if _mesh(ctx) else torch.stack
@@ -243,11 +248,14 @@ class HybridLM:
                 ssds.append(st2["ssd"])
         x = _norm(params["ln_f"], cfg, x, ctx)
         logits = self._head(params, x, ctx)[:, -1]
+        # under a mesh the applications' K/V were written into the given
+        # placed cache in place (its layer views)
+        attn = cache["attn"] if _mesh(ctx) else \
+            {"k": stack(ks), "v": stack(vs)}
         return logits, dict(cache,
                             ssm={"layers": {"conv": stack(convs),
                                             "ssd": stack(ssds)}},
-                            attn={"k": stack(ks), "v": stack(vs)},
-                            pos=pos + 1)
+                            attn=attn, pos=pos + 1)
 
 
 def _arange(b: int, s: int, device) -> torch.Tensor:

@@ -79,13 +79,19 @@ class MambaLM:
     def _logits(self, params, x):
         return x @ self._head_kernel(params).to(self.cfg.dtype)
 
+    def _head_weight(self, params):
+        """The head's weight and whether it is the tied embedding."""
+        if self.cfg.tie_embeddings:
+            return params["embed"]["embedding"], True
+        return params["lm_head"]["kernel"], False
+
     def loss(self, params, batch, *, ctx=None):
         """The training loss over ``batch`` (``tokens``, ``labels [B, S]``,
         optional ``loss_mask``): ``(ce + 1e-4 * z, {"ce", "z"})``.  Each
         block runs under ``cfg.remat_policy``; the values do not depend on
         it.  Under a mesh (placed parameters) the blocks run their
-        per-shard bodies, the rows' final states are joined on the mesh's
-        first device and the head is vocab-parallel there."""
+        per-shard bodies and each row's loss runs on its own batch block
+        and model shards (``transformer.mesh_ce_loss``)."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"], ctx)
 
@@ -393,27 +399,24 @@ def _absmax(x, ctx):
 
 def _ce(model, params, x, batch, ctx):
     """The chunked vocabulary loss of the final normed states ``x`` (a
-    tensor, or the rows' blocks joined on the mesh's first device with the
-    head vocab-parallel there): ``(ce + 1e-4 * z, {"ce", "z"})``."""
-    from .transformer import chunked_ce_loss
+    tensor, or under a mesh the rows' blocks, each row's loss on its own
+    model shards: ``transformer.mesh_ce_loss``): ``(ce + 1e-4 * z, {"ce",
+    "z"})``."""
+    from .transformer import chunked_ce_loss, mesh_ce_loss
 
     cfg = model.cfg
-    if _mesh(ctx):
-        x = ctx.join_rows(x)
-        row0 = ctx.rows()[0]
-
-        def logits_fn(xc):
-            return model._head(params, Rows({row0: xc}, xc.shape[0]), ctx)
-    else:
-        def logits_fn(xc):
-            return model._logits(params, xc)
-    labels = batch["labels"].to(x.device)
+    labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    ce, z = chunked_ce_loss(logits_fn, x, labels, mask.float().to(x.device),
-                            cfg.loss_chunk)
+    if _mesh(ctx):
+        ce, z = mesh_ce_loss(ctx, *model._head_weight(params), cfg.dtype, x,
+                             labels, mask.float(), cfg.loss_chunk)
+    else:
+        ce, z = chunked_ce_loss(lambda xc: model._logits(params, xc), x,
+                                labels.to(x.device),
+                                mask.float().to(x.device), cfg.loss_chunk)
     return ce + 1e-4 * z, {"ce": ce, "z": z}
 
 

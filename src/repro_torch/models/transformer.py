@@ -44,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.nn import coords
 from repro_torch.nn.attention import attention, attention_spec, init_cache_specs
 from repro_torch.nn.layers import (Rows, column_parallel, dense,
                                    dense_spec, embed, embed_spec, layernorm,
@@ -55,7 +56,7 @@ from repro_torch.nn.module import (ParamSpec, Placed, layer_view, remat,
                                    stack_specs)
 
 __all__ = ["TransformerLM", "mlp_spec", "mlp", "block_spec", "block_apply",
-           "chunked_ce_loss"]
+           "chunked_ce_loss", "mesh_ce_loss"]
 
 
 def _use_ln(cfg) -> bool:
@@ -205,6 +206,33 @@ def block_apply(params, cfg, x, positions, causal: bool = True,
     return _add(x, h), new_cache, aux
 
 
+def _ce_sums(lse_gold, x, labels, mask, chunk: int):
+    """The masked sums of the cross-entropy and of z over sequence chunks
+    (:func:`chunked_ce_loss`'s body): ``lse_gold(xc, lc)`` gives a chunk's
+    float32 ``logsumexp`` and gold logit ``[B, c]``; ``(ce_sum, z_sum)``."""
+    B, S, d = x.shape
+    c = min(chunk, S) if chunk else S
+    while S % c:
+        c -= 1
+    n = S // c
+
+    def chunk_loss(xc, lc, mc):
+        lse, gold = lse_gold(xc, lc)
+        ce = (lse - gold) * mc
+        z = torch.square(lse) * mc
+        return ce.sum(), z.sum()
+
+    if n == 1:
+        return chunk_loss(x, labels, mask)
+    body = remat(chunk_loss, "full")
+    ce = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        s = slice(i * c, (i + 1) * c)
+        ce_i, z_i = body(x[:, s], labels[:, s], mask[:, s])
+        ce, z = ce + ce_i, z + z_i
+    return ce, z
+
+
 def chunked_ce_loss(logits_fn, x, labels, mask, chunk: int):
     """Cross-entropy and z-loss (``logsumexp**2``), both summed over the
     masked tokens and divided by ``max(mask.sum(), 1)``, over sequence
@@ -216,31 +244,70 @@ def chunked_ce_loss(logits_fn, x, labels, mask, chunk: int):
     (``0``: one chunk) stepped down until it divides ``S``; with more than
     one chunk each chunk is checkpointed, so its logits are recomputed in
     the backward pass instead of kept.  Returns ``(ce, z)``."""
-    B, S, d = x.shape
-    c = min(chunk, S) if chunk else S
-    while S % c:
-        c -= 1
-    n = S // c
-
-    def chunk_loss(xc, lc, mc):
+    def lse_gold(xc, lc):
         logits = logits_fn(xc).float()  # [B, c, V]
-        lse = torch.logsumexp(logits, -1)
-        gold = torch.take_along_dim(logits, lc[..., None].long(), -1)[..., 0]
-        ce = (lse - gold) * mc
-        z = torch.square(lse) * mc
-        return ce.sum(), z.sum()
+        return torch.logsumexp(logits, -1), torch.take_along_dim(
+            logits, lc[..., None].long(), -1)[..., 0]
 
-    if n == 1:
-        ce, z = chunk_loss(x, labels, mask)
-    else:
-        body = remat(chunk_loss, "full")
-        ce = z = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(n):
-            s = slice(i * c, (i + 1) * c)
-            ce_i, z_i = body(x[:, s], labels[:, s], mask[:, s])
-            ce, z = ce + ce_i, z + z_i
+    ce, z = _ce_sums(lse_gold, x, labels, mask, chunk)
     denom = torch.clamp(mask.sum(), min=1.0)
     return ce / denom, z / denom
+
+
+def mesh_ce_loss(ctx, w, tied: bool, dtype, xs, labels, mask, chunk: int):
+    """:func:`chunked_ce_loss` under a mesh, each row on its own batch
+    block and model shards: ``xs`` the rows' final normed states
+    (``nn.layers.Rows``), ``w`` the placed head (the tied ``[V, d]``
+    embedding or an ``[d, V]`` kernel), ``labels``/``mask [B, S]`` whole.
+
+    Each shard of a row computes its vocabulary block's logits of a chunk
+    (its head block joined once for all the row's chunks), their float32
+    ``logsumexp`` and the gold logit where the label falls in its block
+    (zero elsewhere); the row's first device merges the shards'
+    ``logsumexp`` by log-sum-exp and adds their gold logits (one nonzero a
+    token, so the sum is exact), so no ``[b, c, V]`` tensor is joined
+    anywhere.  Each row yields its masked sums of the cross-entropy and z
+    and its mask count; the rows' partials are added in float32 in row
+    order on the mesh's first device and divided once there.  Returns
+    ``(ce, z)``."""
+    labels_r, mask_r = ctx.split_rows(labels), ctx.split_rows(mask)
+    ces, zs, ns = [], [], []
+    for row, x in xs.items():
+        # the row's head blocks [d, V / n], each joined (FSDP) once for all
+        # the row's chunks
+        ws = [ctx.weight(w, row, j).to(dtype)
+              for j in ctx.shards(row, ctx.splits(w, 0 if tied else 1))]
+        ws = [t.T if tied else t for t in ws]
+        size = ws[0].shape[-1]
+
+        def lse_gold(xc, lc, row=row, ws=ws):
+            # each label's vocabulary block and its column there, [2, b, c]
+            where = torch.stack([lc // size, lc % size]).long()
+            outs = []
+            for j, t in zip(ctx.shards(row, len(ws)), ws):
+                lg = (xc.to(t.device) @ t).float()
+                blk, col = where.to(t.device)
+                gold = lg.gather(-1, col[..., None])[..., 0] * (blk == j)
+                outs.append(torch.stack([torch.logsumexp(lg, -1), gold]))
+            if len(outs) == 1:
+                return outs[0][0], outs[0][1]
+            dev = ctx.device(row)
+            with ctx.at(row), coords.kind("all-reduce"):
+                both = torch.stack([o.to(dev) for o in outs])  # [n, 2, b, c]
+                return torch.logsumexp(both[:, 0], 0), both[:, 1].sum(0)
+
+        m = mask_r[row]
+        ce_r, z_r = _ce_sums(lse_gold, x, labels_r[row], m, chunk)
+        ces.append(ce_r)
+        zs.append(z_r)
+        ns.append(m.sum())
+    row0 = ctx.rows()[0]
+    ce = ctx.reduce(ces, row0, torch.float32)
+    z = ctx.reduce(zs, row0, torch.float32)
+    n = ctx.reduce(ns, row0, torch.float32)
+    with ctx.at(row0):
+        denom = torch.clamp(n, min=1.0)
+        return ce / denom, z / denom
 
 
 def _cross_at(cross_kv, l):
@@ -422,6 +489,12 @@ class TransformerLM:
         return self._cross_kv_from_memory(
             params, self._run_encoder(params, batch["memory"], ctx), ctx)
 
+    def _head_weight(self, params):
+        """The head's weight and whether it is the tied embedding."""
+        if self.cfg.tie_embeddings:
+            return params["embed"]["embedding"], True
+        return params["lm_head"]["kernel"], False
+
     def _logits(self, params, x, ctx=None):
         """The head; under a mesh vocab-parallel (each shard's columns,
         joined on the row's first device)."""
@@ -464,7 +537,10 @@ class TransformerLM:
         them, else each unit's full-sequence K/V, both stacked ``[n_units,
         ...]``; ``aux`` the router losses summed over the units.
         ``cross_kv`` (stacked ``{"k", "v"}``) feeds each unit's
-        cross-attention."""
+        cross-attention.  Under a mesh a decode step writes each unit's
+        new K/V into its views of the placed ``caches`` in place and
+        returns ``caches`` itself (the reference's step donates its
+        cache): no new cache is stacked."""
         kv = {f"sub{i}": ([], []) for i in range(self._unit_size())}
         aux = None
         for l in range(self._n_units()):
@@ -476,8 +552,12 @@ class TransformerLM:
             for sub, (ks, vs) in kv.items():
                 ks.append(nc[sub]["k"])
                 vs.append(nc[sub]["v"])
-        stack = Placed.stack if self._mesh(ctx) else torch.stack
-        return x, {sub: {"k": stack(ks), "v": stack(vs)}
+        if self._mesh(ctx):
+            if caches is not None:
+                return x, caches, aux
+            return x, {sub: {"k": Placed.stack(ks), "v": Placed.stack(vs)}
+                       for sub, (ks, vs) in kv.items()}, aux
+        return x, {sub: {"k": torch.stack(ks), "v": torch.stack(vs)}
                    for sub, (ks, vs) in kv.items()}, aux
 
     def _inputs(self, params, batch, ctx=None):
@@ -506,8 +586,8 @@ class TransformerLM:
         must not be empty.  Each unit runs under ``cfg.remat_policy``, with
         or without a mesh; the values do not depend on it.  Under a mesh
         (placed parameters) the blocks run their per-shard bodies, the
-        rows' final states are joined on the mesh's first device and the
-        head is vocab-parallel there."""
+        rows keep their batch blocks through the vocab-parallel head and
+        the chunked cross-entropy (:func:`mesh_ce_loss`)."""
         cfg = self.cfg
         S = batch["tokens"].shape[1]
         if cfg.n_img_tokens and S == 0:
@@ -528,25 +608,22 @@ class TransformerLM:
             x, a_lb, a_rz = blk(x, layer_view(params["blocks"], l), *xkv)
             lb, rz = lb + a_lb, rz + a_rz
         x = _norm(params["ln_f"], cfg, x, ctx)
-        if self._mesh(ctx):
-            x = ctx.join_rows(x)
-            row0 = ctx.rows()[0]
-
-            def logits_fn(xc):
-                return self._logits(params, Rows({row0: xc}, xc.shape[0]),
-                                    ctx)[row0]
-        else:
-            def logits_fn(xc):
-                return self._logits(params, xc)
         if cfg.n_img_tokens:  # the image positions carry no loss
-            x = x[:, -S:]
-        labels = batch["labels"].to(x.device)
+            x = x.map(lambda _, t: t[:, -S:]) if self._mesh(ctx) \
+                else x[:, -S:]
+        labels = batch["labels"]
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
-        ce, z = chunked_ce_loss(logits_fn, x, labels, mask.float().to(
-            x.device), cfg.loss_chunk)
+        if self._mesh(ctx):
+            ce, z = mesh_ce_loss(ctx, *self._head_weight(params), cfg.dtype,
+                                 x, labels, mask.float(), cfg.loss_chunk)
+        else:
+            ce, z = chunked_ce_loss(
+                lambda xc: self._logits(params, xc), x,
+                labels.to(x.device), mask.float().to(x.device),
+                cfg.loss_chunk)
         loss = ce + 1e-4 * z
         if cfg.moe:
             loss = loss + 1e-2 * lb / self._n_units() \
@@ -585,8 +662,10 @@ class TransformerLM:
         """tokens ``[B, 1]``; cache ``{"layers", "pos"}`` (and whisper's
         ``cross_kv``) -> ``(logits [B, Vp], new cache)`` with ``pos + 1``
         (new K/V tensors; the given cache is not changed).  Under a mesh
-        the parameters and cache are placed and the logits come back whole
-        on the mesh's first device."""
+        the parameters and cache are placed, the new K/V rows are written
+        into the given cache's blocks in place (the returned cache holds
+        the same ``layers``), and the logits come back whole on the mesh's
+        first device."""
         cfg = self.cfg
         B = tokens.shape[0]
         pos = int(cache["pos"])

@@ -147,7 +147,8 @@ def attention(params, cfg, x: torch.Tensor, positions: torch.Tensor,
     pass's K/V in bfloat16); otherwise one decode step against ``cache``
     ``{"k", "v" [B, T, Hk, Dh], "pos"}`` (``pos`` the host int of the next
     write position), returning the written ``{"k", "v"}`` (new tensors; the
-    given ones are not changed).  ``cross_kv=(k, v)`` (``[B, T, Hk, Dh]``)
+    given ones are not changed; under a mesh the given placed ones,
+    written in place).  ``cross_kv=(k, v)`` (``[B, T, Hk, Dh]``)
     attends the queries of ``x`` to them instead, unmasked, and returns
     ``cache`` as given.
 
@@ -253,6 +254,36 @@ def _time_blocks(kv, b_lo: int, b_hi: int, h_lo: int, h_hi: int, dev):
     return [found[t0] for t0 in sorted(found)]
 
 
+def _head_blocks(kv, b_lo: int, b_hi: int, h_lo: int, h_hi: int, dev):
+    """KV heads ``[h_lo, h_hi)`` of batch rows ``[b_lo, b_hi)`` of a placed
+    ``[B, T, Hk, Dh]`` K or V whose time axis is whole (whisper's cross
+    K/V), joined along the head dim on ``dev`` from every block holding
+    some of them, in head order: the head-axis counterpart of
+    :func:`_time_blocks` (a shard whose query heads replicate, as under
+    the ``kvshard`` rules, reads the KV heads of every model shard)."""
+    found = {}
+    cur = coords.current()
+    for c, t in kv.unique():
+        (b0, b1), (t0, t1), (k0, k1), _ = kv.ranges(c)
+        if not (b0 <= b_lo and b_hi <= b1 and k0 < h_hi and h_lo < k1):
+            continue
+        if (t0, t1) != (0, kv.shape[1]):
+            raise ValueError(f"the K/V's time axis is cut ({kv.spec}); "
+                             f"the head gather takes whole time blocks")
+        lo, hi = max(k0, h_lo), min(k1, h_hi)
+        blk = t.narrow(0, b_lo - b0, b_hi - b_lo).narrow(2, lo - k0, hi - lo)
+        held = coords.coords_of(t)
+        if lo not in found or (t.device == dev and (
+                held is None or cur is None or cur <= held)):
+            found[lo] = blk
+    if sum(b.shape[2] for b in found.values()) != h_hi - h_lo:
+        raise ValueError(f"no blocks of {kv.spec} cover KV heads "
+                         f"[{h_lo}, {h_hi}) of batch rows [{b_lo}, {b_hi})")
+    with coords.kind("all-gather"):
+        parts = [found[lo].to(dev) for lo in sorted(found)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 2)
+
+
 def _heads_of(j: int, n: int, Hp: int, rep: int):
     """Shard ``j``'s query heads ``[q0, q1)`` of ``n``, the KV heads
     ``[k0, k1)`` they read, and each query head's index among those."""
@@ -339,32 +370,62 @@ def _project_mesh(params, cfg, ctx, row, x, positions, qkv: bool = True):
                "q_norm")
     if not qkv:
         return q
-    k = finish(column_parallel(ctx, row, params["wk"], x, cfg.dtype),
-               "k_norm")
-    return q, k, column_parallel(ctx, row, params["wv"], x, cfg.dtype)
+    nq = ctx.splits(params["wq"]["kernel"], 1)
+    k = finish(_kv_parallel(ctx, row, params["wk"], x, cfg, nq), "k_norm")
+    return q, k, _kv_parallel(ctx, row, params["wv"], x, cfg, nq)
+
+
+def _kv_parallel(ctx, row, p, x, cfg, nq: int):
+    """The K or V pieces of one row: column-parallel over the KV heads
+    where the kernel's head dim splits (or the query heads replicate);
+    where only the query heads split (the KV heads do not divide the model
+    shards, so the kernel replicates), each of the ``nq`` query shards
+    computes, on its device, the KV heads its queries read: ``[((k0, k1),
+    y)]`` one a shard, neighbouring shards' pieces overlapping where they
+    share a KV head (the same values; every shard does a shard's share of
+    the work, none the whole row's)."""
+    k = p["kernel"]
+    if ctx.splits(k, 1) > 1 or nq == 1:
+        return column_parallel(ctx, row, p, x, cfg.dtype)
+    Hp, rep = cfg.padded_heads, cfg.padded_heads // cfg.padded_kv_heads
+    out = []
+    for j in ctx.shards(row, nq):
+        _, _, k0, k1, _ = _heads_of(j, nq, Hp, rep)
+        local = {"kernel": ctx.weight(k, row, j).narrow(1, k0, k1 - k0)}
+        if "bias" in p:
+            local["bias"] = ctx.weight(p["bias"], row, j) \
+                .narrow(0, k0, k1 - k0)
+        out.append(((k0, k1), dense(local, x.to(ctx.device(row, j)),
+                                    cfg.dtype)))
+    return out
+
+
+def _shard_heads(pieces, j: int, k0: int, k1: int, dev):
+    """KV heads ``[k0, k1)`` for query shard ``j`` on ``dev``: its own
+    piece where it holds them (no move), else assembled from the pieces."""
+    if j < len(pieces):
+        (a, b), t = pieces[j]
+        if a <= k0 and k1 <= b and t.device == dev:
+            return t.narrow(2, k0 - a, k1 - k0)
+    return assemble(pieces, k0, k1, dev, 2)
 
 
 def _write_cache(ctx, kv, pieces_by_row, slot: int, S: int):
-    """A new placed K or V: each block holding positions ``[slot, slot +
-    S)`` is copied with the new rows written (assembled from the row's
-    column-parallel pieces on the block's device); the other blocks are
-    kept as they are."""
-    new = {}
+    """Write the new rows into the placed K or V ``kv`` in place: each
+    block holding positions ``[slot, slot + S)`` takes them (assembled
+    from the row's column-parallel pieces on the block's device); returns
+    ``kv``."""
     for c, t in kv.each():
         (b0, b1), (t0, t1), (k0, k1), _ = kv.ranges(c)
         s0, s1 = max(slot, t0), min(slot + S, t1)
         if s0 >= s1:
-            new[id(t)] = t
             continue
         row = ctx.coord(c, 0)
         r0, r1 = ctx.batch_block(row, kv.shape[0])
         kn = assemble(pieces_by_row[row], k0, k1, t.device, 2)
         kn = kn.narrow(0, b0 - r0, b1 - b0)
-        blk = t.clone()
-        blk[:, s0 - t0:s1 - t0] = kn[:, s0 - slot:s1 - slot].to(t.dtype)
-        new[id(t)] = blk
-    return Placed(kv.placement, kv.shape, kv.dtype,
-                  {c: new[id(t)] for c, t in kv.blocks.items()})
+        t[:, s0 - t0:s1 - t0] = kn[:, s0 - slot:s1 - slot].to(t.dtype)
+    return kv
 
 
 def _placed_from_rows(ctx, pieces_by_row, axes, shape, dtype):
@@ -436,10 +497,10 @@ def _attention_mesh(params, cfg, ctx, xs, positions, causal, cache,
             dev = q.device
             _, _, k0, k1, idx_h = _heads_of(j, nq, Hp, rep)
             if cross_kv is not None:
-                bk = _time_blocks(cross_kv[0], b0, b1, k0, k1, dev)
-                bv = _time_blocks(cross_kv[1], b0, b1, k0, k1, dev)
-                k, v = _select(bk[0][2], idx_h, dev), \
-                    _select(bv[0][2], idx_h, dev)
+                k = _select(_head_blocks(cross_kv[0], b0, b1, k0, k1, dev),
+                            idx_h, dev)
+                v = _select(_head_blocks(cross_kv[1], b0, b1, k0, k1, dev),
+                            idx_h, dev)
                 T = k.shape[1]
                 if S * T >= _CHUNK_THRESHOLD:
                     zeros = torch.zeros((b1 - b0, T), dtype=torch.int64,
@@ -450,8 +511,8 @@ def _attention_mesh(params, cfg, ctx, xs, positions, causal, cache,
                     out = _sdpa_dense(cfg, q, k, v, None)
             elif cache is None:
                 kp, vp = kv_rows[row]
-                k = _select(assemble(kp, k0, k1, dev, 2), idx_h, dev)
-                v = _select(assemble(vp, k0, k1, dev, 2), idx_h, dev)
+                k = _select(_shard_heads(kp, j, k0, k1, dev), idx_h, dev)
+                v = _select(_shard_heads(vp, j, k0, k1, dev), idx_h, dev)
                 p = None if pos is None else pos.to(dev)
                 if causal and S * S >= _CHUNK_THRESHOLD:
                     out = _sdpa_chunked(cfg, q, k, v, p, p, causal=True)

@@ -262,11 +262,17 @@ def column_parallel(ctx, row, p, x, dtype, dim: int = 1):
 
 
 def assemble(pieces, lo: int, hi: int, dev, dim: int):
-    """Columns ``[lo, hi)`` of dim ``dim`` out of contiguous pieces
-    ``[((a, b), t)]``, joined on ``dev``."""
+    """Columns ``[lo, hi)`` of dim ``dim`` out of pieces ``[((a, b), t)]``
+    in column order, joined on ``dev``; where pieces overlap (shards that
+    computed the same columns) the first holding a column gives it."""
+    parts = []
+    at = lo
     with coords.kind("all-gather"):
-        parts = [t.narrow(dim, max(lo, a) - a, min(hi, b) - max(lo, a))
-                 .to(dev) for (a, b), t in pieces if a < hi and lo < b]
+        for (a, b), t in pieces:
+            s0, s1 = max(at, a), min(hi, b)
+            if s0 < s1:
+                parts.append(t.narrow(dim, s0 - a, s1 - s0).to(dev))
+                at = s1
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 def vocab_embed(ctx: Ctx, emb: Placed, tokens: "Rows", dtype) -> "Rows":

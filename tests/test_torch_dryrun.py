@@ -379,3 +379,60 @@ def test_main_writes_a_skipped_cell(tmp_path, monkeypatch, capsys):
         cell = json.load(f)
     assert cell["status"] == "skipped"
     assert "0 ok, 1 skipped, 0 errors" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the mesh loss stays on its rows; the mesh decode writes its cache in place
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])
+def test_mesh_loss_runs_on_every_row(arch):
+    """A train step on a meta (2, 2) mesh with a 4096-token vocabulary:
+    each model shard counts the same flops in both rows (each row runs the
+    head and the chunked cross-entropy on its own batch block and model
+    shards), and no buffer is as large as the batch's joined ``[B, chunk,
+    V]`` float32 logits chunk."""
+    cfg = dataclasses.replace(get_smoke_config(arch), vocab=4096,
+                              loss_chunk=16)
+    mesh = make_host_mesh(2, 2, devices=["meta"] * 4)
+    r = dryrun.measure_step(dryrun.make_step(cfg, "train", mesh), "train",
+                            _mesh_args(cfg, "train", mesh, "meta"), mesh)
+    assert r["crossed"] == 0
+    flops = {c: v["flops"] for c, v in r["per_coord"].items()}
+    assert len(flops) == 4, flops
+    for j in "01":
+        assert flops[f"0,{j}"] == flops[f"1,{j}"], flops
+    joined = 4 * 16 * cfg.padded_vocab * 4
+    assert max(b["bytes"] for b in r["top_buffers"]) < joined, \
+        r["top_buffers"][:3]
+
+
+def test_mesh_decode_makes_no_new_cache():
+    """Decode steps on a meta (2, 2) mesh against a 1024-slot cache, at 2
+    and 8 layers: the returned cache is the given one at every coordinate
+    (its bytes alias the argument's), the temporaries grow by less than
+    one layer's K block with the depth (no stacked copy, no cloned
+    block), and at 8 layers no
+    buffer is as large as a coordinate's block of the stacked K or V."""
+    temps = []
+    for layers in (2, 8):
+        cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"),
+                                  n_layers=layers)
+        mesh = make_host_mesh(2, 2, devices=["meta"] * 4)
+        args = _mesh_args(cfg, "decode", mesh, "meta")
+        args["cache"] = dict(tspecs.step_args(shape_structs(
+            build_model(cfg).cache_specs(4, 1024), mesh,
+            tspecs.data_spec(mesh))), pos=1000)
+        cache_b = {dryrun._key(c): n for c, n in dryrun._coord_bytes(
+            args["cache"], mesh).items()}
+        r = dryrun.measure_step(dryrun.make_step(cfg, "decode", mesh),
+                                "decode", args, mesh)
+        for c, v in r["per_coord"].items():
+            assert v["alias_bytes"] == cache_b[c] > 0, c
+        temps.append({c: v["temp_bytes"] for c, v in r["per_coord"].items()})
+    leaf = cache_b["0,0"] // 2  # a coordinate's block of the 8-layer K
+    for c, t in temps[1].items():  # less than one layer's K block more
+        assert t - temps[0][c] < leaf // 8, (c, temps)
+    assert max(b["bytes"] for b in r["top_buffers"]) < leaf, \
+        r["top_buffers"][:3]

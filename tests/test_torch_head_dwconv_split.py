@@ -229,7 +229,9 @@ class _FakeLibrary:
     def pcilt_shared_gemv_split_config(self, cfg):
         cfg[:] = [ops.SHARED_ROWS, ops.SHARED_WARPS, ops.SHARED_LANE_BYTES,
                   ops.SHARED_LOADS, ops.SHARED_TARGET_BLOCKS,
-                  ops.SHARED_MAX_CLUSTER, ops.SHARED_MIN_SEGS]
+                  ops.SHARED_MAX_CLUSTER, ops.SHARED_MIN_SEGS,
+                  ops.SHARED_BLOCKS_PER_SM, ops.SM_SMEM_BYTES,
+                  ops.BLOCK_RESERVED_SMEM]
         return 0
 
     def pcilt_shared_gemv_split_plan(self, B, G, O, itemsize, out):

@@ -4,8 +4,10 @@ The steps (``make_prefill_step(cfg, mesh)``, ``make_decode_step(cfg,
 mesh, rule_overrides)``) on CPU meshes of ``"cpu"`` devices, with the
 parameters and the cache placed by ``nn.module.shardings``, for
 qwen3-0.6b, qwen1.5-4b with padded heads (3 heads padded to 4),
-whisper-medium and llava-next-mistral-7b (prefill and decode) and
-mamba2-130m (decode), each held against:
+whisper-medium and llava-next-mistral-7b (prefill and decode),
+mamba2-130m (decode) and whisper-medium's decode under the reference dry
+run's ``kvshard`` rules (the query heads replicated: each shard gathers
+the cross K/V heads of every model shard), each held against:
 
 * the reference unsharded, in this process;
 * the reference's own mesh run, in a subprocess with 8 forced host
@@ -24,7 +26,8 @@ decode under a ``ctx`` (float32 tables): 2e-4 of the largest logit
 against the unsharded conversion.
 The dense family's ``loss(ctx=)`` is held to the same three references
 (the loss, ``ce`` and ``z``, 1e-4 of the unsharded loss).
-The ``Engine(mesh=)``: the unsharded engine's tokens, the restart (a step
+A mesh decode step writes the given cache in place (the reference donates
+it).  The ``Engine(mesh=)``: the unsharded engine's tokens, the restart (a step
 fault) and rollback (a table breach) contract on a (1, 2) mesh, the
 refusal of a hybrid config, the per-device byte check.
 """
@@ -117,11 +120,15 @@ np.savez(sys.argv[1], **out)
 '''
 
 B, T, S = 4, 16, 8
+#: the reference dry run's ``kvshard`` variant: the cache's time axis over
+#: the model axis, the query heads replicated
+KVSHARD = {"cache_seq": "model", "heads": None}
 CASES = [(a, s, None) for a in ("qwen3-0.6b", "qwen1.5-4b-padded",
                                  "whisper-medium", "llava-next-mistral-7b",
                                  "mamba2-130m")
          for s in ((1, 2), (2, 2))] + [("qwen3-0.6b", (1, 4),
-                                        {"cache_seq": "model"})]
+                                        {"cache_seq": "model"})] \
+    + [("whisper-medium", s, KVSHARD) for s in ((1, 2), (2, 2))]
 PREFILL = [c for c in CASES if c[0] != "mamba2-130m" and c[2] is None]
 
 
@@ -295,6 +302,39 @@ def _one_bf16_step(got, want):
 
 def _ids(c):
     return f"{c[0]}-{c[1][0]}x{c[1][1]}" + ("-kvshard" if c[2] else "")
+
+
+@pytest.mark.parametrize("case", [("qwen3-0.6b", (1, 2), None),
+                                  ("qwen3-0.6b", (1, 4),
+                                   {"cache_seq": "model"}),
+                                  ("whisper-medium", (2, 2), KVSHARD)],
+                         ids=_ids)
+def test_mesh_decode_writes_the_given_cache_in_place(problems, case):
+    """A decode step on the mesh writes its new K/V rows into the given
+    placed cache, as the reference's donated step does: the returned
+    ``layers`` are the given ones, every block keeps its storage
+    (``data_ptr``), the given cache then joins to the port's unsharded new
+    cache (within one bfloat16 step), and the logits equal a step on a
+    copy of the cache bit for bit."""
+    arch, shape, ov = case
+    p = problems[arch]
+    mesh, params, cache = _placed_inputs(p, shape, ov)
+    ptrs = {path: {c: t.data_ptr() for c, t in leaf.blocks.items()}
+            for path, leaf in _flat(cache["layers"]).items()}
+    copy = dict(cache, layers={n: {k: v.clone() for k, v in sub.items()}
+                               for n, sub in cache["layers"].items()})
+    step = make_decode_step(p["tcfg"], mesh, ov)
+    with torch.no_grad():
+        logits, new = step(params, cache, p["tok"])
+        again, _ = step(params, copy, p["tok"])
+    assert new["layers"] is cache["layers"]
+    for path, leaf in _flat(cache["layers"]).items():
+        assert {c: t.data_ptr() for c, t in leaf.blocks.items()} == \
+            ptrs[path], path
+    joined = _flat(tmod.join(cache["layers"]))
+    for path, t in _flat(p["t_cache"]["layers"]).items():
+        _one_bf16_step(joined[path], t)
+    assert torch.equal(logits, again)
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)

@@ -8,7 +8,9 @@ zamba2-7b (cut to 4 layers) on CPU meshes of ``"cpu"`` devices, with the paramet
 unsharded, the reference's own step on the same ``Auto``-axes mesh (one
 module-scoped subprocess with 8 forced host devices; the reference's
 ``make_host_mesh`` builds ``Explicit`` axes, under which its mesh path
-fails in this JAX), and the port unsharded.  Variants: the default step,
+fails in this JAX), and the port unsharded; the default step also on a
+(4, 1) mesh, where each row's loss runs on its own batch block.  Variants:
+the default step,
 ``bf16_grads`` with ``grad_accum = 2``, ``explicit_rs`` (qwen3) and
 ZeRO-1 (qwen3: ``rule_overrides={"embed": None, "opt_embed": ("data",
 "pod")}`` with ``grad_shardings`` from ``adamw_init_specs(remap_axes=
@@ -71,6 +73,8 @@ CASES = [("qwen3-0.6b", v) for v in ("base", "bf16acc", "rowrs", "zero1")] \
     + [(a, v) for a in ("mamba2-130m", "zamba2-7b")
        for v in ("base", "bf16acc")]
 MESH = (2, 2)
+#: a data axis only: one sequence a row, each row's loss on its own block
+ROWS = (4, 1)
 
 #: the reference's steps, unsharded and on a (2, 2) ``Auto``-axes mesh:
 #: the probe step's metrics and gradients by leaf path
@@ -82,8 +86,8 @@ import jax.numpy as jnp
 from jax.sharding import AxisType
 sys.path.insert(0, "tests")
 from test_torch_donor import jax_donor
-from test_torch_mesh_train import (CASES, MESH, REMAP, VARIANTS, batch,
-                                   config, flat)
+from test_torch_mesh_train import (CASES, MESH, REMAP, ROWS, VARIANTS,
+                                   batch, config, flat)
 from repro.launch.steps import make_ctx, make_train_step
 from repro.models import build_model
 from repro.nn.module import shardings
@@ -92,6 +96,8 @@ from repro.optim import AdamWConfig, adamw_init, adamw_init_specs
 assert jax.device_count() >= 8, jax.device_count()
 probe = AdamWConfig(lr=0.0, weight_decay=0.0, b1=0.0, clip_norm=0.0)
 mesh = jax.make_mesh(MESH, ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+rows = jax.make_mesh(ROWS, ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2)
 out = {}
 for arch, variant in CASES:
@@ -102,8 +108,8 @@ for arch, variant in CASES:
     specs = build_model(cfg).param_specs()
     p = jax_donor(specs, 0)
     b = {k: jnp.asarray(v) for k, v in batch(cfg).items()}
-    runs = [("mesh", mesh)] + ([("whole", None)] if variant == "base"
-                               else [])
+    runs = [("mesh", mesh)] + ([("whole", None), ("rows", rows)]
+                               if variant == "base" else [])
     for where, m in runs:
         ov = kw.get("rule_overrides")
         pd, gs = p, None
@@ -293,6 +299,19 @@ def test_train_step_on_a_model_axis_only(ref_train, donors, arch):
     check_against(arch, metrics, grads, wm, wg, "port unsharded")
 
 
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m", "zamba2-7b"])
+def test_train_step_on_a_data_axis_only(ref_train, donors, arch):
+    """The same on (4, 1): one sequence a row, each row's loss (the head
+    and the chunked cross-entropy) on its own batch block, the rows'
+    partial sums added in row order; against the reference's step on the
+    same ``Auto``-axes mesh and the port unsharded."""
+    metrics, grads, _, _ = port_step(arch, "base", donors[arch], ROWS)
+    check_against(arch, metrics, grads, *_ref(ref_train, arch, "base",
+                                              "rows"), "reference rows")
+    wm, wg, _, _ = port_step(arch, "base", donors[arch])
+    check_against(arch, metrics, grads, wm, wg, "port unsharded")
+
+
 def test_a_scaled_replicated_gradient_fails_the_parity(ref_train, donors,
                                                        monkeypatch):
     """The mutation check: the mesh step's gradient of one replicated leaf
@@ -359,6 +378,18 @@ def test_bf16_train_step_on_mesh_matches_unsharded(donors, arch):
     unsharded, the gradient norm within 1e-2."""
     ocfg = AdamWConfig()
     got, _, _, _ = port_step(arch, "base", donors[arch], MESH, "bfloat16",
+                             ocfg)
+    want, _, _, _ = port_step(arch, "base", donors[arch], None, "bfloat16",
+                              ocfg)
+    np.testing.assert_allclose(got[[0, 3]], want[[0, 3]], rtol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m", "zamba2-7b"])
+def test_bf16_train_step_on_a_data_axis_only(donors, arch):
+    """bfloat16 compute on (4, 1): loss and gradient norm within 1e-2 of
+    the port unsharded."""
+    ocfg = AdamWConfig()
+    got, _, _, _ = port_step(arch, "base", donors[arch], ROWS, "bfloat16",
                              ocfg)
     want, _, _, _ = port_step(arch, "base", donors[arch], None, "bfloat16",
                               ocfg)
