@@ -42,11 +42,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    range; the host-packed dwconv in both designs, the staged one twice);
    the plan GEMV (kernel 11) qwen3-0.6b's gate under phase 10's
    permutation plan, an exact grid with a -1 slot and a reused position,
-   and a ragged plan (odd G, n != G*group, O = 13).  The CRC-32 kernel
-   must equal ``zlib.crc32`` bit for bit on ragged lengths (0, 1, a lane
-   slice and a chunk +- 1, a few MB), a continued CRC, ragged ranges, a
-   bfloat16 table and strided layers of phase 7's segment-major wz stack
-   shape, each twice (bit-identical);
+   and a ragged plan (odd G, n != G*group, O = 13).  The fused GEMV
+   (kernel 9) also runs WIDE_GEMV's group-1 down projections (llava's at
+   B 32 and deepseek-coder-33b's at B 16 in float32, its B 32 in
+   bfloat16), where the split's cluster grows so that a block's offsets
+   fit: the split design twice, bit-identical, its library's plan checked
+   against ``kernels.ops``' mirror.  The CRC-32 kernel, in both chunk-pass
+   designs (the banked one and the kept one, forced), must equal
+   ``zlib.crc32`` bit for bit on ragged lengths (0, 1, a staging step, a
+   lane slice and a chunk +- 1, a few MB aligned and not), a continued
+   CRC, ragged ranges, a bfloat16 table and strided layers of phase 7's
+   segment-major wz stack shape, each twice (bit-identical);
 4. timing: each kernel at its main path's shapes — its device time, the
    plain version's, one PyTorch library call computing the same function,
    and the least time the card could take (the larger of the bytes this
@@ -69,11 +75,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    (kernel 1 at the five projections, kernel 8 at the paired decode's
    five), the split design beside the kept one forced (``direct_ms``), as
    are the head (at B = 4 and B = 1, each beside matmul at its batch) and
-   the host-packed dwconv (float32 and bfloat16 tables).  The CRC kernel
-   runs one full-width layer's bytes (2.39 GB) and the head pool's (19.8
-   GB), beside the bytes bound and the host ``zlib.crc32`` time of the
-   same bytes (the reference's function on the host, not a library call:
-   torch has none, so its ``library_ms`` is null);
+   the host-packed dwconv (float32 and bfloat16 tables); kernel 9 also at
+   llava's group-1 down projection (B 32, G 14336, O 4096, 3.76 GB of
+   float32 tables) beside ``torch.matmul`` and its bytes bound.  The CRC
+   kernel runs one full-width layer's bytes (2.39 GB) and the head pool's
+   (19.8 GB) in each chunk-pass design, beside the bytes bound and the
+   host ``zlib.crc32`` time of the same bytes (the reference's function on
+   the host, not a library call: torch has none, so its ``library_ms`` is
+   null);
 5. serving: ``Engine(mamba2-130m full width and depth, slots=4,
    pcilt=True)`` with float32 tables converts (calibrate, build, CRC
    record and verify at load, both on the card) and serves 4 requests of
@@ -398,6 +407,12 @@ SOURCES = {
 #: split design and its kept ("direct") one
 GEMV_SPLIT_KERNEL = "gemv_split_kernel"
 GEMV_DIRECT_KERNEL = "gemv_direct_kernel"
+#: kernel 9 at the group-1 down projections whose offsets overflow one
+#: block unless the split's cluster grows (phase 3; the first is timed in
+#: phase 4): (what, B, G, O, table dtype), 4-bit activations, V 16
+WIDE_GEMV = (("llava-next-mistral-7b down", 32, 14336, 4096, "float32"),
+             ("deepseek-coder-33b down", 16, 19200, 7168, "float32"),
+             ("deepseek-coder-33b down", 32, 19200, 7168, "bfloat16"))
 #: the shared-pool head's split design and its kept one; the host-packed
 #: dwconv's staged design and its kept one
 SHARED_SPLIT_KERNEL = "shared_split_kernel"
@@ -450,9 +465,10 @@ LIB_NOTE = {"gemv_stacked": "torch.matmul(fake_quant(x), W_l)",
             "gemv_plan": "torch.matmul(fake_quant(x)[:, plan], W[plan])",
             "crc32": "none: torch has no CRC (host_zlib_ms: the reference's "
                      "zlib.crc32 on the host, not a library kernel)"}
-#: the CRC kernel's device kernels (a substring of each): the chunk pass and
-#: the combine passes
-CRC_KERNELS = ("crc_chunks_kernel", "crc_combine_kernel")
+#: the CRC kernel's device kernels (a substring of each): the chunk pass
+#: (the banked design's and the kept one's) and the combine passes
+CRC_KERNELS = ("crc_banked_kernel", "crc_chunks_kernel",
+               "crc_combine_kernel")
 #: one full-width mamba2-130m layer at 4 bits, group 2, float32, table by
 #: table: the conv table [1792, 65536], wz, wx [384, 256, 1536], wB, wC
 #: [384, 256, 128], wdt [384, 256, 24], wo [768, 256, 768] (the monitor's
@@ -1023,7 +1039,52 @@ def check_kernels(torch, ops, core, report):
     check_conv_kernels(torch, ops, record, gen)
     check_slice3_kernels(torch, ops, record, gen)
     check_plan_kernel(torch, ops, record, gen)
+    check_wide_gemv(torch, ops, record, gen)
     return errs
+
+
+def check_wide_gemv(torch, ops, record, gen):
+    """Kernel 9 at WIDE_GEMV's group-1 widths, where a block's staged
+    offsets overflow its shared memory unless the split's cluster grows
+    (``kernels.ops.gemv_variant``): 4-bit activations, V 16, seeded tables
+    ([G, 16, O]: 3.76 GB at llava's float32, 8.81 GB at deepseek's), the
+    split design twice (bit-identical; the kept one cannot hold B x G
+    offsets in a block), its library's plan checked equal to the mirror's
+    at the first launch, against its plain version at kernel 9's tolerance
+    (the plain gather runs one row at a time: ``G x O`` float32 cells,
+    0.55 GB at deepseek's).  Each case is freed before the next."""
+    from repro_torch.core.quantization import QuantSpec, scale_from_amax
+
+    dev = torch.device("cuda")
+    spec = QuantSpec(4, True)
+    for what, rows, G, O, dt in WIDE_GEMV:
+        dtype = getattr(torch, dt)
+        es = torch.empty((), dtype=dtype).element_size()
+        sp = ops.gemv_variant(rows, G, O, es)
+        require(sp.cluster > 1 and ops.gemv_candidates(rows, G, O, es)
+                == ["split"], f"{what}: the split {sp} at B {rows}, G {G} "
+                f"does not grow its cluster, or a block holds B x G offsets")
+        tabs = (torch.randn(G, 16, O, generator=gen, device=dev)
+                * G ** -0.5).to(dtype)
+        x = torch.randn(rows, G, generator=gen, device=dev) * 2.0
+        scale = float(scale_from_amax(0.8 * x.abs().max(), spec))
+        seen = dict(ops.GEMV_VARIANT_LAUNCHES)
+        got = ops.pcilt_fused_gemv(x, tabs, spec, scale, 1)
+        again = ops.pcilt_fused_gemv(x, tabs, spec, scale, 1)
+        torch.cuda.synchronize()
+        ran = {v: c - seen[v] for v, c in ops.GEMV_VARIANT_LAUNCHES.items()}
+        require(ran == {"split": 2, "direct": 0},
+                f"{what}: the fused GEMV ran the designs {ran}")
+        require((sp.chunks, G, O, es) in ops._GEMV_CHECKED,
+                f"{what}: the library's plan was not checked")
+        require(torch.equal(got, again), f"{what}: two launches differ")
+        want = ops.fused_gemv_plain(x, tabs, spec, scale, 1)
+        rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        mx, ok = close(torch, got, want, rtol)
+        record("fused_gemv", f"{what} B{rows} G{G} O{O} {dt}, cluster "
+               f"{sp.cluster}", mx, ok, f"rtol {rtol}")
+        del tabs, x, got, again, want
+        torch.cuda.empty_cache()
 
 
 def conv_layers(cfg):
@@ -1690,6 +1751,38 @@ def time_slice3_kernels(torch, ops, report, rows):
         nbytes, B * (n // group) * O, 1, "projection", d)
     del tabs, w
 
+    # -- #9 at llava's down projection, group 1 (WIDE_GEMV[0]: 3.76 GB of
+    #    float32 tables, the split's cluster grown to fit its offsets);
+    #    bound: the distinct rows its offsets fetch, x and the output once
+    what, rows_, n, O, _ = WIDE_GEMV[0]
+    w = torch.randn(n, O, generator=gen, device=dev) * n ** -0.5
+    xs = [torch.randn(rows_, n, generator=gen, device=dev) for _ in range(2)]
+    scale = float(scale_from_amax(0.8 * xs[0].abs().max(), spec4))
+    tabs = build_grouped_tables(w, spec4, scale, 1)
+    seg = torch.arange(n, device=dev) * 16
+    nbytes = statistics.mean(
+        len(torch.unique(quantize(x, spec4, scale).long() + seg)) * O * 4
+        + x.numel() * 4 + rows_ * O * 4 for x in xs)
+    xqs = [fake_quant(x, spec4, scale) for x in xs]
+    lib = timed([lambda q=q: torch.matmul(q, w) for q in xqs] * 2)
+    k = timed([lambda x=x: ops.pcilt_fused_gemv(x, tabs, spec4, scale, 1)
+               for x in xs] * 2, GEMV_SPLIT_KERNEL)
+    p = timed([lambda: ops.fused_gemv_plain(xs[0], tabs, spec4, scale, 1)])
+    sp = ops.gemv_variant(rows_, n, O, 4)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rows["fused_gemv gate"]["wide"] = {
+        "what": what, "shape": [rows_, n, 16, O], "cluster": sp.cluster,
+        "ms": k["ms"], "warm_ms": k["warm_ms"], "plain_ms": p["ms"],
+        "library_ms": lib["ms"], "library_call": LIB_NOTE["fused_gemv"],
+        "bound_ms": b_ms, "bound_by": "bytes", "bytes": nbytes,
+        "table_bytes_ms": tabs.numel() * 4 / HBM_BYTES_PER_S * 1e3}
+    log(f"time  fused_gemv          {what} B{rows_} G{n} O{O} group 1 "
+        f"(cluster {sp.cluster}) kernel {k['ms']:8.3f} ms (warm "
+        f"{k['warm_ms']:8.3f})  plain {p['ms']:8.3f} ms  matmul "
+        f"{lib['ms']:8.3f} ms  bound {b_ms:7.3f} ms (bytes; the whole "
+        f"table {rows['fused_gemv gate']['wide']['table_bytes_ms']:.3f})")
+    del tabs, w, xs, xqs
+
     # -- #10: the parity probe at wz's width, [4, 768] -> 1536, 2-bit
     n, O = 768, 1536
     w = torch.randn(n, O, generator=gen, device=dev) * n ** -0.5
@@ -2056,70 +2149,95 @@ def crc_device_launches(torch, ops, call, report):
 
 
 def check_crc_kernel(torch, ops, report, errs):
-    """Phase 3 for the CRC kernel: bit-equal to ``zlib.crc32`` on ragged
-    lengths (0, 1, a lane slice and a chunk +- 1, a few MB of seeded
-    bytes), a continued CRC, several streams in one launch (ragged lengths
-    at unaligned addresses, an empty one, ragged ranges of one tensor), a
-    bfloat16 table and a strided layer of phase 7's segment-major wz stack
-    ([192, 24, 256, 1536] float32: 192 ranges); two launches
-    bit-identical.  The bytes go to the host once, for zlib."""
+    """Phase 3 for the CRC kernel, each case in both chunk-pass designs
+    (``ops.CRC_VARIANTS``: the banked one and the kept one, forced): bit-equal
+    to ``zlib.crc32`` on ragged lengths (0, 1, a staging step of 128
+    bytes, a lane slice and a chunk +- 1, a few MB of seeded bytes: a
+    length whose padded chunks are 16-byte aligned, staged after the
+    first, and one whose are not), a continued CRC, several
+    streams in one launch (ragged lengths at unaligned addresses, an empty
+    one, ragged ranges of one tensor), a bfloat16 table and a strided layer
+    of phase 7's segment-major wz stack ([192, 24, 256, 1536] float32: 192
+    ranges); two launches bit-identical.  The bytes go to the host once,
+    for zlib."""
     import zlib
 
     from repro_torch.core.pcilt import layer_checksum, table_checksum
     from repro_torch.kernels.ref import CRC_CHUNK_BYTES, CRC_LANE_BYTES
+
+    designs = list(ops.CRC_VARIANTS)
+    seen = dict(ops.CRC_VARIANT_LAUNCHES)
+
+    def each(what, call, want):
+        """``call()`` in every design, each held to ``want``; -> the
+        results."""
+        out = []
+        for design in designs:
+            with ops._crc_forced(design):
+                got = call()
+            crc_case(report, errs, f"{what} [{design}]", got, want)
+            out.append(got)
+        return out
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     data = torch.randint(0, 256, (5_000_011,), dtype=torch.uint8,
                          generator=gen, device=dev)
     host = data.cpu().numpy()
-    for n in (0, 1, CRC_LANE_BYTES - 1, CRC_LANE_BYTES + 1,
+    for n in (0, 1, 127, 129, CRC_LANE_BYTES - 1, CRC_LANE_BYTES + 1,
               CRC_CHUNK_BYTES - 1, CRC_CHUNK_BYTES, CRC_CHUNK_BYTES + 1,
-              5_000_011):
-        crc_case(report, errs, f"{n} bytes", ops.pcilt_crc32([data[:n]])[0],
-                 zlib.crc32(host[:n].tobytes()))
-    crc_case(report, errs, "3 MB from byte 3, continuing a CRC",
-             table_checksum(data[3:3_000_003], crc=0xDEADBEEF),
-             zlib.crc32(host[3:3_000_003].tobytes(), 0xDEADBEEF))
+              4_999_936, 5_000_011):
+        each(f"{n} bytes", lambda: ops.pcilt_crc32([data[:n]])[0],
+             zlib.crc32(host[:n].tobytes()))
+    each("3 MB from byte 3, continuing a CRC",
+         lambda: table_checksum(data[3:3_000_003], crc=0xDEADBEEF),
+         zlib.crc32(host[3:3_000_003].tobytes(), 0xDEADBEEF))
     cuts = [(5, 7), (12, CRC_CHUNK_BYTES), (CRC_CHUNK_BYTES + 12, 0),
             (CRC_CHUNK_BYTES + 12, 1), (CRC_CHUNK_BYTES + 13, 2_000_001)]
     starts = [3, 70_001, 9, 1_400_000]
-    got = ops.pcilt_crc32([data[a:a + n] for a, n in cuts]
-                          + [(data, starts, CRC_CHUNK_BYTES + 1)])
     want = [zlib.crc32(host[a:a + n].tobytes()) for a, n in cuts] + [
         zlib.crc32(b"".join(host[a:a + CRC_CHUNK_BYTES + 1].tobytes()
                             for a in starts))]
-    for i, (g, w) in enumerate(zip(got, want)):
-        crc_case(report, errs, f"6 streams in one launch, stream {i}", g, w)
+    for design in designs:
+        with ops._crc_forced(design):
+            got = ops.pcilt_crc32([data[a:a + n] for a, n in cuts]
+                                  + [(data, starts, CRC_CHUNK_BYTES + 1)])
+        for i, (g, w) in enumerate(zip(got, want)):
+            crc_case(report, errs,
+                     f"6 streams in one launch, stream {i} [{design}]", g, w)
     t = (torch.randn(384, 256, 128, generator=gen, device=dev)
          .to(torch.bfloat16))
-    first = ops.pcilt_crc32([t])[0]
-    crc_case(report, errs, "bf16 [384, 256, 128]", first,
-             zlib.crc32(t.cpu().view(torch.int16).numpy().tobytes()))
-    crc_case(report, errs, "bf16 [384, 256, 128], second launch",
-             ops.pcilt_crc32([t])[0], first)
+    want = zlib.crc32(t.cpu().view(torch.int16).numpy().tobytes())
+    for first in each("bf16 [384, 256, 128]",
+                      lambda: ops.pcilt_crc32([t])[0], want):
+        each("bf16 [384, 256, 128], second launch",
+             lambda: ops.pcilt_crc32([t])[0], first)
     del t
     stack = torch.randn(192, N_LAYERS, 256, 1536, generator=gen, device=dev)
     for l in (0, 17):
-        got = layer_checksum(stack, l, axis=1)
         want = zlib.crc32(stack[:, l].contiguous().cpu().numpy().tobytes())
-        crc_case(report, errs, f"segment-major [192, 24, 256, 1536] l{l}",
-                 got, want)
-        crc_case(report, errs, f"segment-major l{l}, second launch",
-                 layer_checksum(stack, l, axis=1), got)
+        each(f"segment-major [192, 24, 256, 1536] l{l}",
+             lambda: layer_checksum(stack, l, axis=1), want)
+        each(f"segment-major l{l}, second launch",
+             lambda: layer_checksum(stack, l, axis=1), want)
     del stack, data
+    ran = {d: c - seen[d] for d, c in ops.CRC_VARIANT_LAUNCHES.items()}
+    require(len(set(ran.values())) == 1 and min(ran.values()) > 0,
+            f"the CRC cases ran the designs {ran}, not each alike")
 
 
 def time_crc_kernel(torch, ops, report, rows, errs):
     """Phase 4 for the CRC kernel: one call over one full-width layer's
     tables (LAYER_TABLES: seven streams of one buffer, as the monitor's
     layer check makes them) and over the head pool's bytes
-    (HEAD_POOL_BYTES), L2 flushed before every call, each call's device
-    launches counted by the profiler; beside the bytes bound at 3.35 TB/s
-    and the host ``zlib.crc32`` time of the same bytes (the reference's
-    function on the host; not a library kernel: torch has no CRC call, so
-    ``library_ms`` is null); the plain version on 64 MiB of them.  Each
-    result is held to zlib's."""
+    (HEAD_POOL_BYTES), in each chunk-pass design (``ops.CRC_VARIANTS``,
+    forced; ``ms`` is the default design's, ``kept_ms`` the kept one's), L2
+    flushed before every call, each call's device launches counted by the
+    profiler; beside the bytes bound at 3.35 TB/s and the host
+    ``zlib.crc32`` time of the same bytes (the reference's function on the
+    host; not a library kernel: torch has no CRC call, so ``library_ms`` is
+    null); the plain version on 64 MiB of them.  Each result is held to
+    zlib's."""
     from repro_torch.core.pcilt import table_checksum
     from repro_torch.kernels.ref import crc32_plain
 
@@ -2127,6 +2245,7 @@ def time_crc_kernel(torch, ops, report, rows, errs):
     gen = torch.Generator(device=dev).manual_seed(13)
     flush = L2Flush(torch)
     plain_n = 64 << 20
+    default = next(iter(ops.CRC_VARIANTS))
     for key, sizes in (("crc32 layer", list(LAYER_TABLES.values())),
                        ("crc32 head", [HEAD_POOL_BYTES])):
         nbytes = sum(sizes)
@@ -2134,38 +2253,48 @@ def time_crc_kernel(torch, ops, report, rows, errs):
                             generator=gen, device=dev)
         starts = [sum(sizes[:i]) for i in range(len(sizes))]
         streams = [(buf, [a], n) for a, n in zip(starts, sizes)]
-
-        def call():
-            return ops.pcilt_crc32(streams)
-
-        per = crc_device_launches(torch, ops, call, report)
-        k = time_calls(torch, [call] * 5, flush, kernel=CRC_KERNELS,
-                       launches_per_call=per,
-                       retries=report["profile_retries"])
-        p = time_calls(torch, [lambda: crc32_plain([buf[:plain_n]])], flush,
-                       reps=1, warmup=1, retries=report["profile_retries"])
-        got = call()
         host = buf.cpu()
         t0 = time.perf_counter()
         want = [table_checksum(host[a:a + n])  # zlib.crc32, 64 MiB a call
                 for a, n in zip(starts, sizes)]
         zlib_s = time.perf_counter() - t0
-        for i, (g, w) in enumerate(zip(got, want)):
-            crc_case(report, errs, f"{key} stream {i} ({sizes[i]} bytes)",
-                     g, w)
-        del host, buf
+        del host
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        times = {}
+        for design in ops.CRC_VARIANTS:
+            def call(design=design):
+                with ops._crc_forced(design):
+                    return ops.pcilt_crc32(streams)
+
+            per = crc_device_launches(torch, ops, call, report)
+            k = time_calls(torch, [call] * 5, flush, kernel=CRC_KERNELS,
+                           launches_per_call=per,
+                           retries=report["profile_retries"])
+            times[design] = dict(k, launches=per)
+            for i, (g, w) in enumerate(zip(call(), want)):
+                crc_case(report, errs, f"{key} stream {i} ({sizes[i]} "
+                         f"bytes) [{design}]", g, w)
+            log(f"time  crc32 {design:7s} {key:26s} kernel {k['ms']:9.3f} "
+                f"ms (warm {k['warm_ms']:9.3f}, events "
+                f"{k['events_ms']:9.3f}; {per} device launches, profiled)"
+                f"  bound {bound:7.3f} ms ({bound / k['ms']:.0%} of it)")
+        p = time_calls(torch, [lambda: crc32_plain([buf[:plain_n]])], flush,
+                       reps=1, warmup=1, retries=report["profile_retries"])
+        del buf
+        k = times[default]
         rows[key] = {"kernel": "crc32", "shape": sizes, "ms": k["ms"],
                      "warm_ms": k["warm_ms"], "events_ms": k["events_ms"],
+                     "design": default, "kept_ms": times["kept"]["ms"],
+                     "designs": times,
                      "plain_ms": p["ms"], "plain_shape": [plain_n],
                      "library_ms": None, "library_call": LIB_NOTE["crc32"],
                      "host_zlib_ms": zlib_s * 1e3, "bound_ms": bound,
-                     "bound_by": "bytes", "device_launches_per_call": per}
-        log(f"time  crc32         {key:26s} kernel {k['ms']:9.3f} ms (warm "
-            f"{k['warm_ms']:9.3f}, events {k['events_ms']:9.3f}; {per} "
-            f"device launches, profiled)  bound {bound:7.3f} ms  host "
-            f"zlib.crc32 (the reference's function) {zlib_s * 1e3:10.1f} ms"
-            f"  plain {p['ms']:8.2f} ms at 64 MiB")
+                     "bound_by": "bytes",
+                     "device_launches_per_call": k["launches"]}
+        log(f"time  crc32         {key:26s} {default} {k['ms']:9.3f} ms, "
+            f"kept {times['kept']['ms']:9.3f} ms  bound {bound:7.3f} ms  "
+            f"host zlib.crc32 (the reference's function) "
+            f"{zlib_s * 1e3:10.1f} ms  plain {p['ms']:8.2f} ms at 64 MiB")
     del flush
 
 
@@ -2214,9 +2343,15 @@ def watch_monitor(eng):
 
 def monitor_summary(eng, stats, launches, times, med_step, what):
     """The monitored run's health: no event, no rollback, no restart; its
-    CRC launches a tick and seconds a tick, a layer check and a head
-    check, the median step (the monitor outside it) and the median span of
-    a decode step and its monitor tick, measured together."""
+    CRC launches a tick (every one in the CRC's default design) and
+    seconds a tick, a layer check and a head check, the median step (the
+    monitor outside it) and the median span of a decode step and its
+    monitor tick, measured together."""
+    from repro_torch.kernels import ops
+
+    designs = {d: n for d, n in ops.CRC_VARIANT_LAUNCHES.items() if n}
+    require(list(designs) == [next(iter(ops.CRC_VARIANTS))],
+            f"{what}: the monitor's CRCs ran the designs {designs}")
     events = stats["health_events"]
     require(events == [] and stats["rollbacks"] == 0
             and stats["restarts"] == 0,
@@ -2227,6 +2362,7 @@ def monitor_summary(eng, stats, launches, times, med_step, what):
     med = {k: statistics.median(v) if v else None for k, v in times.items()}
     out = {"health_events": events, "rollbacks": stats["rollbacks"],
            "ticks_checked": ticks, "crc_launches": crc,
+           "crc_designs": designs,
            "crc_launches_per_tick": crc / max(ticks, 1),
            "head_checks": len(times["head"]),
            "monitor_s_per_tick": med["tick"], "layer_check_s": med["layer"],
@@ -7600,7 +7736,8 @@ def main() -> int:
         for extra in ("plain_shape", "direct_ms", "fetch_floor_ms",
                       "direct_with_fill_ms", "step_device_launches",
                       "step_device_launches_kept", "host_zlib_ms",
-                      "device_launches_per_call", "sharded_ms",
+                      "device_launches_per_call", "sharded_ms", "kept_ms",
+                      "wide",
                       "mesh_shard_launches", "mesh_shard_us"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
@@ -7611,6 +7748,7 @@ def main() -> int:
                            "bound_ms", "bound_by")}
     head = rows["crc32 head"]
     kernels[-1].update(head_shape=head["shape"], head_ms=head["ms"],
+                       head_kept_ms=head["kept_ms"],
                        head_bound_ms=head["bound_ms"],
                        head_host_zlib_ms=head["host_zlib_ms"],
                        head_device_launches_per_call=head[

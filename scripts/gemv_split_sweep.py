@@ -64,7 +64,33 @@ L2PF = [("template <typename T, int VB, bool COUNTERS, bool PLAN>\n__global__",
          "PLAN>\n__global__"),
         ("v[u][r][k] = __ldg(reinterpret_cast<const Raw*>(",
          "v[u][r][k] = ld_hint(reinterpret_cast<const Raw*>(")]
+#: the segment loop kept rolled (``#pragma unroll 1``): one batch of loads
+#: live at a time (a probe of the spills ptxas reported at 255 registers in
+#: the counter and bfloat16 instances: it changed no register count)
+UNROLL1 = [("    for (int g = g0; g < g1; g += BATCH) {\n",
+            "#pragma unroll 1\n    for (int g = g0; g < g1; g += BATCH) {\n")]
+#: the cluster's sum loop kept rolled: one element's 16 rank loads live at
+#: a time instead of several elements' (the spill's other candidate), and
+#: the block's sum loop with it
+ROLLSUM = [("  for (int e = rank * blockDim.x + threadIdx.x; e < E;\n",
+            "#pragma unroll 1\n"
+            "  for (int e = rank * blockDim.x + threadIdx.x; e < E;\n"),
+           ("  for (int e = threadIdx.x; e < E; e += blockDim.x) {\n"
+            "    float sum = part[e];",
+            "#pragma unroll 1\n"
+            "  for (int e = threadIdx.x; e < E; e += blockDim.x) {\n"
+            "    float sum = part[e];")]
+#: kSegBatch segments a load batch in every instance, as before the
+#: counter and bfloat16 instances took 2 (they spill so)
+BATCH4 = [("  constexpr int BATCH = (COUNTERS || sizeof(T) == 2) ? 2 : "
+           "kSegBatch;", "  constexpr int BATCH = kSegBatch;")]
+
+
 VARIANTS = {"base": ({}, []),
+            "batch4": ({}, BATCH4),
+            "rollsum": ({}, ROLLSUM),
+            "rolled": ({}, UNROLL1 + ROLLSUM),
+            "unroll1": ({}, UNROLL1),
             "ldcs": ({}, [LDCS]),
             "l2pf": ({}, L2PF),
             "l32m4t132": ({"kMaxLanes": 32, "kMinSegs": 4,
@@ -131,8 +157,11 @@ def build_variants(names, build):
             continue
         regs = sorted({line.split("Used")[1].split(",")[0].strip()
                        for line in text.splitlines() if "Used" in line})
-        print(f"built {name}: {VARIANTS[name][0]} registers {regs}",
-              flush=True)
+        spills = sorted({line.strip() for line in text.splitlines()
+                         if "bytes spill stores" in line
+                         and " 0 bytes spill stores" not in line})
+        print(f"built {name}: {VARIANTS[name][0]} registers {regs} spills "
+              f"{spills or 'none'}", flush=True)
         f = ctypes.CDLL(lib).pcilt_gemv_fused_f32
         f.argtypes = build._SIGNATURES["pcilt_gemv_fused"]
         f.restype = ctypes.c_int

@@ -28,7 +28,8 @@ gives (the source and its launch function named beside each):
 * ``gemv_host`` — the staged host-packed GEMV and conv, kernels 6 and 7
   (``gemv_host_smem_bytes``, ``gemv_host_block_tile``), and the direct
   one;
-* ``crc`` — the CRC-32 of the tables: its chunk pass and combine passes.
+* ``crc`` — the CRC-32 of the tables: its chunk pass (the banked design
+  and the kept one) and combine passes.
 
 The sweeps: ``quick`` holds the shapes of ``PERF.md``'s kernel table (the
 mamba2-130m decode at B = 4 and 1, qwen3-0.6b's gate, the head, the [4,
@@ -141,17 +142,22 @@ KERNELS: Dict[str, Tuple[str, str, Optional[str], int, int]] = {
     "gemv_host_staged_kernel": ("pcilt_gemv.cu", "gemv_host",
                                 "hstaged::kThreads, 1", 512, 1),
     "crc_chunks_kernel": ("pcilt_crc32.cu", "crc32", "kThreads", 256, 1),
+    "crc_banked_kernel": ("pcilt_crc32.cu", "crc32", "kBankedThreads, 1",
+                          512, 1),
     "crc_combine_kernel": ("pcilt_crc32.cu", "crc32", None, MAX_THREADS, 1),
 }
 
 #: the static shared memory of each kernel, as its ``__shared__`` arrays
 #: declare it (the most of its template instances): the CRC's byte tables
-#: ``uint32_t[16][256]`` and lane operators ``[5][32]``, its combine's
+#: ``uint32_t[16][256]`` and lane operators ``[5][32]`` (the kept design),
+#: the banked design's lane operators ``[5][32]`` (its tables and staging
+#: tiles are dynamic), its combine's
 #: ``kCombine`` nodes and ``[10][32]`` operators, the tiled dwconv's
 #: cluster slots ``[16 * 16]`` int and unsigned, the code pre-pass's
 #: ``[32][33]`` byte tile; the others take dynamic shared memory only
 STATIC_SMEM: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 STATIC_SMEM.update({"crc_chunks_kernel": 4 * (16 * 256 + 5 * 32),
+                    "crc_banked_kernel": 4 * 5 * 32,
                     "crc_combine_kernel": 4 * (1024 + 10 * 32),
                     "dwconv1d_tiled_kernel": 2 * 4 * 16 * 16,
                     "conv2d_codes_kernel": 32 * 33})
@@ -817,8 +823,13 @@ def _gemv_host_config(lib):
 # the CRC (pcilt_crc32.cu)
 # ----------------------------------------------------------------------------
 
-#: chunks a chunk block takes at once, chunk blocks an SM (an H100's 132)
+#: the kept design's chunks a chunk block takes at once and chunk blocks
+#: an SM, the banked design's (one block an SM) and its dynamic shared
+#: memory (4 tables of 256 words, a copy a bank; a warp's staging tile of
+#: 32 rows at a 144-byte pitch), an H100's SMs
 _CRC_WARPS, _CRC_BLOCKS_PER_SM, _SMS = 8, 8, 132
+_CRC_BANKED_WARPS = 16
+_CRC_BANKED_SMEM = 4 * 256 * 32 * 4 + _CRC_BANKED_WARPS * 32 * 144
 
 
 def _crc_plan(streams):
@@ -842,16 +853,21 @@ def _crc_plan(streams):
 
 
 def _crc_designs(s):
-    return ["kernel"]
+    return list(_ops().CRC_VARIANTS)
 
 
 def _crc_launches(s, design):
     nch, _, passes = _crc_plan(s["streams"])
-    blocks = min(_cdiv(sum(nch), _CRC_WARPS), _SMS * _CRC_BLOCKS_PER_SM)
-    return [Launch("crc_chunks_kernel", (blocks, 1, 1), (32 * _CRC_WARPS, 1,
-                                                         1))] + \
-        [Launch("crc_combine_kernel", (b, n, 1), (per, 1, 1))
-         for b, n, per in passes]
+    if design == "kept":
+        blocks = min(_cdiv(sum(nch), _CRC_WARPS), _SMS * _CRC_BLOCKS_PER_SM)
+        first = Launch("crc_chunks_kernel", (blocks, 1, 1),
+                       (32 * _CRC_WARPS, 1, 1))
+    else:
+        blocks = min(_cdiv(sum(nch), _CRC_BANKED_WARPS), _SMS)
+        first = Launch("crc_banked_kernel", (blocks, 1, 1),
+                       (32 * _CRC_BANKED_WARPS, 1, 1), _CRC_BANKED_SMEM)
+    return [first] + [Launch("crc_combine_kernel", (b, n, 1), (per, 1, 1))
+                      for b, n, per in passes]
 
 
 def _crc_cover(s, design):

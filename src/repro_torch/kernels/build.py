@@ -81,7 +81,7 @@ _CONFIG_SIGNATURES = {
     "pcilt_dwconv1d_tiled_config": [_P],
     "pcilt_dwconv1d_tiled_plan": [_I, _I, _I, _P],
     "pcilt_gemv_host_staged_config": [_P],
-    "pcilt_crc32": [_P, _I, _LL, _I, _P, _P, _P, _P, _P, _P],
+    "pcilt_crc32": [_P, _I, _LL, _I, _P, _P, _P, _P, _I, _P, _P],
     "pcilt_crc32_config": [_P],
 }
 

@@ -49,6 +49,9 @@
 //     thread-block cluster (up to 16 with the non-portable size), until the
 //     grid reaches kTargetBlocks or a slice would hold fewer than kMinSegs
 //     segments: 384 blocks at wz, 32 at wB/wC, 16 at wdt (float32, B = 4).
+//     Then the cluster doubles on while a block's staged offsets overflow
+//     its shared memory (group 1 at d_ff 14336 or 19200 and B >= 16: 2
+//     blocks a cluster), so any G up to ~224,000 segments fits.
 //     The split is a function of (B, G, O, itemsize) only (split_for,
 //     mirrored by kernels.ops.gemv_variant), never of the plan, so the
 //     plan launch sums in the order of the unstacked one.
@@ -56,8 +59,9 @@
 //     loads them with the widest of 16/8/4 bytes (2 for bf16) that the
 //     table's address, O * itemsize and seg_stride * itemsize allow (a
 //     template argument).  A slot reads its segments in batches of
-//     kSegBatch: the batch's offsets come from shared memory as one int4
-//     per segment, then all kSegBatch * kRows loads issue before the adds.
+//     kSegBatch (2 in the counter and bfloat16 instances): the batch's
+//     offsets come from shared memory as one int4 per segment, then all
+//     the batch's loads, kRows a segment, are in flight before the adds.
 //  3. A block quantizes and packs only the kRows x (its segments) offsets
 //     it fetches, into shared memory.  The counter variant counts only in
 //     the blocks of output tile 0, so each activation is counted once.
@@ -100,6 +104,8 @@ constexpr int kMaxCluster = 16;     // blocks a cluster, a power of two
 constexpr int kMinSegs = 1;         // least segments a slice
 constexpr int kMaxLanes = 16;       // lanes a slot, at most
 constexpr int kLaneBytes = 16;      // columns a lane owns, in bytes
+// the dynamic shared memory a block may use (kernels.ops.SMEM_LIMIT)
+constexpr long long kSmemLimit = 227 * 1024;
 static_assert((kMaxCluster & (kMaxCluster - 1)) == 0 && kMaxCluster <= 16,
               "cluster sizes are powers of two up to 16");
 static_assert(kRows == 4, "a segment's offsets are one int4");
@@ -133,6 +139,13 @@ __host__ __device__ inline Split split_for(int B, int G, int O,
   int w = kWarps;
   if (cs == 1)
     while (w > 1 && w * s.groups * kMinSegs > G) w /= 2;
+  // then more ranks, each staging fewer segments' offsets, until a block's
+  // shared memory fits (a wide G at many rows: the row chunks alone fill
+  // the grid, so the loops above leave the cluster at 1)
+  const long long sums = (long long)w * s.groups * kRows * s.tile * 4;
+  while (cs < kMaxCluster && 2LL * cs * w * s.groups * kMinSegs <= G &&
+         sums + (long long)(G + cs - 1) / cs * kRows * 4 > kSmemLimit)
+    cs *= 2;
   s.cluster = cs;
   s.warps = w;
   return s;
@@ -160,6 +173,10 @@ __global__ void __launch_bounds__(32 * kWarps)
   constexpr int NV = kLaneBytes / sizeof(T);  // columns a lane owns
   constexpr int VEC = VB / sizeof(T);         // columns a load
   constexpr int NL = NV / VEC;                // loads a row
+  // segments a load batch: 2 in the counter and bfloat16 instances, which
+  // spilled at 255 registers with kSegBatch (scripts/gemv_split_sweep.py
+  // batch4 rebuilds them so; no slower at 2, PERF.md)
+  constexpr int BATCH = (COUNTERS || sizeof(T) == 2) ? 2 : kSegBatch;
   using Raw = typename RawOf<VB>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int SB = sp.warps * sp.groups;  // slots a block
@@ -229,10 +246,10 @@ __global__ void __launch_bounds__(32 * kWarps)
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
       for (int k = 0; k < NV; ++k) acc[r][k] = 0.f;
-    for (int g = g0; g < g1; g += kSegBatch) {
-      Raw v[kSegBatch][kRows][NL];
+    for (int g = g0; g < g1; g += BATCH) {
+      Raw v[BATCH][kRows][NL];
 #pragma unroll
-      for (int u = 0; u < kSegBatch; ++u) {
+      for (int u = 0; u < BATCH; ++u) {
         const int gg = g + u;
         const int4 o4 = gg < g1 ? offs[gg - gb0] : make_int4(0, 0, 0, 0);
         const int o[kRows] = {o4.x, o4.y, o4.z, o4.w};
@@ -248,7 +265,7 @@ __global__ void __launch_bounds__(32 * kWarps)
           }
       }
 #pragma unroll
-      for (int u = 0; u < kSegBatch; ++u)
+      for (int u = 0; u < BATCH; ++u)
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
 #pragma unroll

@@ -78,7 +78,12 @@ checks (``csrc/pcilt_crc32.cu``): ``zlib.crc32`` of each of a list of
 streams (a contiguous tensor's bytes, or byte ranges of it), computed on
 the card for CUDA tensors (one launch counted for all the streams, one
 read back of their words) and by the same chunk and combine arithmetic
-(``kernels.ref.crc32_plain``) for CPU tensors.
+(``kernels.ref.crc32_plain``) for CPU tensors.  Its chunk pass has two
+designs: ``"banked"`` (a warp's coalesced loads staged through shared
+memory, slicing-by-4 tables replicated across the banks; the default)
+and the kept ``"kept"`` (each lane loads its own slice; slicing-by-16, one
+table copy); :func:`_crc_forced` forces one, :data:`CRC_VARIANT_LAUNCHES`
+counts the calls of each.
 """
 
 from __future__ import annotations
@@ -126,8 +131,9 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "gemv_host_variant", "gemv_host_smem_bytes", "gemv_host_tiles",
            "gemv_host_block_tile", "gemv_host_plain", "dwconv_variant",
            "DwTiledGrid", "dwconv_tiled_grid", "pcilt_crc32",
-           "CRC_DEVICE_LAUNCHES", "crc32_plain", "gemv_candidates",
-           "dwconv_candidates", "shared_gemv_candidates", "conv_candidates",
+           "CRC_DEVICE_LAUNCHES", "CRC_VARIANT_LAUNCHES", "crc32_plain",
+           "gemv_candidates", "dwconv_candidates", "shared_gemv_candidates",
+           "conv_candidates",
            "gemv_host_candidates", "dwconv_host_candidates"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
@@ -154,12 +160,16 @@ DWCONV_VARIANT_LAUNCHES: Dict[str, int] = {"tiled": 0, "direct": 0}
 #: host-packed GEMV / conv design -> number of its launches on CUDA
 GEMV_HOST_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
 
+#: CRC-32 chunk-pass design -> number of its calls on CUDA
+CRC_VARIANT_LAUNCHES: Dict[str, int] = {"banked": 0, "kept": 0}
+
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, CONV_VARIANT_LAUNCHES, GEMV_VARIANT_LAUNCHES,
                    SHARED_GEMV_VARIANT_LAUNCHES,
                    DWCONV_HOST_VARIANT_LAUNCHES, DWCONV_VARIANT_LAUNCHES,
-                   GEMV_HOST_VARIANT_LAUNCHES, CRC_DEVICE_LAUNCHES):
+                   GEMV_HOST_VARIANT_LAUNCHES, CRC_DEVICE_LAUNCHES,
+                   CRC_VARIANT_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -377,7 +387,10 @@ def gemv_variant(B: int, G: int, O: int, itemsize: int) -> GemvSplit:
     a narrow O puts several slots in a warp), and the cluster doubles
     until the grid has ``GEMV_TARGET_BLOCKS`` blocks, but no slice falls
     under ``GEMV_MIN_SEGS`` segments (then the block sheds warps the same
-    way).  A function of the shape alone: a plan does not change it."""
+    way); then it doubles on while a block's staged offsets overflow
+    ``SMEM_LIMIT`` (wide G at many rows, where the row chunks alone fill
+    the grid).  A function of the shape alone: a plan does not change
+    it."""
     nv = GEMV_LANE_BYTES // itemsize
     lanes = min(GEMV_MAX_LANES, -(-O // nv))
     groups = 32 // lanes
@@ -393,6 +406,10 @@ def gemv_variant(B: int, G: int, O: int, itemsize: int) -> GemvSplit:
     if cs == 1:
         while w > 1 and w * groups * GEMV_MIN_SEGS > G:
             w //= 2
+    sums = w * groups * GEMV_ROWS * tile * 4
+    while (cs < GEMV_MAX_CLUSTER and 2 * cs * w * groups * GEMV_MIN_SEGS <= G
+           and sums + -(-G // cs) * GEMV_ROWS * 4 > SMEM_LIMIT):
+        cs *= 2
     return GemvSplit(lanes, groups, w, cs, tile, tiles, chunks)
 
 
@@ -1775,6 +1792,9 @@ def _shared_conv2d(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
 #: nodes one combine block of the CRC reduces (``kCombine`` of
 #: pcilt_crc32.cu)
 CRC_COMBINE = 1024
+#: the CRC's chunk-pass designs, by their code in ``pcilt_crc32``; the
+#: first is the default
+CRC_VARIANTS = {"banked": 0, "kept": 1}
 _CRC_CHECKED: list = []
 #: device -> the CRC's operator table [CRC_LEVELS, 32] on it
 _CRC_OPS: Dict[torch.device, torch.Tensor] = {}
@@ -1786,6 +1806,23 @@ CRC_TABLES_KEPT = 256
 #: (a chunk pass and its combine passes a call; ``LAUNCHES["crc32"]``
 #: counts the calls)
 CRC_DEVICE_LAUNCHES: Dict[str, int] = {"passes": 0}
+#: a design forced on the CRC's launches inside :func:`_crc_forced`
+_CRC_FORCED: Optional[str] = None
+
+
+@contextlib.contextmanager
+def _crc_forced(variant: str):
+    """Every CRC launched on CUDA tensors inside the block runs
+    ``variant``'s chunk pass (tests and ``chip_smoke.py``); CPU tensors
+    still run the plain version."""
+    global _CRC_FORCED
+    if variant not in CRC_VARIANTS:
+        raise ValueError(f"unknown CRC variant {variant!r}")
+    before, _CRC_FORCED = _CRC_FORCED, variant
+    try:
+        yield
+    finally:
+        _CRC_FORCED = before
 
 
 def _crc_ops(lib, dev: torch.device) -> torch.Tensor:
@@ -1852,8 +1889,9 @@ def pcilt_crc32(streams) -> List[int]:
     in ``starts``, back to back (a layer of a layer-major stack is one
     start; a layer of a segment-major ``[G2, L, V2, O]`` stack is ``G2``
     starts ``L`` segments apart).  CUDA tensors (on one device): one launch
-    of the CRC kernel for every stream, counted once, and one read back of
-    their 32-bit words; CPU tensors run :func:`crc32_plain`."""
+    of the CRC kernel for every stream, counted once, in the forced design
+    or else ``"banked"``, and one read back of their 32-bit words; CPU
+    tensors run :func:`crc32_plain`."""
     specs = [_crc_stream(s) for s in streams]
     if not specs:
         return []
@@ -1886,13 +1924,15 @@ def pcilt_crc32(streams) -> List[int]:
     ws = torch.empty(nchunks + 2 * half + n_streams, dtype=torch.int32,
                      device=dev)
     out = ws[nchunks + 2 * half:]
+    variant = _CRC_FORCED or next(iter(CRC_VARIANTS))
     lib = build.library("crc32")
     made = ctypes.c_int(0)
     _launch("crc32", lib.pcilt_crc32, table, _ptr(table), n_streams,
             nchunks, levels, _ptr(ws), _ptr(ws[nchunks:]),
-            _ptr(_crc_ops(lib, dev)), _ptr(out),
+            _ptr(_crc_ops(lib, dev)), _ptr(out), CRC_VARIANTS[variant],
             ctypes.c_void_p(ctypes.addressof(made)))
     CRC_DEVICE_LAUNCHES["passes"] += made.value
+    CRC_VARIANT_LAUNCHES[variant] += 1
     pure = out.cpu().numpy().view(np.uint32)
     for j, i in enumerate(live):
         res[i] = crc32_finish(int(pure[j]), totals[i])

@@ -176,7 +176,8 @@ def crc_shift(crc: int, nbytes: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def crc_tables() -> np.ndarray:
-    """The slicing-by-16 tables ``[16, 256]`` uint32: ``T[k][b]`` is the
+    """The slicing-by-16 tables ``[16, 256]`` uint32 (the kept design's;
+    the first 4 are the banked design's slicing-by-4): ``T[k][b]`` is the
     pure CRC of byte ``b`` followed by ``k`` zero bytes."""
     t = np.zeros((16, 256), np.uint32)
     for b in range(256):
@@ -231,10 +232,11 @@ def crc32_plain(pieces: Sequence[torch.Tensor], crc: int = 0) -> int:
     """``zlib.crc32`` (continuing ``crc``) of the concatenated C-order
     bytes of contiguous tensors, on their device, by the kernel's
     arithmetic: the stream padded in front to whole chunks, each lane
-    slice's pure CRC by slicing-by-16 over 16-byte blocks, the 32 slices
-    of a chunk combined pairwise (levels 0-4), the chunks padded in front
-    with zero chunks to a power of two and combined pairwise (levels 5
-    on), zlib's inversions applied once at the ends."""
+    slice's pure CRC by slicing-by-4 over its 4-byte words (the "banked"
+    design's step; the kept design's slicing-by-16 gives the same CRCs),
+    the 32 slices of a chunk combined pairwise (levels 0-4), the chunks
+    padded in front with zero chunks to a power of two and combined
+    pairwise (levels 5 on), zlib's inversions applied once at the ends."""
     bufs = _byte_views(pieces)
     total = sum(b.numel() for b in bufs)
     if total == 0:
@@ -246,15 +248,12 @@ def crc32_plain(pieces: Sequence[torch.Tensor], crc: int = 0) -> int:
                         *bufs])
     words = stream.view(torch.int32).reshape(
         nchunks * 32, CRC_LANE_BYTES // 4).long() & _MASK
-    tab = torch.from_numpy(crc_tables().astype(np.int64)).to(dev)
+    tab = torch.from_numpy(crc_tables()[:4].astype(np.int64)).to(dev)
     c = torch.zeros(words.shape[0], dtype=torch.int64, device=dev)
-    for i in range(0, words.shape[1], 4):  # one 16-byte block a step
-        w = [words[:, i] ^ c, words[:, i + 1], words[:, i + 2],
-             words[:, i + 3]]
-        c = torch.zeros_like(c)
-        for q in range(4):  # byte 4q + s of the block reads T[15 - 4q - s]
-            for s in range(4):
-                c ^= tab[15 - 4 * q - s][(w[q] >> (8 * s)) & 0xFF]
+    for i in range(words.shape[1]):  # one little-endian word a step
+        x = words[:, i] ^ c  # byte s of the word reads T[3 - s]
+        c = (tab[3][x & 0xFF] ^ tab[2][(x >> 8) & 0xFF]
+             ^ tab[1][(x >> 16) & 0xFF] ^ tab[0][x >> 24])
     ops = torch.from_numpy(crc_operators().astype(np.int64)).to(dev)
     level = 0
     node = c.reshape(nchunks, 32)

@@ -1,7 +1,7 @@
 """The Hopper resource verifier (``repro_torch.analysis.smem``), on the CPU.
 
-* The tree is clean over the quick and the full sweep, and every family
-  checks launches.
+* The tree is clean over the quick and the full sweep, every family
+  checks launches, and the wrappers refuse no shape of the full sweep.
 * Each rule fires on a seeded fault: a shrunk budget (SMEM001), a split
   with a cluster of 32 and a kernel past its launch bounds (SMEM002), a
   gapped tile function (SMEM003), an injected library whose plan or
@@ -154,6 +154,11 @@ def test_the_tree_is_clean_over_the_full_sweep():
     fs = smem.verify_all("full", summary=summary)
     assert fs == [], "\n".join(f.render() for f in fs)
     assert summary["gemv"]["shapes"] > 1000
+    # every group-1 width is served (the split's cluster grows until a
+    # block's offsets fit), so the wrapper refuses no shape
+    assert {fam: v["refused"] for fam, v in summary.items()
+            if fam not in ("report", "kernels")} == dict.fromkeys(
+        (f.name for f in smem.FAMILIES()), 0)
     assert run_all(passes=("smem",), sweep="quick") == []
 
 
@@ -305,7 +310,8 @@ def test_parse_report_takes_the_most_of_the_instances():
     text = _report("crc32") + "\n" + _report("crc32", registers=40,
                                              spills=8)
     rep = smem.parse_report(text)
-    assert set(rep) == {"crc_chunks_kernel", "crc_combine_kernel"}
+    assert set(rep) == {"crc_chunks_kernel", "crc_banked_kernel",
+                        "crc_combine_kernel"}
     assert rep["crc_chunks_kernel"]["registers"] == 40
     assert rep["crc_chunks_kernel"]["spill_loads"] == 8
     assert rep["crc_chunks_kernel"]["instances"] == 4

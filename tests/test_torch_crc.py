@@ -4,11 +4,13 @@ arithmetic on the CPU) equals ``zlib.crc32`` bit for bit, and the port's
 checksum records equal the reference's ``table_checksum`` and
 ``stacked_checksums`` of the same tables.
 
-Cases: ragged lengths around the lane slice (2 KiB) and the chunk
-(64 KiB), several ranges of ragged lengths, a layer of a segment-major
+Cases: ragged lengths around the banked design's staging step (128 B),
+the lane slice (2 KiB) and the chunk (64 KiB), several ranges of ragged
+lengths, a layer of a segment-major
 ``[G2, L, V2, O]`` stack (strided: G2 ranges), float32, bfloat16 and
-int32 tables, a continued CRC.  The kernel itself is held to ``zlib`` on
-the card by ``tests/test_torch_cuda.py``.
+int32 tables, a continued CRC; a design forced on CPU tensors.  The
+kernel itself (both chunk-pass designs) is held to ``zlib`` on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import zlib
@@ -25,11 +27,14 @@ from repro_torch.interop import to_torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (CRC_CHUNK_BYTES, CRC_LANE_BYTES,
                                      crc32_finish, crc32_plain, crc_multmodp,
-                                     crc_operators, crc_shift)
+                                     crc_operators, crc_shift, crc_tables)
 
+#: the banked design's staging step (bytes of each lane slice a step)
+STEP = 128
 LANE, CHUNK = CRC_LANE_BYTES, CRC_CHUNK_BYTES
-LENGTHS = [0, 1, 2, 15, 16, 17, LANE - 1, LANE, LANE + 1, CHUNK - 1, CHUNK,
-           CHUNK + 1, 2 * CHUNK + 7, 5 * CHUNK - 3, 3_000_001]
+LENGTHS = [0, 1, 2, 15, 16, 17, STEP - 1, STEP, STEP + 1, LANE - 1, LANE,
+           LANE + 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 7,
+           5 * CHUNK - 3, 4_999_936, 3_000_001]
 
 
 def _bytes(n, seed=0):
@@ -52,7 +57,8 @@ def test_plain_crc_continues_a_crc(n):
 
 @pytest.mark.parametrize("cuts", [[0], [1, 0, 5], [LANE - 1, 2, LANE + 1],
                                   [CHUNK - 3, 3, 17, CHUNK + 5, 1],
-                                  [7] * 40 + [CHUNK]])
+                                  [7] * 40 + [CHUNK],
+                                  [STEP - 1, 2, STEP + 1]])
 def test_plain_crc_over_many_ranges(cuts):
     """Ranges of ragged (and empty) lengths concatenate: the CRC is that of
     their bytes back to back, whatever the chunk and lane boundaries."""
@@ -126,6 +132,61 @@ def test_combine_arithmetic():
             shifted ^= int(ops_[3, i])
     assert shifted == crc_shift(v, LANE << 3)
     assert crc_multmodp(1 << 31, v) == v  # x^0 is the identity
+
+
+def _pure(b: bytes) -> int:
+    """The pure CRC (from 0, no inversions) of ``b``: zlib's inversions
+    undone (``crc32_finish`` applies them, and is its own inverse)."""
+    return crc32_finish(zlib.crc32(b), len(b))
+
+
+def _shifted(level: int, v: int) -> int:
+    op = crc_operators()[level]
+    return int(np.bitwise_xor.reduce([op[i] for i in range(32)
+                                      if v >> i & 1] or [np.uint32(0)]))
+
+
+def test_slicing_by_4_folds_a_lane_slice():
+    """The banked design's step: a word xored into the CRC, then four
+    lookups (byte s of the word into ``T[3 - s]``) — the pure CRC of a
+    lane slice folded 128 bytes a staging step, and two slices joined by
+    the level-0 operator, as the chunk's shuffle tree joins lanes."""
+    T = [[int(v) for v in row] for row in crc_tables()[:4]]
+    b = _bytes(2 * LANE, 9).tobytes()
+
+    def fold(data, c=0):
+        for i in range(0, len(data), 4):
+            x = c ^ int.from_bytes(data[i:i + 4], "little")
+            c = (T[3][x & 0xFF] ^ T[2][x >> 8 & 0xFF] ^ T[1][x >> 16 & 0xFF]
+                 ^ T[0][x >> 24])
+        return c
+
+    c = 0
+    for step in range(0, LANE, STEP):  # a lane's 16 staging steps
+        c = fold(b[step:step + STEP], c)
+    assert c == _pure(b[:LANE])
+    assert crc32_finish(c, LANE) == zlib.crc32(b[:LANE])
+    assert _shifted(0, c) ^ fold(b[LANE:]) == _pure(b)
+
+
+@pytest.mark.parametrize("variant", ["banked", "kept"])
+def test_a_forced_crc_design_on_the_cpu_runs_the_plain_version(variant):
+    """A design is forced on CUDA tensors only: on CPU tensors the wrapper
+    runs the plain version whatever is forced, equal to zlib, and launches
+    and counts nothing."""
+    parts = [_bytes(n, n) for n in (STEP + 1, 3, CHUNK + 5)]
+    seen = dict(ops.CRC_VARIANT_LAUNCHES), ops.LAUNCHES["crc32"]
+    with ops._crc_forced(variant):
+        got = ops.pcilt_crc32([torch.from_numpy(p) for p in parts])
+    assert got == [zlib.crc32(p.tobytes()) for p in parts]
+    assert (dict(ops.CRC_VARIANT_LAUNCHES), ops.LAUNCHES["crc32"]) == seen
+    assert list(ops.CRC_VARIANTS) == ["banked", "kept"]
+
+
+def test_unknown_forced_crc_design_is_refused():
+    with pytest.raises(ValueError, match="unknown CRC variant"):
+        with ops._crc_forced("sliced"):
+            pass
 
 
 def test_cpu_tensor_routes_to_zlib(monkeypatch):

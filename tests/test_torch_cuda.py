@@ -932,6 +932,27 @@ def test_crc32_kernel_equals_zlib_on_ragged_lengths(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["banked", "kept"])
+@pytest.mark.parametrize("n", [511, 512, 513, 3 * 512 + 1, 2049, 65537,
+                               5_000_003])
+def test_crc32_designs_equal_zlib(cuda, variant, n):
+    """Each chunk-pass design, forced, at ragged lengths around 512 B,
+    the lane slice and the chunk, from an aligned and two unaligned
+    starts (the banked design's ragged chunks; ``chip_smoke.py`` phase 3
+    holds its staged ones): bit-equal to zlib, counted as the design that
+    ran."""
+    import zlib
+
+    b = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    t = torch.from_numpy(b).to(cuda)
+    seen = dict(ops.CRC_VARIANT_LAUNCHES)
+    with ops._crc_forced(variant):
+        got = [ops.pcilt_crc32([t[o:]])[0] for o in (0, 1, 5)]
+    assert got == [zlib.crc32(b[o:].tobytes()) for o in (0, 1, 5)]
+    assert ops.CRC_VARIANT_LAUNCHES[variant] == seen[variant] + 3
+
+
+@pytest.mark.cuda
 def test_crc32_kernel_over_ranges_bf16_and_strided_layers(cuda):
     """Several streams in one launch (ragged lengths at unaligned
     addresses, an empty one, ragged ranges of one tensor), a bfloat16

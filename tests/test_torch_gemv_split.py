@@ -1,7 +1,9 @@
 """The fused GEMV's split design, host side, on the CPU: the split
 ``kernels.ops.gemv_variant`` mirrors (every segment and column covered
 once, slices ascending, shared memory and cluster within the card's
-limits, the block counts at the decode shapes), the wrappers' launches
+limits, the block counts at the decode shapes, the cluster grown where a
+block's offsets would overflow and every other split as it was), the
+wrappers' launches
 (the same split with and without a plan, the design passed, the mirror
 check), and the plain versions behind a forced design.
 
@@ -32,6 +34,14 @@ RAGGED_SHAPES = [(3, 5, 24), (1, 7, 130), (5, 96, 200), (4, 160, 130),
 FULL = [(4, 384, 1536), (4, 768, 768), (4, 512, 3072), (4, 192, 1536),
         (4, 384, 768)]
 NARROW = [(4, 384, 128), (4, 384, 24), (4, 192, 128), (4, 192, 24)]
+#: (B, G, O, itemsize) of the group-1 down projections (zamba2-7b,
+#: llava-next-mistral-7b, deepseek-coder-33b) whose offsets overflow one
+#: block unless the cluster grows, and a 1056-row call over 20000 segments
+WIDE = [(32, 14336, 3584, 4), (64, 14336, 3584, 4), (64, 14336, 3584, 2),
+        (32, 14336, 4096, 4), (64, 14336, 4096, 4), (64, 14336, 4096, 2),
+        (16, 19200, 7168, 4), (32, 19200, 7168, 4), (32, 19200, 7168, 2),
+        (64, 19200, 7168, 4), (64, 19200, 7168, 2), (1056, 20000, 8, 4)]
+WIDE_SHAPES = list(dict.fromkeys((B, G, O) for B, G, O, _ in WIDE))
 
 
 def _blocks(split):
@@ -46,12 +56,16 @@ def _slices(split, G):
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES)
+@pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES
+                         + WIDE_SHAPES)
 def test_split_covers_every_segment_and_column_once(itemsize, B, G, O):
     """Each output tile's slots partition [0, G) into ascending slices, a
     block's slots cover exactly the segments whose offsets it packs
     (``[rank*G // cluster, (rank+1)*G // cluster)``), every (segment,
-    column) is summed by exactly one slot, and the row chunks cover B."""
+    column) is summed by exactly one slot, and the row chunks cover B.
+    A (segment, column) is summed once for each slice holding the segment
+    times each tile lane holding the column, so the two counts are taken
+    apart (a [G, O] count would take 0.55 GB at deepseek-coder-33b's)."""
     sp = ops.gemv_variant(B, G, O, itemsize)
     nv = ops.GEMV_LANE_BYTES // itemsize
     slices = _slices(sp, G)
@@ -65,20 +79,21 @@ def test_split_covers_every_segment_and_column_once(itemsize, B, G, O):
         mine = slices[rank * sb:(rank + 1) * sb]
         assert (mine[0][0], mine[-1][1]) == (rank * G // sp.cluster,
                                              (rank + 1) * G // sp.cluster)
-    seen = np.zeros((G, O), np.int32)
+    segs, cols = np.zeros(G, np.int32), np.zeros(O, np.int32)
     for t in range(sp.tiles):
-        cols = np.array([t * sp.tile + sl * nv + k for sl in range(sp.lanes)
-                         for k in range(nv)])
-        cols = cols[cols < O]
-        for g0, g1 in slices:
-            seen[g0:g1, cols] += 1
-    assert (seen == 1).all()
+        c = np.array([t * sp.tile + sl * nv + k for sl in range(sp.lanes)
+                      for k in range(nv)])
+        cols[c[c < O]] += 1
+    for g0, g1 in slices:
+        segs[g0:g1] += 1
+    assert (segs == 1).all() and (cols == 1).all()
     assert sp.tile == sp.lanes * nv and sp.tiles == -(-O // sp.tile)
     assert (sp.chunks - 1) * ops.GEMV_ROWS < B <= sp.chunks * ops.GEMV_ROWS
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES)
+@pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES
+                         + WIDE_SHAPES)
 def test_split_fits_a_block_and_a_cluster(itemsize, B, G, O):
     """A block's shared memory fits the card's 227 KB, its warps the
     declared most, its slots a warp; the cluster is a power of two within
@@ -93,6 +108,74 @@ def test_split_fits_a_block_and_a_cluster(itemsize, B, G, O):
     assert sp.cluster & (sp.cluster - 1) == 0
     if sp.cluster > 1:
         assert sp.cluster * sp.warps * sp.groups * ops.GEMV_MIN_SEGS <= G
+    assert "split" in ops.gemv_candidates(B, G, O, itemsize)
+
+
+#: the splits each shape had before the cluster grew for wide offsets
+#: (lanes, groups, warps, cluster, tile, tiles, chunks), in float32 then
+#: bfloat16: the decode shapes (FULL and NARROW among them) ...
+KEPT_SPLITS = {
+    (4, 384, 1536, 4): (16, 2, 4, 16, 64, 24, 1),
+    (4, 384, 128, 4): (16, 2, 4, 16, 64, 2, 1),
+    (4, 384, 24, 4): (6, 5, 4, 16, 24, 1, 1),
+    (4, 768, 768, 4): (16, 2, 4, 16, 64, 12, 1),
+    (4, 192, 1536, 4): (16, 2, 4, 16, 64, 24, 1),
+    (4, 192, 128, 4): (16, 2, 4, 16, 64, 2, 1),
+    (4, 192, 24, 4): (6, 5, 4, 8, 24, 1, 1),
+    (4, 384, 768, 4): (16, 2, 4, 16, 64, 12, 1),
+    (4, 512, 3072, 4): (16, 2, 4, 8, 64, 48, 1),
+    (4, 1536, 1024, 4): (16, 2, 4, 16, 64, 16, 1),
+    (4, 448, 3072, 4): (16, 2, 4, 8, 64, 48, 1),
+    (4, 576, 3072, 4): (16, 2, 4, 8, 64, 48, 1),
+    (4, 384, 1536, 2): (16, 2, 4, 16, 128, 12, 1),
+    (4, 384, 128, 2): (16, 2, 4, 16, 128, 1, 1),
+    (4, 384, 24, 2): (3, 10, 4, 8, 24, 1, 1),
+    (4, 768, 768, 2): (16, 2, 4, 16, 128, 6, 1),
+    (4, 192, 1536, 2): (16, 2, 4, 16, 128, 12, 1),
+    (4, 192, 128, 2): (16, 2, 4, 16, 128, 1, 1),
+    (4, 192, 24, 2): (3, 10, 4, 4, 24, 1, 1),
+    (4, 384, 768, 2): (16, 2, 4, 16, 128, 6, 1),
+    (4, 512, 3072, 2): (16, 2, 4, 16, 128, 24, 1),
+    (4, 1536, 1024, 2): (16, 2, 4, 16, 128, 8, 1),
+    (4, 448, 3072, 2): (16, 2, 4, 16, 128, 24, 1),
+    (4, 576, 3072, 2): (16, 2, 4, 16, 128, 24, 1)}
+#: ... and, for the full sweep of ``analysis.smem`` (every registered
+#: config's widths at B 1 to 64), the shapes whose split fitted a block and
+#: the sha256 of their sorted ``repr([((B, G, O, itemsize), split), ...])``
+KEPT_SWEEP = (1713, "705211882542d1e1374639862c539f6005bf33066bc3b29f28d2"
+                    "eda65570a97c")
+
+
+def test_a_split_that_fitted_is_unchanged():
+    """The cluster grows only where a block's offsets overflowed: every
+    decode shape (FULL and NARROW among them) and every shape of the full
+    sweep that fitted before keeps its split exactly."""
+    import hashlib
+
+    from repro_torch.analysis import smem
+
+    assert {k[:3] for k in KEPT_SPLITS} >= set(FULL + NARROW)
+    for (B, G, O, es), want in KEPT_SPLITS.items():
+        assert tuple(ops.gemv_variant(B, G, O, es)) == want, (B, G, O, es)
+    fit = []
+    for s in smem._gemv_shapes("full"):
+        k = (s["B"], s["G"], s["O"], s["itemsize"])
+        sp = ops.gemv_variant(*k)
+        if k not in WIDE:
+            fit.append((k, tuple(sp)))
+    digest = hashlib.sha256(repr(sorted(fit)).encode()).hexdigest()
+    assert (len(fit), digest) == KEPT_SWEEP
+
+
+@pytest.mark.parametrize("B,G,O,itemsize", WIDE)
+def test_wide_offsets_grow_the_cluster(B, G, O, itemsize):
+    """Where the row chunks alone fill the grid, a block would stage all G
+    offsets: the cluster doubles (here to 2) until they fit, no further."""
+    sp = ops.gemv_variant(B, G, O, itemsize)
+    one = sp._replace(cluster=1)
+    assert ops.gemv_smem_bytes(one, G) > ops.SMEM_LIMIT
+    assert sp.cluster == 2 and ops.gemv_smem_bytes(sp, G) <= ops.SMEM_LIMIT
+    assert ops.gemv_candidates(B, G, O, itemsize) == ["split"]
 
 
 def test_split_shared_memory_layout():
@@ -255,16 +338,39 @@ def test_a_library_that_splits_otherwise_is_refused(fake_card):
     assert fake_card.calls == []
 
 
-def test_a_split_beyond_a_block_is_refused(fake_card):
-    """264 row chunks leave no cluster to split 20000 segments over: their
-    offsets alone need 320 KB of shared memory in one block."""
+def test_a_wide_split_reaches_the_library(fake_card):
+    """264 row chunks over 20000 segments: a single block's offsets would
+    need 320 KB of shared memory, so the cluster grows to 2 blocks (each
+    stages 10000 segments, 164 KB) and the split launch reaches the
+    library, its plan checked against the mirror first."""
     spec = QuantSpec(4, True)
     x = torch.zeros(1056, 2)
     sp = ops.gemv_variant(1056, 20000, 8, 4)
-    assert sp.cluster == 1 and ops.gemv_smem_bytes(sp, 20000) > ops.SMEM_LIMIT
+    assert sp.cluster == 2 and sp.chunks == 264
+    assert ops.gemv_smem_bytes(sp, 20000) <= ops.SMEM_LIMIT
+    ops._launch_gemv("fused_gemv", x, torch.zeros(1, 256, 8), 20000, 8, 2,
+                     256 * 8, 0, spec, 0.5, False)
+    assert [_fused_args(c) for c in fake_card.calls] == \
+        [("pcilt_gemv_*_f32", (1056, 20000, 8), 0)]
+    assert (264, 20000, 8, 4) in ops._GEMV_CHECKED
+    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 1, "direct": 0}
+
+
+@pytest.mark.parametrize("B,G", [(1056, 300000), (4, 230000),
+                                 (4 * 65536, 64)])
+def test_a_split_beyond_a_cluster_is_refused(fake_card, B, G):
+    """A 16-block cluster stages ceil(G / 16) offsets a block: past ~224,000
+    segments they overflow it, and past 65535 row chunks the grid does;
+    the wrapper raises before anything is launched."""
+    spec = QuantSpec(4, True)
+    x = torch.zeros(B, 2)
+    sp = ops.gemv_variant(B, G, 8, 4)
+    assert sp.chunks > 65535 or (
+        sp.cluster == ops.GEMV_MAX_CLUSTER
+        and ops.gemv_smem_bytes(sp, G) > ops.SMEM_LIMIT)
     with pytest.raises(ValueError, match="shared memory a block"):
-        ops._launch_gemv("fused_gemv", x, torch.zeros(1, 256, 8), 20000, 8,
-                         2, 256 * 8, 0, spec, 0.5, False)
+        ops._launch_gemv("fused_gemv", x, torch.zeros(1, 256, 8), G, 8, 2,
+                         256 * 8, 0, spec, 0.5, False)
     assert fake_card.calls == []
 
 
