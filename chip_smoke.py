@@ -47,7 +47,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    B 32 and deepseek-coder-33b's at B 16 in float32, its B 32 in
    bfloat16), where the split's cluster grows so that a block's offsets
    fit: the split design twice, bit-identical, its library's plan checked
-   against ``kernels.ops``' mirror.  The CRC-32 kernel, in both chunk-pass
+   against ``kernels.ops``' mirror.  Past the ceilings the launches once
+   had and the reference never did (CEILING_*): kernel 9 at 65,537 row
+   chunks (B 262,148, the second plane of its grid) and at 230,000
+   segments of group 1 (each block staging its offsets in slabs; 0.94 GB
+   of float32 tables), kernel 1 at 65,537 row chunks (bfloat16, with its
+   counters), kernel 3 at 65,537 row chunks (its blocks walking them) and
+   the staged conv over 65,537 8x8 images (its code pre-pass walking
+   them), each twice, bit-identical, against its plain version (kernel 3
+   and the pre-pass exactly), the split GEMVs' plans checked.  The CRC-32
+   kernel, in both chunk-pass
    designs (the banked one and the kept one, forced), must equal
    ``zlib.crc32`` bit for bit on ragged lengths (0, 1, a staging step, a
    lane slice and a chunk +- 1, a few MB aligned and not), a continued
@@ -413,6 +422,13 @@ GEMV_DIRECT_KERNEL = "gemv_direct_kernel"
 WIDE_GEMV = (("llava-next-mistral-7b down", 32, 14336, 4096, "float32"),
              ("deepseek-coder-33b down", 16, 19200, 7168, "float32"),
              ("deepseek-coder-33b down", 32, 19200, 7168, "bfloat16"))
+#: the shapes past the ceilings the split GEMVs and the conv pre-pass once
+#: had and the reference never did (phase 3): B 262,148 rows are 65,537
+#: row chunks of 4, two more than a grid's rows of blocks; G 230,000
+#: segments at group 1 overflow a 16-block cluster's shared memory (kernel
+#: 9 stages them in slabs; 0.94 GB of float32 tables); 65,537 images pass
+#: a grid's z
+CEILING_ROWS, CEILING_SEGS, CEILING_IMAGES = 262148, 230000, 65537
 #: the shared-pool head's split design and its kept one; the host-packed
 #: dwconv's staged design and its kept one
 SHARED_SPLIT_KERNEL = "shared_split_kernel"
@@ -1040,6 +1056,7 @@ def check_kernels(torch, ops, core, report):
     check_slice3_kernels(torch, ops, record, gen)
     check_plan_kernel(torch, ops, record, gen)
     check_wide_gemv(torch, ops, record, gen)
+    check_ceilings(torch, ops, core, record, gen)
     return errs
 
 
@@ -1085,6 +1102,148 @@ def check_wide_gemv(torch, ops, record, gen):
                f"{sp.cluster}", mx, ok, f"rtol {rtol}")
         del tabs, x, got, again, want
         torch.cuda.empty_cache()
+
+
+def check_ceilings(torch, ops, core, record, gen):
+    """The kernels past the ceilings their launches once had, where the
+    reference computes (CEILING_*): kernel 9 at 65,537 row chunks (4-bit,
+    group 2, G 64, O 64, float32; the row walk) and at 230,000 segments of
+    group 1 (B 4, O 64; the slabs), kernel 1 at 65,537 row chunks (one
+    bfloat16 layer, with its counters), kernel 3 at 65,537 row chunks (G
+    32 into a 64-row pool, float32, one pointer out of range) and the
+    staged conv (kernel 4) over 65,537 8x8 images (C 4, O 8; its code
+    pre-pass walks the images).  Each runs twice, bit-identical; the split
+    GEMVs' library plans are checked against ``kernels.ops``' mirror; each
+    is held to its plain version at its kernel's tolerance (kernel 3 and
+    the pre-pass exactly; the plain gathers run in row chunks of
+    ``kernels.ref.PLAIN_CHUNK_ELEMS``).  Each case is freed before the
+    next."""
+    from repro_torch.core.quantization import QuantSpec, scale_from_amax
+
+    dev = torch.device("cuda")
+    spec = QuantSpec(4, True)
+    t0 = time.perf_counter()
+
+    def rand(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * s
+
+    def scaled(x, sp=spec):
+        return float(scale_from_amax(0.8 * x.abs().max(), sp))
+
+    def twice(run, counts, want_design):
+        seen = dict(counts)
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        ran = {v: c - seen[v] for v, c in counts.items()}
+        require(ran == {**dict.fromkeys(counts, 0), want_design: 2},
+                f"the ceiling case ran the designs {ran}")
+        pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+        require(all(torch.equal(a, b) for a, b in pairs),
+                "two launches of a ceiling case differ")
+        return got
+
+    # -- kernel 9: the row walk, then the slabs
+    B, G, O = CEILING_ROWS, 64, 64
+    sp = ops.gemv_variant(B, G, O, 4)
+    require(sp.chunks > ops.MAX_GRID_ROWS, f"the split {sp} walks no rows")
+    tabs = rand(G, 256, O, s=G ** -0.5)
+    x = rand(B, 2 * G, s=2.0)
+    scale = scaled(x)
+    got = twice(lambda: ops.pcilt_fused_gemv(x, tabs, spec, scale, 2),
+                ops.GEMV_VARIANT_LAUNCHES, "split")
+    require((sp.chunks, G, O, 4) in ops._GEMV_CHECKED,
+            "kernel 9's plan past the grid's rows was not checked")
+    mx, ok = close(torch, got, ops.fused_gemv_plain(x, tabs, spec, scale, 2),
+                   1e-4)
+    record("fused_gemv", f"B{B} G{G} O{O} g2, {sp.chunks} row chunks", mx,
+           ok, "rtol 1e-4")
+    del tabs, x, got
+    B, G = 4, CEILING_SEGS
+    sp = ops.gemv_variant(B, G, O, 4)
+    slab = ops.gemv_slab(sp, G)
+    require(sp.cluster == ops.GEMV_MAX_CLUSTER and slab < -(-G // 16),
+            f"the split {sp} at G {G} stages no slabs")
+    tabs = rand(G, 16, O, s=G ** -0.5)
+    x = rand(B, G, s=2.0)
+    scale = scaled(x)
+    got = twice(lambda: ops.pcilt_fused_gemv(x, tabs, spec, scale, 1),
+                ops.GEMV_VARIANT_LAUNCHES, "split")
+    require((sp.chunks, G, O, 4) in ops._GEMV_CHECKED,
+            "kernel 9's plan past a cluster was not checked")
+    mx, ok = close(torch, got, ops.fused_gemv_plain(x, tabs, spec, scale, 1),
+                   1e-4)
+    record("fused_gemv", f"B{B} G{G} O{O} g1, slabs of {slab}", mx, ok,
+           "rtol 1e-4")
+    del tabs, x, got
+    torch.cuda.empty_cache()
+
+    # -- kernel 1: one bfloat16 layer past the grid's rows, with counters
+    B, G = CEILING_ROWS, 64
+    x = rand(B, 2 * G, s=2.0)
+    scale = scaled(x)
+    w = rand(2 * G, O, s=(2 * G) ** -0.5)
+    tabs = core.build_grouped_tables(w, spec, scale, 2)[None].to(
+        torch.bfloat16).contiguous()
+    got, cnt, ratio = twice(lambda: ops.pcilt_fused_gemv_stacked(
+        x, tabs, 0, spec, scale, 2, with_stats=True),
+        ops.GEMV_VARIANT_LAUNCHES, "split")
+    require((ops.gemv_variant(B, G, O, 2).chunks, G, O, 2)
+            in ops._GEMV_CHECKED,
+            "kernel 1's plan past the grid's rows was not checked")
+    want, wc, wr = ops.gemv_stacked_plain(x, tabs, 0, spec, scale, 2,
+                                          with_stats=True)
+    record("gemv_stacked", f"B{B} G{G} O{O} bf16 counters", 0.0,
+           int(cnt) == int(wc) and float(ratio) == float(wr),
+           "count, ratio exact")
+    mx, ok = close(torch, got, want, 1e-2)
+    record("gemv_stacked", f"B{B} G{G} O{O} bf16, past the grid's rows", mx,
+           ok, "rtol 1e-2")
+    del x, w, tabs, got, want
+
+    # -- kernel 3 past the grid's rows
+    B, G, X = CEILING_ROWS, 32, 64
+    x = rand(B, 2 * G, s=2.0)
+    scale = scaled(x)
+    pool = rand(X, 256, O, s=0.05)
+    idx = torch.randint(0, X, (G,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[5] = X  # out of range: adds nothing
+    got = twice(lambda: ops.pcilt_shared_gemv(x, pool, idx, spec, scale, 2),
+                ops.SHARED_GEMV_VARIANT_LAUNCHES, "split")
+    require((B, G, O, 4) in ops._SHARED_CHECKED,
+            "kernel 3's plan past the grid's rows was not checked")
+    mx, ok = close(torch, got, ops.shared_gemv_plain(
+        x, pool, idx, spec, scale, 2, split_order=True), 0.0, exact=True)
+    record("shared_gemv", f"B{B} G{G} X{X} O{O}, past the grid's rows", mx,
+           ok, "exact, the split's order")
+    del x, pool, idx, got
+
+    # -- the staged conv's pre-pass past the grid's z
+    N, HW, C, O8 = CEILING_IMAGES, 8, 4, 8
+    spec8 = QuantSpec(8, False)
+    x = rand(N, HW, HW, C, s=2.0)
+    scale = scaled(x, spec8)
+    tabs = core.build_grouped_tables(
+        rand(9 * C, O8, s=(9 * C) ** -0.5), spec8, scale, 1)
+    require(ops.conv_variant(tabs.shape[1], 4) == "staged",
+            "the ceiling conv does not take the staged design")
+    got = twice(lambda: ops.pcilt_fused_conv2d(x, tabs, spec8, scale, 1, 3,
+                                               3),
+                ops.CONV_VARIANT_LAUNCHES, "staged")
+    xp = padded(x, 3, 1)
+    codes = ops._conv_codes(xp, spec8, scale)
+    torch.cuda.synchronize()
+    same = torch.equal(codes, ops.conv_codes_plain(xp, spec8, scale))
+    record("fused_conv2d", f"{N} images {HW}x{HW} C{C} code pre-pass",
+           0.0 if same else float("inf"), same, "exact")
+    del codes
+    mx, ok = close(torch, got, ops.fused_conv2d_plain(
+        xp, tabs, spec8, scale, 1, 3, 3, 1).reshape(got.shape), 1e-4)
+    record("fused_conv2d", f"{N} images {HW}x{HW} C{C} O{O8}", mx, ok,
+           "rtol 1e-4")
+    del x, xp, tabs, got
+    torch.cuda.empty_cache()
+    log(f"check ceilings: {time.perf_counter() - t0:.1f} s")
 
 
 def conv_layers(cfg):

@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 NO_LOAD = ("    load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, "
-         "raw_in,\n                   mask_in);", "")
+         "bits,\n                   raw_in, mask_in);", "")
 NO_COPY = ("    issue(g + kAhead);\n", "    cp_async_commit();\n")
 NO_PACK = ("    store_offsets<kG>(s_off + (gs % kOffRing) * kPixTile,",
          "    if (false) store_offsets<kG>(s_off + (gs % kOffRing) * "

@@ -44,31 +44,30 @@ sys.path.insert(0, ROOT)
 NOQUANT = ("\n          xv = xs[j];",
            "\n          xv = (float)((g * 5 + j * 3 + r * 7) % 15 - 7) * "
            "scale;")
-NOFETCH = ("if (gg < g1 && r < nb && c + k * VEC < O)", "if (false)")
-NOREDUCE = [("if (sp.cluster > 1) {  // all the ranks' loads in flight, "
+NOFETCH = ("if (gg < ge && r < nb && c + k * VEC < O)", "if (false)")
+NOREDUCE = [("if (cs > 1) {  // all the ranks' loads in flight, "
              "then the adds", "if (false) {"),
-            ("  if (sp.cluster == 1) {\n    __syncthreads();\n  } else {\n"
+            ("  if (cs == 1) {\n    __syncthreads();\n  } else {\n"
              "    cluster.sync();\n  }", "  __syncthreads();"),
-            ("  if (sp.cluster > 1) cluster.sync();", "")]
+            ("  if (cs > 1) cluster.sync();", "")]
 #: the table loads with another cache hint: ``ldcs`` evict-first
 #: (``ld.global.cs``), ``l2pf`` a 256-byte L2 prefetch on each 16-byte load
 LDCS = ("v[u][r][k] = __ldg(reinterpret_cast<const Raw*>(",
         "v[u][r][k] = __ldcs(reinterpret_cast<const Raw*>(")
-L2PF = [("template <typename T, int VB, bool COUNTERS, bool PLAN>\n__global__",
+L2PF = [("// A slot's segments ga .. ge - 1",
          "template <typename R>\n__device__ __forceinline__ R ld_hint(const R* "
          "p) { return __ldg(p); }\ntemplate <>\n__device__ __forceinline__ "
          "uint4 ld_hint<uint4>(const uint4* p) {\n  uint4 v;\n  asm(\"ld.global"
          ".nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\" : "
          "\"=r\"(v.x), \"=r\"(v.y), \"=r\"(v.z), \"=r\"(v.w) : \"l\"(p));\n"
-         "  return v;\n}\n\ntemplate <typename T, int VB, bool COUNTERS, bool "
-         "PLAN>\n__global__"),
+         "  return v;\n}\n\n// A slot's segments ga .. ge - 1"),
         ("v[u][r][k] = __ldg(reinterpret_cast<const Raw*>(",
          "v[u][r][k] = ld_hint(reinterpret_cast<const Raw*>(")]
 #: the segment loop kept rolled (``#pragma unroll 1``): one batch of loads
 #: live at a time (a probe of the spills ptxas reported at 255 registers in
 #: the counter and bfloat16 instances: it changed no register count)
-UNROLL1 = [("    for (int g = g0; g < g1; g += BATCH) {\n",
-            "#pragma unroll 1\n    for (int g = g0; g < g1; g += BATCH) {\n")]
+_LOOP = "  for (int g = ga; g < ge; g += BATCH) {\n"
+UNROLL1 = [(_LOOP, "#pragma unroll 1\n" + _LOOP)]
 #: the cluster's sum loop kept rolled: one element's 16 rank loads live at
 #: a time instead of several elements' (the spill's other candidate), and
 #: the block's sum loop with it
@@ -82,8 +81,10 @@ ROLLSUM = [("  for (int e = rank * blockDim.x + threadIdx.x; e < E;\n",
             "    float sum = part[e];")]
 #: kSegBatch segments a load batch in every instance, as before the
 #: counter and bfloat16 instances took 2 (they spill so)
-BATCH4 = [("  constexpr int BATCH = (COUNTERS || sizeof(T) == 2) ? 2 : "
-           "kSegBatch;", "  constexpr int BATCH = kSegBatch;")]
+BATCH4 = [("constexpr int kBatch = (COUNTERS || sizeof(T) == 2) ? 2 : "
+           "kSegBatch;", "constexpr int kBatch = kSegBatch;")]
+
+
 
 
 VARIANTS = {"base": ({}, []),

@@ -50,10 +50,11 @@ SHARED_SRC, DW_SRC = "pcilt_shared_gemv.cu", "pcilt_dwconv1d.cu"
 S_NOFETCH = ("if (row[u][r] >= 0 && c + k * VEC < O)", "if (false)")
 S_NOQUANT = ("o |= pcilt::quantize_code(xs[j], scale, zp, kmax, &sat)\n",
              "o |= ((g * 7 + r * 3 + j) & kmax)\n")
-S_NOREDUCE = [("  cluster.sync();\n  const int E", "  const int E"),
-              ("      if (q < sp.cluster) peer[q] = cluster.map_shared_rank("
-               "part, q)[e];", "      peer[q] = part[e];"),
-              ("  cluster.sync();  // no block leaves while read", "")]
+S_NOREDUCE = [("    cluster.sync();\n    const int E", "    const int E"),
+              ("        if (q < sp.cluster) peer[q] = cluster.map_shared_rank("
+               "part, q)[e];", "        peer[q] = part[e];"),
+              ("    cluster.sync();  // no block leaves, or overwrites its "
+               "sums, while read", "")]
 S_LDCS = ("v[u][r][k] = __ldg(", "v[u][r][k] = __ldcs(")
 #: a block always holds 4 batch rows (at B = 1, 3 of them idle)
 S_ROWS4 = ("s.rows = B >= 3 ? kRows : B;", "s.rows = kRows;")

@@ -22,7 +22,12 @@ particular shapes exercised before:
   ``torch.cuda.synchronize``) ahead of the launch: it would stall the host
   before the kernel is queued.  The rule reads the launch functions' own
   bodies (their nested plain-version closures, which run on the CPU,
-  left out); a read of the result after the launch is the caller's.
+  left out) and, one call deep, the module's helpers they call ahead of
+  the launch: there a ``.item()``, ``.tolist()`` or ``.cpu()`` on a
+  parameter of the helper (a value the launch function handed it) is a
+  finding.  A read of the result after the launch, in the launch function
+  or in a helper it calls then, is the function's contract, not a sync
+  ahead of a launch (``pcilt_crc32`` returns its words so).
 * **LINT004 key-completeness** — at every ``_choose(key, ...)`` and
   ``_tune_plain(key, ...)`` site, every argument of the ``*_candidates``
   lambda roots, through local assignments and ``x.shape`` unpacking, to a
@@ -149,6 +154,24 @@ def _callee(node: ast.Call) -> str:
     return node.func.id if isinstance(node.func, ast.Name) else ""
 
 
+def _receiver_root(node: ast.AST) -> Optional[str]:
+    """The name a receiver chain starts from (``a.b().c[0]`` -> ``a``)."""
+    while isinstance(node, (ast.Attribute, ast.Call, ast.Subscript)):
+        node = node.func if isinstance(node, ast.Call) else node.value
+    return node.id if isinstance(node, ast.Name) else None
+
+
+def _param_syncs(fdef: ast.FunctionDef) -> List[ast.Call]:
+    """The ``.item()``, ``.tolist()`` and ``.cpu()`` calls of a function's
+    own body whose receiver is one of its parameters."""
+    a = fdef.args
+    params = {p.arg for p in (*a.posonlyargs, *a.args, *a.kwonlyargs)}
+    return [n for n in _own_nodes(fdef) if isinstance(n, ast.Call)
+            and isinstance(n.func, ast.Attribute)
+            and n.func.attr in _SYNC_METHODS and not n.args
+            and _receiver_root(n.func.value) in params]
+
+
 def _check_launch_syncs(mod: _Module, root: str) -> List[Finding]:
     out = []
     for name, fdef in mod.functions.items():
@@ -174,6 +197,20 @@ def _check_launch_syncs(mod: _Module, root: str) -> List[Finding]:
                 f"host sync {what!r} ahead of the kernel launch; read "
                 f"device values before the launch path or keep them on the "
                 f"device", symbol=name))
+        # the helpers it calls ahead of its last launch, one call deep
+        helpers = dict.fromkeys(
+            _callee(n) for n in calls
+            if _callee(n) in mod.functions and _callee(n) != name
+            and not _callee(n).startswith("_launch")
+            and (last is None or (n.lineno, n.col_offset) <= last))
+        for helper in helpers:
+            for n in _param_syncs(mod.functions[helper]):
+                out.append(Finding(
+                    "LINT003", "error", rel(mod.path, root), n.lineno,
+                    f"host sync '.{n.func.attr}()' on a parameter of "
+                    f"{helper}(), which {name}() calls ahead of the kernel "
+                    f"launch; pass host values, or keep them on the device",
+                    symbol=f"{name} -> {helper}"))
     return out
 
 

@@ -17,8 +17,11 @@ gives (the source and its launch function named beside each):
 
 * ``gemv`` — the fused GEMV, kernels 1 and 8–11
   (``pcilt_gemv_stacked.cu``): the split design (``gemv_variant``,
-  ``gemv_smem_bytes``) and the direct one;
-* ``shared_gemv`` — the split head GEMV, kernel 3 (``shared_gemv_*``);
+  ``gemv_grid``, ``gemv_slab``, ``gemv_smem_bytes``: the row chunks past
+  65535 on further planes of the grid, a block's segments staged slab by
+  slab) and the direct one;
+* ``shared_gemv`` — the split head GEMV, kernel 3 (``shared_gemv_*``: at
+  most 65535 rows of blocks, each walking its row chunks, and slabs);
 * ``dwconv`` — the tiled fused dwconv, kernel 2 (``dwconv_tiled_grid``),
   and the direct one;
 * ``dwconv_host`` — the staged host-packed dwconv, kernel 12
@@ -36,7 +39,9 @@ mamba2-130m decode at B = 4 and 1, qwen3-0.6b's gate, the head, the [4,
 2048, 1792] dwconv signal, the paper CNN at 1024x768, a layer's and the
 head's CRC); ``full`` adds every registered config's widths at B = 1 to 64
 (the dense kernels of its parameter specs, its head, its SSM conv) and
-the paper CNN at B = 1 to 64.
+the paper CNN at B = 1 to 64, and the split GEMVs at the shapes past the
+grid's rows and a 16-block cluster (``CEILING_GEMV``,
+``CEILING_SHARED``).
 
 Rules:
 
@@ -118,7 +123,9 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "kernels",
 #: None, the most threads and the fewest resident blocks those bounds ask)
 KERNELS: Dict[str, Tuple[str, str, Optional[str], int, int]] = {
     "gemv_split_kernel": ("pcilt_gemv_stacked.cu", "gemv_stacked",
-                          "32 * kWarps", 128, 1),
+                          "32 * kWarps, 1", 128, 1),
+    "gemv_split_slabs_kernel": ("pcilt_gemv_stacked.cu", "gemv_stacked",
+                                "32 * kWarps, 1", 128, 1),
     "gemv_direct_kernel": ("pcilt_gemv_stacked.cu", "gemv_stacked", None,
                            MAX_THREADS, 1),
     "shared_split_kernel": ("pcilt_shared_gemv.cu", "shared_gemv",
@@ -323,6 +330,32 @@ def _gemv_shapes(sweep: str) -> Iterable[dict]:
                         yield from add(B, d_in // g, d_out, es)
 
 
+#: (B, G, O, itemsize) past a design ceiling the split GEMVs once had and
+#: the reference never did: more than 65535 row chunks of 4 rows, a
+#: 16-block cluster's offsets past a block's shared memory (kernel 9) or
+#: past two blocks an SM (kernel 3), and ``chip_smoke.py``'s cases of them
+CEILING_GEMV = ((1056, 300000, 8, 4), (4, 230000, 8, 4), (262144, 64, 8, 4),
+                (262148, 64, 64, 4), (4, 230000, 64, 4),
+                (262148, 64, 64, 2))
+CEILING_SHARED = ((262148, 32, 64, 4), (4, 2000000, 8, 4),
+                  (4, 230000, 64, 4), (262148, 32, 64, 2))
+
+
+def _ceiling(sweep: str, shapes, base) -> Iterable[dict]:
+    yield from base(sweep)
+    if sweep == "full":
+        for B, G, O, es in shapes:
+            yield {"B": B, "G": G, "O": O, "itemsize": es}
+
+
+def _gemv_sweep(sweep: str) -> Iterable[dict]:
+    return _ceiling(sweep, CEILING_GEMV, _gemv_shapes)
+
+
+def _shared_sweep(sweep: str) -> Iterable[dict]:
+    return _ceiling(sweep, CEILING_SHARED, _shared_shapes)
+
+
 def _shared_shapes(sweep: str) -> Iterable[dict]:
     shapes = [(B, G, O, es) for B in (1, 4) for G, O in (_HEAD, _GATE)
               for es in (4, 2)]
@@ -439,19 +472,45 @@ def _direct_launch(kernel, B, G, O):
                   B * G * 4)
 
 
-def _split_refused(variant, smem_bytes):
+def _split_refused(s, design):
     """The guard of ``_launch_gemv`` / ``_shared_gemv``: the split design
-    needs its shared memory and at most 65535 row chunks, the direct one
-    the ``B * G`` offsets in one block's shared memory."""
-    def refused(s, design):
-        ops = _ops()
-        B, G, O, es = s["B"], s["G"], s["O"], s["itemsize"]
-        if design == "direct":
-            return B * G * 4 > ops.SMEM_LIMIT
-        sp = getattr(ops, variant)(B, G, O, es)
-        return getattr(ops, smem_bytes)(sp, G) > ops.SMEM_LIMIT \
-            or sp.chunks > MAX_GRID_YZ
-    return refused
+    serves any shape; the direct one needs the ``B * G`` offsets in one
+    block's shared memory."""
+    return design == "direct" and \
+        s["B"] * s["G"] * 4 > _ops().SMEM_LIMIT
+
+
+def _row_walk(chunks: int, rows: int, B: int) -> List[str]:
+    """The rows a split grid covers: ``min(chunks, MAX_GRID_YZ)`` rows of
+    blocks, block row ``y`` walking chunks ``y, y + gridDim.y, ...`` of
+    ``rows`` rows each."""
+    gy = min(chunks, MAX_GRID_YZ)
+    return _intervals([(c * rows, min(B, (c + 1) * rows))
+                       for y in range(gy) for c in range(y, chunks, gy)],
+                      0, B, "rows")
+
+
+def _row_planes(sp, rows: int, B: int) -> List[str]:
+    """The rows the fused GEMV's split grid covers: block ``(x, y, z)``
+    sums row chunk ``z * MAX_GRID_YZ + y`` (``gemv_grid``), a chunk past
+    the last one adding nothing."""
+    _, gy, gz = _ops().gemv_grid(sp)
+    chunks = [z * MAX_GRID_YZ + y for z in range(gz) for y in range(gy)]
+    return _intervals([(c * rows, min(B, (c + 1) * rows)) for c in chunks
+                       if c < sp.chunks], 0, B, "rows")
+
+
+def _slabs(ranks, slab: int) -> List[str]:
+    """Each rank's staged segments ``[r0, r1)`` as the split kernels walk
+    them, slabs of ``slab`` from ``r0``: they must cover the rank's
+    segments once, each slab within ``slab``."""
+    if slab < 1:
+        return [f"segments: a slab of {slab} segments"]
+    out = []
+    for r0, r1 in ranks:
+        parts = [(t, min(t + slab, r1)) for t in range(r0, r1, slab)]
+        out += _intervals(parts, r0, r1, "segments") if r1 > r0 else []
+    return out
 
 
 def _gemv_launches(s, design):
@@ -460,7 +519,9 @@ def _gemv_launches(s, design):
     if design == "direct":
         return [_direct_launch("gemv_direct_kernel", B, G, O)]
     sp = ops.gemv_variant(B, G, O, es)  # launch_split_vb
-    return [Launch("gemv_split_kernel", (sp.tiles * sp.cluster, sp.chunks, 1),
+    slabs = ops.gemv_slab(sp, G) < _cdiv(G, sp.cluster)  # launch_split_vb
+    return [Launch("gemv_split_slabs_kernel" if slabs else
+                   "gemv_split_kernel", ops.gemv_grid(sp),
                    (32 * sp.warps, 1, 1), ops.gemv_smem_bytes(sp, G),
                    sp.cluster)]
 
@@ -487,8 +548,7 @@ def _gemv_cover(s, design):
     sp = ops.gemv_variant(B, G, O, es)
     out = _intervals([(t * sp.tile, min(O, (t + 1) * sp.tile))
                       for t in range(sp.tiles)], 0, O, "columns")
-    out += _intervals([(c * ops.GEMV_ROWS, min(B, (c + 1) * ops.GEMV_ROWS))
-                       for c in range(sp.chunks)], 0, B, "rows")
+    out += _row_planes(sp, ops.GEMV_ROWS, B)
     if sp.lanes * sp.groups > 32:
         out.append(f"{sp.groups} slots of {sp.lanes} lanes exceed a warp")
     slots, ranks, SB = _gemv_slices(sp, G)
@@ -498,7 +558,7 @@ def _gemv_cover(s, design):
         if a < r0 or b > r1:
             out.append(f"segments: slot {i}'s [{a}, {b}) lies outside its "
                        f"block's staged [{r0}, {r1})")
-    return out
+    return out + _slabs(ranks, ops.gemv_slab(sp, G))
 
 
 def _gemv_config(lib):
@@ -514,8 +574,9 @@ def _gemv_plan(lib, s):
     ops = _ops()
     B, G, O, es = s["B"], s["G"], s["O"], s["itemsize"]
     sp = ops.gemv_variant(B, G, O, es)
-    return _compare(_ints(lib, "pcilt_gemv_split_plan", 8, B, G, O, es),
-                    (*sp, ops.gemv_smem_bytes(sp, G)),
+    return _compare(_ints(lib, "pcilt_gemv_split_plan", 10, B, G, O, es),
+                    (*sp, ops.gemv_smem_bytes(sp, G), ops.gemv_slab(sp, G),
+                     ops.gemv_planes(sp)),
                     f"the split of B {B}, G {G}, O {O}, itemsize {es}")
 
 
@@ -536,7 +597,7 @@ def _shared_launches(s, design):
         return [_direct_launch("shared_gemv_kernel", B, G, O)]
     sp = ops.shared_gemv_variant(B, G, O, es)  # launch_split_vb
     return [Launch("shared_split_kernel",
-                   (sp.tiles * sp.cluster, sp.chunks, 1),
+                   (sp.tiles * sp.cluster, min(sp.chunks, MAX_GRID_YZ), 1),
                    (32 * sp.warps, 1, 1), ops.shared_gemv_smem_bytes(sp, G),
                    sp.cluster)]
 
@@ -550,11 +611,10 @@ def _shared_cover(s, design):
     sp = ops.shared_gemv_variant(B, G, O, es)
     out = _intervals([(t * sp.tile, min(O, (t + 1) * sp.tile))
                       for t in range(sp.tiles)], 0, O, "columns")
-    out += _intervals([(c * sp.rows, min(B, (c + 1) * sp.rows))
-                       for c in range(sp.chunks)], 0, B, "rows")
-    out += _intervals([x for x in ops.shared_gemv_slices(sp, G)
-                       if x[1] > x[0]], 0, G, "segments")
-    return out
+    out += _row_walk(sp.chunks, sp.rows, B)
+    slices = ops.shared_gemv_slices(sp, G)
+    out += _intervals([x for x in slices if x[1] > x[0]], 0, G, "segments")
+    return out + _slabs(slices, ops.shared_gemv_slab(sp, G))
 
 
 def _shared_config(lib):
@@ -573,8 +633,8 @@ def _shared_plan(lib, s):
     B, G, O, es = s["B"], s["G"], s["O"], s["itemsize"]
     sp = ops.shared_gemv_variant(B, G, O, es)
     return _compare(
-        _ints(lib, "pcilt_shared_gemv_split_plan", 7, B, G, O, es),
-        (*sp, ops.shared_gemv_smem_bytes(sp, G)),
+        _ints(lib, "pcilt_shared_gemv_split_plan", 8, B, G, O, es),
+        (*sp, ops.shared_gemv_smem_bytes(sp, G), ops.shared_gemv_slab(sp, G)),
         f"the split of B {B}, G {G}, O {O}, itemsize {es}")
 
 
@@ -907,17 +967,14 @@ def FAMILIES() -> List[Family]:
     """The design models, in the kernel table's order."""
     return [
         Family("gemv", "1, 8-11", "pcilt_gemv_stacked.cu", "gemv_stacked",
-               _gemv_shapes, _gemv_designs, _gemv_launches, _gemv_cover,
-               _gemv_config, _gemv_plan,
-               _split_refused("gemv_variant", "gemv_smem_bytes")),
+               _gemv_sweep, _gemv_designs, _gemv_launches, _gemv_cover,
+               _gemv_config, _gemv_plan, _split_refused),
         Family("dwconv", "2", "pcilt_dwconv1d.cu", "dwconv1d",
                _dwconv_shapes, _dwconv_designs, _dwconv_launches,
                _dwconv_cover, _dwconv_config, _dwconv_plan),
         Family("shared_gemv", "3", "pcilt_shared_gemv.cu", "shared_gemv",
-               _shared_shapes, _shared_designs, _shared_launches,
-               _shared_cover, _shared_config, _shared_plan,
-               _split_refused("shared_gemv_variant",
-                              "shared_gemv_smem_bytes")),
+               _shared_sweep, _shared_designs, _shared_launches,
+               _shared_cover, _shared_config, _shared_plan, _split_refused),
         Family("conv", "4, 5", "pcilt_conv2d.cu", "conv2d", _conv_shapes,
                _conv_designs, _conv_launches, _conv_cover, _conv_config,
                _no_plan),

@@ -37,6 +37,22 @@ __device__ __forceinline__ int quantize_code(float x, float scale, int zp,
   return (int)q;
 }
 
+// threadIdx.x and blockIdx.x read anew (an asm volatile, which the compiler
+// neither merges with an earlier read nor hoists): a value derived from them
+// for a kernel's epilogue is then recomputed there, not kept live from the
+// prologue across the kernel's main loop, where ptxas spilled such values to
+// local memory (a store at the start, a load at the end).
+__device__ __forceinline__ unsigned fresh_tid_x() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ unsigned fresh_ctaid_x() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
+}
+
 // Saturation counters of one thread -> the call's global counters:
 // stats[0] += count (int32), stats[1] = max(stats[1], ratio) on the int bits
 // of the non-negative float ratio (ordered like the floats themselves).

@@ -62,6 +62,12 @@
 //  6. Each thread packs the offsets of 2 pixels per segment from the code
 //     image; its loads are issued a whole segment before they are packed
 //     (two register sets), so no pack waits on a load of its own segment.
+//     The landed set is packed before the segment's fetch, so only the set
+//     in flight is live beside the 64 accumulators; a set's live positions
+//     (a prefix of the segment's: the rest lie past group or n) are one
+//     mask word over the packed offset; and the store's pixel and column
+//     are recomputed after the loop, not kept from the prologue: 128
+//     registers and no spill in any instance.
 //  7. The G loop stays in the block, in ascending g: no atomics, one
 //     summation order, bit-identical results run to run.
 //  8. Block b runs pixel tile b % n_ptiles of O tile b / n_ptiles: the
@@ -249,70 +255,87 @@ struct PatchWalk {
 
 // x [B, S = Hp*Wp, C] float32 -> codes [B, Cs, S] uint8 of channels
 // c0 .. c0 + Cs - 1, each element quantized once; a 32 x 32 tile through
-// shared memory keeps both the read and the write coalesced.
+// shared memory keeps both the read and the write coalesced.  A block
+// walks images blockIdx.z, blockIdx.z + gridDim.z, ... and plane tiles
+// blockIdx.y, blockIdx.y + gridDim.y, ... (each at most 65535), so any
+// batch and any channel count are served.
 __global__ void conv2d_codes_kernel(const float* __restrict__ x,
-                                    uint8_t* __restrict__ codes, long long S,
-                                    int C, int c0, int Cs, int kmax, int zp,
-                                    float scale) {
+                                    uint8_t* __restrict__ codes, int B,
+                                    long long S, int C, int c0, int Cs,
+                                    int kmax, int zp, float scale) {
   using staged::kCodeTile;
   __shared__ uint8_t tile[kCodeTile][kCodeTile + 1];
   const long long s0 = (long long)blockIdx.x * kCodeTile;
-  const long long b = blockIdx.z;
-  const int t0 = blockIdx.y * kCodeTile;  // the tile's first plane
-  for (int r = threadIdx.y; r < kCodeTile; r += blockDim.y) {
-    const long long s = s0 + r;
-    const int t = t0 + threadIdx.x;
-    if (s < S && t < Cs) {
-      bool sat;
-      tile[r][threadIdx.x] = (uint8_t)pcilt::quantize_code(
-          x[(b * S + s) * C + c0 + t], scale, zp, kmax, &sat);
+  for (long long b = blockIdx.z; b < B; b += gridDim.z) {
+    for (int t0 = blockIdx.y * kCodeTile; t0 < Cs;
+         t0 += gridDim.y * kCodeTile) {  // the tile's first plane
+      __syncthreads();  // the last tile's reads are done
+      for (int r = threadIdx.y; r < kCodeTile; r += blockDim.y) {
+        const long long s = s0 + r;
+        const int t = t0 + threadIdx.x;
+        if (s < S && t < Cs) {
+          bool sat;
+          tile[r][threadIdx.x] = (uint8_t)pcilt::quantize_code(
+              x[(b * S + s) * C + c0 + t], scale, zp, kmax, &sat);
+        }
+      }
+      __syncthreads();
+      for (int r = threadIdx.y; r < kCodeTile; r += blockDim.y) {
+        const int t = t0 + r;
+        const long long s = s0 + threadIdx.x;
+        if (s < S && t < Cs)
+          codes[(b * Cs + t) * S + s] = tile[threadIdx.x][r];
+      }
     }
-  }
-  __syncthreads();
-  for (int r = threadIdx.y; r < kCodeTile; r += blockDim.y) {
-    const int t = t0 + r;
-    const long long s = s0 + threadIdx.x;
-    if (s < S && t < Cs) codes[(b * Cs + t) * S + s] = tile[threadIdx.x][r];
   }
 }
 
 // The raw codes of the next segment's (up to kG) patch positions for this
-// thread's kStagePix pixels, and a mask per position (0: past group or n,
-// the end of the shard's live positions: code 0); advances the walk to the
-// segment after.  Every load is in bounds: a position that adds nothing
-// reads the pixel's own code of the first plane.
+// thread's kStagePix pixels, and the mask of their live positions over the
+// packed offset (a position past group or n, the end of the shard's live
+// positions, takes code 0; the live ones are a prefix, since a position
+// past n is followed by more); advances the walk to the segment after.
+// Every load is in bounds: a position that adds nothing reads the pixel's
+// own code of the first plane.
 template <int kG>
 __device__ __forceinline__ void load_codes(
     const uint8_t* __restrict__ codes,
     const long long (&pbase)[staged::kStagePix], staged::PatchWalk& walk,
-    int group, int n, int C, int kw, long long HWp, int Wp,
-    unsigned (&raw)[staged::kStagePix][kG], unsigned (&mask)[kG]) {
+    int group, int n, int C, int kw, long long HWp, int Wp, int bits,
+    unsigned (&raw)[staged::kStagePix][kG], unsigned& mask) {
+  int live = 0;
 #pragma unroll
   for (int j = 0; j < kG; ++j) {
-    const bool live = j < group && walk.pos < n;
-    const long long delta = live ? walk.delta : 0;
-    mask[j] = live ? 0xffu : 0u;
+    const bool on = j < group && walk.pos < n;
+    const long long delta = on ? walk.delta : 0;
+    live += on ? 1 : 0;
     if (j < group) walk.step(C, kw, HWp, Wp);
 #pragma unroll
     for (int k = 0; k < staged::kStagePix; ++k)
       raw[k][j] = codes[pbase[k] + delta];
   }
+  mask = (1u << (live * bits)) - 1u;  // live * bits <= 8
 }
 
 // Pack the offsets into dst (a byte a pixel) and mark their rows in used.
+// A code is below 2**bits, so position j's bits lie at [j*bits, (j+1)*bits)
+// and the mask keeps exactly the live positions' (their sum is the
+// reference's pack with code 0 past the live ones).
 template <int kG>
 __device__ __forceinline__ void store_offsets(
     uint8_t* dst, uint8_t* used, const unsigned (&raw)[staged::kStagePix][kG],
-    const unsigned (&mask)[kG], int bits) {
+    unsigned mask, int bits) {
 #pragma unroll
   for (int k = 0; k < staged::kStagePix; ++k) {
     unsigned off = 0;
 #pragma unroll
-    for (int j = 0; j < kG; ++j) off |= (raw[k][j] & mask[j]) << (j * bits);
+    for (int j = 0; j < kG; ++j) off |= raw[k][j] << (j * bits);
+    off &= mask;
     dst[threadIdx.x + k * staged::kThreads] = (uint8_t)off;
     used[off] = 1;
   }
 }
+
 
 template <typename T, bool kShared, int kG>
 __global__ void __launch_bounds__(staged::kThreads, 1)
@@ -374,10 +397,10 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
   };
 
   // Pipeline, at segment g: the used rows of segment g + kAhead's slice are
-  // copied; segment g + kAhead + 2's codes are loaded; segment g is
-  // fetched; segment g + kAhead + 1's codes (loaded a segment earlier, into
-  // the other register set) are packed and their rows marked.  A row mask
-  // is cleared a segment before it is marked.
+  // copied; segment g + kAhead + 2's codes are loaded; segment g + kAhead +
+  // 1's codes (loaded a segment earlier, into the other register set) are
+  // packed and their rows marked; segment g is fetched.  A row mask is
+  // cleared a segment before it is marked.
   for (int i = tid; i < kOffRing * kMaxV / 4; i += kThreads)
     reinterpret_cast<unsigned*>(s_used)[i] = 0u;
   __syncthreads();
@@ -391,14 +414,16 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
     walk.delta = (long long)(walk.c - c0) * HWp + (long long)(tap / kw) * Wp +
                  walk.tj;
   }
-  unsigned raw0[kStagePix][kG], mask0[kG], raw1[kStagePix][kG], mask1[kG];
+  unsigned raw0[kStagePix][kG], mask0, raw1[kStagePix][kG], mask1;
 #pragma unroll 1
   for (int g = 0; g <= kAhead; ++g) {
-    load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, raw0, mask0);
+    load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, bits, raw0,
+                   mask0);
     store_offsets<kG>(s_off + (g % kOffRing) * kPixTile,
                       s_used + (g % kOffRing) * kMaxV, raw0, mask0, bits);
   }
-  load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, raw1, mask1);
+  load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, bits, raw1,
+                 mask1);
   __syncthreads();
 #pragma unroll 1
   for (int g = 0; g < kAhead; ++g) issue(g);
@@ -416,21 +441,22 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
                   slot_offset(g % kStages, (int)sizeof(T)) + lane_byte);
   };
   auto segment = [&](int g, unsigned (&raw_in)[kStagePix][kG],
-                     unsigned (&mask_in)[kG], unsigned (&raw_out)[kStagePix][kG],
-                     unsigned (&mask_out)[kG]) {
+                     unsigned& mask_in, unsigned (&raw_out)[kStagePix][kG],
+                     unsigned mask_out) {
     cp_async_wait<kAhead - 1>();  // this thread's copies of slice g landed
     __syncthreads();  // everyone's; slot (g - 1) % kStages is free again
     issue(g + kAhead);
-    load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, raw_in,
-                   mask_in);
+    load_codes<kG>(codes, pbase, walk, group, n, C, kw, HWp, Wp, bits,
+                   raw_in, mask_in);
     if (tid < kMaxV / 4)
       reinterpret_cast<unsigned*>(
           s_used + ((g + kAhead + 2) % kOffRing) * kMaxV)[tid] = 0u;
-    if (table_of(g) >= 0) fetch(g);
+    // the landed set first: its registers are free for the fetch
     const int gs = g + kAhead + 1;
     store_offsets<kG>(s_off + (gs % kOffRing) * kPixTile,
                       s_used + (gs % kOffRing) * kMaxV, raw_out, mask_out,
                       bits);
+    if (table_of(g) >= 0) fetch(g);
   };
 #pragma unroll 1
   for (int g = 0; g < G; g += 2) {
@@ -438,12 +464,17 @@ __global__ void __launch_bounds__(staged::kThreads, 1)
     if (g + 1 < G) segment(g + 1, raw1, mask1, raw0, mask0);
   }
 
-  if (lane >= ncols) return;
-  const long long prow = pix0 + warp * kPixPerThread;
+  // the store's pixels and column, from the indices read anew: kept live
+  // from the prologue, ptxas spilled them across the segment loop
+  const unsigned bx = pcilt::fresh_ctaid_x(), tx = pcilt::fresh_tid_x();
+  const int col = (int)(bx / n_ptiles) * kColTile + (int)(tx & 31);
+  if (col >= O) return;
+  const long long prow = (long long)(bx % n_ptiles) * kPixTile +
+                         (int)(tx >> 5) * kPixPerThread;
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
     const long long p = prow + k;
-    if (p < P) out[p * O + o0 + lane] = pcilt::from_f32<T>(acc[k]);
+    if (p < P) out[p * O + col] = pcilt::from_f32<T>(acc[k]);
   }
 }
 
@@ -510,14 +541,16 @@ int launch_codes(const float* x, uint8_t* codes, int B, int Hp, int Wp,
                  int C, int c0, int Cs, int bits, int zp, float scale,
                  cudaStream_t stream) {
   using staged::kCodeTile;
-  if (bits < 1 || bits > 8 || B > 65535 || c0 < 0 || Cs < 1 ||
-      c0 + Cs > C || Cs > 65535 * kCodeTile)
+  constexpr int kMaxGridYZ = 65535;  // the card's most; the kernel walks on
+  if (bits < 1 || bits > 8 || B < 1 || c0 < 0 || Cs < 1 || c0 + Cs > C)
     return (int)cudaErrorInvalidValue;
   const long long S = (long long)Hp * Wp;
+  const int ty = (Cs + kCodeTile - 1) / kCodeTile;
   const dim3 grid((unsigned)((S + kCodeTile - 1) / kCodeTile),
-                  (Cs + kCodeTile - 1) / kCodeTile, B);
+                  ty < kMaxGridYZ ? ty : kMaxGridYZ,
+                  B < kMaxGridYZ ? B : kMaxGridYZ);
   conv2d_codes_kernel<<<grid, dim3(kCodeTile, 8), 0, stream>>>(
-      x, codes, S, C, c0, Cs, (1 << bits) - 1, zp, scale);
+      x, codes, B, S, C, c0, Cs, (1 << bits) - 1, zp, scale);
   return (int)cudaGetLastError();
 }
 

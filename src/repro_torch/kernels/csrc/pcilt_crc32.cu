@@ -465,6 +465,8 @@ extern "C" int pcilt_crc32(const void* table, int n_streams,
                            void* scratch, const void* ops, void* out,
                            int variant, int* launches, void* stream) {
   *launches = 0;
+  // the combine's grid holds a stream a row (gridDim.y): no caller nears
+  // 65535 streams (a layer's record has 7)
   if (n_streams < 1 || n_streams > 65535 || nchunks < 1 || levels < 0 ||
       5 + levels > kLevels || (1LL << levels) * n_streams < nchunks)
     return (int)cudaErrorInvalidValue;

@@ -51,10 +51,14 @@
 //     segments: 384 blocks at wz, 32 at wB/wC, 16 at wdt (float32, B = 4).
 //     Then the cluster doubles on while a block's staged offsets overflow
 //     its shared memory (group 1 at d_ff 14336 or 19200 and B >= 16: 2
-//     blocks a cluster), so any G up to ~224,000 segments fits.
-//     The split is a function of (B, G, O, itemsize) only (split_for,
-//     mirrored by kernels.ops.gemv_variant), never of the plan, so the
-//     plan launch sums in the order of the unstacked one.
+//     blocks a cluster).  Past a 16-block cluster (~224,000 segments) a
+//     block stages its segments in consecutive slabs that fit (`slab`
+//     segments each; a kernel of its own, gemv_split_slabs_kernel) and
+//     sums each slab into the same registers, so the order of the sum is
+//     the one-pass order.  The split is a function of
+//     (B, G, O, itemsize) only (split_for, mirrored by kernels.ops.
+//     gemv_variant and gemv_slab), never of the plan, so the plan launch
+//     sums in the order of the unstacked one.
 //  2. A lane owns 16 bytes of neighbouring columns (4 f32, 8 bf16) and
 //     loads them with the widest of 16/8/4 bytes (2 for bf16) that the
 //     table's address, O * itemsize and seg_stride * itemsize allow (a
@@ -65,6 +69,8 @@
 //  3. A block quantizes and packs only the kRows x (its segments) offsets
 //     it fetches, into shared memory.  The counter variant counts only in
 //     the blocks of output tile 0, so each activation is counted once.
+//     Past kMaxGridRows row chunks (262,140 rows) the chunks go on in
+//     further planes of the grid (gridDim.z), so any B is served.
 //  4. Deterministic reduction: each slot's partial sums go to shared
 //     memory and are summed in ascending slot order; then the cluster's
 //     block sums are read through distributed shared memory and summed in
@@ -106,6 +112,7 @@ constexpr int kMaxLanes = 16;       // lanes a slot, at most
 constexpr int kLaneBytes = 16;      // columns a lane owns, in bytes
 // the dynamic shared memory a block may use (kernels.ops.SMEM_LIMIT)
 constexpr long long kSmemLimit = 227 * 1024;
+constexpr int kMaxGridRows = 65535;  // gridDim.y, the card's most
 static_assert((kMaxCluster & (kMaxCluster - 1)) == 0 && kMaxCluster <= 16,
               "cluster sizes are powers of two up to 16");
 static_assert(kRows == 4, "a segment's offsets are one int4");
@@ -120,6 +127,7 @@ struct Split {
   int tile;     // columns an output tile
   int tiles;    // output tiles
   int chunks;   // row chunks of kRows
+  int slab;     // segments a block stages at once
 };
 
 __host__ __device__ inline Split split_for(int B, int G, int O,
@@ -148,63 +156,53 @@ __host__ __device__ inline Split split_for(int B, int G, int O,
     cs *= 2;
   s.cluster = cs;
   s.warps = w;
+  // a block's ceil(G / cluster) segments in one slab, or in as many slabs
+  // of the most segments that fit beside the partial sums
+  const long long seg = (G + cs - 1) / cs;
+  const long long room =
+      (kSmemLimit - (long long)w * s.groups * kRows * s.tile * 4) /
+      (kRows * 4);
+  s.slab = (int)(seg < room ? seg : room);
   return s;
 }
 
+// Planes of the grid (gridDim.z): its rows hold kMaxGridRows row chunks.
+__host__ __device__ inline int split_planes(const Split& s) {
+  return (s.chunks + kMaxGridRows - 1) / kMaxGridRows;
+}
+
 // Dynamic shared memory of a block: the slots' partial sums
-// [warps*groups][kRows][tile] float32, then the offsets of the block's
-// segments [ceil(G / cluster)][kRows] int32.
-__host__ __device__ inline size_t split_smem_bytes(const Split& s, int G) {
-  const size_t seg = (G + s.cluster - 1) / s.cluster;
+// [warps*groups][kRows][tile] float32, then the offsets of one slab of the
+// block's segments [slab][kRows] int32.
+__host__ __device__ inline size_t split_smem_bytes(const Split& s) {
   return (size_t)s.warps * s.groups * kRows * s.tile * sizeof(float) +
-         seg * kRows * sizeof(int);
+         (size_t)s.slab * kRows * sizeof(int);
 }
 
 using pcilt::add_raw;
 using pcilt::RawOf;
 
-template <typename T, int VB, bool COUNTERS, bool PLAN>
-__global__ void __launch_bounds__(32 * kWarps)
-    gemv_split_kernel(const float* __restrict__ x, const T* __restrict__ tab,
-                      T* __restrict__ out, int* __restrict__ stats,
-                      const int* __restrict__ plan, int B, int G, int O,
-                      int n, int pw, int bits, int zp, float scale,
-                      long long seg_stride, Split sp) {
-  constexpr int NV = kLaneBytes / sizeof(T);  // columns a lane owns
-  constexpr int VEC = VB / sizeof(T);         // columns a load
-  constexpr int NL = NV / VEC;                // loads a row
-  // segments a load batch: 2 in the counter and bfloat16 instances, which
-  // spilled at 255 registers with kSegBatch (scripts/gemv_split_sweep.py
-  // batch4 rebuilds them so; no slower at 2, PERF.md)
-  constexpr int BATCH = (COUNTERS || sizeof(T) == 2) ? 2 : kSegBatch;
-  using Raw = typename RawOf<VB>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int SB = sp.warps * sp.groups;  // slots a block
-  const int E = kRows * sp.tile;        // partial sums a slot
-  float* part = reinterpret_cast<float*>(smem);
-  int* s_off = reinterpret_cast<int*>(part + (size_t)SB * E);
+// The split kernels' stages, shared by the one-pass kernel and the slab
+// kernel.  Rows b0 .. b0 + nb - 1 (nb <= 0: a row chunk past the last one,
+// which adds nothing); segments t0 .. t0 + ns - 1 staged.
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int tile_i = blockIdx.x / sp.cluster;
-  const int b0 = blockIdx.y * kRows;
-  const int nb = min(kRows, B - b0);
-  const int S = sp.cluster * SB;
-  const int gb0 = (int)((long long)rank * G / sp.cluster);
-  const int nseg = (int)((long long)(rank + 1) * G / sp.cluster) - gb0;
-
-  // -- quantize and pack the block's kRows x nseg offsets (x coalesced
-  //    along g), stored [g - gb0][row]
+// Quantize and pack the kRows x ns offsets (x coalesced along g) into
+// s_off[g - t0][row]; the counters of their activations committed (every
+// thread of the block calls it).
+template <bool COUNTERS, bool PLAN>
+__device__ __forceinline__ void pack_offsets(
+    const float* __restrict__ x, const int* __restrict__ plan, int* s_off,
+    int* stats, int b0, int nb, int t0, int ns, int n, int pw, int bits,
+    int zp, float scale, bool count_here) {
   const int kmax = (1 << bits) - 1;
-  const bool count_here = COUNTERS && tile_i == 0;
   int cnt = 0;
   float ratio = 0.f;
-  for (int i = threadIdx.x; i < kRows * nseg; i += blockDim.x) {
-    const int r = i / nseg;
-    const int gl = i - r * nseg;
+  for (int i = threadIdx.x; i < kRows * ns; i += blockDim.x) {
+    const int r = i / ns;
+    const int gl = i - r * ns;
     int o = 0;
     if (r < nb) {
-      const int g = gb0 + gl;
+      const int g = t0 + gl;
       const float* xs = x + (size_t)(b0 + r) * n + (PLAN ? 0 : (size_t)g * pw);
       for (int j = 0; j < pw; ++j) {
         float xv;
@@ -216,7 +214,7 @@ __global__ void __launch_bounds__(32 * kWarps)
         }
         bool sat;
         const int code = pcilt::quantize_code(xv, scale, zp, kmax, &sat);
-        if (count_here) {
+        if (COUNTERS && count_here) {
           cnt += sat ? 1 : 0;
           ratio = fmaxf(ratio, __fdiv_rn(fabsf(xv), scale));
         }
@@ -225,7 +223,141 @@ __global__ void __launch_bounds__(32 * kWarps)
     }
     s_off[gl * kRows + r] = o;
   }
-  if (count_here) pcilt::commit_stats(cnt, ratio, stats);
+  if (COUNTERS && count_here) pcilt::commit_stats(cnt, ratio, stats);
+}
+
+// A slot's segments ga .. ge - 1 (staged from t0) added to its sums, in
+// ascending g: each batch's loads in flight before its adds.
+template <typename T, int VB, int BATCH>
+__device__ __forceinline__ void add_segments(
+    float (&acc)[kRows][kLaneBytes / sizeof(T)], const T* tcol,
+    const int4* offs, int t0, int ga, int ge, int nb, int c, int O,
+    long long seg_stride) {
+  constexpr int VEC = VB / sizeof(T);              // columns a load
+  constexpr int NL = kLaneBytes / sizeof(T) / VEC;  // loads a row
+  using Raw = typename RawOf<VB>::type;
+  for (int g = ga; g < ge; g += BATCH) {
+    Raw v[BATCH][kRows][NL];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int gg = g + u;
+      const int4 o4 = gg < ge ? offs[gg - t0] : make_int4(0, 0, 0, 0);
+      const int o[kRows] = {o4.x, o4.y, o4.z, o4.w};
+      const T* seg = tcol + (long long)gg * seg_stride;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int k = 0; k < NL; ++k) {
+          v[u][r][k] = Raw{};
+          if (gg < ge && r < nb && c + k * VEC < O)
+            v[u][r][k] = __ldg(reinterpret_cast<const Raw*>(
+                seg + (long long)o[r] * O + k * VEC));
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int k = 0; k < NL; ++k)
+          if (g + u < ge && r < nb)
+            add_raw<T, VB>(&acc[r][k * VEC], v[u][r][k]);
+  }
+}
+
+// A slot's sums into its place of the block's partial sums part.
+template <typename T>
+__device__ __forceinline__ void put_partials(
+    const float (&acc)[kRows][kLaneBytes / sizeof(T)], float* p, int tile) {
+  constexpr int NV = kLaneBytes / sizeof(T);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int k = 0; k < NV; k += 4)
+      *reinterpret_cast<float4*>(p + r * tile + k) =
+          make_float4(acc[r][k], acc[r][k + 1], acc[r][k + 2], acc[r][k + 3]);
+}
+
+// The block's partial sums added in ascending slot order, then the
+// cluster's in ascending rank order, each output element by one thread of
+// one block, and stored (every thread of the cluster calls it, after the
+// block's partial sums are written and a block barrier).
+template <typename T>
+__device__ __forceinline__ void reduce_store(cg::cluster_group& cluster,
+                                             float* part, T* out, int rank,
+                                             int tile_i, int b0, int nb,
+                                             int O, int SB, int tile,
+                                             int cs) {
+  const int E = kRows * tile;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    float sum = part[e];
+    for (int sb = 1; sb < SB; ++sb) sum += part[(size_t)sb * E + e];
+    part[e] = sum;
+  }
+  if (cs == 1) {
+    __syncthreads();
+  } else {
+    cluster.sync();
+  }
+  for (int e = rank * blockDim.x + threadIdx.x; e < E;
+       e += cs * blockDim.x) {
+    float sum = part[e];
+    if (cs > 1) {  // all the ranks' loads in flight, then the adds
+      float peer[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < cs) peer[q] = cluster.map_shared_rank(part, q)[e];
+      sum = peer[0];
+#pragma unroll
+      for (int q = 1; q < kMaxCluster; ++q)
+        if (q < cs) sum += peer[q];
+    }
+    const int r = e / tile;
+    const int col = tile_i * tile + (e - r * tile);
+    if (r < nb && col < O)
+      out[(size_t)(b0 + r) * O + col] = pcilt::from_f32<T>(sum);
+  }
+  if (cs > 1) cluster.sync();  // no block leaves while read
+}
+
+// segments a load batch: 2 in the counter and bfloat16 instances, which
+// spilled at 255 registers with kSegBatch (scripts/gemv_split_sweep.py
+// batch4 rebuilds them so; no slower at 2, PERF.md)
+template <typename T, bool COUNTERS>
+constexpr int kBatch = (COUNTERS || sizeof(T) == 2) ? 2 : kSegBatch;
+
+// The one-pass kernel: a block's ceil(G / cluster) offsets fit its shared
+// memory (every shape up to ~224,000 segments).  Row chunk blockIdx.y of
+// grid plane blockIdx.z (past the grid's rows the chunks go on in further
+// planes).  One resident block an SM is all the split asks (its grid is ~2
+// blocks an SM); without the 1, ptxas capped some instances of both
+// kernels at 64-128 registers and spilled, and the narrow decode shapes
+// ran up to 1 us slower (scripts/gemv_split_sweep.py, PERF.md).
+template <typename T, int VB, bool COUNTERS, bool PLAN>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+    gemv_split_kernel(const float* __restrict__ x, const T* __restrict__ tab,
+                      T* __restrict__ out, int* __restrict__ stats,
+                      const int* __restrict__ plan, int B, int G, int O,
+                      int n, int pw, int bits, int zp, float scale,
+                      long long seg_stride, Split sp) {
+  constexpr int NV = kLaneBytes / sizeof(T);  // columns a lane owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int SB = sp.warps * sp.groups;  // slots a block
+  const int E = kRows * sp.tile;        // partial sums a slot
+  float* part = reinterpret_cast<float*>(smem);
+  int* s_off = reinterpret_cast<int*>(part + (size_t)SB * E);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tile_i = blockIdx.x / sp.cluster;
+  const int b0 = (blockIdx.z * kMaxGridRows + blockIdx.y) * kRows;
+  const int nb = min(kRows, B - b0);
+  const int S = sp.cluster * SB;
+  const int gb0 = (int)((long long)rank * G / sp.cluster);
+  const int nseg = (int)((long long)(rank + 1) * G / sp.cluster) - gb0;
+
+  pack_offsets<COUNTERS, PLAN>(x, plan, s_off, stats, b0, nb, gb0, nseg, n,
+                               pw, bits, zp, scale, tile_i == 0);
   __syncthreads();
 
   // -- fetch: slot sb of this block sums its slice in ascending g
@@ -239,95 +371,87 @@ __global__ void __launch_bounds__(32 * kWarps)
     const int g0 = (int)((long long)s * G / S);
     const int g1 = (int)((long long)(s + 1) * G / S);
     const int c = tile_i * sp.tile + sl * NV;
-    const T* tcol = tab + c;
-    const int4* offs = reinterpret_cast<const int4*>(s_off);
     float acc[kRows][NV];
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
       for (int k = 0; k < NV; ++k) acc[r][k] = 0.f;
-    for (int g = g0; g < g1; g += BATCH) {
-      Raw v[BATCH][kRows][NL];
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int gg = g + u;
-        const int4 o4 = gg < g1 ? offs[gg - gb0] : make_int4(0, 0, 0, 0);
-        const int o[kRows] = {o4.x, o4.y, o4.z, o4.w};
-        const T* seg = tcol + (long long)gg * seg_stride;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int k = 0; k < NL; ++k) {
-            v[u][r][k] = Raw{};
-            if (gg < g1 && r < nb && c + k * VEC < O)
-              v[u][r][k] = __ldg(reinterpret_cast<const Raw*>(
-                  seg + (long long)o[r] * O + k * VEC));
-          }
-      }
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u)
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int k = 0; k < NL; ++k)
-            if (g + u < g1 && r < nb)
-              add_raw<T, VB>(&acc[r][k * VEC], v[u][r][k]);
-    }
-    float* p = part + (size_t)sb * E + sl * NV;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int k = 0; k < NV; k += 4)
-        *reinterpret_cast<float4*>(p + r * sp.tile + k) =
-            make_float4(acc[r][k], acc[r][k + 1], acc[r][k + 2],
-                        acc[r][k + 3]);
+    add_segments<T, VB, kBatch<T, COUNTERS>>(
+        acc, tab + c, reinterpret_cast<const int4*>(s_off), gb0, g0, g1, nb,
+        c, O, seg_stride);
+    put_partials<T>(acc, part + (size_t)sb * E + sl * NV, sp.tile);
   }
   __syncthreads();
-
-  // -- the block's sum, in ascending slot order, into slot 0's place
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    float sum = part[e];
-    for (int sb = 1; sb < SB; ++sb) sum += part[(size_t)sb * E + e];
-    part[e] = sum;
-  }
-
-  // -- the cluster's sum, in ascending rank order; each element by one
-  //    thread of one block
-  if (sp.cluster == 1) {
-    __syncthreads();
-  } else {
-    cluster.sync();
-  }
-  for (int e = rank * blockDim.x + threadIdx.x; e < E;
-       e += sp.cluster * blockDim.x) {
-    float sum = part[e];
-    if (sp.cluster > 1) {  // all the ranks' loads in flight, then the adds
-      float peer[kMaxCluster];
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q)
-        if (q < sp.cluster) peer[q] = cluster.map_shared_rank(part, q)[e];
-      sum = peer[0];
-#pragma unroll
-      for (int q = 1; q < kMaxCluster; ++q)
-        if (q < sp.cluster) sum += peer[q];
-    }
-    const int r = e / sp.tile;
-    const int col = tile_i * sp.tile + (e - r * sp.tile);
-    if (r < nb && col < O)
-      out[(size_t)(b0 + r) * O + col] = pcilt::from_f32<T>(sum);
-  }
-  if (sp.cluster > 1) cluster.sync();  // no block leaves while read
+  reduce_store<T>(cluster, part, out, rank, tile_i, b0, nb, O, SB, sp.tile,
+                  sp.cluster);
 }
 
+// The slab kernel: past a 16-block cluster's shared memory a block stages
+// its segments slab by slab (sp.slab segments), each added to the same
+// sums in ascending g, so the order of the sum is the one-pass order.
 template <typename T, int VB, bool COUNTERS, bool PLAN>
-int launch_split_vb(const float* x, const T* tab, T* out, int* stats,
-                    const int* plan, int B, int G, int O, int n, int pw,
-                    int bits, int zp, float scale, long long seg_stride,
-                    cudaStream_t stream) {
-  const Split sp = split_for(B, G, O, (int)sizeof(T));
-  if (sp.chunks > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = split_smem_bytes(sp, G);
-  auto kernel = gemv_split_kernel<T, VB, COUNTERS, PLAN>;
+__global__ void __launch_bounds__(32 * kWarps, 1)
+    gemv_split_slabs_kernel(const float* __restrict__ x,
+                            const T* __restrict__ tab, T* __restrict__ out,
+                            int* __restrict__ stats,
+                            const int* __restrict__ plan, int B, int G,
+                            int O, int n, int pw, int bits, int zp,
+                            float scale, long long seg_stride, Split sp) {
+  constexpr int NV = kLaneBytes / sizeof(T);  // columns a lane owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int SB = sp.warps * sp.groups;  // slots a block
+  const int E = kRows * sp.tile;        // partial sums a slot
+  float* part = reinterpret_cast<float*>(smem);
+  int* s_off = reinterpret_cast<int*>(part + (size_t)SB * E);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tile_i = blockIdx.x / sp.cluster;
+  const int b0 = (blockIdx.z * kMaxGridRows + blockIdx.y) * kRows;
+  const int nb = min(kRows, B - b0);
+  const int S = sp.cluster * SB;
+  const int gb0 = (int)((long long)rank * G / sp.cluster);
+  const int gb1 = (int)((long long)(rank + 1) * G / sp.cluster);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / sp.lanes;
+  const int sl = lane - grp * sp.lanes;
+  const int sb = warp * sp.groups + grp;
+  const int s = rank * SB + sb;
+  const int g0 = (int)((long long)s * G / S);
+  const int g1 = (int)((long long)(s + 1) * G / S);
+  const int c = tile_i * sp.tile + sl * NV;
+  float acc[kRows][NV];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[r][k] = 0.f;
+  for (int t0 = gb0; t0 < gb1; t0 += sp.slab) {
+    const int ns = min(sp.slab, gb1 - t0);
+    if (t0 != gb0) __syncthreads();  // the last slab's offsets are read
+    pack_offsets<COUNTERS, PLAN>(x, plan, s_off, stats, b0, nb, t0, ns, n,
+                                 pw, bits, zp, scale, tile_i == 0);
+    __syncthreads();
+    add_segments<T, VB, kBatch<T, COUNTERS>>(
+        acc, tab + c, reinterpret_cast<const int4*>(s_off), t0,
+        grp < sp.groups ? max(g0, t0) : 0, grp < sp.groups
+        ? min(g1, t0 + ns) : 0, nb, c, O, seg_stride);
+  }
+  if (grp < sp.groups)
+    put_partials<T>(acc, part + (size_t)sb * E + sl * NV, sp.tile);
+  __syncthreads();
+  reduce_store<T>(cluster, part, out, rank, tile_i, b0, nb, O, SB, sp.tile,
+                  sp.cluster);
+}
+
+template <typename T, int VB, bool COUNTERS, bool PLAN, bool SLABS>
+int launch_split_slabs(const float* x, const T* tab, T* out, int* stats,
+                       const int* plan, int B, int G, int O, int n, int pw,
+                       int bits, int zp, float scale, long long seg_stride,
+                       const Split& sp, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes(sp);
+  auto kernel = SLABS ? gemv_split_slabs_kernel<T, VB, COUNTERS, PLAN>
+                      : gemv_split_kernel<T, VB, COUNTERS, PLAN>;
   cudaError_t err = cudaSuccess;
   static size_t smem_allowed = 48 * 1024;  // this instance's, per process
   if (smem > smem_allowed) {
@@ -343,7 +467,9 @@ int launch_split_vb(const float* x, const T* tab, T* out, int* stats,
     wide_clusters = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(sp.tiles * sp.cluster, sp.chunks);
+  cfg.gridDim = dim3(sp.tiles * sp.cluster,
+                     sp.chunks < kMaxGridRows ? sp.chunks : kMaxGridRows,
+                     split_planes(sp));
   cfg.blockDim = dim3(32 * sp.warps);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -358,6 +484,22 @@ int launch_split_vb(const float* x, const T* tab, T* out, int* stats,
                            n, pw, bits, zp, scale, seg_stride, sp);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The slab-walking instance only where a block's segments overflow a slab.
+template <typename T, int VB, bool COUNTERS, bool PLAN>
+int launch_split_vb(const float* x, const T* tab, T* out, int* stats,
+                    const int* plan, int B, int G, int O, int n, int pw,
+                    int bits, int zp, float scale, long long seg_stride,
+                    cudaStream_t stream) {
+  const Split sp = split_for(B, G, O, (int)sizeof(T));
+  if ((G + sp.cluster - 1) / sp.cluster > sp.slab)
+    return launch_split_slabs<T, VB, COUNTERS, PLAN, true>(
+        x, tab, out, stats, plan, B, G, O, n, pw, bits, zp, scale,
+        seg_stride, sp, stream);
+  return launch_split_slabs<T, VB, COUNTERS, PLAN, false>(
+      x, tab, out, stats, plan, B, G, O, n, pw, bits, zp, scale, seg_stride,
+      sp, stream);
 }
 
 // The widest load the table's address, row stride and segment stride allow.
@@ -565,7 +707,7 @@ extern "C" int pcilt_gemv_split_config(int* cfg) {
 }
 
 // The split of one call: {lanes, groups, warps, cluster, tile, tiles,
-// chunks, shared-memory bytes}.
+// chunks, shared-memory bytes, segments a slab, planes of the grid}.
 extern "C" int pcilt_gemv_split_plan(int B, int G, int O, int itemsize,
                                      int* out) {
   if (itemsize != 2 && itemsize != 4) return (int)cudaErrorInvalidValue;
@@ -577,6 +719,8 @@ extern "C" int pcilt_gemv_split_plan(int B, int G, int O, int itemsize,
   out[4] = s.tile;
   out[5] = s.tiles;
   out[6] = s.chunks;
-  out[7] = (int)split_smem_bytes(s, G);
+  out[7] = (int)split_smem_bytes(s);
+  out[8] = s.slab;
+  out[9] = split_planes(s);
   return 0;
 }

@@ -27,7 +27,13 @@
 //     kTargetBlocks blocks, but no slice falls under kMinSegs segments).
 //     A block walks its slice in batches of kLoads / rows segments: every
 //     row of the batch is loaded before the adds, so each lane keeps 128
-//     bytes in flight whatever the batch.
+//     bytes in flight whatever the batch.  Past a 16-block cluster (a
+//     slice whose pool rows would leave no room for kBlocksPerSm blocks an
+//     SM: ~97,000 segments at 4 float32 rows) the block stages its slice in
+//     consecutive slabs of `slab` segments that do, each summed into the
+//     same registers in ascending g, so the order of the sum is unchanged.
+//     The grid holds at most kMaxGridRows row chunks; a block walks chunks
+//     blockIdx.y, blockIdx.y + gridDim.y, ..., so any B is served.
 //  3. A block quantizes and packs only its slice's offsets, once, and
 //     resolves each (segment, row) into a pool row (-1: no row).  A row that
 //     several batch rows name is loaded by each: the repeats hit L2, and
@@ -78,6 +84,7 @@ constexpr int kMinSegs = 4;         // least segments a slice
 constexpr int kBlocksPerSm = 2;
 constexpr int kSmSmemBytes = 228 * 1024;
 constexpr int kBlockReservedSmem = 1024;
+constexpr int kMaxGridRows = 65535;  // gridDim.y, the card's most
 static_assert((kMaxCluster & (kMaxCluster - 1)) == 0 && kMaxCluster <= 16,
               "cluster sizes are powers of two up to 16");
 static_assert(kRows == 4 && kLoads % kRows == 0,
@@ -90,6 +97,7 @@ struct Split {
   int tile;     // columns a tile
   int tiles;    // column tiles
   int chunks;   // row chunks
+  int slab;     // segments a block stages at once
 };
 
 __host__ __device__ inline Split split_for(int B, int G, int O,
@@ -114,15 +122,23 @@ __host__ __device__ inline Split split_for(int B, int G, int O,
                          kBlockReservedSmem) > kSmSmemBytes)
     cs *= 2;
   s.cluster = cs;
+  // the slice in one slab, or in as many slabs of the most segments whose
+  // rows leave room for kBlocksPerSm blocks an SM
+  const long long seg = (G + cs - 1) / cs;
+  const bool fit = kBlocksPerSm * (sums + seg * s.rows * 4 +
+                                   kBlockReservedSmem) <= kSmSmemBytes;
+  const long long room =
+      (kSmSmemBytes / kBlocksPerSm - kBlockReservedSmem - sums) /
+      (s.rows * 4);
+  s.slab = (int)(fit ? seg : room);
   return s;
 }
 
 // Dynamic shared memory of a block: its float32 sums [rows][tile], then
-// the pool rows of its slice [ceil(G / cluster)][rows] int32.
-__host__ __device__ inline size_t split_smem_bytes(const Split& s, int G) {
-  const size_t seg = (G + s.cluster - 1) / s.cluster;
+// the pool rows of one slab of its slice [slab][rows] int32.
+__host__ __device__ inline size_t split_smem_bytes(const Split& s) {
   return (size_t)s.rows * s.tile * sizeof(float) +
-         seg * s.rows * sizeof(int);
+         (size_t)s.slab * s.rows * sizeof(int);
 }
 
 // A segment's R pool rows from shared memory, one vector load.
@@ -164,112 +180,127 @@ __global__ void __launch_bounds__(32 * kWarps, kBlocksPerSm)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tile_i = blockIdx.x / sp.cluster;
-  const int b0 = blockIdx.y * R;
-  const int nb = min(R, B - b0);
   const int gb0 = (int)((long long)rank * G / sp.cluster);
-  const int nseg = (int)((long long)(rank + 1) * G / sp.cluster) - gb0;
+  const int gb1 = (int)((long long)(rank + 1) * G / sp.cluster);
   const int n = G * group;
-
-  // -- the slice's pool rows, [g - gb0][row]
   const int kmax = (1 << bits) - 1;
-  for (int gl = threadIdx.x; gl < nseg; gl += blockDim.x) {
-    const int g = gb0 + gl;
-    const int p = seg_idx[g];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      int row = kNoRow;
-      if (r < nb && p >= 0 && p < X) {
-        const float* xs = x + (size_t)(b0 + r) * n + (size_t)g * group;
-        int o = 0;
-        for (int j = 0; j < group; ++j) {
-          bool sat;
-          o |= pcilt::quantize_code(xs[j], scale, zp, kmax, &sat)
-               << (j * bits);
-        }
-        row = p * V + o;
-      }
-      s_row[gl * R + r] = row;
-    }
-  }
-  __syncthreads();
-
-  // -- fetch: every lane walks the slice in ascending g
   const int c = tile_i * sp.tile + threadIdx.x * NV;
   const T* pcol = pool + c;
-  float acc[R][NV];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int k = 0; k < NV; ++k) acc[r][k] = 0.f;
-  for (int g = 0; g < nseg; g += U) {
-    Raw v[U][R][NL];
-    int row[U][R];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (g + u < nseg) {
-        RowsOf<R>::get(s_row + (g + u) * R, row[u]);
-      } else {
-#pragma unroll
-        for (int r = 0; r < R; ++r) row[u][r] = kNoRow;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int k = 0; k < NL; ++k) {
-          v[u][r][k] = Raw{};
-          if (row[u][r] >= 0 && c + k * VEC < O)
-            v[u][r][k] = __ldg(reinterpret_cast<const Raw*>(
-                pcol + (long long)row[u][r] * O + k * VEC));
-        }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int k = 0; k < NL; ++k)
-          if (row[u][r] >= 0) add_raw<T, VB>(&acc[r][k * VEC], v[u][r][k]);
-  }
 
-  // -- one block: the sums are the output
-  if (sp.cluster == 1) {
+  // row chunks blockIdx.y, blockIdx.y + gridDim.y, ... (every block of a
+  // cluster shares blockIdx.y, so all walk the same chunks)
+  for (int chunk = blockIdx.y; chunk < sp.chunks; chunk += gridDim.y) {
+    const int b0 = chunk * R;
+    const int nb = min(R, B - b0);
+    float acc[R][NV];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int k = 0; k < NV; ++k)
-        if (r < nb && c + k < O)
-          out[(size_t)(b0 + r) * O + c + k] = pcilt::from_f32<T>(acc[r][k]);
-    return;
-  }
+      for (int k = 0; k < NV; ++k) acc[r][k] = 0.f;
 
-  // -- a cluster: the block's sums to shared memory, then the cluster's
-  //    sum in ascending rank order, each element by one thread of one block
+    // the slice [gb0, gb1) in slabs of sp.slab, ascending
+    for (int t0 = gb0; t0 < gb1; t0 += sp.slab) {
+      const int ns = min(sp.slab, gb1 - t0);
+      // the last slab's (or chunk's) rows are read
+      if (t0 != gb0 || chunk != (int)blockIdx.y) __syncthreads();
+
+      // -- the slab's pool rows, [g - t0][row]
+      for (int gl = threadIdx.x; gl < ns; gl += blockDim.x) {
+        const int g = t0 + gl;
+        const int p = seg_idx[g];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+        for (int r = 0; r < R; ++r) {
+          int row = kNoRow;
+          if (r < nb && p >= 0 && p < X) {
+            const float* xs = x + (size_t)(b0 + r) * n + (size_t)g * group;
+            int o = 0;
+            for (int j = 0; j < group; ++j) {
+              bool sat;
+              o |= pcilt::quantize_code(xs[j], scale, zp, kmax, &sat)
+                   << (j * bits);
+            }
+            row = p * V + o;
+          }
+          s_row[gl * R + r] = row;
+        }
+      }
+      __syncthreads();
+
+      // -- fetch: every lane walks the slab in ascending g
+      for (int g = 0; g < ns; g += U) {
+        Raw v[U][R][NL];
+        int row[U][R];
 #pragma unroll
-    for (int k = 0; k < NV; k += 4)
-      *reinterpret_cast<float4*>(part + (size_t)r * sp.tile +
-                                 threadIdx.x * NV + k) =
-          make_float4(acc[r][k], acc[r][k + 1], acc[r][k + 2],
-                      acc[r][k + 3]);
-  cluster.sync();
-  const int E = R * sp.tile;
-  for (int e = rank * blockDim.x + threadIdx.x; e < E;
-       e += sp.cluster * blockDim.x) {
-    float peer[kMaxCluster];  // all the ranks' loads in flight, then adds
+        for (int u = 0; u < U; ++u) {
+          if (g + u < ns) {
+            RowsOf<R>::get(s_row + (g + u) * R, row[u]);
+          } else {
 #pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q)
-      if (q < sp.cluster) peer[q] = cluster.map_shared_rank(part, q)[e];
-    float sum = peer[0];
+            for (int r = 0; r < R; ++r) row[u][r] = kNoRow;
+          }
 #pragma unroll
-    for (int q = 1; q < kMaxCluster; ++q)
-      if (q < sp.cluster) sum += peer[q];
-    const int r = e / sp.tile;
-    const int col = tile_i * sp.tile + (e - r * sp.tile);
-    if (r < nb && col < O)
-      out[(size_t)(b0 + r) * O + col] = pcilt::from_f32<T>(sum);
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int k = 0; k < NL; ++k) {
+              v[u][r][k] = Raw{};
+              if (row[u][r] >= 0 && c + k * VEC < O)
+                v[u][r][k] = __ldg(reinterpret_cast<const Raw*>(
+                    pcol + (long long)row[u][r] * O + k * VEC));
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int k = 0; k < NL; ++k)
+              if (row[u][r] >= 0)
+                add_raw<T, VB>(&acc[r][k * VEC], v[u][r][k]);
+      }
+    }
+
+    if (sp.cluster == 1) {
+      // -- one block: the sums are the output
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          if (r < nb && c + k < O)
+            out[(size_t)(b0 + r) * O + c + k] =
+                pcilt::from_f32<T>(acc[r][k]);
+      continue;
+    }
+
+    // -- a cluster: the block's sums to shared memory, then the cluster's
+    //    sum in ascending rank order, each element by one thread of one
+    //    block
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int k = 0; k < NV; k += 4)
+        *reinterpret_cast<float4*>(part + (size_t)r * sp.tile +
+                                   threadIdx.x * NV + k) =
+            make_float4(acc[r][k], acc[r][k + 1], acc[r][k + 2],
+                        acc[r][k + 3]);
+    cluster.sync();
+    const int E = R * sp.tile;
+    for (int e = rank * blockDim.x + threadIdx.x; e < E;
+         e += sp.cluster * blockDim.x) {
+      float peer[kMaxCluster];  // all the ranks' loads in flight, then adds
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < sp.cluster) peer[q] = cluster.map_shared_rank(part, q)[e];
+      float sum = peer[0];
+#pragma unroll
+      for (int q = 1; q < kMaxCluster; ++q)
+        if (q < sp.cluster) sum += peer[q];
+      const int r = e / sp.tile;
+      const int col = tile_i * sp.tile + (e - r * sp.tile);
+      if (r < nb && col < O)
+        out[(size_t)(b0 + r) * O + col] = pcilt::from_f32<T>(sum);
+    }
+    cluster.sync();  // no block leaves, or overwrites its sums, while read
   }
-  cluster.sync();  // no block leaves while read
 }
 
 template <typename T, int VB, int R>
@@ -277,8 +308,7 @@ int launch_split_vb(const float* x, const int* seg_idx, const T* pool, T* out,
                     int B, int G, int X, int V, int O, int group, int bits,
                     int zp, float scale, cudaStream_t stream) {
   const Split sp = split_for(B, G, O, (int)sizeof(T));
-  if (sp.chunks > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = split_smem_bytes(sp, G);
+  const size_t smem = split_smem_bytes(sp);
   auto kernel = shared_split_kernel<T, VB, R>;
   cudaError_t err = cudaSuccess;
   static size_t smem_allowed = 48 * 1024;  // this instance's, per process
@@ -295,7 +325,8 @@ int launch_split_vb(const float* x, const int* seg_idx, const T* pool, T* out,
     wide_clusters = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(sp.tiles * sp.cluster, sp.chunks);
+  cfg.gridDim = dim3(sp.tiles * sp.cluster,
+                     sp.chunks < kMaxGridRows ? sp.chunks : kMaxGridRows);
   cfg.blockDim = dim3(32 * sp.warps);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -467,7 +498,7 @@ extern "C" int pcilt_shared_gemv_split_config(int* cfg) {
 }
 
 // The split of one call: {rows, warps, cluster, tile, tiles, chunks,
-// shared-memory bytes}.
+// shared-memory bytes, segments a slab}.
 extern "C" int pcilt_shared_gemv_split_plan(int B, int G, int O, int itemsize,
                                             int* out) {
   if (itemsize != 2 && itemsize != 4) return (int)cudaErrorInvalidValue;
@@ -478,6 +509,7 @@ extern "C" int pcilt_shared_gemv_split_plan(int B, int G, int O, int itemsize,
   out[3] = s.tile;
   out[4] = s.tiles;
   out[5] = s.chunks;
-  out[6] = (int)split_smem_bytes(s, G);
+  out[6] = (int)split_smem_bytes(s);
+  out[7] = s.slab;
   return 0;
 }

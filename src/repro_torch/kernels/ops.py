@@ -123,8 +123,10 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "staged_tiles", "staged_block_tile", "conv_codes_plain",
            "conv_code_channels",
            "GEMV_VARIANT_LAUNCHES", "GemvSplit", "gemv_variant",
-           "gemv_smem_bytes", "SHARED_GEMV_VARIANT_LAUNCHES", "SharedSplit",
-           "shared_gemv_variant", "shared_gemv_smem_bytes",
+           "gemv_smem_bytes", "gemv_slab", "gemv_planes", "gemv_grid",
+           "SHARED_GEMV_VARIANT_LAUNCHES",
+           "SharedSplit", "shared_gemv_variant", "shared_gemv_smem_bytes",
+           "shared_gemv_slab",
            "shared_gemv_slices", "DWCONV_HOST_VARIANT_LAUNCHES",
            "DwconvTiling", "dwconv_host_variant", "dwconv_host_tiling",
            "DWCONV_VARIANT_LAUNCHES", "GEMV_HOST_VARIANT_LAUNCHES",
@@ -209,9 +211,17 @@ def _check_tables(name: str, table: torch.Tensor,
 
 
 def _host_scale(scale) -> float:
-    """The per-tensor scale as a float32 host scalar."""
-    s = np.asarray(scale.detach().cpu() if torch.is_tensor(scale) else scale,
-                   np.float32)
+    """The per-tensor scale as a float32 host scalar: a Python or numpy
+    scalar, or a tensor on the CPU.  A tensor on any other device raises a
+    ``TypeError``: reading it back would stall the host ahead of every
+    launch (the serving paths pass a host float, ``core.serving._f32``)."""
+    if torch.is_tensor(scale):
+        if scale.device.type != "cpu":
+            raise TypeError(f"the fused kernels take the scale as a host "
+                            f"float (core.serving._f32 makes one), not a "
+                            f"tensor on {scale.device}")
+        scale = scale.detach().to(torch.float32).numpy()
+    s = np.asarray(scale, np.float32)
     if s.size != 1:
         raise ValueError(f"fused kernels take a per-tensor (scalar) scale, "
                          f"got shape {s.shape}")
@@ -368,8 +378,11 @@ class GemvSplit(NamedTuple):
     """The split design's launch over one call (``split_for`` of
     pcilt_gemv_stacked.cu).  Slot ``s`` of ``cluster * warps * groups``
     sums its slice of the segments for one output tile of ``tile`` columns
-    and ``GEMV_ROWS`` rows; the grid is ``tiles * cluster`` by ``chunks``
-    blocks."""
+    and ``GEMV_ROWS`` rows; the grid (:func:`gemv_grid`) is ``tiles *
+    cluster`` by ``chunks`` blocks while the chunks fit its
+    ``MAX_GRID_ROWS`` rows, the chunks past them on further planes
+    (``gridDim.z``); a block stages its segments' offsets
+    :func:`gemv_slab` segments at a time."""
     lanes: int    # lanes of a slot
     groups: int   # slots (slices) a warp
     warps: int    # warps a block
@@ -413,12 +426,39 @@ def gemv_variant(B: int, G: int, O: int, itemsize: int) -> GemvSplit:
     return GemvSplit(lanes, groups, w, cs, tile, tiles, chunks)
 
 
+def gemv_slab(split: GemvSplit, G: int) -> int:
+    """Segments whose offsets a split block stages at once: all its
+    ``ceil(G / cluster)`` where they fit ``SMEM_LIMIT`` beside the partial
+    sums (every shape up to ~224,000 segments); else the most that do, the
+    block's segments then staged and summed slab after slab in ascending
+    order (the one-pass order of the sum)."""
+    room = SMEM_LIMIT // (4 * GEMV_ROWS) - split.warps * split.groups \
+        * split.tile
+    return min(-(-G // split.cluster), room)
+
+
+def gemv_planes(split: GemvSplit) -> int:
+    """Planes of the split grid (``gridDim.z``): 1 while the row chunks fit
+    its ``MAX_GRID_ROWS`` rows (every B up to 262,140), else as many as
+    hold them."""
+    return -(-split.chunks // MAX_GRID_ROWS)
+
+
+def gemv_grid(split: GemvSplit):
+    """``(gridDim.x, gridDim.y, gridDim.z)`` of a split launch: block
+    ``(x, y, z)`` is rank ``x % cluster`` of output tile ``x // cluster``
+    of row chunk ``z * MAX_GRID_ROWS + y`` (past the last chunk it holds
+    no row)."""
+    return (split.tiles * split.cluster, min(split.chunks, MAX_GRID_ROWS),
+            gemv_planes(split))
+
+
 def gemv_smem_bytes(split: GemvSplit, G: int) -> int:
     """Dynamic shared memory of a split block: the slots' float32 partial
     sums ``[warps * groups, GEMV_ROWS, tile]``, then the int32 offsets of
-    the block's segments ``[ceil(G / cluster), GEMV_ROWS]``."""
+    one slab of the block's segments ``[gemv_slab, GEMV_ROWS]``."""
     return 4 * GEMV_ROWS * (split.warps * split.groups * split.tile
-                            + -(-G // split.cluster))
+                            + gemv_slab(split, G))
 
 
 #: a design forced on the fused GEMV launches inside :func:`_gemv_forced`
@@ -460,9 +500,10 @@ def _check_gemv_split(lib, B: int, G: int, O: int, itemsize: int,
     key = (split.chunks, G, O, itemsize)
     if key in _GEMV_CHECKED:
         return
-    got = (ctypes.c_int * 8)()
+    got = (ctypes.c_int * 10)()
     lib.pcilt_gemv_split_plan(B, G, O, itemsize, got)
-    mine = (*split, gemv_smem_bytes(split, G))
+    mine = (*split, gemv_smem_bytes(split, G), gemv_slab(split, G),
+            gemv_planes(split))
     if tuple(got) != mine:
         raise RuntimeError(f"pcilt_gemv_stacked.cu splits B {B}, G {G}, O {O}"
                            f" as {tuple(got)}, kernels.ops as {mine}")
@@ -471,16 +512,11 @@ def _check_gemv_split(lib, B: int, G: int, O: int, itemsize: int,
 
 def gemv_candidates(B: int, G: int, O: int, itemsize: int) -> List[str]:
     """The fused GEMV designs whose guards admit ``B`` rows of ``G``
-    segments and ``O`` columns: ``"split"`` (the heuristic) while a block's
-    shared memory and the grid's row chunks fit, ``"direct"`` while the
-    ``B * G`` offsets fit one block."""
-    split = gemv_variant(B, G, O, itemsize)
-    out = []
-    if gemv_smem_bytes(split, G) <= SMEM_LIMIT and split.chunks <= 65535:
-        out.append("split")
-    if B * G * 4 <= SMEM_LIMIT:
-        out.append("direct")
-    return out or ["split"]
+    segments and ``O`` columns: ``"split"`` (the heuristic; any shape: its
+    grid holds the row chunks past its rows on further planes, and its
+    blocks stage their offsets in slabs), then ``"direct"`` while the ``B
+    * G`` offsets fit one block."""
+    return ["split"] + (["direct"] if B * G * 4 <= SMEM_LIMIT else [])
 
 
 def _launch_gemv(name, x, tables, G, O, pw, seg_stride, layer_off,
@@ -510,15 +546,9 @@ def _launch_gemv(name, x, tables, G, O, pw, seg_stride, layer_off,
         raise ValueError(f"{name}: unknown fused GEMV variant {variant!r}")
     lib = build.library(build.KERNELS[name])
     if variant == "split":
-        split = gemv_variant(B, G, O, tables.element_size())
-        smem = gemv_smem_bytes(split, G)
-        if smem > SMEM_LIMIT or split.chunks > 65535:
-            raise ValueError(f"{name}: B = {B}, G = {G} needs {smem} B of "
-                             f"shared memory a block (at most {SMEM_LIMIT})"
-                             f" and {split.chunks} row chunks (at most "
-                             f"65535)")
-        _check_gemv_split(lib, B, G, O, tables.element_size(), split)
-    elif B * G * 4 > SMEM_LIMIT:
+        _check_gemv_split(lib, B, G, O, tables.element_size(),
+                          gemv_variant(B, G, O, tables.element_size()))
+    elif B * G * 4 > SMEM_LIMIT:  # only the forced kept design meets this
         raise ValueError(f"{name}: B*G = {B * G} offsets exceed the shared "
                          f"memory of one block")
     out = torch.empty((B, O), dtype=tables.dtype, device=x.device)
@@ -898,7 +928,7 @@ def _fused_dwconv1d(x, tables, spec: QuantSpec, scale, k: int,
         autotune)
     if variant not in DWCONV_VARIANT_LAUNCHES:
         raise ValueError(f"pcilt_fused_dwconv1d: unknown variant {variant!r}")
-    if variant == "tiled" and dwconv_variant(k) != "tiled":
+    if variant == "tiled" and dwconv_variant(k) != "tiled":  # forced only
         raise ValueError(f"pcilt_fused_dwconv1d: {k} taps cannot be tiled "
                          f"(at most {DW_TILED_MAX_TAPS})")
     lib = build.library("dwconv1d")
@@ -1025,7 +1055,7 @@ def _dwconv1d_host(offsets, tables, variant=None, autotune=None):
     variant = variant or fits
     if variant not in DWCONV_HOST_VARIANT_LAUNCHES:
         raise ValueError(f"pcilt_dwconv1d: unknown variant {variant!r}")
-    if variant == "staged" and fits != "staged":
+    if variant == "staged" and fits != "staged":  # forced only
         raise ValueError(f"pcilt_dwconv1d: a V = {V} table slice needs "
                          f"{DW_CHANS * V * es} B of shared memory a block (at"
                          f" most {SMEM_LIMIT}) and cannot be staged")
@@ -1064,9 +1094,11 @@ SHARED_BLOCKS_PER_SM, SM_SMEM_BYTES, BLOCK_RESERVED_SMEM = 2, 228 * 1024, 1024
 class SharedSplit(NamedTuple):
     """The shared-pool split design's launch over one call (``split_for``
     of pcilt_shared_gemv.cu): the grid is ``tiles * cluster`` by
-    ``chunks`` blocks; block rank ``q`` of a cluster sums slice ``q`` of
-    the segments (:func:`shared_gemv_slices`) for ``rows`` batch rows and
-    ``tile`` columns."""
+    ``min(chunks, MAX_GRID_ROWS)`` blocks, each walking the row chunks
+    ``blockIdx.y, blockIdx.y + gridDim.y, ...``; block rank ``q`` of a
+    cluster sums slice ``q`` of the segments (:func:`shared_gemv_slices`),
+    :func:`shared_gemv_slab` segments staged at a time, for ``rows`` batch
+    rows and ``tile`` columns."""
     rows: int     # batch rows a block (1, 2 or 4)
     warps: int    # warps a block
     cluster: int  # blocks a cluster
@@ -1105,11 +1137,25 @@ def shared_gemv_variant(B: int, G: int, O: int, itemsize: int) -> SharedSplit:
     return SharedSplit(rows, warps, cs, tile, tiles, chunks)
 
 
+def shared_gemv_slab(split: SharedSplit, G: int) -> int:
+    """Segments whose pool rows a split block stages at once: its whole
+    slice, ``ceil(G / cluster)``, where ``SHARED_BLOCKS_PER_SM`` such
+    blocks fit an SM (every shape up to ~97,000 segments at 4 float32
+    rows); else the most that keep them fitting, the slice then staged and
+    summed slab after slab in ascending order (the one-pass order)."""
+    seg = -(-G // split.cluster)
+    if SHARED_BLOCKS_PER_SM * (4 * split.rows * (split.tile + seg)
+                               + BLOCK_RESERVED_SMEM) <= SM_SMEM_BYTES:
+        return seg
+    return (SM_SMEM_BYTES // SHARED_BLOCKS_PER_SM - BLOCK_RESERVED_SMEM
+            - 4 * split.rows * split.tile) // (4 * split.rows)
+
+
 def shared_gemv_smem_bytes(split: SharedSplit, G: int) -> int:
     """Dynamic shared memory of a split block: its float32 sums ``[rows,
-    tile]``, then the int32 pool rows of its slice ``[ceil(G / cluster),
-    rows]``."""
-    return 4 * split.rows * (split.tile + -(-G // split.cluster))
+    tile]``, then the int32 pool rows of one slab of its slice
+    ``[shared_gemv_slab, rows]``."""
+    return 4 * split.rows * (split.tile + shared_gemv_slab(split, G))
 
 
 def shared_gemv_slices(split: SharedSplit, G: int):
@@ -1121,16 +1167,10 @@ def shared_gemv_slices(split: SharedSplit, G: int):
 
 def shared_gemv_candidates(B: int, G: int, O: int, itemsize: int) -> List[str]:
     """The shared-pool GEMV designs whose guards admit the shape:
-    ``"split"`` (the heuristic) while a block's shared memory and the row
-    chunks fit, ``"direct"`` while the ``B * G`` offsets fit one block."""
-    split = shared_gemv_variant(B, G, O, itemsize)
-    out = []
-    if shared_gemv_smem_bytes(split, G) <= SMEM_LIMIT \
-            and split.chunks <= 65535:
-        out.append("split")
-    if B * G * 4 <= SMEM_LIMIT:
-        out.append("direct")
-    return out or ["split"]
+    ``"split"`` (the heuristic; any shape: its blocks walk the row chunks
+    past the grid's and stage their pool rows in slabs), then ``"direct"``
+    while the ``B * G`` offsets fit one block."""
+    return ["split"] + (["direct"] if B * G * 4 <= SMEM_LIMIT else [])
 
 
 def shared_gemv_plain(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
@@ -1171,9 +1211,10 @@ def _check_shared_split(lib, B: int, G: int, O: int, itemsize: int,
     key = (B, G, O, itemsize)
     if key in _SHARED_CHECKED:
         return
-    got = (ctypes.c_int * 7)()
+    got = (ctypes.c_int * 8)()
     lib.pcilt_shared_gemv_split_plan(B, G, O, itemsize, got)
-    mine = (*split, shared_gemv_smem_bytes(split, G))
+    mine = (*split, shared_gemv_smem_bytes(split, G),
+            shared_gemv_slab(split, G))
     if tuple(got) != mine:
         raise RuntimeError(f"pcilt_shared_gemv.cu splits B {B}, G {G}, O {O}"
                            f" as {tuple(got)}, kernels.ops as {mine}")
@@ -1229,15 +1270,9 @@ def _shared_gemv(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
         raise ValueError(f"pcilt_shared_gemv: unknown variant {variant!r}")
     lib = build.library("shared_gemv")
     if variant == "split":
-        split = shared_gemv_variant(B, G, O, pool.element_size())
-        smem = shared_gemv_smem_bytes(split, G)
-        if smem > SMEM_LIMIT or split.chunks > 65535:
-            raise ValueError(f"pcilt_shared_gemv: B = {B}, G = {G} needs "
-                             f"{smem} B of shared memory a block (at most "
-                             f"{SMEM_LIMIT}) and {split.chunks} row chunks "
-                             f"(at most 65535)")
-        _check_shared_split(lib, B, G, O, pool.element_size(), split)
-    elif B * G * 4 > SMEM_LIMIT:
+        _check_shared_split(lib, B, G, O, pool.element_size(),
+                            shared_gemv_variant(B, G, O, pool.element_size()))
+    elif B * G * 4 > SMEM_LIMIT:  # only the forced kept design meets this
         raise ValueError(f"pcilt_shared_gemv: B*G = {B * G} offsets exceed "
                          f"the shared memory of one block")
     out = torch.empty((B, O), dtype=pool.dtype, device=x.device)
@@ -1387,6 +1422,7 @@ def _launch_gemv_host(name: str, offsets: torch.Tensor,
         raise ValueError(f"{name}: unknown variant {variant!r}")
     lib = build.library("gemv_host")
     if variant == "staged":
+        # met only where forced: gemv_host_variant picks "direct" there
         if V > HOST_MAX_V or gemv_host_smem_bytes(es) > SMEM_LIMIT:
             raise ValueError(f"{name}: a V = {V} slice cannot be staged (V <="
                              f" {HOST_MAX_V} and {gemv_host_smem_bytes(es)} "
@@ -1516,6 +1552,10 @@ STAGED_STAGES, STAGED_OFF_RING, STAGED_ROW_PITCH = 4, 8, 256
 STAGED_MAX_V = 256
 #: dynamic shared memory one block may use on an H100
 SMEM_LIMIT = 227 * 1024
+#: the most blocks a grid's y (or z) dimension holds: past this many row
+#: chunks the fused GEMV's split goes on in further planes of its grid,
+#: and the shared-pool GEMV's blocks each walk several
+MAX_GRID_ROWS = 65535
 
 
 def staged_smem_bytes(itemsize: int) -> int:
@@ -1664,7 +1704,7 @@ def _launch_conv(name, xp, tab, seg_idx, X, spec, scale, group, kh, kw,
                                            n_total=n_total), autotune)
     if variant not in CONV_VARIANT_LAUNCHES:
         raise ValueError(f"{name}: unknown conv variant {variant!r}")
-    if variant == "staged" and fits != "staged":
+    if variant == "staged" and fits != "staged":  # forced only
         raise ValueError(f"{name}: a V = {V} slice cannot be staged "
                          f"(V <= {STAGED_MAX_V} and "
                          f"{staged_smem_bytes(tab.element_size())} B of "

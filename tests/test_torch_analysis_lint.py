@@ -180,6 +180,104 @@ def test_lint003_flags_host_syncs_ahead_of_a_launch(tmp_path):
                    ("pcilt_wrapper", "x.tolist")]
 
 
+HELPER_SYNC = '''
+import torch
+
+def _launch(name, fn, x, *args):
+    return fn(*args)
+
+def _host(scale):
+    return float(scale.detach().cpu())
+
+def _fresh(n):
+    return torch.zeros(n).cpu()
+
+def pcilt_scaled(x, scale):
+    _launch("k", print, x, _host(scale), _fresh(2))
+    return x
+
+def pcilt_ahead(x, scale):
+    s = _host(scale)
+    _launch("k", print, x, s)
+    return x
+'''
+
+RESULT_AFTER = '''
+def _launch(name, fn, x, *args):
+    return fn(*args)
+
+def _words(out):
+    return out.cpu().numpy()
+
+def pcilt_crc_like(x, out):
+    _launch("k", print, x, out)
+    return _words(out), out.cpu()
+'''
+
+
+def test_lint003_follows_the_helpers_a_launch_calls_ahead(tmp_path):
+    """One call deep: a ``.cpu()`` on a parameter of a helper that a launch
+    function calls ahead of its launch (as an argument of it or before it)
+    is a finding, named by both functions; one on a value the helper made
+    itself is not."""
+    path = _write(tmp_path, "helpers.py", HELPER_SYNC)
+    fs = [f for f in lint.lint_files([path], root=str(tmp_path))
+          if f.rule == "LINT003"]
+    assert sorted(f.symbol for f in fs) == ["pcilt_ahead -> _host",
+                                            "pcilt_scaled -> _host"]
+    assert all("'.cpu()' on a parameter of _host()" in f.message
+               for f in fs)
+
+
+def test_lint003_leaves_a_result_read_after_the_launch(tmp_path):
+    """A read of the launch's result after it, in the launch function or
+    in a helper it calls then (``pcilt_crc32`` returns its words so), is
+    the function's contract: no finding, and no baseline entry needed."""
+    path = _write(tmp_path, "result.py", RESULT_AFTER)
+    assert [f for f in lint.lint_files([path], root=str(tmp_path))
+            if f.rule == "LINT003"] == []
+
+
+def test_lint003_fires_on_the_real_ops_reading_a_scale_back(tmp_path):
+    """A copy of ``kernels/ops.py`` whose ``_host_scale`` reads a tensor
+    back with ``.cpu()`` (as it did before it refused device tensors)
+    gives a finding for every launch function that calls it."""
+    with open(os.path.join(ROOT, "src", "repro_torch", "kernels",
+                           "ops.py")) as f:
+        src = f.read()
+    fixed = "scale = scale.detach().to(torch.float32).numpy()"
+    assert src.count(fixed) == 1
+    path = _write(tmp_path, "ops.py", src.replace(
+        fixed, "scale = scale.detach().cpu()"))
+    fs = [f for f in lint.lint_files([path], root=str(tmp_path))
+          if f.rule == "LINT003"]
+    assert {f.symbol.split(" -> ")[1] for f in fs} == {"_host_scale"}
+    assert {f.symbol.split(" -> ")[0] for f in fs} >= {
+        "_launch_gemv", "_shared_gemv", "_launch_conv"}
+
+
+def test_host_scale_never_reads_a_device_tensor_back():
+    """The kernels' scale: a float, a numpy scalar or a CPU tensor become
+    the float32 host value; a tensor on another device (``meta`` here, a
+    CUDA one on the card) raises a ``TypeError`` naming the host float the
+    serving paths pass, and is never read back."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    f32 = float(np.float32(0.3))
+    assert ops._host_scale(0.5) == 0.5
+    assert ops._host_scale(np.float32(0.25)) == 0.25
+    assert ops._host_scale(np.float64(0.3)) == f32
+    assert ops._host_scale(torch.tensor(0.3)) == f32
+    assert ops._host_scale(torch.tensor([0.3], dtype=torch.float64)) == f32
+    with pytest.raises(TypeError, match=r"core\.serving\._f32"):
+        ops._host_scale(torch.tensor(0.3, device="meta"))
+    with pytest.raises(ValueError, match="per-tensor"):
+        ops._host_scale(torch.tensor([0.3, 0.4]))
+
+
 # ----------------------------------------------------------------------------
 # LINT004: the design-cache keys
 # ----------------------------------------------------------------------------

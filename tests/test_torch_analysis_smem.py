@@ -54,7 +54,8 @@ class ModelLibrary:
     def pcilt_gemv_split_plan(self, B, G, O, es, out):
         sp = ops.gemv_variant(B, G, O, es)
         return self._out("pcilt_gemv_split_plan",
-                         (*sp, ops.gemv_smem_bytes(sp, G)), out)
+                         (*sp, ops.gemv_smem_bytes(sp, G),
+                          ops.gemv_slab(sp, G), ops.gemv_planes(sp)), out)
 
     def pcilt_shared_gemv_split_config(self, cfg):
         return self._out("pcilt_shared_gemv_split_config", (
@@ -67,7 +68,8 @@ class ModelLibrary:
     def pcilt_shared_gemv_split_plan(self, B, G, O, es, out):
         sp = ops.shared_gemv_variant(B, G, O, es)
         return self._out("pcilt_shared_gemv_split_plan",
-                         (*sp, ops.shared_gemv_smem_bytes(sp, G)), out)
+                         (*sp, ops.shared_gemv_smem_bytes(sp, G),
+                          ops.shared_gemv_slab(sp, G)), out)
 
     def pcilt_dwconv1d_tiled_config(self, cfg):
         return self._out("pcilt_dwconv1d_tiled_config", (
@@ -155,11 +157,53 @@ def test_the_tree_is_clean_over_the_full_sweep():
     assert fs == [], "\n".join(f.render() for f in fs)
     assert summary["gemv"]["shapes"] > 1000
     # every group-1 width is served (the split's cluster grows until a
-    # block's offsets fit), so the wrapper refuses no shape
+    # block's offsets fit), and so is every shape past the split GEMVs'
+    # old ceilings (the row walk, the slabs), so the wrapper refuses no
+    # shape: not the gemv's, not the shared head's
     assert {fam: v["refused"] for fam, v in summary.items()
             if fam not in ("report", "kernels")} == dict.fromkeys(
         (f.name for f in smem.FAMILIES()), 0)
+    assert summary["gemv"]["refused"] == summary["shared_gemv"]["refused"] \
+        == 0
     assert run_all(passes=("smem",), sweep="quick") == []
+
+
+@pytest.mark.parametrize("family,shapes,variant,slab", [
+    ("gemv", smem.CEILING_GEMV, "gemv_variant", "gemv_slab"),
+    ("shared_gemv", smem.CEILING_SHARED, "shared_gemv_variant",
+     "shared_gemv_slab")])
+def test_the_ceiling_shapes_are_checked_in_the_full_sweep(family, shapes,
+                                                          variant, slab):
+    """The full sweep holds the shapes past the split GEMVs' old ceilings
+    (more than 65535 row chunks; a 16-block cluster's offsets in slabs),
+    each admitted in its split design and checked clean, against an honest
+    library's plans too."""
+    fam = next(f for f in smem.FAMILIES() if f.name == family)
+    full = {(s["B"], s["G"], s["O"], s["itemsize"]) for s in fam.sweep("full")}
+    quick = {(s["B"], s["G"], s["O"], s["itemsize"])
+             for s in fam.sweep("quick")}
+    assert set(shapes) <= full and not set(shapes) & quick
+    walks = slabs = 0
+    for B, G, O, es in shapes:
+        s = {"B": B, "G": G, "O": O, "itemsize": es}
+        assert fam.designs(s)[0] == "split" and not fam.refused(s, "split")
+        sp = getattr(ops, variant)(B, G, O, es)
+        walks += sp.chunks > smem.MAX_GRID_YZ
+        slabs += getattr(ops, slab)(sp, G) < -(-G // sp.cluster)
+        (L,) = fam.launches(s, "split")
+        assert L.grid[1] <= smem.MAX_GRID_YZ and L.grid[2] <= smem.MAX_GRID_YZ
+        assert fam.cover(s, "split") == []
+        assert fam.plan(ModelLibrary(), s) == []
+    assert walks >= 2 and slabs >= 2
+
+
+def test_a_slab_that_skips_a_segment_fires_smem003(monkeypatch):
+    real = ops.gemv_slab
+    monkeypatch.setattr(ops, "gemv_slab", lambda sp, G: max(1, real(sp, G))
+                        if G < 200000 else 0)
+    fs = smem.verify_all("full", families=["gemv"])
+    assert any(f.rule == "SMEM003" and "a slab of 0" in f.message
+               for f in fs)
 
 
 def test_honest_libraries_and_reports_give_no_finding():

@@ -232,3 +232,51 @@ def test_conv_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="contiguous segments"):
         tl.pcilt_conv2d(x, torch.zeros(3, 3, 3, 4), spec, 1.0, 1,
                         tables=torch.zeros(30, 16, 4), path="fused")
+
+
+class _FakeConvLibrary:
+    """Stands in for the conv library: answers the staged tiling from the
+    mirror and records each call's entry point and arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def pcilt_conv2d_staged_config(self, cfg):
+        cfg[:] = [tops.STAGED_PIX_TILE, tops.STAGED_COL_TILE,
+                  tops.STAGED_STAGES, tops.STAGED_OFF_RING,
+                  tops.STAGED_ROW_PITCH, tops.STAGED_MAX_V]
+        return 0
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+def test_a_batch_past_the_grid_reaches_the_conv_library(monkeypatch):
+    """65,537 images, past the 65535 a grid's z dimension holds: the code
+    pre-pass walks its images, so the staged conv passes the whole batch
+    to both of its launches (the pre-pass and the fetch), as the
+    reference's kernel takes any batch."""
+    from repro_torch.kernels import build
+
+    lib = _FakeConvLibrary()
+    monkeypatch.setattr(tops, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(tops, "_call", lambda name, fn, x, *args: fn(*args))
+    monkeypatch.setattr(tops, "_STAGED_CHECKED", [])
+    monkeypatch.setattr(tops, "LAUNCHES", dict.fromkeys(tops.LAUNCHES, 0))
+    monkeypatch.setattr(tops, "CONV_VARIANT_LAUNCHES",
+                        {"staged": 0, "direct": 0})
+    B, C, O = 65537, 4, 8
+    spec = tq.QuantSpec(8, True)
+    x = torch.zeros(B, 2, 2, C)
+    out = tops._fused_conv2d(x, torch.zeros(9 * C, 256, O), spec, 0.5, 1, 3,
+                             3, variant="staged")
+    assert out.shape == (B, 2, 2, O)
+    (codes, cargs), (fetch, fargs) = lib.calls
+    assert codes == "pcilt_conv2d_codes_f32" and cargs[2:6] == (B, 4, 4, C)
+    assert fetch == "pcilt_fused_conv2d_staged_f32" and fargs[4] == B
+    assert tops.LAUNCHES["fused_conv2d"] == 1
+    assert tops.CONV_VARIANT_LAUNCHES == {"staged": 1, "direct": 0}

@@ -62,6 +62,34 @@ def test_gemv_stacked_kernel_matches_plain(cuda, dtype, B, G, O):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,G,O,group", [(262148, 64, 64, 2),
+                                         (4, 230000, 64, 1)])
+def test_fused_gemv_past_the_split_ceilings_matches_plain(cuda, B, G, O,
+                                                          group):
+    """Kernel 9 past the grid's rows (65,537 row chunks of 4: each block
+    walks its chunks) and past a 16-block cluster (230,000 segments: each
+    block stages its offsets in slabs), where the reference computes:
+    two launches bit-identical, within its tolerance of its plain version
+    on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(G)
+    spec = QuantSpec(4, True)
+    tabs = torch.randn(G, 1 << (spec.bits * group), O, generator=gen,
+                       device=cuda) * G ** -0.5
+    x = torch.randn(B, G * group, generator=gen, device=cuda) * 2.0
+    sp = ops.gemv_variant(B, G, O, 4)
+    assert sp.chunks > ops.MAX_GRID_ROWS \
+        or ops.gemv_slab(sp, G) < -(-G // sp.cluster)
+    before = ops.GEMV_VARIANT_LAUNCHES["split"]
+    got = ops.pcilt_fused_gemv(x, tabs, spec, 0.2, group)
+    again = ops.pcilt_fused_gemv(x, tabs, spec, 0.2, group)
+    torch.cuda.synchronize()
+    assert ops.GEMV_VARIANT_LAUNCHES["split"] == before + 2
+    assert torch.equal(got, again)
+    _assert_sum_close(got, ops.fused_gemv_plain(x, tabs, spec, 0.2, group),
+                      1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,C,padding", [(4, 4, 1792, "VALID"),
                                            (3, 9, 33, "CAUSAL")])

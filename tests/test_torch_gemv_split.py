@@ -1,8 +1,11 @@
 """The fused GEMV's split design, host side, on the CPU: the split
-``kernels.ops.gemv_variant`` mirrors (every segment and column covered
-once, slices ascending, shared memory and cluster within the card's
-limits, the block counts at the decode shapes, the cluster grown where a
-block's offsets would overflow and every other split as it was), the
+``kernels.ops.gemv_variant`` mirrors (every row, segment and column
+covered once, slices ascending, shared memory and cluster within the
+card's limits, the block counts at the decode shapes, the cluster grown
+where a block's offsets would overflow and every other split as it was;
+past the grid's 65535 rows of blocks the chunks go on in further planes,
+and
+past a 16-block cluster a block stages its offsets in slabs), the
 wrappers' launches
 (the same split with and without a plan, the design passed, the mirror
 check), and the plain versions behind a forced design.
@@ -42,6 +45,10 @@ WIDE = [(32, 14336, 3584, 4), (64, 14336, 3584, 4), (64, 14336, 3584, 2),
         (16, 19200, 7168, 4), (32, 19200, 7168, 4), (32, 19200, 7168, 2),
         (64, 19200, 7168, 4), (64, 19200, 7168, 2), (1056, 20000, 8, 4)]
 WIDE_SHAPES = list(dict.fromkeys((B, G, O) for B, G, O, _ in WIDE))
+#: (B, G, O) past the ceilings the split once had and the reference never
+#: did: a 16-block cluster's offsets past a block's shared memory (at 264
+#: row chunks and at one), and more than 65535 row chunks
+CEILING_SHAPES = [(1056, 300000, 8), (4, 230000, 8), (4 * 65536, 64, 8)]
 
 
 def _blocks(split):
@@ -55,14 +62,36 @@ def _slices(split, G):
     return [(s * G // S, (s + 1) * G // S) for s in range(S)]
 
 
+def _summed_rows(split, B):
+    """How often each row is summed: block ``(x, y, z)`` of the grid sums
+    row chunk ``z * 65535 + y`` (none past the last)."""
+    gx, gy, gz = ops.gemv_grid(split)
+    assert gx == split.tiles * split.cluster
+    assert gy <= ops.MAX_GRID_ROWS and gz <= ops.MAX_GRID_ROWS
+    seen = np.zeros(B, np.int32)
+    for z in range(gz):
+        for y in range(gy):
+            c = z * ops.MAX_GRID_ROWS + y
+            if c < split.chunks:
+                seen[c * ops.GEMV_ROWS:(c + 1) * ops.GEMV_ROWS] += 1
+    return seen
+
+
+def _slabbed(r0, r1, slab):
+    """The slabs a block stages of its segments ``[r0, r1)``."""
+    return [(t, min(t + slab, r1)) for t in range(r0, r1, slab)]
+
+
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES
-                         + WIDE_SHAPES)
+                         + WIDE_SHAPES + CEILING_SHAPES)
 def test_split_covers_every_segment_and_column_once(itemsize, B, G, O):
     """Each output tile's slots partition [0, G) into ascending slices, a
     block's slots cover exactly the segments whose offsets it packs
-    (``[rank*G // cluster, (rank+1)*G // cluster)``), every (segment,
-    column) is summed by exactly one slot, and the row chunks cover B.
+    (``[rank*G // cluster, (rank+1)*G // cluster)``), its slabs cover
+    those once, every (segment, column) is summed by exactly one slot, and
+    the grid's row chunks (on further planes past its rows) cover B
+    once.
     A (segment, column) is summed once for each slice holding the segment
     times each tile lane holding the column, so the two counts are taken
     apart (a [G, O] count would take 0.55 GB at deepseek-coder-33b's)."""
@@ -75,10 +104,17 @@ def test_split_covers_every_segment_and_column_once(itemsize, B, G, O):
     assert all(a[1] == b[0] and a[0] <= a[1] for a, b in
                zip(slices, slices[1:]))
     sb = sp.warps * sp.groups
+    slab = ops.gemv_slab(sp, G)
+    staged = np.zeros(G, np.int32)
     for rank in range(sp.cluster):
         mine = slices[rank * sb:(rank + 1) * sb]
-        assert (mine[0][0], mine[-1][1]) == (rank * G // sp.cluster,
-                                             (rank + 1) * G // sp.cluster)
+        r0, r1 = rank * G // sp.cluster, (rank + 1) * G // sp.cluster
+        assert (mine[0][0], mine[-1][1]) == (r0, r1)
+        for t0, t1 in _slabbed(r0, r1, slab):
+            assert 0 < t1 - t0 <= slab
+            staged[t0:t1] += 1
+    assert (staged == 1).all()
+    assert (_summed_rows(sp, B) == 1).all()
     segs, cols = np.zeros(G, np.int32), np.zeros(O, np.int32)
     for t in range(sp.tiles):
         c = np.array([t * sp.tile + sl * nv + k for sl in range(sp.lanes)
@@ -93,7 +129,7 @@ def test_split_covers_every_segment_and_column_once(itemsize, B, G, O):
 
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES
-                         + WIDE_SHAPES)
+                         + WIDE_SHAPES + CEILING_SHAPES)
 def test_split_fits_a_block_and_a_cluster(itemsize, B, G, O):
     """A block's shared memory fits the card's 227 KB, its warps the
     declared most, its slots a warp; the cluster is a power of two within
@@ -170,11 +206,13 @@ def test_a_split_that_fitted_is_unchanged():
 @pytest.mark.parametrize("B,G,O,itemsize", WIDE)
 def test_wide_offsets_grow_the_cluster(B, G, O, itemsize):
     """Where the row chunks alone fill the grid, a block would stage all G
-    offsets: the cluster doubles (here to 2) until they fit, no further."""
+    offsets, which one block cannot hold at once: the cluster doubles
+    (here to 2) until each block's fit in one slab, no further."""
     sp = ops.gemv_variant(B, G, O, itemsize)
     one = sp._replace(cluster=1)
-    assert ops.gemv_smem_bytes(one, G) > ops.SMEM_LIMIT
-    assert sp.cluster == 2 and ops.gemv_smem_bytes(sp, G) <= ops.SMEM_LIMIT
+    assert ops.gemv_slab(one, G) < G
+    assert sp.cluster == 2 and ops.gemv_slab(sp, G) == -(-G // 2)
+    assert ops.gemv_smem_bytes(sp, G) <= ops.SMEM_LIMIT
     assert ops.gemv_candidates(B, G, O, itemsize) == ["split"]
 
 
@@ -234,7 +272,8 @@ class _FakeLibrary:
 
     def pcilt_gemv_split_plan(self, B, G, O, itemsize, out):
         sp = self.plan or ops.gemv_variant(B, G, O, itemsize)
-        out[:] = [*sp, ops.gemv_smem_bytes(sp, G)]
+        out[:] = [*sp, ops.gemv_smem_bytes(sp, G), ops.gemv_slab(sp, G),
+                  ops.gemv_planes(sp)]
         return 0
 
     def __getattr__(self, name):
@@ -358,20 +397,29 @@ def test_a_wide_split_reaches_the_library(fake_card):
 
 @pytest.mark.parametrize("B,G", [(1056, 300000), (4, 230000),
                                  (4 * 65536, 64)])
-def test_a_split_beyond_a_cluster_is_refused(fake_card, B, G):
+def test_a_split_beyond_a_cluster_reaches_the_library(fake_card, B, G):
     """A 16-block cluster stages ceil(G / 16) offsets a block: past ~224,000
-    segments they overflow it, and past 65535 row chunks the grid does;
-    the wrapper raises before anything is launched."""
+    segments they overflow its shared memory, so it stages them in slabs;
+    past 65535 row chunks the grid's rows run out, so the chunks go on in
+    a second plane of the grid.  The plan fits a block (covering every row, segment
+    and column once: ``test_split_covers_every_segment_and_column_once``
+    at these shapes) and the split launch reaches the library, its plan
+    (the slab among it) checked against the mirror first, as the
+    reference computes these shapes."""
     spec = QuantSpec(4, True)
     x = torch.zeros(B, 2)
     sp = ops.gemv_variant(B, G, 8, 4)
-    assert sp.chunks > 65535 or (
-        sp.cluster == ops.GEMV_MAX_CLUSTER
-        and ops.gemv_smem_bytes(sp, G) > ops.SMEM_LIMIT)
-    with pytest.raises(ValueError, match="shared memory a block"):
-        ops._launch_gemv("fused_gemv", x, torch.zeros(1, 256, 8), G, 8, 2,
-                         256 * 8, 0, spec, 0.5, False)
-    assert fake_card.calls == []
+    slab = ops.gemv_slab(sp, G)
+    assert sp.chunks > ops.MAX_GRID_ROWS or (
+        sp.cluster == ops.GEMV_MAX_CLUSTER and slab < -(-G // sp.cluster))
+    assert ops.gemv_smem_bytes(sp, G) <= ops.SMEM_LIMIT
+    assert ops.gemv_candidates(B, G, 8, 4)[0] == "split"
+    ops._launch_gemv("fused_gemv", x, torch.zeros(1, 256, 8), G, 8, 2,
+                     256 * 8, 0, spec, 0.5, False)
+    assert [_fused_args(c) for c in fake_card.calls] == \
+        [("pcilt_gemv_*_f32", (B, G, 8), 0)]
+    assert (sp.chunks, G, 8, 4) in ops._GEMV_CHECKED
+    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 1, "direct": 0}
 
 
 def test_unknown_forced_design_is_refused():

@@ -39,6 +39,10 @@ HEAD_SHAPES = [(4, 384, 50288), (1, 384, 50288), (2, 384, 50288),
 RAGGED_SHAPES = [(2, 6, 7), (4, 384, 16), (3, 5, 13), (5, 96, 200),
                  (1, 7, 130), (9, 3, 1), (2, 1, 5000), (4, 64, 130),
                  (7, 40, 1030)]
+#: (B, G, O) past the ceilings kernel 3's split once had: more than 65535
+#: row chunks, and a 16-block cluster's slices whose pool rows leave no
+#: room for two blocks an SM (~97,000 segments at 4 float32 rows)
+CEILING_SHAPES = [(262148, 32, 64), (4, 2_000_000, 8), (4, 230000, 64)]
 #: (M = B*T, C, V) the port launches kernel 12 at: the single-layer signal,
 #: the card checks' ragged signals
 DW_SHAPES = [(4 * 2048, 1792, 256), (3 * 9, 33, 16), (3 * 5, 33, 16),
@@ -53,18 +57,28 @@ def _tune_cache(tmp_path_factory):
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("B,G,O", HEAD_SHAPES + RAGGED_SHAPES)
+@pytest.mark.parametrize("B,G,O", HEAD_SHAPES + RAGGED_SHAPES
+                         + CEILING_SHAPES)
 def test_shared_split_covers_every_segment_and_column_once(itemsize, B, G,
                                                            O):
     """The cluster's slices partition [0, G) into ascending runs in rank
     order (so each accumulator adds its segments in ascending g and the
-    slice sums in slice order), the tiles' lanes cover every column once,
-    and the row chunks cover B."""
+    slice sums in slice order), each block's slabs walk its slice once in
+    that order, the tiles' lanes cover every column once, and the row
+    chunks that the grid's rows of blocks walk cover B once."""
     sp = ops.shared_gemv_variant(B, G, O, itemsize)
     slices = ops.shared_gemv_slices(sp, G)
     assert len(slices) == sp.cluster
     order = [g for g0, g1 in slices for g in range(g0, g1)]
     assert order == list(range(G))
+    slab = ops.shared_gemv_slab(sp, G)
+    walked = [g for g0, g1 in slices for t in range(g0, g1, slab)
+              for g in range(t, min(t + slab, g1))]
+    assert walked == order
+    gy = min(sp.chunks, ops.MAX_GRID_ROWS)
+    rows = sorted(r for y in range(gy) for c in range(y, sp.chunks, gy)
+                  for r in range(c * sp.rows, min(B, (c + 1) * sp.rows)))
+    assert rows == list(range(B))
     nv = ops.SHARED_LANE_BYTES // itemsize
     assert sp.tile == sp.warps * 32 * nv
     cols = np.zeros(O, np.int32)
@@ -77,7 +91,8 @@ def test_shared_split_covers_every_segment_and_column_once(itemsize, B, G,
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("B,G,O", HEAD_SHAPES + RAGGED_SHAPES)
+@pytest.mark.parametrize("B,G,O", HEAD_SHAPES + RAGGED_SHAPES
+                         + CEILING_SHAPES)
 def test_shared_split_fits_a_block_and_a_cluster(itemsize, B, G, O):
     """A block's shared memory fits the card's 227 KB, its warps the
     declared most, its rows 1, 2 or 4; the cluster is a power of two up to
@@ -236,7 +251,8 @@ class _FakeLibrary:
 
     def pcilt_shared_gemv_split_plan(self, B, G, O, itemsize, out):
         sp = self.split or ops.shared_gemv_variant(B, G, O, itemsize)
-        out[:] = [*sp, ops.shared_gemv_smem_bytes(sp, G)]
+        out[:] = [*sp, ops.shared_gemv_smem_bytes(sp, G),
+                  ops.shared_gemv_slab(sp, G)]
         return 0
 
     def pcilt_dwconv1d_staged_config(self, cfg):
@@ -332,17 +348,45 @@ def test_forced_designs_that_cannot_serve_a_shape_raise(fake_card):
     assert ops.LAUNCHES["shared_gemv"] == ops.LAUNCHES["dwconv1d_host"] == 0
 
 
-def test_a_split_beyond_a_block_is_refused(fake_card):
+def test_a_split_beyond_a_block_reaches_the_library(fake_card):
     """Two million segments leave a slice of 125,000 in each of 16
-    blocks: their pool rows alone need 2 MB of shared memory."""
+    blocks: their pool rows alone would need 2 MB of shared memory, so each
+    block stages them in slabs that keep two blocks an SM, and the split
+    launch reaches the library (its plan, the slab among it, checked
+    against the mirror first), as the reference computes this shape."""
     spec = tq.QuantSpec(4, True)
     G = 2_000_000
     sp = ops.shared_gemv_variant(4, G, 8, 4)
-    assert ops.shared_gemv_smem_bytes(sp, G) > ops.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory a block"):
-        ops.pcilt_shared_gemv(torch.zeros(4, G), torch.zeros(1, 16, 8),
-                              torch.zeros(G, dtype=torch.int32), spec, 0.5, 1)
-    assert fake_card.calls == []
+    slab = ops.shared_gemv_slab(sp, G)
+    assert sp.cluster == ops.SHARED_MAX_CLUSTER and slab < -(-G // 16)
+    assert ops.SHARED_BLOCKS_PER_SM * (ops.shared_gemv_smem_bytes(sp, G)
+                                       + ops.BLOCK_RESERVED_SMEM) \
+        <= ops.SM_SMEM_BYTES
+    ops.pcilt_shared_gemv(torch.zeros(4, G), torch.zeros(1, 16, 8),
+                          torch.zeros(G, dtype=torch.int32), spec, 0.5, 1)
+    assert [(n, a[4:9], a[-1]) for n, a in fake_card.calls] == \
+        [("pcilt_shared_gemv_f32", (4, G, 1, 16, 8), 0)]
+    assert (4, G, 8, 4) in ops._SHARED_CHECKED
+    assert ops.SHARED_GEMV_VARIANT_LAUNCHES == {"split": 1, "direct": 0}
+
+
+def test_a_split_past_the_grid_rows_reaches_the_library(fake_card):
+    """B 262,148 at 4 rows a block is 65,537 row chunks, two more than a
+    grid's rows of blocks: the grid keeps 65535 and each block walks its
+    chunks, so the split launch reaches the library with the whole
+    batch."""
+    spec = tq.QuantSpec(4, True)
+    B, G, O = 262148, 32, 64
+    sp = ops.shared_gemv_variant(B, G, O, 4)
+    assert sp.chunks == 65537 > ops.MAX_GRID_ROWS
+    assert ops.shared_gemv_candidates(B, G, O, 4)[0] == "split"
+    ops.pcilt_shared_gemv(torch.zeros(B, 2 * G), torch.zeros(4, 256, O),
+                          torch.arange(G, dtype=torch.int32) % 4, spec, 0.5,
+                          2)
+    assert [(n, a[4:9], a[-1]) for n, a in fake_card.calls] == \
+        [("pcilt_shared_gemv_f32", (B, G, 4, 256, O), 0)]
+    assert ops.LAUNCHES["shared_gemv"] == 1
+    assert ops.SHARED_GEMV_VARIANT_LAUNCHES == {"split": 1, "direct": 0}
 
 
 def test_a_library_that_splits_or_tiles_otherwise_is_refused(fake_card):
