@@ -76,8 +76,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    and fetch summed; the host-packed GEMV and conv: the staged design;
    each beside the kept design forced and the fetch floor from the SM
    count and ``clocks.max.sm``); their plain versions on a 64x48 crop.
-   The host-packed GEMV also runs at phase 10's M = 4 plan shape (the kept
-   design, which the chooser keeps for it) beside ``matmul``.  The fused
+   The host-packed GEMV also runs at phase 10's M = 4 plan shape (the
+   split design, the chooser's at decode-size M, beside the kept direct
+   and staged designs forced) beside ``matmul``.  The fused
    dwconv runs the decode window (counters on, the engine's) and the full
    [4, 2048, 1792] signal in the tiled design, beside the kept one forced,
    with and without the zero fill of its stats.  The fused GEMVs run every shape a decode step launches
@@ -188,9 +189,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     (the chunked attention path), timed, with ``_sdpa_chunked`` against
     ``_sdpa_dense`` on layer 0 (2e-2 of the largest output);
     ``launch.serve_pcilt.run`` at this width (layer 0's MLP, its fetch
-    paths against the dense product; kernel 6's kept design at M = 4,
-    timed beside ``matmul`` by CUDA events behind two L2 flushes: late in
-    a run the profiler loses records); ``launch.decode_pcilt.run`` through kernels 1
+    paths against the dense product; kernel 6's split design at M = 4,
+    timed beside its kept direct and staged designs and ``matmul`` by CUDA
+    events behind two L2 flushes: late in a run the profiler loses
+    records); ``launch.decode_pcilt.run`` through kernels 1
     and 2 and its oracle check, its tokens equal to the CPU run's;
 14. training (``launch.train.run``, AdamW, the seeded corpus, the
     ``Supervisor``): qwen3-0.6b ``--full`` at full width and depth for 6
@@ -438,10 +440,23 @@ DWCONV_STAGED_KERNEL = "dwconv1d_staged_kernel"
 #: kept design's one
 STAGED_KERNELS = ("conv2d_codes_kernel", "conv2d_staged_kernel")
 DIRECT_KERNEL = "conv2d_kernel"
-#: the host-packed GEMV's staged design and its kept one; the fused
-#: dwconv's tiled design and its kept one
+#: the host-packed GEMV's split design (its one-pass kernel), staged design
+#: and kept one; the fused dwconv's tiled design and its kept one
+HOST_SPLIT_KERNEL = "gemv_host_split_kernel"
 HOST_STAGED_KERNEL = "gemv_host_staged_kernel"
 HOST_DIRECT_KERNEL = "gemv_host_kernel"
+#: kernel 6's split design in phase 3: its row counts, and its cases (what,
+#: G, V, O, table dtype, exact grid): serve_pcilt's gate, the learnable
+#: example's tables, a ragged O, bfloat16, an exact grid, V 4096; every
+#: case with offsets of -1, V and 2**31 - 1 mixed in
+HOST_SPLIT_ROWS = (1, 4, 64, 1023)
+HOST_SPLIT_CASES = (
+    ("gate G512 V256 O3072", 512, 256, 3072, "float32", False),
+    ("learnable G8 V16 O4", 8, 16, 4, "float32", False),
+    ("ragged G25 V256 O13", 25, 256, 13, "float32", False),
+    ("gate G512 V256 O3072 bf16", 512, 256, 3072, "bfloat16", False),
+    ("gate G512 V256 O3072 exact grid", 512, 256, 3072, "float32", True),
+    ("large V G64 V4096 O33", 64, 4096, 33, "float32", False))
 DWCONV_TILED_KERNEL = "dwconv1d_tiled_kernel"
 DWCONV_DIRECT_KERNEL = "dwconv1d_kernel"
 #: shared memory / L1 data path of one SM, bytes a clock (the conv fetch
@@ -855,20 +870,23 @@ def dwconv_designs(torch, ops, run):
     return runs
 
 
-def host_designs(torch, ops, run):
-    """``run(variant)``, one host-packed GEMV or conv launch, in both
-    designs: the staged design (the wrappers' choice) twice, which must
-    give the same bits, and the kept design forced; the variant counts must
-    say which ran.  -> (staged result, kept result)."""
+def host_designs(torch, ops, run, chosen="staged", others=()):
+    """``run(variant)``, one host-packed GEMV or conv launch: the wrappers'
+    choice (``chosen``, the staged or the split design) twice, which must
+    give the same bits, the kept design forced and each of ``others``
+    forced; the variant counts must say which ran.  -> (chosen result, kept
+    result, [the others' results])."""
     seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
     got, again, kept = run(None), run(None), run("direct")
+    forced = [run(v) for v in others]
     torch.cuda.synchronize()
-    diff = {v: c - seen[v] for v, c in ops.GEMV_HOST_VARIANT_LAUNCHES.items()}
-    require(diff == {"staged": 2, "direct": 1},
-            f"the host-packed designs ran {diff}, not staged 2, direct 1")
+    diff = {v: c - seen[v] for v, c in ops.GEMV_HOST_VARIANT_LAUNCHES.items()
+            if c != seen[v]}
+    want = {chosen: 2, "direct": 1, **dict.fromkeys(others, 1)}
+    require(diff == want, f"the host-packed designs ran {diff}, not {want}")
     require(torch.equal(got, again),
-            "two launches of the staged host-packed GEMV differ")
-    return got, kept
+            f"two launches of the {chosen} host-packed GEMV differ")
+    return got, kept, forced
 
 
 def kept_design(ops, calls):
@@ -1053,6 +1071,7 @@ def check_kernels(torch, ops, core, report):
            ok, "exact, the split's order")
     del pool, x, got, again, ordered
     check_conv_kernels(torch, ops, record, gen)
+    check_host_split(torch, ops, record, gen)
     check_slice3_kernels(torch, ops, record, gen)
     check_plan_kernel(torch, ops, record, gen)
     check_wide_gemv(torch, ops, record, gen)
@@ -1377,13 +1396,69 @@ def check_conv_kernels(torch, ops, record, gen):
                 ("conv2d_host", lambda v: ops._conv2d_host(off, tabs,
                                                            variant=v),
                  pcilt_conv2d_ref(off, tabs))):
-            if host == "staged":
-                got, kept = host_designs(torch, ops, run)
-                check(kernel, got, plain)
-                check(kernel, kept, plain, " kept kernel")
-            else:
+            if host == "direct":
                 check(kernel, run(None), plain)
+                continue
+            others = [d for d in ops.gemv_host_candidates(
+                flat.shape[0], G, tabs.shape[1], O, tabs.element_size())
+                if d not in (host, "direct")]
+            got, kept, forced = host_designs(torch, ops, run, host, others)
+            check(kernel, got, plain, "" if host == "staged" else
+                  f" {host} design")
+            check(kernel, kept, plain, " kept kernel")
+            for d, out in zip(others, forced):
+                check(kernel, out, plain, f" {d} design forced")
         del tabs, pool, off, flat
+
+
+def check_host_split(torch, ops, record, gen):
+    """Kernel 6's split design at HOST_SPLIT_ROWS rows of each of
+    HOST_SPLIT_CASES (the chooser's at up to 64 rows; forced at 1023, where
+    the gate's rows take the staged design), with offsets of -1, V and
+    2**31 - 1 mixed in (they add nothing): the split design twice,
+    bit-identical, and the kept direct design forced, each against its
+    plain version at kernel 9's tolerances: an exact grid bit-equal;
+    float32 within 1e-4 of max|plain| (the slices sum in another order);
+    bfloat16 within 1e-2 (one rounding of the float32 sum).  The library's
+    split of each shape is checked against ``gemv_variant`` at its first
+    launch."""
+    from repro_torch.kernels.ref import pcilt_gemv_ref
+
+    dev = torch.device("cuda")
+    for what, G, V, O, dt, exact in HOST_SPLIT_CASES:
+        dtype = getattr(torch, dt)
+        if exact:
+            tabs = torch.randint(-3, 4, (G, V, O), generator=gen, device=dev)
+        else:
+            tabs = torch.randn(G, V, O, generator=gen, device=dev)
+        tabs = tabs.to(torch.float32).to(dtype)
+        es = tabs.element_size()
+        rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        tol = "exact" if exact else f"rtol {rtol}"
+        for M in HOST_SPLIT_ROWS:
+            require(M > 64 or ops.gemv_host_variant(M, G, V, O, es)
+                    == "split", f"kernel 6 at M {M}, {what} is not the "
+                    f"split design")
+            off = torch.randint(0, V, (M, G), generator=gen, device=dev,
+                                dtype=torch.int32)
+            off.view(-1)[::7] = -1
+            off.view(-1)[1::11] = V
+            off.view(-1)[2::13] = 2 ** 31 - 1
+            got, kept, _ = host_designs(
+                torch, ops, lambda v: ops._gemv_host(
+                    off, tabs, variant=v or "split"), "split")
+            require((ops.gemv_variant(M, G, O, es).chunks, G, O, es)
+                    in ops._HOST_SPLIT_CHECKED,
+                    f"kernel 6 at M {M}, {what}: the library's split was "
+                    f"not checked")
+            want = pcilt_gemv_ref(off, tabs)
+            for design, out in (("split", got), ("kept design", kept)):
+                mx, ok = close(torch, out, want, rtol, exact)
+                record("gemv_host", f"M{M} {what}, offsets out of range, "
+                       f"{design}", mx, ok, tol)
+            del off, got, kept, want
+        del tabs
+        torch.cuda.empty_cache()
 
 
 def check_slice3_kernels(torch, ops, record, gen):
@@ -2055,15 +2130,20 @@ def time_plan_kernel(torch, ops, report, rows):
         f"  x1/projection")
 
     # -- kernel 6 at the same shape, on the plan's packed offsets ([4, 512]:
-    #    phase 10's path="kernel"), in the kept design the chooser keeps for
-    #    M = 4, beside the same matmul
+    #    phase 10's path="kernel"), in the split design the chooser takes
+    #    at decode-size M, beside its kept direct and staged designs forced
+    #    and the same matmul
     offs = [plan_offsets(torch, x, plan, spec, scale) for x in xs]
-    require(ops.gemv_host_variant(B, G, 256, O, 4) == "direct",
-            "kernel 6 at M = 4 is not the kept design")
+    require(ops.gemv_host_variant(B, G, 256, O, 4) == "split",
+            "kernel 6 at M = 4 is not the split design")
     nbytes = uniq * O * 4 + B * G * 4 + B * O * 4
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     k = timed([lambda o=o: ops.pcilt_gemv(o, tabs) for o in offs] * 4,
-              HOST_DIRECT_KERNEL)
+              HOST_SPLIT_KERNEL)
+    kept = {v: timed([lambda o=o: ops._gemv_host(o, tabs, variant=v)
+                      for o in offs] * 4, name)
+            for v, name in (("direct", HOST_DIRECT_KERNEL),
+                            ("staged", HOST_STAGED_KERNEL))}
     p = timed([lambda o=o: ops.gemv_host_plain(o, tabs) for o in offs] * 2)
     rows["gemv_host plan M4"] = {
         "kernel": "gemv_host", "shape": [B, G, 256, O], "ms": k["ms"],
@@ -2074,11 +2154,17 @@ def time_plan_kernel(torch, ops, report, rows):
         "library_call": LIB_NOTE["gemv_plan"], "bound_ms": max(b_ms, o_ms),
         "bound_by": "bytes" if b_ms >= o_ms else "operations",
         "bytes": nbytes, "fetch_adds": B * G * O,
-        "launches_per_projection": 1, "variant": "direct"}
+        "launches_per_projection": 1, "variant": "split",
+        "direct_ms": kept["direct"]["ms"],
+        "direct_warm_ms": kept["direct"]["warm_ms"],
+        "staged_ms": kept["staged"]["ms"],
+        "staged_warm_ms": kept["staged"]["warm_ms"]}
     log(f"time  {'gemv_host':19s} {'gemv_host plan M4':26s} kernel "
-        f"{k['ms'] * 1e3:8.2f} us (warm {k['warm_ms'] * 1e3:8.2f}, the kept "
-        f"design)  plain {p['ms'] * 1e3:9.2f} us  library "
-        f"{lib['ms'] * 1e3:8.2f} us  bound {max(b_ms, o_ms) * 1e3:7.2f} us")
+        f"{k['ms'] * 1e3:8.2f} us (warm {k['warm_ms'] * 1e3:8.2f}, the split "
+        f"design)  kept direct {kept['direct']['ms'] * 1e3:8.2f} us  kept "
+        f"staged {kept['staged']['ms'] * 1e3:8.2f} us  plain "
+        f"{p['ms'] * 1e3:9.2f} us  library {lib['ms'] * 1e3:8.2f} us  bound "
+        f"{max(b_ms, o_ms) * 1e3:7.2f} us")
     del tabs, w, wg, flush, offs
 
 
@@ -3020,7 +3106,7 @@ def paper_cnn(torch, ops, report):
         out["kernel"] = {"forward_s": secs, "image": list(KERNEL_HW),
                          "designs": host_d}
         log(f"  forward {secs * 1e3:.1f} ms; designs {host_d}")
-        require(host_d == {"staged": L, "direct": 0},
+        require(host_d == {"split": 0, "staged": L, "direct": 0},
                 f"the host-packed forward ran kernel 6's designs {host_d}")
         dm = model.forward(params, xs, mode="dm", scales=scales)
         _logits_check(torch, f"kernel {KERNEL_HW[1]}x{KERNEL_HW[0]}", logits,
@@ -3588,7 +3674,7 @@ def plans_and_extensions(torch, ops, report):
     out = {"plans": {}}
 
     head = {"split": 0, "direct": 0}
-    host = {"staged": 0, "direct": 0}
+    host = {"split": 0, "staged": 0, "direct": 0}
 
     def counted(fn):
         """Run one call of the path, its launches counted from 0."""
@@ -3736,7 +3822,7 @@ def plans_and_extensions(torch, ops, report):
             f"phase 10 did not run through kernels 11, 6, 9 and 3: {seen}")
     require(head == {"split": 1, "direct": 0},
             f"phase 10's shared tables ran kernel 3's designs {head}")
-    require(host == {"staged": 0, "direct": 4},
+    require(host == {"split": 4, "staged": 0, "direct": 0},
             f"phase 10's M = 4 host path ran kernel 6's designs {host}")
     out["launches"] = seen
     out["head_designs"] = head
@@ -3780,7 +3866,7 @@ def learnable(torch, ops, report):
             == {"gemv_host": 4},
             f"the trained tables were not served through kernel 6: "
             f"{launches}")
-    require(host == {"staged": 0, "direct": 4},
+    require(host == {"split": 4, "staged": 0, "direct": 0},
             f"the trained tables (64 rows) ran kernel 6's designs {host}")
     report["learnable"] = {**res, "cpu_losses": cpu["losses"],
                            "launches": launches, "host_designs": host}
@@ -4129,8 +4215,8 @@ def dense_serving(torch, ops, report):
     torch.cuda.synchronize()
     pl = {k: v for k, v in ops.LAUNCHES.items() if v}
     host_d = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
-    require(pl.get("gemv_host") == 1 and host_d == {"staged": 0,
-                                                    "direct": 1},
+    require(pl.get("gemv_host") == 1 and host_d == {"split": 1, "staged": 0,
+                                                    "direct": 0},
             f"serve_pcilt's kernel path ran {pl}, designs {host_d}")
     for k_, v_ in pl.items():
         launches[k_] = launches.get(k_, 0) + v_
@@ -4149,6 +4235,8 @@ def dense_serving(torch, ops, report):
     flush = L2Flush(torch)
     # by CUDA events, not the profiler: late in a run it loses records
     kt = lead_timed(torch, lambda: ops.pcilt_gemv(off, tabs), flush)
+    kept = {v: lead_timed(torch, lambda v=v: ops._gemv_host(
+        off, tabs, variant=v), flush) for v in ("direct", "staged")}
     pt = lead_timed(torch, lambda: ops.gemv_host_plain(off, tabs), flush)
     lt = lead_timed(torch, lambda: torch.matmul(xq, w), flush)
     row = {"shape": [off.shape[0], G, V, O], "ms": kt, "plain_ms": pt,
@@ -4157,9 +4245,12 @@ def dense_serving(torch, ops, report):
            "library_call": "torch.matmul(x_q, W)",
            "bound_ms": max(b_ms, o_ms),
            "bound_by": "bytes" if b_ms >= o_ms else "operations",
-           "bytes": nbytes, "variant": "direct"}
+           "bytes": nbytes, "variant": "split",
+           "direct_ms": kept["direct"], "staged_ms": kept["staged"]}
     log(f"  kernel 6 at M = {off.shape[0]} (the gate, G {G}, V {V}, O {O}; "
-        f"the kept design): {kt * 1e3:.2f} us, plain {pt * 1e3:.2f} us, "
+        f"the split design): {kt * 1e3:.2f} us, kept direct "
+        f"{kept['direct'] * 1e3:.2f} us, kept staged "
+        f"{kept['staged'] * 1e3:.2f} us, plain {pt * 1e3:.2f} us, "
         f"matmul {lt * 1e3:.2f} us (CUDA events, L2 flushed), bound "
         f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     out["serve_pcilt"] = {"errors": res["errors"],
@@ -7903,7 +7994,8 @@ def main() -> int:
     # kernel 6 where an entry point serves it: serve_pcilt's M = 4 gate
     m4 = report["dense_rows"]["gemv_host serve_pcilt M4"]
     next(k for k in kernels if k["name"] == "gemv_host")["serve_pcilt_m4"] = {
-        k: m4[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+        k: m4[k] for k in ("shape", "variant", "ms", "direct_ms",
+                           "staged_ms", "plain_ms", "library_ms",
                            "bound_ms", "bound_by")}
     head = rows["crc32 head"]
     kernels[-1].update(head_shape=head["shape"], head_ms=head["ms"],

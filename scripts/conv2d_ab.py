@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The staged conv kernel (kernels 4 and 5) of several checkouts, side by
-side on one card.
+"""The staged conv kernels (kernels 4 and 5, and the host-packed 6 and 7)
+of several checkouts, side by side on one card.
 
     python3 scripts/conv2d_ab.py TREE TREE ...
 
@@ -13,10 +13,12 @@ paper CNN of that tree's ``chip_smoke.py`` (seeded weights, the seeded
 times conv4 (C 200, O 350) through the wrappers a user calls:
 ``pcilt_fused_conv2d`` (kernel 4) and ``pcilt_shared_conv2d`` on phase
 4's shared pool (kernel 5, X 5000), each the staged design's code pre-pass
-and fetch, by CUDA events over 3 calls after one warm-up.  It prints each
-tree's times, the sha256 of each output's bytes (byte-equal across trees
-or not), and the registers and spills ``ptxas`` reported for each template
-instance of ``conv2d_staged_kernel``.
+and fetch, then ``pcilt_gemv`` and ``pcilt_conv2d`` (kernels 6 and 7, the
+staged design) on conv4's packed offsets, by CUDA events over 3 calls after
+one warm-up.  It prints each tree's times, the sha256 of each output's
+bytes (byte-equal across trees or not), and the registers and spills
+``ptxas`` reported for each template instance of
+``conv2d_staged_kernel``.
 """
 
 import json
@@ -91,7 +93,18 @@ with torch.no_grad():
     out = {"tree": tree, "conv4_ms": mean_ms(fused),
            "conv4_shared_ms": mean_ms(shared),
            "X": int(pool.pool.shape[0])}
-    for name, run in (("conv4", fused), ("conv4_shared", shared)):
+    G = tabs.shape[0]
+    off = cs.host_offsets(torch, xp, spec, s, k, G)
+    gemv = lambda: ops.pcilt_gemv(off.view(-1, G), tabs)
+    conv = lambda: ops.pcilt_conv2d(off, tabs)
+    host_before = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+    out["conv4_gemv_host_ms"] = mean_ms(gemv)
+    out["conv4_conv2d_host_ms"] = mean_ms(conv)
+    out["host_designs"] = {d: c - host_before[d] for d, c in
+                           ops.GEMV_HOST_VARIANT_LAUNCHES.items()}
+    for name, run in (("conv4", fused), ("conv4_shared", shared),
+                      ("conv4_gemv_host", gemv),
+                      ("conv4_conv2d_host", conv)):
         y = run()
         torch.cuda.synchronize()
         out[name + "_sha256"] = hashlib.sha256(
@@ -128,13 +141,16 @@ def main():
                           x["spill_loads"]) for x in r["staged_instances"]})
         print(f"{tree}: conv4 {r['conv4_ms']:.3f} ms, conv4 shared (X "
               f"{r['X']}) {r['conv4_shared_ms']:.3f} ms, designs "
-              f"{r['designs']}; conv2d_staged_kernel (registers, spill "
+              f"{r['designs']}; kernel 6 {r['conv4_gemv_host_ms']:.3f} ms, "
+              f"kernel 7 {r['conv4_conv2d_host_ms']:.3f} ms, designs "
+              f"{r['host_designs']}; conv2d_staged_kernel (registers, spill "
               f"stores, spill loads) over its {len(r['staged_instances'])} "
               f"instances: {spills}", flush=True)
         for x in r["staged_instances"]:
             if x["spill_stores"] or x["spill_loads"]:
                 print(f"  spills: {x}", flush=True)
-    for name in ("conv4_sha256", "conv4_shared_sha256"):
+    for name in ("conv4_sha256", "conv4_shared_sha256",
+                 "conv4_gemv_host_sha256", "conv4_conv2d_host_sha256"):
         same = len({r[name] for r in results}) == 1
         print(f"{name}: {'byte-equal' if same else 'DIFFERENT'} across the "
               f"trees ({results[0][name][:16]}...)")

@@ -3,10 +3,11 @@
 
     python3 scripts/gemv_split_sweep.py [variant,variant,...]
 
-Builds variants of ``src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu``,
-each with other values of the split design's constants (a text edit of
-their ``constexpr`` lines), another cache hint on the table loads, or a
-stage removed, into ``build/sweep/``, and times each variant's split
+Builds variants of ``src/repro_torch/kernels/csrc/pcilt_gemv_stacked.cu``
+and of the split it shares with kernel 6 (``pcilt_split.cuh``), each with
+other values of the split design's constants (a text edit of their
+``constexpr`` lines), another cache hint on the table loads, or a stage
+removed, into ``build/sweep/<variant>/``, and times each variant's split
 kernel at every shape a decode step launches — kernel 1 at mamba2-130m's
 five projections (4-bit, group 2, B 4; wx and wo with counters, as the
 engine launches them) and kernel 8 at the paired decode's (2-bit, group
@@ -44,7 +45,8 @@ sys.path.insert(0, ROOT)
 NOQUANT = ("\n          xv = xs[j];",
            "\n          xv = (float)((g * 5 + j * 3 + r * 7) % 15 - 7) * "
            "scale;")
-NOFETCH = ("if (gg < ge && r < nb && c + k * VEC < O)", "if (false)")
+NOFETCH = ("if (gg < ge && r < nb && (!CHECKED || o[r] >= 0) &&\n"
+           "              c + k * VEC < O)", "if (false)")
 NOREDUCE = [("if (cs > 1) {  // all the ranks' loads in flight, "
              "then the adds", "if (false) {"),
             ("  if (cs == 1) {\n    __syncthreads();\n  } else {\n"
@@ -126,24 +128,33 @@ def build_variants(names, build):
     csrc = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
     out_dir = os.path.join(ROOT, "build", "sweep")
     os.makedirs(out_dir, exist_ok=True)
-    src = open(os.path.join(csrc, "pcilt_gemv_stacked.cu")).read()
+    srcs = {f: open(os.path.join(csrc, f)).read()
+            for f in ("pcilt_gemv_stacked.cu", "pcilt_split.cuh")}
     procs = {}
     for name in names:
         consts, edits = VARIANTS[name]
-        text = src
+        texts = dict(srcs)
         for const, value in consts.items():
-            text, hits = re.subn(rf"constexpr int {const} = \d+;",
-                                 f"constexpr int {const} = {value};", text)
+            hits = 0
+            for f, text in texts.items():
+                texts[f], n = re.subn(rf"constexpr int {const} = \d+;",
+                                      f"constexpr int {const} = {value};",
+                                      text)
+                hits += n
             if hits != 1:
                 raise SystemExit(f"variant {name}: no constant {const}")
         for old, new in edits:
-            if text.count(old) != 1:
+            where = [f for f, text in texts.items() if old in text]
+            if len(where) != 1 or texts[where[0]].count(old) != 1:
                 raise SystemExit(f"variant {name}: the edit's anchor is not "
-                                 f"in the source once: {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+                                 f"in the sources once: {old!r}")
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        vdir = os.path.join(out_dir, name)  # the variant's header beside it
+        os.makedirs(vdir, exist_ok=True)
+        for f, text in texts.items():
+            with open(os.path.join(vdir, f), "w") as fh:
+                fh.write(text)
+        cu = os.path.join(vdir, "pcilt_gemv_stacked.cu")
         lib = os.path.join(out_dir, f"lib_{name}.so")
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", lib, cu]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -29,8 +29,18 @@ with some set out of range, through integer-valued tables; kernel 2 exact,
 counters exact); each variant's output to the committed one (bit-equal).
 The ablations (marked ``timing only``) give wrong results.
 
-Variants: ``h:base`` and ``f:base`` (the committed sources) and the names in
-``VARIANTS`` below.
+``x:crossover`` times kernel 6's three designs of the committed library
+(``split``, ``staged`` and ``direct``, each forced through
+``ops._gemv_host``) over ``CROSS_CASES``: serve_pcilt's gate and the paper
+CNN's conv1 at ``CROSS_ROWS`` rows, the gate in bfloat16, the CNN's five
+layers at a 64x48 and a 256x192 image, and a narrow O at up to 2**20 rows
+(seeded random tables and offsets), each design first held to the plain
+version (within 1e-4 of its largest output; 1e-2 in bfloat16), and prints
+the fastest design at each row count beside the one
+``ops.gemv_host_variant`` chooses.
+
+Variants: ``h:base`` and ``f:base`` (the committed sources), ``x:crossover``
+and the names in ``VARIANTS`` below.
 """
 
 import ctypes
@@ -100,6 +110,21 @@ VARIANTS = {
     "f:nogather": (DW_SRC, {}, F_NOGATHER, False),
 }
 STAGED, DIRECT = "gemv_host_staged_kernel", "gemv_host_kernel"
+SPLIT = "gemv_host_split"  # its one-pass and slab kernels
+#: the crossover's cases: (what, G, V, O, table dtype, row counts)
+CROSS_ROWS = (1, 4, 16, 64, 256, 1023, 1024, 4096)
+_CNN_ROWS = (64 * 48, 256 * 192)
+CROSS_CASES = (
+    ("gate", 512, 256, 3072, "float32", CROSS_ROWS + (384, 512, 768)),
+    ("gate bf16", 512, 256, 3072, "bfloat16", (64, 256, 384, 512, 768,
+                                               1023)),
+    ("conv1", 1250, 256, 80, "float32", CROSS_ROWS),
+    ("cnn conv0", 25, 256, 50, "float32", _CNN_ROWS),
+    ("cnn conv1", 1250, 256, 80, "float32", _CNN_ROWS),
+    ("cnn conv2", 2000, 256, 120, "float32", _CNN_ROWS),
+    ("cnn conv3", 3000, 256, 200, "float32", _CNN_ROWS),
+    ("cnn conv4", 5000, 256, 350, "float32", _CNN_ROWS),
+    ("narrow", 64, 16, 4, "float32", (4096, 65536, 1 << 20)))
 TILED, DW_DIRECT = "dwconv1d_tiled_kernel", "dwconv1d_kernel"
 
 
@@ -174,6 +199,8 @@ def main():
         else list(VARIANTS)
     layers = [int(i) for i in sys.argv[2].split(",")] \
         if len(sys.argv) > 2 else [4]
+    crossover = "x:crossover" in names
+    names = [n for n in names if n != "x:crossover"]
     build.build_all()
     libs = build_variants(names, build)
     names = [n for n in names if n in libs]
@@ -202,6 +229,50 @@ def main():
               f"({ms / ref_ms:5.3f} x base)  max|d| {err:.3e} "
               f"{'ok' if ok else 'FAIL'}{'' if right else ' (timing only)'}",
               flush=True)
+
+    # -- kernel 6's three designs across the row counts
+    if crossover:
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        for what, G, V, O, dt, rows in CROSS_CASES:
+            dtype = getattr(torch, dt)
+            tabs = torch.randn(G, V, O, generator=gen, device="cuda").to(dtype)
+            offs = torch.randint(0, V, (max(rows), G), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+            best = {}
+            for M in sorted(rows):
+                off = offs[:M].contiguous()
+                # the plain version over a crop of rows (it gathers M x G
+                # x O cells)
+                crop = off[:4096]
+                want = ops.gemv_host_plain(crop, tabs)
+                times = {}
+                for design, kname in (("split", SPLIT), ("staged", STAGED),
+                                      ("direct", DIRECT)):
+                    got = ops._gemv_host(off, tabs, variant=design)
+                    torch.cuda.synchronize()
+                    err, ok = chip_smoke.close(torch, got[:4096], want,
+                                               rtol)
+                    if not ok:
+                        bad.append((f"crossover {what} M{M}", design))
+                    times[design] = timed(
+                        [lambda d=design: ops._gemv_host(off, tabs,
+                                                         variant=d)],
+                        kname)
+                    print(f"crossover {what} G{G} V{V} O{O} M{M:7d} "
+                          f"{design:7s} {times[design] * 1e3:10.2f} us  "
+                          f"max|d| {err:.3e} {'ok' if ok else 'FAIL'}",
+                          flush=True)
+                chosen = ops.gemv_host_variant(M, G, V, O,
+                                               tabs.element_size())
+                best[M] = min(times, key=times.get)
+                print(f"crossover {what} M{M:7d}: fastest {best[M]} "
+                      f"({times[best[M]] * 1e3:.2f} us), chosen {chosen} "
+                      f"({times[chosen] * 1e3:.2f} us, "
+                      f"{times[chosen] / times[best[M]]:.3f} x)", flush=True)
+            print(f"crossover {what}: fastest by rows {best}", flush=True)
+            del tabs, offs
+            torch.cuda.empty_cache()
 
     # -- kernel 6 at the paper CNN's layers on their real offsets
     hnames = [n for n in names if n.startswith("h:")]

@@ -28,9 +28,11 @@ gives (the source and its launch function named beside each):
   (``dwconv_host_tiling``), and the direct one;
 * ``conv`` — the staged conv, kernels 4 and 5 (``staged_smem_bytes``,
   ``staged_block_tile``, the code pre-pass), and the direct one;
-* ``gemv_host`` — the staged host-packed GEMV and conv, kernels 6 and 7
-  (``gemv_host_smem_bytes``, ``gemv_host_block_tile``), and the direct
-  one;
+* ``gemv_host`` — the host-packed GEMV and conv, kernels 6 and 7: the
+  split design (kernel 9's split, ``pcilt_split.cuh``: ``gemv_variant``,
+  ``gemv_grid``, ``gemv_slab``, ``gemv_smem_bytes`` over the rows), the
+  staged one (``gemv_host_smem_bytes``, ``gemv_host_block_tile``) and the
+  direct one;
 * ``crc`` — the CRC-32 of the tables: its chunk pass (the banked design
   and the kept one) and combine passes.
 
@@ -51,7 +53,8 @@ Rules:
 * **SMEM002** (error) — launch limits: ``gridDim.x`` below 2**31, ``.y``
   and ``.z`` at most 65535, at most 1024 threads a block and no more than
   the kernel's ``__launch_bounds__``, a cluster of at most 16 blocks that
-  divides ``gridDim.x``, and more than 8 only where the source sets
+  divides ``gridDim.x``, and more than 8 only where the source (or a
+  header of ``kernels/csrc`` it includes) sets
   ``cudaFuncAttributeNonPortableClusterSizeAllowed``;
 * **SMEM003** (error) — coverage: a design's tiles cover every output row
   and column (and a split's slices every segment) with no gap, and with no
@@ -146,6 +149,10 @@ KERNELS: Dict[str, Tuple[str, str, Optional[str], int, int]] = {
     "conv2d_staged_kernel": ("pcilt_conv2d.cu", "conv2d",
                              "staged::kThreads, 1", 512, 1),
     "gemv_host_kernel": ("pcilt_gemv.cu", "gemv_host", None, MAX_THREADS, 1),
+    "gemv_host_split_kernel": ("pcilt_gemv.cu", "gemv_host",
+                               "32 * split::kWarps, 1", 128, 1),
+    "gemv_host_split_slabs_kernel": ("pcilt_gemv.cu", "gemv_host",
+                                     "32 * split::kWarps, 1", 128, 1),
     "gemv_host_staged_kernel": ("pcilt_gemv.cu", "gemv_host",
                                 "hstaged::kThreads, 1", 512, 1),
     "crc_chunks_kernel": ("pcilt_crc32.cu", "crc32", "kThreads", 256, 1),
@@ -270,6 +277,9 @@ _CONV_C, _CONV_K, _CONV_T = 1792, 4, 2048
 #: the head: [384, 256, 50288] pool; qwen3-0.6b's gate
 _HEAD = (384, 50288)
 _GATE = (512, 3072)
+#: kernel 6's other decode-size shapes (G, V, O): the learnable example's
+#: tables, a ragged O, a V of 4096
+_HOST_SMALL = ((8, 16, 4), (25, 256, 13), (64, 4096, 33))
 #: a full-width mamba2-130m layer's seven table streams and the head's
 #: one, in bytes (float32)
 _LAYER_STREAMS = (4 * 1792 * 65536, 4 * 384 * 256 * 1536,
@@ -339,6 +349,10 @@ CEILING_GEMV = ((1056, 300000, 8, 4), (4, 230000, 8, 4), (262144, 64, 8, 4),
                 (262148, 64, 64, 2))
 CEILING_SHARED = ((262148, 32, 64, 4), (4, 2000000, 8, 4),
                   (4, 230000, 64, 4), (262148, 32, 64, 2))
+#: (M, G, V, O, itemsize) of kernel 6's split past the same ceilings: a
+#: block's segments in slabs, and more than 65535 row chunks (forced: the
+#: chooser stages so many rows)
+CEILING_HOST = ((4, 230000, 2, 8, 4), (262148, 64, 16, 64, 4))
 
 
 def _ceiling(sweep: str, shapes, base) -> Iterable[dict]:
@@ -438,12 +452,16 @@ def _gemv_host_shapes(sweep: str) -> Iterable[dict]:
         for es in (4, 2):
             yield {"M": B * H * W, "G": _CNN_K * _CNN_K * C, "V": _CNN_V,
                    "O": O, "itemsize": es}
-    Ms = (4, 64) if sweep == "quick" else _BATCHES
+    Ms = (1, 4, 64, 1023) if sweep == "quick" else \
+        _BATCHES + (256, 1023, 1024, 4096)
     for M in Ms:
-        for V in (16, 256, 65536):
+        for G, V, O in ((_GATE[0], 16, _GATE[1]), (_GATE[0], 256, _GATE[1]),
+                        (_GATE[0], 65536, _GATE[1])) + _HOST_SMALL:
             for es in (4, 2):
-                yield {"M": M, "G": _GATE[0], "V": V, "O": _GATE[1],
-                       "itemsize": es}
+                yield {"M": M, "G": G, "V": V, "O": O, "itemsize": es}
+    if sweep == "full":
+        for M, G, V, O, es in CEILING_HOST:
+            yield {"M": M, "G": G, "V": V, "O": O, "itemsize": es}
 
 
 def _crc_shapes(sweep: str) -> Iterable[dict]:
@@ -495,6 +513,14 @@ def _row_planes(sp, rows: int, B: int) -> List[str]:
     sums row chunk ``z * MAX_GRID_YZ + y`` (``gemv_grid``), a chunk past
     the last one adding nothing."""
     _, gy, gz = _ops().gemv_grid(sp)
+    if gy * gz > 1 << 17:  # (z, y) -> z * MAX_GRID_YZ + y, gy <= MAX_GRID_YZ
+        reach = (gz - 1) * MAX_GRID_YZ + gy
+        ok = (gz == 1 or gy == MAX_GRID_YZ) and gy <= MAX_GRID_YZ and \
+            reach - gy < sp.chunks <= reach and \
+            (sp.chunks - 1) * rows < B <= sp.chunks * rows
+        return [] if ok else [f"rows: {gz} planes of {gy} row chunks of "
+                              f"{rows} rows for {B} rows ({sp.chunks} "
+                              f"chunks)"]
     chunks = [z * MAX_GRID_YZ + y for z in range(gz) for y in range(gy)]
     return _intervals([(c * rows, min(B, (c + 1) * rows)) for c in chunks
                        if c < sp.chunks], 0, B, "rows")
@@ -513,17 +539,23 @@ def _slabs(ranks, slab: int) -> List[str]:
     return out
 
 
-def _gemv_launches(s, design):
+def _split_launch(kernels, B, G, O, es):
+    """The split launch of pcilt_split.cuh (``launch_cluster``) over ``B``
+    rows: the one-pass kernel, or the slab kernel where a block's segments
+    overflow a slab (``split_slabs``); ``kernels`` names the two."""
     ops = _ops()
+    sp = ops.gemv_variant(B, G, O, es)
+    slabs = ops.gemv_slab(sp, G) < _cdiv(G, sp.cluster)
+    return Launch(kernels[slabs], ops.gemv_grid(sp), (32 * sp.warps, 1, 1),
+                  ops.gemv_smem_bytes(sp, G), sp.cluster)
+
+
+def _gemv_launches(s, design):
     B, G, O, es = s["B"], s["G"], s["O"], s["itemsize"]
     if design == "direct":
         return [_direct_launch("gemv_direct_kernel", B, G, O)]
-    sp = ops.gemv_variant(B, G, O, es)  # launch_split_vb
-    slabs = ops.gemv_slab(sp, G) < _cdiv(G, sp.cluster)  # launch_split_vb
-    return [Launch("gemv_split_slabs_kernel" if slabs else
-                   "gemv_split_kernel", ops.gemv_grid(sp),
-                   (32 * sp.warps, 1, 1), ops.gemv_smem_bytes(sp, G),
-                   sp.cluster)]
+    return [_split_launch(("gemv_split_kernel", "gemv_split_slabs_kernel"),
+                          B, G, O, es)]  # launch_split_vb
 
 
 def _gemv_slices(sp, G: int):
@@ -540,11 +572,17 @@ def _gemv_slices(sp, G: int):
 
 
 def _gemv_cover(s, design):
-    ops = _ops()
     B, G, O, es = s["B"], s["G"], s["O"], s["itemsize"]
     if design == "direct":
         return _intervals([(i * 128, min(O, (i + 1) * 128))
                            for i in range(_cdiv(O, 128))], 0, O, "columns")
+    return _split_cover(B, G, O, es)
+
+
+def _split_cover(B, G, O, es):
+    """The split's columns, rows (over the grid's planes), slots and slabs
+    over ``B`` rows (kernels 1, 6, 7 and 8-11)."""
+    ops = _ops()
     sp = ops.gemv_variant(B, G, O, es)
     out = _intervals([(t * sp.tile, min(O, (t + 1) * sp.tile))
                       for t in range(sp.tiles)], 0, O, "columns")
@@ -571,8 +609,11 @@ def _gemv_config(lib):
 
 
 def _gemv_plan(lib, s):
+    return _split_plan(lib, s["B"], s["G"], s["O"], s["itemsize"])
+
+
+def _split_plan(lib, B, G, O, es):
     ops = _ops()
-    B, G, O, es = s["B"], s["G"], s["O"], s["itemsize"]
     sp = ops.gemv_variant(B, G, O, es)
     return _compare(_ints(lib, "pcilt_gemv_split_plan", 10, B, G, O, es),
                     (*sp, ops.gemv_smem_bytes(sp, G), ops.gemv_slab(sp, G),
@@ -856,6 +897,10 @@ def _gemv_host_launches(s, design):
     M, O = s["M"], s["O"]
     if design == "direct":
         return [_fetch_launch("gemv_host_kernel", M, O)]
+    if design == "split":  # launch_split
+        return [_split_launch(("gemv_host_split_kernel",
+                               "gemv_host_split_slabs_kernel"), M, s["G"],
+                              O, s["itemsize"])]
     n_r, n_c = ops.gemv_host_tiles(M, O)  # launch_staged
     return [Launch("gemv_host_staged_kernel", (n_r * n_c, 1, 1),
                    (32 * 16, 1, 1), ops.gemv_host_smem_bytes(s["itemsize"]))]
@@ -866,6 +911,8 @@ def _gemv_host_cover(s, design):
     M, O = s["M"], s["O"]
     if design == "direct":
         return _fetch_cover(M, O)
+    if design == "split":
+        return _split_cover(M, s["G"], O, s["itemsize"])
     n_r, n_c = ops.gemv_host_tiles(M, O)
     return _tile_cover(lambda i: ops.gemv_host_block_tile(i, M, O),
                        n_r * n_c, M, O, n_r)
@@ -876,7 +923,14 @@ def _gemv_host_config(lib):
     return _compare(_ints(lib, "pcilt_gemv_host_staged_config", 6),
                     (ops.HOST_ROW_TILE, ops.HOST_COL_TILE, ops.HOST_STAGES,
                      ops.HOST_CHUNK, ops.HOST_OFF_RING, ops.HOST_MAX_V),
-                    "the staged tiling")
+                    "the staged tiling") + _gemv_config(lib)
+
+
+def _gemv_host_plan(lib, s):
+    """The library's split of the shape, where the split is admitted."""
+    if "split" not in _gemv_host_designs(s):
+        return []
+    return _split_plan(lib, s["M"], s["G"], s["O"], s["itemsize"])
 
 
 # ----------------------------------------------------------------------------
@@ -980,7 +1034,7 @@ def FAMILIES() -> List[Family]:
                _no_plan),
         Family("gemv_host", "6, 7", "pcilt_gemv.cu", "gemv_host",
                _gemv_host_shapes, _gemv_host_designs, _gemv_host_launches,
-               _gemv_host_cover, _gemv_host_config, _no_plan),
+               _gemv_host_cover, _gemv_host_config, _gemv_host_plan),
         Family("dwconv_host", "12", "pcilt_dwconv1d.cu", "dwconv1d",
                _dwconv_host_shapes, _dwconv_host_designs,
                _dwconv_host_launches, _dwconv_host_cover,
@@ -1064,6 +1118,20 @@ def _launch_bounds_text(source: str, kernel: str) -> Optional[str]:
 # ----------------------------------------------------------------------------
 
 
+def _source_text(source: str, seen=None) -> str:
+    """A CUDA source's text followed by that of the headers of
+    ``kernels/csrc`` it includes (a launch attribute set in a shared
+    header, as ``pcilt_split.cuh`` sets the split's, is the source's)."""
+    seen = set() if seen is None else seen
+    seen.add(source)
+    with open(os.path.join(_CSRC, source)) as f:
+        text = f.read()
+    for inc in re.findall(r'#include "([^"]+)"', text):
+        if inc not in seen and os.path.exists(os.path.join(_CSRC, inc)):
+            text += "\n" + _source_text(inc, seen)
+    return text
+
+
 def _src(family: Family) -> str:
     return f"src/repro_torch/kernels/csrc/{family.source}"
 
@@ -1124,10 +1192,7 @@ def verify_all(sweep: str = "quick", smem_budget: Optional[int] = None,
         if unknown:
             raise ValueError(f"unknown families {sorted(unknown)}")
         fams = [f for f in fams if f.name in want]
-    sources = {}
-    for f in fams:
-        with open(os.path.join(_CSRC, f.source)) as fh:
-            sources[f.source] = fh.read()
+    sources = {f.source: _source_text(f.source) for f in fams}
     out: List[Finding] = []
     summary = {} if summary is None else summary
     kernels_seen: Dict[str, dict] = {}

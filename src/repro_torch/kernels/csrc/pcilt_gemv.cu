@@ -9,10 +9,31 @@
 // Replaces: src/repro/kernels/pcilt_gemv.py pcilt_gemv_pallas and
 // src/repro/kernels/pcilt_conv2d.py pcilt_conv2d_pallas.
 //
-// Two designs; kernels.ops chooses between them by shape
+// Three designs; kernels.ops chooses between them by shape
 // (gemv_host_variant):
 //
-// "staged" (V <= 256 and M >= one row tile).  Bound: the on-chip fetch.
+// "split" (the decode-size GEMVs of serve_pcilt's path="kernel" layers,
+// the plans and the learnable tables, and a few row tiles of a narrow O;
+// any V; gemv_host_variant weighs its row bytes against the staged grid's
+// waves, a model of the crossover scripts/host_gemv_sweep.py measures).
+// Bound: bytes, in practice the bytes in flight.  At M = 4 (serve_pcilt's
+// gate, G 512, V 256, O 3072) a call reads one O-wide table row per (m, g),
+// ~6.3 MB of rows no cache holds, which the card streams only with ~2 MB
+// in flight; the direct design below ran 24 blocks there, each thread
+// walking all 512 segments one 4-byte load at a time, and the staged one
+// tiles 1024 rows a block, of which 4 exist.  This is kernel 9's split
+// (pcilt_split.cuh: split_for, the 16-byte lane loads, the cluster's
+// fixed-order reduction, the slab kernel and the grid planes) with a stage
+// of its own: a block reads the kRows x (its segments) offsets it fetches
+// from the caller's [M, G] array, along G (coalesced, once), into its
+// staged offsets, where kernel 9 quantizes and packs x.  So kernels 6 and
+// 9 split a shape alike.  An offset outside [0, V) is staged as -1: no
+// load is made for it and its row's sum is kept (a select, not an add of
+// 0.0).  The segment stride V*O is 64-bit, so any V is served; M up to
+// 2**31 - 4 rows.  Measured on an H100 (PERF.md): 17.2 us at the gate, M
+// = 4, against 710 us for the direct design and 533 us for the staged one.
+//
+// "staged" (V <= 256 and many rows).  Bound: the on-chip fetch.
 // Each row adds G table rows of O cells, M*G*O fetch-adds (1.38e12 for the
 // paper CNN's conv4 on a 1024x768 image: M 786432, G 5000, O 350), each a
 // 4-byte read from on-chip memory: at 128 B a clock per SM that is ~165 ms
@@ -56,12 +77,13 @@
 //     (scripts/host_gemv_sweep.py, variant h:rowmajor; PERF.md).
 //  6. 64-bit indexing of m * G + g (M*G is 3.93e9 at conv4).
 //
-// "direct" (any V, and M under one row tile: the M = 4 GEMVs of the plan
-// and learnable-table paths).  The row-tiled fetch of pcilt_common.cuh with
+// "direct" (the first design, kept for comparison and forceable; any V
+// and M).  The row-tiled fetch of pcilt_common.cuh with
 // offset rows as rows: a block copies a chunk of its rows' offsets into
 // shared memory (reads along G, coalesced), then each thread adds its 8
 // rows' cells of its column straight from the table.  No atomics.
 #include "pcilt_common.cuh"
+#include "pcilt_split.cuh"
 
 namespace {
 
@@ -343,11 +365,104 @@ int launch_staged_e(const int* offsets, const T* tab, T* out, long long M,
   return (int)cudaGetLastError();
 }
 
-// variant: 0 = "staged", 1 = "direct".
+// ---------------------------------------------------------------------------
+// "split"
+// ---------------------------------------------------------------------------
+
+namespace split = pcilt::split;
+
+// The most rows a split launch takes (its row chunks are int).
+constexpr long long kSplitMaxRows = 0x7ffffffcLL;
+
+// The split's stage: rows b0 .. b0 + kRows - 1 (nb of them real) of the
+// caller's [M, G] offsets at segments t0 .. t0 + ns - 1 into s_off[g -
+// t0][row], read along G (coalesced); an offset outside [0, V), or a row
+// past M, is staged as -1, which adds nothing.
+__device__ __forceinline__ void read_offsets(const int* __restrict__ offsets,
+                                             int* s_off, int b0, int nb,
+                                             int t0, int ns, int G, int V) {
+  for (int i = threadIdx.x; i < split::kRows * ns; i += blockDim.x) {
+    const int r = i / ns;
+    const int gl = i - r * ns;
+    int o = -1;
+    if (r < nb) {
+      const int v = offsets[(long long)(b0 + r) * G + t0 + gl];
+      o = (unsigned)v < (unsigned)V ? v : -1;
+    }
+    s_off[gl * split::kRows + r] = o;
+  }
+}
+
+// segments a load batch: 2 in the bfloat16 instances, as in kernel 9's
+template <typename T>
+constexpr int kHostBatch = sizeof(T) == 2 ? 2 : split::kSegBatch;
+
+// The one-pass kernel and the slab kernel (pcilt_split.cuh one_pass,
+// slab_pass) over the caller's offsets; launch bounds (128, 1), as kernel
+// 9's.
+template <typename T, int VB>
+__global__ void __launch_bounds__(32 * split::kWarps, 1)
+    gemv_host_split_kernel(const int* __restrict__ offsets,
+                           const T* __restrict__ tab, T* __restrict__ out,
+                           int M, int G, int V, int O, long long seg_stride,
+                           split::Split sp) {
+  split::one_pass<T, VB, kHostBatch<T>, true>(
+      [=](int* s_off, int b0, int nb, int t0, int ns, bool) {
+        read_offsets(offsets, s_off, b0, nb, t0, ns, G, V);
+      },
+      tab, out, M, G, O, seg_stride, sp);
+}
+
+template <typename T, int VB>
+__global__ void __launch_bounds__(32 * split::kWarps, 1)
+    gemv_host_split_slabs_kernel(const int* __restrict__ offsets,
+                                 const T* __restrict__ tab,
+                                 T* __restrict__ out, int M, int G, int V,
+                                 int O, long long seg_stride,
+                                 split::Split sp) {
+  split::slab_pass<T, VB, kHostBatch<T>, true>(
+      [=](int* s_off, int b0, int nb, int t0, int ns, bool) {
+        read_offsets(offsets, s_off, b0, nb, t0, ns, G, V);
+      },
+      tab, out, M, G, O, seg_stride, sp);
+}
+
+template <typename T, int VB, bool SLABS>
+int launch_split_kernel(const int* offsets, const T* tab, T* out, int M,
+                        int G, int V, int O, const split::Split& sp,
+                        cudaStream_t stream) {
+  static split::KernelState state;  // this instance's, per process
+  auto kernel = SLABS ? gemv_host_split_slabs_kernel<T, VB>
+                      : gemv_host_split_kernel<T, VB>;
+  return split::launch_cluster(kernel, sp, state, stream, offsets, tab, out,
+                               M, G, V, O, (long long)V * O, sp);
+}
+
+// The split of kernel 9 at (M, G, O, itemsize), the slab kernel only where
+// a block's segments overflow a slab, the widest load the table allows.
+template <typename T>
+int launch_split(const int* offsets, const T* tab, T* out, long long M,
+                 int G, int V, int O, cudaStream_t stream) {
+  if (M < 1 || M > kSplitMaxRows || G < 1 || V < 1 || O < 1)
+    return (int)cudaErrorInvalidValue;
+  const split::Split sp = split::split_for((int)M, G, O, (int)sizeof(T));
+  const bool slabs = split::split_slabs(sp, G);
+  return split::with_load_width(tab, O, (long long)V * O, [&](auto vb) {
+    constexpr int VB = decltype(vb)::value;
+    if (slabs)
+      return launch_split_kernel<T, VB, true>(offsets, tab, out, (int)M, G,
+                                              V, O, sp, stream);
+    return launch_split_kernel<T, VB, false>(offsets, tab, out, (int)M, G, V,
+                                             O, sp, stream);
+  });
+}
+
+// variant: 0 = "staged", 1 = "direct", 2 = "split".
 template <typename T>
 int launch(const int* offsets, const T* tab, T* out, long long M, int G,
            int V, int O, int variant, cudaStream_t stream) {
   if (variant == 1) return launch_direct(offsets, tab, out, M, G, V, O, stream);
+  if (variant == 2) return launch_split(offsets, tab, out, M, G, V, O, stream);
   if (variant != 0 || V < 1 || V > hstaged::kMaxV || M < 1 || G < 1 || O < 1)
     return (int)cudaErrorInvalidValue;
   const long long n_rtiles = (M + hstaged::kPixTile - 1) / hstaged::kPixTile;
@@ -393,4 +508,16 @@ extern "C" int pcilt_gemv_host_staged_config(int* cfg) {
   cfg[4] = hstaged::kOffRing;
   cfg[5] = hstaged::kMaxV;
   return 0;
+}
+
+// The split design's constants and its split of one call, kernel 9's
+// (pcilt_split.cuh write_config, write_plan), for kernels.ops to check its
+// mirror against.
+extern "C" int pcilt_gemv_split_config(int* cfg) {
+  return pcilt::split::write_config(cfg);
+}
+
+extern "C" int pcilt_gemv_split_plan(int B, int G, int O, int itemsize,
+                                     int* out) {
+  return pcilt::split::write_plan(B, G, O, itemsize, out);
 }

@@ -56,12 +56,15 @@ and the kept ``"direct"`` one;
 :data:`DWCONV_VARIANT_LAUNCHES` counts which ran, ``_fused_dwconv1d`` takes
 ``variant=`` and :func:`_dwconv_forced` forces a design for the launches
 inside it.  The host-packed GEMV and conv (kernels 6 and 7, one body in
-``csrc/pcilt_gemv.cu``) come in a ``"staged"`` design (kernel 4's staged
-fetch over the caller's offsets; ``V <= 256`` and at least one row tile)
-and the kept ``"direct"`` one: :func:`gemv_host_variant` chooses,
-:func:`gemv_host_block_tile` mirrors the staged grid,
-:data:`GEMV_HOST_VARIANT_LAUNCHES` counts, and ``_gemv_host`` /
-``_conv2d_host`` take ``variant=``.  Neither falls back to the other.
+``csrc/pcilt_gemv.cu``) come in a ``"split"`` design (the fused GEMV's
+split, ``csrc/pcilt_split.cuh``, over the caller's offsets: decode-size
+calls, any ``V``; :func:`gemv_variant` mirrors it, as for kernel 9), a
+``"staged"`` design (kernel 4's staged fetch over the caller's offsets;
+``V <= 256``, many rows) and the kept ``"direct"`` one:
+:func:`gemv_host_variant` chooses, :func:`gemv_host_block_tile` mirrors
+the staged grid, :data:`GEMV_HOST_VARIANT_LAUNCHES` counts, and
+``_gemv_host`` / ``_conv2d_host`` take ``variant=``.  None falls back to
+another.
 
 Every launch that has a choice of design consults the design cache
 (``kernels.autotune``) before its heuristic: a forced design (``variant=``,
@@ -160,7 +163,8 @@ DWCONV_HOST_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
 DWCONV_VARIANT_LAUNCHES: Dict[str, int] = {"tiled": 0, "direct": 0}
 
 #: host-packed GEMV / conv design -> number of its launches on CUDA
-GEMV_HOST_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
+GEMV_HOST_VARIANT_LAUNCHES: Dict[str, int] = {"split": 0, "staged": 0,
+                                              "direct": 0}
 
 #: CRC-32 chunk-pass design -> number of its calls on CUDA
 CRC_VARIANT_LAUNCHES: Dict[str, int] = {"banked": 0, "kept": 0}
@@ -484,30 +488,32 @@ _GEMV_CHECKED = set()
 
 
 def _check_gemv_split(lib, B: int, G: int, O: int, itemsize: int,
-                      split: GemvSplit) -> None:
+                      split: GemvSplit, checked=None) -> None:
     """The library's split constants, and its split of this shape, must be
-    this module's mirror of them (each shape checked once)."""
-    if not _GEMV_CHECKED:
+    this module's mirror of them (each shape checked once; ``checked`` is
+    the library's record of the shapes checked, kernel 9's by default)."""
+    checked = _GEMV_CHECKED if checked is None else checked
+    if not checked:
         cfg = (ctypes.c_int * 8)()
         lib.pcilt_gemv_split_config(cfg)
         mine = (GEMV_ROWS, GEMV_WARPS, GEMV_SEG_BATCH, GEMV_TARGET_BLOCKS,
                 GEMV_MAX_CLUSTER, GEMV_MIN_SEGS, GEMV_MAX_LANES,
                 GEMV_LANE_BYTES)
         if tuple(cfg) != mine:
-            raise RuntimeError(f"pcilt_gemv_stacked.cu's split constants "
+            raise RuntimeError(f"pcilt_split.cuh's split constants "
                                f"{tuple(cfg)} differ from kernels.ops' {mine}")
-        _GEMV_CHECKED.add("config")
+        checked.add("config")
     key = (split.chunks, G, O, itemsize)
-    if key in _GEMV_CHECKED:
+    if key in checked:
         return
     got = (ctypes.c_int * 10)()
     lib.pcilt_gemv_split_plan(B, G, O, itemsize, got)
     mine = (*split, gemv_smem_bytes(split, G), gemv_slab(split, G),
             gemv_planes(split))
     if tuple(got) != mine:
-        raise RuntimeError(f"pcilt_gemv_stacked.cu splits B {B}, G {G}, O {O}"
+        raise RuntimeError(f"pcilt_split.cuh splits B {B}, G {G}, O {O}"
                            f" as {tuple(got)}, kernels.ops as {mine}")
-    _GEMV_CHECKED.add(key)
+    checked.add(key)
 
 
 def gemv_candidates(B: int, G: int, O: int, itemsize: int) -> List[str]:
@@ -1295,6 +1301,28 @@ def _shared_gemv(x, pool, seg_idx, spec: QuantSpec, scale, group: int,
 #: offsets are read in, offset slots, the largest V
 HOST_ROW_TILE, HOST_COL_TILE, HOST_STAGES = 1024, 32, 4
 HOST_CHUNK, HOST_OFF_RING, HOST_MAX_V = 8, 16, 256
+#: the most rows of a split host-packed launch (``kSplitMaxRows`` of
+#: pcilt_gemv.cu: its row chunks are int)
+HOST_SPLIT_MAX_ROWS = 2 ** 31 - 4
+#: an H100's SMs: the staged grid runs one block an SM (its launch bounds),
+#: so its blocks go in waves of this many
+HOST_SMS = 132
+#: where the split and the staged design break even, in the table-row
+#: bytes a segment costs the split (``M * max(O * itemsize,
+#: HOST_SPLIT_ROW_BYTES)``) for each wave of staged blocks: a segment costs
+#: a wave of staged blocks ~1.1-1.3 us whatever its rows (a slice copy and
+#: a row tile's fetch-adds), the split its rows' bytes at ~2.4-5 TB/s, and
+#: a row of fewer than ~80 bytes as much as one of 80 (its loads, ~40 G
+#: rows/s, set the pace).  Measured on an H100 (scripts/host_gemv_sweep.py
+#: x:crossover, PERF.md): the split 0.92x the staged design's time at the
+#: gate's 256 rows (3.1 MB a segment), 3.3x at 1023 (12.6 MB); 0.15-0.79x
+#: on the paper CNN's 64x48 crop (0.6-2.5 MB, one wave), 1.13-4.4x on its
+#: 256x192 image; at O = 4, 0.11x at 4096 rows, 1.16x at 65536
+HOST_SPLIT_WAVE_BYTES = 7 << 19
+HOST_SPLIT_ROW_BYTES = 80
+#: the shapes whose split kernel 6's library has been checked against
+#: :func:`gemv_variant` (kernel 9's record is ``_GEMV_CHECKED``)
+_HOST_SPLIT_CHECKED = set()
 
 
 def gemv_host_smem_bytes(itemsize: int) -> int:
@@ -1312,29 +1340,47 @@ def gemv_host_smem_bytes(itemsize: int) -> int:
             + HOST_ROW_TILE * HOST_CHUNK * 4)
 
 
+def _host_staged_fits(V: int, itemsize: int) -> bool:
+    """The staged design's guard: every offset fits a byte and the ring
+    fits a block's shared memory."""
+    return V <= HOST_MAX_V and gemv_host_smem_bytes(itemsize) <= SMEM_LIMIT
+
+
 def gemv_host_variant(M: int, G: int, V: int, O: int, itemsize: int) -> str:
     """The host-packed GEMV's design over ``M`` rows, ``G`` segments, ``V``
-    values and ``O`` columns of ``itemsize``-byte cells: ``"staged"`` while
-    every offset fits a byte (``V <= HOST_MAX_V``), the ring fits a block's
-    shared memory and ``M`` fills at least one row tile; else ``"direct"``
-    (the M = 4 GEMVs of plans and learnable tables).  G and O do not
+    values and ``O`` columns of ``itemsize``-byte cells.  Where the staged
+    design fits (every offset a byte, ``V <= HOST_MAX_V``, and its ring in
+    a block's shared memory): ``"split"`` while a segment's table rows,
+    ``M * max(O * itemsize, HOST_SPLIT_ROW_BYTES)`` bytes, stay within
+    ``HOST_SPLIT_WAVE_BYTES`` for each wave of the staged grid's blocks
+    (the decode-size GEMVs of ``path="kernel"`` layers, plans and
+    learnable tables; a few row tiles of a narrow O, whose staged grid
+    leaves the card idle), else ``"staged"`` (the paper CNN's layers).  Where it does not: ``"split"``
+    below one row tile, ``"direct"`` from one row tile.  G does not
     change the choice."""
-    if V <= HOST_MAX_V and gemv_host_smem_bytes(itemsize) <= SMEM_LIMIT \
-            and M >= HOST_ROW_TILE:
-        return "staged"
-    return "direct"
+    split = M <= HOST_SPLIT_MAX_ROWS
+    if not _host_staged_fits(V, itemsize):
+        return "split" if split and M < HOST_ROW_TILE else "direct"
+    n_r, n_c = gemv_host_tiles(M, O)
+    waves = -(-n_r * n_c // HOST_SMS)
+    row = max(O * itemsize, HOST_SPLIT_ROW_BYTES)
+    if split and M * row <= HOST_SPLIT_WAVE_BYTES * waves:
+        return "split"
+    return "staged"
 
 
 def gemv_host_candidates(M: int, G: int, V: int, O: int,
                          itemsize: int) -> List[str]:
     """The host-packed GEMV designs whose guards admit the shape, the
-    heuristic's (:func:`gemv_host_variant`) first: ``"staged"`` while
-    every offset fits a byte and the ring fits a block (any ``M``),
-    ``"direct"`` always."""
+    heuristic's (:func:`gemv_host_variant`) first: ``"split"`` up to
+    ``HOST_SPLIT_MAX_ROWS`` rows (any ``V``), ``"staged"`` while every
+    offset fits a byte and the ring fits a block (any ``M``), ``"direct"``
+    always."""
+    admitted = (["split"] if M <= HOST_SPLIT_MAX_ROWS else []) \
+        + (["staged"] if _host_staged_fits(V, itemsize) else []) \
+        + ["direct"]
     first = gemv_host_variant(M, G, V, O, itemsize)
-    if V <= HOST_MAX_V and gemv_host_smem_bytes(itemsize) <= SMEM_LIMIT:
-        return [first, "direct" if first == "staged" else "staged"]
-    return ["direct"]
+    return [first] + [d for d in admitted if d != first]
 
 
 def gemv_host_tiles(M: int, O: int):
@@ -1380,6 +1426,10 @@ def _check_host_config(lib) -> None:
     _HOST_CHECKED.append(True)
 
 
+#: the design codes of ``pcilt_gemv_host_*``
+_HOST_CODES = {"staged": 0, "direct": 1, "split": 2}
+
+
 def _launch_gemv_host(name: str, offsets: torch.Tensor,
                       tables: torch.Tensor, variant=None,
                       autotune=None) -> torch.Tensor:
@@ -1422,16 +1472,22 @@ def _launch_gemv_host(name: str, offsets: torch.Tensor,
         raise ValueError(f"{name}: unknown variant {variant!r}")
     lib = build.library("gemv_host")
     if variant == "staged":
-        # met only where forced: gemv_host_variant picks "direct" there
-        if V > HOST_MAX_V or gemv_host_smem_bytes(es) > SMEM_LIMIT:
+        # met only where forced: gemv_host_variant picks another there
+        if not _host_staged_fits(V, es):
             raise ValueError(f"{name}: a V = {V} slice cannot be staged (V <="
                              f" {HOST_MAX_V} and {gemv_host_smem_bytes(es)} "
                              f"B of shared memory <= {SMEM_LIMIT} B needed)")
         _check_host_config(lib)
+    elif variant == "split":
+        if M > HOST_SPLIT_MAX_ROWS:  # met only where forced
+            raise ValueError(f"{name}: {M} rows exceed the split's "
+                             f"{HOST_SPLIT_MAX_ROWS}")
+        _check_gemv_split(lib, M, G, O, es, gemv_variant(M, G, O, es),
+                          _HOST_SPLIT_CHECKED)
     out = torch.empty((M, O), dtype=tables.dtype, device=tables.device)
     _launch(name, getattr(lib, f"pcilt_gemv_host_{dt}"), tables,
             _ptr(offsets), _ptr(tables), _ptr(out), M, G, V, O,
-            0 if variant == "staged" else 1)
+            _HOST_CODES[variant])
     GEMV_HOST_VARIANT_LAUNCHES[variant] += 1
     return out.reshape(*offsets.shape[:-1], O)
 

@@ -154,7 +154,7 @@ def test_designs_are_the_wrappers_counted_designs():
     schema.validate_design_cache({})
     assert schema.DESIGNS["fused_gemv_plan"] == ("split", "direct")
     assert schema.DESIGNS["fused_dwconv1d_sat"] == ("tiled", "direct")
-    assert schema.DESIGNS["conv2d_host"] == ("staged", "direct")
+    assert schema.DESIGNS["conv2d_host"] == ("split", "staged", "direct")
     assert set(schema.DESIGNS) == set(schema.KNOWN_KERNELS)
 
 

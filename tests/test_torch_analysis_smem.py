@@ -197,6 +197,69 @@ def test_the_ceiling_shapes_are_checked_in_the_full_sweep(family, shapes,
     assert walks >= 2 and slabs >= 2
 
 
+@pytest.mark.parametrize("sweep", ["quick", "full"])
+def test_kernel_6_split_is_checked_over_the_sweep(sweep):
+    """Kernel 6's split launches (the one-pass kernel, and in the full
+    sweep the slab kernel and the grid's second plane) are modelled at
+    every shape of the sweep, the heuristic's design at up to 64 rows, and
+    check clean against honest libraries (kernel 9's split plans) and
+    reports."""
+    fam = next(f for f in smem.FAMILIES() if f.name == "gemv_host")
+    shapes = list(fam.sweep(sweep))
+    small = [s for s in shapes if s["M"] <= 64]
+    assert small and all(fam.designs(s)[0] == "split" for s in small)
+    assert all("split" in fam.designs(s) for s in shapes)
+    summary = {}
+    fs = smem.verify_all(sweep, families=["gemv_host"],
+                         libraries=_libraries(), reports=_reports(),
+                         summary=summary)
+    assert fs == [], "\n".join(f.render() for f in fs)
+    want = {"gemv_host_split_kernel"}
+    if sweep == "full":
+        want.add("gemv_host_split_slabs_kernel")
+        planes = [ops.gemv_grid(ops.gemv_variant(M, G, O, es))[2]
+                  for M, G, V, O, es in smem.CEILING_HOST]
+        assert max(planes) == 2
+    assert want <= set(summary["kernels"])
+    assert summary["gemv_host"]["refused"] == 0
+    rep = summary["report"]["gemv_host"]["gemv_host_split_kernel"]
+    assert rep["instances"] == 2 and rep["spill_stores"] == 0
+
+
+def test_kernel_6_split_past_its_budget_fires_smem001():
+    """Under a budget shrunk below the split's shared memory, kernel 6's
+    split kernel fires SMEM001, as kernel 9's does."""
+    fs = smem.verify_all("quick", smem_budget=1024,
+                         families=["gemv_host", "gemv"])
+    hit = {f.message.split(" for ")[1].split(",")[0] for f in fs
+           if f.rule == "SMEM001"}
+    assert {"gemv_host_split_kernel", "gemv_split_kernel"} <= hit
+
+
+def test_kernel_6_split_drift_fires_smem004(monkeypatch):
+    """Kernel 6's library queried for the split's constants and plans:
+    one that splits otherwise, or launch bounds that drifted, fire
+    SMEM004."""
+    def more_warps(vals):
+        vals[2] += 1
+        return vals
+
+    fs = smem.verify_all("quick", families=["gemv_host"],
+                         libraries=_libraries(
+                             pcilt_gemv_split_plan=more_warps))
+    assert _rules(fs) == ["SMEM004"] and "the split of B" in fs[0].message
+    fs = smem.verify_all("quick", families=["gemv_host"],
+                         libraries=_libraries(
+                             pcilt_gemv_split_config=lambda v: v[:7] + [8]))
+    assert _rules(fs) == ["SMEM004"] and "split constants" in fs[0].message
+    monkeypatch.setitem(smem.KERNELS, "gemv_host_split_kernel",
+                        ("pcilt_gemv.cu", "gemv_host", "32 * kWarps, 1", 128,
+                         1))
+    fs = smem.verify_all("quick", families=["gemv_host"])
+    assert [f.symbol for f in fs if f.rule == "SMEM004"] == \
+        ["gemv_host_split_kernel"]
+
+
 def test_a_slab_that_skips_a_segment_fires_smem003(monkeypatch):
     real = ops.gemv_slab
     monkeypatch.setattr(ops, "gemv_slab", lambda sp, G: max(1, real(sp, G))

@@ -253,11 +253,14 @@ def test_design_candidates_follow_the_guards():
     assert ops.dwconv_candidates(9) == ["direct"]
     assert ops.conv_candidates(16, 4) == ["staged", "direct"]
     assert ops.conv_candidates(1024, 4) == ["direct"]
-    assert ops.gemv_host_candidates(4, 512, 16, 3072, 4) == ["direct",
-                                                             "staged"]
-    assert ops.gemv_host_candidates(4096, 512, 16, 3072, 4) == ["staged",
-                                                                "direct"]
-    assert ops.gemv_host_candidates(4096, 512, 1024, 3072, 4) == ["direct"]
+    assert ops.gemv_host_candidates(4, 512, 16, 3072, 4) == [
+        "split", "staged", "direct"]
+    assert ops.gemv_host_candidates(4, 512, 1024, 3072, 4) == ["split",
+                                                              "direct"]
+    assert ops.gemv_host_candidates(4096, 512, 16, 3072, 4) == [
+        "staged", "split", "direct"]
+    assert ops.gemv_host_candidates(4096, 512, 1024, 3072, 4) == ["direct",
+                                                                 "split"]
     assert ops.dwconv_host_candidates(256, 4) == ["staged", "direct"]
     assert ops.dwconv_host_candidates(65536, 4) == ["direct"]
 

@@ -754,8 +754,9 @@ HOST_CASES = [  # M, G, V, O, exact grid, shift
 @pytest.mark.parametrize("M,G,V,O,exact,shift", HOST_CASES)
 def test_gemv_host_staged_matches_plain_and_kept(cuda, dtype, M, G, V, O,
                                                  exact, shift):
-    """Kernel 6's staged design (the wrappers' choice here) twice,
-    bit-identical, and the kept design forced, against the plain version:
+    """Kernel 6's staged design (forced: the chooser splits some of these
+    few row tiles) twice, bit-identical, and the kept design forced,
+    against the plain version:
     bit-equal on an exact grid (integer cells: every float32 sum exact, one
     cast), else within 1e-4 (float32: another summation order over up to
     1250 rows) or 1e-2 (bfloat16: one rounding of the float32 sum); offsets
@@ -763,14 +764,14 @@ def test_gemv_host_staged_matches_plain_and_kept(cuda, dtype, M, G, V, O,
     design ran."""
     gen = torch.Generator(device=cuda).manual_seed(M + G + V + O + shift)
     tabs, off = _host_case(gen, cuda, M, G, V, O, dtype, exact, shift)
-    assert ops.gemv_host_variant(M, G, V, O, tabs.element_size()) == "staged"
     seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
-    first = ops.pcilt_gemv(off, tabs)
-    again = ops.pcilt_gemv(off, tabs)
+    first = ops._gemv_host(off, tabs, variant="staged")
+    again = ops._gemv_host(off, tabs, variant="staged")
     kept = ops._gemv_host(off, tabs, variant="direct")
     torch.cuda.synchronize()
     assert ops.GEMV_HOST_VARIANT_LAUNCHES == {
-        "staged": seen["staged"] + 2, "direct": seen["direct"] + 1}
+        "split": seen["split"], "staged": seen["staged"] + 2,
+        "direct": seen["direct"] + 1}
     assert torch.equal(first, again)
     want = ops.gemv_host_plain(off, tabs)
     rtol = 0.0 if exact else (1e-2 if dtype == torch.bfloat16 else 1e-4)
@@ -783,27 +784,32 @@ def test_gemv_host_staged_matches_plain_and_kept(cuda, dtype, M, G, V, O,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv2d_host_staged_matches_plain(cuda, dtype):
-    """Kernel 7 is kernel 6 over the flattened pixels: the staged design on
-    ``[2, 33, 40, G]`` offsets (2640 rows) bit-equal to the plain version on
-    an exact grid, and to kernel 6 on the same rows."""
+    """Kernel 7 is kernel 6 over the flattened pixels: the staged design
+    (forced) and the chooser's (split: 2640 rows of 120 columns are a
+    fraction of one wave of staged blocks) on ``[2, 33, 40, G]`` offsets
+    bit-equal to the plain version on an exact grid, and to kernel 6 on
+    the same rows."""
     gen = torch.Generator(device=cuda).manual_seed(40)
     G, V, O = 75, 256, 120
     tabs, off = _host_case(gen, cuda, 2 * 33 * 40, G, V, O, dtype, True)
     off4 = off.view(2, 33, 40, G)
     seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
-    got = ops.pcilt_conv2d(off4, tabs)
+    got = ops._conv2d_host(off4, tabs, variant="staged")
+    chosen = ops.pcilt_conv2d(off4, tabs)
     torch.cuda.synchronize()
     assert ops.GEMV_HOST_VARIANT_LAUNCHES["staged"] == seen["staged"] + 1
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES["split"] == seen["split"] + 1
     assert got.shape == (2, 33, 40, O)
     assert torch.equal(got, ops.gemv_host_plain(off, tabs).view(got.shape))
+    assert torch.equal(chosen, got)
     assert torch.equal(got.view(-1, O), ops.pcilt_gemv(off, tabs))
 
 
 @pytest.mark.cuda
 def test_gemv_host_staged_never_reads_a_row_no_offset_names(cuda):
     """Every offset of segment 3 out of range and its table all NaN (as are
-    the rows of segment 5 that no offset names): the staged and the kept
-    design give the finite sum of the other segments."""
+    the rows of segment 5 that no offset names): the staged, the split and
+    the kept design give the finite sum of the other segments."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     M, G, V, O = 2048, 12, 256, 64
     tabs, off = _host_case(gen, cuda, M, G, V, O, torch.float32, True)
@@ -814,33 +820,88 @@ def test_gemv_host_staged_never_reads_a_row_no_offset_names(cuda):
     tabs[5, 128:] = float("nan")
     want = ops.gemv_host_plain(off, tabs)
     assert bool(torch.isfinite(want).all())
-    for variant in ("staged", "direct"):
+    for variant in ("staged", "split", "direct"):
         got = ops._gemv_host(off, tabs, variant=variant)
         torch.cuda.synchronize()
         assert torch.equal(got, want), variant
 
 
 @pytest.mark.cuda
-def test_gemv_host_large_v_and_small_m_take_the_kept_kernel(cuda):
-    """V = 512 cannot be staged and M = 4 fills no row tile: both take the
-    kept design unforced; forcing the staged design at V = 512 raises, at
-    M = 4 it runs (and agrees)."""
+def test_gemv_host_small_m_takes_the_split_and_large_v_the_kept_kernel(
+        cuda):
+    """M under a row tile takes the split design unforced, at V = 512 too;
+    V = 512 at 1040 rows cannot be staged and takes the kept design;
+    forcing the staged design at V = 512 raises, at M = 4 it runs (and
+    agrees), as does the split forced at 1040 rows."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     tabs, off = _host_case(gen, cuda, 40, 6, 512, 33, torch.float32, True)
+    big_t, big_o = _host_case(gen, cuda, 1040, 6, 512, 33, torch.float32,
+                              True)
     small_t, small_o = _host_case(gen, cuda, 4, 512, 256, 300, torch.float32,
                                   True)
     seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
     got = ops.pcilt_gemv(off, tabs)
+    big = ops.pcilt_gemv(big_o, big_t)
     small = ops.pcilt_gemv(small_o, small_t)
     forced = ops._gemv_host(small_o, small_t, variant="staged")
+    split_big = ops._gemv_host(big_o, big_t, variant="split")
     torch.cuda.synchronize()
     assert ops.GEMV_HOST_VARIANT_LAUNCHES == {
-        "staged": seen["staged"] + 1, "direct": seen["direct"] + 2}
+        "split": seen["split"] + 3, "staged": seen["staged"] + 1,
+        "direct": seen["direct"] + 1}
     assert torch.equal(got, ops.gemv_host_plain(off, tabs))
+    assert torch.equal(big, ops.gemv_host_plain(big_o, big_t))
     assert torch.equal(small, ops.gemv_host_plain(small_o, small_t))
-    assert torch.equal(forced, small)
+    assert torch.equal(forced, small) and torch.equal(split_big, big)
     with pytest.raises(ValueError, match="cannot be staged"):
         ops._gemv_host(off, tabs, variant="staged")
+
+
+#: kernel 6's split at decode-size M: (M, G, V, O, exact grid, shift) —
+#: serve_pcilt's gate, learnable's tables, a ragged O, V 4096 and 65536,
+#: an unaligned offsets array, a slab (G past a 16-block cluster's shared
+#: memory) and 1023 rows (the last row count the chooser splits)
+HOST_SPLIT_CASES = [
+    (1, 512, 256, 3072, False, 0), (4, 512, 256, 3072, False, 0),
+    (4, 512, 256, 3072, True, 0), (64, 8, 16, 4, True, 0),
+    (4, 8, 16, 4, False, 0), (3, 25, 256, 13, True, 1),
+    (4, 64, 4096, 33, True, 0), (2, 6, 65536, 7, True, 2),
+    (4, 230000, 2, 8, True, 0), (1023, 300, 256, 97, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,G,V,O,exact,shift", HOST_SPLIT_CASES)
+def test_gemv_host_split_matches_plain_and_kept(cuda, dtype, M, G, V, O,
+                                                exact, shift):
+    """Kernel 6's split design (the wrappers' choice at these row counts)
+    twice, bit-identical, and the kept design forced, against the plain
+    version at kernel 9's tolerances: bit-equal on an exact grid, else
+    within 1e-4 (float32, slices summed in another order) or 1e-2
+    (bfloat16, one rounding of the float32 sum); offsets of -1, V and
+    2**31 - 1 add nothing.  The library's split of the shape is checked
+    against the mirror at the first launch."""
+    gen = torch.Generator(device=cuda).manual_seed(M + G + V + O + shift)
+    tabs, off = _host_case(gen, cuda, M, G, V, O, dtype, exact, shift)
+    es = tabs.element_size()
+    assert ops.gemv_host_variant(M, G, V, O, es) == "split"
+    seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+    first = ops.pcilt_gemv(off, tabs)
+    again = ops.pcilt_gemv(off, tabs)
+    kept = ops._gemv_host(off, tabs, variant="direct")
+    torch.cuda.synchronize()
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {
+        "split": seen["split"] + 2, "staged": seen["staged"],
+        "direct": seen["direct"] + 1}
+    assert (ops.gemv_variant(M, G, O, es).chunks, G, O, es) in \
+        ops._HOST_SPLIT_CHECKED
+    assert torch.equal(first, again)
+    want = ops.gemv_host_plain(off, tabs)
+    rtol = 0.0 if exact else (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    if exact:
+        assert torch.equal(first, want) and torch.equal(kept, want)
+    _assert_sum_close(first, want, rtol)
+    _assert_sum_close(kept, want, rtol)
 
 
 DWCONV_TILED_CASES = [  # B, T, C, k, bits, padding
@@ -1242,14 +1303,15 @@ def test_prefill_matches_a_decode_replay_on_the_card(cuda):
 @pytest.mark.cuda
 def test_serve_pcilt_kernel_path_on_the_card(cuda):
     """``launch.serve_pcilt.run`` on the card: its checks pass (the kernel
-    path among them, one launch of kernel 6's kept design at M = 4)."""
+    path among them, one launch of kernel 6's split design at M = 4)."""
     from repro_torch.launch import serve_pcilt
 
     ops.reset_launches()
     res = serve_pcilt.run(device="cuda", log=lambda m: None)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["gemv_host"] == 1
-    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {"staged": 0, "direct": 1}
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {"split": 1, "staged": 0,
+                                              "direct": 0}
     assert max(res["errors"].values()) <= serve_pcilt.TOL
 
 

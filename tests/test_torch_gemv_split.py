@@ -8,7 +8,9 @@ and
 past a 16-block cluster a block stages its offsets in slabs), the
 wrappers' launches
 (the same split with and without a plan, the design passed, the mirror
-check), and the plain versions behind a forced design.
+check), and the plain versions behind a forced design.  The host-packed
+GEMV's split design (kernel 6, ``pcilt_gemv.cu`` over the same
+``pcilt_split.cuh``) splits every shape as kernel 9 does.
 
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``);
 ``kernels.ops`` checks at the library's first launch of each shape that its
@@ -19,8 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import smem
+from repro_torch.core.offsets import pack_offsets
 from repro_torch.core.pcilt import build_grouped_tables
-from repro_torch.core.quantization import QuantSpec
+from repro_torch.core.quantization import QuantSpec, quantize
 from repro_torch.kernels import build, ops
 
 #: (B, G, O) a decode step launches: mamba2-130m's projections (wz/wx,
@@ -449,3 +453,84 @@ def test_a_forced_design_on_the_cpu_runs_the_plain_version(variant):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(plain, want[0])
     assert ops.GEMV_VARIANT_LAUNCHES == seen
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("B,G,O", DECODE_SHAPES + RAGGED_SHAPES
+                         + WIDE_SHAPES + CEILING_SHAPES)
+def test_kernel_6_splits_a_shape_as_kernel_9(itemsize, B, G, O):
+    """Kernel 6's split design launches kernel 9's split of the same (M,
+    G, O, itemsize): the verifier's models of the two launches differ in
+    the kernels' names only (grid, block, shared memory, cluster, the slab
+    kernel where a block's segments overflow a slab), both cover every
+    row, segment and column once, and the host design admits the shape
+    at any V."""
+    s9 = {"B": B, "G": G, "O": O, "itemsize": itemsize}
+    for V in (16, 256, 1 << 16):
+        s6 = {"M": B, "G": G, "V": V, "O": O, "itemsize": itemsize}
+        (l9,) = smem._gemv_launches(s9, "split")
+        (l6,) = smem._gemv_host_launches(s6, "split")
+        assert (l6.grid, l6.block, l6.smem, l6.cluster) == \
+            (l9.grid, l9.block, l9.smem, l9.cluster)
+        assert l6.kernel == l9.kernel.replace("gemv_", "gemv_host_", 1)
+        assert smem._gemv_host_cover(s6, "split") == \
+            smem._gemv_cover(s9, "split") == []
+        assert "split" in ops.gemv_host_candidates(B, G, V, O, itemsize)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_6_and_kernel_9_check_one_split(fake_card, monkeypatch,
+                                               dtype):
+    """Kernel 9 on x and kernel 6 on x's packed offsets, at the same (B, G,
+    O) and dtype: both check the library's split of the shape against the
+    same ``gemv_variant`` split before their launch, each in its own
+    library's record, and each launches its split design."""
+    seen = []
+    real = ops._check_gemv_split
+
+    def check(lib, B, G, O, es, split, checked=None):
+        seen.append((B, G, O, es, split))
+        return real(lib, B, G, O, es, split, checked)
+
+    monkeypatch.setattr(ops, "_check_gemv_split", check)
+    monkeypatch.setattr(ops, "_HOST_SPLIT_CHECKED", set())
+    monkeypatch.setattr(ops, "GEMV_HOST_VARIANT_LAUNCHES",
+                        {"split": 0, "staged": 0, "direct": 0})
+    spec, group = QuantSpec(2, True), 2
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(4, 128)).astype(np.float32))
+    tabs = torch.zeros(64, 16, 96, dtype=dtype)
+    off = pack_offsets(quantize(x, spec, 0.5), spec.bits, group)
+    ops.pcilt_fused_gemv(x, tabs, spec, 0.5, group)
+    ops.pcilt_gemv(off, tabs)
+    es = tabs.element_size()
+    sp = ops.gemv_variant(4, 64, 96, es)
+    assert seen == [(4, 64, 96, es, sp)] * 2
+    assert (sp.chunks, 64, 96, es) in ops._GEMV_CHECKED
+    assert (sp.chunks, 64, 96, es) in ops._HOST_SPLIT_CHECKED
+    assert [c[1][-1] for c in fake_card.calls] == [0, 2]  # the split codes
+    assert ops.GEMV_VARIANT_LAUNCHES["split"] == 1
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES["split"] == 1
+
+
+@pytest.mark.parametrize("M", [1, 4, 1023, 2048])
+def test_a_forced_host_split_on_the_cpu_runs_the_plain_version(M):
+    """A design is forced on CUDA tensors only: on CPU tensors kernel 6
+    with the split forced runs its plain version (offsets out of range
+    adding nothing), and no design is counted."""
+    rng = np.random.default_rng(M)
+    G, V, O = 9, 64, 13
+    tabs = torch.from_numpy(rng.normal(size=(G, V, O)).astype(np.float32))
+    off = rng.integers(0, V, size=(M, G)).astype(np.int32)
+    off.reshape(-1)[::5] = -1
+    off.reshape(-1)[1::7] = V
+    off.reshape(-1)[2::11] = 2 ** 31 - 1
+    off = torch.from_numpy(off)
+    seen = dict(ops.GEMV_HOST_VARIANT_LAUNCHES)
+    got = ops._gemv_host(off, tabs, variant="split")
+    assert torch.equal(got, ops.gemv_host_plain(off, tabs))
+    valid = (off >= 0) & (off < V)
+    want = torch.stack([tabs[g][off[:, g].clamp(0, V - 1)]
+                        * valid[:, g, None] for g in range(G)]).sum(0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert dict(ops.GEMV_HOST_VARIANT_LAUNCHES) == seen

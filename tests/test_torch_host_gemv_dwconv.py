@@ -1,11 +1,13 @@
 """The new designs of kernels 6, 7 and 2, host side, on the CPU.
 
 Kernels 6 and 7 (the host-packed GEMV and conv, one CUDA body) take a
-"staged" design for ``V <= 256`` and at least one row tile:
+"split" design at decode-size M (kernel 9's split, at any ``V``) and a
+"staged" design for ``V <= 256`` and many rows:
 ``kernels.ops.gemv_host_variant`` chooses, ``kernels.ops.gemv_host_block_tile``
-mirrors its grid (every ``(row, column)`` owned by one block), and the
-plain version that the card's kernels are held to matches the JAX
-package's Pallas kernels (interpret mode), offsets out of range included.
+mirrors the staged grid (every ``(row, column)`` owned by one block), and
+the plain version that the card's kernels are held to matches the JAX
+package's Pallas kernels (interpret mode), offsets out of range included,
+at decode-size M too.
 Kernel 2 (the fused dwconv) takes a "tiled" design whose counters need no
 zeroed buffer: its plain version with counters matches the JAX fused
 kernel at the decode window, saturating taps at both ends of the window
@@ -33,10 +35,11 @@ from repro_torch.core import quantization as tq
 from repro_torch.interop import to_torch
 from repro_torch.kernels import build, ops
 
-#: the paper CNN's layers (G, O) at group 1, V = 256, and the rows of a
-#: 1024x768, a 256x192 and a 64x48 image
+#: the paper CNN's layers (G, O) at group 1, V = 256, and the rows of the
+#: images it is served at: 1024x768 (the fused, shared and host-packed
+#: forwards) and 256x192 (the host-packed forward at full width)
 CNN_LAYERS = [(25, 50), (1250, 80), (2000, 120), (3000, 200), (5000, 350)]
-CNN_ROWS = [1024 * 768, 256 * 192, 64 * 48]
+CNN_ROWS = [1024 * 768, 256 * 192]
 #: (M, O) of the tiling checks: ragged rows and columns, one row tile, the
 #: 256x192 image at conv4's width
 TILE_SHAPES = [(1024, 32), (1025, 33), (3000, 350), (2047, 13), (5000, 50),
@@ -47,20 +50,65 @@ TILE_SHAPES = [(1024, 32), (1025, 33), (3000, 350), (2047, 13), (5000, 50),
 @pytest.mark.parametrize("M", CNN_ROWS)
 @pytest.mark.parametrize("G,O", CNN_LAYERS)
 def test_paper_cnn_layers_take_the_staged_design(itemsize, M, G, O):
-    """Every layer of the paper CNN, at every image the port runs it on,
+    """Every layer of the paper CNN, at every image the port serves it at,
     takes the staged design, whose ring fits a block's shared memory."""
     assert ops.gemv_host_variant(M, G, 256, O, itemsize) == "staged"
     assert ops.gemv_host_smem_bytes(itemsize) <= ops.SMEM_LIMIT == 232448
 
 
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("G,O", CNN_LAYERS)
+def test_a_small_image_splits_its_narrow_layers(itemsize, G, O):
+    """On a 64x48 image (the crop that phase 3 holds to the plain version)
+    a layer's staged grid is 3 row tiles by a few column tiles, a fraction
+    of one wave of blocks: each layer whose table rows a segment (3072 x O
+    x itemsize bytes) stay within ``HOST_SPLIT_WAVE_BYTES`` takes the split
+    design, conv4 in float32 (4.3 MB) the staged one."""
+    M = 64 * 48
+    n_r, n_c = ops.gemv_host_tiles(M, O)
+    assert n_r * n_c <= ops.HOST_SMS
+    want = "staged" if M * O * itemsize > ops.HOST_SPLIT_WAVE_BYTES \
+        else "split"
+    assert want == ("staged" if (O, itemsize) == (350, 4) else "split")
+    assert ops.gemv_host_variant(M, G, 256, O, itemsize) == want
+
+
 @pytest.mark.parametrize("M,G,V,O", [(4, 512, 256, 3072),   # phase 10's plan
                                      (4, 8, 16, 4),         # learnable
-                                     (1023, 25, 256, 50),   # under a tile
-                                     (4096, 6, 512, 33),    # V > 256
+                                     (1023, 25, 256, 50)])  # under a tile
+def test_small_m_takes_the_split_design(M, G, V, O):
+    """M under one row tile (serve_pcilt's gate and the M = 4 GEMVs of
+    plans and learnable tables) takes the split design, at V > 256 too."""
+    for itemsize in (4, 2):
+        assert ops.gemv_host_variant(M, G, V, O, itemsize) == "split"
+        assert ops.gemv_host_variant(M, G, 1 << 16, O, itemsize) == "split"
+
+
+@pytest.mark.parametrize("M,O,itemsize,want", [
+    (256, 3072, 4, "split"), (384, 3072, 4, "staged"),
+    (1023, 3072, 4, "staged"), (1024, 3072, 4, "staged"),
+    (512, 3072, 2, "split"), (768, 3072, 2, "staged"),
+    (1024, 80, 4, "split"), (4096, 80, 4, "split"),
+    (4096, 4, 4, "split"), (65536, 4, 4, "staged"), (1 << 20, 4, 4, "staged"),
+    (786432, 80, 4, "staged")])
+def test_the_split_and_staged_designs_meet_at_the_measured_crossover(
+        M, O, itemsize, want):
+    """Where the staged design fits, the chooser takes the split while a
+    segment's table rows (M rows of O x itemsize bytes, at least
+    ``HOST_SPLIT_ROW_BYTES`` each) stay within ``HOST_SPLIT_WAVE_BYTES`` a
+    wave of staged blocks (132 a wave): at the gate's widths up to 256
+    float32 rows, the staged design from 384 (12.6 MB at 1023 rows); at
+    conv1's narrow O the split up to 4096 rows; at O = 4 the split at 4096
+    rows, the staged design at 65536; the paper CNN's conv1 at 1024x768
+    staged."""
+    assert ops.gemv_host_variant(M, 512, 256, O, itemsize) == want
+
+
+@pytest.mark.parametrize("M,G,V,O", [(4096, 6, 512, 33),    # V > 256
                                      (2048, 2, 1 << 16, 7)])
-def test_small_m_and_large_v_take_the_direct_design(M, G, V, O):
-    """M under one row tile (the M = 4 GEMVs of plans and learnable tables)
-    and V > 256 (an offset no longer fits a byte) keep the direct design."""
+def test_large_v_takes_the_direct_design(M, G, V, O):
+    """At one row tile and more, V > 256 (an offset no longer fits a byte)
+    keeps the direct design."""
     for itemsize in (4, 2):
         assert ops.gemv_host_variant(M, G, V, O, itemsize) == "direct"
 
@@ -115,6 +163,12 @@ HOST_PLAIN = [  # M, G, V, O, table dtype, exact grid
     (7, 25, 256, 50, "float32", True),      # conv0's G and O
     (33, 5, 64, 13, "bfloat16", True),
     (16, 9, 256, 97, "bfloat16", False),
+    # decode-size M, the split design's rows
+    (1, 64, 256, 200, "float32", False),
+    (1, 6, 4096, 9, "float32", True),
+    (4, 8, 16, 4, "float32", False),        # the learnable example's tables
+    (4, 25, 256, 13, "bfloat16", True),
+    (4, 32, 256, 96, "bfloat16", False),
 ]
 
 
@@ -254,11 +308,27 @@ class _FakeLibrary:
     def __init__(self):
         self.calls = []
         self.config = None
+        self.split = None
+        self.plans = []
 
     def pcilt_gemv_host_staged_config(self, cfg):
         cfg[:] = list(self.config or (
             ops.HOST_ROW_TILE, ops.HOST_COL_TILE, ops.HOST_STAGES,
             ops.HOST_CHUNK, ops.HOST_OFF_RING, ops.HOST_MAX_V))
+        return 0
+
+    def pcilt_gemv_split_config(self, cfg):
+        cfg[:] = [ops.GEMV_ROWS, ops.GEMV_WARPS, ops.GEMV_SEG_BATCH,
+                  ops.GEMV_TARGET_BLOCKS, ops.GEMV_MAX_CLUSTER,
+                  ops.GEMV_MIN_SEGS, ops.GEMV_MAX_LANES,
+                  ops.GEMV_LANE_BYTES]
+        return 0
+
+    def pcilt_gemv_split_plan(self, B, G, O, itemsize, out):
+        sp = self.split or ops.gemv_variant(B, G, O, itemsize)
+        self.plans.append((B, G, O, itemsize))
+        out[:] = [*sp, ops.gemv_smem_bytes(sp, G), ops.gemv_slab(sp, G),
+                  ops.gemv_planes(sp)]
         return 0
 
     def pcilt_dwconv1d_tiled_plan(self, rows, C, wide, out):
@@ -284,10 +354,11 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(ops, "_call", lambda name, fn, x, *args: fn(*args))
     monkeypatch.setattr(ops, "_dwconv_scratch", lambda lib_, dev: scratch)
     monkeypatch.setattr(ops, "_HOST_CHECKED", [])
+    monkeypatch.setattr(ops, "_HOST_SPLIT_CHECKED", set())
     monkeypatch.setattr(ops, "_DW_TILED_CHECKED", set())
     monkeypatch.setattr(ops, "LAUNCHES", dict.fromkeys(ops.LAUNCHES, 0))
     monkeypatch.setattr(ops, "GEMV_HOST_VARIANT_LAUNCHES",
-                        {"staged": 0, "direct": 0})
+                        {"split": 0, "staged": 0, "direct": 0})
     monkeypatch.setattr(ops, "DWCONV_VARIANT_LAUNCHES",
                         {"tiled": 0, "direct": 0})
     lib.scratch = scratch
@@ -297,24 +368,28 @@ def fake_card(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_host_launch_passes_and_counts_the_design(fake_card, dtype):
     """``pcilt_gemv`` and ``pcilt_conv2d`` launch the staged design (code
-    0) at M >= one row tile and V <= 256, the kept one (1) at M = 4 or
-    V = 512; ``variant="direct"`` forces the kept one; each counts one
+    0) at 16 row tiles of 128 columns and V <= 256 (a segment's rows, 8 MB
+    in float32 and 4 MB in bfloat16, past the split's share of a wave),
+    the split one (2) at M = 4, the kept one (1) at V = 512 and M >= one
+    row tile; ``variant="direct"`` forces the kept one; each counts one
     launch of its kernel and of the design."""
     dt = ops._TABLE_DTYPES[dtype]
-    big = torch.zeros(1024, 5, dtype=torch.int32)
-    ops.pcilt_gemv(big, torch.zeros(5, 256, 9, dtype=dtype))
-    ops.pcilt_gemv(big[:4], torch.zeros(5, 256, 9, dtype=dtype))
-    ops.pcilt_gemv(big, torch.zeros(5, 512, 9, dtype=dtype))
-    ops._gemv_host(big, torch.zeros(5, 256, 9, dtype=dtype),
+    big = torch.zeros(16384, 5, dtype=torch.int32)  # 16 row tiles
+    ops.pcilt_gemv(big, torch.zeros(5, 256, 128, dtype=dtype))
+    ops.pcilt_gemv(big[:4], torch.zeros(5, 256, 128, dtype=dtype))
+    ops.pcilt_gemv(big, torch.zeros(5, 512, 128, dtype=dtype))
+    ops._gemv_host(big, torch.zeros(5, 256, 128, dtype=dtype),
                    variant="direct")
-    ops.pcilt_conv2d(big.view(2, 16, 32, 5), torch.zeros(5, 16, 3,
-                                                         dtype=dtype))
+    ops.pcilt_conv2d(big.view(2, 64, 128, 5), torch.zeros(5, 16, 128,
+                                                          dtype=dtype))
     assert [n for n, _ in fake_card.calls] == [f"pcilt_gemv_host_{dt}"] * 5
     assert [a[3:] for _, a in fake_card.calls] == [
-        (1024, 5, 256, 9, 0), (4, 5, 256, 9, 1), (1024, 5, 512, 9, 1),
-        (1024, 5, 256, 9, 1), (1024, 5, 16, 3, 0)]
+        (16384, 5, 256, 128, 0), (4, 5, 256, 128, 2),
+        (16384, 5, 512, 128, 1), (16384, 5, 256, 128, 1),
+        (16384, 5, 16, 128, 0)]
     assert ops.LAUNCHES["gemv_host"] == 4 and ops.LAUNCHES["conv2d_host"] == 1
-    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {"staged": 2, "direct": 3}
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {"split": 1, "staged": 2,
+                                              "direct": 2}
 
 
 def test_forced_host_designs_that_cannot_serve_a_shape_raise(fake_card):
@@ -338,8 +413,64 @@ def test_a_library_that_tiles_otherwise_is_refused(fake_card):
     fake_card.config = (ops.HOST_ROW_TILE, ops.HOST_COL_TILE, ops.HOST_STAGES,
                         ops.HOST_CHUNK + 8, ops.HOST_OFF_RING, ops.HOST_MAX_V)
     with pytest.raises(RuntimeError, match="differs from kernels.ops"):
-        ops.pcilt_gemv(torch.zeros(2048, 3, dtype=torch.int32),
-                       torch.zeros(3, 256, 8))
+        ops.pcilt_gemv(torch.zeros(16384, 3, dtype=torch.int32),
+                       torch.zeros(3, 256, 128))
+    assert fake_card.calls == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 4, 64, 1023])
+def test_host_split_launch_passes_and_counts_the_design(fake_card, dtype,
+                                                         M):
+    """Below one row tile ``pcilt_gemv`` launches the split design (code 2)
+    at V 256 and 4096 alike, the library's split of each shape checked
+    against ``gemv_variant`` (kernel 9's split of the same (M, G, O,
+    itemsize)) at its first launch only; ``variant="split"`` forces it at
+    2048 rows; the conv wrapper over M pixels splits too; each counts one
+    launch of its kernel and of the design."""
+    dt = ops._TABLE_DTYPES[dtype]
+    es = torch.empty((), dtype=dtype).element_size()
+    off = torch.zeros(M, 7, dtype=torch.int32)
+    ops.pcilt_gemv(off, torch.zeros(7, 256, 13, dtype=dtype))
+    ops.pcilt_gemv(off, torch.zeros(7, 4096, 13, dtype=dtype))
+    ops._gemv_host(torch.zeros(2048, 7, dtype=torch.int32),
+                   torch.zeros(7, 16, 13, dtype=dtype), variant="split")
+    ops.pcilt_conv2d(off.view(1, 1, M, 7), torch.zeros(7, 16, 3, dtype=dtype))
+    assert [n for n, _ in fake_card.calls] == [f"pcilt_gemv_host_{dt}"] * 4
+    assert [a[3:] for _, a in fake_card.calls] == [
+        (M, 7, 256, 13, 2), (M, 7, 4096, 13, 2), (2048, 7, 16, 13, 2),
+        (M, 7, 16, 3, 2)]
+    assert fake_card.plans == [(M, 7, 13, es), (2048, 7, 13, es),
+                               (M, 7, 3, es)]
+    assert ops._HOST_SPLIT_CHECKED == {"config"} | {
+        (ops.gemv_variant(m, 7, o, es).chunks, 7, o, es)
+        for m, o in ((M, 13), (2048, 13), (M, 3))}
+    assert ops.LAUNCHES["gemv_host"] == 3 and ops.LAUNCHES["conv2d_host"] == 1
+    assert ops.GEMV_HOST_VARIANT_LAUNCHES == {"split": 4, "staged": 0,
+                                              "direct": 0}
+
+
+def test_a_library_that_splits_kernel_6_otherwise_is_refused(fake_card):
+    """The first split launch of a shape asks the library for its split;
+    one that differs from ``gemv_variant`` raises before anything is
+    launched."""
+    fake_card.split = ops.gemv_variant(4, 7, 13, 4)._replace(cluster=2)
+    with pytest.raises(RuntimeError, match="kernels.ops as"):
+        ops.pcilt_gemv(torch.zeros(4, 7, dtype=torch.int32),
+                       torch.zeros(7, 16, 13))
+    assert fake_card.calls == []
+
+
+def test_a_split_past_its_rows_is_neither_chosen_nor_launched(fake_card,
+                                                              monkeypatch):
+    """Past ``HOST_SPLIT_MAX_ROWS`` (its row chunks are int) the split is
+    no candidate, and forcing it raises before anything is launched."""
+    monkeypatch.setattr(ops, "HOST_SPLIT_MAX_ROWS", 8)
+    assert ops.gemv_host_candidates(9, 7, 16, 13, 4) == ["staged", "direct"]
+    assert ops.gemv_host_candidates(8, 7, 16, 13, 4)[0] == "split"
+    with pytest.raises(ValueError, match="exceed the split's"):
+        ops._gemv_host(torch.zeros(9, 7, dtype=torch.int32),
+                       torch.zeros(7, 16, 13), variant="split")
     assert fake_card.calls == []
 
 
@@ -414,7 +545,7 @@ def test_forced_designs_on_the_cpu_run_the_plain_versions():
     seen = (dict(ops.GEMV_HOST_VARIANT_LAUNCHES),
             dict(ops.DWCONV_VARIANT_LAUNCHES))
     want = ops.gemv_host_plain(off, tabs)
-    for v in ("staged", "direct"):
+    for v in ("split", "staged", "direct"):
         assert torch.equal(ops._gemv_host(off, tabs, variant=v), want)
     wd = ops.pcilt_fused_dwconv1d(x, dtabs, spec, 0.4, 4, with_stats=True)
     for v in ("tiled", "direct"):
