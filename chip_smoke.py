@@ -45,13 +45,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    and a ragged plan (odd G, n != G*group, O = 13).  The fused GEMV
    (kernel 9) also runs WIDE_GEMV's group-1 down projections (llava's at
    B 32 and deepseek-coder-33b's at B 16 in float32, its B 32 in
-   bfloat16), where the split's cluster grows so that a block's offsets
-   fit: the split design twice, bit-identical, its library's plan checked
-   against ``kernels.ops``' mirror.  Past the ceilings the launches once
+   bfloat16; the staged design, the chooser's there) and PREFILL_GEMV's
+   768 rows (qwen3-0.6b's gate, where the chooser keeps the split, and its
+   down projection at group 1, where it takes the staged design) in both
+   its designs: the chooser's twice and the other forced twice (the
+   split's cluster grown so that a block's offsets fit), each pair
+   bit-identical, the libraries' plans checked against ``kernels.ops``'
+   mirrors; and COUNTED_GEMV, its counter launch in both designs, whose
+   counts must be equal.  Past the ceilings the launches once
    had and the reference never did (CEILING_*): kernel 9 at 65,537 row
-   chunks (B 262,148, the second plane of its grid) and at 230,000
-   segments of group 1 (each block staging its offsets in slabs; 0.94 GB
-   of float32 tables), kernel 1 at 65,537 row chunks (bfloat16, with its
+   chunks (B 262,148, the second plane of its split grid; and in its
+   staged design, 513 row tiles) and at 230,000 segments of group 1 (each
+   block staging its offsets in slabs, in both designs; 0.94 GB of
+   float32 tables), kernel 1 at 65,537 row chunks (bfloat16, with its
    counters), kernel 3 at 65,537 row chunks (its blocks walking them) and
    the staged conv over 65,537 8x8 images (its code pre-pass walking
    them), each twice, bit-identical, against its plain version (kernel 3
@@ -87,7 +93,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    are the head (at B = 4 and B = 1, each beside matmul at its batch) and
    the host-packed dwconv (float32 and bfloat16 tables); kernel 9 also at
    llava's group-1 down projection (B 32, G 14336, O 4096, 3.76 GB of
-   float32 tables) beside ``torch.matmul`` and its bytes bound.  The CRC
+   float32 tables) in its staged design beside the split forced,
+   ``torch.matmul``, its bytes bound and the whole table read once.  The CRC
    kernel runs one full-width layer's bytes (2.39 GB) and the head pool's
    (19.8 GB) in each chunk-pass design, beside the bytes bound and the
    host ``zlib.crc32`` time of the same bytes (the reference's function on
@@ -145,8 +152,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    1536``;
 9. single layers at full published widths: ``convert_kernel`` ->
    ``PCILTLinear(path="fused")`` on qwen3-0.6b's MLP (1024 -> 3072 ->
-   1024, 4-bit, group 2; 1.61 GB of float32 tables per projection) against
-   the dense product on the quantized grid, and ``convert_dwconv`` ->
+   1024, 4-bit, group 2; 1.61 GB of float32 tables per projection) at B =
+   4 (kernel 9's split design) and over a 4 x 192-token prefill (768
+   rows: the gate and up projections on the split, the down projection
+   converted at group 1 on the staged design), against the dense product
+   on the quantized grid, and ``convert_dwconv`` ->
    ``PCILTDwConv1d(path="kernel")`` on mamba2-130m's conv frontend (C 1792,
    k 4, 2-bit) over a [4, 2048, 1792] signal against the fused path and
    its plain version, through kernel 12's staged design; one mamba2-130m
@@ -418,12 +428,27 @@ SOURCES = {
 #: split design and its kept ("direct") one
 GEMV_SPLIT_KERNEL = "gemv_split_kernel"
 GEMV_DIRECT_KERNEL = "gemv_direct_kernel"
+#: kernel 9's staged design (many rows), a source of its own
+GEMV_STAGED_KERNEL = "gemv_staged_kernel"
+STAGED_SOURCE = "src/repro_torch/kernels/csrc/pcilt_gemv_staged.cu"
+#: the tokens a request of phase 9's prefill through the MLP
+PREFILL_T = 192
 #: kernel 9 at the group-1 down projections whose offsets overflow one
 #: block unless the split's cluster grows (phase 3; the first is timed in
 #: phase 4): (what, B, G, O, table dtype), 4-bit activations, V 16
 WIDE_GEMV = (("llava-next-mistral-7b down", 32, 14336, 4096, "float32"),
              ("deepseek-coder-33b down", 16, 19200, 7168, "float32"),
              ("deepseek-coder-33b down", 32, 19200, 7168, "bfloat16"))
+#: kernel 9 at a 4 x 192-token prefill's rows (phase 3, both designs):
+#: qwen3-0.6b's gate, 4-bit group 2 (V 256; the chooser keeps the split),
+#: and its down projection at group 1 (V 16; the staged design): (what, B,
+#: G, group, O, table dtype); and its counter launch in both designs, whose
+#: counts must be equal: a bfloat16 group-1 case with a 16-block staged
+#: cluster
+PREFILL_GEMV = (("qwen3-0.6b gate prefill", 768, 512, 2, 3072, "float32"),
+                ("qwen3-0.6b down prefill g1", 768, 3072, 1, 1024,
+                 "float32"))
+COUNTED_GEMV = ("counters", 64, 1024, 1, 1000, "bfloat16")
 #: the shapes past the ceilings the split GEMVs and the conv pre-pass once
 #: had and the reference never did (phase 3): B 262,148 rows are 65,537
 #: row chunks of 4, two more than a grid's rows of blocks; G 230,000
@@ -806,7 +831,7 @@ def gemv_designs(torch, ops, run):
         kept = run()
     torch.cuda.synchronize()
     diff = {v: c - seen[v] for v, c in ops.GEMV_VARIANT_LAUNCHES.items()}
-    require(diff == {"split": 2, "direct": 1},
+    require(diff == {"split": 2, "staged": 0, "direct": 1},
             f"the fused GEMV designs ran {diff}, not split 2, direct 1")
     pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
     require(all(torch.equal(a, b) for a, b in pairs),
@@ -889,10 +914,10 @@ def host_designs(torch, ops, run, chosen="staged", others=()):
     return got, kept, forced
 
 
-def kept_design(ops, calls):
-    """``calls`` with the kept fused GEMV design forced."""
+def kept_design(ops, calls, design="direct"):
+    """``calls`` with the kept fused GEMV design (or ``design``) forced."""
     def forced(call):
-        with ops._gemv_forced("direct"):
+        with ops._gemv_forced(design):
             return call()
     return [lambda c=c: forced(c) for c in calls]
 
@@ -1080,54 +1105,109 @@ def check_kernels(torch, ops, core, report):
 
 
 def check_wide_gemv(torch, ops, record, gen):
-    """Kernel 9 at WIDE_GEMV's group-1 widths, where a block's staged
-    offsets overflow its shared memory unless the split's cluster grows
-    (``kernels.ops.gemv_variant``): 4-bit activations, V 16, seeded tables
-    ([G, 16, O]: 3.76 GB at llava's float32, 8.81 GB at deepseek's), the
-    split design twice (bit-identical; the kept one cannot hold B x G
-    offsets in a block), its library's plan checked equal to the mirror's
-    at the first launch, against its plain version at kernel 9's tolerance
-    (the plain gather runs one row at a time: ``G x O`` float32 cells,
-    0.55 GB at deepseek's).  Each case is freed before the next."""
+    """Kernel 9 at WIDE_GEMV's group-1 widths (4-bit activations, V 16,
+    seeded tables [G, 16, O]: 3.76 GB at llava's float32, 8.81 GB at
+    deepseek's; the staged design, the chooser's there) and at
+    PREFILL_GEMV's rows, in both its designs: the chooser's twice and the
+    other forced twice (the split's cluster grown so that a block's
+    offsets fit), each pair bit-identical, each held to the plain version
+    at kernel 9's tolerance (the plain gather runs in row chunks), the
+    libraries' plans checked against ``kernels.ops``' mirrors at the first
+    launch; the kept design cannot hold B x G offsets in a block.  Then
+    COUNTED_GEMV: kernel 9's counter launch in both designs, whose counts
+    must equal each other's and the plain version's exactly.  Each case is
+    freed before the next."""
     from repro_torch.core.quantization import QuantSpec, scale_from_amax
 
     dev = torch.device("cuda")
     spec = QuantSpec(4, True)
-    for what, rows, G, O, dt in WIDE_GEMV:
+    cases = [(what, rows, G, 1, O, dt) for what, rows, G, O, dt in WIDE_GEMV]
+    for what, rows, G, group, O, dt in cases + list(PREFILL_GEMV):
+        wide = (what, rows, G, group, O, dt) in cases
         dtype = getattr(torch, dt)
         es = torch.empty((), dtype=dtype).element_size()
+        V = 1 << (spec.bits * group)
         sp = ops.gemv_variant(rows, G, O, es)
-        require(sp.cluster > 1 and ops.gemv_candidates(rows, G, O, es)
-                == ["split"], f"{what}: the split {sp} at B {rows}, G {G} "
-                f"does not grow its cluster, or a block holds B x G offsets")
-        tabs = (torch.randn(G, 16, O, generator=gen, device=dev)
-                * G ** -0.5).to(dtype)
-        x = torch.randn(rows, G, generator=gen, device=dev) * 2.0
+        plan = ops.gemv_staged_plan(rows, G, V, O, es)
+        chosen = ops.gemv_fused_variant(rows, G, V, O, es)
+        other = "split" if chosen == "staged" else "staged"
+        require(ops.gemv_candidates(rows, G, O, es, V) == [chosen, other]
+                and (chosen == "staged" or not wide),
+                f"{what}: kernel 9 at B {rows}, G {G} does not take the "
+                f"staged design first, or a block holds B x G offsets")
+        require(not wide or sp.cluster > 1, f"{what}: the split {sp} at B "
+                f"{rows}, G {G} does not grow its cluster")
+        tabs = (torch.randn(G, V, O, generator=gen, device=dev)
+                * (G * group) ** -0.5).to(dtype)
+        x = torch.randn(rows, G * group, generator=gen, device=dev) * 2.0
         scale = float(scale_from_amax(0.8 * x.abs().max(), spec))
-        seen = dict(ops.GEMV_VARIANT_LAUNCHES)
-        got = ops.pcilt_fused_gemv(x, tabs, spec, scale, 1)
-        again = ops.pcilt_fused_gemv(x, tabs, spec, scale, 1)
-        torch.cuda.synchronize()
-        ran = {v: c - seen[v] for v, c in ops.GEMV_VARIANT_LAUNCHES.items()}
-        require(ran == {"split": 2, "direct": 0},
-                f"{what}: the fused GEMV ran the designs {ran}")
-        require((sp.chunks, G, O, es) in ops._GEMV_CHECKED,
-                f"{what}: the library's plan was not checked")
-        require(torch.equal(got, again), f"{what}: two launches differ")
-        want = ops.fused_gemv_plain(x, tabs, spec, scale, 1)
+        want = ops.fused_gemv_plain(x, tabs, spec, scale, group)
         rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-        mx, ok = close(torch, got, want, rtol)
-        record("fused_gemv", f"{what} B{rows} G{G} O{O} {dt}, cluster "
-               f"{sp.cluster}", mx, ok, f"rtol {rtol}")
-        del tabs, x, got, again, want
+        notes = {"staged": f"rows {plan.rows}, cluster {plan.cluster}",
+                 "split": f"cluster {sp.cluster}"}
+        for design in (chosen, other):
+            note = notes[design] + (", chosen" if design == chosen else "")
+            seen = dict(ops.GEMV_VARIANT_LAUNCHES)
+            force = contextlib.nullcontext() if design == chosen \
+                else ops._gemv_forced(design)
+            with force:
+                got = ops.pcilt_fused_gemv(x, tabs, spec, scale, group)
+                again = ops.pcilt_fused_gemv(x, tabs, spec, scale, group)
+            torch.cuda.synchronize()
+            ran = {v: c - seen[v]
+                   for v, c in ops.GEMV_VARIANT_LAUNCHES.items()}
+            require(ran == {**dict.fromkeys(ran, 0), design: 2},
+                    f"{what}: the fused GEMV ran the designs {ran}")
+            require(torch.equal(got, again),
+                    f"{what}: two launches of the {design} design differ")
+            mx, ok = close(torch, got, want, rtol)
+            record("fused_gemv", f"{what} B{rows} G{G} O{O} {dt} {design}, "
+                   f"{note}", mx, ok, f"rtol {rtol}")
+            del got, again
+        require((sp.chunks, G, O, es) in ops._GEMV_CHECKED,
+                f"{what}: the library's split was not checked")
+        require((plan.rows, plan.rtiles, G, V, O, es)
+                in ops._GEMV_STAGED_CHECKED,
+                f"{what}: the library's staged plan was not checked")
+        del tabs, x, want
         torch.cuda.empty_cache()
+
+    what, rows, G, group, O, dt = COUNTED_GEMV
+    dtype = getattr(torch, dt)
+    V = 1 << (spec.bits * group)
+    tabs = (torch.randn(G, V, O, generator=gen, device=dev)
+            * (G * group) ** -0.5).to(dtype)
+    x = torch.randn(rows, G * group, generator=gen, device=dev) * 2.0
+    scale = float(scale_from_amax(0.6 * x.abs().max(), spec))
+    plan = ops.gemv_staged_plan(rows, G, V, O, tabs.element_size())
+    runs = {d: [ops._launch_gemv("fused_gemv", x, tabs, G, O, group, V * O,
+                                 0, spec, scale, True, variant=d)
+                for _ in range(2)] for d in ("staged", "split")}
+    want, wc, wr = ops.gemv_stacked_plain(x, tabs[None], 0, spec, scale,
+                                          group, with_stats=True)
+    torch.cuda.synchronize()
+    counts = {d: [(int(c), float(r)) for _, c, r in v]
+              for d, v in runs.items()}
+    same = all(c == [(int(wc), float(wr))] * 2 for c in counts.values())
+    record("fused_gemv", f"{what} B{rows} G{G} O{O} {dt}: staged (cluster "
+           f"{plan.cluster}) and split counts", 0.0, same and int(wc) > 0,
+           "count, ratio exact, equal")
+    for d, ((a, _, _), (b, _, _)) in runs.items():
+        require(torch.equal(a, b), f"{what}: two {d} launches differ")
+        mx, ok = close(torch, a, want, 1e-2)
+        record("fused_gemv", f"{what} B{rows} G{G} O{O} {dt} {d}", mx, ok,
+               "rtol 1e-2")
+    del tabs, x, runs, want
+    torch.cuda.empty_cache()
 
 
 def check_ceilings(torch, ops, core, record, gen):
     """The kernels past the ceilings their launches once had, where the
     reference computes (CEILING_*): kernel 9 at 65,537 row chunks (4-bit,
-    group 2, G 64, O 64, float32; the row walk) and at 230,000 segments of
-    group 1 (B 4, O 64; the slabs), kernel 1 at 65,537 row chunks (one
+    group 2, G 64, O 64, float32; the split forced, its row walk; then its
+    staged design, the chooser's there) and at 230,000 segments of group 1
+    (B 4, O 64; the slabs of the split and of the staged design, forced),
+    kernel 1 at 65,537 row chunks (one
     bfloat16 layer, with its counters), kernel 3 at 65,537 row chunks (G
     32 into a 64-row pool, float32, one pointer out of range) and the
     staged conv (kernel 4) over 65,537 8x8 images (C 4, O 8; its code
@@ -1168,15 +1248,22 @@ def check_ceilings(torch, ops, core, record, gen):
     tabs = rand(G, 256, O, s=G ** -0.5)
     x = rand(B, 2 * G, s=2.0)
     scale = scaled(x)
-    got = twice(lambda: ops.pcilt_fused_gemv(x, tabs, spec, scale, 2),
-                ops.GEMV_VARIANT_LAUNCHES, "split")
+    with ops._gemv_forced("split"):  # the chooser stages so many rows
+        got = twice(lambda: ops.pcilt_fused_gemv(x, tabs, spec, scale, 2),
+                    ops.GEMV_VARIANT_LAUNCHES, "split")
     require((sp.chunks, G, O, 4) in ops._GEMV_CHECKED,
             "kernel 9's plan past the grid's rows was not checked")
-    mx, ok = close(torch, got, ops.fused_gemv_plain(x, tabs, spec, scale, 2),
-                   1e-4)
+    want = ops.fused_gemv_plain(x, tabs, spec, scale, 2)
+    mx, ok = close(torch, got, want, 1e-4)
     record("fused_gemv", f"B{B} G{G} O{O} g2, {sp.chunks} row chunks", mx,
            ok, "rtol 1e-4")
-    del tabs, x, got
+    plan = ops.gemv_staged_plan(B, G, 256, O, 4)
+    got = twice(lambda: ops.pcilt_fused_gemv(x, tabs, spec, scale, 2),
+                ops.GEMV_VARIANT_LAUNCHES, "staged")
+    mx, ok = close(torch, got, want, 1e-4)
+    record("fused_gemv", f"B{B} G{G} O{O} g2, staged, {plan.rtiles} row "
+           f"tiles of {plan.rows}", mx, ok, "rtol 1e-4")
+    del tabs, x, got, want
     B, G = 4, CEILING_SEGS
     sp = ops.gemv_variant(B, G, O, 4)
     slab = ops.gemv_slab(sp, G)
@@ -1189,6 +1276,15 @@ def check_ceilings(torch, ops, core, record, gen):
                 ops.GEMV_VARIANT_LAUNCHES, "split")
     require((sp.chunks, G, O, 4) in ops._GEMV_CHECKED,
             "kernel 9's plan past a cluster was not checked")
+    with ops._gemv_forced("staged"):  # its ranks' offsets in slabs too
+        staged = twice(lambda: ops.pcilt_fused_gemv(x, tabs, spec, scale, 1),
+                       ops.GEMV_VARIANT_LAUNCHES, "staged")
+    plan = ops.gemv_staged_plan(B, G, 16, O, 4)
+    mx, ok = close(torch, staged, ops.fused_gemv_plain(x, tabs, spec, scale,
+                                                       1), 1e-4)
+    record("fused_gemv", f"B{B} G{G} O{O} g1, staged, slabs of "
+           f"{ops.gemv_staged_slab(plan, G, 16)}", mx, ok, "rtol 1e-4")
+    del staged
     mx, ok = close(torch, got, ops.fused_gemv_plain(x, tabs, spec, scale, 1),
                    1e-4)
     record("fused_gemv", f"B{B} G{G} O{O} g1, slabs of {slab}", mx, ok,
@@ -1986,8 +2082,9 @@ def time_slice3_kernels(torch, ops, report, rows):
     del tabs, w
 
     # -- #9 at llava's down projection, group 1 (WIDE_GEMV[0]: 3.76 GB of
-    #    float32 tables, the split's cluster grown to fit its offsets);
-    #    bound: the distinct rows its offsets fetch, x and the output once
+    #    float32 tables): the staged design (the chooser's at B 32) beside
+    #    the split forced (its cluster grown to fit its offsets); bound: the
+    #    distinct rows its offsets fetch, x and the output once
     what, rows_, n, O, _ = WIDE_GEMV[0]
     w = torch.randn(n, O, generator=gen, device=dev) * n ** -0.5
     xs = [torch.randn(rows_, n, generator=gen, device=dev) for _ in range(2)]
@@ -1999,20 +2096,30 @@ def time_slice3_kernels(torch, ops, report, rows):
         + x.numel() * 4 + rows_ * O * 4 for x in xs)
     xqs = [fake_quant(x, spec4, scale) for x in xs]
     lib = timed([lambda q=q: torch.matmul(q, w) for q in xqs] * 2)
-    k = timed([lambda x=x: ops.pcilt_fused_gemv(x, tabs, spec4, scale, 1)
-               for x in xs] * 2, GEMV_SPLIT_KERNEL)
+    calls = [lambda x=x: ops.pcilt_fused_gemv(x, tabs, spec4, scale, 1)
+             for x in xs] * 2
+    seen = ops.GEMV_VARIANT_LAUNCHES["staged"]
+    k = timed(calls, GEMV_STAGED_KERNEL)
+    require(ops.GEMV_VARIANT_LAUNCHES["staged"] > seen,
+            f"{what}: kernel 9 did not take the staged design at B {rows_}")
+    ks = timed(kept_design(ops, calls, "split"), GEMV_SPLIT_KERNEL)
     p = timed([lambda: ops.fused_gemv_plain(xs[0], tabs, spec4, scale, 1)])
     sp = ops.gemv_variant(rows_, n, O, 4)
+    plan = ops.gemv_staged_plan(rows_, n, 16, O, 4)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     rows["fused_gemv gate"]["wide"] = {
-        "what": what, "shape": [rows_, n, 16, O], "cluster": sp.cluster,
-        "ms": k["ms"], "warm_ms": k["warm_ms"], "plain_ms": p["ms"],
-        "library_ms": lib["ms"], "library_call": LIB_NOTE["fused_gemv"],
+        "what": what, "shape": [rows_, n, 16, O], "variant": "staged",
+        "row_tile": plan.rows, "staged_cluster": plan.cluster,
+        "ms": k["ms"], "warm_ms": k["warm_ms"], "split_ms": ks["ms"],
+        "split_warm_ms": ks["warm_ms"], "cluster": sp.cluster,
+        "plain_ms": p["ms"], "library_ms": lib["ms"],
+        "library_call": LIB_NOTE["fused_gemv"],
         "bound_ms": b_ms, "bound_by": "bytes", "bytes": nbytes,
         "table_bytes_ms": tabs.numel() * 4 / HBM_BYTES_PER_S * 1e3}
-    log(f"time  fused_gemv          {what} B{rows_} G{n} O{O} group 1 "
-        f"(cluster {sp.cluster}) kernel {k['ms']:8.3f} ms (warm "
-        f"{k['warm_ms']:8.3f})  plain {p['ms']:8.3f} ms  matmul "
+    log(f"time  fused_gemv          {what} B{rows_} G{n} O{O} group 1: "
+        f"staged (rows {plan.rows}, cluster {plan.cluster}) "
+        f"{k['ms']:8.3f} ms (warm {k['warm_ms']:8.3f})  split (cluster "
+        f"{sp.cluster}) {ks['ms']:8.3f} ms  plain {p['ms']:8.3f} ms  matmul "
         f"{lib['ms']:8.3f} ms  bound {b_ms:7.3f} ms (bytes; the whole "
         f"table {rows['fused_gemv gate']['wide']['table_bytes_ms']:.3f})")
     del tabs, w, xs, xqs
@@ -2787,7 +2894,8 @@ def serve(torch, ops, report):
                          "shared_gemv": 1},
             f"main path did not run through the kernels: {per_step}")
     designs = dict(ops.GEMV_VARIANT_LAUNCHES)
-    require(designs == {"split": launches["gemv_stacked"], "direct": 0},
+    require(designs == {"split": launches["gemv_stacked"], "staged": 0,
+                        "direct": 0},
             f"the main path's fused GEMVs ran the designs {designs}")
     head_d = dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)
     require(head_d == {"split": launches["shared_gemv"], "direct": 0},
@@ -3311,7 +3419,7 @@ def serve_paired(torch, ops, report):
             f"paired path did not run through the kernels: {per_step}")
     designs = dict(ops.GEMV_VARIANT_LAUNCHES)
     require(designs == {"split": launches["gemv_paired_stacked"],
-                        "direct": 0},
+                        "staged": 0, "direct": 0},
             f"the paired path's fused GEMVs ran the designs {designs}")
     head_d = dict(ops.SHARED_GEMV_VARIANT_LAUNCHES)
     require(head_d == {"split": launches["shared_gemv"], "direct": 0},
@@ -3414,8 +3522,11 @@ def paired_parity(torch, ops, report):
 def single_layers(torch, ops, report):
     """``convert_kernel`` -> ``PCILTLinear`` on qwen3-0.6b's MLP (d 1024,
     d_ff 3072, 4-bit activations, group 2: 1.61 GB of float32 tables per
-    projection) through ``path="fused"`` at B = 4, each projection against
-    the dense product on the quantized grid; ``convert_dwconv`` ->
+    projection) through ``path="fused"`` at B = 4 (kernel 9's split
+    design), each projection against the dense product on the quantized
+    grid, and the MLP over a 4 x ``PREFILL_T``-token prefill (768 rows:
+    the gate and up projections on its split design, the down projection
+    converted at group 1 on its staged one); ``convert_dwconv`` ->
     ``PCILTDwConv1d`` on mamba2-130m's conv frontend (C 1792, k 4, 2-bit)
     on a seeded [4, 2048, 1792] signal through ``path="kernel"``, against
     ``path="fused"`` (equal from t >= k - 1) and against its plain
@@ -3479,8 +3590,52 @@ def single_layers(torch, ops, report):
         require({k: v for k, v in launches.items() if k != "crc32"}
                 == {"fused_gemv": 3},
                 f"the MLP did not run through kernel 9: {launches}")
+        designs = dict(ops.GEMV_VARIANT_LAUNCHES)
+        require(designs == {"split": 3, "staged": 0, "direct": 0},
+                f"the B = {B} MLP ran kernel 9's designs {designs}")
+        # a 4 x 192-token prefill through the MLP, 768 rows: the gate and
+        # up projections (group 2, V 256) on kernel 9's split, the chooser's
+        # there; the down projection converted at group 1 (V 16: 201 MB of
+        # tables) on its staged design (a row tile's offsets packed once,
+        # the rows they name staged)
+        xp = torch.randn(B, PREFILL_T, QWEN_D, generator=gen, device="cuda")
+        ops.reset_launches()
+        gp, upp = gate(xp, path="fused"), up(xp, path="fused")
+        hp = F.silu(gp) * upp
+        s_hp = float(calibrate(hp, spec4))
+        down1 = convert_kernel(ws["down"], spec4, s_hp, 1)
+        yp = down1(hp, path="fused")
+        torch.cuda.synchronize()
+        # the conversion records its CRC on the card (counted apart)
+        pl = {k: v for k, v in ops.LAUNCHES.items() if v and k != "crc32"}
+        pd = dict(ops.GEMV_VARIANT_LAUNCHES)
+        pre = []
+        for name, got, xin, s in (("gate", gp, xp, s_in),
+                                  ("up", upp, xp, s_in),
+                                  ("down g1", yp, hp, s_hp)):
+            want = fake_quant(xin, spec4, s) @ ws[name.split()[0]]
+            err = float((got - want).abs().max())
+            tol = 1e-4 * float(want.abs().max())
+            pre.append({"proj": name, "max_abs_err": err, "tol": tol})
+            log(f"  prefill [{B}, {PREFILL_T}] {name}: |fused - "
+                f"fake_quant(x) @ W| {err:.3e} (tol {tol:.3e})")
+            require(err <= tol, f"the prefill's {name} disagrees with the "
+                    f"dense product on the quantized grid")
+        log(f"  prefill launches {pl}, designs {pd}")
+        require(pl == {"fused_gemv": 3} and pd == {"split": 2, "staged": 1,
+                                                   "direct": 0},
+                f"the prefill did not run kernel 9's split (gate, up) and "
+                f"staged (down, group 1) designs: {pl}, {pd}")
+        launches["fused_gemv"] += 3
+        launches["crc32"] = launches.get("crc32", 0) + ops.LAUNCHES["crc32"]
+        designs["split"] += 2
+        designs["staged"] += 1
+        del xp, gp, upp, hp, yp, want, down1
         out["mlp"] = {"table_bytes": tb, "seconds": build_s,
-                      "layers": layers, "launches": launches}
+                      "layers": layers, "launches": launches,
+                      "designs": designs,
+                      "prefill": {"shape": [B, PREFILL_T, QWEN_D],
+                                  "layers": pre}}
         del gate, up, down, ws
 
         filt = torch.randn(CONV_K, CONV_C, generator=gen, device="cuda") * 0.5
@@ -5545,7 +5700,9 @@ def _log_tunes(rows, what):
 def _section6_shapes(torch, ops):
     """Calls with ``autotune=True`` at the kernels' shapes of PERF.md's
     kernel table (random operands of those shapes): the head at B = 4 and
-    1 (kernel 3), qwen3-0.6b's gate (9), the paired wz width (10), the
+    1 (kernel 3), qwen3-0.6b's gate at B = 4 and at a 4 x 192-token
+    prefill's 768 rows and its down projection at group 1 there (9: the
+    split against the staged design), the paired wz width (10), the
     ``perm`` plan (11), conv4 at 1024x768 fused, shared and host-packed (4,
     5, 7), kernel 6 at M = 4 and the [4, 2048, 1792] host dwconv (12)."""
     from repro_torch.core.quantization import QuantSpec
@@ -5569,6 +5726,10 @@ def _section6_shapes(torch, ops):
     del pool
     tabs = rn(512, 256, 3072)
     ops.pcilt_fused_gemv(rn(B, 1024), tabs, s4, 0.1, 2, autotune=True)
+    ops.pcilt_fused_gemv(rn(B * PREFILL_T, 1024), tabs, s4, 0.1, 2,
+                         autotune=True)
+    ops.pcilt_fused_gemv(rn(B * PREFILL_T, 3072), rn(3072, 16, 1024), s4,
+                         0.1, 1, autotune=True)
     plan = torch.randperm(1024, generator=torch.Generator().manual_seed(3)) \
         .to(torch.int32).reshape(512, 2).cuda()
     ops.pcilt_fused_gemv_plan(rn(B, 1024), tabs, plan, s4, 0.1, 2,
@@ -7991,6 +8152,11 @@ def main() -> int:
                       "mesh_shard_launches", "mesh_shard_us"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+    # kernel 9's designs on its main path (phase 9: the B = 4 MLP's split,
+    # the 768-row prefill's staged)
+    k9 = next(k for k in kernels if k["name"] == "fused_gemv")
+    k9.update(design_launches=report["single_layers"]["mlp"]["designs"],
+              staged_source=STAGED_SOURCE)
     # kernel 6 where an entry point serves it: serve_pcilt's M = 4 gate
     m4 = report["dense_rows"]["gemv_host serve_pcilt M4"]
     next(k for k in kernels if k["name"] == "gemv_host")["serve_pcilt_m4"] = {

@@ -98,8 +98,15 @@ def _designs() -> Dict[str, Tuple[str, ...]]:
     out = {}
     for kernel in KNOWN_KERNELS:
         counts = next(c for p, c in by_prefix if kernel.startswith(p))
-        out[kernel] = tuple(counts)
+        out[kernel] = tuple(d for d in counts if d != "staged"
+                            or not kernel.startswith("fused_gemv")
+                            or kernel in _STAGED_GEMVS)
     return out
+
+
+#: the fused GEMV families that admit the staged design: kernel 9's
+#: (``kernels.ops.gemv_candidates`` with ``V``)
+_STAGED_GEMVS = ("fused_gemv",)
 
 
 #: kernel family -> its designs (filled from ``kernels.ops`` at first use)

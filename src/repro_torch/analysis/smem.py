@@ -20,6 +20,11 @@ gives (the source and its launch function named beside each):
   ``gemv_grid``, ``gemv_slab``, ``gemv_smem_bytes``: the row chunks past
   65535 on further planes of the grid, a block's segments staged slab by
   slab) and the direct one;
+* ``gemv_staged`` — kernel 9's staged design (``pcilt_gemv_staged.cu``)
+  where its ``V`` admits it (``gemv_staged_plan``, ``gemv_staged_grid``,
+  ``gemv_staged_slab``, ``gemv_staged_smem_bytes``: a row tile's offsets
+  staged slab by slab, the row tiles past 65535 on further planes), from
+  1 to 8,388,609 rows;
 * ``shared_gemv`` — the split head GEMV, kernel 3 (``shared_gemv_*``: at
   most 65535 rows of blocks, each walking its row chunks, and slabs);
 * ``dwconv`` — the tiled fused dwconv, kernel 2 (``dwconv_tiled_grid``),
@@ -131,6 +136,8 @@ KERNELS: Dict[str, Tuple[str, str, Optional[str], int, int]] = {
                                 "32 * kWarps, 1", 128, 1),
     "gemv_direct_kernel": ("pcilt_gemv_stacked.cu", "gemv_stacked", None,
                            MAX_THREADS, 1),
+    "gemv_staged_kernel": ("pcilt_gemv_staged.cu", "gemv_staged",
+                           "threads_of(WIDE), blocks_of(WIDE)", 512, 1),
     "shared_split_kernel": ("pcilt_shared_gemv.cu", "shared_gemv",
                             "32 * kWarps, kBlocksPerSm", 256, 2),
     "shared_gemv_kernel": ("pcilt_shared_gemv.cu", "shared_gemv", None,
@@ -622,6 +629,106 @@ def _split_plan(lib, B, G, O, es):
 
 
 # ----------------------------------------------------------------------------
+# kernel 9's staged design (pcilt_gemv_staged.cu)
+# ----------------------------------------------------------------------------
+
+#: kernel 9's rows in the staged sweep: decode, the chooser's crossovers,
+#: prefills (a 4 x 192-token one gives 768) and more
+_STAGED_ROWS = (1, 4, 8, 16, 32, 64, 768, 4096)
+#: (B, G, V, O, itemsize) past the ceilings: more than 65535 row tiles of
+#: the smallest tile, slabs at group 1, ``chip_smoke.py``'s cases
+CEILING_STAGED = ((8388609, 16, 16, 8, 4), (4, 230000, 16, 64, 4),
+                  (262148, 64, 256, 64, 4), (32, 14336, 16, 4096, 4),
+                  (32, 19200, 16, 7168, 2))
+
+
+def _gemv_staged_sweep(sweep: str) -> Iterable[dict]:
+    seen = set()
+
+    def add(B, G, V, O, es):
+        k = (B, G, V, O, es)
+        if G >= 1 and O >= 1 and k not in seen:
+            seen.add(k)
+            yield {"B": B, "G": G, "V": V, "O": O, "itemsize": es}
+
+    for es in (4, 2):
+        for B in (1, 4, 32, 768):
+            yield from add(B, _GATE[0], 256, _GATE[1], es)
+    if sweep == "full":
+        for d_in, d_out in _config_widths():
+            for g, V in ((1, 16), (2, 256)):
+                if d_in % g:
+                    continue
+                for B in _STAGED_ROWS:
+                    for es in (4, 2):
+                        yield from add(B, d_in // g, V, d_out, es)
+        for shape in CEILING_STAGED:
+            yield from add(*shape)
+
+
+def _gemv_staged_designs(s):
+    """The staged design where kernel 9's candidates admit it (its split
+    and direct designs are the ``gemv`` family's, at the same widths)."""
+    cands = _ops().gemv_candidates(s["B"], s["G"], s["O"], s["itemsize"],
+                                   s["V"])
+    return ["staged"] if "staged" in cands else []
+
+
+def _gemv_staged_launches(s, design):
+    ops = _ops()
+    B, G, V, O, es = s["B"], s["G"], s["V"], s["O"], s["itemsize"]
+    p = ops.gemv_staged_plan(B, G, V, O, es)  # launch_staged_inst
+    return [Launch("gemv_staged_kernel", ops.gemv_staged_grid(p),
+                   (ops.STAGED_GEMV_THREADS[p.wide], 1, 1),
+                   ops.gemv_staged_smem_bytes(p, G, V), p.cluster)]
+
+
+def _gemv_staged_cover(s, design):
+    """The staged plan's columns, rows (over the grid's planes), ranks and
+    slabs."""
+    ops = _ops()
+    B, G, V, O, es = s["B"], s["G"], s["V"], s["O"], s["itemsize"]
+    p = ops.gemv_staged_plan(B, G, V, O, es)
+    out = _intervals([(t * p.cols, min(O, (t + 1) * p.cols))
+                      for t in range(p.ctiles)], 0, O, "columns")
+    _, gy, gz = ops.gemv_staged_grid(p)
+    reach = (gz - 1) * MAX_GRID_YZ + gy
+    if not ((gz == 1 or gy == MAX_GRID_YZ) and gy <= MAX_GRID_YZ
+            and reach - gy < p.rtiles <= reach
+            and (p.rtiles - 1) * p.rows < B <= p.rtiles * p.rows):
+        out.append(f"rows: {gz} planes of {gy} row tiles of {p.rows} rows "
+                   f"for {B} rows ({p.rtiles} tiles)")
+    lanes = 32 if p.wide else 8
+    if p.rows != p.rpt * (32 // lanes) * ops.STAGED_GEMV_THREADS[p.wide] \
+            // 32:
+        out.append(f"rows: {p.rpt} rows a thread do not make a tile of "
+                   f"{p.rows}")
+    ranks = [(r * G // p.cluster, (r + 1) * G // p.cluster)
+             for r in range(p.cluster)]
+    out += _intervals([x for x in ranks if x[1] > x[0]], 0, G, "segments")
+    return out + _slabs(ranks, ops.gemv_staged_slab(p, G, V))
+
+
+def _gemv_staged_config(lib):
+    ops = _ops()
+    return _compare(_ints(lib, "pcilt_gemv_staged_config",
+                          len(ops.STAGED_GEMV_CONFIG)),
+                    ops.STAGED_GEMV_CONFIG, "the staged constants")
+
+
+def _gemv_staged_plan(lib, s):
+    ops = _ops()
+    B, G, V, O, es = s["B"], s["G"], s["V"], s["O"], s["itemsize"]
+    p = ops.gemv_staged_plan(B, G, V, O, es)
+    return _compare(
+        _ints(lib, "pcilt_gemv_staged_plan", 10, B, G, V, O, es),
+        (int(p.wide), p.rpt, p.rows, p.cols, p.rtiles, p.ctiles, p.cluster,
+         ops.gemv_staged_slab(p, G, V), ops.gemv_staged_smem_bytes(p, G, V),
+         ops.gemv_staged_planes(p)),
+        f"the staged plan of B {B}, G {G}, V {V}, O {O}, itemsize {es}")
+
+
+# ----------------------------------------------------------------------------
 # the shared-pool head GEMV (kernel 3; pcilt_shared_gemv.cu)
 # ----------------------------------------------------------------------------
 
@@ -1023,6 +1130,10 @@ def FAMILIES() -> List[Family]:
         Family("gemv", "1, 8-11", "pcilt_gemv_stacked.cu", "gemv_stacked",
                _gemv_sweep, _gemv_designs, _gemv_launches, _gemv_cover,
                _gemv_config, _gemv_plan, _split_refused),
+        Family("gemv_staged", "9", "pcilt_gemv_staged.cu", "gemv_staged",
+               _gemv_staged_sweep, _gemv_staged_designs,
+               _gemv_staged_launches, _gemv_staged_cover,
+               _gemv_staged_config, _gemv_staged_plan, _split_refused),
         Family("dwconv", "2", "pcilt_dwconv1d.cu", "dwconv1d",
                _dwconv_shapes, _dwconv_designs, _dwconv_launches,
                _dwconv_cover, _dwconv_config, _dwconv_plan),

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel name -> source file under csrc/
 SOURCES = {"gemv_stacked": "pcilt_gemv_stacked.cu",
+           "gemv_staged": "pcilt_gemv_staged.cu",
            "dwconv1d": "pcilt_dwconv1d.cu",
            "shared_gemv": "pcilt_shared_gemv.cu",
            "conv2d": "pcilt_conv2d.cu",
@@ -56,6 +57,8 @@ _SIGNATURES = {
                          _LL, _I, _I, _P],
     "pcilt_gemv_plan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                         _P],
+    "pcilt_gemv_staged": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _LL,
+                          _LL, _I, _P],
     "pcilt_dwconv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                        _I, _I, _P],
     "pcilt_dwconv1d_host": [_P, _P, _P, _LL, _I, _I, _I, _P],
@@ -74,6 +77,8 @@ _CONFIG_SIGNATURES = {
     "pcilt_conv2d_staged_config": [_P],
     "pcilt_gemv_split_config": [_P],
     "pcilt_gemv_split_plan": [_I, _I, _I, _I, _P],
+    "pcilt_gemv_staged_config": [_P],
+    "pcilt_gemv_staged_plan": [_I, _I, _I, _I, _I, _P],
     "pcilt_shared_gemv_split_config": [_P],
     "pcilt_shared_gemv_split_plan": [_I, _I, _I, _I, _P],
     "pcilt_dwconv1d_staged_config": [_P],

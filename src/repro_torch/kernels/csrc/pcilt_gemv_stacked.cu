@@ -36,7 +36,8 @@
 // 3.35 TB/s), so the call is bound in practice by how many of them are in
 // flight: the card needs ~2 MB in flight to stream at its rate.
 //
-// Two designs, chosen by the caller (kernels.ops; "split" unless forced):
+// Two designs, chosen by the caller (kernels.ops; "split" unless forced).
+// Kernel 9 has a third, "staged", for many rows: pcilt_gemv_staged.cu.
 //
 // "split" (split-K over G, for Hopper's 132 SMs; its rule, fetch, reduction
 // and launch are pcilt_split.cuh, which the host-packed GEMV, kernel 6,

@@ -30,12 +30,16 @@ patch positions touch (:func:`conv_code_channels`).
 The fused GEMVs (kernels 1 and 8-11, ``csrc/pcilt_gemv_stacked.cu``) also
 come in two designs: ``"split"`` (the segment loop split over the warps of
 a block and the blocks of a thread-block cluster, summed in a fixed order)
-and ``"direct"`` (one block per 128 columns walks every segment).  Every
-launch takes ``"split"``; :func:`gemv_variant` mirrors its split and
-:data:`GEMV_VARIANT_LAUNCHES` counts which design ran.  ``_launch_gemv``
-takes ``variant=``, and :func:`_gemv_forced` forces a design for the
-launches inside it (tests and ``chip_smoke.py``); neither falls back to the
-other.
+and ``"direct"`` (one block per 128 columns walks every segment); kernel 9
+(and its counter launches) in a third, ``"staged"`` (a row tile's offsets
+packed once, each segment's named table rows staged in shared memory;
+``V <= 256``, many rows).  Kernels 1, 8, 10 and 11 take ``"split"``;
+kernel 9 the design :func:`gemv_fused_variant` picks.
+:func:`gemv_variant` mirrors the split, :func:`gemv_staged_plan` the
+staged plan, and :data:`GEMV_VARIANT_LAUNCHES` counts which design ran.
+``_launch_gemv`` takes ``variant=``, and :func:`_gemv_forced` forces a
+design for the launches inside it (tests and ``chip_smoke.py``); none
+falls back to another.
 
 The shared-pool GEMV (kernel 3, ``csrc/pcilt_shared_gemv.cu``) comes in a
 ``"split"`` design (4 KB row pieces, the segment loop split over a
@@ -127,6 +131,9 @@ __all__ = ["LAUNCHES", "reset_launches", "pcilt_fused_gemv",
            "conv_code_channels",
            "GEMV_VARIANT_LAUNCHES", "GemvSplit", "gemv_variant",
            "gemv_smem_bytes", "gemv_slab", "gemv_planes", "gemv_grid",
+           "GemvStaged", "gemv_staged_plan", "gemv_staged_slab",
+           "gemv_staged_smem_bytes", "gemv_staged_grid",
+           "gemv_staged_planes", "gemv_fused_variant",
            "SHARED_GEMV_VARIANT_LAUNCHES",
            "SharedSplit", "shared_gemv_variant", "shared_gemv_smem_bytes",
            "shared_gemv_slab",
@@ -151,7 +158,8 @@ _TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 CONV_VARIANT_LAUNCHES: Dict[str, int] = {"staged": 0, "direct": 0}
 
 #: fused GEMV design -> number of fused GEMV launches it served on CUDA
-GEMV_VARIANT_LAUNCHES: Dict[str, int] = {"split": 0, "direct": 0}
+GEMV_VARIANT_LAUNCHES: Dict[str, int] = {"split": 0, "staged": 0,
+                                         "direct": 0}
 
 #: shared-pool GEMV design -> number of its launches on CUDA
 SHARED_GEMV_VARIANT_LAUNCHES: Dict[str, int] = {"split": 0, "direct": 0}
@@ -516,13 +524,222 @@ def _check_gemv_split(lib, B: int, G: int, O: int, itemsize: int,
     checked.add(key)
 
 
-def gemv_candidates(B: int, G: int, O: int, itemsize: int) -> List[str]:
+#: the staged design's constants (namespace ``fstaged`` of
+#: pcilt_gemv_staged.cu; the library's own are checked against these at
+#: its first launch), by layout (``True``: wide): threads a block, blocks
+#: an SM (its ``__launch_bounds__``), the ring's slices (the fetched
+#: segment's and the rest in flight), the shared memory a block may take;
+#: then the largest V, the largest V of the wide (512 B) column tile, the
+#: largest cluster, the fewest segments a rank, the SMs whose block slots
+#: its waves fill
+STAGED_GEMV_THREADS = {True: 128, False: 512}
+STAGED_GEMV_BLOCKS = {True: 4, False: 1}
+STAGED_GEMV_RING = {True: 4, False: 4}
+STAGED_GEMV_SMEM = {True: 228 * 1024 // 4 - 1024, False: 227 * 1024}
+#: the float32 sums a thread at most (64 spilled)
+STAGED_GEMV_MAX_SUMS = 32
+STAGED_GEMV_MAX_V, STAGED_GEMV_WIDE_MAX_V = 256, 16
+STAGED_GEMV_MAX_CLUSTER, STAGED_GEMV_MIN_SEGS, STAGED_GEMV_SMS = 16, 16, 132
+#: the constants in the order of the library's ``pcilt_gemv_staged_config``
+STAGED_GEMV_CONFIG = (
+    STAGED_GEMV_THREADS[True] // 32, STAGED_GEMV_BLOCKS[True],
+    STAGED_GEMV_RING[True], STAGED_GEMV_THREADS[False] // 32,
+    STAGED_GEMV_RING[False],
+    STAGED_GEMV_MAX_SUMS, STAGED_GEMV_MAX_V, STAGED_GEMV_WIDE_MAX_V,
+    STAGED_GEMV_MAX_CLUSTER, STAGED_GEMV_MIN_SEGS, STAGED_GEMV_SMS,
+    STAGED_GEMV_SMEM[True], STAGED_GEMV_SMEM[False])
+
+
+def staged_gemv_rpts(itemsize: int):
+    """Rows a thread of the staged design, the template choices of a cell
+    size: ``STAGED_GEMV_MAX_SUMS`` over a row's sums (a lane sums one
+    16-byte vector of columns a row), its half and its quarter."""
+    m = STAGED_GEMV_MAX_SUMS // (16 // itemsize)
+    return (m // 4, m // 2, m)
+
+
+class GemvStaged(NamedTuple):
+    """The staged design's plan of one kernel-9 call (``plan_for`` of
+    pcilt_gemv_staged.cu).  A block owns ``rows`` rows (its row tile)
+    and ``cols`` columns (its column tile) and sums the segments of its
+    rank of a ``cluster``-block cluster; the grid (:func:`gemv_staged_grid`)
+    is ``ctiles * cluster`` by ``rtiles`` blocks, the row tiles past
+    ``MAX_GRID_ROWS`` on further planes.  ``wide``: 512 B slice rows read
+    by a whole warp (``V <= STAGED_GEMV_WIDE_MAX_V``), else 128 B rows read
+    by 8 lanes, 4 rows at a time."""
+    wide: bool    # the 512 B column layout
+    rpt: int      # rows a thread
+    rows: int     # rows a block (the row tile)
+    cols: int     # columns a block (the column tile)
+    rtiles: int   # row tiles
+    ctiles: int   # column tiles
+    cluster: int  # blocks a cluster (the segment loop's ranks)
+
+
+def _staged_row_bytes(wide: bool) -> int:
+    """Bytes of one slice row: 32 lanes (wide) or 8 of a 16-byte vector."""
+    return 16 * (32 if wide else 8)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_staged_plan(B: int, G: int, V: int, O: int,
+                     itemsize: int) -> GemvStaged:
+    """The staged plan of kernel 9 over ``B`` rows, ``G`` segments of ``V``
+    table rows and ``O`` columns of ``itemsize``-byte cells: the smallest
+    row tile of the layout's choices that holds all ``B`` rows (else the
+    largest), and the cluster (a power of two up to
+    ``STAGED_GEMV_MAX_CLUSTER``, no rank under ``STAGED_GEMV_MIN_SEGS``
+    segments) that runs the row and column tiles' work in the fewest waves
+    of the SMs' block slots (four a wide block, one a narrow one) for each
+    block's share, by a sixteenth at least (else the smaller: its
+    reduction is cheaper)."""
+    wide = V <= STAGED_GEMV_WIDE_MAX_V
+    # rows a thread's rpt make: a warp reads 1 (wide) or 4 rows at once
+    per = (1 if wide else 4) * (STAGED_GEMV_THREADS[wide] // 32)
+    choices = staged_gemv_rpts(itemsize)
+    rpt = next((r for r in choices if r * per >= B), choices[-1])
+    rows = rpt * per
+    cols = _staged_row_bytes(wide) // itemsize
+    rtiles, ctiles = -(-B // rows), -(-O // cols)
+    base, slots = rtiles * ctiles, STAGED_GEMV_SMS * STAGED_GEMV_BLOCKS[wide]
+    best, best_waves = 1, -(-base // slots)
+    cs = 2
+    while cs <= STAGED_GEMV_MAX_CLUSTER and G // cs >= STAGED_GEMV_MIN_SEGS:
+        waves = -(-base * cs // slots)
+        if waves * best * 16 < best_waves * cs * 15:
+            best, best_waves = cs, waves
+        cs *= 2
+    return GemvStaged(wide, rpt, rows, cols, rtiles, ctiles, best)
+
+
+def _staged_region(plan: GemvStaged, V: int) -> int:
+    """The ring of ``STAGED_GEMV_RING`` slices and, past a 1-block
+    cluster, the float32 partial sums ``[rows, cols]`` that reuse it."""
+    ring = STAGED_GEMV_RING[plan.wide] * V * _staged_row_bytes(plan.wide)
+    return max(ring, plan.rows * plan.cols * 4 if plan.cluster > 1 else 0)
+
+
+def gemv_staged_slab(plan: GemvStaged, G: int, V: int) -> int:
+    """Segments whose offsets (a byte a row) and row masks (a bit a table
+    row) a staged block holds at once: all its ``ceil(G / cluster)`` where
+    they fit the layout's ``STAGED_GEMV_SMEM`` beside the region, else the
+    most that do (the block then stages and sums slab after slab, in
+    ascending g)."""
+    room = (STAGED_GEMV_SMEM[plan.wide] - _staged_region(plan, V)) \
+        // (plan.rows + 4 * -(-V // 32))
+    return min(-(-G // plan.cluster), room)
+
+
+def gemv_staged_smem_bytes(plan: GemvStaged, G: int, V: int) -> int:
+    """Dynamic shared memory of a staged block: the region, then one
+    slab's offsets ``[slab, rows]`` bytes and row masks ``[slab,
+    ceil(V / 32)]`` words."""
+    return _staged_region(plan, V) + gemv_staged_slab(plan, G, V) * (
+        plan.rows + 4 * -(-V // 32))
+
+
+def gemv_staged_planes(plan: GemvStaged) -> int:
+    """Planes of the staged grid (``gridDim.z``): the row tiles past
+    ``MAX_GRID_ROWS`` go on in further planes."""
+    return -(-plan.rtiles // MAX_GRID_ROWS)
+
+
+def gemv_staged_grid(plan: GemvStaged):
+    """``(gridDim.x, gridDim.y, gridDim.z)`` of a staged launch: block
+    ``(x, y, z)`` is rank ``x % cluster`` of column tile ``x // cluster``
+    of row tile ``z * MAX_GRID_ROWS + y`` (past the last it holds no
+    row)."""
+    return (plan.ctiles * plan.cluster, min(plan.rtiles, MAX_GRID_ROWS),
+            gemv_staged_planes(plan))
+
+
+#: where kernel 9's split and staged designs break even (see
+#: :func:`gemv_fused_variant`): the fewest rows a staged call takes, and
+#: the table-row bytes the split reads a segment, ``B * O * itemsize``,
+#: from which the staged design is faster: in the wide layout (V <= 16)
+#: where a segment's table slice ``V * O * itemsize`` is
+#: ``STAGED_GEMV_SLICE_BYTES`` or more, and where it is less (the split's
+#: re-reads of a small slice are L2 hits), and in the narrow layout.
+#: Measured on an H100 (scripts/gemv_split_sweep.py x:rows, PERF.md): the
+#: split wins at 64-131 KB a segment at llava's down projection (B 8
+#: float32; bfloat16 at B 16 within 8%) and deepseek-coder-33b's (B 4; B 8
+#: bfloat16 within 19%), the staged design from 229 KB (deepseek's at B 8
+#: float32, B 16 bfloat16; llava's at B 16 float32, B 32 bfloat16); at
+#: qwen3-0.6b's down projection at group 1 (a 64 KB slice) the split up to
+#: 1 MB (256 rows float32, 768 bfloat16), the staged design from 3 MB
+#: (768 rows float32); at its gate (V 256) the split up to 25 MB (768 rows
+#: float32, 4096 bfloat16), the staged design at 50 MB (4096 float32)
+STAGED_GEMV_MIN_ROWS = 8
+STAGED_GEMV_SLICE_BYTES = 96 << 10
+STAGED_GEMV_SEG_BYTES = {"wide": 192 << 10, "wide, small slice": 3 << 20,
+                         "narrow": 32 << 20}
+
+
+def gemv_fused_variant(B: int, G: int, V: int, O: int, itemsize: int) -> str:
+    """Kernel 9's design over ``B`` rows, ``G`` segments of ``V`` table
+    rows and ``O`` columns of ``itemsize``-byte cells: ``"staged"`` where
+    every offset fits a byte (``V <= STAGED_GEMV_MAX_V``), the call has
+    ``STAGED_GEMV_MIN_ROWS`` rows or more and the split would read
+    ``STAGED_GEMV_SEG_BYTES`` of table rows a segment or more (by layout
+    and slice), else ``"split"`` (every decode call at B = 4).  G does not
+    change the choice."""
+    if V > STAGED_GEMV_MAX_V or B < STAGED_GEMV_MIN_ROWS:
+        return "split"
+    if V > STAGED_GEMV_WIDE_MAX_V:
+        kind = "narrow"
+    elif V * O * itemsize >= STAGED_GEMV_SLICE_BYTES:
+        kind = "wide"
+    else:
+        kind = "wide, small slice"
+    return "staged" if B * O * itemsize >= STAGED_GEMV_SEG_BYTES[kind] \
+        else "split"
+
+
+_GEMV_STAGED_CHECKED = set()
+
+
+def _check_gemv_staged(lib, B: int, G: int, V: int, O: int,
+                       itemsize: int, plan: GemvStaged) -> None:
+    """The library's staged constants, and its plan of this shape, must be
+    this module's mirror of them (each shape checked once)."""
+    if not _GEMV_STAGED_CHECKED:
+        cfg = (ctypes.c_int * len(STAGED_GEMV_CONFIG))()
+        lib.pcilt_gemv_staged_config(cfg)
+        mine = STAGED_GEMV_CONFIG
+        if tuple(cfg) != mine:
+            raise RuntimeError(f"pcilt_gemv_staged.cu's staged constants "
+                               f"{tuple(cfg)} differ from kernels.ops' "
+                               f"{mine}")
+        _GEMV_STAGED_CHECKED.add("config")
+    key = (plan.rows, plan.rtiles, G, V, O, itemsize)
+    if key in _GEMV_STAGED_CHECKED:
+        return
+    got = (ctypes.c_int * 10)()
+    err = lib.pcilt_gemv_staged_plan(B, G, V, O, itemsize, got)
+    mine = (int(plan.wide), *plan[1:5], plan.ctiles, plan.cluster,
+            gemv_staged_slab(plan, G, V), gemv_staged_smem_bytes(plan, G, V),
+            gemv_staged_planes(plan))
+    if err or tuple(got) != mine:
+        raise RuntimeError(f"pcilt_gemv_staged.cu plans B {B}, G {G}, V "
+                           f"{V}, O {O} as {tuple(got)} (error {err}), "
+                           f"kernels.ops as {mine}")
+    _GEMV_STAGED_CHECKED.add(key)
+
+
+def gemv_candidates(B: int, G: int, O: int, itemsize: int,
+                    V: Optional[int] = None) -> List[str]:
     """The fused GEMV designs whose guards admit ``B`` rows of ``G``
-    segments and ``O`` columns: ``"split"`` (the heuristic; any shape: its
-    grid holds the row chunks past its rows on further planes, and its
-    blocks stage their offsets in slabs), then ``"direct"`` while the ``B
+    segments and ``O`` columns, the heuristic's first: ``"split"`` (any
+    shape: its grid holds the row chunks past its rows on further planes,
+    and its blocks stage their offsets in slabs), ``"staged"`` for kernel
+    9 (``V`` given) while every offset fits a byte (any ``B``; first where
+    :func:`gemv_fused_variant` picks it), then ``"direct"`` while the ``B
     * G`` offsets fit one block."""
-    return ["split"] + (["direct"] if B * G * 4 <= SMEM_LIMIT else [])
+    staged = V is not None and V <= STAGED_GEMV_MAX_V
+    first = gemv_fused_variant(B, G, V, O, itemsize) if staged else "split"
+    admitted = ["split"] + (["staged"] if staged else []) \
+        + (["direct"] if B * G * 4 <= SMEM_LIMIT else [])
+    return [first] + [d for d in admitted if d != first]
 
 
 def _launch_gemv(name, x, tables, G, O, pw, seg_stride, layer_off,
@@ -533,33 +750,51 @@ def _launch_gemv(name, x, tables, G, O, pw, seg_stride, layer_off,
     ``plan_idx`` the plan launch (segment ``g`` reads ``x`` by its plan
     row).  ``variant`` (else the forced one, else the design cache's for
     ``key = (kernel, names, values)`` when given, else ``"split"``) picks
-    the
-    design."""
+    the design; ``"staged"`` serves kernel 9 (``name == "fused_gemv"``)
+    alone."""
     others = () if plan_idx is None else (plan_idx,)
     dt = _check_launch(name, x, tables, *others)
     B, n = x.shape
+    # the staged design's V: kernel 9's tables, else None (not admitted)
+    V = 1 << (spec.bits * pw) if name == "fused_gemv" else None
     variant = variant or _GEMV_FORCED or ("split" if key is None else None)
     if variant is None:
         es = tables.element_size()
         variant = _choose(
             key, x.device, tables.dtype,
-            lambda: gemv_candidates(B, G, O, es),
+            lambda: gemv_candidates(B, G, O, es, V),
             lambda d: lambda: _launch_gemv(
                 name, x, tables, G, O, pw, seg_stride, layer_off, spec,
                 scale, with_stats, plan_idx, variant=d),
             autotune)
     if variant not in GEMV_VARIANT_LAUNCHES:
         raise ValueError(f"{name}: unknown fused GEMV variant {variant!r}")
-    lib = build.library(build.KERNELS[name])
+    # kernel 9's staged design is a library of its own
+    lib = build.library("gemv_staged" if variant == "staged"
+                        else build.KERNELS[name])
+    es = tables.element_size()
     if variant == "split":
-        _check_gemv_split(lib, B, G, O, tables.element_size(),
-                          gemv_variant(B, G, O, tables.element_size()))
+        _check_gemv_split(lib, B, G, O, es, gemv_variant(B, G, O, es))
+    elif variant == "staged":  # kernel 9 alone: a forced one elsewhere
+        if V is None or V > STAGED_GEMV_MAX_V:
+            raise ValueError(f"{name}: the staged design serves kernel 9 "
+                             f"at V <= {STAGED_GEMV_MAX_V} only (V "
+                             f"{V})")
+        _check_gemv_staged(lib, B, G, V, O, es,
+                           gemv_staged_plan(B, G, V, O, es))
     elif B * G * 4 > SMEM_LIMIT:  # only the forced kept design meets this
         raise ValueError(f"{name}: B*G = {B * G} offsets exceed the shared "
                          f"memory of one block")
     out = torch.empty((B, O), dtype=tables.dtype, device=x.device)
     stats = torch.zeros(2, dtype=torch.int32, device=x.device) \
         if with_stats else None
+    if variant == "staged":
+        _launch(name, getattr(lib, f"pcilt_gemv_staged_{dt}"), x, _ptr(x),
+                _ptr(tables), _ptr(out), _ptr(stats), B, G, O, pw, spec.bits,
+                spec.zero_point, _host_scale(scale), seg_stride, layer_off,
+                int(with_stats))
+        GEMV_VARIANT_LAUNCHES[variant] += 1
+        return (out, *_stats_out(stats)) if with_stats else out
     code = 0 if variant == "split" else 1
     if plan_idx is None:
         _launch(name, getattr(lib, f"pcilt_gemv_fused_{dt}"), x, _ptr(x),
@@ -605,9 +840,12 @@ def pcilt_fused_gemv(x: torch.Tensor, tables: torch.Tensor, spec: QuantSpec,
     key = _gemv_key("fused_gemv", False, _GEMV_DIMS, x.shape[0], G, V, O,
                     group, spec.bits)
     if _on_cpu(x, tables):
-        return _gemv_plain_tune(
-            key, x, tables, G, O,
-            lambda: fused_gemv_plain(x, tables, spec, scale, group), autotune)
+        _tune_plain(key, x.device, tables.dtype,
+                    lambda: gemv_candidates(x.shape[0], G, O,
+                                            tables.element_size(), V),
+                    lambda: fused_gemv_plain(x, tables, spec, scale, group),
+                    autotune)
+        return fused_gemv_plain(x, tables, spec, scale, group)
     return _launch_gemv("fused_gemv", x, tables, G, O, group, V * O, 0, spec,
                         scale, False, key=key, autotune=autotune)
 

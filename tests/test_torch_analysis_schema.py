@@ -190,7 +190,7 @@ def _with(key, entry=None, **fields):
     (_with(GOOD_KEY.replace("B=4", "B=0")), "non-positive dims"),
     (_with(GOOD_KEY.replace("dtype=float32", "dtype=int8")),
      "not a table dtype"),
-    (_with(GOOD_KEY, design="staged"), "not one of 'fused_gemv'"),
+    (_with(GOOD_KEY, design="tiled"), "not one of 'fused_gemv'"),
     (_with(GOOD_KEY, design=3), "'design' must be a string"),
     (_with(GOOD_KEY, us=float("nan")), "finite number"),
     (_with(GOOD_KEY, us="fast"), "finite number"),

@@ -57,6 +57,18 @@ class ModelLibrary:
                          (*sp, ops.gemv_smem_bytes(sp, G),
                           ops.gemv_slab(sp, G), ops.gemv_planes(sp)), out)
 
+    def pcilt_gemv_staged_config(self, cfg):
+        return self._out("pcilt_gemv_staged_config",
+                         ops.STAGED_GEMV_CONFIG, cfg)
+
+    def pcilt_gemv_staged_plan(self, B, G, V, O, es, out):
+        p = ops.gemv_staged_plan(B, G, V, O, es)
+        return self._out("pcilt_gemv_staged_plan",
+                         (int(p.wide), p.rpt, p.rows, p.cols, p.rtiles,
+                          p.ctiles, p.cluster, ops.gemv_staged_slab(p, G, V),
+                          ops.gemv_staged_smem_bytes(p, G, V),
+                          ops.gemv_staged_planes(p)), out)
+
     def pcilt_shared_gemv_split_config(self, cfg):
         return self._out("pcilt_shared_gemv_split_config", (
             ops.SHARED_ROWS, ops.SHARED_WARPS, ops.SHARED_LANE_BYTES,

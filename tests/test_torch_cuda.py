@@ -80,8 +80,9 @@ def test_fused_gemv_past_the_split_ceilings_matches_plain(cuda, B, G, O,
     assert sp.chunks > ops.MAX_GRID_ROWS \
         or ops.gemv_slab(sp, G) < -(-G // sp.cluster)
     before = ops.GEMV_VARIANT_LAUNCHES["split"]
-    got = ops.pcilt_fused_gemv(x, tabs, spec, 0.2, group)
-    again = ops.pcilt_fused_gemv(x, tabs, spec, 0.2, group)
+    with ops._gemv_forced("split"):  # the chooser stages so many rows
+        got = ops.pcilt_fused_gemv(x, tabs, spec, 0.2, group)
+        again = ops.pcilt_fused_gemv(x, tabs, spec, 0.2, group)
     torch.cuda.synchronize()
     assert ops.GEMV_VARIANT_LAUNCHES["split"] == before + 2
     assert torch.equal(got, again)
@@ -414,6 +415,56 @@ def test_fused_gemv_kernel_matches_plain(cuda, dtype, B, G, O):
     _assert_sum_close(got.cpu(), want, 1e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
+GEMV_STAGED_CASES = [  # B, G, group, O, table dtype
+    (64, 256, 1, 96, torch.float32),    # the wide layout, a cluster
+    (64, 128, 2, 96, torch.float32),    # the narrow layout (V 256)
+    (40, 96, 1, 13, torch.bfloat16),    # ragged O, element-wise copies
+    (768, 64, 2, 200, torch.float32),   # a 1024-row tile, ragged columns
+    (300, 40, 1, 520, torch.float32),   # three row tiles, three columns
+    (32, 700, 1, 64, torch.bfloat16),   # 16-block cluster, bfloat16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,group,O,dtype", GEMV_STAGED_CASES)
+def test_fused_gemv_staged_matches_plain_twice(cuda, B, G, group, O, dtype):
+    """Kernel 9's staged design, forced: two launches bit-identical (a
+    fixed summation order, no float atomics), within kernel 9's tolerance
+    of its plain version, the library's plan checked against the mirror;
+    with counters (its counter launch) the counts equal the split's and the
+    plain version's exactly."""
+    rng = np.random.default_rng(B + G + O)
+    spec = QuantSpec(4, True)
+    V = 1 << (spec.bits * group)
+    w = rng.normal(size=(G * group, O)) * (G * group) ** -0.5
+    tabs = build_grouped_tables(torch.from_numpy(w.astype(np.float32)),
+                                spec, 0.2, group).to(dtype)
+    x = torch.from_numpy((2 * rng.normal(size=(B, G * group)))
+                         .astype(np.float32))
+    want = ops.pcilt_fused_gemv(x, tabs, spec, 0.2, group)
+    xc, tc = x.to(cuda), tabs.to(cuda)
+    seen = dict(ops.GEMV_VARIANT_LAUNCHES)
+    with ops._gemv_forced("staged"):
+        got = ops.pcilt_fused_gemv(xc, tc, spec, 0.2, group)
+        again = ops.pcilt_fused_gemv(xc, tc, spec, 0.2, group)
+    torch.cuda.synchronize()
+    assert ops.GEMV_VARIANT_LAUNCHES["staged"] == seen["staged"] + 2
+    assert torch.equal(got, again)
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    _assert_sum_close(got.cpu(), want, rtol)
+    runs = {}
+    for design in ("staged", "split"):
+        runs[design] = ops._launch_gemv(
+            "fused_gemv", xc, tc, G, O, group, V * O, 0, spec, 0.2, True,
+            variant=design)
+    torch.cuda.synchronize()
+    _, wc, wr = ops.gemv_stacked_plain(x, tabs[None], 0, spec, 0.2, group,
+                                       with_stats=True)
+    for out, cnt, ratio in runs.values():
+        assert int(cnt) == int(wc) and float(ratio) == float(wr)
+    assert torch.equal(runs["staged"][0], got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,C,V", [(4, 2048, 1792, 256), (3, 5, 33, 16)])
@@ -600,7 +651,8 @@ def test_fused_gemv_designs_agree_and_are_deterministic(cuda, kind, dtype, B,
         torch.cuda.synchronize()
         assert ops.LAUNCHES[kind] == before + 3
         assert ops.GEMV_VARIANT_LAUNCHES == {
-            "split": seen["split"] + 2, "direct": seen["direct"] + 1}
+            "split": seen["split"] + 2, "staged": seen["staged"],
+            "direct": seen["direct"] + 1}
         if stats:
             (first, fc, fr), (again, ac, ar) = first, again
             (kept, kc, kr), (want, wc, wr) = kept, want

@@ -280,6 +280,18 @@ class _FakeLibrary:
                   ops.gemv_planes(sp)]
         return 0
 
+    def pcilt_gemv_staged_config(self, cfg):
+        cfg[:] = ops.STAGED_GEMV_CONFIG
+        return 0
+
+    def pcilt_gemv_staged_plan(self, B, G, V, O, itemsize, out):
+        p = ops.gemv_staged_plan(B, G, V, O, itemsize)
+        out[:] = [int(p.wide), p.rpt, p.rows, p.cols, p.rtiles, p.ctiles,
+                  p.cluster, ops.gemv_staged_slab(p, G, V),
+                  ops.gemv_staged_smem_bytes(p, G, V),
+                  ops.gemv_staged_planes(p)]
+        return 0
+
     def __getattr__(self, name):
         def launch(*args):
             self.calls.append((name, args))
@@ -297,17 +309,20 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(ops, "_call", lambda name, fn, x, *args: fn(*args))
     monkeypatch.setattr(ops, "_GEMV_CHECKED", set())
     monkeypatch.setattr(ops, "LAUNCHES", dict.fromkeys(ops.LAUNCHES, 0))
+    monkeypatch.setattr(ops, "_GEMV_STAGED_CHECKED", set())
     monkeypatch.setattr(ops, "GEMV_VARIANT_LAUNCHES",
-                        {"split": 0, "direct": 0})
+                        {"split": 0, "staged": 0, "direct": 0})
     return lib
 
 
 def _fused_args(call):
-    """(entry point, (B, G, O), variant) of a recorded fused or plan
-    launch."""
+    """(entry point, (B, G, O), variant) of a recorded fused, plan or
+    staged launch (the staged library's entry point: variant 2)."""
     name, args = call
     if name.startswith("pcilt_gemv_plan"):
         return name.replace("plan", "*"), args[4:7], args[-1]
+    if name.startswith("pcilt_gemv_staged"):
+        return name.replace("staged", "*"), args[4:7], 2
     return name.replace("fused", "*"), args[4:7], args[-1]
 
 
@@ -333,7 +348,8 @@ def test_split_is_the_same_with_and_without_a_plan(fake_card, dtype, n, O):
     assert pn == fn == f"pcilt_gemv_*_{ops._TABLE_DTYPES[dtype]}"
     assert pshape == fshape == (4, n // 2, O) and pv == fv == 0
     assert ops.LAUNCHES["gemv_plan"] == ops.LAUNCHES["fused_gemv"] == 1
-    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 2, "direct": 0}
+    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 2, "staged": 0,
+                                         "direct": 0}
 
 
 def test_forced_design_reaches_the_library(fake_card):
@@ -359,13 +375,14 @@ def test_forced_design_reaches_the_library(fake_card):
     with ops._gemv_forced("direct"):
         five()
     assert [_fused_args(c)[2] for c in fake_card.calls] == [0] * 5 + [1] * 5
-    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 5, "direct": 5}
+    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 5, "staged": 0,
+                                         "direct": 5}
     ops._launch_gemv("fused_gemv", x, stack[0], 2, 5, 4, 256 * 5, 0, spec,
                      0.5, False, variant="direct")
     assert _fused_args(fake_card.calls[-1])[2] == 1
     with pytest.raises(ValueError, match="unknown fused GEMV variant"):
         ops._launch_gemv("fused_gemv", x, stack[0], 2, 5, 4, 256 * 5, 0,
-                         spec, 0.5, False, variant="staged")
+                         spec, 0.5, False, variant="tiled")
 
 
 def test_a_library_that_splits_otherwise_is_refused(fake_card):
@@ -396,7 +413,8 @@ def test_a_wide_split_reaches_the_library(fake_card):
     assert [_fused_args(c) for c in fake_card.calls] == \
         [("pcilt_gemv_*_f32", (1056, 20000, 8), 0)]
     assert (264, 20000, 8, 4) in ops._GEMV_CHECKED
-    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 1, "direct": 0}
+    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 1, "staged": 0,
+                                         "direct": 0}
 
 
 @pytest.mark.parametrize("B,G", [(1056, 300000), (4, 230000),
@@ -423,12 +441,13 @@ def test_a_split_beyond_a_cluster_reaches_the_library(fake_card, B, G):
     assert [_fused_args(c) for c in fake_card.calls] == \
         [("pcilt_gemv_*_f32", (B, G, 8), 0)]
     assert (sp.chunks, G, 8, 4) in ops._GEMV_CHECKED
-    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 1, "direct": 0}
+    assert ops.GEMV_VARIANT_LAUNCHES == {"split": 1, "staged": 0,
+                                         "direct": 0}
 
 
 def test_unknown_forced_design_is_refused():
     with pytest.raises(ValueError, match="unknown fused GEMV variant"):
-        with ops._gemv_forced("staged"):
+        with ops._gemv_forced("tiled"):
             pass
 
 
