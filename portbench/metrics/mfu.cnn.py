@@ -1,0 +1,12 @@
+"""The dense network's model FLOPs an image (2 a multiply-add at the
+published widths) times the window's images a second, over the card's
+float32 peak (the precision the tables are summed in)."""
+
+
+def read(rec):
+    p, w = rec.get("peaks"), rec["window"]
+    if not p or "images" not in w or w["seconds"] <= 0:
+        return None
+    rate = w["images"] / w["seconds"]
+    return 100.0 * rec["work"]["image"]["model_flops"] * rate \
+        / p["float32_ops_per_s"]
